@@ -1,0 +1,98 @@
+"""Package-level guarantees of the port.
+
+- ``import windflow_tpu_torch`` (and every module of the slice) loads neither
+  JAX nor any module of ``windflow_tpu``;
+- the entry points default to ``"cuda"`` and raise without CUDA, instead of
+  carrying on silently on the CPU;
+- the kernel registry names every ported kernel, its source and the Pallas
+  function it replaces, and counts launches only in the kernel wrappers.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import windflow_tpu_torch as wt
+from windflow_tpu_torch.benchmarks import ysb
+from windflow_tpu_torch.ops import registry
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
+           "windflow_tpu_torch.convert", "windflow_tpu_torch.ops.cuda",
+           "windflow_tpu_torch.ops.histogram", "windflow_tpu_torch.ops.lookup",
+           "windflow_tpu_torch.ops.segment"]
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'windflow_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_pipeline_defaults_to_cuda_and_raises_without_it(no_cuda):
+    src = ysb.make_source(1000, device="cpu")
+    ops = ysb.make_ops(device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        wt.Pipeline(src, ops, batch_size=256)
+    with pytest.raises(RuntimeError, match="cuda"):
+        wt.CompiledChain(ops, src.payload_spec(), batch_capacity=256)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ysb.make_source(1000)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ysb.make_ops()
+    assert wt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chain_refuses_operators_on_another_device():
+    src = ysb.make_source(1000, device="cpu")
+    ops = ysb.make_ops(device="cpu")
+    ops[1].device = torch.device("meta")
+    with pytest.raises(ValueError, match="one device"):
+        wt.CompiledChain(ops, src.payload_spec(), batch_capacity=256, device="cpu")
+
+
+def test_registry_names_every_kernel_and_cpu_runs_launch_none():
+    assert set(registry.KERNELS) == {"histogram", "lookup", "segment_fold"}
+    for k in registry.KERNELS.values():
+        assert os.path.isfile(os.path.join(REPO, k.source)), k.source
+        path, line = k.replaces.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            assert "def _pallas" in f.read().splitlines()[int(line) - 1]
+    registry.reset_launches()
+    results = []
+    wt.Pipeline(ysb.make_source(2000, device="cpu"), ysb.make_ops_sum(device="cpu"),
+                wt.Sink(results.append, device="cpu"), batch_size=512,
+                device="cpu").run()
+    assert results[-1] is None and len(results) > 1
+    # the CPU path runs the plain versions: no kernel launched
+    assert registry.launch_counts() == {"histogram": 0, "lookup": 0, "segment_fold": 0}
+
+
+def test_unported_paths_raise():
+    from windflow_tpu_torch.ops.lookup import table_lookup
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        wt.Key_FFAT(lambda t: t.v, torch.maximum,
+                    spec=wt.WindowSpec(10, 10, wt.win_type_t.TB), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        wt.Key_FFAT(lambda t: t.v, torch.add, spec=wt.WindowSpec(10, 10),
+                    device="cpu").init_state({})
+    with pytest.raises(NotImplementedError):
+        table_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="loop"):
+        wt.DeviceSource(lambda i, shipper: None, total=10, device="cpu")
