@@ -24,7 +24,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.convert", "windflow_tpu_torch.ops.cuda",
            "windflow_tpu_torch.ops.histogram", "windflow_tpu_torch.ops.lookup",
-           "windflow_tpu_torch.ops.segment"]
+           "windflow_tpu_torch.ops.segment", "windflow_tpu_torch.ops.bitonic",
+           "windflow_tpu_torch.operators.join", "windflow_tpu_torch.operators.rank",
+           "windflow_tpu_torch.observability.names", "windflow_tpu_torch.nexmark",
+           "windflow_tpu_torch.nexmark.generators", "windflow_tpu_torch.nexmark.queries",
+           "windflow_tpu_torch.nexmark.oracles"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -68,12 +72,17 @@ def test_chain_refuses_operators_on_another_device():
 
 
 def test_registry_names_every_kernel_and_cpu_runs_launch_none():
-    assert set(registry.KERNELS) == {"histogram", "lookup", "segment_fold"}
+    assert set(registry.tpu_kernels()) == {"histogram", "lookup", "segment_fold",
+                                           "ordering_merge", "join_probe"}
+    assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float"}
     for k in registry.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
+    for k in registry.tpu_kernels().values():
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
-            assert "def _pallas" in f.read().splitlines()[int(line) - 1]
+            src = f.read().splitlines()[int(line) - 1]
+        # the line defines the Pallas function (``_pallas_fast``, ``_join_probe_pallas``)
+        assert src.startswith("def _") and "pallas" in src.split("(")[0], src
     registry.reset_launches()
     results = []
     wt.Pipeline(ysb.make_source(2000, device="cpu"), ysb.make_ops_sum(device="cpu"),
@@ -81,7 +90,7 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
                 device="cpu").run()
     assert results[-1] is None and len(results) > 1
     # the CPU path runs the plain versions: no kernel launched
-    assert registry.launch_counts() == {"histogram": 0, "lookup": 0, "segment_fold": 0}
+    assert set(registry.launch_counts().values()) == {0}
 
 
 def test_unported_paths_raise():
@@ -96,3 +105,33 @@ def test_unported_paths_raise():
         table_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="loop"):
         wt.DeviceSource(lambda i, shipper: None, total=10, device="cpu")
+
+
+def test_nexmark_cpu_run_launches_no_kernel():
+    """q3, q6 and q7 reach K5 and K4 on the card; on the CPU they run the
+    plain versions, so the launch counts stay at zero."""
+    from windflow_tpu_torch.nexmark import make_query
+    registry.reset_launches()
+    for name in ("q3_enrich_join", "q6_topn", "q7_distinct"):
+        src, ops = make_query(name, 300, device="cpu")
+        wt.Pipeline(src, ops, wt.Sink(lambda v: None, device="cpu"), batch_size=64,
+                    device="cpu").run()
+    assert set(registry.launch_counts().values()) == {0}
+
+
+def test_nexmark_unported_paths_raise(no_cuda):
+    from windflow_tpu_torch.nexmark import make_query
+    for q in ("q4_interval_join", "q5_session"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            make_query(q, 100, device="cpu")
+    for q in ("q3_enrich_join", "q6_topn", "q7_distinct"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            make_query(q, 100, tiered=True, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_query(q, 100)
+    src, ops = make_query("q3_enrich_join", 100, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        wt.Pipeline(src, ops, batch_size=32, device="cpu", event_time=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, device="cpu",
+                         event_time=True)

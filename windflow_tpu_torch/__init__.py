@@ -16,10 +16,11 @@ from .basic import (Mode, win_type_t, opt_level_t, routing_modes_t, pattern_t,
 from .batch import CTRL_DTYPE, Batch, TupleRef, tuple_refs
 from .context import RuntimeContext, LocalStorage
 from .device import resolve_device
-from .operators import (Basic_Operator, BatchMap, DeviceSource, Filter, GFFATState,
-                        Key_FFAT, KeyBy, Map, ReduceSink, Sink, Source,
-                        Win_SeqFFAT, WindowSpec)
+from .operators import (Basic_Operator, BatchMap, DeviceSource, Distinct, Filter,
+                        GFFATState, Key_FFAT, KeyBy, Map, ReduceSink, Sink, Source,
+                        StreamTableJoin, TopN, Win_SeqFFAT, WindowSpec)
 from .runtime import CompiledChain, Pipeline
 from .stats import Stats_Record
+from . import nexmark
 
 __version__ = "0.1.0"

@@ -94,3 +94,73 @@ WF_EXPORT int wf_segment_fold(const void* values, int dtype_code, const int* seg
         default: return (int)cudaErrorInvalidValue;
     }
 }
+
+// ---------------------------------------------------------------------------
+// Float segment sums in a fixed order (not a TPU kernel; registry name
+// "segment_fold_float"). The JAX package sums floats with XLA's segment_sum,
+// and on the CPU the port's index_add_ gives the same bits: each segment is
+// summed from +0.0 in stream order. On the card index_add_ uses float
+// atomics, which land in no fixed order. Here the wrapper sorts the lanes by
+// segment (a stable sort, so each segment's lanes stay in stream order) and
+// finds each segment's run; one thread per (segment, column) then walks its
+// run in order, rounding to the value dtype after every add as the CPU's
+// index_add_ does. The bits equal the CPU's on every run.
+//
+// Bound: bytes (each value read once, [S, D] written once); the walk is
+// serial within a segment, so a few long segments leave the card idle. It
+// runs only where a float fold is asked for on the card; no Nexmark or YSB
+// path folds floats.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+template <typename T> struct WfAcc {
+    static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+};
+template <> struct WfAcc<__half> {
+    static __device__ __forceinline__ __half add(__half a, __half b) {
+        return __float2half_rn(__half2float(a) + __half2float(b));
+    }
+};
+template <> struct WfAcc<__nv_bfloat16> {
+    static __device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
+        return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
+    }
+};
+
+template <typename T>
+__global__ void wf_fold_ordered(const T* __restrict__ v, const long long* __restrict__ starts,
+                                T* __restrict__ out, int S, int D) {
+    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= (long long)S * D) return;
+    int s = (int)(t / D), col = (int)(t % D);
+    T acc = T(0.0f);
+    for (long long r = starts[s]; r < starts[s + 1]; ++r)
+        acc = WfAcc<T>::add(acc, v[r * D + col]);
+    out[t] = acc;
+}
+
+// sorted_vals: [rows, D] values ordered by segment (stable); starts: int64
+// [S + 1], segment s owning rows starts[s] .. starts[s+1]-1; out: [S, D].
+// dtype_code: 0 float32, 1 float64, 2 float16, 3 bfloat16.
+WF_EXPORT int wf_segment_fold_ordered(const void* sorted_vals, const long long* starts,
+                                      void* out, int S, int D, int dtype_code,
+                                      void* stream) {
+    const int threads = 256;
+    long long n = (long long)S * D;
+    if (n == 0) return (int)cudaGetLastError();
+    int blocks = (int)((n + threads - 1) / threads);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (dtype_code) {
+        case 0: wf_fold_ordered<float><<<blocks, threads, 0, st>>>(
+                    (const float*)sorted_vals, starts, (float*)out, S, D); break;
+        case 1: wf_fold_ordered<double><<<blocks, threads, 0, st>>>(
+                    (const double*)sorted_vals, starts, (double*)out, S, D); break;
+        case 2: wf_fold_ordered<__half><<<blocks, threads, 0, st>>>(
+                    (const __half*)sorted_vals, starts, (__half*)out, S, D); break;
+        case 3: wf_fold_ordered<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+                    (const __nv_bfloat16*)sorted_vals, starts, (__nv_bfloat16*)out, S, D);
+                break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}

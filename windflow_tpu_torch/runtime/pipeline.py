@@ -11,7 +11,8 @@ queues batch N+1 while the card runs batch N.
 EOS protocol: the source exhausts; then each stateful operator's ``flush``
 drains residual state and the flushed batches cascade through the remaining
 suffix of the chain. The monitoring, control, tracing and scan-dispatch hooks
-of the JAX driver are not ported in this slice.
+of the JAX driver are not ported yet; ``event_time=True`` (event-time
+monitoring) raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
 
 
+def _refuse_event_time(event_time) -> None:
+    if event_time:
+        raise NotImplementedError(
+            "event-time monitoring (event_time=True) is not ported yet "
+            "(ROADMAP Queue 1 item 16)")
+
+
 def _batch_nbytes(batch: Batch) -> int:
     return sum(t.numel() * t.element_size()
                for t in (batch.key, batch.id, batch.ts, batch.valid,
@@ -38,7 +46,8 @@ class CompiledChain:
     (i=0) and the EOS flush cascades."""
 
     def __init__(self, ops: Sequence[Basic_Operator], in_spec: Any,
-                 batch_capacity: int = None, device=None):
+                 batch_capacity: int = None, device=None, event_time: bool = None):
+        _refuse_event_time(event_time)
         self.ops = list(ops)
         self.device = resolve_device(device)
         for op in self.ops:
@@ -111,7 +120,9 @@ class Pipeline:
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
-                 batch_size: Optional[int] = None, device=None):
+                 batch_size: Optional[int] = None, device=None,
+                 event_time: bool = None):
+        _refuse_event_time(event_time)
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
