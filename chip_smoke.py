@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py              # the default run, one card
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the
-                                       # YSB, q3 and q6 loop steps
+                                       # YSB, q3, q6 and window-path loop steps
 
 Phases (each raises on a mismatch, so any failure exits non-zero):
 
@@ -13,7 +13,9 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 2. the build of every CUDA kernel from ``windflow_tpu_torch/ops/csrc`` with nvcc
    for sm_90a (one nvcc per source, all started together), and its time;
 3. each kernel (K1 histogram, K2 lookup, K3 segment_fold, K4 ordering_merge,
-   K5 join_probe) at main-path shapes and on adversarial inputs:
+   K5 join_probe) at main-path shapes (K2 and K3 also at the window paths'
+   per-key count and next_win tables, 512 and 100 rows) and on adversarial
+   inputs:
    bit-identical to its plain PyTorch version, with the kernel's, the plain
    version's and one library call's device times (CUDA-graph replay; eager
    times beside them) and the bound (the larger of bytes moved / 3.35 TB/s
@@ -33,7 +35,26 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    and ms/step;
 9. q3 at full width (2^20-event batches, 2048 auctions): tuples/s, and
    every emitted row against a numpy int32 oracle;
-10. the ``{"kernels": [...]}`` summary, then the result line
+10. K6 (masked_window_reduce) at ``bench.py::bench_pallas_ab``'s shapes and
+    at the window paths' shapes: bit-identical to its plain version on int32
+    and integer-valued float32, within rtol = atol = 1e-4 on random float32,
+    the same bits on two launches; its time, its bound and the time of
+    ``torch.sum(torch.where(mask, vals, 0), dim=1)``;
+11. path A, the windowed-operator matrix at full width (``bench_keyed_cb``'s
+    geometry through Key_Farm): ``Pipeline(...).run()`` of 4 batches of 2^20
+    against a numpy oracle of all 8192 windows, then the
+    ``device_cursor_step`` loop; K2, K3 and K6 once per apply, K6 alone in
+    the flush;
+12. path B, YSB-WMR at ``bench_ysb_wmr``'s geometry: ``Pipeline(...).run()``
+    against a dense per-window count and the stream's view total, then the
+    loop with ``bench_ysb_wmr``'s undercount self-check; K2 three times, K3
+    and K6 once per apply, K6 alone in the flush;
+13. the other window patterns at small depth (Win_Farm, Pane_Farm CB and
+    TB, Win_MapReduce with a K6 MAP, Win_Farm(Pane_Farm), Key_Farm(Win_MapReduce),
+    an incremental fold, a TB window with lateness), each against a plain
+    Win_Seq run on the card or a Python oracle;
+14. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+    fixed-order float fold), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package.
@@ -56,6 +77,12 @@ NEX_BATCH = 1 << 14       # bench.py::bench_nexmark's batch
 NEX_BATCHES = 16          # batches of the Nexmark Pipeline phase (262,144 events)
 NEX_STEPS = 20            # timed steps of the Nexmark loops (after 2 warm-up)
 Q3_AUCTIONS = 2048        # q3 at full width: auctions = table slots
+WIN_KEYS = 512            # path A: bench.py::bench_keyed_cb's keys and windows
+WIN_LEN, WIN_SLIDE = 1024, 512
+WIN_BATCHES = 4           # batches of the path A and B Pipeline phases (plus the flush)
+WIN_STEPS = 20            # timed steps of the path A and B loops
+WMR_WIN_LEN = 1000        # path B: bench.py::bench_ysb_wmr's window (ticks)
+WMR_MAP = 4               # and its map_parallelism
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (data sheet),
                           # the rate used for int32 compares and selects
@@ -136,19 +163,22 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
-                 library_graph=True, ops=0):
-    """Kernel vs plain version (bit for bit) and their times. ``*_ms`` are
-    device times from graph replay; ``*_eager_ms`` time eager calls. A library
-    call that syncs with the host (``bincount`` sizes its output from the
-    data) cannot be captured and is timed eagerly; ``library=None`` means no
-    single PyTorch call computes the function. The bound is the larger of
-    ``nbytes`` over the memory rate and ``ops`` over the operation rate."""
+                 library_graph=True, ops=0, tol=None):
+    """Kernel vs plain version (bit for bit, or within ``tol`` = rtol = atol
+    where float sums are taken in different orders) and their times.
+    ``*_ms`` are device times from graph replay; ``*_eager_ms`` time eager
+    calls. A library call that syncs with the host (``bincount`` sizes its
+    output from the data) cannot be captured and is timed eagerly;
+    ``library=None`` means no single PyTorch call computes the function. The
+    bound is the larger of ``nbytes`` over the memory rate and ``ops`` over
+    the operation rate."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     same, err = compare(torch, got, want)
+    ok = same if tol is None else bool(torch.allclose(got, want, rtol=tol, atol=tol))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     row = {"kernel_check": name, "case": case, "shape": shape,
-           "bit_identical": same, "max_abs_err": err,
+           "bit_identical": same, "max_abs_err": err, "tolerance": tol,
            "kernel_ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain),
            "library_ms": (None if library is None else graph_ms(torch, library)
                           if library_graph else time_ms(torch, library)),
@@ -158,7 +188,7 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(row)
-    if not same:
+    if not ok:
         raise AssertionError(f"{name} [{case}]: kernel differs from its plain version")
     return row
 
@@ -203,20 +233,40 @@ def kernel_phase(torch, ysb):
        torch.rand((C,), device=dev, generator=gen) < 0.7)
 
     # K2 lookup
-    table = ysb.campaign_table(dev)
-    Kt = table.shape[0]
-
-    def k2(case, idx):
+    def k2(case, idx, table):
+        Kt = table.shape[0]
         safe = idx.clamp(0, Kt - 1)
         return check_kernel(
             torch, "lookup", case,
             lambda: L.lookup_cuda(table, idx), lambda: L.lookup_plain(table, idx),
             lambda: table.index_select(0, safe),
             C * 8 + Kt * 4, {"C": C, "K": Kt, "dtype": "int32"})
+    campaigns = ysb.campaign_table(dev)
+    Kc = campaigns.shape[0]
     src = ysb.make_source(4 * BATCH)
-    rows["lookup"] = k2("ysb", src.make_batch(3 * BATCH, BATCH).payload["ad_id"])
-    k2("out_of_range", torch.randint(-100, Kt + 100, (C,), device=dev, generator=gen,
-                                     dtype=torch.int32))
+    rows["lookup"] = k2("ysb", src.make_batch(3 * BATCH, BATCH).payload["ad_id"],
+                        campaigns)
+    k2("out_of_range", torch.randint(-100, Kc + 100, (C,), device=dev, generator=gen,
+                                     dtype=torch.int32), campaigns)
+
+    def stray(keys, Sn):
+        """``keys`` with one lane in 64 moved out of ``[0, Sn)``."""
+        off = torch.randint(1, 101, (C,), device=dev, generator=gen, dtype=torch.int32)
+        far = torch.where(torch.rand((C,), device=dev, generator=gen) < 0.5,
+                          -off, Sn - 1 + off)
+        return torch.where(torch.rand((C,), device=dev, generator=gen) < 1 / 64,
+                           far, keys).contiguous()
+
+    def ctrl_table(n, hi):
+        return torch.randint(0, hi, (n,), device=dev, generator=gen, dtype=torch.int32)
+    # the window paths' Win_Seq._insert reads: path A's per-key count over its
+    # 512 keys (key = i % 512), path B's count and next_win over YSB's 100
+    # campaigns (the window input's keys)
+    a_keys = stray((torch.arange(C, device=dev) % WIN_KEYS).to(torch.int32), WIN_KEYS)
+    b_keys = stray(b.key, K)
+    k2("path_a_count", a_keys, ctrl_table(WIN_KEYS, 2 ** 31 - 1))
+    k2("path_b_count", b_keys, ctrl_table(K, 2 ** 31 - 1))
+    k2("path_b_next_win", b_keys, ctrl_table(K, 1 << 20))
 
     # K3 segment_fold
     def k3(case, values, seg, valid, Sn):
@@ -239,6 +289,10 @@ def kernel_phase(torch, ysb):
                            dtype=torch.int32)
         k3(f"full_int32_S{Sn}", vals, sg, torch.rand((C,), device=dev, generator=gen) < 0.8,
            Sn)
+    # Win_Seq._insert's per-key counts: int32 ones of the valid lanes
+    a_valid = torch.rand((C,), device=dev, generator=gen) < 0.9
+    k3(f"path_a_counts_S{WIN_KEYS}", a_valid.to(torch.int32), a_keys, a_valid, WIN_KEYS)
+    k3(f"path_b_counts_S{K}", b.valid.to(torch.int32), b_keys, b.valid, K)
     return rows
 
 
@@ -280,13 +334,18 @@ def repair_checks(torch):
     row = {"kernel_check": "segment_fold_float", "case": "determinism",
            "shape": {"C": C, "S": Sn, "dtype": "float32"},
            "bit_identical_card_card_cpu": bool(same),
+           "max_abs_err": compare(torch, first.cpu(), cpu)[1],
            "ms": graph_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn)),
+           "plain_ms": graph_ms(torch, lambda: torch.zeros(Sn + 1, device=dev).index_add_(
+               0, torch.where(valid & (seg >= 0) & (seg < Sn), seg, Sn).long(),
+               torch.where(valid & (seg >= 0) & (seg < Sn), vals, 0.0))[:Sn]),
            "library_ms": graph_ms(torch, lambda: torch.zeros(
                Sn + 1, device=dev).index_add_(0, safe, masked)),
            "bound_ms": (C * 9 + Sn * 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     log(row)
     if not same:
         raise AssertionError("the float fold's bits differ between runs or from the CPU")
+    return row
 
 
 def nexmark_kernel_phase(torch):
@@ -645,11 +704,347 @@ def ysb_sum_phase(torch, np, wt, ysb, registry):
     return launches
 
 
+
+# ------------------------------------------------------------------ K6 and the window paths
+
+#: K6 cases: (case, W, L, data). bench_pallas_ab's three shapes, path A's
+#: fired-window rows, path B's REDUCE rows and a ragged shape.
+K6_CASES = [("ab_4096x512", 4096, 512, "float"), ("ab_1024x1024", 1024, 1024, "float"),
+            ("ab_8192x256", 8192, 256, "float"), ("path_a", 2112, 1024, "float"),
+            ("path_a_integer_valued", 2112, 1024, "integer_float"),
+            ("path_a_int32", 2112, 1024, "int32"), ("path_b_reduce", 10700, 4, "int32"),
+            ("ragged", 1000, 777, "float"), ("ragged_integer_valued", 1000, 777,
+                                              "integer_float")]
+
+
+def window_reduce_kernel_phase(torch):
+    """K6 against its plain version (bit for bit on int32 and integer-valued
+    float32, within rtol = atol = 1e-4 on random float32), two launches
+    giving the same bits, and the one PyTorch call computing the same sum."""
+    from windflow_tpu_torch.ops import window_reduce as WR
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261020)
+    rows = {}
+    for case, W, L, kind in K6_CASES:
+        if kind == "float":
+            vals = torch.rand((W, L), device=dev, generator=gen)
+        elif kind == "integer_float":          # every partial sum < 2^24
+            vals = torch.randint(-1000, 1000, (W, L), device=dev, generator=gen).float()
+        else:
+            vals = torch.randint(-2 ** 31, 2 ** 31, (W, L), device=dev, generator=gen,
+                                 dtype=torch.int64).to(torch.int32)
+        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
+        mask[W // 2] = False
+        zero = torch.zeros((), dtype=vals.dtype, device=dev)
+        row = check_kernel(
+            torch, "masked_window_reduce", case,
+            lambda: WR.masked_window_reduce_cuda(vals, mask),
+            lambda: WR.masked_window_reduce_plain(vals, mask),
+            lambda: torch.sum(torch.where(mask, vals, zero), dim=1, dtype=vals.dtype),
+            W * L * 5 + W * 4, {"W": W, "L": L, "dtype": str(vals.dtype)},
+            tol=1e-4 if kind == "float" else None)
+        first = WR.masked_window_reduce_cuda(vals, mask)
+        second = WR.masked_window_reduce_cuda(vals, mask)
+        if not torch.equal(_bits(torch, first), _bits(torch, second)):
+            raise AssertionError(f"masked_window_reduce [{case}]: two launches differ")
+        rows[case] = row
+    log({"phase": "window_reduce_kernel",
+         "ab_kernel_over_library": {c: rows[c]["kernel_ms"] / rows[c]["library_ms"]
+                                    for c in rows}})
+    return rows["path_a"]
+
+
+def run_with_flush_launches(registry, pipe, op_index):
+    """``pipe.run()`` with the launches made inside the window operator's
+    flush counted apart: (launches outside the flush, launches in it, flush
+    calls)."""
+    op = pipe.chain.ops[op_index]
+    inner, flushed = op.flush, {"calls": 0, "launches": dict.fromkeys(registry.KERNELS, 0)}
+
+    def flush(state):
+        before = registry.launch_counts()
+        out = inner(state)
+        for k, n in registry.launch_counts().items():
+            flushed["launches"][k] += n - before[k]
+        flushed["calls"] += 1
+        return out
+    op.flush = flush
+    registry.reset_launches()
+    try:
+        pipe.run()
+    finally:
+        del op.flush
+    total = registry.launch_counts()
+    applied = {k: total[k] - flushed["launches"][k] for k in total}
+    return applied, flushed["launches"], flushed["calls"]
+
+
+def expect_launches(what, got, per, n):
+    want = {k: per.get(k, 0) * n for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def path_a_oracle(np, batches):
+    """``{(key, window): sum}`` of path A over ``batches`` batches and the
+    flush: key k's arrival position p holds tuple i = p * 512 + k, value
+    i % 97; window w covers positions [512 w, 512 w + 1024)."""
+    n = batches * BATCH // WIN_KEYS
+    p = np.arange(n, dtype=np.int64)
+    vals = (p[None, :] * WIN_KEYS + np.arange(WIN_KEYS)[:, None]) % 97
+    csum = np.concatenate([np.zeros((WIN_KEYS, 1), np.int64), np.cumsum(vals, 1)], 1)
+    out = {}
+    for w in range((n - 1) // WIN_SLIDE + 1):
+        lo, hi = w * WIN_SLIDE, min(w * WIN_SLIDE + WIN_LEN, n)
+        for k, v in enumerate((csum[:, hi] - csum[:, lo]).tolist()):
+            out[(k, w)] = v
+    return out
+
+
+def path_a_source(wt, batches):
+    return wt.DeviceSource(lambda i: {"v": (i % 97).float()}, total=batches * BATCH,
+                           num_keys=WIN_KEYS)
+
+
+def path_a_op(wt):
+    return wt.Key_Farm(lambda wid, it: it.sum("v"), wt.WindowSpec(WIN_LEN, WIN_SLIDE),
+                       num_keys=WIN_KEYS)
+
+
+#: exact launches of one apply on each window path (the flush launches K6 once
+#: per call and nothing else)
+PATH_A_APPLY = {"lookup": 1, "segment_fold": 1, "masked_window_reduce": 1}
+PATH_B_APPLY = {"lookup": 3, "segment_fold": 1, "masked_window_reduce": 1}
+
+
+def window_loop(torch, registry, name, chain, src, per_apply, card, profile, check,
+                out_fn=None):
+    """``WIN_STEPS`` timed ``device_cursor_step`` steps after two warm-up
+    steps; exact launches per step; ``check(states, out, steps_run)``."""
+    from windflow_tpu_torch.benchmarks import device_cursor_step
+
+    warm = 2
+    step = device_cursor_step(chain, src, BATCH, out_fn=out_fn)
+    states = tuple(chain.states)
+    cur = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(warm):
+        states, cur, _ = step(states, cur)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(WIN_STEPS):
+        states, cur, out = step(states, cur)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    row = {"phase": f"{name}_loop", "steps": WIN_STEPS, "batch": BATCH,
+           "tuples_per_s": WIN_STEPS * BATCH / dt, "ms_per_step": dt / WIN_STEPS * 1e3,
+           "launches": launches, "card": card}
+    row.update(check(states, out, warm + WIN_STEPS))
+    log(row)
+    expect_launches(f"{name} loop", launches, per_apply, WIN_STEPS)
+    if profile:
+        profile_steps(torch, f"{name}_loop", step, states, cur, row["ms_per_step"])
+
+
+def path_a_phase(torch, np, wt, registry, card, profile):
+    """Path A: Key_Farm keyed CB sliding-window sum at bench_keyed_cb's
+    geometry, its 2^21-slot ring per key (16 GiB of archive)."""
+    torch.cuda.empty_cache()
+    parts, cb = collect_sink()
+    pipe = wt.Pipeline(path_a_source(wt, WIN_BATCHES), [path_a_op(wt)], wt.Sink(cb),
+                       batch_size=BATCH)
+    op = pipe.chain.ops[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied, flushed, calls = run_with_flush_launches(registry, pipe, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k, w, v = (np.concatenate(x) for x in zip(*parts))
+    got = {(a, b): c for a, b, c in zip(k.tolist(), w.tolist(), v.tolist())}
+    want = path_a_oracle(np, WIN_BATCHES)
+    log({"phase": "windows_pipeline", "batches": WIN_BATCHES, "batch": BATCH,
+         "keys": WIN_KEYS, "ring": op.A, "max_wins": op._w, "windows": len(got),
+         "run_s": dt, "tuples_per_s": WIN_BATCHES * BATCH / dt,
+         "archive_gib": 4 * WIN_KEYS * op.A * 4 / 2 ** 30,
+         "launches_apply": applied, "launches_flush": flushed, "flush_calls": calls})
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+        raise AssertionError(f"path A: windows differ from the numpy oracle: {bad}")
+    # bench_keyed_cb's geometry: 16 windows a key, A = 2^21, W = 2112
+    per_key = WIN_BATCHES * BATCH // WIN_KEYS
+    if (len(want) != WIN_KEYS * ((per_key - 1) // WIN_SLIDE + 1)
+            or op.A != 1 << (WIN_LEN + BATCH - 1).bit_length()
+            or op._w != -(-BATCH // WIN_SLIDE) + 64):
+        raise AssertionError(f"path A geometry: {len(want)} windows, A={op.A}, W={op._w}")
+    expect_launches("path A apply", applied, PATH_A_APPLY, WIN_BATCHES)
+    expect_launches("path A flush", flushed, {"masked_window_reduce": 1}, calls)
+    del pipe, op, parts
+    torch.cuda.empty_cache()
+
+    src = path_a_source(wt, 2 + WIN_STEPS + PROFILE_STEPS)
+    chain = wt.CompiledChain([path_a_op(wt)], src.payload_spec(), batch_capacity=BATCH)
+
+    def check(states, out, steps_run):
+        fired = int(out.sum())           # 4 windows a key a step
+        if fired != WIN_KEYS * (BATCH // WIN_KEYS // WIN_SLIDE):
+            raise AssertionError(f"path A loop: {fired} windows in a step")
+        return {"windows_per_step": fired}
+    window_loop(torch, registry, "windows", chain, src, PATH_A_APPLY, card, profile,
+                check)
+    launches = dict(applied)
+    launches["masked_window_reduce"] += flushed["masked_window_reduce"]
+    del chain, src
+    torch.cuda.empty_cache()
+    return launches
+
+
+def path_b_phase(torch, np, wt, ysb, registry, card, profile):
+    """Path B: YSB-WMR at bench_ysb_wmr's geometry (1000-tick windows,
+    map_parallelism 4, an 8192-slot ring per campaign, 10,700 fired windows
+    a batch)."""
+    geo = ysb.wmr_bench_geometry(BATCH, WMR_WIN_LEN)
+
+    def ops():
+        return ysb.make_ops_wmr(win_len=WMR_WIN_LEN, map_parallelism=WMR_MAP, **geo) + [
+            wt.ReduceSink(lambda t: t.data, name="wmr_total")]
+    total = WIN_BATCHES * BATCH
+    parts, cb = collect_sink()
+    pipe = wt.Pipeline(ysb.make_source(total), ops(), wt.Sink(cb), batch_size=BATCH)
+    engine = pipe.chain.ops[-2].engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied, flushed, calls = run_with_flush_launches(registry, pipe, -2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = as_dict(np, parts)
+    counted = int(pipe.chain.result()["wmr_total"])
+    log({"phase": "ysb_wmr_pipeline", "batches": WIN_BATCHES, "batch": BATCH,
+         "ring": engine.A, "max_wins": engine.max_wins, "windows": len(got),
+         "total": counted, "oracle_total": ysb.oracle_totals(total), "run_s": dt,
+         "tuples_per_s": total / dt, "launches_apply": applied,
+         "launches_flush": flushed, "flush_calls": calls})
+    if counted != ysb.oracle_totals(total) or sum(got.values()) != counted:
+        raise AssertionError(f"YSB-WMR: {counted} views counted, expected "
+                             f"{ysb.oracle_totals(total)}")
+    if got != ysb.dense_oracle(total, win_len=WMR_WIN_LEN):
+        raise AssertionError("YSB-WMR per-window counts differ from the dense oracle")
+    if engine.A != geo["tb_capacity"] or engine.max_wins != geo["max_wins"]:
+        raise AssertionError(f"YSB-WMR geometry: A={engine.A}, W={engine.max_wins}")
+    expect_launches("YSB-WMR apply", applied, PATH_B_APPLY, WIN_BATCHES)
+    expect_launches("YSB-WMR flush", flushed, {"masked_window_reduce": 1}, calls)
+    del pipe, engine, parts
+    torch.cuda.empty_cache()
+
+    src = ysb.make_source((2 + WIN_STEPS + PROFILE_STEPS) * BATCH)
+    chain = wt.CompiledChain(ops(), src.payload_spec(), batch_capacity=BATCH)
+
+    def check(states, out, steps_run):
+        # bench_ysb_wmr's self-check: every window whose span is fully
+        # delivered and past the flush horizon fired with its full count
+        counted = int(states[-1])
+        ticks = steps_run * BATCH // ysb.EVENTS_PER_TICK
+        complete_ticks = (ticks // WMR_WIN_LEN - 1) * WMR_WIN_LEN
+        expect_min = (complete_ticks * ysb.EVENTS_PER_TICK + 2) // 3
+        if counted < expect_min:
+            raise AssertionError(f"YSB-WMR loop undercounted: {counted} < {expect_min}")
+        return {"views_counted": counted, "expect_min": expect_min}
+    window_loop(torch, registry, "ysb_wmr", chain, src, PATH_B_APPLY, card, profile, check)
+    launches = dict(applied)
+    launches["masked_window_reduce"] += flushed["masked_window_reduce"]
+    del chain, src
+    torch.cuda.empty_cache()
+    return launches
+
+
+def small_collect(wt, op, total, K, batch, src_fn=None, ts_fn=None):
+    """Sorted (key, wid, value) sink tuples of one small pipeline on the card."""
+    fn = src_fn or (lambda i: {"v": (i // K).float()})
+    src = wt.Source(fn, total=total, num_keys=K, ts_fn=ts_fn)
+    out = []
+
+    def cb(view):
+        if view is not None:
+            out.extend(zip(view["key"].tolist(), view["id"].tolist(),
+                           [round(float(x), 3) for x in view["payload"].tolist()]))
+    wt.Pipeline(src, [op], wt.Sink(cb), batch_size=batch).run()
+    return sorted(out)
+
+
+def oracle_cb(total, K, L, S):
+    per_key = {k: [] for k in range(K)}
+    for i in range(total):
+        per_key[i % K].append(float(i // K))
+    out = []
+    for k, vals in per_key.items():
+        for w in range((len(vals) - 1) // S + 1 if vals else 0):
+            if vals[w * S: w * S + L]:
+                out.append((k, w, sum(vals[w * S: w * S + L])))
+    return sorted(out)
+
+
+def windows_small_phase(wt, registry):
+    """The other patterns at small depth on the card, each against a plain
+    Win_Seq run on the card (itself against a Python oracle)."""
+    TB = wt.win_type_t.TB
+    sum_v = lambda wid, it: it.sum("v")  # noqa: E731
+    red = lambda wid, it: it.sum()  # noqa: E731
+
+    def seq(spec, K, **kw):
+        return wt.Win_Seq(sum_v, spec, num_keys=K, **kw)
+
+    def pf(spec, K):
+        return wt.Pane_Farm(lambda pid, it: it.sum("v"), red, spec, num_keys=K)
+
+    def wmr(spec, K, M):
+        return wt.Win_MapReduce(sum_v, red, spec, map_parallelism=M, num_keys=K)
+    cb62, cb84, tb84 = wt.WindowSpec(6, 2), wt.WindowSpec(8, 4), wt.WindowSpec(8, 4, TB)
+    cases = [
+        ("win_seq_cb_vs_python", seq(cb62, 3), 3000, 3, 512, oracle_cb(3000, 3, 6, 2)),
+        ("win_farm_keyless", wt.Win_Farm(sum_v, cb84, parallelism=4), 2000, 1, 512, seq(cb84, 1)),
+        ("pane_farm_cb", pf(cb62, 3), 3000, 3, 512, seq(cb62, 3)),
+        # TB Pane_Farm at batch 64: at batch 512 over 3000 tuples the JAX
+        # package's own Pane_Farm and Win_Seq disagree (ROADMAP Queue 3)
+        ("pane_farm_tb", pf(tb84, 2), 600, 2, 64, seq(tb84, 2)),
+        ("win_mapreduce_k6_map", wmr(cb84, 2, 4), 3000, 2, 512, seq(cb84, 2)),
+        ("win_farm_pane_farm", wt.Win_Farm(pf(cb62, 3), parallelism=4), 3000, 3, 512,
+         seq(cb62, 3)),
+        ("key_farm_win_mapreduce", wt.Key_Farm(wmr(wt.WindowSpec(6, 3), 2, 3),
+                                               parallelism=2), 3000, 2, 512,
+         seq(wt.WindowSpec(6, 3), 2)),
+        ("incremental_fold", wt.Win_Seq(lambda wid, t, acc: acc + t.v, wt.WindowSpec(4, 4),
+                                        init_acc=0.0, num_keys=2), 2000, 2, 256,
+         seq(wt.WindowSpec(4, 4), 2)),
+    ]
+    for name, op, total, K, batch, want in cases:
+        if not isinstance(want, list):
+            want = small_collect(wt, want, total, K, batch)
+        registry.reset_launches()
+        got = small_collect(wt, op, total, K, batch)
+        log({"phase": "windows_small", "case": name, "windows": len(got),
+             "launches": {k: n for k, n in registry.launch_counts().items() if n}})
+        if got != want or not got:
+            raise AssertionError(f"windows_small [{name}]: differs from the plain run")
+    # a TB window with lateness: out-of-order timestamps within the allowance
+    total, L, S, delay = 1200, 10, 5, 16
+    ts_of = [i + (i % 3) * 2 - 2 for i in range(total)]
+    want = sorted((0, w, float(sum(i for i in range(total) if w * S <= ts_of[i] < w * S + L)))
+                  for w in range(max(ts_of) // S + 1)
+                  if any(w * S <= t < w * S + L for t in ts_of))
+    got = small_collect(wt, seq(wt.WindowSpec(L, S, TB, delay=delay), 1, archive_capacity=256),
+                        total, 1, 30, src_fn=lambda i: {"v": i.float()},
+                        ts_fn=lambda i: i + (i % 3) * 2 - 2)
+    log({"phase": "windows_small", "case": "tb_lateness", "windows": len(got)})
+    if got != want:
+        raise AssertionError("windows_small [tb_lateness]: differs from the Python oracle")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of five steps of the YSB, "
-                         "q3 (bench and full width) and q6 loops")
+                         "q3 (bench and full width), q6 and window-path loops")
     args = ap.parse_args()
 
     import numpy as np
@@ -681,19 +1076,30 @@ def main() -> int:
 
     rows = kernel_phase(torch, ysb)
     rows.update(nexmark_kernel_phase(torch))
-    repair_checks(torch)
+    fold_row = repair_checks(torch)
     main_launches = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     ysb_loop_phase(torch, wt, ysb, card, args.profile)
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
     nex_launches = nexmark_pipeline_phase(torch, np, wt, registry)
     nexmark_loop_phase(torch, wt, card, args.profile)
     q3_full_width_phase(torch, np, wt, registry, card, args.profile)
+    rows["masked_window_reduce"] = window_reduce_kernel_phase(torch)
+    a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)
+    b_launches = path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
+    windows_small_phase(wt, registry)
 
     path_launches = {"histogram": main_launches["histogram"],
                      "lookup": main_launches["lookup"],
                      "segment_fold": sum_launches["segment_fold"],
                      "ordering_merge": nex_launches["ordering_merge"],
-                     "join_probe": nex_launches["join_probe"]}
+                     "join_probe": nex_launches["join_probe"],
+                     "masked_window_reduce": (a_launches["masked_window_reduce"]
+                                              + b_launches["masked_window_reduce"]),
+                     "segment_fold_float": sum(
+                         d["segment_fold_float"] for d in (main_launches, sum_launches,
+                                                           nex_launches, a_launches,
+                                                           b_launches))}
+    log({"window_path_launches": {"path_a": a_launches, "path_b": b_launches}})
     kernels = []
     for name, k in registry.tpu_kernels().items():
         r = rows[name]
@@ -702,6 +1108,12 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    helper = registry.KERNELS["segment_fold_float"]
+    kernels.append({"name": helper.name, "route": "cuda", "source": helper.source,
+                    "replaces": None, "launches": path_launches[helper.name],
+                    "max_abs_err": fold_row["max_abs_err"], "ms": fold_row["ms"],
+                    "plain_ms": fold_row["plain_ms"], "bound_ms": fold_row["bound_ms"],
+                    "bound_by": fold_row["bound_by"], "library_ms": fold_row["library_ms"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -178,5 +178,10 @@ def test_segment_reduce_sum_and_unported_combine():
                              jnp.asarray(keys), jnp.asarray(valid), 9)
     for k in vals:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ts.segment_reduce(_t(vals["a"]), _t(keys), _t(valid), 9, combine=torch.maximum)
+    # the max combine, unported until the windowed-operator slice, now
+    # equals the JAX package's (more cases: tests/test_torch_window_reduce.py)
+    got = ts.segment_reduce(_t(vals["a"]), _t(keys), _t(valid), 9, combine=torch.maximum,
+                            identity=-1)
+    want = js.segment_reduce(jnp.asarray(vals["a"]), jnp.asarray(keys), jnp.asarray(valid),
+                             9, combine=jnp.maximum, identity=-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -8,6 +8,7 @@
   function it replaces, and counts launches only in the kernel wrappers.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -28,7 +29,9 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.operators.join", "windflow_tpu_torch.operators.rank",
            "windflow_tpu_torch.observability.names", "windflow_tpu_torch.nexmark",
            "windflow_tpu_torch.nexmark.generators", "windflow_tpu_torch.nexmark.queries",
-           "windflow_tpu_torch.nexmark.oracles"]
+           "windflow_tpu_torch.nexmark.oracles", "windflow_tpu_torch.ops.window_reduce",
+           "windflow_tpu_torch.operators.window", "windflow_tpu_torch.operators.win_seq",
+           "windflow_tpu_torch.operators.win_patterns", "windflow_tpu_torch.meta"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -73,7 +76,8 @@ def test_chain_refuses_operators_on_another_device():
 
 def test_registry_names_every_kernel_and_cpu_runs_launch_none():
     assert set(registry.tpu_kernels()) == {"histogram", "lookup", "segment_fold",
-                                           "ordering_merge", "join_probe"}
+                                           "ordering_merge", "join_probe",
+                                           "masked_window_reduce"}
     assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float"}
     for k in registry.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
@@ -135,3 +139,50 @@ def test_nexmark_unported_paths_raise(no_cuda):
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, device="cpu",
                          event_time=True)
+
+
+def _pallas_functions():
+    """``file:line`` of the ``def`` of every function of the JAX package whose
+    own body calls ``pl.pallas_call``, read from the source text (no import)."""
+    found = set()
+    root = os.path.join(REPO, "windflow_tpu")
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for fn in ast.walk(tree):
+                if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                nested = {id(n) for inner in ast.walk(fn) if inner is not fn and
+                          isinstance(inner, (ast.FunctionDef, ast.AsyncFunctionDef))
+                          for n in ast.walk(inner)}
+                if any(isinstance(n, ast.Attribute) and n.attr == "pallas_call"
+                       and id(n) not in nested for n in ast.walk(fn)):
+                    found.add(f"{os.path.relpath(path, REPO)}:{fn.lineno}")
+    return found
+
+
+def test_registry_covers_every_tpu_kernel():
+    """Every function of the JAX package that reaches ``pl.pallas_call`` has a
+    registered hand kernel that names it by the line of its ``def``."""
+    pallas = _pallas_functions()
+    assert len(pallas) == 6, sorted(pallas)
+    assert {k.replaces for k in registry.tpu_kernels().values()} == pallas
+
+
+def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
+    """The window slice's entry points resolve ``device=None`` to the card
+    too: without CUDA they raise instead of running on the CPU."""
+    spec = wt.WindowSpec(6, 2)
+    sum_v = lambda wid, it: it.sum("v")  # noqa: E731
+    for make in (lambda: wt.Win_Seq(sum_v, spec),
+                 lambda: wt.Key_Farm(sum_v, spec),
+                 lambda: wt.Win_Farm(sum_v, spec),
+                 lambda: wt.Pane_Farm(sum_v, lambda wid, it: it.sum(), spec),
+                 lambda: wt.Win_MapReduce(sum_v, lambda wid, it: it.sum(), spec),
+                 lambda: ysb.make_ops_wmr()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()

@@ -17,8 +17,10 @@ from .batch import CTRL_DTYPE, Batch, TupleRef, tuple_refs
 from .context import RuntimeContext, LocalStorage
 from .device import resolve_device
 from .operators import (Basic_Operator, BatchMap, DeviceSource, Distinct, Filter,
-                        GFFATState, Key_FFAT, KeyBy, Map, ReduceSink, Sink, Source,
-                        StreamTableJoin, TopN, Win_SeqFFAT, WindowSpec)
+                        GFFATState, Iterable, Key_Farm, Key_FFAT, KeyBy, Map,
+                        Nested_Farm, Pane_Farm, ReduceSink, Sink, Source,
+                        StreamTableJoin, TopN, Win_Farm, Win_MapReduce, Win_Seq,
+                        Win_SeqFFAT, WinSeqState, WindowSpec)
 from .runtime import CompiledChain, Pipeline
 from .stats import Stats_Record
 from . import nexmark

@@ -15,6 +15,12 @@ written in torch (reference ``src/yahoo_test_cpu/test_ysb_kf.cpp``):
 :func:`make_ops_sum` is the YSB-sum variant: the same chain with Key_FFAT
 summing the int32 ``ad_id`` field, which drives the additive non-count lift
 through ``segment_fold`` (kernel K3 on the card).
+
+:func:`make_ops_wmr` is YSB-WMR (reference ``test_ysb_wmr.cpp``): the same
+prefix with a Win_MapReduce window stage on the Win_Seq engine. MAP counts
+each partition (``it.size()``), REDUCE sums the partial counts
+(``it.sum()``, kernel K6 on the card); the engine's insert runs K2 twice and
+K3 once.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from ..operators.filter import Filter
 from ..operators.map import BatchMap, KeyBy
 from ..operators.sink import ReduceSink
 from ..operators.source import DeviceSource
-from ..operators.win_patterns import Key_FFAT
+from ..operators.win_patterns import Key_FFAT, Win_MapReduce
 from ..operators.window import WindowSpec
 from ..ops.lookup import table_lookup
 from ..runtime.pipeline import Pipeline
@@ -84,6 +90,29 @@ def make_ops_sum(num_keys: int = N_CAMPAIGNS, win_len: int = WIN_LEN,
     return _prefix(num_keys, device, keep_ad=True) + [window]
 
 
+def make_ops_wmr(num_keys: int = N_CAMPAIGNS, win_len: int = WIN_LEN,
+                 map_parallelism: int = 2, device=None, **engine_kw):
+    """YSB with a Win_MapReduce window stage: each window's content
+    partitioned over MAP workers, partial counts combined by REDUCE.
+    ``engine_kw`` (``max_wins``, ``tb_capacity``, ...) goes to the Win_Seq
+    engine; large batches need an explicit fired-window budget (the engine's
+    default budget guard raises)."""
+    window = Win_MapReduce(lambda wid, it: it.size(),
+                           lambda wid, it: it.sum(),
+                           WindowSpec(win_len, win_len, win_type_t.TB),
+                           map_parallelism=map_parallelism, num_keys=num_keys,
+                           name="ysb_window_wmr", device=device, **engine_kw)
+    return _prefix(num_keys, device) + [window]
+
+
+def wmr_bench_geometry(batch: int, win_len: int) -> dict:
+    """Win_Seq engine geometry of ``bench.py::bench_ysb_wmr``: a fired-window
+    budget of every campaign's windows per batch plus two, and an 8192-slot
+    ring per campaign."""
+    wins_per_batch = batch // (EVENTS_PER_TICK * win_len) + 1
+    return {"max_wins": N_CAMPAIGNS * (wins_per_batch + 2), "tb_capacity": 8192}
+
+
 def make_source(total: int, name: str = "ysb_source", device=None) -> DeviceSource:
     def gen(i):
         return {"ad_id": (i * 7919) % N_ADS,     # pseudo-random ad (int32 wrap)
@@ -117,14 +146,15 @@ def oracle_totals(total: int) -> int:
     return (total + 2) // 3
 
 
-def dense_oracle(total: int, value: str = "count") -> dict:
-    """``{(campaign, window): count or sum of ad ids}`` over views, computed
-    with numpy from the stream's definition (int32 wrap included)."""
+def dense_oracle(total: int, value: str = "count", win_len: int = WIN_LEN) -> dict:
+    """``{(campaign, window): count or sum of ad ids}`` over views of
+    ``win_len``-tick tumbling windows, computed with numpy from the stream's
+    definition (int32 wrap included)."""
     i = np.arange(total, dtype=np.int32)
     i = i[i % 3 == 0]
     ad = (i * np.int32(7919)) % N_ADS
     camp = ad // ADS_PER_CAMPAIGN
-    wid = (i // EVENTS_PER_TICK) // WIN_LEN
+    wid = (i // EVENTS_PER_TICK) // win_len
     n_w = int(wid.max()) + 1 if len(wid) else 0
     cell = camp.astype(np.int64) * n_w + wid
     weights = None if value == "count" else ad.astype(np.int64)

@@ -12,6 +12,8 @@ Accepted signatures (``t`` is a :class:`~windflow_tpu_torch.batch.TupleRef`):
 - Map    : ``f(t, ctx?) -> payload``
 - Filter : ``f(t, ctx?) -> bool``
 - Sink   : ``f(view_of_numpy, ctx?) -> None``
+- Window (non-incremental): ``f(wid, iterable, ctx?) -> result``
+- Window (incremental)    : ``f(wid, t, acc, ctx?) -> acc``
 """
 
 from __future__ import annotations
@@ -99,6 +101,45 @@ def classify_source_flavour(fn):
         f"signature: f(i), f(i, ctx), f(i, shipper), f(i, shipper, ctx)")
 
 
+WINDOW_CATALOGUE = """\
+  f(wid, iterable) -> result            (non-incremental)
+  f(wid, iterable, ctx) -> result       (non-incremental rich)
+  f(wid, t, acc) -> acc                 (incremental; winupdate)
+  f(wid, t, acc, ctx) -> acc            (incremental rich)
+(the context parameter must be named one of %s)""" % (RICH_PARAM_NAMES,)
+
+
+def classify_window_flavour(fn):
+    """Deduce the window-function flavour: ``(incremental, is_rich)``.
+
+    The reference dispatches non-incremental ``void(wid, Iterable&, result&)``
+    and incremental ``void(wid, tuple&, result&)`` statically (``wf/meta.hpp``
+    window families); here arity separates them (2 vs 3 args), with a
+    trailing context-named parameter marking the rich forms."""
+    params = _positional_params(fn)
+    if params is None:
+        return False, False
+    names = [p.name for p in params]
+    n = len(names)
+    if n == 2:
+        return False, False
+    if n == 3:
+        if names[-1] in RICH_PARAM_NAMES:
+            return False, True
+        if any(m in names[-1].lower() for m in ("ctx", "context")):
+            _warn_flavour(
+                f"Window function: parameter {names[-1]!r} looks like a "
+                f"context but is not named one of {RICH_PARAM_NAMES}, so the "
+                f"INCREMENTAL flavour (f(wid, t, acc)) was deduced; rename it "
+                f"if you meant the non-incremental rich form")
+        return True, False
+    if n == 4 and names[-1] in RICH_PARAM_NAMES:
+        return True, True
+    raise SignatureError(
+        f"Window function: callable with positional parameters {names} matches no "
+        f"accepted signature:\n{WINDOW_CATALOGUE}")
+
+
 def classify_map(fn):
     return classify(fn, base_arity=1, what="Map",
                     accepted="f(t) -> payload | f(t, ctx) -> payload")
@@ -107,6 +148,16 @@ def classify_map(fn):
 def classify_filter(fn):
     return classify(fn, base_arity=1, what="Filter",
                     accepted="f(t) -> bool | f(t, ctx) -> bool")
+
+
+def classify_window(fn):
+    return classify(fn, base_arity=2, what="Window function",
+                    accepted="f(wid, iterable) -> result | f(wid, iterable, ctx) -> result")
+
+
+def classify_winupdate(fn):
+    return classify(fn, base_arity=3, what="Incremental window function",
+                    accepted="f(wid, t, acc) -> acc | f(wid, t, acc, ctx) -> acc")
 
 
 def classify_sink(fn):

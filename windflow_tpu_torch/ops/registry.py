@@ -39,6 +39,8 @@ KERNELS = {
                "windflow_tpu/ops/bitonic.py:131"),
         Kernel("join_probe", "windflow_tpu_torch/ops/csrc/join_probe.cu",
                "windflow_tpu/ops/lookup.py:209"),
+        Kernel("masked_window_reduce", "windflow_tpu_torch/ops/csrc/masked_sum.cu",
+               "windflow_tpu/ops/pallas_kernels.py:57"),
         Kernel("segment_fold_float", "windflow_tpu_torch/ops/csrc/segment.cu", None),
     )
 }

@@ -2,8 +2,10 @@
 
 Counterpart of the part of ``windflow_tpu/ops/segment.py`` the port runs:
 :func:`segment_fold` (the masked 1-D segment sum behind Win_SeqFFAT's additive
-lifts), the default-combine branch of :func:`segment_reduce`, and
-:func:`segment_rank` (Distinct's first-occurrence test).
+lifts and Win_Seq's counts), :func:`segment_reduce` with the additive,
+max/min and general associative combines, and :func:`segment_rank`
+(Distinct's first-occurrence test, Win_Seq's arrival positions).
+``segment_prefix_scan`` is not ported yet (ROADMAP Queue 1 item 9).
 
 :func:`segment_fold` on integer values of at most 4 bytes is the hand-written
 CUDA kernel ``csrc/segment.cu`` (kernel K3) on a CUDA tensor and the plain
@@ -163,35 +165,116 @@ def _sort_by_key(keys: torch.Tensor, valid: torch.Tensor):
 
 def segment_rank(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Rank of each live lane among the live lanes with the same key
-    (0-based, in stream order): int32 ``[C]``. One stable sort, segment
-    starts from the sorted boundaries, their index carried forward by
-    ``cummax``, and one scatter back to stream order."""
+    (0-based, in stream order): int32 ``[C]``. One stable sort, each sorted
+    lane's segment start found by a binary search of its own key, and one
+    scatter back to stream order. (The JAX package carries the starts forward
+    with ``cummax``; on the card ``torch.cummax`` over 2^20 lanes took 2.5 ms,
+    H100 80GB HBM3 at 700 W, ``chip_smoke.py --profile``.)"""
     c = keys.shape[0]
     dev = keys.device
     if c == 0:
         return torch.zeros((0,), dtype=torch.int32, device=dev)
     sorted_keys, orig = _sort_by_key(keys, valid)
     iota = torch.arange(c, dtype=torch.int32, device=dev)
-    starts = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
-                        sorted_keys[1:] != sorted_keys[:-1]])
-    seg_start = torch.cummax(torch.where(starts, iota, 0), dim=0).values
+    seg_start = torch.searchsorted(sorted_keys, sorted_keys).to(torch.int32)
     out = torch.zeros((c,), dtype=torch.int32, device=dev)
     out[orig] = iota - seg_start
     return out
 
 
+def _bmask(valid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``valid [C]`` shaped to broadcast against ``v [C, ...]``."""
+    return valid.reshape(valid.shape + (1,) * (v.ndim - 1))
+
+
+def _full(identity, v: torch.Tensor, shape=()) -> torch.Tensor:
+    return torch.full(shape, identity, dtype=v.dtype, device=v.device)
+
+
 def segment_reduce(values: Any, keys: torch.Tensor, valid: torch.Tensor,
                    num_keys: int, combine: Callable = None, identity=0) -> Any:
     """Per-key reduction of a batch: a pytree of ``[num_keys, ...]`` tensors.
-    Only the default combine (addition) is ported in this slice."""
-    if combine is not None:
-        raise NotImplementedError(
-            "segment_reduce: only the default additive combine is ported so far; "
-            "max/min and general associative combines come with the windowed-"
-            "operator matrix (ROADMAP Queue 1 item 9)")
 
-    def red(v):
-        if v.ndim == 1:
-            return segment_fold(v, keys, valid, num_keys)
-        return _index_add_fold(v, keys, valid, num_keys)
-    return tree_map(red, values)
+    The default combine is addition (:func:`segment_fold`, kernel K3 for
+    1-D integer values); ``torch.maximum``/``torch.minimum`` take a
+    ``scatter_reduce``; any other associative ``combine(a, b)`` goes through a
+    sorted segmented scan. Keys without a valid lane get ``identity``. As in
+    the JAX package, an invalid lane whose key is in range still enters the
+    max/min as ``identity``, and keys outside ``[0, num_keys)`` are dropped."""
+    S = int(num_keys)
+    if combine is None:
+        def red(v):
+            if v.ndim == 1:
+                return segment_fold(v, keys, valid, S)
+            return _index_add_fold(v, keys, valid, S)
+        return tree_map(red, values)
+    if combine in (torch.maximum, torch.minimum):
+        return tree_map(lambda v: _segment_extreme(v, keys, valid, S,
+                                                   combine is torch.maximum, identity),
+                        values)
+    return _segment_scan_reduce(values, keys, valid, S, combine, identity)
+
+
+def _segment_extreme(v, keys, valid, S: int, is_max: bool, identity):
+    """``segment_max``/``segment_min`` with the JAX package's masking
+    (segment.py:198-207): invalid lanes enter as ``identity``, untouched
+    keys give ``identity``."""
+    dev = v.device
+    in_range = (keys >= 0) & (keys < S)
+    idx = torch.where(in_range, keys, S).long()
+    vals = torch.where(_bmask(valid, v), v, _full(identity, v))
+    if v.dtype.is_floating_point:
+        start = float("-inf") if is_max else float("inf")
+    else:
+        start = torch.iinfo(v.dtype).min if is_max else torch.iinfo(v.dtype).max
+    out = torch.full((S + 1,) + tuple(v.shape[1:]), start, dtype=v.dtype, device=dev)
+    out.scatter_reduce_(0, _bmask(idx, v).expand(v.shape), vals,
+                        reduce="amax" if is_max else "amin", include_self=True)
+    touched = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
+    touched[torch.where(valid & in_range, keys, S).long()] = True
+    return torch.where(_bmask(touched, out), out, _full(identity, out))[:S]
+
+
+def _segmented_scan(values: Any, starts: torch.Tensor, combine: Callable) -> Any:
+    """Inclusive segmented scan along axis 0: lane i gets the combine of its
+    segment's lanes up to i, in order (``starts`` marks each segment's first
+    lane). Log-depth doubling: at distance d, a lane not yet cut off by a
+    segment start combines the partial ``d`` lanes back into its own."""
+    n = starts.shape[0]
+    flag = starts.clone()
+    d = 1
+    while d < n:
+        prev_flag = flag[:-d]
+
+        def step(v):
+            merged = combine(v[:-d], v[d:])
+            keep = _bmask(flag[d:], v[d:])
+            return torch.cat([v[:d], torch.where(keep, v[d:], merged)])
+        values = tree_map(step, values)
+        flag = torch.cat([flag[:d], flag[d:] | prev_flag])
+        d *= 2
+    return values
+
+
+def _segment_scan_reduce(values, keys, valid, S: int, combine, identity):
+    """General associative combine (the JAX package's ``_sorted_segment_scan``
+    then a scatter of each segment's last lane into its key row)."""
+    dev = keys.device
+    if keys.shape[0] == 0:
+        return tree_map(lambda v: _full(identity, v, (S,) + tuple(v.shape[1:])), values)
+    seg_keys, orig = _sort_by_key(keys, valid)
+    seg_valid = seg_keys != torch.iinfo(keys.dtype).max
+    sv = tree_map(lambda v: torch.where(_bmask(seg_valid, v), v.index_select(0, orig),
+                                        _full(identity, v)), values)
+    starts = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                        seg_keys[1:] != seg_keys[:-1]])
+    scanned = _segmented_scan(sv, starts, combine)
+    nxt = torch.cat([seg_keys[1:], torch.full((1,), -1, dtype=seg_keys.dtype, device=dev)])
+    is_last = (seg_keys != nxt) & seg_valid & (seg_keys >= 0)
+    out_idx = torch.where(is_last, torch.clamp(seg_keys, max=S), S).long()
+
+    def scatter(v):
+        out = _full(identity, v, (S + 1,) + tuple(v.shape[1:]))
+        out[out_idx] = v              # one lane per key row; the rest to row S
+        return out[:S]
+    return tree_map(scatter, scanned)
