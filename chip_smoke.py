@@ -19,9 +19,14 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    bit-identical to its plain PyTorch version, with the kernel's, the plain
    version's and one library call's device times (CUDA-graph replay; eager
    times beside them) and the bound (the larger of bytes moved / 3.35 TB/s
-   and operations / 67 T/s). Also the two repairs: K2 on a float table with
-   -0.0 entries, and the fixed-order float fold (same bits on two card runs
-   and on the CPU);
+   and operations / 67 T/s). K4 and K5 also run once in each regime of their
+   designs (K4: one CTA, one cluster in one launch, several waves of
+   clusters, beyond one cluster; K5: shared-memory and device-memory hash
+   table, colliding and repeated keys, one row, one lane, ragged lane
+   counts), bit-identical to the plain version, each K4 network also to a
+   stable lexsort, with the kernel's time alone. Also the two repairs: K2 on
+   a float table with -0.0 entries, and the fixed-order float fold (same
+   bits on two card runs and on the CPU);
 4. YSB at full width through ``Pipeline(...).run()`` and a host ``Sink``:
    2^20-event batches with ``bench.py``'s geometry, every per-window count
    against a numpy dense oracle, and K1 and K2 launched once per batch;
@@ -163,7 +168,8 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
-                 library_graph=True, ops=0, tol=None):
+                 library_graph=True, ops=0, tol=None, counted=None, extra=None,
+                 timed=True):
     """Kernel vs plain version (bit for bit, or within ``tol`` = rtol = atol
     where float sums are taken in different orders) and their times.
     ``*_ms`` are device times from graph replay; ``*_eager_ms`` time eager
@@ -171,21 +177,26 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
     output from the data) cannot be captured and is timed eagerly;
     ``library=None`` means no single PyTorch call computes the function. The
     bound is the larger of ``nbytes`` over the memory rate and ``ops`` over
-    the operation rate."""
+    the operation rate; ``counted`` says what they count. ``timed=False``
+    (a regime case, not a main-path shape) times the kernel alone, by graph
+    replay, and leaves the plain version and the library call untimed."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     same, err = compare(torch, got, want)
     ok = same if tol is None else bool(torch.allclose(got, want, rtol=tol, atol=tol))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
-    row = {"kernel_check": name, "case": case, "shape": shape,
+    row = {"kernel_check": name, "case": case, "shape": shape, **(extra or {}),
            "bit_identical": same, "max_abs_err": err, "tolerance": tol,
-           "kernel_ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain),
-           "library_ms": (None if library is None else graph_ms(torch, library)
-                          if library_graph else time_ms(torch, library)),
+           "kernel_ms": graph_ms(torch, kernel),
+           "plain_ms": graph_ms(torch, plain) if timed else None,
+           "library_ms": (None if library is None or not timed else
+                          graph_ms(torch, library) if library_graph
+                          else time_ms(torch, library)),
            "library_timing": "graph" if library_graph else "eager",
-           "kernel_eager_ms": time_ms(torch, kernel),
-           "plain_eager_ms": time_ms(torch, plain),
-           "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+           "kernel_eager_ms": time_ms(torch, kernel) if timed else None,
+           "plain_eager_ms": time_ms(torch, plain) if timed else None,
+           "bytes": nbytes, "ops": ops, "counted": counted,
+           "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(row)
     if not ok:
@@ -349,19 +360,23 @@ def repair_checks(torch):
 
 
 def nexmark_kernel_phase(torch):
-    """K5 at the q3/q7 bench shape, at q3's full width and above the TPU
-    envelope; K4 at TopN's bench shape and others, each sort also against a
-    stable lexsort."""
+    """K5 at the q3/q7 bench shape, at q3's full width, above the TPU envelope
+    and in each of its regimes (shared-memory and device-memory table,
+    colliding and repeated keys, ragged C); K4 at TopN's bench shape and in
+    each of its regimes (one CTA, one cluster, beyond a cluster), each sort
+    and merge also against a stable lexsort."""
     from windflow_tpu_torch.ops import bitonic as B, lookup as L
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261019)
     rows = {}
 
-    def k5(case, C, K, vals_dtype):
-        keys = (torch.randperm(8 * K, device=dev, generator=gen)[:K] - 4 * K).to(torch.int32)
-        if K > 4:
-            keys[-2:] = L.JOIN_KEY_SENTINEL        # unused slots: repeated sentinel
+    def k5(case, C, K, vals_dtype, keys=None, timed=True):
+        if keys is None:
+            keys = (torch.randperm(8 * K, device=dev, generator=gen)[:K]
+                    - 4 * K).to(torch.int32)
+            if K > 4:
+                keys[-2:] = L.JOIN_KEY_SENTINEL    # unused slots: repeated sentinel
         hits = keys[torch.randint(0, K, (C,), device=dev, generator=gen)]
         miss = torch.randint(-6 * K, 6 * K, (C,), device=dev, generator=gen,
                              dtype=torch.int32)
@@ -376,17 +391,35 @@ def nexmark_kernel_phase(torch):
             vals = torch.randint(-2 ** 31, 2 ** 31, (K,), device=dev, generator=gen,
                                  dtype=torch.int64).to(torch.int32)
         n_valid = int(valid.sum())
+        slots = 1 << max(1, (2 * K - 1).bit_length())
         return check_kernel(
             torch, "join_probe", case,
             lambda: L.join_probe_cuda(keys, vals, probe, valid),
             lambda: L.join_probe_plain(keys, vals, probe, valid),
             None, C * 10 + K * 8, {"C": C, "K": K, "dtype": str(vals_dtype)},
-            ops=n_valid * K)
+            ops=n_valid, timed=timed,
+            counted="bytes: each lane's probe, valid, value and hit once (10 B) and "
+                    "each table row's key and value once (8 B); ops: one key "
+                    "compare per valid lane (the function's need, not the C*K "
+                    "compares of a scan)",
+            extra={"table_slots": slots,
+                   "table": "shared" if slots <= L.JOIN_PROBE_SMEM_SLOTS else "device"})
     rows["join_probe"] = k5("q3_full_width", 1 << 20, Q3_AUCTIONS, torch.int32)
     k5("q3_q7_bench", NEX_BATCH, 16, torch.int32)
     k5("above_tpu_envelope", 1 << 20, 5000, torch.int32)
     k5("float_nan_negative_zero", 1 << 20, Q3_AUCTIONS, torch.float32)
     k5("float_bench", NEX_BATCH, 16, torch.float32)
+    k5("largest_shared_table", 1 << 20, 8192, torch.int32, timed=False)
+    pow16 = (torch.randperm(1 << 16, device=dev, generator=gen)[:Q3_AUCTIONS]
+             - (1 << 15)).to(torch.int32) * (1 << 16)
+    k5("keys_multiples_of_2^16", 1 << 20, Q3_AUCTIONS, torch.int32, keys=pow16,
+       timed=False)
+    k5("one_key_all_rows", 1 << 20, Q3_AUCTIONS, torch.int32, timed=False,
+       keys=torch.full((Q3_AUCTIONS,), 7, dtype=torch.int32, device=dev))
+    k5("one_row", 1 << 20, 1, torch.float32, timed=False)
+    k5("one_lane", 1, Q3_AUCTIONS, torch.int32, timed=False)
+    k5("ragged_lanes", (1 << 20) - 3, Q3_AUCTIONS, torch.int32, timed=False)
+    k5("device_memory_table", 1 << 18, 1 << 15, torch.int32, timed=False)
 
     def lexsort(p, s, c, i):
         perm = torch.argsort(i, dim=-1, stable=True)
@@ -395,13 +428,21 @@ def nexmark_kernel_phase(torch):
                                                         dim=-1, stable=True))
         return tuple(torch.gather(x, -1, perm) for x in (p, s, c, i))
 
-    def k4(case, R, n, sort, ties=False):
+    def k4(case, R, n, sort, ties=None, timed=True):
+        """``ties``: None (random prim, sec), "ties" (prim, sec in [-4, 4)) or
+        "repeated" (every whole tuple, idx too, drawn from four)."""
         hi = 4 if ties else 2 ** 31
         p = torch.randint(-hi, hi, (R, n), device=dev, generator=gen, dtype=torch.int64)
         s = torch.randint(-hi, hi, (R, n), device=dev, generator=gen, dtype=torch.int64)
         p, s = p.to(torch.int32), s.to(torch.int32)
         c = torch.zeros((R, n), dtype=torch.int32, device=dev)
         i = torch.arange(n, dtype=torch.int32, device=dev).expand(R, n).contiguous()
+        if ties == "repeated":
+            pool = torch.tensor([[-2 ** 31, 2 ** 31 - 1, 0, 3], [0, 0, 0, 0],
+                                 [5, -1, 1, 2], [2 ** 31 - 1, -2 ** 31, 1, -2 ** 31]],
+                                dtype=torch.int32, device=dev)
+            pick = pool[torch.randint(0, 4, (R, n), device=dev, generator=gen)]
+            p, s, c, i = (pick[..., j].contiguous() for j in range(4))
         if not sort:                              # bitonic input: up, then down
             p, s, c, i = lexsort(p, s, c, i)
             h = n // 2
@@ -410,6 +451,7 @@ def nexmark_kernel_phase(torch):
         packed = (p.to(torch.int64) << 32) | (s.to(torch.int64) & 0xffffffff)
         m = n.bit_length() - 1
         stages = m * (m + 1) // 2 if sort else m
+        plan = B.network_plan(n, sort=sort)
         row = check_kernel(
             torch, "ordering_merge", case,
             lambda: B.network_cuda(p, s, c, i, sort=sort),
@@ -417,18 +459,38 @@ def nexmark_kernel_phase(torch):
             lambda: torch.sort(packed, dim=-1, stable=True),
             R * n * 32, {"R": R, "n": n, "network": "sort" if sort else "merge",
                          "ties": ties},
-            ops=R * (n // 2) * stages * 8)
+            ops=R * (n // 2) * stages * 8, timed=timed,
+            counted="bytes: each lane's four int32 read and written once; ops: 8 "
+                    "int32 operations per compare-exchange of the network",
+            extra={"cuda_launches_per_call": plan["launches"],
+                   "cluster_ctas": plan["cluster"],
+                   "clusters_at_once": plan["active_clusters"],
+                   "regime": ("one CTA" if n <= 4096 else "one cluster"
+                              if plan["launches"] == 1 else "beyond one cluster")})
         got = B.network_cuda(p, s, c, i, sort=sort)
         want = lexsort(p, s, c, i)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"ordering_merge [{case}]: differs from a stable lexsort")
+        if n <= 1 << 15 and plan["launches"] != 1:
+            raise AssertionError(f"ordering_merge [{case}]: {plan['launches']} CUDA "
+                                 "launches a call where a row fits in one cluster")
         return row
     rows["ordering_merge"] = k4("topn_bench", 16, 1 << 15, True)
-    k4("topn_bench_ties", 16, 1 << 15, True, ties=True)
+    k4("topn_bench_ties", 16, 1 << 15, True, ties="ties")
     k4("smallest", 1, 2, True)
     k4("beyond_tpu_envelope", 4, 1 << 16, True)
     k4("merge_one_row", 1, 1 << 15, False)
     k4("merge_rows", 8, 4096, False)
+    for n in (2, 64, 4096):                   # one CTA (several rows a CTA)
+        for R in (1, 3):
+            k4(f"one_cta_R{R}_n{n}", R, n, True, timed=False)
+    k4("cluster_one_row", 1, 1 << 15, True, timed=False)
+    k4("cluster_waves_R200", 200, 1 << 15, True, timed=False)
+    k4("beyond_cluster", 2, 1 << 17, True, timed=False)
+    k4("beyond_cluster_merge", 2, 1 << 17, False, timed=False)
+    k4("repeated_tuples", 16, 1 << 15, True, ties="repeated", timed=False)
+    k4("repeated_tuples_one_cta", 3, 4096, True, ties="repeated", timed=False)
+    k4("merge_repeated_rows", 16, 1 << 15, False, ties="repeated", timed=False)
     return rows
 
 
@@ -1071,7 +1133,7 @@ def main() -> int:
          "built": sorted(built), "flags": " ".join(cuda.NVCC_FLAGS)})
     for stem, rep in built.items():
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "error" in line.lower():
+            if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{stem}]: {line.strip()}")
 
     rows = kernel_phase(torch, ysb)

@@ -7,10 +7,13 @@ version of the port's CUDA kernel. Every comparison is exact: bytes and
 dtypes.
 
 - K5 ``join_probe`` (Pallas ``_join_probe_pallas``), and the float ``-0.0``
-  repair of K2 ``table_lookup`` and of ``join_probe``;
+  repair of K2 ``table_lookup`` and of ``join_probe``; its plain version on
+  keys that collide under a power-of-two mask (against XLA) and on repeated
+  keys (against a numpy first-match oracle);
 - the JoinTable (``join_table_upsert``/``join_table_probe``): every state
   field after each step of scripted sequences;
-- K4 ``sort_network``/``merge_network`` (Pallas ``_pallas_network``), batched;
+- K4 ``sort_network``/``merge_network`` (Pallas ``_pallas_network``), batched,
+  also at one CTA's share (n = 4096) on tied and fully repeated tuples;
 - ``segment_rank``; the ``TopN`` and ``Distinct`` operators.
 """
 
@@ -130,6 +133,88 @@ def test_join_probe_negative_zero_matches_jax(K):
     assert_same(gv, xv, "vals")
     assert_same(gh, xh, "hit")
     assert bool(np.signbit(gv.numpy()[0])) == (K == 1)
+
+
+# ------------------------------------------- K5's yardstick at hash-table stress
+
+IMAX = (1 << 31) - 1
+
+
+def _colliding_keys(K, rng):
+    """K unique int32 keys, all multiples of 2^16 (every one lands on slot 0
+    under a power-of-two mask of 16 bits or fewer) but two, which are
+    INT32_MIN + 1 and INT32_MAX - 1."""
+    keys = rng.choice(np.arange(-(1 << 15), 1 << 15), K, replace=False).astype(np.int64)
+    keys = (keys << 16).astype(np.int32)
+    keys[keys.size // 2:][:2] = [IMIN + 1, IMAX - 1][:min(2, K - K // 2)]
+    return keys
+
+
+@pytest.mark.parametrize("K", [1, 4096, 16384])
+def test_join_probe_plain_colliding_keys_match_jax(K):
+    """The plain version (what the card holds K5 against) on unique keys that
+    pile onto one chain under a power-of-two mask, against the XLA reference."""
+    rng = np.random.default_rng(K + 5)
+    C = 256
+    keys = _colliding_keys(K, rng)
+    assert np.unique(keys).size == K
+    vals = rng.integers(IMIN, IMAX, K, endpoint=True).astype(np.int32)
+    hits = keys[rng.integers(0, K, C)]
+    misses = (rng.integers(-(1 << 15), 1 << 15, C).astype(np.int64) << 16).astype(np.int32)
+    probe = np.where(rng.random(C) < 0.6, hits, misses).astype(np.int32)
+    probe[:4] = [IMIN + 1, IMAX - 1, IMIN, IMAX]
+    valid = rng.random(C) < 0.85
+    valid[:2] = True
+    gv, gh = tl.join_probe_plain(_t(keys), _t(vals), _t(probe), _t(valid))
+    xv, xh = jl._join_probe_xla(*(jnp.asarray(a) for a in (keys, vals, probe, valid)))
+    assert_same(gv, xv, "vals vs xla")
+    assert_same(gh, xh, "hit vs xla")
+    assert gh.any()
+
+
+def _first_match(keys, vals, probe, valid):
+    """numpy oracle of the port's rule on repeated keys: the first matching
+    row's value (a float -0.0 as +0.0 when K >= 2), 0 on a miss."""
+    out = np.zeros(probe.shape, vals.dtype)
+    hit = np.zeros(probe.shape, bool)
+    for i, (p, ok) in enumerate(zip(probe.tolist(), valid.tolist())):
+        rows = np.flatnonzero(keys == p)
+        if ok and rows.size:
+            out[i], hit[i] = vals[rows[0]], True
+    if vals.dtype.kind == "f" and keys.size >= 2:
+        out = np.where(out == 0, np.zeros((), vals.dtype), out)
+    return out, hit
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("case", ["sentinel_tail", "one_key", "random_dupes"])
+def test_join_probe_plain_repeated_keys_first_match(case, dtype):
+    """Repeated keys, where the JAX select-sum adds the matching rows: the
+    plain version takes the first matching row, as K5's build keeps it."""
+    rng = np.random.default_rng(len(case) + 31 * (dtype == np.float32))
+    K, C = 300, 512
+    if case == "one_key":
+        keys = np.full(K, 7, np.int32)
+    elif case == "sentinel_tail":
+        keys = rng.choice(np.arange(-1000, 1000), K, replace=False).astype(np.int32)
+        keys[K // 3:] = IMIN
+    else:
+        keys = rng.integers(-20, 20, K).astype(np.int32)
+    if dtype == np.float32:
+        vals = rng.normal(size=K).astype(np.float32)
+        vals[::5] = -0.0
+        vals[3] = np.nan
+    else:
+        vals = rng.integers(IMIN, IMAX, K, endpoint=True).astype(np.int32)
+    probe = np.where(rng.random(C) < 0.7, keys[rng.integers(0, K, C)],
+                     rng.integers(-30, 30, C)).astype(np.int32)
+    probe[:2] = [IMIN, 7]
+    valid = rng.random(C) < 0.9
+    gv, gh = tl.join_probe_plain(_t(keys), _t(vals), _t(probe), _t(valid))
+    wv, wh = _first_match(keys, vals, probe, valid)
+    assert_same(gv, wv, "vals vs first match")
+    assert_same(gh, wh, "hit vs first match")
+    assert gh.any() and not gh.all()
 
 
 # ------------------------------------------------------------ the JoinTable
@@ -270,6 +355,44 @@ def test_merge_network_matches_jax(n):
         for g, w in zip(got, pal):
             assert_same(g[r], w, "merge vs pallas")
     assert (np.diff(got[0].numpy(), axis=1) >= 0).all()
+
+
+def _tie_rows(case, R, n, seed):
+    """[R, n] lanes whose tuples tie: ``all_ties`` rows share prim, sec and
+    chan (idx a permutation), ``repeated_tuples`` rows draw every whole tuple,
+    idx included, from three (extremes among them)."""
+    rng = np.random.default_rng(seed)
+    if case == "all_ties":
+        lanes = [np.full((R, n), v, np.int32) for v in (5, IMIN, 0)]
+        return lanes + [np.stack([rng.permutation(n) for _ in range(R)]).astype(np.int32)]
+    pool = np.array([[IMIN, IMAX, 0, 3], [0, 0, 0, 0], [IMAX, IMIN, 1, IMIN]], np.int32)
+    pick = pool[rng.integers(0, 3, (R, n))]
+    return [np.ascontiguousarray(pick[..., c]) for c in range(4)]
+
+
+@pytest.mark.parametrize("case", ["all_ties", "repeated_tuples"])
+@pytest.mark.parametrize("network", ["sort", "merge"])
+def test_network_ties_match_jax(network, case):
+    """sort_network/merge_network at n = 4096, R = 2 (one CTA's share of K4)
+    on tied and fully repeated tuples, against the JAX package vmapped."""
+    R, n = 2, 4096
+    lanes = _tie_rows(case, R, n, len(case) + len(network))
+    if network == "merge":                       # bitonic: ascending, then descending
+        key = np.stack([np.lexsort((lanes[3][r], lanes[2][r], lanes[1][r], lanes[0][r]))
+                        for r in range(R)])
+        lanes = [np.take_along_axis(a, key, 1) for a in lanes]
+        lanes = [np.ascontiguousarray(np.concatenate([a[:, :n // 2], a[:, n // 2:][:, ::-1]], 1))
+                 for a in lanes]
+    tfn, jfn = ((tb.sort_network, jb.sort_network) if network == "sort"
+                else (tb.merge_network, jb.merge_network))
+    got = tfn(*(_t(a) for a in lanes))
+    want = jax.vmap(jfn)(*(jnp.asarray(a) for a in lanes))
+    for g, w in zip(got, want):
+        assert_same(g, w, f"{network} vs xla")
+    for r in range(R):
+        perm = np.lexsort((lanes[3][r], lanes[2][r], lanes[1][r], lanes[0][r]))
+        for g, a in zip(got, lanes):
+            assert_same(g[r], a[r][perm], f"{network} vs lexsort")
 
 
 # ------------------------------------------------------------ segment_rank

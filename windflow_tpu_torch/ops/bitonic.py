@@ -14,6 +14,23 @@ A CUDA tensor goes to kernel K4 (``csrc/bitonic.cu``, registry
 the JAX package's butterfly stages in torch. The TPU kernel took n <= 2^15;
 the port's takes any power of two n >= 2.
 
+K4's mechanism: each lane is packed into one 128-bit key, a CTA of 512
+threads holds 4096 lanes (8 a thread in registers, 64 KB of shared memory),
+every compare-exchange runs in registers, and the lanes change their
+assignment to registers (through shared memory) only when a stride leaves
+the current three register bits. Its regimes, by row length:
+
+- ``n <= 4096``: one CTA per 4096 lanes (several rows a CTA);
+- ``4096 < n <= 4096 * 8``: a row lives in one thread block cluster of
+  ``n / 4096`` CTAs, which exchange lanes through distributed shared memory
+  for the strides across CTAs, and the whole network is one launch
+  (TopN's ``[16, 2^15]``: 128 CTAs);
+- larger ``n``: strides of a cluster's span or more run as global-memory
+  passes, the rest of every stage in one cluster launch.
+
+:func:`network_plan` reports the cluster size and the launches of a call.
+Its bound on the H100 is bytes: each lane's 16 bytes read and written once.
+
 Exactness: every step is a compare and a select on int32, so the kernel and
 the plain version agree bit for bit on any input, ties included.
 """
@@ -31,6 +48,8 @@ from .registry import count_launch
 #: C signature of K4's entry point (pointers and the stream as void*)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_void_p]
+#: C signature of K4's plan query (n, sort, and three int out-pointers)
+_PLAN_ARGTYPES = [ctypes.c_longlong, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
 
 Lanes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -107,9 +126,21 @@ def network_plain(prim, sec, chan, idx, *, sort: bool) -> Lanes:
     return tuple(o.reshape(-1) if flat else o for o in out)
 
 
+def network_plan(n: int, *, sort: bool) -> dict:
+    """K4's plan for rows of ``n`` lanes on the current card:
+    ``{"cluster": CTAs of one cluster, "active_clusters": clusters of that
+    size the card holds at once, "launches": CUDA launches of one call}``
+    (one launch while a row fits in one cluster)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = cuda.function("bitonic", "wf_bitonic_plan", _PLAN_ARGTYPES)
+    cuda.check(fn(n, int(sort), *(ctypes.byref(o) for o in out)), "network_plan")
+    return dict(zip(("cluster", "active_clusters", "launches"), (o.value for o in out)))
+
+
 def network_cuda(prim, sec, chan, idx, *, sort: bool) -> Lanes:
     """Launch K4 on the lanes' card (all launches of one network; counted
-    once). Raises on anything the kernel does not take."""
+    once). Raises on anything the kernel does not take, and on a refused
+    launch or shared-memory size."""
     rows, flat = _as_rows((prim, sec, chan, idx), "network_cuda")
     R, n = rows[0].shape
     if n < 2 or n & (n - 1) or n > (1 << 30):
@@ -146,4 +177,5 @@ def merge_network(prim, sec, chan, idx) -> Lanes:
     return _network(prim, sec, chan, idx, False)
 
 
-__all__ = ["sort_network", "merge_network", "network_plain", "network_cuda"]
+__all__ = ["sort_network", "merge_network", "network_plain", "network_cuda",
+           "network_plan"]

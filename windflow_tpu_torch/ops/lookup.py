@@ -155,13 +155,18 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------ stream-table probe
 
 #: largest key table the TPU's fused probe kernel accepted (its [BLK, K]
-#: one-hot tile lived in VMEM). The port's kernel tiles the table through
-#: shared memory and takes any K; the constant stays for parity.
+#: one-hot tile lived in VMEM). The port's kernel hashes the table and takes
+#: any K; the constant stays for parity.
 JOIN_PROBE_MAX_ROWS = 2048
 
+#: most hash slots K5 holds in one block's shared memory: 2^14 slots of 8
+#: bytes are 128 KB; 2^15 (256 KB) exceed the H100's 227 KB a block, so
+#: larger tables are probed in device memory through L2
+JOIN_PROBE_SMEM_SLOTS = 1 << 14
+
 #: C signature of K5's entry point (pointers and the stream as void*)
-_PROBE_ARGTYPES = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_PROBE_ARGTYPES = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 #: value dtypes that widen before the probe, as ``jnp.sum`` widens them
 _PROBE_WIDEN = {torch.int8: torch.int32, torch.int16: torch.int32,
@@ -187,7 +192,16 @@ def join_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     stays on its own row. Where keys repeat (unused JoinTable slots all hold
     :data:`JOIN_KEY_SENTINEL`), both versions take the first matching row.
     A CUDA tensor goes to kernel K5 (``csrc/join_probe.cu``), a CPU tensor
-    to the plain version."""
+    to the plain version.
+
+    K5 hashes the table once per call, ``next_pow2(2K)`` slots of
+    ``(key, row)`` built with atomics (equal keys share a slot holding their
+    first row), then probes it with a persistent grid: O(C) expected
+    lookups, not the ``C * K`` compares of the reference. While the slots
+    fit in one block's shared memory (:data:`JOIN_PROBE_SMEM_SLOTS`, K <=
+    8192) every block copies the table there once; above, the same kernel
+    probes the table in device memory through L2. Its bound on the H100 is
+    bytes: each lane read and written once and the table read once."""
     if table_keys.device.type == "cuda":
         return join_probe_cuda(table_keys, table_vals, probe, valid)
     if table_keys.device.type == "cpu":
@@ -249,17 +263,20 @@ def join_probe_cuda(table_keys, table_vals, probe, valid):
                          f"{dev} of a real dtype of at most 4 bytes, got "
                          f"{table_vals.dtype} {tuple(table_vals.shape)} on "
                          f"{table_vals.device}")
-    if K >= 2 ** 31:
+    if K > 2 ** 30:
         raise ValueError(f"join_probe_cuda: table of {K} rows")
     tv = table_vals.to(wide).contiguous()
     vals = torch.empty((C,), dtype=wide, device=dev)
     hit = torch.empty((C,), dtype=torch.bool, device=dev)
     if C == 0:
         return vals.to(dt), hit
+    log_m = max(1, (2 * K - 1).bit_length())          # 2^log_m = next_pow2(2K)
+    slots = torch.empty((1 << log_m if K else 0,), dtype=torch.int64, device=dev)
     fn = cuda.function("join_probe", "wf_join_probe", _PROBE_ARGTYPES)
     count_launch("join_probe")
     cuda.check(fn(cuda.ptr(table_keys), cuda.ptr(tv), cuda.ptr(probe), cuda.ptr(valid),
-                  cuda.ptr(vals), cuda.ptr(hit), C, K,
+                  cuda.ptr(vals), cuda.ptr(hit), cuda.ptr(slots), C, K, log_m,
+                  int((1 << log_m) <= JOIN_PROBE_SMEM_SLOTS),
                   int(wide.is_floating_point and K >= 2), cuda.stream_ptr(dev)),
                "join_probe_cuda")
     return (vals if wide == dt else vals.to(dt)), hit
@@ -499,7 +516,7 @@ def count_drops(counter: torch.Tensor, name: str, n) -> torch.Tensor:
 
 
 __all__ = ["table_lookup", "gather_or_zero", "lookup_plain", "lookup_cuda", "take",
-           "JOIN_PROBE_MAX_ROWS", "join_probe", "join_probe_plain",
-           "join_probe_cuda", "JOIN_KEY_SENTINEL", "join_table_init",
+           "JOIN_PROBE_MAX_ROWS", "JOIN_PROBE_SMEM_SLOTS", "join_probe",
+           "join_probe_plain", "join_probe_cuda", "JOIN_KEY_SENTINEL", "join_table_init",
            "join_table_upsert", "join_table_probe", "join_table_pending",
            "join_table_stats", "count_drops"]
