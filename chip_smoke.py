@@ -5,26 +5,46 @@ Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py              # the default run, one card
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the
-                                       # YSB, q3, q6 and window-path loop steps
+                                       # YSB, YSB-sum, q3, q6 and window-path
+                                       # loop steps
+    python3 chip_smoke.py --split-only # phases 1-3's split of K1's and K3's
+                                       # time, then stops (no result line);
+                                       # copied with PROBES_SRC into another
+                                       # tree, it splits that tree's kernels
 
 Phases (each raises on a mismatch, so any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every CUDA kernel from ``windflow_tpu_torch/ops/csrc`` with nvcc
    for sm_90a (one nvcc per source, all started together), and its time;
-3. each kernel (K1 histogram, K2 lookup, K3 segment_fold, K4 ordering_merge,
-   K5 join_probe) at main-path shapes (K2 and K3 also at the window paths'
-   per-key count and next_win tables, 512 and 100 rows) and on adversarial
-   inputs:
+3. where K1's and K3's time goes (graph replay; K1 at YSB's shape, panes
+   past the window and 40,000 keys; K3 at path B's counts, YSB-sum and
+   random ids): a zero fill of the output alone, a probe that only reads
+   the same 9 bytes a lane, a probe that adds every counted lane with one
+   global atomic, the kernel's C entry point, the wrapper (the probes are
+   ``PROBES_SRC``, built beside the kernels);
+   then each kernel (K1 histogram, K2 lookup, K3 segment_fold, K4
+   ordering_merge, K5 join_probe) at main-path shapes (K2 and K3 also at
+   the window paths' per-key count and next_win tables, 512 and 100 rows)
+   and on adversarial inputs:
    bit-identical to its plain PyTorch version, with the kernel's, the plain
    version's and one library call's device times (CUDA-graph replay; eager
-   times beside them) and the bound (the larger of bytes moved / 3.35 TB/s
-   and operations / 67 T/s). K4 and K5 also run once in each regime of their
-   designs (K4: one CTA, one cluster in one launch, several waves of
-   clusters, beyond one cluster; K5: shared-memory and device-memory hash
-   table, colliding and repeated keys, one row, one lane, ragged lane
-   counts), bit-identical to the plain version, each K4 network also to a
-   stable lexsort, with the kernel's time alone. Also the two repairs: K2 on
+   times beside them; K1's and K3's library call is one ``index_add_`` into
+   a fresh zeroed output, dropped lanes adding 0 at a spread index) and the
+   bound (the larger of bytes moved / 3.35 TB/s and operations / 67 T/s).
+   K1, K3, K4 and K5 also run once in each regime of their designs (K1:
+   window, global tiles, empty tiles, every lane on one cell, panes near
+   the int32 limits, K * P near 2^31; K3: direct partials with the
+   workspace reduce or the atomic flush, global tiles, S = 1, one segment
+   with wrapping sums, one segment of 409,600, each input dtype; both at
+   ragged lengths, one lane and unaligned inputs; K4: one
+   CTA, one cluster in one launch, several waves of clusters, beyond one
+   cluster; K5: shared-memory and device-memory hash table, colliding and
+   repeated keys, one row, one lane, ragged lane counts), bit-identical to
+   the plain version (each K4 network also to a stable lexsort), with the
+   kernel's time alone; K1 and K3 log each case's plan
+   (``histogram_plan`` / ``segment_fold_plan``) and counters, and the phase
+   fails unless every regime ran. Also the two repairs: K2 on
    a float table with -0.0 entries, and the fixed-order float fold (same
    bits on two card runs and on the CPU);
 4. YSB at full width through ``Pipeline(...).run()`` and a host ``Sink``:
@@ -32,7 +52,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    against a numpy dense oracle, and K1 and K2 launched once per batch;
 5. YSB through the ``device_cursor_step`` loop: tuples/s and ms/step;
 6. YSB-sum (Key_FFAT summing an int32 field) for a few batches: dense-oracle
-   check and K3's launches;
+   check and K3's launches; then YSB-sum through the loop;
 7. Nexmark q1, q2, q3, q6, q7 through ``Pipeline(...).run()`` at
    ``bench_nexmark``'s batch (2^14) for 16 batches: every sink row against
    the dense oracle, and the exact K4 and K5 launches of each query;
@@ -78,6 +98,7 @@ LOOP_STEPS = 40           # timed steps of the device_cursor_step loop
 PROFILE_STEPS = 5         # profiled steps after a loop (--profile); the sources
                           # are sized so that these steps read real events
 SUM_BATCHES = 3           # batches of the YSB-sum phase
+SUM_LOOP_STEPS = 20       # timed steps of the YSB-sum loop
 NEX_BATCH = 1 << 14       # bench.py::bench_nexmark's batch
 NEX_BATCHES = 16          # batches of the Nexmark Pipeline phase (262,144 events)
 NEX_STEPS = 20            # timed steps of the Nexmark loops (after 2 warm-up)
@@ -91,6 +112,8 @@ WMR_MAP = 4               # and its map_parallelism
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (data sheet),
                           # the rate used for int32 compares and selects
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PROBES_SRC = os.path.join("windflow_tpu_torch", "benchmarks", "csrc", "split_probes.cu")
 
 
 def log(obj):
@@ -168,18 +191,16 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
-                 library_graph=True, ops=0, tol=None, counted=None, extra=None,
-                 timed=True):
+                 ops=0, tol=None, counted=None, extra=None, timed=True, time_kernel=True):
     """Kernel vs plain version (bit for bit, or within ``tol`` = rtol = atol
     where float sums are taken in different orders) and their times.
     ``*_ms`` are device times from graph replay; ``*_eager_ms`` time eager
-    calls. A library call that syncs with the host (``bincount`` sizes its
-    output from the data) cannot be captured and is timed eagerly;
-    ``library=None`` means no single PyTorch call computes the function. The
+    calls. ``library=None`` means no single PyTorch call computes the function. The
     bound is the larger of ``nbytes`` over the memory rate and ``ops`` over
     the operation rate; ``counted`` says what they count. ``timed=False``
     (a regime case, not a main-path shape) times the kernel alone, by graph
-    replay, and leaves the plain version and the library call untimed."""
+    replay, and leaves the plain version and the library call untimed;
+    ``time_kernel=False`` times nothing (ragged and outsized cases)."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     same, err = compare(torch, got, want)
@@ -187,12 +208,10 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     row = {"kernel_check": name, "case": case, "shape": shape, **(extra or {}),
            "bit_identical": same, "max_abs_err": err, "tolerance": tol,
-           "kernel_ms": graph_ms(torch, kernel),
+           "kernel_ms": graph_ms(torch, kernel) if time_kernel else None,
            "plain_ms": graph_ms(torch, plain) if timed else None,
            "library_ms": (None if library is None or not timed else
-                          graph_ms(torch, library) if library_graph
-                          else time_ms(torch, library)),
-           "library_timing": "graph" if library_graph else "eager",
+                          graph_ms(torch, library)),
            "kernel_eager_ms": time_ms(torch, kernel) if timed else None,
            "plain_eager_ms": time_ms(torch, plain) if timed else None,
            "bytes": nbytes, "ops": ops, "counted": counted,
@@ -216,32 +235,14 @@ def ysb_traffic(torch, ysb, start):
 
 
 def kernel_phase(torch, ysb):
-    from windflow_tpu_torch.ops import histogram as H, lookup as L, segment as S
+    from windflow_tpu_torch.ops import lookup as L
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261017)
     C = BATCH
     rows = {}
     b, window = ysb_traffic(torch, ysb, 3 * BATCH)
-    K, P = window.num_keys, window.P
-    pane = torch.div(b.ts, window.pane_len, rounding_mode="floor")
-
-    # K1 histogram
-    def k1(case, key, pane_, valid):
-        ok = valid & (key >= 0) & (key < K)
-        flat = torch.where(ok, key.long() * P + torch.remainder(pane_, P).long(), K * P)
-        return check_kernel(
-            torch, "histogram", case,
-            lambda: H.histogram_cuda(key, pane_, valid, K, P),
-            lambda: H.histogram_plain(key, pane_, valid, K, P),
-            lambda: torch.bincount(flat, minlength=K * P + 1),
-            C * 9 + K * P * 4, {"C": C, "K": K, "P": P}, library_graph=False)
-    rows["histogram"] = k1("ysb", b.key, pane, b.valid)
-    k1("adversarial",
-       torch.randint(-10, K + 10, (C,), device=dev, generator=gen, dtype=torch.int32),
-       torch.randint(-10 ** 6, 10 ** 6, (C,), device=dev, generator=gen,
-                     dtype=torch.int32),
-       torch.rand((C,), device=dev, generator=gen) < 0.7)
+    K = window.num_keys
 
     # K2 lookup
     def k2(case, idx, table):
@@ -279,31 +280,311 @@ def kernel_phase(torch, ysb):
     k2("path_b_count", b_keys, ctrl_table(K, 2 ** 31 - 1))
     k2("path_b_next_win", b_keys, ctrl_table(K, 1 << 20))
 
-    # K3 segment_fold
-    def k3(case, values, seg, valid, Sn):
+    return rows
+
+
+#: K1's and K3's regimes: each must run at least once in the kernel phase
+K1_REGIMES = ("window", "global", "empty")
+K3_REGIMES = ("direct", "global")
+K3_FLUSHES = ("workspace_reduce", "atomic")
+
+
+def partials_kernel_phase(torch, ysb):
+    """K1 and K3 at their main-path shapes and in each regime of their
+    designs, bit for bit against the plain versions. Every case logs the
+    plan (``histogram_plan`` / ``segment_fold_plan``: grid, shared bytes,
+    path, flush, zero fill) and the launch's counters (tiles on each path,
+    empty tiles); the phase fails unless every regime ran.
+    Main-path shapes are timed with the plain version and the library call
+    (one ``index_add_`` into a fresh zeroed output, the index prep outside
+    the timed call, dropped lanes adding 0 at a spread index); regime cases
+    time the kernel alone; the ragged and tiny cases are not timed."""
+    from windflow_tpu_torch.ops import histogram as H, segment as S
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261022)
+    C = BATCH
+    rows = {}
+    seen = {"histogram": set(), "segment_fold": set()}
+    b, window = ysb_traffic(torch, ysb, 3 * BATCH)
+    K, P = window.num_keys, window.P
+    ysb_pane = torch.div(b.ts, window.pane_len, rounding_mode="floor").contiguous()
+
+    def ints(lo, hi, n=C):
+        return torch.randint(lo, hi, (n,), device=dev, generator=gen, dtype=torch.int64
+                             ).to(torch.int32)
+
+    def mask(p, n=C):
+        return torch.rand((n,), device=dev, generator=gen) < p
+
+    def counters(run):
+        st = torch.zeros(len(H.STATS), dtype=torch.int32, device=dev)
+        run(st)
+        torch.cuda.synchronize()
+        return dict(zip(H.STATS, st.tolist()))
+
+    def k1(case, key, pane_, valid, Kh, Ph, main=False, timed=True):
+        n = key.shape[0]
+        plan = H.histogram_plan(n, Kh, Ph)
+        stats = counters(lambda st: H.histogram_cuda(key, pane_, valid, Kh, Ph, stats=st))
+        for regime, hit in (("window", stats["direct_or_window_tiles"]),
+                            ("global", stats["global_tiles"]),
+                            ("empty", stats["empty_tiles"])):
+            if hit:
+                seen["histogram"].add(regime)
+        ok = valid & (key >= 0) & (key < Kh)
+        lane = torch.arange(n, device=dev, dtype=torch.int64)
+        idx = torch.where(ok, key.long() * Ph + torch.remainder(pane_, Ph).long(),
+                          lane % (Kh * Ph))
+        ones = ok.to(torch.int32)
+        return check_kernel(
+            torch, "histogram", case,
+            lambda: H.histogram_cuda(key, pane_, valid, Kh, Ph),
+            lambda: H.histogram_plain(key, pane_, valid, Kh, Ph),
+            lambda: torch.zeros(Kh * Ph, dtype=torch.int32, device=dev).index_add_(
+                0, idx, ones),
+            n * 9 + Kh * Ph * 4, {"C": n, "K": Kh, "P": Ph}, timed=main and timed,
+            time_kernel=timed,
+            extra={"plan": plan, "stats": stats})
+
+    # K1 at YSB's shape (the window), and adversarial keys and panes
+    rows["histogram"] = k1("ysb", b.key, ysb_pane, b.valid, K, P, main=True)
+    adv = (ints(-10, K + 10), ints(-10 ** 6, 10 ** 6), mask(0.7))
+    k1("adversarial", *adv, K, P, main=True)
+    k1("one_cell", torch.full((C,), 7, dtype=torch.int32, device=dev),
+       torch.full((C,), -12345, dtype=torch.int32, device=dev), mask(0.9), K, P)
+    near = torch.where(mask(0.5), ints(2 ** 31 - 3000, 2 ** 31), ints(-2 ** 31, -2 ** 31 + 3000))
+    k1("panes_near_int32_limits", ints(0, K), near, mask(0.8), K, P)
+    k1("panes_near_int32_max_sorted", ints(0, K),
+       (2 ** 31 - 1 - (C - 1 - torch.arange(C, device=dev)) // 1000).to(torch.int32),
+       mask(0.8), K, P)
+    k1("window_wider_than_ring", ints(0, K), (torch.arange(C, device=dev) // 1000
+                                              ).to(torch.int32), mask(0.8), K, 4)
+    k1("span_past_window", ints(0, K), (torch.arange(C, device=dev) // 20).to(torch.int32),
+       mask(0.8), K, P)
+    k1("empty_tiles", ints(0, K), ysb_pane, mask(0.5) & (torch.arange(C, device=dev)
+                                                        % 65536 < 8192), K, P)
+    k1("large_k_global", ints(-5, 40005), ints(0, 3000), mask(0.8), 40000, 32)
+    k1("k_times_p_near_2^31", ints(0, 65535), near, mask(0.8), 65535, 32768, timed=False)
+    torch.cuda.empty_cache()
+    for n in (C - 3, 4097, 1):
+        k1(f"ragged_{n}", b.key[:n], ysb_pane[:n], b.valid[:n], K, P, timed=False)
+    k1("unaligned", b.key[1:], ysb_pane[1:], b.valid[1:], K, P, timed=False)
+    missing = set(K1_REGIMES) - seen["histogram"]
+    if missing:
+        raise AssertionError(f"K1 regimes never exercised: {sorted(missing)}")
+
+    def k3(case, values, seg, valid, Sn, main=False, timed=True):
+        n = values.shape[0]
+        plan = S.segment_fold_plan(n, Sn, values.dtype)
+        stats = counters(lambda st: S.segment_fold_cuda(values, seg, valid, Sn, stats=st))
+        for regime, hit in (("direct", stats["direct_or_window_tiles"]),
+                            ("global", stats["global_tiles"])):
+            if hit:
+                seen["segment_fold"].add(regime)
+        seen["segment_fold"].add(plan["flush"])
         ok = valid & (seg >= 0) & (seg < Sn)
-        safe = torch.where(ok, seg, Sn)
-        masked = torch.where(ok, values, 0)
+        lane = torch.arange(n, device=dev, dtype=torch.int64)
+        idx = torch.where(ok, seg.long(), lane % Sn)
+        masked = torch.where(ok, values.to(torch.int32), 0)
         return check_kernel(
             torch, "segment_fold", case,
             lambda: S.segment_fold_cuda(values, seg, valid, Sn),
             lambda: S.segment_fold_plain(values, seg, valid, Sn),
-            lambda: torch.zeros(Sn + 1, dtype=torch.int32, device=dev
-                                ).index_add_(0, safe, masked),
-            C * 9 + Sn * 4, {"C": C, "S": Sn, "dtype": str(values.dtype)})
-    seg = torch.where(b.valid, b.key * P + torch.remainder(pane, P), K * P)
-    rows["segment_fold"] = k3("ysb_sum", b.payload["ad_id"], seg, b.valid, K * P)
+            lambda: torch.zeros(Sn, dtype=torch.int32, device=dev).index_add_(0, idx, masked),
+            n * (5 + values.element_size()) + Sn * 4,
+            {"C": n, "S": Sn, "dtype": str(values.dtype)}, timed=main and timed,
+            time_kernel=timed,
+            extra={"plan": plan, "stats": stats})
+
+    ysb_seg = torch.where(b.valid, b.key * P + torch.remainder(ysb_pane, P), K * P)
+    rows["segment_fold"] = k3("ysb_sum", b.payload["ad_id"], ysb_seg, b.valid, K * P,
+                              main=True)
     for Sn in (K * P, 4096, 1024):
-        vals = torch.randint(-2 ** 31, 2 ** 31, (C,), device=dev, generator=gen,
-                             dtype=torch.int64).to(torch.int32)
-        sg = torch.randint(-5, Sn + 5, (C,), device=dev, generator=gen,
-                           dtype=torch.int32)
-        k3(f"full_int32_S{Sn}", vals, sg, torch.rand((C,), device=dev, generator=gen) < 0.8,
-           Sn)
-    # Win_Seq._insert's per-key counts: int32 ones of the valid lanes
-    a_valid = torch.rand((C,), device=dev, generator=gen) < 0.9
-    k3(f"path_a_counts_S{WIN_KEYS}", a_valid.to(torch.int32), a_keys, a_valid, WIN_KEYS)
-    k3(f"path_b_counts_S{K}", b.valid.to(torch.int32), b_keys, b.valid, K)
+        k3(f"full_int32_S{Sn}", ints(-2 ** 31, 2 ** 31), ints(-5, Sn + 5), mask(0.8), Sn,
+           main=True)
+    # Win_Seq._insert's per-key counts: int32 ones of the valid lanes, path A
+    # over 512 keys (key = i % 512), path B over YSB's 100 campaigns; one lane
+    # in 64 of each moved out of range
+    def stray(keys, Sn):
+        off = ints(1, 101)
+        far = torch.where(mask(0.5), -off, Sn - 1 + off)
+        return torch.where(mask(1 / 64), far, keys).contiguous()
+    a_valid = mask(0.9)
+    a_keys = stray((torch.arange(C, device=dev) % WIN_KEYS).to(torch.int32), WIN_KEYS)
+    b_keys = stray(b.key, K)
+    k3(f"path_a_counts_S{WIN_KEYS}", a_valid.to(torch.int32), a_keys, a_valid, WIN_KEYS,
+       main=True)
+    k3(f"path_b_counts_S{K}", b.valid.to(torch.int32), b_keys, b.valid, K, main=True)
+    k3("S1", ints(-2 ** 31, 2 ** 31), ints(-1, 2), mask(0.8), 1)
+    k3("one_segment_wrapping", ints(2 ** 31 - 100, 2 ** 31), torch.full(
+        (C,), 77, dtype=torch.int32, device=dev), mask(0.9), 100)
+    k3("S_past_direct_limit", ints(-2 ** 31, 2 ** 31), ints(0, 16385), mask(0.8), 16385)
+    k3("random_segments_S2^24", ints(-2 ** 31, 2 ** 31), ints(0, 1 << 24), mask(0.95),
+       1 << 24)
+    # the global path's worst case: every lane on one segment of many
+    k3(f"one_segment_S{K * P}", ints(-2 ** 31, 2 ** 31), torch.full(
+        (C,), 4321, dtype=torch.int32, device=dev), mask(0.9), K * P)
+    for dt, lo, hi in ((torch.int8, -128, 128), (torch.int16, -2 ** 15, 2 ** 15),
+                       (torch.uint8, 0, 256)):
+        for Sn in (K, K * P):
+            k3(f"{str(dt)[6:]}_S{Sn}", ints(lo, hi).to(dt), ints(-5, Sn + 5), mask(0.8), Sn)
+    for n in (C - 3, 4097, 1):
+        k3(f"ragged_{n}_S{K}", b.valid[:n].to(torch.int32), b_keys[:n], b.valid[:n], K,
+           timed=False)
+        k3(f"ragged_{n}_S{K * P}", b.payload["ad_id"][:n], ysb_seg[:n], b.valid[:n], K * P,
+           timed=False)
+    k3("unaligned_int8", ints(-128, 128).to(torch.int8)[1:], b_keys[1:], b.valid[1:], K,
+       timed=False)
+    missing = set(K3_REGIMES + K3_FLUSHES) - seen["segment_fold"]
+    if missing:
+        raise AssertionError(f"K3 regimes never exercised: {sorted(missing)}")
+    log({"phase": "partials_regimes", "seen": {k: sorted(v) for k, v in seen.items()}})
+    return rows
+
+
+def start_probe_build(cuda):
+    """Start nvcc on the split's probe source (``PROBES_SRC``, no kernel of
+    the port) beside the kernels' builds. Returns what
+    :func:`finish_probe_build` takes."""
+    import hashlib
+    src = os.path.join(ROOT, PROBES_SRC)
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(cuda.NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = cuda.BUILD_DIR.parent / "probes" / f"libsplit_probes-{tag}.so"
+    if out.exists():
+        return None, out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(tmp), src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return (proc, tmp), out
+
+
+def finish_probe_build(job):
+    import ctypes
+    started, out = job
+    if started is not None:
+        proc, tmp = started
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"probe build failed (nvcc rc {proc.returncode}):\n{text}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def split_phase(torch, ysb, probes):
+    """Where K1's and K3's time goes, by graph replay at 2^20 lanes: K1 at
+    YSB's shape and on panes past the window and K = 40,000 keys, K3 at
+    path B's counts (S = 100), YSB-sum and random ids (S = 409,600). Each
+    row times a zero fill of the output alone (``torch.zeros``), the read
+    floor (a probe that only reads the same 9 bytes a lane), the global fold
+    (a probe that zeroes the output with a memset and adds every counted
+    lane with one global atomic, on the kernels' tiles and loads: what the
+    kernel would cost if every tile went global; its output is checked
+    against the kernel's), the kernel's C entry point into a preallocated
+    output and workspace (``c_entry_ms``: the memset and the kernel where
+    the kernel flushes with atomics, the kernel alone where it writes every
+    cell or where the wrapper zero-fills), and the whole wrapper.
+
+    It also splits an older tree whose kernels have no plan queries (no
+    ``histogram_plan``): their C entry points take no counters and no
+    workspace, and their wrappers zero-fill the output."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda, histogram as H, segment as S
+
+    dev = torch.device("cuda")
+    C = BATCH
+    planned = hasattr(H, "histogram_plan")
+    gen = torch.Generator(device=dev).manual_seed(20261021)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (C,), device=dev, generator=gen, dtype=torch.int64
+                             ).to(torch.int32)
+
+    def mask(p):
+        return torch.rand((C,), device=dev, generator=gen) < p
+
+    b, window = ysb_traffic(torch, ysb, 3 * BATCH)
+    K, P = window.num_keys, window.P
+    pane = torch.div(b.ts, window.pane_len, rounding_mode="floor").contiguous()
+    b_keys = torch.where(mask(1 / 64), K + 7, b.key).to(torch.int32).contiguous()
+    ysb_seg = torch.where(b.valid, b.key * P + torch.remainder(pane, P), K * P
+                          ).to(torch.int32).contiguous()
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_fn = probes.wf_read_floor
+    floor_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    global_fn = probes.wf_global_fold
+    global_fn.argtypes = ([ctypes.c_void_p] * 4
+                          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    hist_fn = cuda.function("histogram", "wf_keyed_pane_histogram", H._ARGTYPES)
+    fold_fn = cuda.function("segment", "wf_segment_fold", S._ARGTYPES)
+
+    def hist_case(name, key, pn, valid, Kh, Ph):
+        ok = valid & (key >= 0) & (key < Kh)
+        ids = torch.where(ok, key * Ph + torch.remainder(pn, Ph), -1).to(torch.int32)
+        out = torch.zeros((Kh, Ph), dtype=torch.int32, device=dev)
+        probe_out = torch.zeros(Kh * Ph, dtype=torch.int32, device=dev)
+        extra = (None,) if planned else ()
+
+        def c_entry():
+            cuda.check(hist_fn(cuda.ptr(key), cuda.ptr(pn), cuda.ptr(valid), cuda.ptr(out),
+                               *extra, C, Kh, Ph, cuda.stream_ptr(dev)), "K1 C entry")
+        return ("histogram", name, {"K": Kh, "P": Ph}, key, pn, valid, ids, None,
+                Kh * Ph, c_entry, lambda: H.histogram_cuda(key, pn, valid, Kh, Ph),
+                probe_out, H.histogram_plan(C, Kh, Ph) if planned else None)
+
+    def fold_case(name, values, seg, valid, Sn):
+        if values.dtype != torch.int32:
+            raise ValueError(f"split {name}: int32 values only")
+        out = torch.zeros((Sn,), dtype=torch.int32, device=dev)
+        probe_out = torch.zeros(Sn, dtype=torch.int32, device=dev)
+        plan = S.segment_fold_plan(C, Sn) if planned else None
+        ws = torch.empty((max(1, plan["ws_ints"]),), dtype=torch.int32, device=dev) \
+            if planned else None
+        extra = (cuda.ptr(ws), None) if planned else ()
+
+        def c_entry():
+            cuda.check(fold_fn(cuda.ptr(values), 0, cuda.ptr(seg), cuda.ptr(valid),
+                               cuda.ptr(out), *extra, C, Sn, cuda.stream_ptr(dev)),
+                       "K3 C entry")
+        return ("segment_fold", name, {"S": Sn}, values, seg, valid, seg, values, Sn,
+                c_entry, lambda: S.segment_fold_cuda(values, seg, valid, Sn), probe_out, plan)
+
+    cases = [
+        hist_case("ysb", b.key, pane, b.valid, K, P),
+        hist_case("span_past_window", ints(0, K), (torch.arange(C, device=dev) // 20
+                                                   ).to(torch.int32), mask(0.8), K, P),
+        hist_case("large_k", ints(-5, 40005), ints(0, 3000), mask(0.8), 40000, 32),
+        fold_case(f"path_b_counts_S{K}", b.valid.to(torch.int32), b_keys, b.valid, K),
+        fold_case("ysb_sum", b.payload["ad_id"].contiguous(), ysb_seg, b.valid, K * P),
+        fold_case(f"random_S{K * P}", ints(-2 ** 31, 2 ** 31), ints(-5, K * P + 5),
+                  mask(0.8), K * P)]
+    rows = []
+    for (kern, name, shape, a1, a2, valid, ids, vals, cells, c_entry, wrapper, probe_out,
+         plan) in cases:
+        def probe():
+            cuda.check(global_fn(None if vals is None else cuda.ptr(vals), cuda.ptr(ids),
+                                 cuda.ptr(valid), cuda.ptr(probe_out), C, cells,
+                                 cuda.stream_ptr(dev)), "global fold probe")
+        probe()
+        want = wrapper().reshape(-1)
+        torch.cuda.synchronize()
+        if not torch.equal(probe_out, want):
+            raise AssertionError(f"split {kern} [{name}]: global fold probe differs")
+        row = {"split": kern, "case": name, "C": C, **shape, "plan": plan,
+               "planned_tree": planned,
+               "zero_fill_ms": graph_ms(torch, lambda: torch.zeros(
+                   cells, dtype=torch.int32, device=dev)),
+               "read_floor_ms": graph_ms(torch, lambda: cuda.check(floor_fn(
+                   cuda.ptr(a1), cuda.ptr(a2), cuda.ptr(valid), cuda.ptr(sink), C,
+                   cuda.stream_ptr(dev)), "read floor")),
+               "global_fold_ms": graph_ms(torch, probe),
+               "c_entry_ms": graph_ms(torch, c_entry),
+               "wrapper_ms": graph_ms(torch, wrapper),
+               "bytes_bound_ms": (C * 9 + cells * 4) / HBM_BYTES_PER_S * 1e3}
+        log(row)
+        rows.append(row)
     return rows
 
 
@@ -718,12 +999,15 @@ def profile_steps(torch, phase, step, states, cur, ms_per_step, n=PROFILE_STEPS)
              "device_us_per_step": e.device_time_total / n})
 
 
-def ysb_loop_phase(torch, wt, ysb, card, profile):
+def ysb_loop_phase(torch, wt, ysb, card, profile, name="ysb_loop", make_ops=None,
+                   steps=LOOP_STEPS):
+    """The YSB chain (or, with ``make_ops=ysb.make_ops_sum``, YSB-sum)
+    through the ``device_cursor_step`` loop: tuples/s and ms/step."""
     from windflow_tpu_torch.benchmarks import device_cursor_step
 
     warm = 3
-    src = ysb.make_source((LOOP_STEPS + warm + PROFILE_STEPS) * BATCH)
-    ops = ysb.make_ops(**ysb.bench_geometry(BATCH))
+    src = ysb.make_source((steps + warm + PROFILE_STEPS) * BATCH)
+    ops = (make_ops or ysb.make_ops)(**ysb.bench_geometry(BATCH))
     chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH)
     step = device_cursor_step(chain, src, BATCH)
     states = tuple(chain.states)
@@ -732,19 +1016,19 @@ def ysb_loop_phase(torch, wt, ysb, card, profile):
         states, cur, _ = step(states, cur)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(LOOP_STEPS):
+    for _ in range(steps):
         states, cur, out = step(states, cur)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     win = states[-1]
-    row = {"phase": "ysb_loop", "steps": LOOP_STEPS, "batch": BATCH,
-           "tuples_per_s": LOOP_STEPS * BATCH / dt, "ms_per_step": dt / LOOP_STEPS * 1e3,
+    row = {"phase": name, "steps": steps, "batch": BATCH,
+           "tuples_per_s": steps * BATCH / dt, "ms_per_step": dt / steps * 1e3,
            "dropped_old": int(win.dropped_old), "card": card}
     log(row)
-    if int(win.dropped_old) != 0 or int(cur) != (LOOP_STEPS + warm) * BATCH:
-        raise AssertionError("YSB loop: unexpected drops or cursor")
+    if int(win.dropped_old) != 0 or int(cur) != (steps + warm) * BATCH:
+        raise AssertionError(f"{name}: unexpected drops or cursor")
     if profile:
-        profile_steps(torch, "ysb_loop", step, states, cur, row["ms_per_step"])
+        profile_steps(torch, name, step, states, cur, row["ms_per_step"])
 
 
 def ysb_sum_phase(torch, np, wt, ysb, registry):
@@ -1106,7 +1390,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of five steps of the YSB, "
-                         "q3 (bench and full width), q6 and window-path loops")
+                         "YSB-sum, q3 (bench and full width), q6 and window-path loops")
+    ap.add_argument("--split-only", action="store_true",
+                    help="build, run the split of K1's and K3's time and stop, printing "
+                         "no result line (also on an older tree, see split_phase)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1115,7 +1402,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — needs the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.benchmarks import ysb
     from windflow_tpu_torch.ops import cuda, registry
@@ -1128,7 +1415,11 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0), "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    built = cuda.build_all()
+    probe_job = start_probe_build(cuda)
+    try:
+        built = cuda.build_all()
+    finally:
+        probes = finish_probe_build(probe_job)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "built": sorted(built), "flags": " ".join(cuda.NVCC_FLAGS)})
     for stem, rep in built.items():
@@ -1136,12 +1427,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{stem}]: {line.strip()}")
 
+    split_phase(torch, ysb, probes)
+    if args.split_only:
+        return 0
     rows = kernel_phase(torch, ysb)
+    rows.update(partials_kernel_phase(torch, ysb))
     rows.update(nexmark_kernel_phase(torch))
     fold_row = repair_checks(torch)
     main_launches = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     ysb_loop_phase(torch, wt, ysb, card, args.profile)
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
+    ysb_loop_phase(torch, wt, ysb, card, args.profile, name="ysb_sum_loop",
+                   make_ops=ysb.make_ops_sum, steps=SUM_LOOP_STEPS)
     nex_launches = nexmark_pipeline_phase(torch, np, wt, registry)
     nexmark_loop_phase(torch, wt, card, args.profile)
     q3_full_width_phase(torch, np, wt, registry, card, args.profile)

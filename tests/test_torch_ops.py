@@ -56,11 +56,34 @@ def _hist_case(name):
     elif name == "odd_capacity":
         C = 1000
         key, pane, valid = key[:C], pane[:C], valid[:C]
+    elif name == "span_past_window":
+        # panes spread over a million: every chunk spans more than a window
+        pane = rng.integers(0, 10 ** 6, C).astype(np.int32)
+        local = False
+    elif name == "one_cell":
+        key = np.full(C, 3, np.int32)
+        pane = np.full(C, 17, np.int32)
+    elif name == "panes_near_int32_limits":
+        # the first half climbs to INT32_MAX, the second starts at INT32_MIN;
+        # each 1024-lane chunk stays on one side
+        half = C // 2
+        top = np.iinfo(np.int32).max - (np.arange(half)[::-1] // 300)
+        bottom = np.iinfo(np.int32).min + np.arange(half) // 300
+        pane = np.concatenate([top, bottom]).astype(np.int32)
+    elif name == "ysb_like_stream":
+        # YSB's shape at C = 2^14: 100 campaigns, 1000-event panes, a view in
+        # three events, the full 4096-pane ring
+        C, K, P = 1 << 14, 100, 4096
+        key = rng.integers(0, K, C).astype(np.int32)
+        valid = rng.random(C) < 1 / 3
+        pane = (np.arange(C) // 1000 + 4090).astype(np.int32)
     return key, pane, valid, K, P, local
 
 
 HIST_CASES = ["sorted", "wraparound", "negative_panes", "keys_out_of_range",
-              "locality_violation", "p_less_than_l", "all_invalid", "odd_capacity"]
+              "locality_violation", "p_less_than_l", "all_invalid", "odd_capacity",
+              "span_past_window", "one_cell", "panes_near_int32_limits",
+              "ysb_like_stream"]
 
 
 @pytest.mark.parametrize("case", HIST_CASES)
@@ -139,10 +162,19 @@ def test_lookup_empty_table_gives_zeros():
 
 # ------------------------------------------------------------------ K3 segment_fold
 
+#: the kernel's regimes, as CPU cases of the plain version: S = 1; S one past
+#: the direct path's 16384 shared-memory partials; S = 2^20, where every lane
+#: takes a global atomic; every lane on one segment with values that wrap
 FOLD_CASES = [("int32_wrap", np.int32, 1000), ("int32_wrap", np.int32, 4096),
               ("int32_wrap", np.int32, 5000), ("int8", np.int8, 300),
               ("int16", np.int16, 4096), ("uint8", np.uint8, 777),
-              ("segs_out_of_range", np.int32, 2000)]
+              ("segs_out_of_range", np.int32, 2000), ("int32_wrap", np.int32, 1),
+              ("int32_wrap", np.int32, 16385), ("int32_wrap", np.int32, 1 << 20),
+              ("one_segment_wrap", np.int32, 50)]
+
+#: the largest S the Pallas form runs for here in interpret mode (its one-hot
+#: tiles grow with S)
+FOLD_INTERPRET_MAX_S = 20000
 
 
 @pytest.mark.parametrize("case,dtype,S", FOLD_CASES)
@@ -150,7 +182,7 @@ def test_segment_fold_matches_jax(case, dtype, S):
     rng = np.random.default_rng(S)
     C = 4096
     info = np.iinfo(dtype)
-    if case == "int32_wrap":
+    if case in ("int32_wrap", "one_segment_wrap"):
         # values near +-2^31: every segment sum overflows and wraps
         values = np.where(rng.random(C) < 0.5, info.max - rng.integers(0, 1000, C),
                           info.min + rng.integers(0, 1000, C)).astype(dtype)
@@ -158,13 +190,16 @@ def test_segment_fold_matches_jax(case, dtype, S):
         values = rng.integers(info.min, int(info.max) + 1, C).astype(dtype)
     lo, hi = (-20, S + 20) if case == "segs_out_of_range" else (0, S)
     seg = rng.integers(lo, hi, C).astype(np.int32)
+    if case == "one_segment_wrap":
+        seg = np.full(C, 7, np.int32)
     valid = rng.random(C) < 0.8
     got = ts.segment_fold(_t(values), _t(seg), _t(valid), S).numpy()
     assert got.dtype == dtype and got.shape == (S,)
     jv, jsg, jok = jnp.asarray(values), jnp.asarray(seg), jnp.asarray(valid)
     np.testing.assert_array_equal(got, np.asarray(js.segment_fold(jv, jsg, jok, S)))
-    np.testing.assert_array_equal(got, np.asarray(
-        js._pallas_segment_fold(jv, jsg, jok, S, interpret=True)))
+    if S <= FOLD_INTERPRET_MAX_S:
+        np.testing.assert_array_equal(got, np.asarray(
+            js._pallas_segment_fold(jv, jsg, jok, S, interpret=True)))
 
 
 def test_segment_reduce_sum_and_unported_combine():

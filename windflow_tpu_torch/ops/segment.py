@@ -8,7 +8,10 @@ max/min and general associative combines, and :func:`segment_rank`
 ``segment_prefix_scan`` is not ported yet (ROADMAP Queue 1 item 9).
 
 :func:`segment_fold` on integer values of at most 4 bytes is the hand-written
-CUDA kernel ``csrc/segment.cu`` (kernel K3) on a CUDA tensor and the plain
+CUDA kernel ``csrc/segment.cu`` (kernel K3: block-private partials in shared
+memory, a direct ``[S]`` array where S is small, flushed through a
+workspace and one grid barrier up to S = 512; one global atomic a lane
+otherwise; :func:`segment_fold_plan` reports the launch) on a CUDA tensor and the plain
 PyTorch version beside it on a CPU tensor. Both sum in wrapping int32
 arithmetic, so they equal XLA's integer ``segment_sum`` bit for bit, overflow
 included, and a narrower input dtype is cast back at the end. The JAX kernel
@@ -28,6 +31,7 @@ stream order. Its bits equal the CPU's on every run.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, Callable
 
 import torch
@@ -37,8 +41,15 @@ from ..batch import tree_map
 from .registry import count_launch
 
 #: C signature of the kernel's entry point (pointers and the stream as void*)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+#: C signature of the plan query (n, S, dtype, six out-pointers)
+_PLAN_ARGTYPES = ([ctypes.c_longlong] + [ctypes.c_int] * 2
+                  + [ctypes.POINTER(ctypes.c_int)] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
+
+#: K3's paths and flushes, by the codes its C plan reports
+FOLD_PATHS = ("direct", "global")
+FOLD_FLUSHES = ("workspace_reduce", "atomic")
 
 #: integer dtypes K3 takes, with the code its C entry point expects
 _FOLD_DTYPES = {torch.int32: 0, torch.int16: 1, torch.int8: 2, torch.uint8: 3}
@@ -77,8 +88,38 @@ def segment_fold_plain(values, seg, valid, S: int) -> torch.Tensor:
     return wrapped.to(torch.int32).to(values.dtype)
 
 
-def segment_fold_cuda(values, seg, valid, S: int) -> torch.Tensor:
-    """Launch K3 on ``values``' card. Raises on anything the kernel does not take."""
+@functools.lru_cache(maxsize=256)
+def _plan(device_index: int, n: int, S: int, code: int) -> dict:
+    out = [ctypes.c_int(0) for _ in range(5)]
+    ws = ctypes.c_longlong(0)
+    fn = cuda.function("segment", "wf_segment_fold_plan", _PLAN_ARGTYPES)
+    with torch.cuda.device(device_index):
+        cuda.check(fn(n, S, code, *(ctypes.byref(o) for o in out),
+                      ctypes.byref(ws)), "segment_fold_plan")
+    grid, smem, chosen, flushed, tile = (o.value for o in out)
+    return {"grid": grid, "smem": smem, "tile": tile, "path": FOLD_PATHS[chosen],
+            "flush": FOLD_FLUSHES[flushed], "ws_ints": ws.value,
+            "zero": "memset" if flushed else "none"}
+
+
+def segment_fold_plan(n: int, S: int, dtype=torch.int32, *, device=None) -> dict:
+    """K3's launch for ``n`` lanes of ``dtype`` into ``S`` segments on the
+    card: ``{"grid": CTAs, "smem": dynamic shared bytes a CTA, "tile": lanes
+    a tile, "path": "direct" or "global", "flush": "workspace_reduce" (every
+    output cell written once after a grid barrier) or "atomic" (into an
+    output zeroed by a memset), "ws_ints": int32 workspace, "zero": "memset"
+    or "none"}``."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return dict(_plan(index, int(n), int(S), _FOLD_DTYPES[dtype]))
+
+
+def segment_fold_cuda(values, seg, valid, S: int, *, stats=None) -> torch.Tensor:
+    """Launch K3 on ``values``' card. Raises on anything the kernel does not
+    take. ``stats``: None, or an int32 ``[3]`` tensor on the card to which the
+    launch adds the counts named by ``histogram.STATS``: tiles on the direct
+    path, tiles on the global path (each lane adds straight to the output)
+    and (always 0 here) empty tiles."""
     n = values.shape[0]
     dev = values.device
     for name, t, ok_dtype in (("values", values, values.dtype in _FOLD_DTYPES),
@@ -92,14 +133,21 @@ def segment_fold_cuda(values, seg, valid, S: int) -> torch.Tensor:
                 f"bool), got {t.dtype} {tuple(t.shape)} on {t.device}")
     if S < 0 or S >= 2 ** 31:
         raise ValueError(f"segment_fold_cuda: bad segment count {S}")
-    out = torch.zeros((S,), dtype=torch.int32, device=dev)
     if n == 0 or S == 0:
-        return out.to(values.dtype)
+        return torch.zeros((S,), dtype=values.dtype, device=dev)
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int32
+                              or stats.shape != (3,)):
+        raise ValueError("segment_fold_cuda: stats must be an int32 [3] tensor on the card")
+    plan = segment_fold_plan(n, S, values.dtype, device=dev)
+    out = torch.empty((S,), dtype=torch.int32, device=dev)
+    ws = torch.empty((plan["ws_ints"],), dtype=torch.int32, device=dev) \
+        if plan["ws_ints"] else None
     fn = cuda.function("segment", "wf_segment_fold", _ARGTYPES)
     count_launch("segment_fold")
     cuda.check(fn(cuda.ptr(values), _FOLD_DTYPES[values.dtype], cuda.ptr(seg),
-                  cuda.ptr(valid), cuda.ptr(out), n, S, cuda.stream_ptr(dev)),
-               "segment_fold_cuda")
+                  cuda.ptr(valid), cuda.ptr(out), None if ws is None else cuda.ptr(ws),
+                  None if stats is None else cuda.ptr(stats), n, S,
+                  cuda.stream_ptr(dev)), "segment_fold_cuda")
     return out if values.dtype == torch.int32 else out.to(values.dtype)
 
 
