@@ -4,9 +4,8 @@
 Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py              # the default run, one card
-    python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of the
-                                       # YSB, YSB-sum, q3, q6 and window-path
-                                       # loop steps
+    python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
+                                       # every loop's steps, captured and eager
     python3 chip_smoke.py --split-only # phases 1-3's split of K1's and K3's
                                        # time, then stops (no result line);
                                        # copied with PROBES_SRC into another
@@ -50,35 +49,53 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 4. YSB at full width through ``Pipeline(...).run()`` and a host ``Sink``:
    2^20-event batches with ``bench.py``'s geometry, every per-window count
    against a numpy dense oracle, and K1 and K2 launched once per batch;
-5. YSB through the ``device_cursor_step`` loop: tuples/s and ms/step;
-6. YSB-sum (Key_FFAT summing an int32 field) for a few batches: dense-oracle
-   check and K3's launches; then YSB-sum through the loop;
-7. Nexmark q1, q2, q3, q6, q7 through ``Pipeline(...).run()`` at
-   ``bench_nexmark``'s batch (2^14) for 16 batches: every sink row against
-   the dense oracle, and the exact K4 and K5 launches of each query;
-8. the same five queries through the ``device_cursor_step`` loop: tuples/s
-   and ms/step;
-9. q3 at full width (2^20-event batches, 2048 auctions): tuples/s, and
-   every emitted row against a numpy int32 oracle;
-10. K6 (masked_window_reduce) at ``bench.py::bench_pallas_ab``'s shapes and
+   first with scan dispatch off, then at K = 3 (``dispatch=3``: 8 batches in
+   groups of 3, 3 and 2, so the K = 3 graph replays twice and the K = 2
+   tail graph once), whose sink rows must equal the first run's byte for
+   byte, with the same launches counted through the replays. Every
+   Pipeline phase below runs the same pair (``DISPATCH_K``), logs each
+   run's peak device memory, and checks the graphs' replays. No chain here
+   has a float reduction whose order is not fixed (K6 and the float fold sum
+   in a fixed order, every other sum is an integer one), so byte identity
+   is the check;
+5. YSB through the ``device_cursor_step`` loop, captured (the whole step one
+   CUDA graph replay), then the eager step on a fresh chain (the plain loop
+   of ``apply`` that was timed before scan dispatch): tuples/s and ms/step
+   of both. Every loop phase below times both forms, and checks its oracle
+   and launches on the captured one;
+6. YSB-sum (Key_FFAT summing an int32 field) for 4 batches, dispatch off
+   and at K = 2: dense-oracle check and K3's launches; then YSB-sum through
+   the loop;
+7. ``bench.py::bench_dispatch``'s counterpart: its Map -> Filter ->
+   ReduceSink chain over 96 batches of 2^18, per batch and at K = 8 in
+   turns: tuples/s, the entry op's launches a batch, equal results;
+8. Nexmark q1, q2, q3, q6, q7 through ``Pipeline(...).run()`` at
+   ``bench_nexmark``'s batch (2^14) for 16 batches, dispatch off and at
+   K = 5: every sink row against the dense oracle, and the exact K4 and K5
+   launches of each query;
+9. the same five queries through the loop;
+10. q3 at full width (2^20-event batches, 2048 auctions): 4 batches through
+    ``Pipeline(...).run()``, dispatch off and at K = 2, then the loop; every
+    emitted row against a numpy int32 oracle;
+11. K6 (masked_window_reduce) at ``bench.py::bench_pallas_ab``'s shapes and
     at the window paths' shapes: bit-identical to its plain version on int32
     and integer-valued float32, within rtol = atol = 1e-4 on random float32,
     the same bits on two launches; its time, its bound and the time of
     ``torch.sum(torch.where(mask, vals, 0), dim=1)``;
-11. path A, the windowed-operator matrix at full width (``bench_keyed_cb``'s
-    geometry through Key_Farm): ``Pipeline(...).run()`` of 4 batches of 2^20
-    against a numpy oracle of all 8192 windows, then the
-    ``device_cursor_step`` loop; K2, K3 and K6 once per apply, K6 alone in
-    the flush;
-12. path B, YSB-WMR at ``bench_ysb_wmr``'s geometry: ``Pipeline(...).run()``
-    against a dense per-window count and the stream's view total, then the
-    loop with ``bench_ysb_wmr``'s undercount self-check; K2 three times, K3
-    and K6 once per apply, K6 alone in the flush;
-13. the other window patterns at small depth (Win_Farm, Pane_Farm CB and
+12. path A, the windowed-operator matrix at full width (``bench_keyed_cb``'s
+    geometry through Key_Farm): ``Pipeline(...).run()`` of 4 batches of 2^20,
+    dispatch off and at K = 2, against a numpy oracle of all 8192 windows,
+    then the loop; K2, K3 and K6 once per apply, K6 alone in the flush;
+13. path B, YSB-WMR at ``bench_ysb_wmr``'s geometry: ``Pipeline(...).run()``,
+    dispatch off and at K = 2, against a dense per-window count and the
+    stream's view total, then the loop with ``bench_ysb_wmr``'s undercount
+    self-check; K2 three times, K3 and K6 once per apply, K6 alone in the
+    flush;
+14. the other window patterns at small depth (Win_Farm, Pane_Farm CB and
     TB, Win_MapReduce with a K6 MAP, Win_Farm(Pane_Farm), Key_Farm(Win_MapReduce),
     an incremental fold, a TB window with lateness), each against a plain
     Win_Seq run on the card or a Python oracle;
-14. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+15. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
     fixed-order float fold), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -97,7 +114,7 @@ YSB_BATCHES = 8           # batches of the Pipeline.run phase (plus the flush)
 LOOP_STEPS = 40           # timed steps of the device_cursor_step loop
 PROFILE_STEPS = 5         # profiled steps after a loop (--profile); the sources
                           # are sized so that these steps read real events
-SUM_BATCHES = 3           # batches of the YSB-sum phase
+SUM_BATCHES = 4           # batches of the YSB-sum phase
 SUM_LOOP_STEPS = 20       # timed steps of the YSB-sum loop
 NEX_BATCH = 1 << 14       # bench.py::bench_nexmark's batch
 NEX_BATCHES = 16          # batches of the Nexmark Pipeline phase (262,144 events)
@@ -107,6 +124,15 @@ WIN_KEYS = 512            # path A: bench.py::bench_keyed_cb's keys and windows
 WIN_LEN, WIN_SLIDE = 1024, 512
 WIN_BATCHES = 4           # batches of the path A and B Pipeline phases (plus the flush)
 WIN_STEPS = 20            # timed steps of the path A and B loops
+Q3_BATCHES = 4            # batches of the q3 full-width Pipeline phase
+#: scan dispatch's K in each Pipeline phase's dispatch run: YSB 8 batches at
+#: 3 (groups 3, 3, 2: a tail graph), the Nexmark queries 16 at 5 (a tail of
+#: 1, which is push), the others 4 at 2
+DISPATCH_K = {"ysb": 3, "ysb_sum": 2, "nexmark": 5, "q3_full": 2, "path_a": 2,
+              "path_b": 2}
+BENCH_DISPATCH_BATCHES = 96     # bench.py::bench_dispatch: 96 batches of 2^18
+BENCH_DISPATCH_BATCH = 1 << 18  # (BATCH // 4) at K = 8
+BENCH_DISPATCH_K = 8
 WMR_WIN_LEN = 1000        # path B: bench.py::bench_ysb_wmr's window (ticks)
 WMR_MAP = 4               # and its map_parallelism
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
@@ -807,66 +833,74 @@ def nexmark_rows(np, name, views):
 
 
 def nexmark_pipeline_phase(torch, np, wt, registry):
+    """The five queries through Pipeline.run, dispatch off and at K = 5 (16
+    batches: three replays and a tail of one, which is ``push``): every
+    sink row against the dense oracle, exact K4 and K5 launches, and the
+    two runs' rows byte for byte."""
     from windflow_tpu_torch.nexmark import PORTED, make_query, oracles
 
     total = NEX_BATCHES * NEX_BATCH
+    k_on = DISPATCH_K["nexmark"]
     launches = dict.fromkeys(registry.KERNELS, 0)
     for name in PORTED:
-        src, ops = make_query(name, total)
-        views = []
-        pipe = wt.Pipeline(src, ops, wt.Sink(lambda v: views.append(v)),
-                           batch_size=NEX_BATCH)
-        registry.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = registry.launch_counts()
-        for k, n in counts.items():
-            launches[k] += n
-        got = nexmark_rows(np, name, [v for v in views if v is not None])
         want = oracles.ORACLES[name](total)
-        log({"phase": "nexmark_pipeline", "query": name, "batches": NEX_BATCHES,
-             "batch": NEX_BATCH, "rows": len(got), "run_s": dt,
-             "tuples_per_s": total / dt, "launches": counts})
-        if got != want:
-            bad = sorted(set(got) ^ set(want))[:5]
-            raise AssertionError(f"{name}: sink rows differ from the dense oracle: {bad}")
-        expect = {k: NEX_LAUNCHES[name].get(k, 0) for k in counts}
-        if counts != expect:
-            raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+        runs = {}
+        for k in (None, k_on):
+            src, ops = make_query(name, total)
+            views = []
+            pipe = wt.Pipeline(src, ops, wt.Sink(lambda v: views.append(v)),
+                               batch_size=NEX_BATCH, dispatch=k or False)
+            counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+            views = [v for v in views if v is not None]
+            got = nexmark_rows(np, name, views)
+            log({"phase": "nexmark_pipeline", "query": name, "dispatch": k,
+                 "batches": NEX_BATCHES, "batch": NEX_BATCH, "rows": len(got),
+                 "run_s": dt, "tuples_per_s": total / dt, "launches": counts,
+                 "peak_mib": peak / 2 ** 20})
+            if got != want:
+                bad = sorted(set(got) ^ set(want))[:5]
+                raise AssertionError(f"{name}: sink rows differ from the dense oracle: {bad}")
+            expect = {c: NEX_LAUNCHES[name].get(c, 0) for c in counts}
+            if counts != expect:
+                raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+            runs[k] = (views, counts, pipe.chain.graphs)
+        check_dispatch(np, f"nexmark_{name}", k_on, NEX_BATCHES, runs[None][:2],
+                       runs[k_on][:2], runs[k_on][2])
+        for c, n in runs[None][1].items():
+            launches[c] += n
     return launches
 
 
 def nexmark_loop_phase(torch, wt, card, profile):
+    """Each query through the captured ``device_cursor_step`` loop, then the
+    eager step on a fresh chain: tuples/s and ms/step of both."""
     from windflow_tpu_torch.benchmarks import device_cursor_step
     from windflow_tpu_torch.nexmark import PORTED, make_query
 
     warm = 2
     for name in PORTED:
-        src, ops = make_query(name, (NEX_STEPS + warm + PROFILE_STEPS) * NEX_BATCH)
-        chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=NEX_BATCH,
-                                 event_time=False)
+        def make():
+            src, ops = make_query(name, (NEX_STEPS + warm + PROFILE_STEPS) * NEX_BATCH)
+            return src, wt.CompiledChain(ops, src.payload_spec(), batch_capacity=NEX_BATCH,
+                                         event_time=False)
+        src, chain = make()
         step = device_cursor_step(chain, src, NEX_BATCH)
         states = tuple(chain.states)
         cur = torch.zeros((), dtype=torch.int32, device="cuda")
         for _ in range(warm):
             states, cur, _ = step(states, cur)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(NEX_STEPS):
-            states, cur, out = step(states, cur)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        log({"phase": "nexmark_loop", "query": name, "steps": NEX_STEPS,
-             "batch": NEX_BATCH, "tuples_per_s": NEX_STEPS * NEX_BATCH / dt,
-             "ms_per_step": dt / NEX_STEPS * 1e3, "card": card})
+        states, cur, out, ms = timed_steps(torch, step, states, cur, NEX_STEPS)
         if int(cur) != (NEX_STEPS + warm) * NEX_BATCH:
             raise AssertionError(f"{name} loop: unexpected cursor {int(cur)}")
-        if profile and name in ("q3_enrich_join", "q6_topn"):
-            profile_steps(torch, f"nexmark_loop_{name}", step, states, cur,
-                          dt / NEX_STEPS * 1e3)
+        if profile:
+            profile_steps(torch, f"nexmark_loop_{name}", step, states, cur, ms)
+        row = {"phase": "nexmark_loop", "query": name, "steps": NEX_STEPS,
+               "batch": NEX_BATCH, "tuples_per_s": NEX_BATCH / ms * 1e3,
+               "ms_per_step": ms, "graph_launches": step.graph.launches, "card": card}
+        del step, states, chain, src
+        row["eager_ms_per_step"] = eager_loop(torch, make, NEX_BATCH, warm, NEX_STEPS,
+                                              f"nexmark_loop_{name}", profile)
+        log(row)
 
 
 def q3_oracle_np(np, start, n):
@@ -880,17 +914,58 @@ def q3_oracle_np(np, start, n):
     return i >= Q3_AUCTIONS, auction, category, price
 
 
+def q3_pipeline_phase(torch, np, wt, registry):
+    """q3 at full width (2^20-event batches, 2048 auctions) through
+    Pipeline.run, dispatch off and at K = 2 over ``Q3_BATCHES`` batches:
+    every emitted row against the numpy int32 oracle, K5 twice a batch, the
+    rows byte for byte."""
+    from windflow_tpu_torch.nexmark import make_query
+
+    total = Q3_BATCHES * BATCH
+    emit, a, c, p = q3_oracle_np(np, 0, total)
+    want = {"id": np.arange(total, dtype=np.int32)[emit], "auction": a[emit],
+            "category": c[emit], "price": p[emit]}
+    runs = {}
+    for k in (None, DISPATCH_K["q3_full"]):
+        src, ops = make_query("q3_enrich_join", total, n_auctions=Q3_AUCTIONS)
+        views = []
+        pipe = wt.Pipeline(src, ops, wt.Sink(lambda v: views.append(v)), batch_size=BATCH,
+                           dispatch=k or False)
+        launches, dt, peak = run_pipeline(torch, registry, pipe, k)
+        views = [v for v in views if v is not None]
+        got = {"id": np.concatenate([v["id"] for v in views])}
+        for f in ("auction", "category", "price"):
+            got[f] = np.concatenate([v["payload"][f] for v in views])
+        log({"phase": "q3_full_width_pipeline", "dispatch": k, "batches": Q3_BATCHES,
+             "batch": BATCH, "rows": len(got["id"]), "run_s": dt,
+             "tuples_per_s": total / dt, "launches": launches, "peak_mib": peak / 2 ** 20})
+        for f, w in want.items():
+            if not np.array_equal(got[f], w):
+                raise AssertionError(f"q3 full width pipeline: {f} differs from the oracle")
+        expect_launches("q3 full width pipeline", launches, {"join_probe": 2}, Q3_BATCHES)
+        runs[k] = (views, launches, pipe.chain.graphs)
+    k = DISPATCH_K["q3_full"]
+    check_dispatch(np, "q3_full_width", k, Q3_BATCHES, runs[None][:2], runs[k][:2],
+                   runs[k][2])
+
+
 def q3_full_width_phase(torch, np, wt, registry, card, profile):
+    """q3 at full width through the captured loop (every emitted row of
+    every step against the oracle, K5 twice a step), then the eager step."""
     from windflow_tpu_torch.benchmarks import device_cursor_step
     from windflow_tpu_torch.nexmark import make_query
 
     warm = 2
-    total = (NEX_STEPS + warm + PROFILE_STEPS) * BATCH
-    src, ops = make_query("q3_enrich_join", total, n_auctions=Q3_AUCTIONS)
-    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH,
-                             event_time=False)
-    step = device_cursor_step(chain, src, BATCH, out_fn=lambda b: (
-        b.valid, b.id, b.payload["auction"], b.payload["category"], b.payload["price"]))
+    out_fn = lambda b: (b.valid, b.id, b.payload["auction"],  # noqa: E731
+                        b.payload["category"], b.payload["price"])
+
+    def make():
+        src, ops = make_query("q3_enrich_join", (NEX_STEPS + warm + PROFILE_STEPS) * BATCH,
+                              n_auctions=Q3_AUCTIONS)
+        return src, wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH,
+                                     event_time=False)
+    src, chain = make()
+    step = device_cursor_step(chain, src, BATCH, out_fn=out_fn)
     states = tuple(chain.states)
     cur = torch.zeros((), dtype=torch.int32, device="cuda")
     outs = []
@@ -899,12 +974,7 @@ def q3_full_width_phase(torch, np, wt, registry, card, profile):
         outs.append(out)
     torch.cuda.synchronize()
     registry.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(NEX_STEPS):
-        states, cur, out = step(states, cur)
-        outs.append(out)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    states, cur, out, ms = timed_steps(torch, step, states, cur, NEX_STEPS, outs)
     launches = registry.launch_counts()
     rows = 0
     for s, (valid, ids, auction, category, price) in enumerate(outs):
@@ -919,18 +989,116 @@ def q3_full_width_phase(torch, np, wt, registry, card, profile):
                 raise AssertionError(f"q3 full width, step {s}: {name} differs")
         rows += int(v.sum())
     st = states[0]
-    log({"phase": "q3_full_width", "steps": NEX_STEPS, "batch": BATCH,
-         "auctions": Q3_AUCTIONS, "tuples_per_s": NEX_STEPS * BATCH / dt,
-         "ms_per_step": dt / NEX_STEPS * 1e3, "rows_checked": rows,
-         "table_used": int(st["used"].sum()), "dropped": int(st["dropped"]),
-         "launches": launches, "card": card})
+    row = {"phase": "q3_full_width", "steps": NEX_STEPS, "batch": BATCH,
+           "auctions": Q3_AUCTIONS, "tuples_per_s": BATCH / ms * 1e3,
+           "ms_per_step": ms, "rows_checked": rows,
+           "table_used": int(st["used"].sum()), "dropped": int(st["dropped"]),
+           "launches": launches, "card": card}
     if launches["join_probe"] != 2 * NEX_STEPS or int(st["dropped"]) != 0 \
             or int(st["used"].sum()) != Q3_AUCTIONS:
         raise AssertionError(f"q3 full width: launches {launches}, table "
                              f"{int(st['used'].sum())} used, {int(st['dropped'])} dropped")
+    del outs
     if profile:
-        del outs
-        profile_steps(torch, "q3_full_width", step, states, cur, dt / NEX_STEPS * 1e3)
+        profile_steps(torch, "q3_full_width", step, states, cur, ms)
+    del step, states, chain, src, st
+    row["eager_ms_per_step"] = eager_loop(torch, make, BATCH, warm, NEX_STEPS,
+                                          "q3_full_width", profile, out_fn)
+    log(row)
+
+
+def flat_bytes(np, tree):
+    """Every array of a tree of sink rows in order, as (dtype, shape, bytes):
+    what a byte-for-byte comparison of two runs compares."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flat_bytes(np, tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in flat_bytes(np, t)]
+    a = np.asarray(tree)
+    return [(a.dtype.str, a.shape, a.tobytes())]
+
+
+def run_pipeline(torch, registry, pipe, k=None):
+    """``pipe.run()`` with the launches counted from zero: (launches, run
+    seconds, peak device bytes). With scan dispatch at ``k``, the K-step graph
+    is captured first (``warm_scan``, whose eager warm-up step launches each
+    kernel once before the counts are zeroed)."""
+    if k:
+        pipe.chain.warm_scan(k, pipe.source.out_capacity(pipe.batch_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    return registry.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def check_dispatch(np, what, k, batches, off, on, graphs):
+    """A dispatch run against the dispatch-off run of the same phase
+    (``off``/``on``: (sink rows, launches)): the sink rows byte for byte,
+    the same launches, and the graphs replayed as the groups fall (the
+    full-K graph at least twice, a tail of more than one batch once; a tail
+    of one is ``push``). ``graphs``: the dispatch run's ``chain.graphs``."""
+    replays = {kk: g.replays for (_, kk, _), g in graphs.items()}
+    want = {k: batches // k}
+    if batches % k > 1:
+        want[batches % k] = 1
+    same = flat_bytes(np, on[0]) == flat_bytes(np, off[0])
+    row = {"phase": f"{what}_dispatch_check", "k": k, "batches": batches,
+           "replays": replays, "rows_byte_identical": same,
+           "graph_launches": {kk: g.launches for (_, kk, _), g in graphs.items()}}
+    log(row)
+    if replays != want or want[k] < 2:
+        raise AssertionError(f"{what} dispatch: graph replays {replays}, expected {want}")
+    if on[1] != off[1]:
+        raise AssertionError(f"{what} dispatch: launches {on[1]}, dispatch off {off[1]}")
+    if not same:
+        raise AssertionError(f"{what} dispatch: sink rows differ from the dispatch-off run")
+    return row
+
+
+def eager_cursor_step(src, chain, batch, out_fn=None):
+    """The bench step as it ran before scan dispatch: ``make_batch`` and
+    every ``apply`` launched op by op from the host (the plain loop that
+    ``device_cursor_step`` now captures on the card)."""
+    out_fn = out_fn or (lambda b: b.valid)
+
+    def step(states, cur):
+        b = src.make_batch(cur, batch)
+        states = list(states)
+        for j, op in enumerate(chain.ops):
+            states[j], b = op.apply(states[j], b)
+        return tuple(states), cur + batch, out_fn(b)
+    return step
+
+
+def timed_steps(torch, step, states, cur, n, outs=None):
+    """``n`` steps between two synchronizes: (states, cur, last out, ms a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(n):
+        states, cur, out = step(states, cur)
+        if outs is not None:
+            outs.append(out)
+    torch.cuda.synchronize()
+    return states, cur, out, (time.perf_counter() - t0) / n * 1e3
+
+
+def eager_loop(torch, make, batch, warm, steps, name, profile, out_fn=None):
+    """ms a step of the eager step on a fresh chain (``make() -> (src,
+    chain)``), after ``warm`` steps; ``--profile`` profiles it too."""
+    src, chain = make()
+    step = eager_cursor_step(src, chain, batch, out_fn)
+    states = tuple(chain.states)
+    cur = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(warm):
+        states, cur, _ = step(states, cur)
+    states, cur, _, ms = timed_steps(torch, step, states, cur, steps)
+    if profile:
+        profile_steps(torch, f"{name}_eager", step, states, cur, ms)
+    return ms
 
 
 def collect_sink():
@@ -950,33 +1118,37 @@ def as_dict(np, parts):
 
 
 def ysb_pipeline_phase(torch, np, wt, ysb, registry):
+    """YSB at full width through Pipeline.run, dispatch off and then at
+    ``DISPATCH_K["ysb"]`` (8 batches at K = 3: groups of 3, 3 and a tail
+    graph of 2): every per-window count against the dense oracle, K1 and K2
+    once per batch, and the two runs' sink rows byte for byte."""
     total = YSB_BATCHES * BATCH
-    ops = ysb.make_ops(**ysb.bench_geometry(BATCH))
-    parts, cb = collect_sink()
-    pipe = wt.Pipeline(ysb.make_source(total), ops, wt.Sink(cb), batch_size=BATCH)
-    registry.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = registry.launch_counts()
-    got = as_dict(np, parts)
     want = ysb.dense_oracle(total)
-    row = {"phase": "ysb_pipeline", "batches": YSB_BATCHES, "batch": BATCH,
-           "P": ops[-1].P, "max_wins": ops[-1].max_wins,
-           "count_lift": ops[-1].count_lift, "windows": len(got),
-           "total": sum(got.values()), "oracle_total": ysb.oracle_totals(total),
-           "run_s": dt, "tuples_per_s": total / dt, "launches": launches}
-    log(row)
-    if ops[-1].count_lift is not True:
-        raise AssertionError("YSB's lift was not detected as a count lift")
-    if got != want:
-        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
-        raise AssertionError(f"YSB per-window counts differ from the dense oracle: {bad}")
-    if launches["histogram"] != YSB_BATCHES or launches["lookup"] != YSB_BATCHES:
-        raise AssertionError(f"expected K1 and K2 once per batch, got {launches}")
-    return launches
+    runs = {}
+    for k in (None, DISPATCH_K["ysb"]):
+        ops = ysb.make_ops(**ysb.bench_geometry(BATCH))
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(ysb.make_source(total), ops, wt.Sink(cb), batch_size=BATCH,
+                           dispatch=k or False)
+        launches, dt, peak = run_pipeline(torch, registry, pipe, k)
+        got = as_dict(np, parts)
+        log({"phase": "ysb_pipeline", "dispatch": k, "batches": YSB_BATCHES,
+             "batch": BATCH, "P": ops[-1].P, "max_wins": ops[-1].max_wins,
+             "count_lift": ops[-1].count_lift, "windows": len(got),
+             "total": sum(got.values()), "oracle_total": ysb.oracle_totals(total),
+             "run_s": dt, "tuples_per_s": total / dt, "launches": launches,
+             "peak_mib": peak / 2 ** 20})
+        if ops[-1].count_lift is not True:
+            raise AssertionError("YSB's lift was not detected as a count lift")
+        if got != want:
+            bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+            raise AssertionError(f"YSB per-window counts differ from the dense oracle: {bad}")
+        if launches["histogram"] != YSB_BATCHES or launches["lookup"] != YSB_BATCHES:
+            raise AssertionError(f"expected K1 and K2 once per batch, got {launches}")
+        runs[k] = (parts, launches, pipe.chain.graphs)
+    check_dispatch(np, "ysb", DISPATCH_K["ysb"], YSB_BATCHES, runs[None][:2],
+                   runs[DISPATCH_K["ysb"]][:2], runs[DISPATCH_K["ysb"]][2])
+    return runs[None][1]
 
 
 def profile_steps(torch, phase, step, states, cur, ms_per_step, n=PROFILE_STEPS):
@@ -1002,53 +1174,60 @@ def profile_steps(torch, phase, step, states, cur, ms_per_step, n=PROFILE_STEPS)
 def ysb_loop_phase(torch, wt, ysb, card, profile, name="ysb_loop", make_ops=None,
                    steps=LOOP_STEPS):
     """The YSB chain (or, with ``make_ops=ysb.make_ops_sum``, YSB-sum)
-    through the ``device_cursor_step`` loop: tuples/s and ms/step."""
+    through the captured ``device_cursor_step`` loop, then the eager step
+    on a fresh chain: tuples/s and ms/step of both."""
     from windflow_tpu_torch.benchmarks import device_cursor_step
 
     warm = 3
-    src = ysb.make_source((steps + warm + PROFILE_STEPS) * BATCH)
-    ops = (make_ops or ysb.make_ops)(**ysb.bench_geometry(BATCH))
-    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH)
+
+    def make():
+        src = ysb.make_source((steps + warm + PROFILE_STEPS) * BATCH)
+        ops = (make_ops or ysb.make_ops)(**ysb.bench_geometry(BATCH))
+        return src, wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH)
+    src, chain = make()
     step = device_cursor_step(chain, src, BATCH)
     states = tuple(chain.states)
     cur = torch.zeros((), dtype=torch.int32, device="cuda")
     for _ in range(warm):
         states, cur, _ = step(states, cur)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        states, cur, out = step(states, cur)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    states, cur, out, ms = timed_steps(torch, step, states, cur, steps)
     win = states[-1]
     row = {"phase": name, "steps": steps, "batch": BATCH,
-           "tuples_per_s": steps * BATCH / dt, "ms_per_step": dt / steps * 1e3,
+           "tuples_per_s": BATCH / ms * 1e3, "ms_per_step": ms,
+           "graph_launches": step.graph.launches,
            "dropped_old": int(win.dropped_old), "card": card}
-    log(row)
     if int(win.dropped_old) != 0 or int(cur) != (steps + warm) * BATCH:
         raise AssertionError(f"{name}: unexpected drops or cursor")
     if profile:
-        profile_steps(torch, name, step, states, cur, row["ms_per_step"])
+        profile_steps(torch, name, step, states, cur, ms)
+    del step, states, chain, src
+    row["eager_ms_per_step"] = eager_loop(torch, make, BATCH, warm, steps, name, profile)
+    log(row)
 
 
 def ysb_sum_phase(torch, np, wt, ysb, registry):
+    """YSB-sum through Pipeline.run, dispatch off and at K = 2: the dense
+    oracle, K3 once per batch, the rows byte for byte."""
     total = SUM_BATCHES * BATCH
-    ops = ysb.make_ops_sum(**ysb.bench_geometry(BATCH))
-    parts, cb = collect_sink()
-    pipe = wt.Pipeline(ysb.make_source(total), ops, wt.Sink(cb), batch_size=BATCH)
-    registry.reset_launches()
-    pipe.run()
-    torch.cuda.synchronize()
-    launches = registry.launch_counts()
-    got = as_dict(np, parts)
-    log({"phase": "ysb_sum", "batches": SUM_BATCHES, "windows": len(got),
-         "count_lift": ops[-1].count_lift, "launches": launches})
-    if got != ysb.dense_oracle(total, "sum"):
-        raise AssertionError("YSB-sum per-window sums differ from the dense oracle")
-    if launches["segment_fold"] != SUM_BATCHES:
-        raise AssertionError(f"expected K3 once per batch, got {launches}")
-    return launches
-
+    runs = {}
+    for k in (None, DISPATCH_K["ysb_sum"]):
+        ops = ysb.make_ops_sum(**ysb.bench_geometry(BATCH))
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(ysb.make_source(total), ops, wt.Sink(cb), batch_size=BATCH,
+                           dispatch=k or False)
+        launches, dt, peak = run_pipeline(torch, registry, pipe, k)
+        got = as_dict(np, parts)
+        log({"phase": "ysb_sum", "dispatch": k, "batches": SUM_BATCHES,
+             "windows": len(got), "count_lift": ops[-1].count_lift, "run_s": dt,
+             "launches": launches, "peak_mib": peak / 2 ** 20})
+        if got != ysb.dense_oracle(total, "sum"):
+            raise AssertionError("YSB-sum per-window sums differ from the dense oracle")
+        if launches["segment_fold"] != SUM_BATCHES:
+            raise AssertionError(f"expected K3 once per batch, got {launches}")
+        runs[k] = (parts, launches, pipe.chain.graphs)
+    k = DISPATCH_K["ysb_sum"]
+    check_dispatch(np, "ysb_sum", k, SUM_BATCHES, runs[None][:2], runs[k][:2], runs[k][2])
+    return runs[None][1]
 
 
 # ------------------------------------------------------------------ K6 and the window paths
@@ -1164,13 +1343,15 @@ PATH_A_APPLY = {"lookup": 1, "segment_fold": 1, "masked_window_reduce": 1}
 PATH_B_APPLY = {"lookup": 3, "segment_fold": 1, "masked_window_reduce": 1}
 
 
-def window_loop(torch, registry, name, chain, src, per_apply, card, profile, check,
+def window_loop(torch, registry, name, make, per_apply, card, profile, check,
                 out_fn=None):
-    """``WIN_STEPS`` timed ``device_cursor_step`` steps after two warm-up
-    steps; exact launches per step; ``check(states, out, steps_run)``."""
+    """``WIN_STEPS`` timed steps of the captured ``device_cursor_step`` after
+    two warm-up steps (``make() -> (src, chain)``); exact launches per step;
+    ``check(states, out, steps_run)``; then the eager step on a fresh chain."""
     from windflow_tpu_torch.benchmarks import device_cursor_step
 
     warm = 2
+    src, chain = make()
     step = device_cursor_step(chain, src, BATCH, out_fn=out_fn)
     states = tuple(chain.states)
     cur = torch.zeros((), dtype=torch.int32, device="cuda")
@@ -1178,70 +1359,84 @@ def window_loop(torch, registry, name, chain, src, per_apply, card, profile, che
         states, cur, _ = step(states, cur)
     torch.cuda.synchronize()
     registry.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(WIN_STEPS):
-        states, cur, out = step(states, cur)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    states, cur, out, ms = timed_steps(torch, step, states, cur, WIN_STEPS)
     launches = registry.launch_counts()
     row = {"phase": f"{name}_loop", "steps": WIN_STEPS, "batch": BATCH,
-           "tuples_per_s": WIN_STEPS * BATCH / dt, "ms_per_step": dt / WIN_STEPS * 1e3,
+           "tuples_per_s": BATCH / ms * 1e3, "ms_per_step": ms,
            "launches": launches, "card": card}
     row.update(check(states, out, warm + WIN_STEPS))
-    log(row)
     expect_launches(f"{name} loop", launches, per_apply, WIN_STEPS)
     if profile:
-        profile_steps(torch, f"{name}_loop", step, states, cur, row["ms_per_step"])
+        profile_steps(torch, f"{name}_loop", step, states, cur, ms)
+    del step, states, out, chain, src
+    torch.cuda.empty_cache()
+    row["eager_ms_per_step"] = eager_loop(torch, make, BATCH, warm, WIN_STEPS,
+                                          f"{name}_loop", profile, out_fn)
+    torch.cuda.empty_cache()
+    log(row)
 
 
 def path_a_phase(torch, np, wt, registry, card, profile):
     """Path A: Key_Farm keyed CB sliding-window sum at bench_keyed_cb's
-    geometry, its 2^21-slot ring per key (16 GiB of archive)."""
-    torch.cuda.empty_cache()
-    parts, cb = collect_sink()
-    pipe = wt.Pipeline(path_a_source(wt, WIN_BATCHES), [path_a_op(wt)], wt.Sink(cb),
-                       batch_size=BATCH)
-    op = pipe.chain.ops[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    applied, flushed, calls = run_with_flush_launches(registry, pipe, 0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    k, w, v = (np.concatenate(x) for x in zip(*parts))
-    got = {(a, b): c for a, b, c in zip(k.tolist(), w.tolist(), v.tolist())}
+    geometry, its 2^21-slot ring per key (16 GiB of archive): Pipeline.run
+    dispatch off and at K = 2, then the loops."""
+    k_on = DISPATCH_K["path_a"]
     want = path_a_oracle(np, WIN_BATCHES)
-    log({"phase": "windows_pipeline", "batches": WIN_BATCHES, "batch": BATCH,
-         "keys": WIN_KEYS, "ring": op.A, "max_wins": op._w, "windows": len(got),
-         "run_s": dt, "tuples_per_s": WIN_BATCHES * BATCH / dt,
-         "archive_gib": 4 * WIN_KEYS * op.A * 4 / 2 ** 30,
-         "launches_apply": applied, "launches_flush": flushed, "flush_calls": calls})
-    if got != want:
-        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
-        raise AssertionError(f"path A: windows differ from the numpy oracle: {bad}")
-    # bench_keyed_cb's geometry: 16 windows a key, A = 2^21, W = 2112
-    per_key = WIN_BATCHES * BATCH // WIN_KEYS
-    if (len(want) != WIN_KEYS * ((per_key - 1) // WIN_SLIDE + 1)
-            or op.A != 1 << (WIN_LEN + BATCH - 1).bit_length()
-            or op._w != -(-BATCH // WIN_SLIDE) + 64):
-        raise AssertionError(f"path A geometry: {len(want)} windows, A={op.A}, W={op._w}")
-    expect_launches("path A apply", applied, PATH_A_APPLY, WIN_BATCHES)
-    expect_launches("path A flush", flushed, {"masked_window_reduce": 1}, calls)
-    del pipe, op, parts
+    runs = {}
+    for k in (None, k_on):
+        torch.cuda.empty_cache()
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(path_a_source(wt, WIN_BATCHES), [path_a_op(wt)], wt.Sink(cb),
+                           batch_size=BATCH, dispatch=k or False)
+        op = pipe.chain.ops[0]
+        if k:
+            pipe.chain.warm_scan(k, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        applied, flushed, calls = run_with_flush_launches(registry, pipe, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k_, w_, v_ = (np.concatenate(x) for x in zip(*parts))
+        got = {(a, b): c for a, b, c in zip(k_.tolist(), w_.tolist(), v_.tolist())}
+        log({"phase": "windows_pipeline", "dispatch": k, "batches": WIN_BATCHES,
+             "batch": BATCH, "keys": WIN_KEYS, "ring": op.A, "max_wins": op._w,
+             "windows": len(got), "run_s": dt, "tuples_per_s": WIN_BATCHES * BATCH / dt,
+             "archive_gib": 4 * WIN_KEYS * op.A * 4 / 2 ** 30,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "launches_apply": applied, "launches_flush": flushed, "flush_calls": calls})
+        if got != want:
+            bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+            raise AssertionError(f"path A: windows differ from the numpy oracle: {bad}")
+        # bench_keyed_cb's geometry: 16 windows a key, A = 2^21, W = 2112
+        per_key = WIN_BATCHES * BATCH // WIN_KEYS
+        if (len(want) != WIN_KEYS * ((per_key - 1) // WIN_SLIDE + 1)
+                or op.A != 1 << (WIN_LEN + BATCH - 1).bit_length()
+                or op._w != -(-BATCH // WIN_SLIDE) + 64):
+            raise AssertionError(f"path A geometry: {len(want)} windows, A={op.A}, W={op._w}")
+        expect_launches("path A apply", applied, PATH_A_APPLY, WIN_BATCHES)
+        expect_launches("path A flush", flushed, {"masked_window_reduce": 1}, calls)
+        runs[k] = (parts, (applied, flushed), pipe.chain.graphs)
+        del pipe, op
+    check_dispatch(np, "path_a", k_on, WIN_BATCHES, runs[None][:2], runs[k_on][:2],
+                   runs[k_on][2])
+    applied, flushed = runs[None][1]
+    del runs
     torch.cuda.empty_cache()
 
-    src = path_a_source(wt, 2 + WIN_STEPS + PROFILE_STEPS)
-    chain = wt.CompiledChain([path_a_op(wt)], src.payload_spec(), batch_capacity=BATCH)
+    def make():
+        src = path_a_source(wt, 2 + WIN_STEPS + PROFILE_STEPS)
+        return src, wt.CompiledChain([path_a_op(wt)], src.payload_spec(),
+                                     batch_capacity=BATCH)
 
     def check(states, out, steps_run):
         fired = int(out.sum())           # 4 windows a key a step
         if fired != WIN_KEYS * (BATCH // WIN_KEYS // WIN_SLIDE):
             raise AssertionError(f"path A loop: {fired} windows in a step")
         return {"windows_per_step": fired}
-    window_loop(torch, registry, "windows", chain, src, PATH_A_APPLY, card, profile,
-                check)
+    window_loop(torch, registry, "windows", make, PATH_A_APPLY, card, profile, check)
     launches = dict(applied)
     launches["masked_window_reduce"] += flushed["masked_window_reduce"]
-    del chain, src
     torch.cuda.empty_cache()
     return launches
 
@@ -1249,42 +1444,56 @@ def path_a_phase(torch, np, wt, registry, card, profile):
 def path_b_phase(torch, np, wt, ysb, registry, card, profile):
     """Path B: YSB-WMR at bench_ysb_wmr's geometry (1000-tick windows,
     map_parallelism 4, an 8192-slot ring per campaign, 10,700 fired windows
-    a batch)."""
+    a batch): Pipeline.run dispatch off and at K = 2, then the loops."""
     geo = ysb.wmr_bench_geometry(BATCH, WMR_WIN_LEN)
 
     def ops():
         return ysb.make_ops_wmr(win_len=WMR_WIN_LEN, map_parallelism=WMR_MAP, **geo) + [
             wt.ReduceSink(lambda t: t.data, name="wmr_total")]
     total = WIN_BATCHES * BATCH
-    parts, cb = collect_sink()
-    pipe = wt.Pipeline(ysb.make_source(total), ops(), wt.Sink(cb), batch_size=BATCH)
-    engine = pipe.chain.ops[-2].engine
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    applied, flushed, calls = run_with_flush_launches(registry, pipe, -2)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    got = as_dict(np, parts)
-    counted = int(pipe.chain.result()["wmr_total"])
-    log({"phase": "ysb_wmr_pipeline", "batches": WIN_BATCHES, "batch": BATCH,
-         "ring": engine.A, "max_wins": engine.max_wins, "windows": len(got),
-         "total": counted, "oracle_total": ysb.oracle_totals(total), "run_s": dt,
-         "tuples_per_s": total / dt, "launches_apply": applied,
-         "launches_flush": flushed, "flush_calls": calls})
-    if counted != ysb.oracle_totals(total) or sum(got.values()) != counted:
-        raise AssertionError(f"YSB-WMR: {counted} views counted, expected "
-                             f"{ysb.oracle_totals(total)}")
-    if got != ysb.dense_oracle(total, win_len=WMR_WIN_LEN):
-        raise AssertionError("YSB-WMR per-window counts differ from the dense oracle")
-    if engine.A != geo["tb_capacity"] or engine.max_wins != geo["max_wins"]:
-        raise AssertionError(f"YSB-WMR geometry: A={engine.A}, W={engine.max_wins}")
-    expect_launches("YSB-WMR apply", applied, PATH_B_APPLY, WIN_BATCHES)
-    expect_launches("YSB-WMR flush", flushed, {"masked_window_reduce": 1}, calls)
-    del pipe, engine, parts
+    k_on = DISPATCH_K["path_b"]
+    runs = {}
+    for k in (None, k_on):
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(ysb.make_source(total), ops(), wt.Sink(cb), batch_size=BATCH,
+                           dispatch=k or False)
+        engine = pipe.chain.ops[-2].engine
+        if k:
+            pipe.chain.warm_scan(k, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        applied, flushed, calls = run_with_flush_launches(registry, pipe, -2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = as_dict(np, parts)
+        counted = int(pipe.chain.result()["wmr_total"])
+        log({"phase": "ysb_wmr_pipeline", "dispatch": k, "batches": WIN_BATCHES,
+             "batch": BATCH, "ring": engine.A, "max_wins": engine.max_wins,
+             "windows": len(got), "total": counted, "oracle_total": ysb.oracle_totals(total),
+             "run_s": dt, "tuples_per_s": total / dt,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "launches_apply": applied, "launches_flush": flushed, "flush_calls": calls})
+        if counted != ysb.oracle_totals(total) or sum(got.values()) != counted:
+            raise AssertionError(f"YSB-WMR: {counted} views counted, expected "
+                                 f"{ysb.oracle_totals(total)}")
+        if got != ysb.dense_oracle(total, win_len=WMR_WIN_LEN):
+            raise AssertionError("YSB-WMR per-window counts differ from the dense oracle")
+        if engine.A != geo["tb_capacity"] or engine.max_wins != geo["max_wins"]:
+            raise AssertionError(f"YSB-WMR geometry: A={engine.A}, W={engine.max_wins}")
+        expect_launches("YSB-WMR apply", applied, PATH_B_APPLY, WIN_BATCHES)
+        expect_launches("YSB-WMR flush", flushed, {"masked_window_reduce": 1}, calls)
+        runs[k] = ((parts, counted), (applied, flushed), pipe.chain.graphs)
+        del pipe, engine
+    check_dispatch(np, "ysb_wmr", k_on, WIN_BATCHES, runs[None][:2], runs[k_on][:2],
+                   runs[k_on][2])
+    applied, flushed = runs[None][1]
+    del runs
     torch.cuda.empty_cache()
 
-    src = ysb.make_source((2 + WIN_STEPS + PROFILE_STEPS) * BATCH)
-    chain = wt.CompiledChain(ops(), src.payload_spec(), batch_capacity=BATCH)
+    def make():
+        src = ysb.make_source((2 + WIN_STEPS + PROFILE_STEPS) * BATCH)
+        return src, wt.CompiledChain(ops(), src.payload_spec(), batch_capacity=BATCH)
 
     def check(states, out, steps_run):
         # bench_ysb_wmr's self-check: every window whose span is fully
@@ -1296,12 +1505,61 @@ def path_b_phase(torch, np, wt, ysb, registry, card, profile):
         if counted < expect_min:
             raise AssertionError(f"YSB-WMR loop undercounted: {counted} < {expect_min}")
         return {"views_counted": counted, "expect_min": expect_min}
-    window_loop(torch, registry, "ysb_wmr", chain, src, PATH_B_APPLY, card, profile, check)
+    window_loop(torch, registry, "ysb_wmr", make, PATH_B_APPLY, card, profile, check)
     launches = dict(applied)
     launches["masked_window_reduce"] += flushed["masked_window_reduce"]
-    del chain, src
     torch.cuda.empty_cache()
     return launches
+
+
+def bench_dispatch_phase(torch, wt, card):
+    """The counterpart of ``bench.py::bench_dispatch``: its Map -> Filter ->
+    ReduceSink chain over 96 batches of 2^18 through Pipeline.run, per batch
+    and at K = 8, in turns (per batch, fused, fused, per batch): tuples/s of
+    each run (the capture is made before the timed run, and timed apart),
+    the entry op's launches a batch from its stats record, and the
+    ReduceSink results equal bit for bit."""
+    n, base, k = BENCH_DISPATCH_BATCHES, BENCH_DISPATCH_BATCH, BENCH_DISPATCH_K
+
+    def run(dispatch):
+        src = wt.DeviceSource(lambda i: {"v": (i % 1000).float()}, total=n * base,
+                              num_keys=512)
+        pipe = wt.Pipeline(src, [wt.Map(lambda t: {"v": t.v * 2.0 + 1.0}),
+                                 wt.Filter(lambda t: t.v > 100.0),
+                                 wt.ReduceSink(lambda t: t.v)],
+                           batch_size=base, dispatch=dispatch or False)
+        t0 = time.perf_counter()
+        if dispatch:
+            pipe.chain.warm_scan(dispatch, base)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = pipe.run()["reduce_sink"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = pipe.chain.ops[0].get_StatsRecords()[0]
+        return {"dispatch_k": dispatch, "tuples_per_s": n * base / dt, "run_s": dt,
+                "capture_s": capture_s, "batches": rec.batches_received,
+                "launches": rec.num_kernels,
+                "launches_per_batch": rec.num_kernels / max(rec.batches_received, 1),
+                "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}, result
+    runs = [run(d) for d in (None, k, k, None)]
+    for r, _ in runs:
+        log({"phase": "bench_dispatch_run", **r, "card": card})
+    per_batch = [r["tuples_per_s"] for r, _ in runs if r["dispatch_k"] is None]
+    fused = [r["tuples_per_s"] for r, _ in runs if r["dispatch_k"] == k]
+    same = all(torch.equal(_bits(torch, res), _bits(torch, runs[0][1])) for _, res in runs)
+    log({"phase": "bench_dispatch", "dispatch_k": k, "base_capacity": base,
+         "per_batch_tuples_per_s": per_batch, "fused_tuples_per_s": fused,
+         "speedup": sum(fused) / sum(per_batch), "results_equal": same,
+         "launches_per_batch": {"per_batch": runs[0][0]["launches_per_batch"],
+                                "fused": runs[1][0]["launches_per_batch"]},
+         "card": card})
+    if not same:
+        raise AssertionError("bench_dispatch: the ReduceSink results differ between runs")
+    if runs[1][0]["launches_per_batch"] != 1 / k or runs[0][0]["launches_per_batch"] != 1:
+        raise AssertionError("bench_dispatch: launches a batch are not 1/K fused, 1 per batch")
 
 
 def small_collect(wt, op, total, K, batch, src_fn=None, ts_fn=None):
@@ -1389,8 +1647,8 @@ def windows_small_phase(wt, registry):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler breakdowns of five steps of the YSB, "
-                         "YSB-sum, q3 (bench and full width), q6 and window-path loops")
+                    help="add torch.profiler breakdowns of five steps of every loop, "
+                         "captured and eager")
     ap.add_argument("--split-only", action="store_true",
                     help="build, run the split of K1's and K3's time and stop, printing "
                          "no result line (also on an older tree, see split_phase)")
@@ -1439,8 +1697,10 @@ def main() -> int:
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
     ysb_loop_phase(torch, wt, ysb, card, args.profile, name="ysb_sum_loop",
                    make_ops=ysb.make_ops_sum, steps=SUM_LOOP_STEPS)
+    bench_dispatch_phase(torch, wt, card)
     nex_launches = nexmark_pipeline_phase(torch, np, wt, registry)
     nexmark_loop_phase(torch, wt, card, args.profile)
+    q3_pipeline_phase(torch, np, wt, registry)
     q3_full_width_phase(torch, np, wt, registry, card, args.profile)
     rows["masked_window_reduce"] = window_reduce_kernel_phase(torch)
     a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)

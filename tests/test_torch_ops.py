@@ -7,10 +7,12 @@ CUDA kernel. All values are integers, so every comparison is exact.
 
 - K1 ``keyed_pane_histogram`` (Pallas ``_pallas_fast``);
 - K2 ``table_lookup`` (Pallas ``_pallas_factored_lookup``), with the ``take``
-  branch for large or non-f32-exact tables;
+  branch for large or non-f32-exact tables, and the chain route
+  (``traced=True``) against ``jax.jit(table_lookup)``;
 - K3 ``segment_fold`` (Pallas ``_pallas_segment_fold``), wrapping int32 sums.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,6 +141,34 @@ def test_lookup_take_branch_matches_jax(case):
     want = np.asarray(jl.table_lookup(jnp.asarray(table), jnp.asarray(idx)))
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+#: the chain route at K = 4096 (inside an operator's apply the JAX table is a
+#: tracer): the table, the indices and what jax.jit(table_lookup) gives
+CHAIN_ROUTE_CASES = {
+    "int32": (np.arange(4096, dtype=np.int32) * 3, [4096, 5000, -1, -5],
+              [-2147483648, -2147483648, 12285, 12273]),
+    "float32": (np.arange(4096, dtype=np.float32) * 0.5, [0, 5, 4096, -1],
+                [0.0, 2.5, np.nan, 2047.5]),
+    "int16": ((np.arange(4096) % 3000).astype(np.int16), [4096, 5000, -1, -5, 7],
+              [0, 0, 0, 0, 7]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_ROUTE_CASES))
+def test_lookup_chain_route_matches_jitted_jax(case):
+    """``traced=True`` routes by K and dtype alone, as the JAX package's
+    jitted chain does: int32 and float32 tables of 4096 rows take ``take``
+    (dtype fill out of range, negative indices wrap), int16 the factored
+    branch (0 out of range); no table value is read."""
+    table, head, want_head = CHAIN_ROUTE_CASES[case]
+    rng = np.random.default_rng(11)
+    idx = np.concatenate([head, rng.integers(-4200, 4200, 1000)]).astype(np.int32)
+    got = tl.table_lookup(_t(table), _t(idx), traced=True).numpy()
+    want = np.asarray(jax.jit(jl.table_lookup)(jnp.asarray(table), jnp.asarray(idx)))
+    assert got.dtype == want.dtype == table.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:len(head)], np.asarray(want_head, table.dtype))
 
 
 def test_lookup_keeps_table_dtype():

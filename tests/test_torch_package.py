@@ -31,7 +31,9 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.nexmark.generators", "windflow_tpu_torch.nexmark.queries",
            "windflow_tpu_torch.nexmark.oracles", "windflow_tpu_torch.ops.window_reduce",
            "windflow_tpu_torch.operators.window", "windflow_tpu_torch.operators.win_seq",
-           "windflow_tpu_torch.operators.win_patterns", "windflow_tpu_torch.meta"]
+           "windflow_tpu_torch.operators.win_patterns", "windflow_tpu_torch.meta",
+           "windflow_tpu_torch.runtime.dispatch", "windflow_tpu_torch.runtime.graphs",
+           "windflow_tpu_torch.benchmarks"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():

@@ -95,3 +95,59 @@ def test_state_round_trip():
         assert win[f].dtype == getattr(host[3], f).dtype
     np.testing.assert_array_equal(back[4], host[4])
     assert back[:3] == [None, None, None]
+
+
+# ----------------------------------------- F1 / F2: held states and snapshots
+
+def _win_seq_chain(wtype):
+    op = wt.Win_Seq(lambda wid, it: it.sum("v"), wt.WindowSpec(24, 24, wtype),
+                    num_keys=2, device="cpu")
+    src = wt.Source(lambda i: {"v": i.float()}, total=10 * 16, num_keys=2, device="cpu")
+    chain = wt.CompiledChain([op], src.payload_spec(), batch_capacity=16, device="cpu")
+    return src, chain
+
+
+def _window0(outs):
+    return {k: v for b in outs for k, w, v in zip(*(
+        wt.batch.host_view(b)[f].tolist() for f in ("key", "id", "payload"))) if w == 0}
+
+
+@pytest.mark.parametrize("wtype,replay,want", [
+    (wt.win_type_t.CB, 2, {0: 552.0, 1: 576.0}),
+    (wt.win_type_t.TB, 1, {0: 132.0, 1: 144.0})])
+def test_win_seq_held_state_raises_and_snapshot_replays(wtype, replay, want):
+    """Win_Seq updates its rings in place: a state held after batch 1 is
+    consumed by the next push, applying it again raises, and a snapshot
+    taken with chain_states_to_numpy replays window 0 exactly after 8 more
+    batches have wrapped the rings."""
+    src, chain = _win_seq_chain(wtype)
+    batches = [src.make_batch(16 * j, 16) for j in range(10)]
+    chain.push(batches[0])
+    held = chain.states[0]
+    snap = convert.chain_states_to_numpy(chain)
+    for b in batches[1:9]:
+        chain.push(b)
+    with pytest.raises(RuntimeError, match="consumed"):
+        chain.ops[0].apply(held, batches[1])
+    convert.chain_states_from_numpy(chain, snap)
+    assert _window0([chain.push(b) for b in batches[1:1 + replay]]) == want
+
+
+def test_state_to_numpy_snapshot_does_not_move():
+    src, chain = _win_seq_chain(wt.win_type_t.TB)
+    chain.push(src.make_batch(0, 16))
+    snap = convert.chain_states_to_numpy(chain)
+    kept = [np.array(a, copy=True) for a in jax.tree.leaves(snap)]
+    for j in range(1, 6):
+        chain.push(src.make_batch(16 * j, 16))
+    for a, b in zip(jax.tree.leaves(snap), kept):
+        np.testing.assert_array_equal(a, b)
+    # the count chain's snapshot too (Win_SeqFFAT pane ring, ReduceSink)
+    tsrc, tchain = _port_chain("count")
+    tchain.push(tsrc.make_batch(0, BATCH))
+    snap = convert.chain_states_to_numpy(tchain)
+    kept = [np.array(a, copy=True) for a in jax.tree.leaves(snap)]
+    for s in range(BATCH, 6 * BATCH, BATCH):
+        tchain.push(tsrc.make_batch(s, BATCH))
+    for a, b in zip(jax.tree.leaves(snap), kept):
+        np.testing.assert_array_equal(a, b)

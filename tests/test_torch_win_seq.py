@@ -116,6 +116,12 @@ CASES = {
         lambda X: X.Win_Seq(lambda wid, t, acc: acc + t.emb, X.WindowSpec(8, 8, X.CB),
                             init_acc=X.zeros(4), num_keys=2, **X.kw),
         96, 2, (32, 12), lambda X: lambda i: {"emb": X.f32(i % 5) * X.ones(4)}, None),
+    # 4096 keys: the per-key count and next_win reads take table_lookup's
+    # chain route past 2048 rows (jnp.take under JAX's jit, take in the port)
+    "tb_sliding_4096_keys": (
+        lambda X: X.Win_Seq(lambda wid, it: it.sum("v"), X.WindowSpec(4, 2, X.TB),
+                            num_keys=4096, archive_capacity=64, **X.kw),
+        6 * 4096, 4096, (1024, 3000), None, lambda i: i // 4096),
 }
 
 PARAMS = [(name, bs) for name, case in CASES.items() for bs in case[3]]

@@ -2,7 +2,8 @@
 
 The same stream-processing model as the JAX package (fixed-capacity SoA
 micro-batches, functional operator state), run eagerly by PyTorch on an NVIDIA
-H100. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+H100, or as CUDA-graph replays of captured steps under scan dispatch
+(``Pipeline(dispatch=K)``) and in the bench step. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.

@@ -159,6 +159,48 @@ def host_view(batch: Batch) -> dict:
             "payload": tree_map(lambda a: a[v], h["payload"])}
 
 
+def same_capacity(batches) -> int:
+    """The one capacity of ``batches``; raises for an empty list or mixed
+    capacities."""
+    if not batches:
+        raise ValueError("stack_batches: need at least one batch")
+    c0 = batches[0].capacity
+    for b in batches[1:]:
+        if b.capacity != c0:
+            raise ValueError(
+                f"stack_batches: mixed capacities {c0} vs {b.capacity} — a "
+                f"scanned program is captured for ONE (K, capacity) shape; "
+                f"the MicrobatchAccumulator groups same-capacity runs")
+    return c0
+
+
+def stack_batches(batches) -> Batch:
+    """Stack K same-capacity batches along a new leading axis: every leaf
+    ``[C, ...]`` becomes ``[K, C, ...]``. The scan-dispatch transport
+    (``CompiledChain.push_many``: the captured K-step program reads its
+    batches from one stacked input). Inverse of :func:`unstack_batches`;
+    lane content is kept verbatim."""
+    batches = list(batches)
+    same_capacity(batches)
+    first = batches[0]
+    return Batch(
+        key=torch.stack([b.key for b in batches]), id=torch.stack([b.id for b in batches]),
+        ts=torch.stack([b.ts for b in batches]),
+        payload=tree_map(lambda *xs: torch.stack(xs), first.payload,
+                         *(b.payload for b in batches[1:])),
+        valid=torch.stack([b.valid for b in batches]))
+
+
+def unstack_batches(stacked: Batch, k: int = None) -> list:
+    """The K capacity-C batches of a stacked batch (leaves ``[K, C, ...]``),
+    as views into it: the inverse of :func:`stack_batches`."""
+    if k is None:
+        k = stacked.key.shape[0]
+    return [Batch(key=stacked.key[i], id=stacked.id[i], ts=stacked.ts[i],
+                  payload=tree_map(lambda a: a[i], stacked.payload),  # noqa: B023
+                  valid=stacked.valid[i]) for i in range(k)]
+
+
 def spec_of(tree: Any) -> Any:
     """Per-tuple spec of a batched pytree: meta tensors without the capacity axis."""
     return tree_map(lambda t: torch.empty(tuple(t.shape[1:]), dtype=t.dtype,
@@ -166,4 +208,5 @@ def spec_of(tree: Any) -> Any:
 
 
 __all__ = ["CTRL_DTYPE", "Batch", "TupleRef", "tuple_refs", "map_tuples",
-           "vmap_lanes", "host_view", "spec_of", "tree_map", "tree_leaves"]
+           "vmap_lanes", "host_view", "spec_of", "stack_batches", "unstack_batches",
+           "tree_map", "tree_leaves"]

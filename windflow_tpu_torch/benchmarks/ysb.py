@@ -59,7 +59,7 @@ def _prefix(num_keys: int, device, keep_ad: bool = False):
     camp_of = campaign_table(device)
     filt = Filter(lambda t: t.event_type == 0, name="ysb_filter", device=device)
     def join_fn(p):
-        out = {"cmp": table_lookup(camp_of, p["ad_id"])}
+        out = {"cmp": table_lookup(camp_of, p["ad_id"], traced=True)}
         if keep_ad:
             out["ad_id"] = p["ad_id"]
         return out

@@ -73,7 +73,8 @@ def state_to_numpy(op, state: Any) -> Any:
     """Inverse of :func:`state_from_numpy`: a Win_SeqFFAT state becomes a dict
     of numpy arrays keyed by :data:`GFFAT_FIELDS`, a Win_Seq state one keyed
     by :data:`WINSEQ_FIELDS` (Pane_Farm: ``{"plq": ..., "wlq": ...}`` of
-    those), any other state a pytree of numpy arrays."""
+    those), any other state a pytree of numpy arrays. Every array is a copy,
+    so the snapshot stays as it was while the chain runs on."""
     if state is None:
         return None
     if isinstance(op, Nested_Farm):
@@ -83,7 +84,8 @@ def state_to_numpy(op, state: Any) -> Any:
     if isinstance(op, Pane_Farm):
         return {"plq": state_to_numpy(op.plq, state["plq"]),
                 "wlq": state_to_numpy(op.wlq, state["wlq"])}
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    # .numpy() of a CPU tensor shares its memory: copy
+    host = lambda t: np.array(t.detach().cpu().numpy(), copy=True)  # noqa: E731
     if isinstance(op, Win_Seq):
         return {f: tree_map(host, getattr(state, f)) for f in WINSEQ_FIELDS}
     if isinstance(op, Win_SeqFFAT):

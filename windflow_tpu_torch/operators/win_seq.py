@@ -24,11 +24,14 @@ CB windows index per-key arrival positions; TB windows index timestamps with
 per-key watermarks and ``delay`` lateness. Windows beyond the per-batch budget
 ``W`` defer to the next batch. Emission order is per-key ascending window id.
 
-The archive rings are updated in place: ``apply`` consumes the state it is
-given (a 2^21-slot ring over 512 keys is 4 GiB a field, too large to copy per
-batch), as the JAX bench step's donated state is. ``count``, ``wm`` and
-``next_win`` are new tensors. Cross-device window sharding
-(``set_window_sharding``) is not ported.
+The archive rings are updated in place (a 2^21-slot ring over 512 keys is
+4 GiB a field, too large to copy per batch), so ``apply`` and ``flush``
+consume the state they are given, as the JAX bench step's donated state is:
+the call marks it, and a second call on it raises, as JAX does for a donated
+buffer. Carry on from the state a call returns; a snapshot to come back to
+is a copy (``convert.state_to_numpy``). ``count``, ``wm`` and ``next_win``
+are new tensors. Cross-device window sharding (``set_window_sharding``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -58,6 +61,18 @@ class WinSeqState:
     count: torch.Tensor         # i32[K] tuples archived per key
     wm: torch.Tensor            # i32[K] per-key max ts seen
     next_win: torch.Tensor      # i32[K] next window id to fire
+
+    def consume(self, who: str) -> None:
+        """Mark this state consumed; raise if an earlier call did (a step
+        updates the rings in place, so a consumed state no longer holds the
+        archive it names)."""
+        if getattr(self, "_consumed", False):
+            raise RuntimeError(
+                f"{who}: this WinSeqState was consumed by an earlier apply, flush "
+                f"or captured step (the archive rings are updated in place); carry "
+                f"on from the state that call returned, or restore a copy "
+                f"(convert.state_to_numpy / state_from_numpy)")
+        object.__setattr__(self, "_consumed", True)
 
 
 class Win_Seq(Basic_Operator):
@@ -157,10 +172,10 @@ class Win_Seq(Basic_Operator):
         valid = batch.valid
         if not self.spec.is_cb:
             # drop OLD tuples: they precede the purge horizon (already-fired windows)
-            horizon = table_lookup(state.next_win, batch.key) * self.spec.slide
+            horizon = table_lookup(state.next_win, batch.key, traced=True) * self.spec.slide
             valid = valid & (batch.ts >= horizon)
         rank = segment_rank(batch.key, valid)
-        pos = table_lookup(state.count, batch.key) + rank
+        pos = table_lookup(state.count, batch.key, traced=True) + rank
         flat = batch.key * A + torch.remainder(pos, A)
         # The JAX form scatters with mode="drop" at an out-of-range index for
         # invalid lanes. Here every lane that writes nothing repeats the first
@@ -169,15 +184,17 @@ class Win_Seq(Basic_Operator):
         # the order of the writes: writing lanes hit distinct slots while one
         # key receives at most A lanes a batch, which the default ring sizing
         # guarantees. With no writing lane, every lane rewrites slot 0 with
-        # its own content.
+        # its own content. ``first`` stays a [1] device index: a 0-d tensor
+        # index would read it on the host, which a CUDA-graph capture refuses.
         write = valid & (batch.key >= 0) & (batch.key < K)
-        first = torch.argmax(write.to(torch.uint8))
-        any_write = write[first]
-        target = torch.where(write, flat, torch.where(any_write, flat[first], 0)).long()
+        first = torch.argmax(write.to(torch.uint8)).view(1)
+        any_write = write.index_select(0, first)
+        target = torch.where(write, flat,
+                             torch.where(any_write, flat.index_select(0, first), 0)).long()
 
         def scat(tbl, v):
             rows = tbl.view((K * A,) + tuple(tbl.shape[2:]))
-            fill = torch.where(any_write, v[first], rows[0])
+            fill = torch.where(_bmask(any_write, v[:1]), v.index_select(0, first), rows[:1])
             rows.index_put_((target,), torch.where(_bmask(write, v), v, fill))
             return tbl
 
@@ -298,6 +315,7 @@ class Win_Seq(Basic_Operator):
         return self._resolve_w(in_capacity)
 
     def apply(self, state: WinSeqState, batch: Batch):
+        state.consume(self.name)
         W = self._resolve_w(batch.capacity)
         self._w = W
         state = self._insert(state, batch)
@@ -306,6 +324,7 @@ class Win_Seq(Basic_Operator):
     def flush(self, state: WinSeqState):
         """EOS: emit every window with content, up to W a call; one device
         read tells whether anything was emitted."""
+        state.consume(self.name)
         W = self._w or self._resolve_w(256)
         state, out = self._emit(state, W, flush=True)
         if not bool(out.valid.any()):

@@ -13,13 +13,19 @@ kernel ``_pallas_factored_lookup``) for 128 < K <= 65536. Both give
 function is the hand-written gather ``csrc/lookup.cu`` (kernel K2), on a CPU
 tensor the plain version beside it.
 
-Routing follows the JAX package's rule for a concrete table (the port runs
-eagerly, so every table is concrete):
+Routing follows the JAX package's rule (``windflow_tpu/ops/lookup.py:24-32,
+72-95``), in one of its two readings:
 
 - K <= 2048: select or factored branch — both ``table[idx]``, 0 out of range;
-- 2048 < K <= 65536: factored branch when the table is f32-exact (floats all
-  finite, ints of <= 16 bits, or int values below 2^24 in magnitude — read
-  from the table, one device sync), else the ``take`` branch;
+- 2048 < K <= 65536: factored branch when the table is f32-exact, else the
+  ``take`` branch. For a concrete table (a direct eager call, as eager JAX
+  runs it) that is read from the values: floats all finite, ints of <= 16
+  bits, or int values below 2^24 in magnitude (one device sync). Inside an
+  operator's ``apply`` (``traced=True``) the table is what JAX's jitted
+  chain sees, a tracer, and only the dtype counts: bool and 8- or 16-bit
+  integer tables take the factored branch; floats and wider integers take
+  ``take``. No device value is read, so the step can be captured in a CUDA
+  graph;
 - K > 65536: the ``take`` branch.
 
 The ``take`` branch was never a kernel: it keeps ``jnp.take``'s semantics in
@@ -54,27 +60,41 @@ SELECT_MAX_ROWS_2D = 2048
 FACTORED_MAX_ROWS = 1 << 16
 
 
-def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def table_lookup(table: torch.Tensor, idx: torch.Tensor, *,
+                 traced: bool = False) -> torch.Tensor:
     """``table[idx]`` with the JAX package's out-of-range semantics for the
-    table's size. ``table``: 1-D ``[K]``; ``idx``: i32 ``[C]``."""
+    table's size. ``table``: 1-D ``[K]``; ``idx``: i32 ``[C]``. ``traced``:
+    route as JAX's jitted chain does, from K and dtype alone (every
+    operator's ``apply``); False reads a concrete table's values, as eager
+    JAX does."""
     if table.ndim != 1:
         raise NotImplementedError(
             "table_lookup: only 1-D tables are ported so far (2-D state "
             "tables come with the per-key window paths, ROADMAP Queue 1 item 9)")
     K = table.shape[0]
-    if K <= SELECT_MAX_ROWS_2D or (K <= FACTORED_MAX_ROWS and _factored_ok(table)):
+    exact = _exact_dtype if traced else _factored_ok
+    if K <= SELECT_MAX_ROWS_2D or (K <= FACTORED_MAX_ROWS and exact(table)):
         return gather_or_zero(table, idx)
     return take(table, idx)
 
 
+def _exact_dtype(table: torch.Tensor) -> bool:
+    """The JAX package's exactness test for a traced table (lookup.py:24-32,
+    72-90 with ``concrete`` False): a float table never takes the factored
+    branch, bool and <= 16-bit integer tables always."""
+    if table.dtype.is_floating_point or table.is_complex():
+        return False
+    return table.dtype == torch.bool or torch.iinfo(table.dtype).bits <= 16
+
+
 def _factored_ok(table: torch.Tensor) -> bool:
-    """The JAX package's exactness test for the factored path (lookup.py:72-84)."""
+    """The JAX package's exactness test for a concrete table (lookup.py:72-84)."""
     if table.dtype.is_floating_point:
         return bool(torch.isfinite(table).all())
+    if _exact_dtype(table):
+        return True
     if table.is_complex():
         return False
-    if table.dtype == torch.bool or torch.iinfo(table.dtype).bits <= 16:
-        return True
     return bool(table.abs().max() < (1 << 24))
 
 

@@ -4,7 +4,9 @@ Counterpart of ``windflow_tpu/ops/registry.py``, reduced to what the port
 needs now: each family's CUDA source, the TPU kernel it replaces, and an
 integer launch counter that the kernel's wrapper bumps exactly where it
 launches the kernel (and nowhere else), so a run can show that its main path
-went through the kernel. The JAX registry's impl selection (``WF_KERNEL_IMPL``,
+went through the kernel. A CUDA-graph replay calls no wrapper: the launches
+a capture counted are taken back and added once per replay
+(:func:`add_launches`, ``runtime/graphs.py``). The JAX registry's impl selection (``WF_KERNEL_IMPL``,
 tuning-cache winners) is not ported: a CUDA tensor always goes to the kernel.
 
 An entry whose ``replaces`` is None is a helper kernel that replaces no TPU
@@ -53,6 +55,13 @@ def tpu_kernels() -> dict:
 
 def count_launch(name: str) -> None:
     KERNELS[name].launches += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``{name: n}`` to the counts: the launches of one CUDA-graph replay,
+    recorded at capture (a replay calls no wrapper)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def reset_launches() -> None:

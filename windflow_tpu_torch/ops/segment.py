@@ -279,7 +279,9 @@ def _segment_extreme(v, keys, valid, S: int, is_max: bool, identity):
     out.scatter_reduce_(0, _bmask(idx, v).expand(v.shape), vals,
                         reduce="amax" if is_max else "amin", include_self=True)
     touched = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
-    touched[torch.where(valid & in_range, keys, S).long()] = True
+    # index_fill_ takes the value as a kernel argument; ``touched[i] = True``
+    # would copy a host tensor, which a CUDA-graph capture refuses
+    touched.index_fill_(0, torch.where(valid & in_range, keys, S).long(), True)
     return torch.where(_bmask(touched, out), out, _full(identity, out))[:S]
 
 

@@ -8,23 +8,34 @@ CUDA stream. The host does not wait for the card inside a push (except where
 an operator must read a device value, e.g. Win_SeqFFAT's flush), so the host
 queues batch N+1 while the card runs batch N.
 
+Scan dispatch (``dispatch=``, ``runtime/dispatch.py``): ``push_many`` runs K
+same-capacity batches as one device program, a CUDA graph of K captured steps
+replayed by one host call (``runtime/graphs.py``), byte-identical to K
+``push`` calls; on the CPU it is the plain loop over the same step. ``flush``
+stays eager and outside any graph: Win_Seq's and Win_SeqFFAT's flush read a
+device value.
+
 EOS protocol: the source exhausts; then each stateful operator's ``flush``
 drains residual state and the flushed batches cascade through the remaining
-suffix of the chain. The monitoring, control, tracing and scan-dispatch hooks
-of the JAX driver are not ported yet; ``event_time=True`` (event-time
-monitoring) raises.
+suffix of the chain. The monitoring, control and tracing hooks of the JAX
+driver are not ported yet; ``event_time=True`` (event-time monitoring)
+raises.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence
 
+import torch
+
 from ..basic import DEFAULT_BATCH_SIZE
-from ..batch import Batch, tree_leaves
+from ..batch import Batch, same_capacity, stack_batches, tree_leaves, unstack_batches
 from ..device import resolve_device
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
+from . import dispatch as _dispatch
+from .graphs import StepGraph, leaves, rebuild
 
 
 def _refuse_event_time(event_time) -> None:
@@ -64,6 +75,9 @@ class CompiledChain:
             self.specs.append(op.out_spec(self.specs[-1]))
         self.states = [op.init_state(self.specs[i]) for i, op in enumerate(self.ops)]
         self._push_count = 0
+        #: the captured K-step programs, (from_op, K, capacity) -> StepGraph (card)
+        self.graphs = {}
+        self._warmed = set()    # (from_op, capacity) run once eagerly
 
     @property
     def out_spec(self):
@@ -74,20 +88,99 @@ class CompiledChain:
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, chain on {self.device}")
         self._push_count += 1
-        in_bytes = _batch_nbytes(batch)
         out = batch
         for j in range(from_op, len(self.ops)):
             self.states[j], out = self.ops[j].apply(self.states[j], out)
-        out_bytes = _batch_nbytes(out)
+        self._record(from_op, 1, batch, out)
+        return out
+
+    def _record(self, from_op: int, k: int, batch: Batch, out: Batch) -> None:
+        """Stats of one dispatch of ``k`` batches: k batches and their bytes
+        per op, one launch on the entry op."""
+        in_bytes, out_bytes = _batch_nbytes(batch), _batch_nbytes(out)
         for j in range(from_op, len(self.ops)):
             rec = self.ops[j].get_StatsRecords()[0]
-            rec.batches_received += 1
-            rec.batches_sent += 1
-            rec.bytes_received += in_bytes
-            rec.bytes_sent += out_bytes
+            rec.batches_received += k
+            rec.batches_sent += k
+            rec.bytes_received += k * in_bytes
+            rec.bytes_sent += k * out_bytes
         if from_op < len(self.ops):
             self.ops[from_op].get_StatsRecords()[0].record_launch()
-        return out
+
+    def _k_steps(self, from_op: int):
+        """``fn(states, stacked) -> (states, outs)``: the K batches of a
+        stacked batch through ops[from_op:] in order, the per-batch step
+        of :meth:`push` K times."""
+        def fn(states, stacked):
+            states = list(states)
+            outs = []
+            for b in unstack_batches(stacked):
+                for j in range(from_op, len(self.ops)):
+                    states[j], b = self.ops[j].apply(states[j], b)
+                outs.append(b)
+            return states, outs
+        return fn
+
+    def _warm(self, from_op: int, capacity: int) -> None:
+        """One eager step of ops[from_op:] over an all-invalid batch, on
+        fresh state objects over the same tensors, its results dropped:
+        builds, loads and sets up every kernel of the step at these shapes,
+        which a capture needs first (``runtime/graphs.py``). It writes no
+        state. Its kernel launches are real and counted."""
+        if (from_op, capacity) in self._warmed:
+            return
+        b = Batch.empty(capacity, self.specs[from_op], self.device)
+        states = rebuild(self.states, leaves(self.states))
+        for j in range(from_op, len(self.ops)):
+            states[j], b = self.ops[j].apply(states[j], b)
+        self._warmed.add((from_op, capacity))
+
+    def _graph(self, from_op: int, k: int, capacity: int) -> StepGraph:
+        """The captured K-step program for ``(from_op, k, capacity)``: warmed,
+        then captured over the chain's states at first use. Capture runs
+        nothing, so it touches no state."""
+        key = (from_op, k, capacity)
+        g = self.graphs.get(key)
+        if g is None:
+            self._warm(from_op, capacity)
+            empty = Batch.empty(capacity, self.specs[from_op], self.device)
+            g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states),
+                                              stack_batches([empty] * k))
+        return g
+
+    def warm_scan(self, k: int, capacity: int) -> None:
+        """Make ready the K-fused program for ``(k, capacity)`` WITHOUT
+        touching operator state: the eager warm-up step and, on the card,
+        the capture. K <= 1 warms the per-batch step only."""
+        self._warm(0, capacity)
+        if k > 1 and self.device.type == "cuda":
+            self._graph(0, int(k), capacity)
+
+    def push_many(self, batches: Sequence[Batch], from_op: int = 0) -> List[Batch]:
+        """Run K same-capacity batches through ops[from_op:] as ONE device
+        program; updates states; returns the K out batches in order,
+        byte-identical to K sequential :meth:`push` calls. On the card that
+        is one replay of the graph captured for ``(from_op, K, capacity)``
+        (its inputs copied in, its outputs cloned out); on the CPU the plain
+        loop over the same step. Stats: K batches counted per op, ONE
+        launch on the entry op. K = 1 delegates to :meth:`push`."""
+        batches = list(batches)
+        if len(batches) == 1:
+            return [self.push(batches[0], from_op=from_op)]
+        for b in batches:
+            if b.device != self.device:
+                raise ValueError(f"batch on {b.device}, chain on {self.device}")
+        k = len(batches)
+        if self.device.type == "cuda":
+            g = self._graph(from_op, k, same_capacity(batches))
+            _stack_into(g.inputs, batches)
+            states, outs = g.run(self.states)
+        else:
+            states, outs = self._k_steps(from_op)(self.states, stack_batches(batches))
+        self.states = list(states)
+        self._push_count += k
+        self._record(from_op, k, batches[0], outs[0])
+        return outs
 
     def flush(self) -> List[Batch]:
         """EOS: drain every operator in order, cascading flushed batches through
@@ -114,19 +207,32 @@ class CompiledChain:
                 for i, op in enumerate(self.ops) if isinstance(op, ReduceSink)}
 
 
+def _stack_into(stacked: Batch, batches: Sequence[Batch]) -> None:
+    """Copy K batches into a stacked batch's ``[K, C, ...]`` leaves: one
+    ``torch.stack(..., out=)`` a leaf."""
+    per_batch = [leaves(b) for b in batches]
+    for i, leaf in enumerate(leaves(stacked)):
+        torch.stack([lv[i] for lv in per_batch], out=leaf)
+
+
 class Pipeline:
     """Source -> ops... -> sink, run batch-at-a-time on ``device``
-    (None = ``"cuda"``; raises without CUDA)."""
+    (None = ``"cuda"``; raises without CUDA). ``dispatch=`` turns on scan
+    dispatch (:class:`~.dispatch.DispatchConfig`: None consults
+    ``WF_DISPATCH``, off by default): groups of K batches go through
+    ``CompiledChain.push_many``, the partial tail at EOS too."""
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
                  batch_size: Optional[int] = None, device=None,
-                 event_time: bool = None):
+                 event_time: bool = None, dispatch=None):
         _refuse_event_time(event_time)
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
         self.batch_size = int(batch_size or DEFAULT_BATCH_SIZE)
+        #: resolved at run(), so an env change after construction counts
+        self._dispatch_arg = dispatch
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
                              f"but the pipeline runs on {self.device}")
@@ -134,16 +240,37 @@ class Pipeline:
                                    batch_capacity=source.out_capacity(self.batch_size),
                                    device=self.device)
 
+    def _make_accumulator(self) -> Optional[_dispatch.MicrobatchAccumulator]:
+        """``dispatch=`` resolved into an accumulator (None when off), with
+        the K-step program made ready up front when ``prewarm``."""
+        cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
+        if cfg is None:
+            return None
+        _dispatch.refuse_k_tuner(cfg)
+        if cfg.prewarm and cfg.k > 1:
+            self.chain.warm_scan(cfg.k, self.source.out_capacity(self.batch_size))
+        return _dispatch.MicrobatchAccumulator(cfg.k, cfg.linger_s)
+
     def run(self) -> dict:
         """Drive the stream to EOS; returns ``chain.result()``."""
+        acc = self._make_accumulator()
+
+        def deliver(outs):
+            if self.sink is not None:
+                for out in outs:
+                    self.sink.consume(out)
         for batch in self.source.batches(self.batch_size):
             self.source.get_StatsRecords()[0].record_launch()
-            out = self.chain.push(batch)
-            if self.sink is not None:
-                self.sink.consume(out)
-        for out in self.chain.flush():
-            if self.sink is not None:
-                self.sink.consume(out)
+            if acc is None:
+                deliver([self.chain.push(batch)])
+            else:
+                for group in acc.feed(batch):
+                    deliver(_dispatch.fused_push(self.chain, group))
+        if acc is not None:
+            tail = acc.drain()                # the partial tail < K at EOS
+            if tail:
+                deliver(_dispatch.fused_push(self.chain, tail))
+        deliver(self.chain.flush())
         if self.sink is not None:
             self.sink.consume(None)      # empty-optional EOS signal (wf/sink.hpp)
         self.chain.sync_stats()
