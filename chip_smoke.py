@@ -95,9 +95,33 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     TB, Win_MapReduce with a K6 MAP, Win_Farm(Pane_Farm), Key_Farm(Win_MapReduce),
     an incremental fold, a TB window with lateness), each against a plain
     Win_Seq run on the card or a Python oracle;
-15. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
-    fixed-order float fold), then the result line
+15. ``pipegraph_ysb`` (after phase 4): the YSB chain as a one-source
+    ``PipeGraph`` at the same geometry, dispatch off and at K = 3: sink rows
+    byte for byte equal to phase 4's Pipeline rows and the dense oracle, the
+    same K1 and K2 launches;
+16. ``ordering``: ``bench.py::bench_ordering_overhead``'s graph (two sources
+    of 200,000, batch 4096, merge -> Map -> ReduceSink) in DEFAULT and
+    DETERMINISTIC mode, equal sums, tuples/s of each and their ratio; then
+    the same graph at batch 2^16 with 2^22 tuples a source into a Sink: the
+    released stream is the input sorted by (ts, id, chan), and K4's network
+    calls (a sort a push, a merge a push after the first) and their CUDA
+    launches (``network_plan``) are counted exactly;
+17. ``graph_windows``: split -> two branches -> a DETERMINISTIC merge-partial
+    (TS_RENUMBERING) -> CB Win_Seq sum -> Sink at path A's keys and window,
+    batch 2^16 over 2^21 tuples, against a numpy oracle; K2, K3 and K6 once
+    a Win_Seq apply, K4 as the Ordering_Node called it; before it,
+    ``host_io``: a GeneratorSource of string-keyed numpy chunks (pinned
+    host-to-device copies) into a Sink, synchronous and with
+    ``async_depth=3``, the same rows in order;
+18. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+    fixed-order float fold, launches summed over the paths, each counted
+    from zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
+
+Phase 3 also holds K4 at the Ordering_Node's shapes (merges of [1, 8192]
+and [1, 2^17], sorts of [1, 4096] and [1, 2^16]) and phase 11 holds K6 on
+every dtype the JAX package sums (uint8 and uint16 into uint32 bit for bit,
+float16 and bfloat16 within 1e-2, float64 within 1e-12).
 
 It exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -791,6 +815,12 @@ def nexmark_kernel_phase(torch):
     for n in (2, 64, 4096):                   # one CTA (several rows a CTA)
         for R in (1, 3):
             k4(f"one_cta_R{R}_n{n}", R, n, True, timed=False)
+    # the Ordering_Node's shapes (pipegraph phases): merges of one row of
+    # pow2(pool + batch) lanes, sorts of one incoming batch
+    rows["ordering_merge_8192"] = k4("ordering_merge_8192", 1, 8192, False)
+    rows["ordering_merge_2^17"] = k4("ordering_merge_2^17", 1, 1 << 17, False)
+    rows["ordering_sort_4096"] = k4("ordering_sort_4096", 1, 4096, True)
+    rows["ordering_sort_2^16"] = k4("ordering_sort_2^16", 1, 1 << 16, True)
     k4("cluster_one_row", 1, 1 << 15, True, timed=False)
     k4("cluster_waves_R200", 200, 1 << 15, True, timed=False)
     k4("beyond_cluster", 2, 1 << 17, True, timed=False)
@@ -1148,7 +1178,7 @@ def ysb_pipeline_phase(torch, np, wt, ysb, registry):
         runs[k] = (parts, launches, pipe.chain.graphs)
     check_dispatch(np, "ysb", DISPATCH_K["ysb"], YSB_BATCHES, runs[None][:2],
                    runs[DISPATCH_K["ysb"]][:2], runs[DISPATCH_K["ysb"]][2])
-    return runs[None][1]
+    return runs[None][1], runs[None][0]
 
 
 def profile_steps(torch, phase, step, states, cur, ms_per_step, n=PROFILE_STEPS):
@@ -1242,6 +1272,50 @@ K6_CASES = [("ab_4096x512", 4096, 512, "float"), ("ab_1024x1024", 1024, 1024, "f
                                               "integer_float")]
 
 
+def iterable_unsigned_check(torch, dev, gen):
+    """Every Iterable reduction over uint8/uint16/uint32 fields (1-D and
+    [L, 2]) under vmap on the card against the same on the CPU: sums into
+    uint32 (K6 for the 1-D ones), max/min/at in the field's dtype, float32
+    means; compared through int64 (uint32 has few operators)."""
+    from windflow_tpu_torch.operators.window import Iterable
+
+    def fn(d, i, t, m):
+        it = Iterable(d, i, t, m)
+        return {"sum": it.sum("u"), "sum2": it.sum("u2"), "max": it.max("u"),
+                "min": it.min("u2"), "at": it.at(3).data["u"], "mean": it.mean("u")}
+    W, L = 300, 45
+    for dt, hi in ((torch.uint8, 256), (torch.uint16, 65536), (torch.uint32, 2 ** 32)):
+        u = torch.randint(0, hi, (W, L), device=dev, generator=gen, dtype=torch.int64)
+        mask = torch.rand((W, L), device=dev, generator=gen) < 0.6
+        data = {"u": u.to(dt), "u2": torch.stack([u, u.flip(1)], -1).to(dt)}
+        ids = torch.arange(W * L, device=dev, dtype=torch.int32).reshape(W, L)
+        ts = ids % 100
+        got = torch.func.vmap(fn)(data, ids, ts, mask)
+        want = torch.func.vmap(fn)({k: v.cpu() for k, v in data.items()}, ids.cpu(),
+                                   ts.cpu(), mask.cpu())
+        for k in want:
+            g, w = got[k].cpu(), want[k]
+            same = (g.dtype == w.dtype and torch.equal(
+                g.to(torch.float64 if k == "mean" else torch.int64),
+                w.to(torch.float64 if k == "mean" else torch.int64)))
+            if not same and k == "mean":
+                same = g.dtype == w.dtype and torch.allclose(g, w, rtol=1e-6)
+            if not same:
+                raise AssertionError(f"Iterable over {dt} [{k}]: card differs from CPU")
+    log({"phase": "iterable_unsigned", "dtypes": ["uint8", "uint16", "uint32"],
+         "reductions": ["sum", "sum2", "max", "min", "at", "mean"], "equal": True})
+
+
+def _k6_dtypes():
+    """(dtype, tolerance or None for bit for bit, the library call's dtype)
+    of the dtypes F4 added to K6."""
+    import torch
+    return [(torch.uint8, None, torch.int64), (torch.uint16, None, torch.int64),
+            (torch.uint32, None, torch.int64),
+            (torch.float16, 1e-2, torch.float32), (torch.bfloat16, 1e-2, torch.float32),
+            (torch.float64, 1e-12, torch.float64)]
+
+
 def window_reduce_kernel_phase(torch):
     """K6 against its plain version (bit for bit on int32 and integer-valued
     float32, within rtol = atol = 1e-4 on random float32), two launches
@@ -1274,9 +1348,41 @@ def window_reduce_kernel_phase(torch):
         if not torch.equal(_bits(torch, first), _bits(torch, second)):
             raise AssertionError(f"masked_window_reduce [{case}]: two launches differ")
         rows[case] = row
+    # F4: every dtype jnp.sum takes, at path A's shape; uint32 results are
+    # compared as their int32 bits (torch's uint32 has few operators)
+    for dt, tol, acc in _k6_dtypes():
+        W, L = 2112, 1024
+        if dt in (torch.uint8, torch.uint16, torch.uint32):
+            hi = {torch.uint8: 256, torch.uint16: 65536, torch.uint32: 2 ** 32}[dt]
+            vals = torch.randint(0, hi, (W, L), device=dev, generator=gen,
+                                 dtype=torch.int64).to(dt)
+        else:
+            vals = torch.randn((W, L), device=dev, generator=gen, dtype=torch.float64).to(dt)
+        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
+        mask[W // 2] = False
+        out_dt = WR.sum_dtype(dt)
+        as_bits = (lambda t: t.view(torch.int32)) if out_dt == torch.uint32 else (lambda t: t)
+        zero = torch.zeros((), dtype=dt, device=dev)
+        row = check_kernel(
+            torch, "masked_window_reduce", f"path_a_{str(dt).split('.')[-1]}",
+            lambda: as_bits(WR.masked_window_reduce_cuda(vals, mask)),
+            lambda: as_bits(WR.masked_window_reduce_plain(vals, mask)),
+            # torch has no where for uint16/uint32 on the card: no library call
+            None if dt in (torch.uint16, torch.uint32) else
+            (lambda: torch.sum(torch.where(mask, vals, zero), dim=1, dtype=acc)),
+            W * L * (vals.element_size() + 1) + W * out_dt.itemsize,
+            {"W": W, "L": L, "dtype": str(dt), "out_dtype": str(out_dt)}, tol=tol,
+            counted="bytes: each value and flag read once, each row's sum written "
+                    "once; the library call sums in " + str(acc))
+        first = as_bits(WR.masked_window_reduce_cuda(vals, mask))
+        second = as_bits(WR.masked_window_reduce_cuda(vals, mask))
+        if not torch.equal(_bits(torch, first), _bits(torch, second)):
+            raise AssertionError(f"masked_window_reduce [{dt}]: two launches differ")
+        rows[row["case"]] = row
+    iterable_unsigned_check(torch, dev, gen)
     log({"phase": "window_reduce_kernel",
          "ab_kernel_over_library": {c: rows[c]["kernel_ms"] / rows[c]["library_ms"]
-                                    for c in rows}})
+                                    for c in rows if rows[c]["library_ms"]}})
     return rows["path_a"]
 
 
@@ -1644,6 +1750,335 @@ def windows_small_phase(wt, registry):
         raise AssertionError("windows_small [tb_lateness]: differs from the Python oracle")
 
 
+# ------------------------------------------------------------- PipeGraph phases
+
+ORD_TOTAL = 200_000       # bench.py::bench_ordering_overhead: tuples a source
+ORD_BATCH = 4096          # and its batch
+ORD_FULL_TOTAL = 1 << 22  # the same graph at full width: tuples a source
+ORD_FULL_BATCH = 1 << 16  # and its batch
+GW_TOTAL = 1 << 21        # graph_windows: tuples (path A's keys and window)
+GW_BATCH = 1 << 16        # and its batch
+
+
+def pipegraph_ysb_phase(torch, np, wt, ysb, registry, pipe_parts, pipe_launches):
+    """The YSB chain as a one-source PipeGraph at bench_ysb's geometry, 8
+    batches, dispatch off and at K = 3: the sink rows byte for byte equal to
+    ysb_pipeline_phase's Pipeline rows and to the dense oracle, and the same
+    launches (K1 and K2 once a batch) as the Pipeline run."""
+    total = YSB_BATCHES * BATCH
+    want = ysb.dense_oracle(total)
+    runs = {}
+    for k in (None, DISPATCH_K["ysb"]):
+        parts, cb = collect_sink()
+        g = wt.PipeGraph("pipegraph_ysb", batch_size=BATCH, dispatch=k or False)
+        mp = g.add_source(ysb.make_source(total))
+        for op in ysb.make_ops(**ysb.bench_geometry(BATCH)):
+            mp.add(op)
+        mp.add_sink(wt.Sink(cb))
+        g.start()                     # with dispatch: the K-step graph made ready
+        mp._compile(BATCH)            # the chain's build probes launch outside the count
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        g.wait_end()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = registry.launch_counts()
+        got = as_dict(np, parts)
+        same = flat_bytes(np, parts) == flat_bytes(np, pipe_parts)
+        log({"phase": "pipegraph_ysb", "dispatch": k, "batches": YSB_BATCHES,
+             "batch": BATCH, "windows": len(got), "run_s": dt,
+             "tuples_per_s": total / dt, "launches": launches,
+             "rows_equal_pipeline_bytes": same})
+        if got != want:
+            raise AssertionError("pipegraph_ysb: per-window counts differ from the oracle")
+        if not same:
+            raise AssertionError("pipegraph_ysb: sink rows differ from the Pipeline run's")
+        if launches != pipe_launches:
+            raise AssertionError(f"pipegraph_ysb: launches {launches}, Pipeline "
+                                 f"{pipe_launches}")
+        runs[k] = (parts, launches, mp._chain.graphs)
+    check_dispatch(np, "pipegraph_ysb", DISPATCH_K["ysb"], YSB_BATCHES, runs[None][:2],
+                   runs[DISPATCH_K["ysb"]][:2], runs[DISPATCH_K["ysb"]][2])
+    return runs[None][1]
+
+
+def ordering_graph(torch, wt, mode, batch, total, sink=None):
+    """bench.py::bench_ordering_overhead's graph: two sources (ts 2i and
+    2i + 1, 8 keys) -> merge -> Map(v * 2) -> ReduceSink (or ``sink``)."""
+    g = wt.PipeGraph("ord", mode=mode, batch_size=batch)
+    sa = wt.Source(lambda i: {"v": i.to(torch.float32)}, total=total, num_keys=8,
+                   ts_fn=lambda i: 2 * i, name="a")
+    sb = wt.Source(lambda i: {"v": -i.to(torch.float32)}, total=total, num_keys=8,
+                   ts_fn=lambda i: 2 * i + 1, name="b")
+    m = g.add_source(sa).merge(g.add_source(sb))
+    m.add(wt.Map(lambda t: {"v": t.v * 2.0}))
+    if sink is None:
+        m.add(wt.ReduceSink(lambda t: t.v, name="out"))
+    else:
+        m.add_sink(sink)
+    return g, m
+
+
+def k4_launches(B, networks):
+    """(network calls, CUDA launches) of an Ordering_Node's K4 calls: each
+    call's launches from ``network_plan`` at its row length."""
+    calls = sum(networks.values())
+    cuda = sum(c * B.network_plan(n, sort=s)["launches"] for (n, s), c in networks.items())
+    return calls, cuda
+
+
+def ordering_phase(torch, np, wt, registry, card, profile=False):
+    """bench_ordering_overhead at its geometry, DEFAULT and DETERMINISTIC
+    (equal sums; tuples/s of each and their ratio); then the same graph at
+    full width (batch 2^16, 2^22 tuples a source) into a Sink: the released
+    stream a permutation of the input sorted by (ts, id, chan), and K4's
+    calls and CUDA launches counted exactly against network_plan."""
+    from windflow_tpu_torch.ops import bitonic as B
+
+    tps, sums = {}, {}
+    for mode in (wt.Mode.DEFAULT, wt.Mode.DETERMINISTIC):
+        for rep in range(2):                       # the first run warms up
+            g, _ = ordering_graph(torch, wt, mode, ORD_BATCH, ORD_TOTAL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = g.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        tps[mode.name], sums[mode.name] = 2 * ORD_TOTAL / dt, float(res["out"])
+    log({"phase": "ordering_bench", "card": card, "batch": ORD_BATCH,
+         "tuples_per_source": ORD_TOTAL, "tuples_per_s": tps, "sums": sums,
+         "deterministic_over_default": tps["DETERMINISTIC"] / tps["DEFAULT"]})
+    if sums["DEFAULT"] != sums["DETERMINISTIC"]:
+        raise AssertionError(f"ordering: sums differ between modes {sums}")
+
+    parts = []
+
+    def cb(view):
+        if view is not None:
+            parts.append((view["ts"], view["id"], view["key"], view["payload"]["v"]))
+    g, m = ordering_graph(torch, wt, wt.Mode.DETERMINISTIC, ORD_FULL_BATCH,
+                          ORD_FULL_TOTAL, wt.Sink(cb))
+    g.start()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    g.wait_end()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    ts, ids, keys, v = (np.concatenate(x) for x in zip(*parts))
+    n = 2 * ORD_FULL_TOTAL
+    want_ts = np.arange(n, dtype=np.int32)
+    half = want_ts // 2
+    ok = (len(ts) == n and np.array_equal(ts, want_ts) and np.array_equal(ids, half)
+          and np.array_equal(keys, half % 8)
+          and np.array_equal(v, np.where(want_ts % 2 == 0, half, -half).astype(np.float32)
+                             * 2.0))
+    node = m._ordering
+    calls, cuda_launches = k4_launches(B, node.networks)
+    pushes = 2 * ORD_FULL_TOTAL // ORD_FULL_BATCH
+    sorts = sum(c for (_, srt), c in node.networks.items() if srt)
+    merges = {f"{n_}": c for (n_, srt), c in node.networks.items() if not srt}
+    log({"phase": "ordering_full_width", "card": card, "batch": ORD_FULL_BATCH,
+         "tuples_per_source": ORD_FULL_TOTAL, "run_s": dt, "tuples_per_s": n / dt,
+         "released_sorted_permutation": bool(ok), "pushes": pushes, "sort_calls": sorts,
+         "merge_calls_by_lanes": merges, "k4_calls": calls,
+         "k4_cuda_launches": cuda_launches,
+         "k4_cuda_launches_per_merge": {f"{n_}": B.network_plan(n_, sort=False)["launches"]
+                                        for (n_, srt) in node.networks if not srt},
+         "launches": launches})
+    if not ok:
+        raise AssertionError("ordering: the released stream is not the sorted input")
+    if sorts != pushes or sum(merges.values()) != pushes - 1:
+        raise AssertionError(f"ordering: {sorts} sorts and {merges} merges for "
+                             f"{pushes} pushes")
+    if launches["ordering_merge"] != calls:
+        raise AssertionError(f"ordering: K4 counted {launches['ordering_merge']}, the "
+                             f"node made {calls} network calls")
+    node_phase(torch, wt, card, profile)
+    return launches
+
+
+def node_phase(torch, wt, card, profile=False):
+    """The Ordering_Node alone on the full-width ordering traffic: the two
+    sources' batches made first, then ms a push (push and the counts' host
+    wait) with nothing downstream; ``--profile`` profiles the first pushes
+    of a fresh node (device busy time a push, idle share, top kernels)."""
+    from windflow_tpu_torch.parallel.ordering import Ordering_Node
+    srcs = [wt.Source(lambda i: {"v": i.to(torch.float32)}, total=ORD_FULL_TOTAL,
+                      num_keys=8, ts_fn=(lambda i, c=c: 2 * i + c), name=f"s{c}")
+            for c in range(2)]
+    its = [s.batches(ORD_FULL_BATCH) for s in srcs]
+    batches = [(c, b) for pair in zip(*its) for c, b in enumerate(pair)]
+    node = Ordering_Node(2, wt.ordering_mode_t.TS)
+    for c, b in batches[:8]:                   # warm-up on a node of its own
+        node.push(c, b)
+        node.last_release_count
+    node = Ordering_Node(2, wt.ordering_mode_t.TS)
+    released = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c, b in batches:
+        node.push(c, b)
+        released += node.last_release_count
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    log({"phase": "ordering_node_alone", "card": card, "batch": ORD_FULL_BATCH,
+         "pushes": len(batches), "ms_per_push": ms,
+         "tuples_per_s": len(batches) * ORD_FULL_BATCH / (ms * len(batches) / 1e3),
+         "released_before_flush": released})
+    if profile:
+        def push(state, cur):
+            nd, k = state
+            nd.push(*batches[k])
+            nd.last_release_count
+            return (nd, k + 1), cur, None
+        fresh = Ordering_Node(2, wt.ordering_mode_t.TS)
+        state = push((fresh, 0), None)[0]         # past the first push (no merge)
+        profile_steps(torch, "ordering_node", push, state, None, ms)
+
+
+def host_io_phase(torch, np, wt):
+    """GeneratorSource (numpy chunks with string keys: pinned host-to-device
+    copies) -> Map -> Sink, synchronous and with ``async_depth=3`` (pinned
+    device-to-host copies behind CUDA events): the same rows, in order."""
+    names = np.asarray(["alpha", "beta", "gamma", "delta", "eps"])
+
+    def gen():
+        rng = np.random.default_rng(20261017)
+        for c in range(8):
+            n = (1 << 16) - 17 * c
+            yield ({"v": rng.integers(-1000, 1000, n).astype(np.float32)},
+                   names[rng.integers(0, 5, n)], np.arange(n) + c * (1 << 16))
+    runs = {}
+    for depth in (0, 3):
+        parts = []
+
+        def cb(view):
+            if view is not None:
+                parts.append((view["key"], view["id"], view["ts"], view["payload"]["v"]))
+        src = wt.GeneratorSource(gen, {"v": torch.zeros(())}, num_keys=64)
+        t0 = time.perf_counter()
+        wt.Pipeline(src, [wt.Map(lambda t: {"v": t.v * 3.0})],
+                    wt.Sink(cb, async_depth=depth), batch_size=1 << 16).run()
+        torch.cuda.synchronize()
+        runs[depth] = (flat_bytes(np, parts), time.perf_counter() - t0,
+                       src.get_StatsRecords()[0].bytes_copied_hd, len(parts))
+    same = runs[0][0] == runs[3][0]
+    log({"phase": "host_io", "batches": 8, "async_depth": 3, "rows_equal": same,
+         "run_s": {d: r[1] for d, r in runs.items()}, "h2d_bytes": runs[0][2],
+         "sink_calls": runs[0][3]})
+    if not same or runs[0][3] != 8:
+        raise AssertionError("host_io: the async sink's rows differ from the sync sink's")
+
+
+def graph_windows_oracle(np, total, keys, win_len, slide):
+    """``{(key, window): sum}`` of the graph_windows graph: tuples i with
+    i % 3 != 2 (branches 0 and 1 of the split), merged in (ts, id, chan)
+    order (ts = id = i, so ascending i), key i % keys, value i % 97, per-key
+    CB windows of ``win_len`` sliding by ``slide`` (the partial ones at EOS
+    too)."""
+    out = {}
+    i = np.arange(total, dtype=np.int64)
+    for k in range(keys):
+        sel = i[k::keys]
+        vals = sel[sel % 3 != 2] % 97
+        csum = np.concatenate([[0], np.cumsum(vals)])
+        n = len(vals)
+        for w in range((n - 1) // slide + 1):
+            lo, hi = w * slide, min(w * slide + win_len, n)
+            out[(k, w)] = int(csum[hi] - csum[lo])
+    return out
+
+
+def graph_windows(torch, wt, total, keys, win_len, slide, batch, cb, device=None):
+    """split (id % 3) -> branches 0 and 1 (a Map each) merged partially in
+    DETERMINISTIC mode -> CB Win_Seq sum -> Sink; branch 2 counted by a
+    ReduceSink. Returns (graph, source pipe, merged pipe)."""
+    kw = {} if device is None else {"device": device}
+    g = wt.PipeGraph("graph_windows", mode=wt.Mode.DETERMINISTIC, batch_size=batch, **kw)
+    mp = g.add_source(wt.DeviceSource(lambda i: {"v": (i % 97).to(torch.float32)},
+                                      total=total, num_keys=keys, **kw))
+    mp.split(lambda t: (t.id % 3).to(torch.int32), 3)
+    b0 = mp.select(0).chain(wt.Map(lambda t: {"v": t.v + 0.0}, name="b0", **kw))
+    b1 = mp.select(1).chain(wt.Map(lambda t: {"v": t.v * 1.0}, name="b1", **kw))
+    mp.select(2).add(wt.ReduceSink(lambda t: torch.ones((), dtype=torch.int32),
+                                   name="rest", **kw))
+    m = b0.merge(b1)                                   # merge-partial
+    m.add(wt.Win_Seq(lambda wid, it: it.sum("v"),
+                     wt.WindowSpec(win_len, slide, wt.win_type_t.CB), num_keys=keys,
+                     **kw)).add_sink(wt.Sink(cb, **kw))
+    return g, mp, m
+
+
+def graph_windows_phase(torch, np, wt, registry):
+    """split -> select -> merge-partial (DETERMINISTIC, TS_RENUMBERING) -> CB
+    Win_Seq sum -> Sink at path A's keys and window, batch 2^16 over 2^21
+    tuples: every window against the numpy oracle; K2, K3 and K6 once per
+    Win_Seq apply (K6 once per flush call), K4's calls as the node made them."""
+    from windflow_tpu_torch.ops import bitonic as B
+
+    parts, cb = collect_sink()
+    g, mp, m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE,
+                             GW_BATCH, cb)
+    if m._merge_parent is not mp or m._covers_idx != (0, 1):
+        raise AssertionError("graph_windows: the merge is not merge-partial")
+    op = m.ops[0]
+    inner, flushed = op.flush, {"calls": 0, "launches": dict.fromkeys(registry.KERNELS, 0)}
+
+    def flush(state):
+        before = registry.launch_counts()
+        out = inner(state)
+        for k, n in registry.launch_counts().items():
+            flushed["launches"][k] += n - before[k]
+        flushed["calls"] += 1
+        return out
+    op.flush = flush
+    g.start()
+    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = g.wait_end()
+    finally:
+        del op.flush
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = registry.launch_counts()
+    applied = {k: total[k] - flushed["launches"][k] for k in total}
+    got = as_dict(np, parts)
+    want = graph_windows_oracle(np, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE)
+    node = m._ordering
+    calls, cuda_launches = k4_launches(B, node.networks)
+    applies = m._chain._push_count
+    log({"phase": "graph_windows", "batch": GW_BATCH, "tuples": GW_TOTAL,
+         "keys": WIN_KEYS, "ordering_mode": node.mode.name, "windows": len(got),
+         "rest": int(res["rest"]), "run_s": dt, "tuples_per_s": GW_TOTAL / dt,
+         "win_seq_applies": applies, "flush_calls": flushed["calls"],
+         "launches_apply": applied, "launches_flush": flushed["launches"],
+         "k4_calls": calls, "k4_cuda_launches": cuda_launches,
+         "k4_networks": {f"{'sort' if s_ else 'merge'}_{n_}": c
+                         for (n_, s_), c in node.networks.items()}})
+    if node.mode.name != "TS_RENUMBERING":
+        raise AssertionError(f"graph_windows: ordering mode {node.mode.name}")
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+        raise AssertionError(f"graph_windows: windows differ from the numpy oracle: {bad}")
+    if int(res["rest"]) != len(range(2, GW_TOTAL, 3)):
+        raise AssertionError("graph_windows: branch 2's count is wrong")
+    expect_launches("graph_windows apply",
+                    {k: applied[k] for k in ("lookup", "segment_fold", "masked_window_reduce")},
+                    PATH_A_APPLY, applies)
+    expect_launches("graph_windows flush", flushed["launches"],
+                    {"masked_window_reduce": 1}, flushed["calls"])
+    if applied["ordering_merge"] != calls or total["ordering_merge"] != calls:
+        raise AssertionError(f"graph_windows: K4 counted {total['ordering_merge']}, the "
+                             f"node made {calls} network calls")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1692,7 +2127,10 @@ def main() -> int:
     rows.update(partials_kernel_phase(torch, ysb))
     rows.update(nexmark_kernel_phase(torch))
     fold_row = repair_checks(torch)
-    main_launches = ysb_pipeline_phase(torch, np, wt, ysb, registry)
+    main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
+    pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
+                                      main_launches)
+    del ysb_parts
     ysb_loop_phase(torch, wt, ysb, card, args.profile)
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
     ysb_loop_phase(torch, wt, ysb, card, args.profile, name="ysb_sum_loop",
@@ -1706,19 +2144,18 @@ def main() -> int:
     a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)
     b_launches = path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
     windows_small_phase(wt, registry)
+    ord_launches = ordering_phase(torch, np, wt, registry, card, args.profile)
+    host_io_phase(torch, np, wt)
+    gw_launches = graph_windows_phase(torch, np, wt, registry)
 
-    path_launches = {"histogram": main_launches["histogram"],
-                     "lookup": main_launches["lookup"],
-                     "segment_fold": sum_launches["segment_fold"],
-                     "ordering_merge": nex_launches["ordering_merge"],
-                     "join_probe": nex_launches["join_probe"],
-                     "masked_window_reduce": (a_launches["masked_window_reduce"]
-                                              + b_launches["masked_window_reduce"]),
-                     "segment_fold_float": sum(
-                         d["segment_fold_float"] for d in (main_launches, sum_launches,
-                                                           nex_launches, a_launches,
-                                                           b_launches))}
-    log({"window_path_launches": {"path_a": a_launches, "path_b": b_launches}})
+    # each path's launches, counted from zero just before it and read just
+    # after, summed over the paths
+    paths = {"ysb": main_launches, "ysb_sum": sum_launches, "nexmark": nex_launches,
+             "path_a": a_launches, "path_b": b_launches, "pipegraph_ysb": pg_launches,
+             "ordering": ord_launches, "graph_windows": gw_launches}
+    path_launches = {name: sum(d[name] for d in paths.values())
+                     for name in registry.KERNELS}
+    log({"path_launches": paths})
     kernels = []
     for name, k in registry.tpu_kernels().items():
         r = rows[name]

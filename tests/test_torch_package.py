@@ -33,7 +33,11 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.operators.window", "windflow_tpu_torch.operators.win_seq",
            "windflow_tpu_torch.operators.win_patterns", "windflow_tpu_torch.meta",
            "windflow_tpu_torch.runtime.dispatch", "windflow_tpu_torch.runtime.graphs",
-           "windflow_tpu_torch.benchmarks"]
+           "windflow_tpu_torch.benchmarks", "windflow_tpu_torch.runtime.pipegraph",
+           "windflow_tpu_torch.runtime.builders", "windflow_tpu_torch.runtime.async_sink",
+           "windflow_tpu_torch.parallel", "windflow_tpu_torch.parallel.ordering",
+           "windflow_tpu_torch.parallel.emitters", "windflow_tpu_torch.ops.compaction",
+           "windflow_tpu_torch.shipper", "windflow_tpu_torch.stats"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -109,8 +113,13 @@ def test_unported_paths_raise():
                     device="cpu").init_state({})
     with pytest.raises(NotImplementedError):
         table_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="loop"):
-        wt.DeviceSource(lambda i, shipper: None, total=10, device="cpu")
+    g = wt.PipeGraph(device="cpu")
+    g.add_source(wt.Source(lambda i: {"v": i}, total=10, device="cpu")).add(
+        wt.ReduceSink(lambda t: t.v, device="cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        g.run(threaded=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2).build()
 
 
 def test_nexmark_cpu_run_launches_no_kernel():

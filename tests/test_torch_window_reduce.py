@@ -89,12 +89,140 @@ def test_small_ints_widen_as_jnp_sum(dtype):
 def test_cuda_wrapper_refuses_unported_dtypes_and_fake_shapes():
     v = torch.zeros((4, 5), dtype=torch.float64)
     m = torch.ones((4, 5), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wr.masked_window_reduce_cuda(v, m)
+    with pytest.raises(NotImplementedError, match="32-bit defaults"):
+        wr.masked_window_reduce_cuda(v.to(torch.int64), m)
     out = wr.masked_window_reduce(v.to("meta").to(torch.int8), m.to("meta"))
     assert out.shape == (4,) and out.dtype == torch.int32 and out.device.type == "meta"
+    for dt, want in ((torch.uint8, torch.uint32), (torch.uint16, torch.uint32),
+                     (torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16),
+                     (torch.float64, torch.float64)):
+        out = wr.masked_window_reduce(v.to("meta").to(dt), m.to("meta"))
+        assert out.shape == (4,) and out.dtype == want, (dt, out.dtype)
     one = Iterable({"v": v[0].to("meta").to(torch.int8)}, None, None, m[0].to("meta"))
     assert one.sum("v").shape == () and one.sum("v").dtype == torch.int32
+
+
+# ------------------------------------------- F4: every dtype jnp.sum takes
+
+#: the JAX dtype of each torch dtype the repair adds
+_JNP = {torch.uint8: jnp.uint8, torch.uint16: jnp.uint16, torch.uint32: jnp.uint32,
+        torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16,
+        torch.float64: jnp.float64}
+
+
+def _f4_inputs(W, L, dtype, seed):
+    """Seeded numpy data for ``dtype``: the full range of an unsigned dtype,
+    normal floats otherwise (made as float64, rounded by each package to
+    ``dtype`` the same way)."""
+    rng = np.random.default_rng(seed)
+    if dtype in (torch.uint8, torch.uint16, torch.uint32):
+        npd = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.uint32: np.uint32}[dtype]
+        vals = rng.integers(0, np.iinfo(npd).max, size=(W, L), endpoint=True).astype(npd)
+    else:
+        vals = rng.normal(size=(W, L))
+    mask = rng.random((W, L)) < 0.7
+    mask[W // 2] = False
+    return vals, mask
+
+
+def _jax_sum(vals, mask, dtype):
+    with jax.enable_x64(dtype == torch.float64):
+        out = pk._xla_masked_sum(jnp.asarray(vals, _JNP[dtype]), jnp.asarray(mask))
+        return np.asarray(out.astype(jnp.float32) if dtype in _HALF else out)
+
+
+_HALF = (torch.float16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.uint32])
+@pytest.mark.parametrize("shape", [(33, 40), (9, 3), (4, 70000)])
+def test_unsigned_sums_to_uint32_as_jnp_sum(dtype, shape):
+    """uint8, uint16 and uint32 sum to uint32, wrapping modulo 2^32 (the
+    [4, 70000] uint16 rows pass 2^32), exactly as ``jnp.sum`` does."""
+    vals, mask = _f4_inputs(*shape, dtype, 11)
+    want = _jax_sum(vals, mask, dtype)
+    got = wr.masked_window_reduce(torch.from_numpy(vals), torch.from_numpy(mask))
+    assert got.dtype == torch.uint32 and want.dtype == np.uint32
+    np.testing.assert_array_equal(got.numpy(), want)
+    one = np.array([[200, 100, 50, 255]], np.uint8)
+    got = wr.masked_window_reduce(torch.from_numpy(one),
+                                  torch.tensor([[True, True, False, True]]))
+    assert got.dtype == torch.uint32 and got.tolist() == [555]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float16, 1e-2), (torch.bfloat16, 1e-2),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", [(33, 40), (9, 3)])
+def test_half_and_double_sums_as_jnp_sum(dtype, tol, shape):
+    """float16 and bfloat16 accumulate in float32 and keep their dtype, float64
+    keeps its own: within rtol = atol = 1e-2 (half types) and 1e-12
+    (float64) of ``jnp.sum``."""
+    vals, mask = _f4_inputs(*shape, dtype, 12)
+    want = _jax_sum(vals, mask, dtype)
+    got = wr.masked_window_reduce(torch.from_numpy(vals).to(dtype), torch.from_numpy(mask))
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("npd", [np.uint8, np.uint16, np.uint32])
+def test_iterable_over_unsigned_fields_matches_jax(npd):
+    """Every Iterable reduction over unsigned fields (1-D and [L, 2]):
+    ``jnp.sum``'s uint32 sums, max/min/at in the field's dtype, float32
+    means, as the JAX package computes them."""
+    rng = np.random.default_rng(13)
+    W, L = 7, 45
+    u = rng.integers(0, np.iinfo(npd).max, size=(W, L), endpoint=True).astype(npd)
+    data = {"u": u, "u2": np.stack([u, u[:, ::-1]], axis=-1).copy()}
+    ids = np.arange(W * L, dtype=np.int32).reshape(W, L)
+    ts = rng.integers(0, 100, size=(W, L)).astype(np.int32)
+    mask = rng.random((W, L)) < 0.6
+    mask[2] = False
+
+    def fn(it):
+        return {"sum": it.sum("u"), "sum2": it.sum("u2"), "max": it.max("u"),
+                "min": it.min("u2"), "at": it.at(3).data["u"], "mean": it.mean("u")}
+    want = jax.vmap(lambda d, i, t, m: fn(JIterable(d, i, t, m)))(
+        {k: jnp.asarray(v) for k, v in data.items()}, jnp.asarray(ids), jnp.asarray(ts),
+        jnp.asarray(mask))
+    t = torch.from_numpy
+    got = torch.func.vmap(lambda d, i, s, m: fn(Iterable(d, i, s, m)))(
+        {k: t(v) for k, v in data.items()}, t(ids), t(ts), t(mask))
+    for k in want:
+        w = np.asarray(want[k])
+        g = got[k].numpy()
+        assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
+        if k == "mean":
+            np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_win_seq_cb_sum_over_uint8_field_matches_jax():
+    """A Win_Seq CB ``it.sum`` over a uint8 field: the same uint32 window sums
+    in both packages (windows of 40 tuples of up to 255 pass 2^8 and 2^16)."""
+    import windflow_tpu as wf
+    import windflow_tpu_torch as wt
+    from windflow_tpu.basic import win_type_t as jwt
+    from windflow_tpu.operators.window import WindowSpec as JSpec
+
+    def run(pkg, spec, cast, kw):
+        src = pkg.Source(lambda i: {"v": cast((i * 37) % 256)}, total=700, num_keys=3,
+                         **kw)
+        op = pkg.Win_Seq(lambda wid, it: it.sum("v"), spec, num_keys=3, **kw)
+        out = []
+
+        def cb(view):
+            if view is not None:
+                p = np.asarray(view["payload"])
+                assert p.dtype == np.uint32, p.dtype
+                out.extend(zip(view["key"].tolist(), view["id"].tolist(), p.tolist()))
+        pkg.Pipeline(src, [op], pkg.Sink(cb, **kw), batch_size=128, **kw).run()
+        return sorted(out)
+    want = run(wf, JSpec(40, 20, jwt.CB), lambda a: a.astype(jnp.uint8), {})
+    got = run(wt, wt.WindowSpec(40, 20, wt.win_type_t.CB), lambda a: a.to(torch.uint8),
+              {"device": "cpu"})
+    assert got == want and want and max(r for _, _, r in want) > 255
 
 
 def _row_sum(vals, mask):

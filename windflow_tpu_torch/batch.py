@@ -20,10 +20,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 #: dtype of the (key, id, ts) control fields
 CTRL_DTYPE = torch.int32
+
+#: Host-side sidecar metadata (a trace id): it rides on the Python Batch object
+#: under this attribute, set with ``object.__setattr__`` on the frozen
+#: dataclass and never as a field, so it changes no tensor. The port carries
+#: it only; causal tracing itself is not ported (ROADMAP Queue 1 item 16).
+#: ``dataclasses.replace``, ``split_batch`` and ``concat_batches`` build new
+#: objects and drop it.
+TRACE_META_ATTR = "_wf_trace"
+
+
+def trace_meta(batch):
+    """The batch's host-side trace metadata, or None."""
+    return getattr(batch, TRACE_META_ATTR, None)
 
 
 # --------------------------------------------------------------- pytrees
@@ -105,6 +119,36 @@ class Batch:
         """Intersect the validity mask with ``keep`` (the Filter primitive)."""
         return dataclasses.replace(self, valid=self.valid & keep)
 
+    def count(self) -> torch.Tensor:
+        """Number of live tuples (an int32 device scalar)."""
+        return self.valid.sum(dtype=torch.int32)
+
+    def take(self, order: torch.Tensor, valid: torch.Tensor = None) -> "Batch":
+        """Lanes ``order`` of every field; ``valid`` replaces the gathered mask."""
+        take = lambda a: a.index_select(0, order)  # noqa: E731
+        return Batch(key=take(self.key), id=take(self.id), ts=take(self.ts),
+                     payload=tree_map(take, self.payload),
+                     valid=take(self.valid) if valid is None else valid)
+
+    def compact(self) -> "Batch":
+        """Pack live tuples to the front (stable): the JAX package's stable
+        argsort of the invalid flag. Invalid lanes move to the tail; the
+        capacity is unchanged."""
+        order = torch.argsort((~self.valid).to(torch.int8), stable=True)
+        return self.take(order)
+
+    def select(self, idx: torch.Tensor, valid: torch.Tensor) -> "Batch":
+        """Gather lanes ``idx`` with a new validity mask (size may differ)."""
+        idx = idx.to(torch.int64)
+        return self.take(idx, valid & self.valid.index_select(0, idx))
+
+    def sorted_by(self, *, by: str = "ts") -> "Batch":
+        """Stable sort of the live tuples by ``ts`` or ``id``, invalid lanes to
+        the tail: the batch-level counterpart of the Ordering_Node."""
+        k = self.ts if by == "ts" else self.id
+        big = torch.iinfo(CTRL_DTYPE).max
+        return self.take(torch.argsort(torch.where(self.valid, k, big), stable=True))
+
     def to_host(self) -> dict:
         """All lanes as numpy arrays: ``{"key", "id", "ts", "payload", "valid"}``."""
         np_ = lambda t: t.detach().cpu().numpy()  # noqa: E731
@@ -159,6 +203,110 @@ def host_view(batch: Batch) -> dict:
             "payload": tree_map(lambda a: a[v], h["payload"])}
 
 
+def hash_key_to_slot(key, num_slots: int):
+    """Map user keys (strings, bytes, ints of any size, numpy arrays of them)
+    to key slots in ``[0, num_slots)``: the reference's ``hash(key) % n``
+    routing contract applied at ingest. Deterministic across runs (unlike
+    Python's salted ``hash``), and bit-identical to the JAX package: strings
+    and bytes hash by 32-bit FNV-1a, integers by a Knuth multiply in uint64
+    wraparound. The JAX package's native C array pass computes the same
+    arithmetic; here numpy does."""
+    if isinstance(key, (str, bytes)):
+        return _fnv1a(key) % num_slots
+    if isinstance(key, (int, np.integer)):
+        k = int(key) & 0xFFFFFFFFFFFFFFFF
+        return int((k * 2654435761) % (1 << 64) % num_slots)
+    arr = np.asarray(key)
+    if arr.dtype.kind in "USO":                        # strings / bytes / objects
+        uniq, inv = np.unique(arr.ravel(), return_inverse=True)
+        slots = np.asarray([hash_key_to_slot(u, num_slots) for u in uniq.tolist()],
+                           np.int32)
+        return slots[inv].reshape(arr.shape)
+    if arr.dtype.kind not in "iu":
+        raise TypeError(
+            f"hash_key_to_slot: keys must be ints, strings, or bytes, got dtype "
+            f"{arr.dtype} (float keys would silently truncate and merge)")
+    return ((arr.astype(np.uint64) * np.uint64(2654435761)) % np.uint64(num_slots)
+            ).astype(np.int32)
+
+
+def _fnv1a(s) -> int:
+    if isinstance(s, str):
+        data = s.encode()
+    elif isinstance(s, bytes):
+        data = s
+    else:
+        raise TypeError(f"hash_key_to_slot: unhashable key {s!r} "
+                        f"(expected str/bytes, got {type(s).__name__})")
+    h = 2166136261
+    for ch in data:
+        h = ((h ^ ch) * 16777619) & 0xFFFFFFFF         # FNV-1a
+    return h
+
+
+def concat_batches(a: Batch, b: Batch) -> Batch:
+    """Concatenate two batches along the capacity axis (merge primitive)."""
+    cat = lambda x, y: torch.cat([x, y], dim=0)  # noqa: E731
+    return Batch(key=cat(a.key, b.key), id=cat(a.id, b.id), ts=cat(a.ts, b.ts),
+                 payload=tree_map(cat, a.payload, b.payload), valid=cat(a.valid, b.valid))
+
+
+def split_batch(batch: Batch, capacity: int) -> list:
+    """Slice a batch into ``capacity``-sized pieces along the capacity axis,
+    lane content kept verbatim: the inverse of :func:`concat_batches`.
+    ``capacity`` must divide the batch's."""
+    c = batch.capacity
+    capacity = int(capacity)
+    if capacity < 1 or c % capacity:
+        raise ValueError(f"split_batch: capacity {capacity} does not divide "
+                         f"the batch capacity {c}")
+    if capacity == c:
+        return [batch]
+    return [Batch(key=batch.key[s:s + capacity], id=batch.id[s:s + capacity],
+                  ts=batch.ts[s:s + capacity],
+                  payload=tree_map(lambda a: a[s:s + capacity], batch.payload),  # noqa: B023
+                  valid=batch.valid[s:s + capacity])
+            for s in range(0, c, capacity)]
+
+
+class MutableTupleRef:
+    """Mutable per-tuple view behind the reference's in-place signatures
+    (``void(tuple_t&)`` Map): payload attribute writes are recorded under
+    ``vmap`` and become the output payload. Control fields stay read-only.
+    Needs a dict payload (named fields)."""
+
+    __slots__ = ("_ctrl", "_data")
+
+    def __init__(self, ref: TupleRef):
+        object.__setattr__(self, "_ctrl", {"key": ref.key, "id": ref.id, "ts": ref.ts})
+        if not isinstance(ref.data, dict):
+            raise TypeError(
+                "in-place map functions need a dict payload (named fields); "
+                "return a new payload instead for pytree payloads")
+        object.__setattr__(self, "_data", dict(ref.data))
+
+    def __getattr__(self, name):
+        ctrl = object.__getattribute__(self, "_ctrl")
+        if name in ctrl:
+            return ctrl[name]
+        data = object.__getattribute__(self, "_data")
+        if name == "data":
+            return data
+        if name in data:
+            return data[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in ("key", "id", "ts"):
+            raise TypeError(
+                f"control field '{name}' is read-only in user functions (the "
+                f"reference owns setControlFields in its routing layer)")
+        object.__getattribute__(self, "_data")[name] = value
+
+    def _payload(self):
+        return dict(object.__getattribute__(self, "_data"))
+
+
 def same_capacity(batches) -> int:
     """The one capacity of ``batches``; raises for an empty list or mixed
     capacities."""
@@ -207,6 +355,7 @@ def spec_of(tree: Any) -> Any:
                                           device="meta"), tree)
 
 
-__all__ = ["CTRL_DTYPE", "Batch", "TupleRef", "tuple_refs", "map_tuples",
-           "vmap_lanes", "host_view", "spec_of", "stack_batches", "unstack_batches",
-           "tree_map", "tree_leaves"]
+__all__ = ["CTRL_DTYPE", "TRACE_META_ATTR", "Batch", "TupleRef", "MutableTupleRef",
+           "tuple_refs", "map_tuples", "vmap_lanes", "host_view", "spec_of",
+           "stack_batches", "unstack_batches", "concat_batches", "split_batch",
+           "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves"]

@@ -1,6 +1,6 @@
 """Signature introspection for user functions.
 
-The part of ``windflow_tpu/meta.py`` this slice needs: the reference deduces the
+Counterpart of ``windflow_tpu/meta.py``: the reference deduces the
 function flavour (plain/rich, itemized/loop) from ``&F_t::operator()``
 (``wf/meta.hpp:49-877``); here ``inspect.signature`` classifies the callable once
 at operator construction, so ill-formed functions are rejected at graph-build
@@ -8,9 +8,11 @@ time with the list of accepted signatures.
 
 Accepted signatures (``t`` is a :class:`~windflow_tpu_torch.batch.TupleRef`):
 
-- Source : ``f(i, ctx?) -> payload``   (itemized; the loop flavour comes later)
+- Source : ``f(i, ctx?) -> payload`` (itemized) or ``f(i, shipper, ctx?)`` (loop)
 - Map    : ``f(t, ctx?) -> payload``
 - Filter : ``f(t, ctx?) -> bool``
+- FlatMap: ``f(t, shipper, ctx?)``  (classified only: FlatMap is not ported)
+- Accumulator: ``f(acc, t, ctx?) -> acc``  (classified only: not ported)
 - Sink   : ``f(view_of_numpy, ctx?) -> None``
 - Window (non-incremental): ``f(wid, iterable, ctx?) -> result``
 - Window (incremental)    : ``f(wid, t, acc, ctx?) -> acc``
@@ -138,6 +140,21 @@ def classify_window_flavour(fn):
     raise SignatureError(
         f"Window function: callable with positional parameters {names} matches no "
         f"accepted signature:\n{WINDOW_CATALOGUE}")
+
+
+def classify_source(fn):
+    return classify(fn, base_arity=1, what="Source",
+                    accepted="f(i) -> payload | f(i, ctx) -> payload")
+
+
+def classify_flatmap(fn):
+    return classify(fn, base_arity=2, what="FlatMap",
+                    accepted="f(t, shipper) | f(t, shipper, ctx)")
+
+
+def classify_accumulator(fn):
+    return classify(fn, base_arity=2, what="Accumulator",
+                    accepted="f(acc, t) -> acc | f(acc, t, ctx) -> acc")
 
 
 def classify_map(fn):

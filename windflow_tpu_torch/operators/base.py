@@ -24,6 +24,13 @@ from ..stats import Stats_Record
 
 class Basic_Operator:
     routing: routing_modes_t = routing_modes_t.FORWARD
+    #: capacity ceiling from a builder's ``withBatch`` (None: no hint)
+    _batch_hint: int = None
+    #: device from a builder's ``withDevice`` (None: no hint)
+    _device = None
+    #: outcome of ``MultiPipe.chain``: True fused, False fell back to add,
+    #: None not chained (rendered by ``PipeGraph.dump_DOTGraph``)
+    _chained = None
 
     def __init__(self, name: str, parallelism: int = 1, device=None):
         self._name = name

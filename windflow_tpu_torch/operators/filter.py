@@ -4,8 +4,9 @@ Counterpart of ``windflow_tpu/operators/filter.py::Filter`` (reference
 ``wf/filter.hpp``): the predicate ``f(t) -> bool`` runs under ``vmap`` and
 intersects the validity mask, with no data movement. The transforming flavour
 ``f(t) -> (payload, keep)`` (the reference's ``optional<result>`` signature)
-replaces the payload and masks in one step. Rich variants append a context
-parameter.
+replaces the payload and masks in one step; :class:`FilterMap` names it.
+:class:`Compact` packs the live lanes to the front. Rich variants append a
+context parameter.
 """
 
 from __future__ import annotations
@@ -51,3 +52,26 @@ class Filter(Basic_Operator):
             payload, keep = out
             return state, batch.with_payload(payload).mask(keep.to(torch.bool))
         return state, batch.mask(out.to(torch.bool))
+
+
+class FilterMap(Filter):
+    """The transforming Filter flavour under its own name: ``f(t) -> (payload,
+    keep)``, the reference's ``optional<result>(const tuple&)`` signature.
+    :class:`Filter` deduces the same flavour from the return value; this
+    class only fixes the default name."""
+
+    def __init__(self, fn: Callable, *, name: str = "filtermap", parallelism: int = 1,
+                 context: Optional[RuntimeContext] = None, device=None):
+        super().__init__(fn, name=name, parallelism=parallelism, context=context,
+                         device=device)
+
+
+class Compact(Basic_Operator):
+    """Pack live lanes to the front (stable): opt-in densification after a
+    selective filter, the reference GPU emitter's compaction pass."""
+
+    def __init__(self, *, name: str = "compact", device=None):
+        super().__init__(name, 1, device)
+
+    def apply(self, state, batch: Batch):
+        return state, batch.compact()

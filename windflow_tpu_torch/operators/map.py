@@ -2,8 +2,11 @@
 
 Counterparts of ``windflow_tpu/operators/map.py`` (reference ``wf/map.hpp``):
 
-- :class:`Map`: per-tuple ``f(t) -> payload`` under ``vmap`` (non-in-place
-  flavour; the in-place ``f(t) -> None`` flavour and ``KeyedMap`` come later);
+- :class:`Map`: per-tuple ``f(t) -> payload`` under ``vmap``, or in place:
+  ``f(t) -> None`` writes payload fields of a
+  :class:`~windflow_tpu_torch.batch.MutableTupleRef` (``t.v = t.v * 2``), the
+  reference's ``void(tuple_t&)``. ``KeyedMap`` is not ported (ROADMAP Queue 1
+  item 9);
 - :class:`BatchMap`: ``fn(payload_of_[C, ...]) -> payload`` over whole
   tensors — joins through table lookups, projections, casts;
 - :class:`KeyBy`: ``key = fn(t) mod num_keys`` rewrites the key control field.
@@ -14,7 +17,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 from ..basic import routing_modes_t
-from ..batch import Batch, map_tuples, spec_of
+from ..batch import Batch, MutableTupleRef, map_tuples, spec_of
 from ..context import RuntimeContext
 from ..meta import SignatureError, classify_map
 from .base import Basic_Operator
@@ -31,11 +34,14 @@ class Map(Basic_Operator):
         self.context = context or RuntimeContext(parallelism, 0)
 
     def _call(self, t):
-        r = self.fn(t, self.context) if self.is_rich else self.fn(t)
+        m = MutableTupleRef(t) if isinstance(t.data, dict) else t
+        r = self.fn(m, self.context) if self.is_rich else self.fn(m)
         if r is None:
-            raise SignatureError(
-                "Map: f returned None — the in-place flavour is not ported yet "
-                "(ROADMAP Queue 1 item 9); return the new payload instead")
+            if not isinstance(m, MutableTupleRef):
+                raise SignatureError(
+                    "Map: f returned None (in-place flavour) but the payload is "
+                    "not a dict of named fields; return the new payload instead")
+            return m._payload()
         return r
 
     def out_spec(self, payload_spec: Any) -> Any:

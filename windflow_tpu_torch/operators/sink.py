@@ -4,7 +4,12 @@ Counterpart of ``windflow_tpu/operators/sink.py`` (reference ``wf/sink.hpp``):
 
 - :class:`Sink`: host callback invoked once per batch with the live tuples as
   numpy arrays, ``{"key", "id", "ts", "payload"}`` — the same keys as the JAX
-  package's view — and with ``None`` at EOS (the empty-optional convention);
+  package's view — and with ``None`` at EOS (the empty-optional convention).
+  ``async_depth > 0`` ships each batch through an
+  :class:`~windflow_tpu_torch.runtime.async_sink.AsyncResultShipper`: its
+  copy to the host starts at once, and the callback receives it, in batch
+  order, once ``async_depth`` newer batches are shipped and its copy has
+  completed (EOS drains them all first);
 - :class:`ReduceSink`: an in-graph reduction kept on the device and read once
   at the end (``chain.result()``).
 """
@@ -16,7 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t
-from ..batch import Batch, host_view, map_tuples, spec_of, tree_map
+from ..batch import Batch, map_tuples, spec_of, tree_leaves, tree_map
 from ..context import RuntimeContext
 from ..meta import classify_sink
 from .base import Basic_Operator
@@ -24,12 +29,14 @@ from .base import Basic_Operator
 
 class Sink(Basic_Operator):
     def __init__(self, fn: Callable, *, name: str = "sink", parallelism: int = 1,
-                 keyed: bool = False, context: Optional[RuntimeContext] = None,
-                 device=None):
+                 keyed: bool = False, async_depth: int = 0,
+                 context: Optional[RuntimeContext] = None, device=None):
         super().__init__(name, parallelism, device)
         self.fn = fn
         self.is_rich = classify_sink(fn)
         self.routing = routing_modes_t.KEYBY if keyed else routing_modes_t.FORWARD
+        self.async_depth = int(async_depth)
+        self._shipper = None
         self.context = context or RuntimeContext(parallelism, 0)
 
     def _deliver(self, view):
@@ -38,20 +45,42 @@ class Sink(Basic_Operator):
         else:
             self.fn(view)
 
+    def _deliver_host(self, host: dict):
+        """Deliver the live lanes of a host batch (numpy fields)."""
+        v = host["valid"]
+        rec = self._stats[0]
+        rec.bytes_copied_dh += sum(a.nbytes for a in tree_leaves(host))
+        n_live = int(v.sum())
+        rec.record_input(n_live)
+        if n_live:
+            self._deliver({"key": host["key"][v], "id": host["id"][v],
+                           "ts": host["ts"][v],
+                           "payload": tree_map(lambda a: a[v], host["payload"])})
+
     def consume(self, batch: Optional[Batch]):
         """Host side: deliver one batch (or None at EOS) to the user callback."""
+        if self.async_depth:
+            if self._shipper is None:
+                from ..runtime.async_sink import AsyncResultShipper
+                self._shipper = AsyncResultShipper(depth=self.async_depth)
+            if batch is None:
+                for rec in self._shipper.drain():
+                    self._deliver_host(rec.value)
+                self._deliver(None)
+                return
+            self._shipper.ship(_fields(batch))
+            for rec in self._shipper.harvest():
+                self._deliver_host(rec.value)
+            return
         if batch is None:
             self._deliver(None)
             return
-        view = host_view(batch)
-        rec = self._stats[0]
-        rec.bytes_copied_dh += sum(
-            t.numel() * t.element_size()
-            for t in (batch.key, batch.id, batch.ts, batch.valid))
-        n_live = len(view["key"])
-        rec.record_input(n_live)
-        if n_live:
-            self._deliver(view)
+        self._deliver_host(batch.to_host())
+
+
+def _fields(batch: Batch) -> dict:
+    return {"key": batch.key, "id": batch.id, "ts": batch.ts, "payload": batch.payload,
+            "valid": batch.valid}
 
 
 _REDUCERS = {torch.add: lambda v: v.sum(dim=0, dtype=v.dtype),

@@ -33,7 +33,7 @@ import torch
 
 from ..basic import win_type_t
 from ..batch import TupleRef, tree_map
-from ..ops.window_reduce import masked_window_reduce, sum_dtype
+from ..ops.window_reduce import masked_sum, masked_window_reduce
 
 
 def _floordiv(a, b: int):
@@ -119,10 +119,7 @@ class Iterable:
         onehot = self.mask & (pos == i)
 
         def pick(x):
-            oh = onehot.reshape(onehot.shape + (1,) * (x.ndim - 1))
-            dt = sum_dtype(x.dtype)
-            return torch.where(oh, x, torch.zeros((), dtype=x.dtype, device=x.device)
-                               ).sum(dim=0, dtype=dt)
+            return masked_sum(x, onehot.reshape(onehot.shape + (1,) * (x.ndim - 1)), 0)
         return TupleRef(key=None, id=pick(self.ids), ts=pick(self.ts),
                         data=tree_map(pick, self.data))
 
@@ -137,9 +134,15 @@ class Iterable:
         return self.at(self.size() - 1)
 
     # mask-aware reductions (the common window aggregations)
-    def _masked(self, v, fill):
-        m = self.mask.reshape(self.mask.shape + (1,) * (v.ndim - 1))
-        return torch.where(m, v, torch.full((), fill, dtype=v.dtype, device=v.device))
+    def _extreme(self, x, is_max: bool):
+        """Masked amax/amin with the JAX package's fills. uint16 and uint32
+        go through int64 (torch has no ``where`` for them on the card) and
+        come back in their own dtype."""
+        fill = _fill_min(x.dtype) if is_max else _fill_max(x.dtype)
+        w = x.to(torch.int64) if x.dtype in (torch.uint16, torch.uint32) else x
+        m = self.mask.reshape(self.mask.shape + (1,) * (x.ndim - 1))
+        w = torch.where(m, w, torch.full((), fill, dtype=w.dtype, device=w.device))
+        return (w.amax(dim=0) if is_max else w.amin(dim=0)).to(x.dtype)
 
     def _field(self, field):
         return self.data[field] if field else self.data
@@ -148,20 +151,21 @@ class Iterable:
         def red(x):
             if x.ndim == 1:
                 return masked_window_reduce(x[None], self.mask[None])[0]
-            dt = sum_dtype(x.dtype)
-            return self._masked(x, 0).sum(dim=0, dtype=dt)
+            return masked_sum(x, self.mask.reshape(self.mask.shape + (1,) * (x.ndim - 1)),
+                              0)
         return tree_map(red, self._field(field))
 
     def max(self, field=None):
-        return tree_map(lambda x: self._masked(x, _fill_min(x.dtype)).amax(dim=0),
-                        self._field(field))
+        return tree_map(lambda x: self._extreme(x, True), self._field(field))
 
     def min(self, field=None):
-        return tree_map(lambda x: self._masked(x, _fill_max(x.dtype)).amin(dim=0),
-                        self._field(field))
+        return tree_map(lambda x: self._extreme(x, False), self._field(field))
 
     def mean(self, field=None):
         s = self.sum(field)
         n = torch.clamp(self.size(), min=1)
-        return tree_map(lambda x: x / n.to(x.dtype if x.dtype.is_floating_point
-                                           else torch.float32), s)
+        def div(x):
+            if not x.dtype.is_floating_point:     # an integer sum divides as float32
+                x = x.to(torch.float32)
+            return x / n.to(x.dtype)
+        return tree_map(div, s)

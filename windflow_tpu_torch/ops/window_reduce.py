@@ -10,12 +10,15 @@ and ``mean`` call it for every 1-D payload leaf, so a window function vmapped
 over the fired windows reaches it once per leaf per apply, with all windows
 as the rows of one call.
 
-On a CUDA tensor it is the hand-written kernel ``csrc/masked_sum.cu`` (K6;
-float32 and int32, smaller integers and bool widened to int32 first, which is
-``jnp.sum``'s rule), on a CPU tensor the plain version beside it. Any other
-dtype on the card raises. int32 sums wrap, as XLA's do; float32 sums are taken
-in the kernel's own fixed order, so they equal the plain version exactly where
-every partial sum is an integer below 2^24, and within rounding elsewhere.
+On a CUDA tensor it is the hand-written kernel ``csrc/masked_sum.cu`` (K6),
+on a CPU tensor the plain version beside it. Both give ``jnp.sum``'s dtype
+(:func:`sum_dtype`): bool, int8 and int16 widen to int32 (on the card before
+the launch); uint8 and uint16 sum into uint32; float16 and bfloat16
+accumulate in float32 and round once to their own dtype; float32, float64,
+int32 and uint32 keep theirs. Integer sums wrap, as XLA's do. Float sums are
+taken in the kernel's own fixed order, so they equal the plain version
+exactly where every partial sum is exact, and within rounding elsewhere. Any
+other dtype raises on the card.
 
 It is a ``torch.library`` custom op with fake (meta) and vmap rules. The vmap
 rule folds every leading batch dimension into rows and expands an unbatched
@@ -38,31 +41,51 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 #: dtypes K6 takes, with the code its C entry point expects
-_DTYPES = {torch.float32: 0, torch.int32: 1}
+_DTYPES = {torch.float32: 0, torch.int32: 1, torch.uint8: 2, torch.uint16: 3,
+           torch.float16: 4, torch.bfloat16: 5, torch.float64: 6, torch.uint32: 7}
 
 #: dtypes whose sum widens to int32 (``jnp.sum`` with 32-bit defaults)
 _WIDEN = (torch.bool, torch.int8, torch.int16)
 
+#: dtypes whose sum is uint32 (``jnp.sum`` with 32-bit defaults)
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+#: a dtype of the same width with full operator support, for uint32
+_SAME_WIDTH = {torch.uint32: torch.int32}
+
+#: half types: ``jnp.sum`` accumulates them in float32 and rounds once
+_HALF = (torch.float16, torch.bfloat16)
+
 
 def sum_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype of ``jnp.sum`` over ``dtype``: bool, int8 and int16 widen to
-    int32; every other dtype is kept. uint8 and uint16 (``jnp.sum`` gives
-    uint32, which torch cannot sum) raise."""
+    """The dtype of ``jnp.sum`` over ``dtype`` (32-bit defaults): bool, int8
+    and int16 widen to int32, uint8 and uint16 to uint32; every other dtype
+    is kept."""
     if dtype in _WIDEN:
         return torch.int32
-    if dtype in (torch.uint8, torch.uint16):
-        raise NotImplementedError(
-            f"sum of {dtype}: jnp.sum widens it to uint32, which torch cannot "
-            f"sum; cast the field to a signed dtype")
+    if dtype in _UNSIGNED:
+        return torch.uint32
     return dtype
+
+
+def masked_sum(x: torch.Tensor, keep: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.sum(jnp.where(keep, x, 0), axis=dim)`` in torch: :func:`sum_dtype`'s
+    dtype; unsigned sums wrap modulo 2^32 (taken in int64, whose low 32 bits
+    they are: torch has no uint32 ``sum`` on the CPU and no uint16 ``where``
+    on the card, so they widen before the mask); half types accumulate in
+    float32."""
+    if x.dtype in _UNSIGNED:
+        s = torch.where(keep, x.to(torch.int64), 0).sum(dim=dim)
+        return (s & 0xFFFFFFFF).to(torch.uint32)
+    x = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    if x.dtype in _HALF:
+        return x.sum(dim=dim, dtype=torch.float32).to(x.dtype)
+    return x.sum(dim=dim, dtype=sum_dtype(x.dtype))
 
 
 def masked_window_reduce_plain(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K6 (the JAX package's ``_xla_masked_sum``)."""
-    dt = sum_dtype(vals.dtype)
-    vals = vals.to(dt)
-    return torch.where(mask, vals, torch.zeros((), dtype=dt, device=vals.device)
-                       ).sum(dim=1, dtype=dt)
+    return masked_sum(vals, mask, 1)
 
 
 def masked_window_reduce_cuda(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -71,9 +94,9 @@ def masked_window_reduce_cuda(vals: torch.Tensor, mask: torch.Tensor) -> torch.T
         vals = vals.to(torch.int32)
     if vals.dtype not in _DTYPES:
         raise NotImplementedError(
-            f"masked_window_reduce_cuda: K6 sums float32 and int32 (bool, int8 "
-            f"and int16 widen to int32); {vals.dtype} is not ported "
-            f"(ROADMAP Queue 1 item 9)")
+            f"masked_window_reduce_cuda: K6 sums {sorted(map(str, _DTYPES))} "
+            f"(bool, int8 and int16 widen to int32); {vals.dtype} is not a dtype "
+            f"the JAX package sums with 32-bit defaults")
     if vals.ndim != 2 or mask.shape != vals.shape or mask.dtype != torch.bool \
             or mask.device != vals.device:
         raise ValueError(
@@ -83,7 +106,9 @@ def masked_window_reduce_cuda(vals: torch.Tensor, mask: torch.Tensor) -> torch.T
     W, L = vals.shape
     if L >= 2 ** 31:
         raise ValueError(f"masked_window_reduce_cuda: row length {L} too large")
-    out = torch.zeros((W,), dtype=vals.dtype, device=vals.device)
+    odt = sum_dtype(vals.dtype)
+    # zeros of the output's width, viewed as its dtype (uint32 has few ops)
+    out = torch.zeros((W,), dtype=_SAME_WIDTH.get(odt, odt), device=vals.device).view(odt)
     if W == 0 or L == 0:
         return out
     vals, mask = vals.contiguous(), mask.contiguous()

@@ -1,5 +1,8 @@
-"""Drivers of the port: the operator chain and the source-to-sink pipeline."""
+"""Drivers of the port: the operator chain, the source-to-sink pipeline, the
+PipeGraph/MultiPipe composition layer and the builders."""
 
-from .pipeline import CompiledChain, Pipeline
+from .pipegraph import AppNode, MultiPipe, PipeGraph
+from .pipeline import CompiledChain, Pipeline, record_source_launch, resolve_batch_hint
 
-__all__ = ["CompiledChain", "Pipeline"]
+__all__ = ["AppNode", "CompiledChain", "MultiPipe", "Pipeline", "PipeGraph",
+           "record_source_launch", "resolve_batch_hint"]

@@ -24,6 +24,7 @@ raises.
 
 from __future__ import annotations
 
+import time
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -36,6 +37,24 @@ from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
 from .graphs import StepGraph, leaves, rebuild
+
+
+def resolve_batch_hint(ops) -> Optional[int]:
+    """Smallest ``withBatch`` hint among ``ops`` (each hint is a capacity
+    ceiling, the reference GPU builders' ``batch_len``; a fused chain cannot
+    exceed any member's), or None when no operator carries one."""
+    hints = [op._batch_hint for op in ops
+             if getattr(op, "_batch_hint", None) is not None]
+    return min(hints) if hints else None
+
+
+def record_source_launch(source, batch: Batch) -> None:
+    """Per-batch source stats: one launch and the host-to-device bytes the
+    batch cost (a DeviceSource generates on the device: none). The one place
+    H2D bytes are counted; every driver calls it as it pulls a batch."""
+    from ..operators.source import DeviceSource
+    hd = 0 if isinstance(source, DeviceSource) else _batch_nbytes(batch)
+    source.get_StatsRecords()[0].record_launch(hd_bytes=hd)
 
 
 def _refuse_event_time(event_time) -> None:
@@ -56,10 +75,28 @@ class CompiledChain:
     capacity. ``push(batch, from_op=i)`` runs ``ops[i:]``: the main path
     (i=0) and the EOS flush cascades."""
 
+    #: every Nth push is timed to completion (one device synchronize) and
+    #: recorded as the entry op's service time; the other pushes never wait
+    SERVICE_SAMPLE_EVERY = 16
+
     def __init__(self, ops: Sequence[Basic_Operator], in_spec: Any,
                  batch_capacity: int = None, device=None, event_time: bool = None):
         _refuse_event_time(event_time)
         self.ops = list(ops)
+        # withDevice hints: one device a chain, so two different hints are an error
+        hinted = {str(op._device): op._device for op in self.ops
+                  if getattr(op, "_device", None) is not None}
+        if len(hinted) > 1:
+            names = ", ".join(f"{op.getName()}->{op._device}" for op in self.ops
+                              if getattr(op, "_device", None) is not None)
+            raise ValueError(
+                f"conflicting withDevice hints inside one fused chain ({names}); a "
+                f"CompiledChain runs on one device — split the graph at the device "
+                f"boundary")
+        if device is None and hinted:
+            device = next(iter(hinted.values()))
+        if batch_capacity is None:
+            batch_capacity = resolve_batch_hint(self.ops)
         self.device = resolve_device(device)
         for op in self.ops:
             if op.device != self.device:
@@ -88,15 +125,22 @@ class CompiledChain:
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, chain on {self.device}")
         self._push_count += 1
+        sampled = self._push_count % self.SERVICE_SAMPLE_EVERY == 0
+        t0 = time.perf_counter() if sampled else None
         out = batch
         for j in range(from_op, len(self.ops)):
             self.states[j], out = self.ops[j].apply(self.states[j], out)
-        self._record(from_op, 1, batch, out)
+        if sampled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._record(from_op, 1, batch, out,
+                     time.perf_counter() - t0 if sampled else None)
         return out
 
-    def _record(self, from_op: int, k: int, batch: Batch, out: Batch) -> None:
+    def _record(self, from_op: int, k: int, batch: Batch, out: Batch,
+                service_time_s: float = None) -> None:
         """Stats of one dispatch of ``k`` batches: k batches and their bytes
-        per op, one launch on the entry op."""
+        per op, one launch (with its service time when sampled) on the entry
+        op."""
         in_bytes, out_bytes = _batch_nbytes(batch), _batch_nbytes(out)
         for j in range(from_op, len(self.ops)):
             rec = self.ops[j].get_StatsRecords()[0]
@@ -105,7 +149,7 @@ class CompiledChain:
             rec.bytes_received += k * in_bytes
             rec.bytes_sent += k * out_bytes
         if from_op < len(self.ops):
-            self.ops[from_op].get_StatsRecords()[0].record_launch()
+            self.ops[from_op].get_StatsRecords()[0].record_launch(service_time_s)
 
     def _k_steps(self, from_op: int):
         """``fn(states, stacked) -> (states, outs)``: the K batches of a
@@ -217,10 +261,11 @@ def _stack_into(stacked: Batch, batches: Sequence[Batch]) -> None:
 
 class Pipeline:
     """Source -> ops... -> sink, run batch-at-a-time on ``device``
-    (None = ``"cuda"``; raises without CUDA). ``dispatch=`` turns on scan
-    dispatch (:class:`~.dispatch.DispatchConfig`: None consults
-    ``WF_DISPATCH``, off by default): groups of K batches go through
-    ``CompiledChain.push_many``, the partial tail at EOS too."""
+    (None = ``"cuda"``; raises without CUDA). ``batch_size=None`` takes the
+    smallest ``withBatch`` hint of the operators, else the default.
+    ``dispatch=`` turns on scan dispatch (:class:`~.dispatch.DispatchConfig`:
+    None consults ``WF_DISPATCH``, off by default): groups of K batches go
+    through ``CompiledChain.push_many``, the partial tail at EOS too."""
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
@@ -230,7 +275,7 @@ class Pipeline:
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
-        self.batch_size = int(batch_size or DEFAULT_BATCH_SIZE)
+        self.batch_size = int(batch_size or resolve_batch_hint(ops) or DEFAULT_BATCH_SIZE)
         #: resolved at run(), so an env change after construction counts
         self._dispatch_arg = dispatch
         if source.device != self.device:
@@ -260,7 +305,7 @@ class Pipeline:
                 for out in outs:
                     self.sink.consume(out)
         for batch in self.source.batches(self.batch_size):
-            self.source.get_StatsRecords()[0].record_launch()
+            record_source_launch(self.source, batch)
             if acc is None:
                 deliver([self.chain.push(batch)])
             else:
