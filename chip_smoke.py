@@ -113,9 +113,30 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``host_io``: a GeneratorSource of string-keyed numpy chunks (pinned
     host-to-device copies) into a Sink, synchronous and with
     ``async_depth=3``, the same rows in order;
-18. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
-    fixed-order float fold, launches summed over the paths, each counted
-    from zero just before it), then the result line
+18. the fixed-order float fold at the keyed paths' shapes (Key_FFAT's pane
+    sums at S = 2^21 on ``bench_keyed_cb``'s traffic; the Accumulator's
+    batch totals at S = 8, 500 and 10,000), bit for bit against the CPU,
+    and K2 on the Accumulator's float carry tables (phase 3 also holds K3
+    at ``bench_keyed_cb``'s occupancy counts, S = 2^21);
+19. ``keyed_cb``: ``bench.py::bench_keyed_cb``'s operator as written (the
+    per-key CB Key_FFAT over 512 keys, CB 1024 slide 512, batch 2^20):
+    ``Pipeline(...).run()`` of 4 batches, dispatch off and at K = 2, every
+    window against numpy byte for byte, P = 4096 and W = 2112, K2 once, K3
+    twice and the float fold once an apply and nothing in the flush; then
+    the loops, with the state's and the peak device memory;
+20. ``keyed_stateful``: ``bench.py::bench_keyed_stateful`` at K = 1, 500
+    and 10,000 (Accumulator -> ReduceSink): 4 batches, dispatch off and at
+    K = 2, every tuple's running sum against a float64 oracle within
+    ``STATEFUL_TOL``; the float32 and int32 streams for 2 batches byte for
+    byte against the CPU port; the loops;
+21. ``keyed_small``: KeyedMap, FlatMap word counts, general ReduceSink
+    combines, per-key TB Key_FFAT with lateness, CB Key_FFAT max and the
+    2x2 matrix product, the Accumulator's max, each against the CPU port
+    and captured (dispatch = 2) where it can be; a KeyedMap without
+    ``max_key_multiplicity=1`` must refuse the capture;
+22. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+    fixed-order float fold at ``keyed_cb``'s shape, launches summed over the
+    paths, each counted from zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Phase 3 also holds K4 at the Ordering_Node's shapes (merges of [1, 8192]
@@ -153,7 +174,7 @@ Q3_BATCHES = 4            # batches of the q3 full-width Pipeline phase
 #: 3 (groups 3, 3, 2: a tail graph), the Nexmark queries 16 at 5 (a tail of
 #: 1, which is push), the others 4 at 2
 DISPATCH_K = {"ysb": 3, "ysb_sum": 2, "nexmark": 5, "q3_full": 2, "path_a": 2,
-              "path_b": 2}
+              "path_b": 2, "keyed_cb": 2, "keyed_stateful": 2}
 BENCH_DISPATCH_BATCHES = 96     # bench.py::bench_dispatch: 96 batches of 2^18
 BENCH_DISPATCH_BATCH = 1 << 18  # (BATCH // 4) at K = 8
 BENCH_DISPATCH_K = 8
@@ -466,6 +487,12 @@ def partials_kernel_phase(torch, ysb):
     k3(f"path_a_counts_S{WIN_KEYS}", a_valid.to(torch.int32), a_keys, a_valid, WIN_KEYS,
        main=True)
     k3(f"path_b_counts_S{K}", b.valid.to(torch.int32), b_keys, b.valid, K, main=True)
+    # Key_FFAT's per-key insert on bench_keyed_cb's traffic: the occupancy
+    # counts of (key, pane slot) at S = 512 * 4096 = 2^21, about 2560 hot
+    # segments of 512 lanes a batch (K3's global path)
+    _, kc_seg, kc_valid = keyed_cb_traffic(torch, 3)
+    k3(f"keyed_cb_counts_S{KEYED_CB_S}", kc_valid.to(torch.int32), kc_seg, kc_valid,
+       KEYED_CB_S, main=True)
     k3("S1", ints(-2 ** 31, 2 ** 31), ints(-1, 2), mask(0.8), 1)
     k3("one_segment_wrapping", ints(2 ** 31 - 100, 2 ** 31), torch.full(
         (C,), 77, dtype=torch.int32, device=dev), mask(0.9), 100)
@@ -688,6 +715,79 @@ def repair_checks(torch):
     if not same:
         raise AssertionError("the float fold's bits differ between runs or from the CPU")
     return row
+
+
+KEYED_CB_P = 4096                   # bench_keyed_cb's pane ring at batch 2^20
+KEYED_CB_S = WIN_KEYS * KEYED_CB_P  # its (key, pane slot) segments: 2^21
+STATEFUL_KEYS = (1, 500, 10000)     # bench_keyed_stateful's sweep
+
+
+def keyed_cb_traffic(torch, b):
+    """Values, segment ids and valid lanes of Key_FFAT's per-key insert on
+    batch ``b`` of ``bench_keyed_cb``'s stream (``v = i % 97``, key
+    ``i % 512``): lane j of the batch is its key's arrival ``2048 b + j //
+    512``, in pane ``(2048 b + j // 512) // 512`` at slot ``pane mod 4096``."""
+    dev = torch.device("cuda")
+    j = torch.arange(BATCH, device=dev, dtype=torch.int32)
+    i = b * BATCH + j
+    pane = (b * (BATCH // WIN_KEYS) + j // WIN_KEYS) // WIN_SLIDE
+    seg = (i % WIN_KEYS) * KEYED_CB_P + torch.remainder(pane, KEYED_CB_P)
+    return (i % 97).float(), seg.to(torch.int32), torch.ones(BATCH, dtype=torch.bool,
+                                                              device=dev)
+
+
+def keyed_fold_checks(torch):
+    """The fixed-order float fold at the keyed paths' shapes: Key_FFAT's pane
+    sums at S = 2^21 on ``bench_keyed_cb``'s traffic, and the Accumulator's
+    batch totals of ``bench_keyed_stateful`` (``v = i % 1000``) at S = 8
+    (K = 1: every lane on one segment, one thread summing 2^20 lanes), 500
+    and 10,000. Each: the card's bits against the CPU's, its time, the plain
+    version's and one ``index_add_`` (float atomics, no fixed order). Also K2
+    on the Accumulator's float carry tables (8 and 500 rows). Returns the
+    S = 2^21 row."""
+    from windflow_tpu_torch.ops import lookup as L, segment as S
+
+    dev = torch.device("cuda")
+
+    def fold(case, vals, seg, valid, Sn):
+        got = S.segment_fold_float_cuda(vals, seg, valid, Sn)
+        cpu = S._index_add_fold(vals.cpu(), seg.cpu(), valid.cpu(), Sn)
+        torch.cuda.synchronize()
+        same, err = compare(torch, got.cpu(), cpu)
+        ok = valid & (seg >= 0) & (seg < Sn)
+        safe = torch.where(ok, seg, Sn).long()
+        masked = torch.where(ok, vals, 0.0)
+        nbytes = vals.shape[0] * 9 + Sn * 4
+        row = {"kernel_check": "segment_fold_float", "case": case,
+               "shape": {"C": vals.shape[0], "S": Sn, "dtype": "float32"},
+               "bit_identical_card_cpu": same, "max_abs_err": err,
+               "ms": graph_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn)),
+               "plain_ms": graph_ms(torch, lambda: torch.zeros(Sn + 1, device=dev).index_add_(
+                   0, torch.where(valid & (seg >= 0) & (seg < Sn), seg, Sn).long(),
+                   torch.where(valid & (seg >= 0) & (seg < Sn), vals, 0.0))[:Sn]),
+               "library_ms": graph_ms(torch, lambda: torch.zeros(
+                   Sn + 1, device=dev).index_add_(0, safe, masked)),
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        log(row)
+        if not same:
+            raise AssertionError(f"the float fold [{case}] differs from the CPU's bits")
+        return row
+
+    keyed_cb_row = fold(f"keyed_cb_S{KEYED_CB_S}", *keyed_cb_traffic(torch, 3), KEYED_CB_S)
+    i = torch.arange(BATCH, device=dev, dtype=torch.int32) + 3 * BATCH
+    ones = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    for K in STATEFUL_KEYS:
+        Sn = max(K, 8)
+        seg = (i % K).to(torch.int32)
+        fold(f"keyed_stateful_K{K}_S{Sn}", (i % 1000).float(), seg, ones, Sn)
+        if Sn <= 2048:
+            table = torch.arange(Sn, device=dev, dtype=torch.float32) * 1.5e6
+            check_kernel(torch, "lookup", f"keyed_stateful_carry_K{Sn}",
+                         lambda: L.lookup_cuda(table, seg), lambda: L.lookup_plain(table, seg),
+                         lambda: table.index_select(0, seg), BATCH * 8 + Sn * 4,
+                         {"C": BATCH, "K": Sn, "dtype": "float32"})
+    return keyed_cb_row
 
 
 def nexmark_kernel_phase(torch):
@@ -1417,22 +1517,6 @@ def expect_launches(what, got, per, n):
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def path_a_oracle(np, batches):
-    """``{(key, window): sum}`` of path A over ``batches`` batches and the
-    flush: key k's arrival position p holds tuple i = p * 512 + k, value
-    i % 97; window w covers positions [512 w, 512 w + 1024)."""
-    n = batches * BATCH // WIN_KEYS
-    p = np.arange(n, dtype=np.int64)
-    vals = (p[None, :] * WIN_KEYS + np.arange(WIN_KEYS)[:, None]) % 97
-    csum = np.concatenate([np.zeros((WIN_KEYS, 1), np.int64), np.cumsum(vals, 1)], 1)
-    out = {}
-    for w in range((n - 1) // WIN_SLIDE + 1):
-        lo, hi = w * WIN_SLIDE, min(w * WIN_SLIDE + WIN_LEN, n)
-        for k, v in enumerate((csum[:, hi] - csum[:, lo]).tolist()):
-            out[(k, w)] = v
-    return out
-
-
 def path_a_source(wt, batches):
     return wt.DeviceSource(lambda i: {"v": (i % 97).float()}, total=batches * BATCH,
                            num_keys=WIN_KEYS)
@@ -1464,11 +1548,13 @@ def window_loop(torch, registry, name, make, per_apply, card, profile, check,
     for _ in range(warm):
         states, cur, _ = step(states, cur)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
     states, cur, out, ms = timed_steps(torch, step, states, cur, WIN_STEPS)
     launches = registry.launch_counts()
     row = {"phase": f"{name}_loop", "steps": WIN_STEPS, "batch": BATCH,
            "tuples_per_s": BATCH / ms * 1e3, "ms_per_step": ms,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "launches": launches, "card": card}
     row.update(check(states, out, warm + WIN_STEPS))
     expect_launches(f"{name} loop", launches, per_apply, WIN_STEPS)
@@ -1486,8 +1572,10 @@ def path_a_phase(torch, np, wt, registry, card, profile):
     """Path A: Key_Farm keyed CB sliding-window sum at bench_keyed_cb's
     geometry, its 2^21-slot ring per key (16 GiB of archive): Pipeline.run
     dispatch off and at K = 2, then the loops."""
+    from windflow_tpu_torch.benchmarks import keyed as KB
+
     k_on = DISPATCH_K["path_a"]
-    want = path_a_oracle(np, WIN_BATCHES)
+    want = KB.keyed_cb_oracle(WIN_BATCHES * BATCH)   # bench_keyed_cb's stream
     runs = {}
     for k in (None, k_on):
         torch.cuda.empty_cache()
@@ -2079,6 +2167,331 @@ def graph_windows_phase(torch, np, wt, registry):
     return total
 
 
+# ------------------------------------------------------------- keyed-state phases
+
+#: exact launches of one apply of bench_keyed_cb's Key_FFAT (the per-key CB
+#: path): K2 reads the per-key count, K3 folds the occupancy counts (S = 2^21)
+#: and the per-key counts (S = 512), the float fold the pane sums (S = 2^21);
+#: the flush launches nothing
+KEYED_CB_APPLY = {"lookup": 1, "segment_fold": 2, "segment_fold_float": 1}
+STATEFUL_BATCHES = 4      # batches of each keyed_stateful Pipeline run
+STATEFUL_CPU_BATCHES = 2  # batches of its runs held to the CPU port
+#: the stated tolerance of keyed_stateful's float32 sums against float64: a
+#: lane's error at most 2^-8 (G + |want|), G the batch's global prefix total
+#: (every lane's value summed, about 5.2e8). Sequential float32 summation of
+#: this stream is off by 9.7e-4 of its total after 2^20 lanes (numpy's
+#: sequential cumsum): the float fold sums K = 1's 2^20 lanes in that order.
+STATEFUL_TOL = 2.0 ** -8
+
+
+def keyed_stateful_apply(K):
+    """Exact launches of one Accumulator apply at K source keys (a table of
+    max(K, 8) rows): K2 reads the carry where the float table has at most
+    2048 rows (``take`` above, as ``jnp.take`` in the JAX package), the float
+    fold folds the batch totals."""
+    return {"lookup": int(max(K, 8) <= 2048), "segment_fold_float": 1}
+
+
+def keyed_cb_phase(torch, np, wt, registry, card, profile):
+    """bench_keyed_cb's operator as written: Key_FFAT(lambda t: t.v, torch.add,
+    WindowSpec(1024, 512), num_keys=512) at batch 2^20, Pipeline.run dispatch
+    off and at K = 2 against the numpy oracle byte for byte, its geometry
+    (P = 4096, W = 2112) and exact launches, then the captured and eager
+    loops."""
+    from windflow_tpu_torch.benchmarks import keyed as KB
+
+    k_on = DISPATCH_K["keyed_cb"]
+    want = {kw: float(v) for kw, v in KB.keyed_cb_oracle(WIN_BATCHES * BATCH).items()}
+    runs = {}
+    for k in (None, k_on):
+        torch.cuda.empty_cache()
+        parts, cb = collect_sink()
+        src, ops = KB.make_keyed_cb(WIN_BATCHES * BATCH)
+        pipe = wt.Pipeline(src, ops, wt.Sink(cb), batch_size=BATCH, dispatch=k or False)
+        op = pipe.chain.ops[0]
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in flat_tensors(pipe.chain.states[0]))
+        if k:
+            pipe.chain.warm_scan(k, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        applied, flushed, calls = run_with_flush_launches(registry, pipe, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k_, w_, v_ = (np.concatenate(x) for x in zip(*parts))
+        got = {(a, b): c for a, b, c in zip(k_.tolist(), w_.tolist(), v_.tolist())}
+        log({"phase": "keyed_cb_pipeline", "dispatch": k, "batches": WIN_BATCHES,
+             "batch": BATCH, "keys": WIN_KEYS, "P": op.P, "max_wins": op._w,
+             "windows": len(got), "run_s": dt, "tuples_per_s": WIN_BATCHES * BATCH / dt,
+             "state_mib": state_bytes / 2 ** 20,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "launches_apply": applied, "launches_flush": flushed, "flush_calls": calls})
+        if got != want or v_.dtype != np.float32:
+            bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+            raise AssertionError(f"keyed_cb: windows differ from the numpy oracle: {bad}")
+        if op.P != KEYED_CB_P or op._w != -(-BATCH // WIN_SLIDE) + 64 or op.global_time:
+            raise AssertionError(f"keyed_cb geometry: P={op.P}, W={op._w}")
+        expect_launches("keyed_cb apply", applied, KEYED_CB_APPLY, WIN_BATCHES)
+        expect_launches("keyed_cb flush", flushed, {}, calls)
+        runs[k] = (parts, (applied, flushed), pipe.chain.graphs)
+        del pipe, op
+    check_dispatch(np, "keyed_cb", k_on, WIN_BATCHES, runs[None][:2], runs[k_on][:2],
+                   runs[k_on][2])
+    applied = runs[None][1][0]
+    del runs
+
+    def make():
+        src, ops = KB.make_keyed_cb((2 + WIN_STEPS + PROFILE_STEPS) * BATCH)
+        return src, wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH)
+
+    def check(states, out, steps_run):
+        fired = int(out.sum())           # 4 windows a key a step
+        if fired != WIN_KEYS * (BATCH // WIN_KEYS // WIN_SLIDE):
+            raise AssertionError(f"keyed_cb loop: {fired} windows in a step")
+        if int(states[0].count.sum()) != steps_run * BATCH:
+            raise AssertionError("keyed_cb loop: per-key counts do not add up")
+        return {"windows_per_step": fired,
+                "state_mib": sum(t.numel() * t.element_size()
+                                 for t in flat_tensors(states[0])) / 2 ** 20}
+    window_loop(torch, registry, "keyed_cb", make, KEYED_CB_APPLY, card, profile, check)
+    torch.cuda.empty_cache()
+    return applied
+
+
+def flat_tensors(tree):
+    """The tensors of a state (dataclasses, dicts, lists)."""
+    from windflow_tpu_torch.runtime.graphs import leaves
+    return [t for t in leaves(tree) if hasattr(t, "numel")]
+
+
+def stateful_rows():
+    """A Sink collecting (id, payload) of every live lane."""
+    parts = []
+
+    def cb(view):
+        if view is not None:
+            parts.append((view["id"], view["payload"]))
+    return parts, cb
+
+
+def keyed_stateful_phase(torch, np, wt, registry, card, profile):
+    """bench_keyed_stateful at K = 1, 500 and 10,000 (Accumulator of max(K, 8)
+    keys -> ReduceSink) at batch 2^20: Pipeline.run of 4 batches dispatch off
+    and at K = 2, every tuple's running sum against the float64 oracle
+    within STATEFUL_TOL and the two runs byte for byte, exact launches; the
+    float32 and int32 streams for 2 batches byte for byte against the CPU
+    port (int32 also against the wrapped numpy oracle); then the captured
+    and eager loops."""
+    from windflow_tpu_torch.benchmarks import keyed as KB
+
+    k_on = DISPATCH_K["keyed_stateful"]
+    total = STATEFUL_BATCHES * BATCH
+    launches_all = dict.fromkeys(registry.KERNELS, 0)
+    for K in STATEFUL_KEYS:
+        want = KB.keyed_stateful_oracle(K, total)
+        i = np.arange(total)
+        batch_total = np.bincount(i // BATCH, weights=(i % 1000).astype(np.float64))
+        runs = {}
+        for k in (None, k_on):
+            parts, cb = stateful_rows()
+            src, ops = KB.make_keyed_stateful(K, total)
+            pipe = wt.Pipeline(src, ops, wt.Sink(cb), batch_size=BATCH, dispatch=k or False)
+            launches, dt, peak = run_pipeline(torch, registry, pipe, k)
+            ids = np.concatenate([p[0] for p in parts])
+            got = np.concatenate([p[1] for p in parts]).astype(np.float64)
+            err = np.abs(got - want[ids])
+            scale = batch_total[ids // BATCH] + np.abs(want[ids])
+            res = float(pipe.chain.result()["keyed_stateful_total"])
+            log({"phase": "keyed_stateful_pipeline", "keys": K, "dispatch": k,
+                 "batches": STATEFUL_BATCHES, "batch": BATCH, "run_s": dt,
+                 "tuples_per_s": total / dt, "launches": launches,
+                 "peak_mib": peak / 2 ** 20, "lanes": int(ids.size),
+                 "max_abs_err": float(err.max()),
+                 "max_err_over_scale": float((err / scale).max()),
+                 "tolerance": STATEFUL_TOL, "total": res,
+                 "total_rel_err": abs(res - float(want.sum())) / float(want.sum())})
+            if ids.size != total or not np.array_equal(np.sort(ids), i):
+                raise AssertionError(f"keyed_stateful K={K}: lanes missing")
+            if bool((err > STATEFUL_TOL * scale).any()):
+                raise AssertionError(f"keyed_stateful K={K}: sums beyond the tolerance")
+            expect_launches(f"keyed_stateful K={K}", launches, keyed_stateful_apply(K),
+                            STATEFUL_BATCHES)
+            runs[k] = (parts, launches, pipe.chain.graphs)
+            del pipe
+        check_dispatch(np, f"keyed_stateful_K{K}", k_on, STATEFUL_BATCHES, runs[None][:2],
+                       runs[k_on][:2], runs[k_on][2])
+        for name, n in runs[None][1].items():
+            launches_all[name] += n
+        del runs
+        # the card against the CPU port, byte for byte: every tuple's sum in
+        # float32 (the prefix sums in one fixed order on both) and int32 (also
+        # equal to the wrapped oracle); the ReduceSink's total too for int32
+        # (torch.sum adds floats in another order on the CPU)
+        n_cpu = STATEFUL_CPU_BATCHES * BATCH
+        wrapped = KB.keyed_stateful_oracle(K, n_cpu).astype(np.int64).astype(np.int32)
+        for dtype in (torch.float32, torch.int32):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                parts, cb = stateful_rows()
+                src, ops = KB.make_keyed_stateful(K, n_cpu, dtype=dtype, device=dev)
+                res = wt.Pipeline(src, ops, wt.Sink(cb, device=dev), batch_size=BATCH,
+                                  device=dev).run()
+                outs[dev] = (parts, res["keyed_stateful_total"].cpu().numpy())
+            ids = np.concatenate([p[0] for p in outs["cuda"][0]])
+            cmp = (lambda o: o) if dtype == torch.int32 else (lambda o: o[0])  # noqa: E731
+            same = flat_bytes(np, cmp(outs["cuda"])) == flat_bytes(np, cmp(outs["cpu"]))
+            exact = (dtype != torch.int32 or np.array_equal(
+                np.concatenate([p[1] for p in outs["cuda"][0]]), wrapped[ids]))
+            log({"phase": "keyed_stateful_card_vs_cpu", "keys": K, "dtype": str(dtype),
+                 "batches": STATEFUL_CPU_BATCHES, "card_equals_cpu": same,
+                 "int32_equals_oracle": exact})
+            if not (same and exact):
+                raise AssertionError(f"keyed_stateful {dtype} K={K}: card, CPU or oracle differ")
+            del outs
+
+        def make(K=K):
+            src, ops = KB.make_keyed_stateful(K, (2 + WIN_STEPS + PROFILE_STEPS) * BATCH)
+            return src, wt.CompiledChain(ops, src.payload_spec(), batch_capacity=BATCH)
+
+        def check(states, out, steps_run):
+            if int(out.sum()) != BATCH:
+                raise AssertionError("keyed_stateful loop: lanes lost")
+            return {"keys": K}
+        window_loop(torch, registry, f"keyed_stateful_K{K}", make, keyed_stateful_apply(K),
+                    card, profile, check)
+        torch.cuda.empty_cache()
+    return launches_all
+
+
+def keyed_small_phase(torch, np, wt, registry):
+    """The other keyed operators at small depth on the card, each against the
+    CPU port (itself held to the JAX package by the CPU tests): KeyedMap with
+    duplicate keys, and under max_key_multiplicity=1 captured (dispatch = 2);
+    a KeyedMap without the promise under dispatch, which must raise naming
+    the host read; FlatMap word counts (dispatch off and 2); general
+    ReduceSink combines (dispatch off and 2); per-key TB Key_FFAT with
+    lateness; CB Key_FFAT max and the 2x2 matrix product (rtol = atol =
+    1e-4); an Accumulator with the max combine."""
+    def run(dev, make_src, make_ops, batch, dispatch=False):
+        rows = []
+
+        def cb(view):
+            if view is not None:
+                rows.append((view["key"], view["id"], view["payload"]))
+        res = wt.Pipeline(make_src(dev), make_ops(dev), wt.Sink(cb, device=dev),
+                          batch_size=batch, device=dev, dispatch=dispatch).run()
+        return rows, {k: v.cpu().numpy() for k, v in res.items()}
+
+    def cursor_check(case, make_src, make_ops, batch, steps=4):
+        """``steps`` steps of ``device_cursor_step`` (captured at its second
+        call) against the eager step on a fresh chain: every state tensor
+        byte for byte."""
+        from windflow_tpu_torch.benchmarks import device_cursor_step
+        finals = []
+        for captured in (True, False):
+            src = make_src("cuda")
+            chain = wt.CompiledChain(make_ops("cuda"), src.payload_spec(), batch_capacity=batch)
+            step = (device_cursor_step(chain, src, batch) if captured
+                    else eager_cursor_step(src, chain, batch))
+            states = tuple(chain.states)
+            cur = torch.zeros((), dtype=torch.int32, device="cuda")
+            for _ in range(steps):
+                states, cur, _ = step(states, cur)
+            if captured:
+                graph = step.graph
+            finals.append(flat_bytes(np, [t.cpu().numpy() for t in flat_tensors(states)]))
+        ok = finals[0] == finals[1] and graph.replays == steps - 1
+        log({"phase": "keyed_small", "case": case, "cursor_step_captured": ok,
+             "graph_launches": graph.launches})
+        if not ok:
+            raise AssertionError(f"keyed_small [{case}]: the captured step differs")
+
+    def compare_runs(case, make_src, make_ops, batch, dispatch=(False,), tol=None):
+        if 2 in dispatch:
+            cursor_check(case, make_src, make_ops, batch)
+        registry.reset_launches()
+        want = run("cpu", make_src, make_ops, batch)
+        for d in dispatch:
+            got = run("cuda", make_src, make_ops, batch, d)
+            if tol is None:
+                ok = flat_bytes(np, got) == flat_bytes(np, want)
+            else:       # the same windows; values within the tolerance
+                ok = len(got[0]) == len(want[0]) and all(
+                    np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    and np.allclose(a[2], b[2], rtol=tol, atol=tol)
+                    for a, b in zip(got[0], want[0]))
+            log({"phase": "keyed_small", "case": case, "dispatch": d, "rows": len(got[0]),
+                 "equal_to_cpu": ok, "tolerance": tol,
+                 "launches": {k: n for k, n in registry.launch_counts().items() if n}})
+            if not ok or not got[0] and not got[1]:
+                raise AssertionError(f"keyed_small [{case}]: the card differs from the CPU")
+
+    src_k = lambda K, total: lambda dev: wt.Source(  # noqa: E731
+        lambda i: {"v": (i % 13).float()}, total=total, num_keys=K, device=dev)
+    compare_runs("keyed_map_duplicates", src_k(4, 600), lambda dev: [wt.KeyedMap(
+        lambda t, st: ({"n": st + t.v}, st + t.v), 0.0, num_keys=4, device=dev)], 64)
+    compare_runs("keyed_map_promise_captured", src_k(64, 640), lambda dev: [wt.KeyedMap(
+        lambda t, st: ({"n": st + t.v}, st + t.v), 0.0, num_keys=64,
+        max_key_multiplicity=1, device=dev)], 64, dispatch=(False, 2))
+    counter = lambda dev: [wt.KeyedMap(lambda t, st: ({"n": st + 1}, st + 1), 0,  # noqa: E731
+                                       num_keys=4, device=dev)]
+    refused = {}
+    for how in ("dispatch", "cursor_step"):
+        try:
+            if how == "dispatch":
+                run("cuda", src_k(4, 600), counter, 64, 2)
+            else:
+                cursor_check("keyed_map_no_promise", src_k(4, 600), counter, 64)
+        except RuntimeError as e:
+            refused[how] = "host read" in str(e) and "max_rank" in str(e)
+        else:
+            refused[how] = False
+    log({"phase": "keyed_small", "case": "keyed_map_capture_refused", "refused": refused})
+    if not all(refused.values()):
+        raise AssertionError("a KeyedMap without max_key_multiplicity=1 ran captured")
+
+    def words(dev):
+        return wt.Source(lambda i: {"w": torch.stack([(i * 7) % 50, (i * 13) % 50,
+                                                      (i * 29) % 50])},
+                         total=3000, device=dev)
+
+    def split(t, shipper):
+        for j in range(3):
+            shipper.push({"word": t.w[j]}, key=t.w[j])
+    compare_runs("flatmap_wordcount", words, lambda dev: [
+        wt.FlatMap(split, max_fanout=3, device=dev),
+        wt.Accumulator(lambda t: t.data["word"] * 0 + 1, init_value=0, num_keys=50,
+                       device=dev)], 256, dispatch=(False, 2))
+    compare_runs("reduce_sink_general", src_k(1, 5000), lambda dev: [
+        wt.ReduceSink(lambda t: (t.v * 7).int(), combine=torch.bitwise_xor, name="xor",
+                      device=dev),
+        wt.ReduceSink(lambda t: t.v, combine=lambda a, b: torch.maximum(a, b),
+                      identity=-1e30, name="max", device=dev)], 512, dispatch=(False, 2))
+    TB = wt.win_type_t.TB
+    compare_runs("key_ffat_per_key_tb_lateness", lambda dev: wt.Source(
+        lambda i: {"v": ((i * 17) % 23).float()}, total=3000, num_keys=3,
+        ts_fn=lambda i: torch.clamp(i - (i * 7) % 10, min=0), device=dev),
+        lambda dev: [wt.Key_FFAT(lambda t: t.v, torch.add,
+                                 spec=wt.WindowSpec(16, 8, TB, delay=2), num_keys=3,
+                                 global_time=False, device=dev)], 128, dispatch=(False, 2))
+    compare_runs("key_ffat_cb_max", src_k(2, 3000), lambda dev: [wt.Key_FFAT(
+        lambda t: t.v, torch.maximum, spec=wt.WindowSpec(4, 2), identity=-1e30,
+        num_keys=2, device=dev)], 256, dispatch=(False, 2))
+
+    def shear(t):
+        one = t.v * 0 + 1
+        return torch.stack([torch.stack([one, t.v]), torch.stack([t.v * 0.5, one])])
+    compare_runs("key_ffat_cb_matmul", lambda dev: wt.Source(
+        lambda i: {"v": (i % 5).float() * 0.1}, total=960, num_keys=2, device=dev),
+        lambda dev: [wt.Key_FFAT(shear, lambda a, b: torch.einsum("...ij,...jk->...ik", a, b),
+                                 spec=wt.WindowSpec(8, 4), identity=torch.eye(2),
+                                 num_keys=2, device=dev)], 64, tol=1e-4)
+    compare_runs("accumulator_max", src_k(4, 3000), lambda dev: [wt.Accumulator(
+        lambda t: t.v, combine=torch.maximum, identity=-1e30, init_value=-1e30,
+        num_keys=4, device=dev)], 256, dispatch=(False, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2126,7 +2539,7 @@ def main() -> int:
     rows = kernel_phase(torch, ysb)
     rows.update(partials_kernel_phase(torch, ysb))
     rows.update(nexmark_kernel_phase(torch))
-    fold_row = repair_checks(torch)
+    repair_checks(torch)
     main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
                                       main_launches)
@@ -2147,12 +2560,17 @@ def main() -> int:
     ord_launches = ordering_phase(torch, np, wt, registry, card, args.profile)
     host_io_phase(torch, np, wt)
     gw_launches = graph_windows_phase(torch, np, wt, registry)
+    fold_row = keyed_fold_checks(torch)
+    kcb_launches = keyed_cb_phase(torch, np, wt, registry, card, args.profile)
+    ks_launches = keyed_stateful_phase(torch, np, wt, registry, card, args.profile)
+    keyed_small_phase(torch, np, wt, registry)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
     paths = {"ysb": main_launches, "ysb_sum": sum_launches, "nexmark": nex_launches,
              "path_a": a_launches, "path_b": b_launches, "pipegraph_ysb": pg_launches,
-             "ordering": ord_launches, "graph_windows": gw_launches}
+             "ordering": ord_launches, "graph_windows": gw_launches,
+             "keyed_cb": kcb_launches, "keyed_stateful": ks_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

@@ -392,11 +392,14 @@ def test_with_device_opt_and_conflicting_hints():
     assert m._opt_level == opt_level_t.LEVEL2
     with pytest.raises(ValueError):
         Map_Builder(lambda t: {"v": t.v}).withOpt(99)
-    for b in (wt.FlatMap_Builder(lambda t, sh: None).withMaxFanout(2),
-              wt.Accumulator_Builder(lambda acc, t: acc),
-              wt.Map_Builder(lambda t, s: (t, s)).withState(0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            b.withDevice("cpu").build()
+    # the keyed-state builders build their operators on the hinted device
+    for b, cls in ((wt.FlatMap_Builder(lambda t, sh: None).withMaxFanout(2), wt.FlatMap),
+                   (wt.Accumulator_Builder(lambda t: t.v), wt.Accumulator),
+                   (wt.Map_Builder(lambda t, s: (t, s)).withState(0), wt.KeyedMap)):
+        op = b.withDevice("cpu").build()
+        assert isinstance(op, cls) and op.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="withMaxFanout"):
+        wt.FlatMap_Builder(lambda t, sh: None).withDevice("cpu").build()
 
 
 def test_chain_outcome_recorded_and_rendered():

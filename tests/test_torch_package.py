@@ -37,7 +37,9 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.runtime.builders", "windflow_tpu_torch.runtime.async_sink",
            "windflow_tpu_torch.parallel", "windflow_tpu_torch.parallel.ordering",
            "windflow_tpu_torch.parallel.emitters", "windflow_tpu_torch.ops.compaction",
-           "windflow_tpu_torch.shipper", "windflow_tpu_torch.stats"]
+           "windflow_tpu_torch.shipper", "windflow_tpu_torch.stats",
+           "windflow_tpu_torch.benchmarks.keyed", "windflow_tpu_torch.operators.accumulator",
+           "windflow_tpu_torch.operators.flatmap"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -104,22 +106,17 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise():
-    from windflow_tpu_torch.ops.lookup import table_lookup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wt.Key_FFAT(lambda t: t.v, torch.maximum,
-                    spec=wt.WindowSpec(10, 10, wt.win_type_t.TB), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wt.Key_FFAT(lambda t: t.v, torch.add, spec=wt.WindowSpec(10, 10),
-                    device="cpu").init_state({})
-    with pytest.raises(NotImplementedError):
-        table_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32))
+    """What is still unported raises, naming its ROADMAP item (the threaded
+    driver, item 10); item 9's operators build."""
     g = wt.PipeGraph(device="cpu")
     g.add_source(wt.Source(lambda i: {"v": i}, total=10, device="cpu")).add(
         wt.ReduceSink(lambda t: t.v, device="cpu"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         g.run(threaded=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2).build()
+    assert isinstance(wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2)
+                      .withDevice("cpu").build(), wt.FlatMap)
+    assert wt.Key_FFAT(lambda t: t.v, torch.maximum,
+                       spec=wt.WindowSpec(10, 10, wt.win_type_t.TB), device="cpu")
 
 
 def test_nexmark_cpu_run_launches_no_kernel():

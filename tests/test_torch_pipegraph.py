@@ -9,10 +9,8 @@ or float sums of integers, so every sum is exact in any order), and each graph
 also keeps its test's own oracle. DETERMINISTIC merges run at several batch
 sizes. The legality cases must raise the same exception type with the same
 leading words in both packages, and ``dump_DOTGraph`` must give the same text.
-The JAX graphs that use FlatMap or Key_FFAT's CB path (not ported, ROADMAP
-Queue 1 item 9) keep them; the port's copy of such a graph uses the Map with
-the same output (fan-out 1), the ReduceSink with the same count (fan-out 2),
-or Key_Farm with the same CB sums, as noted at each.
+The graphs that use FlatMap or Key_FFAT's CB path run them in both
+packages.
 """
 
 import types
@@ -50,15 +48,14 @@ PORT = types.SimpleNamespace(
     one=lambda: torch.ones((), dtype=torch.int32), add=torch.add,
     graph=lambda *a, **k: wt.PipeGraph(*a, device="cpu", **k),
     dev=lambda b: b.withDevice("cpu"),
-    # Key_FFAT's per-key CB path is not ported (ROADMAP Queue 1 item 9): the
-    # same CB(4, 4) sums through Key_Farm on the Win_Seq engine
-    cb4_sum=lambda: wt.Key_Farm(lambda wid, it: it.sum("v"),
-                                wt.WindowSpec(4, 4, wt.win_type_t.CB), num_keys=2,
+    flatmap1=lambda f: wt.FlatMap(lambda t, sh: sh.push(f(t)), max_fanout=1, device="cpu"),
+    cb4_sum=lambda: wt.Key_FFAT(lambda t: t.v, torch.add,
+                                spec=wt.WindowSpec(4, 4, wt.win_type_t.CB), num_keys=2,
                                 device="cpu"),
-    # FlatMap with fan-out 1 is the Map of its one push
-    flatmap1=lambda f: wt.Map(f, device="cpu"),
-    # FlatMap pushing two tuples a tuple, counted: a count of 2 a tuple
-    flatmap2_count=lambda: [wt.ReduceSink(lambda t: torch.full((), 2, dtype=torch.int32),
+    flatmap2_count=lambda: [wt.FlatMap(lambda t, ship: (ship.push({"v": t.v}),
+                                                        ship.push({"v": -t.v}))[0],
+                                       max_fanout=2, device="cpu"),
+                            wt.ReduceSink(lambda t: torch.ones((), dtype=torch.int32),
                                           name="l1_count", device="cpu")])
 
 

@@ -1,13 +1,12 @@
 """The parallel window patterns and YSB-WMR in the port against the JAX
 package on the CPU.
 
-Every case of ``tests/test_win_patterns.py`` except the Key_FFAT max-combine
-case (the port's Win_SeqFFAT combines with ``torch.add`` only) runs as the
-same stream through both packages; the sorted ``(key, wid, value)`` sink
-tuples must be equal, at the case's batch size and at another. The CB
-Key_FFAT cases need Win_SeqFFAT's per-key path, which the port does not have
-yet (it raises): there the port's Win_Seq is held to the JAX Key_FFAT, the
-property the JAX test checks. YSB-WMR at a small total is held to
+Every case of ``tests/test_win_patterns.py`` runs as the same stream
+through both packages; the sorted ``(key, wid, value)`` sink tuples must be
+equal (byte for byte: the values are integers carried as float32), at the
+case's batch size and at another. The CB Key_FFAT cases run the port's own
+per-key Key_FFAT, also held to the port's Win_Seq, the property the JAX test
+checks. YSB-WMR at a small total is held to
 ``windflow_tpu.benchmarks.ysb.make_ops_wmr`` and to a dense count.
 """
 
@@ -64,6 +63,13 @@ CASES = {
     "key_ffat_tb": (
         lambda X: X.Key_FFAT(lambda t: t.v, X.add, spec=X.WindowSpec(8, 4, X.TB),
                              num_keys=2, **X.kw), 120, 2, (32, 48), None),
+    "key_ffat_cb_sum": (
+        lambda X: X.Key_FFAT(lambda t: t.v, X.add, spec=X.WindowSpec(6, 2, X.CB),
+                             num_keys=3, **X.kw), 150, 3, (32, 70), None),
+    "key_ffat_max_combine": (
+        lambda X: X.Key_FFAT(lambda t: t.v, jnp.maximum if X is JAX else torch.maximum,
+                             spec=X.WindowSpec(4, 2, X.CB), identity=-1e30, num_keys=2,
+                             **X.kw), 100, 2, (32, 40), None),
     "pane_farm_matches_win_seq": (
         lambda X: _pf(X, X.WindowSpec(6, 2, X.CB), 3), 150, 3, (32, 45), None),
     "win_mapreduce_matches_win_seq": (
@@ -133,17 +139,15 @@ def test_nesting_shapes_and_guards():
 
 
 def test_cb_key_ffat_cases_against_port_win_seq():
-    """test_key_ffat_matches_win_seq_sum (CB): the port's Win_Seq equals the
-    JAX Key_FFAT; the port's own CB Key_FFAT raises until its per-key path
-    is ported."""
-    spec_j = JAX.WindowSpec(6, 2, JAX.CB)
-    want = run(JAX, lambda X: X.Key_FFAT(lambda t: t.v, jnp.add, spec=spec_j, num_keys=3),
-               150, 3, 32)
-    got = run(PORT, lambda X: _sum_v(X, X.WindowSpec(6, 2, X.CB), 3), 150, 3, 32)
-    assert got == want and want
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        wt.Key_FFAT(lambda t: t.v, torch.add, spec=wt.WindowSpec(6, 2), num_keys=3,
-                    device="cpu").init_state({"v": torch.zeros(())})
+    """test_key_ffat_matches_win_seq_sum and test_key_ffat_max_combine (CB):
+    the port's own per-key Key_FFAT equals the port's Win_Seq (sum and max),
+    as the JAX Key_FFAT equals the JAX Win_Seq."""
+    want = jax_result("key_ffat_cb_sum")
+    assert run(PORT, lambda X: _sum_v(X, X.WindowSpec(6, 2, X.CB), 3), 150, 3, 32) == want
+    assert want and run(PORT, CASES["key_ffat_cb_sum"][0], 150, 3, 32) == want
+    max_seq = lambda X: X.Win_Seq(lambda wid, it: it.max("v"), X.WindowSpec(4, 2, X.CB),  # noqa: E731
+                                  num_keys=2, **X.kw)
+    assert run(PORT, max_seq, 100, 2, 32) == jax_result("key_ffat_max_combine")
 
 
 def _fuzz_geometry(trial):
@@ -173,9 +177,9 @@ def test_fuzz_patterns_match_jax_win_seq(trial):
                                  num_keys=K, **X.kw),
             lambda X: X.Win_Farm(lambda wid, it: it.sum("v"), spec(X), parallelism=3,
                                  num_keys=K, **X.kw)]
-    if tb:                         # the port's Key_FFAT runs the global-time TB path
-        pats.append(lambda X: X.Key_FFAT(lambda t: t.v, X.add, spec=spec(X),
-                                         num_keys=K, **X.kw))
+    # Key_FFAT: the global-time path for TB, the per-key path for CB
+    pats.append(lambda X: X.Key_FFAT(lambda t: t.v, X.add, spec=spec(X), num_keys=K,
+                                     **X.kw))
     if win > slide:
         pats.append(lambda X: _pf(X, spec(X), K))
     if not tb or win == slide:

@@ -20,11 +20,12 @@ from .batch import (CTRL_DTYPE, TRACE_META_ATTR, Batch, MutableTupleRef, TupleRe
                     tuple_refs)
 from .context import RuntimeContext, LocalStorage
 from .device import resolve_device
-from .operators import (Basic_Operator, BatchMap, Compact, DeviceSource, Distinct,
-                        Filter, FilterMap, GeneratorSource, GFFATState, Iterable,
-                        Key_Farm, Key_FFAT, KeyBy, Map, Nested_Farm, Pane_Farm,
-                        ReduceSink, Sink, Source, StreamTableJoin, TopN, Win_Farm,
-                        Win_MapReduce, Win_Seq, Win_SeqFFAT, WinSeqState, WindowSpec)
+from .operators import (Accumulator, Basic_Operator, BatchMap, Compact, DeviceSource,
+                        Distinct, FFATState, Filter, FilterMap, FlatMap, GeneratorSource,
+                        GFFATState, Iterable, Key_Farm, Key_FFAT, KeyBy, KeyedMap, Map,
+                        Nested_Farm, Pane_Farm, ReduceSink, Sink, Source, StreamTableJoin,
+                        TopN, Win_Farm, Win_MapReduce, Win_Seq, Win_SeqFFAT, WinSeqState,
+                        WindowSpec)
 from .runtime import CompiledChain, MultiPipe, Pipeline, PipeGraph, builders
 from .runtime.async_sink import AsyncResultShipper, ShippedResult
 from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Builder,

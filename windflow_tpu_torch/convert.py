@@ -9,8 +9,14 @@ finish in the other, and tests can compare the states themselves.
 
 A Win_SeqFFAT state may come as any object with the attributes of the JAX
 package's ``GFFATState`` (``panes``, ``cnt``, ``wm``, ``next_win``,
-``dropped_old``, ``lat_hist``) or as a dict with those keys. Its event-time
-lateness histogram (``lat_hist``) is not ported and must be None.
+``dropped_old``, ``lat_hist``; the global-time path) or ``FFATState``
+(:data:`FFAT_FIELDS` and ``lat_hist``; the per-key path), or as a dict with
+those keys. Its event-time lateness histogram (``lat_hist``) is not ported
+and must be None.
+
+Every other state is a pytree of arrays and converts leaf by leaf: a
+KeyedMap's ``{"tbl": ..., "bad": ...}``, an Accumulator's ``[K, ...]``
+table, a ReduceSink's accumulator.
 
 A Win_Seq state (Win_Farm, Key_Farm, and the engine of Win_MapReduce) comes
 the same way with the fields of ``WinSeqState`` (:data:`WINSEQ_FIELDS`);
@@ -28,9 +34,10 @@ import torch
 from .batch import tree_map
 from .operators.win_patterns import Nested_Farm, Pane_Farm, Win_MapReduce
 from .operators.win_seq import Win_Seq, WinSeqState
-from .operators.win_seqffat import GFFATState, Win_SeqFFAT
+from .operators.win_seqffat import FFATState, GFFATState, Win_SeqFFAT
 
 GFFAT_FIELDS = ("panes", "cnt", "wm", "next_win", "dropped_old")
+FFAT_FIELDS = ("panes", "pane_count", "pane_of", "count", "wm", "next_win", "dropped_old")
 WINSEQ_FIELDS = ("arch_payload", "arch_id", "arch_ts", "arch_pos", "count", "wm",
                  "next_win")
 
@@ -64,14 +71,16 @@ def state_from_numpy(op, state: Any, device=None) -> Any:
         if _field(state, "lat_hist") is not None:
             raise NotImplementedError(
                 "state_from_numpy: the event-time lateness histogram is not ported")
-        return GFFATState(panes=tree_map(conv, _field(state, "panes")),
-                          **{f: conv(_field(state, f)) for f in GFFAT_FIELDS[1:]})
+        cls, fields = _ffat(op)
+        return cls(panes=tree_map(conv, _field(state, "panes")),
+                   **{f: conv(_field(state, f)) for f in fields[1:]})
     return tree_map(conv, state)
 
 
 def state_to_numpy(op, state: Any) -> Any:
     """Inverse of :func:`state_from_numpy`: a Win_SeqFFAT state becomes a dict
-    of numpy arrays keyed by :data:`GFFAT_FIELDS`, a Win_Seq state one keyed
+    of numpy arrays keyed by :data:`GFFAT_FIELDS` or :data:`FFAT_FIELDS`, a
+    Win_Seq state one keyed
     by :data:`WINSEQ_FIELDS` (Pane_Farm: ``{"plq": ..., "wlq": ...}`` of
     those), any other state a pytree of numpy arrays. Every array is a copy,
     so the snapshot stays as it was while the chain runs on."""
@@ -90,8 +99,13 @@ def state_to_numpy(op, state: Any) -> Any:
         return {f: tree_map(host, getattr(state, f)) for f in WINSEQ_FIELDS}
     if isinstance(op, Win_SeqFFAT):
         return {"panes": tree_map(host, state.panes),
-                **{f: host(getattr(state, f)) for f in GFFAT_FIELDS[1:]}}
+                **{f: host(getattr(state, f)) for f in _ffat(op)[1][1:]}}
     return tree_map(host, state)
+
+
+def _ffat(op):
+    """The state class of ``op``'s path and its fields."""
+    return (GFFATState, GFFAT_FIELDS) if op.global_time else (FFATState, FFAT_FIELDS)
 
 
 def chain_states_from_numpy(chain, states: Sequence[Any], device=None) -> list:

@@ -10,8 +10,8 @@ Counterpart of ``windflow_tpu/operators/sink.py`` (reference ``wf/sink.hpp``):
   copy to the host starts at once, and the callback receives it, in batch
   order, once ``async_depth`` newer batches are shipped and its copy has
   completed (EOS drains them all first);
-- :class:`ReduceSink`: an in-graph reduction kept on the device and read once
-  at the end (``chain.result()``).
+- :class:`ReduceSink`: an in-graph reduction with any associative combine,
+  kept on the device and read once at the end (``chain.result()``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from ..basic import routing_modes_t
 from ..batch import Batch, map_tuples, spec_of, tree_leaves, tree_map
 from ..context import RuntimeContext
 from ..meta import classify_sink
+from ..ops.segment import as_identity, identity_full, tree_reduce
 from .base import Basic_Operator
 
 
@@ -90,34 +91,34 @@ _REDUCERS = {torch.add: lambda v: v.sum(dim=0, dtype=v.dtype),
 
 class ReduceSink(Basic_Operator):
     """In-graph reduction sink: ``value_fn(t) -> pytree`` per tuple, combined
-    over the whole stream with ``combine`` (``torch.add`` by default;
-    ``torch.maximum`` and ``torch.minimum`` also ported) into a device-resident
-    accumulator."""
+    over the whole stream with an associative ``combine`` (``torch.add`` by
+    default) into a device-resident accumulator. ``torch.add``,
+    ``torch.maximum`` and ``torch.minimum`` reduce a batch with one PyTorch
+    reduction; any other combine folds the batch with
+    ``ops/segment.py::tree_reduce`` (the JAX package's ``lax.reduce`` leaves
+    its order to XLA) and then ``combine(acc, batch_fold)``. Invalid lanes
+    enter as ``identity`` (a number, or a tensor moved to the device once)."""
 
     def __init__(self, value_fn: Callable, *, combine: Callable = None, identity=0,
                  name: str = "reduce_sink", parallelism: int = 1, device=None):
         super().__init__(name, parallelism, device)
         self.value_fn = value_fn
         self.combine = combine or torch.add
-        if self.combine not in _REDUCERS:
-            raise NotImplementedError(
-                f"{name}: ReduceSink combines torch.add/maximum/minimum so far; "
-                f"general associative combines come with ROADMAP Queue 1 item 9")
-        self.identity = identity
+        self.identity = as_identity(identity, self.device)
 
     def init_state(self, payload_spec: Any):
         val = spec_of(map_tuples(self.value_fn, Batch.empty(1, payload_spec, self.device)))
-        return tree_map(lambda s: torch.full(tuple(s.shape), self.identity,
-                                             dtype=s.dtype, device=self.device), val)
+        return tree_map(lambda s: identity_full(self.identity, s.dtype, self.device, s.shape),
+                        val)
 
     def apply(self, state, batch: Batch):
         vals = map_tuples(self.value_fn, batch)
-        reduce = _REDUCERS[self.combine]
+        reduce = _REDUCERS.get(self.combine) or (
+            lambda v: tree_reduce(self.combine, v, 0))
 
         def red(acc, v):
             m = batch.valid.reshape(batch.valid.shape + (1,) * (v.ndim - 1))
-            v = torch.where(m, v, torch.full((), self.identity, dtype=v.dtype,
-                                             device=v.device))
+            v = torch.where(m, v, identity_full(self.identity, v.dtype, v.device))
             return self.combine(acc, reduce(v)).to(acc.dtype)
         return tree_map(red, state, vals), batch
 

@@ -1,25 +1,37 @@
 """Win_SeqFFAT — incremental associative window engine with pane-level sharing.
 
 Counterpart of ``windflow_tpu/operators/win_seqffat.py`` (reference
-``wf/win_seqffat.hpp`` + ``wf/flatfat.hpp``), global-time path: every tuple is
-lifted once and folded into its ``(key, pane)`` partial in a ``[K, P]`` pane
-ring; a fired window combines its ``win_len / pane_len`` pane partials. With a
-shared event clock (TB windows, ``global_time``) the watermark and the
-fired-window frontier are scalars, and each batch is:
+``wf/win_seqffat.hpp`` + ``wf/flatfat.hpp``): every tuple is lifted once and
+folded into its ``(key, pane)`` partial in a ``[K, P]`` pane ring; a fired
+window combines its ``win_len / pane_len`` pane partials. Two paths:
 
-- insert (:meth:`_g_insert`): the occupancy counts through
+- **global time** (TB windows, ``global_time``, the default for TB): the
+  watermark and the fired-window frontier are scalars. Insert
+  (:meth:`_g_insert`): the occupancy counts through
   ``ops/histogram.py::keyed_pane_histogram`` (kernel K1); for a count lift
-  (``lift(t) == 1``, the YSB windowed count) those counts ARE the partials;
-  any other additive lift folds through ``ops/segment.py::segment_reduce``
-  (kernel K3 for integer values);
-- emit (:meth:`_g_emit`): the fired range ``[lo, hi)`` is shared by every key,
+  (``lift(t) == 1``, the YSB windowed count, with ``torch.add``) those
+  counts ARE the partials; any other lift folds through
+  ``ops/segment.py::segment_reduce`` (kernel K3 for integer sums). Emit
+  (:meth:`_g_emit`): the fired range ``[lo, hi)`` is shared by every key,
   so the output is a ``[K, W]`` grid gathered from the ring with one
   ``index_select``, and fired panes are cleared back to the identity.
+- **per key** (CB windows, and TB with ``global_time=False``; ``bench.py``'s
+  keyed-CB config): each key has its own count, watermark and frontier.
+  Insert (:meth:`_insert`): a CB tuple's pane comes from its key's count
+  (``table_lookup``, kernel K2) plus its rank among the batch's lanes of
+  that key; a TB tuple behind its key's fired horizon (K2 again) is dropped
+  and counted. Partials, occupancy counts and per-key counts fold through
+  ``segment_reduce`` (K3 for the counts and integer sums, the fixed-order
+  float fold for float sums), the pane ids and watermarks through a max.
+  Emit (:meth:`_emit`): the fired windows of every key are packed into W
+  output rows by a prefix sum over the keys and a ``searchsorted``, all on
+  the device, and each row combines its ``wpanes`` partials.
 
-The port returns new state tensors (the functional contract); it does not
-update the state it was given. Only ``torch.add`` is ported as a combine, and
-the per-key path (CB windows, ``global_time=False``: ``_insert``/``_emit``)
-raises until ROADMAP Queue 1 item 9.
+Any associative ``combine`` with its ``identity`` works; non-add combines
+fold partials with ``segment_reduce``'s segmented scan (max and min with a
+``scatter_reduce``) and reduce a window's panes with the JAX package's
+pairwise tree (``ops/segment.py::tree_reduce``). The port returns new state
+tensors (the functional contract); it does not update the state it was given.
 """
 
 from __future__ import annotations
@@ -34,11 +46,24 @@ from ..basic import routing_modes_t, DEFAULT_MAX_KEYS
 from ..batch import (Batch, CTRL_DTYPE, TupleRef, map_tuples, spec_of, tree_leaves,
                      tree_map)
 from ..ops.histogram import keyed_pane_histogram
-from ..ops.segment import segment_reduce
+from ..ops.lookup import table_lookup
+from ..ops.segment import (as_identity, identity_full, segment_rank, segment_reduce,
+                           tree_reduce)
 from .base import Basic_Operator
 from .window import WindowSpec
 
-_ITEM_9 = "ROADMAP Queue 1 item 9"
+
+@dataclasses.dataclass(frozen=True)
+class FFATState:
+    """State of the per-key path."""
+
+    panes: Any                 # pytree [K, P, ...] ring of pane partials
+    pane_count: torch.Tensor   # i32[K, P] tuples folded into each pane slot
+    pane_of: torch.Tensor      # i32[K, P] pane id held by each ring slot (-1 empty)
+    count: torch.Tensor        # i32[K] tuples seen per key (CB position source)
+    wm: torch.Tensor           # i32[K] per-key max ts
+    next_win: torch.Tensor     # i32[K] next window id to fire, per key
+    dropped_old: torch.Tensor  # i32[] tuples dropped as OLD (TB stragglers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +90,10 @@ class Win_SeqFFAT(Basic_Operator):
         self.global_time = (not spec.is_cb) if global_time is None else global_time
         if self.global_time and spec.is_cb:
             raise ValueError("global_time applies to TB windows only")
-        if combine is not torch.add:
-            raise NotImplementedError(
-                f"{name}: only the torch.add combine is ported so far; other "
-                f"associative combines come with {_ITEM_9}")
         self.lift = lift
         self.combine = combine
-        self.identity = identity
+        #: a number, or a tensor (e.g. a 2x2 identity matrix) kept on the device
+        self.identity = as_identity(identity, self.device)
         #: lift(t) == 1 for every t (windowed count): the pane update equals
         #: the occupancy histogram. None = detect in init_state.
         self.count_lift = count_lift
@@ -87,11 +109,6 @@ class Win_SeqFFAT(Basic_Operator):
         self.max_wins = max_wins
         self._w = None
         self.bind_geometry(256)        # provisional; the chain re-binds with real C
-
-    def _per_key_unported(self):
-        raise NotImplementedError(
-            f"{self.name}: the per-key window path (_insert/_emit: CB windows or "
-            f"global_time=False) is not ported yet ({_ITEM_9})")
 
     def bind_geometry(self, batch_capacity: int) -> None:
         if self._pane_capacity is not None:
@@ -112,19 +129,25 @@ class Win_SeqFFAT(Basic_Operator):
     def _lift_spec(self, payload_spec):
         return spec_of(map_tuples(self.lift, Batch.empty(1, payload_spec, self.device)))
 
+    def _ident(self, dtype, shape=None) -> torch.Tensor:
+        return identity_full(self.identity, dtype, self.device, shape)
+
     def init_state(self, payload_spec: Any):
+        K, P, dev = self.num_keys, self.P, self.device
+        panes = tree_map(lambda s: self._ident(s.dtype, (K, P) + tuple(s.shape)),
+                         self._lift_spec(payload_spec))
         if not self.global_time:
-            self._per_key_unported()
+            keyed = lambda v: torch.full((K,), v, dtype=CTRL_DTYPE, device=dev)  # noqa: E731
+            return FFATState(
+                panes=panes, pane_count=torch.zeros((K, P), dtype=CTRL_DTYPE, device=dev),
+                pane_of=torch.full((K, P), -1, dtype=CTRL_DTYPE, device=dev),
+                count=keyed(0), wm=keyed(-1), next_win=keyed(0),
+                dropped_old=torch.zeros((), dtype=CTRL_DTYPE, device=dev))
         if self.count_lift is None:
             self.count_lift = _detect_count_lift(self.lift, payload_spec)
-        K, P, dev = self.num_keys, self.P, self.device
         scalar = lambda v: torch.tensor(v, dtype=CTRL_DTYPE, device=dev)  # noqa: E731
-        return GFFATState(
-            panes=tree_map(lambda s: torch.full((K, P) + tuple(s.shape), self.identity,
-                                                dtype=s.dtype, device=dev),
-                           self._lift_spec(payload_spec)),
-            cnt=torch.zeros((K, P), dtype=CTRL_DTYPE, device=dev),
-            wm=scalar(-1), next_win=scalar(0), dropped_old=scalar(0))
+        return GFFATState(panes=panes, cnt=torch.zeros((K, P), dtype=CTRL_DTYPE, device=dev),
+                          wm=scalar(-1), next_win=scalar(0), dropped_old=scalar(0))
 
     def out_spec(self, payload_spec: Any) -> Any:
         return self._lift_spec(payload_spec)
@@ -140,14 +163,19 @@ class Win_SeqFFAT(Basic_Operator):
         valid = batch.valid & (pane >= horizon)
         n_dropped = (batch.valid & ~valid).sum(dtype=CTRL_DTYPE)
         cnt_upd = keyed_pane_histogram(batch.key, pane, valid, K, P)
-        if self.count_lift:
+        add = self.combine is torch.add
+        if self.count_lift and add:
             # lift == 1: the value histogram IS the count histogram
             panes = tree_map(lambda t: t + cnt_upd.to(t.dtype), state.panes)
         else:
             seg = torch.where(valid, batch.key * P + torch.remainder(pane, P), K * P)
-            upd = segment_reduce(map_tuples(self.lift, batch), seg, valid, K * P)
-            panes = tree_map(lambda t, u: t + u.reshape((K, P) + tuple(u.shape[1:])),
-                             state.panes, upd)
+            upd = segment_reduce(map_tuples(self.lift, batch), seg, valid, K * P,
+                                 combine=None if add else self.combine,
+                                 identity=self.identity)
+            comb = torch.add if add else self.combine
+            panes = tree_map(
+                lambda t, u: comb(t, u.reshape((K, P) + tuple(u.shape[1:]))),
+                state.panes, upd)
         ts_max = torch.where(batch.valid, batch.ts, -1).max()
         return dataclasses.replace(
             state, panes=panes, cnt=state.cnt + cnt_upd,
@@ -188,6 +216,8 @@ class Win_SeqFFAT(Basic_Operator):
 
         def reduce_w(tbl):
             g = gat(tbl)
+            if self.combine is not torch.add:
+                return tree_reduce(self.combine, g, 2)
             m = (cnts > 0).reshape(cnts.shape + (1,) * (g.ndim - 3))
             return torch.where(m, g, torch.zeros((), dtype=g.dtype, device=dev)
                                ).sum(dim=2, dtype=g.dtype)
@@ -207,12 +237,107 @@ class Win_SeqFFAT(Basic_Operator):
         pos = torch.arange(P, dtype=CTRL_DTYPE, device=dev)
         clear = torch.remainder(pos - torch.remainder(first, P), P) < (last - first)
         panes = tree_map(
-            lambda t: torch.where(clear.reshape((1, P) + (1,) * (t.ndim - 2)),
-                                  torch.full((), self.identity, dtype=t.dtype, device=dev),
-                                  t),
-            state.panes)
+            lambda t: torch.where(_b(clear[None, :], t), self._ident(t.dtype), t), state.panes)
         cnt = torch.where(clear[None, :], 0, state.cnt)
         return dataclasses.replace(state, panes=panes, cnt=cnt, next_win=hi), out
+
+    # ------------------------------------------------------------ per-key path
+
+    def _insert(self, state: FFATState, batch: Batch) -> FFATState:
+        """Lift each tuple and fold it into its ``(key, pane)`` partial (the
+        FlatFAT leaf update and bubble, ``wf/flatfat.hpp:134-240``, as one
+        segment reduction a batch). A ring slot whose pane id advanced starts
+        again from the identity."""
+        K, P = self.num_keys, self.P
+        valid = batch.valid
+        if self.spec.is_cb:
+            rank = segment_rank(batch.key, valid)
+            pos = table_lookup(state.count, batch.key, traced=True) + rank
+            pane = torch.div(pos, self.pane_len, rounding_mode="floor")
+            n_dropped = torch.zeros((), dtype=CTRL_DTYPE, device=valid.device)
+        else:
+            horizon = table_lookup(state.next_win, batch.key, traced=True) * self.spec.slide
+            kept = valid & (batch.ts >= horizon)
+            n_dropped = (valid & ~kept).sum(dtype=CTRL_DTYPE)
+            valid = kept
+            pane = torch.div(batch.ts, self.pane_len, rounding_mode="floor")
+        seg = torch.where(valid, batch.key * P + torch.remainder(pane, P), K * P)
+        add = self.combine is torch.add
+        upd = segment_reduce(map_tuples(self.lift, batch), seg, valid, K * P,
+                             combine=None if add else self.combine, identity=self.identity)
+        ones = valid.to(CTRL_DTYPE)
+        cnt_upd = segment_reduce(ones, seg, valid, K * P).reshape(K, P)
+        pane_id_upd = segment_reduce(pane, seg, valid, K * P, combine=torch.maximum,
+                                     identity=-1)
+        touched = cnt_upd > 0
+        new_pane_of = torch.where(touched, pane_id_upd.reshape(K, P), state.pane_of)
+        fresh = touched & (new_pane_of != state.pane_of)
+
+        def fold(tbl, u):
+            u = u.reshape((K, P) + tuple(u.shape[1:]))
+            t = torch.where(_b(fresh, tbl), self._ident(tbl.dtype), tbl)
+            return torch.where(_b(touched, tbl), (torch.add if add else self.combine)(t, u), t)
+
+        counts_add = segment_reduce(ones, batch.key, valid, K)
+        ts_max = segment_reduce(batch.ts, batch.key, valid, K, combine=torch.maximum,
+                                identity=-1)
+        return dataclasses.replace(
+            state, panes=tree_map(fold, state.panes, upd),
+            pane_count=torch.where(fresh, 0, state.pane_count) + cnt_upd,
+            pane_of=new_pane_of, count=state.count + counts_add,
+            wm=torch.maximum(state.wm, ts_max),
+            dropped_old=state.dropped_old + n_dropped)
+
+    def _emit(self, state: FFATState, W: int, flush: bool):
+        """The fired windows of every key, packed into ``W`` output rows: key
+        k's windows ``[lo_k, hi_k)`` take rows ``off_k ..`` of a prefix sum
+        over the keys, and row r finds its key with a ``searchsorted``. All
+        on the device (no host read), so the step can be captured; windows
+        beyond ``W`` wait for the next batch."""
+        K, P = self.num_keys, self.P
+        s = self.spec
+        dev = state.count.device
+        floor = lambda a, b: torch.div(a, b, rounding_mode="floor")  # noqa: E731
+        zero = torch.zeros((), dtype=CTRL_DTYPE, device=dev)
+        if s.is_cb:
+            hi = (torch.where(state.count > 0, floor(state.count - 1, s.slide) + 1, zero)
+                  if flush else torch.clamp(floor(state.count - s.win_len, s.slide) + 1, min=0))
+        else:
+            hi = (torch.where(state.count > 0, floor(state.wm, s.slide) + 1, zero)
+                  if flush else torch.clamp(floor(state.wm - s.delay - s.win_len, s.slide) + 1,
+                                            min=0))
+        lo = state.next_win
+        n_f = torch.maximum(hi, lo) - lo
+        csum = torch.cumsum(n_f, dim=0, dtype=CTRL_DTYPE)
+        off = csum - n_f
+        total = torch.clamp(csum[-1], max=W)
+        w_idx = torch.arange(W, dtype=CTRL_DTYPE, device=dev)
+        k_of = torch.searchsorted(csum, w_idx, right=True, out_int32=True)
+        k_safe = torch.clamp(k_of, max=K - 1)
+        kl = k_safe.long()
+        wid = lo.index_select(0, kl) + (w_idx - off.index_select(0, kl))
+        valid_w = w_idx < total
+        emitted_k = torch.minimum(torch.clamp(total - off, min=0), n_f)
+
+        # the wpanes partials of each window, reduced in pane order
+        pane_ids = (wid * self.spanes)[:, None] + torch.arange(
+            self.wpanes, dtype=CTRL_DTYPE, device=dev)[None, :]       # [W, wpanes]
+        gflat = (k_safe[:, None] * P + torch.remainder(pane_ids, P)).reshape(-1).long()
+        live = (state.pane_of.reshape(K * P).index_select(0, gflat).reshape(W, -1)
+                == pane_ids) & valid_w[:, None]
+
+        def gat_reduce(tbl):
+            g = tbl.reshape((K * P,) + tuple(tbl.shape[2:])).index_select(0, gflat)
+            g = g.reshape((W, self.wpanes) + tuple(tbl.shape[2:]))
+            g = torch.where(_b(live, g), g, self._ident(g.dtype))
+            if self.combine is torch.add:
+                return g.sum(dim=1, dtype=g.dtype)
+            return tree_reduce(self.combine, g, 1)
+
+        res_ts = wid * s.slide + (s.win_len - 1) if not s.is_cb else torch.zeros_like(wid)
+        out = Batch(key=k_safe, id=wid, ts=res_ts,
+                    payload=tree_map(gat_reduce, state.panes), valid=valid_w)
+        return dataclasses.replace(state, next_win=lo + emitted_k), out
 
     # ------------------------------------------------------------------ operator API
 
@@ -220,22 +345,31 @@ class Win_SeqFFAT(Basic_Operator):
         if self.max_wins is not None:
             return self.max_wins
         if self.global_time:
+            # windows drainable a step, bounded by what the pane ring holds
             return max(4, (self.P - self.wpanes) // self.spanes)
-        self._per_key_unported()
+        W = max(16, -(-capacity // self.spec.slide) + 64)
+        if W * self.wpanes > (1 << 22):
+            # a window combines wpanes partials: the default budget implies a
+            # [W, wpanes] gather a batch, so ask for an explicit budget
+            raise ValueError(
+                f"{self.name}: default fired-window budget W={W} with "
+                f"{self.wpanes} panes/window implies a [{W}, {self.wpanes}] "
+                f"gather per batch; pass max_wins= to bound it")
+        return W
 
     def apply(self, state, batch: Batch):
-        if not self.global_time:
-            self._per_key_unported()
         W = self._resolve_w(batch.capacity)
         self._w = W
-        state = self._g_insert(state, batch)
-        return self._g_emit(state, W, flush=False)
+        if self.global_time:
+            state = self._g_insert(state, batch)
+            return self._g_emit(state, W, flush=False)
+        state = self._insert(state, batch)
+        return self._emit(state, W, flush=False)
 
     def flush(self, state):
-        if not self.global_time:
-            self._per_key_unported()
         W = self._w or self._resolve_w(256)
-        state, out = self._g_emit(state, W, flush=True)
+        emit = self._g_emit if self.global_time else self._emit
+        state, out = emit(state, W, flush=True)
         self.collect_stats(state)
         if not bool(out.valid.any()):
             return state, None
@@ -291,6 +425,11 @@ def _detect_count_lift(lift, payload_spec) -> bool:
                 and out[0].shape == () and float(out[0]) == 1.0)
     except Exception:  # noqa: BLE001 — any doubt: not a count lift
         return False
+
+
+def _b(mask, v):
+    """``mask`` shaped to broadcast against ``v`` (trailing dims of 1)."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (v.ndim - mask.ndim))
 
 
 def _next_pow2(n):

@@ -28,6 +28,13 @@ Routing follows the JAX package's rule (``windflow_tpu/ops/lookup.py:24-32,
   graph;
 - K > 65536: the ``take`` branch.
 
+A 2-D table ``[K, V]`` (a per-key state row of V values) takes the JAX
+package's select-reduce up to :data:`SELECT_MAX_ROWS_2D` rows (``table[idx]``,
+0 out of range, ``-0.0`` read as ``+0.0``) and ``take`` above, as does any
+table of more dimensions. The JAX package computes the 2-D select outside any
+Pallas kernel, so K2 stays 1-D: a 2-D table on the card goes through the
+plain version (one ``index_select`` and a mask).
+
 The ``take`` branch was never a kernel: it keeps ``jnp.take``'s semantics in
 plain PyTorch (a negative index wraps once; out of range gives the dtype's
 fill: NaN, the signed minimum, the unsigned maximum, or True).
@@ -63,15 +70,15 @@ FACTORED_MAX_ROWS = 1 << 16
 def table_lookup(table: torch.Tensor, idx: torch.Tensor, *,
                  traced: bool = False) -> torch.Tensor:
     """``table[idx]`` with the JAX package's out-of-range semantics for the
-    table's size. ``table``: 1-D ``[K]``; ``idx``: i32 ``[C]``. ``traced``:
-    route as JAX's jitted chain does, from K and dtype alone (every
-    operator's ``apply``); False reads a concrete table's values, as eager
-    JAX does."""
-    if table.ndim != 1:
-        raise NotImplementedError(
-            "table_lookup: only 1-D tables are ported so far (2-D state "
-            "tables come with the per-key window paths, ROADMAP Queue 1 item 9)")
+    table's size. ``table``: ``[K]`` or ``[K, V]`` (``[K, ...]`` takes
+    ``take``); ``idx``: i32 ``[C]``. ``traced``: route as JAX's jitted chain
+    does, from K and dtype alone (every operator's ``apply``); False reads a
+    concrete 1-D table's values, as eager JAX does."""
     K = table.shape[0]
+    if table.ndim > 1:
+        if table.ndim == 2 and K <= SELECT_MAX_ROWS_2D:
+            return lookup_plain(table, idx)
+        return take(table, idx)
     exact = _exact_dtype if traced else _factored_ok
     if K <= SELECT_MAX_ROWS_2D or (K <= FACTORED_MAX_ROWS and exact(table)):
         return gather_or_zero(table, idx)
@@ -120,13 +127,21 @@ def _plus_zero(v: torch.Tensor) -> torch.Tensor:
 
 
 def lookup_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K2."""
+    """Plain PyTorch version of K2, and the 2-D select-reduce
+    (``[K, V]`` tables: rows, 0 out of range)."""
     if table.shape[0] == 0:
-        return torch.zeros(idx.shape, dtype=table.dtype, device=table.device)
+        return torch.zeros(tuple(idx.shape) + tuple(table.shape[1:]), dtype=table.dtype,
+                           device=table.device)
     ok = (idx >= 0) & (idx < table.shape[0])
     g = table.index_select(0, torch.where(ok, idx, 0).long())
-    g = torch.where(ok, g, torch.zeros((), dtype=table.dtype, device=table.device))
+    g = torch.where(_rows(ok, g), g, torch.zeros((), dtype=table.dtype,
+                                                 device=table.device))
     return _plus_zero(g) if _zero_fix(table) else g
+
+
+def _rows(mask: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A lane mask ``[C]`` shaped to broadcast against gathered rows ``[C, ...]``."""
+    return mask.reshape(mask.shape + (1,) * (g.ndim - 1))
 
 
 def lookup_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -169,7 +184,7 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         fill = torch.iinfo(dt).min
     else:
         fill = torch.iinfo(dt).max
-    return torch.where(ok, g, torch.full((), fill, dtype=dt, device=table.device))
+    return torch.where(_rows(ok, g), g, torch.full((), fill, dtype=dt, device=table.device))
 
 
 # ------------------------------------------------------ stream-table probe

@@ -3,9 +3,16 @@
 Counterpart of the part of ``windflow_tpu/ops/segment.py`` the port runs:
 :func:`segment_fold` (the masked 1-D segment sum behind Win_SeqFFAT's additive
 lifts and Win_Seq's counts), :func:`segment_reduce` with the additive,
-max/min and general associative combines, and :func:`segment_rank`
-(Distinct's first-occurrence test, Win_Seq's arrival positions).
-``segment_prefix_scan`` is not ported yet (ROADMAP Queue 1 item 9).
+max/min and general associative combines, :func:`segment_rank`
+(Distinct's first-occurrence test, Win_Seq's and Key_FFAT's arrival
+positions) and :func:`segment_prefix_scan` (the Accumulator's per-key
+rolling fold). :func:`tree_reduce` is the JAX package's pairwise fold of an
+axis with any associative combine (Win_SeqFFAT's ``_tree_reduce``).
+
+An ``identity`` is a Python number, or a tensor (a 2x2 identity matrix for
+a matrix-product combine) that the operators move to their device once, at
+construction: a number becomes a ``torch.full`` (a kernel argument, which a
+CUDA-graph capture takes), a tensor on the device is used as it is.
 
 :func:`segment_fold` on integer values of at most 4 bytes is the hand-written
 CUDA kernel ``csrc/segment.cu`` (kernel K3: block-private partials in shared
@@ -235,8 +242,27 @@ def _bmask(valid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return valid.reshape(valid.shape + (1,) * (v.ndim - 1))
 
 
-def _full(identity, v: torch.Tensor, shape=()) -> torch.Tensor:
-    return torch.full(shape, identity, dtype=v.dtype, device=v.device)
+def as_identity(identity, device):
+    """An operator's ``identity`` as it keeps it: a Python number as it is,
+    anything else (a tensor, an array) a tensor on ``device``, moved there
+    once at construction."""
+    if isinstance(identity, (bool, int, float)):
+        return identity
+    return torch.as_tensor(identity, device=device)
+
+
+def identity_full(identity, dtype, device, shape=None) -> torch.Tensor:
+    """``identity`` in ``dtype`` on ``device``: as it is (it broadcasts) when
+    ``shape`` is None, else a new tensor of ``shape``."""
+    if isinstance(identity, torch.Tensor):
+        t = torch.as_tensor(identity, dtype=dtype, device=device)
+        return t if shape is None else t.expand(tuple(shape)).clone()
+    return torch.full(() if shape is None else tuple(shape), identity, dtype=dtype,
+                      device=device)
+
+
+def _full(identity, v: torch.Tensor, shape=None) -> torch.Tensor:
+    return identity_full(identity, v.dtype, v.device, shape)
 
 
 def segment_reduce(values: Any, keys: torch.Tensor, valid: torch.Tensor,
@@ -328,3 +354,92 @@ def _segment_scan_reduce(values, keys, valid, S: int, combine, identity):
         out[out_idx] = v              # one lane per key row; the rest to row S
         return out[:S]
     return tree_map(scatter, scanned)
+
+
+def segment_prefix_scan(values: Any, keys: torch.Tensor, valid: torch.Tensor,
+                        combine: Callable, identity=0, *, carry_in: Any = None) -> Any:
+    """Per-key inclusive prefix scan in stream order: lane i gets the combine
+    of every earlier live lane of its key and its own (after ``carry_in``,
+    a per-key table ``[num_keys, ...]`` read with ``table_lookup``), in the
+    lanes' own positions. Invalid lanes hold no meaningful value.
+
+    ``torch.add`` takes the JAX package's formulation (one stable sort by
+    key, one global cumulative sum over the sorted lanes, each segment's
+    base subtracted, one scatter back to stream order). Its integer results
+    are exact; its float results carry the rounding of a prefix at the
+    magnitude of the whole batch's running total, summed in another order
+    than XLA's, so float bits differ from the JAX package's once partial
+    sums leave the integers below 2^24 (:func:`prefix_sum` keeps them the
+    same on every device and run). Any other associative ``combine`` runs
+    the log-depth segmented scan."""
+    from .lookup import table_lookup
+    c = keys.shape[0]
+    dev = keys.device
+    seg_keys, orig = _sort_by_key(keys, valid)
+    seg_valid = seg_keys != torch.iinfo(keys.dtype).max
+    if combine is torch.add:
+        # each sorted lane's segment start (the JAX package's cummax of the
+        # start flags), found by a binary search of its own key
+        seg_start = torch.searchsorted(seg_keys, seg_keys).to(torch.int32)
+        before = torch.clamp(seg_start - 1, min=0).long()
+
+        def one(v):
+            sv = torch.where(_bmask(seg_valid, v), v.index_select(0, orig),
+                             _full(identity, v))
+            cs = prefix_sum(sv)
+            base = torch.where(_bmask(seg_start > 0, cs), cs.index_select(0, before),
+                               torch.zeros((), dtype=v.dtype, device=dev))
+            out = torch.zeros_like(cs)
+            out[orig] = cs - base
+            return out
+        out = tree_map(one, values)
+    else:
+        sv = tree_map(lambda v: torch.where(_bmask(seg_valid, v), v.index_select(0, orig),
+                                            _full(identity, v)), values)
+        starts = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                            seg_keys[1:] != seg_keys[:-1]]) if c else seg_valid
+
+        def unsort(v):
+            out = torch.zeros_like(v)
+            out[orig] = v
+            return out
+        out = tree_map(unsort, _segmented_scan(sv, starts, combine))
+    if carry_in is not None:
+        # associativity: fold(carry, v1..vr) == combine(carry, fold(v1..vr))
+        out = tree_map(lambda v, t: combine(table_lookup(t, keys, traced=True), v),
+                       out, carry_in)
+    return out
+
+
+def prefix_sum(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum along axis 0 in ``v``'s dtype. Integers take
+    ``torch.cumsum`` (wrapping, exact in any order). Floats take a log-depth
+    doubling scan (at distance d = 1, 2, 4, ... each lane adds the partial d
+    lanes back), whose additions happen in one fixed order, so its bits are
+    the same on the CPU and the card and from run to run: the card's
+    ``torch.cumsum`` adds its tiles' partials in an order that varies
+    between runs for floats."""
+    if not v.dtype.is_floating_point:
+        return torch.cumsum(v, dim=0, dtype=v.dtype)
+    d = 1
+    while d < v.shape[0]:
+        v = torch.cat([v[:d], v[d:] + v[:-d]])
+        d *= 2
+    return v
+
+
+def tree_reduce(combine: Callable, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Log-depth reduction of ``axis`` with an associative ``combine``: the
+    JAX package's ``_tree_reduce`` (``operators/win_seqffat.py``), pairing
+    for pairing. Each round combines the first half with the second (element
+    i with element half + i) and carries an odd element over, so results
+    equal the JAX package's where ``combine`` rounds. Up to three elements
+    that keeps the operand order; from four on, a combine that does not
+    commute sees them out of order, in both packages."""
+    n = x.shape[axis]
+    while n > 1:
+        half = n // 2
+        a, b = x.narrow(axis, 0, half), x.narrow(axis, half, half)
+        x = torch.cat([combine(a, b), x.narrow(axis, 2 * half, n - 2 * half)], dim=axis)
+        n = half + (n - 2 * half)
+    return x.squeeze(axis)

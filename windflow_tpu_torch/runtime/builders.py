@@ -13,9 +13,9 @@ given; ``withDevice(device)`` builds the operator on a torch device (the
 reference's ``withGPU`` device selection), and two different hints inside one
 chain are an error at chain construction.
 
-The builders of operators the port lacks raise at ``build()``:
-``FlatMap_Builder``, ``Accumulator_Builder`` and ``Map_Builder`` with
-``withState`` (``KeyedMap``), ROADMAP Queue 1 item 9.
+``Map_Builder(f).withState(init)`` builds the keyed stateful ``KeyedMap``
+(``f(t, state_k) -> (payload, new_state_k)``); ``FlatMap_Builder`` needs
+``withMaxFanout``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from ..basic import opt_level_t, win_type_t
+from ..operators.accumulator import Accumulator
 from ..operators.filter import Filter
-from ..operators.map import Map
+from ..operators.flatmap import FlatMap
+from ..operators.map import KeyedMap, Map
 from ..operators.sink import ReduceSink, Sink
 from ..operators.source import DeviceSource
 from ..operators.win_patterns import (Key_Farm, Key_FFAT, Pane_Farm, Win_Farm,
@@ -32,11 +34,6 @@ from ..operators.win_patterns import (Key_Farm, Key_FFAT, Pane_Farm, Win_Farm,
 from ..operators.win_seq import Win_Seq
 from ..operators.win_seqffat import Win_SeqFFAT
 from ..operators.window import WindowSpec
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what}: the operator is not ported yet (ROADMAP Queue 1 item 9)")
 
 
 class _Builder:
@@ -147,7 +144,9 @@ class Filter_Builder(_Builder):
 
 class Map_Builder(_Builder):
     """``wf/builders.hpp:332``; ``f(t) -> payload`` or in place (+rich).
-    ``withState(init)`` asks for the keyed stateful Map, not ported."""
+    ``withState(init)`` builds the keyed stateful map (``KeyedMap``,
+    ``f(t, state_k) -> (payload, new_state_k)``), the reference fork's
+    keyed MapGPU; ``enable_KeyBy`` does not apply to it (it is keyed)."""
     _cls = Map
 
     def enable_KeyBy(self):
@@ -159,24 +158,33 @@ class Map_Builder(_Builder):
         return self
 
     def _construct(self):
-        if getattr(self, "_keyed_state", None) is not None:
-            _unported("Map_Builder.withState (KeyedMap)")
-        return Map(*self._fns, **self._kw)
+        if getattr(self, "_keyed_state", None) is None:
+            return Map(*self._fns, **self._kw)
+        init, num_keys = self._keyed_state
+        kw = {k: v for k, v in self._kw.items() if k != "keyed"}
+        if num_keys is not None:
+            kw["num_keys"] = num_keys
+        return KeyedMap(*self._fns, init, **kw)
 
 
 class FlatMap_Builder(_Builder):
-    """``wf/builders.hpp:494``; ``f(t, shipper)`` (+rich). Not ported."""
+    """``wf/builders.hpp:494``; ``f(t, shipper)`` (+rich)."""
+    _cls = FlatMap
 
     def withMaxFanout(self, f: int):
         self._kw["max_fanout"] = f
         return self
 
     def _construct(self):
-        _unported("FlatMap_Builder")
+        if "max_fanout" not in self._kw:
+            raise ValueError("FlatMap_Builder: withMaxFanout(F) is required (a static "
+                             "fan-out capacity keeps the output shape fixed)")
+        return FlatMap(*self._fns, **self._kw)
 
 
 class Accumulator_Builder(_Builder):
-    """``wf/builders.hpp:653``. Not ported."""
+    """``wf/builders.hpp:653``; ``value_fn(t)`` + associative combine."""
+    _cls = Accumulator
 
     def withInitialValue(self, v):
         self._kw["init_value"] = v
@@ -190,9 +198,6 @@ class Accumulator_Builder(_Builder):
     def withKeys(self, num_keys: int):
         self._kw["num_keys"] = num_keys
         return self
-
-    def _construct(self):
-        _unported("Accumulator_Builder")
 
 
 class _WinBuilder(_Builder):
