@@ -134,7 +134,35 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     2x2 matrix product, the Accumulator's max, each against the CPU port
     and captured (dispatch = 2) where it can be; a KeyedMap without
     ``max_key_multiplicity=1`` must refuse the capture;
-22. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+22. ``ring``: ``native.queue_selfbench`` (tokens/s through one native SPSC
+    ring between two threads pinned to cores 0 and 1 of the card's host),
+    three times; the port's native library is built by ``g++`` into
+    ``build/native/`` at first use;
+23. ``handoff``: a batch written on one CUDA stream after a deliberate
+    ``torch.cuda._sleep`` and read on another through
+    ``runtime/handoff.py``: the same bytes, and the host did not wait;
+24. ``threaded_ysb``: YSB at ``bench_ysb``'s geometry, 40 batches of 2^20,
+    through the serial Pipeline and ``ThreadedPipeline(src, [[Filter, join],
+    [KeyBy, Key_FFAT]], sink)``, each eager and at dispatch K = 4: rows byte
+    for byte equal to the serial eager run's and the dense oracle, K1 and K2
+    40 each and nothing else; tuples/s, ms a batch, peak memory, the
+    threaded/serial ratios, and with ``--profile`` the threaded runs' idle
+    share and each stage thread's CPU and wall seconds (pinned, unpinned,
+    one segment: rows asserted equal);
+25. ``record_ysb``: the same stream as 16-byte AoS records (``pack_records``
+    from the DeviceSource's columns) through ``RecordSource(key_field=
+    "campaign", ts_field="ts")`` at framing_workers 1 and
+    hardware_concurrency(), prefetch 0 and 3 (and once at K = 4), into the
+    threaded chain: rows equal to ``threaded_ysb``'s, the same launches;
+    framing ms a batch, host-to-device bytes, tuples/s;
+26. ``threaded_graph_windows``: ``graph_windows`` with ``run(threaded=True)``,
+    eager and at K = 4: windows equal to phase 17's and the oracle (as a
+    set: their emission follows the release chunks), K2, K3 and K6 exact
+    per Win_Seq apply and flush call, K4 and branch 2's host-constant count
+    equal to phase 17's, ms a push against phase 17's; then the merge
+    straight into a Sink, serial and threaded: DETERMINISTIC rows byte for
+    byte in delivery order, DEFAULT rows once sorted;
+27. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
     fixed-order float fold at ``keyed_cb``'s shape, launches summed over the
     paths, each counted from zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
@@ -184,10 +212,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (data sheet),
                           # the rate used for int32 compares and selects
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 PROBES_SRC = os.path.join("windflow_tpu_torch", "benchmarks", "csrc", "split_probes.cu")
 
 
 def log(obj):
+    """One output line: a dict as JSON (a phase's or a kernel check's line
+    with ``t_s``, the seconds since the script started), anything else as
+    it is."""
+    if isinstance(obj, dict) and ("phase" in obj or "kernel_check" in obj):
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -272,19 +306,28 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
     (a regime case, not a main-path shape) times the kernel alone, by graph
     replay, and leaves the plain version and the library call untimed;
     ``time_kernel=False`` times nothing (ragged and outsized cases)."""
-    got, want = kernel(), plain()
+    got = kernel()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    # a plain version slower than 2.5 ms a call (the sort networks', the join
+    # probe's) is timed over fewer calls, each timing loop near 50 ms
+    plain_s = time.perf_counter() - t0
+    depth = ({} if plain_s < 2.5e-3 else
+             {"iters": max(3, int(0.05 / plain_s)), "reps": 1})
     same, err = compare(torch, got, want)
     ok = same if tol is None else bool(torch.allclose(got, want, rtol=tol, atol=tol))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     row = {"kernel_check": name, "case": case, "shape": shape, **(extra or {}),
            "bit_identical": same, "max_abs_err": err, "tolerance": tol,
            "kernel_ms": graph_ms(torch, kernel) if time_kernel else None,
-           "plain_ms": graph_ms(torch, plain) if timed else None,
+           "plain_ms": graph_ms(torch, plain, **depth) if timed else None,
            "library_ms": (None if library is None or not timed else
                           graph_ms(torch, library)),
            "kernel_eager_ms": time_ms(torch, kernel) if timed else None,
-           "plain_eager_ms": time_ms(torch, plain) if timed else None,
+           "plain_eager_ms": (time_ms(torch, plain, iters=depth["iters"], warmup=1)
+                              if depth else time_ms(torch, plain)) if timed else None,
            "bytes": nbytes, "ops": ops, "counted": counted,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1241,10 +1284,11 @@ def collect_sink():
 
 
 def as_dict(np, parts):
+    """``{(key, window): value}`` of a run's ``(key, id, payload)`` parts."""
     if not parts:
         return {}
     k, w, c = (np.concatenate(x) for x in zip(*parts))
-    return {(int(a), int(b)): int(v) for a, b, v in zip(k.tolist(), w.tolist(), c.tolist())}
+    return dict(zip(zip(k.tolist(), w.tolist()), c.tolist()))
 
 
 def ysb_pipeline_phase(torch, np, wt, ysb, registry):
@@ -2080,12 +2124,14 @@ def graph_windows_oracle(np, total, keys, win_len, slide):
     return out
 
 
-def graph_windows(torch, wt, total, keys, win_len, slide, batch, cb, device=None):
+def graph_windows(torch, wt, total, keys, win_len, slide, batch, cb, device=None,
+                  dispatch=False):
     """split (id % 3) -> branches 0 and 1 (a Map each) merged partially in
     DETERMINISTIC mode -> CB Win_Seq sum -> Sink; branch 2 counted by a
     ReduceSink. Returns (graph, source pipe, merged pipe)."""
     kw = {} if device is None else {"device": device}
-    g = wt.PipeGraph("graph_windows", mode=wt.Mode.DETERMINISTIC, batch_size=batch, **kw)
+    g = wt.PipeGraph("graph_windows", mode=wt.Mode.DETERMINISTIC, batch_size=batch,
+                     dispatch=dispatch, **kw)
     mp = g.add_source(wt.DeviceSource(lambda i: {"v": (i % 97).to(torch.float32)},
                                       total=total, num_keys=keys, **kw))
     mp.split(lambda t: (t.id % 3).to(torch.int32), 3)
@@ -2164,7 +2210,7 @@ def graph_windows_phase(torch, np, wt, registry):
     if applied["ordering_merge"] != calls or total["ordering_merge"] != calls:
         raise AssertionError(f"graph_windows: K4 counted {total['ordering_merge']}, the "
                              f"node made {calls} network calls")
-    return total
+    return total, got, dt
 
 
 # ------------------------------------------------------------- keyed-state phases
@@ -2492,6 +2538,410 @@ def keyed_small_phase(torch, np, wt, registry):
         num_keys=4, device=dev)], 256, dispatch=(False, 2))
 
 
+# ------------------------------------------------------------- threaded phases
+
+THREADED_BATCHES = 40     # bench.py::bench_ysb: 40 batches of 2^20
+THREADED_K = 4            # scan dispatch of the threaded phases
+#: the YSB stream as AoS records: 16 B a record, 16 MiB a batch of 2^20
+YSB_RECORD = [("ad_id", "<i4"), ("event_type", "<i4"), ("campaign", "<i4"), ("ts", "<i4")]
+HANDOFF_SLEEP_CYCLES = 200_000_000   # the producer stream's deliberate delay
+
+
+def ysb_segments(ysb):
+    """The YSB chain at bench_ysb's geometry cut into two segments:
+    [Filter, BatchMap join] and [KeyBy, Key_FFAT]."""
+    ops = ysb.make_ops(**ysb.bench_geometry(BATCH))
+    return [ops[:2], ops[2:]]
+
+
+def counted_run(torch, registry, prepare, run):
+    """``prepare()`` (chain builds, warm-up steps and captures, outside the
+    count), then ``run()`` with the launches counted from zero: (launches,
+    seconds, peak device bytes the run allocated above what was allocated
+    when it started)."""
+    prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (registry.launch_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def profile_run(torch, phase, run, unprofiled_s):
+    """torch.profiler over one whole run: the device's busy time (summed over
+    every stream, so overlapping stages can add up past the wall time)
+    against the unprofiled run's time gives the idle share."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in p.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.device_time_total for e in kern) / 1e3
+    log({"phase": f"{phase}_profile", "kernels": sum(e.count for e in kern),
+         "device_busy_ms": busy_ms, "unprofiled_ms": unprofiled_s * 1e3,
+         "idle_share": 1 - busy_ms / (unprofiled_s * 1e3)})
+
+
+def threaded_ysb_phase(torch, np, wt, ysb, registry, card, profile):
+    """YSB at bench_ysb's geometry (40 batches of 2^20) through the serial
+    Pipeline and through ``ThreadedPipeline(src, [[Filter, join], [KeyBy,
+    Key_FFAT]], sink)``, each eager and at dispatch K = 4: every run's sink
+    rows byte for byte equal to the serial eager run's and to the dense
+    oracle, K1 and K2 once a batch and nothing else launched; tuples/s, ms a
+    batch and peak device memory of each. Returns the threaded eager run's
+    launches and the serial rows."""
+    total = THREADED_BATCHES * BATCH
+    rows, times, launch_of = {}, {}, {}
+    expect = dict.fromkeys(registry.KERNELS, 0)
+    expect.update(histogram=THREADED_BATCHES, lookup=THREADED_BATCHES)
+    for driver in ("serial", "threaded"):
+        for k in (None, THREADED_K):
+            parts, cb = collect_sink()
+            src = ysb.make_source(total)
+            if driver == "serial":
+                pipe = wt.Pipeline(src, ysb.make_ops(**ysb.bench_geometry(BATCH)),
+                                   wt.Sink(cb), batch_size=BATCH, dispatch=k or False)
+
+                def prepare(pipe=pipe, k=k):
+                    if k:
+                        pipe.chain.warm_scan(k, BATCH)
+            else:
+                pipe = wt.ThreadedPipeline(src, ysb_segments(ysb), wt.Sink(cb),
+                                           batch_size=BATCH, dispatch=k or False)
+                prepare = pipe.start
+            launches, dt, peak = counted_run(torch, registry, prepare, pipe.run)
+            rows[(driver, k)] = parts
+            if (driver, k) == ("serial", None):
+                # the first run against the oracle, every run against it byte for byte
+                if as_dict(np, parts) != ysb.dense_oracle(total):
+                    raise AssertionError("threaded_ysb serial: counts differ from the "
+                                         "dense oracle")
+                serial_bytes = flat_bytes(np, parts)
+            same = flat_bytes(np, parts) == serial_bytes
+            graphs = ({f"{kk}": g.replays for (_, kk, _), g in pipe.chain.graphs.items()}
+                      if driver == "serial" else
+                      [{f"{kk}": g.replays for (_, kk, _), g in c.graphs.items()}
+                       for c in pipe.chains])
+            log({"phase": "threaded_ysb", "driver": driver, "dispatch": k,
+                 "batches": THREADED_BATCHES, "batch": BATCH, "card": card,
+                 "windows": sum(len(p[0]) for p in parts), "run_s": dt,
+                 "tuples_per_s": total / dt,
+                 "ms_per_batch": dt / THREADED_BATCHES * 1e3, "launches": launches,
+                 "graph_replays": graphs, "peak_mib_above_start": peak / 2 ** 20,
+                 "rows_equal_serial_bytes": same})
+            if not same:
+                raise AssertionError(f"threaded_ysb {driver} K={k}: rows differ from the "
+                                     f"serial Pipeline's")
+            if launches != expect:
+                raise AssertionError(f"threaded_ysb {driver} K={k}: launches {launches}")
+            times[(driver, k)] = dt
+            launch_of[(driver, k)] = launches
+    log({"phase": "threaded_ysb_ratio", "card": card,
+         "threaded_over_serial_eager": times[("threaded", None)] / times[("serial", None)],
+         "threaded_over_serial_k4": (times[("threaded", THREADED_K)]
+                                     / times[("serial", THREADED_K)])})
+    if profile:
+        threaded_ysb_threads(torch, np, wt, ysb, registry, card, rows[("serial", None)])
+        for k in (None, THREADED_K):
+            tp = wt.ThreadedPipeline(ysb.make_source(total), ysb_segments(ysb),
+                                     wt.Sink(lambda v: None), batch_size=BATCH,
+                                     dispatch=k or False)
+            tp.start()
+            profile_run(torch, f"threaded_ysb_k{k or 1}", tp.run, times[("threaded", k)])
+    return launch_of[("threaded", None)], rows[("serial", None)]
+
+
+def threaded_ysb_threads(torch, np, wt, ysb, registry, card, serial_parts):
+    """Where the threaded eager YSB run's host time goes (``--profile``):
+    each stage thread's CPU seconds against its wall seconds, pinned,
+    unpinned and with one segment, and the serial Pipeline's process CPU
+    seconds; every threaded variant's rows byte for byte the serial
+    run's."""
+    total = THREADED_BATCHES * BATCH
+    for variant, segs, pin in (("two_segments_pinned", ysb_segments(ysb), True),
+                               ("two_segments_unpinned", ysb_segments(ysb), False),
+                               ("one_segment_pinned",
+                                [[op for seg in ysb_segments(ysb) for op in seg]], True)):
+        parts, cb = collect_sink()
+        tp = wt.ThreadedPipeline(ysb.make_source(total), segs, wt.Sink(cb),
+                                 batch_size=BATCH, pin=pin)
+        stages = {}
+
+        def timed(body, name, stages=stages):
+            def run(*a):
+                c0, w0 = time.thread_time(), time.perf_counter()
+                try:
+                    body(*a)
+                finally:
+                    stages[name] = {"cpu_s": time.thread_time() - c0,
+                                    "wall_s": time.perf_counter() - w0}
+            return run
+        tp._source_body = timed(tp._source_body, "source")
+        tp._sink_body = timed(tp._sink_body, "sink")
+        seg = tp._segment_body
+        tp._segment_body = lambda i, core, stream, seg=seg: timed(seg, f"seg{i}")(
+            i, core, stream)
+        c0 = time.process_time()
+        _, dt, _ = counted_run(torch, registry, tp.start, tp.run)
+        same = flat_bytes(np, parts) == flat_bytes(np, serial_parts)
+        log({"phase": "threaded_ysb_threads", "variant": variant, "card": card,
+             "run_s": dt, "ms_per_batch": dt / THREADED_BATCHES * 1e3,
+             "process_cpu_s": time.process_time() - c0, "stages": stages,
+             "rows_equal_serial_bytes": same})
+        if not same:
+            raise AssertionError(f"threaded_ysb_threads {variant}: rows differ from the "
+                                 f"serial Pipeline's")
+    parts, cb = collect_sink()
+    pipe = wt.Pipeline(ysb.make_source(total), ysb.make_ops(**ysb.bench_geometry(BATCH)),
+                       wt.Sink(cb), batch_size=BATCH)
+    c0 = time.process_time()
+    _, dt, _ = counted_run(torch, registry, lambda: None, pipe.run)
+    log({"phase": "threaded_ysb_threads", "variant": "serial", "card": card, "run_s": dt,
+         "ms_per_batch": dt / THREADED_BATCHES * 1e3,
+         "process_cpu_s": time.process_time() - c0})
+
+
+def record_ysb_phase(torch, np, wt, ysb, registry, card, want_parts, want_launches):
+    """The same YSB stream as AoS records (int32 ad_id, event_type, campaign,
+    ts: 16 B a record), packed once with ``pack_records`` from the
+    DeviceSource's columns, through ``RecordSource(key_field="campaign",
+    ts_field="ts")`` at framing_workers 1 and hardware_concurrency(),
+    prefetch 0 and 3, into the threaded YSB chain (and once at dispatch
+    K = 4): the rows byte for byte equal to threaded_ysb's, the same
+    launches; the framing ms a batch alone, the host-to-device bytes and
+    tuples/s of each form."""
+    from windflow_tpu_torch import native
+    total = THREADED_BATCHES * BATCH
+    dt_rec = np.dtype(YSB_RECORD)
+    t0 = time.perf_counter()
+    recs = []
+    for b in ysb.make_source(total).batches(BATCH):
+        h = b.to_host()
+        recs.append(native.pack_records({"ad_id": h["payload"]["ad_id"],
+                                         "event_type": h["payload"]["event_type"],
+                                         "campaign": h["key"], "ts": h["ts"]}, dt_rec))
+    pack_s = time.perf_counter() - t0
+    hc = native.hardware_concurrency()
+
+    def source(workers):
+        return wt.RecordSource(lambda: iter(recs), dt_rec, key_field="campaign",
+                               ts_field="ts", framing_workers=workers)
+    framing = {}
+    for workers in (1, hc):
+        src = source(workers)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in src._host_batches(BATCH))
+        framing[workers] = (time.perf_counter() - t0) / n * 1e3
+    log({"phase": "record_ysb_framing", "card": card, "record_bytes": dt_rec.itemsize,
+         "batch_mib": BATCH * dt_rec.itemsize / 2 ** 20, "pack_s": pack_s,
+         "hardware_concurrency": hc,
+         "framing_ms_per_batch": {f"{w}": ms for w, ms in framing.items()}})
+    first = None
+    for workers, prefetch, k in ((1, 0, None), (1, 3, None), (hc, 0, None), (hc, 3, None),
+                                 (hc, 3, THREADED_K)):
+        parts, cb = collect_sink()
+        src = source(workers)
+        tp = wt.ThreadedPipeline(src, ysb_segments(ysb), wt.Sink(cb), batch_size=BATCH,
+                                 prefetch=prefetch, dispatch=k or False)
+        launches, dt, peak = counted_run(torch, registry, tp.start, tp.run)
+        same = flat_bytes(np, parts) == flat_bytes(np, want_parts)
+        h2d = src.get_StatsRecords()[0].bytes_copied_hd
+        log({"phase": "record_ysb", "card": card, "framing_workers": workers,
+             "prefetch": prefetch, "dispatch": k, "batches": THREADED_BATCHES,
+             "run_s": dt, "tuples_per_s": total / dt,
+             "ms_per_batch": dt / THREADED_BATCHES * 1e3, "h2d_bytes": h2d,
+             "h2d_bytes_per_batch": h2d / THREADED_BATCHES, "launches": launches,
+             "peak_mib_above_start": peak / 2 ** 20, "rows_equal_threaded_ysb_bytes": same})
+        if not same:
+            raise AssertionError(f"record_ysb workers={workers} prefetch={prefetch} "
+                                 f"K={k}: rows differ from threaded_ysb's")
+        if launches != want_launches:
+            raise AssertionError(f"record_ysb: launches {launches}, threaded_ysb "
+                                 f"{want_launches}")
+        first = first or launches
+    return first
+
+
+def merge_graph(torch, wt, mode, total, keys, batch, cb):
+    """graph_windows' split and branches with a merge in ``mode`` straight
+    into a Sink: the merged stream itself, which a DETERMINISTIC merge
+    releases in one order whatever the threads do, and a DEFAULT merge in
+    a free interleave (so that one is compared sorted)."""
+    g = wt.PipeGraph(f"graph_{mode.name.lower()}", mode=mode, batch_size=batch)
+    mp = g.add_source(wt.DeviceSource(lambda i: {"v": (i % 97).to(torch.float32)},
+                                      total=total, num_keys=keys))
+    mp.split(lambda t: (t.id % 3).to(torch.int32), 3)
+    b0 = mp.select(0).chain(wt.Map(lambda t: {"v": t.v + 0.0}, name="b0"))
+    b1 = mp.select(1).chain(wt.Map(lambda t: {"v": t.v * 1.0}, name="b1"))
+    mp.select(2).add(wt.ReduceSink(lambda t: torch.ones((), dtype=torch.int32),
+                                   name="rest"))
+    b0.merge(b1).add_sink(wt.Sink(cb))
+    return g
+
+
+def threaded_graph_windows_phase(torch, np, wt, registry, card, serial_rows,
+                                 serial_launches, serial_s):
+    """graph_windows at full width with ``run(threaded=True)``, eager and at
+    dispatch K = 4: every window against the serial run's and the numpy
+    oracle (each window's sum exact; the emission order across batches
+    follows the release chunks, which the threads' interleave moves); the
+    launches exact per Win_Seq apply (K2, K3, K6 once, K6 once a flush
+    call) and K4 as the Ordering_Node called it, next to the serial run's;
+    ms a push against the serial graph; K4's count and the ReduceSink's
+    host-constant count equal the serial run's. Then the merge straight
+    into a Sink, serial and threaded: in DETERMINISTIC mode the merged
+    rows, in delivery order, equal the serial run's byte for byte; in
+    DEFAULT mode they equal once sorted, and equal the input's."""
+    from windflow_tpu_torch.ops import bitonic as B
+    want = graph_windows_oracle(np, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE)
+    pushes = GW_TOTAL // GW_BATCH
+    first = None
+    for k in (None, THREADED_K):
+        parts, cb = collect_sink()
+        g, mp, m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE,
+                                 GW_BATCH, cb, dispatch=k or False)
+        op = m.ops[0]
+        inner, flushes = op.flush, []
+
+        def flush(state, inner=inner, flushes=flushes):
+            flushes.append(1)
+            return inner(state)
+        op.flush = flush
+        res = {}
+        try:
+            launches, dt, peak = counted_run(torch, registry,
+                                             lambda g=g: g.start(threaded=True),
+                                             lambda g=g, res=res: res.update(g.wait_end()))
+        finally:
+            del op.flush
+        got = as_dict(np, parts)
+        node = m._ordering
+        calls, cuda_launches = k4_launches(B, node.networks)
+        applies = m._chain._push_count
+        expect = dict.fromkeys(registry.KERNELS, 0)
+        expect.update(lookup=applies, segment_fold=applies, ordering_merge=calls,
+                      masked_window_reduce=applies + len(flushes))
+        log({"phase": "threaded_graph_windows", "dispatch": k, "card": card,
+             "batch": GW_BATCH, "tuples": GW_TOTAL, "windows": len(got), "run_s": dt,
+             "ms_per_push": dt / pushes * 1e3, "serial_ms_per_push": serial_s / pushes * 1e3,
+             "tuples_per_s": GW_TOTAL / dt, "win_seq_applies": applies,
+             "flush_calls": len(flushes), "rest": int(res["rest"]), "k4_calls": calls,
+             "k4_cuda_launches": cuda_launches,
+             "launches": launches, "serial_launches": serial_launches,
+             "launches_equal_serial": launches == serial_launches,
+             "peak_mib_above_start": peak / 2 ** 20})
+        if got != want or got != serial_rows:
+            raise AssertionError(f"threaded_graph_windows K={k}: windows differ from the "
+                                 f"serial run's or the oracle")
+        if launches != expect:
+            raise AssertionError(f"threaded_graph_windows K={k}: launches {launches}, "
+                                 f"expected {expect}")
+        if launches["ordering_merge"] != serial_launches["ordering_merge"]:
+            raise AssertionError(f"threaded_graph_windows K={k}: K4 launched "
+                                 f"{launches['ordering_merge']} times, serially "
+                                 f"{serial_launches['ordering_merge']}")
+        if int(res["rest"]) != len(range(2, GW_TOTAL, 3)):
+            raise AssertionError(f"threaded_graph_windows K={k}: branch 2's count is wrong")
+        first = first or launches
+
+    def rows_cb(parts):
+        def cb(view):
+            if view is not None:
+                parts.append((view["id"], view["key"], view["ts"], view["payload"]["v"]))
+        return cb
+    i = np.arange(GW_TOTAL, dtype=np.int32)
+    i = i[i % 3 != 2]
+    want_cols = [i, i % WIN_KEYS, i, (i % 97).astype(np.float32)]
+    for mode in (wt.Mode.DETERMINISTIC, wt.Mode.DEFAULT):
+        merged = {}
+        for threaded in (False, True):
+            parts = []
+            g = merge_graph(torch, wt, mode, GW_TOTAL, WIN_KEYS, GW_BATCH, rows_cb(parts))
+            t0 = time.perf_counter()
+            g.run(threaded=threaded)
+            torch.cuda.synchronize()
+            merged[threaded] = ([np.concatenate(x) for x in zip(*parts)],
+                                time.perf_counter() - t0)
+        rows = {t: cols for t, (cols, _) in merged.items()}
+        if mode == wt.Mode.DEFAULT:
+            rows = {t: [c[np.argsort(cols[0], kind="stable")] for c in cols]
+                    for t, cols in rows.items()}
+        same = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                   for a, b in zip(rows[True], rows[False]))
+        ok = len(rows[True][0]) == len(i) and (
+            mode != wt.Mode.DEFAULT or all(a.dtype == b.dtype and np.array_equal(a, b)
+                                           for a, b in zip(rows[True], want_cols)))
+        log({"phase": "threaded_graph_merge", "mode": mode.name, "card": card,
+             "tuples": GW_TOTAL, "merged_rows": len(rows[True][0]),
+             "serial_s": merged[False][1], "threaded_s": merged[True][1],
+             "compared": "sorted" if mode == wt.Mode.DEFAULT else "delivery order",
+             "rows_equal_serial_bytes": same, "rows_as_input": ok})
+        if not (same and ok):
+            raise AssertionError(f"threaded_graph_merge {mode.name}: merged rows differ")
+    return first
+
+
+def handoff_phase(torch, wt):
+    """A batch written on a producer stream after a deliberate device sleep
+    (``torch.cuda._sleep``), handed to a consumer stream through
+    ``runtime/handoff.py`` and copied there: the copy's bytes equal what
+    the producer wrote, while the host spent far less than the sleep in
+    the hand-off (the wait is the consumer stream's, not the host's)."""
+    from windflow_tpu_torch.batch import Batch
+    from windflow_tpu_torch.runtime import handoff
+    n = BATCH
+    prod, cons = torch.cuda.Stream(), torch.cuda.Stream()
+    i = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = [i % 100, i, i // 10, i % 3 == 0, i.to(torch.float32) * 0.5]
+    # every allocation made before the sleep: a cudaMalloc could wait for it
+    with torch.cuda.stream(prod):
+        b = Batch(key=torch.zeros_like(i), id=torch.zeros_like(i), ts=torch.zeros_like(i),
+                  payload={"v": torch.zeros(n, dtype=torch.float32, device="cuda")},
+                  valid=torch.zeros(n, dtype=torch.bool, device="cuda"))
+    with torch.cuda.stream(cons):
+        copies = [torch.empty_like(t) for t in handoff.batch_tensors(b)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(prod):
+        torch.cuda._sleep(HANDOFF_SLEEP_CYCLES)
+        for t, w in zip(handoff.batch_tensors(b), want):
+            t.copy_(w)
+        item = handoff.send(b)
+    with torch.cuda.stream(cons):
+        got = handoff.receive(item)
+        for c, t in zip(copies, handoff.batch_tensors(got)):
+            c.copy_(t)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(_bits(torch, a), _bits(torch, w)) for a, w in zip(copies, want))
+    log({"phase": "handoff", "lanes": n, "sleep_cycles": HANDOFF_SLEEP_CYCLES,
+         "host_ms_to_queue_both_sides": host_ms, "wall_ms_to_result": wall_ms,
+         "bytes_equal_producer": same})
+    if not same:
+        raise AssertionError("handoff: the consumer read other bytes than the producer wrote")
+    if host_ms > wall_ms / 2:
+        raise AssertionError("handoff: the host waited for the producer's sleep")
+
+
+def ring_phase(card):
+    """``queue_selfbench``: tokens/s through one native SPSC ring between two
+    threads pinned to cores 0 and 1 of the card's host (the counterpart of
+    bench.py::bench_native_ring)."""
+    from windflow_tpu_torch import native
+    rates = [native.queue_selfbench(2_000_000, 1024) for _ in range(3)]
+    log({"phase": "ring", "card": card, "tokens": 2_000_000, "capacity": 1024,
+         "tokens_per_s": rates, "hardware_concurrency": native.hardware_concurrency(),
+         "library": native.build().name})
+    if min(rates) <= 0:
+        raise AssertionError("ring: the selfbench moved no tokens")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2559,18 +3009,29 @@ def main() -> int:
     windows_small_phase(wt, registry)
     ord_launches = ordering_phase(torch, np, wt, registry, card, args.profile)
     host_io_phase(torch, np, wt)
-    gw_launches = graph_windows_phase(torch, np, wt, registry)
+    gw_launches, gw_rows, gw_s = graph_windows_phase(torch, np, wt, registry)
     fold_row = keyed_fold_checks(torch)
     kcb_launches = keyed_cb_phase(torch, np, wt, registry, card, args.profile)
     ks_launches = keyed_stateful_phase(torch, np, wt, registry, card, args.profile)
     keyed_small_phase(torch, np, wt, registry)
+    ring_phase(card)
+    handoff_phase(torch, wt)
+    ty_launches, ty_rows = threaded_ysb_phase(torch, np, wt, ysb, registry, card,
+                                              args.profile)
+    ry_launches = record_ysb_phase(torch, np, wt, ysb, registry, card, ty_rows,
+                                   ty_launches)
+    del ty_rows
+    tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
+                                                gw_launches, gw_s)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
     paths = {"ysb": main_launches, "ysb_sum": sum_launches, "nexmark": nex_launches,
              "path_a": a_launches, "path_b": b_launches, "pipegraph_ysb": pg_launches,
              "ordering": ord_launches, "graph_windows": gw_launches,
-             "keyed_cb": kcb_launches, "keyed_stateful": ks_launches}
+             "keyed_cb": kcb_launches, "keyed_stateful": ks_launches,
+             "threaded_ysb": ty_launches, "record_ysb": ry_launches,
+             "threaded_graph_windows": tgw_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

@@ -320,6 +320,35 @@ def test_pipeline_dispatch_ysb_matches_jax_and_dispatch_off(monkeypatch):
     assert got == _ysb(wf, 4)
 
 
+def test_vmap_lanes_builds_a_host_constant_on_the_lanes_device(monkeypatch):
+    """A per-lane function that returns a host constant (``torch.ones(())``,
+    which the JAX graphs write ``jnp.ones(())``) comes back on the lanes'
+    device with no copy from the host, which a CUDA-graph capture refuses:
+    each value is made by ``torch.full`` there. Shown on the meta device,
+    with every copy out of the host made to raise."""
+    from windflow_tpu_torch.batch import vmap_lanes
+    real_to, real_full, filled = torch.Tensor.to, torch.full, []
+
+    def no_host_copy(self, *a, **k):
+        out = real_to(self, *a, **k)
+        if self.device.type == "cpu" and out.device.type != "cpu":
+            raise AssertionError("a copy from the host")
+        return out
+
+    def full(size, value, **k):
+        filled.append(value)
+        return real_full(size, value, **k)
+    monkeypatch.setattr(torch.Tensor, "to", no_host_copy)
+    monkeypatch.setattr(torch, "full", full)
+    lanes = torch.zeros(6, dtype=torch.int32, device="meta")
+    out = vmap_lanes(lambda t: {"n": torch.ones((), dtype=torch.int32),
+                                "v": torch.arange(3.0), "t": t + 1}, lanes)
+    assert [(o.device.type, tuple(o.shape), o.dtype) for o in (out["n"], out["v"], out["t"])] \
+        == [("meta", (6,), torch.int32), ("meta", (6, 3), torch.float32),
+            ("meta", (6,), torch.int32)]
+    assert filled == [1, 0.0, 1.0, 2.0]
+
+
 def test_device_cursor_step_on_the_cpu_is_the_eager_step():
     src = tysb.make_source(4 * 256, device="cpu")
     chain = wt.CompiledChain(tysb.make_ops(device="cpu"), src.payload_spec(),

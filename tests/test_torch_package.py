@@ -39,7 +39,8 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.parallel.emitters", "windflow_tpu_torch.ops.compaction",
            "windflow_tpu_torch.shipper", "windflow_tpu_torch.stats",
            "windflow_tpu_torch.benchmarks.keyed", "windflow_tpu_torch.operators.accumulator",
-           "windflow_tpu_torch.operators.flatmap"]
+           "windflow_tpu_torch.operators.flatmap", "windflow_tpu_torch.native",
+           "windflow_tpu_torch.runtime.threaded", "windflow_tpu_torch.runtime.handoff"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -106,13 +107,18 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item (the threaded
-    driver, item 10); item 9's operators build."""
+    """What is still unported raises, naming its ROADMAP item (supervision,
+    item 12; the threaded driver's fault injection, item 12, and control
+    plane, item 15); item 9's operators build."""
     g = wt.PipeGraph(device="cpu")
-    g.add_source(wt.Source(lambda i: {"v": i}, total=10, device="cpu")).add(
-        wt.ReduceSink(lambda t: t.v, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        g.run(threaded=True)
+    src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
+    g.add_source(src).add(wt.ReduceSink(lambda t: t.v, device="cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        g.run_supervised()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        wt.ThreadedPipeline(src, [], None, device="cpu", faults=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        wt.ThreadedPipeline(src, [], None, device="cpu", control=True)
     assert isinstance(wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2)
                       .withDevice("cpu").build(), wt.FlatMap)
     assert wt.Key_FFAT(lambda t: t.v, torch.maximum,

@@ -4,7 +4,10 @@ The same stream-processing model as the JAX package (fixed-capacity SoA
 micro-batches, functional operator state, PipeGraph/MultiPipe dataflow graphs
 with split, merge and DETERMINISTIC ordering), run eagerly by PyTorch on an NVIDIA
 H100, or as CUDA-graph replays of captured steps under scan dispatch
-(``Pipeline(dispatch=K)``) and in the bench step. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+(``Pipeline(dispatch=K)``) and in the bench step, by one host thread or, in
+``ThreadedPipeline`` and ``PipeGraph.run(threaded=True)``, by one host thread
+a stage joined by the native SPSC rings (``native/``), each on a CUDA stream
+of its own. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
@@ -23,10 +26,11 @@ from .device import resolve_device
 from .operators import (Accumulator, Basic_Operator, BatchMap, Compact, DeviceSource,
                         Distinct, FFATState, Filter, FilterMap, FlatMap, GeneratorSource,
                         GFFATState, Iterable, Key_Farm, Key_FFAT, KeyBy, KeyedMap, Map,
-                        Nested_Farm, Pane_Farm, ReduceSink, Sink, Source, StreamTableJoin,
-                        TopN, Win_Farm, Win_MapReduce, Win_Seq, Win_SeqFFAT, WinSeqState,
-                        WindowSpec)
-from .runtime import CompiledChain, MultiPipe, Pipeline, PipeGraph, builders
+                        Nested_Farm, Pane_Farm, RecordSource, ReduceSink, Sink, Source,
+                        StreamTableJoin, TopN, Win_Farm, Win_MapReduce, Win_Seq,
+                        Win_SeqFFAT, WinSeqState, WindowSpec, prefetch_to_device)
+from .runtime import (CompiledChain, MultiPipe, Pipeline, PipeGraph, ThreadedPipeline,
+                      builders)
 from .runtime.async_sink import AsyncResultShipper, ShippedResult
 from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Builder,
                                KeyFarm_Builder, KeyFFAT_Builder, Map_Builder,

@@ -181,10 +181,25 @@ def tuple_refs(batch: Batch) -> TupleRef:
 
 def vmap_lanes(fn: Callable, lanes: torch.Tensor, *more: Any) -> Any:
     """``torch.func.vmap(fn)(lanes, *more)`` with every output on ``lanes``'
-    device (a constant built on the CPU inside ``fn`` comes back expanded to
-    ``[C]`` on the CPU otherwise)."""
+    device. A constant that ``fn`` builds on the host (``torch.ones(())``)
+    comes back from ``vmap`` expanded to ``[C, ...]`` on the CPU; it is
+    rebuilt on the lanes' device with ``torch.full``, because a copy from
+    the host would be refused inside a CUDA-graph capture."""
     out = torch.func.vmap(fn)(lanes, *more)
-    return tree_map(lambda t: torch.as_tensor(t).to(lanes.device), out)
+    return tree_map(lambda t: _on_lanes(torch.as_tensor(t), lanes.device), out)
+
+
+def _on_lanes(t: torch.Tensor, device) -> torch.Tensor:
+    if t.device == device:
+        return t
+    if t.dim() and t.shape[0] and t.stride(0) == 0:   # one value per lane: a constant
+        base = t[0]
+        vals = [torch.full((), v, dtype=t.dtype, device=device)
+                for v in base.reshape(-1).tolist()]
+        const = (torch.stack(vals).reshape(base.shape) if vals
+                 else torch.empty(base.shape, dtype=t.dtype, device=device))
+        return const.expand(t.shape)
+    return t.to(device)
 
 
 def map_tuples(fn: Callable, batch: Batch) -> Any:
@@ -209,25 +224,27 @@ def hash_key_to_slot(key, num_slots: int):
     routing contract applied at ingest. Deterministic across runs (unlike
     Python's salted ``hash``), and bit-identical to the JAX package: strings
     and bytes hash by 32-bit FNV-1a, integers by a Knuth multiply in uint64
-    wraparound. The JAX package's native C array pass computes the same
-    arithmetic; here numpy does."""
+    wraparound. An array of ints, bytes or strings goes through one native C
+    pass (``native/csrc/ingest.cpp``) with the same arithmetic."""
     if isinstance(key, (str, bytes)):
         return _fnv1a(key) % num_slots
     if isinstance(key, (int, np.integer)):
         k = int(key) & 0xFFFFFFFFFFFFFFFF
         return int((k * 2654435761) % (1 << 64) % num_slots)
     arr = np.asarray(key)
-    if arr.dtype.kind in "USO":                        # strings / bytes / objects
+    if arr.dtype.kind not in "USOiu":
+        raise TypeError(
+            f"hash_key_to_slot: keys must be ints, strings, or bytes, got dtype "
+            f"{arr.dtype} (float keys would silently truncate and merge)")
+    if arr.ndim == 0:                                  # one key held in an array
+        return np.asarray(hash_key_to_slot(arr.item(), num_slots), np.int32)
+    if arr.dtype.kind == "O":                          # Python objects, each hashed alone
         uniq, inv = np.unique(arr.ravel(), return_inverse=True)
         slots = np.asarray([hash_key_to_slot(u, num_slots) for u in uniq.tolist()],
                            np.int32)
         return slots[inv].reshape(arr.shape)
-    if arr.dtype.kind not in "iu":
-        raise TypeError(
-            f"hash_key_to_slot: keys must be ints, strings, or bytes, got dtype "
-            f"{arr.dtype} (float keys would silently truncate and merge)")
-    return ((arr.astype(np.uint64) * np.uint64(2654435761)) % np.uint64(num_slots)
-            ).astype(np.int32)
+    from .native import hash_keys_native
+    return hash_keys_native(arr, num_slots)
 
 
 def _fnv1a(s) -> int:

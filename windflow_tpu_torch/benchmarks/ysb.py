@@ -160,4 +160,5 @@ def dense_oracle(total: int, value: str = "count", win_len: int = WIN_LEN) -> di
     weights = None if value == "count" else ad.astype(np.int64)
     counts = np.bincount(cell, weights=weights, minlength=N_CAMPAIGNS * n_w)
     nz = np.nonzero(np.bincount(cell, minlength=N_CAMPAIGNS * n_w))[0]
-    return {(int(c // n_w), int(c % n_w)): int(counts[c]) for c in nz}
+    return dict(zip(zip((nz // n_w).tolist(), (nz % n_w).tolist()),
+                    counts[nz].astype(np.int64).tolist()))

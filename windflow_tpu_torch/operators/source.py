@@ -14,8 +14,14 @@ Counterpart of ``windflow_tpu/operators/source.py`` (reference ``wf/source.hpp``
   (pinned memory, ``non_blocking``, on a CUDA device). Arbitrary keys hash
   into slots with ``hash_key_to_slot``.
 
-``RecordSource`` and the prefetching ingest thread are not ported (ROADMAP
-Queue 1 item 10b).
+- :class:`RecordSource`: a host iterator of numpy structured arrays (AoS
+  records, the framing of network and disk streams), transposed to SoA
+  columns by one native pass (``native/``), optionally sharded over
+  ``framing_workers`` threads.
+- :func:`prefetch_to_device` / :meth:`SourceBase.batches_prefetched`: a
+  worker thread frames and copies batches ahead of the consumer, on a CUDA
+  stream of its own, and hands each over behind an event
+  (``runtime/handoff.py``).
 
 The index is ``int32`` (:data:`CTRL_DTYPE`), exactly as in the JAX package:
 index arithmetic in user functions (YSB's ``(i * 7919) % N_ADS``) wraps at
@@ -25,6 +31,7 @@ index arithmetic in user functions (YSB's ``(i * 7919) % N_ADS``) wraps at
 from __future__ import annotations
 
 import inspect
+import time
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
@@ -40,6 +47,83 @@ from .base import Basic_Operator
 _I32_MAX = torch.iinfo(CTRL_DTYPE).max
 
 
+def prefetch_to_device(batches: Iterator[Batch], depth: int = 3, pause_event=None,
+                       device=None) -> Iterator[Batch]:
+    """Overlapped ingest: a worker thread (``wf-prefetch``) pulls ``batches``
+    (each ``next`` frames a batch on the host and copies it to the card, or
+    generates it there) and keeps up to ``depth`` of them ready in a bounded
+    queue, so the copy of batch N+1 overlaps the work on batch N. The
+    reference GPU operators' pinned-buffer ``cudaMemcpyAsync`` and double
+    buffering (``wf/map_gpu_node.hpp:224-340``) at the source boundary.
+
+    On the card (``device``, None = ``"cuda"``) the worker runs on a CUDA
+    stream of its own: its copies come from pinned memory on that stream,
+    and each batch is handed over behind an event that the consumer's
+    stream waits on (``runtime/handoff.py``). An exception in the worker is
+    raised at the consumer. While ``pause_event`` (a ``threading.Event``) is
+    set the worker pulls nothing new. Closing the generator early, or
+    exhausting it, stops the worker."""
+    import queue
+    import threading
+    from contextlib import nullcontext
+    from ..device import resolve_device
+    from ..runtime.handoff import receive, send
+
+    dev = resolve_device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+    END, ERR = object(), object()
+    stop = threading.Event()        # the consumer is gone: the worker exits
+
+    def put_guarded(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                it = iter(batches)
+                while True:
+                    while (pause_event is not None and pause_event.is_set()
+                           and not stop.is_set()):
+                        time.sleep(0.001)
+                    if stop.is_set():
+                        return
+                    try:
+                        b = next(it)
+                    except StopIteration:
+                        break
+                    if not put_guarded(send(b)):
+                        return
+            put_guarded(END)
+        except BaseException as e:      # noqa: BLE001 — raised at the consumer
+            put_guarded((ERR, e))
+
+    threading.Thread(target=worker, daemon=True, name="wf-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is END:
+                return
+            if item[0] is ERR:
+                raise item[1]
+            yield receive(item)
+    finally:
+        # on exhaustion and on an early close alike: the worker stops, and
+        # the batches still queued are dropped
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+
+
 class SourceBase(Basic_Operator):
     routing = routing_modes_t.NONE
 
@@ -47,6 +131,16 @@ class SourceBase(Basic_Operator):
         """The stream as device batches. ``cursor`` is a resume token
         returned by :meth:`cursor`."""
         raise NotImplementedError
+
+    def batches_prefetched(self, batch_size: int = DEFAULT_BATCH_SIZE, depth: int = 3,
+                           pause_event=None) -> Iterator[Batch]:
+        """The stream of :meth:`batches`, framed and copied (a host source)
+        or generated (a device source) in a worker thread up to ``depth``
+        batches ahead of the consumer (:func:`prefetch_to_device`)."""
+        host_iter = getattr(self, "_host_batches", None)
+        src = ((self._to_device(hb) for hb in host_iter(batch_size)) if host_iter
+               else self.batches(batch_size))
+        return prefetch_to_device(src, depth, pause_event=pause_event, device=self.device)
 
     def out_capacity(self, batch_size: int) -> int:
         """Capacity of emitted batches (a loop source expands by its fan-out)."""
@@ -116,7 +210,8 @@ class SourceBase(Basic_Operator):
 
     def _to_device(self, host: dict) -> Batch:
         """One host-to-device copy of a framed batch: from pinned memory,
-        ``non_blocking``, on a CUDA device; plain tensors on the CPU."""
+        ``non_blocking``, on the current stream of a CUDA device; plain
+        tensors on the CPU."""
         cuda = self.device.type == "cuda"
 
         def put(a):
@@ -265,6 +360,84 @@ class GeneratorSource(SourceBase):
             else:
                 payload, key, ts = item, None, None
             n = np.shape(tree_leaves(payload)[0])[0]
+            nid = self._next_id          # counters move before the yield
+            self._next_id += n
+            yield self._frame(payload, key, ts, n, batch_size, nid)
+
+    def batches(self, batch_size: int = DEFAULT_BATCH_SIZE, cursor=None):
+        for hb in self._host_batches(batch_size, cursor=cursor):
+            yield self._to_device(hb)
+
+
+class RecordSource(SourceBase):
+    """AoS record ingest: ``it_factory()`` yields numpy *structured arrays*
+    (one record a row, the framing of network and disk streams), each
+    transposed to SoA columns in one native pass
+    (``native/csrc/ingest.cpp::wf_unpack_records``, the counterpart of the
+    reference's per-tuple Source/Shipper copy, ``wf/source.hpp:184``).
+    Control fields come from named record fields: ``key_field`` (hashed
+    into ``[0, num_keys)`` when ``num_keys`` is set, else integer slots) and
+    ``ts_field`` (default: the tuple index). The other fields are the
+    payload, numeric or bool only. ``framing_workers > 1`` shards the
+    transpose over threads (``native.parallel_unpack``); None means
+    ``hardware_concurrency()``. A factory with a ``from_batch`` parameter
+    resumes from a :meth:`cursor` token without replaying."""
+
+    def __init__(self, it_factory: Callable[[], Iterator[np.ndarray]],
+                 record_dtype: np.dtype, *, key_field: Optional[str] = None,
+                 ts_field: Optional[str] = None, num_keys: Optional[int] = None,
+                 name: str = "record_source", parallelism: int = 1,
+                 framing_workers: Optional[int] = 1, device=None):
+        super().__init__(name, parallelism, device)
+        self.it_factory = it_factory
+        self.framing_workers = framing_workers
+        self.dtype = np.dtype(record_dtype)
+        for role, fname in (("key_field", key_field), ("ts_field", ts_field)):
+            if fname is not None and fname not in (self.dtype.names or ()):
+                raise ValueError(f"{name}: {role}='{fname}' is not a field of "
+                                 f"{self.dtype} (fields: {self.dtype.names})")
+        self.key_field = key_field
+        self.ts_field = ts_field
+        self.num_keys = num_keys
+        self.payload_fields = [f for f in self.dtype.names
+                               if f not in (key_field, ts_field)]
+        if not self.payload_fields:
+            raise ValueError(f"{name}: no payload fields left in {self.dtype}")
+        for f in self.payload_fields:
+            fdt = self.dtype.fields[f][0]
+            base = fdt.subdtype[0] if fdt.subdtype else fdt
+            if base.kind not in "biufc":
+                raise TypeError(
+                    f"{name}: payload field '{f}' has dtype {base}: only numeric or "
+                    f"bool fields can become device tensors (route string fields "
+                    f"through key_field=, or drop them from the record dtype)")
+
+    def payload_spec(self):
+        spec = {}
+        for f in self.payload_fields:
+            fdt = self.dtype.fields[f][0]
+            base, shape = (fdt.subdtype if fdt.subdtype else (fdt, ()))
+            dtype = torch.from_numpy(np.zeros(0, base)).dtype
+            spec[f] = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        return spec
+
+    def _host_batches(self, batch_size: int = DEFAULT_BATCH_SIZE, cursor=None):
+        from ..native import parallel_unpack, unpack_records
+        if self.framing_workers == 1:
+            unpack = unpack_records
+        else:
+            unpack = lambda r: parallel_unpack(r, workers=self.framing_workers)  # noqa: E731
+        skip, it = self._open_seek(cursor)
+        for i, rec in enumerate(it):
+            if i < skip:        # replay skip: no unpack, no framing
+                continue
+            self._emitted += 1
+            rec = np.asarray(rec, self.dtype)
+            n = rec.shape[0]
+            cols = unpack(rec)
+            key = self._ingest_key(cols[self.key_field]) if self.key_field else None
+            ts = cols[self.ts_field] if self.ts_field else None
+            payload = {f: cols[f] for f in self.payload_fields}
             nid = self._next_id          # counters move before the yield
             self._next_id += n
             yield self._frame(payload, key, ts, n, batch_size, nid)

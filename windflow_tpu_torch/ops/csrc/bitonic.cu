@@ -57,6 +57,7 @@
 // once and the number of launches of a call; the Python wrapper counts one
 // launch per call.
 #include <cooperative_groups.h>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -377,9 +378,10 @@ static cudaLaunchConfig_t wf_bt_config(unsigned blocks, int cluster, cudaStream_
 }
 
 // Opt the kernel into 64 KB of shared memory and find the largest cluster
-// (8, 4, 2 or 1 CTAs) that the card schedules; an error if none.
-static int wf_bt_setup() {
-    if (wf_bt_cluster_max) return (int)cudaSuccess;
+// (8, 4, 2 or 1 CTAs) that the card schedules; an error if none. Once a
+// process (std::call_once: stage threads may make their first call at once);
+// every later call returns the first one's result.
+static int wf_bt_setup_once() {
     cudaError_t e = cudaFuncSetAttribute(
         wf_bitonic_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, WF_BT_SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -394,6 +396,13 @@ static int wf_bt_setup() {
     }
     if (wf_bt_cluster_max) return (int)cudaSuccess;
     return (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+}
+
+static int wf_bt_setup() {
+    static std::once_flag once;
+    static int rc = 0;
+    std::call_once(once, [] { rc = wf_bt_setup_once(); });
+    return rc;
 }
 
 // CTAs of one cluster and lanes of one cluster's span, for rows of n lanes

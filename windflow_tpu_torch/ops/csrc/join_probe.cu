@@ -40,6 +40,8 @@
 //     probes the device-memory table through L2. The wrapper picks the form
 //     from M; a refused shared-memory size is an error, not a fallback.
 // Three launches a call (memset, build, probe); the wrapper counts one.
+#include <mutex>
+
 #include "common.cuh"
 
 constexpr int WF_PROBE_THREADS = 512;
@@ -155,6 +157,7 @@ wf_probe_kernel(const unsigned long long* __restrict__ table, int log_m,
 }
 
 static size_t wf_probe_smem_attr = 0;   // the largest size opted into so far
+static std::mutex wf_probe_smem_lock;   // stage threads may raise it at once
 
 // keys: int32 [K]; vals: 4-byte words [K]; probe: int32 [C]; valid, hit:
 // bool [C]; out: 4-byte words [C]; table: scratch of 2^log_m 8-byte slots,
@@ -184,11 +187,14 @@ WF_EXPORT int wf_join_probe(const int* keys, const void* vals, const int* probe,
     void (*kernel)(const unsigned long long*, int, const uint32_t*, const int*,
                    const unsigned char*, uint32_t*, unsigned char*, long long, bool) =
         smem ? &wf_probe_kernel<true> : &wf_probe_kernel<false>;
-    if (smem && bytes > wf_probe_smem_attr) {
-        e = cudaFuncSetAttribute(wf_probe_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-        wf_probe_smem_attr = bytes;
+    if (smem) {
+        std::lock_guard<std::mutex> hold(wf_probe_smem_lock);
+        if (bytes > wf_probe_smem_attr) {
+            e = cudaFuncSetAttribute(wf_probe_kernel<true>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            if (e != cudaSuccess) return (int)e;
+            wf_probe_smem_attr = bytes;
+        }
     }
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WF_PROBE_THREADS,

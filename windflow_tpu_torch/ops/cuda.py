@@ -7,6 +7,11 @@ parallel (one ``nvcc`` process each, all started together). A library's file
 name carries a hash of its source and flags, so an edited source rebuilds and a
 built one is reused. Nothing here runs at import: the CPU tests import every
 module of the port on a machine without ``nvcc``.
+
+Safe under threads: one lock covers the build and the binding, and a build
+writes to a temporary name of its own process and thread. The kernels' own
+one-time setup on the device (shared-memory opt-ins, K4's cluster occupancy
+query) is guarded inside ``csrc/`` (``std::call_once`` or a mutex).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict = {}
 _fns: dict = {}
+_lock = threading.RLock()       # build_all, and function's build and bind
 
 
 def _nvcc() -> str:
@@ -49,6 +56,11 @@ def build_all() -> dict:
     """Compile every source whose library is missing, all at once. Returns
     ``{stem: {"seconds": s, "ptxas": text}}`` for the sources built now;
     raises with nvcc's output if any build fails."""
+    with _lock:
+        return _build_all()
+
+
+def _build_all() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     t0 = time.perf_counter()
@@ -56,7 +68,7 @@ def build_all() -> dict:
         out = _target(src)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         jobs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True),
@@ -79,17 +91,21 @@ def function(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     needed; bound once and cached. Every entry point returns
     ``cudaGetLastError()`` as an int."""
     fn = _fns.get((stem, symbol))
-    if fn is None:
-        lib = _libs.get(stem)
-        if lib is None:
-            target = _target(CSRC / f"{stem}.cu")
-            if not target.exists():
-                build_all()
-            lib = _libs[stem] = ctypes.CDLL(str(target))
-        fn = getattr(lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _fns[(stem, symbol)] = fn
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _fns.get((stem, symbol))
+        if fn is None:
+            lib = _libs.get(stem)
+            if lib is None:
+                target = _target(CSRC / f"{stem}.cu")
+                if not target.exists():
+                    _build_all()
+                lib = _libs[stem] = ctypes.CDLL(str(target))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[(stem, symbol)] = fn
     return fn
 
 

@@ -9,6 +9,11 @@ a capture counted are taken back and added once per replay
 (:func:`add_launches`, ``runtime/graphs.py``). The JAX registry's impl selection (``WF_KERNEL_IMPL``,
 tuning-cache winners) is not ported: a CUDA tensor always goes to the kernel.
 
+The counts are safe under threads: every update takes one lock, and a
+capture collects only the launches its own thread makes while it captures
+(:func:`collect`), so another stage thread's launches during a capture are
+neither put into the graph's per-replay counts nor taken off the totals.
+
 An entry whose ``replaces`` is None is a helper kernel that replaces no TPU
 kernel (``segment_fold_float``: the fixed-order float fold). It is counted
 the same way; :func:`tpu_kernels` leaves it out.
@@ -16,8 +21,10 @@ the same way; :func:`tpu_kernels` leaves it out.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+import threading
+from typing import Dict, Iterator, Optional
 
 
 @dataclasses.dataclass
@@ -53,21 +60,47 @@ def tpu_kernels() -> dict:
     return {n: k for n, k in KERNELS.items() if k.replaces is not None}
 
 
+_lock = threading.Lock()
+_local = threading.local()      # .collector: the capture's counts, or None
+
+
 def count_launch(name: str) -> None:
-    KERNELS[name].launches += 1
+    add_launches({name: 1})
 
 
 def add_launches(counts: dict) -> None:
     """Add ``{name: n}`` to the counts: the launches of one CUDA-graph replay,
-    recorded at capture (a replay calls no wrapper)."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    recorded at capture (a replay calls no wrapper). Inside :func:`collect`
+    on this thread they go to the collector instead."""
+    sink = getattr(_local, "collector", None)
+    if sink is not None:
+        for name, n in counts.items():
+            sink[name] = sink.get(name, 0) + n
+        return
+    with _lock:
+        for name, n in counts.items():
+            KERNELS[name].launches += n
+
+
+@contextlib.contextmanager
+def collect() -> Iterator[Dict[str, int]]:
+    """The launches this thread makes inside the block, as ``{name: n}``,
+    kept out of the global counts (a capture's launches run at each replay,
+    not now). Other threads count as usual meanwhile."""
+    prev = getattr(_local, "collector", None)
+    _local.collector = counts = {}
+    try:
+        yield counts
+    finally:
+        _local.collector = prev
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _lock:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _lock:
+        return {name: k.launches for name, k in KERNELS.items()}

@@ -20,6 +20,8 @@ The pieces here are host-side:
   *linger* bounds how long a partial group may wait in a polling driver. The
   port's ``Pipeline`` pulls from a synchronous source and never waits: its
   partial group exists only at EOS (``drain``) or at a capacity switch.
+- :class:`GroupRunner`: one driver's loop over a chain, feeding the
+  accumulator and running each group with :func:`fused_push`.
 - :func:`fused_push` and :func:`build_k_ladder`.
 
 Not ported, and stated rather than stubbed: the control plane's
@@ -203,3 +205,46 @@ class MicrobatchAccumulator:
         """Restore: drop buffered batches (replay re-feeds them)."""
         self._buf = []
         self._t0 = None
+
+
+class GroupRunner:
+    """A driver's dispatch over one chain (``Pipeline.run``, a threaded
+    stage): batches of the chain's capacity are gathered into groups of up
+    to K (``cfg`` None: one a group) and run with :func:`fused_push`; a
+    batch of another capacity runs eagerly after the group in hand, because
+    no graph of its shape was captured. ``emit(out)`` takes each output in
+    order. A chain without operators (a pipe that only splits or merges)
+    passes each batch on alone."""
+
+    def __init__(self, chain, cfg: Optional[DispatchConfig], emit):
+        self.chain = chain
+        self.emit = emit
+        self.acc = (MicrobatchAccumulator(cfg.k, cfg.linger_s)
+                    if cfg is not None and cfg.k > 1 and chain.ops else None)
+
+    def _run(self, group) -> None:
+        if group:
+            for out in fused_push(self.chain, group):
+                self.emit(out)
+
+    def feed(self, batch) -> None:
+        if self.acc is None:
+            self._run([batch])
+        elif batch.capacity != self.chain.capacity:
+            self._run(self.acc.drain())
+            self._run([batch])
+        else:
+            for group in self.acc.feed(batch):
+                self._run(group)
+
+    def idle(self) -> None:
+        """The input ran dry: a partial group past its linger goes out short."""
+        if self.acc is not None and self.acc.expired():
+            self._run(self.acc.take())
+
+    def finish(self) -> None:
+        """EOS: the partial tail, then the chain's flush."""
+        if self.acc is not None:
+            self._run(self.acc.drain())
+        for out in self.chain.flush():
+            self.emit(out)

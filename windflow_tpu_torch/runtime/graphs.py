@@ -20,9 +20,14 @@ so one host call launches every kernel of the step.
   ``consume`` and the next replay never share memory. That costs one
   device copy of every output a replay.
 - **Launch counts.** ``ops/registry.py`` counts on the host, where a kernel's
-  wrapper launches it, and a replay calls no wrapper. The counts a capture
-  made are taken back and kept as the graph's :attr:`StepGraph.launches`,
-  which every replay adds once.
+  wrapper launches it, and a replay calls no wrapper. The launches the
+  capturing thread makes are collected apart (``registry.collect``, so
+  another thread's launches meanwhile stay its own) and kept as the graph's
+  :attr:`StepGraph.launches`, which every replay adds once.
+- **Threads.** A capture runs in global capture mode and synchronizes the
+  device on entry: the threaded drivers make every capture before their
+  stage threads start (``runtime/threaded.py``), and a stage thread only
+  replays.
 
 What a capture needs beforehand, and the caller's part: every kernel of the
 step built and loaded, and the one-time settings made at a kernel's first
@@ -148,16 +153,13 @@ class StepGraph:
         self._template = states
         self._static = leaves(states)
         self.inputs = inputs
-        before = registry.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with registry.collect() as counted, torch.cuda.graph(self.graph):
             new_states, outs = fn(rebuild(states, self._static), inputs)
             _load(self._static, leaves(new_states), "captured step's new state")
         self._outs = outs
-        after = registry.launch_counts()
         #: kernel launches of one replay, by registry name
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        registry.add_launches({k: -n for k, n in self.launches.items()})
+        self.launches = {k: n for k, n in counted.items() if n}
         self.replays = 0
 
     def run(self, states: Any) -> Tuple[Any, Any]:

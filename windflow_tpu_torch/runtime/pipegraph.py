@@ -26,13 +26,26 @@ MultiPipes (split and merge edges) is driven by a host push loop:
 
 Scan dispatch (``dispatch=``) buffers root batches in arrival order and runs
 each root's run as one ``push_many``; downstream hops stay per batch, in the
-per-batch order. Not ported: the threaded driver ``run(threaded=True)``
-(ROADMAP Queue 1 item 10b), ``run_supervised`` (item 12), ``monitoring=``
+per-batch order.
+
+The threaded driver (``run(threaded=True)``): one host thread a MultiPipe and
+one a source, one native SPSC ring a dataflow edge (:meth:`PipeGraph._iter_edges`,
+``queue_capacity=``), a merge polling its rings round-robin. Each thread runs
+under a CUDA stream of its own and batches cross edges only through
+``runtime/handoff.py``. DETERMINISTIC merges go through the same
+Ordering_Node as the serial driver; splits deliver through ``split_masks``;
+each pipe thread dispatches with its own accumulator
+(``runtime/dispatch.py::GroupRunner``). ``start(threaded=True)`` builds every
+pipe's chain and captures every graph a thread may replay before any thread
+starts.
+
+Not ported: ``run_supervised`` (ROADMAP Queue 1 item 12), ``monitoring=``
 and ``trace=`` (item 16), ``control=`` (item 15).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, Optional
 
 import torch
@@ -262,7 +275,7 @@ class PipeGraph:
 
     def __init__(self, name: str = "pipegraph", mode: Mode = Mode.DEFAULT,
                  batch_size: int = None, monitoring=None, control=None,
-                 trace=None, dispatch=None, device=None):
+                 trace=None, dispatch=None, device=None, queue_capacity=8):
         _refuse(monitoring, "monitoring", "16")
         _refuse(trace, "trace", "16")
         _refuse(control, "control", "15")
@@ -274,6 +287,10 @@ class PipeGraph:
         self.batch_size = batch_size
         self._dispatch_arg = dispatch
         self._dispatch = None
+        #: the threaded driver's ring capacity a edge (one int, a dict by edge
+        #: label or index, or ``(label, index) -> int``)
+        self.queue_capacity = queue_capacity
+        self._threaded = False
         self._roots: List[MultiPipe] = []
         self._merged_roots: List[MultiPipe] = []
         self._nodes = {}
@@ -295,22 +312,27 @@ class PipeGraph:
         return mp
 
     def run(self, threaded: bool = False):
-        """Drive the graph to completion with the serial push driver."""
-        if threaded:
-            raise NotImplementedError(
-                "PipeGraph.run(threaded=True): the threaded driver and its SPSC "
-                "rings are not ported yet (ROADMAP Queue 1 item 10, 10b)")
-        self.start()
+        """Drive the graph to completion: the serial push driver, or with
+        ``threaded`` one host thread a MultiPipe and a source."""
+        self.start(threaded=threaded)
         return self.wait_end()
 
     def run_supervised(self, **kw):
         raise NotImplementedError("PipeGraph.run_supervised is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
 
-    def start(self):
+    def start(self, threaded: bool = False):
+        """Resolve the batch size and dispatch and make the roots' programs
+        ready. ``threaded``: :meth:`wait_end` runs the threaded driver, and
+        every pipe's chain is built and every graph its thread may replay
+        captured now (:meth:`_prepare_threaded`)."""
         if self.batch_size is None:
             self.batch_size = resolve_batch_hint(self._operators) or DEFAULT_BATCH_SIZE
         self._started = True
+        self._threaded = threaded
+        if threaded:
+            self._prepare_threaded()
+            return
         if self._dispatch is None:
             cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
             if cfg is not None:
@@ -330,6 +352,8 @@ class PipeGraph:
             return self._results()
         if not self._started:
             self.start()
+        if self._threaded:
+            return self._run_threaded()
         live = [(mp, mp.source.batches(self.batch_size)) for mp in self._roots]
         pos = 0
         # scan dispatch: batches buffer in ARRIVAL order across all roots and
@@ -649,6 +673,185 @@ class PipeGraph:
                     self._push(merged, piece)
             if all(id(p) in self._exhausted for p in merged.merge_inputs):
                 self._exhaust(merged)
+
+    # -- threaded driver ------------------------------------------------------------
+
+    def _iter_edges(self):
+        """Dataflow edges of the threaded driver in ring-creation order:
+        ``(producer, consumer, label, index)``, ``producer`` None for a
+        source's edge. The one enumeration of the rings, read by
+        :meth:`_run_threaded` (and by a validator of ring capacities)."""
+        pipes = self._all_pipes()
+        pipe_idx = {id(p): i for i, p in enumerate(pipes)}
+        n = 0
+        for p in pipes:
+            if p.source is not None:
+                yield None, p, f"src->{pipe_idx[id(p)]}", n
+                n += 1
+            for b in p.split_branches:
+                yield p, b, f"{pipe_idx[id(p)]}->{pipe_idx[id(b)]}", n
+                n += 1
+            for m in p._outputs_to:
+                yield p, m, f"{pipe_idx[id(p)]}->{pipe_idx[id(m)]}", n
+                n += 1
+
+    def _prepare_threaded(self):
+        """Before any thread starts: each pipe's chain built at the capacity
+        its input has (a root: its source's; a split branch: its parent's
+        output; a DETERMINISTIC merge: ``batch_size``, the Ordering_Node's
+        re-slicing; a DEFAULT merge: its first input's output), each merge's
+        Ordering_Node made, and with dispatch every K' in 2..K captured at
+        that capacity (``threaded.prewarm``)."""
+        from .threaded import prewarm
+        cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
+        if cfg is not None:
+            _dispatch.refuse_k_tuner(cfg)
+        self._dispatch = cfg
+        out_cap = {}
+        for mp in self._topo_order():
+            if mp.source is not None:
+                cap = mp.source.out_capacity(self.batch_size)
+            elif mp.merge_inputs:
+                if self.mode == Mode.DETERMINISTIC:
+                    self._ordering_of(mp)
+                    cap = self.batch_size
+                else:
+                    cap = out_cap[id(mp.merge_inputs[0])]
+            else:
+                cap = out_cap[id(mp._dataflow_parent)]
+            chain = mp._compile(cap)
+            for op in chain.ops:
+                cap = op.out_capacity(cap)
+            out_cap[id(mp)] = cap
+            if cfg is not None:
+                prewarm(chain, cfg.k, chain.capacity)
+
+    def _run_threaded(self):
+        from ..native import SPSCQueue
+        from .handoff import receive, send
+        from .threaded import (EOS, drain_queue_to_sentinel, join_streams, on_stream,
+                               resolve_edge_capacity, stage_stream)
+
+        pipes = self._all_pipes()
+        # one SPSC ring a dataflow edge (one producer, one consumer); a pipe
+        # with several inputs (a merge) polls its rings round-robin
+        in_queues = {id(p): [] for p in pipes}
+        out_edges = {}                  # (producer id | "src", consumer id) -> ring
+        channel_of = {}                 # ring id -> merge channel
+        for prod, dst, label, index in self._iter_edges():
+            q = SPSCQueue(resolve_edge_capacity(self.queue_capacity, label, index))
+            in_queues[id(dst)].append(q)
+            out_edges[("src" if prod is None else id(prod), id(dst))] = q
+            if prod is not None and dst.merge_inputs:
+                channel_of[id(q)] = dst.merge_inputs.index(prod)
+        errors: list = []
+
+        def deliver(mp, out):
+            if mp.sink is not None:
+                mp.sink.consume(out)
+            if mp.split_fn is not None:
+                sel = map_tuples(mp.split_fn, out)
+                for branch, keep in zip(mp.split_branches,
+                                        split_masks(sel, len(mp.split_branches))):
+                    out_edges[(id(mp), id(branch))].push(send(out.mask(keep)))
+            for merged in mp._outputs_to:
+                out_edges[(id(mp), id(merged))].push(send(out))
+
+        def pipe_body(mp, stream):
+            onode = mp._ordering if self.mode == Mode.DETERMINISTIC else None
+            live = list(in_queues[id(mp)])
+            try:
+                with on_stream(stream):
+                    runner = _dispatch.GroupRunner(mp._chain, self._dispatch,
+                                                   lambda out: deliver(mp, out))
+
+                    def released(rel):
+                        for piece in self._chunks(rel, onode.last_release_count):
+                            runner.feed(piece)
+                    yields = 0
+                    while live:
+                        # a round that found every ring empty waits in the
+                        # native pop (GIL released) on the next round, so
+                        # an idle merge does not spin in Python against the
+                        # threads that have work
+                        got = False
+                        for q in list(live):
+                            ok, item = q.pop(spin=64, max_yields=yields)
+                            if not ok:
+                                runner.idle()
+                                continue
+                            got = True
+                            if item is EOS:
+                                live.remove(q)
+                                if onode is not None and id(q) in channel_of:
+                                    released(onode.close_channel(channel_of[id(q)]))
+                                continue
+                            batch = receive(item)
+                            if onode is not None and id(q) in channel_of:
+                                released(onode.push(channel_of[id(q)], batch))
+                            else:
+                                runner.feed(batch)
+                        yields = 0 if got else (256 if len(live) == 1 else 16)
+                    if onode is not None:
+                        released(onode.flush())
+                    runner.finish()
+                    if mp.sink is not None:
+                        mp.sink.consume(None)
+            except BaseException as e:          # noqa: BLE001 — raised after the join
+                errors.append(e)
+                # drain the remaining input rings to EOS, so that producers
+                # blocked on a full ring behind this pipe finish and send
+                # their own EOS
+                for q in list(live):
+                    if drain_queue_to_sentinel(q, EOS):
+                        live.remove(q)
+            finally:
+                for branch in mp.split_branches:
+                    out_edges[(id(mp), id(branch))].push(EOS)
+                for merged in mp._outputs_to:
+                    out_edges[(id(mp), id(merged))].push(EOS)
+
+        def source_body(mp, stream):
+            q = out_edges[("src", id(mp))]
+            try:
+                with on_stream(stream):
+                    for batch in mp.source.batches(self.batch_size):
+                        record_source_launch(mp.source, batch)
+                        q.push(send(batch))
+            except BaseException as e:          # noqa: BLE001
+                errors.append(e)
+            finally:
+                q.push(EOS)
+
+        streams = []
+        threads = []
+        for i, p in enumerate(pipes):
+            streams.append(stage_stream(self.device))
+            threads.append(threading.Thread(target=pipe_body, args=(p, streams[-1]),
+                                            name=f"wf-pipe{i}"))
+        for p in self._roots:
+            streams.append(stage_stream(self.device))
+            threads.append(threading.Thread(target=source_body, args=(p, streams[-1]),
+                                            name=f"wf-src-{p.source.getName()}"))
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            for p in pipes:
+                if p._chain is not None:
+                    p._chain.capture_closed = False
+        errors += join_streams(self.device, streams)
+        if errors:
+            raise errors[0]
+        for p in pipes:
+            if p._chain is not None:
+                p._chain.sync_stats()
+        for op in self._operators:
+            op.close()                # closing_func per replica
+        self._ended = True
+        return self._results()
 
     def _flush_pipe(self, mp: MultiPipe):
         if mp._chain is None:

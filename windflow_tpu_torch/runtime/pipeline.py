@@ -24,6 +24,7 @@ raises.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, List, Optional, Sequence
 
@@ -75,8 +76,11 @@ class CompiledChain:
     capacity. ``push(batch, from_op=i)`` runs ``ops[i:]``: the main path
     (i=0) and the EOS flush cascades."""
 
-    #: every Nth push is timed to completion (one device synchronize) and
-    #: recorded as the entry op's service time; the other pushes never wait
+    #: every Nth push is timed to completion (a wait on the current stream,
+    #: where the push launched its kernels: the counterpart of the JAX
+    #: package's block_until_ready on the push's output, which stalls no
+    #: other stage thread's stream) and recorded as the entry op's service
+    #: time; the other pushes never wait
     SERVICE_SAMPLE_EVERY = 16
 
     def __init__(self, ops: Sequence[Basic_Operator], in_spec: Any,
@@ -98,6 +102,8 @@ class CompiledChain:
         if batch_capacity is None:
             batch_capacity = resolve_batch_hint(self.ops)
         self.device = resolve_device(device)
+        #: the batch capacity the operators' geometry is bound to
+        self.capacity = batch_capacity
         for op in self.ops:
             if op.device != self.device:
                 raise ValueError(
@@ -115,6 +121,11 @@ class CompiledChain:
         #: the captured K-step programs, (from_op, K, capacity) -> StepGraph (card)
         self.graphs = {}
         self._warmed = set()    # (from_op, capacity) run once eagerly
+        #: set by the threaded drivers while their stage threads run: every
+        #: graph was captured before they started, and a capture now (which
+        #: synchronizes the device and fails in global capture mode while
+        #: other threads launch) raises instead
+        self.capture_closed = False
 
     @property
     def out_spec(self):
@@ -131,7 +142,7 @@ class CompiledChain:
         for j in range(from_op, len(self.ops)):
             self.states[j], out = self.ops[j].apply(self.states[j], out)
         if sampled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         self._record(from_op, 1, batch, out,
                      time.perf_counter() - t0 if sampled else None)
         return out
@@ -186,6 +197,9 @@ class CompiledChain:
         key = (from_op, k, capacity)
         g = self.graphs.get(key)
         if g is None:
+            if self.capture_closed:
+                raise RuntimeError(f"{key}: no graph was captured before the stage "
+                                   f"threads started, and none is captured while they run")
             self._warm(from_op, capacity)
             empty = Batch.empty(capacity, self.specs[from_op], self.device)
             g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states),
@@ -265,17 +279,24 @@ class Pipeline:
     smallest ``withBatch`` hint of the operators, else the default.
     ``dispatch=`` turns on scan dispatch (:class:`~.dispatch.DispatchConfig`:
     None consults ``WF_DISPATCH``, off by default): groups of K batches go
-    through ``CompiledChain.push_many``, the partial tail at EOS too."""
+    through ``CompiledChain.push_many``, the partial tail at EOS too.
+    ``prefetch=N > 0`` frames and copies the source's batches in a worker
+    thread N batches ahead (``SourceBase.batches_prefetched``); setting
+    :attr:`prefetch_pause` suspends that worker."""
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
                  batch_size: Optional[int] = None, device=None,
-                 event_time: bool = None, dispatch=None):
+                 event_time: bool = None, dispatch=None, prefetch: int = 0):
         _refuse_event_time(event_time)
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
         self.batch_size = int(batch_size or resolve_batch_hint(ops) or DEFAULT_BATCH_SIZE)
+        self.prefetch = int(prefetch)
+        #: set to suspend the prefetch worker (batches already made stay
+        #: consumable)
+        self.prefetch_pause = threading.Event()
         #: resolved at run(), so an env change after construction counts
         self._dispatch_arg = dispatch
         if source.device != self.device:
@@ -285,37 +306,30 @@ class Pipeline:
                                    batch_capacity=source.out_capacity(self.batch_size),
                                    device=self.device)
 
-    def _make_accumulator(self) -> Optional[_dispatch.MicrobatchAccumulator]:
-        """``dispatch=`` resolved into an accumulator (None when off), with
-        the K-step program made ready up front when ``prewarm``."""
+    def _dispatch_config(self) -> Optional[_dispatch.DispatchConfig]:
+        """``dispatch=`` resolved (None when off), with the K-step program
+        made ready up front when ``prewarm``."""
         cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
         if cfg is None:
             return None
         _dispatch.refuse_k_tuner(cfg)
         if cfg.prewarm and cfg.k > 1:
             self.chain.warm_scan(cfg.k, self.source.out_capacity(self.batch_size))
-        return _dispatch.MicrobatchAccumulator(cfg.k, cfg.linger_s)
+        return cfg
 
     def run(self) -> dict:
         """Drive the stream to EOS; returns ``chain.result()``."""
-        acc = self._make_accumulator()
-
-        def deliver(outs):
+        def emit(out):
             if self.sink is not None:
-                for out in outs:
-                    self.sink.consume(out)
-        for batch in self.source.batches(self.batch_size):
+                self.sink.consume(out)
+        runner = _dispatch.GroupRunner(self.chain, self._dispatch_config(), emit)
+        batches = (self.source.batches_prefetched(self.batch_size, self.prefetch,
+                                                  pause_event=self.prefetch_pause)
+                   if self.prefetch else self.source.batches(self.batch_size))
+        for batch in batches:
             record_source_launch(self.source, batch)
-            if acc is None:
-                deliver([self.chain.push(batch)])
-            else:
-                for group in acc.feed(batch):
-                    deliver(_dispatch.fused_push(self.chain, group))
-        if acc is not None:
-            tail = acc.drain()                # the partial tail < K at EOS
-            if tail:
-                deliver(_dispatch.fused_push(self.chain, tail))
-        deliver(self.chain.flush())
+            runner.feed(batch)
+        runner.finish()                  # the partial tail < K, then the flush
         if self.sink is not None:
             self.sink.consume(None)      # empty-optional EOS signal (wf/sink.hpp)
         self.chain.sync_stats()
