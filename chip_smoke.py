@@ -69,11 +69,17 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 7. ``bench.py::bench_dispatch``'s counterpart: its Map -> Filter ->
    ReduceSink chain over 96 batches of 2^18, per batch and at K = 8 in
    turns: tuples/s, the entry op's launches a batch, equal results;
-8. Nexmark q1, q2, q3, q6, q7 through ``Pipeline(...).run()`` at
-   ``bench_nexmark``'s batch (2^14) for 16 batches, dispatch off and at
-   K = 5: every sink row against the dense oracle, and the exact K4 and K5
-   launches of each query;
-9. the same five queries through the loop;
+8. Nexmark q1-q7 through ``Pipeline(...).run()`` at ``bench_nexmark``'s
+   batch (2^14) for 16 batches, dispatch off and at K = 5: every sink row
+   against the dense oracle, and the exact K2, K3, K4 and K5 launches of
+   each query (q5's SessionWindow: ``Q5_APPLY`` an apply; q4's IntervalJoin
+   none: it is plain PyTorch), with q4's and q5's drop counters and every
+   run's peak device memory; before them, K2 and K3 at q5's shapes on q5's
+   traffic (``session_kernel_phase``);
+9. the same seven queries through the loop; then ``nexmark_graph``: q4 as
+   two sources (opens and bids) through ``join_with`` in a DETERMINISTIC
+   PipeGraph, serial and ``threaded=True``, its rows equal to the dense
+   oracle (the one-source Pipeline's rows);
 10. q3 at full width (2^20-event batches, 2048 auctions): 4 batches through
     ``Pipeline(...).run()``, dispatch off and at K = 2, then the loop; every
     emitted row against a numpy int32 oracle;
@@ -162,7 +168,16 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     equal to phase 17's, ms a push against phase 17's; then the merge
     straight into a Sink, serial and threaded: DETERMINISTIC rows byte for
     byte in delivery order, DEFAULT rows once sorted;
-27. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+27. ``checkpoint`` (after phase 10): YSB (8 x 2^20) and q5 (16 x 2^14)
+    run half their batches, ``save_chain``, ``load_chain`` into a fresh
+    chain whose K-step graph was captured before the restore, and the rest
+    at dispatch K: rows byte for byte equal to an uninterrupted run, exact
+    launches, the file's bytes and the save and load ms;
+28. ``faults`` (after phase 25): threaded YSB (40 x 2^20) under a
+    ``queue.stall`` plan (segment 1 sleeps 1.5 s at one batch, heartbeat
+    0.5 s): rows equal to the serial run's byte for byte, the watchdog names
+    ``seg1``, the stall fired once;
+29. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
     fixed-order float fold at ``keyed_cb``'s shape, launches summed over the
     paths, each counted from zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
@@ -978,14 +993,26 @@ NEX_ROWS = {
     "q1_currency": ("id", "auction", "euro"),
     "q2_selection": ("id", "auction", "price"),
     "q3_enrich_join": ("id", "auction", "category", "price"),
+    "q4_interval_join": ("auction", "open_ts", "bid_ts", "price"),
+    "q5_session": ("key", "id", "start", "end", "n", "bids", "spend"),
     "q7_distinct": ("id", "auction"),
 }
 
+#: q5's launches a SessionWindow apply: K2 reads its [8]-row tables 14 times
+#: (the key's floor, open flag and last end per lane; six carried fields, the
+#: fragment bounds and two session ordinals per fragment) and K3 folds five
+#: int32 segment sums (the fragments' counts, bids and spend at S = 2^14;
+#: the two close counts at S = 8); the flush launches nothing
+Q5_APPLY = {"lookup": 14, "segment_fold": 5}
+
 #: exact launches per query in the Pipeline phase: K5 twice per StreamTableJoin
 #: or Distinct apply (the upsert's slot probe and the probe), K4 once per TopN
-#: apply; nothing else of the five kernels
+#: apply, Q5_APPLY per SessionWindow apply; IntervalJoin (q4) is plain
+#: PyTorch and launches no kernel
 NEX_LAUNCHES = {"q1_currency": {}, "q2_selection": {},
                 "q3_enrich_join": {"join_probe": 2 * NEX_BATCHES},
+                "q4_interval_join": {},
+                "q5_session": {k: n * NEX_BATCHES for k, n in Q5_APPLY.items()},
                 "q6_topn": {"ordering_merge": NEX_BATCHES},
                 "q7_distinct": {"join_probe": 2 * NEX_BATCHES}}
 
@@ -998,10 +1025,14 @@ def nexmark_rows(np, name, views):
                                    v["id"].tolist(), v["payload"]["score"].tolist()):
                 final[(k, r)] = (i, sc)
         return sorted((k, r, i, sc) for (k, r), (i, sc) in final.items())
+
+    def col(v, c):
+        if c in ("key", "id"):
+            return v[c]
+        return v["payload"]["agg"][c] if c in ("bids", "spend") else v["payload"][c]
     out = []
     for v in views:
-        cols = [v["id"] if c == "id" else v["payload"][c] for c in NEX_ROWS[name]]
-        out.extend(zip(*(np.asarray(c).tolist() for c in cols)))
+        out.extend(zip(*(np.asarray(col(v, c)).tolist() for c in NEX_ROWS[name])))
     return sorted(out)
 
 
@@ -1026,10 +1057,12 @@ def nexmark_pipeline_phase(torch, np, wt, registry):
             counts, dt, peak = run_pipeline(torch, registry, pipe, k)
             views = [v for v in views if v is not None]
             got = nexmark_rows(np, name, views)
+            drops = (ops[-1].drop_counters(pipe.chain.states[-1])
+                     if hasattr(ops[-1], "drop_counters") else {})
             log({"phase": "nexmark_pipeline", "query": name, "dispatch": k,
                  "batches": NEX_BATCHES, "batch": NEX_BATCH, "rows": len(got),
                  "run_s": dt, "tuples_per_s": total / dt, "launches": counts,
-                 "peak_mib": peak / 2 ** 20})
+                 "peak_mib": peak / 2 ** 20, "drops": drops})
             if got != want:
                 bad = sorted(set(got) ^ set(want))[:5]
                 raise AssertionError(f"{name}: sink rows differ from the dense oracle: {bad}")
@@ -1074,6 +1107,233 @@ def nexmark_loop_phase(torch, wt, card, profile):
         row["eager_ms_per_step"] = eager_loop(torch, make, NEX_BATCH, warm, NEX_STEPS,
                                               f"nexmark_loop_{name}", profile)
         log(row)
+
+
+def session_kernel_phase(torch):
+    """K2 and K3 at q5's shapes on q5's own traffic (a batch of 2^14 bids
+    keyed by bidder): K2 on an [8]-row int32 table read by every lane, K3
+    folding the lanes' prices by session fragment (S = 2^14, the fragment
+    ids of the (bidder, ts) sorted batch) and a 0/1 close flag by bidder
+    (S = 8); each bit for bit against its plain version, with its time,
+    bound and library call."""
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.nexmark.queries import SESSION_GAP
+    from windflow_tpu_torch.ops import lookup as L, segment as S
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+    C = NEX_BATCH
+    src, ops = make_query("q5_session", 4 * C)
+    _, b = ops[0].apply(None, src.make_batch(3 * C, C))
+    K = ops[1].num_keys
+    perm = L._lexsort([b.id, b.ts, b.key])
+    sk, sts = b.key[perm], b.ts[perm]
+    first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), sk[1:] != sk[:-1]])
+    brk = ~first & (sts - torch.cat([sts[:1], sts[:-1]]) > SESSION_GAP)
+    seg = torch.clamp(torch.cumsum((first | brk).to(torch.int32), 0, dtype=torch.int32) - 1,
+                      min=0)
+    price = b.payload["price"][perm].contiguous()
+    valid = torch.ones((C,), dtype=torch.bool, device=dev)
+    flag = (torch.rand((C,), device=dev, generator=gen) < 0.3).to(torch.int32)
+    table = torch.randint(-2 ** 31, 2 ** 31, (K,), device=dev, generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    key = b.key.contiguous()
+    check_kernel(torch, "lookup", f"q5_table_K{K}",
+                 lambda: L.lookup_cuda(table, key), lambda: L.lookup_plain(table, key),
+                 lambda: table.index_select(0, key.clamp(0, K - 1)), C * 8 + K * 4,
+                 {"C": C, "K": K, "dtype": "int32"})
+    for case, vals, ids, Sn in (("q5_fragment_spend", price, seg, C),
+                                ("q5_closes_by_bidder", flag, key, K)):
+        idx = ids.long()
+        check_kernel(torch, "segment_fold", f"{case}_S{Sn}",
+                     lambda v=vals, i=ids, n=Sn: S.segment_fold_cuda(v, i, valid, n),
+                     lambda v=vals, i=ids, n=Sn: S.segment_fold_plain(v, i, valid, n),
+                     lambda v=vals, i=idx, n=Sn: torch.zeros(
+                         n, dtype=torch.int32, device=dev).index_add_(0, i, v),
+                     C * 9 + Sn * 4, {"C": C, "S": Sn, "dtype": "torch.int32"},
+                     extra={"plan": S.segment_fold_plan(C, Sn, torch.int32),
+                            "fragments": int(seg[-1]) + 1})
+
+
+def q4_two_sources(torch, wt, total):
+    """q4's stream as two sources: the auction opens (events 16 j) and the
+    bids (every other event), each event with its own fields and tick."""
+    from windflow_tpu_torch.nexmark import generators as g
+
+    def opens_ev(i):
+        return i * g.OPEN_EVERY
+
+    def bids_ev(i):
+        return i + i // (g.OPEN_EVERY - 1) + 1
+
+    def auction(e):
+        return torch.where((e % g.OPEN_EVERY) == 0, (e // g.OPEN_EVERY) % g.N_AUCTIONS,
+                           g.bid_auction(e))
+
+    def source(ev, n, name):
+        def gen(i):
+            e = ev(i)
+            is_open = (e % g.OPEN_EVERY) == 0
+            return {"side": is_open.to(torch.int32), "auction": auction(e).to(torch.int32),
+                    "price": torch.where(is_open, 0, g.bid_price(e)).to(torch.int32)}
+        return wt.DeviceSource(gen, total=n, name=name, key_fn=lambda i: auction(ev(i)),
+                               ts_fn=lambda i: ev(i) // g.EVENTS_PER_TICK)
+    n_open = (total + g.OPEN_EVERY - 1) // g.OPEN_EVERY
+    return source(opens_ev, n_open, "opens"), source(bids_ev, total - n_open, "bids")
+
+
+def nexmark_graph_phase(torch, np, wt, registry, card):
+    """q4 as two sources (opens and bids) through ``join_with`` in a
+    DETERMINISTIC PipeGraph at 2^14 a batch over q4's 16 x 2^14 events,
+    serial and ``threaded=True``: the join's rows equal the one-source
+    Pipeline's (the dense oracle) as a set; K4's calls of the merge logged."""
+    from windflow_tpu_torch.nexmark import make_query, oracles
+
+    total = NEX_BATCHES * NEX_BATCH
+    want = oracles.q4_interval_join(total)
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    for threaded in (False, True):
+        opens, bids = q4_two_sources(torch, wt, total)
+        _, ops = make_query("q4_interval_join", total)
+        views = []
+        g = wt.PipeGraph("q4_graph", mode=wt.Mode.DETERMINISTIC, batch_size=NEX_BATCH)
+        m = g.add_source(opens).join_with(g.add_source(bids), ops[0])
+        m.add_sink(wt.Sink(lambda v: views.append(v) if v is not None else None))
+        counts, dt, peak = counted_run(torch, registry, lambda: g.start(threaded=threaded),
+                                       g.wait_end)
+        got = nexmark_rows(np, "q4_interval_join", views)
+        node = m._ordering
+        log({"phase": "nexmark_graph", "query": "q4_interval_join", "threaded": threaded,
+             "events": total, "batch": NEX_BATCH, "rows": len(got), "run_s": dt,
+             "tuples_per_s": total / dt, "launches": counts,
+             "peak_mib_above_start": peak / 2 ** 20, "card": card,
+             "join_applies": m._chain._push_count,
+             "k4_networks": {f"{'sort' if s_ else 'merge'}_{n_}": c
+                             for (n_, s_), c in node.networks.items()},
+             "drops": ops[0].drop_counters(m._chain.states[0])})
+        if got != want:
+            bad = sorted(set(got) ^ set(want))[:5]
+            raise AssertionError(f"nexmark_graph threaded={threaded}: rows differ from "
+                                 f"the one-source Pipeline's: {bad}")
+        extra = {k: n for k, n in counts.items() if n and k != "ordering_merge"}
+        if extra:
+            raise AssertionError(f"nexmark_graph: unexpected launches {extra}")
+        for k, n in counts.items():
+            launches[k] += n
+    return launches
+
+
+CKPT_DIR = os.path.join(ROOT, "build", "checkpoints")
+
+
+def host_rows(outs):
+    """The live lanes of a list of output batches, as host views."""
+    from windflow_tpu_torch.batch import host_view
+    return [host_view(o) for o in outs]
+
+
+def checkpoint_phase(torch, np, wt, ysb, registry, card):
+    """YSB (8 x 2^20) and q5 (16 x 2^14) at full width: an uninterrupted
+    dispatch-off run, then half the batches, ``save_chain``, a fresh chain
+    with its K-step graph captured, ``load_chain`` into it and the rest at
+    dispatch K (the restored state copied into the graph at its first
+    replay): the two runs' rows byte for byte. Logs the file's bytes and
+    the save and load ms."""
+    import shutil
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.runtime import checkpoint as ck
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    cases = (("ysb", BATCH, YSB_BATCHES, DISPATCH_K["ysb"],
+              lambda: (ysb.make_source(YSB_BATCHES * BATCH),
+                       ysb.make_ops(**ysb.bench_geometry(BATCH))),
+              {"histogram": 1, "lookup": 1}),
+             ("q5_session", NEX_BATCH, NEX_BATCHES, DISPATCH_K["nexmark"],
+              lambda: make_query("q5_session", NEX_BATCHES * NEX_BATCH), Q5_APPLY))
+    try:
+        for name, C, n, k, make, per_batch in cases:
+            def chain():
+                src, ops = make()
+                return src, wt.CompiledChain(ops, src.payload_spec(),
+                                             batch_capacity=src.out_capacity(C))
+            src, c0 = chain()
+            batches = list(src.batches(C))
+            whole = host_rows([c0.push(b) for b in batches] + c0.flush())
+            half = n // 2
+            _, c1 = chain()
+            _, c2 = chain()
+            c2.warm_scan(k, src.out_capacity(C))          # captured before the restore
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            outs = [c1.push(b) for b in batches[:half]]
+            t0 = time.perf_counter()
+            path = ck.save_chain(c1, os.path.join(CKPT_DIR, name), meta={"batches_done": half})
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            meta = ck.load_chain(c2, path)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            rest = batches[half:]
+            for i in range(0, len(rest), k):
+                outs += c2.push_many(rest[i:i + k])
+            outs += c2.flush()
+            torch.cuda.synchronize()
+            counts = registry.launch_counts()
+            resumed = host_rows(outs)
+            same = flat_bytes(np, resumed) == flat_bytes(np, whole)
+            replays = {f"{kk}": g.replays for (_, kk, _), g in c2.graphs.items()}
+            log({"phase": "checkpoint", "chain": name, "batch": C, "batches": n,
+                 "resumed_at": meta["batches_done"], "dispatch_after": k,
+                 "file_bytes": os.path.getsize(path), "save_ms": save_ms,
+                 "load_ms": load_ms, "rows": sum(len(r["id"]) for r in whole),
+                 "rows_byte_identical": same, "graph_replays": replays,
+                 "launches": counts, "card": card})
+            if meta["batches_done"] != half or not same:
+                raise AssertionError(f"checkpoint {name}: the resumed run's rows differ "
+                                     f"from the uninterrupted run's")
+            if replays.get(f"{k}", 0) < 1:
+                raise AssertionError(f"checkpoint {name}: the K = {k} graph never replayed")
+            expect_launches(f"checkpoint {name}", counts, per_batch, n)
+            for kk, nn in counts.items():
+                launches[kk] += nn
+            del batches, outs, whole, resumed, c0, c1, c2
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches
+
+
+def faults_phase(torch, np, wt, ysb, registry, card, serial_parts):
+    """Threaded YSB (40 x 2^20, two segments) under a ``queue.stall`` plan:
+    segment 1 sleeps 1.5 s at its 6th batch with a 0.5 s heartbeat watchdog.
+    The rows equal the serial Pipeline's byte for byte, the watchdog names
+    ``seg1``, and the stall fired once."""
+    from windflow_tpu_torch.runtime import faults as F
+
+    F.reset_counters()
+    plan = F.FaultPlan([F.FaultSpec("queue.stall", kind="stall", stall_s=1.5,
+                                    where={"stage": "seg1", "pos": 5})])
+    inj = F.FaultInjector(plan)
+    parts, cb = collect_sink()
+    tp = wt.ThreadedPipeline(ysb.make_source(THREADED_BATCHES * BATCH), ysb_segments(ysb),
+                             wt.Sink(cb), batch_size=BATCH, heartbeat_timeout=0.5,
+                             faults=inj)
+    launches, dt, peak = counted_run(torch, registry, tp.start, tp.run)
+    same = flat_bytes(np, parts) == flat_bytes(np, serial_parts)
+    log({"phase": "faults", "driver": "threaded", "plan": json.loads(plan.to_json()),
+         "fired": [(s_, n_, k_, c_) for s_, n_, k_, c_ in inj.fired],
+         "site_counts": inj.counts, "watchdog_stale": tp.watchdog_stale,
+         "counters": {k: v for k, v in F.counters().items() if v}, "run_s": dt,
+         "rows_equal_serial_bytes": same, "launches": launches, "card": card})
+    if not same:
+        raise AssertionError("faults: the stalled threaded run's rows differ from the "
+                             "serial Pipeline's")
+    expect_launches("faults", launches, {"histogram": 1, "lookup": 1}, THREADED_BATCHES)
+    if "seg1" not in tp.watchdog_stale or len(inj.fired) != 1:
+        raise AssertionError(f"faults: watchdog {tp.watchdog_stale}, fired {inj.fired}")
+    if F.counters()["watchdog_timeouts"] < 1:
+        raise AssertionError("faults: no watchdog_timeouts counted")
+    return launches
 
 
 def q3_oracle_np(np, start, n):
@@ -2989,6 +3249,7 @@ def main() -> int:
     rows = kernel_phase(torch, ysb)
     rows.update(partials_kernel_phase(torch, ysb))
     rows.update(nexmark_kernel_phase(torch))
+    session_kernel_phase(torch)
     repair_checks(torch)
     main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
@@ -3001,8 +3262,10 @@ def main() -> int:
     bench_dispatch_phase(torch, wt, card)
     nex_launches = nexmark_pipeline_phase(torch, np, wt, registry)
     nexmark_loop_phase(torch, wt, card, args.profile)
+    ng_launches = nexmark_graph_phase(torch, np, wt, registry, card)
     q3_pipeline_phase(torch, np, wt, registry)
     q3_full_width_phase(torch, np, wt, registry, card, args.profile)
+    ck_launches = checkpoint_phase(torch, np, wt, ysb, registry, card)
     rows["masked_window_reduce"] = window_reduce_kernel_phase(torch)
     a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)
     b_launches = path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
@@ -3020,6 +3283,7 @@ def main() -> int:
                                               args.profile)
     ry_launches = record_ysb_phase(torch, np, wt, ysb, registry, card, ty_rows,
                                    ty_launches)
+    f_launches = faults_phase(torch, np, wt, ysb, registry, card, ty_rows)
     del ty_rows
     tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
                                                 gw_launches, gw_s)
@@ -3031,7 +3295,8 @@ def main() -> int:
              "ordering": ord_launches, "graph_windows": gw_launches,
              "keyed_cb": kcb_launches, "keyed_stateful": ks_launches,
              "threaded_ysb": ty_launches, "record_ysb": ry_launches,
-             "threaded_graph_windows": tgw_launches}
+             "threaded_graph_windows": tgw_launches, "nexmark_graph": ng_launches,
+             "checkpoint": ck_launches, "faults": f_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

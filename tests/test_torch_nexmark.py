@@ -44,9 +44,17 @@ def run_port(name, batch, **kw):
     return views
 
 
+def _flat(prefix, tree, out):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(f"{prefix}.{k}", v, out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
 def _fields(view):
     out = {f: np.asarray(view[f]) for f in ("key", "id", "ts")}
-    out.update({f"payload.{k}": np.asarray(v) for k, v in view["payload"].items()})
+    _flat("payload", view["payload"], out)
     return out
 
 
@@ -66,6 +74,10 @@ ROW_FNS = {
     "q1_currency": ("id", "payload.auction", "payload.euro"),
     "q2_selection": ("id", "payload.auction", "payload.price"),
     "q3_enrich_join": ("id", "payload.auction", "payload.category", "payload.price"),
+    "q4_interval_join": ("payload.auction", "payload.open_ts", "payload.bid_ts",
+                         "payload.price"),
+    "q5_session": ("key", "id", "payload.start", "payload.end", "payload.n",
+                   "payload.agg.bids", "payload.agg.spend"),
     "q7_distinct": ("id", "payload.auction"),
 }
 
@@ -87,7 +99,7 @@ def rows(name, views):
     return sorted(out)
 
 
-@pytest.mark.parametrize("batch", [32, 64, 400])
+@pytest.mark.parametrize("batch", [32, 64, 100, 400])
 @pytest.mark.parametrize("name", PORTED)
 def test_query_matches_jax_and_dense_oracle(name, batch):
     got = run_port(name, batch)

@@ -40,7 +40,9 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.shipper", "windflow_tpu_torch.stats",
            "windflow_tpu_torch.benchmarks.keyed", "windflow_tpu_torch.operators.accumulator",
            "windflow_tpu_torch.operators.flatmap", "windflow_tpu_torch.native",
-           "windflow_tpu_torch.runtime.threaded", "windflow_tpu_torch.runtime.handoff"]
+           "windflow_tpu_torch.runtime.threaded", "windflow_tpu_torch.runtime.handoff",
+           "windflow_tpu_torch.operators.session", "windflow_tpu_torch.runtime.faults",
+           "windflow_tpu_torch.runtime.checkpoint"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -107,18 +109,22 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item (supervision,
-    item 12; the threaded driver's fault injection, item 12, and control
-    plane, item 15); item 9's operators build."""
+    """What is still unported raises, naming its ROADMAP item: supervision
+    (item 12's supervisor), tiered state (item 13) and the threaded driver's
+    control plane (item 15); fault injection (item 12's first half) and
+    item 9's operators build."""
     g = wt.PipeGraph(device="cpu")
     src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
     g.add_source(src).add(wt.ReduceSink(lambda t: t.v, device="cpu"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         g.run_supervised()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        wt.ThreadedPipeline(src, [], None, device="cpu", faults=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         wt.ThreadedPipeline(src, [], None, device="cpu", control=True)
+    from windflow_tpu_torch.runtime.faults import FaultPlan
+    assert wt.ThreadedPipeline(src, [], None, device="cpu", faults=FaultPlan())
     assert isinstance(wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2)
                       .withDevice("cpu").build(), wt.FlatMap)
     assert wt.Key_FFAT(lambda t: t.v, torch.maximum,
@@ -138,15 +144,17 @@ def test_nexmark_cpu_run_launches_no_kernel():
 
 
 def test_nexmark_unported_paths_raise(no_cuda):
-    from windflow_tpu_torch.nexmark import make_query
-    for q in ("q4_interval_join", "q5_session"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            make_query(q, 100, device="cpu")
-    for q in ("q3_enrich_join", "q6_topn", "q7_distinct"):
+    """Every query builds on the CPU and needs CUDA by default; tiered state
+    (item 13) and event-time monitoring (item 16) still raise."""
+    from windflow_tpu_torch.nexmark import PORTED, QUERIES, make_query
+    assert set(PORTED) == set(QUERIES)
+    for q in ("q3_enrich_join", "q4_interval_join", "q5_session", "q6_topn",
+              "q7_distinct"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             make_query(q, 100, tiered=True, device="cpu")
         with pytest.raises(RuntimeError, match="cuda"):
             make_query(q, 100)
+        make_query(q, 100, device="cpu")
     src, ops = make_query("q3_enrich_join", 100, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         wt.Pipeline(src, ops, batch_size=32, device="cpu", event_time=True)

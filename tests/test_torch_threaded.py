@@ -223,10 +223,12 @@ def test_chains_refuse_captures_while_stage_threads_run():
 
 def test_unported_arguments_raise():
     src = Src(PORT, lambda i: {"v": i}, 8)
-    for kw, item in (({"faults": object()}, "12"), ({"control": True}, "15"),
-                     ({"monitoring": True}, "16"), ({"trace": True}, "16")):
+    for kw, item in (({"control": True}, "15"), ({"monitoring": True}, "16"),
+                     ({"trace": True}, "16")):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             wt.ThreadedPipeline(src, [], None, device="cpu", **kw)
+    from windflow_tpu_torch.runtime.faults import FaultPlan
+    wt.ThreadedPipeline(src, [], None, device="cpu", faults=FaultPlan())  # ported
     with pytest.raises(RuntimeError, match="cuda"):
         wt.ThreadedPipeline(src, [], None)        # device None means the card
 

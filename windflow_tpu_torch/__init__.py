@@ -25,9 +25,9 @@ from .context import RuntimeContext, LocalStorage
 from .device import resolve_device
 from .operators import (Accumulator, Basic_Operator, BatchMap, Compact, DeviceSource,
                         Distinct, FFATState, Filter, FilterMap, FlatMap, GeneratorSource,
-                        GFFATState, Iterable, Key_Farm, Key_FFAT, KeyBy, KeyedMap, Map,
-                        Nested_Farm, Pane_Farm, RecordSource, ReduceSink, Sink, Source,
-                        StreamTableJoin, TopN, Win_Farm, Win_MapReduce, Win_Seq,
+                        GFFATState, IntervalJoin, Iterable, Key_Farm, Key_FFAT, KeyBy, KeyedMap, Map,
+                        Nested_Farm, Pane_Farm, RecordSource, ReduceSink, SessionWindow,
+                        Sink, Source, StreamTableJoin, TopN, Win_Farm, Win_MapReduce, Win_Seq,
                         Win_SeqFFAT, WinSeqState, WindowSpec, prefetch_to_device)
 from .runtime import (CompiledChain, MultiPipe, Pipeline, PipeGraph, ThreadedPipeline,
                       builders)

@@ -60,18 +60,18 @@ def q3_enrich_join(total):
 
 def q4_interval_join(total):
     """[(auction, open_ts, bid_ts, price)] for every (open, bid) pair of
-    the same auction with ``bid_ts - open_ts in [0, JOIN_WINDOW]``."""
-    opens, bids = [], []
+    the same auction with ``bid_ts - open_ts in [0, JOIN_WINDOW]`` (bids
+    indexed by (auction, tick), so a full-width stream stays cheap)."""
+    opens, bids = [], {}
     for i in range(total):
         if i % OPEN_EVERY == 0:
             opens.append(((i // OPEN_EVERY) % N_AUCTIONS, _ts(i)))
         else:
-            bids.append((_auction(i), _ts(i), _price(i)))
+            bids.setdefault((_auction(i), _ts(i)), []).append(_price(i))
     out = []
     for a, ots in opens:
-        for b, bts, p in bids:
-            if a == b and 0 <= bts - ots <= q.JOIN_WINDOW:
-                out.append((a, ots, bts, p))
+        for bts in range(ots, ots + q.JOIN_WINDOW + 1):
+            out.extend((a, ots, bts, p) for p in bids.get((a, bts), ()))
     return sorted(out)
 
 

@@ -8,8 +8,12 @@ q1_currency           per-bid dollar -> euro projection (Map)
 q2_selection          selection filter: auctions of interest (Filter)
 q3_enrich_join        stream-table join: each bid enriched with its
                       auction's category (StreamTableJoin; kernel K5)
-q4_interval_join      not ported yet (IntervalJoin)
-q5_session            not ported yet (SessionWindow)
+q4_interval_join      interval join: a bid matches an auction-open event of
+                      the same auction within ``[0, JOIN_WINDOW]`` ticks
+                      (IntervalJoin; plain PyTorch, no kernel)
+q5_session            session aggregate: per-bidder bid count and price sum
+                      per activity session, gap ``SESSION_GAP`` ticks
+                      (KeyBy, SessionWindow; kernels K2 and K3)
 q6_topn               incremental top-``TOP_N`` bid prices per auction
                       (TopN; kernel K4)
 q7_distinct           first bid per selected auction (Filter, Distinct;
@@ -19,11 +23,15 @@ q7_distinct           first bid per selected auction (Filter, Distinct;
 
 from __future__ import annotations
 
+import torch
+
 from ..observability.names import NEXMARK_QUERIES as QUERIES
 from ..operators.filter import Filter
-from ..operators.join import StreamTableJoin
-from ..operators.map import Map
+from ..operators.join import IntervalJoin, StreamTableJoin
+from ..operators.map import KeyBy, Map
 from ..operators.rank import Distinct, TopN
+from ..operators.session import SessionWindow
+from ..operators.window import WindowSpec
 from . import generators as g
 
 #: euro conversion: integer, exact (the reference multiplies by 0.89)
@@ -68,13 +76,24 @@ def q3_enrich_join(total: int, n_auctions: int = g.N_AUCTIONS, num_slots: int = 
 
 
 def q4_interval_join(total: int, max_matches: int = 8, tiered=None, device=None):
-    raise NotImplementedError(
-        "q4_interval_join: IntervalJoin is not ported yet (ROADMAP Queue 1 item 11)")
+    src = g.make_open_bid_source(total, device=device)
+    ops = [IntervalJoin(
+        lambda t: t.side == 1,                 # auction opens are the left
+        0, JOIN_WINDOW, max_matches=max_matches, tiered=tiered,
+        emit=lambda l, r: {"auction": l.data["auction"], "open_ts": l.ts,
+                           "bid_ts": r.ts, "price": r.data["price"]},
+        name="nexmark_interval_join", device=device)]
+    return src, ops
 
 
 def q5_session(total: int, tiered=None, device=None):
-    raise NotImplementedError(
-        "q5_session: SessionWindow is not ported yet (ROADMAP Queue 1 item 11)")
+    src = g.make_bid_source(total, device=device)
+    ops = [KeyBy(lambda t: t.bidder, g.N_BIDDERS, name="nexmark_by_bidder", device=device),
+           SessionWindow(lambda t: {"bids": torch.ones((), dtype=torch.int32),
+                                    "spend": t.price},
+                         WindowSpec.session(SESSION_GAP), num_keys=g.N_BIDDERS,
+                         tiered=tiered, name="nexmark_session", device=device)]
+    return src, ops
 
 
 def q6_topn(total: int, tiered=None, device=None):
@@ -106,7 +125,8 @@ _BUILDERS = {
 assert set(_BUILDERS) == set(QUERIES), "queries drifted from names.py"
 
 #: the queries the port runs
-PORTED = ("q1_currency", "q2_selection", "q3_enrich_join", "q6_topn", "q7_distinct")
+PORTED = ("q1_currency", "q2_selection", "q3_enrich_join", "q4_interval_join",
+          "q5_session", "q6_topn", "q7_distinct")
 
 
 def make_query(name: str, total: int, **kw):

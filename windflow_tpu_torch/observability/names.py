@@ -1,6 +1,6 @@
 """Name registries the port's operators and benchmarks check against.
 
-The port's own copy of two registries of ``windflow_tpu/observability/
+The port's own copy of three registries of ``windflow_tpu/observability/
 names.py`` (that module imports no JAX, but the port imports nothing of the
 JAX package). Keep the tuples equal to the JAX package's:
 ``tests/test_torch_package.py`` compares them.
@@ -29,4 +29,13 @@ NEXMARK_QUERIES = (
     "q5_session",        # session-aggregate: per-bidder activity sessions
     "q6_topn",           # top-N-by-key: highest bids per auction
     "q7_distinct",       # distinct: first bid per selected auction
+)
+
+#: process-wide recovery counters (``runtime/faults.py::bump``)
+RECOVERY_COUNTERS = (
+    "restarts", "backoff_sleeps", "backoff_seconds",
+    "dead_letters", "watchdog_timeouts", "faults_injected",
+    "checkpoint_saves", "checkpoint_corrupt_skipped",
+    "checkpoint_fallbacks",
+    "recovery_seconds",
 )

@@ -1,13 +1,15 @@
 """Operators of the port (the YSB, Nexmark, windowed-operator, stateless and
-keyed-state slices)."""
+keyed-state slices, and the interval join and session windows of
+Nexmark q4 and q5)."""
 
 from .accumulator import Accumulator
 from .base import Basic_Operator
 from .filter import Compact, Filter, FilterMap
 from .flatmap import FlatMap
-from .join import StreamTableJoin
+from .join import IntervalJoin, StreamTableJoin
 from .map import BatchMap, KeyBy, KeyedMap, Map
 from .rank import Distinct, TopN
+from .session import SessionWindow
 from .sink import ReduceSink, Sink
 from .source import (DeviceSource, GeneratorSource, RecordSource, Source, SourceBase,
                      prefetch_to_device)
@@ -22,4 +24,4 @@ __all__ = ["Accumulator", "FlatMap", "KeyedMap", "FFATState", "Basic_Operator", 
            "prefetch_to_device",
            "GFFATState", "Win_SeqFFAT", "WindowSpec", "StreamTableJoin", "TopN",
            "Distinct", "Win_Seq", "WinSeqState", "Win_Farm", "Key_Farm", "Pane_Farm",
-           "Win_MapReduce", "Nested_Farm", "Iterable"]
+           "Win_MapReduce", "Nested_Farm", "Iterable", "IntervalJoin", "SessionWindow"]

@@ -1,16 +1,31 @@
-"""Stream-table join: enrichment of a probe stream from a build stream.
+"""Streaming joins: stream-table enrichment and the interval join.
 
-Counterpart of ``windflow_tpu/operators/join.py::StreamTableJoin`` (untiered,
-event-time monitoring off). Both sides arrive merged in one stream;
-``side_fn`` separates them per tuple. Build-side tuples upsert into the
-versioned, watermark-consistent JoinTable of ``ops/lookup.py`` (last writer
-by ``(ts, id)`` wins per key); probe-side tuples then read the table as of
-the build watermark through ``join_probe`` (kernel K5 on the card). Each
-apply runs K5 twice: once inside the upsert (the ring keys' existing slots)
-and once for the probe.
+Counterpart of ``windflow_tpu/operators/join.py`` (untiered, event-time
+monitoring off). Both sides arrive merged in one stream; ``side_fn``
+separates them per tuple.
 
-Not ported yet: ``IntervalJoin`` (Nexmark q4, ROADMAP Queue 1 item 11),
-tiered state (``tiered=``, item 13) and event-time monitoring (item 16).
+- :class:`StreamTableJoin`: build-side tuples upsert into the versioned,
+  watermark-consistent JoinTable of ``ops/lookup.py`` (last writer by
+  ``(ts, id)`` wins per key); probe-side tuples then read the table as of
+  the build watermark through ``join_probe`` (kernel K5 on the card). Each
+  apply runs K5 twice: once inside the upsert (the ring keys' existing
+  slots) and once for the probe.
+- :class:`IntervalJoin`: both sides live in bounded ring archives; each
+  arriving tuple is matched against the opposite archive (a left tuple also
+  against the batch's own right tuples) and every pair is emitted once, when
+  its later member arrives. The JAX package computes a ``[C, N]`` compare
+  and ``max_matches`` one-hot select-sums over it, outside any Pallas
+  kernel; the port computes the match mask once, counts it in column
+  blocks, finds each lane's first ``max_matches`` candidate columns with
+  two batched ``searchsorted`` calls (the block, then the column in it),
+  and gathers from them, row chunk by row chunk (:data:`PROBE_CHUNK_CELLS`),
+  in plain PyTorch. A gather gives what the
+  select-sum gives: ``jnp.sum``'s dtype, 0 in every field of an unmatched
+  pick, and a float ``-0.0`` read as ``+0.0``.
+
+Not ported, and refused by name: tiered state (``tiered=``, ROADMAP Queue 1
+item 13; ``_append_spill`` and ``_cold_candidates`` come with it) and
+event-time monitoring (item 16).
 """
 
 from __future__ import annotations
@@ -21,8 +36,22 @@ import torch
 
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, TupleRef, map_tuples, spec_of, tree_map, vmap_lanes
-from ..ops.lookup import join_table_init, join_table_probe, join_table_upsert
+from ..ops.lookup import (JOIN_KEY_SENTINEL, _plus_zero, _set_drop, count_drops,
+                          join_table_init, join_table_probe, join_table_upsert)
+from ..ops.window_reduce import sum_dtype
 from .base import Basic_Operator
+
+_I32 = torch.int32
+_IMIN = -(1 << 31)
+
+#: cells of the ``[rows, candidates]`` match mask an interval-join probe
+#: computes at once: rows are taken in chunks of ``PROBE_CHUNK_CELLS //
+#: candidates`` (peak about 6 bytes a cell: the int32 time difference and
+#: two bool masks)
+PROBE_CHUNK_CELLS = 1 << 27
+#: candidate columns a block of the probe's two-level prefix count (below
+#: 256: a block's count is summed in uint8)
+PROBE_BLOCK = 128
 
 
 def refuse_tiered(name: str, tiered) -> None:
@@ -113,4 +142,262 @@ class StreamTableJoin(Basic_Operator):
         return state, batch.replace(payload=payload, valid=valid)
 
 
-__all__ = ["StreamTableJoin", "refuse_tiered"]
+def _default_pair_emit(l: TupleRef, r: TupleRef):
+    """Union payload of a matched pair: dict payloads merge under ``l_``/
+    ``r_`` prefixes; other pytrees nest under ``{"l": ..., "r": ...}``."""
+    if isinstance(l.data, dict) and isinstance(r.data, dict):
+        out = {f"l_{k}": v for k, v in l.data.items()}
+        out.update({f"r_{k}": v for k, v in r.data.items()})
+        return out
+    return {"l": l.data, "r": r.data}
+
+
+def _pick(a: torch.Tensor, flat: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """``a[flat]`` where ``hit``, else 0, as the JAX package's one-hot
+    ``jnp.sum(jnp.where(sel, a, 0), axis=1)`` over ``n = len(a)`` candidates
+    gives it: in ``jnp.sum``'s dtype, and a float ``-0.0`` as ``+0.0`` (the
+    sum starts from ``+0.0``; XLA drops a sum over one element)."""
+    n = a.shape[0]
+    dt = sum_dtype(a.dtype)
+    g = a.index_select(0, flat)
+    keep = hit.reshape(hit.shape + (1,) * (g.ndim - 1))
+    if dt == torch.uint32 and a.dtype != torch.uint32:
+        # torch has no uint16 ``where`` on the card: widen first
+        return torch.where(keep, g.to(torch.int64), 0).to(torch.uint32)
+    g = g.to(dt)
+    g = torch.where(keep, g, torch.zeros((), dtype=dt, device=g.device))
+    return _plus_zero(g) if dt.is_floating_point and n >= 2 else g
+
+
+class IntervalJoin(Basic_Operator):
+    """Interval (stream-stream) join over one merged (tagged) stream.
+
+    A pair ``(l, r)`` matches when ``l.key == r.key`` and ``r.ts - l.ts in
+    [lower, upper]``. Both archives evict exactly the tuples the watermark
+    (as of the start of the batch) proves can no longer match (``l.ts <
+    wm - delay - upper``, ``r.ts < wm - delay + lower``). Each arriving tuple
+    probes the opposite archive (plus, for the left side, the batch's own
+    right tuples), so every pair is emitted once, when its later member
+    arrives. Up to ``max_matches`` matches per probing tuple are kept
+    (candidate order: archive slot, then batch lane); overflow is counted in
+    ``state["match_drops"]``, live archive slots overwritten by the ring in
+    ``state["arch_drops"]``. ``ts_l``/``ts_r`` optionally extract per-side
+    event time from the payload.
+
+    ``emit(l, r) -> payload`` shapes the output (default: ``l_``/``r_``
+    prefixed union). Output rows are ``[left probes C*M ; right probes
+    C*M]``, lane-major: key and id are the probing lane's, ts is
+    ``max(l.ts, r.ts)``."""
+
+    routing = routing_modes_t.KEYBY
+
+    def __init__(self, side_fn: Callable, lower: int, upper: int, *,
+                 archive: Optional[int] = None, max_matches: int = 4,
+                 delay: int = 0, emit: Optional[Callable] = None,
+                 ts_l: Optional[Callable] = None, ts_r: Optional[Callable] = None,
+                 tiered=None, name: str = "interval_join", parallelism: int = 1,
+                 device=None):
+        refuse_tiered(name, tiered)
+        super().__init__(name, parallelism, device)
+        self.side_fn = side_fn
+        self.lower = int(lower)
+        self.upper = int(upper)
+        self.archive = None if archive is None else int(archive)
+        self.max_matches = int(max_matches)
+        self.delay = int(delay)
+        self.emit = emit or _default_pair_emit
+        self.ts_l = ts_l
+        self.ts_r = ts_r
+        if self.max_matches < 1:
+            raise ValueError(f"{name}: max_matches must be >= 1")
+        if self.delay < 0:
+            raise ValueError(f"{name}: delay (lateness) must be >= 0")
+        self._archive_resolved = archive
+
+    def bind_geometry(self, batch_capacity: int) -> None:
+        a = self.archive if self.archive is not None else 2 * int(batch_capacity)
+        if a < batch_capacity:
+            raise ValueError(
+                f"{self.name}: archive={a} < batch capacity {batch_capacity} — one "
+                f"batch's ring writes would collide (size archive >= the batch "
+                f"capacity)")
+        self._archive_resolved = int(a)
+
+    def out_capacity(self, in_capacity: int) -> int:
+        return 2 * in_capacity * self.max_matches
+
+    def _emit_lanes(self, lk, li, lt, ld, rk, ri, rt, rd):
+        return vmap_lanes(
+            lambda a, b, c, d, e, f, g, h: self.emit(TupleRef(key=a, id=b, ts=c, data=d),
+                                                     TupleRef(key=e, id=f, ts=g, data=h)),
+            lk, li, lt, ld, rk, ri, rt, rd)
+
+    def out_spec(self, payload_spec: Any) -> Any:
+        b = Batch.empty(1, payload_spec, self.device)
+        return spec_of(self._emit_lanes(b.key, b.id, b.ts, b.payload,
+                                        b.key, b.id, b.ts, b.payload))
+
+    def init_state(self, payload_spec: Any):
+        A = self._archive_resolved or 2 * DEFAULT_MAX_KEYS
+        dev = self.device
+
+        def side():
+            return {"key": torch.full((A,), JOIN_KEY_SENTINEL, dtype=_I32, device=dev),
+                    "ts": torch.zeros((A,), dtype=_I32, device=dev),
+                    "id": torch.zeros((A,), dtype=_I32, device=dev),
+                    "ok": torch.zeros((A,), dtype=torch.bool, device=dev),
+                    "pay": tree_map(lambda s: torch.zeros((A,) + tuple(s.shape),
+                                                          dtype=s.dtype, device=dev),
+                                    payload_spec)}
+        s = lambda v: torch.tensor(v, dtype=_I32, device=dev)  # noqa: E731
+        return {"l": side(), "r": side(), "lcur": s(0), "rcur": s(0), "wm": s(_IMIN),
+                "match_drops": s(0), "arch_drops": s(0)}
+
+    def _event_ts(self, batch, is_l):
+        if self.ts_l is None and self.ts_r is None:
+            return batch.ts
+        tl = map_tuples(self.ts_l, batch) if self.ts_l is not None else batch.ts
+        tr = map_tuples(self.ts_r, batch) if self.ts_r is not None else batch.ts
+        return torch.where(is_l, tl.to(_I32), tr.to(_I32))
+
+    def _probe(self, pmask, pkey, pts, ck, cts, cok):
+        """Each probing lane's first ``max_matches`` candidates with an equal
+        key and ``cts - pts`` in ``[0, upper - lower]`` (wrapping int32):
+        returns (matched bool[C, M], candidate column int64[C, M], overflow).
+        Callers pre-shift ``pts`` and ``cts`` so the window is ``[0, span]``.
+
+        Per row chunk: the mask (two passes: the wrapped difference tested
+        unsigned, ``cts - (pts ^ INT_MIN) <= span + INT_MIN`` in signed
+        int32, then the key compare), its count in column blocks of
+        :data:`PROBE_BLOCK`, and for the (j+1)-th match the block where the
+        blocks' prefix count reaches j+1 and the column inside it where the
+        block's own prefix count does."""
+        M, Bk = self.max_matches, PROBE_BLOCK
+        span = self.upper - self.lower
+        C, n = pkey.shape[0], ck.shape[0]
+        dev = pkey.device
+        nb = max(1, -(-n // Bk))
+        pad = nb * Bk - n
+        # disabled and padding slots get keys no int32 key equals
+        cka = torch.where(cok, ck.to(torch.int64), 1 << 40)
+        cts_p = cts
+        if pad:
+            cka = torch.cat([cka, torch.full((pad,), 1 << 40, dtype=torch.int64,
+                                             device=dev)])
+            cts_p = torch.cat([cts, torch.zeros((pad,), dtype=cts.dtype, device=dev)])
+        pk = pkey.to(torch.int64)
+        q = pts ^ _IMIN                       # pts - INT_MIN, wrapping
+        bound = min(span, (1 << 31) - 1) + _IMIN
+        want = torch.arange(1, M + 1, dtype=_I32, device=dev)
+        rows = max(1, PROBE_CHUNK_CELLS // (nb * Bk))
+        matched, cols, counts = [], [], []
+        for r0 in range(0, C, rows):
+            r1 = min(C, r0 + rows)
+            R = r1 - r0
+            if span < 0:                      # an empty window matches nothing
+                m = torch.zeros((R, nb * Bk), dtype=torch.bool, device=dev)
+            else:
+                m = (cts_p[None, :] - q[r0:r1, None]) <= bound
+                m &= pk[r0:r1, None] == cka[None, :]
+            blocks = m.view(R, nb, Bk)
+            # a block counts at most PROBE_BLOCK (< 256) cells: summed as
+            # bytes, no int32 copy of the mask is made
+            bcs = torch.cumsum(blocks.view(torch.uint8).sum(2, dtype=torch.uint8), 1,
+                               dtype=_I32)                                  # [R, nb]
+            cnt = torch.where(pmask[r0:r1], bcs[:, -1], 0)
+            hit = cnt[:, None] >= want[None, :]
+            blk = torch.clamp(torch.searchsorted(bcs, want.expand(R, M).contiguous()),
+                              max=nb - 1)                                   # [R, M]
+            before = torch.where(blk > 0, bcs.gather(1, torch.clamp(blk - 1, min=0)), 0)
+            inner = torch.cumsum(blocks.gather(1, blk[:, :, None].expand(R, M, Bk)), 2,
+                                 dtype=_I32)                                # [R, M, Bk]
+            off = torch.searchsorted(inner.view(R * M, Bk),
+                                     (want[None, :] - before).reshape(R * M, 1))
+            del m, blocks, inner
+            matched.append(hit)
+            cols.append(torch.where(hit, blk * Bk + off.view(R, M), 0))
+            counts.append(cnt)
+        cnt = torch.cat(counts)
+        overflow = torch.clamp(cnt - M, min=0).sum(dtype=_I32)
+        return torch.cat(matched), torch.cat(cols), overflow
+
+    def _rows(self, batch, pmask, ets, cand, swap):
+        """Output rows of one probe direction: ``cand`` is the candidate
+        side's (key, ts, id, ok, pay); ``swap`` True when the PROBING lane is
+        the right side (candidates are archived left tuples)."""
+        M = self.max_matches
+        ck, cts, cid, cok, cpay = cand
+        # shift so _probe's [0, upper-lower] window encodes r.ts - l.ts in
+        # [lower, upper] for either direction: right probes negate the axis
+        pts = ets + self.lower if not swap else -ets + self.lower
+        matched, cols, overflow = self._probe(pmask, batch.key, pts, ck,
+                                              cts if not swap else -cts, cok)
+        flat, hit = cols.reshape(-1), matched.reshape(-1)
+        k2, x2, id2 = (_pick(a, flat, hit) for a in (ck, cts, cid))
+        pay2 = tree_map(lambda a: _pick(a, flat, hit), cpay)
+        rep = lambda a: a.repeat_interleave(M, dim=0)  # noqa: E731
+        # the probing side's ref carries the EXTRACTED event time
+        probe = (rep(batch.key), rep(batch.id), rep(ets), tree_map(rep, batch.payload))
+        cref = (k2, id2, x2, pay2)
+        lref, rref = (probe, cref) if not swap else (cref, probe)
+        payload = self._emit_lanes(*lref, *rref)
+        return hit, probe[0], torch.maximum(lref[2], rref[2]), probe[1], payload, overflow
+
+    def _append(self, side, cur, mask, key, ets, batch):
+        """Ring-append the batch's ``mask`` lanes into one side's archive;
+        returns (side, cur, live slots overwritten)."""
+        A = side["key"].shape[0]
+        csum = torch.cumsum(mask.to(_I32), 0, dtype=_I32)
+        pos = torch.remainder(cur + csum - 1, A)
+        idx = torch.where(mask, pos, A)
+        overwrote = (mask & side["ok"].index_select(0, pos.long())).sum(dtype=_I32)
+        out = {"key": _set_drop(side["key"], idx, key),
+               "ts": _set_drop(side["ts"], idx, ets),
+               "id": _set_drop(side["id"], idx, batch.id),
+               "ok": _set_drop(side["ok"], idx, torch.ones_like(mask)),
+               "pay": tree_map(lambda t, v: _set_drop(t, idx, v), side["pay"],
+                               batch.payload)}
+        return out, torch.remainder(cur + csum[-1], A), overwrote
+
+    def apply(self, state, batch: Batch):
+        is_l = map_tuples(self.side_fn, batch).to(torch.bool)
+        lmask = batch.valid & is_l
+        rmask = batch.valid & ~is_l
+        ets = self._event_ts(batch, is_l)
+        wm = torch.maximum(state["wm"], torch.where(batch.valid, ets, _IMIN).max())
+        # evict against the watermark AS OF THE START of the batch: the
+        # lateness contract only promises that future arrivals stay at or
+        # above (previous wm) - delay
+        horizon = state["wm"] - self.delay
+        l, r = dict(state["l"]), dict(state["r"])
+        l["ok"] = l["ok"] & (l["ts"] >= horizon - self.upper)
+        r["ok"] = r["ok"] & (r["ts"] >= horizon + self.lower)
+        # left probes see archived rights PLUS the batch's own rights (an
+        # in-batch pair counts once, from the left side)
+        cat = lambda a, b: torch.cat([a, b], 0)  # noqa: E731
+        r_cand = (cat(r["key"], torch.where(rmask, batch.key, JOIN_KEY_SENTINEL)),
+                  cat(r["ts"], ets), cat(r["id"], batch.id), cat(r["ok"], rmask),
+                  tree_map(cat, r["pay"], batch.payload))
+        l_cand = (l["key"], l["ts"], l["id"], l["ok"], l["pay"])
+        lrows = self._rows(batch, lmask, ets, r_cand, swap=False)
+        rrows = self._rows(batch, rmask, ets, l_cand, swap=True)
+        out = Batch(key=cat(lrows[1], rrows[1]), id=cat(lrows[3], rrows[3]),
+                    ts=cat(lrows[2], rrows[2]), payload=tree_map(cat, lrows[4], rrows[4]),
+                    valid=cat(lrows[0], rrows[0]))
+        l, lcur, odl = self._append(l, state["lcur"], lmask, batch.key, ets, batch)
+        r, rcur, odr = self._append(r, state["rcur"], rmask, batch.key, ets, batch)
+        new_state = dict(
+            state, l=l, r=r, lcur=lcur, rcur=rcur, wm=wm,
+            match_drops=count_drops(state["match_drops"], "match_drops",
+                                    lrows[5] + rrows[5]),
+            arch_drops=count_drops(state["arch_drops"], "arch_drops", odl + odr))
+        return new_state, out
+
+    def drop_counters(self, state: Any = None) -> dict:
+        if state is None:
+            return {}
+        return {"match_drops": int(state["match_drops"]),
+                "arch_drops": int(state["arch_drops"])}
+
+
+__all__ = ["IntervalJoin", "StreamTableJoin", "refuse_tiered"]

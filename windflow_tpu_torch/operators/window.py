@@ -20,8 +20,8 @@ vmaps over the fired windows, from plain ``(data, ids, ts, mask)`` arguments
 ``ops/window_reduce.py::masked_window_reduce`` (kernel K6 on the card) for
 every 1-D leaf.
 
-The session triggerer (``WindowSpec.session``) comes with SessionWindow
-(ROADMAP Queue 1 item 11).
+The session triggerer (``WindowSpec.session``, :meth:`WindowSpec.fired_session`)
+is the third firing family, consumed by ``operators/session.py::SessionWindow``.
 """
 
 from __future__ import annotations
@@ -53,9 +53,26 @@ class WindowSpec:
         if self.delay < 0:
             raise ValueError("delay (lateness) must be >= 0")
 
+    @staticmethod
+    def session(gap: int, delay: int = 0) -> "WindowSpec":
+        """A session window: a per-key session stays open while consecutive
+        events arrive within ``gap`` time units of each other and closes once
+        the gap is exceeded (:meth:`fired_session`); ``delay`` is the TB-style
+        lateness allowance."""
+        return WindowSpec(int(gap), int(gap), win_type_t.SESSION, int(delay))
+
     @property
     def is_cb(self):
         return self.wtype == win_type_t.CB
+
+    @property
+    def is_session(self):
+        return self.wtype == win_type_t.SESSION
+
+    @property
+    def gap(self) -> int:
+        """Session inter-arrival gap (``win_len`` doubles as the gap)."""
+        return self.win_len
 
     # batch-level triggerer arithmetic (int32 in, int32 out) ---------------------
 
@@ -74,6 +91,12 @@ class WindowSpec:
 
     def flush_hi_tb(self, max_ts, has_any):
         return torch.where(has_any, _floordiv(max_ts, self.slide) + 1, 0)
+
+    def fired_session(self, last_ts, watermark):
+        """SESSION triggerer: whether a session whose newest event is
+        ``last_ts`` is FIRED under ``watermark``: ``watermark - delay >
+        last_ts + gap``, both sides in wrapping int32 as XLA computes them."""
+        return watermark - self.delay > last_ts + self.gap
 
 
 def _fill_max(dtype):

@@ -227,15 +227,15 @@ class MultiPipe:
 
     def join_with(self, other: "MultiPipe", join_op) -> "MultiPipe":
         """Merge this pipe with ``other`` (both carry the tagged payload
-        schema) and add ``join_op``, a StreamTableJoin whose ``side_fn``
-        separates the sides again. Under ``Mode.DETERMINISTIC`` the merge's
-        Ordering_Node fixes the interleave."""
-        from ..operators.join import StreamTableJoin
-        if not isinstance(join_op, StreamTableJoin):
+        schema) and add ``join_op``, a StreamTableJoin or IntervalJoin whose
+        ``side_fn`` separates the sides again. Under ``Mode.DETERMINISTIC`` the
+        merge's Ordering_Node fixes the interleave, so the join is
+        byte-identical across drivers."""
+        from ..operators.join import IntervalJoin, StreamTableJoin
+        if not isinstance(join_op, (StreamTableJoin, IntervalJoin)):
             raise TypeError(
-                f"join_with expects a StreamTableJoin operator, got "
-                f"{type(join_op).__name__} (IntervalJoin is not ported yet: ROADMAP "
-                f"Queue 1 item 11)")
+                f"join_with expects a StreamTableJoin/IntervalJoin operator, got "
+                f"{type(join_op).__name__}")
         merged = self.merge(other)
         merged.add(join_op)
         return merged
@@ -728,8 +728,9 @@ class PipeGraph:
 
     def _run_threaded(self):
         from ..native import SPSCQueue
+        from .faults import drain_queue_to_sentinel
         from .handoff import receive, send
-        from .threaded import (EOS, drain_queue_to_sentinel, join_streams, on_stream,
+        from .threaded import (EOS, join_streams, on_stream,
                                resolve_edge_capacity, stage_stream)
 
         pipes = self._all_pipes()

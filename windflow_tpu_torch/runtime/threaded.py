@@ -41,9 +41,17 @@ Failure handling, as in the JAX package:
   list holds the whole blocked chain; the root cause is the furthest
   downstream.
 
-Not ported, and refused by name: fault injection (``faults=``, ROADMAP
-Queue 1 item 12), the control plane (``control=``, item 15), monitoring and
-tracing (``monitoring=``, ``trace=``, item 16).
+Fault injection (``faults=``, ``runtime/faults.py``; None consults
+``WF_FAULT_PLAN``), at the JAX package's sites with its ``stage``/``pos``
+context: ``source.next`` per source batch, ``queue.stall`` and
+``chain.step`` per batch a segment pops, ``sink.consume`` per batch the sink
+thread takes. A ``stall`` fault sleeps in the stage thread (the latency the
+watchdog must notice); an ``error`` fault fails the stage as any error does.
+A stage the watchdog flags bumps the ``watchdog_timeouts`` recovery counter.
+
+Not ported, and refused by name: the control plane (``control=``, ROADMAP
+Queue 1 item 15), monitoring and tracing (``monitoring=``, ``trace=``, item
+16); the watchdog's journal record waits for item 16 too.
 """
 
 from __future__ import annotations
@@ -61,39 +69,18 @@ from ..native import SPSCQueue, pin_thread
 from ..operators.sink import Sink
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
+from . import faults as _faults
 from .dispatch import GroupRunner
+from .faults import drain_queue_to_sentinel
 from .handoff import receive, send
 from .pipeline import CompiledChain, record_source_launch, resolve_batch_hint
 
 #: the end-of-stream marker on a ring (sent bare: it carries no event)
 EOS = object()
 
-#: how long a failed stage keeps draining its input for the upstream's EOS
-#: (the upstream's ``finally`` always sends one, so this bounds only a
-#: producer thread that was killed)
-DRAIN_TIMEOUT_S = 30.0
-
-
-def drain_queue_to_sentinel(q, sentinel, timeout_s: float = DRAIN_TIMEOUT_S,
-                            poll_s: float = 0.0005) -> bool:
-    """Pop ``q``, dropping data items, until ``sentinel`` arrives: the failure
-    path of the threaded drivers (the port's copy of
-    ``windflow_tpu/runtime/faults.py::drain_queue_to_sentinel``). Returns
-    False on timeout."""
-    deadline = time.monotonic() + timeout_s
-    while time.monotonic() < deadline:
-        ok, item = q.pop(spin=64, max_yields=0)
-        if ok:
-            if item is sentinel:
-                return True
-            continue
-        time.sleep(poll_s)
-    return False
-
-
-def refuse_unported(faults=None, control=None, monitoring=None, trace=None) -> None:
-    for arg, what, item in ((faults, "faults", "12"), (control, "control", "15"),
-                            (monitoring, "monitoring", "16"), (trace, "trace", "16")):
+def refuse_unported(control=None, monitoring=None, trace=None) -> None:
+    for arg, what, item in ((control, "control", "15"), (monitoring, "monitoring", "16"),
+                            (trace, "trace", "16")):
         if arg is not None:
             raise NotImplementedError(f"{what}= of the threaded drivers is not ported "
                                       f"yet (ROADMAP Queue 1 item {item})")
@@ -171,7 +158,7 @@ class ThreadedPipeline:
                  heartbeat_timeout: Optional[float] = None, faults=None,
                  prefetch: int = 0, control=None, trace=None, dispatch=None,
                  monitoring=None, device=None):
-        refuse_unported(faults, control, monitoring, trace)
+        refuse_unported(control, monitoring, trace)
         self.device = resolve_device(device)
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
@@ -183,6 +170,7 @@ class ThreadedPipeline:
         self.pin = pin
         self.heartbeat_timeout = heartbeat_timeout
         self.prefetch = int(prefetch)
+        self._faults_arg = faults
         self._dispatch_arg = dispatch
         self._dispatch = None
         self._started = False
@@ -228,8 +216,9 @@ class ThreadedPipeline:
             with on_stream(stream):
                 batches = (self.source.batches_prefetched(self.batch_size, self.prefetch)
                            if self.prefetch else self.source.batches(self.batch_size))
-                for batch in batches:
+                for n, batch in enumerate(batches):
                     self._beat("source")
+                    _faults.fire("source.next", stage="source", pos=n)
                     record_source_launch(self.source, batch)
                     q.push(send(batch))
         except BaseException as e:          # noqa: BLE001 — raised by run()
@@ -249,6 +238,7 @@ class ThreadedPipeline:
             with on_stream(stream):
                 runner = GroupRunner(self.chains[i], self._dispatch,
                                      lambda out: q_out.push(send(out)))
+                n = 0
                 while True:
                     self._beat(stage)
                     ok, item = q_in.pop(spin=256, max_yields=1024)
@@ -259,7 +249,10 @@ class ThreadedPipeline:
                         eos_seen = True
                         runner.finish()
                         break
+                    _faults.fire("queue.stall", stage=stage, pos=n)
+                    _faults.fire("chain.step", stage=stage, pos=n)
                     runner.feed(receive(item))
+                    n += 1
         except BaseException as e:          # noqa: BLE001
             self._errors.append(e)
             if not eos_seen:
@@ -276,6 +269,7 @@ class ThreadedPipeline:
         eos_seen = False
         try:
             with on_stream(stream):
+                n = 0
                 while True:
                     self._beat("sink")
                     ok, item = q.pop(spin=256, max_yields=1024)
@@ -284,9 +278,11 @@ class ThreadedPipeline:
                     if item is EOS:
                         eos_seen = True
                         break
+                    _faults.fire("sink.consume", stage="sink", pos=n)
                     batch = receive(item)
                     if self.sink is not None:
                         self.sink.consume(batch)
+                    n += 1
                 if self.sink is not None:
                     self.sink.consume(None)
         except BaseException as e:          # noqa: BLE001
@@ -297,9 +293,8 @@ class ThreadedPipeline:
             self._done.add("sink")
 
     def _watchdog_body(self, stop: threading.Event):
-        # the JAX package also journals each stale stage and bumps a fault
-        # counter: the journal and the counters wait for the port of
-        # observability (ROADMAP Queue 1 item 16) and of faults (item 12)
+        # the JAX package also journals each stale stage: the journal waits
+        # for the port of observability (ROADMAP Queue 1 item 16)
         t = self.heartbeat_timeout
         while not stop.wait(min(t / 4.0, 0.05)):
             now = time.monotonic()
@@ -308,6 +303,7 @@ class ThreadedPipeline:
                     continue
                 if now - last > t:
                     self.watchdog_stale.append(stage)
+                    _faults.bump("watchdog_timeouts")
 
     # -- run --------------------------------------------------------------------------
 
@@ -328,8 +324,10 @@ class ThreadedPipeline:
     def run(self) -> dict:
         """Drive the stream to EOS; returns the chains' ``result()``."""
         self.start()
+        injector = _faults.resolve(self._faults_arg)
         try:
-            return self._run()
+            with _faults.activate(injector):
+                return self._run()
         finally:
             for chain in self.chains:
                 chain.capture_closed = False
