@@ -177,7 +177,26 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``queue.stall`` plan (segment 1 sleeps 1.5 s at one batch, heartbeat
     0.5 s): rows equal to the serial run's byte for byte, the watchdog names
     ``seg1``, the stall fired once;
-29. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
+29. ``supervised_ysb`` (after phase 15): YSB (8 x 2^20) through
+    ``SupervisedPipeline`` with a checkpoint every 2 batches, dispatch off
+    and at K = 3, an ``EventJournal`` active, in four cases: no plan;
+    seeded chain.step, sink.consume and source.next errors; a 1.0 s step
+    stall under a 0.5 s watchdog, run on a side CUDA stream; a poison batch
+    into a ``DeadLetterQueue``. Rows byte for byte equal to phase 4's plain
+    rows (the poison case: the plain rows without that batch), the restarts
+    and dead letters the plan implies, K1 and K2 once a batch pushed
+    (replays included), the journal's checkpoint and restore spans; logs
+    each restore span's ``dur_s`` and the ``recovery_seconds`` counter (the
+    time to recover), the run's seconds against the plain Pipeline's and
+    the snapshot's bytes;
+30. ``supervised_q3`` (after phase 8): q3 (16 x 2^14) under
+    ``SupervisedPipeline`` with one chain.step error: phase 8's q3 rows byte
+    for byte, K5 twice a batch pushed;
+31. ``supervised_graph`` (after phase 17): ``graph_windows`` under
+    ``run_supervised(checkpoint_every=4)`` with a chain.step and a
+    sink.consume error: phase 17's windows in delivery order, two restarts,
+    K2, K3, K4 and K6 counted exactly with the replays;
+32. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
     fixed-order float fold at ``keyed_cb``'s shape, launches summed over the
     paths, each counted from zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
@@ -1040,7 +1059,8 @@ def nexmark_pipeline_phase(torch, np, wt, registry):
     """The five queries through Pipeline.run, dispatch off and at K = 5 (16
     batches: three replays and a tail of one, which is ``push``): every
     sink row against the dense oracle, exact K4 and K5 launches, and the
-    two runs' rows byte for byte."""
+    two runs' rows byte for byte. Returns the launches and q3's
+    dispatch-off sink views (``supervised_q3`` holds its rows to them)."""
     from windflow_tpu_torch.nexmark import PORTED, make_query, oracles
 
     total = NEX_BATCHES * NEX_BATCH
@@ -1074,7 +1094,9 @@ def nexmark_pipeline_phase(torch, np, wt, registry):
                        runs[k_on][:2], runs[k_on][2])
         for c, n in runs[None][1].items():
             launches[c] += n
-    return launches
+        if name == "q3_enrich_join":
+            q3_views = runs[None][0]
+    return launches, q3_views
 
 
 def nexmark_loop_phase(torch, wt, card, profile):
@@ -2410,7 +2432,9 @@ def graph_windows_phase(torch, np, wt, registry):
     """split -> select -> merge-partial (DETERMINISTIC, TS_RENUMBERING) -> CB
     Win_Seq sum -> Sink at path A's keys and window, batch 2^16 over 2^21
     tuples: every window against the numpy oracle; K2, K3 and K6 once per
-    Win_Seq apply (K6 once per flush call), K4's calls as the node made them."""
+    Win_Seq apply (K6 once per flush call), K4's calls as the node made them.
+    Returns the launches, the windows, the run's seconds and the sink parts
+    in delivery order."""
     from windflow_tpu_torch.ops import bitonic as B
 
     parts, cb = collect_sink()
@@ -2470,7 +2494,7 @@ def graph_windows_phase(torch, np, wt, registry):
     if applied["ordering_merge"] != calls or total["ordering_merge"] != calls:
         raise AssertionError(f"graph_windows: K4 counted {total['ordering_merge']}, the "
                              f"node made {calls} network calls")
-    return total, got, dt
+    return total, got, dt, parts
 
 
 # ------------------------------------------------------------- keyed-state phases
@@ -3202,6 +3226,313 @@ def ring_phase(card):
         raise AssertionError("ring: the selfbench moved no tokens")
 
 
+# ------------------------------------------------------------- supervised phases
+
+SUP_EVERY = 2             # supervised_ysb: a checkpoint every 2 batches
+SUP_K = 3                 # its scan dispatch; a commit flushes the accumulator,
+#                           so the groups hold SUP_EVERY batches
+SUP_BACKOFF = {"backoff_base": 0.001, "backoff_cap": 0.01}
+SUP_POISON = 3            # case (d)'s poison_threshold
+SUP_STALL_S = 1.0         # case (c): the stall of one step
+SUP_TIMEOUT_S = 0.5       # and the step watchdog
+SUP_DIR = os.path.join(ROOT, "build", "supervised")
+SUP_Q3_EVERY = 4          # supervised_q3: a checkpoint every 4 batches
+SUP_GRAPH_EVERY = 4       # supervised_graph: a checkpoint every 4 root batches
+
+
+def sup_case(F, case, k):
+    """Plan and expectations of a ``supervised_ysb`` case over YSB_BATCHES =
+    8 batches at dispatch ``k`` (None = off): the batches pushed (replays
+    included), the restarts, the checkpoints ended without and with an
+    error (``at_batch``: a commit every 2 batches, then the EOS commit after
+    the flush, at 8 again), the dead-letter positions. A fused group fires
+    ``chain.step`` at its head, so at K a fault meant for position p names
+    the head of p's group."""
+    head = (lambda p: p - p % SUP_EVERY) if k else (lambda p: p)
+    once = lambda site, p, **kw: F.FaultSpec(site, where={"pos": p}, max_fires=1, **kw)  # noqa: E731
+    if case == "none":
+        return None, {"pushed": 8, "restarts": 0, "ok": [2, 4, 6, 8, 8], "err": [], "dead": []}
+    if case == "errors":
+        # the step holding batch 3 (a replay of batch 2 at dispatch off), the
+        # second commit's first delivery, the read of batch 6 (nothing to replay)
+        plan = F.FaultPlan([once("chain.step", head(3)), once("sink.consume", 4),
+                            once("source.next", 6)], seed=11)
+        return plan, {"pushed": 8 if k else 9, "restarts": 3, "ok": [2, 6, 8, 8], "err": [4],
+                      "dead": []}
+    if case == "stall":
+        plan = F.FaultPlan([once("chain.step", head(5), kind="stall", stall_s=SUP_STALL_S)])
+        return plan, {"pushed": 8 if k else 9, "restarts": 1, "ok": [2, 4, 6, 8, 8], "err": [],
+                      "dead": []}
+    plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": 4}, max_fires=SUP_POISON)])
+    return plan, {"pushed": 7, "restarts": SUP_POISON, "ok": [2, 4, 6, 8, 8], "err": [],
+                  "dead": [4]}
+
+
+def count_pushes(chain):
+    """Count the batches ``chain`` takes through completed ``push`` and
+    ``push_many`` calls (replays included): a dict whose ``n`` grows."""
+    n = {"n": 0}
+    push, push_many = chain.push, chain.push_many
+
+    def counted_push(batch, from_op=0):
+        out = push(batch, from_op=from_op)
+        n["n"] += from_op == 0
+        return out
+
+    def counted_many(batches, from_op=0):
+        outs = push_many(batches, from_op=from_op)
+        n["n"] += len(outs) if from_op == 0 and len(outs) > 1 else 0
+        return outs
+    chain.push, chain.push_many = counted_push, counted_many
+    return n
+
+
+def journal_spans(records, event):
+    """The end records of ``event``'s spans."""
+    return [r for r in records if r["event"] == event and r.get("phase") == "end"]
+
+
+def supervised_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts):
+    """YSB at full width (8 x 2^20) through ``SupervisedPipeline`` with
+    checkpoints every 2 batches, at dispatch off and K = 3, an EventJournal
+    active, in four cases: (a) no plan; (b) a chain.step error at batch 3, a
+    sink.consume error at the second commit and a source.next error at batch
+    6; (c) a 1.0 s chain.step stall at batch 5 under a 0.5 s step watchdog,
+    run on a side CUDA stream (the watchdog's worker must enter it); (d)
+    poison at batch 4 for poison_threshold attempts, into a DeadLetterQueue.
+    Each case: rows byte for byte equal to the ``ysb`` phase's plain rows
+    ((d): the plain rows of the stream without batch 4), the restarts and
+    dead letters the plan implies, K1 and K2 once a batch pushed (replays
+    included) and nothing else, the checkpoint and restore spans the plan
+    implies. Logs each restore's ``dur_s`` and the ``recovery_seconds``
+    counter (the time to recover), the run's seconds against the plain
+    Pipeline's, and the snapshot's bytes."""
+    import shutil
+    import tempfile
+    from windflow_tpu_torch.observability import journal as J
+    from windflow_tpu_torch.runtime import faults as F
+    from windflow_tpu_torch.runtime.graphs import leaves
+
+    if YSB_BATCHES != 8:
+        raise AssertionError("supervised_ysb's expectations are written for 8 batches")
+    total = YSB_BATCHES * BATCH
+    make = lambda: (ysb.make_source(total), ysb.make_ops(**ysb.bench_geometry(BATCH)))  # noqa: E731
+    # the plain Pipeline's seconds, dispatch off and at K, beside the supervised runs
+    plain_s = {}
+    for k in (None, SUP_K):
+        src, ops = make()
+        _, plain_s[k], _ = run_pipeline(torch, registry, wt.Pipeline(
+            src, ops, wt.Sink(lambda v: None), batch_size=BATCH, dispatch=k or False), k)
+    # case (d)'s reference: the plain chain over the stream without batch 4
+    parts_d, cb_d = collect_sink()
+    src, ops = make()
+    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=src.out_capacity(BATCH))
+    sink = wt.Sink(cb_d)
+    for i, b in enumerate(src.batches(BATCH)):
+        if i != 4:
+            sink.consume(chain.push(b))
+    for out in chain.flush():
+        sink.consume(out)
+    del chain
+    os.makedirs(os.path.dirname(SUP_DIR), exist_ok=True)
+    jdir = tempfile.mkdtemp(prefix="journal-", dir=os.path.dirname(SUP_DIR))
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    try:
+        for case in ("none", "errors", "stall", "poison"):
+            for k in (None, SUP_K):
+                plan, want = sup_case(F, case, k)
+                parts, cb = collect_sink()
+                dlq = F.DeadLetterQueue() if case == "poison" else None
+                src, ops = make()
+                sp = wt.SupervisedPipeline(
+                    src, ops, wt.Sink(cb), batch_size=BATCH, checkpoint_every=SUP_EVERY,
+                    max_restarts=3, dispatch=k or False, faults=plan or False,
+                    dead_letter=dlq, poison_threshold=SUP_POISON,
+                    step_timeout=SUP_TIMEOUT_S if case == "stall" else None, **SUP_BACKOFF)
+                pushed = count_pushes(sp.chain)
+                path = os.path.join(jdir, f"{case}_{k}.jsonl")
+                journal = J.EventJournal(path)
+                side = torch.cuda.Stream() if case == "stall" else None
+
+                def run():
+                    J.set_active(journal)
+                    try:
+                        if side is None:
+                            sp.run()
+                        else:
+                            side.wait_stream(torch.cuda.current_stream())
+                            with torch.cuda.stream(side):
+                                sp.run()
+                            torch.cuda.current_stream().wait_stream(side)
+                    finally:
+                        J.set_active(None)
+                        journal.close()
+                F.reset_counters()
+                counts, dt, peak = counted_run(torch, registry, sp.start, run)
+                recs = J.read_journal(path)
+                restores = journal_spans(recs, "restore")
+                cks = journal_spans(recs, "checkpoint")
+                ctr = F.counters()
+                ref = parts_d if case == "poison" else ysb_parts
+                same = flat_bytes(np, parts) == flat_bytes(np, ref)
+                dead = [e["pos"] for e in dlq.entries] if dlq is not None else []
+                snap_bytes = sum(x.numel() * x.element_size()
+                                 for x in leaves(sp._snapshot()[0])
+                                 if isinstance(x, torch.Tensor))
+                log({"phase": "supervised_ysb", "case": case, "dispatch": k,
+                     "batches": YSB_BATCHES, "batch": BATCH, "checkpoint_every": SUP_EVERY,
+                     "plan": json.loads(plan.to_json()) if plan else None,
+                     "restarts": sp.restarts, "pushed": pushed["n"], "dead_letters": dead,
+                     "rows_byte_identical": same, "run_s": dt, "plain_run_s": plain_s[k],
+                     "supervised_over_plain": dt / plain_s[k],
+                     "restore_dur_s": [r["dur_s"] for r in restores],
+                     "recovery_seconds": ctr["recovery_seconds"],
+                     "backoff_seconds": ctr["backoff_seconds"],
+                     "checkpoints": len(cks),
+                     "checkpoint_dur_s": [r["dur_s"] for r in cks],
+                     "snapshot_bytes": snap_bytes, "launches": counts,
+                     "peak_mib": peak / 2 ** 20, "side_stream": side is not None,
+                     "card": card})
+                if not same:
+                    raise AssertionError(f"supervised_ysb {case} K={k}: rows differ from "
+                                         f"the plain run's")
+                if (sp.restarts, pushed["n"], dead) != (want["restarts"], want["pushed"],
+                                                        want["dead"]):
+                    raise AssertionError(f"supervised_ysb {case} K={k}: restarts "
+                                         f"{sp.restarts}, pushed {pushed['n']}, dead "
+                                         f"{dead}, expected {want}")
+                expect_launches(f"supervised_ysb {case} K={k}", counts,
+                                {"histogram": 1, "lookup": 1}, pushed["n"])
+                ok = [r["at_batch"] for r in cks if "error" not in r]
+                err = [r["at_batch"] for r in cks if "error" in r]
+                if ok != want["ok"] or err != want["err"] or len(restores) != sp.restarts:
+                    raise AssertionError(f"supervised_ysb {case} K={k}: checkpoints {ok} "
+                                         f"(errors at {err}), {len(restores)} restores, "
+                                         f"expected {want}")
+                if sp.restarts and not ctr["recovery_seconds"] > 0:
+                    raise AssertionError(f"supervised_ysb {case}: no recovery_seconds")
+                for kk, nn in counts.items():
+                    launches[kk] += nn
+                del sp, parts
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    return launches
+
+
+def supervised_q3_phase(torch, np, wt, registry, card, q3_views):
+    """Nexmark q3 (16 x 2^14) through ``SupervisedPipeline`` with a
+    checkpoint every 4 batches and one chain.step error at batch 5 (batch 4
+    is replayed): rows byte for byte equal to the ``nexmark`` phase's q3
+    rows, one restart, K5 twice a batch pushed and nothing else."""
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.runtime import faults as F
+
+    plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": 5}, max_fires=1)], seed=3)
+    views = []
+    src, ops = make_query("q3_enrich_join", NEX_BATCHES * NEX_BATCH)
+    sp = wt.SupervisedPipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                               checkpoint_every=SUP_Q3_EVERY, faults=plan, **SUP_BACKOFF)
+    pushed = count_pushes(sp.chain)
+    F.reset_counters()
+    counts, dt, peak = counted_run(torch, registry, sp.start, sp.run)
+    views = [v for v in views if v is not None]
+    same = flat_bytes(np, views) == flat_bytes(np, q3_views)
+    log({"phase": "supervised_q3", "batches": NEX_BATCHES, "batch": NEX_BATCH,
+         "checkpoint_every": SUP_Q3_EVERY, "restarts": sp.restarts, "pushed": pushed["n"],
+         "rows_byte_identical": same, "run_s": dt,
+         "recovery_seconds": F.counters()["recovery_seconds"], "launches": counts,
+         "peak_mib": peak / 2 ** 20, "card": card})
+    if not same:
+        raise AssertionError("supervised_q3: rows differ from the nexmark phase's q3 rows")
+    if sp.restarts != 1 or pushed["n"] != NEX_BATCHES + 1:
+        raise AssertionError(f"supervised_q3: {sp.restarts} restarts, {pushed['n']} pushed")
+    expect_launches("supervised_q3", counts, {"join_probe": 2}, pushed["n"])
+    return counts
+
+
+def supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s):
+    """``graph_windows`` (phase 17) under ``run_supervised`` with a
+    checkpoint every 4 root batches, a chain.step error at root batch 9 and
+    a sink.consume error at the third delivery: the windows byte for byte
+    equal to phase 17's in delivery order, two restarts, K2, K3 and K6 once
+    a Win_Seq apply and K6 once a flush call (replays included), K4 as every
+    Ordering_Node the run made called it."""
+    from collections import Counter
+    from windflow_tpu_torch.ops import bitonic as B
+    from windflow_tpu_torch.runtime import faults as F
+
+    parts, cb = collect_sink()
+    g, mp, m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE,
+                             GW_BATCH, cb)
+    op = m.ops[0]
+    inner, flushed = op.flush, {"calls": 0, "launches": dict.fromkeys(registry.KERNELS, 0)}
+
+    def flush(state):
+        before = registry.launch_counts()
+        out = inner(state)
+        for k, n in registry.launch_counts().items():
+            flushed["launches"][k] += n - before[k]
+        flushed["calls"] += 1
+        return out
+    op.flush = flush
+    nodes = []
+    ordering_of = g._ordering_of
+
+    def counted_ordering_of(merged):
+        o = ordering_of(merged)
+        if all(o is not n for n in nodes):
+            nodes.append(o)
+        return o
+    g._ordering_of = counted_ordering_of
+    plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": 9}, max_fires=1),
+                        F.FaultSpec("sink.consume", at=[3])], seed=17)
+    g.start()
+    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
+    F.reset_counters()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = g.run_supervised(checkpoint_every=SUP_GRAPH_EVERY, faults=plan, **SUP_BACKOFF)
+    finally:
+        del op.flush
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = registry.launch_counts()
+    applied = {k: total[k] - flushed["launches"][k] for k in total}
+    networks = sum((n.networks for n in nodes), Counter())
+    calls, cuda_launches = k4_launches(B, networks)
+    applies = m._chain._push_count
+    same = flat_bytes(np, parts) == flat_bytes(np, gw_parts)
+    log({"phase": "supervised_graph", "batch": GW_BATCH, "tuples": GW_TOTAL,
+         "checkpoint_every": SUP_GRAPH_EVERY, "restarts": g.supervised_restarts,
+         "windows_byte_identical": same, "run_s": dt, "graph_windows_run_s": gw_s,
+         "recovery_seconds": F.counters()["recovery_seconds"],
+         "win_seq_applies": applies, "flush_calls": flushed["calls"],
+         "launches_apply": applied, "launches_flush": flushed["launches"],
+         "ordering_nodes": len(nodes), "k4_calls": calls, "k4_cuda_launches": cuda_launches,
+         "card": card})
+    if not same:
+        raise AssertionError("supervised_graph: windows differ from phase 17's")
+    if g.supervised_restarts != 2:
+        raise AssertionError(f"supervised_graph: {g.supervised_restarts} restarts")
+    if int(res["rest"]) != len(range(2, GW_TOTAL, 3)):
+        raise AssertionError("supervised_graph: branch 2's count is wrong")
+    expect_launches("supervised_graph apply",
+                    {k: applied[k] for k in ("lookup", "segment_fold", "masked_window_reduce")},
+                    PATH_A_APPLY, applies)
+    expect_launches("supervised_graph flush", flushed["launches"],
+                    {"masked_window_reduce": 1}, flushed["calls"])
+    if total["ordering_merge"] != calls or applied["ordering_merge"] != calls:
+        raise AssertionError(f"supervised_graph: K4 counted {total['ordering_merge']}, the "
+                             f"nodes made {calls} network calls")
+    others = {k: n for k, n in total.items() if n and k not in (
+        "lookup", "segment_fold", "masked_window_reduce", "ordering_merge")}
+    if others:
+        raise AssertionError(f"supervised_graph: unexpected launches {others}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3254,13 +3585,16 @@ def main() -> int:
     main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
                                       main_launches)
+    sy_launches = supervised_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts)
     del ysb_parts
     ysb_loop_phase(torch, wt, ysb, card, args.profile)
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
     ysb_loop_phase(torch, wt, ysb, card, args.profile, name="ysb_sum_loop",
                    make_ops=ysb.make_ops_sum, steps=SUM_LOOP_STEPS)
     bench_dispatch_phase(torch, wt, card)
-    nex_launches = nexmark_pipeline_phase(torch, np, wt, registry)
+    nex_launches, q3_views = nexmark_pipeline_phase(torch, np, wt, registry)
+    sq_launches = supervised_q3_phase(torch, np, wt, registry, card, q3_views)
+    del q3_views
     nexmark_loop_phase(torch, wt, card, args.profile)
     ng_launches = nexmark_graph_phase(torch, np, wt, registry, card)
     q3_pipeline_phase(torch, np, wt, registry)
@@ -3272,7 +3606,9 @@ def main() -> int:
     windows_small_phase(wt, registry)
     ord_launches = ordering_phase(torch, np, wt, registry, card, args.profile)
     host_io_phase(torch, np, wt)
-    gw_launches, gw_rows, gw_s = graph_windows_phase(torch, np, wt, registry)
+    gw_launches, gw_rows, gw_s, gw_parts = graph_windows_phase(torch, np, wt, registry)
+    sg_launches = supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s)
+    del gw_parts
     fold_row = keyed_fold_checks(torch)
     kcb_launches = keyed_cb_phase(torch, np, wt, registry, card, args.profile)
     ks_launches = keyed_stateful_phase(torch, np, wt, registry, card, args.profile)
@@ -3296,7 +3632,9 @@ def main() -> int:
              "keyed_cb": kcb_launches, "keyed_stateful": ks_launches,
              "threaded_ysb": ty_launches, "record_ysb": ry_launches,
              "threaded_graph_windows": tgw_launches, "nexmark_graph": ng_launches,
-             "checkpoint": ck_launches, "faults": f_launches}
+             "checkpoint": ck_launches, "faults": f_launches,
+             "supervised_ysb": sy_launches, "supervised_q3": sq_launches,
+             "supervised_graph": sg_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

@@ -1,17 +1,22 @@
 """The port's fault injection (``windflow_tpu_torch/runtime/faults.py``), on the CPU.
 
-Mirrors the cases of the JAX package's ``tests/test_faults.py`` that need
-no supervisor (ROADMAP Queue 1 item 12's second half): the plan's JSON and
-environment forms, site and kind validation, the seeded probability, the
-decorrelated backoff, the ``checkpoint.load`` site, and both threaded
-cases (a stall delays rows without dropping any and the watchdog names the
-stage; a failing segment drains its upstream and closes everything). Also:
+Mirrors the cases of the JAX package's ``tests/test_faults.py``: the plan's
+JSON and environment forms, site and kind validation, the seeded
+probability, the decorrelated backoff, the ``checkpoint.load`` site, the
+SupervisedPipeline chaos cases (every site exactly once, the windowed sites,
+the watchdog, poison quarantine, a torn checkpoint and its lineage, the
+journal of a chaos run, an unreadable position that exhausts) and both
+threaded cases (a stall delays rows without dropping any and the watchdog
+names the stage; a failing segment drains its upstream and closes
+everything); the graph-supervised cases are in
+``tests/test_torch_graph_supervisor.py``. Also:
 ``ThreadedPipeline(faults=)`` fires its four sites with the JAX package's
 ``stage``/``pos`` context, the same plan fires at the same occurrences as
 in the JAX package's ThreadedPipeline, and the step watchdog and dead-letter
 queue work on the port's batches.
 """
 
+import json
 import random
 import threading
 
@@ -167,6 +172,167 @@ def test_checkpoint_load_site_fires(tmp_path):
             load_chain(chain, str(tmp_path / "c.npz"))
         assert load_chain(chain, str(tmp_path / "c.npz")) == {}   # fired once only
     assert faults_mod.counters()["faults_injected"] == 1
+
+
+# ------------------------------------------------- SupervisedPipeline chaos
+
+TOTAL, BATCH, K = 200, 25, 4
+
+
+def build_map(sink_cb, **kw):
+    src = wt.Source(lambda i: {"v": (i % 13).float()}, total=TOTAL, num_keys=K, **CPU)
+    return wt.SupervisedPipeline(src, [wt.Map(lambda t: {"v": t.v * 2}, **CPU)],
+                                 wt.Sink(sink_cb, **CPU), batch_size=BATCH,
+                                 backoff_base=0.001, backoff_cap=0.02, **CPU, **kw)
+
+
+def build_win(rows, **kw):
+    src = wt.Source(lambda i: {"v": (i % 13).float()}, total=TOTAL, num_keys=K, **CPU)
+    op = wt.Win_Seq(lambda wid, it: it.sum("v"), wt.WindowSpec(10, 10, wt.win_type_t.TB),
+                    num_keys=K, **CPU)
+
+    def cb(view):
+        if view is None:
+            return
+        rows.extend(zip(view["key"].tolist(), view["id"].tolist(),
+                        np.asarray(view["payload"]).tolist()))
+    return wt.SupervisedPipeline(src, [op], wt.Sink(cb, **CPU), batch_size=BATCH,
+                                 backoff_base=0.001, backoff_cap=0.02, **CPU, **kw)
+
+
+def test_pipeline_chaos_every_site_exactly_once(tmp_path):
+    oracle = []
+    build_map(collect(oracle)).run()
+    got = []
+    plan = FaultPlan([FaultSpec("source.next", at=[3]), FaultSpec("chain.step", at=[6]),
+                      FaultSpec("sink.consume", at=[2]),
+                      FaultSpec("checkpoint.save", at=[3])], seed=1)
+    inj = FaultInjector(plan)
+    p = build_map(collect(got), checkpoint_every=2, max_restarts=2,
+                  spill_path=str(tmp_path / "ckpt.npz"), faults=inj)
+    p.run()
+    assert got == oracle, "results lost/duplicated under chaos"
+    assert {s for s, *_ in inj.fired} == {"source.next", "chain.step", "sink.consume",
+                                          "checkpoint.save"}
+    assert p.restarts == 4
+    assert faults_mod.counters()["faults_injected"] == 4
+
+
+def test_pipeline_chaos_windowed_sites_fired():
+    oracle = []
+    build_win(oracle).run()
+    got = []
+    inj = FaultInjector(FaultPlan([FaultSpec("source.next", at=[5]),
+                                   FaultSpec("chain.step", at=[2, 9])], seed=2))
+    p = build_win(got, checkpoint_every=3, max_restarts=3, faults=inj)
+    p.run()
+    assert got == oracle
+    assert {s for s, *_ in inj.fired} == {"source.next", "chain.step"}
+    assert len(inj.fired) == 3 and p.restarts == 3
+
+
+def test_pipeline_watchdog_converts_hang_into_recovery():
+    oracle = []
+    build_map(collect(oracle)).run()
+    got = []
+    plan = FaultPlan([FaultSpec("chain.step", kind="stall", at=[4], stall_s=0.6)])
+    p = build_map(collect(got), checkpoint_every=2, max_restarts=2, step_timeout=0.15,
+                  faults=plan)
+    p.run()
+    assert got == oracle
+    assert p.restarts == 1
+    assert faults_mod.counters()["watchdog_timeouts"] == 1
+
+
+def test_pipeline_poison_batch_quarantined_not_exhausted(tmp_path):
+    oracle = []
+    build_map(collect(oracle)).run()
+    got = []
+    spill = str(tmp_path / "dead.jsonl")
+    dlq = DeadLetterQueue(spill_path=spill)
+    plan = FaultPlan([FaultSpec("chain.step", where={"pos": 5})])
+    p = build_map(collect(got), checkpoint_every=4, max_restarts=3, dead_letter=dlq,
+                  poison_threshold=3, faults=plan)
+    p.run()                                  # must not raise RestartExhausted
+    poisoned = set(range(5 * BATCH, 6 * BATCH))
+    assert got == [t for t in oracle if t[0] not in poisoned]
+    assert len(dlq) == 1
+    entry = dlq.entries[0]
+    assert entry["pos"] == 5 and entry["n_valid"] == BATCH
+    assert entry["ids"][0] == 5 * BATCH
+    assert "InjectedFault" in entry["error"]
+    with open(spill) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    assert len(lines) == 1 and lines[0]["pos"] == 5
+    assert faults_mod.counters()["dead_letters"] == 1
+
+
+def test_pipeline_torn_checkpoint_retried_and_lineage_restores(tmp_path):
+    from windflow_tpu_torch.runtime.checkpoint import _read_manifest, manifest_path
+    oracle = []
+    build_win(oracle).run()
+    got = []
+    spill = str(tmp_path / "lineage.npz")
+    plan = FaultPlan([FaultSpec("checkpoint.save", kind="torn", at=[2])])
+    p = build_win(got, checkpoint_every=3, max_restarts=2, spill_path=spill,
+                  checkpoint_keep=3, faults=plan)
+    p.run()
+    assert got == oracle
+    assert p.restarts == 1                   # the torn write was retried
+    q = build_win([])
+    meta = wt.load_chain(q.chain, spill)
+    assert meta["batches_done"] == TOTAL // BATCH
+    man = _read_manifest(manifest_path(spill))
+    assert man is not None and 1 <= len(man["entries"]) <= 3
+
+
+def test_chaos_run_is_journaled(tmp_path):
+    from windflow_tpu_torch.observability import EventJournal, read_journal, set_journal
+    path = str(tmp_path / "events.jsonl")
+    j = EventJournal(path)
+    set_journal(j)
+    try:
+        got = []
+        plan = FaultPlan([FaultSpec("chain.step", at=[3]),
+                          FaultSpec("chain.step", where={"pos": 6})])
+        p = build_map(collect(got), checkpoint_every=4, max_restarts=3,
+                      dead_letter=DeadLetterQueue(), poison_threshold=3, faults=plan)
+        p.run()
+    finally:
+        set_journal(None)
+        j.close()
+    events = read_journal(path)
+    assert {"fault_injected", "restore", "checkpoint", "backoff",
+            "dead_letter"} <= {e["event"] for e in events}
+    injected = [e for e in events if e["event"] == "fault_injected"]
+    assert all(e["site"] == "chain.step" for e in injected)
+    restores = [e for e in events if e["event"] == "restore" and e.get("phase") == "end"]
+    assert len(restores) == p.restarts
+    assert faults_mod.counters()["recovery_seconds"] > 0
+
+
+def test_unreadable_position_exhausts_instead_of_livelocking():
+    """A quarantined position whose read fails on every replay exhausts the
+    budget loudly (only the arming failure is free)."""
+    def factory():
+        def gen():
+            for s in range(0, 400, 50):
+                if s == 100:                 # chunk 2 unreadable, every replay
+                    raise ValueError("corrupt record at offset 100")
+                ids = np.arange(s, s + 50, dtype=np.int32)
+                yield ({"v": (ids % 13).astype(np.float32)}, ids % 4, ids)
+        return gen()
+
+    src = wt.GeneratorSource(factory, {"v": np.zeros((), np.float32)}, **CPU)
+    p = wt.SupervisedPipeline(src, [wt.Map(lambda t: {"v": t.v}, **CPU)],
+                              wt.Sink(lambda v: None, **CPU), batch_size=50,
+                              checkpoint_every=2, max_restarts=2,
+                              dead_letter=DeadLetterQueue(), poison_threshold=2,
+                              backoff_base=0.0, **CPU)
+    with pytest.raises(wt.RestartExhausted) as ei:
+        p.run()
+    assert isinstance(ei.value.__cause__, ValueError)
+    assert p.restarts <= 2 + 2 + 1, "restart loop must be bounded"
 
 
 # --------------------------------------------------------- threaded chaos

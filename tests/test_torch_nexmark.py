@@ -5,7 +5,10 @@ The same query runs through ``windflow_tpu`` and through ``windflow_tpu_torch``
 sink views must be identical field by field, bytes and dtypes, in emission
 order, and equal to the dense oracles (rows built as in
 ``tests/test_nexmark.py``). Also: q3 at a larger key space, the sources past
-the int32 wrap of ``i * 2477`` and ``i * 7919``, and the name registries.
+the int32 wrap of ``i * 2477`` and ``i * 7919``, the name registries, and
+``tests/test_nexmark.py``'s supervised and graph-supervised drivers for q3,
+q4 and q5: byte-identical to the plain Pipeline, without faults and under a
+FaultPlan.
 """
 
 import jax.numpy as jnp
@@ -36,11 +39,22 @@ def run_jax(name, batch, **kw):
     return views
 
 
-def run_port(name, batch, **kw):
-    src, ops = tmake(name, TOTAL, device="cpu", **kw)
+def run_port(name, batch, driver="plain", **kw):
+    src, ops = tmake(name, TOTAL, device="cpu")
     views = []
-    wt.Pipeline(src, ops, wt.Sink(_capture(views), device="cpu"), batch_size=batch,
-                device="cpu").run()
+    sink = wt.Sink(_capture(views), device="cpu")
+    if driver == "plain":
+        wt.Pipeline(src, ops, sink, batch_size=batch, device="cpu").run()
+    elif driver == "supervised":
+        wt.SupervisedPipeline(src, ops, sink, batch_size=batch, backoff_base=0.001,
+                              backoff_cap=0.01, device="cpu", **kw).run()
+    else:                                   # graph-supervised
+        g = wt.PipeGraph(batch_size=batch, device="cpu")
+        mp = g.add_source(src)
+        for op in ops:
+            mp.add(op)
+        mp.add_sink(sink)
+        g.run_supervised(checkpoint_every=2, backoff_base=0.001, backoff_cap=0.01, **kw)
     return views
 
 
@@ -110,7 +124,10 @@ def test_query_matches_jax_and_dense_oracle(name, batch):
 @pytest.mark.parametrize("batch", [32, 64, 400])
 def test_q3_larger_key_space_matches_jax(batch):
     """q3 with 50 auctions (more than the 16 bid auctions of the default)."""
-    got = run_port("q3_enrich_join", batch, n_auctions=50)
+    src, ops = tmake("q3_enrich_join", TOTAL, device="cpu", n_auctions=50)
+    got = []
+    wt.Pipeline(src, ops, wt.Sink(_capture(got), device="cpu"), batch_size=batch,
+                device="cpu").run()
     assert_views_identical(got, run_jax("q3_enrich_join", batch, n_auctions=50))
     want = sorted((i, (i * 2477) % 50, ((i * 2477) % 50 * 13) % 7,
                    (i * 7919) % 9973 + 100) for i in range(50, TOTAL))
@@ -140,3 +157,23 @@ def test_name_registries_match_jax():
     assert TQUERIES == QUERIES
     assert names.STAGE_COUNTERS == STAGE_COUNTERS
     assert set(oracles.ORACLES) == set(QUERIES)
+
+
+# ------------------------------------------------ the supervised drivers
+
+@pytest.mark.parametrize("name", ["q3_enrich_join", "q4_interval_join", "q5_session"])
+def test_supervised_drivers_byte_identical(name):
+    base = run_port(name, 50)
+    assert_views_identical(run_port(name, 50, "supervised"), base)
+    assert_views_identical(run_port(name, 50, "graph-supervised"), base)
+    assert rows(name, base) == oracles.ORACLES[name](TOTAL)
+
+
+@pytest.mark.parametrize("name", ["q3_enrich_join", "q4_interval_join", "q5_session"])
+def test_supervised_drivers_byte_identical_under_faultplan(name):
+    from windflow_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+    base = run_port(name, 50)
+    plan = FaultPlan([FaultSpec("chain.step", at=[3, 5])], seed=3)
+    assert_views_identical(run_port(name, 50, "supervised", checkpoint_every=2,
+                                    faults=plan), base)
+    assert_views_identical(run_port(name, 50, "graph-supervised", faults=plan), base)

@@ -5,7 +5,9 @@
 - the entry points default to ``"cuda"`` and raise without CUDA, instead of
   carrying on silently on the CPU;
 - the kernel registry names every ported kernel, its source and the Pallas
-  function it replaces, and counts launches only in the kernel wrappers.
+  function it replaces, and counts launches only in the kernel wrappers;
+- every name the JAX package exports at its top level is exported by the
+  port, or listed as unported with its ROADMAP item.
 """
 
 import ast
@@ -42,7 +44,8 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.operators.flatmap", "windflow_tpu_torch.native",
            "windflow_tpu_torch.runtime.threaded", "windflow_tpu_torch.runtime.handoff",
            "windflow_tpu_torch.operators.session", "windflow_tpu_torch.runtime.faults",
-           "windflow_tpu_torch.runtime.checkpoint"]
+           "windflow_tpu_torch.runtime.checkpoint", "windflow_tpu_torch.runtime.supervisor",
+           "windflow_tpu_torch.observability", "windflow_tpu_torch.observability.journal"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -108,16 +111,27 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
     assert set(registry.launch_counts().values()) == {0}
 
 
-def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item: supervision
-    (item 12's supervisor), tiered state (item 13) and the threaded driver's
-    control plane (item 15); fault injection (item 12's first half) and
-    item 9's operators build."""
-    g = wt.PipeGraph(device="cpu")
+def test_unported_paths_raise(monkeypatch):
+    """What is still unported raises, naming its ROADMAP item: sharded
+    supervision (item 14), tiered state (item 13) and the control plane
+    (item 15); the unsharded supervised run (item 12) gives the plain run's
+    result, and fault injection and item 9's operators build."""
+    def graph():
+        g = wt.PipeGraph(device="cpu")
+        g.add_source(wt.Source(lambda i: {"v": i}, total=10, device="cpu")).add(
+            wt.ReduceSink(lambda t: t.v, name="tot", device="cpu"))
+        return g
+    assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == int(graph().run()["tot"])
+    g = graph()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        g.run_supervised(shards=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        g.run_supervised(control=True)
+    with monkeypatch.context() as m:
+        m.setenv("WF_SHARDS", "2")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            g.run_supervised()
     src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
-    g.add_source(src).add(wt.ReduceSink(lambda t: t.v, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        g.run_supervised()
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
                          device="cpu")
@@ -208,3 +222,47 @@ def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: ysb.make_ops_wmr()):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+#: names ``windflow_tpu/__init__.py`` imports that the port does not export
+#: yet, each with the ROADMAP Queue 1 item that will port it
+UNPORTED_EXPORTS = {
+    "ShardedChain": 14, "shard_batch": 14, "make_mesh": 14, "make_mesh_2d": 14,
+    "ControlConfig": 15, "AdmissionController": 15, "TokenBucket": 15,
+    "PositionBucket": 15, "BackpressureGovernor": 15, "CapacityAutotuner": 15,
+    "Rebatcher": 15, "TuningCache": 15,
+    "MetricsRegistry": 16, "MonitoringConfig": 16, "Reporter": 16, "topology_dot": 16,
+    "topology_json": 16, "xprof_trace": 16,
+    "analysis": 18, "validate_graph": 18,
+}
+
+
+def _jax_package_exports():
+    """Every name ``windflow_tpu/__init__.py`` binds by import, read from its
+    source with ``ast`` (the JAX package is not imported)."""
+    path = os.path.join(REPO, "windflow_tpu", "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, ast.Import):
+            names += [a.asname or a.name.split(".")[0] for a in node.names]
+    return names
+
+
+def test_top_level_exports_match_the_jax_package():
+    """Each name the JAX package exports at its top level is an attribute of
+    the port's package or an unported name citing its ROADMAP item: the
+    recovery names (checkpoints, fault plans, the supervisor, the journal)
+    are exported."""
+    names = _jax_package_exports()
+    missing = sorted(n for n in names if not hasattr(wt, n) and n not in UNPORTED_EXPORTS)
+    assert not missing, f"exported by windflow_tpu, missing from the port: {missing}"
+    stale = sorted(n for n in UNPORTED_EXPORTS if hasattr(wt, n) or n not in names)
+    assert not stale, f"listed as unported but exported or not a JAX export: {stale}"
+    for n in ("save_chain", "load_chain", "CheckpointCorrupt", "FaultPlan", "FaultSpec",
+              "FaultInjector", "InjectedFault", "WatchdogTimeout", "DeadLetterQueue",
+              "SupervisedPipeline", "RestartExhausted", "EventJournal", "read_journal"):
+        assert n in names and hasattr(wt, n), n

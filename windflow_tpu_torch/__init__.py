@@ -7,7 +7,9 @@ H100, or as CUDA-graph replays of captured steps under scan dispatch
 (``Pipeline(dispatch=K)``) and in the bench step, by one host thread or, in
 ``ThreadedPipeline`` and ``PipeGraph.run(threaded=True)``, by one host thread
 a stage joined by the native SPSC rings (``native/``), each on a CUDA stream
-of its own. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+of its own. ``SupervisedPipeline`` and ``PipeGraph.run_supervised`` add
+aligned checkpoints, replay and exactly-once delivery on failure, journaled by
+the ``EventJournal``. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
@@ -32,6 +34,11 @@ from .operators import (Accumulator, Basic_Operator, BatchMap, Compact, DeviceSo
 from .runtime import (CompiledChain, MultiPipe, Pipeline, PipeGraph, ThreadedPipeline,
                       builders)
 from .runtime.async_sink import AsyncResultShipper, ShippedResult
+from .runtime.checkpoint import CheckpointCorrupt, load_chain, save_chain
+from .runtime.faults import (DeadLetterQueue, FaultInjector, FaultPlan, FaultSpec,
+                             InjectedFault, WatchdogTimeout)
+from .runtime.supervisor import RestartExhausted, SupervisedPipeline
+from .observability import EventJournal, read_journal
 from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Builder,
                                KeyFarm_Builder, KeyFFAT_Builder, Map_Builder,
                                PaneFarm_Builder, ReduceSink_Builder, Sink_Builder,

@@ -55,6 +55,7 @@ import torch
 
 from ..basic import ordering_mode_t
 from ..batch import Batch, CTRL_DTYPE, tree_map
+from ..observability import journal as _journal
 from ..ops import bitonic
 
 #: "no watermark yet": gates the low watermark (a channel at the sentinel
@@ -328,7 +329,9 @@ class Ordering_Node:
             lane = torch.arange(self.n_inputs, device=self._wm_dev.device) == channel
             self._wm_dev = torch.where(lane, torch.full_like(self._wm_dev, _BIG),
                                        self._wm_dev)
-        return self.try_release()
+        out = self.try_release()
+        self._journal_release("ordering_close_channel", channel=channel)
+        return out
 
     def flush(self) -> Optional[Batch]:
         """EOS: release everything, sorted (the pool already is). Reads its
@@ -336,6 +339,7 @@ class Ordering_Node:
         self.settle()
         if self._pending is None:
             self._last_release_count = 0
+            self._journal_release("ordering_flush")
             return None
         out, _, _, counts, nid = _split_release(
             self.mode, self._pending, self._pending_chan, self._wm_dev, self._next_id,
@@ -343,7 +347,16 @@ class Ordering_Node:
         self._pending, self._pending_chan = None, None
         self._next_id = nid
         self._last_release_count = int(counts[0])
+        self._journal_release("ordering_flush")
         return out
+
+    def _journal_release(self, event: str, **fields) -> None:
+        """An ordering-buffer record to the active journal (EOS-granular:
+        ``close_channel`` and ``flush``, never a push). Reading the release
+        count settles it, so it is read only when a journal is active."""
+        if _journal.get_active() is not None:
+            _journal.record(event, mode=self.mode.name, n_inputs=self.n_inputs,
+                            released=self.last_release_count, **fields)
 
 
 __all__ = ["Ordering_Node", "WM_NONE"]

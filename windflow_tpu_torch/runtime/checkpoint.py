@@ -33,10 +33,10 @@ static state at its next replay (``runtime/graphs.py``).
 Not ported, and refused by name: sharded checkpoints and the re-sharding
 handoffs (``save_sharded``, ``load_sharded``, ``seal_handoff``,
 ``discard_handoffs``: ROADMAP Queue 1 item 14) and the tiered state's
-manifests (a file that carries them raises on load: item 13). The JAX
-package also journals a skipped lineage entry and a fallback
-(``checkpoint_invalid``, ``checkpoint_fallback``): the journal waits for item
-16; the recovery counters count both here.
+manifests (a file that carries them raises on load: item 13). A skipped
+lineage entry and a fallback are counted in the recovery counters and
+journaled (``checkpoint_invalid``, ``checkpoint_fallback``), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability import journal as _journal
 from . import faults as _faults
 
 #: reserved __meta__ keys (stripped from the dict load_chain returns)
@@ -390,9 +391,12 @@ def _walk_lineage(path: str, restore_one):
                 last_err = e
                 skipped.append(ent["file"])
                 _faults.bump("checkpoint_corrupt_skipped")
+                _journal.record("checkpoint_invalid", path=f, error=type(e).__name__)
                 continue
             if skipped:
                 _faults.bump("checkpoint_fallbacks")
+                _journal.record("checkpoint_fallback", restored=ent["file"],
+                                skipped=skipped)
             return result
         raise CheckpointCorrupt(
             f"no valid checkpoint in lineage {path!r} "

@@ -18,11 +18,11 @@ no JAX, but the port imports nothing of the JAX package):
 - process-wide recovery counters (:func:`bump`, :func:`counters`), named by
   ``observability/names.py::RECOVERY_COUNTERS``.
 
-The JAX package also journals every fire, watchdog timeout and backoff
-(``fault_injected``, ``watchdog_timeout``, ``backoff``) through its event
-journal: the journal waits for the port of observability (ROADMAP Queue 1
-item 16). An injection site costs one module-attribute load and a ``None``
-check when no injector is active.
+Every fire, watchdog timeout and backoff is journaled (``fault_injected``,
+``watchdog_timeout``, ``backoff``) through the active event journal
+(``observability/journal.py``), as the JAX package does. An injection site
+costs one module-attribute load and a ``None`` check when no injector is
+active.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
+from ..observability import journal as _journal
 from ..observability.names import RECOVERY_COUNTERS
 
 #: the named injection sites (``shard.kill`` and ``reshard.handoff`` belong to
@@ -176,6 +179,8 @@ class FaultInjector:
                 self._spec_fires[i] += 1
                 self.fired.append((site, n, spec.kind, dict(ctx)))
                 bump("faults_injected")
+                _journal.record("fault_injected", site=site, occurrence=n,
+                                kind=spec.kind, **ctx)
                 return spec
         return None
 
@@ -292,21 +297,29 @@ def call_with_timeout(fn, timeout: Optional[float], *, stage: str = "step", pre=
     after waking from a pre-step stall) and :class:`WatchdogTimeout` is
     raised, carrying the abandoned thread as ``.worker``: a caller that
     restores state afterwards joins it first (:func:`join_abandoned_worker`).
-    A step hung inside the device cannot be interrupted, only detected."""
+    A step hung inside the device cannot be interrupted, only detected.
+
+    PyTorch keeps the current CUDA stream per thread: the worker enters the
+    caller's current stream, so the step's kernels are ordered before
+    whatever the caller queues on that stream next (a snapshot's copy to the
+    host included)."""
     if not timeout:
         if pre is not None:
             pre()
         return fn()
     box: dict = {}
     abandoned = threading.Event()
+    stream = _caller_stream()
 
     def worker():
         try:
-            if pre is not None:
-                pre()
-            if abandoned.is_set():
-                return                     # the watchdog gave up: leave state alone
-            box["value"] = fn()
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                if pre is not None:
+                    pre()
+                if abandoned.is_set():
+                    return                 # the watchdog gave up: leave state alone
+                box["value"] = fn()
         except BaseException as e:         # noqa: BLE001 — re-raised below
             box["error"] = e
 
@@ -316,12 +329,21 @@ def call_with_timeout(fn, timeout: Optional[float], *, stage: str = "step", pre=
     if t.is_alive():
         abandoned.set()
         bump("watchdog_timeouts")
+        _journal.record("watchdog_timeout", stage=stage, timeout_s=timeout)
         err = WatchdogTimeout(f"{stage} exceeded the {timeout}s watchdog timeout")
         err.worker = t
         raise err
     if "error" in box:
         raise box["error"]
     return box.get("value")
+
+
+def _caller_stream():
+    """The calling thread's current CUDA stream, or None where CUDA is not
+    in use (not available, or not initialized in this process)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return torch.cuda.current_stream()
+    return None
 
 
 def join_abandoned_worker(exc, grace: Optional[float]) -> None:
@@ -367,6 +389,7 @@ def backoff_sleep(rng: random.Random, prev: float, base: float, cap: float, *,
     s = min(cap, rng.uniform(base, max(base, prev * 3.0)))
     bump("backoff_sleeps")
     bump("backoff_seconds", s)
+    _journal.record("backoff", sleep_s=round(s, 6), attempt=attempt)
     time.sleep(s)
     return s
 

@@ -39,8 +39,14 @@ each pipe thread dispatches with its own accumulator
 pipe's chain and captures every graph a thread may replay before any thread
 starts.
 
-Not ported: ``run_supervised`` (ROADMAP Queue 1 item 12), ``monitoring=``
-and ``trace=`` (item 16), ``control=`` (item 15).
+Supervised execution (``run_supervised``): aligned checkpoints of every
+pipe's state, replay from the committed source positions and exactly-once
+delivery on every sink (``runtime/supervisor.py``), unsharded.
+
+The EOS records of the JAX drivers are journaled (``eos_flush`` a pipe in
+the serial driver's EOS flush, ``eos_propagate`` a pipe thread's end). Not
+ported: sharded supervision (ROADMAP Queue 1 item 14), ``monitoring=`` and
+``trace=`` (item 16), ``control=`` (item 15).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 from ..basic import DEFAULT_BATCH_SIZE, Mode, ordering_mode_t, routing_modes_t
 from ..batch import Batch, map_tuples, tree_map
 from ..device import resolve_device
+from ..observability import journal as _journal
 from ..operators.base import Basic_Operator
 from ..operators.sink import Sink
 from ..operators.source import SourceBase
@@ -317,9 +324,20 @@ class PipeGraph:
         self.start(threaded=threaded)
         return self.wait_end()
 
-    def run_supervised(self, **kw):
-        raise NotImplementedError("PipeGraph.run_supervised is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+    def run_supervised(self, *, checkpoint_every: int = 8, max_restarts: int = 3,
+                       **hardening):
+        """Supervised execution of the whole DAG: aligned checkpoints, replay
+        from the committed positions on failure, exactly-once delivery on
+        every sink (``runtime/supervisor.py::run_graph_supervised``; the
+        reference's failure model is exit(EXIT_FAILURE)). ``hardening``
+        forwards the recovery knobs: ``backoff_base``/``backoff_cap``
+        (decorrelated-jitter restart backoff), ``dead_letter``/
+        ``poison_threshold`` (poison-batch quarantine), ``step_timeout``
+        (hung-step watchdog), ``faults`` (a FaultPlan/FaultInjector),
+        ``dispatch``. Sets :attr:`supervised_restarts`."""
+        from .supervisor import run_graph_supervised
+        return run_graph_supervised(self, checkpoint_every=checkpoint_every,
+                                    max_restarts=max_restarts, **hardening)
 
     def start(self, threaded: bool = False):
         """Resolve the batch size and dispatch and make the roots' programs
@@ -397,7 +415,9 @@ class PipeGraph:
                 flush_buf()
         # EOS: every pipe in topological order; a merged pipe first drains its
         # Ordering_Node (tuples held back by the low watermark)
+        pipe_idx = {id(p): i for i, p in enumerate(self._all_pipes())}
         for mp in self._topo_order():
+            _journal.record("eos_flush", graph=self.name, pipe=pipe_idx.get(id(mp)))
             if mp._ordering is not None:
                 for piece in self._chunks(mp._ordering.flush(),
                                           mp._ordering.last_release_count):
@@ -734,6 +754,7 @@ class PipeGraph:
                                resolve_edge_capacity, stage_stream)
 
         pipes = self._all_pipes()
+        pipe_idx = {id(p): i for i, p in enumerate(pipes)}
         # one SPSC ring a dataflow edge (one producer, one consumer); a pipe
         # with several inputs (a merge) polls its rings round-robin
         in_queues = {id(p): [] for p in pipes}
@@ -807,6 +828,7 @@ class PipeGraph:
                     if drain_queue_to_sentinel(q, EOS):
                         live.remove(q)
             finally:
+                _journal.record("eos_propagate", graph=self.name, pipe=pipe_idx[id(mp)])
                 for branch in mp.split_branches:
                     out_edges[(id(mp), id(branch))].push(EOS)
                 for merged in mp._outputs_to:

@@ -17,9 +17,9 @@ device value.
 
 EOS protocol: the source exhausts; then each stateful operator's ``flush``
 drains residual state and the flushed batches cascade through the remaining
-suffix of the chain. The monitoring, control and tracing hooks of the JAX
-driver are not ported yet; ``event_time=True`` (event-time monitoring)
-raises.
+suffix of the chain; the source's exhaustion is journaled (``eos``). The
+monitoring, control and tracing hooks of the JAX driver are not ported yet;
+``event_time=True`` (event-time monitoring) raises.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..batch import Batch, same_capacity, stack_batches, tree_leaves, unstack_ba
 from ..device import resolve_device
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
+from ..observability import journal as _journal
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
 from .graphs import StepGraph, leaves, rebuild
@@ -126,6 +127,12 @@ class CompiledChain:
         #: synchronizes the device and fails in global capture mode while
         #: other threads launch) raises instead
         self.capture_closed = False
+
+    def reset_states(self) -> None:
+        """Re-initialize every operator's state (supervised replay of a chain
+        that did not exist at the last checkpoint). The new tensors reach a
+        captured graph at its next replay, as restored ones do."""
+        self.states = [op.init_state(self.specs[i]) for i, op in enumerate(self.ops)]
 
     @property
     def out_spec(self):
@@ -329,6 +336,7 @@ class Pipeline:
         for batch in batches:
             record_source_launch(self.source, batch)
             runner.feed(batch)
+        _journal.record("eos", pipeline=self.source.getName())
         runner.finish()                  # the partial tail < K, then the flush
         if self.sink is not None:
             self.sink.consume(None)      # empty-optional EOS signal (wf/sink.hpp)

@@ -51,7 +51,7 @@ A stage the watchdog flags bumps the ``watchdog_timeouts`` recovery counter.
 
 Not ported, and refused by name: the control plane (``control=``, ROADMAP
 Queue 1 item 15), monitoring and tracing (``monitoring=``, ``trace=``, item
-16); the watchdog's journal record waits for item 16 too.
+16). A stale stage is journaled (``watchdog_stale``) as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ import torch
 from ..basic import DEFAULT_BATCH_SIZE
 from ..device import resolve_device
 from ..native import SPSCQueue, pin_thread
+from ..observability import journal as _journal
 from ..operators.sink import Sink
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
@@ -293,8 +294,6 @@ class ThreadedPipeline:
             self._done.add("sink")
 
     def _watchdog_body(self, stop: threading.Event):
-        # the JAX package also journals each stale stage: the journal waits
-        # for the port of observability (ROADMAP Queue 1 item 16)
         t = self.heartbeat_timeout
         while not stop.wait(min(t / 4.0, 0.05)):
             now = time.monotonic()
@@ -304,6 +303,8 @@ class ThreadedPipeline:
                 if now - last > t:
                     self.watchdog_stale.append(stage)
                     _faults.bump("watchdog_timeouts")
+                    _journal.record("watchdog_stale", stage=stage,
+                                    stalled_s=round(now - last, 3), timeout_s=t)
 
     # -- run --------------------------------------------------------------------------
 
