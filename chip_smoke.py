@@ -196,13 +196,54 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``run_supervised(checkpoint_every=4)`` with a chain.step and a
     sink.consume error: phase 17's windows in delivery order, two restarts,
     K2, K3, K4 and K6 counted exactly with the replays;
-32. the ``{"kernels": [...]}`` summary (the six TPU kernels and the
-    fixed-order float fold at ``keyed_cb``'s shape, launches summed over the
-    paths, each counted from zero just before it), then the result line
-    ``{"ok": true, "device": {...}}`` as the last line.
+32. ``tiered_q3`` (tiered keyed state, after phase 26): ``bench.py``'s
+    tiered row as written (``benchmarks/tiered.py``: batch 1024, hot 4096,
+    keys 102,400, 12 probe batches through ``chain.push``), then the same
+    workload at batch 2^14 with the row's ratios (hot 65,536, keys
+    1,638,400: 100 definition batches and 12 probe batches, a host store of
+    about 1.6 M rows), eager (each push timed to completion; spills,
+    readmits and cold keys of every step logged) and at
+    ``Pipeline(dispatch=4)``: rows equal to the dense oracle and byte for
+    byte between the two, ``overflow_drops == 0``, K5 four times and
+    ``cold_probe`` once an apply, counted through the replays; ms and p99 of
+    a step;
+33. ``cold_probe`` (kernel check): the cold-tier probe against its plain
+    version (the store's host lookup) bit for bit at R = 49,152 over that
+    1.6 M-row store (hits, misses, unwanted lanes), and a graph captured
+    before a store grew, replayed after; its time and its bound (host-link
+    bytes over 64 GB/s);
+34. ``tiered_queries``: q5, q6 and q7 at 2^14 tiered (``TIERED_QUERIES``),
+    eager and at K = 4: the untiered rows (the dense oracle), byte for byte
+    between the two, each apply's K2, K3, K4, K5 and ``cold_probe``
+    launches exact, spills on every query;
+35. ``tiered_recovery``: tiered q3 at batch 1024 under
+    ``SupervisedPipeline`` (a checkpoint every 6 batches, a chain.step
+    fault at batch 30 with spills in flight, a journal active), dispatch
+    off and K = 3, then ``save_chain`` half way and ``load_chain`` into a
+    chain whose K = 3 graph was captured before the restore: rows byte for
+    byte equal to an uninterrupted run, the restore span's ``dur_s``;
+36. ``tiered_rotating``: q5 and q6 over a key space that rotates with the
+    stream (``rotating_query``: 64 bidders, 128 auctions, a 2^14 batch
+    touching a quarter of them) with hot capacities below the key space
+    (``TIERED_ROTATING``: 32, 48), eager and at K = 4: rows equal to the
+    untiered run's, byte for byte between the two, exact launches, spills
+    and readmissions;
+37. ``tiered_inputs``: the tiered runs of phases 32, 34 and 36 once more,
+    eagerly, with every K2, K3, K4 and K5 call's arguments cloned as it
+    launches; the last four calls of each distinct signature rerun through
+    the kernel and its plain version, bit for bit;
+38. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+    fixed-order float fold at ``keyed_cb``'s shape and ``cold_probe`` at
+    tiered q3's, launches summed over the paths, each counted from zero just
+    before it), then the result line ``{"ok": true, "device": {...}}`` as
+    the last line.
 
 Phase 3 also holds K4 at the Ordering_Node's shapes (merges of [1, 8192]
-and [1, 2^17], sorts of [1, 4096] and [1, 2^16]) and phase 11 holds K6 on
+and [1, 2^17], sorts of [1, 4096] and [1, 2^16]) and at TopN's tiered
+directories (17 and 48 rows), and K5 over tiered q3's live hot table
+(65,536 slots, 16,384 keys, the sentinel elsewhere) at 49,152 and 16,384
+lanes, and K2 and K3 at q5's tiered directories (9 and 32 slots); phase 11
+holds K6 on
 every dtype the JAX package sums (uint8 and uint16 into uint32 bit for bit,
 float16 and bfloat16 within 1e-2, float64 within 1e-12).
 
@@ -879,13 +920,15 @@ def nexmark_kernel_phase(torch):
     gen = torch.Generator(device=dev).manual_seed(20261019)
     rows = {}
 
-    def k5(case, C, K, vals_dtype, keys=None, timed=True):
+    def k5(case, C, K, vals_dtype, keys=None, timed=True, live=None):
+        """``live``: the table's keys the hits are drawn from (all by default)."""
         if keys is None:
             keys = (torch.randperm(8 * K, device=dev, generator=gen)[:K]
                     - 4 * K).to(torch.int32)
             if K > 4:
                 keys[-2:] = L.JOIN_KEY_SENTINEL    # unused slots: repeated sentinel
-        hits = keys[torch.randint(0, K, (C,), device=dev, generator=gen)]
+        pick = keys if live is None else live
+        hits = pick[torch.randint(0, len(pick), (C,), device=dev, generator=gen)]
         miss = torch.randint(-6 * K, 6 * K, (C,), device=dev, generator=gen,
                              dtype=torch.int32)
         probe = torch.where(torch.rand((C,), device=dev, generator=gen) < 0.7, hits, miss)
@@ -928,6 +971,18 @@ def nexmark_kernel_phase(torch):
     k5("one_lane", 1, Q3_AUCTIONS, torch.int32, timed=False)
     k5("ragged_lanes", (1 << 20) - 3, Q3_AUCTIONS, torch.int32, timed=False)
     k5("device_memory_table", 1 << 18, 1 << 15, torch.int32, timed=False)
+    # tiered q3 at 2^14 (tiered_q3): K5 over the live hot table of 65,536
+    # slots, the hot target's 16,384 keys of 1,638,400 and the sentinel in
+    # every other slot, for the resolve pass's hot-slot search (49,152 lanes:
+    # the batch and the pending ring) and the upsert's, the probe's and the
+    # touch's 16,384 lanes
+    hot = torch.full((4 * NEX_BATCH,), L.JOIN_KEY_SENTINEL, dtype=torch.int32, device=dev)
+    live = torch.randperm(100 * NEX_BATCH, device=dev, generator=gen)[:NEX_BATCH]
+    hot[torch.randperm(4 * NEX_BATCH, device=dev, generator=gen)[:NEX_BATCH]] = \
+        live.to(torch.int32)
+    for case, C in (("tiered_q3_hot_slot", 3 * NEX_BATCH), ("tiered_q3_probe", NEX_BATCH)):
+        k5(case, C, 4 * NEX_BATCH, torch.int32, keys=hot, live=live.to(torch.int32),
+           timed=False)
 
     def lexsort(p, s, c, i):
         perm = torch.argsort(i, dim=-1, stable=True)
@@ -1005,6 +1060,9 @@ def nexmark_kernel_phase(torch):
     k4("repeated_tuples", 16, 1 << 15, True, ties="repeated", timed=False)
     k4("repeated_tuples_one_cta", 3, 4096, True, ties="repeated", timed=False)
     k4("merge_repeated_rows", 16, 1 << 15, False, ties="repeated", timed=False)
+    # TopN's directory rows in the tiered phases (tiered_queries)
+    for hot in (TIERED_QUERIES["q6_topn"], TIERED_ROTATING["q6_topn"]):
+        k4(f"topn_tiered_hot_{hot}", hot, 1 << 15, True, timed=False)
     return rows
 
 
@@ -1157,15 +1215,21 @@ def session_kernel_phase(torch):
     price = b.payload["price"][perm].contiguous()
     valid = torch.ones((C,), dtype=torch.bool, device=dev)
     flag = (torch.rand((C,), device=dev, generator=gen) < 0.3).to(torch.int32)
-    table = torch.randint(-2 ** 31, 2 ** 31, (K,), device=dev, generator=gen,
-                          dtype=torch.int64).to(torch.int32)
     key = b.key.contiguous()
-    check_kernel(torch, "lookup", f"q5_table_K{K}",
-                 lambda: L.lookup_cuda(table, key), lambda: L.lookup_plain(table, key),
-                 lambda: table.index_select(0, key.clamp(0, K - 1)), C * 8 + K * 4,
-                 {"C": C, "K": K, "dtype": "int32"})
-    for case, vals, ids, Sn in (("q5_fragment_spend", price, seg, C),
-                                ("q5_closes_by_bidder", flag, key, K)):
+    # the untiered tables (K = 8 bidders) and the tiered phases' hot
+    # directories (tiered_queries: 9 slots; 32 in the rotating case)
+    cases = [("q5_fragment_spend", price, seg, C)]
+    for Kt in (K, TIERED_QUERIES["q5_session"], TIERED_ROTATING["q5_session"]):
+        table = torch.randint(-2 ** 31, 2 ** 31, (Kt,), device=dev, generator=gen,
+                              dtype=torch.int64).to(torch.int32)
+        check_kernel(torch, "lookup", f"q5_table_K{Kt}",
+                     lambda t=table: L.lookup_cuda(t, key),
+                     lambda t=table: L.lookup_plain(t, key),
+                     lambda t=table, n=Kt: t.index_select(0, key.clamp(0, n - 1)),
+                     C * 8 + Kt * 4, {"C": C, "K": Kt, "dtype": "int32"},
+                     timed=Kt == K)
+        cases.append(("q5_closes_by_bidder", flag, key, Kt))
+    for case, vals, ids, Sn in cases:
         idx = ids.long()
         check_kernel(torch, "segment_fold", f"{case}_S{Sn}",
                      lambda v=vals, i=ids, n=Sn: S.segment_fold_cuda(v, i, valid, n),
@@ -1174,7 +1238,7 @@ def session_kernel_phase(torch):
                          n, dtype=torch.int32, device=dev).index_add_(0, i, v),
                      C * 9 + Sn * 4, {"C": C, "S": Sn, "dtype": "torch.int32"},
                      extra={"plan": S.segment_fold_plan(C, Sn, torch.int32),
-                            "fragments": int(seg[-1]) + 1})
+                            "fragments": int(seg[-1]) + 1}, timed=Sn in (C, K))
 
 
 def q4_two_sources(torch, wt, total):
@@ -1358,15 +1422,15 @@ def faults_phase(torch, np, wt, ysb, registry, card, serial_parts):
     return launches
 
 
-def q3_oracle_np(np, start, n):
+def q3_oracle_np(np, start, n, auctions=Q3_AUCTIONS):
     """q3's expected lanes for events ``start .. start+n-1`` in numpy int32
-    arithmetic (wrapping products, floored %): (emitted, auction, category,
-    price)."""
+    arithmetic (wrapping products, floored %) over ``auctions`` auctions:
+    (emitted, auction, category, price)."""
     i = np.arange(start, start + n, dtype=np.int64).astype(np.int32)
-    auction = (i * np.int32(2477)) % np.int32(Q3_AUCTIONS)
+    auction = (i * np.int32(2477)) % np.int32(auctions)
     category = (auction * np.int32(13)) % np.int32(7)
     price = (i * np.int32(7919)) % np.int32(9973) + np.int32(100)
-    return i >= Q3_AUCTIONS, auction, category, price
+    return i >= auctions, auction, category, price
 
 
 def q3_pipeline_phase(torch, np, wt, registry):
@@ -3533,6 +3597,589 @@ def supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s):
     return total
 
 
+# ------------------------------------------------------- tiered keyed state
+
+TIERED_STEPS = 12         # bench.py's tiered row: probe batches after the definitions
+TIERED_BENCH_BATCH = 1024  # and its batch as written (keys 100x, hot 4x)
+TIERED_K = 4              # scan dispatch of the tiered phases
+#: hot capacity of each tiered query at 2^14: q7's JoinTable below its 16
+#: auctions; q5's and q6's slot directories at the least a 2^14 batch admits
+#: (every batch touches every key, and the hot target is one slot), so each
+#: batch still spills all but one key and readmits them
+TIERED_QUERIES = {"q5_session": 9, "q6_topn": 17, "q7_distinct": 12}
+#: hot capacity of q5 and q6 over a rotating key space (rotating_query):
+#: below the 64 bidders and 128 auctions, above the keys a 2^14 batch
+#: touches (two blocks: 16 bidders, 32 auctions) plus the sessions it keeps open
+TIERED_ROTATING = {"q5_session": 32, "q6_topn": 48}
+ROTATE_EVENTS = 1 << 13   # events a key block (half a 2^14 batch)
+ROTATE_BLOCKS = 8         # blocks before a block's keys come back
+#: launches a tiered apply: K5 for the hot-slot searches (the resolve pass,
+#: the touch), the JoinTable's upsert and probe; the cold probe once; q5 and
+#: q6 keep their untiered kernels
+TIERED_APPLY = {"q3_enrich_join": {"join_probe": 4, "cold_probe": 1},
+                "q7_distinct": {"join_probe": 4, "cold_probe": 1},
+                "q6_topn": {"join_probe": 2, "cold_probe": 1, "ordering_merge": 1},
+                "q5_session": {"join_probe": 2, "cold_probe": 1, **Q5_APPLY}}
+HOST_LINK_BYTES_PER_S = 64e9  # H100 SXM: PCIe Gen5 x16, a direction (data sheet)
+COLD_PROBE_R = 49_152     # the cold probe's lanes at 2^14: the batch and the pending ring
+TIERED_REC_EVERY = 6      # tiered_recovery: a checkpoint every 6 batches
+TIERED_REC_FAULT = 30     # and a chain.step fault at batch 30 (a group head at K = 3)
+TIERED_REC_K = 3
+
+
+def live_views(views):
+    """The sink views a Sink delivers: not None, with live lanes."""
+    return [v for v in views if v is not None and len(v["id"])]
+
+
+def tiered_views(np, views):
+    """q3's sink views as the oracle's columns (id, auction, category, price)."""
+    return {"id": np.concatenate([v["id"] for v in views]),
+            **{f: np.concatenate([v["payload"][f] for v in views])
+               for f in ("auction", "category", "price")}}
+
+
+def check_q3_oracle(np, what, views, keys, total):
+    emit, a, c, p = q3_oracle_np(np, 0, total, auctions=keys)
+    want = {"id": np.arange(total, dtype=np.int32)[emit], "auction": a[emit],
+            "category": c[emit], "price": p[emit]}
+    got = tiered_views(np, views)
+    for f, w in want.items():
+        if not np.array_equal(got[f], w):
+            raise AssertionError(f"{what}: {f} differs from the dense oracle")
+    return len(got["id"])
+
+
+def tiered_q3_profile(torch, wt, make, b, n_def, ms_per_step):
+    """torch.profiler over tiered q3's probe pushes (after its definition
+    pushes, unprofiled): device busy ms and kernels a step, the idle share
+    against the unprofiled step, the kernels with the most device time, and
+    the host seconds of the spill maintenance a step."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    src, ops = make()
+    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=b)
+    ctl = ops[0].tier_controllers()[0]
+    maintain, spent = ctl.maintain, []
+
+    def timed(state):
+        t0 = time.perf_counter()
+        out = maintain(state)
+        spent.append(time.perf_counter() - t0)
+        return out
+    ctl.maintain = timed
+    batches = list(src.batches(b))
+    for x in batches[:n_def]:
+        chain.push(x)
+    torch.cuda.synchronize()
+    spent.clear()
+    probe = batches[n_def:]
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for x in probe:
+            chain.push(x)
+            torch.cuda.synchronize()
+    kern = [e for e in p.key_averages() if str(e.device_type).endswith("CUDA")]
+    n = len(probe)
+    busy_us = sum(e.device_time_total for e in kern) / n
+    log({"phase": "tiered_q3_profile", "steps": n,
+         "kernels_per_step": sum(e.count for e in kern) / n,
+         "device_busy_ms_per_step": busy_us / 1e3,
+         "maintain_host_ms_per_step": sum(spent) / n * 1e3,
+         "idle_share": 1 - busy_us / 1e3 / ms_per_step})
+    for e in sorted(kern, key=lambda e: -e.device_time_total)[:10]:
+        log({"profile_kernel": e.key[:100], "per_step": e.count / n,
+             "device_us_per_step": e.device_time_total / n})
+
+
+def tiered_q3_phase(torch, np, wt, registry, card, profile=False):
+    """bench.py's tiered row as written (batch 1024), then the same workload
+    at the Nexmark batch 2^14 with the row's ratios (hot 65,536 = 4b, keys
+    1,638,400 = 100b, 100 definition batches then 12 probe batches): eager
+    ``chain.push`` (the bench function, each push timed to completion, the
+    spills, readmits and cold keys of every step logged), then
+    ``Pipeline(dispatch=4)``: rows equal to the dense oracle and byte for
+    byte between the two, ``overflow_drops == 0``, K5 four times and the
+    cold probe once an apply, counted through the replays (``profile``: a
+    profile of the probe pushes, ``tiered_q3_profile``). Returns the
+    launches and the 2^14 eager chain (its 1.6 M-row store is the cold
+    probe's case)."""
+    from windflow_tpu_torch.batch import host_view
+    from windflow_tpu_torch.benchmarks.tiered import bench_nexmark_tiered_100x
+    from windflow_tpu_torch.nexmark import make_query
+
+    row = bench_nexmark_tiered_100x(TIERED_BENCH_BATCH, TIERED_STEPS)
+    log({"phase": "tiered_q3_bench_row", **row, "card": card})
+    if row["overflow_drops"]:
+        raise AssertionError(f"tiered q3 bench row: {row['overflow_drops']} overflow drops")
+    b = NEX_BATCH
+    keys, total = 100 * b, 100 * b + TIERED_STEPS * b
+    per_step, views, box = [], [], {}
+
+    def on_out(out, chain):
+        views.append(host_view(out))
+        st = chain.states[0]
+        per_step.append((int(st["spills"]), int(st["readmits"]),
+                         chain.ops[0]._tier.store.key_count()))
+        box["chain"] = chain
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    row = bench_nexmark_tiered_100x(b, TIERED_STEPS, on_out=on_out)
+    eager_counts = registry.launch_counts()
+    n = row["batches"]
+    rows = check_q3_oracle(np, "tiered q3 eager", views, keys, total)
+    log({"phase": "tiered_q3", "dispatch": None, **row, "ms_per_step": row["step_s"] * 1e3,
+         "p99_ms": row["p99_step_s"] * 1e3, "rows": rows, "launches": eager_counts,
+         "card": card})
+    log({"phase": "tiered_q3_per_step", "spills": [s for s, _, _ in per_step],
+         "readmits": [r for _, r, _ in per_step], "cold_keys": [c for _, _, c in per_step]})
+    if row["overflow_drops"]:
+        raise AssertionError(f"tiered q3: {row['overflow_drops']} overflow drops")
+    expect_launches("tiered q3 eager", eager_counts, TIERED_APPLY["q3_enrich_join"], n)
+    # the same stream at dispatch K: one replay of a K-step graph a group,
+    # one maintenance point a group
+    src, ops = make_query("q3_enrich_join", total, n_auctions=keys, num_slots=4 * b,
+                          tiered=dict())
+    dviews, group_s = [], []
+    pipe = wt.Pipeline(src, ops, wt.Sink(dviews.append), batch_size=b, dispatch=TIERED_K)
+    push_many = pipe.chain.push_many
+
+    def timed_many(batches, from_op=0):
+        # each group timed to completion, as the eager run times each push
+        t0 = time.perf_counter()
+        outs = push_many(batches, from_op=from_op)
+        torch.cuda.synchronize()
+        group_s.append(time.perf_counter() - t0)
+        return outs
+    pipe.chain.push_many = timed_many
+    counts, dt, peak = run_pipeline(torch, registry, pipe, TIERED_K)
+    dviews = live_views(dviews)
+    st = pipe.chain.states[0]
+    per_group = sorted(t / TIERED_K for t in group_s[1:])
+    same = flat_bytes(np, dviews) == flat_bytes(np, live_views(views))
+    replays = {kk: g.replays for (_, kk, _), g in pipe.chain.graphs.items()}
+    log({"phase": "tiered_q3", "dispatch": TIERED_K, "batches": n, "batch": b,
+         "run_s": dt, "ms_per_step": sum(per_group) / len(per_group) * 1e3,
+         "p99_ms": per_group[min(len(per_group) - 1, int(0.99 * len(per_group)))] * 1e3,
+         "overflow_drops": int(st["dropped"]), "state_spills": int(st["spills"]),
+         "state_readmits": int(st["readmits"]),
+         "cold_keys": ops[0]._tier.store.key_count(), "rows_byte_identical": same,
+         "graph_replays": replays, "launches": counts, "peak_mib": peak / 2 ** 20,
+         "card": card})
+    if not same:
+        raise AssertionError("tiered q3: the dispatch rows differ from the eager rows")
+    if int(st["dropped"]):
+        raise AssertionError(f"tiered q3 dispatch: {int(st['dropped'])} overflow drops")
+    if replays != {TIERED_K: n // TIERED_K}:
+        raise AssertionError(f"tiered q3 dispatch: graph replays {replays}")
+    expect_launches("tiered q3 dispatch", counts, TIERED_APPLY["q3_enrich_join"], n)
+    launches = {k: eager_counts[k] + counts[k] for k in counts}
+    if profile:
+        tiered_q3_profile(torch, wt, lambda: make_query(
+            "q3_enrich_join", total, n_auctions=keys, num_slots=4 * b, tiered=dict()),
+            b, keys // b, row["step_s"] * 1e3)
+    return launches, box["chain"]
+
+
+def cold_probe_phase(torch, np, card, chain):
+    """The cold probe against its plain version (the store's host lookup, a
+    synchronous round trip), bit for bit, at R = 49,152 lanes over the
+    tiered_q3 chain's 1.6 M-row store (keys in twice the key space: hits and
+    misses; a fifth of the lanes not wanted); then a graph captured over a
+    256-row store, the store grown to 2^18 rows, the graph replayed: the
+    replay reads the grown store. The kernel's time by graph replay, the
+    plain version's by CUDA events around its round trips, and the bound:
+    the host-link bytes (a 16-byte index slot a wanted lane, meta and value
+    row a found lane) over 64 GB/s."""
+    from windflow_tpu_torch.ops.cold_probe import cold_probe_cuda, cold_probe_plain
+    from windflow_tpu_torch.state import HostStore
+
+    store = chain.ops[0]._tier.store
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    keyspace = 2 * store.key_count()
+    keys = torch.randint(0, keyspace, (COLD_PROBE_R,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
+
+    def kernel():
+        return cold_probe_cuda(store, keys, want)
+
+    def plain():
+        return cold_probe_plain(store, keys, want)
+    r0 = store.counters()["state_readmits"]
+    got = kernel()
+    torch.cuda.synchronize()
+    r1 = store.counters()["state_readmits"]
+    ref = plain()
+    same, err = compare(torch, got, ref)
+    found = int(ref[0].sum())
+    # the kernel's found lanes reach the store's count through the device
+    # counter's fold, as many as the plain version's host lookup counts
+    folded = (r1 - r0, store.counters()["state_readmits"] - r1)
+    if folded != (found, found):
+        raise AssertionError(f"cold_probe: readmissions counted {folded}, found {found}")
+    row_bytes = sum(int(np.prod(store.col_shape(k), dtype=np.int64))
+                    * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
+    nbytes = int(want.sum()) * 16 + found * (24 + row_bytes)
+    bound_ms = nbytes / HOST_LINK_BYTES_PER_S * 1e3
+    row = {"kernel_check": "cold_probe", "case": "q3 2^14 store", "lanes": COLD_PROBE_R,
+           "store_rows": len(store), "wanted": int(want.sum()), "found": found,
+           "readmits_folded": folded[0],
+           "bit_identical": same, "max_abs_err": err,
+           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
+           "plain_ms": time_ms(torch, plain, iters=5, warmup=1), "library_ms": None,
+           "bytes": nbytes, "counted": "host-link bytes: 16 a wanted lane, meta and row a "
+                                       "found lane", "bound_ms": bound_ms,
+           "bound_by": "bytes", "card": card}
+    log(row)
+    if not same:
+        raise AssertionError("cold_probe: kernel differs from its plain version")
+    # a graph captured before the store grows reads the grown store
+    small = HostStore("grow", {"v0": np.int32, "v1": np.float32}, device="cuda")
+    rng = np.random.default_rng(5)
+
+    def fill(n, lo):
+        k = np.arange(lo, lo + n, dtype=np.int32)
+        small.upsert(k, k, k, k, {"v0": k * 3, "v1": k.astype(np.float32) / 7})
+    fill(200, 0)
+    gkeys = torch.from_numpy(rng.integers(0, 1 << 18, 4096).astype(np.int32)).cuda()
+    gwant = torch.ones((4096,), dtype=torch.bool, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cold_probe_cuda(small, gkeys, gwant)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        gout = cold_probe_cuda(small, gkeys, gwant)
+    fill((1 << 18) - 200, 200)
+    g.replay()
+    torch.cuda.synchronize()
+    gref = cold_probe_plain(small, gkeys, gwant)
+    gsame, gerr = compare(torch, tuple(gout), gref)
+    log({"kernel_check": "cold_probe", "case": "graph captured at 200 rows, replayed at "
+                                               "2^18", "bit_identical": gsame,
+         "max_abs_err": gerr, "found": int(gref[0].sum()), "card": card})
+    if not gsame or int(gref[0].sum()) != 4096:
+        raise AssertionError("cold_probe: a graph captured before the store grew reads "
+                             "stale memory")
+    # restores that fit rewrite the mapped arrays in place (no pinned memory
+    # is kept or allocated), and the graph reads what they wrote
+    bufs = [b.host for b in small._bufs]
+    man = small.manifest()
+    for _ in range(3):
+        small.restore(man)
+    g.replay()
+    torch.cuda.synchronize()
+    rsame, _ = compare(torch, tuple(gout), cold_probe_plain(small, gkeys, gwant))
+    log({"kernel_check": "cold_probe", "case": "graph replayed after three restores",
+         "bit_identical": rsame, "buffers_kept": [b.host for b in small._bufs] == bufs,
+         "card": card})
+    if not rsame or [b.host for b in small._bufs] != bufs:
+        raise AssertionError("cold_probe: a restore that fits reallocated the store, or "
+                             "the graph reads stale memory after it")
+    return row
+
+
+def tiered_queries_phase(torch, np, wt, registry, card):
+    """q5, q6 and q7 at 2^14 for 16 batches, tiered (``TIERED_QUERIES``),
+    eager and at dispatch K = 4: rows equal to the dense oracle (the
+    untiered rows), the two runs byte for byte, each apply's kernels counted
+    exactly (``TIERED_APPLY``), spills on every query."""
+    from windflow_tpu_torch.nexmark import make_query, oracles
+
+    total = NEX_BATCHES * NEX_BATCH
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    for name, hot in TIERED_QUERIES.items():
+        want = oracles.ORACLES[name](total)
+        runs = {}
+        for k in (None, TIERED_K):
+            src, ops = make_query(name, total, tiered=dict(hot_capacity=hot))
+            views = []
+            pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                               dispatch=k or False)
+            counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+            views = [v for v in views if v is not None]
+            got = nexmark_rows(np, name, views)
+            pipe.chain.tier_settle()
+            st = pipe.chain.states[-1]
+            tier = ops[-1]._tier.controller.stats()
+            log({"phase": "tiered_queries", "query": name, "hot_capacity": hot,
+                 "dispatch": k, "batches": NEX_BATCHES, "batch": NEX_BATCH,
+                 "rows": len(got), "run_s": dt, "ms_per_step": dt / NEX_BATCHES * 1e3,
+                 "state_spills": int(st["spills"]), "state_readmits": int(st["readmits"]),
+                 "tier": tier, "launches": counts, "peak_mib": peak / 2 ** 20,
+                 "card": card})
+            if got != want:
+                raise AssertionError(f"tiered {name}: rows differ from the untiered oracle")
+            if int(st["spills"]) == 0:
+                raise AssertionError(f"tiered {name}: nothing spilled")
+            expect_launches(f"tiered {name}", counts, TIERED_APPLY[name], NEX_BATCHES)
+            runs[k] = (views, counts, pipe.chain.graphs)
+        check_dispatch(np, f"tiered_{name}", TIERED_K, NEX_BATCHES, runs[None][:2],
+                       runs[TIERED_K][:2], runs[TIERED_K][2])
+        for c, nn in runs[None][1].items():
+            launches[c] += nn
+    return launches
+
+
+def rotating_query(torch, wt, name, total, tiered):
+    """q5 or q6 over a key space that rotates with the stream: the bids of
+    block ``(i // 2^13) % 8`` go to that block's own 8 bidders (q5) or 16
+    auctions (q6), so a 2^14 batch touches a quarter of the 64 or 128 keys
+    and a key comes back every four batches, from the cold tier when tiered."""
+    from windflow_tpu_torch.nexmark import generators as g
+    from windflow_tpu_torch.nexmark.queries import SESSION_GAP, TOP_N
+
+    def blk(i):
+        return (i // ROTATE_EVENTS) % ROTATE_BLOCKS
+
+    def gen(i):
+        return {"auction": g.bid_auction(i).to(torch.int32),
+                "bidder": (g.bid_bidder(i) + g.N_BIDDERS * blk(i)).to(torch.int32),
+                "price": g.bid_price(i).to(torch.int32)}
+    src = wt.DeviceSource(gen, total=total, name="rotating_bids",
+                          key_fn=lambda i: g.bid_auction(i) + g.N_AUCTIONS * blk(i),
+                          ts_fn=lambda i: i // g.EVENTS_PER_TICK)
+    if name == "q5_session":
+        K = g.N_BIDDERS * ROTATE_BLOCKS
+        return src, [wt.KeyBy(lambda t: t.bidder, K),
+                     wt.SessionWindow(lambda t: {"bids": torch.ones((), dtype=torch.int32),
+                                                 "spend": t.price},
+                                      wt.WindowSpec.session(SESSION_GAP), num_keys=K,
+                                      tiered=tiered)]
+    return src, [wt.TopN(lambda t: t.price, TOP_N, num_keys=g.N_AUCTIONS * ROTATE_BLOCKS,
+                         tiered=tiered)]
+
+
+def tiered_rotating_phase(torch, np, wt, registry, card):
+    """q5 and q6 over the rotating key space (``rotating_query``) at 2^14
+    for 16 batches with a hot capacity below the key space
+    (``TIERED_ROTATING``), eager and at dispatch K = 4: rows equal to the
+    untiered run's, the two tiered runs byte for byte, each apply's kernels
+    counted exactly (``TIERED_APPLY``), spills and readmissions on both."""
+    total = NEX_BATCHES * NEX_BATCH
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    for name, hot in TIERED_ROTATING.items():
+        src, ops = rotating_query(torch, wt, name, total, None)
+        ref = []
+        wt.Pipeline(src, ops, wt.Sink(ref.append), batch_size=NEX_BATCH).run()
+        want = nexmark_rows(np, name, [v for v in ref if v is not None])
+        runs = {}
+        for k in (None, TIERED_K):
+            src, ops = rotating_query(torch, wt, name, total, dict(hot_capacity=hot))
+            views = []
+            pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                               dispatch=k or False)
+            counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+            views = [v for v in views if v is not None]
+            got = nexmark_rows(np, name, views)
+            pipe.chain.tier_settle()
+            st = pipe.chain.states[-1]
+            log({"phase": "tiered_rotating", "query": name, "hot_capacity": hot,
+                 "num_keys": ops[-1].num_keys, "dispatch": k, "batches": NEX_BATCHES,
+                 "batch": NEX_BATCH, "rows": len(got), "rows_equal_untiered": got == want,
+                 "run_s": dt, "ms_per_step": dt / NEX_BATCHES * 1e3,
+                 "state_spills": int(st["spills"]), "state_readmits": int(st["readmits"]),
+                 "tier": ops[-1]._tier.controller.stats(), "launches": counts,
+                 "peak_mib": peak / 2 ** 20, "card": card})
+            if got != want:
+                raise AssertionError(f"rotating {name}: rows differ from the untiered run")
+            if int(st["spills"]) == 0 or int(st["readmits"]) == 0:
+                raise AssertionError(f"rotating {name}: no spill or no readmission")
+            expect_launches(f"rotating {name}", counts, TIERED_APPLY[name], NEX_BATCHES)
+            runs[k] = (views, counts, pipe.chain.graphs)
+        check_dispatch(np, f"rotating_{name}", TIERED_K, NEX_BATCHES, runs[None][:2],
+                       runs[TIERED_K][:2], runs[TIERED_K][2])
+        for c, nn in runs[None][1].items():
+            launches[c] += nn
+    return launches
+
+
+#: the kernel wrappers the tiered paths launch, each with its plain version:
+#: (kernel, module, wrapper, plain)
+TIERED_WRAPPERS = (("join_probe", "lookup", "join_probe_cuda", "join_probe_plain"),
+                   ("lookup", "lookup", "lookup_cuda", "lookup_plain"),
+                   ("segment_fold", "segment", "segment_fold_cuda", "segment_fold_plain"),
+                   ("ordering_merge", "bitonic", "network_cuda", "network_plain"))
+KEPT_CALLS = 4            # the last calls kept a distinct argument signature
+
+
+def tiered_inputs_phase(torch, np, wt, card):
+    """Every kernel held against its plain version on the inputs the tiered
+    paths gave it: tiered q3 at 2^14 (``bench_nexmark_tiered_100x``), the
+    tiered queries and the rotating cases run eagerly once more with each
+    wrapper's arguments cloned as it launches, the last ``KEPT_CALLS`` calls
+    of every distinct signature (kernel, shapes and dtypes, other arguments)
+    kept, then each kept call rerun through the kernel and the plain
+    version, bit for bit. Outside every counted window."""
+    import importlib
+    from windflow_tpu_torch.benchmarks.tiered import bench_nexmark_tiered_100x
+    from windflow_tpu_torch.nexmark import make_query
+
+    def sig_of(x):
+        return (tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor) else x
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def capture(run):
+        kept, saved = {}, []
+        for name, mod, cu, pl in TIERED_WRAPPERS:
+            m = importlib.import_module(f"windflow_tpu_torch.ops.{mod}")
+            inner = getattr(m, cu)
+
+            def wrapper(*args, _n=name, _m=m, _pl=pl, _inner=inner, **kw):
+                sig = (_n,) + tuple(sig_of(a) for a in args) + tuple(sorted(kw.items()))
+                calls = kept.setdefault(sig, (_inner, getattr(_m, _pl), []))[2]
+                calls.append((tuple(clone(a) for a in args), dict(kw)))
+                del calls[:-KEPT_CALLS]
+                return _inner(*args, **kw)
+            saved.append((m, cu, inner))
+            setattr(m, cu, wrapper)
+        try:
+            run()
+        finally:
+            for m, cu, inner in saved:
+                setattr(m, cu, inner)
+        return kept
+
+    def query(name, hot, make):
+        def run():
+            src, ops = make(name, dict(hot_capacity=hot))
+            wt.Pipeline(src, ops, wt.Sink(lambda v: None), batch_size=NEX_BATCH).run()
+        return run
+    total = NEX_BATCHES * NEX_BATCH
+    runs = {"tiered_q3": lambda: bench_nexmark_tiered_100x(NEX_BATCH, TIERED_STEPS)}
+    for name, hot in TIERED_QUERIES.items():
+        runs[f"tiered_{name}"] = query(name, hot, lambda n, t: make_query(n, total, tiered=t))
+    for name, hot in TIERED_ROTATING.items():
+        runs[f"rotating_{name}"] = query(
+            name, hot, lambda n, t: rotating_query(torch, wt, n, total, t))
+    checked = 0
+    for what, run in runs.items():
+        rows = []
+        for sig, (kernel, plain, calls) in capture(run).items():
+            same, err = True, 0.0
+            for args, kw in calls:
+                ok, e = compare(torch, kernel(*args, **kw), plain(*args, **kw))
+                same, err = same and ok, max(err, e)
+            checked += len(calls)
+            rows.append({"kernel": sig[0], "signature": repr(sig[1:]), "calls": len(calls),
+                         "bit_identical": same, "max_abs_err": err})
+            if not same:
+                log({"kernel_check": sig[0], "case": f"{what} inputs", **rows[-1]})
+                raise AssertionError(f"{sig[0]} [{what} inputs]: kernel differs from "
+                                     f"its plain version")
+        log({"phase": "tiered_inputs", "run": what, "signatures": rows, "card": card})
+    return checked
+
+
+def tiered_recovery_phase(torch, np, wt, registry, card):
+    """Tiered q3 at bench.py's batch (1024; keys 102,400, hot 4096) under
+    ``SupervisedPipeline`` with a checkpoint every 6 batches and a chain.step
+    fault at batch 30 (spills in flight), dispatch off and K = 3, a journal
+    active; then ``save_chain`` half way and ``load_chain`` into a chain
+    whose K = 3 graph was captured before the restore. Rows byte for byte
+    equal to an uninterrupted run; each restore span's ``dur_s`` logged."""
+    import shutil
+    from windflow_tpu_torch.batch import host_view
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.observability import journal as J
+    from windflow_tpu_torch.runtime import checkpoint as ck
+    from windflow_tpu_torch.runtime import faults as F
+
+    b = TIERED_BENCH_BATCH
+    keys, total = 100 * b, 100 * b + TIERED_STEPS * b
+    n = total // b
+
+    def make():
+        return make_query("q3_enrich_join", total, n_auctions=keys, num_slots=4 * b,
+                          tiered=dict())
+    src, ops = make()
+    c0 = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=b)
+    batches = list(src.batches(b))
+    whole = host_rows([c0.push(x) for x in batches] + c0.flush())
+    del c0
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    jpath = os.path.join(ROOT, "build", "tiered_journal.jsonl")
+    for k in (None, TIERED_REC_K):
+        plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": TIERED_REC_FAULT},
+                                        max_fires=1)], seed=7)
+        src, ops = make()
+        views = []
+        sp = wt.SupervisedPipeline(src, ops, wt.Sink(views.append), batch_size=b,
+                                   checkpoint_every=TIERED_REC_EVERY, faults=plan,
+                                   dispatch=k or False, **SUP_BACKOFF)
+        if os.path.exists(jpath):
+            os.unlink(jpath)
+        j = wt.EventJournal(jpath)
+        J.set_active(j)
+        try:
+            F.reset_counters()
+            counts, dt, peak = counted_run(torch, registry, sp.start, sp.run)
+        finally:
+            J.set_active(None)
+            j.close()
+        recs = wt.read_journal(jpath)
+        spans = [r["dur_s"] for r in journal_spans(recs, "restore")]
+        same = flat_bytes(np, live_views(views)) == flat_bytes(np, live_views(whole))
+        log({"phase": "tiered_recovery", "case": "supervised", "dispatch": k, "batch": b,
+             "batches": n, "checkpoint_every": TIERED_REC_EVERY, "restarts": sp.restarts,
+             "restore_dur_s": spans,
+             "recovery_seconds": F.counters()["recovery_seconds"],
+             "spill_records": sum(r["event"] == "spill" for r in recs),
+             "readmit_records": sum(r["event"] == "readmit" for r in recs),
+             "rows_byte_identical": same, "run_s": dt, "launches": counts,
+             "peak_mib": peak / 2 ** 20, "card": card})
+        if not same or sp.restarts != 1 or len(spans) != 1:
+            raise AssertionError(f"tiered_recovery (dispatch {k}): rows identical {same}, "
+                                 f"{sp.restarts} restarts, {len(spans)} restore spans")
+        if counts["cold_probe"] < n:
+            raise AssertionError(f"tiered_recovery: cold_probe {counts['cold_probe']} < {n}")
+        for c, nn in counts.items():
+            launches[c] += nn
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    try:
+        def chain():
+            s, o = make()
+            return wt.CompiledChain(o, s.payload_spec(), batch_capacity=b)
+        c1, c2 = chain(), chain()
+        c2.warm_scan(TIERED_REC_K, b)                 # captured before the restore
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        half = n // 2
+        outs = [c1.push(x) for x in batches[:half]]
+        t0 = time.perf_counter()
+        path = ck.save_chain(c1, os.path.join(CKPT_DIR, "tiered_q3"), meta={"done": half})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ck.load_chain(c2, path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        rest = batches[half:]
+        for i in range(0, len(rest), TIERED_REC_K):
+            outs += c2.push_many(rest[i:i + TIERED_REC_K])
+        outs += c2.flush()
+        torch.cuda.synchronize()
+        counts = registry.launch_counts()
+        same = flat_bytes(np, host_rows(outs)) == flat_bytes(np, whole)
+        replays = {f"{kk}": g.replays for (_, kk, _), g in c2.graphs.items()}
+        log({"phase": "tiered_recovery", "case": "checkpoint", "batch": b, "batches": n,
+             "resumed_at": half, "file_bytes": os.path.getsize(path),
+             "tier_arrays": sorted(k for k in np.load(path).files if k.startswith("tier")),
+             "save_ms": save_ms, "load_ms": load_ms, "rows_byte_identical": same,
+             "graph_replays": replays, "launches": counts, "card": card})
+        if not same or replays.get(f"{TIERED_REC_K}", 0) < 1:
+            raise AssertionError(f"tiered_recovery checkpoint: rows identical {same}, "
+                                 f"replays {replays}")
+        expect_launches("tiered_recovery checkpoint", counts,
+                        TIERED_APPLY["q3_enrich_join"], n)
+        for c, nn in counts.items():
+            launches[c] += nn
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3623,6 +4270,13 @@ def main() -> int:
     del ty_rows
     tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
                                                 gw_launches, gw_s)
+    tq_launches, tq_chain = tiered_q3_phase(torch, np, wt, registry, card, args.profile)
+    cold_row = cold_probe_phase(torch, np, card, tq_chain)
+    del tq_chain
+    tqs_launches = tiered_queries_phase(torch, np, wt, registry, card)
+    tr_launches = tiered_recovery_phase(torch, np, wt, registry, card)
+    trot_launches = tiered_rotating_phase(torch, np, wt, registry, card)
+    tiered_inputs_phase(torch, np, wt, card)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
@@ -3634,7 +4288,9 @@ def main() -> int:
              "threaded_graph_windows": tgw_launches, "nexmark_graph": ng_launches,
              "checkpoint": ck_launches, "faults": f_launches,
              "supervised_ysb": sy_launches, "supervised_q3": sq_launches,
-             "supervised_graph": sg_launches}
+             "supervised_graph": sg_launches, "tiered_q3": tq_launches,
+             "tiered_queries": tqs_launches, "tiered_recovery": tr_launches,
+             "tiered_rotating": trot_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})
@@ -3652,6 +4308,12 @@ def main() -> int:
                     "max_abs_err": fold_row["max_abs_err"], "ms": fold_row["ms"],
                     "plain_ms": fold_row["plain_ms"], "bound_ms": fold_row["bound_ms"],
                     "bound_by": fold_row["bound_by"], "library_ms": fold_row["library_ms"]})
+    probe = registry.KERNELS["cold_probe"]
+    kernels.append({"name": probe.name, "route": "cuda", "source": probe.source,
+                    "replaces": None, "launches": path_launches[probe.name],
+                    "max_abs_err": cold_row["max_abs_err"], "ms": cold_row["kernel_ms"],
+                    "plain_ms": cold_row["plain_ms"], "bound_ms": cold_row["bound_ms"],
+                    "bound_by": cold_row["bound_by"], "library_ms": None})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

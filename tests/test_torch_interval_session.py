@@ -361,11 +361,16 @@ def test_join_with_rejects_non_join_operator():
         a.join_with(b, wt.Map(lambda t: t.data, **CPU))
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+def test_unported_options_raise(monkeypatch):
+    """The interval join's tiered archive (item 13b) raises, by argument and
+    by ``WF_STATE_TIERED``; a tiered SessionWindow builds."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
         wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True, **CPU)
+    assert wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
+                            **CPU)._tier_cfg is not None
+    monkeypatch.setenv("WF_STATE_TIERED", "1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
+        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU)
 
 
 # ------------------------------------------------------ convert mid-stream

@@ -45,7 +45,10 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.runtime.threaded", "windflow_tpu_torch.runtime.handoff",
            "windflow_tpu_torch.operators.session", "windflow_tpu_torch.runtime.faults",
            "windflow_tpu_torch.runtime.checkpoint", "windflow_tpu_torch.runtime.supervisor",
-           "windflow_tpu_torch.observability", "windflow_tpu_torch.observability.journal"]
+           "windflow_tpu_torch.observability", "windflow_tpu_torch.observability.journal",
+           "windflow_tpu_torch.state", "windflow_tpu_torch.state.host_store",
+           "windflow_tpu_torch.state.tiered", "windflow_tpu_torch.ops.cold_probe",
+           "windflow_tpu_torch.benchmarks.tiered"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -92,7 +95,10 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
     assert set(registry.tpu_kernels()) == {"histogram", "lookup", "segment_fold",
                                            "ordering_merge", "join_probe",
                                            "masked_window_reduce"}
-    assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float"}
+    # the helpers replace no TPU kernel: the fixed-order float fold and the
+    # tiered state's cold probe
+    assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float",
+                                                                    "cold_probe"}
     for k in registry.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
     for k in registry.tpu_kernels().values():
@@ -113,7 +119,8 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 def test_unported_paths_raise(monkeypatch):
     """What is still unported raises, naming its ROADMAP item: sharded
-    supervision (item 14), tiered state (item 13) and the control plane
+    supervision (item 14), the interval join's tiered archive (item 13b) and
+    the control plane
     (item 15); the unsharded supervised run (item 12) gives the plain run's
     result, and fault injection and item 9's operators build."""
     def graph():
@@ -132,9 +139,8 @@ def test_unported_paths_raise(monkeypatch):
         with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             g.run_supervised()
     src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
-                         device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
+        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         wt.ThreadedPipeline(src, [], None, device="cpu", control=True)
     from windflow_tpu_torch.runtime.faults import FaultPlan
@@ -159,12 +165,16 @@ def test_nexmark_cpu_run_launches_no_kernel():
 
 def test_nexmark_unported_paths_raise(no_cuda):
     """Every query builds on the CPU and needs CUDA by default; tiered state
-    (item 13) and event-time monitoring (item 16) still raise."""
+    builds except q4's interval join archive (item 13b), and event-time
+    monitoring (item 16) still raises."""
     from windflow_tpu_torch.nexmark import PORTED, QUERIES, make_query
     assert set(PORTED) == set(QUERIES)
     for q in ("q3_enrich_join", "q4_interval_join", "q5_session", "q6_topn",
               "q7_distinct"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        if q == "q4_interval_join":
+            with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
+                make_query(q, 100, tiered=True, device="cpu")
+        else:
             make_query(q, 100, tiered=True, device="cpu")
         with pytest.raises(RuntimeError, match="cuda"):
             make_query(q, 100)
@@ -207,6 +217,16 @@ def test_registry_covers_every_tpu_kernel():
     pallas = _pallas_functions()
     assert len(pallas) == 6, sorted(pallas)
     assert {k.replaces for k in registry.tpu_kernels().values()} == pallas
+
+
+def test_state_exports_match_the_jax_package():
+    """``windflow_tpu_torch.state`` exports the names ``windflow_tpu.state``
+    exports (the top level of either package exports none of them)."""
+    import windflow_tpu.state as jstate
+    import windflow_tpu_torch.state as tstate
+    assert tstate.__all__ == jstate.__all__ == ["HostStore", "TierConfig", "TieredTable"]
+    for n in jstate.__all__:
+        assert hasattr(tstate, n), n
 
 
 def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):

@@ -255,7 +255,7 @@ def test_snapshot_copies_and_restore_rebuilds():
     assert second.arch_payload["v"].data_ptr() != first.arch_payload["v"].data_ptr()
     assert torch.equal(second.arch_payload["v"], saved)
     p.chain.push(batch)                   # a fresh state, not marked consumed
-    assert snap[1] is None                # no tiered state in the port
+    assert snap[1] is None                # an untiered chain has no cold tiers
 
 
 @pytest.mark.parametrize("kw, env, item", [
@@ -274,8 +274,15 @@ def test_unported_supervision_raises_by_name(monkeypatch, kw, env, item):
 
 
 def test_tiered_state_raises_by_name():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True, **CPU)
+    """The interval join's tiered archive raises (item 13b); a tiered chain
+    under sharded supervision raises with every sharded run (item 14)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
+        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)
+    src = wt.Source(lambda i: {"v": i}, total=10, **CPU)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        wt.SupervisedPipeline(src, [wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2),
+                                                     tiered=True, **CPU)],
+                              None, shards=2, **CPU)
 
 
 # ------------------------------------------------ parity with the JAX package

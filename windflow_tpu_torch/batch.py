@@ -61,6 +61,61 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def is_node(x) -> bool:
+    """A dataclass instance: a tree node whose fields are its children."""
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+
+
+def flatten_with_paths(tree: Any) -> list:
+    """``(keystr, leaf)`` of every leaf in the order and with the paths
+    ``jax.tree_util.tree_flatten_with_path`` gives a JAX tree of the same
+    shape: dict keys sorted, dataclass fields in order, ``None`` an empty
+    subtree."""
+    out = []
+
+    def walk(x, prefix):
+        if x is None:
+            return
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{prefix}[{k!r}]")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{prefix}[{i}]")
+        elif is_node(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{prefix}.{f.name}")
+        else:
+            out.append((prefix, x))
+    walk(tree, "")
+    return out
+
+
+def jax_leaves(tree: Any) -> list:
+    """The leaves in ``jax.tree.leaves`` order (:func:`flatten_with_paths`)."""
+    return [leaf for _, leaf in flatten_with_paths(tree)]
+
+
+def jax_unflatten(tree: Any, new_leaves: list) -> Any:
+    """``tree``'s structure over ``new_leaves`` given in :func:`jax_leaves`
+    order (dicts keep their own key order)."""
+    it = iter(new_leaves)
+
+    def walk(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            done = {k: walk(x[k]) for k in sorted(x)}
+            return {k: done[k] for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        if is_node(x):
+            return dataclasses.replace(x, **{f.name: walk(getattr(x, f.name))
+                                             for f in dataclasses.fields(x)})
+        return next(it)
+    return walk(tree)
+
+
 # ----------------------------------------------------------------- Batch
 
 @dataclasses.dataclass(frozen=True)
@@ -375,4 +430,5 @@ def spec_of(tree: Any) -> Any:
 __all__ = ["CTRL_DTYPE", "TRACE_META_ATTR", "Batch", "TupleRef", "MutableTupleRef",
            "tuple_refs", "map_tuples", "vmap_lanes", "host_view", "spec_of",
            "stack_batches", "unstack_batches", "concat_batches", "split_batch",
-           "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves"]
+           "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves", "is_node",
+           "flatten_with_paths", "jax_leaves", "jax_unflatten"]

@@ -1,7 +1,9 @@
-"""The native host runtime: SPSC rings, thread pinning, AoS/SoA framing, key hashing.
+"""The native host runtime: SPSC rings, thread pinning, AoS/SoA framing, key
+hashing, and the cold tier's key index.
 
 Counterpart of ``windflow_tpu/native/__init__.py``. The sources are the port's
-own copies under ``csrc/`` (``spsc_queue.cpp``, ``ingest.cpp``), compiled by
+own copies under ``csrc/`` (``spsc_queue.cpp``, ``ingest.cpp``), and
+``host_store.cpp``, the index of ``state/host_store.py``; they are compiled by
 ``g++`` into one shared library under ``build/native/`` at the repository root
 at first use and loaded with ``ctypes``. The file name carries a hash of the
 sources and flags, so an edited source rebuilds and a built one is reused.
@@ -27,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
-SOURCES = ("spsc_queue.cpp", "ingest.cpp")
+SOURCES = ("spsc_queue.cpp", "ingest.cpp", "host_store.cpp")
 
 _lock = threading.Lock()
 _lib = None
@@ -61,6 +63,19 @@ _SYMBOLS = [
       ctypes.c_uint32, _P(ctypes.c_int32)]),
     ("wf_hash_int_keys", None,
      [_P(ctypes.c_int64), ctypes.c_uint64, ctypes.c_uint32, _P(ctypes.c_int32)]),
+    # the cold tier's key index (host_store.cpp, state/host_store.py)
+    ("wf_hs_upsert", ctypes.c_int64, [ctypes.c_void_p] * 3 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_append", ctypes.c_int64, [ctypes.c_void_p] * 3 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_lookup", ctypes.c_int64, [ctypes.c_void_p] * 2 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_fetch", None, [ctypes.c_void_p] * 2 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]),
+    ("wf_hs_remove", None, [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                                    ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_reindex", None, [ctypes.c_void_p] * 3 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 3 + [ctypes.c_int64]),
 ]
 
 

@@ -73,6 +73,14 @@ class Basic_Operator:
         """Sync device-resident counters carried in ``state`` into the host
         ``Stats_Record``; no-op by default."""
 
+    def tier_controllers(self) -> tuple:
+        """The operator's tiered-state controllers (``state/tiered.py``
+        ``TieredTable``, one per tiered table): empty unless the operator was
+        built with ``tiered=`` on. ``CompiledChain`` runs their maintenance
+        after every push and their settle, snapshot and restore with the
+        chain's."""
+        return ()
+
     name = property(getName)
     parallelism = property(getParallelism)
 

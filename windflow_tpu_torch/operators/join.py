@@ -23,9 +23,20 @@ separates them per tuple.
   select-sum gives: ``jnp.sum``'s dtype, 0 in every field of an unmatched
   pick, and a float ``-0.0`` read as ``+0.0``.
 
-Not ported, and refused by name: tiered state (``tiered=``, ROADMAP Queue 1
-item 13; ``_append_spill`` and ``_cold_candidates`` come with it) and
-event-time monitoring (item 16).
+Tiered keyed state (``tiered=``, ``state/tiered.py``): a StreamTableJoin
+keeps its hot rows in a table of ``hot_capacity`` slots and the rest in a
+host store. Before the upsert, every batch key and every parked pending key
+missing from the hot table is resolved from the spill outbox or the cold
+tier (``join_table_tier_resolve``; the cold read is the ``cold_probe``
+kernel on the card) and readmitted; a winning upsert that finds no free
+slot is diverted to the outbox; a probe that still misses reads the outbox,
+then the resolved cold value; the coldest rows beyond the hot target are
+evicted to the outbox. Results do not depend on tier placement.
+
+Not ported, and refused by name: the IntervalJoin's tiered archive
+(``tiered=`` or ``WF_STATE_TIERED`` on an IntervalJoin: ROADMAP Queue 1 item
+13b; ``ArchiveTier``, ``_append_spill`` and ``_cold_candidates`` come with
+it) and event-time monitoring (item 16).
 """
 
 from __future__ import annotations
@@ -37,8 +48,12 @@ import torch
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, TupleRef, map_tuples, spec_of, tree_map, vmap_lanes
 from ..ops.lookup import (JOIN_KEY_SENTINEL, _plus_zero, _set_drop, count_drops,
-                          join_table_init, join_table_probe, join_table_upsert)
+                          join_table_init, join_table_probe, join_table_tier_evict,
+                          join_table_tier_fallback, join_table_tier_init,
+                          join_table_tier_resolve, join_table_tier_touch,
+                          join_table_upsert)
 from ..ops.window_reduce import sum_dtype
+from ..state.tiered import JoinTableTier, TierConfig
 from .base import Basic_Operator
 
 _I32 = torch.int32
@@ -54,14 +69,6 @@ PROBE_CHUNK_CELLS = 1 << 27
 PROBE_BLOCK = 128
 
 
-def refuse_tiered(name: str, tiered) -> None:
-    """Tiered keyed state is not ported: anything but ``tiered=None`` raises."""
-    if tiered is not None:
-        raise NotImplementedError(
-            f"{name}: tiered keyed state (tiered=) is not ported yet "
-            f"(ROADMAP Queue 1 item 13)")
-
-
 class StreamTableJoin(Basic_Operator):
     """Stream-table join over one merged (tagged) stream.
 
@@ -72,7 +79,9 @@ class StreamTableJoin(Basic_Operator):
     shapes the probe side's output (default: the probe payload merged with
     the value dict). An upsert becomes visible once the build watermark
     passes ``ts + delay``. Misses are masked out (inner join) unless
-    ``emit_misses=True`` (left join, zero values)."""
+    ``emit_misses=True`` (left join, zero values). ``tiered=`` (a dict of
+    :class:`~windflow_tpu_torch.state.tiered.TierConfig` fields, True, or
+    None to consult ``WF_STATE_TIERED``) keeps cold rows in a host store."""
 
     routing = routing_modes_t.KEYBY
 
@@ -81,7 +90,6 @@ class StreamTableJoin(Basic_Operator):
                  delay: int = 0, emit: Optional[Callable] = None,
                  emit_misses: bool = False, tiered=None,
                  name: str = "stream_table_join", parallelism: int = 1, device=None):
-        refuse_tiered(name, tiered)
         super().__init__(name, parallelism, device)
         if delay < 0:
             raise ValueError(f"{name}: delay (lateness) must be >= 0")
@@ -94,8 +102,12 @@ class StreamTableJoin(Basic_Operator):
         self.emit_misses = bool(emit_misses)
         self.emit = emit
         self._pending_resolved = pending
+        self._tier_cfg = TierConfig.resolve(tiered)
+        self._tier = None
+        self._cap_resolved = None
 
     def bind_geometry(self, batch_capacity: int) -> None:
+        self._cap_resolved = int(batch_capacity)
         # one batch of pure build tuples always fits, with headroom for
         # upserts parked behind a nonzero delay
         self._pending_resolved = (2 * int(batch_capacity) if self.pending is None
@@ -118,8 +130,23 @@ class StreamTableJoin(Basic_Operator):
 
     def init_state(self, payload_spec: Any):
         pending = self._pending_resolved or 2 * DEFAULT_MAX_KEYS
-        return join_table_init(self.num_slots, pending, self._val_spec(payload_spec),
-                               self.device)
+        vspec = self._val_spec(payload_spec)
+        if self._tier_cfg is None:
+            return join_table_init(self.num_slots, pending, vspec, self.device)
+        hot = int(self._tier_cfg.hot_capacity or self.num_slots)
+        # the per-batch admission bound: the resolve pass may readmit every
+        # distinct batch key and every parked pending key, so the hot table
+        # keeps that many slots free
+        self._reserve = (self._cap_resolved or DEFAULT_MAX_KEYS) + pending
+        self._hot_target = max(1, hot - self._reserve)
+        outbox = int(self._tier_cfg.outbox or 4 * self._reserve)
+        state = join_table_tier_init(join_table_init(hot, pending, vspec, self.device),
+                                     outbox, vspec)
+        self._tier = JoinTableTier(self.name, vspec, self._tier_cfg, self.device)
+        return state
+
+    def tier_controllers(self):
+        return (self._tier.controller,) if self._tier is not None else ()
 
     def out_spec(self, payload_spec: Any) -> Any:
         b = Batch.empty(1, payload_spec, self.device)
@@ -132,11 +159,32 @@ class StreamTableJoin(Basic_Operator):
         probe_mask = batch.valid & ~build
         jkey = map_tuples(self.key_fn, batch).to(torch.int32)
         bval = map_tuples(self.val_fn, batch)
+        tier = self._tier
+        if tier is not None:
+            # miss -> readmit before the upsert, for every batch key and every
+            # parked pending key (a parked upsert's key stays hot until it
+            # applies, so the never-roll-back check sees the applied version)
+            state, fb_vals, fb_ok = join_table_tier_resolve(
+                state, torch.cat([jkey, state["pkey"]]),
+                torch.cat([batch.valid, state["pok"]]), tier.lookup)
         # upsert before probe: a probe sees every build tuple up to and
-        # including its own batch (the as-of-watermark read point)
+        # including its own batch (the as-of-watermark read point); a tiered
+        # table diverts an upsert that finds no free slot to the outbox
         state = join_table_upsert(state, jkey, bval, batch.ts, batch.id, build,
-                                  delay=self.delay)
+                                  delay=self.delay, divert=tier is not None)
         vals, hit = join_table_probe(state, jkey, probe_mask)
+        if tier is not None:
+            # a probe that still misses reads the newest outbox entry of its
+            # key, then the resolve pass's cold value
+            C = batch.capacity
+            ob_vals, ob_hit = join_table_tier_fallback(state, jkey, probe_mask & ~hit)
+            fb = fb_ok[:C] & probe_mask & ~hit & ~ob_hit
+            vals = tree_map(lambda v, o, f: torch.where(
+                ob_hit, o.to(v.dtype), torch.where(fb, f[:C].to(v.dtype), v)),
+                vals, ob_vals, fb_vals)
+            hit = hit | ob_hit | fb
+            state = join_table_tier_touch(state, jkey, batch.valid)
+            state = join_table_tier_evict(state, self._hot_target)
         payload = self._emit_lanes(batch, vals)
         valid = probe_mask & (hit | self.emit_misses)
         return state, batch.replace(payload=payload, valid=valid)
@@ -197,7 +245,10 @@ class IntervalJoin(Basic_Operator):
                  ts_l: Optional[Callable] = None, ts_r: Optional[Callable] = None,
                  tiered=None, name: str = "interval_join", parallelism: int = 1,
                  device=None):
-        refuse_tiered(name, tiered)
+        if TierConfig.resolve(tiered) is not None:
+            raise NotImplementedError(
+                f"{name}: the interval join's tiered archive (tiered= or "
+                f"WF_STATE_TIERED) is not ported yet (ROADMAP Queue 1 item 13b)")
         super().__init__(name, parallelism, device)
         self.side_fn = side_fn
         self.lower = int(lower)
@@ -400,4 +451,4 @@ class IntervalJoin(Basic_Operator):
                 "arch_drops": int(state["arch_drops"])}
 
 
-__all__ = ["IntervalJoin", "StreamTableJoin", "refuse_tiered"]
+__all__ = ["IntervalJoin", "StreamTableJoin"]

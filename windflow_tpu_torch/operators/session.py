@@ -27,8 +27,15 @@ traced=True)`` (kernel K2 on the card) and nothing in ``apply`` reads a
 device value on the host, so a step captures into a CUDA graph. ``flush``
 reads ``eos`` on the host and stays eager, as every flush does.
 
-Not ported, and refused by name: tiered state (``tiered=``, ROADMAP Queue 1
-item 13) and the event-time lateness histogram (item 16). The process-wide
+Tiered keyed state (``tiered=``, ``state/tiered.py``): a key -> hot-slot
+directory in front of a session table of ``hot_capacity`` slots. Open
+sessions are pinned hot (they must fire through the triggerer); only closed
+keys' floors and session ordinals spill to the host store, and the
+watermark retires floors no admissible arrival can be OLD against (``floor +
+gap < wm - delay``, the compaction bound).
+
+Not ported, and refused by name: the event-time lateness histogram (ROADMAP
+Queue 1 item 16). The process-wide
 ``sessions_closed`` control counter waits for the control plane (item 15);
 ``collect_stats`` keeps the OLD drops in the Stats_Record.
 """
@@ -37,14 +44,16 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, map_tuples, spec_of, tree_map
 from ..ops.lookup import _isum, _lexsort, _set_drop, count_drops, table_lookup
 from ..ops.segment import segment_reduce
+from ..state.tiered import (SlotTableTier, TierConfig, slot_directory_evict,
+                            slot_directory_init, slot_directory_resolve)
 from .base import Basic_Operator
-from .join import refuse_tiered
 from .window import WindowSpec
 
 _I32 = torch.int32
@@ -71,7 +80,6 @@ class SessionWindow(Basic_Operator):
                  combine: Callable = None, identity: Any = 0,
                  num_keys: int = DEFAULT_MAX_KEYS, tiered=None,
                  name: str = "session", parallelism: int = 1, device=None):
-        refuse_tiered(name, tiered)
         super().__init__(name, parallelism, device)
         if not spec.is_session:
             raise ValueError(
@@ -83,6 +91,10 @@ class SessionWindow(Basic_Operator):
         self.identity = identity
         self.num_keys = int(num_keys)
         self._cap: Optional[int] = None
+        self._tier_cfg = TierConfig.resolve(tiered)
+        self._tier = None
+        self._slots = (int(self._tier_cfg.hot_capacity or num_keys)
+                       if self._tier_cfg is not None else self.num_keys)
 
     # -- geometry / specs -------------------------------------------------------------
 
@@ -91,7 +103,7 @@ class SessionWindow(Basic_Operator):
 
     def out_capacity(self, in_capacity: int) -> int:
         # in-batch evidence closes (<= 2 row groups of C) + watermark closes
-        return 2 * in_capacity + self.num_keys
+        return 2 * in_capacity + self._slots
 
     def _val_spec(self, payload_spec):
         return spec_of(map_tuples(self.value_fn, Batch.empty(1, payload_spec, self.device)))
@@ -101,15 +113,37 @@ class SessionWindow(Basic_Operator):
         return {"agg": self._val_spec(payload_spec), "start": i, "end": i, "n": i}
 
     def init_state(self, payload_spec: Any):
-        K, dev = self.num_keys, self.device
+        K, dev = self._slots, self.device
         acc = tree_map(lambda s: torch.zeros((K,) + tuple(s.shape), dtype=s.dtype,
                                              device=dev), self._val_spec(payload_spec))
         z = lambda fill=0: torch.full((K,), fill, dtype=_I32, device=dev)  # noqa: E731
         s = lambda v: torch.tensor(v, dtype=_I32, device=dev)  # noqa: E731
-        return {"open": torch.zeros((K,), dtype=torch.bool, device=dev),
-                "start": z(), "last": z(), "cnt": z(), "sid": z(),
-                "acc": acc, "floor": z(_IMIN),
-                "wm": s(_IMIN), "closed": s(0), "old": s(0), "eos": s(0)}
+        state = {"open": torch.zeros((K,), dtype=torch.bool, device=dev),
+                 "start": z(), "last": z(), "cnt": z(), "sid": z(),
+                 "acc": acc, "floor": z(_IMIN),
+                 "wm": s(_IMIN), "closed": s(0), "old": s(0), "eos": s(0)}
+        if self._tier_cfg is None:
+            return state
+        cap = self._cap or DEFAULT_MAX_KEYS
+        self._hot_target = max(1, K - min(cap, K - 1))
+        outbox = int(self._tier_cfg.outbox or 4 * cap)
+        state.update(slot_directory_init(K, outbox, {
+            "ofloor": lambda S: torch.full((S,), _IMIN, dtype=_I32, device=dev),
+            "osid": lambda S: torch.zeros((S,), dtype=_I32, device=dev)}, dev))
+        state["ovf"] = s(0)
+        gap, delay = self.spec.gap, self.spec.delay
+        self._tier = SlotTableTier(
+            self.name, {"floor": (np.int32, ()), "sid": (np.int32, ())}, self._tier_cfg,
+            count_key="ocnt", col_keys=["okey", "otick", "ofloor", "osid"],
+            state_to_store=lambda n, host: (host["okey"], host["otick"],
+                                            {"floor": host["ofloor"], "sid": host["osid"]}),
+            # a floor retires once no admissible arrival can be OLD against it
+            compact_col="floor", compact_bound=lambda wm: wm - delay - gap,
+            wm_key="wm", device=dev)
+        return state
+
+    def tier_controllers(self):
+        return (self._tier.controller,) if self._tier is not None else ()
 
     # -- the batched session step -----------------------------------------------------
 
@@ -118,7 +152,50 @@ class SessionWindow(Basic_Operator):
         return tree_map(fn, a, b)
 
     def apply(self, state, batch: Batch):
-        K, C = self.num_keys, batch.capacity
+        if self._tier is None:
+            return self._apply_core(state, batch)
+        K = self._slots
+        state, slot, live = slot_directory_resolve(state, batch.key, batch.valid,
+                                                   self._tier.lookup, self._admit_write)
+        # a lane whose key found no hot slot (the directory full of open
+        # sessions) drops, counted
+        state = dict(state, ovf=count_drops(state["ovf"], "overflow_drops",
+                                            _isum(batch.valid & ~live)))
+        state, out = self._apply_core(state, batch.replace(key=torch.where(live, slot, 0),
+                                                           valid=live))
+        out = self._true_keys(state, out)
+        # open sessions stay hot; a floor with nothing to remember frees
+        # without outbox space
+        state = slot_directory_evict(state, self._hot_target, evictable=~state["open"],
+                                     discardable=state["floor"] == _IMIN,
+                                     pack_write=self._pack_write)
+        return state, out
+
+    def _true_keys(self, state, out: Batch) -> Batch:
+        """Emitted hot slots remapped to their keys."""
+        hk = state["hkey"].index_select(0, out.key.clamp(0, self._slots - 1))
+        return out.replace(key=torch.where(out.valid, hk, out.key))
+
+    def _admit_write(self, out, widx, got, in_ob, oidx, host_res):
+        """Admitted keys' carried fields: the cold (floor, session ordinal) pair
+        (the outbox beats the host store) or a fresh (INT32_MIN, 0); an
+        admitted slot starts closed."""
+        found, h_floor, h_sid = host_res
+        cold = in_ob | found
+        floor = torch.where(in_ob, out["ofloor"].index_select(0, oidx), h_floor)
+        sid = torch.where(in_ob, out["osid"].index_select(0, oidx), h_sid)
+        out["floor"] = _set_drop(out["floor"], widx, torch.where(cold, floor, _IMIN))
+        out["sid"] = _set_drop(out["sid"], widx, torch.where(cold, sid, 0))
+        out["open"] = _set_drop(out["open"], widx, torch.zeros_like(got))
+        return out
+
+    def _pack_write(self, out, opos, perm, spill):
+        out["ofloor"] = _set_drop(out["ofloor"], opos, out["floor"].index_select(0, perm))
+        out["osid"] = _set_drop(out["osid"], opos, out["sid"].index_select(0, perm))
+        return out
+
+    def _apply_core(self, state, batch: Batch):
+        K, C = self._slots, batch.capacity
         gap = self.spec.gap
         dev = batch.device
         vals = map_tuples(self.value_fn, batch)
@@ -230,7 +307,7 @@ class SessionWindow(Basic_Operator):
         """EOS fires every open session regardless of the watermark."""
         if state is None or int(state["eos"]):
             return state, None
-        K = self.num_keys
+        K = self._slots
         C = self._cap or K
         dev = state["open"].device
         g3 = state["open"]
@@ -241,6 +318,10 @@ class SessionWindow(Basic_Operator):
         out = self._emit_rows(
             C, K, (zb, z, z, z, z, z, zacc), (zb, z, z, z, z, z, zacc),
             (g3, state["sid"], state["last"], state["start"], state["cnt"], state["acc"]))
+        if self._tier is not None:
+            # open sessions are pinned hot, so the EOS fire covers every live
+            # session
+            out = self._true_keys(state, out)
         state = dict(state)
         state["closed"] = state["closed"] + _isum(g3)
         state["sid"] = state["sid"] + g3.to(_I32)

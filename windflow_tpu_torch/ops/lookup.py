@@ -1,8 +1,9 @@
 """Table lookups and the stream-table join's key table.
 
 Counterpart of ``windflow_tpu/ops/lookup.py``: :func:`table_lookup` (kernel
-K2), :func:`join_probe` (kernel K5) and the versioned JoinTable built on it
-(``join_table_*``).
+K2), :func:`join_probe` (kernel K5), the versioned JoinTable built on it
+(``join_table_*``) and the JoinTable's tiered-state hooks
+(``join_table_tier_*``, the ``divert=`` path of the upsert).
 
 ``table_lookup``: ``table[idx]`` for the campaign join and per-key table
 reads. On the TPU a gather
@@ -52,7 +53,7 @@ import ctypes
 import torch
 
 from . import cuda
-from ..batch import tree_leaves, tree_map
+from ..batch import jax_leaves, jax_unflatten, tree_leaves, tree_map
 from .registry import count_launch
 
 #: C signature of K2's entry point (pointers and the stream as void*)
@@ -402,7 +403,8 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=_I32)
 
 
-def join_table_upsert(state: dict, key, val, ts, tid, ok, *, delay: int = 0) -> dict:
+def join_table_upsert(state: dict, key, val, ts, tid, ok, *, delay: int = 0,
+                      divert: bool = False) -> dict:
     """Buffer the batch's build-side tuples and apply every upsert the
     watermark has made eligible (``ts <= wm - delay``): per key, the last
     writer by ``(ts, id, arrival)`` wins; fresh keys claim free slots in that
@@ -417,7 +419,11 @@ def join_table_upsert(state: dict, key, val, ts, tid, ok, *, delay: int = 0) -> 
     slot is a :func:`join_probe` of every ring key against the used keys
     with values ``arange(K)`` (kernel K5 on the card; a miss gives slot 0,
     as ``argmax`` of an all-False row does), and the claim is the r-th
-    ascending free slot for the entry of rank r."""
+    ascending free slot for the entry of rank r.
+
+    ``divert`` (a tiered table, ``join_table_tier_init``): a winning upsert
+    that finds no free slot is not dropped but appended to the spill outbox
+    with its version triplet; only a full outbox still drops, counted."""
     dev = state["key"].device
     P, K = state["pkey"].shape[0], state["key"].shape[0]
     ok = ok.to(torch.bool)
@@ -468,7 +474,15 @@ def join_table_upsert(state: dict, key, val, ts, tid, ok, *, delay: int = 0) -> 
                            free_slots.index_select(0, rnk.clamp(max=K - 1).long())
                            .to(_I32), 0)
     lost = need_new & ~got_new
-    dropped = count_drops(dropped, "overflow_drops", _isum(lost))
+    if divert:
+        S_ob = state["okey"].shape[0]
+        drank = torch.cumsum(lost.to(_I32), 0, dtype=_I32) - 1
+        fits = lost & (state["ocnt"] + drank < S_ob)
+        div_pos = torch.where(fits, state["ocnt"] + drank, S_ob)
+        div_n = _isum(fits)
+        dropped = count_drops(dropped, "overflow_drops", _isum(lost & ~fits))
+    else:
+        dropped = count_drops(dropped, "overflow_drops", _isum(lost))
 
     # 5. never roll back: the pending version must beat the slot's applied one
     so = slot_old.long()
@@ -485,6 +499,14 @@ def join_table_upsert(state: dict, key, val, ts, tid, ok, *, delay: int = 0) -> 
     out["used"] = _set_drop(used, widx, torch.ones_like(write))
     out["val"] = tree_map(lambda t, v: _set_drop(t, widx, v), state["val"], pval)
     out["version"] = state["version"] + _isum(write)
+    if divert:
+        out["okey"] = _set_drop(state["okey"], div_pos, pkey)
+        out["oval"] = tree_map(lambda t, v: _set_drop(t, div_pos, v), state["oval"], pval)
+        out["over"] = _set_drop(state["over"], div_pos, pts)
+        out["ovid"] = _set_drop(state["ovid"], div_pos, pid)
+        out["ovseq"] = _set_drop(state["ovseq"], div_pos, pseq)
+        out["ocnt"] = state["ocnt"] + div_n
+        out["spills"] = state["spills"] + div_n
 
     # 6. every eligible entry leaves the ring; recompact survivors (stable)
     pok2 = pok & ~elig
@@ -550,8 +572,205 @@ def count_drops(counter: torch.Tensor, name: str, n) -> torch.Tensor:
     return counter + n
 
 
+# ------------------------------------------------------ tiered state hooks
+#
+# The JoinTable's side of tiered keyed state (``state/tiered.py``), the
+# counterparts of the JAX package's ``join_table_tier_*``: the same fields and
+# results bit for bit, computed without its dense ``[R, K]`` and ``[R, S]``
+# compares (3.2 G and 9.7 G cells at R = 49,152, K = 65,536, S = 196,608):
+#
+# - a key's hot slot (``any``/``argmax`` of the key compare) is one
+#   :func:`join_probe` of the lanes against the used keys with the slot
+#   indices as values (K5 on the card; it takes the first equal key, as
+#   ``argmax`` does, and slot 0 on a miss);
+# - the newest live outbox entry of a key is one stable sort of the live
+#   outbox keys and a ``searchsorted`` (:func:`outbox_find_last`);
+# - "the r-th admitted key claims the r-th free slot" is a gather from the
+#   free slots' positions (:func:`claim_free_slots`);
+# - ``jnp.lexsort((arange, lap))`` is one stable ``argsort`` of ``lap``.
+#
+# ``lookup(keys, want)`` is the cold tier's read (``JoinTableTier.lookup``:
+# ``ops/cold_probe.py`` on the card, the store's host lookup on the CPU).
+
+def hot_slot(tkeys: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor):
+    """``(slot [R] int32, hit [R])``: the first index ``j`` with ``tkeys[j] ==
+    keys[i]`` (0 where none), and whether a valid lane found one, as
+    ``argmax``/``any`` of the ``[R, K]`` compare give them."""
+    K = tkeys.shape[0]
+    return join_probe(tkeys, torch.arange(K, dtype=_I32, device=tkeys.device),
+                      keys.to(_I32), valid)
+
+
+def outbox_find_last(okey: torch.Tensor, ocnt: torch.Tensor, keys: torch.Tensor,
+                     need: torch.Tensor):
+    """Newest live outbox entry of each key: ``(need & found [R], index [R]
+    int32)``, the index the largest live position holding the key (0 where
+    none), for every lane. Appends are chronological, so the largest index
+    is the newest entry."""
+    S = okey.shape[0]
+    dev = okey.device
+    live = torch.arange(S, dtype=_I32, device=dev) < ocnt
+    sk, perm = torch.sort(torch.where(live, okey.to(torch.int64), 1 << 40), stable=True)
+    k64 = keys.to(torch.int64)
+    pos = torch.searchsorted(sk, k64, right=True) - 1
+    posc = pos.clamp(min=0)
+    hit = (pos >= 0) & (sk.index_select(0, posc) == k64)
+    idx = torch.where(hit, perm.index_select(0, posc), 0).to(_I32)
+    return need & hit, idx
+
+
+def claim_free_slots(used: torch.Tensor, adm: torch.Tensor):
+    """Deterministic fresh slots: the r-th admitted lane claims the r-th free
+    slot (ascending). ``(got [R], slot [R] int32)``; ``slot`` is 0 where the
+    lane's admission rank has no free slot."""
+    K = used.shape[0]
+    rank = torch.cumsum(adm.to(_I32), 0, dtype=_I32) - 1
+    free_slots = torch.argsort(used.to(torch.uint8), stable=True)   # free first
+    inr = (rank >= 0) & (rank < _isum(~used))
+    slot = torch.where(inr, free_slots.index_select(0, rank.clamp(0, K - 1).long())
+                       .to(_I32), 0)
+    return inr & adm, slot
+
+
+def join_table_tier_init(state: dict, outbox: int, val_spec) -> dict:
+    """Grow a :func:`join_table_init` state with the tiered fields: per-slot
+    last-access positions (``lap``/``tick``: batch positions, never wall
+    clock), the bounded spill outbox (``okey``/``oval``/``over``/``ovid``/
+    ``ovseq``/``ocnt``) and the device movement counters."""
+    dev = state["key"].device
+    K, S = state["key"].shape[0], int(outbox)
+    if S < 1:
+        raise ValueError("join_table_tier_init: outbox must be >= 1")
+
+    def full(n, v):
+        return torch.full((n,), v, dtype=_I32, device=dev)
+    out = dict(state)
+    out["lap"] = full(K, 0)
+    out["tick"] = torch.zeros((), dtype=_I32, device=dev)
+    out["okey"] = full(S, JOIN_KEY_SENTINEL)
+    out["oval"] = tree_map(lambda s: torch.zeros((S,), dtype=s.dtype, device=dev), val_spec)
+    out["over"] = full(S, _IMIN)
+    out["ovid"] = full(S, _IMIN)
+    out["ovseq"] = full(S, _IMIN)
+    for k in ("ocnt", "spills", "readmits"):
+        out[k] = torch.zeros((), dtype=_I32, device=dev)
+    return out
+
+
+def join_table_tier_fallback(state: dict, keys: torch.Tensor, miss: torch.Tensor):
+    """Post-upsert read fallback: a probe lane that still misses the hot
+    table reads the newest outbox entry of its key (this batch's diverted
+    upserts, unsettled spills). Returns ``(vals [R] tree, hit [R])``."""
+    keys = keys.to(_I32)
+    hit, idx = outbox_find_last(state["okey"], state["ocnt"], keys,
+                                miss.to(torch.bool) & (keys != JOIN_KEY_SENTINEL))
+    return tree_map(lambda leaf: leaf.index_select(0, idx), state["oval"]), hit
+
+
+def join_table_tier_resolve(state: dict, keys: torch.Tensor, ok: torch.Tensor, lookup):
+    """The miss -> readmit round of a tiered table, inside the step: every
+    wanted key missing from the hot table is searched in the spill outbox
+    (newest entry wins), then in the cold tier (``lookup``), and found rows
+    are readmitted through the fresh-slot rule (one slot a distinct key, the
+    r-th readmitted key the r-th free slot). Hot hits are touched
+    (``lap = tick``). Returns ``(state, fb_vals, fb_ok)``: each lane's cold
+    value, for the lanes whose row found no free slot."""
+    from .segment import segment_rank
+    K = state["key"].shape[0]
+    keys = keys.to(_I32)
+    ok = ok.to(torch.bool) & (keys != JOIN_KEY_SENTINEL)
+    tick = state["tick"]
+    tk = torch.where(state["used"], state["key"], JOIN_KEY_SENTINEL)
+    slot_tab, in_tab = hot_slot(tk, keys, ok)
+    lap = _set_drop(state["lap"], torch.where(in_tab, slot_tab, K), tick)
+    need = ok & ~in_tab
+    in_ob, oidxc = outbox_find_last(state["okey"], state["ocnt"], keys, need)
+    ob_leaves = [leaf.index_select(0, oidxc) for leaf in jax_leaves(state["oval"])]
+    ob_m = [state[f].index_select(0, oidxc) for f in ("over", "ovid", "ovseq")]
+    # the cold tier for the keys still missing; duplicate lanes look up
+    # independently (the same row), only admission dedups
+    need_host = need & ~in_ob
+    res = lookup(keys, need_host)
+    found = res[0] & need_host
+    fb_ok = in_ob | found
+    adm_leaves = [torch.where(in_ob, o, h.to(o.dtype)) for o, h in zip(ob_leaves, res[4:])]
+    m0, m1, m2 = (torch.where(in_ob, o, h) for o, h in zip(ob_m, res[1:4]))
+    adm = fb_ok & (segment_rank(keys, fb_ok) == 0)
+    got, slot = claim_free_slots(state["used"], adm)
+    widx = torch.where(got, slot, K)
+    out = dict(state)
+    out["key"] = _set_drop(state["key"], widx, keys)
+    out["val"] = jax_unflatten(state["val"], [
+        _set_drop(t, widx, v) for t, v in zip(jax_leaves(state["val"]), adm_leaves)])
+    out["ver"] = _set_drop(state["ver"], widx, m0)
+    out["vid"] = _set_drop(state["vid"], widx, m1)
+    out["vseq"] = _set_drop(state["vseq"], widx, m2)
+    out["used"] = _set_drop(state["used"], widx, torch.ones_like(got))
+    out["lap"] = _set_drop(lap, widx, tick)
+    out["readmits"] = state["readmits"] + _isum(got)
+    return out, jax_unflatten(state["val"], adm_leaves), fb_ok
+
+
+def join_table_tier_touch(state: dict, keys: torch.Tensor, ok: torch.Tensor) -> dict:
+    """Refresh last-access positions for a batch's keys after the upsert
+    applied (fresh upserts claimed slots the resolve pass could not see)."""
+    K = state["key"].shape[0]
+    keys = keys.to(_I32)
+    tk = torch.where(state["used"], state["key"], JOIN_KEY_SENTINEL)
+    slot, hit = hot_slot(tk, keys, ok.to(torch.bool) & (keys != JOIN_KEY_SENTINEL))
+    out = dict(state)
+    out["lap"] = _set_drop(state["lap"], torch.where(hit, slot, K), state["tick"])
+    return out
+
+
+def join_table_tier_evict(state: dict, hot_target: int) -> dict:
+    """Pressure eviction: when occupancy exceeds ``hot_target``, the coldest
+    ``used - hot_target`` keys (by last access, slot index breaking ties) go
+    to the spill outbox and their slots are freed, bounded by the outbox's
+    free space. Closes the batch by advancing ``tick``."""
+    K, S = state["key"].shape[0], state["okey"].shape[0]
+    dev = state["key"].device
+    used = state["used"]
+    need = torch.minimum(torch.clamp(_isum(used) - int(hot_target), min=0),
+                         S - state["ocnt"])
+    perm = torch.argsort(torch.where(used, state["lap"], _IMAX), stable=True)
+    r = torch.arange(K, dtype=_I32, device=dev)
+    sel = (r < need) & used.index_select(0, perm)
+    opos = torch.where(sel, state["ocnt"] + r, S)
+    out = dict(state)
+    out["okey"] = _set_drop(state["okey"], opos, state["key"].index_select(0, perm))
+    out["oval"] = tree_map(lambda t, src: _set_drop(t, opos, src.index_select(0, perm)),
+                           state["oval"], state["val"])
+    for o, f in (("over", "ver"), ("ovid", "vid"), ("ovseq", "vseq")):
+        out[o] = _set_drop(state[o], opos, state[f].index_select(0, perm))
+    cleared = torch.where(sel, perm, K)
+    out["used"] = _set_drop(used, cleared, torch.zeros_like(sel))
+    out["key"] = _set_drop(state["key"], cleared,
+                           torch.full_like(state["key"], JOIN_KEY_SENTINEL))
+    n = _isum(sel)
+    out["ocnt"] = state["ocnt"] + n
+    out["spills"] = state["spills"] + n
+    out["tick"] = state["tick"] + 1
+    return out
+
+
+def join_table_tier_stats(state: dict) -> dict:
+    """Device-side tier numbers beside :func:`join_table_stats` (a few small
+    device-to-host reads): hot occupancy, outbox depth, movement counters."""
+    K = int(state["key"].shape[0])
+    S = int(state["okey"].shape[0])
+    used = int(state["used"].sum())
+    return {"hot_slots": K, "hot_used": used, "hot_pct": round(100.0 * used / K, 2),
+            "outbox_slots": S, "outbox_depth": int(state["ocnt"]),
+            "state_spills": int(state["spills"]),
+            "state_readmits": int(state["readmits"])}
+
+
 __all__ = ["table_lookup", "gather_or_zero", "lookup_plain", "lookup_cuda", "take",
            "JOIN_PROBE_MAX_ROWS", "JOIN_PROBE_SMEM_SLOTS", "join_probe",
            "join_probe_plain", "join_probe_cuda", "JOIN_KEY_SENTINEL", "join_table_init",
            "join_table_upsert", "join_table_probe", "join_table_pending",
-           "join_table_stats", "count_drops"]
+           "join_table_stats", "count_drops", "hot_slot",
+           "outbox_find_last", "claim_free_slots", "join_table_tier_init",
+           "join_table_tier_fallback", "join_table_tier_resolve", "join_table_tier_touch",
+           "join_table_tier_evict", "join_table_tier_stats"]

@@ -15,8 +15,10 @@ capture collects only the launches its own thread makes while it captures
 neither put into the graph's per-replay counts nor taken off the totals.
 
 An entry whose ``replaces`` is None is a helper kernel that replaces no TPU
-kernel (``segment_fold_float``: the fixed-order float fold). It is counted
-the same way; :func:`tpu_kernels` leaves it out.
+kernel (``segment_fold_float``: the fixed-order float fold; ``cold_probe``:
+the tiered state's cold-tier read through mapped host memory, where the JAX
+package calls back into Python). It is counted the same way;
+:func:`tpu_kernels` leaves it out.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ KERNELS = {
         Kernel("masked_window_reduce", "windflow_tpu_torch/ops/csrc/masked_sum.cu",
                "windflow_tpu/ops/pallas_kernels.py:57"),
         Kernel("segment_fold_float", "windflow_tpu_torch/ops/csrc/segment.cu", None),
+        Kernel("cold_probe", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
     )
 }
 

@@ -23,7 +23,14 @@ so a stream checkpointed by one package resumes in the other:
   the last ``keep``); a load walks it newest to oldest and restores the
   newest valid entry;
 - the ``checkpoint.save`` (``kind="torn"`` leaves half a file behind, then
-  raises) and ``checkpoint.load`` fault sites of ``runtime/faults.py``.
+  raises) and ``checkpoint.load`` fault sites of ``runtime/faults.py``;
+- tiered keyed state: :func:`save_chain` settles the chain's tiered
+  operators first, then stores each cold tier's manifest as
+  ``tier<op>_<ctl>_<name>`` arrays beside the state leaves (covered by the
+  same per-array sha256); :func:`load_chain` restores them. A file without
+  leaf paths cannot restore into a tiered operator (the tier fields
+  interleave into the flatten order, so a positional restore would
+  misassign them): it raises ``KeyError``, as the JAX package does.
 
 A restored state is made of fresh tensors on the chain's device (no alias of
 the template: Win_Seq updates its rings in place and marks a consumed state).
@@ -32,8 +39,9 @@ static state at its next replay (``runtime/graphs.py``).
 
 Not ported, and refused by name: sharded checkpoints and the re-sharding
 handoffs (``save_sharded``, ``load_sharded``, ``seal_handoff``,
-``discard_handoffs``: ROADMAP Queue 1 item 14) and the tiered state's
-manifests (a file that carries them raises on load: item 13). A skipped
+``discard_handoffs``: ROADMAP Queue 1 item 14) and the interval join's
+archive tier (a file whose ``tier*`` arrays belong to an IntervalJoin raises
+on load: item 13b). A skipped
 lineage entry and a fallback are counted in the recovery counters and
 journaled (``checkpoint_invalid``, ``checkpoint_fallback``), as the JAX
 package does.
@@ -53,6 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..batch import flatten_with_paths, is_node
 from ..observability import journal as _journal
 from . import faults as _faults
 
@@ -79,35 +88,6 @@ def manifest_path(path: str) -> str:
 
 
 # ------------------------------------------------------ JAX's tree paths
-
-def _is_node(x) -> bool:
-    return dataclasses.is_dataclass(x) and not isinstance(x, type)
-
-
-def _walk(tree: Any, prefix: str, out: List[Tuple[str, Any]]) -> None:
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            _walk(tree[k], f"{prefix}[{k!r}]", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _walk(v, f"{prefix}[{i}]", out)
-    elif _is_node(tree):
-        for f in dataclasses.fields(tree):
-            _walk(getattr(tree, f.name), f"{prefix}.{f.name}", out)
-    else:
-        out.append((prefix, tree))
-
-
-def flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
-    """``(keystr, leaf)`` of every leaf of an operator state, in the order
-    and with the paths ``jax.tree_util.tree_flatten_with_path`` gives the
-    JAX package's state of the same operator."""
-    out: List[Tuple[str, Any]] = []
-    _walk(tree, "", out)
-    return out
-
 
 def leaf_paths(states) -> Dict[str, list]:
     """``{"op<i>": [keystr, ...]}`` of every state leaf, in flatten order."""
@@ -136,7 +116,7 @@ def _rebuild(tree: Any, prefix: str, pick) -> Any:
         return {k: _rebuild(v, f"{prefix}[{k!r}]", pick) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, f"{prefix}[{i}]", pick) for i, v in enumerate(tree))
-    if _is_node(tree):
+    if is_node(tree):
         return dataclasses.replace(tree, **{f.name: _rebuild(getattr(tree, f.name),
                                                              f"{prefix}.{f.name}", pick)
                                             for f in dataclasses.fields(tree)})
@@ -236,14 +216,20 @@ def _write_manifest(mpath: str, man: dict) -> None:
 def save_chain(chain, path: str, *, meta: dict = None, keep: int = 1) -> str:
     """Snapshot ``chain.states`` (and ``meta``) to ``path`` atomically;
     returns the file written. ``keep > 1`` is lineage mode: each save writes
-    ``<stem>.<seq>.npz`` and updates ``<stem>.manifest.json``."""
-    return save_states(chain.states, path, meta=meta, keep=keep)
+    ``<stem>.<seq>.npz`` and updates ``<stem>.manifest.json``. Tiered
+    operators settle first and their cold tiers ride as ``tier*`` arrays."""
+    chain.tier_settle()
+    return save_states(chain.states, path, meta=meta, keep=keep,
+                       extra_arrays=chain.tier_manifests())
 
 
-def save_states(states, path: str, *, meta: dict = None, keep: int = 1) -> str:
-    """The states-level core of :func:`save_chain`."""
+def save_states(states, path: str, *, meta: dict = None, keep: int = 1,
+                extra_arrays: Optional[Dict[str, np.ndarray]] = None) -> str:
+    """The states-level core of :func:`save_chain` (``extra_arrays``: the
+    cold tiers' ``tier*`` arrays)."""
     path = resolve_path(path)
     arrays = _flatten(states)
+    arrays.update(extra_arrays or {})
     full_meta = dict(meta or {})
     full_meta[_META_SHA] = _digest_map(arrays)
     full_meta[_META_PATHS] = leaf_paths(states)
@@ -292,9 +278,12 @@ def save_states(states, path: str, *, meta: dict = None, keep: int = 1) -> str:
 
 # ----------------------------------------------------------------- load
 
-def _load_states_file(states, path: str, expect_file_sha: Optional[str] = None):
+def _load_states_file(states, path: str, expect_file_sha: Optional[str] = None,
+                      tier_ops=()):
     """Verify one checkpoint file against a template ``states`` list and
-    return ``(new_states, user_meta)``."""
+    return ``(new_states, user_meta, extra_arrays)``: ``extra_arrays`` every
+    array that is not a state leaf (the cold tiers' ``tier*`` manifests).
+    ``tier_ops``: the operator positions whose state is tiered."""
     if expect_file_sha is not None and _file_sha256(path) != expect_file_sha:
         raise CheckpointCorrupt(
             f"checkpoint {path!r} fails its manifest sha256 — torn or corrupt")
@@ -321,11 +310,6 @@ def _load_states_file(states, path: str, expect_file_sha: Optional[str] = None):
                 raise CheckpointCorrupt(
                     f"checkpoint {path!r}: array {k} fails its sha256 — corrupt data, "
                     f"refusing a silent partial restore")
-    tiers = sorted(k for k in arrays if k.startswith("tier"))
-    if tiers:
-        raise NotImplementedError(
-            f"checkpoint {path!r} carries tiered-state manifests ({tiers[0]}, ...): "
-            f"tiered keyed state is not ported yet (ROADMAP Queue 1 item 13)")
     new_states = []
     for i, st in enumerate(states):
         cur = flatten_with_paths(st)
@@ -349,7 +333,14 @@ def _load_states_file(states, path: str, expect_file_sha: Optional[str] = None):
                     return _fresh(leaf)
                 return _restored(arrays[f"op{i}_leaf{j}"], leaf, f"{path}: op{i}{p}")
         else:
-            # no path map: positional restore, trailing-leaf tolerance only
+            # no path map: positional restore, trailing-leaf tolerance only;
+            # refused for a tiered operator, whose tier fields interleave into
+            # the flatten order
+            if i in tier_ops:
+                raise KeyError(
+                    f"checkpoint {path!r} predates leaf-path metadata and op{i} has "
+                    f"tiered state — a positional restore would misassign fields; "
+                    f"re-save the checkpoint (or restore into an untiered chain first)")
             have = [f"op{i}_leaf{j}" in present for j in range(len(cur))]
             n_present = sum(have)
             if cur and n_present == 0:
@@ -369,7 +360,8 @@ def _load_states_file(states, path: str, expect_file_sha: Optional[str] = None):
                     return _fresh(leaf)
                 return _restored(arrays[f"op{i}_leaf{j}"], leaf, f"{path}: op{i}{p}")
         new_states.append(_rebuild(st, "", pick))
-    return new_states, meta
+    extra = {k: v for k, v in arrays.items() if not k.startswith("op")}
+    return new_states, meta, extra
 
 
 def _walk_lineage(path: str, restore_one):
@@ -407,8 +399,20 @@ def _walk_lineage(path: str, restore_one):
 def load_states(states, path: str) -> tuple:
     """States-level :func:`load_chain`: restore against a template states
     list, returning ``(new_states, meta)``."""
-    return _walk_lineage(path, lambda f, sha: _load_states_file(states, f,
-                                                                expect_file_sha=sha))
+    return _walk_lineage(path, lambda f, sha: _load_states_file(
+        states, f, expect_file_sha=sha)[:2])
+
+
+def _refuse_archive_tiers(chain, path: str, extra: dict) -> None:
+    """A file whose ``tier*`` arrays belong to an IntervalJoin carries the
+    interval join's archive tier, which the port lacks: refuse it by name."""
+    from ..operators.join import IntervalJoin
+    for j, op in enumerate(chain.ops):
+        if isinstance(op, IntervalJoin) and any(k.startswith(f"tier{j}_") for k in extra):
+            raise NotImplementedError(
+                f"checkpoint {path!r} carries the archive tier of IntervalJoin "
+                f"{op.getName()!r} (tier{j}_*): the interval join's tiered archive is "
+                f"not ported yet (ROADMAP Queue 1 item 13b)")
 
 
 def load_chain(chain, path: str) -> dict:
@@ -418,8 +422,15 @@ def load_chain(chain, path: str) -> dict:
     invalid file raises :class:`CheckpointCorrupt` (``KeyError`` for a
     chain mismatch)."""
     def restore_one(f, sha):
-        new_states, meta = _load_states_file(chain.states, f, expect_file_sha=sha)
+        new_states, meta, extra = _load_states_file(chain.states, f, expect_file_sha=sha,
+                                                    tier_ops=chain._tier_ops)
+        _refuse_archive_tiers(chain, f, extra)
         chain.states = new_states
+        # the cold tiers from the tier* arrays; a file written before the
+        # operator was tiered has none: the store stands, copies in flight
+        # are discarded either way
+        chain.tier_restore_manifests({k: v for k, v in extra.items()
+                                      if k.startswith("tier")})
         return meta
     return _walk_lineage(path, restore_one)
 

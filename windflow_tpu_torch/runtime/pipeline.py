@@ -15,6 +15,12 @@ replayed by one host call (``runtime/graphs.py``), byte-identical to K
 stays eager and outside any graph: Win_Seq's and Win_SeqFFAT's flush read a
 device value.
 
+Tiered keyed state (``state/tiered.py``): after every ``push`` and every
+``push_many`` the chain runs its tiered operators' spill maintenance (one
+maintenance point after K steps, as the JAX package does), on the driving
+thread, before the next push is launched; ``tier_settle``/``tier_snapshot``/
+``tier_restore`` and the checkpoint manifests serve the recovery layer.
+
 EOS protocol: the source exhausts; then each stateful operator's ``flush``
 drains residual state and the flushed batches cascade through the remaining
 suffix of the chain; the source's exhaustion is journaled (``eos``). The
@@ -24,6 +30,7 @@ monitoring, control and tracing hooks of the JAX driver are not ported yet;
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, List, Optional, Sequence
@@ -118,6 +125,9 @@ class CompiledChain:
                 cap = op.out_capacity(cap)
             self.specs.append(op.out_spec(self.specs[-1]))
         self.states = [op.init_state(self.specs[i]) for i, op in enumerate(self.ops)]
+        #: operators with tiered keyed state: their controllers' maintain runs
+        #: after every push (empty unless some operator was built tiered)
+        self._tier_ops = [j for j, op in enumerate(self.ops) if op.tier_controllers()]
         self._push_count = 0
         #: the captured K-step programs, (from_op, K, capacity) -> StepGraph (card)
         self.graphs = {}
@@ -148,6 +158,8 @@ class CompiledChain:
         out = batch
         for j in range(from_op, len(self.ops)):
             self.states[j], out = self.ops[j].apply(self.states[j], out)
+        if self._tier_ops:
+            self._tier_maintain()
         if sampled and self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self._record(from_op, 1, batch, out,
@@ -188,13 +200,18 @@ class CompiledChain:
         fresh state objects over the same tensors, its results dropped:
         builds, loads and sets up every kernel of the step at these shapes,
         which a capture needs first (``runtime/graphs.py``). It writes no
-        state. Its kernel launches are real and counted."""
+        state, and its cold-tier probes count no readmissions. Its kernel
+        launches are real and counted."""
         if (from_op, capacity) in self._warmed:
             return
         b = Batch.empty(capacity, self.specs[from_op], self.device)
         states = rebuild(self.states, leaves(self.states))
-        for j in range(from_op, len(self.ops)):
-            states[j], b = self.ops[j].apply(states[j], b)
+        with contextlib.ExitStack() as uncounted:
+            for j in self._tier_ops:
+                for t in self.ops[j].tier_controllers():
+                    uncounted.enter_context(t.store.uncounted())
+            for j in range(from_op, len(self.ops)):
+                states[j], b = self.ops[j].apply(states[j], b)
         self._warmed.add((from_op, capacity))
 
     def _graph(self, from_op: int, k: int, capacity: int) -> StepGraph:
@@ -243,9 +260,75 @@ class CompiledChain:
         else:
             states, outs = self._k_steps(from_op)(self.states, stack_batches(batches))
         self.states = list(states)
+        if self._tier_ops:
+            self._tier_maintain()
         self._push_count += k
         self._record(from_op, k, batches[0], outs[0])
         return outs
+
+    # -- tiered keyed state (state/tiered.py) -----------------------------------------
+
+    def _tier_maintain(self) -> None:
+        """Per-push maintenance of every tiered operator: the spill pipeline
+        and the compaction cadence (a function of stream position, so
+        supervised replay re-walks it)."""
+        for j in self._tier_ops:
+            st = self.states[j]
+            for t in self.ops[j].tier_controllers():
+                st = t.maintain(st)
+            self.states[j] = st
+
+    def tier_settle(self) -> None:
+        """Drain every tiered operator's outbox into its host store
+        synchronously and drop the copies in flight: the pre-snapshot
+        barrier, after which (states, stores) is a consistent pair."""
+        for j in self._tier_ops:
+            st = self.states[j]
+            for t in self.ops[j].tier_controllers():
+                st = t.settle(st)
+            self.states[j] = st
+
+    def tier_snapshot(self):
+        """Host copies of every tiered operator's cold tier (callers settle
+        first); None when no operator is tiered."""
+        if not self._tier_ops:
+            return None
+        return {j: [t.manifest() for t in self.ops[j].tier_controllers()]
+                for j in self._tier_ops}
+
+    def tier_restore(self, snap) -> None:
+        """Restore the cold tiers from a :meth:`tier_snapshot`; the failed
+        attempt's copies in flight are discarded (the restored states still
+        hold those rows in their outboxes: replay re-derives the spill)."""
+        for j in self._tier_ops:
+            mans = (snap or {}).get(j)
+            for i, t in enumerate(self.ops[j].tier_controllers()):
+                if mans is not None and i < len(mans):
+                    t.restore(mans[i])
+                else:
+                    t.discard_inflight()
+
+    def tier_manifests(self) -> dict:
+        """``{"tier<op>_<ctl>_<name>": ndarray}`` of every cold tier: the
+        checkpoint file's layout (the JAX package's)."""
+        return {f"tier{j}_{i}_{k}": v
+                for j in self._tier_ops
+                for i, t in enumerate(self.ops[j].tier_controllers())
+                for k, v in t.manifest().items()}
+
+    def tier_restore_manifests(self, arrays: dict) -> None:
+        """Restore cold tiers from checkpoint arrays (the
+        :meth:`tier_manifests` layout); a tier the file lacks (a checkpoint
+        written before the operator was tiered) keeps its store, and its
+        copies in flight are discarded."""
+        for j in self._tier_ops:
+            for i, t in enumerate(self.ops[j].tier_controllers()):
+                prefix = f"tier{j}_{i}_"
+                man = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+                if man:
+                    t.restore(man)
+                else:
+                    t.discard_inflight()
 
     def flush(self) -> List[Batch]:
         """EOS: drain every operator in order, cascading flushed batches through
@@ -263,6 +346,10 @@ class CompiledChain:
         return outs
 
     def sync_stats(self) -> None:
+        if self._tier_ops:
+            # the EOS barrier: spills in flight settle, so the final counters
+            # (and a following checkpoint) are consistent
+            self.tier_settle()
         for op, st in zip(self.ops, self.states):
             op.collect_stats(st)
 

@@ -65,8 +65,11 @@ Not ported, and refused by name: sharded supervision (``shards`` > 1 or
 ``WF_SHARDS`` > 1, ``reshard=``, ``shard_key=``, ``shard_range=``: ROADMAP
 Queue 1 item 14), admission control and remediation (``control=``,
 ``WF_CONTROL``, ``remediation=``, ``WF_REMEDIATION``: item 15), tracing
-(``trace=``) and monitoring-driven event time (item 16); tiered state (item
-13) already raises where an operator is built with ``tiered=``. The JAX
+(``trace=``) and monitoring-driven event time (item 16). Tiered keyed state
+(``state/tiered.py``) is supervised as in the JAX package: a snapshot settles
+the tiered operators first and keeps their cold tiers' manifests beside the
+states; a restore rewinds the stores and discards the copies in flight
+(replay re-derives the spills). The JAX
 loop's tracing and device-health calls (span carry, ingest, abort, the
 health ledger's pending note) belong to item 16 and are left out.
 """
@@ -229,13 +232,15 @@ class SupervisedPipeline:
     def _snapshot(self):
         # host copies: the card's state may be lost with the card, and after
         # a replay the states are a captured graph's static tensors, which
-        # the next replay overwrites. The port has no tiered state: None
-        # where the JAX package keeps the cold tiers' snapshot.
-        return ([host_tree(st) for st in self.chain.states], None)
+        # the next replay overwrites. Tiered state settles first, so (states,
+        # cold tiers) is a consistent pair.
+        self.chain.tier_settle()
+        return ([host_tree(st) for st in self.chain.states], self.chain.tier_snapshot())
 
     def _restore(self, snap):
-        states, _tiers = snap
+        states, tiers = snap
         self.chain.states = [device_tree(st, self.device) for st in states]
+        self.chain.tier_restore(tiers)
 
     # -- run --------------------------------------------------------------------------
 
@@ -533,12 +538,15 @@ class _CommitBufferSink:
 
 
 def _graph_snapshot(graph):
-    """Host copies of every pipe's chain states and Ordering_Node state, and
-    the exhausted set."""
-    chains, orders = [], []
+    """Host copies of every pipe's chain states and cold tiers (settled
+    first), Ordering_Node state, and the exhausted set."""
+    chains, orders, tiers = [], [], []
     for mp in graph._all_pipes():
+        if mp._chain is not None:
+            mp._chain.tier_settle()
         chains.append(None if mp._chain is None else
                       [host_tree(st) for st in mp._chain.states])
+        tiers.append(None if mp._chain is None else mp._chain.tier_snapshot())
         o = mp._ordering
         if o is not None:
             o.settle()        # the trim owed by the last push, before copying
@@ -547,17 +555,20 @@ def _graph_snapshot(graph):
             "chan": _host_copy(o._pending_chan),
             "wm": _host_copy(o._wm_dev),
             "next_id": _host_copy(o._next_id)})
-    return {"chains": chains, "orders": orders, "exhausted": set(graph._exhausted)}
+    return {"chains": chains, "orders": orders, "tiers": tiers,
+            "exhausted": set(graph._exhausted)}
 
 
 def _graph_restore(graph, snap):
     dev = graph.device
-    for mp, ch, od in zip(graph._all_pipes(), snap["chains"], snap["orders"]):
+    for mp, ch, od, tr in zip(graph._all_pipes(), snap["chains"], snap["orders"],
+                              snap["tiers"]):
         if mp._chain is not None:
             if ch is None:
                 mp._chain.reset_states()      # a chain born after the checkpoint
             else:
                 mp._chain.states = [device_tree(st, dev) for st in ch]
+            mp._chain.tier_restore(tr)
         if od is None:
             mp._ordering = None               # recreated lazily, fresh
         else:
