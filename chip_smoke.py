@@ -232,11 +232,36 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     eagerly, with every K2, K3, K4 and K5 call's arguments cloned as it
     launches; the last four calls of each distinct signature rerun through
     the kernel and its plain version, bit for bit;
-38. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
-    fixed-order float fold at ``keyed_cb``'s shape and ``cold_probe`` at
-    tiered q3's, launches summed over the paths, each counted from zero just
-    before it), then the result line ``{"ok": true, "device": {...}}`` as
-    the last line.
+38. ``cold_fetch`` (kernel check): the archive tier's multimap read
+    against its plain version (the store's host ``fetch_multi``) bit for bit
+    at R = 2^14 and M = 8 over a store of 4096 keys with chains of 0 to 20
+    rows, compacted so rows in the middle of chains are gone, and a graph
+    captured before the store grew 128x, replayed after; its time and its
+    bound (host-link bytes over 64 GB/s);
+39. ``tiered_q4``: q4 at 2^14 tiered (the dense oracle, ``cold_fetch`` twice
+    an apply), then q4's operator over the ring-overwrite stream at full
+    width (``tq4_query``: archive 2^14, a window of 24,576 ticks): the rows
+    of an untiered archive that never overwrites, the small untiered ring
+    losing rows, tiered eager and at K = 4 byte for byte with spills (and,
+    eager, readmissions), ``cold_fetch`` twice an apply counted through the
+    replays, and a supervised tiered run with one chain.step fault giving
+    the uninterrupted rows;
+40. ``sharded_supervision``, three parts run after their unsharded
+    counterparts: YSB (8 x 2^20, after phase 29) under
+    ``SupervisedPipeline(shards=4)`` with ownership by campaign, a
+    ``shard.kill`` on shard 2 and a live reshard 4 -> 8 at batch 4, sharded
+    checkpoint files reloaded into every shard's committed state, then again
+    with the first handoff seal torn (re-derived, no seal left); q3 (16 x
+    2^14, after phase 30) at shards 4; ``graph_windows`` (after phase 31)
+    under ``run_supervised(shards=2)``. Each gives the unsharded rows
+    (sorted: a batch's rows arrive shard by shard), with K1/K2 (YSB), K5
+    (q3) and K2/K3/K4 (graph) counted a shard's push, and logs ms a batch
+    beside the unsharded supervised run's and each shard's restore;
+41. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+    fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
+    tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
+    paths, each counted from zero just before it), then the result line
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Phase 3 also holds K4 at the Ordering_Node's shapes (merges of [1, 8192]
 and [1, 2^17], sorts of [1, 4096] and [1, 2^16]) and at TopN's tiered
@@ -3475,6 +3500,8 @@ def supervised_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts):
                                          f"expected {want}")
                 if sp.restarts and not ctr["recovery_seconds"] > 0:
                     raise AssertionError(f"supervised_ysb {case}: no recovery_seconds")
+                if case == "none" and k is None:
+                    SUP_RUN_S["ysb"] = dt
                 for kk, nn in counts.items():
                     launches[kk] += nn
                 del sp, parts
@@ -3501,6 +3528,7 @@ def supervised_q3_phase(torch, np, wt, registry, card, q3_views):
     counts, dt, peak = counted_run(torch, registry, sp.start, sp.run)
     views = [v for v in views if v is not None]
     same = flat_bytes(np, views) == flat_bytes(np, q3_views)
+    SUP_RUN_S["q3"] = dt
     log({"phase": "supervised_q3", "batches": NEX_BATCHES, "batch": NEX_BATCH,
          "checkpoint_every": SUP_Q3_EVERY, "restarts": sp.restarts, "pushed": pushed["n"],
          "rows_byte_identical": same, "run_s": dt,
@@ -3562,6 +3590,7 @@ def supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s):
         del op.flush
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    SUP_RUN_S["graph"] = dt
     total = registry.launch_counts()
     applied = {k: total[k] - flushed["launches"][k] for k in total}
     networks = sum((n.networks for n in nodes), Counter())
@@ -4179,6 +4208,506 @@ def tiered_recovery_phase(torch, np, wt, registry, card):
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return launches
 
+# -- shard-local supervision on one card -----------------------------------------------
+
+SHARDS = 4                # the sharded runs' shard count
+SHARD_RESHARD = {"new_shards": 8, "at_pos": 4}   # sharded YSB's live 4 -> 8
+SHARD_KILL = {"shard": 2, "pos": 1}              # its shard.kill, before the reshard
+SHARD_GRAPH = 2           # graph_windows' shard count
+SHARD_DIR = os.path.join(ROOT, "build", "sharded")
+#: the unsharded supervised runs' seconds, beside the sharded ones
+SUP_RUN_S = {}
+
+
+def sorted_rows(np, parts):
+    """A run's live ``(key, id, payload)`` rows sorted (a sharded run delivers
+    a batch's rows shard by shard): one array a field, for ``flat_bytes``."""
+    if not parts:
+        return []
+    k, w, c = (np.concatenate([np.asarray(x) for x in col]) for col in zip(*parts))
+    flat = c.reshape(len(c), -1)
+    order = np.lexsort([flat[:, j] for j in reversed(range(flat.shape[1]))] + [w, k])
+    return [k[order], w[order], c[order]]
+
+
+def sharded_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts):
+    """YSB at full width (8 x 2^20) under ``SupervisedPipeline(shards=4)``
+    with a checkpoint every 2 batches, sharded checkpoint files, a journal,
+    ``shard.kill`` on shard 2 at batch 1 and a live reshard 4 -> 8 at the
+    barrier of batch 4: the plain rows (sorted: a batch's rows arrive shard
+    by shard) byte for byte, one restart, on shard 2, no whole-domain
+    restore, K1 and K2 once a shard's push (replays and the re-sharding
+    prefix included), the files reloaded into every shard's committed
+    states. Then the same run with the first handoff seal torn: the same
+    rows, the move re-derived, no seal left behind. ms a batch against the
+    unsharded supervised run's."""
+    import shutil
+    from windflow_tpu_torch.observability import journal as J
+    from windflow_tpu_torch.runtime import checkpoint as ck
+    from windflow_tpu_torch.runtime import faults as F
+    from windflow_tpu_torch.runtime.graphs import leaves
+    from windflow_tpu_torch.runtime.supervisor import _fresh_states
+
+    total = YSB_BATCHES * BATCH
+    want = flat_bytes(np, sorted_rows(np, ysb_parts))
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    try:
+        for case in ("kill_and_reshard", "torn_handoff"):
+            if case == "kill_and_reshard":
+                plan = F.FaultPlan([F.FaultSpec("shard.kill", where=SHARD_KILL,
+                                                max_fires=1)], seed=31)
+            else:
+                plan = F.FaultPlan([F.FaultSpec("reshard.handoff", kind="torn",
+                                                max_fires=1)], seed=32)
+            path = os.path.join(SHARD_DIR, f"ysb_{case}.npz")
+            parts, cb = collect_sink()
+            src, ops = ysb.make_source(total), ysb.make_ops(**ysb.bench_geometry(BATCH))
+            # ownership follows the campaign the windows group on (the KeyBy's
+            # key), not the source's key
+            sp = wt.SupervisedPipeline(src, ops, wt.Sink(cb), batch_size=BATCH,
+                                       checkpoint_every=SUP_EVERY, max_restarts=3,
+                                       shards=SHARDS, reshard=SHARD_RESHARD, faults=plan,
+                                       spill_path=path,
+                                       shard_key=lambda t: t.data["ad_id"]
+                                       // ysb.ADS_PER_CAMPAIGN, **SUP_BACKOFF)
+            pushed = count_pushes(sp.chain)
+            jpath = os.path.join(SHARD_DIR, f"{case}.jsonl")
+            journal = J.EventJournal(jpath)
+
+            def run():
+                J.set_active(journal)
+                try:
+                    sp.run()
+                finally:
+                    J.set_active(None)
+                    journal.close()
+            F.reset_counters()
+            counts, dt, peak = counted_run(torch, registry, sp.start, run)
+            recs = J.read_journal(jpath)
+            rep = sp.shard_report()
+            same = flat_bytes(np, sorted_rows(np, parts)) == want
+            row = {"phase": "sharded_supervision", "case": f"ysb {case}", "shards": SHARDS,
+                   "reshard": SHARD_RESHARD, "batches": YSB_BATCHES, "batch": BATCH,
+                   "rows_byte_identical": same, "restarts": sp.restarts,
+                   "shard_report": rep, "pushed": pushed["n"],
+                   "shard_restores": [r for r in recs if r["event"] == "shard_restore"],
+                   "restore_spans": len(journal_spans(recs, "restore")),
+                   "recovery_seconds": F.counters()["recovery_seconds"],
+                   "reshard_spans": [r["dur_s"] for r in journal_spans(recs, "reshard")],
+                   "run_s": dt, "ms_per_batch": dt / YSB_BATCHES * 1e3,
+                   "unsharded_supervised_ms_per_batch":
+                       SUP_RUN_S.get("ysb", float("nan")) / YSB_BATCHES * 1e3,
+                   "launches": counts, "peak_mib": peak / 2 ** 20, "card": card}
+            if not same:
+                log(row)
+                raise AssertionError(f"sharded ysb {case}: rows differ from the plain rows")
+            if len(rep) != 8 or sp._sharded.reshard_count != 1:
+                raise AssertionError(f"sharded ysb {case}: the reshard did not apply")
+            expect_launches(f"sharded ysb {case}", counts, {"histogram": 1, "lookup": 1},
+                            pushed["n"])
+            if case == "kill_and_reshard":
+                if (sp.restarts, rep[2]["restarts"], row["restore_spans"]) != (1, 1, 0):
+                    raise AssertionError(f"sharded ysb: restarts {sp.restarts}, shard 2 "
+                                         f"{rep[2]['restarts']}, {row['restore_spans']} "
+                                         f"whole-domain restores")
+                t0 = time.perf_counter()
+                states, layout, meta = ck.load_sharded(_fresh_states(sp.chain), path)
+                row["load_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+                row["sharded_files"] = sorted(os.listdir(SHARD_DIR))
+                for k, unit in enumerate(sp._sharded.shards):
+                    a = [x for x in leaves(states[k]) if isinstance(x, torch.Tensor)]
+                    b = [x for x in leaves(unit.snap) if isinstance(x, torch.Tensor)]
+                    if len(a) != len(b) or not all(
+                            torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b)):
+                        raise AssertionError(f"sharded ysb: shard {k}'s file differs from "
+                                             f"its committed snapshot")
+                if layout["num_shards"] != 8 or meta["batches_done"] != YSB_BATCHES:
+                    raise AssertionError(f"sharded ysb: layout {layout}, meta {meta}")
+            else:
+                debris = [f for f in os.listdir(SHARD_DIR) if ".handoff" in f]
+                if sp.restarts != 1 or debris:
+                    raise AssertionError(f"sharded ysb torn handoff: {sp.restarts} "
+                                         f"restarts, seals left {debris}")
+            log(row)
+            for kk, nn in counts.items():
+                launches[kk] += nn
+            del sp, parts
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return launches
+
+
+def sharded_q3_phase(torch, np, wt, registry, card, q3_views):
+    """Nexmark q3 (16 x 2^14) under ``SupervisedPipeline(shards=4)``: the
+    ``nexmark`` phase's q3 rows (sorted), K5 twice a shard's push."""
+    from windflow_tpu_torch.nexmark import make_query
+
+    def rows(views):
+        return [(v["key"], v["id"], np.stack([np.asarray(v["payload"][f])
+                                              for f in sorted(v["payload"])], 1))
+                for v in views if v is not None]
+    views = []
+    src, ops = make_query("q3_enrich_join", NEX_BATCHES * NEX_BATCH)
+    sp = wt.SupervisedPipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                               checkpoint_every=SUP_Q3_EVERY, shards=SHARDS, **SUP_BACKOFF)
+    pushed = count_pushes(sp.chain)
+    counts, dt, peak = counted_run(torch, registry, sp.start, sp.run)
+    same = (flat_bytes(np, sorted_rows(np, rows(views)))
+            == flat_bytes(np, sorted_rows(np, rows(q3_views))))
+    log({"phase": "sharded_supervision", "case": "q3", "shards": SHARDS,
+         "batches": NEX_BATCHES, "batch": NEX_BATCH, "rows_byte_identical": same,
+         "pushed": pushed["n"], "run_s": dt, "ms_per_batch": dt / NEX_BATCHES * 1e3,
+         "unsharded_supervised_ms_per_batch":
+             SUP_RUN_S.get("q3", float("nan")) / NEX_BATCHES * 1e3,
+         "launches": counts, "peak_mib": peak / 2 ** 20, "card": card})
+    if not same:
+        raise AssertionError("sharded q3: rows differ from the nexmark phase's q3 rows")
+    if pushed["n"] != SHARDS * NEX_BATCHES:
+        raise AssertionError(f"sharded q3: {pushed['n']} pushes")
+    expect_launches("sharded q3", counts, {"join_probe": 2}, pushed["n"])
+    return counts
+
+
+def sharded_graph_phase(torch, np, wt, registry, card, gw_parts):
+    """``graph_windows`` (phase 17) under ``run_supervised(shards=2)`` with a
+    checkpoint every 4 root batches: phase 17's windows (sorted), branch 2's
+    count merged over the shards, K2, K3 and K6 once a Win_Seq apply and K6
+    once a flush call, K4 as the shards' Ordering_Nodes called it."""
+    from collections import Counter
+    from windflow_tpu_torch.ops import bitonic as B
+
+    parts, cb = collect_sink()
+    g, mp, m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE,
+                             GW_BATCH, cb)
+    nodes = []
+    ordering_of = g._ordering_of
+
+    def counted_ordering_of(merged):
+        o = ordering_of(merged)
+        if all(o is not n for n in nodes):
+            nodes.append(o)
+        return o
+    g._ordering_of = counted_ordering_of
+    g.start()
+    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    res = g.run_supervised(checkpoint_every=SUP_GRAPH_EVERY, shards=SHARD_GRAPH,
+                           **SUP_BACKOFF)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = registry.launch_counts()
+    calls, cuda_launches = k4_launches(B, sum((n.networks for n in nodes), Counter()))
+    same = (flat_bytes(np, sorted_rows(np, parts))
+            == flat_bytes(np, sorted_rows(np, gw_parts)))
+    log({"phase": "sharded_supervision", "case": "graph_windows", "shards": SHARD_GRAPH,
+         "batch": GW_BATCH, "tuples": GW_TOTAL, "windows_byte_identical": same,
+         "shard_report": g._shard_report, "run_s": dt,
+         "unsharded_supervised_run_s": SUP_RUN_S.get("graph", float("nan")),
+         "win_seq_applies": m._chain._push_count, "launches": total,
+         "k4_calls": calls, "k4_cuda_launches": cuda_launches, "card": card})
+    if not same:
+        raise AssertionError("sharded graph_windows: windows differ from phase 17's")
+    if int(res["rest"]) != len(range(2, GW_TOTAL, 3)):
+        raise AssertionError("sharded graph_windows: branch 2's count is wrong")
+    if total["ordering_merge"] != calls:
+        raise AssertionError(f"sharded graph_windows: K4 counted {total['ordering_merge']}, "
+                             f"the nodes made {calls} network calls")
+    for k in ("lookup", "segment_fold"):
+        if total[k] != m._chain._push_count:
+            raise AssertionError(f"sharded graph_windows: {k} {total[k]}, "
+                                 f"{m._chain._push_count} Win_Seq applies")
+    return total
+
+
+# -- the interval join's archive tier (tiered q4) --------------------------------------
+
+COLD_FETCH_R = NEX_BATCH  # the fetch's lanes: one a q4 probing lane at 2^14
+COLD_FETCH_M = 8          # TierConfig.readmit_rows' default
+#: tiered_q4: the JAX package's ring-overwrite test (opens every 8 events,
+#: ts = i // 8, bids on random keys) at batch 2^14 and archive 2^14. q4's
+#: own window (4 ticks) keeps about 40 rows live, so a ring of 2^14 never
+#: overwrites one; here 4096 auctions and a window of 24,576 ticks keep
+#: 24,576 opens live: from the 9th batch on each batch overwrites 2048 live
+#: opens, which stay live 4 to 5 batches, so they are matched from the
+#: outbox and then from the host store; each bid matches 6 or 7 opens,
+#: below q4's max_matches of 8
+TQ4_KEYS = 4096
+TQ4_WINDOW = 24_576
+#: a window whose spills expire before they reach the host store (17,000
+#: ticks: 2048 spills a batch, live 1 to 2 batches): eager and K = 4 then
+#: take every cold row from the outbox in the same order, so their rows
+#: match byte for byte; over TQ4_WINDOW a row moves to the store at a
+#: maintain, which comes every batch eager and every 4 at K = 4, so its
+#: candidate position (outbox or fetched) and the order of a lane's matches
+#: differ between the two, the pairs do not (the JAX package's cadence too)
+TQ4_OUTBOX_WINDOW = 17_000
+TQ4_ARCHIVE = NEX_BATCH
+TQ4_BATCHES = 16
+TQ4_K = 4                 # its scan dispatch
+TQ4_EVERY = 4             # its supervised run: a checkpoint every 4 batches
+TQ4_FAULT = 10            # and a chain.step fault at batch 10
+#: a tiered IntervalJoin apply: one cold_fetch a side
+TQ4_APPLY = {"cold_fetch": 2}
+
+
+def archive_store(np, tier_cfg, name, n_keys, rows_per_key, seed):
+    """An ArchiveTier's multimap store on the card with q4's row schema
+    (``ts``, ``id`` and the open/bid payload): ``rows_per_key`` rows a key,
+    appended in rounds so every key's chain interleaves with the others',
+    with ts drawn so that compacting below 100 retires rows in the middle
+    of chains."""
+    from windflow_tpu_torch.nexmark import generators as g
+    from windflow_tpu_torch.state.tiered import ArchiveTier
+    src = g.make_open_bid_source(64)
+    tier = ArchiveTier(name, src.payload_spec(), tier_cfg, "l", lambda wm: wm, "cuda")
+    rng = np.random.default_rng(seed)
+    store = tier.store
+    for r in range(int(rows_per_key.max())):
+        keys = np.flatnonzero(rows_per_key > r).astype(np.int32)
+        n = len(keys)
+        z = np.zeros(n, np.int64)
+        cols = {"ts": rng.integers(0, 1000, n).astype(np.int32),
+                "id": (r * n_keys + keys).astype(np.int32)}
+        for c in store.col_names[2:]:
+            cols[c] = rng.integers(-1000, 1000, n).astype(store._dtypes[c])
+        store.append(keys, z, z, z, cols)
+    return tier
+
+
+def cold_fetch_phase(torch, np, card):
+    """The archive tier's multimap read against its plain version (the
+    store's host ``fetch_multi``), bit for bit, at R = 2^14 lanes and M = 8
+    over a store of 4096 keys with chains of 0 to 20 rows (longer than M,
+    so the truncation shows), after compacting below ts 100 (rows retired
+    in the middle of chains); keys in 5000 (some absent), a fifth of the
+    lanes not wanted. Then a graph captured over a 2-row-a-key store, the
+    store grown to 2^18 rows, the graph replayed: the replay reads the grown
+    store and its links. The kernel's time by graph replay, the plain
+    version's by CUDA events around its round trips, and the bound: the
+    host-link bytes (a 16-byte index slot a wanted lane, then the 8-byte
+    link and the value row of each row fetched) over 64 GB/s."""
+    from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_fetch_plain
+    from windflow_tpu_torch.state import TierConfig
+
+    cfg = TierConfig()
+    rng = np.random.default_rng(21)
+    per_key = rng.integers(0, 21, TQ4_KEYS)
+    tier = archive_store(np, cfg, "fetch", TQ4_KEYS, per_key, 22)
+    store = tier.store
+    retired = store.compact_below("ts", 100)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    keys = torch.randint(0, 5000, (COLD_FETCH_R,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    want = torch.rand((COLD_FETCH_R,), generator=gen, device="cuda") < 0.8
+    M = COLD_FETCH_M
+
+    def kernel():
+        return cold_fetch_cuda(store, keys, want, M)
+
+    def plain():
+        return cold_fetch_plain(store, keys, want, M)
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    same, err = compare(torch, got, ref)
+    fetched = int(ref[0].sum())
+    truncated = int(((torch.from_numpy(per_key).cuda()[keys.long().clamp(max=TQ4_KEYS - 1)]
+                      > M) & want & (keys < TQ4_KEYS)).sum())
+    row_bytes = sum(int(np.prod(store.col_shape(k), dtype=np.int64))
+                    * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
+    nbytes = int(want.sum()) * 16 + fetched * (8 + row_bytes)
+    bound_ms = nbytes / HOST_LINK_BYTES_PER_S * 1e3
+    row = {"kernel_check": "cold_fetch", "case": "4096 keys, chains 0-20, compacted",
+           "lanes": COLD_FETCH_R, "rows_per_lane": M, "store_rows": len(store),
+           "retired": retired, "wanted": int(want.sum()), "fetched": fetched,
+           "lanes_truncated_at_M": truncated, "bit_identical": same, "max_abs_err": err,
+           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
+           "plain_ms": time_ms(torch, plain, iters=5, warmup=1), "library_ms": None,
+           "bytes": nbytes, "counted": "host-link bytes: 16 a wanted lane, link and row "
+                                       "a row fetched", "bound_ms": bound_ms,
+           "bound_by": "bytes", "card": card}
+    log(row)
+    if not same:
+        raise AssertionError("cold_fetch: kernel differs from its plain version")
+    if not (retired and truncated and fetched):
+        raise AssertionError(f"cold_fetch: the case lacks a regime (retired {retired}, "
+                             f"truncated lanes {truncated}, fetched {fetched})")
+    # a graph captured before the store grows reads the grown store
+    small = archive_store(np, cfg, "grow", 1 << 10, np.full(1 << 10, 2), 24).store
+    gkeys = torch.from_numpy(rng.integers(0, 1 << 10, 4096).astype(np.int32)).cuda()
+    gwant = torch.ones((4096,), dtype=torch.bool, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cold_fetch_cuda(small, gkeys, gwant, M)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        gout = cold_fetch_cuda(small, gkeys, gwant, M)
+    bufs = [b.host for b in small._bufs]
+    n = (1 << 18) - len(small)
+    k = np.arange(n, dtype=np.int32) % (1 << 10)
+    z = np.zeros(n, np.int64)
+    small.append(k, z, z, z, {c: (np.arange(n) % 997).astype(small._dtypes[c])
+                              for c in small.col_names})
+    grown = [b.host for b in small._bufs] != bufs
+    g.replay()
+    torch.cuda.synchronize()
+    gref = cold_fetch_plain(small, gkeys, gwant, M)
+    gsame, gerr = compare(torch, tuple(gout), gref)
+    log({"kernel_check": "cold_fetch", "case": "graph captured at 2 rows a key, replayed "
+                                               "at 256", "store_rows": len(small),
+         "store_reallocated": grown, "bit_identical": gsame, "max_abs_err": gerr,
+         "fetched": int(gref[0].sum()), "card": card})
+    if not (gsame and grown and int(gref[0].sum()) == 4096 * M):
+        raise AssertionError("cold_fetch: a graph captured before the store grew reads "
+                             "stale memory")
+    return row
+
+
+def tq4_query(torch, wt, total, archive, tiered, window=TQ4_WINDOW):
+    """q4's IntervalJoin (its emit, q4's max_matches) over the ring-overwrite
+    stream at full width (``TQ4_*``): opens every 8 events on auction
+    ``(i // 8) % 4096``, bids on ``(i * 2477) % 4096``, ts = i // 8, a
+    window of ``window`` ticks."""
+    from windflow_tpu_torch.nexmark import make_query
+
+    def is_open(i):
+        return (i % 8) == 0
+
+    def key(i):
+        return torch.where(is_open(i), (i // 8) % TQ4_KEYS, (i * 2477) % TQ4_KEYS)
+
+    def gen(i):
+        return {"side": is_open(i).to(torch.int32), "auction": key(i).to(torch.int32),
+                "price": (i % 1000).to(torch.int32)}
+    src = wt.DeviceSource(gen, total=total, key_fn=key, ts_fn=lambda i: i // 8,
+                          name="tq4_open_bid")
+    q4 = make_query("q4_interval_join", 64)[1][0]
+    op = wt.IntervalJoin(q4.side_fn, 0, window, archive=archive,
+                         max_matches=q4.max_matches, emit=q4.emit, tiered=tiered,
+                         name="tq4_interval_join")
+    return src, [op]
+
+
+def tiered_q4_phase(torch, np, wt, registry, card):
+    """The interval join's archive tier at full width. Nexmark q4 itself at
+    2^14, tiered, for 16 batches: the dense oracle's rows, nothing spilled
+    (its 4-tick window keeps about 40 rows live), ``cold_fetch`` twice an
+    apply. Then q4's operator over the ring-overwrite stream (``tq4_query``)
+    with archive 2^14: untiered with an archive that never overwrites (the
+    reference rows), untiered with 2^14 (must lose rows), tiered eager and at
+    dispatch K = 4 (the reference rows, spills, eager readmissions,
+    ``cold_fetch`` twice an apply counted through the replays) and tiered
+    under ``SupervisedPipeline`` with one chain.step fault (the reference
+    rows, one restart); the rows are compared sorted (see
+    ``TQ4_OUTBOX_WINDOW``). Then the same stream over ``TQ4_OUTBOX_WINDOW``,
+    tiered eager and at K = 4: byte for byte in delivery order. ms a step
+    eager and at K = 4."""
+    from windflow_tpu_torch.nexmark import make_query, oracles
+    from windflow_tpu_torch.runtime import faults as F
+
+    total = NEX_BATCHES * NEX_BATCH
+    launches = dict.fromkeys(registry.KERNELS, 0)
+    src, ops = make_query("q4_interval_join", total, tiered=dict())
+    views = []
+    pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                       dispatch=False)
+    counts, dt, peak = run_pipeline(torch, registry, pipe)
+    got = nexmark_rows(np, "q4_interval_join", [v for v in views if v is not None])
+    pipe.chain.tier_settle()
+    st = pipe.chain.states[0]
+    log({"phase": "tiered_q4", "case": "q4 tiered", "batches": NEX_BATCHES,
+         "batch": NEX_BATCH, "rows": len(got), "state_spills": int(st["spills"]),
+         "run_s": dt, "ms_per_step": dt / NEX_BATCHES * 1e3, "launches": counts,
+         "peak_mib": peak / 2 ** 20, "card": card})
+    if got != oracles.ORACLES["q4_interval_join"](total):
+        raise AssertionError("tiered q4: rows differ from the dense oracle")
+    expect_launches("tiered q4", counts, TQ4_APPLY, NEX_BATCHES)
+    for c, nn in counts.items():
+        launches[c] += nn
+
+    total = TQ4_BATCHES * NEX_BATCH
+
+    def run(archive, tiered, k=None, window=TQ4_WINDOW):
+        src, ops = tq4_query(torch, wt, total, archive, tiered, window)
+        views = []
+        pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                           dispatch=k or False)
+        counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+        views = [v for v in views if v is not None]
+        pipe.chain.tier_settle()
+        st = pipe.chain.states[0]
+        info = {"archive": archive, "window": window, "tiered": tiered is not None,
+                "dispatch": k, "rows": 0, "match_drops": int(st["match_drops"]),
+                "arch_drops": int(st["arch_drops"]), "run_s": dt,
+                "ms_per_step": dt / TQ4_BATCHES * 1e3, "launches": counts,
+                "peak_mib": peak / 2 ** 20}
+        if tiered is not None:
+            info.update(state_spills=int(st["spills"]), state_readmits=int(st["readmits"]),
+                        cold_rows=len(ops[0]._tier_l.store) + len(ops[0]._tier_r.store))
+        rows = nexmark_rows(np, "q4_interval_join", views)
+        info["rows"] = len(rows)
+        return rows, views, counts, pipe.chain.graphs, info
+    ref, _, _, _, info = run(total, None)
+    log({"phase": "tiered_q4", "case": "untiered, archive never overwrites", **info,
+         "card": card})
+    if info["match_drops"] or info["arch_drops"]:
+        raise AssertionError(f"tiered_q4 reference run dropped: {info}")
+    lost, _, _, _, info = run(TQ4_ARCHIVE, None)
+    log({"phase": "tiered_q4", "case": "untiered, archive 2^14", **info, "card": card})
+    if not len(lost) < len(ref) or not info["arch_drops"]:
+        raise AssertionError(f"tiered_q4: the small untiered archive lost no rows ({info})")
+    for k in (None, TQ4_K):
+        rows, views, counts, graphs, info = run(TQ4_ARCHIVE, dict(), k)
+        log({"phase": "tiered_q4", "case": "tiered, archive 2^14", **info,
+             "rows_equal_reference": rows == ref, "card": card})
+        if rows != ref:
+            raise AssertionError(f"tiered_q4 (dispatch {k}): rows differ from the "
+                                 f"reference run's")
+        # eager, a spill reaches the store two maintains later and is still
+        # live there; at K = 4 (a maintain every 4 batches) it expires first
+        if (not info["state_spills"] or info["arch_drops"]
+                or (k is None and not info["state_readmits"])):
+            raise AssertionError(f"tiered_q4 (dispatch {k}): spills and drops {info}")
+        expect_launches(f"tiered_q4 (dispatch {k})", counts, TQ4_APPLY, TQ4_BATCHES)
+        for c, nn in counts.items():
+            launches[c] += nn
+    runs = {}
+    for k in (None, TQ4_K):
+        rows, views, counts, graphs, info = run(TQ4_ARCHIVE, dict(), k,
+                                                window=TQ4_OUTBOX_WINDOW)
+        log({"phase": "tiered_q4", "case": "tiered, archive 2^14, outbox window", **info,
+             "card": card})
+        if not info["state_spills"] or info["state_readmits"] or info["arch_drops"]:
+            raise AssertionError(f"tiered_q4 outbox window (dispatch {k}): {info}")
+        expect_launches(f"tiered_q4 outbox window (dispatch {k})", counts, TQ4_APPLY,
+                        TQ4_BATCHES)
+        runs[k] = (views, counts, graphs)
+    check_dispatch(np, "tiered_q4", TQ4_K, TQ4_BATCHES, runs[None][:2], runs[TQ4_K][:2],
+                   runs[TQ4_K][2])
+    plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": TQ4_FAULT},
+                                    max_fires=1)], seed=9)
+    src, ops = tq4_query(torch, wt, total, TQ4_ARCHIVE, dict())
+    views = []
+    sp = wt.SupervisedPipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                               checkpoint_every=TQ4_EVERY, faults=plan, dispatch=False,
+                               **SUP_BACKOFF)
+    counts, dt, peak = counted_run(torch, registry, sp.start, sp.run)
+    rows = nexmark_rows(np, "q4_interval_join", [v for v in views if v is not None])
+    log({"phase": "tiered_q4", "case": "supervised, one chain.step fault",
+         "checkpoint_every": TQ4_EVERY, "fault_at": TQ4_FAULT, "restarts": sp.restarts,
+         "rows": len(rows), "rows_equal_reference": rows == ref, "run_s": dt,
+         "ms_per_step": dt / TQ4_BATCHES * 1e3, "launches": counts,
+         "peak_mib": peak / 2 ** 20, "card": card})
+    if rows != ref or sp.restarts != 1:
+        raise AssertionError(f"tiered_q4 supervised: rows equal {rows == ref}, "
+                             f"{sp.restarts} restarts")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4233,6 +4762,7 @@ def main() -> int:
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
                                       main_launches)
     sy_launches = supervised_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts)
+    shy_launches = sharded_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts)
     del ysb_parts
     ysb_loop_phase(torch, wt, ysb, card, args.profile)
     sum_launches = ysb_sum_phase(torch, np, wt, ysb, registry)
@@ -4241,6 +4771,7 @@ def main() -> int:
     bench_dispatch_phase(torch, wt, card)
     nex_launches, q3_views = nexmark_pipeline_phase(torch, np, wt, registry)
     sq_launches = supervised_q3_phase(torch, np, wt, registry, card, q3_views)
+    shq_launches = sharded_q3_phase(torch, np, wt, registry, card, q3_views)
     del q3_views
     nexmark_loop_phase(torch, wt, card, args.profile)
     ng_launches = nexmark_graph_phase(torch, np, wt, registry, card)
@@ -4255,6 +4786,7 @@ def main() -> int:
     host_io_phase(torch, np, wt)
     gw_launches, gw_rows, gw_s, gw_parts = graph_windows_phase(torch, np, wt, registry)
     sg_launches = supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s)
+    shg_launches = sharded_graph_phase(torch, np, wt, registry, card, gw_parts)
     del gw_parts
     fold_row = keyed_fold_checks(torch)
     kcb_launches = keyed_cb_phase(torch, np, wt, registry, card, args.profile)
@@ -4277,6 +4809,8 @@ def main() -> int:
     tr_launches = tiered_recovery_phase(torch, np, wt, registry, card)
     trot_launches = tiered_rotating_phase(torch, np, wt, registry, card)
     tiered_inputs_phase(torch, np, wt, card)
+    fetch_row = cold_fetch_phase(torch, np, card)
+    tq4_launches = tiered_q4_phase(torch, np, wt, registry, card)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
@@ -4290,7 +4824,9 @@ def main() -> int:
              "supervised_ysb": sy_launches, "supervised_q3": sq_launches,
              "supervised_graph": sg_launches, "tiered_q3": tq_launches,
              "tiered_queries": tqs_launches, "tiered_recovery": tr_launches,
-             "tiered_rotating": trot_launches}
+             "tiered_rotating": trot_launches, "tiered_q4": tq4_launches,
+             "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
+             "sharded_graph": shg_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})
@@ -4314,6 +4850,12 @@ def main() -> int:
                     "max_abs_err": cold_row["max_abs_err"], "ms": cold_row["kernel_ms"],
                     "plain_ms": cold_row["plain_ms"], "bound_ms": cold_row["bound_ms"],
                     "bound_by": cold_row["bound_by"], "library_ms": None})
+    fetch = registry.KERNELS["cold_fetch"]
+    kernels.append({"name": fetch.name, "route": "cuda", "source": fetch.source,
+                    "replaces": None, "launches": path_launches[fetch.name],
+                    "max_abs_err": fetch_row["max_abs_err"], "ms": fetch_row["kernel_ms"],
+                    "plain_ms": fetch_row["plain_ms"], "bound_ms": fetch_row["bound_ms"],
+                    "bound_by": fetch_row["bound_by"], "library_ms": None})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -211,23 +211,33 @@ def test_restored_state_is_fresh_and_continues(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
-    for fn, args in ((tck.save_sharded, ([], str(tmp_path / "s"))),
-                     (tck.load_sharded, ([], str(tmp_path / "s"))),
-                     (tck.seal_handoff, ([], str(tmp_path / "s"))),
-                     (tck.discard_handoffs, (str(tmp_path / "s"),))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            fn(*args)
-    # an IntervalJoin's archive tier (tier<op>_* arrays of an IntervalJoin)
-    # is refused by name; tier arrays of an untiered operator of another kind
-    # are ignored, as the JAX package ignores them
-    src, ops = tmake("q4_interval_join", 64, **CPU)
-    mk = lambda: wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, **CPU)  # noqa: E731
-    ckpt = save_chain(mk(), str(tmp_path / "t"))
+    """Item 14's sharded checkpoints and handoffs and item 13b's archive tier
+    are ported: a sharded save and load round-trip, a seal is dropped by
+    ``discard_handoffs``, and an IntervalJoin's ``tier*`` arrays restore its
+    archive tier (tier arrays of an untiered operator of another kind are
+    ignored, as the JAX package ignores them)."""
+    src, mk = _key_ffat_chain(total=64, K=2, C=32)
+    c = mk()
+    layout = {"num_shards": 2, "moves": []}
+    man = tck.save_sharded([c.states, c.states], str(tmp_path / "s"), layout=layout,
+                           meta={"batches_done": 3})
+    assert [e["shard"] for e in man["shards"]] == [0, 1]
+    states, got_layout, meta = tck.load_sharded(mk().states, str(tmp_path / "s"))
+    assert sorted(states) == [0, 1] and got_layout == layout and meta["batches_done"] == 3
+    tck.seal_handoff([c.states], str(tmp_path / "s"), layout=layout, at_pos=3)
+    assert tck.discard_handoffs(str(tmp_path / "s")) == ["s.handoff0.npz"]
+    src, ops = tmake("q4_interval_join", 64, tiered=dict(), **CPU)
+    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, **CPU)
+    for b in src.batches(32):
+        chain.push(b)
+    ckpt = save_chain(chain, str(tmp_path / "t"))
     data = dict(np.load(ckpt))
-    data["tier0_0_key"] = np.zeros(4, np.int64)
-    np.savez(ckpt, **data)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        load_chain(mk(), ckpt)
+    assert "tier0_0_key" in data and "tier0_1_key" in data
+    src, ops = tmake("q4_interval_join", 64, tiered=dict(), **CPU)
+    fresh = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, **CPU)
+    load_chain(fresh, ckpt)
+    assert [t.manifest()["key"].tolist() for t in fresh.ops[0].tier_controllers()] == \
+        [t.manifest()["key"].tolist() for t in chain.ops[0].tier_controllers()]
     src, mk = _key_ffat_chain(total=64, K=2, C=32)
     ckpt = save_chain(mk(), str(tmp_path / "k"))
     data = dict(np.load(ckpt))

@@ -234,16 +234,22 @@ def test_graph_watchdog_step_timeout_recovers():
 
 
 def test_graph_unported_supervision_raises_by_name(monkeypatch):
+    """Sharding runs on the graph driver (item 14's single-card half), a
+    multi-host ``shard_range=`` is refused as in the JAX package, and the
+    control plane (item 15) raises by name."""
+    got = []
+    g = _one_pipe(collect(got), "refuse", lambda t: {"v": t.v})
+    g.run_supervised(shards=2, backoff_base=0.0)
+    assert sorted(g._shard_report) == [0, 1] and got
     g = _one_pipe(collect([]), "refuse", lambda t: {"v": t.v})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        g.run_supervised(shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(ValueError, match="shard_range"):
         g.run_supervised(shard_range=(0, 1))
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         g.run_supervised(control=True)
     monkeypatch.setenv("WF_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        g.run_supervised()
+    g = _one_pipe(collect([]), "refuse", lambda t: {"v": t.v})
+    g.run_supervised(backoff_base=0.0)
+    assert sorted(g._shard_report) == [0, 1]
 
 
 # ------------------------------------------------ parity with the JAX package

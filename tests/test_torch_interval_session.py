@@ -362,15 +362,18 @@ def test_join_with_rejects_non_join_operator():
 
 
 def test_unported_options_raise(monkeypatch):
-    """The interval join's tiered archive (item 13b) raises, by argument and
-    by ``WF_STATE_TIERED``; a tiered SessionWindow builds."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)
+    """The interval join's tiered archive (item 13b) builds, by argument and
+    by ``WF_STATE_TIERED``, as a tiered SessionWindow does; event-time
+    monitoring (item 16) still raises."""
+    assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)._tier_cfg \
+        is not None
     assert wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
                             **CPU)._tier_cfg is not None
     monkeypatch.setenv("WF_STATE_TIERED", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU)
+    assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU)._tier_cfg is not None
+    src, ops = tmake("q4_interval_join", 64, **CPU)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        wt.Pipeline(src, ops, batch_size=32, event_time=True, **CPU)
 
 
 # ------------------------------------------------------ convert mid-stream

@@ -96,9 +96,10 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
                                            "ordering_merge", "join_probe",
                                            "masked_window_reduce"}
     # the helpers replace no TPU kernel: the fixed-order float fold and the
-    # tiered state's cold probe
+    # tiered state's cold reads (the probe and the archive tier's fetch)
     assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float",
-                                                                    "cold_probe"}
+                                                                    "cold_probe",
+                                                                    "cold_fetch"}
     for k in registry.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
     for k in registry.tpu_kernels().values():
@@ -118,29 +119,29 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is still unported raises, naming its ROADMAP item: sharded
-    supervision (item 14), the interval join's tiered archive (item 13b) and
-    the control plane
-    (item 15); the unsharded supervised run (item 12) gives the plain run's
-    result, and fault injection and item 9's operators build."""
+    """What is still unported raises, naming its ROADMAP item: the control
+    plane (item 15); the supervised run, unsharded (item 12) and sharded on
+    one device (item 14's single-card half), gives the plain run's result,
+    the interval join's tiered archive (item 13b) builds, and fault
+    injection and item 9's operators build."""
     def graph():
         g = wt.PipeGraph(device="cpu")
         g.add_source(wt.Source(lambda i: {"v": i}, total=10, device="cpu")).add(
             wt.ReduceSink(lambda t: t.v, name="tot", device="cpu"))
         return g
     assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == int(graph().run()["tot"])
+    assert int(graph().run_supervised(shards=2, backoff_base=0.0)["tot"]) == \
+        int(graph().run()["tot"])
     g = graph()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        g.run_supervised(shards=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         g.run_supervised(control=True)
     with monkeypatch.context() as m:
         m.setenv("WF_SHARDS", "2")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            g.run_supervised()
+        assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == \
+            int(graph().run()["tot"])
     src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, device="cpu")
+    assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True,
+                           device="cpu").tier_controllers() == ()
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         wt.ThreadedPipeline(src, [], None, device="cpu", control=True)
     from windflow_tpu_torch.runtime.faults import FaultPlan
@@ -165,17 +166,13 @@ def test_nexmark_cpu_run_launches_no_kernel():
 
 def test_nexmark_unported_paths_raise(no_cuda):
     """Every query builds on the CPU and needs CUDA by default; tiered state
-    builds except q4's interval join archive (item 13b), and event-time
+    builds, q4's interval join archive (item 13b) included, and event-time
     monitoring (item 16) still raises."""
     from windflow_tpu_torch.nexmark import PORTED, QUERIES, make_query
     assert set(PORTED) == set(QUERIES)
     for q in ("q3_enrich_join", "q4_interval_join", "q5_session", "q6_topn",
               "q7_distinct"):
-        if q == "q4_interval_join":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-                make_query(q, 100, tiered=True, device="cpu")
-        else:
-            make_query(q, 100, tiered=True, device="cpu")
+        make_query(q, 100, tiered=True, device="cpu")
         with pytest.raises(RuntimeError, match="cuda"):
             make_query(q, 100)
         make_query(q, 100, device="cpu")

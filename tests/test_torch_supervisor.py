@@ -259,8 +259,8 @@ def test_snapshot_copies_and_restore_rebuilds():
 
 
 @pytest.mark.parametrize("kw, env, item", [
-    ({"shards": 2}, {}, 14), ({}, {"WF_SHARDS": "2"}, 14), ({"reshard": "auto"}, {}, 14),
-    ({"shard_key": lambda t: t.key}, {}, 14), ({"shard_range": (0, 1)}, {}, 14),
+    ({"reshard": "auto"}, {}, 15), ({"shards": 2, "reshard": "auto"}, {}, 15),
+    ({}, {"WF_SHARDS": "2", "WF_RESHARD": "auto"}, 15),
     ({"control": True}, {}, 15), ({}, {"WF_CONTROL": "1"}, 15),
     ({"remediation": "barrier"}, {}, 15), ({}, {"WF_REMEDIATION": "1"}, 15),
     ({"trace": True}, {}, 16),
@@ -273,13 +273,34 @@ def test_unported_supervision_raises_by_name(monkeypatch, kw, env, item):
         build(collect([]), **kw)
 
 
+@pytest.mark.parametrize("kw, env", [
+    ({"shards": 2}, {}), ({}, {"WF_SHARDS": "2"}),
+    ({"shards": 2, "shard_key": lambda t: t.key}, {}),
+    ({"shards": 2, "shard_range": (0, 2)}, {}),
+])
+def test_sharding_options_run(monkeypatch, kw, env):
+    """Item 14's single-card half: shards=, WF_SHARDS, shard_key= and an
+    explicit shard_range= run and give the unsharded rows."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = []
+    p = build(collect(got), backoff_base=0.0, **kw)
+    p.run()
+    assert sorted(p.shard_report()) == [0, 1]
+    for k in env:
+        monkeypatch.delenv(k)
+    want = []
+    build(collect(want), backoff_base=0.0).run()
+    assert sorted(got) == sorted(want)
+
+
 def test_tiered_state_raises_by_name():
-    """The interval join's tiered archive raises (item 13b); a tiered chain
-    under sharded supervision raises with every sharded run (item 14)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)
+    """The interval join's tiered archive builds (item 13b); a tiered chain
+    under sharded supervision raises as in the JAX package (a ValueError:
+    the per-op host store is one cold tier for every shard)."""
+    assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)._tier_cfg
     src = wt.Source(lambda i: {"v": i}, total=10, **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(ValueError, match="tiered keyed state"):
         wt.SupervisedPipeline(src, [wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2),
                                                      tiered=True, **CPU)],
                               None, shards=2, **CPU)

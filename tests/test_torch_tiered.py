@@ -12,7 +12,7 @@ dtypes, tree paths), store manifests, counters and the journal's ``spill``/
 across the two packages both ways; F14 (``WF_STATE_TIERED`` and
 ``WF_STATE_HOT_CAPACITY`` build the JAX package's state keys); and
 ``bench.py``'s tiered row at a small batch. The interval join's archive tier
-(ROADMAP Queue 1 item 13b) still raises.
+has its own file, ``tests/test_torch_archive_tier.py``.
 """
 
 import json
@@ -218,6 +218,8 @@ def _op_pairs():
                                   num_keys=32, **CPU),
          lambda: wf.SessionWindow(lambda t: {"n": t.k}, wf.WindowSpec.session(3),
                                   num_keys=32)),
+        (lambda: wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU),
+         lambda: wf.IntervalJoin(lambda t: t.side == 1, 0, 4)),
     ]
 
 
@@ -228,7 +230,7 @@ def test_f14_env_builds_the_jax_packages_state(monkeypatch, env):
     """F14: ``tiered=None`` reads ``WF_STATE_TIERED`` and
     ``WF_STATE_HOT_CAPACITY`` as the JAX package does, so both packages build
     the same state (keys, paths, shapes, dtypes, values) and so the same
-    checkpoint files; an IntervalJoin refuses the setting by name."""
+    checkpoint files, an IntervalJoin's archive tier included."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     tspec, jspec = _specs()
@@ -239,9 +241,7 @@ def test_f14_env_builds_the_jax_packages_state(monkeypatch, env):
         assert_states_equal(top.init_state(tspec), jop.init_state(jspec),
                             f"{type(top).__name__} {env}")
         assert bool(top.tier_controllers()) == bool(jop.tier_controllers())
-    if env:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-            wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU)
+        assert len(top.tier_controllers()) == len(jop.tier_controllers())
 
 
 def test_env_resolution(monkeypatch):
@@ -410,8 +410,17 @@ def test_nexmark_query_tiered_equals_jax(name, hot):
 
 
 def test_interval_join_tiered_raises_13b():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        tmake("q4_interval_join", 100, tiered=dict(), **CPU)
+    """Item 13b is ported: q4 builds tiered, its archive tier on both sides,
+    and gives the untiered rows (its 4-tick window spills nothing)."""
+    rows = {}
+    for tiered in (None, dict()):
+        src, ops = tmake("q4_interval_join", 400, tiered=tiered, **CPU)
+        out = []
+        wt.Pipeline(src, ops, wt.Sink(rows_into(out), **CPU), batch_size=50,
+                    **CPU).run()
+        rows[tiered is None] = out
+        assert len(ops[0].tier_controllers()) == (0 if tiered is None else 2)
+    assert rows[True] == rows[False] and rows[True]
 
 
 def _distinct_src(total=4096):

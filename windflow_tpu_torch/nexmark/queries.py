@@ -10,7 +10,8 @@ q3_enrich_join        stream-table join: each bid enriched with its
                       auction's category (StreamTableJoin; kernel K5)
 q4_interval_join      interval join: a bid matches an auction-open event of
                       the same auction within ``[0, JOIN_WINDOW]`` ticks
-                      (IntervalJoin; plain PyTorch, no kernel)
+                      (IntervalJoin; plain PyTorch, and with ``tiered=``
+                      the ``cold_fetch`` helper kernel)
 q5_session            session aggregate: per-bidder bid count and price sum
                       per activity session, gap ``SESSION_GAP`` ticks
                       (KeyBy, SessionWindow; kernels K2 and K3)

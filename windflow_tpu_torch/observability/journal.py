@@ -6,8 +6,10 @@ two equal: ``tests/test_torch_journal.py`` holds the records of both against
 each other.
 
 The runtime's discrete events (checkpoint commits, restores/restarts,
-ordering-buffer flushes, EOS propagation, sampled compiled-program launches)
-are appended as one JSON object per line, so a round's artifacts carry the
+ordering-buffer flushes, EOS propagation, sampled compiled-program launches;
+the sharded supervisors' ``shard_restore`` records and ``reshard`` spans,
+and ``shard`` fields on their ``restart_exhausted`` and ``dead_letter``
+records) are appended as one JSON object per line, so a round's artifacts carry the
 *sequence* of what happened, not just end-state counters. Every record has:
 
 - ``t``: ``time.monotonic()`` at emission — totally ordered within a process;

@@ -1,6 +1,6 @@
 """Name registries the port's operators and benchmarks check against.
 
-The port's own copy of three registries of ``windflow_tpu/observability/
+The port's own copy of five registries of ``windflow_tpu/observability/
 names.py`` (that module imports no JAX, but the port imports nothing of the
 JAX package). Keep the tuples equal to the JAX package's:
 ``tests/test_torch_package.py`` compares them.
@@ -18,6 +18,26 @@ STAGE_COUNTERS = (
     # tiered keyed state: device rows spilled to the outbox, cold rows
     # re-admitted on probe miss, host-store rows retired by compaction
     "state_spills", "state_readmits", "state_compactions",
+)
+
+#: per-stage gauges an operator may publish beside its counters
+#: (``Basic_Operator._publish_stage_counters``)
+STAGE_GAUGES = (
+    "join_table_version",  # applied upsert count of the op's own JoinTable
+    # tiered keyed state: hot-table occupancy (slots in use) and cold-tier
+    # key count
+    "tier_hot_used", "tier_cold_keys",
+)
+
+#: per-shard rows of the sharded supervisors' ``shard_report()``
+#: (``runtime/supervisor.py``)
+SHARD_GAUGES = (
+    "occupancy_tuples",     # live tuples this shard processed since commit
+    "restarts",             # shard-local recoveries (global restarts excluded)
+    "last_recovery_s",      # duration of the most recent shard restore+replay
+    "dead_letters",         # sub-batches this shard quarantined
+    "reshard_moves",        # times this shard's key range changed in a reshard
+    "committed_pos",        # stream position of the shard's last commit
 )
 
 #: the Nexmark-style benchmark queries (``nexmark/queries.py``)

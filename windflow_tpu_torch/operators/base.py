@@ -73,6 +73,22 @@ class Basic_Operator:
         """Sync device-resident counters carried in ``state`` into the host
         ``Stats_Record``; no-op by default."""
 
+    def _publish_stage_counters(self, counters: dict) -> None:
+        """Keep the operator's counters and gauges for :meth:`stage_counters`;
+        each name must be registered in ``observability/names.py``
+        (``STAGE_COUNTERS`` or ``STAGE_GAUGES``): another raises."""
+        from ..observability.names import STAGE_COUNTERS, STAGE_GAUGES
+        for k in counters:
+            if k not in STAGE_COUNTERS and k not in STAGE_GAUGES:
+                raise ValueError(f"{self._name}: stage counter {k!r} is not registered "
+                                 f"in observability/names.py")
+        self._stage_counters = dict(counters)
+
+    def stage_counters(self) -> dict:
+        """The counters last published (empty until the first
+        ``collect_stats`` of an operator that publishes any)."""
+        return dict(getattr(self, "_stage_counters", ()) or {})
+
     def tier_controllers(self) -> tuple:
         """The operator's tiered-state controllers (``state/tiered.py``
         ``TieredTable``, one per tiered table): empty unless the operator was

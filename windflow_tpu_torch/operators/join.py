@@ -33,10 +33,18 @@ slot is diverted to the outbox; a probe that still misses reads the outbox,
 then the resolved cold value; the coldest rows beyond the hot target are
 evicted to the outbox. Results do not depend on tier placement.
 
-Not ported, and refused by name: the IntervalJoin's tiered archive
-(``tiered=`` or ``WF_STATE_TIERED`` on an IntervalJoin: ROADMAP Queue 1 item
-13b; ``ArchiveTier``, ``_append_spill`` and ``_cold_candidates`` come with
-it) and event-time monitoring (item 16).
+An IntervalJoin with ``tiered=`` keeps each side's archive as a ring plus a
+cold tier (``state/tiered.py::ArchiveTier``, a multimap host store): a live
+row the ring is about to overwrite (an ``arch_drop`` untiered) is packed into
+the side's spill outbox first (``_append_spill``); each probe then also sees
+the opposite side's outbox rows and up to ``readmit_rows`` cold rows of its
+key (``_cold_candidates``; the cold read is the ``cold_fetch`` kernel on the
+card), both masked by the same eviction frontier as the ring. The extra
+candidates come after the archive and the batch lanes, so the ``max_matches``
+truncation order is the JAX package's. Each cold row a batch fetches is
+counted once in ``state["readmits"]`` (deduplicated by tuple id).
+
+Not ported, and refused by name: event-time monitoring (item 16).
 """
 
 from __future__ import annotations
@@ -46,14 +54,16 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
-from ..batch import Batch, TupleRef, map_tuples, spec_of, tree_map, vmap_lanes
+from ..batch import (Batch, TupleRef, jax_unflatten, map_tuples, spec_of, tree_map,
+                     vmap_lanes)
 from ..ops.lookup import (JOIN_KEY_SENTINEL, _plus_zero, _set_drop, count_drops,
                           join_table_init, join_table_probe, join_table_tier_evict,
                           join_table_tier_fallback, join_table_tier_init,
                           join_table_tier_resolve, join_table_tier_touch,
                           join_table_upsert)
+from ..ops.segment import segment_rank
 from ..ops.window_reduce import sum_dtype
-from ..state.tiered import JoinTableTier, TierConfig
+from ..state.tiered import ArchiveTier, JoinTableTier, TierConfig
 from .base import Basic_Operator
 
 _I32 = torch.int32
@@ -235,7 +245,10 @@ class IntervalJoin(Basic_Operator):
     ``emit(l, r) -> payload`` shapes the output (default: ``l_``/``r_``
     prefixed union). Output rows are ``[left probes C*M ; right probes
     C*M]``, lane-major: key and id are the probing lane's, ts is
-    ``max(l.ts, r.ts)``."""
+    ``max(l.ts, r.ts)``. ``tiered=`` (a dict of
+    :class:`~windflow_tpu_torch.state.tiered.TierConfig` fields, True, or None
+    to consult ``WF_STATE_TIERED``) spills ring-overwritten live rows to a
+    cold tier instead of dropping them (see the module docstring)."""
 
     routing = routing_modes_t.KEYBY
 
@@ -245,10 +258,6 @@ class IntervalJoin(Basic_Operator):
                  ts_l: Optional[Callable] = None, ts_r: Optional[Callable] = None,
                  tiered=None, name: str = "interval_join", parallelism: int = 1,
                  device=None):
-        if TierConfig.resolve(tiered) is not None:
-            raise NotImplementedError(
-                f"{name}: the interval join's tiered archive (tiered= or "
-                f"WF_STATE_TIERED) is not ported yet (ROADMAP Queue 1 item 13b)")
         super().__init__(name, parallelism, device)
         self.side_fn = side_fn
         self.lower = int(lower)
@@ -264,8 +273,14 @@ class IntervalJoin(Basic_Operator):
         if self.delay < 0:
             raise ValueError(f"{name}: delay (lateness) must be >= 0")
         self._archive_resolved = archive
+        # tiered archives: ring-overwritten live rows spill to per-side
+        # multimap host stores and come back as extra match candidates
+        self._tier_cfg = TierConfig.resolve(tiered)
+        self._tier_l = self._tier_r = None
+        self._cap_resolved = None
 
     def bind_geometry(self, batch_capacity: int) -> None:
+        self._cap_resolved = int(batch_capacity)
         a = self.archive if self.archive is not None else 2 * int(batch_capacity)
         if a < batch_capacity:
             raise ValueError(
@@ -301,8 +316,33 @@ class IntervalJoin(Basic_Operator):
                                                           dtype=s.dtype, device=dev),
                                     payload_spec)}
         s = lambda v: torch.tensor(v, dtype=_I32, device=dev)  # noqa: E731
-        return {"l": side(), "r": side(), "lcur": s(0), "rcur": s(0), "wm": s(_IMIN),
-                "match_drops": s(0), "arch_drops": s(0)}
+        state = {"l": side(), "r": side(), "lcur": s(0), "rcur": s(0), "wm": s(_IMIN),
+                 "match_drops": s(0), "arch_drops": s(0)}
+        if self._tier_cfg is not None:
+            S = int(self._tier_cfg.outbox or 4 * (self._cap_resolved or DEFAULT_MAX_KEYS))
+            for p in ("l", "r"):
+                state[f"{p}okey"] = torch.full((S,), JOIN_KEY_SENTINEL, dtype=_I32,
+                                               device=dev)
+                state[f"{p}ots"] = torch.zeros((S,), dtype=_I32, device=dev)
+                state[f"{p}oid"] = torch.zeros((S,), dtype=_I32, device=dev)
+                state[f"{p}opay"] = tree_map(
+                    lambda sp: torch.zeros((S,) + tuple(sp.shape), dtype=sp.dtype,
+                                           device=dev), payload_spec)
+                state[f"{p}ocnt"] = s(0)
+            state["spills"] = s(0)
+            state["readmits"] = s(0)
+            # per-side retention bounds: the arithmetic the ring eviction
+            # applies
+            self._tier_l = ArchiveTier(self.name, payload_spec, self._tier_cfg, "l",
+                                       lambda wm: wm - self.delay - self.upper, dev)
+            self._tier_r = ArchiveTier(self.name, payload_spec, self._tier_cfg, "r",
+                                       lambda wm: wm - self.delay + self.lower, dev)
+        return state
+
+    def tier_controllers(self):
+        if self._tier_l is None:
+            return ()
+        return (self._tier_l.controller, self._tier_r.controller)
 
     def _event_ts(self, batch, is_l):
         if self.ts_l is None and self.ts_r is None:
@@ -410,6 +450,76 @@ class IntervalJoin(Basic_Operator):
                                batch.payload)}
         return out, torch.remainder(cur + csum[-1], A), overwrote
 
+    def _append_spill(self, state, p, side, cur, mask, key, ets, batch):
+        """Tiered ring-append: a live row the ring is about to overwrite
+        (still inside its match window: an untiered ``arch_drop``) is packed
+        into the side's spill outbox first; only a full outbox still drops.
+        Returns (side, cur, dropped, spilled, outbox updates)."""
+        A = side["key"].shape[0]
+        csum = torch.cumsum(mask.to(_I32), 0, dtype=_I32)
+        pos = torch.remainder(cur + csum - 1, A)
+        idx = torch.where(mask, pos, A)
+        pl = pos.long()
+        ow = mask & side["ok"].index_select(0, pl)
+        S = state[f"{p}okey"].shape[0]
+        orank = torch.cumsum(ow.to(_I32), 0, dtype=_I32) - 1
+        fits = ow & (state[f"{p}ocnt"] + orank < S)
+        opos = torch.where(fits, state[f"{p}ocnt"] + orank, S)
+        upd = {f"{p}okey": _set_drop(state[f"{p}okey"], opos, side["key"].index_select(0, pl)),
+               f"{p}ots": _set_drop(state[f"{p}ots"], opos, side["ts"].index_select(0, pl)),
+               f"{p}oid": _set_drop(state[f"{p}oid"], opos, side["id"].index_select(0, pl)),
+               f"{p}opay": tree_map(lambda t, a: _set_drop(t, opos, a.index_select(0, pl)),
+                                    state[f"{p}opay"], side["pay"]),
+               f"{p}ocnt": state[f"{p}ocnt"] + fits.sum(dtype=_I32)}
+        out = {"key": _set_drop(side["key"], idx, key),
+               "ts": _set_drop(side["ts"], idx, ets),
+               "id": _set_drop(side["id"], idx, batch.id),
+               "ok": _set_drop(side["ok"], idx, torch.ones_like(mask)),
+               "pay": tree_map(lambda t, v: _set_drop(t, idx, v), side["pay"],
+                               batch.payload)}
+        dropped = (ow & ~fits).sum(dtype=_I32)
+        spilled = fits.sum(dtype=_I32)
+        return out, torch.remainder(cur + csum[-1], A), dropped, spilled, upd
+
+    def _cold_candidates(self, state, batch, lmask, rmask, horizon):
+        """Extra match candidates from the cold tiers: each side's spill
+        outbox (unsettled spills stay probeable) and up to ``readmit_rows``
+        host-store rows a probing lane (one ``cold_fetch`` a side), both
+        masked by the per-side eviction frontier of the rings. Returns (right
+        extras for left probes, left extras for right probes, rows fetched).
+        ``state_readmits`` counts cold rows served as candidates: the fetch is
+        read-only, so a cold row inside the window counts once a probing
+        batch."""
+        M = int(self._tier_cfg.readmit_rows)
+        dev = batch.key.device
+
+        def fetch(tier, want, frontier):
+            res = tier.fetch(batch.key, want)
+            mask = res[0] & want[:, None] & (res[1] >= frontier)
+            # candidates are global (every probing lane sees all of them): a
+            # row fetched by N lanes of one key must appear once, so dedup by
+            # tuple id (unique a row)
+            ids_flat = res[2].reshape(-1)
+            mflat = mask.reshape(-1)
+            uniq = mflat & (segment_rank(ids_flat, mflat) == 0)
+            k2 = torch.where(uniq, batch.key.repeat_interleave(M), JOIN_KEY_SENTINEL)
+            pay = jax_unflatten(batch.payload, [r.reshape((-1,) + tuple(r.shape[2:]))
+                                                for r in res[3:]])
+            return (k2, res[1].reshape(-1), ids_flat, uniq, pay), uniq.sum(dtype=_I32)
+
+        def outbox(p, frontier):
+            S = state[f"{p}okey"].shape[0]
+            live = ((torch.arange(S, dtype=_I32, device=dev) < state[f"{p}ocnt"])
+                    & (state[f"{p}ots"] >= frontier))
+            return (state[f"{p}okey"], state[f"{p}ots"], state[f"{p}oid"], live,
+                    state[f"{p}opay"])
+
+        r_front = horizon + self.lower
+        l_front = horizon - self.upper
+        r_fetch, n_r = fetch(self._tier_r, lmask, r_front)
+        l_fetch, n_l = fetch(self._tier_l, rmask, l_front)
+        return [outbox("r", r_front), r_fetch], [outbox("l", l_front), l_fetch], n_r + n_l
+
     def apply(self, state, batch: Batch):
         is_l = map_tuples(self.side_fn, batch).to(torch.bool)
         lmask = batch.valid & is_l
@@ -424,25 +534,65 @@ class IntervalJoin(Basic_Operator):
         l["ok"] = l["ok"] & (l["ts"] >= horizon - self.upper)
         r["ok"] = r["ok"] & (r["ts"] >= horizon + self.lower)
         # left probes see archived rights PLUS the batch's own rights (an
-        # in-batch pair counts once, from the left side)
+        # in-batch pair counts once, from the left side); tiered, each side's
+        # spill outbox and cold rows come after them, so the candidate rank
+        # (the max_matches truncation order) is unchanged while the cold
+        # tiers are empty
         cat = lambda a, b: torch.cat([a, b], 0)  # noqa: E731
         r_cand = (cat(r["key"], torch.where(rmask, batch.key, JOIN_KEY_SENTINEL)),
                   cat(r["ts"], ets), cat(r["id"], batch.id), cat(r["ok"], rmask),
                   tree_map(cat, r["pay"], batch.payload))
         l_cand = (l["key"], l["ts"], l["id"], l["ok"], l["pay"])
+        tier_upd = {}
+        if self._tier_l is not None:
+            r_extra, l_extra, n_fetched = self._cold_candidates(state, batch, lmask,
+                                                                rmask, horizon)
+
+            def join_c(base, extras):
+                parts = [base, *extras]
+                return tuple(torch.cat([x[f] for x in parts], 0) for f in range(4)) + (
+                    tree_map(lambda *xs: torch.cat(xs, 0), *[x[4] for x in parts]),)
+            r_cand = join_c(r_cand, r_extra)
+            l_cand = join_c(l_cand, l_extra)
+            tier_upd["readmits"] = state["readmits"] + n_fetched
         lrows = self._rows(batch, lmask, ets, r_cand, swap=False)
         rrows = self._rows(batch, rmask, ets, l_cand, swap=True)
         out = Batch(key=cat(lrows[1], rrows[1]), id=cat(lrows[3], rrows[3]),
                     ts=cat(lrows[2], rrows[2]), payload=tree_map(cat, lrows[4], rrows[4]),
                     valid=cat(lrows[0], rrows[0]))
-        l, lcur, odl = self._append(l, state["lcur"], lmask, batch.key, ets, batch)
-        r, rcur, odr = self._append(r, state["rcur"], rmask, batch.key, ets, batch)
+        if self._tier_l is not None:
+            l, lcur, odl, spl, upd_l = self._append_spill(
+                state, "l", l, state["lcur"], lmask, batch.key, ets, batch)
+            r, rcur, odr, spr, upd_r = self._append_spill(
+                state, "r", r, state["rcur"], rmask, batch.key, ets, batch)
+            tier_upd.update(upd_l)
+            tier_upd.update(upd_r)
+            tier_upd["spills"] = state["spills"] + spl + spr
+        else:
+            l, lcur, odl = self._append(l, state["lcur"], lmask, batch.key, ets, batch)
+            r, rcur, odr = self._append(r, state["rcur"], rmask, batch.key, ets, batch)
         new_state = dict(
             state, l=l, r=r, lcur=lcur, rcur=rcur, wm=wm,
             match_drops=count_drops(state["match_drops"], "match_drops",
                                     lrows[5] + rrows[5]),
             arch_drops=count_drops(state["arch_drops"], "arch_drops", odl + odr))
+        new_state.update(tier_upd)
         return new_state, out
+
+    def collect_stats(self, state: Any = None) -> None:
+        """Publish the drop counters and, tiered, the cold tiers' counters
+        (:meth:`stage_counters`)."""
+        if state is None:
+            return
+        counters = dict(self.drop_counters(state))
+        if self._tier_l is not None:
+            stores = (self._tier_l.store, self._tier_r.store)
+            counters.update({
+                "state_spills": int(state["spills"]),
+                "state_readmits": int(state["readmits"]),
+                "state_compactions": sum(st.compacted_rows for st in stores),
+                "tier_cold_keys": sum(st.key_count() for st in stores)})
+        self._publish_stage_counters(counters)
 
     def drop_counters(self, state: Any = None) -> dict:
         if state is None:

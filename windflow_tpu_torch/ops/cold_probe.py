@@ -1,4 +1,4 @@
-"""The cold-tier probe of tiered keyed state, and the mapped host memory it reads.
+"""The cold-tier reads of tiered keyed state, and the mapped host memory they read.
 
 A helper kernel (it replaces no TPU kernel): the JAX package reads a tiered
 table's cold tier with an ordered ``io_callback`` inside the compiled step
@@ -18,6 +18,16 @@ is absent. On a CUDA tensor it launches the kernel (the store must be mapped
 on that card); on a CPU tensor it runs the plain version, the store's own
 ``lookup`` over a synchronous host round trip, which is also what the CPU
 path of every tiered operator runs.
+
+:func:`cold_fetch` is the multimap read of the interval join's archive tier
+(``ArchiveTier.fetch_cb`` in the JAX package, an ordered ``io_callback``):
+up to ``M`` rows a wanted lane's key, oldest first, ``(mask [R, M] bool, one
+[R, M, ...] tensor per value column in the store's column order)``, zeros
+past a chain's end. On the card it is the second entry point of
+``csrc/cold_probe.cu`` (a helper kernel too, registered as ``cold_fetch``),
+which walks the store's next-row links in mapped memory; its plain version is
+``HostStore.fetch_multi``. The fetch is read-only in both packages: it counts
+no readmission.
 """
 
 from __future__ import annotations
@@ -33,14 +43,21 @@ from .registry import count_launch
 
 #: value columns the kernel takes (its ``WF_COLD_MAXC``)
 MAX_COLS = 16
+#: descriptor word of the next-row links (its ``WF_COLD_NXT``) and of the
+#: first column's base (its ``WF_COLD_COL0``)
+DESC_NXT = 5
+DESC_COL0 = 6
 #: int64 words of the descriptor (its ``WF_COLD_DESC``): index keys, index
-#: heads, lg, meta, column count, then (base, bytes a row) a column
-DESC_WORDS = 5 + 2 * MAX_COLS
+#: heads, lg, meta, column count, next-row links, then (base, bytes a row) a
+#: column
+DESC_WORDS = DESC_COL0 + 2 * MAX_COLS
 
 _P = ctypes.POINTER
 _ALLOC_ARGTYPES = [ctypes.c_longlong, _P(ctypes.c_void_p), _P(ctypes.c_void_p)]
 _PROBE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+_FETCH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _free(host: int) -> None:
@@ -94,25 +111,33 @@ def cold_probe_plain(store, keys: torch.Tensor, want: torch.Tensor):
             t(meta[:, 2].astype(np.int32)), *[t(cols[k]) for k in store.col_names])
 
 
-def cold_probe_cuda(store, keys: torch.Tensor, want: torch.Tensor):
-    """Launch ``csrc/cold_probe.cu`` on ``keys``' card; raises on anything the
-    kernel does not take (a store not mapped on this card, keys not a
-    contiguous int32 ``[R]`` tensor, want not bool ``[R]``)."""
+def _check_cuda_args(what: str, store, keys: torch.Tensor, want: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take: a store not mapped on the
+    keys' card, keys not a contiguous int32 ``[R]`` tensor, want not bool
+    ``[R]`` on that card, too many value columns."""
     dev = keys.device
     R = keys.shape[0]
     if keys.dtype != torch.int32 or keys.ndim != 1 or not keys.is_contiguous():
-        raise ValueError(f"cold_probe_cuda: keys must be a contiguous int32 [R] tensor, "
+        raise ValueError(f"{what}: keys must be a contiguous int32 [R] tensor, "
                          f"got {keys.dtype} {tuple(keys.shape)}")
     if want.dtype != torch.bool or want.shape != (R,) or want.device != dev \
             or not want.is_contiguous():
-        raise ValueError(f"cold_probe_cuda: want must be a contiguous bool [{R}] tensor "
+        raise ValueError(f"{what}: want must be a contiguous bool [{R}] tensor "
                          f"on {dev}, got {want.dtype} {tuple(want.shape)} on {want.device}")
     if store.device != dev:
-        raise ValueError(f"cold_probe_cuda: store {store.name!r} is mapped for "
+        raise ValueError(f"{what}: store {store.name!r} is mapped for "
                          f"{store.device}, the keys are on {dev}")
     if len(store.col_names) > MAX_COLS:
-        raise ValueError(f"cold_probe_cuda: {len(store.col_names)} value columns, the "
+        raise ValueError(f"{what}: {len(store.col_names)} value columns, the "
                          f"kernel takes {MAX_COLS}")
+
+
+def cold_probe_cuda(store, keys: torch.Tensor, want: torch.Tensor):
+    """Launch ``csrc/cold_probe.cu``'s probe on ``keys``' card; raises on
+    anything the kernel does not take (:func:`_check_cuda_args`)."""
+    _check_cuda_args("cold_probe_cuda", store, keys, want)
+    dev = keys.device
+    R = keys.shape[0]
 
     def empty(dt, shape=()):
         return torch.empty((R,) + tuple(shape), dtype=dt, device=dev)
@@ -131,5 +156,53 @@ def cold_probe_cuda(store, keys: torch.Tensor, want: torch.Tensor):
     return (found, m0, m1, m2, *cols)
 
 
-__all__ = ["MAX_COLS", "DESC_WORDS", "MappedBuffer", "cold_probe", "cold_probe_plain",
-           "cold_probe_cuda"]
+def cold_fetch(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
+    """Up to ``rows`` rows of each wanted lane's key (see the module
+    docstring): the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if keys.device.type == "cuda":
+        return cold_fetch_cuda(store, keys, want, rows)
+    if keys.device.type == "cpu":
+        return cold_fetch_plain(store, keys, want, rows)
+    raise ValueError(f"cold_fetch: unsupported device {keys.device}")
+
+
+def cold_fetch_plain(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
+    """Plain version: ``store.fetch_multi`` on the host (a synchronous round
+    trip)."""
+    mask, _meta, cols = store.fetch_multi(keys.cpu().numpy(), want.cpu().numpy(),
+                                          int(rows))
+    dev = keys.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(mask), *[t(cols[k]) for k in store.col_names])
+
+
+def cold_fetch_cuda(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
+    """Launch ``csrc/cold_probe.cu``'s fetch on ``keys``' card; raises on
+    anything the kernel does not take (:func:`_check_cuda_args`, ``rows``
+    below 1)."""
+    _check_cuda_args("cold_fetch_cuda", store, keys, want)
+    M = int(rows)
+    if M < 1:
+        raise ValueError(f"cold_fetch_cuda: rows must be >= 1, got {rows}")
+    dev = keys.device
+    R = keys.shape[0]
+    mask = torch.empty((R, M), dtype=torch.bool, device=dev)
+    cols = [torch.empty((R, M) + tuple(store.col_shape(k)), dtype=store.torch_dtype(k),
+                        device=dev) for k in store.col_names]
+    if R == 0:
+        return (mask, *cols)
+    outs = (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() for c in cols])
+    fn = cuda.function("cold_probe", "wf_cold_fetch", _FETCH_ARGTYPES)
+    count_launch("cold_fetch")
+    cuda.check(fn(ctypes.c_void_p(store.descriptor_address()), cuda.ptr(keys),
+                  cuda.ptr(want), R, M, cuda.ptr(mask), outs, len(cols),
+                  cuda.stream_ptr(dev)), "cold_fetch_cuda")
+    return (mask, *cols)
+
+
+__all__ = ["MAX_COLS", "DESC_NXT", "DESC_COL0", "DESC_WORDS", "MappedBuffer",
+           "cold_probe", "cold_probe_plain", "cold_probe_cuda", "cold_fetch",
+           "cold_fetch_plain", "cold_fetch_cuda"]

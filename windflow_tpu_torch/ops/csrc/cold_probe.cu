@@ -38,20 +38,63 @@
 // wanted lane, the meta (24 B) and the value row of each found lane. The
 // reads are small and dependent (slot, then row), so the kernel is latency
 // bound; one thread a lane keeps up to R probes in flight at once.
+//
+// cold_fetch, the second entry point, is the multimap read of the interval
+// join's archive tier (also a helper kernel that replaces no TPU kernel; the
+// JAX package calls ArchiveTier.fetch_cb, windflow_tpu/state/tiered.py, from
+// an ordered io_callback). For each wanted lane it finds the key's head row
+// as the probe does and walks the next-row links up to M rows, oldest first
+// (windflow_tpu_torch/native/csrc/host_store.cpp::wf_hs_fetch, HostStore.
+// fetch_multi): mask [R, M] and each column's [R, M] rows, zeros past the
+// chain's end. It is read-only and counts nothing. Its bound is the same
+// host link: a 16-byte slot a wanted lane, then for each row fetched its
+// 8-byte link and its value row; each hop depends on the one before, so it
+// is latency bound too, one thread a lane.
 #include "common.cuh"
 
-constexpr int WF_COLD_MAXC = 16;                      // value columns at most
-constexpr int WF_COLD_DESC = 5 + 2 * WF_COLD_MAXC;    // descriptor words
-
-// descriptor words: 0 index keys, 1 index head rows, 2 lg (the index has
-// 2^lg slots), 3 meta [rows, 3] int64, 4 column count, then for column c:
-// 5 + 2c its base, 6 + 2c its bytes a row
+// The descriptor's layout, for both kernels (and ops/cold_probe.py's
+// DESC_WORDS and HostStore._alloc, which write it): words 0 index keys, 1
+// index head rows, 2 lg (the index has 2^lg slots), 3 meta [rows, 3] int64, 4
+// column count, 5 next-row links [rows] int64, then for column c:
+// WF_COLD_COL0 + 2c its base, WF_COLD_COL0 + 2c + 1 its bytes a row
+constexpr int WF_COLD_MAXC = 16;                              // value columns at most
+constexpr int WF_COLD_NXT = 5;                                // next-row links
+constexpr int WF_COLD_COL0 = 6;                               // first column's base
+constexpr int WF_COLD_DESC = WF_COLD_COL0 + 2 * WF_COLD_MAXC; // descriptor words
 struct WfColdOuts {
     unsigned char* col[WF_COLD_MAXC];
 };
 
 __device__ __forceinline__ unsigned long long wf_cold_home(long long key, int lg) {
     return ((unsigned long long)key * 0x9E3779B97F4A7C15ull) >> (64 - lg);
+}
+
+// head row of key in the store's index, -1 when absent (d: the descriptor)
+__device__ __forceinline__ long long wf_cold_head(const long long* d, long long key) {
+    const volatile long long* ikey = (const volatile long long*)d[0];
+    const volatile long long* irow = (const volatile long long*)d[1];
+    const int lg = (int)d[2];
+    const unsigned long long mask = (1ull << lg) - 1;
+    for (unsigned long long s = wf_cold_home(key, lg);; s = (s + 1) & mask) {
+        const long long r = irow[s];
+        if (r < 0) return -1;
+        if (ikey[s] == key) return r;
+    }
+}
+
+// one row (rb bytes) of a column, or zeros when row < 0
+__device__ __forceinline__ void wf_cold_copy_row(unsigned char* dst,
+                                                 const volatile unsigned char* base,
+                                                 long long row, long long rb) {
+    const bool hit = row >= 0;
+    const volatile unsigned char* src = base + (hit ? row : 0) * rb;
+    if (rb % 4 == 0) {
+        const volatile unsigned int* s4 = (const volatile unsigned int*)src;
+        unsigned int* d4 = (unsigned int*)dst;
+        for (long long w = 0; w < rb / 4; ++w) d4[w] = hit ? s4[w] : 0u;
+    } else {
+        for (long long b = 0; b < rb; ++b) dst[b] = hit ? src[b] : (unsigned char)0;
+    }
 }
 
 __global__ void wf_cold_probe_kernel(const volatile long long* desc,
@@ -67,21 +110,7 @@ __global__ void wf_cold_probe_kernel(const volatile long long* desc,
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     long long row = -1;
     if (i < R) {
-        if (want[i]) {
-            const volatile long long* ikey = (const volatile long long*)d[0];
-            const volatile long long* irow = (const volatile long long*)d[1];
-            const int lg = (int)d[2];
-            const unsigned long long mask = (1ull << lg) - 1;
-            const long long key = keys[i];
-            for (unsigned long long s = wf_cold_home(key, lg);; s = (s + 1) & mask) {
-                const long long r = irow[s];
-                if (r < 0) break;
-                if (ikey[s] == key) {
-                    row = r;
-                    break;
-                }
-            }
-        }
+        if (want[i]) row = wf_cold_head(d, keys[i]);
         const bool hit = row >= 0;
         const volatile long long* meta = (const volatile long long*)d[3];
         found[i] = hit;
@@ -90,17 +119,9 @@ __global__ void wf_cold_probe_kernel(const volatile long long* desc,
         m2[i] = hit ? (int)meta[3 * row + 2] : 0;
         const int ncols = (int)d[4];
         for (int c = 0; c < ncols; ++c) {
-            const long long rb = d[6 + 2 * c];
-            unsigned char* dst = outs.col[c] + i * rb;
-            const volatile unsigned char* src =
-                (const volatile unsigned char*)d[5 + 2 * c] + (hit ? row : 0) * rb;
-            if (rb % 4 == 0) {
-                const volatile unsigned int* s4 = (const volatile unsigned int*)src;
-                unsigned int* d4 = (unsigned int*)dst;
-                for (long long w = 0; w < rb / 4; ++w) d4[w] = hit ? s4[w] : 0u;
-            } else {
-                for (long long b = 0; b < rb; ++b) dst[b] = hit ? src[b] : (unsigned char)0;
-            }
+            const long long rb = d[WF_COLD_COL0 + 2 * c + 1];
+            wf_cold_copy_row(outs.col[c] + i * rb,
+                             (const volatile unsigned char*)d[WF_COLD_COL0 + 2 * c], row, rb);
         }
     }
     const int n = __syncthreads_count(row >= 0);
@@ -122,6 +143,47 @@ WF_EXPORT int wf_cold_probe(const void* desc, const int* keys, const bool* want,
     const long long blocks = (R + threads - 1) / threads;
     wf_cold_probe_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const volatile long long*)desc, keys, want, R, found, m0, m1, m2, o, readmits);
+    return (int)cudaGetLastError();
+}
+
+__global__ void wf_cold_fetch_kernel(const volatile long long* desc,
+                                     const int* __restrict__ keys,
+                                     const bool* __restrict__ want, long long R, int M,
+                                     bool* __restrict__ mask, WfColdOuts outs) {
+    __shared__ long long d[WF_COLD_DESC];
+    if (threadIdx.x < WF_COLD_DESC) d[threadIdx.x] = desc[threadIdx.x];
+    __syncthreads();
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= R) return;
+    long long row = want[i] ? wf_cold_head(d, keys[i]) : -1;
+    const volatile long long* nxt = (const volatile long long*)d[WF_COLD_NXT];
+    const int ncols = (int)d[4];
+    for (int t = 0; t < M; ++t) {
+        const long long o = i * M + t;
+        mask[o] = row >= 0;
+        for (int c = 0; c < ncols; ++c) {
+            const long long rb = d[WF_COLD_COL0 + 2 * c + 1];
+            wf_cold_copy_row(outs.col[c] + o * rb,
+                             (const volatile unsigned char*)d[WF_COLD_COL0 + 2 * c], row, rb);
+        }
+        if (row >= 0) row = nxt[row];
+    }
+}
+
+// Fetch up to M rows for each of R lanes. desc: the store's descriptor;
+// mask: [R, M]; outs: ncols output bases, column c of R * M rows of the
+// descriptor's row bytes.
+WF_EXPORT int wf_cold_fetch(const void* desc, const int* keys, const bool* want,
+                            long long R, int M, bool* mask, void* const* outs, int ncols,
+                            void* stream) {
+    if (ncols < 0 || ncols > WF_COLD_MAXC || M < 1) return (int)cudaErrorInvalidValue;
+    WfColdOuts o = {};
+    for (int c = 0; c < ncols; ++c) o.col[c] = (unsigned char*)outs[c];
+    if (R <= 0) return 0;
+    const int threads = 256;
+    const long long blocks = (R + threads - 1) / threads;
+    wf_cold_fetch_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const volatile long long*)desc, keys, want, R, M, mask, o);
     return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@ neither put into the graph's per-replay counts nor taken off the totals.
 An entry whose ``replaces`` is None is a helper kernel that replaces no TPU
 kernel (``segment_fold_float``: the fixed-order float fold; ``cold_probe``:
 the tiered state's cold-tier read through mapped host memory, where the JAX
-package calls back into Python). It is counted the same way;
+package calls back into Python; ``cold_fetch``: the interval join's archive
+tier read, the multimap counterpart). It is counted the same way;
 :func:`tpu_kernels` leaves it out.
 """
 
@@ -54,6 +55,7 @@ KERNELS = {
                "windflow_tpu/ops/pallas_kernels.py:57"),
         Kernel("segment_fold_float", "windflow_tpu_torch/ops/csrc/segment.cu", None),
         Kernel("cold_probe", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
+        Kernel("cold_fetch", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
     )
 }
 

@@ -37,13 +37,19 @@ the template: Win_Seq updates its rings in place and marks a consumed state).
 A chain with captured graphs copies the restored state into the graphs'
 static state at its next replay (``runtime/graphs.py``).
 
-Not ported, and refused by name: sharded checkpoints and the re-sharding
-handoffs (``save_sharded``, ``load_sharded``, ``seal_handoff``,
-``discard_handoffs``: ROADMAP Queue 1 item 14) and the interval join's
-archive tier (a file whose ``tier*`` arrays belong to an IntervalJoin raises
-on load: item 13b). A skipped
-lineage entry and a fallback are counted in the recovery counters and
-journaled (``checkpoint_invalid``, ``checkpoint_fallback``), as the JAX
+Sharded checkpoints (the shard-local supervisors' spills): each shard
+writes its own file or lineage under ``<stem>.shard<k>``
+(:func:`save_sharded`, fanned out over a thread pool), committed by an atomic
+``<stem>.shards.json`` manifest written last; :func:`load_sharded` restores
+each shard against a template, with the per-shard lineage fallback. Live
+re-sharding seals every retiring shard's state to ``<stem>.handoff<k>.npz``
+(:func:`seal_handoff`, the ``reshard.handoff`` fault site) and drops the
+seals after the new layout's commit or on a restore
+(:func:`discard_handoffs`). All in the JAX package's files, so each package
+loads the other's.
+
+A skipped lineage entry and a fallback are counted in the recovery counters
+and journaled (``checkpoint_invalid``, ``checkpoint_fallback``), as the JAX
 package does.
 """
 
@@ -403,18 +409,6 @@ def load_states(states, path: str) -> tuple:
         states, f, expect_file_sha=sha)[:2])
 
 
-def _refuse_archive_tiers(chain, path: str, extra: dict) -> None:
-    """A file whose ``tier*`` arrays belong to an IntervalJoin carries the
-    interval join's archive tier, which the port lacks: refuse it by name."""
-    from ..operators.join import IntervalJoin
-    for j, op in enumerate(chain.ops):
-        if isinstance(op, IntervalJoin) and any(k.startswith(f"tier{j}_") for k in extra):
-            raise NotImplementedError(
-                f"checkpoint {path!r} carries the archive tier of IntervalJoin "
-                f"{op.getName()!r} (tier{j}_*): the interval join's tiered archive is "
-                f"not ported yet (ROADMAP Queue 1 item 13b)")
-
-
 def load_chain(chain, path: str) -> dict:
     """Restore ``chain.states`` from ``path``; returns the saved metadata.
     With a lineage manifest the newest valid entry is restored (a torn or
@@ -424,7 +418,6 @@ def load_chain(chain, path: str) -> dict:
     def restore_one(f, sha):
         new_states, meta, extra = _load_states_file(chain.states, f, expect_file_sha=sha,
                                                     tier_ops=chain._tier_ops)
-        _refuse_archive_tiers(chain, f, extra)
         chain.states = new_states
         # the cold tiers from the tier* arrays; a file written before the
         # operator was tiered has none: the store stands, copies in flight
@@ -435,29 +428,176 @@ def load_chain(chain, path: str) -> dict:
     return _walk_lineage(path, restore_one)
 
 
-# ------------------------------------------------ not ported: sharding
+# ------------------------------------------------------- sharded checkpoints
 
-def _refuse_sharded(what: str):
-    raise NotImplementedError(f"{what}: sharded checkpoints and the re-sharding "
-                              f"handoffs are not ported yet (ROADMAP Queue 1 item 14)")
-
-
-def save_sharded(shard_states, path: str, **kw):
-    _refuse_sharded("save_sharded")
+#: shards-manifest schema version (the JAX package's)
+_SHARDS_VERSION = 1
 
 
-def load_sharded(template_states, path: str):
-    _refuse_sharded("load_sharded")
+def shard_stem(path: str, shard: int) -> str:
+    """File stem of one shard's checkpoint (its own atomic-write and lineage
+    namespace): ``<stem>.shard<k>`` beside the unsharded ``<stem>.npz``."""
+    return resolve_path(path)[:-len(".npz")] + f".shard{int(shard)}"
 
 
-def seal_handoff(shard_states, path: str, **kw):
-    _refuse_sharded("seal_handoff")
+def shards_manifest_path(path: str, shard_ids=None) -> str:
+    """The sharded-checkpoint manifest: ``<stem>.shards.json`` for a save of
+    every shard, ``<stem>.shards.s<lo>-<hi>.json`` for a slice (so hosts
+    sharing a file system never overwrite each other's)."""
+    stem = resolve_path(path)[:-len(".npz")]
+    if shard_ids is None:
+        return stem + ".shards.json"
+    ids = sorted(int(i) for i in shard_ids)
+    return stem + f".shards.s{ids[0]}-{ids[-1]}.json"
 
 
-def discard_handoffs(path: str):
-    _refuse_sharded("discard_handoffs")
+def save_sharded(shard_states, path: str, *, layout: dict, meta: dict = None,
+                 keep: int = 1, parallel: bool = True, shard_ids=None) -> dict:
+    """One file (or ``keep`` lineage) a shard through :func:`save_states`,
+    fanned out over a thread pool, committed by the shards manifest written
+    last: a reader only sees shard files a whole manifest names, so a crash
+    mid-fan-out leaves the previous sharded commit. ``layout`` is the
+    ``ShardAssignment.to_meta()`` the restore re-derives ownership from.
+    Returns the manifest written."""
+    shard_states = list(shard_states)
+    ids = (list(range(len(shard_states))) if shard_ids is None
+           else [int(i) for i in shard_ids])
+    n = int(layout.get("num_shards", len(shard_states)))
+    meta = dict(meta or {})
+
+    def save_one(j):
+        return save_states(shard_states[j], shard_stem(path, ids[j]),
+                           meta={**meta, "shard": ids[j], "num_shards": n}, keep=keep)
+    if parallel and len(ids) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=min(len(ids), 8)) as ex:
+            files = list(ex.map(save_one, range(len(ids))))
+    else:
+        files = [save_one(j) for j in range(len(ids))]
+    man = {"version": _SHARDS_VERSION, "num_shards": n, "layout": dict(layout),
+           "meta": meta,
+           "shards": [{"shard": k, "file": os.path.basename(f)} for k, f in zip(ids, files)]}
+    full = ids == list(range(n))
+    _write_manifest(shards_manifest_path(path, None if full else ids), man)
+    return man
+
+
+def load_sharded(template_states, path: str) -> tuple:
+    """Restore a :func:`save_sharded` checkpoint against ``template_states``
+    (fresh per-operator states): every ``<stem>.shards*.json`` manifest is
+    read, the newest generation naming a shard wins, and each shard restores
+    the file its manifest names (its own lineage on a torn file). Returns
+    ``({shard: states}, layout, meta)``; raises :class:`CheckpointCorrupt`
+    when no manifest exists, manifests disagree on the layout, a shard is
+    missing, or a shard is ahead of its manifest."""
+    import glob
+    stem = resolve_path(path)[:-len(".npz")]
+    mans = []
+    for mp_ in sorted(glob.glob(stem + ".shards*.json")):
+        man = _read_manifest(mp_)
+        if man and "num_shards" in man:
+            mans.append(man)
+    if not mans:
+        raise CheckpointCorrupt(
+            f"no sharded-checkpoint manifest at {shards_manifest_path(path)!r} (or any "
+            f"per-slice {os.path.basename(stem)}.shards.s*-*.json beside it)")
+    n = int(mans[0]["num_shards"])
+    layout = dict(mans[0].get("layout", {}))
+    for man in mans[1:]:
+        if int(man["num_shards"]) != n or dict(man.get("layout", {})) != layout:
+            raise CheckpointCorrupt(
+                f"sharded-checkpoint manifests under {stem!r} disagree on the layout "
+                f"epoch — mixed-generation slices; clear the stale manifests and re-save")
+
+    def generation(m):
+        b = m.get("meta", {}).get("batches_done")
+        return -(b if isinstance(b, int) else -1)
+    mans.sort(key=generation)
+    entries = {}
+    for man in mans:
+        for ent in man.get("shards", []):
+            entries.setdefault(int(ent["shard"]), (ent, dict(man.get("meta", {}))))
+    missing = sorted(set(range(n)) - set(entries))
+    if missing:
+        raise CheckpointCorrupt(
+            f"sharded checkpoint {stem!r} covers only shards {sorted(entries)} of {n} — "
+            f"shard(s) {missing} missing (a host's slice never committed); refusing a "
+            f"silent partial restore")
+    d = os.path.dirname(resolve_path(path)) or "."
+    out, shard_meta = {}, {}
+    for k in sorted(entries):
+        ent, man_meta = entries[k]
+        # the manifest-named file is the commit; only a torn one falls back
+        # to the shard's own lineage
+        try:
+            states, meta_k, _extra = _load_states_file(template_states,
+                                                       os.path.join(d, ent["file"]))
+        except (CheckpointCorrupt, KeyError, OSError):
+            states, meta_k = load_states(template_states, shard_stem(path, k))
+        meta_k = {kk: v for kk, v in meta_k.items() if kk not in ("shard", "num_shards")}
+        if (meta_k.get("batches_done") is not None
+                and man_meta.get("batches_done") is not None
+                and meta_k["batches_done"] > man_meta["batches_done"]):
+            raise CheckpointCorrupt(
+                f"sharded checkpoint {stem!r}: shard {k} is at batches_done="
+                f"{meta_k['batches_done']}, AHEAD of its manifest "
+                f"({man_meta['batches_done']}) — a crash between the shard fan-out and "
+                f"the manifest rewrite overwrote the committed generation; save with "
+                f"checkpoint_keep >= 2 so the manifest-named lineage entry survives the "
+                f"next fan-out")
+        out[k] = states
+        shard_meta[k] = meta_k
+    meta = dict(mans[0].get("meta", {}))
+    meta["shard_meta"] = shard_meta
+    return out, layout, meta
+
+
+# ------------------------------------------------- re-sharding handoff seal
+
+def handoff_path(path: str, shard: int) -> str:
+    return resolve_path(path)[:-len(".npz")] + f".handoff{int(shard)}.npz"
+
+
+def seal_handoff(shard_states, path: str, *, layout: dict, at_pos: int) -> list:
+    """Phase 1 of the re-sharding handoff: every retiring shard's state
+    sealed to ``<stem>.handoff<k>.npz`` (atomic, per-array sha256). Not a
+    commit: the shards manifest still names the old layout, so a crash
+    before the new layout's first commit leaves only orphan seals for
+    :func:`discard_handoffs`."""
+    files = []
+    for k, states in enumerate(shard_states):
+        spec = _faults.decision("reshard.handoff", shard=k, at_pos=at_pos)
+        f = handoff_path(path, k)
+        arrays = _flatten(states)
+        hmeta = {"layout": dict(layout), "at_pos": int(at_pos), "shard": k,
+                 _META_SHA: _digest_map(arrays), _META_PATHS: leaf_paths(states)}
+        raw = _to_npz_bytes(arrays, hmeta)
+        if spec is not None:
+            if spec.kind == "torn":
+                _write_torn(f, raw, spec)
+            raise _faults.InjectedFault(
+                spec.message or f"injected reshard.handoff fault at {f}")
+        _atomic_write(f, raw)
+        files.append(f)
+    return files
+
+
+def discard_handoffs(path: str) -> list:
+    """Drop every handoff seal under ``path`` (a restore mid-handoff: replay
+    re-derives the move at the same barrier). Returns the file names."""
+    import glob
+    stem = resolve_path(path)[:-len(".npz")]
+    dropped = []
+    for f in sorted(glob.glob(stem + ".handoff*.npz")):
+        try:
+            os.unlink(f)
+            dropped.append(os.path.basename(f))
+        except OSError:
+            pass
+    return dropped
 
 
 __all__ = ["CheckpointCorrupt", "resolve_path", "manifest_path", "flatten_with_paths",
            "leaf_paths", "save_chain", "save_states", "load_chain", "load_states",
-           "save_sharded", "load_sharded", "seal_handoff", "discard_handoffs"]
+           "shard_stem", "shards_manifest_path", "save_sharded", "load_sharded",
+           "handoff_path", "seal_handoff", "discard_handoffs"]

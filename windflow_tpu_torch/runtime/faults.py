@@ -9,7 +9,10 @@ no JAX, but the port imports nothing of the JAX package):
   inline JSON or a path to a JSON file) and fire ``source.next``,
   ``queue.stall``, ``chain.step`` and ``sink.consume``;
   ``runtime/checkpoint.py`` fires ``checkpoint.save`` (torn writes
-  included) and ``checkpoint.load``;
+  included), ``checkpoint.load`` and ``reshard.handoff`` (the handoff
+  seal); the sharded supervisors fire ``shard.kill`` before every per-shard
+  push (``shard``, ``pos``) and ``reshard.handoff`` in an in-memory handoff
+  (``shard``, ``at_pos``);
 - :func:`call_with_timeout`: the step watchdog, a hung step becomes a
   :class:`WatchdogTimeout`;
 - :func:`backoff_sleep`: exponential backoff with decorrelated jitter;
@@ -41,9 +44,8 @@ import torch
 from ..observability import journal as _journal
 from ..observability.names import RECOVERY_COUNTERS
 
-#: the named injection sites (``shard.kill`` and ``reshard.handoff`` belong to
-#: the sharded supervisors, ROADMAP Queue 1 item 14; the port's drivers do not
-#: fire them yet)
+#: the named injection sites (``shard.kill`` and ``reshard.handoff``: the
+#: sharded supervisors and the handoff seal)
 SITES = ("source.next", "chain.step", "sink.consume",
          "checkpoint.save", "checkpoint.load", "queue.stall",
          "shard.kill", "reshard.handoff")

@@ -41,12 +41,14 @@ starts.
 
 Supervised execution (``run_supervised``): aligned checkpoints of every
 pipe's state, replay from the committed source positions and exactly-once
-delivery on every sink (``runtime/supervisor.py``), unsharded.
+delivery on every sink (``runtime/supervisor.py``); with ``shards=`` (or
+``WF_SHARDS``) above 1, shard-local supervision over key ranges, with an
+explicit ``reshard=`` plan and ``shard_key=``.
 
 The EOS records of the JAX drivers are journaled (``eos_flush`` a pipe in
 the serial driver's EOS flush, ``eos_propagate`` a pipe thread's end). Not
-ported: sharded supervision (ROADMAP Queue 1 item 14), ``monitoring=`` and
-``trace=`` (item 16), ``control=`` (item 15).
+ported: ``monitoring=`` and ``trace=`` (ROADMAP Queue 1 item 16),
+``control=`` (item 15).
 """
 
 from __future__ import annotations
@@ -334,7 +336,9 @@ class PipeGraph:
         (decorrelated-jitter restart backoff), ``dead_letter``/
         ``poison_threshold`` (poison-batch quarantine), ``step_timeout``
         (hung-step watchdog), ``faults`` (a FaultPlan/FaultInjector),
-        ``dispatch``. Sets :attr:`supervised_restarts`."""
+        ``dispatch``, and shard-local supervision's ``shards``, ``reshard``
+        and ``shard_key``. Sets :attr:`supervised_restarts` (and, sharded,
+        :attr:`_shard_report`: ``names.py::SHARD_GAUGES`` rows a shard)."""
         from .supervisor import run_graph_supervised
         return run_graph_supervised(self, checkpoint_every=checkpoint_every,
                                     max_restarts=max_restarts, **hardening)

@@ -1,6 +1,6 @@
-"""Failure detection + recovery: supervised execution, unsharded.
+"""Failure detection + recovery: supervised execution, unsharded and shard-local.
 
-Counterpart of the unsharded half of ``windflow_tpu/runtime/supervisor.py``.
+Counterpart of ``windflow_tpu/runtime/supervisor.py``.
 The reference's failure model is ``exit(EXIT_FAILURE)`` (no restarts, state
 lost). Here operator state is a tree of tensors threaded through each step,
 which makes recovery structural:
@@ -61,11 +61,30 @@ commit, a ``restore`` span a recovery (its duration also feeds the
 ``recovery_seconds`` counter: the time to recover), ``dead_letter`` and
 ``restart_exhausted`` records.
 
-Not ported, and refused by name: sharded supervision (``shards`` > 1 or
-``WF_SHARDS`` > 1, ``reshard=``, ``shard_key=``, ``shard_range=``: ROADMAP
-Queue 1 item 14), admission control and remediation (``control=``,
-``WF_CONTROL``, ``remediation=``, ``WF_REMEDIATION``: item 15), tracing
-(``trace=``) and monitoring-driven event time (item 16). Tiered keyed state
+Shard-local supervision (``shards=`` or ``WF_SHARDS`` above 1): the key space
+of one chain on one device is split into N key ranges
+(``parallel/sharding.py``), each a recovery domain of its own
+(:class:`ShardSupervisor`, :class:`_GraphShard`) with its own state set,
+budget, backoff, quarantine and replay buffer: a failed shard restores and
+replays only its own sub-batches while the others go on. Every shard pushes a
+full-capacity sub-batch masked by ownership through the one chain, so a batch
+costs N pushes. A coordinator (:class:`ShardedSupervisor`,
+:class:`_ShardedGraphRun`) owns the source, the aligned checkpoint barrier
+(per-shard files through ``checkpoint.save_sharded``) and live re-sharding
+(``reshard=``, a ``ReshardPlan`` applied at a barrier: retiring shards sealed
+to handoff files, changed shards rebuilt by replaying the committed prefix
+through the new ownership). A failure outside any shard's step falls back to
+the whole-domain restore. The journal gets ``shard_restore`` and ``reshard``
+records beside the others. Dispatch K > 1 with shards, and tiered keyed state
+with shards, raise ``ValueError`` as in the JAX package.
+
+Not ported, and refused by name: the governor's ``reshard="auto"``,
+admission control and remediation (``control=``, ``WF_CONTROL``,
+``remediation=``, ``WF_REMEDIATION``: ROADMAP Queue 1 item 15), tracing
+(``trace=``), the shard gauges of a metrics snapshot and monitoring-driven
+event time (item 16), and the multi-host slice helper
+``multihost.process_shard_slice`` (item 14; an explicit ``shard_range=``
+runs). Tiered keyed state
 (``state/tiered.py``) is supervised as in the JAX package: a snapshot settles
 the tiered operators first and keeps their cold tiers' manifests beside the
 states; a restore rewinds the stores and discards the copies in flight
@@ -86,11 +105,14 @@ from typing import Optional, Sequence
 import torch
 
 from ..basic import DEFAULT_BATCH_SIZE
+from ..batch import tree_map
 from ..device import resolve_device
 from ..observability import journal as _journal
 from ..operators.base import Basic_Operator
-from ..operators.sink import Sink
+from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
+from ..parallel.sharding import (ReshardPlan, ShardAssignment, affected_shards,
+                                 make_splitter, resolve_shards)
 from . import dispatch as _dispatch
 from . import faults as _faults
 from .graphs import leaves, rebuild
@@ -124,22 +146,13 @@ def _env_on(var: str) -> bool:
     return os.environ.get(var, "").strip() not in ("", "0")
 
 
-def _refuse_unported(*, shards=None, reshard=None, shard_key=None, shard_range=None,
-                     control=None, remediation=None, trace=None) -> None:
+def _refuse_unported(*, reshard=None, control=None, remediation=None,
+                     trace=None) -> None:
     """Raise for every supervision feature the port does not have yet,
     naming its ROADMAP item, instead of running without it."""
-    n = shards
-    if n is None:
-        raw = os.environ.get("WF_SHARDS", "").strip()
-        n = int(raw) if raw else 1
-    if int(n) < 0:
-        raise ValueError(f"shards= must be >= 0, got {n}")
-    if int(n) > 1:
-        _refuse(f"shard-local supervision (shards={n})", 14)
-    for arg, what in ((reshard, "reshard="), (shard_key, "shard_key="),
-                      (shard_range, "shard_range=")):
-        if arg is not None:
-            _refuse(f"supervised {what} (sharded recovery)", 14)
+    if isinstance(reshard, str) and reshard == "auto" or (
+            reshard is None and os.environ.get("WF_RESHARD", "").strip() == "auto"):
+        _refuse("supervised reshard='auto' (control/governor.py::recommend_reshard)", 15)
     if control is not None or _env_on("WF_CONTROL"):
         _refuse("supervised control= / WF_CONTROL (admission control)", 15)
     if remediation is not None or _env_on("WF_REMEDIATION"):
@@ -198,9 +211,26 @@ class SupervisedPipeline:
                  control=None, trace=None, dispatch=None, shards=None,
                  reshard=None, shard_key=None, shard_range=None,
                  remediation=None, device=None):
-        _refuse_unported(shards=shards, reshard=reshard, shard_key=shard_key,
-                         shard_range=shard_range, control=control,
-                         remediation=remediation, trace=trace)
+        _refuse_unported(reshard=reshard, control=control, remediation=remediation,
+                         trace=trace)
+        #: shard-local supervision (``shards=`` or ``WF_SHARDS``; 1 runs the
+        #: single-domain path): N > 1 splits the key space into N
+        #: ShardSupervisor units under a ShardedSupervisor
+        self._shards = resolve_shards(shards)
+        self._reshard_arg = reshard
+        #: the ownership key (TupleRef -> int, the KeyBy convention), needed
+        #: when the stateful operators group on a derived key
+        self._shard_key = shard_key
+        #: this process supervises shards [lo, hi) of the global count
+        self._shard_range = (tuple(int(x) for x in shard_range)
+                             if shard_range is not None else None)
+        if self._shard_range is not None and self._shards <= 1:
+            raise ValueError(
+                "shard_range= requires shards > 1 (or WF_SHARDS=N): with sharding off "
+                "this host would silently supervise the WHOLE stream and the fleet "
+                "would emit every output once per host — pass the global shard count "
+                "alongside the slice")
+        self._sharded = None          # the last run's ShardedSupervisor (report)
         self.device = resolve_device(device)
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
@@ -225,6 +255,13 @@ class SupervisedPipeline:
         self.chain = CompiledChain(list(ops), source.payload_spec(),
                                    batch_capacity=source.out_capacity(self.batch_size),
                                    device=self.device)
+        if self._shards > 1 and self.chain._tier_ops:
+            raise ValueError(
+                "shard-local supervision (shards > 1) does not yet compose with tiered "
+                "keyed state — the per-op HostStore is one process-wide cold tier, so a "
+                "per-shard restore could roll back a peer shard's spilled rows; run "
+                "tiered tables with shards=1 (or size the hot tables per shard and keep "
+                "tiered= off)")
         self.restarts = 0                     # total recoveries (observability)
 
     # -- checkpointing ----------------------------------------------------------------
@@ -254,7 +291,7 @@ class SupervisedPipeline:
         cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
         if cfg is not None:
             _dispatch.refuse_k_tuner(cfg)
-            if cfg.prewarm and cfg.k > 1 and self.chain.ops:
+            if cfg.prewarm and cfg.k > 1 and self.chain.ops and self._shards == 1:
                 cap = self.source.out_capacity(self.batch_size)
                 for kk in range(2, min(cfg.k, self.checkpoint_every) + 1):
                     self.chain.warm_scan(kk, cap)
@@ -263,11 +300,20 @@ class SupervisedPipeline:
 
     def run(self):
         """Drive the stream to EOS under supervision; returns
-        ``chain.result()``."""
+        ``chain.result()`` (sharded: every ReduceSink's shard partials
+        combined)."""
         self.start()
         injector = _faults.resolve(self._faults_arg)
         with _faults.activate(injector):
+            if self._shards > 1:
+                self._sharded = ShardedSupervisor(self)
+                return self._sharded.run()
             return self._run()
+
+    def shard_report(self) -> dict:
+        """Per-shard rows (``names.py::SHARD_GAUGES``) of the last sharded
+        run; empty when ``shards`` resolved to 1."""
+        return self._sharded.shard_report() if self._sharded is not None else {}
 
     def _run(self):
         dcfg = self._dispatch
@@ -504,6 +550,533 @@ def _accepts_cursor(fn) -> bool:
             or any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()))
 
 
+# ------------------------------------------------------ shard-local supervision
+
+def _fresh_states(chain: CompiledChain) -> list:
+    """Freshly initialized operator states for one shard on the chain's device
+    (each shard owns its states; the chain's ops and programs are shared)."""
+    return [op.init_state(chain.specs[i]) for i, op in enumerate(chain.ops)]
+
+
+class _ShardRecoveryBase:
+    """The per-shard failure bookkeeping of both sharded drivers
+    (:class:`ShardSupervisor`, :class:`_GraphShard`): poison streaks with a
+    budget-free arming failure, the restart budget and
+    :class:`RestartExhausted`, the watchdog join, recovery timing, backoff,
+    quarantine and the ``names.py::SHARD_GAUGES`` row. Subclasses supply
+    ``_restore_for_replay``, ``_count_restart``, ``_replay_from``,
+    ``_committed_tag``, ``_exhausted_message`` and ``_journal_fields``."""
+
+    def _init_recovery(self, idx: int, co) -> None:
+        self.idx = int(idx)
+        self.co = co
+        self.budget = co.max_restarts
+        self.restarts = 0
+        self.dead_letters = 0
+        self.reshard_moves = 0
+        self.occupancy_tuples = 0           # committed live tuples processed
+        self.interval_tuples = 0            # the last committed interval's
+        self.last_recovery_s = 0.0
+        self.prev_sleep = co.backoff_base
+        self._rng = random.Random()         # backoff jitter: timing only
+        self._fail_key = None               # poison streak: last failing key
+        self._streak = 0
+        self._quarantine_key = None         # armed: dead-letter this key
+        self._quarantine_err = None
+        self._rec_t0 = None
+
+    def _restore_for_replay(self) -> None:
+        raise NotImplementedError
+
+    def _count_restart(self) -> None:
+        raise NotImplementedError
+
+    def _replay_from(self):
+        raise NotImplementedError
+
+    def _committed_tag(self):
+        raise NotImplementedError
+
+    def _exhausted_message(self, key) -> str:
+        raise NotImplementedError
+
+    def _journal_fields(self, key) -> dict:
+        return {}
+
+    def _on_failure(self, e, key) -> None:
+        """The SupervisedPipeline recovery path scoped to one key range:
+        poison tracking (only the arming failure is free), budget, watchdog
+        join, restore, backoff."""
+        armed_now = False
+        if self.co.dead_letter is not None and key is not None:
+            if key == self._fail_key:
+                self._streak += 1
+            else:
+                self._fail_key, self._streak = key, 1
+            if self._streak >= self.co.poison_threshold and self._quarantine_key is None:
+                self._quarantine_key, self._quarantine_err = key, e
+                armed_now = True
+        if not armed_now:
+            if self.budget <= 0:
+                _journal.record("restart_exhausted", shard=self.idx,
+                                error=type(e).__name__, **self._journal_fields(key))
+                raise RestartExhausted(self._exhausted_message(key)) from e
+            self.budget -= 1
+        self.restarts += 1
+        self._count_restart()
+        _faults.bump("restarts")
+        _faults.join_abandoned_worker(e, self.co.step_timeout)
+        self._rec_t0 = time.perf_counter()
+        _journal.record("shard_restore", shard=self.idx, replay_from=self._replay_from(),
+                        attempt=self.restarts, error=type(e).__name__,
+                        **self._journal_fields(key))
+        self._restore_for_replay()
+        self.prev_sleep = _faults.backoff_sleep(
+            self._rng, self.prev_sleep, self.co.backoff_base, self.co.backoff_cap,
+            attempt=self.restarts)
+
+    def _quarantine_hit(self, pos, sub, driver: str, **fields) -> None:
+        """Dead-letter the armed sub-batch and disarm (the caller blanks its
+        replay slot): under sharding the sub-batch is the exact failing unit."""
+        _journal.record("dead_letter", at_batch=pos, shard=self.idx,
+                        error=(type(self._quarantine_err).__name__
+                               if self._quarantine_err else None), **fields)
+        _faults.bump("dead_letters")
+        if self.co.dead_letter is not None:
+            self.co.dead_letter.put(sub, pos=pos, error=self._quarantine_err, driver=driver)
+        self.dead_letters += 1
+        self._quarantine_key = self._quarantine_err = None
+        self._fail_key, self._streak = None, 0
+
+    def _finish_recovery_timing(self) -> None:
+        if self._rec_t0 is not None:
+            self.last_recovery_s = time.perf_counter() - self._rec_t0
+            self._rec_t0 = None
+            # shard-local restores feed the same counter as whole-domain ones
+            _faults.bump("recovery_seconds", round(self.last_recovery_s, 6))
+
+    def report(self) -> dict:
+        """One ``names.py::SHARD_GAUGES`` row."""
+        return {"occupancy_tuples": self.occupancy_tuples, "restarts": self.restarts,
+                "last_recovery_s": round(self.last_recovery_s, 6),
+                "dead_letters": self.dead_letters, "reshard_moves": self.reshard_moves,
+                "committed_pos": self._committed_tag()}
+
+
+class ShardSupervisor(_ShardRecoveryBase):
+    """One key range's supervision unit: its own budget, backoff, outbox,
+    quarantine, watchdog-wrapped steps and (under ``spill_path``) checkpoint
+    lineage. It borrows the coordinator's :class:`CompiledChain` (its states
+    installed for each push) but fails alone: a fault in its step restores
+    its snapshot and replays its sub-batches since its last commit while the
+    other shards go on. Snapshots are host copies (a restored state is fresh
+    tensors, never an alias of what a later push consumes)."""
+
+    def __init__(self, idx: int, chain: CompiledChain, states, co):
+        self._init_recovery(idx, co)        # co: the ShardedSupervisor
+        self.chain = chain
+        self.states = states
+        self.snap = self._snapshot_states()
+        self.snap_pos = 0
+        self.replay = []                    # [(pos, sub)] since the last commit;
+        #                                     sub None marks a quarantined slot
+        self.pending = []                   # outputs since the last commit
+        self.outbox = []                    # committed, not yet delivered
+
+    def _snapshot_states(self):
+        return [host_tree(st) for st in self.states]
+
+    def _restore_states(self):
+        self.states = [device_tree(st, self.chain.device) for st in self.snap]
+
+    def _step(self, sub):
+        self.chain.states = self.states
+        out = self.chain.push(sub)
+        self.states = self.chain.states
+        return out
+
+    def offer(self, pos: int, sub) -> None:
+        """This shard's sub-batch of stream position ``pos``: buffered for
+        replay, pushed under the watchdog, recovered shard-locally."""
+        self.replay.append((pos, sub))
+        self._drive(len(self.replay) - 1)
+
+    def _drive(self, start: int) -> None:
+        i = start
+        while i < len(self.replay):
+            pos, sub = self.replay[i]
+            if sub is None:                 # a quarantined slot
+                i += 1
+                continue
+            if self._quarantine_key is not None and pos == self._quarantine_key:
+                self._quarantine_hit(pos, sub, f"sharded-pipeline:shard{self.idx}")
+                self.replay[i] = (pos, None)
+                i += 1
+                continue
+            try:
+                _faults.fire("shard.kill", shard=self.idx, pos=pos)
+                out = _faults.call_with_timeout(
+                    lambda sub=sub: self._step(sub), self.co.step_timeout,
+                    stage=f"shard{self.idx}.step")
+                self.pending.append(host_tree(out) if self.co.sink is not None else out)
+                i += 1
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:      # noqa: BLE001 — the detection point
+                self._on_failure(e, pos)
+                i = 0                       # replay the whole interval
+        self._finish_recovery_timing()
+
+    def _restore_for_replay(self) -> None:
+        self._restore_states()
+        self.pending.clear()                # uncommitted: replay regenerates
+
+    def _count_restart(self) -> None:
+        self.co.p.restarts += 1
+
+    def _replay_from(self):
+        return self.snap_pos
+
+    def _committed_tag(self):
+        return self.snap_pos
+
+    def _exhausted_message(self, key) -> str:
+        return (f"shard {self.idx} failed {self.co.max_restarts + 1}x within one "
+                f"checkpoint interval (at batch {key})")
+
+    def _journal_fields(self, key) -> dict:
+        return {"at_batch": key}
+
+    def flush_supervised(self) -> None:
+        """The EOS flush with the same shard-local recovery: a fault during
+        it restores and replays this shard's interval, then flushes again."""
+        while True:
+            try:
+                self.chain.states = self.states
+                outs = _faults.call_with_timeout(self.chain.flush, self.co.step_timeout,
+                                                 stage=f"shard{self.idx}.flush")
+                self.states = self.chain.states
+                for out in outs:
+                    self.pending.append(host_tree(out) if self.co.sink is not None else out)
+                return
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:      # noqa: BLE001 — the detection point
+                self._on_failure(e, None)
+                self._drive(0)
+
+    def commit(self, pos: int, snap) -> None:
+        """The shard's commit point (pure assignments: the coordinator did the
+        fallible snapshot and save first)."""
+        self.snap = snap
+        self.snap_pos = pos
+        n_interval = sum(int(sub.count()) for _p, sub in self.replay if sub is not None)
+        self.occupancy_tuples += n_interval
+        self.interval_tuples = n_interval
+        self.replay.clear()
+        self.budget = self.co.max_restarts
+        if self.co.sink is not None:
+            self.outbox.extend(self.pending)
+        self.pending.clear()
+
+    def deliver(self) -> None:
+        """Resumable committed delivery."""
+        while self.outbox:
+            _faults.fire("sink.consume", shard=self.idx, pending=len(self.outbox))
+            self.co.sink.consume(self.outbox[0])
+            self.outbox.pop(0)
+
+
+class ShardedSupervisor:
+    """The control plane over N :class:`ShardSupervisor` units: the sharded
+    form of :class:`SupervisedPipeline` (``shards=``/``WF_SHARDS``).
+
+    It owns what is global: the source and its commit cursor, the aligned
+    checkpoint barrier (each shard snapshots itself; spills fan out per
+    shard through ``checkpoint.save_sharded``) and the re-sharding plan. A
+    failure outside any shard's step (a source read, a checkpoint save, a
+    delivery, a handoff) is recovered the whole-domain way: every shard back
+    to its snapshot, the source reopened at the committed cursor.
+
+    Live re-sharding runs at a checkpoint barrier in two phases: every
+    retiring shard's committed state is sealed to a handoff file (or, without
+    ``spill_path``, the ``reshard.handoff`` site is walked), then the shards
+    whose key range is unchanged keep their state and the changed ones are
+    rebuilt by replaying the committed prefix through the new ownership (the
+    chain's own deterministic slot allocation, no per-operator migration).
+    The barrier position makes a replay re-derive the same layout; a failure
+    mid-handoff drops the seals and re-derives the move at the same barrier."""
+
+    def __init__(self, p: "SupervisedPipeline"):
+        dcfg = _dispatch.DispatchConfig.resolve(p._dispatch_arg)
+        if dcfg is not None and dcfg.k > 1:
+            raise ValueError(
+                "shards > 1 does not compose with scan dispatch (K > 1): a fused group "
+                "failure could not be attributed to one shard's replay extent — drop "
+                "dispatch= (or run shards=1); the validator's WF115 catches this pre-run")
+        self.p = p
+        self.chain = p.chain
+        self.source = p.source
+        self.sink = p.sink
+        self.dead_letter = p.dead_letter
+        self.poison_threshold = p.poison_threshold
+        self.step_timeout = p.step_timeout
+        self.max_restarts = p.max_restarts
+        self.backoff_base = p.backoff_base
+        self.backoff_cap = p.backoff_cap
+        self.checkpoint_every = p.checkpoint_every
+        self.spill_path = p.spill_path
+        self.checkpoint_keep = p.checkpoint_keep
+        self.assignment = ShardAssignment(p._shards)
+        self.pending_plan = ReshardPlan.resolve(p._reshard_arg)
+        self._reshard_due = False
+        self.reshard_count = 0
+        lo, hi = p._shard_range if p._shard_range is not None else (0, p._shards)
+        if not (0 <= lo <= hi <= p._shards):
+            raise ValueError(f"shard_range={p._shard_range} is not a sub-range of "
+                             f"[0, {p._shards})")
+        if (lo, hi) != (0, p._shards) and self.pending_plan is not None:
+            raise ValueError(
+                "live re-sharding under a multi-host shard_range is not yet supported — "
+                "each host would have to apply the plan at the same barrier over DCN; "
+                "run reshard on the single-host layout (or drop shard_range)")
+        # an empty slice (lo == hi) supervises no shard and idles through the
+        # stream
+        self.shards = ([ShardSupervisor(lo, self.chain, self.chain.states, self)]
+                       if lo < hi else [])
+        for k in range(lo + 1, hi):
+            self.shards.append(ShardSupervisor(k, self.chain, _fresh_states(self.chain),
+                                               self))
+        self.commit_pos = 0
+        self.snap_cursor = None
+        self._gbudget = self.max_restarts
+
+    def _splitter(self):
+        return make_splitter(self.assignment, self.p._shard_key)
+
+    def run(self):
+        p = self.p
+        rng = random.Random()               # backoff jitter: timing only
+        prev_sleep = self.backoff_base
+        split = None
+        while True:
+            try:
+                if self._reshard_due:
+                    # a failure interrupted the handoff: re-derive the move at
+                    # the same barrier, so the layout history matches a
+                    # fault-free run's
+                    self._apply_reshard(self.pending_plan, self.commit_pos)
+                    self._reshard_due = False
+                    self.pending_plan = None
+                    split = None
+                if split is None:
+                    split = self._splitter()
+                it = _reopen_source(self.source, p.batch_size, self.commit_pos,
+                                    self.snap_cursor)
+                for s in self.shards:
+                    s.deliver()             # finish any interrupted delivery
+                pos = self.commit_pos
+                while True:
+                    _faults.fire("source.next", pos=pos)
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    if self.shards:
+                        subs = split(batch)
+                        for s in self.shards:
+                            s.offer(pos, subs[s.idx])
+                    pos += 1
+                    if pos - self.commit_pos >= self.checkpoint_every:
+                        self._commit(pos)
+                        split = self._barrier(pos, split)
+                # EOS: every shard flushes under its own recovery, one final
+                # commit, committed delivery
+                for s in self.shards:
+                    s.flush_supervised()
+                self._commit(pos)
+                if self.pending_plan is not None or self._reshard_due:
+                    # the stream ended before the plan's barrier: say so
+                    _journal.record("reshard", aborted=True, at_pos=pos,
+                                    error="stream ended before the plan's at_pos barrier")
+                break
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except RestartExhausted:
+                raise
+            except BaseException as e:      # noqa: BLE001 — the global detection point
+                if self._gbudget <= 0:
+                    _journal.record("restart_exhausted", at_batch=self.commit_pos,
+                                    error=type(e).__name__)
+                    raise RestartExhausted(
+                        f"sharded run failed {self.max_restarts + 1}x within one "
+                        f"checkpoint interval (committed {self.commit_pos})") from e
+                self._gbudget -= 1
+                p.restarts += 1
+                _faults.bump("restarts")
+                _faults.join_abandoned_worker(e, self.step_timeout)
+                with _restore_span(at_batch=self.commit_pos, replay_from=self.commit_pos,
+                                   shards=len(self.shards), error=type(e).__name__):
+                    for s in self.shards:
+                        s._restore_states()
+                        s.pending.clear()
+                        s.replay.clear()
+                    if self.spill_path:
+                        from .checkpoint import discard_handoffs
+                        dropped = discard_handoffs(self.spill_path)
+                        if dropped:
+                            _journal.record("reshard", discarded=True, files=dropped)
+                prev_sleep = _faults.backoff_sleep(rng, prev_sleep, self.backoff_base,
+                                                   self.backoff_cap, attempt=p.restarts)
+        if self.sink is not None:
+            self.sink.consume(None)
+        for op in [self.source, *self.chain.ops,
+                   *([self.sink] if self.sink is not None else [])]:
+            op.close()
+        return self._merged_result()
+
+    # -- the aligned barrier ----------------------------------------------------------
+
+    def _commit(self, pos: int) -> None:
+        with _journal.span("checkpoint", at_batch=pos, shards=len(self.shards),
+                           outputs_committed=sum(len(s.pending) for s in self.shards)):
+            # fallible work first: snapshots, the cursor, the sharded spill
+            new_snaps = [s._snapshot_states() for s in self.shards]
+            new_cursor = self.source.cursor()
+            if self.spill_path and self.shards:
+                from .checkpoint import save_sharded
+                save_sharded(new_snaps, self.spill_path, layout=self.assignment.to_meta(),
+                             meta={"batches_done": pos}, keep=self.checkpoint_keep,
+                             shard_ids=[s.idx for s in self.shards])
+            # -- the commit point: pure assignments --
+            for s, sn in zip(self.shards, new_snaps):
+                s.commit(pos, sn)
+            self.commit_pos = pos
+            self.snap_cursor = new_cursor
+            self._gbudget = self.max_restarts
+            for s in self.shards:
+                s.deliver()
+
+    def _barrier(self, pos: int, split):
+        """After a commit: apply a pending plan whose barrier has come.
+        Returns the (possibly new) splitter."""
+        if self.pending_plan is not None and pos >= self.pending_plan.at_pos:
+            self._reshard_due = True
+        if self._reshard_due:
+            self._apply_reshard(self.pending_plan, pos)
+            self._reshard_due = False
+            self.pending_plan = None
+            return self._splitter()
+        return split
+
+    # -- live re-sharding -------------------------------------------------------------
+
+    def _apply_reshard(self, plan, pos: int) -> None:
+        old = self.assignment
+        try:
+            new = plan.apply_to(old)
+        except ValueError as e:
+            _journal.record("reshard", aborted=True, at_pos=pos, error=str(e))
+            return
+        if new == old:
+            return
+        with _journal.span("reshard", from_shards=old.num_shards, to_shards=new.num_shards,
+                           moves=len(new.moves), at_pos=pos):
+            # phase 1, drain: seal every retiring shard's committed state (or
+            # walk the site in memory); a failure here goes to the global
+            # handler, which drops the seals, and the plan stays due
+            if self.spill_path:
+                from .checkpoint import seal_handoff
+                seal_handoff([s.snap for s in self.shards], self.spill_path,
+                             layout=old.to_meta(), at_pos=pos)
+            else:
+                for s in self.shards:
+                    _faults.fire("reshard.handoff", shard=s.idx, at_pos=pos)
+            # phase 2, re-admit: unchanged shards keep their state, changed
+            # ones replay the committed prefix (outputs dropped: the old
+            # layout committed them)
+            self.shards = self._readmit(old, new, pos)
+            self.assignment = new
+            self.reshard_count += 1
+            # the new layout commits at once (the replay buffers are empty at
+            # a barrier); then the seals are obsolete
+            self._commit(pos)
+            if self.spill_path:
+                from .checkpoint import discard_handoffs
+                discard_handoffs(self.spill_path)
+
+    def _readmit(self, old, new, upto: int) -> list:
+        affected = affected_shards(old, new)
+        keep = {}
+        if new.num_shards == old.num_shards:
+            keep = {s.idx: s for s in self.shards if s.idx not in affected}
+        rebuilt = [i for i in range(new.num_shards) if i not in keep]
+        fresh = {i: _fresh_states(self.chain) for i in rebuilt}
+        if upto > 0 and rebuilt:
+            split = make_splitter(new, self.p._shard_key)
+            it = self.source.batches(self.p.batch_size)
+            for ppos in range(upto):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                subs = split(batch)
+                for i in rebuilt:
+                    self.chain.states = fresh[i]
+                    try:
+                        self.chain.push(subs[i])
+                        fresh[i] = self.chain.states
+                    except (KeyboardInterrupt, SystemExit):
+                        raise
+                    except BaseException as e:  # noqa: BLE001 — a poison sub-batch
+                        # the live run already dead-lettered (or new poison
+                        # under the new mask): quarantine it here, the
+                        # rebuild must not kill a run recovery survived
+                        # (fresh[i] keeps the states from before the push)
+                        _journal.record("dead_letter", at_batch=ppos, shard=i,
+                                        during_reshard=True, error=type(e).__name__)
+                        _faults.bump("dead_letters")
+                        if self.dead_letter is not None:
+                            self.dead_letter.put(subs[i], pos=ppos, error=e,
+                                                 driver=f"sharded-readmit:shard{i}")
+        units = []
+        prior = {s.idx: s for s in self.shards}
+        for i in range(new.num_shards):
+            if i in keep:
+                units.append(keep[i])
+                continue
+            u = ShardSupervisor(i, self.chain, fresh[i], self)
+            u.snap_pos = upto
+            u.reshard_moves = prior[i].reshard_moves + 1 if i in prior else 1
+            u.occupancy_tuples = prior[i].occupancy_tuples if i in prior else 0
+            u.restarts = prior[i].restarts if i in prior else 0
+            u.dead_letters = prior[i].dead_letters if i in prior else 0
+            units.append(u)
+        return units
+
+    # -- results and reporting --------------------------------------------------------
+
+    def _merged_result(self):
+        """Every ReduceSink's shard partials combined with its own associative
+        ``combine`` (a key's rows live in one shard)."""
+        res = {}
+        for i, op in enumerate(self.chain.ops):
+            if isinstance(op, ReduceSink):
+                acc = None
+                for s in self.shards:
+                    v = op.result(s.states[i])
+                    acc = v if acc is None else tree_map(op.combine, acc, v)
+                if acc is None:
+                    # an empty slice: the identity-valued reduction
+                    acc = op.result(op.init_state(self.chain.specs[i]))
+                res[op.name] = acc
+        return res
+
+    def shard_report(self) -> dict:
+        return {s.idx: s.report() for s in self.shards}
+
+
+
 # ------------------------------------------------------------ graph level
 
 class _CommitBufferSink:
@@ -511,21 +1084,39 @@ class _CommitBufferSink:
     execution: outputs are copied to the host at once (an asynchronous device
     fault surfaces before anything reaches the user callback) but delivered
     only at checkpoint commit. Committed outputs move to an ``outbox`` that
-    survives restore and drains resumably."""
+    survives restore and drains resumably. Under the sharded driver,
+    ``shard`` routes uncommitted outputs into per-shard buckets (a shard's
+    restore discards only its own) and ``mute`` drops outputs (the
+    re-sharding prefix replay: the old layout committed them)."""
 
     def __init__(self, real):
         self.real = real
         self.pending = []                     # uncommitted (discarded on restore)
         self.outbox = []                      # committed, not yet delivered
+        self.shard = None
+        self.mute = False
+        self.pending_by = {}                  # shard -> [batches]
 
     def consume(self, batch):
         if batch is None:
             return                # EOS: delivered by the supervisor at the end
-        self.pending.append(host_tree(batch))
+        if self.mute:
+            return
+        host = host_tree(batch)
+        if self.shard is None:
+            self.pending.append(host)
+        else:
+            self.pending_by.setdefault(self.shard, []).append(host)
+
+    def pending_count(self):
+        return len(self.pending) + sum(len(v) for v in self.pending_by.values())
 
     def seal(self):
         self.outbox.extend(self.pending)
         self.pending = []
+        for s in sorted(self.pending_by):     # deterministic shard order
+            self.outbox.extend(self.pending_by[s])
+        self.pending_by = {}
 
     def deliver(self):
         while self.outbox:
@@ -533,8 +1124,12 @@ class _CommitBufferSink:
             self.real.consume(self.outbox[0])
             self.outbox.pop(0)
 
-    def discard(self):
-        self.pending = []                     # the outbox survives: committed
+    def discard(self, shard=None):
+        if shard is None:
+            self.pending = []                 # the outbox survives: committed
+            self.pending_by = {}
+        else:
+            self.pending_by.pop(shard, None)
 
 
 def _graph_snapshot(graph):
@@ -596,11 +1191,27 @@ def run_graph_supervised(graph, *, checkpoint_every: int = 8, max_restarts: int 
     and exactly-once delivery on every sink. The DAG analogue of
     :class:`SupervisedPipeline`, with the same backoff, quarantine and
     watchdog. ``dispatch=`` (explicit wins over the graph's own) fuses K
-    root batches a device program with count-based group boundaries only."""
-    _refuse_unported(shards=shards, reshard=reshard, shard_key=shard_key,
-                     shard_range=shard_range, control=control)
+    root batches a device program with count-based group boundaries only.
+    ``shards=`` (or ``WF_SHARDS``) above 1 runs the sharded driver
+    (:class:`_ShardedGraphRun`), with an explicit ``reshard=`` plan and
+    ``shard_key=``."""
+    _refuse_unported(control=control)
+    if shard_range is not None:
+        raise ValueError(
+            "shard_range= (the multi-host slice) is not yet supported on the "
+            "supervised graph driver — it would be silently ignored and every host "
+            "would supervise ALL shards (duplicated outputs); run one "
+            "SupervisedPipeline per slice, or drop shard_range")
     injector = _faults.resolve(faults)
     with _faults.activate(injector):
+        n_shards = resolve_shards(shards)
+        if n_shards > 1:
+            return _ShardedGraphRun(
+                graph, shards=n_shards, reshard=reshard, shard_key=shard_key,
+                checkpoint_every=checkpoint_every, max_restarts=max_restarts,
+                backoff_base=backoff_base, backoff_cap=backoff_cap,
+                dead_letter=dead_letter, poison_threshold=poison_threshold,
+                step_timeout=step_timeout, dispatch=dispatch).run()
         return _run_graph_supervised(
             graph, checkpoint_every=checkpoint_every, max_restarts=max_restarts,
             backoff_base=backoff_base, backoff_cap=backoff_cap,
@@ -833,4 +1444,511 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                 mp.sink = originals[id(mp)]
 
 
-__all__ = ["RestartExhausted", "SupervisedPipeline", "run_graph_supervised"]
+# -------------------------------------------------- the sharded graph driver
+
+def _graph_capture(graph) -> dict:
+    """References to the whole graph's mutable state (chain states,
+    Ordering_Nodes, the exhausted set): the unit the sharded graph driver
+    swaps, N shards sharing one graph object, each with its own state set.
+    Nothing is copied (an Ordering_Node settles first, so a trim owed by one
+    shard's push never lands on another shard's pool)."""
+    chains, orders = [], []
+    for mp in graph._all_pipes():
+        chains.append(None if mp._chain is None else list(mp._chain.states))
+        o = mp._ordering
+        if o is not None:
+            o.settle()
+        orders.append(None if o is None else
+                      (o._pending, o._pending_chan, o._wm_dev, o._next_id,
+                       o._last_release_count))
+    return {"chains": chains, "orders": orders, "exhausted": set(graph._exhausted)}
+
+
+def _graph_install(graph, st: dict) -> None:
+    for mp, ch, od in zip(graph._all_pipes(), st["chains"], st["orders"]):
+        if mp._chain is not None:
+            if ch is None:
+                mp._chain.reset_states()  # a chain born after this capture
+            else:
+                mp._chain.states = list(ch)
+        if od is None:
+            mp._ordering = None           # recreated lazily, fresh
+        else:
+            o = mp._ordering
+            if o is None:
+                o = graph._ordering_of(mp)
+            else:
+                o.settle()                # the outgoing shard's trim
+            (o._pending, o._pending_chan, o._wm_dev, o._next_id,
+             o._last_release_count) = od
+    graph._exhausted = set(st["exhausted"])
+
+
+def _graph_blank(graph) -> dict:
+    """A freshly initialized graph state set (a shard born mid-run)."""
+    for mp in graph._all_pipes():
+        if mp._chain is not None:
+            mp._chain.reset_states()
+        mp._ordering = None
+    graph._exhausted = set()
+    return _graph_capture(graph)
+
+
+class _GraphShard(_ShardRecoveryBase):
+    """The graph driver's shard unit: one key range over the whole DAG, with
+    its own budget and backoff, quarantine keyed by (root pipe, position), a
+    replay buffer of its sub-batches and root EOS events since its last
+    commit, and its own pending bucket in every sink shim. A failure in its
+    pushes restores and replays only this shard."""
+
+    def __init__(self, idx: int, co, state: dict):
+        self._init_recovery(idx, co)
+        self.state = state                  # references (a capture)
+        self.snap = None                    # host snapshot (set at the first commit)
+        self.snap_tag = 0                   # committed batches at the last commit
+        self.replay = []                    # ("batch", mp, pos, sub) | ("eos", mp)
+
+    def offer_batch(self, mp, pos: int, sub) -> None:
+        self.replay.append(("batch", mp, pos, sub))
+        self._drive(len(self.replay) - 1)
+
+    def offer_eos(self, mp) -> None:
+        self.replay.append(("eos", mp))
+        self._drive(len(self.replay) - 1)
+
+    def _drive(self, start: int) -> None:
+        g = self.co.graph
+        _graph_install(g, self.state)
+        self.co.select_shard(self.idx)
+        i = start
+        while i < len(self.replay):
+            entry = self.replay[i]
+            key = None
+            try:
+                if entry[0] == "eos":
+                    g._exhaust(entry[1])
+                    i += 1
+                    continue
+                _, mp, pos, sub = entry
+                if sub is None:             # a quarantined slot
+                    i += 1
+                    continue
+                key = (id(mp), pos)
+                if self._quarantine_key == key:
+                    self._quarantine_hit(pos, sub, f"sharded-graph:shard{self.idx}",
+                                         graph=g.name)
+                    self.replay[i] = ("batch", mp, pos, None)
+                    i += 1
+                    continue
+                _faults.fire("shard.kill", shard=self.idx, pos=pos)
+                _faults.call_with_timeout(lambda mp=mp, sub=sub: g._push(mp, sub),
+                                          self.co.step_timeout,
+                                          stage=f"shard{self.idx}.step")
+                i += 1
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:      # noqa: BLE001 — the detection point
+                self._on_failure(e, key)
+                self.co.select_shard(self.idx)
+                i = 0
+        self.state = _graph_capture(g)
+        self._finish_recovery_timing()
+
+    def _restore_for_replay(self) -> None:
+        _graph_restore(self.co.graph, self.snap)
+        # the capture follows the restored state: a replay entered from
+        # drain_supervised installs self.state first, and a stale capture
+        # there would apply every buffered batch twice
+        self.state = _graph_capture(self.co.graph)
+        for sh in self.co.shims:
+            sh.discard(shard=self.idx)
+
+    def _count_restart(self) -> None:
+        self.co.graph.supervised_restarts += 1
+
+    def _replay_from(self):
+        return self.snap_tag
+
+    def _committed_tag(self):
+        return self.snap_tag
+
+    def _exhausted_message(self, key) -> str:
+        return (f"graph shard {self.idx} failed {self.co.max_restarts + 1}x within one "
+                f"checkpoint interval")
+
+    def _journal_fields(self, key) -> dict:
+        return {"graph": self.co.graph.name}
+
+    def drain_supervised(self) -> None:
+        """The final EOS drain (ordering flush, then every pipe's flush in
+        topological order) under the shard-local recovery loop."""
+        g = self.co.graph
+
+        def drain_once():
+            for mp in g._topo_order():
+                if mp._ordering is not None:
+                    for piece in g._chunks(mp._ordering.flush(),
+                                           mp._ordering.last_release_count):
+                        g._push(mp, piece)
+                g._flush_pipe(mp)
+        while True:
+            _graph_install(g, self.state)
+            self.co.select_shard(self.idx)
+            try:
+                _faults.call_with_timeout(drain_once, self.co.step_timeout,
+                                          stage=f"shard{self.idx}.drain")
+                self.state = _graph_capture(g)
+                return
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:      # noqa: BLE001 — the detection point
+                self._on_failure(e, None)
+                self._drive(0)
+
+    def commit(self, tag: int, snap) -> None:
+        self.snap = snap
+        self.snap_tag = tag
+        n_interval = sum(int(e[3].count()) for e in self.replay
+                         if e[0] == "batch" and e[3] is not None)
+        self.occupancy_tuples += n_interval
+        self.interval_tuples = n_interval
+        self.replay.clear()
+        self.budget = self.co.max_restarts
+
+
+class _ShardedGraphRun:
+    """The coordinator of the sharded graph driver (``run_graph_supervised``
+    with ``shards`` > 1): the sources, cursors, commit barrier and re-sharding
+    plan are global; every key range's failure domain is a
+    :class:`_GraphShard`."""
+
+    def __init__(self, graph, *, shards, reshard, checkpoint_every, max_restarts,
+                 backoff_base, backoff_cap, dead_letter, poison_threshold, step_timeout,
+                 dispatch, shard_key=None):
+        self._shard_key = shard_key
+        self.graph = graph
+        dcfg = _dispatch.DispatchConfig.resolve(dispatch if dispatch is not None
+                                                else graph._dispatch_arg)
+        if dcfg is not None and dcfg.k > 1:
+            raise ValueError(
+                "shards > 1 does not compose with scan dispatch (K > 1) on the "
+                "supervised graph driver — drop dispatch= (WF115)")
+        if any(getattr(op, "_tier_cfg", None) is not None for op in graph._operators):
+            raise ValueError(
+                "shard-local supervision (shards > 1) does not yet compose with tiered "
+                "keyed state (shared per-op HostStore) — run tiered tables with shards=1")
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.max_restarts = int(max_restarts)
+        self.backoff_base = float(backoff_base)
+        self.backoff_cap = float(backoff_cap)
+        self.dead_letter = dead_letter
+        self.poison_threshold = max(1, int(poison_threshold))
+        self.step_timeout = step_timeout
+        self.assignment = ShardAssignment(int(shards))
+        plan = ReshardPlan.resolve(reshard)
+        if plan == "auto":
+            raise ValueError("reshard='auto' is a pipeline-driver feature (the graph "
+                             "driver takes an explicit ReshardPlan)")
+        self.pending_plan = plan
+        self._reshard_due = False
+        self.reshard_count = 0
+        self.shards = []
+        self.shims = []
+
+    def select_shard(self, idx) -> None:
+        for sh in self.shims:
+            sh.shard = idx
+
+    def mute_shims(self, on: bool) -> None:
+        for sh in self.shims:
+            sh.mute = on
+
+    def _splitter(self, assignment=None):
+        return make_splitter(assignment or self.assignment, self._shard_key)
+
+    def run(self):
+        graph = self.graph
+        if not graph._started:
+            graph.start()
+        pipes = graph._all_pipes()
+        originals = {}
+        for mp in pipes:
+            if mp.sink is not None:
+                originals[id(mp)] = mp.sink
+                mp.sink = _CommitBufferSink(mp.sink)
+        self.shims = [mp.sink for mp in pipes if id(mp) in originals]
+        # shard 0 adopts the graph's fresh state, the others get blank sets
+        base_state = _graph_capture(graph)
+        self.shards = [_GraphShard(0, self, base_state)]
+        for k in range(1, self.assignment.num_shards):
+            self.shards.append(_GraphShard(k, self, _graph_blank(graph)))
+        for s in self.shards:
+            _graph_install(graph, s.state)
+            s.snap = _graph_snapshot(graph)
+        committed_pos = {id(mp): 0 for mp in graph._roots}
+        committed_cursor = {id(mp): None for mp in graph._roots}
+        gbudget = self.max_restarts
+        graph.supervised_restarts = 0
+        rng = random.Random()               # backoff jitter: timing only
+        prev_sleep = self.backoff_base
+        split = None
+
+        def commit(pos):
+            nonlocal committed_pos, committed_cursor, gbudget
+            with _journal.span("checkpoint", graph=graph.name, shards=len(self.shards),
+                               batches_committed=sum(pos.values()),
+                               outputs_pending=sum(sh.pending_count() for sh in self.shims)):
+                new_snaps = []
+                for s in self.shards:
+                    _graph_install(graph, s.state)
+                    new_snaps.append(_graph_snapshot(graph))
+                new_cursor = {id(mp): mp.source.cursor() for mp in graph._roots}
+                # the commit point: pure assignments
+                tag = sum(pos.values())
+                for s, sn in zip(self.shards, new_snaps):
+                    s.commit(tag, sn)
+                committed_pos = dict(pos)
+                committed_cursor = new_cursor
+                gbudget = self.max_restarts
+                for sh in self.shims:
+                    sh.seal()
+                for sh in self.shims:
+                    sh.deliver()
+
+        def barrier(pos):
+            nonlocal split
+            if (self.pending_plan is not None
+                    and sum(pos.values()) >= self.pending_plan.at_pos):
+                self._reshard_due = True
+            if self._reshard_due:
+                self._apply_reshard(self.pending_plan, committed_pos, commit)
+                self._reshard_due = False
+                self.pending_plan = None
+                split = self._splitter()
+
+        try:
+            while True:
+                try:
+                    if self._reshard_due:
+                        self._apply_reshard(self.pending_plan, committed_pos, commit)
+                        self._reshard_due = False
+                        self.pending_plan = None
+                        split = None
+                    if split is None:
+                        split = self._splitter()
+                    pos = dict(committed_pos)
+                    iters = {id(mp): _reopen_source(mp.source, graph.batch_size,
+                                                    pos[id(mp)], committed_cursor[id(mp)])
+                             for mp in graph._roots}
+                    for sh in self.shims:
+                        sh.deliver()        # finish an interrupted delivery
+                    # exhausted roots are global (a source's EOS at a position):
+                    # the union of the shards' snapshots
+                    done_roots = set()
+                    for s in self.shards:
+                        done_roots |= {pid for pid in s.snap["exhausted"]
+                                       if pid in committed_pos}
+                    live = [mp for mp in graph._roots if id(mp) not in done_roots]
+                    since = 0
+                    while live:
+                        for mp in list(live):
+                            _faults.fire("source.next", pos=pos[id(mp)])
+                            try:
+                                batch = next(iters[id(mp)])
+                            except StopIteration:
+                                live.remove(mp)
+                                for s in self.shards:
+                                    s.offer_eos(mp)
+                                continue
+                            subs = split(batch)
+                            for s, sub in zip(self.shards, subs):
+                                s.offer_batch(mp, pos[id(mp)], sub)
+                            pos[id(mp)] += 1
+                            since += 1
+                        if since >= self.checkpoint_every:
+                            commit(pos)
+                            barrier(pos)
+                            since = 0
+                    for s in self.shards:
+                        s.drain_supervised()
+                    commit(pos)
+                    if self.pending_plan is not None or self._reshard_due:
+                        _journal.record("reshard", aborted=True, graph=graph.name,
+                                        error="stream ended before the plan's at_pos "
+                                              "barrier")
+                    break
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except RestartExhausted:
+                    raise
+                except BaseException as e:  # noqa: BLE001 — the global detection point
+                    if gbudget <= 0:
+                        _journal.record("restart_exhausted", graph=graph.name,
+                                        error=type(e).__name__)
+                        raise RestartExhausted(
+                            f"sharded graph run failed {self.max_restarts + 1}x within "
+                            f"one checkpoint interval") from e
+                    gbudget -= 1
+                    graph.supervised_restarts += 1
+                    _faults.bump("restarts")
+                    _faults.join_abandoned_worker(e, self.step_timeout)
+                    with _restore_span(graph=graph.name, shards=len(self.shards),
+                                       attempt=graph.supervised_restarts,
+                                       error=type(e).__name__):
+                        for s in self.shards:
+                            _graph_restore(graph, s.snap)
+                            s.state = _graph_capture(graph)
+                            s.replay.clear()
+                        for sh in self.shims:
+                            sh.discard()
+                    prev_sleep = _faults.backoff_sleep(
+                        rng, prev_sleep, self.backoff_base, self.backoff_cap,
+                        attempt=graph.supervised_restarts)
+            for mp in pipes:
+                if id(mp) in originals:
+                    originals[id(mp)].consume(None)
+            for mp in pipes:
+                if mp._chain is not None:
+                    mp._chain.sync_stats()
+            for op in graph._operators:
+                op.close()
+            graph._ended = True
+            graph._shard_report = self.shard_report()
+            return self._merged_results()
+        finally:
+            for mp in pipes:
+                if id(mp) in originals:
+                    mp.sink = originals[id(mp)]
+
+    # -- live re-sharding -------------------------------------------------------------
+
+    def _apply_reshard(self, plan, committed_pos, commit) -> None:
+        graph = self.graph
+        old = self.assignment
+        try:
+            new = plan.apply_to(old)
+        except ValueError as e:
+            _journal.record("reshard", aborted=True, graph=graph.name, error=str(e))
+            return
+        if new == old:
+            return
+        tag = sum(committed_pos.values())
+        with _journal.span("reshard", graph=graph.name, from_shards=old.num_shards,
+                           to_shards=new.num_shards, moves=len(new.moves), at_pos=tag):
+            # phase 1, drain: the committed snapshots are the seals here (the
+            # graph driver checkpoints in memory); the site is walked a shard
+            for s in self.shards:
+                _faults.fire("reshard.handoff", shard=s.idx, at_pos=tag)
+            # phase 2, re-admit
+            affected = affected_shards(old, new)
+            keep = {}
+            if new.num_shards == old.num_shards:
+                keep = {s.idx: s for s in self.shards if s.idx not in affected}
+            rebuilt = [i for i in range(new.num_shards) if i not in keep]
+            fresh = {i: _graph_blank(graph) for i in rebuilt}
+            if rebuilt and tag > 0:
+                fresh = self._replay_prefix(new, rebuilt, fresh, committed_pos)
+            prior = {s.idx: s for s in self.shards}
+            units = []
+            for i in range(new.num_shards):
+                if i in keep:
+                    units.append(keep[i])
+                    continue
+                u = _GraphShard(i, self, fresh[i])
+                _graph_install(graph, u.state)
+                u.snap = _graph_snapshot(graph)
+                u.snap_tag = tag
+                u.reshard_moves = prior[i].reshard_moves + 1 if i in prior else 1
+                if i in prior:
+                    u.occupancy_tuples = prior[i].occupancy_tuples
+                    u.restarts = prior[i].restarts
+                    u.dead_letters = prior[i].dead_letters
+                units.append(u)
+            self.shards = units
+            self.assignment = new
+            self.reshard_count += 1
+            commit(dict(committed_pos))
+
+    def _replay_prefix(self, new, rebuilt, fresh, committed_pos):
+        """Re-admission: the committed prefix of every root, in the original
+        round-robin interleave, through the new ownership into the rebuilt
+        shards' states, sinks muted (the old layout committed those outputs)."""
+        graph = self.graph
+        split = self._splitter(new)
+        iters = {id(mp): mp.source.batches(graph.batch_size) for mp in graph._roots}
+        rpos = {id(mp): 0 for mp in graph._roots}
+        exhausted_at_commit = set()
+        for s in self.shards:
+            exhausted_at_commit |= {pid for pid in s.snap["exhausted"]
+                                    if pid in committed_pos}
+        self.mute_shims(True)
+        try:
+            live = [mp for mp in graph._roots
+                    if committed_pos[id(mp)] > 0 or id(mp) in exhausted_at_commit]
+            while live:
+                for mp in list(live):
+                    if rpos[id(mp)] >= committed_pos[id(mp)]:
+                        if id(mp) in exhausted_at_commit:
+                            for i in rebuilt:
+                                _graph_install(graph, fresh[i])
+                                graph._exhaust(mp)
+                                fresh[i] = _graph_capture(graph)
+                        live.remove(mp)
+                        continue
+                    try:
+                        batch = next(iters[id(mp)])
+                    except StopIteration:
+                        live.remove(mp)
+                        continue
+                    p = rpos[id(mp)]
+                    rpos[id(mp)] += 1
+                    subs = split(batch)
+                    for i in rebuilt:
+                        _graph_install(graph, fresh[i])
+                        try:
+                            graph._push(mp, subs[i])
+                            fresh[i] = _graph_capture(graph)
+                        except (KeyboardInterrupt, SystemExit):
+                            raise
+                        except BaseException as e:  # noqa: BLE001 — poison under the
+                            # new mask: quarantine here; fresh[i] keeps the capture
+                            # from before the push, so the next install discards
+                            # what the failed push left
+                            _journal.record("dead_letter", at_batch=p, shard=i,
+                                            during_reshard=True, graph=graph.name,
+                                            error=type(e).__name__)
+                            _faults.bump("dead_letters")
+                            if self.dead_letter is not None:
+                                self.dead_letter.put(subs[i], pos=p, error=e,
+                                                     driver=f"sharded-readmit:shard{i}")
+        finally:
+            self.mute_shims(False)
+        return fresh
+
+    def _merged_results(self):
+        """Every ReduceSink's shard partials combined with its own
+        ``combine``."""
+        pipes = self.graph._all_pipes()
+        res = {}
+        for j, mp in enumerate(pipes):
+            if mp._chain is None:
+                continue
+            for i, op in enumerate(mp._chain.ops):
+                if isinstance(op, ReduceSink):
+                    acc = None
+                    for s in self.shards:
+                        st = s.state["chains"][j]
+                        if st is None:      # the shard never pushed this pipe
+                            continue
+                        v = op.result(st[i])
+                        acc = v if acc is None else tree_map(op.combine, acc, v)
+                    if acc is not None:
+                        res[op.name] = acc
+        return res
+
+    def shard_report(self) -> dict:
+        return {s.idx: s.report() for s in self.shards}
+
+
+__all__ = ["RestartExhausted", "SupervisedPipeline", "ShardSupervisor", "ShardedSupervisor",
+           "run_graph_supervised"]

@@ -13,8 +13,9 @@ growable store of columns keyed by int64 keys:
   :class:`~windflow_tpu_torch.state.tiered.TieredTable` settle point from the
   copied device outbox;
 - **readmission out** (``lookup``/``fetch_multi``): on the CPU a host call
-  from inside the step; on the card the kernel ``ops/csrc/cold_probe.cu``,
-  which reads the store in mapped host memory;
+  from inside the step; on the card the kernels of ``ops/csrc/cold_probe.cu``
+  (``cold_probe``, ``cold_fetch``), which read the store in mapped host
+  memory;
 - **watermark compaction** (``compact_below``).
 
 Two shapes: ``unique=True`` (keyed tables: one row a key, last writer wins by
@@ -27,8 +28,8 @@ Where the JAX store keeps a Python dict from key to row (or list of rows),
 this one keeps an open-addressing index (``native/csrc/host_store.cpp``: its
 hash, probe order and per-row write and probe passes, each one C call) and a
 next-row link a row (a multimap key's rows in append order). With
-``device`` a CUDA device, the index's key and head arrays, the meta and the
-value columns live in pinned, mapped host memory
+``device`` a CUDA device, the index's key and head arrays, the meta, the
+next-row links and the value columns live in pinned, mapped host memory
 (:class:`~windflow_tpu_torch.ops.cold_probe.MappedBuffer`), and a fixed
 mapped descriptor holds their device addresses: when the store grows or is
 restored only the descriptor changes, so a CUDA graph captured before stays
@@ -171,7 +172,7 @@ class HostStore:
         lg = max(1, int(2 * cap - 1).bit_length())
         key, _ = self._new((cap,), np.int64, bufs, False)
         live, _ = self._new((cap,), np.bool_, bufs, False)
-        nxt, _ = self._new((cap,), np.int64, bufs, False)
+        nxt, nxt_dev = self._new((cap,), np.int64, bufs, True)
         meta, meta_dev = self._new((cap, 3), np.int64, bufs, True)
         cols, col_devs = {}, []
         for k, dt in self._dtypes.items():
@@ -194,11 +195,13 @@ class HostStore:
         if self._mapped:
             if self._bufs:
                 self._sync()     # no launch reads the descriptor or the old arrays
+            from ..ops.cold_probe import DESC_COL0, DESC_NXT
             d = self._desc
             d[0], d[1], d[2], d[3], d[4] = ikey_dev, irow_dev, lg, meta_dev, len(cols)
+            d[DESC_NXT] = nxt_dev
             for c, (k, dev) in enumerate(zip(cols, col_devs)):
-                d[5 + 2 * c] = dev
-                d[6 + 2 * c] = int(np.prod(self._shapes[k], dtype=np.int64)) \
+                d[DESC_COL0 + 2 * c] = dev
+                d[DESC_COL0 + 2 * c + 1] = int(np.prod(self._shapes[k], dtype=np.int64)) \
                     * self._dtypes[k].itemsize
             self._bufs = bufs    # the replaced buffers are freed here
 

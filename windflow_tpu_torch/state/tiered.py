@@ -25,9 +25,9 @@ The host writes the store only here, in ``settle``, ``restore`` and TopN's
 EOS drain, on the chain's driving thread, after that wait and before the
 next push is launched: inside one ``push_many`` the store is read-only, as
 in the JAX package, which maintains once after K steps. On the card the
-step reads the store with the ``cold_probe`` kernel (``ops/cold_probe.py``)
-through mapped host memory, so the step stays capturable: no host callback,
-no interpreter lock.
+step reads the store with the ``cold_probe`` and ``cold_fetch`` kernels
+(``ops/cold_probe.py``) through mapped host memory, so the step stays
+capturable: no host callback, no interpreter lock.
 
 ``settle()`` drains synchronously (the pre-snapshot barrier); a restore
 discards whatever copies were in flight, and replay re-derives them.
@@ -52,7 +52,7 @@ import torch
 
 from ..batch import jax_leaves, tree_map
 from ..observability import journal as _journal
-from ..ops.cold_probe import cold_probe
+from ..ops.cold_probe import cold_fetch, cold_probe
 from ..ops.lookup import (_IMAX, _isum, _set_drop, claim_free_slots, hot_slot,
                           outbox_find_last)
 from .host_store import HostStore
@@ -64,7 +64,7 @@ _I32 = torch.int32
 class TierConfig:
     """Resolved tiered-state settings for one stateful operator: the
     ``tiered=`` argument / ``WF_STATE_TIERED`` of ``StreamTableJoin``,
-    ``Distinct``, ``SessionWindow`` and ``TopN``. Off by default; the off
+    ``Distinct``, ``SessionWindow``, ``TopN`` and ``IntervalJoin``. Off by default; the off
     path builds the untiered state."""
 
     #: device-resident hot-table slots (None = the operator's own
@@ -73,7 +73,7 @@ class TierConfig:
     hot_capacity: Optional[int] = None
     #: spill-outbox slots (None = 4x the operator's per-batch admission bound)
     outbox: Optional[int] = None
-    #: interval-join readmission: cold rows matched a probing lane a batch
+    #: interval-join readmission: cold rows fetched for a probing lane a batch
     readmit_rows: int = 8
     #: maintains between host-store watermark compactions
     compact_every: int = 64
@@ -375,6 +375,52 @@ class SlotTableTier:
         return (res[0],) + tuple(res[4 + i] for i in self._order)
 
 
+class ArchiveTier:
+    """Cold tier and controller of one side of an interval-join archive: a
+    multimap (``unique=False`` store). Every spilled row (an archived tuple
+    the ring overwrote while still inside its match window) stays until the
+    watermark frontier retires it (``compact_below("ts", compact_bound(wm))``
+    every ``compact_every`` maintains). The read is read-only
+    (:meth:`fetch`): cold rows are matched as extra candidates and stay
+    probeable by later arrivals, and a row lives in exactly one tier
+    (archive, outbox or here). Row schema: ``ts``, ``id`` and the payload
+    leaves ``p<i>`` in ``jax.tree.leaves`` order."""
+
+    def __init__(self, name: str, payload_spec, cfg: TierConfig, side: str,
+                 compact_bound: Callable[[int], int], device=None):
+        self.cfg = cfg
+        self.side = side
+        self._leaves = jax_leaves(payload_spec)
+        cols = {"ts": np.dtype(np.int32), "id": np.dtype(np.int32)}
+        shapes = {"ts": (), "id": ()}
+        for i, leaf in enumerate(self._leaves):
+            cols[f"p{i}"] = _np_dtype(leaf)
+            shapes[f"p{i}"] = tuple(leaf.shape)
+        self.store = HostStore(f"{name}.{side}", cols, shapes, unique=False, device=device)
+
+        def apply_fn(store, n, host):
+            rows = {"ts": host[f"{side}ots"], "id": host[f"{side}oid"]}
+            rows.update({f"p{i}": leaf
+                         for i, leaf in enumerate(jax_leaves(host[f"{side}opay"]))})
+            z = np.zeros(n, np.int64)
+            return store.append(host[f"{side}okey"], z, z, z, rows)
+
+        def compact_fn(store, wm):
+            return store.compact_below("ts", compact_bound(wm))
+
+        self.controller = TieredTable(
+            f"{name}.{side}", self.store, f"{side}ocnt",
+            [f"{side}okey", f"{side}ots", f"{side}oid", f"{side}opay"],
+            apply_fn, wm_key="wm", compact_fn=compact_fn,
+            compact_every=cfg.compact_every)
+
+    def fetch(self, keys: torch.Tensor, want: torch.Tensor) -> tuple:
+        """Up to ``readmit_rows`` cold rows of each wanted lane's key:
+        ``(mask [C, M], ts, id, *payload leaves)`` on ``keys``' device
+        (``cold_fetch``)."""
+        return cold_fetch(self.store, keys, want, self.cfg.readmit_rows)
+
+
 # --------------------------------------- the slot-directory primitives
 #
 # The session/top-N tables are direct-indexed (the tuple key is the slot);
@@ -492,6 +538,7 @@ def slot_directory_stats(state) -> dict:
             "state_readmits": int(state["readmits"])}
 
 
-__all__ = ["TierConfig", "TieredTable", "JoinTableTier", "SlotTableTier", "slot_lookup",
+__all__ = ["TierConfig", "TieredTable", "JoinTableTier", "SlotTableTier", "ArchiveTier",
+           "slot_lookup",
            "outbox_find_last", "slot_directory_resolve",
            "slot_directory_evict", "slot_directory_init", "slot_directory_stats"]
