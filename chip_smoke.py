@@ -257,7 +257,25 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     (sorted: a batch's rows arrive shard by shard), with K1/K2 (YSB), K5
     (q3) and K2/K3/K4 (graph) counted a shard's push, and logs ms a batch
     beside the unsharded supervised run's and each shard's restore;
-41. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+41. ``monitoring`` (``monitoring_phase``), after every other phase: YSB (8 x
+    2^20) captured at ``DISPATCH_K["ysb"]`` with ``Pipeline(monitoring=,
+    trace=)`` (event time, health, a trace sampling every 4th batch; the
+    artifacts under ``build/monitoring``, removed after), against the same
+    run unmonitored: rows byte for byte phase 4's, launches equal phase 4's
+    in both, the global-time ``lat_hist`` equal to a numpy recount with the
+    port's ``bucket_of``, the allocator's memory gauges (headroom = limit -
+    in use), one ledger capture a graph and no unexpected recapture, the
+    four artifacts with ``launch``/``dispatch_fused`` records; ms a batch of
+    both runs, ms a captured K-step replay of both chains (their difference:
+    what the lateness histogram costs a step) and ``lateness_update`` alone
+    at 2^20 lanes; q5 at 2^14 over a stream with stragglers, unmonitored and
+    monitored: rows byte for byte, ``lateness_drop`` records summing to the
+    drop counter; ``graph_windows`` threaded with ``trace=``: phase 17's
+    windows, every traced id's ``enq``/``deq`` on every ring edge it
+    crosses and one service span a pipe, ``to_chrome_trace`` as JSON; YSB
+    supervised with one ``chain.step`` fault and ``trace=``: phase 4's rows
+    and the failed attempt's span closed ``aborted: restore``;
+42. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
     paths, each counted from zero just before it), then the result line
@@ -2496,13 +2514,13 @@ def graph_windows_oracle(np, total, keys, win_len, slide):
 
 
 def graph_windows(torch, wt, total, keys, win_len, slide, batch, cb, device=None,
-                  dispatch=False):
+                  dispatch=False, trace=None):
     """split (id % 3) -> branches 0 and 1 (a Map each) merged partially in
     DETERMINISTIC mode -> CB Win_Seq sum -> Sink; branch 2 counted by a
     ReduceSink. Returns (graph, source pipe, merged pipe)."""
     kw = {} if device is None else {"device": device}
     g = wt.PipeGraph("graph_windows", mode=wt.Mode.DETERMINISTIC, batch_size=batch,
-                     dispatch=dispatch, **kw)
+                     dispatch=dispatch, trace=trace, **kw)
     mp = g.add_source(wt.DeviceSource(lambda i: {"v": (i % 97).to(torch.float32)},
                                       total=total, num_keys=keys, **kw))
     mp.split(lambda t: (t.id % 3).to(torch.int32), 3)
@@ -4709,6 +4727,247 @@ def tiered_q4_phase(torch, np, wt, registry, card):
     return launches
 
 
+# ------------------------------------------------------------------ monitoring
+
+MON_DIR = os.path.join(ROOT, "build", "monitoring")
+MON_TRACE_SAMPLE = 4      # the monitored YSB traces every 4th batch
+MON_REPLAYS = 20          # timed K-step replays of each YSB chain
+
+
+def ysb_lateness_recount(np, et, total, batch):
+    """The YSB window's ``lat_hist`` recounted in numpy: lanes ``i`` with
+    ``i % 3 == 0`` (the filter's views), ``ts = i // 10``, each batch's
+    lateness against the batch's post-batch watermark (the running max of
+    the views' ts), bucketed with the port's own ``bucket_of``."""
+    hist = np.zeros(et.NB, np.int64)
+    wm = -1
+    for lo in range(0, total, batch):
+        i = np.arange(lo, min(lo + batch, total), dtype=np.int64)
+        ts = i[i % 3 == 0] // 10
+        if len(ts):
+            wm = max(wm, int(ts.max()))
+        lat, inv = np.unique(np.maximum(wm - ts, 0), return_inverse=True)
+        buckets = np.array([et.bucket_of(int(v)) for v in lat], np.int64)
+        np.add.at(hist, buckets[inv], 1)
+    return hist.tolist()
+
+
+def late_bid_source(torch, wt, total):
+    """Nexmark's bid stream with stragglers: one event in 13 arrives 40 ticks
+    late, behind its session's floor (q5 drops it as OLD)."""
+    from windflow_tpu_torch.nexmark import generators as g
+
+    def gen(i):
+        return {"auction": g.bid_auction(i).to(torch.int32),
+                "bidder": g.bid_bidder(i).to(torch.int32),
+                "price": g.bid_price(i).to(torch.int32)}
+
+    def ts(i):
+        return (i // 8 - torch.where((i * 7919) % 13 == 0, 40, 0)).to(torch.int32)
+    return wt.DeviceSource(gen, total=total, name="nexmark_late_bids",
+                           key_fn=g.bid_auction, ts_fn=ts)
+
+
+def replay_ms(torch, chain, batches):
+    """ms a batch of ``MON_REPLAYS`` ``push_many`` replays of ``batches`` (one
+    K-step graph) on ``chain``, after one untimed replay."""
+    chain.push_many(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MON_REPLAYS):
+        chain.push_many(batches)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (MON_REPLAYS * len(batches)) * 1e3
+
+
+def monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref, ysb_launches,
+                     gw_rows):
+    """Phase 41 (see the module docstring). ``ysb_ref``: phase 4's sink rows
+    (``flat_bytes``), ``ysb_launches``: its launches, ``gw_rows``: phase 17's
+    windows. Returns the monitored YSB run's launches."""
+    import shutil
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.observability import (MonitoringConfig, TraceConfig,
+                                                  event_time, journal, tracing)
+    from windflow_tpu_torch.runtime import faults as F
+
+    shutil.rmtree(MON_DIR, ignore_errors=True)
+    k = DISPATCH_K["ysb"]
+    total = YSB_BATCHES * BATCH
+    cap = BATCH
+    runs = {}
+    for monitored in (False, True):
+        out = os.path.join(MON_DIR, "ysb")
+        mon = (MonitoringConfig(out_dir=out, event_time=True, health=True, interval_s=0.5)
+               if monitored else False)
+        trace = (TraceConfig(out_dir=os.path.join(out, "trace"),
+                             sample_every=MON_TRACE_SAMPLE) if monitored else False)
+        parts, cb = collect_sink()
+        ops = ysb.make_ops(**ysb.bench_geometry(BATCH))
+        pipe = wt.Pipeline(ysb.make_source(total), ops, wt.Sink(cb), batch_size=BATCH,
+                           dispatch=k, monitoring=mon, trace=trace)
+        # the eager step's first build outside the count; the K-step graph is
+        # captured in run() (prewarm), under the ledger when monitored
+        launches, dt, peak = counted_run(torch, registry,
+                                         lambda: pipe.chain.warm_scan(1, cap), pipe.run)
+        runs[monitored] = {"parts": parts, "launches": launches, "run_s": dt, "pipe": pipe,
+                           "peak": peak}
+    mon_run, off_run = runs[True], runs[False]
+    chain = mon_run["pipe"].chain
+    got_hist = event_time.read_hist(chain.states[-1].lat_hist)
+    want_hist = ysb_lateness_recount(np, event_time, total, BATCH)
+    # each chain's K-step graph replayed (the monitor finished: no sampled
+    # wait); the difference is what the lateness histogram costs a step
+    three = list(ysb.make_source(k * BATCH).batches(BATCH))
+    step_ms = {m: replay_ms(torch, r["pipe"].chain, three) for m, r in runs.items()}
+    hist_dev = torch.zeros(event_time.NB, dtype=torch.int32, device="cuda")
+    lane = torch.arange(BATCH, dtype=torch.int32, device="cuda")
+    ts_dev = lane // 10
+    wm_dev = ts_dev.max()
+    mask = lane % 3 == 0
+    upd = lambda: event_time.lateness_update(hist_dev, wm_dev, ts_dev, mask)  # noqa: E731
+    lat_eager_ms = time_ms(torch, upd)
+    lat_graph_ms = graph_ms(torch, upd)
+
+    out = os.path.join(MON_DIR, "ysb")
+    with open(os.path.join(out, "snapshot.json")) as f:
+        snap = json.load(f)
+    recs = journal.read_journal(os.path.join(out, "events.jsonl"))
+    dev = snap["health"]["devices"][0]
+    ledger = snap["health"]["compile"]
+    scans = [r for r in recs if r["event"] == "compile" and r["kind"] == "scan"]
+    sampled = [r for r in recs if r["event"] in ("launch", "dispatch_fused")]
+    artifacts = {n: os.path.getsize(os.path.join(out, n))
+                 for n in ("snapshot.json", "metrics.prom", "topology.json", "events.jsonl")}
+    flight, _meta = tracing.load_flight(os.path.join(out, "trace"))
+    row = {"phase": "monitoring_ysb", "card": card, "batches": YSB_BATCHES, "batch": BATCH,
+           "dispatch": k, "run_ms_per_batch": mon_run["run_s"] / YSB_BATCHES * 1e3,
+           "unmonitored_run_ms_per_batch": off_run["run_s"] / YSB_BATCHES * 1e3,
+           "captured_step_ms": step_ms[True], "unmonitored_captured_step_ms": step_ms[False],
+           "lateness_update_ms": lat_eager_ms, "lateness_update_graph_ms": lat_graph_ms,
+           "launches": mon_run["launches"], "unmonitored_launches": off_run["launches"],
+           "phase4_launches": ysb_launches, "lat_hist": got_hist,
+           "memory": dev, "ledger": ledger, "graphs": len(chain.graphs),
+           "scan_captures": len(scans), "sampled_records": len(sampled),
+           "flight_records": len(flight), "artifact_bytes": artifacts,
+           "device_time": snap["health"].get("device_time"),
+           "peak_mib": mon_run["peak"] / 2 ** 20,
+           "unmonitored_peak_mib": off_run["peak"] / 2 ** 20}
+    log(row)
+    for m, r in runs.items():
+        if flat_bytes(np, r["parts"]) != ysb_ref:
+            raise AssertionError(f"monitoring_ysb (monitored={m}): rows differ from phase 4's")
+        if r["launches"] != ysb_launches:
+            raise AssertionError(f"monitoring_ysb (monitored={m}): launches {r['launches']}, "
+                                 f"phase 4 {ysb_launches}")
+    if got_hist != want_hist:
+        raise AssertionError(f"monitoring_ysb: lat_hist {got_hist}, numpy {want_hist}")
+    if not (dev.get("bytes_in_use", 0) > 0 and dev.get("bytes_limit", 0) > 0
+            and dev["headroom_bytes"] == dev["bytes_limit"] - dev["bytes_in_use"]):
+        raise AssertionError(f"monitoring_ysb: memory gauges {dev}")
+    if (len(scans) != len(chain.graphs) or ledger["retraces_unexpected"]
+            or len({r["cache_key"] for r in scans}) != len(scans)):
+        raise AssertionError(f"monitoring_ysb: ledger {ledger}, {len(scans)} scan captures, "
+                             f"{len(chain.graphs)} graphs")
+    if not sampled or not all(artifacts.values()):
+        raise AssertionError(f"monitoring_ysb: artifacts {artifacts}, {len(sampled)} sampled")
+    if {r["tid"] for r in flight if r["kind"] == "ingest"} != {
+            tracing.mint_trace_id("ysb_source-pipeline", 0, p)
+            for p in range(0, YSB_BATCHES, MON_TRACE_SAMPLE)}:
+        raise AssertionError("monitoring_ysb: traced ids are not the sampled positions'")
+    del runs, mon_run, off_run, chain
+
+    # q5 over stragglers, unmonitored then monitored
+    qtotal = NEX_BATCHES * NEX_BATCH
+    q5 = {}
+    for monitored in (False, True):
+        out = os.path.join(MON_DIR, "q5")
+        _src, ops = make_query("q5_session", qtotal)
+        views = []
+        pipe = wt.Pipeline(late_bid_source(torch, wt, qtotal), ops,
+                           wt.Sink(lambda v: views.append(v) if v is not None else None),
+                           batch_size=NEX_BATCH,
+                           monitoring=(MonitoringConfig(out_dir=out, event_time=True,
+                                                        interval_s=60) if monitored else False))
+        launches, dt, _ = counted_run(torch, registry, lambda: None, pipe.run)
+        drops = ops[-1].drop_counters(pipe.chain.states[-1])
+        q5[monitored] = (flat_bytes(np, views), launches, dt, drops)
+    recs = journal.read_journal(os.path.join(MON_DIR, "q5", "events.jsonl"))
+    late = [r for r in recs if r["event"] == "lateness_drop"]
+    n_late = sum(r["n"] for r in late)
+    log({"phase": "monitoring_q5", "card": card, "batches": NEX_BATCHES, "batch": NEX_BATCH,
+         "rows_bytes_equal": q5[True][0] == q5[False][0], "drops": q5[True][3],
+         "lateness_drop_records": len(late), "lateness_drop_n": n_late,
+         "run_ms_per_batch": q5[True][2] / NEX_BATCHES * 1e3,
+         "unmonitored_run_ms_per_batch": q5[False][2] / NEX_BATCHES * 1e3,
+         "launches": q5[True][1], "unmonitored_launches": q5[False][1]})
+    if q5[True][0] != q5[False][0] or not q5[True][0]:
+        raise AssertionError("monitoring_q5: monitored rows differ from the unmonitored run's")
+    if q5[True][1] != q5[False][1]:
+        raise AssertionError("monitoring_q5: monitoring changed the launches")
+    if not (n_late == q5[True][3]["old_drops"] > 0):
+        raise AssertionError(f"monitoring_q5: lateness_drop n {n_late}, drops {q5[True][3]}")
+
+    # graph_windows, threaded, traced
+    out = os.path.join(MON_DIR, "graph_windows")
+    parts, cb = collect_sink()
+    g, _mp, merged = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE,
+                                   GW_BATCH, cb, trace=TraceConfig(out_dir=out))
+    t0 = time.perf_counter()
+    g.start(threaded=True)
+    g.wait_end()
+    torch.cuda.synchronize()
+    gw_s = time.perf_counter() - t0
+    flight, meta = tracing.load_flight(out)
+    chrome = json.loads(json.dumps(tracing.to_chrome_trace(flight, meta=meta)))
+    ids = {r["tid"] for r in flight if r["kind"] == "ingest"}
+    # every id crosses every ring (the source's, the three split rings, the
+    # two merge rings) and has one service span on every pipe but the
+    # merged one, whose Ordering_Node releases re-sliced batches (no id)
+    edges = [label for _p, _c, label, _i in g._iter_edges()]
+    spans = [g._trace_label(p) for p in g._all_pipes() if p is not merged]
+    bad = 0
+    for tid in ids:
+        kinds = [(r["stage"], r["kind"]) for r in flight if r["tid"] == tid]
+        bad += any(kinds.count((e, "enq")) != 1 or kinds.count((e, "deq")) != 1
+                   for e in edges) or any(
+            kinds.count((p, "begin")) != 1 or kinds.count((p, "end")) != 1 for p in spans)
+    log({"phase": "monitoring_graph_windows", "card": card, "tuples": GW_TOTAL,
+         "batch": GW_BATCH, "traced_ids": len(ids), "flight_records": len(flight),
+         "edges": edges, "span_stages": spans,
+         "chrome_events": len(chrome["traceEvents"]), "ids_off_path": bad, "run_s": gw_s})
+    if as_dict(np, parts) != gw_rows:
+        raise AssertionError("monitoring_graph_windows: windows differ from phase 17's")
+    if not ids or bad or meta["dropped"]:
+        raise AssertionError(f"monitoring_graph_windows: {bad} of {len(ids)} traced ids "
+                             f"miss a ring edge or a pipe span ({meta['dropped']} dropped)")
+
+    # supervised YSB, one fault, traced
+    out = os.path.join(MON_DIR, "supervised")
+    parts, cb = collect_sink()
+    sp = wt.SupervisedPipeline(
+        ysb.make_source(total), ysb.make_ops(**ysb.bench_geometry(BATCH)), wt.Sink(cb),
+        batch_size=BATCH, checkpoint_every=SUP_EVERY, trace=TraceConfig(out_dir=out),
+        faults=F.FaultPlan([F.FaultSpec("chain.step", where={"pos": 3}, max_fires=1)]),
+        **SUP_BACKOFF)
+    sp.run()
+    flight, _meta = tracing.load_flight(out)
+    aborted = [r for r in flight if r.get("aborted") == "restore"]
+    begins = sum(r["kind"] == "begin" for r in flight)
+    ends = sum(r["kind"] == "end" for r in flight)
+    log({"phase": "monitoring_supervised", "card": card, "restarts": sp.restarts,
+         "aborted_spans": len(aborted), "begins": begins, "ends": ends,
+         "rows_equal_phase4": flat_bytes(np, parts) == ysb_ref})
+    if flat_bytes(np, parts) != ysb_ref:
+        raise AssertionError("monitoring_supervised: rows differ from phase 4's")
+    if sp.restarts != 1 or len(aborted) != 1 or begins != ends:
+        raise AssertionError(f"monitoring_supervised: {sp.restarts} restarts, "
+                             f"{len(aborted)} aborted spans, {begins} begins, {ends} ends")
+    shutil.rmtree(MON_DIR, ignore_errors=True)
+    return row["launches"]
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4759,6 +5018,7 @@ def main() -> int:
     session_kernel_phase(torch)
     repair_checks(torch)
     main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
+    ysb_ref = flat_bytes(np, ysb_parts)
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,
                                       main_launches)
     sy_launches = supervised_ysb_phase(torch, np, wt, ysb, registry, card, ysb_parts)
@@ -4811,6 +5071,8 @@ def main() -> int:
     tiered_inputs_phase(torch, np, wt, card)
     fetch_row = cold_fetch_phase(torch, np, card)
     tq4_launches = tiered_q4_phase(torch, np, wt, registry, card)
+    mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
+                                    main_launches, gw_rows)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
@@ -4826,7 +5088,7 @@ def main() -> int:
              "tiered_queries": tqs_launches, "tiered_recovery": tr_launches,
              "tiered_rotating": trot_launches, "tiered_q4": tq4_launches,
              "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
-             "sharded_graph": shg_launches}
+             "sharded_graph": shg_launches, "monitoring_ysb": mon_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

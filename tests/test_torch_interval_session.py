@@ -364,7 +364,8 @@ def test_join_with_rejects_non_join_operator():
 def test_unported_options_raise(monkeypatch):
     """The interval join's tiered archive (item 13b) builds, by argument and
     by ``WF_STATE_TIERED``, as a tiered SessionWindow does; event-time
-    monitoring (item 16) still raises."""
+    monitoring builds q4 with a lateness histogram a side, and the SLO engine
+    (item 16b) raises by environment too."""
     assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)._tier_cfg \
         is not None
     assert wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
@@ -372,8 +373,12 @@ def test_unported_options_raise(monkeypatch):
     monkeypatch.setenv("WF_STATE_TIERED", "1")
     assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, **CPU)._tier_cfg is not None
     src, ops = tmake("q4_interval_join", 64, **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        wt.Pipeline(src, ops, batch_size=32, event_time=True, **CPU)
+    p = wt.Pipeline(src, ops, batch_size=32, event_time=True, **CPU)
+    st = next(st for st in p.chain.states if isinstance(st, dict) and "lat_l" in st)
+    assert st["lat_l"].shape == st["lat_r"].shape == (32,)
+    monkeypatch.setenv("WF_SLO", "1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
+        wt.observability.MonitoringConfig.resolve(True)
 
 
 # ------------------------------------------------------ convert mid-stream

@@ -48,7 +48,13 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.observability", "windflow_tpu_torch.observability.journal",
            "windflow_tpu_torch.state", "windflow_tpu_torch.state.host_store",
            "windflow_tpu_torch.state.tiered", "windflow_tpu_torch.ops.cold_probe",
-           "windflow_tpu_torch.benchmarks.tiered"]
+           "windflow_tpu_torch.benchmarks.tiered", "windflow_tpu_torch.control",
+           "windflow_tpu_torch.observability.event_time",
+           "windflow_tpu_torch.observability.tracing",
+           "windflow_tpu_torch.observability.device_health",
+           "windflow_tpu_torch.observability.metrics",
+           "windflow_tpu_torch.observability.reporter",
+           "windflow_tpu_torch.observability.topology"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -167,7 +173,8 @@ def test_nexmark_cpu_run_launches_no_kernel():
 def test_nexmark_unported_paths_raise(no_cuda):
     """Every query builds on the CPU and needs CUDA by default; tiered state
     builds, q4's interval join archive (item 13b) included, and event-time
-    monitoring (item 16) still raises."""
+    monitoring builds the operators with lateness histograms; the SLO
+    engine and profile-on-page (item 16b) raise."""
     from windflow_tpu_torch.nexmark import PORTED, QUERIES, make_query
     assert set(PORTED) == set(QUERIES)
     for q in ("q3_enrich_join", "q4_interval_join", "q5_session", "q6_topn",
@@ -177,11 +184,18 @@ def test_nexmark_unported_paths_raise(no_cuda):
             make_query(q, 100)
         make_query(q, 100, device="cpu")
     src, ops = make_query("q3_enrich_join", 100, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        wt.Pipeline(src, ops, batch_size=32, device="cpu", event_time=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, device="cpu",
-                         event_time=True)
+    p = wt.Pipeline(src, ops, batch_size=32, device="cpu", event_time=True)
+    p.run()
+    join = [st for st in p.chain.states if isinstance(st, dict) and "lat_hist" in st]
+    assert len(join) == 1 and int(join[0]["lat_hist"].sum()) > 0
+    src, ops = make_query("q3_enrich_join", 100, device="cpu")
+    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, device="cpu",
+                             event_time=True)
+    assert any(isinstance(st, dict) and "lat_hist" in st for st in chain.states)
+    for kw in ({"slo": True}, {"profile": True}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
+            wt.Pipeline(src, ops, batch_size=32, device="cpu",
+                        monitoring=wt.observability.MonitoringConfig(**kw)).run()
 
 
 def _pallas_functions():
@@ -248,8 +262,7 @@ UNPORTED_EXPORTS = {
     "ControlConfig": 15, "AdmissionController": 15, "TokenBucket": 15,
     "PositionBucket": 15, "BackpressureGovernor": 15, "CapacityAutotuner": 15,
     "Rebatcher": 15, "TuningCache": 15,
-    "MetricsRegistry": 16, "MonitoringConfig": 16, "Reporter": 16, "topology_dot": 16,
-    "topology_json": 16, "xprof_trace": 16,
+    "xprof_trace": "16b",
     "analysis": 18, "validate_graph": 18,
 }
 

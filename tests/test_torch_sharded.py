@@ -49,9 +49,7 @@ from windflow_tpu_torch.runtime.supervisor import RestartExhausted, _fresh_state
 
 CPU = {"device": "cpu"}
 TOTAL, K = 400, 4
-#: records only the JAX package writes, and the timing fields of a record
-JAX_ONLY_RECORDS = {"launch", "dispatch_fused", "lateness_drop"}
-TIMING = ("t", "wall", "dur_s")
+TIMING = ("t", "wall", "dur_s", "service_s")
 
 
 @pytest.fixture(autouse=True)
@@ -104,8 +102,6 @@ def journal_records(journal, path, pkg_dir=None):
     their order is not fixed in either package)."""
     out = []
     for r in journal.read_journal(path):
-        if r["event"] in JAX_ONLY_RECORDS:
-            continue
         r = {k: v for k, v in r.items() if k not in TIMING}
         if pkg_dir is not None and isinstance(r.get("path"), str):
             r["path"] = os.path.relpath(r["path"], pkg_dir)

@@ -11,6 +11,8 @@ a copy and a restore builds fresh tensors every time, and every unported
 supervision feature raises naming its ROADMAP item.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,11 +33,8 @@ from windflow_tpu_torch.runtime.supervisor import (RestartExhausted, SupervisedP
 CPU = {"device": "cpu"}
 TOTAL, K = 400, 4
 
-#: JAX-only journal records, left for ROADMAP Queue 1 item 16 (the sampled
-#: launch records ride the device-health ledger)
-JAX_ONLY_RECORDS = {"launch", "dispatch_fused", "lateness_drop"}
 #: timing fields of a record
-TIMING = ("t", "wall", "dur_s")
+TIMING = ("t", "wall", "dur_s", "service_s")
 
 
 @pytest.fixture(autouse=True)
@@ -263,14 +262,30 @@ def test_snapshot_copies_and_restore_rebuilds():
     ({}, {"WF_SHARDS": "2", "WF_RESHARD": "auto"}, 15),
     ({"control": True}, {}, 15), ({}, {"WF_CONTROL": "1"}, 15),
     ({"remediation": "barrier"}, {}, 15), ({}, {"WF_REMEDIATION": "1"}, 15),
-    ({"trace": True}, {}, 16),
-    ({}, {"WF_MONITORING": "1", "WF_MONITORING_EVENT_TIME": "1"}, 16),
+    ({"trace": True}, {}, None),
+    ({}, {"WF_MONITORING": "1", "WF_MONITORING_EVENT_TIME": "1"}, None),
 ])
-def test_unported_supervision_raises_by_name(monkeypatch, kw, env, item):
+def test_unported_supervision_raises_by_name(monkeypatch, tmp_path, kw, env, item):
+    """Item 15's options raise naming it; tracing and monitoring-driven event
+    time (item 16, ported) run and give the plain run's rows."""
+    monkeypatch.chdir(tmp_path)            # WF_MONITORING=1 / trace=True dirs
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        build(collect([]), **kw)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            build(collect([]), **kw)
+        return
+    got, want = [], []
+    sp = build(collect(got), **kw)
+    sp.run()
+    for k in env:
+        monkeypatch.delenv(k)
+    build(collect(want)).run()
+    assert sorted(got) == sorted(want) and got
+    if "trace" in kw:
+        assert os.path.exists(tmp_path / "wf_trace" / "flight.jsonl")
+    else:
+        assert sp.chain.event_time
 
 
 @pytest.mark.parametrize("kw, env", [
@@ -331,10 +346,9 @@ def view_bytes(views):
 
 
 def journal_records(path):
-    """The journal's records without their timing fields (and without the
-    JAX-only records)."""
+    """The journal's records without their timing fields."""
     return [{k: v for k, v in r.items() if k not in TIMING}
-            for r in tjournal.read_journal(path) if r["event"] not in JAX_ONLY_RECORDS]
+            for r in tjournal.read_journal(path)]
 
 
 def seeded_plan(seed: int, poison: bool) -> str:

@@ -21,6 +21,7 @@ launches, the hand-off's pass-through on the CPU, and the chains closed to
 captures while the stage threads run.
 """
 
+import os
 import sys
 import threading
 import time
@@ -221,12 +222,23 @@ def test_chains_refuse_captures_while_stage_threads_run():
         tp.chains[0]._graph(0, 3, 16)
 
 
-def test_unported_arguments_raise():
+@pytest.mark.parametrize("kw", [{"control": True}, {"monitoring": True},
+                                {"trace": True}])
+def test_unported_arguments_raise(kw, tmp_path):
+    """``control=`` raises naming item 15; ``monitoring=`` and ``trace=`` run
+    and write their artifacts."""
     src = Src(PORT, lambda i: {"v": i}, 8)
-    for kw, item in (({"control": True}, "15"), ({"monitoring": True}, "16"),
-                     ({"trace": True}, "16")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    if "control" in kw:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
             wt.ThreadedPipeline(src, [], None, device="cpu", **kw)
+    else:
+        out = str(tmp_path / "out")
+        tp = wt.ThreadedPipeline(src, [[Mp(PORT, lambda t: {"v": t.v + 1})]],
+                                 wt.Sink(lambda v: None, **CPU), batch_size=4, pin=False,
+                                 device="cpu", **{next(iter(kw)): out})
+        within_deadline(tp.run)
+        assert os.path.exists(os.path.join(
+            out, "snapshot.json" if "monitoring" in kw else "flight.jsonl"))
     from windflow_tpu_torch.runtime.faults import FaultPlan
     wt.ThreadedPipeline(src, [], None, device="cpu", faults=FaultPlan())  # ported
     with pytest.raises(RuntimeError, match="cuda"):

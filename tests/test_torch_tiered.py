@@ -583,9 +583,51 @@ def test_legacy_positional_checkpoint_refused_for_tiered_chain(tmp_path):
 
 # ------------------------------------------------------ journal and the bench
 
+def readmits_delayed_only(port, jax_recs):
+    """The JAX package's guarantee for the readmit records under any timing.
+
+    Its readmission counter moves on ``io_callback`` threads while a push
+    runs, and the controller journals the counter's growth at the next
+    maintenance point that sees it; the spill counter moves on the driving
+    thread, inside the maintenance point. So the JAX ``spill`` records are
+    fixed, while a ``readmit`` record may come one or more maintenance points
+    late, merged with the next one (``n`` 50 + 50 as one ``n`` 100) and after
+    a ``spill`` it preceded in an unhurried run. Observed on one CPU under
+    load, among other splits: ``... spill 853, readmit 612, spill 953,
+    readmit 662`` against the port's ``... spill 853, readmit 612, readmit
+    662, spill 953``. The port's controller counts readmissions on the
+    driving thread, so its records are the unhurried run's.
+
+    What holds under any timing: the same spill records in order, the same
+    final readmit total (so the same sum of ``n``), each JAX readmit total
+    one the port also journaled, and no JAX readmit record ahead of the
+    port's (preceded by at most as many spills)."""
+    def split(recs):
+        spills, readmits, n_spills = [], [], 0
+        for r in recs:
+            if r["event"] == "spill":
+                spills.append(r)
+                n_spills += 1
+            else:
+                readmits.append((r["total"], n_spills, r))
+        return spills, readmits
+    p_spills, p_readmits = split(port)
+    j_spills, j_readmits = split(jax_recs)
+    assert p_spills == j_spills
+    assert {r["table"] for _, _, r in p_readmits + j_readmits} == \
+        {r["table"] for r in p_spills}
+    assert p_readmits[-1][0] == j_readmits[-1][0]
+    assert sum(r["n"] for *_, r in p_readmits) == sum(r["n"] for *_, r in j_readmits)
+    spills_before = {total: before for total, before, _ in p_readmits}
+    for total, before, _ in j_readmits:
+        assert total in spills_before and before >= spills_before[total]
+
+
 def test_journal_spill_and_readmit_records_equal_jax(tmp_path):
-    """The ``spill``/``readmit`` records of a tiered run, record for record
-    (``t``/``wall`` aside), equal the JAX package's."""
+    """The ``spill``/``readmit`` records of a tiered run (``t``/``wall``
+    aside) against the JAX package's: the spill records equal, the readmit
+    records as the JAX package's timing allows
+    (:func:`readmits_delayed_only`)."""
     from windflow_tpu.observability import journal as jj
     recs = {}
     for pkg, (mod, path) in {"port": (wt.observability, tmp_path / "t.jsonl"),
@@ -603,7 +645,7 @@ def test_journal_spill_and_readmit_records_equal_jax(tmp_path):
         with open(path) as f:
             recs[pkg] = [{k: v for k, v in json.loads(line).items() if k not in ("t", "wall")}
                          for line in f if json.loads(line)["event"] in ("spill", "readmit")]
-    assert recs["port"] == recs["jax"]
+    readmits_delayed_only(recs["port"], recs["jax"])
     assert {r["event"] for r in recs["port"]} == {"spill", "readmit"}
 
 

@@ -9,7 +9,9 @@ H100, or as CUDA-graph replays of captured steps under scan dispatch
 a stage joined by the native SPSC rings (``native/``), each on a CUDA stream
 of its own. ``SupervisedPipeline`` and ``PipeGraph.run_supervised`` add
 aligned checkpoints, replay and exactly-once delivery on failure, journaled by
-the ``EventJournal``. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+the ``EventJournal``; ``monitoring=`` and ``trace=`` (``observability/``) add
+the metrics registry and reporter, event-time lateness histograms, batch
+tracing and the device-health ledger. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
@@ -38,7 +40,8 @@ from .runtime.checkpoint import CheckpointCorrupt, load_chain, save_chain
 from .runtime.faults import (DeadLetterQueue, FaultInjector, FaultPlan, FaultSpec,
                              InjectedFault, WatchdogTimeout)
 from .runtime.supervisor import RestartExhausted, SupervisedPipeline
-from .observability import EventJournal, read_journal
+from .observability import (EventJournal, MetricsRegistry, MonitoringConfig, Reporter,
+                            read_journal, topology_dot, topology_json)
 from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Builder,
                                KeyFarm_Builder, KeyFFAT_Builder, Map_Builder,
                                PaneFarm_Builder, ReduceSink_Builder, Sink_Builder,

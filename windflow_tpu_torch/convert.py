@@ -11,12 +11,14 @@ A Win_SeqFFAT state may come as any object with the attributes of the JAX
 package's ``GFFATState`` (``panes``, ``cnt``, ``wm``, ``next_win``,
 ``dropped_old``, ``lat_hist``; the global-time path) or ``FFATState``
 (:data:`FFAT_FIELDS` and ``lat_hist``; the per-key path), or as a dict with
-those keys. Its event-time lateness histogram (``lat_hist``) is not ported
-and must be None.
+those keys. Its event-time lateness histogram ``lat_hist`` (None unless the
+chain was built with event-time monitoring) converts with it.
 
 Every other state is a pytree of arrays and converts leaf by leaf: a
 KeyedMap's ``{"tbl": ..., "bad": ...}``, an Accumulator's ``[K, ...]``
-table, a ReduceSink's accumulator.
+table, a ReduceSink's accumulator, a join's or a session's dict (with its
+``lat_hist`` or ``lat_l``/``lat_r`` lateness histograms under event-time
+monitoring).
 
 A Win_Seq state (Win_Farm, Key_Farm, and the engine of Win_MapReduce) comes
 the same way with the fields of ``WinSeqState`` (:data:`WINSEQ_FIELDS`);
@@ -68,12 +70,11 @@ def state_from_numpy(op, state: Any, device=None) -> Any:
         return WinSeqState(arch_payload=tree_map(conv, _field(state, "arch_payload")),
                            **{f: conv(_field(state, f)) for f in WINSEQ_FIELDS[1:]})
     if isinstance(op, Win_SeqFFAT):
-        if _field(state, "lat_hist") is not None:
-            raise NotImplementedError(
-                "state_from_numpy: the event-time lateness histogram is not ported")
         cls, fields = _ffat(op)
+        lat = _field(state, "lat_hist")
         return cls(panes=tree_map(conv, _field(state, "panes")),
-                   **{f: conv(_field(state, f)) for f in fields[1:]})
+                   **{f: conv(_field(state, f)) for f in fields[1:]},
+                   lat_hist=None if lat is None else conv(lat))
     return tree_map(conv, state)
 
 
@@ -98,8 +99,11 @@ def state_to_numpy(op, state: Any) -> Any:
     if isinstance(op, Win_Seq):
         return {f: tree_map(host, getattr(state, f)) for f in WINSEQ_FIELDS}
     if isinstance(op, Win_SeqFFAT):
-        return {"panes": tree_map(host, state.panes),
-                **{f: host(getattr(state, f)) for f in _ffat(op)[1][1:]}}
+        out = {"panes": tree_map(host, state.panes),
+               **{f: host(getattr(state, f)) for f in _ffat(op)[1][1:]}}
+        if state.lat_hist is not None:
+            out["lat_hist"] = host(state.lat_hist)
+        return out
     return tree_map(host, state)
 
 

@@ -1,9 +1,9 @@
-"""Name registries the port's operators and benchmarks check against.
+"""Name registries the port's operators, drivers and exporters check against.
 
-The port's own copy of five registries of ``windflow_tpu/observability/
-names.py`` (that module imports no JAX, but the port imports nothing of the
-JAX package). Keep the tuples equal to the JAX package's:
-``tests/test_torch_package.py`` compares them.
+The port's own copy of the registries of ``windflow_tpu/observability/
+names.py`` that it emits (that module imports no JAX, but the port imports
+nothing of the JAX package). Keep the tuples equal to the JAX package's:
+``tests/test_torch_monitoring.py`` compares them.
 """
 
 #: per-stage counters an operator may bump through ``ops/lookup.py::
@@ -58,4 +58,44 @@ RECOVERY_COUNTERS = (
     "checkpoint_saves", "checkpoint_corrupt_skipped",
     "checkpoint_fallbacks",
     "recovery_seconds",
+)
+
+
+#: process-wide control counters (``control.py``; the snapshot's
+#: ``control`` section)
+CONTROL_COUNTERS = (
+    "admitted_batches", "admitted_tuples", "shed_batches", "shed_tuples",
+    "throttle_events", "throttle_seconds", "capacity_switches",
+    "tuning_decisions", "tuning_cache_hits",
+    # nexmark-class operator family (operators/session.py, operators/
+    # rank.py): sessions closed by the data-dependent triggerer, and
+    # leaderboard candidates evicted by the top-N rank merge
+    "sessions_closed", "topn_evictions",
+    # self-driving remediation (control/remediation.py): policy actions
+    # that fired an actuator, and actions held back (cooldown / budget /
+    # damping / unbound / gate / arbitration)
+    "remediation_actions", "remediation_skips",
+)
+
+#: per-operator and graph-level event-time gauges (``metrics.py``)
+EVENT_TIME_GAUGES = (
+    "watermark",           # operator event-time frontier (max ts applied)
+    "lag", "occupancy_pct", "pending_depth", "open_sessions",
+    "oldest_open_age", "archive_fill_pct",
+    "lateness_p50", "lateness_p99",        # lateness histogram quantiles
+    "min_watermark", "skew",               # graph frontier + per-edge skew
+)
+
+#: runtime-health gauges of the snapshot's ``health`` section (``metrics.py``)
+HEALTH_GAUGES = (
+    "hbm_headroom_bytes",      # per device: bytes_limit - bytes_in_use —
+    #                            THE eviction signal for tiered state
+    "hbm_bytes_in_use", "hbm_bytes_limit",
+    "live_buffer_bytes", "live_buffer_count",
+    "state_bytes",             # per operator: state-pytree footprint
+    "compiles", "retraces", "retraces_unexpected",  # compile ledger totals
+    "compile_seconds",
+    "device_ms", "dispatch_ms",                     # per stage label
+    "dispatch_ratio",          # host dispatch / device time — >= 0.5 names
+    #                            a fusion candidate (dispatch-bound edge)
 )

@@ -31,6 +31,12 @@ class Basic_Operator:
     #: outcome of ``MultiPipe.chain``: True fused, False fell back to add,
     #: None not chained (rendered by ``PipeGraph.dump_DOTGraph``)
     _chained = None
+    #: event-time monitoring (``MonitoringConfig.event_time``), set by
+    #: ``CompiledChain`` before ``bind_geometry``/``init_state``: when True a
+    #: stateful event-time operator carries a lateness histogram in its
+    #: state (``observability/event_time.py``) and updates it each batch;
+    #: False (the default) leaves state and launches as they were
+    _event_time = False
 
     def __init__(self, name: str, parallelism: int = 1, device=None):
         self._name = name
@@ -88,6 +94,20 @@ class Basic_Operator:
         """The counters last published (empty until the first
         ``collect_stats`` of an operator that publishes any)."""
         return dict(getattr(self, "_stage_counters", ()) or {})
+
+    def event_time_stats(self, state: Any = None) -> Optional[dict]:
+        """The event-time section of the operator's monitoring snapshot row
+        (watermark, state occupancy and pressure, lateness histograms), or
+        None for an operator without one. Read at snapshot time only (small
+        device-to-host reads of the state)."""
+        return None
+
+    def drop_counters(self, state: Any = None) -> dict:
+        """Host ints of the operator's device-resident drop counters, keyed by
+        their ``names.py::STAGE_COUNTERS`` names: the chain journals their
+        growth as ``lateness_drop`` records (event-time monitoring). Empty by
+        default."""
+        return {}
 
     def tier_controllers(self) -> tuple:
         """The operator's tiered-state controllers (``state/tiered.py``

@@ -1,8 +1,7 @@
 """Streaming joins: stream-table enrichment and the interval join.
 
-Counterpart of ``windflow_tpu/operators/join.py`` (untiered, event-time
-monitoring off). Both sides arrive merged in one stream; ``side_fn``
-separates them per tuple.
+Counterpart of ``windflow_tpu/operators/join.py``. Both sides arrive merged
+in one stream; ``side_fn`` separates them per tuple.
 
 - :class:`StreamTableJoin`: build-side tuples upsert into the versioned,
   watermark-consistent JoinTable of ``ops/lookup.py`` (last writer by
@@ -44,7 +43,11 @@ candidates come after the archive and the batch lanes, so the ``max_matches``
 truncation order is the JAX package's. Each cold row a batch fetches is
 counted once in ``state["readmits"]`` (deduplicated by tuple id).
 
-Not ported, and refused by name: event-time monitoring (item 16).
+Event-time monitoring (``_event_time``, set by the chain): a StreamTableJoin
+carries a build-side lateness histogram (``lat_hist``) and an IntervalJoin
+one a side (``lat_l``, ``lat_r``), each updated once a batch against the
+post-batch watermark; ``event_time_stats`` reads them with the table's or
+the archives' occupancy for the monitoring snapshot.
 """
 
 from __future__ import annotations
@@ -53,14 +56,16 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import control as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import (Batch, TupleRef, jax_unflatten, map_tuples, spec_of, tree_map,
                      vmap_lanes)
 from ..ops.lookup import (JOIN_KEY_SENTINEL, _plus_zero, _set_drop, count_drops,
                           join_table_init, join_table_probe, join_table_tier_evict,
                           join_table_tier_fallback, join_table_tier_init,
-                          join_table_tier_resolve, join_table_tier_touch,
-                          join_table_upsert)
+                          join_table_stats, join_table_tier_resolve,
+                          join_table_tier_stats, join_table_tier_touch, join_table_upsert)
+from ..observability import event_time as _et
 from ..ops.segment import segment_rank
 from ..ops.window_reduce import sum_dtype
 from ..state.tiered import ArchiveTier, JoinTableTier, TierConfig
@@ -115,6 +120,7 @@ class StreamTableJoin(Basic_Operator):
         self._tier_cfg = TierConfig.resolve(tiered)
         self._tier = None
         self._cap_resolved = None
+        self._version_synced = 0
 
     def bind_geometry(self, batch_capacity: int) -> None:
         self._cap_resolved = int(batch_capacity)
@@ -142,8 +148,13 @@ class StreamTableJoin(Basic_Operator):
         pending = self._pending_resolved or 2 * DEFAULT_MAX_KEYS
         vspec = self._val_spec(payload_spec)
         if self._tier_cfg is None:
-            return join_table_init(self.num_slots, pending, vspec, self.device)
+            state = join_table_init(self.num_slots, pending, vspec, self.device)
+            if self._event_time:
+                state["lat_hist"] = _et.lateness_init(device=self.device)
+            return state
         hot = int(self._tier_cfg.hot_capacity or self.num_slots)
+        # the hot capacity this run was built with (last write wins)
+        _control.set_gauge("hot_capacity", float(hot))
         # the per-batch admission bound: the resolve pass may readmit every
         # distinct batch key and every parked pending key, so the hot table
         # keeps that many slots free
@@ -153,6 +164,8 @@ class StreamTableJoin(Basic_Operator):
         state = join_table_tier_init(join_table_init(hot, pending, vspec, self.device),
                                      outbox, vspec)
         self._tier = JoinTableTier(self.name, vspec, self._tier_cfg, self.device)
+        if self._event_time:
+            state["lat_hist"] = _et.lateness_init(device=self.device)
         return state
 
     def tier_controllers(self):
@@ -182,6 +195,10 @@ class StreamTableJoin(Basic_Operator):
         # table diverts an upsert that finds no free slot to the outbox
         state = join_table_upsert(state, jkey, bval, batch.ts, batch.id, build,
                                   delay=self.delay, divert=tier is not None)
+        if self._event_time:
+            # build-side lateness vs the post-upsert watermark (state only)
+            state = dict(state, lat_hist=_et.lateness_update(
+                state["lat_hist"], state["wm"], batch.ts, build))
         vals, hit = join_table_probe(state, jkey, probe_mask)
         if tier is not None:
             # a probe that still misses reads the newest outbox entry of its
@@ -198,6 +215,49 @@ class StreamTableJoin(Basic_Operator):
         payload = self._emit_lanes(batch, vals)
         valid = probe_mask & (hit | self.emit_misses)
         return state, batch.replace(payload=payload, valid=valid)
+
+    def collect_stats(self, state: Any = None) -> None:
+        if state is None:
+            return
+        v = int(state["version"])
+        if v != self._version_synced:
+            self._version_synced = v
+            _control.set_gauge("join_table_version", float(v))
+        counters = {"join_table_version": v, "overflow_drops": int(state["dropped"])}
+        if self._tier is not None:
+            counters.update(tier_counters(state, self._tier))
+        self._publish_stage_counters(counters)
+
+    def drop_counters(self, state: Any = None) -> dict:
+        if state is None:
+            return {}
+        return {"overflow_drops": int(state["dropped"])}
+
+    def event_time_stats(self, state: Any = None):
+        """Watermark-map section: build watermark, applied version, table
+        occupancy, pending-ring pressure, the tier's numbers and the
+        build-side lateness histogram."""
+        if state is None:
+            return None
+        out = join_table_stats(state)
+        out["delay"] = self.delay
+        if self._tier is not None:
+            out["tier"] = {**join_table_tier_stats(state), **self._tier.controller.stats()}
+        counts = _et.read_hist(state.get("lat_hist"))
+        if counts is not None:
+            out["lateness"] = {"build": _et.summarize(counts)}
+        return out
+
+
+def tier_counters(state, tier) -> dict:
+    """Stage counters and gauges of one tiered keyed table: the device
+    movement counters and hot and cold occupancy."""
+    used_key = "used" if "used" in state else "hused"
+    return {"state_spills": int(state["spills"]),
+            "state_readmits": int(state["readmits"]),
+            "state_compactions": tier.controller.counters()["state_compactions"],
+            "tier_hot_used": int(state[used_key].sum()),
+            "tier_cold_keys": tier.store.key_count()}
 
 
 def _default_pair_emit(l: TupleRef, r: TupleRef):
@@ -337,6 +397,10 @@ class IntervalJoin(Basic_Operator):
                                        lambda wm: wm - self.delay - self.upper, dev)
             self._tier_r = ArchiveTier(self.name, payload_spec, self._tier_cfg, "r",
                                        lambda wm: wm - self.delay + self.lower, dev)
+        if self._event_time:
+            # per-side lateness histograms (event-time monitoring only)
+            state["lat_l"] = _et.lateness_init(device=dev)
+            state["lat_r"] = _et.lateness_init(device=dev)
         return state
 
     def tier_controllers(self):
@@ -577,6 +641,10 @@ class IntervalJoin(Basic_Operator):
                                     lrows[5] + rrows[5]),
             arch_drops=count_drops(state["arch_drops"], "arch_drops", odl + odr))
         new_state.update(tier_upd)
+        if self._event_time:
+            # per-stream lateness vs the post-batch watermark (state only)
+            new_state["lat_l"] = _et.lateness_update(state["lat_l"], wm, ets, lmask)
+            new_state["lat_r"] = _et.lateness_update(state["lat_r"], wm, ets, rmask)
         return new_state, out
 
     def collect_stats(self, state: Any = None) -> None:
@@ -599,6 +667,47 @@ class IntervalJoin(Basic_Operator):
             return {}
         return {"match_drops": int(state["match_drops"]),
                 "arch_drops": int(state["arch_drops"])}
+
+    def event_time_stats(self, state: Any = None):
+        """Watermark-map section: each side's archive fill, the eviction
+        frontiers, the drops, the tiers' numbers and the per-stream lateness
+        histograms."""
+        if state is None:
+            return None
+        A = int(state["l"]["key"].shape[0])
+        lfill = int(state["l"]["ok"].sum())
+        rfill = int(state["r"]["ok"].sum())
+        wm = int(state["wm"])
+        horizon = wm - self.delay
+        out = {
+            "watermark_ts": wm,
+            "delay": self.delay,
+            "archive_slots": A,
+            "l_fill": lfill, "r_fill": rfill,
+            "l_fill_pct": round(100.0 * lfill / A, 2),
+            "r_fill_pct": round(100.0 * rfill / A, 2),
+            "evict_frontier_l_ts": horizon - self.upper,
+            "evict_frontier_r_ts": horizon + self.lower,
+            "match_drops": int(state["match_drops"]),
+            "arch_drops": int(state["arch_drops"]),
+        }
+        if self._tier_l is not None:
+            stores = (self._tier_l.store, self._tier_r.store)
+            out["tier"] = {
+                "outbox_depth": int(state["locnt"]) + int(state["rocnt"]),
+                "state_spills": int(state["spills"]),
+                "state_readmits": int(state["readmits"]),
+                "l_cold_rows": len(stores[0]), "r_cold_rows": len(stores[1]),
+                "state_compactions": sum(st.counters()["state_compactions"]
+                                         for st in stores)}
+        lat = {}
+        for stream, key in (("l", "lat_l"), ("r", "lat_r")):
+            counts = _et.read_hist(state.get(key))
+            if counts is not None:
+                lat[stream] = _et.summarize(counts)
+        if lat:
+            out["lateness"] = lat
+        return out
 
 
 __all__ = ["IntervalJoin", "StreamTableJoin"]

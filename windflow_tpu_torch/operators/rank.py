@@ -28,17 +28,18 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import control as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, map_tuples
 from ..ops.bitonic import sort_network
 from ..ops.lookup import (_isum, _set_drop, count_drops, join_table_init,
                           join_table_probe, join_table_tier_evict, join_table_tier_init,
-                          join_table_tier_resolve, join_table_tier_touch,
-                          join_table_upsert)
+                          join_table_stats, join_table_tier_resolve,
+                          join_table_tier_stats, join_table_tier_touch, join_table_upsert)
 from ..ops.segment import segment_rank
 from ..state.tiered import (JoinTableTier, SlotTableTier, TierConfig, TieredTable,
                             slot_directory_evict, slot_directory_init,
-                            slot_directory_resolve)
+                            slot_directory_resolve, slot_directory_stats)
 from .base import Basic_Operator
 
 #: empty-slot score: sorts after every real candidate under the negated key
@@ -71,6 +72,7 @@ class TopN(Basic_Operator):
         self._tier_cfg = TierConfig.resolve(tiered)
         self._tier = None
         self._cap_resolved = None
+        self._evict_synced = 0
         self._slots = (int(self._tier_cfg.hot_capacity or num_keys)
                        if self._tier_cfg is not None else self.num_keys)
 
@@ -110,6 +112,40 @@ class TopN(Basic_Operator):
 
     def tier_controllers(self):
         return (self._tier.controller,) if self._tier is not None else ()
+
+    def collect_stats(self, state: Any = None) -> None:
+        if state is None:
+            return
+        ev = int(state["evict"])
+        if ev > self._evict_synced:
+            _control.bump("topn_evictions", ev - self._evict_synced)
+            self._evict_synced = ev
+        counters = {"topn_evictions": ev}
+        if self._tier is not None:
+            from .join import tier_counters
+            counters.update(tier_counters(state, self._tier))
+            counters["overflow_drops"] = int(state["ovf"])
+        self._publish_stage_counters(counters)
+
+    def drop_counters(self, state: Any = None) -> dict:
+        if state is None or self._tier is None:
+            return {}
+        return {"overflow_drops": int(state["ovf"])}
+
+    def event_time_stats(self, state: Any = None):
+        """Watermark-map section: leaderboard fill and eviction pressure
+        (TopN ranks scores, it has no event-time frontier)."""
+        if state is None:
+            return None
+        filled = int((state["score"] != TOPN_SENTINEL).sum())
+        slots = self._slots * self.n
+        out = {"leaderboard_slots": slots, "leaderboard_filled": filled,
+               "occupancy_pct": round(100.0 * filled / slots, 2),
+               "topn_evictions": int(state["evict"])}
+        if self._tier is not None:
+            out["tier"] = {**slot_directory_stats(state), **self._tier.controller.stats()}
+            out["overflow_drops"] = int(state["ovf"])
+        return out
 
     def _merge(self, state, keymat, scores, ids):
         """Merge ``[K, C]`` candidates into the ``[K, N]`` leaderboard through
@@ -282,6 +318,7 @@ class Distinct(Basic_Operator):
         if self._tier_cfg is None:
             return join_table_init(self.num_slots, pending, vspec, self.device)
         hot = int(self._tier_cfg.hot_capacity or self.num_slots)
+        _control.set_gauge("hot_capacity", float(hot))
         # a delay-0 table empties its ring every batch: one batch of distinct
         # values is the per-batch admission bound
         self._hot_target = max(1, hot - pending)
@@ -293,6 +330,31 @@ class Distinct(Basic_Operator):
 
     def tier_controllers(self):
         return (self._tier.controller,) if self._tier is not None else ()
+
+    def collect_stats(self, state: Any = None) -> None:
+        if state is None:
+            return
+        counters = dict(self.drop_counters(state))
+        if self._tier is not None:
+            from .join import tier_counters
+            counters.update(tier_counters(state, self._tier))
+        self._publish_stage_counters(counters)
+
+    def drop_counters(self, state: Any = None) -> dict:
+        if state is None:
+            return {}
+        return {"overflow_drops": int(state["dropped"])}
+
+    def event_time_stats(self, state: Any = None):
+        """Watermark-map section: distinct-table occupancy and overflow drops
+        (the delay-0 JoinTable underneath)."""
+        if state is None:
+            return None
+        out = join_table_stats(state)
+        out["delay"] = 0
+        if self._tier is not None:
+            out["tier"] = {**join_table_tier_stats(state), **self._tier.controller.stats()}
+        return out
 
     def apply(self, state, batch: Batch):
         dk = map_tuples(self.value_fn, batch).to(_I32)

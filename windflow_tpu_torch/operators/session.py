@@ -34,10 +34,11 @@ keys' floors and session ordinals spill to the host store, and the
 watermark retires floors no admissible arrival can be OLD against (``floor +
 gap < wm - delay``, the compaction bound).
 
-Not ported, and refused by name: the event-time lateness histogram (ROADMAP
-Queue 1 item 16). The process-wide
-``sessions_closed`` control counter waits for the control plane (item 15);
-``collect_stats`` keeps the OLD drops in the Stats_Record.
+Event-time monitoring (``_event_time``, set by the chain): the state carries
+an arrival-lateness histogram (``lat_hist``) updated once a batch against the
+post-batch watermark. ``collect_stats`` keeps the OLD drops in the
+Stats_Record, publishes the stage counters and bumps the process-wide
+``sessions_closed`` control counter, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,12 +48,15 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import control as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, map_tuples, spec_of, tree_map
+from ..observability import event_time as _et
 from ..ops.lookup import _isum, _lexsort, _set_drop, count_drops, table_lookup
 from ..ops.segment import segment_reduce
 from ..state.tiered import (SlotTableTier, TierConfig, slot_directory_evict,
-                            slot_directory_init, slot_directory_resolve)
+                            slot_directory_init, slot_directory_resolve,
+                            slot_directory_stats)
 from .base import Basic_Operator
 from .window import WindowSpec
 
@@ -93,6 +97,7 @@ class SessionWindow(Basic_Operator):
         self._cap: Optional[int] = None
         self._tier_cfg = TierConfig.resolve(tiered)
         self._tier = None
+        self._closed_synced = 0
         self._slots = (int(self._tier_cfg.hot_capacity or num_keys)
                        if self._tier_cfg is not None else self.num_keys)
 
@@ -122,6 +127,9 @@ class SessionWindow(Basic_Operator):
                  "start": z(), "last": z(), "cnt": z(), "sid": z(),
                  "acc": acc, "floor": z(_IMIN),
                  "wm": s(_IMIN), "closed": s(0), "old": s(0), "eos": s(0)}
+        if self._event_time:
+            # arrival-lateness histogram (event-time monitoring only)
+            state["lat_hist"] = _et.lateness_init(device=dev)
         if self._tier_cfg is None:
             return state
         cap = self._cap or DEFAULT_MAX_KEYS
@@ -289,6 +297,10 @@ class SessionWindow(Basic_Operator):
             floor=floor3, wm=wm2,
             closed=state["closed"] + _isum(g1) + _isum(g2) + _isum(g3),
             old=count_drops(state["old"], "old_drops", _isum(old)))
+        if self._event_time:
+            # arrival lateness vs the post-batch watermark (state only)
+            new_state["lat_hist"] = _et.lateness_update(state["lat_hist"], wm2, batch.ts,
+                                                        batch.valid)
         return new_state, out
 
     def _emit_rows(self, C, K, g1, g2, g3):
@@ -333,12 +345,57 @@ class SessionWindow(Basic_Operator):
     def collect_stats(self, state: Any = None) -> None:
         if state is None:
             return
-        self._stats[0].tuples_dropped_old = int(state["old"])
+        old = int(state["old"])
+        self._stats[0].tuples_dropped_old = old
+        closed = int(state["closed"])
+        if closed > self._closed_synced:
+            _control.bump("sessions_closed", closed - self._closed_synced)
+            self._closed_synced = closed
+        counters = {"sessions_closed": closed, "old_drops": old}
+        if self._tier is not None:
+            from .join import tier_counters
+            counters.update(tier_counters(state, self._tier))
+            counters["overflow_drops"] = int(state["ovf"])
+        self._publish_stage_counters(counters)
 
     def drop_counters(self, state: Any = None) -> dict:
         if state is None:
             return {}
-        return {"old_drops": int(state["old"])}
+        out = {"old_drops": int(state["old"])}
+        if self._tier is not None:
+            out["overflow_drops"] = int(state["ovf"])
+        return out
+
+    def event_time_stats(self, state: Any = None):
+        """Watermark-map section: open-session pressure (count and the
+        oldest open session's age against the watermark), close and drop
+        totals, the tier's numbers and the arrival-lateness histogram."""
+        if state is None:
+            return None
+        wm = int(state["wm"])
+        open_mask = state["open"].cpu()
+        n_open = int(open_mask.sum())
+        out = {
+            "watermark_ts": wm,
+            "gap": self.spec.gap,
+            "delay": self.spec.delay,
+            "open_sessions": n_open,
+            "key_slots": self._slots,
+            "occupancy_pct": round(100.0 * n_open / self._slots, 2),
+            "sessions_closed": int(state["closed"]),
+            "old_drops": int(state["old"]),
+        }
+        if self._tier is not None:
+            out["tier"] = {**slot_directory_stats(state), **self._tier.controller.stats()}
+            out["overflow_drops"] = int(state["ovf"])
+        if n_open:
+            # how much event time the watermark has advanced past the first
+            # event of the longest-open session
+            out["oldest_open_age"] = max(0, wm - int(state["start"].cpu()[open_mask].min()))
+        counts = _et.read_hist(state.get("lat_hist"))
+        if counts is not None:
+            out["lateness"] = {"in": _et.summarize(counts)}
+        return out
 
 
 __all__ = ["SessionWindow"]

@@ -45,6 +45,7 @@ import torch
 from ..basic import routing_modes_t, DEFAULT_MAX_KEYS
 from ..batch import (Batch, CTRL_DTYPE, TupleRef, map_tuples, spec_of, tree_leaves,
                      tree_map)
+from ..observability import event_time as _et
 from ..ops.histogram import keyed_pane_histogram
 from ..ops.lookup import table_lookup
 from ..ops.segment import (as_identity, identity_full, segment_rank, segment_reduce,
@@ -64,6 +65,7 @@ class FFATState:
     wm: torch.Tensor           # i32[K] per-key max ts
     next_win: torch.Tensor     # i32[K] next window id to fire, per key
     dropped_old: torch.Tensor  # i32[] tuples dropped as OLD (TB stragglers)
+    lat_hist: Any = None       # i32[NB] lateness histogram (event time, TB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +77,7 @@ class GFFATState:
     wm: torch.Tensor           # i32[] global max ts seen
     next_win: torch.Tensor     # i32[] next window id to fire (global)
     dropped_old: torch.Tensor  # i32[] tuples dropped as OLD (pane < fired horizon)
+    lat_hist: Any = None       # i32[NB] lateness histogram (event time)
 
 
 class Win_SeqFFAT(Basic_Operator):
@@ -136,18 +139,23 @@ class Win_SeqFFAT(Basic_Operator):
         K, P, dev = self.num_keys, self.P, self.device
         panes = tree_map(lambda s: self._ident(s.dtype, (K, P) + tuple(s.shape)),
                          self._lift_spec(payload_spec))
+        # lateness histogram: event-time monitoring on TB specs only (a CB
+        # window has no event-time frontier); None is absent from the state
+        lat = (_et.lateness_init(device=dev)
+               if self._event_time and not self.spec.is_cb else None)
         if not self.global_time:
             keyed = lambda v: torch.full((K,), v, dtype=CTRL_DTYPE, device=dev)  # noqa: E731
             return FFATState(
                 panes=panes, pane_count=torch.zeros((K, P), dtype=CTRL_DTYPE, device=dev),
                 pane_of=torch.full((K, P), -1, dtype=CTRL_DTYPE, device=dev),
                 count=keyed(0), wm=keyed(-1), next_win=keyed(0),
-                dropped_old=torch.zeros((), dtype=CTRL_DTYPE, device=dev))
+                dropped_old=torch.zeros((), dtype=CTRL_DTYPE, device=dev), lat_hist=lat)
         if self.count_lift is None:
             self.count_lift = _detect_count_lift(self.lift, payload_spec)
         scalar = lambda v: torch.tensor(v, dtype=CTRL_DTYPE, device=dev)  # noqa: E731
         return GFFATState(panes=panes, cnt=torch.zeros((K, P), dtype=CTRL_DTYPE, device=dev),
-                          wm=scalar(-1), next_win=scalar(0), dropped_old=scalar(0))
+                          wm=scalar(-1), next_win=scalar(0), dropped_old=scalar(0),
+                          lat_hist=lat)
 
     def out_spec(self, payload_spec: Any) -> Any:
         return self._lift_spec(payload_spec)
@@ -177,10 +185,14 @@ class Win_SeqFFAT(Basic_Operator):
                 lambda t, u: comb(t, u.reshape((K, P) + tuple(u.shape[1:]))),
                 state.panes, upd)
         ts_max = torch.where(batch.valid, batch.ts, -1).max()
+        wm_new = torch.maximum(state.wm, ts_max)
+        lat = state.lat_hist
+        if lat is not None:
+            # observed lateness vs the post-batch global watermark
+            lat = _et.lateness_update(lat, wm_new, batch.ts, batch.valid)
         return dataclasses.replace(
-            state, panes=panes, cnt=state.cnt + cnt_upd,
-            wm=torch.maximum(state.wm, ts_max),
-            dropped_old=state.dropped_old + n_dropped)
+            state, panes=panes, cnt=state.cnt + cnt_upd, wm=wm_new,
+            dropped_old=state.dropped_old + n_dropped, lat_hist=lat)
 
     def _g_emit(self, state: GFFATState, W_n: int, flush: bool):
         """Grid emission of the fired windows ``[lo, hi)``, at most ``W_n``.
@@ -281,12 +293,17 @@ class Win_SeqFFAT(Basic_Operator):
         counts_add = segment_reduce(ones, batch.key, valid, K)
         ts_max = segment_reduce(batch.ts, batch.key, valid, K, combine=torch.maximum,
                                 identity=-1)
+        wm_new = torch.maximum(state.wm, ts_max)
+        lat = state.lat_hist
+        if lat is not None:
+            # per-key TB path: lateness vs the largest per-key watermark (the
+            # cross-key skew measure)
+            lat = _et.lateness_update(lat, wm_new.max(), batch.ts, batch.valid)
         return dataclasses.replace(
             state, panes=tree_map(fold, state.panes, upd),
             pane_count=torch.where(fresh, 0, state.pane_count) + cnt_upd,
-            pane_of=new_pane_of, count=state.count + counts_add,
-            wm=torch.maximum(state.wm, ts_max),
-            dropped_old=state.dropped_old + n_dropped)
+            pane_of=new_pane_of, count=state.count + counts_add, wm=wm_new,
+            dropped_old=state.dropped_old + n_dropped, lat_hist=lat)
 
     def _emit(self, state: FFATState, W: int, flush: bool):
         """The fired windows of every key, packed into ``W`` output rows: key
@@ -376,10 +393,39 @@ class Win_SeqFFAT(Basic_Operator):
         return state, out
 
     def collect_stats(self, state=None) -> None:
-        """Sync the device-resident OLD-drop counter into the Stats_Record."""
+        """Sync the device-resident OLD-drop counter into the Stats_Record and
+        the stage counters."""
         if state is None or not hasattr(state, "dropped_old"):
             return
-        self._stats[0].tuples_dropped_old = int(state.dropped_old)
+        old = int(state.dropped_old)
+        self._stats[0].tuples_dropped_old = old
+        self._publish_stage_counters({"old_drops": old})
+
+    def drop_counters(self, state=None) -> dict:
+        if state is None or not hasattr(state, "dropped_old"):
+            return {}
+        return {"old_drops": int(state.dropped_old)}
+
+    def event_time_stats(self, state=None):
+        """Watermark-map section (TB specs): the frontier, the fired-window
+        horizon, the arrived-but-unfired lag, OLD drops and the lateness
+        histogram, whose ``recommend_delay`` names the smallest ``delay=``
+        that would have kept the recorded stragglers."""
+        if state is None or self.spec.is_cb:
+            return None
+        wm = int(state.wm.max())
+        frontier = int(state.next_win.max()) * self.spec.slide
+        out = {
+            "watermark_ts": wm,
+            "fire_frontier_ts": frontier,
+            "lag": max(wm - frontier + 1, 0) if wm >= 0 else 0,
+            "delay": self.spec.delay,
+            "old_drops": int(state.dropped_old),
+        }
+        counts = _et.read_hist(getattr(state, "lat_hist", None))
+        if counts is not None:
+            out["lateness"] = {"in": _et.summarize(counts)}
+        return out
 
 
 def _detect_count_lift(lift, payload_spec) -> bool:

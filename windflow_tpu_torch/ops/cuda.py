@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..observability import device_health as _dh
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,6 +108,9 @@ def function(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _fns[(stem, symbol)] = fn
+            # the health ledger's kernel_resolve record: a hand kernel's
+            # entry point bound (built first if needed) for the first time
+            _dh.note_kernel_resolve(stem, symbol, "cuda", device="cuda")
     return fn
 
 

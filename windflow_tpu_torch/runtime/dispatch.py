@@ -22,14 +22,14 @@ The pieces here are host-side:
   partial group exists only at EOS (``drain``) or at a capacity switch.
 - :class:`GroupRunner`: one driver's loop over a chain, feeding the
   accumulator and running each group with :func:`fused_push`.
-- :func:`fused_push` and :func:`build_k_ladder`.
+- :func:`fused_push` (with the per-batch trace spans it synthesizes from the
+  one launch) and :func:`build_k_ladder`.
 
-Not ported, and stated rather than stubbed: the control plane's
-``dispatch_linger_depth`` gauge and the K tuner that rides its autotuner
-(``control/``, ROADMAP Queue 1 item 15), and the per-batch trace spans that
-``fused_push`` synthesizes from the one launch (``observability/tracing``,
-item 16). :func:`refuse_k_tuner` raises where the JAX package would start
-the tuner.
+The single-threaded drivers' accumulators publish the
+``dispatch_linger_depth`` control gauge. Not ported, and stated rather than
+stubbed: the K tuner that rides the control plane's autotuner (ROADMAP
+Queue 1 item 15); :func:`refuse_k_tuner` raises where the JAX package would
+start it.
 
 K = 1 is the degenerate pass-through: every group has one batch and the
 drivers call ``push`` unchanged.
@@ -42,6 +42,9 @@ import json
 import os
 import time
 from typing import List, Optional, Union
+
+from .. import control as _control
+from ..observability import tracing as _tracing
 
 
 @dataclasses.dataclass
@@ -125,10 +128,19 @@ def refuse_k_tuner(cfg: DispatchConfig) -> None:
             "dispatch={'k': K, 'autotune_k': False}")
 
 
-def fused_push(chain, group: List) -> List:
+def fused_push(chain, group: List, label: str) -> List:
     """Run one dispatch group through ``chain``: ``push_many`` for K > 1, the
-    per-batch ``push`` for a singleton. Outputs return in batch order."""
-    return chain.push_many(group) if len(group) > 1 else [chain.push(group[0])]
+    per-batch ``push`` for a singleton. Outputs return in batch order. A
+    traced batch gets a service span on stage ``label``; under K > 1 each
+    span carries ``k`` so the trace report divides the one launch among the
+    group's members."""
+    spans = [_tracing.service(b, label, k=len(group)) for b in group]
+    outs = chain.push_many(group) if len(group) > 1 else [chain.push(group[0])]
+    for b, out, span in zip(group, outs, spans):
+        if span is not None:
+            span.done()
+            _tracing.carry(b, out)
+    return outs
 
 
 def build_k_ladder(k_max: int) -> List[int]:
@@ -155,10 +167,16 @@ class MicrobatchAccumulator:
     dropped batches). ``set_k`` takes effect at the next group boundary.
     One thread owns an accumulator: its buffer is not locked."""
 
-    def __init__(self, k: int, linger_s: float = 0.0, clock=time.monotonic):
+    def __init__(self, k: int, linger_s: float = 0.0, clock=time.monotonic,
+                 publish_gauge: bool = True):
         self.k = max(1, int(k))
         self.linger_s = float(linger_s)
         self.clock = clock
+        #: whether this accumulator publishes the process-wide
+        #: ``dispatch_linger_depth`` gauge: the single-threaded drivers' do,
+        #: the threaded drivers' per-stage ones do not (N threads on one
+        #: gauge would show a random thread's depth)
+        self.publish_gauge = bool(publish_gauge)
         self._buf: List = []
         self._t0: Optional[float] = None
 
@@ -172,6 +190,8 @@ class MicrobatchAccumulator:
     def _take(self) -> List:
         group, self._buf = self._buf, []
         self._t0 = None
+        if self.publish_gauge:
+            _control.set_gauge("dispatch_linger_depth", 0)
         return group
 
     def feed(self, batch) -> List[List]:
@@ -184,6 +204,8 @@ class MicrobatchAccumulator:
         self._buf.append(batch)
         if self._t0 is None:
             self._t0 = self.clock()
+        if self.publish_gauge:
+            _control.set_gauge("dispatch_linger_depth", len(self._buf))
         if len(self._buf) >= self.k:
             out.append(self._take())
         return out
@@ -205,6 +227,8 @@ class MicrobatchAccumulator:
         """Restore: drop buffered batches (replay re-feeds them)."""
         self._buf = []
         self._t0 = None
+        if self.publish_gauge:
+            _control.set_gauge("dispatch_linger_depth", 0)
 
 
 class GroupRunner:
@@ -214,17 +238,19 @@ class GroupRunner:
     batch of another capacity runs eagerly after the group in hand, because
     no graph of its shape was captured. ``emit(out)`` takes each output in
     order. A chain without operators (a pipe that only splits or merges)
-    passes each batch on alone."""
+    passes each batch on alone. Trace spans go on stage ``chain.label``;
+    ``publish_gauge`` is the accumulator's."""
 
-    def __init__(self, chain, cfg: Optional[DispatchConfig], emit):
+    def __init__(self, chain, cfg: Optional[DispatchConfig], emit,
+                 publish_gauge: bool = True):
         self.chain = chain
         self.emit = emit
-        self.acc = (MicrobatchAccumulator(cfg.k, cfg.linger_s)
+        self.acc = (MicrobatchAccumulator(cfg.k, cfg.linger_s, publish_gauge=publish_gauge)
                     if cfg is not None and cfg.k > 1 and chain.ops else None)
 
     def _run(self, group) -> None:
         if group:
-            for out in fused_push(self.chain, group):
+            for out in fused_push(self.chain, group, self.chain.label):
                 self.emit(out)
 
     def feed(self, batch) -> None:

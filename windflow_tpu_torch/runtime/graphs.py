@@ -27,7 +27,9 @@ so one host call launches every kernel of the step.
 - **Threads.** A capture runs in global capture mode and synchronizes the
   device on entry: the threaded drivers make every capture before their
   stage threads start (``runtime/threaded.py``), and a stage thread only
-  replays.
+  replays. A capture holds :data:`CAPTURE_LOCK`, which the monitoring
+  reporter takes around its device reads (``observability/metrics.py``),
+  so a snapshot never synchronizes inside another thread's capture.
 
 What a capture needs beforehand, and the caller's part: every kernel of the
 step built and loaded, and the one-time settings made at a kernel's first
@@ -54,6 +56,7 @@ version of a replay, as a kernel's plain version is.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -141,6 +144,10 @@ def _load(static: List[Any], given: List[Any], what: str) -> None:
                              f"{s!r}; a captured step cannot carry it")
 
 
+#: held by every capture (see the module docstring, **Threads**)
+CAPTURE_LOCK = threading.RLock()
+
+
 class StepGraph:
     """``fn(states, inputs) -> (states, outs)`` captured once on the card.
 
@@ -154,7 +161,7 @@ class StepGraph:
         self._static = leaves(states)
         self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
-        with registry.collect() as counted, torch.cuda.graph(self.graph):
+        with CAPTURE_LOCK, registry.collect() as counted, torch.cuda.graph(self.graph):
             new_states, outs = fn(rebuild(states, self._static), inputs)
             _load(self._static, leaves(new_states), "captured step's new state")
         self._outs = outs

@@ -46,14 +46,20 @@ delivery on every sink (``runtime/supervisor.py``); with ``shards=`` (or
 explicit ``reshard=`` plan and ``shard_key=``.
 
 The EOS records of the JAX drivers are journaled (``eos_flush`` a pipe in
-the serial driver's EOS flush, ``eos_propagate`` a pipe thread's end). Not
-ported: ``monitoring=`` and ``trace=`` (ROADMAP Queue 1 item 16),
-``control=`` (item 15).
+the serial driver's EOS flush, ``eos_propagate`` a pipe thread's end).
+``monitoring=`` and ``trace=`` (None consults ``WF_MONITORING`` /
+``WF_TRACE``) run a ``Monitor`` (registry over the graph, a depth gauge a
+ring under the threaded driver, topology dumps at the end) and a ``Tracer``
+from :meth:`PipeGraph.start`; trace ids are minted per root stream and
+offered position, each pipe's chain is the stage ``pipe<i>``, and the
+monitoring argument's event-time toggle builds the chains. ``control=`` is
+refused by name (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional
 
 import torch
@@ -62,18 +68,14 @@ from ..basic import DEFAULT_BATCH_SIZE, Mode, ordering_mode_t, routing_modes_t
 from ..batch import Batch, map_tuples, tree_map
 from ..device import resolve_device
 from ..observability import journal as _journal
+from ..observability import tracing as _tracing
 from ..operators.base import Basic_Operator
 from ..operators.sink import Sink
 from ..operators.source import SourceBase
 from ..parallel.emitters import split_masks
 from . import dispatch as _dispatch
-from .pipeline import CompiledChain, record_source_launch, resolve_batch_hint
-
-
-def _refuse(arg, what: str, item: str) -> None:
-    if arg is not None:
-        raise NotImplementedError(f"PipeGraph({what}=...) is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
+from .pipeline import (CompiledChain, record_source_launch, refuse_control,
+                       resolve_batch_hint)
 
 
 def _spec_sig(spec):
@@ -272,9 +274,13 @@ class MultiPipe:
 
     def _compile(self, batch_capacity: int) -> CompiledChain:
         if self._chain is None:
-            self._chain = CompiledChain(self.ops, self._in_payload_spec(),
-                                        batch_capacity=batch_capacity,
-                                        device=self.graph.device)
+            from ..observability import event_time_enabled
+            self._chain = CompiledChain(
+                self.ops, self._in_payload_spec(), batch_capacity=batch_capacity,
+                device=self.graph.device,
+                event_time=event_time_enabled(self.graph._monitoring_arg))
+            # the health ledger's and the flight recorder's stage label
+            self._chain.label = self.graph._trace_label(self)
         return self._chain
 
 
@@ -285,9 +291,15 @@ class PipeGraph:
     def __init__(self, name: str = "pipegraph", mode: Mode = Mode.DEFAULT,
                  batch_size: int = None, monitoring=None, control=None,
                  trace=None, dispatch=None, device=None, queue_capacity=8):
-        _refuse(monitoring, "monitoring", "16")
-        _refuse(trace, "trace", "16")
-        _refuse(control, "control", "15")
+        refuse_control(control)
+        #: None = consult WF_MONITORING / WF_TRACE; resolved at start()
+        self._monitoring_arg = monitoring
+        self._monitor = None
+        self._trace_arg = trace
+        self._tracer = None
+        self._trace_labels = None
+        #: the serial driver's e2e sample in flight (source framing time)
+        self._e2e_t0 = None
         self.name = name
         self.mode = mode
         self.device = resolve_device(device)
@@ -352,6 +364,18 @@ class PipeGraph:
             self.batch_size = resolve_batch_hint(self._operators) or DEFAULT_BATCH_SIZE
         self._started = True
         self._threaded = threaded
+        if self._monitor is None:
+            from ..observability import Monitor, MonitoringConfig
+            cfg = MonitoringConfig.resolve(self._monitoring_arg)
+            if cfg is not None:
+                self._monitor = Monitor(cfg, self.name)
+                self._monitor.registry.register_graph(self)
+                self._monitor.start()
+        if self._tracer is None:
+            from ..observability import TraceConfig, Tracer
+            tcfg = TraceConfig.resolve(self._trace_arg)
+            if tcfg is not None:
+                self._tracer = Tracer(tcfg, self.name).start()
         if threaded:
             self._prepare_threaded()
             return
@@ -374,16 +398,38 @@ class PipeGraph:
             return self._results()
         if not self._started:
             self.start()
-        if self._threaded:
-            return self._run_threaded()
+        try:
+            if self._threaded:
+                return self._run_threaded()
+            return self._run_serial()
+        finally:
+            if self._tracer is not None:
+                self._tracer.finish()
+            if self._monitor is not None:
+                self._monitor.finish(self)
+
+    def _trace_label(self, mp) -> str:
+        """The flight recorder's (and the health ledger's) stage label of one
+        pipe: ``pipe<i>`` by its index in :meth:`_all_pipes`."""
+        if self._trace_labels is None or id(mp) not in self._trace_labels:
+            self._trace_labels = {id(p): f"pipe{i}" for i, p in enumerate(self._all_pipes())}
+        return self._trace_labels.get(id(mp), "pipe?")
+
+    def _run_serial(self):
+        from .. import control as _control
         live = [(mp, mp.source.batches(self.batch_size)) for mp in self._roots]
         pos = 0
+        # trace ids are minted per (root stream, offered position a root): the
+        # coordinates the supervised driver replays
+        root_idx = {id(mp): i for i, mp in enumerate(self._roots)}
+        offered = {id(mp): 0 for mp in self._roots}
+        n_pushed = 0
         # scan dispatch: batches buffer in ARRIVAL order across all roots and
         # run together the moment any root holds K; each root's run is one
         # push_many, and the outputs deliver in the arrival interleave, so
         # every downstream merge sees the per-batch order
         dk = self._dispatch.k if self._dispatch is not None and self._dispatch.k > 1 else 0
-        buf: list = []
+        buf: list = []           # (mp, batch, e2e t0 or None) in arrival order
         buf_n: dict = {}
 
         def flush_buf():
@@ -391,13 +437,16 @@ class PipeGraph:
                 return
             outs = {}
             for mp2 in self._roots:
-                run = [b for m, b in buf if m is mp2]
+                run = [b for m, b, _ in buf if m is mp2]
                 if run:
                     outs[id(mp2)] = iter(self._compute_many(mp2, run, dk))
-            for m, _ in buf:
+            for m, _, t0 in buf:
+                self._e2e_t0 = t0
                 self._deliver(m, next(outs[id(m)]))
+                self._e2e_t0 = None
             buf.clear()
             buf_n.clear()
+            _control.set_gauge("dispatch_linger_depth", 0)
 
         while live:
             mp, it = live[pos % len(live)]
@@ -409,12 +458,22 @@ class PipeGraph:
                 self._exhaust(mp)
                 continue
             record_source_launch(mp.source, batch)
+            _tracing.ingest(batch, offered[id(mp)], stream=root_idx[id(mp)])
+            offered[id(mp)] += 1
             pos += 1
+            sampled = (self._monitor is not None
+                       and self._monitor.config.should_sample_e2e(n_pushed))
+            n_pushed += 1
+            t0 = time.perf_counter() if sampled else None
             if not dk:
+                # e2e sample: source framing to the first sink's receipt
+                self._e2e_t0 = t0
                 self._push(mp, batch)
+                self._e2e_t0 = None
                 continue
-            buf.append((mp, batch))
+            buf.append((mp, batch, t0))
             buf_n[id(mp)] = buf_n.get(id(mp), 0) + 1
+            _control.set_gauge("dispatch_linger_depth", len(buf))
             if buf_n[id(mp)] >= dk:
                 flush_buf()
         # EOS: every pipe in topological order; a merged pipe first drains its
@@ -527,13 +586,19 @@ class PipeGraph:
 
     def _push(self, mp: MultiPipe, batch: Batch):
         """One batch through mp's chain and onward through its edges."""
-        self._deliver(mp, mp._compile(batch.capacity).push(batch))
+        chain = mp._compile(batch.capacity)
+        span = _tracing.service(batch, chain.label)
+        out = chain.push(batch)
+        if span is not None:
+            span.done()
+            _tracing.carry(batch, out)
+        self._deliver(mp, out)
 
     def _compute_many(self, mp: MultiPipe, batches, k: int):
         """Outputs of a buffered run of mp's batches, not delivered: runs of
         up to ``k`` same-capacity batches as one ``push_many``, byte-identical
         to the per-batch pushes."""
-        acc = _dispatch.MicrobatchAccumulator(max(int(k), 1))
+        acc = _dispatch.MicrobatchAccumulator(max(int(k), 1), publish_gauge=False)
         groups = []
         for b in batches:
             groups += acc.feed(b)
@@ -541,7 +606,8 @@ class PipeGraph:
             groups.append(acc.drain())
         outs = []
         for g in groups:
-            outs += _dispatch.fused_push(mp._compile(g[0].capacity), g)
+            chain = mp._compile(g[0].capacity)
+            outs += _dispatch.fused_push(chain, g, chain.label)
         return outs
 
     def _ordering_of(self, merged: MultiPipe):
@@ -583,6 +649,10 @@ class PipeGraph:
     def _deliver(self, mp: MultiPipe, out: Batch):
         if mp.sink is not None:
             mp.sink.consume(out)
+            if self._e2e_t0 is not None and self._monitor is not None:
+                self._monitor.registry.record_e2e(time.perf_counter() - self._e2e_t0,
+                                                  exemplar=_tracing.tid_of(out))
+                self._e2e_t0 = None    # one sample a sampled source batch
         if mp.split_fn is not None:
             self._push_split(mp, out)
         for merged in mp._outputs_to:
@@ -598,7 +668,9 @@ class PipeGraph:
         sel = map_tuples(mp.split_fn, out)
         for branch, keep in zip(mp.split_branches,
                                 split_masks(sel, len(mp.split_branches))):
-            self._push(branch, out.mask(keep))
+            masked = out.mask(keep)
+            _tracing.carry(out, masked)     # mask() makes a new Batch
+            self._push(branch, masked)
 
     def _check_merge_legality(self, pipes):
         """The reference's merge rules (``wf/pipegraph.hpp:813-965,2992-3026``).
@@ -764,10 +836,16 @@ class PipeGraph:
         in_queues = {id(p): [] for p in pipes}
         out_edges = {}                  # (producer id | "src", consumer id) -> ring
         channel_of = {}                 # ring id -> merge channel
+        edge_label = {}                 # ring id -> edge label
         for prod, dst, label, index in self._iter_edges():
-            q = SPSCQueue(resolve_edge_capacity(self.queue_capacity, label, index))
+            cap = resolve_edge_capacity(self.queue_capacity, label, index)
+            q = SPSCQueue(cap)
             in_queues[id(dst)].append(q)
             out_edges[("src" if prod is None else id(prod), id(dst))] = q
+            edge_label[id(q)] = label
+            if self._monitor is not None:
+                # ring depth near capacity: the consumer pipe is the bottleneck
+                self._monitor.registry.attach_queue_gauge(label, q.size, capacity=cap)
             if prod is not None and dst.merge_inputs:
                 channel_of[id(q)] = dst.merge_inputs.index(prod)
         errors: list = []
@@ -779,9 +857,15 @@ class PipeGraph:
                 sel = map_tuples(mp.split_fn, out)
                 for branch, keep in zip(mp.split_branches,
                                         split_masks(sel, len(mp.split_branches))):
-                    out_edges[(id(mp), id(branch))].push(send(out.mask(keep)))
+                    q = out_edges[(id(mp), id(branch))]
+                    masked = out.mask(keep)
+                    _tracing.carry(out, masked)
+                    _tracing.event(masked, edge_label[id(q)], "enq")
+                    q.push(send(masked))
             for merged in mp._outputs_to:
-                out_edges[(id(mp), id(merged))].push(send(out))
+                q = out_edges[(id(mp), id(merged))]
+                _tracing.event(out, edge_label[id(q)], "enq")
+                q.push(send(out))
 
         def pipe_body(mp, stream):
             onode = mp._ordering if self.mode == Mode.DETERMINISTIC else None
@@ -789,7 +873,8 @@ class PipeGraph:
             try:
                 with on_stream(stream):
                     runner = _dispatch.GroupRunner(mp._chain, self._dispatch,
-                                                   lambda out: deliver(mp, out))
+                                                   lambda out: deliver(mp, out),
+                                                   publish_gauge=False)
 
                     def released(rel):
                         for piece in self._chunks(rel, onode.last_release_count):
@@ -813,6 +898,7 @@ class PipeGraph:
                                     released(onode.close_channel(channel_of[id(q)]))
                                 continue
                             batch = receive(item)
+                            _tracing.event(batch, edge_label[id(q)], "deq")
                             if onode is not None and id(q) in channel_of:
                                 released(onode.push(channel_of[id(q)], batch))
                             else:
@@ -840,10 +926,13 @@ class PipeGraph:
 
         def source_body(mp, stream):
             q = out_edges[("src", id(mp))]
+            stream_idx = self._roots.index(mp)
             try:
                 with on_stream(stream):
-                    for batch in mp.source.batches(self.batch_size):
+                    for n, batch in enumerate(mp.source.batches(self.batch_size)):
                         record_source_launch(mp.source, batch)
+                        _tracing.ingest(batch, n, stream=stream_idx)
+                        _tracing.event(batch, edge_label[id(q)], "enq")
                         q.push(send(batch))
             except BaseException as e:          # noqa: BLE001
                 errors.append(e)

@@ -23,13 +23,23 @@ thread, before the next push is launched; ``tier_settle``/``tier_snapshot``/
 
 EOS protocol: the source exhausts; then each stateful operator's ``flush``
 drains residual state and the flushed batches cascade through the remaining
-suffix of the chain; the source's exhaustion is journaled (``eos``). The
-monitoring, control and tracing hooks of the JAX driver are not ported yet;
-``event_time=True`` (event-time monitoring) raises.
+suffix of the chain; the source's exhaustion is journaled (``eos``).
+
+Monitoring (``observability/``): ``Pipeline(monitoring=, trace=)`` runs a
+``Monitor`` (registry, reporter, journal, health ledger) and a ``Tracer``
+for the run; ``event_time=`` (or the monitoring config's sub-toggle) builds
+the operators with lateness histograms in their state. A sampled push
+(every ``SERVICE_SAMPLE_EVERY``-th, and while a journal or the health ledger
+is active also pushes 2, 4 and 8, as the JAX package samples) waits for the
+chain's stream and journals a ``launch`` record; a sampled fused launch
+(only while one of them is active) a ``dispatch_fused`` record. With
+neither active nothing is added to the unmonitored path: no wait, no
+launch. ``control=`` (the control plane) is ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -38,11 +48,14 @@ from typing import Any, List, Optional, Sequence
 import torch
 
 from ..basic import DEFAULT_BATCH_SIZE
-from ..batch import Batch, same_capacity, stack_batches, tree_leaves, unstack_batches
+from ..batch import (Batch, jax_leaves, same_capacity, stack_batches, tree_leaves,
+                     unstack_batches)
 from ..device import resolve_device
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
+from ..observability import device_health as _dh
 from ..observability import journal as _journal
+from ..observability import tracing as _tracing
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
 from .graphs import StepGraph, leaves, rebuild
@@ -66,11 +79,30 @@ def record_source_launch(source, batch: Batch) -> None:
     source.get_StatsRecords()[0].record_launch(hd_bytes=hd)
 
 
-def _refuse_event_time(event_time) -> None:
-    if event_time:
-        raise NotImplementedError(
-            "event-time monitoring (event_time=True) is not ported yet "
-            "(ROADMAP Queue 1 item 16)")
+def refuse_control(control) -> None:
+    """Raise for a driver's ``control=``, naming its ROADMAP item."""
+    if control is not None:
+        raise NotImplementedError("control= (the control plane) is not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+
+
+def _observed() -> bool:
+    """A journal or the health ledger is active: the sampled service points
+    follow the JAX package's schedule and journal their records."""
+    return _journal.get_active() is not None or _dh.get_active() is not None
+
+
+def _early_sample(c: int) -> bool:
+    """Pushes 2, 4 and 8 (the JAX package's early samples: short runs get
+    service-time percentiles; push 1 would time the first build)."""
+    return 1 < c < CompiledChain.SERVICE_SAMPLE_EVERY and (c & (c - 1)) == 0
+
+
+def _health_sig(tree) -> str:
+    """Shape and dtype signature of a batch tree, in the JAX package's form
+    (``(64,)/int32;...``): the capture ledger's cache key component."""
+    return ";".join(f"{tuple(t.shape)}/{str(t.dtype).replace('torch.', '')}"
+                    for t in jax_leaves(tree))
 
 
 def _batch_nbytes(batch: Batch) -> int:
@@ -93,8 +125,18 @@ class CompiledChain:
 
     def __init__(self, ops: Sequence[Basic_Operator], in_spec: Any,
                  batch_capacity: int = None, device=None, event_time: bool = None):
-        _refuse_event_time(event_time)
         self.ops = list(ops)
+        # event-time monitoring sizes operator state, so it binds here,
+        # before init_state; None consults WF_MONITORING/_EVENT_TIME. Set on
+        # every operator: an operator reused by another chain must not keep
+        # this chain's toggle
+        if event_time is None:
+            from ..observability import event_time_enabled
+            event_time = event_time_enabled(None)
+        self.event_time = bool(event_time)
+        for op in self.ops:
+            op._event_time = self.event_time
+        self._drop_synced = {}      # id(op) -> {kind: last journaled total}
         # withDevice hints: one device a chain, so two different hints are an error
         hinted = {str(op._device): op._device for op in self.ops
                   if getattr(op, "_device", None) is not None}
@@ -129,6 +171,12 @@ class CompiledChain:
         #: after every push (empty unless some operator was built tiered)
         self._tier_ops = [j for j, op in enumerate(self.ops) if op.tier_controllers()]
         self._push_count = 0
+        self._fused_count = 0       # push_many launches
+        #: (from_op, kind, signature) run once: the capture ledger's notes
+        self._noted = set()
+        #: stage label of the health ledger and the trace spans: the drivers
+        #: set it (``seg<i>``, ``pipe<i>``; ``chain`` by default)
+        self.label = "chain"
         #: the captured K-step programs, (from_op, K, capacity) -> StepGraph (card)
         self.graphs = {}
         self._warmed = set()    # (from_op, capacity) run once eagerly
@@ -153,21 +201,124 @@ class CompiledChain:
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, chain on {self.device}")
         self._push_count += 1
-        sampled = self._push_count % self.SERVICE_SAMPLE_EVERY == 0
+        c = self._push_count
+        sampled = c % self.SERVICE_SAMPLE_EVERY == 0 or (_observed() and _early_sample(c))
+        hl, t0c = self._health_begin("push")
+        if hl is not None:
+            self._note(hl, from_op, "step", batch)
         t0 = time.perf_counter() if sampled else None
+        timer = self._device_timer(hl, sampled)
         out = batch
         for j in range(from_op, len(self.ops)):
             self.states[j], out = self.ops[j].apply(self.states[j], out)
+        service_s = self._sampled_wait(hl, timer, t0) if sampled else None
+        if sampled and _journal.get_active() is not None:
+            _journal.record("launch", op=self.ops[from_op].getName() if self.ops else "",
+                            from_op=from_op, push=c, service_s=round(service_s, 6))
+        self._health_end(hl, t0c, from_op)
         if self._tier_ops:
             self._tier_maintain()
-        if sampled and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        self._record(from_op, 1, batch, out,
-                     time.perf_counter() - t0 if sampled else None)
+        if sampled:
+            # the sampled push already waited: the drop readback rides it
+            self._journal_drops(batch)
+        self._record(from_op, 1, batch, out, service_s,
+                     exemplar=None if service_s is None else _tracing.tid_of(batch))
         return out
 
+    # -- runtime-health ledger (MonitoringConfig.health) ----------------------------
+
+    def _health_begin(self, cause: str):
+        """(ledger, t0) when the health ledger is active, with the cause of
+        any first run noted in this call; (None, 0.0) when off."""
+        hl = _dh.get_active()
+        if hl is None:
+            return None, 0.0
+        hl.set_cause(cause)
+        return hl, time.perf_counter()
+
+    def _note(self, hl, from_op: int, kind: str, example, k: int = None) -> None:
+        """Note the first run of the ``(from_op, kind)`` program at
+        ``example``'s signature (a first eager step, or a graph capture)."""
+        sig = _health_sig(example)
+        key = (from_op, kind, sig)
+        if key in self._noted:
+            return
+        self._noted.add(key)
+        leaves = jax_leaves(example)
+        cap = None if not leaves else int(leaves[0].shape[1 if kind == "scan" else 0])
+        hl.note_trace(self.label, from_op, kind, sig, capacity=cap, k=k)
+
+    def _health_end(self, hl, t0c: float, from_op: int) -> None:
+        """Commit the notes this call parked, with the call's duration (the
+        first build or capture and the first run: what a user waits for)."""
+        if hl is not None:
+            hl.commit_pending(time.perf_counter() - t0c,
+                              op=self.ops[from_op].getName() if self.ops else "")
+
+    def _device_timer(self, hl, sampled: bool):
+        """Two CUDA events around a sampled push's launches while the ledger
+        is active (the device side of the dispatch/device split), else None."""
+        if not sampled or hl is None or self.device.type != "cuda":
+            return None
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _sampled_wait(self, hl, timer, t0: float) -> float:
+        """Wait for a sampled push's launches (the current stream) and return
+        its service time; with the ledger active also note the split: host
+        time of the launching call (dispatch) against the device time between
+        the events (on the CPU, the wait)."""
+        t_disp = time.perf_counter()
+        if timer is not None:
+            timer[1].record(torch.cuda.current_stream(self.device))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t_done = time.perf_counter()
+        # a call that built or captured (pending notes) is not a service
+        # sample of the split: its dispatch time is the build
+        if hl is not None and not hl.has_pending() and hl.service_sample():
+            device_s = (timer[0].elapsed_time(timer[1]) / 1e3 if timer is not None
+                        else t_done - t_disp)
+            hl.note_service(self.label, dispatch_s=t_disp - t0, device_s=device_s)
+        return t_done - t0
+
+    def state_footprints(self) -> dict:
+        """Per-operator state bytes from the state tensors' shapes and dtypes
+        (no device access): the memory ledger's rows."""
+        out: dict = {}
+        for op, st in zip(self.ops, self.states):
+            n = sum(t.numel() * t.element_size() for t in jax_leaves(st)
+                    if isinstance(t, torch.Tensor))
+            out[op.getName()] = out.get(op.getName(), 0) + n
+        return out
+
+    def _journal_drops(self, batch) -> None:
+        """``lateness_drop`` records for every operator drop counter that grew
+        since the last readback, with the trace coordinates of ``batch`` (the
+        sampled batch whose wait this read rides; None at EOS). Only with
+        event-time monitoring on and a journal active."""
+        if not self.event_time or _journal.get_active() is None:
+            return
+        tid = _tracing.tid_of(batch) if batch is not None else None
+        for op, st in zip(self.ops, self.states):
+            counters = op.drop_counters(st)
+            if not counters:
+                continue
+            prev = self._drop_synced.setdefault(id(op), {})
+            for kind, val in counters.items():
+                delta = int(val) - prev.get(kind, 0)
+                if delta <= 0:
+                    continue
+                prev[kind] = int(val)
+                fields = {"op": op.getName(), "kind": kind, "n": delta, "total": int(val)}
+                if tid is not None:
+                    fields["tid"] = int(tid)
+                    fields["pos"] = _tracing.trace_pos(tid)
+                _journal.record("lateness_drop", **fields)
+
     def _record(self, from_op: int, k: int, batch: Batch, out: Batch,
-                service_time_s: float = None) -> None:
+                service_time_s: float = None, exemplar=None) -> None:
         """Stats of one dispatch of ``k`` batches: k batches and their bytes
         per op, one launch (with its service time when sampled) on the entry
         op."""
@@ -179,7 +330,8 @@ class CompiledChain:
             rec.bytes_received += k * in_bytes
             rec.bytes_sent += k * out_bytes
         if from_op < len(self.ops):
-            self.ops[from_op].get_StatsRecords()[0].record_launch(service_time_s)
+            self.ops[from_op].get_StatsRecords()[0].record_launch(service_time_s,
+                                                                  exemplar=exemplar)
 
     def _k_steps(self, from_op: int):
         """``fn(states, stacked) -> (states, outs)``: the K batches of a
@@ -205,6 +357,9 @@ class CompiledChain:
         if (from_op, capacity) in self._warmed:
             return
         b = Batch.empty(capacity, self.specs[from_op], self.device)
+        hl, t0c = self._health_begin("warm")
+        if hl is not None:
+            self._note(hl, from_op, "step", b)
         states = rebuild(self.states, leaves(self.states))
         with contextlib.ExitStack() as uncounted:
             for j in self._tier_ops:
@@ -213,11 +368,14 @@ class CompiledChain:
             for j in range(from_op, len(self.ops)):
                 states[j], b = self.ops[j].apply(states[j], b)
         self._warmed.add((from_op, capacity))
+        self._health_end(hl, t0c, from_op)
 
-    def _graph(self, from_op: int, k: int, capacity: int) -> StepGraph:
+    def _graph(self, from_op: int, k: int, capacity: int,
+               cause: str = "push_many") -> StepGraph:
         """The captured K-step program for ``(from_op, k, capacity)``: warmed,
-        then captured over the chain's states at first use. Capture runs
-        nothing, so it touches no state."""
+        then captured over the chain's states at first use (the health
+        ledger notes the capture under ``cause``). Capture runs nothing, so
+        it touches no state."""
         key = (from_op, k, capacity)
         g = self.graphs.get(key)
         if g is None:
@@ -225,9 +383,12 @@ class CompiledChain:
                 raise RuntimeError(f"{key}: no graph was captured before the stage "
                                    f"threads started, and none is captured while they run")
             self._warm(from_op, capacity)
-            empty = Batch.empty(capacity, self.specs[from_op], self.device)
-            g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states),
-                                              stack_batches([empty] * k))
+            empty = stack_batches([Batch.empty(capacity, self.specs[from_op], self.device)] * k)
+            hl, t0c = self._health_begin(cause)
+            if hl is not None:
+                self._note(hl, from_op, "scan", empty, k=k)
+            g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states), empty)
+            self._health_end(hl, t0c, from_op)
         return g
 
     def warm_scan(self, k: int, capacity: int) -> None:
@@ -236,7 +397,7 @@ class CompiledChain:
         the capture. K <= 1 warms the per-batch step only."""
         self._warm(0, capacity)
         if k > 1 and self.device.type == "cuda":
-            self._graph(0, int(k), capacity)
+            self._graph(0, int(k), capacity, cause="warm_scan")
 
     def push_many(self, batches: Sequence[Batch], from_op: int = 0) -> List[Batch]:
         """Run K same-capacity batches through ops[from_op:] as ONE device
@@ -253,17 +414,40 @@ class CompiledChain:
             if b.device != self.device:
                 raise ValueError(f"batch on {b.device}, chain on {self.device}")
         k = len(batches)
+        # per-launch sampling, only while observed (the unmonitored fused
+        # path never waits)
+        self._fused_count += 1
+        c = self._fused_count
+        sampled = _observed() and (c % self.SERVICE_SAMPLE_EVERY == 0 or _early_sample(c))
+        hl, t0c = self._health_begin("push_many")
+        t0 = time.perf_counter() if sampled else None
         if self.device.type == "cuda":
             g = self._graph(from_op, k, same_capacity(batches))
+            timer = self._device_timer(hl, sampled)
             _stack_into(g.inputs, batches)
             states, outs = g.run(self.states)
         else:
-            states, outs = self._k_steps(from_op)(self.states, stack_batches(batches))
+            stacked = stack_batches(batches)
+            if hl is not None:
+                self._note(hl, from_op, "scan", stacked, k=k)
+            timer = None
+            states, outs = self._k_steps(from_op)(self.states, stacked)
+        service_s = self._sampled_wait(hl, timer, t0) if sampled else None
+        if sampled and _journal.get_active() is not None:
+            _journal.record("dispatch_fused",
+                            op=self.ops[from_op].getName() if self.ops else "",
+                            from_op=from_op, k=k, launch=c, service_s=round(service_s, 6))
+        self._health_end(hl, t0c, from_op)
         self.states = list(states)
         if self._tier_ops:
             self._tier_maintain()
+        if sampled:
+            self._journal_drops(next(
+                (b for b in batches if _tracing.tid_of(b) is not None), None))
         self._push_count += k
-        self._record(from_op, k, batches[0], outs[0])
+        tid = next((t for t in map(_tracing.tid_of, batches) if t is not None), None)
+        self._record(from_op, k, batches[0], outs[0], service_s,
+                     exemplar=None if service_s is None else tid)
         return outs
 
     # -- tiered keyed state (state/tiered.py) -----------------------------------------
@@ -352,6 +536,7 @@ class CompiledChain:
             self.tier_settle()
         for op, st in zip(self.ops, self.states):
             op.collect_stats(st)
+        self._journal_drops(None)
 
     def result(self) -> dict:
         """Results of the ReduceSink terminal ops (device accumulators)."""
@@ -376,13 +561,18 @@ class Pipeline:
     through ``CompiledChain.push_many``, the partial tail at EOS too.
     ``prefetch=N > 0`` frames and copies the source's batches in a worker
     thread N batches ahead (``SourceBase.batches_prefetched``); setting
-    :attr:`prefetch_pause` suspends that worker."""
+    :attr:`prefetch_pause` suspends that worker. ``monitoring=`` and
+    ``trace=`` (None consults ``WF_MONITORING`` / ``WF_TRACE``, resolved at
+    :meth:`run`) run a ``Monitor`` and a ``Tracer`` for the run;
+    ``event_time=`` (None: the monitoring config's sub-toggle) builds the
+    operators with lateness histograms. ``control=`` raises (item 15)."""
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
                  batch_size: Optional[int] = None, device=None,
-                 event_time: bool = None, dispatch=None, prefetch: int = 0):
-        _refuse_event_time(event_time)
+                 event_time: bool = None, dispatch=None, prefetch: int = 0,
+                 monitoring=None, trace=None, control=None):
+        refuse_control(control)
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
@@ -393,12 +583,20 @@ class Pipeline:
         self.prefetch_pause = threading.Event()
         #: resolved at run(), so an env change after construction counts
         self._dispatch_arg = dispatch
+        self._monitoring_arg = monitoring
+        self._monitor = None
+        self._trace_arg = trace
+        self._tracer = None
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
                              f"but the pipeline runs on {self.device}")
+        if event_time is None:
+            # geometry-binding: resolved now, from the monitoring argument
+            from ..observability import event_time_enabled
+            event_time = event_time_enabled(monitoring)
         self.chain = CompiledChain(ops, source.payload_spec(),
                                    batch_capacity=source.out_capacity(self.batch_size),
-                                   device=self.device)
+                                   device=self.device, event_time=event_time)
 
     def _dispatch_config(self) -> Optional[_dispatch.DispatchConfig]:
         """``dispatch=`` resolved (None when off), with the K-step program
@@ -413,15 +611,54 @@ class Pipeline:
 
     def run(self) -> dict:
         """Drive the stream to EOS; returns ``chain.result()``."""
+        from ..observability import Monitor, MonitoringConfig, TraceConfig, Tracer
+        cfg = MonitoringConfig.resolve(self._monitoring_arg)
+        if cfg is not None and self._monitor is None:
+            self._monitor = Monitor(cfg, self.source.getName() + "-pipeline")
+            self._monitor.registry.register_pipeline(self)
+            self._monitor.start()
+        mon = self._monitor
+        tcfg = TraceConfig.resolve(self._trace_arg)
+        if tcfg is not None and self._tracer is None:
+            self._tracer = Tracer(tcfg, self.source.getName() + "-pipeline").start()
+        try:
+            return self._run(mon)
+        finally:
+            if self._tracer is not None:
+                self._tracer.finish()
+            if mon is not None:
+                mon.finish(self)
+
+    def _run(self, mon) -> dict:
+        # e2e samples (a host sink only): the n-th fed batch is stamped when
+        # the policy samples it, and its output's receipt closes the sample
+        stamps = collections.deque()
+        e2e = mon is not None and self.sink is not None
+        n_out = 0
+
         def emit(out):
+            nonlocal n_out
             if self.sink is not None:
+                span = _tracing.service(out, "sink")
                 self.sink.consume(out)
-        runner = _dispatch.GroupRunner(self.chain, self._dispatch_config(), emit)
+                if span is not None:
+                    span.done()
+            if stamps and stamps[0][0] == n_out:
+                _n, t0, tid = stamps.popleft()
+                mon.registry.record_e2e(time.perf_counter() - t0, exemplar=tid)
+            n_out += 1
+        dcfg = self._dispatch_config()
+        if mon is not None and dcfg is not None:
+            mon.registry.attach_gauge("dispatch_k", lambda: dcfg.k)
+        runner = _dispatch.GroupRunner(self.chain, dcfg, emit)
         batches = (self.source.batches_prefetched(self.batch_size, self.prefetch,
                                                   pause_event=self.prefetch_pause)
                    if self.prefetch else self.source.batches(self.batch_size))
-        for batch in batches:
+        for n, batch in enumerate(batches):
             record_source_launch(self.source, batch)
+            _tracing.ingest(batch, n)
+            if e2e and mon.config.should_sample_e2e(n):
+                stamps.append((n, time.perf_counter(), _tracing.tid_of(batch)))
             runner.feed(batch)
         _journal.record("eos", pipeline=self.source.getName())
         runner.finish()                  # the partial tail < K, then the flush

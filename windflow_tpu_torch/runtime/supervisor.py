@@ -78,19 +78,27 @@ the whole-domain restore. The journal gets ``shard_restore`` and ``reshard``
 records beside the others. Dispatch K > 1 with shards, and tiered keyed state
 with shards, raise ``ValueError`` as in the JAX package.
 
-Not ported, and refused by name: the governor's ``reshard="auto"``,
-admission control and remediation (``control=``, ``WF_CONTROL``,
-``remediation=``, ``WF_REMEDIATION``: ROADMAP Queue 1 item 15), tracing
-(``trace=``), the shard gauges of a metrics snapshot and monitoring-driven
-event time (item 16), and the multi-host slice helper
-``multihost.process_shard_slice`` (item 14; an explicit ``shard_range=``
-runs). Tiered keyed state
+Tracing and monitoring, as in the JAX package: ``trace=`` (None consults
+``WF_TRACE``) mints position-derived trace ids at ingest (a replay after a
+restore re-mints the same ids; ``TraceConfig(ids="sequence")`` is refused),
+each step opens a service span on ``chain`` and carries the id to its
+output (to each shard's sub-batch, sharded), and a restore first closes the
+failed attempt's open spans (``abort_open("restore")``) and drops the
+health ledger's pending note. ``SupervisedPipeline`` builds its chain with
+the environment's event-time toggle (``WF_MONITORING`` and
+``WF_MONITORING_EVENT_TIME``); a supervised PipeGraph runs under the
+graph's own ``monitoring=``/``trace=``, and its sharded runs add the
+``shards`` section to the graph's snapshots. Tiered keyed state
 (``state/tiered.py``) is supervised as in the JAX package: a snapshot settles
 the tiered operators first and keeps their cold tiers' manifests beside the
 states; a restore rewinds the stores and discards the copies in flight
-(replay re-derives the spills). The JAX
-loop's tracing and device-health calls (span carry, ingest, abort, the
-health ledger's pending note) belong to item 16 and are left out.
+(replay re-derives the spills).
+
+Not ported, and refused by name: the governor's ``reshard="auto"``,
+admission control and remediation (``control=``, ``WF_CONTROL``,
+``remediation=``, ``WF_REMEDIATION``: ROADMAP Queue 1 item 15) and the
+multi-host slice helper ``multihost.process_shard_slice`` (item 14; an
+explicit ``shard_range=`` runs).
 """
 
 from __future__ import annotations
@@ -107,7 +115,9 @@ import torch
 from ..basic import DEFAULT_BATCH_SIZE
 from ..batch import tree_map
 from ..device import resolve_device
+from ..observability import device_health as _dh
 from ..observability import journal as _journal
+from ..observability import tracing as _tracing
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
@@ -146,8 +156,7 @@ def _env_on(var: str) -> bool:
     return os.environ.get(var, "").strip() not in ("", "0")
 
 
-def _refuse_unported(*, reshard=None, control=None, remediation=None,
-                     trace=None) -> None:
+def _refuse_unported(*, reshard=None, control=None, remediation=None) -> None:
     """Raise for every supervision feature the port does not have yet,
     naming its ROADMAP item, instead of running without it."""
     if isinstance(reshard, str) and reshard == "auto" or (
@@ -157,10 +166,37 @@ def _refuse_unported(*, reshard=None, control=None, remediation=None,
         _refuse("supervised control= / WF_CONTROL (admission control)", 15)
     if remediation is not None or _env_on("WF_REMEDIATION"):
         _refuse("supervised remediation= / WF_REMEDIATION", 15)
-    if trace is not None:
-        _refuse("supervised trace= (causal tracing)", 16)
-    if _env_on("WF_MONITORING") and _env_on("WF_MONITORING_EVENT_TIME"):
-        _refuse("monitoring-driven event time (WF_MONITORING_EVENT_TIME)", 16)
+
+
+def _supervised_tracer(trace_arg, name: str):
+    """The started Tracer of a supervised run, or None. Its ids must be
+    replay-stable: a restore replays from the committed position and a
+    replayed batch must carry the id the failed attempt minted, so the
+    position-derived ids (the default) are required and ``ids="sequence"``
+    (a process counter) raises."""
+    from ..observability import TraceConfig, Tracer
+    cfg = TraceConfig.resolve(trace_arg)
+    if cfg is None:
+        return None
+    _check_supervised_trace(cfg)
+    return Tracer(cfg, name).start()
+
+
+def _check_supervised_trace(cfg) -> None:
+    if cfg is not None and cfg.ids != "position":
+        raise ValueError(
+            "supervised tracing requires TraceConfig(ids='position') — sequence ids "
+            "are minted from a process counter, so a replay after restore would mint "
+            "fresh ids and orphan every exemplar and ring-edge flow recorded before "
+            "the failure (use the live drivers for sequence ids)")
+
+
+def _abort_attempt() -> None:
+    """Before a restore: close the failed attempt's open trace spans (tagged
+    ``aborted``; the replay reopens them under the same ids) and drop the
+    health ledger's note of a step that failed mid-build."""
+    _tracing.abort_open("restore")
+    _dh.clear_pending()
 
 
 # --------------------------------------------------------- host copies
@@ -211,8 +247,9 @@ class SupervisedPipeline:
                  control=None, trace=None, dispatch=None, shards=None,
                  reshard=None, shard_key=None, shard_range=None,
                  remediation=None, device=None):
-        _refuse_unported(reshard=reshard, control=control, remediation=remediation,
-                         trace=trace)
+        _refuse_unported(reshard=reshard, control=control, remediation=remediation)
+        self._trace_arg = trace
+        self._tracer = None
         #: shard-local supervision (``shards=`` or ``WF_SHARDS``; 1 runs the
         #: single-domain path): N > 1 splits the key space into N
         #: ShardSupervisor units under a ShardedSupervisor
@@ -252,6 +289,8 @@ class SupervisedPipeline:
         self._dispatch_arg = dispatch
         self._dispatch = None
         self._started = False
+        # event time from the environment (this driver takes no monitoring=);
+        # the histograms ride the state snapshots, so a restore replays them
         self.chain = CompiledChain(list(ops), source.payload_spec(),
                                    batch_capacity=source.out_capacity(self.batch_size),
                                    device=self.device)
@@ -304,11 +343,17 @@ class SupervisedPipeline:
         combined)."""
         self.start()
         injector = _faults.resolve(self._faults_arg)
+        self._tracer = _supervised_tracer(self._trace_arg,
+                                         self.source.getName() + "-supervised")
         with _faults.activate(injector):
-            if self._shards > 1:
-                self._sharded = ShardedSupervisor(self)
-                return self._sharded.run()
-            return self._run()
+            try:
+                if self._shards > 1:
+                    self._sharded = ShardedSupervisor(self)
+                    return self._sharded.run()
+                return self._run()
+            finally:
+                if self._tracer is not None:
+                    self._tracer.finish()
 
     def shard_report(self) -> dict:
         """Per-shard rows (``names.py::SHARD_GAUGES``) of the last sharded
@@ -363,6 +408,9 @@ class SupervisedPipeline:
         def _push_group_inner(group, positions):
             nonlocal cur_pos
             cur_pos = positions[0]
+            # spans open on the driving thread, before the watchdog worker
+            # runs the push; k marks a fused group's members
+            spans = [_tracing.service(b, "chain", k=len(group)) for b in group]
             p0 = positions[0]
             # a singleton takes the per-batch push (wrappers around
             # chain.push see every batch when dispatch is off)
@@ -371,7 +419,10 @@ class SupervisedPipeline:
             outs = _faults.call_with_timeout(
                 step, self.step_timeout, stage="chain.step",
                 pre=lambda: _faults.fire("chain.step", pos=p0))
-            for out in outs:
+            for b, out, span in zip(group, outs, spans):
+                if span is not None:
+                    span.done()
+                    _tracing.carry(b, out)
                 # the host copy now: an asynchronous device fault surfaces
                 # HERE, before the output could ever reach the sink
                 pending.append(host_tree(out) if self.sink is not None else out)
@@ -435,6 +486,9 @@ class SupervisedPipeline:
                         batch = next(it)
                     except StopIteration:
                         break
+                    # position-derived: a replay of this position re-mints
+                    # the same id
+                    _tracing.ingest(batch, pos)
                     if degrade_hi is not None and pos > degrade_hi:
                         degrade_hi = None     # past the failed group's range
                     if acc is None or degrade_hi is not None:
@@ -486,6 +540,7 @@ class SupervisedPipeline:
                 # a watchdog-abandoned worker finishes (or gives up) before
                 # the restore, so it never writes into the restored state
                 _faults.join_abandoned_worker(e, self.step_timeout)
+                _abort_attempt()
                 with _restore_span(at_batch=pos, replay_from=snap_pos,
                                    attempt=self.restarts, error=type(e).__name__):
                     self._restore(snap)
@@ -626,6 +681,7 @@ class _ShardRecoveryBase:
         self._count_restart()
         _faults.bump("restarts")
         _faults.join_abandoned_worker(e, self.co.step_timeout)
+        _abort_attempt()
         self._rec_t0 = time.perf_counter()
         _journal.record("shard_restore", shard=self.idx, replay_from=self._replay_from(),
                         attempt=self.restarts, error=type(e).__name__,
@@ -713,11 +769,15 @@ class ShardSupervisor(_ShardRecoveryBase):
                 self.replay[i] = (pos, None)
                 i += 1
                 continue
+            span = _tracing.service(sub, "chain")
             try:
                 _faults.fire("shard.kill", shard=self.idx, pos=pos)
                 out = _faults.call_with_timeout(
                     lambda sub=sub: self._step(sub), self.co.step_timeout,
                     stage=f"shard{self.idx}.step")
+                if span is not None:
+                    span.done()
+                    _tracing.carry(sub, out)
                 self.pending.append(host_tree(out) if self.co.sink is not None else out)
                 i += 1
             except (KeyboardInterrupt, SystemExit):
@@ -882,10 +942,13 @@ class ShardedSupervisor:
                         batch = next(it)
                     except StopIteration:
                         break
+                    _tracing.ingest(batch, pos)
                     if self.shards:
                         subs = split(batch)
                         for s in self.shards:
-                            s.offer(pos, subs[s.idx])
+                            sub = subs[s.idx]
+                            _tracing.carry(batch, sub)
+                            s.offer(pos, sub)
                     pos += 1
                     if pos - self.commit_pos >= self.checkpoint_every:
                         self._commit(pos)
@@ -915,6 +978,7 @@ class ShardedSupervisor:
                 p.restarts += 1
                 _faults.bump("restarts")
                 _faults.join_abandoned_worker(e, self.step_timeout)
+                _abort_attempt()
                 with _restore_span(at_batch=self.commit_pos, replay_from=self.commit_pos,
                                    shards=len(self.shards), error=type(e).__name__):
                     for s in self.shards:
@@ -1219,9 +1283,18 @@ def run_graph_supervised(graph, *, checkpoint_every: int = 8, max_restarts: int 
             step_timeout=step_timeout, dispatch=dispatch)
 
 
+def _graph_trace_check(graph) -> None:
+    """Refuse sequence trace ids before ``graph.start()`` activates the
+    tracer and the reporter (whose finish is armed only after it)."""
+    from ..observability import TraceConfig
+    _check_supervised_trace(graph._tracer.config if graph._tracer is not None
+                           else TraceConfig.resolve(graph._trace_arg))
+
+
 def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base,
                           backoff_cap, dead_letter, poison_threshold, step_timeout,
                           dispatch=None):
+    _graph_trace_check(graph)
     if not graph._started:
         graph.start()
     # scan dispatch (explicit dispatch= wins over the graph's own): batches
@@ -1234,7 +1307,10 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
     if dcfg is not None:
         _dispatch.refuse_k_tuner(dcfg)
     dk = dcfg.k if dcfg is not None and dcfg.k > 1 else 0
-    buf = []                         # (mp, batch, pos) in arrival order
+    mon_cfg = graph._monitor.config if graph._monitor is not None else None
+    # trace stream coordinates: the root index (the push driver's)
+    root_idx = {id(mp): i for i, mp in enumerate(graph._roots)}
+    buf = []                         # (mp, batch, pos, e2e t0) in arrival order
     buf_n = {}                       # root id -> batches buffered
     degrade = {}                     # root id -> per-batch replay bound after a
     #                                  fused run failed
@@ -1290,7 +1366,7 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
             return
         outs = {}
         for mp2 in graph._roots:
-            entries = [(b, p) for m, b, p in buf if m is mp2]
+            entries = [(b, p) for m, b, p, _ in buf if m is mp2]
             if not entries:
                 continue
             run = [b for b, _ in entries]
@@ -1305,29 +1381,34 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                 if len(run) > 1:
                     degrade[id(mp2)] = entries[-1][1]
                 raise
-        for m, b, p in buf:
+        for m, b, p, t0 in buf:
             cur_key = (id(m), p)      # delivery failure attribution
+            graph._e2e_t0 = t0
             out = next(outs[id(m)])
             # delivery (downstream pushes, ordering, sink consume) stays under
             # the step watchdog, like the per-batch path's whole-push wrapper
             _faults.call_with_timeout(lambda m=m, out=out: graph._deliver(m, out),
                                       step_timeout, stage="graph.step")
+            graph._e2e_t0 = None
         buf.clear()
         buf_n.clear()
         cur_key = None
 
-    def ingest(mp, batch, p):
+    def ingest(mp, batch, p, sampled):
         hi = degrade.get(id(mp))
         if hi is not None and p > hi:
             degrade.pop(id(mp))       # past the failed run: resume fusing
+        t0 = time.perf_counter() if sampled else None   # e2e: telemetry only
         # degrade is global while any root is inside a failed run's range:
         # per-batch ingest keeps the round-robin arrival order for every root
         if not dk or degrade:
+            graph._e2e_t0 = t0
             _faults.call_with_timeout(
                 lambda: graph._push(mp, batch), step_timeout, stage="graph.step",
                 pre=lambda: _faults.fire("chain.step", pos=p))
+            graph._e2e_t0 = None
             return
-        buf.append((mp, batch, p))
+        buf.append((mp, batch, p, t0))
         buf_n[id(mp)] = buf_n.get(id(mp), 0) + 1
         if buf_n[id(mp)] >= dk:
             flush_accs()
@@ -1345,6 +1426,7 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                     sh.deliver()              # finish any interrupted delivery
                 live = [mp for mp in graph._roots if id(mp) not in graph._exhausted]
                 since = 0
+                n_pushed = 0
                 while live:
                     for mp in list(live):
                         key = (id(mp), pos[id(mp)])
@@ -1378,7 +1460,11 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                             flush_accs()
                             graph._exhaust(mp)
                             continue
-                        ingest(mp, batch, pos[id(mp)])
+                        # position-derived ids: a replay re-mints them
+                        _tracing.ingest(batch, pos[id(mp)], stream=root_idx[id(mp)])
+                        ingest(mp, batch, pos[id(mp)],
+                               mon_cfg is not None and mon_cfg.should_sample_e2e(n_pushed))
+                        n_pushed += 1
                         pos[id(mp)] += 1
                         since += 1
                         cur_key = None
@@ -1418,6 +1504,9 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                 graph.supervised_restarts += 1
                 _faults.bump("restarts")
                 _faults.join_abandoned_worker(e, step_timeout)
+                _abort_attempt()
+                # a sampled push that raised leaves its e2e stamp armed
+                graph._e2e_t0 = None
                 with _restore_span(graph=graph.name, attempt=graph.supervised_restarts,
                                    error=type(e).__name__):
                     _graph_restore(graph, snap)
@@ -1442,6 +1531,10 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
         for mp in pipes:
             if id(mp) in originals:
                 mp.sink = originals[id(mp)]
+        if graph._tracer is not None:
+            graph._tracer.finish()
+        if graph._monitor is not None:
+            graph._monitor.finish(graph)
 
 
 # -------------------------------------------------- the sharded graph driver
@@ -1668,8 +1761,13 @@ class _ShardedGraphRun:
 
     def run(self):
         graph = self.graph
+        _graph_trace_check(graph)
         if not graph._started:
             graph.start()
+        if graph._monitor is not None:
+            # the shard rows ride the graph's monitoring snapshots
+            graph._monitor.registry.attach_shards(self.shard_report)
+        root_idx = {id(mp): i for i, mp in enumerate(graph._roots)}
         pipes = graph._all_pipes()
         originals = {}
         for mp in pipes:
@@ -1760,8 +1858,10 @@ class _ShardedGraphRun:
                                 for s in self.shards:
                                     s.offer_eos(mp)
                                 continue
+                            _tracing.ingest(batch, pos[id(mp)], stream=root_idx[id(mp)])
                             subs = split(batch)
                             for s, sub in zip(self.shards, subs):
+                                _tracing.carry(batch, sub)
                                 s.offer_batch(mp, pos[id(mp)], sub)
                             pos[id(mp)] += 1
                             since += 1
@@ -1792,6 +1892,7 @@ class _ShardedGraphRun:
                     graph.supervised_restarts += 1
                     _faults.bump("restarts")
                     _faults.join_abandoned_worker(e, self.step_timeout)
+                    _abort_attempt()
                     with _restore_span(graph=graph.name, shards=len(self.shards),
                                        attempt=graph.supervised_restarts,
                                        error=type(e).__name__):
@@ -1819,6 +1920,10 @@ class _ShardedGraphRun:
             for mp in pipes:
                 if id(mp) in originals:
                     mp.sink = originals[id(mp)]
+            if graph._tracer is not None:
+                graph._tracer.finish()
+            if graph._monitor is not None:
+                graph._monitor.finish(graph)
 
     # -- live re-sharding -------------------------------------------------------------
 

@@ -49,13 +49,21 @@ thread takes. A ``stall`` fault sleeps in the stage thread (the latency the
 watchdog must notice); an ``error`` fault fails the stage as any error does.
 A stage the watchdog flags bumps the ``watchdog_timeouts`` recovery counter.
 
-Not ported, and refused by name: the control plane (``control=``, ROADMAP
-Queue 1 item 15), monitoring and tracing (``monitoring=``, ``trace=``, item
-16). A stale stage is journaled (``watchdog_stale``) as in the JAX package.
+Monitoring and tracing (``monitoring=``, ``trace=``; None consults
+``WF_MONITORING`` / ``WF_TRACE``), as in the JAX package: the registry holds
+the source, each segment chain, the sink and a depth gauge a ring; the
+source stamps every Nth enqueued batch and the sink closes the end-to-end
+sample at its receipt; a traced batch records ``ingest`` at the source,
+``enq``/``deq`` on every ring it crosses, a service span on each segment
+(``seg<i>``) and on the sink. The chains' event-time toggle comes from the
+``monitoring=`` argument (the JAX driver reads only the environment). A
+stale stage is journaled (``watchdog_stale``). Not ported, and refused by
+name: the control plane (``control=``, ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from contextlib import nullcontext
@@ -67,6 +75,7 @@ from ..basic import DEFAULT_BATCH_SIZE
 from ..device import resolve_device
 from ..native import SPSCQueue, pin_thread
 from ..observability import journal as _journal
+from ..observability import tracing as _tracing
 from ..operators.sink import Sink
 from ..operators.source import SourceBase
 from . import dispatch as _dispatch
@@ -74,18 +83,11 @@ from . import faults as _faults
 from .dispatch import GroupRunner
 from .faults import drain_queue_to_sentinel
 from .handoff import receive, send
-from .pipeline import CompiledChain, record_source_launch, resolve_batch_hint
+from .pipeline import (CompiledChain, record_source_launch, refuse_control,
+                       resolve_batch_hint)
 
 #: the end-of-stream marker on a ring (sent bare: it carries no event)
 EOS = object()
-
-def refuse_unported(control=None, monitoring=None, trace=None) -> None:
-    for arg, what, item in ((control, "control", "15"), (monitoring, "monitoring", "16"),
-                            (trace, "trace", "16")):
-        if arg is not None:
-            raise NotImplementedError(f"{what}= of the threaded drivers is not ported "
-                                      f"yet (ROADMAP Queue 1 item {item})")
-
 
 def resolve_edge_capacity(spec, name: str, index: int, default: int = 8) -> int:
     """One ring's capacity: ``spec`` is one int for every edge, a dict keyed
@@ -151,7 +153,8 @@ class ThreadedPipeline:
     (:func:`resolve_edge_capacity`); ``pin`` pins stage i to core i (the
     reference's default mapping); ``prefetch=N`` frames and copies the
     source's batches N ahead in a worker thread; ``dispatch=`` is scan
-    dispatch per segment thread."""
+    dispatch per segment thread; ``monitoring=`` and ``trace=`` as
+    ``Pipeline``'s."""
 
     def __init__(self, source: SourceBase, segments: Sequence[Sequence],
                  sink: Optional[Sink] = None, *,
@@ -159,7 +162,7 @@ class ThreadedPipeline:
                  heartbeat_timeout: Optional[float] = None, faults=None,
                  prefetch: int = 0, control=None, trace=None, dispatch=None,
                  monitoring=None, device=None):
-        refuse_unported(control, monitoring, trace)
+        refuse_control(control)
         self.device = resolve_device(device)
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
@@ -175,11 +178,22 @@ class ThreadedPipeline:
         self._dispatch_arg = dispatch
         self._dispatch = None
         self._started = False
+        self._monitoring_arg = monitoring
+        self._monitor = None
+        self._trace_arg = trace
+        self._tracer = None
+        # (enqueue index, perf_counter, trace id) of sampled batches: the
+        # source appends, the sink pops at the matching receipt (the rings
+        # keep order)
+        self._e2e_stamps = collections.deque()
         spec = source.payload_spec()
         cap = source.out_capacity(self.batch_size)
+        from ..observability import event_time_enabled
+        et = event_time_enabled(monitoring)
         self.chains: List[CompiledChain] = []
         for seg in segments:
-            chain = CompiledChain(list(seg), spec, batch_capacity=cap, device=self.device)
+            chain = CompiledChain(list(seg), spec, batch_capacity=cap, device=self.device,
+                                  event_time=et)
             chain.label = f"seg{len(self.chains)}"
             spec = chain.out_spec
             for op in chain.ops:
@@ -217,10 +231,17 @@ class ThreadedPipeline:
             with on_stream(stream):
                 batches = (self.source.batches_prefetched(self.batch_size, self.prefetch)
                            if self.prefetch else self.source.batches(self.batch_size))
+                mon = self._monitor
                 for n, batch in enumerate(batches):
                     self._beat("source")
                     _faults.fire("source.next", stage="source", pos=n)
                     record_source_launch(self.source, batch)
+                    _tracing.ingest(batch, n)
+                    if (mon is not None and self.sink is not None
+                            and mon.config.should_sample_e2e(n)):
+                        self._e2e_stamps.append((n, time.perf_counter(),
+                                                 _tracing.tid_of(batch)))
+                    _tracing.event(batch, self.edge_names[0], "enq")
                     q.push(send(batch))
         except BaseException as e:          # noqa: BLE001 — raised by run()
             self._errors.append(e)
@@ -232,13 +253,17 @@ class ThreadedPipeline:
         if self.pin:
             pin_thread(core)
         q_in, q_out = self.queues[i], self.queues[i + 1]
+        edge_in, edge_out = self.edge_names[i], self.edge_names[i + 1]
         stage = f"seg{i}"
         self._beat(stage)
         eos_seen = False
         try:
             with on_stream(stream):
-                runner = GroupRunner(self.chains[i], self._dispatch,
-                                     lambda out: q_out.push(send(out)))
+                def emit(out):
+                    _tracing.event(out, edge_out, "enq")
+                    q_out.push(send(out))
+                runner = GroupRunner(self.chains[i], self._dispatch, emit,
+                                     publish_gauge=False)
                 n = 0
                 while True:
                     self._beat(stage)
@@ -252,7 +277,9 @@ class ThreadedPipeline:
                         break
                     _faults.fire("queue.stall", stage=stage, pos=n)
                     _faults.fire("chain.step", stage=stage, pos=n)
-                    runner.feed(receive(item))
+                    batch = receive(item)
+                    _tracing.event(batch, edge_in, "deq")
+                    runner.feed(batch)
                     n += 1
         except BaseException as e:          # noqa: BLE001
             self._errors.append(e)
@@ -281,8 +308,17 @@ class ThreadedPipeline:
                         break
                     _faults.fire("sink.consume", stage="sink", pos=n)
                     batch = receive(item)
+                    _tracing.event(batch, self.edge_names[-1], "deq")
+                    span = _tracing.service(batch, "sink")
                     if self.sink is not None:
                         self.sink.consume(batch)
+                    if span is not None:
+                        span.done()
+                    stamps = self._e2e_stamps
+                    if stamps and stamps[0][0] == n:
+                        _n, t0, tid = stamps.popleft()
+                        self._monitor.registry.record_e2e(time.perf_counter() - t0,
+                                                          exemplar=tid)
                     n += 1
                 if self.sink is not None:
                     self.sink.consume(None)
@@ -326,12 +362,35 @@ class ThreadedPipeline:
         """Drive the stream to EOS; returns the chains' ``result()``."""
         self.start()
         injector = _faults.resolve(self._faults_arg)
+        from ..observability import Monitor, MonitoringConfig, TraceConfig, Tracer
+        mcfg = MonitoringConfig.resolve(self._monitoring_arg)
+        self._e2e_stamps.clear()            # receipt indices restart at 0
+        if mcfg is not None and self._monitor is None:
+            self._monitor = Monitor(mcfg, self.source.getName() + "-threaded")
+            reg = self._monitor.registry
+            reg.register_operator(self.source)
+            for chain in self.chains:
+                reg.register_chain(chain.label, chain)
+            if self.sink is not None:
+                reg.register_operator(self.sink)
+            for name, q in zip(self.edge_names, self.queues):
+                reg.attach_queue_gauge(name, q.size, capacity=self.edge_capacities[name])
+            self._monitor.start()
+        tcfg = TraceConfig.resolve(self._trace_arg)
+        if tcfg is not None and self._tracer is None:
+            self._tracer = Tracer(tcfg, self.source.getName() + "-threaded").start()
         try:
             with _faults.activate(injector):
                 return self._run()
         finally:
             for chain in self.chains:
                 chain.capture_closed = False
+            if self._monitor is not None:
+                # the final snapshot; no topology target (the export models
+                # Pipeline and PipeGraph shapes)
+                self._monitor.finish()
+            if self._tracer is not None:
+                self._tracer.finish()
 
     def _run(self) -> dict:
         n = len(self.chains)

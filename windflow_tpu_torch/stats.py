@@ -27,56 +27,130 @@ _N_BUCKETS = 54
 class LogHistogram:
     """Log-spaced latency histogram (seconds): a reported percentile is the
     upper bound of its bucket, at most a factor sqrt(2) above the sample.
-    Counterpart of ``windflow_tpu/observability/metrics.py::LogHistogram``."""
+    Thread-safe for concurrent ``record`` (the reporter thread reads while
+    driver threads write). Counterpart of
+    ``windflow_tpu/observability/metrics.py::LogHistogram``."""
 
+    #: shared, immutable upper bounds (seconds); the last bucket is +inf
     BOUNDS: List[float] = [_BASE_S * _GROWTH ** i for i in range(_N_BUCKETS)]
 
     def __init__(self):
         self.counts = [0] * (_N_BUCKETS + 1)      # +1 = overflow bucket
         self.count = 0
         self.sum = 0.0
+        self.min = float("inf")
         self.max = 0.0
+        #: latency exemplars: bucket index -> the LAST trace id that landed
+        #: there (observability/tracing.py) — links a percentile line in the
+        #: snapshot to a concrete traced batch.  Populated only when callers
+        #: pass ``exemplar=`` (tracing on), so the plain path pays one None
+        #: check.
+        self.exemplars: Dict[int, int] = {}
         self._lock = threading.Lock()
 
-    def record(self, seconds: float) -> None:
-        s = max(float(seconds), 0.0)
+    def record(self, seconds: float, exemplar=None) -> None:
+        s = float(seconds)
+        if s < 0.0:
+            s = 0.0
         i = bisect.bisect_left(self.BOUNDS, s)
         with self._lock:
             self.counts[i] += 1
             self.count += 1
             self.sum += s
-            self.max = max(self.max, s)
+            if s < self.min:
+                self.min = s
+            if s > self.max:
+                self.max = s
+            if exemplar is not None:
+                self.exemplars[i] = exemplar
 
     def _snap(self) -> tuple:
+        """One consistent ``(counts, count, sum, min, max, exemplars)``
+        read — the reporter thread summarizes while driver/stage threads
+        record, so every read-side path (incl. the registry's cross-replica
+        merge) works off a locked snapshot instead of walking the live
+        fields (a torn counts/count pair would misplace a percentile, and
+        iterating the live exemplars dict while record() inserts raises;
+        surfaced by the WF260 concurrency lint)."""
         with self._lock:
-            return list(self.counts), self.count, self.sum, self.max
+            return (list(self.counts), self.count, self.sum, self.min,
+                    self.max, dict(self.exemplars))
 
-    @classmethod
-    def _pct_value(cls, counts: List[int], count: int, mx: float, q: float) -> float:
-        """The upper bound of the bucket holding the q-th sample (the observed
-        max for the overflow bucket); 0 when empty."""
+    @staticmethod
+    def _bucket_of(counts: List[int], count: int, q: float) -> Optional[int]:
+        """Index of the bucket holding the q-th sample; None when empty."""
         if not count:
-            return 0.0
+            return None
         target = max(1, int(q / 100.0 * count + 0.5))
         acc = 0
         for i, c in enumerate(counts):
             acc += c
             if acc >= target:
-                return mx if i >= _N_BUCKETS else min(cls.BOUNDS[i], mx)
-        return mx
+                return i
+        return len(counts) - 1
+
+    @classmethod
+    def _pct_value(cls, counts: List[int], count: int, mx: float,
+                   q: float) -> float:
+        """q-th percentile from one snapshot: the upper bound of the bucket
+        holding the q-th sample (overflow bucket -> observed max) — an
+        overestimate by at most one bucket width (factor sqrt(2)).  THE one
+        bucket-to-value rule; percentile() and summary_us() both use it."""
+        i = cls._bucket_of(counts, count, q)
+        if i is None:
+            return 0.0
+        if i >= _N_BUCKETS:                      # overflow bucket
+            return mx
+        return min(cls.BOUNDS[i], mx)
 
     def percentile(self, q: float) -> float:
-        counts, count, _sum, mx = self._snap()
+        """Approximate q-th percentile (q in [0, 100])."""
+        counts, count, _sum, _mn, mx, _ex = self._snap()
         return self._pct_value(counts, count, mx, q)
 
+    def exemplar(self, q: float) -> Optional[int]:
+        """Trace id of the last sample that landed in the q-th percentile's
+        bucket (None when empty or never traced) — THE link from a histogram
+        line to a concrete batch in the flight recorder."""
+        counts, count, _sum, _mn, _mx, exemplars = self._snap()
+        i = self._bucket_of(counts, count, q)
+        return None if i is None else exemplars.get(i)
+
+    @property
+    def mean(self) -> float:
+        _counts, count, total, _mn, _mx, _ex = self._snap()
+        return total / count if count else 0.0
+
     def summary_us(self) -> Dict[str, float]:
-        """p50/p95/p99, mean and max in microseconds, from one snapshot."""
-        counts, count, total, mx = self._snap()
-        pct = lambda q: self._pct_value(counts, count, mx, q)  # noqa: E731
-        return {"p50": round(pct(50) * 1e6, 3), "p95": round(pct(95) * 1e6, 3),
-                "p99": round(pct(99) * 1e6, 3),
-                "mean": round((total / count if count else 0.0) * 1e6, 3),
-                "max": round(mx * 1e6, 3) if count else 0.0, "samples": count}
+        """p50/p95/p99 + mean in microseconds (the snapshot's unit), all
+        computed from ONE consistent snapshot.  When tracing supplied
+        exemplars, ``p99_exemplar`` names the trace id of the last batch
+        that landed in the p99 bucket."""
+        counts, count, total, _mn, mx, exemplars = self._snap()
+        pct = lambda q: self._pct_value(counts, count, mx, q)
+        out = {
+            "p50": round(pct(50) * 1e6, 3),
+            "p95": round(pct(95) * 1e6, 3),
+            "p99": round(pct(99) * 1e6, 3),
+            "mean": round((total / count if count else 0.0) * 1e6, 3),
+            "max": round(mx * 1e6, 3) if count else 0.0,
+            "samples": count,
+        }
+        i99 = self._bucket_of(counts, count, 99)
+        ex = None if i99 is None else exemplars.get(i99)
+        if ex is not None:
+            out["p99_exemplar"] = ex
+        return out
+
+    def prometheus_buckets(self):
+        """Cumulative (le_seconds, count) pairs, Prometheus histogram form."""
+        counts, count, _sum, _mn, _mx, _ex = self._snap()
+        out, acc = [], 0
+        for i, c in enumerate(counts[:_N_BUCKETS]):
+            acc += c
+            out.append((self.BOUNDS[i], acc))
+        out.append((float("inf"), count))
+        return out
 
 
 class Stats_Record:
@@ -105,16 +179,17 @@ class Stats_Record:
         self.batches_received += 1
 
     def record_launch(self, service_time_s: Optional[float] = None, hd_bytes: int = 0,
-                      dh_bytes: int = 0):
+                      dh_bytes: int = 0, exemplar=None):
         """One step launch; ``service_time_s`` is a measured launch-to-
-        completion sample (None on unsampled launches)."""
+        completion sample (None on unsampled launches), ``exemplar`` the
+        trace id of the sampled batch (tracing on)."""
         self.num_kernels += 1
         self.bytes_copied_hd += int(hd_bytes)
         self.bytes_copied_dh += int(dh_bytes)
         if service_time_s is not None:
             self._service_time_sum += float(service_time_s)
             self._service_samples += 1
-            self.service_hist.record(service_time_s)
+            self.service_hist.record(service_time_s, exemplar=exemplar)
 
     @property
     def avg_service_time_us(self) -> float:
