@@ -257,7 +257,35 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     (sorted: a batch's rows arrive shard by shard), with K1/K2 (YSB), K5
     (q3) and K2/K3/K4 (graph) counted a shard's push, and logs ms a batch
     beside the unsharded supervised run's and each shard's restore;
-41. ``monitoring`` (``monitoring_phase``), after every other phase: YSB (8 x
+41. ``control`` (``control_phase``): the control plane and kernel selection.
+    YSB (100 x 2^20, the operators bound at 2^22) under
+    ``Pipeline(control=ControlConfig(decide_every=2, settle_batches=0,
+    cache_path=...))``, the ladder 2^18 .. 2^22: the windows of the same run
+    uncontrolled, one first run a rung at prewarm in the capture ledger and
+    none after (no unexpected recapture), K1 and K2 once a push plus once a
+    rung's warm step, a converged plan persisted in the tuning cache, each
+    rung's host ms a push as the tuner measured it and its captured ms a
+    push (a K = 2 graph replayed); a second run warm-starts (one cache hit,
+    no switch, the key's device kind ``gpu:<card>``). Then ``dispatch={"k":
+    4}`` under control: the K ladder's graphs captured at prewarm, the
+    dispatch-off windows. Kernel selection: every family resolves ``cuda``
+    by default and the main path's records hold only ``cuda``; YSB built
+    under ``WF_KERNEL_IMPL=torch`` gives phase 4's rows with no hand-kernel
+    launch; ``impl="cuda"`` on a CPU tensor raises; a graph captured before
+    the change is named by ``stale_selections()`` and its replay counts the
+    K1 and K2 it captured. The governor: a fast source straight into a slow
+    sink through ``ThreadedPipeline`` (one ring of 8, watermarks 0.5/0.25,
+    admission at 20,000 tuples/s) keeps the ring at or below 5 while
+    throttling and shedding, and without control the ring pegs at 8; the
+    governed threaded
+    ``graph_windows`` gives phase 17's windows with K2, K3, K4 and K6 as
+    counted. q3 (16 x 2^14) under supervised admission (``refill_per_batch``
+    = half a batch, a checkpoint every 2): a fault plan replays to the clean
+    run's rows, shed positions and bucket; with ``remediation=True`` the
+    barrier remediation fires and the faulted replay decides the same;
+    ``shards=2, reshard="auto"`` gives the ``nexmark`` phase's q3 rows
+    (sorted);
+42. ``monitoring`` (``monitoring_phase``), after every other phase: YSB (8 x
     2^20) captured at ``DISPATCH_K["ysb"]`` with ``Pipeline(monitoring=,
     trace=)`` (event time, health, a trace sampling every 4th batch; the
     artifacts under ``build/monitoring``, removed after), against the same
@@ -275,7 +303,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     crosses and one service span a pipe, ``to_chrome_trace`` as JSON; YSB
     supervised with one ``chain.step`` fault and ``trace=``: phase 4's rows
     and the failed attempt's span closed ``aborted: restore``;
-42. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+43. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
     paths, each counted from zero just before it), then the result line
@@ -2514,13 +2542,13 @@ def graph_windows_oracle(np, total, keys, win_len, slide):
 
 
 def graph_windows(torch, wt, total, keys, win_len, slide, batch, cb, device=None,
-                  dispatch=False, trace=None):
+                  dispatch=False, trace=None, control=False):
     """split (id % 3) -> branches 0 and 1 (a Map each) merged partially in
     DETERMINISTIC mode -> CB Win_Seq sum -> Sink; branch 2 counted by a
     ReduceSink. Returns (graph, source pipe, merged pipe)."""
     kw = {} if device is None else {"device": device}
     g = wt.PipeGraph("graph_windows", mode=wt.Mode.DETERMINISTIC, batch_size=batch,
-                     dispatch=dispatch, trace=trace, **kw)
+                     dispatch=dispatch, trace=trace, control=control, **kw)
     mp = g.add_source(wt.DeviceSource(lambda i: {"v": (i % 97).to(torch.float32)},
                                       total=total, num_keys=keys, **kw))
     mp.split(lambda t: (t.id % 3).to(torch.int32), 3)
@@ -4782,7 +4810,7 @@ def replay_ms(torch, chain, batches):
 
 def monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref, ysb_launches,
                      gw_rows):
-    """Phase 41 (see the module docstring). ``ysb_ref``: phase 4's sink rows
+    """Phase 42 (see the module docstring). ``ysb_ref``: phase 4's sink rows
     (``flat_bytes``), ``ysb_launches``: its launches, ``gw_rows``: phase 17's
     windows. Returns the monitored YSB run's launches."""
     import shutil
@@ -4968,6 +4996,443 @@ def monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref, ysb_launches,
 
 
 
+CTL_BATCHES = 100         # control: batches of each controlled YSB run (2^20 each)
+CTL_DIR = os.path.join(ROOT, "build", "control")
+CTL_Q3_EVERY = 2          # control: supervised q3's checkpoint interval
+CTL_OVERLOAD_BATCHES = 50  # control: the overload run's batches of 32 tuples
+CTL_OVERLOAD_SLEEP_S = 0.004  # and its sink's sleep a batch
+
+
+def control_ysb_runs(torch, np, wt, ysb, registry, card):
+    """The controlled YSB runs of ``control_phase``: the uncontrolled
+    reference, the capacity ladder 2^18 .. 2^22 (one first run a rung at
+    prewarm, none after), its warm start from the tuning cache, and the
+    dispatch K tuner. Returns the controlled run's launches."""
+    import shutil
+    from windflow_tpu_torch import control as C
+    from windflow_tpu_torch.observability import device_health as dh
+
+    shutil.rmtree(CTL_DIR, ignore_errors=True)
+    os.makedirs(CTL_DIR)
+    total = CTL_BATCHES * BATCH
+    ladder = C.build_ladder(BATCH, up=2, down=2)
+    geometry = ysb.bench_geometry(ladder[-1])
+
+    def run(control, dispatch=False, ledger=None):
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(ysb.make_source(total), ysb.make_ops(**geometry), wt.Sink(cb),
+                           batch_size=BATCH, control=control, dispatch=dispatch)
+        chain = pipe.chain
+        pushes, warms = {}, []
+        push, warm = chain.push, chain.warm
+
+        def counted_push(batch, from_op=0):
+            if from_op == 0:
+                pushes[batch.capacity] = pushes.get(batch.capacity, 0) + 1
+            return push(batch, from_op=from_op)
+
+        def timed_warm(capacity):
+            t0 = time.perf_counter()
+            warm(capacity)
+            torch.cuda.synchronize()
+            warms.append((capacity, time.perf_counter() - t0))
+        chain.push, chain.warm = counted_push, timed_warm
+        C.reset()
+        dh.set_active(ledger)
+        try:
+            launches, dt, peak = run_pipeline(torch, registry, pipe)
+        finally:
+            dh.set_active(None)
+        return dict(pipe=pipe, parts=parts, launches=launches, run_s=dt, peak=peak,
+                    pushes=pushes, warms=warms, counters=C.counters(), gauges=C.gauges())
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+    def windows(parts):
+        # every (key, window, count) row, sorted: the rebatched runs fire
+        # the same windows at other pushes
+        return flat_bytes(np, sorted_rows(np, parts))
+    ref = run(False)
+    lap("ref_run")
+    want = windows(ref["parts"])
+    lap("ref_rows")
+    cache = os.path.join(CTL_DIR, "tuning.json")
+    cfg = C.ControlConfig(decide_every=2, settle_batches=0, cache_path=cache)
+    ledger = dh.HealthLedger()
+    tuned = run(cfg, ledger=ledger)
+    lap("tuned_run")
+    tuner = tuned["pipe"].tuner
+    plan = tuner.plan()
+    health = ledger.snapshot_section()
+    notes = [r for r in health["compile_log"] if r["from_op"] == 0 and r["kind"] == "step"]
+    key = C.tuning_key(C.chain_signature(tuned["pipe"].chain.ops),
+                       C.payload_signature(tuned["pipe"].chain.specs[0]),
+                       C.device_kind(torch.device("cuda")))
+    entry = json.load(open(cache)).get(key) if os.path.exists(cache) else None
+    warm = run(cfg)
+    lap("warm_run")
+    wtuner = warm["pipe"].tuner
+    pushed = sum(tuned["pushes"].values())
+    row = {"phase": "control_ysb", "card": card, "batches": CTL_BATCHES, "batch": BATCH,
+           "ladder": ladder, "geometry": geometry, "plan": plan["capacity"],
+           "converged": plan["converged"],
+           "host_ms_per_push": {str(c): c / r * 1e3 for c, r in plan["rates"].items()},
+           "host_ms_per_2_20": {str(c): BATCH / r * 1e3 for c, r in plan["rates"].items()},
+           "prewarm_s": {str(c): s for c, s in tuned["warms"]},
+           "pushes_by_capacity": {str(c): n for c, n in sorted(tuned["pushes"].items())},
+           "launches": tuned["launches"], "run_s": tuned["run_s"], "ref_run_s": ref["run_s"],
+           "counters": tuned["counters"], "gauges": tuned["gauges"],
+           "ledger_compile": health["compile"],
+           "ledger_step_notes": [(r["capacity"], r["cause"]) for r in notes],
+           "device_kind": C.device_kind(torch.device("cuda")), "cache_entry": entry,
+           "warm_start": {"capacity": wtuner.capacity, "counters": warm["counters"],
+                          "prewarm": [c for c, _ in warm["warms"]], "run_s": warm["run_s"]},
+           "peak_mib": tuned["peak"] / 2 ** 20}
+    same = windows(tuned["parts"]) == want and windows(warm["parts"]) == want
+    lap("rows")
+    log(dict(row, step_s=laps))
+    if not same:
+        raise AssertionError("control_ysb: windows differ from the uncontrolled run's")
+    if sorted(c for c, _ in tuned["warms"]) != ladder:
+        raise AssertionError(f"control_ysb: prewarm {tuned['warms']}, ladder {ladder}")
+    if (sorted(r["capacity"] for r in notes) != ladder
+            or {r["cause"] for r in notes} != {"autotune_prewarm"}
+            or health["compile"]["retraces_unexpected"]):
+        raise AssertionError(f"control_ysb: capture ledger {notes}, {health['compile']}")
+    for name in ("histogram", "lookup"):
+        if tuned["launches"][name] != pushed + len(ladder):
+            raise AssertionError(f"control_ysb: {name} launched {tuned['launches'][name]}, "
+                                 f"{pushed} pushes and {len(ladder)} warm steps")
+    if not (plan["converged"] and entry and entry["capacity"] == plan["capacity"]
+            and tuned["counters"]["capacity_switches"] > 0):
+        raise AssertionError(f"control_ysb: plan {plan}, cache entry {entry}")
+    if not (warm["counters"]["tuning_cache_hits"] == 1
+            and warm["counters"]["capacity_switches"] == 0
+            and wtuner.capacity == plan["capacity"] and wtuner.cache_key == key
+            and C.device_kind(torch.device("cuda")).startswith("gpu:")):
+        raise AssertionError(f"control_ysb: warm start {warm['counters']}, "
+                             f"rung {wtuner.capacity}")
+
+    # each rung's captured ms a batch: a K = 2 graph at that capacity on a
+    # chain bound at the top rung, replayed
+    chain = wt.CompiledChain(ysb.make_ops(**geometry), ysb.make_source(1).payload_spec(),
+                             batch_capacity=ladder[-1])
+    lap("rung_chain")
+    per_rung, rung_s = {}, {}
+    for c in ladder:
+        t0 = time.perf_counter()
+        batches = list(ysb.make_source(2 * c).batches(c))
+        per_rung[str(c)] = replay_ms(torch, chain, batches)
+        rung_s[str(c)] = time.perf_counter() - t0
+    lap("rungs")
+    log({"phase": "control_ysb_rungs", "card": card, "step_s": rung_s,
+         "captured_ms_per_push": per_rung,
+         "captured_ms_per_2_20": {c: ms * BATCH / int(c) for c, ms in per_rung.items()}})
+
+    kcfg = C.ControlConfig(ladder_up=0, ladder_down=0, decide_every=2, settle_batches=0,
+                           cache_path=os.path.join(CTL_DIR, "tuning_k.json"))
+    kled = dh.HealthLedger()
+    krun = run(kcfg, dispatch={"k": 4}, ledger=kled)
+    lap("k_run")
+    kpipe = krun["pipe"]
+    kplan = kpipe.ktuner.plan()
+    scans = [r for r in kled.snapshot_section()["compile_log"] if r["kind"] == "scan"]
+    prewarmed = sorted(r["k"] for r in scans if r["cause"] == "autotune_prewarm")
+    log({"phase": "control_dispatch_k", "card": card, "batches": CTL_BATCHES,
+         "k_ladder": kplan["ladder"], "plan": kplan["capacity"],
+         "converged": kplan["converged"],
+         "host_ms_per_batch": {str(k): BATCH / r * 1e3 for k, r in kplan["rates"].items()},
+         "prewarmed_k": prewarmed,
+         "graph_replays": {f"k{kk}": g.replays for (_, kk, _), g in kpipe.chain.graphs.items()},
+         "launches": krun["launches"], "run_s": krun["run_s"],
+         "gauges": krun["gauges"], "counters": krun["counters"], "step_s": laps})
+    if windows(krun["parts"]) != want:
+        raise AssertionError("control_dispatch_k: windows differ from dispatch off")
+    if prewarmed != [2, 4]:
+        raise AssertionError(f"control_dispatch_k: K ladder prewarmed as {prewarmed}")
+    for name in ("histogram", "lookup"):
+        if krun["launches"][name] != CTL_BATCHES + 1:
+            raise AssertionError(f"control_dispatch_k: {name} launched "
+                                 f"{krun['launches'][name]} times")
+    shutil.rmtree(CTL_DIR, ignore_errors=True)
+    return tuned["launches"]
+
+
+def control_selection_checks(torch, np, wt, ysb, registry, card, ysb_ref):
+    """Kernel selection on the card: every family resolves ``cuda`` by
+    default; a YSB chain built under ``WF_KERNEL_IMPL=torch`` gives phase 4's
+    rows with no hand-kernel launch; ``impl="cuda"`` on a CPU tensor
+    raises; a graph captured before the env changed is named by
+    ``stale_selections`` and its replays count the kernels it captured."""
+    from windflow_tpu_torch.observability import names
+    from windflow_tpu_torch.ops.histogram import keyed_pane_histogram
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+    defaults = {k: registry.resolve_impl(k, device=torch.device("cuda"), record=False)
+                for k in names.KERNELS}
+    recorded = {k: sorted(v) for k, v in registry.trace_records().items()
+                if k[2].startswith("gpu:")}
+    families = sorted({k[0] for k in recorded})
+    if set(defaults.values()) != {"cuda"} or families != sorted(names.KERNELS) or \
+            any(v != ["cuda"] for v in recorded.values()):
+        raise AssertionError(f"control_selection: defaults {defaults}, records {recorded}")
+    lap("defaults")
+    chain = wt.CompiledChain(ysb.make_ops(**ysb.bench_geometry(BATCH)),
+                             ysb.make_source(1).payload_spec(), batch_capacity=BATCH)
+    chain.warm_scan(2, BATCH)                    # captured under the default
+    graph = chain.graphs[(0, 2, BATCH)]
+    lap("capture")
+    old = os.environ.get("WF_KERNEL_IMPL")
+    os.environ["WF_KERNEL_IMPL"] = "torch"
+    try:
+        parts, cb = collect_sink()
+        pipe = wt.Pipeline(ysb.make_source(YSB_BATCHES * BATCH),
+                           ysb.make_ops(**ysb.bench_geometry(BATCH)), wt.Sink(cb),
+                           batch_size=BATCH)
+        lap("forced_build")
+        forced, dt, _ = run_pipeline(torch, registry, pipe)
+        same = flat_bytes(np, parts) == ysb_ref
+        lap("forced_run")
+        stale = [r for r in registry.stale_selections() if graph.name in r.get("graphs", ())]
+        lap("stale")
+        batches = list(ysb.make_source(2 * BATCH).batches(BATCH))
+        registry.reset_launches()
+        chain.push_many(batches)
+        torch.cuda.synchronize()
+        replayed = registry.launch_counts()
+        lap("replay")
+    finally:
+        if old is None:
+            os.environ.pop("WF_KERNEL_IMPL")
+        else:
+            os.environ["WF_KERNEL_IMPL"] = old
+    try:
+        keyed_pane_histogram(torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int32),
+                             torch.ones(8, dtype=torch.bool), 2, 4, impl="cuda")
+        refused = False
+    except ValueError:
+        refused = True
+    log({"phase": "control_selection", "card": card, "defaults": defaults,
+         "recorded_families": families, "forced_torch_launches": forced,
+         "forced_torch_rows_byte_identical": same, "forced_torch_run_s": dt,
+         "stale_of_graph": stale, "graph": graph.name, "graph_launches": graph.launches,
+         "replay_launches": replayed, "cuda_on_cpu_refused": refused, "step_s": laps})
+    if not same or any(forced.values()):
+        raise AssertionError(f"control_selection: forced torch rows {same}, launches {forced}")
+    if not stale or {r["recorded"] for r in stale} != {"cuda"} or \
+            {r["current"] for r in stale} != {"torch"}:
+        raise AssertionError(f"control_selection: stale selections {stale}")
+    want = {k: 2 if k in ("histogram", "lookup") else 0 for k in replayed}
+    if replayed != want or graph.launches != {"histogram": 2, "lookup": 2}:
+        raise AssertionError(f"control_selection: replay launches {replayed}")
+    if not refused:
+        raise AssertionError("control_selection: impl='cuda' on a CPU tensor ran")
+
+
+def overload_run(torch, wt, control):
+    """A fast source straight into a slow sink through ``ThreadedPipeline``
+    (one ring of 8, the one the governor bounds: it throttles the source, so
+    a stage between two rings would forward what the first held into the
+    second): (batches delivered, the deepest ring seen, the pipeline)."""
+    import threading
+    got, depth = [0], [0]
+
+    def sink(v):
+        if v is not None:
+            time.sleep(CTL_OVERLOAD_SLEEP_S)
+            got[0] += 1
+    tp = wt.ThreadedPipeline(wt.Source(lambda i: {"v": i.float()},
+                                       total=CTL_OVERLOAD_BATCHES * 32),
+                             [], wt.Sink(sink), batch_size=32, pin=False, queue_capacity=8,
+                             control=control)
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            depth[0] = max(depth[0], *tp.queue_depths().values())
+            time.sleep(0.0005)
+    w = threading.Thread(target=watch)
+    w.start()
+    try:
+        tp.run()
+    finally:
+        stop.set()
+        w.join()
+    return got[0], depth[0], tp
+
+
+def control_governor_checks(torch, np, wt, registry, card, gw_rows):
+    """The governor on the card: overload bounded at the high watermark (+1)
+    with shedding under control, the ring pegged at capacity without; the
+    governed threaded ``graph_windows`` gives the serial run's windows, K2,
+    K3 and K6 once a Win_Seq apply and K4 as the node called it. Returns
+    the governed graph's launches."""
+    from windflow_tpu_torch import control as C
+    from windflow_tpu_torch.ops import bitonic as B
+
+    C.reset()
+    # admitted faster than the sink drains (32 tuples / 4 ms), slower than the
+    # source makes them: the governor throttles and the bucket sheds
+    on = C.ControlConfig(autotune=False, backpressure=True, high_watermark=0.5,
+                         low_watermark=0.25, admission=True, rate_tps=20000.0,
+                         burst_tuples=64.0)
+    got_on, depth_on, tp = overload_run(torch, wt, on)
+    c_on = C.counters()
+    C.reset()
+    got_off, depth_off, _ = overload_run(torch, wt, False)
+    c_off = C.counters()
+    log({"phase": "control_overload", "card": card, "batches": CTL_OVERLOAD_BATCHES,
+         "queue_capacity": 8, "high": 4, "delivered_on": got_on, "max_depth_on": depth_on,
+         "delivered_off": got_off, "max_depth_off": depth_off,
+         "shed_batches": c_on["shed_batches"], "throttle_events": c_on["throttle_events"],
+         "throttle_s": c_on["throttle_seconds"]})
+    if (depth_on > 5 or c_on["shed_batches"] <= 0 or c_on["throttle_events"] <= 0
+            or got_on >= CTL_OVERLOAD_BATCHES):
+        raise AssertionError(f"control_overload: depth {depth_on}, counters {c_on}")
+    if depth_off < 8 or got_off != CTL_OVERLOAD_BATCHES or any(c_off.values()):
+        raise AssertionError(f"control_overload off: depth {depth_off}, {got_off} delivered")
+
+    C.reset()
+    parts, cb = collect_sink()
+    gov = C.ControlConfig(autotune=False, backpressure=True, high_watermark=0.5,
+                          low_watermark=0.25)
+    g, mp, m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE, GW_BATCH,
+                             cb, control=gov)
+    op = m.ops[0]
+    inner, flushes = op.flush, []
+
+    def flush(state):
+        flushes.append(1)
+        return inner(state)
+    op.flush = flush
+    try:
+        launches, dt, _ = counted_run(torch, registry, lambda: g.start(threaded=True),
+                                      g.wait_end)
+    finally:
+        del op.flush
+    got = as_dict(np, parts)
+    calls, _ = k4_launches(B, m._ordering.networks)
+    applies = m._chain._push_count
+    expect = dict.fromkeys(registry.KERNELS, 0)
+    expect.update(lookup=applies, segment_fold=applies, ordering_merge=calls,
+                  masked_window_reduce=applies + len(flushes))
+    c = C.counters()
+    log({"phase": "control_graph_windows", "card": card, "threaded": True,
+         "batch": GW_BATCH, "tuples": GW_TOTAL, "windows": len(got), "run_s": dt,
+         "launches": launches, "throttle_events": c["throttle_events"],
+         "throttle_s": c["throttle_seconds"], "gauges": C.gauges()})
+    if got != gw_rows:
+        raise AssertionError("control_graph_windows: windows differ from the serial run's")
+    if launches != expect:
+        raise AssertionError(f"control_graph_windows: launches {launches}, expected {expect}")
+    return launches
+
+
+def control_supervised_checks(torch, np, wt, registry, card, q3_views):
+    """q3 under supervised admission: a seeded fault plan replays to the
+    clean run's rows and shed decisions; with ``remediation=True`` the
+    barrier remediation fires and the faulted replay takes the same
+    decisions; ``shards=2, reshard="auto"`` gives the unsharded rows
+    (sorted). Returns the clean admission run's launches."""
+    from windflow_tpu_torch import control as C
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.observability import journal as J
+    from windflow_tpu_torch.runtime import faults as F
+
+    def rows(views):
+        return [(v["key"], v["id"], np.stack([np.asarray(v["payload"][f])
+                                              for f in sorted(v["payload"])], 1))
+                for v in views if v is not None]
+
+    def run(faults=None, remediation=None, **kw):
+        views, path = [], os.path.join(CTL_DIR, "q3.jsonl")
+        os.makedirs(CTL_DIR, exist_ok=True)
+        src, ops = make_query("q3_enrich_join", NEX_BATCHES * NEX_BATCH)
+        cfg = C.ControlConfig(autotune=False, backpressure=False, admission=True,
+                              refill_per_batch=0.5 * NEX_BATCH, burst_tuples=2 * NEX_BATCH)
+        sp = wt.SupervisedPipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
+                                   checkpoint_every=CTL_Q3_EVERY, faults=faults,
+                                   remediation=remediation, max_restarts=16,
+                                   control=None if kw else cfg, **kw, **SUP_BACKOFF)
+        j = J.EventJournal(path)
+        J.set_active(j)
+        C.reset()
+        F.reset_counters()
+        try:
+            launches, dt, _ = counted_run(torch, registry, sp.start, sp.run)
+        finally:
+            J.set_active(None)
+            j.close()
+        recs = J.read_journal(path)
+        sheds = sorted({r["pos"] for r in recs if r["event"] == "shed"})
+        applies = sorted({(r["pos"], r["action"], r.get("rate")) for r in recs
+                          if r["event"] == "remediation_apply"})
+        reshards = [r for r in recs if r["event"] == "reshard"]
+        rem = sp._remediation.state() if sp._remediation is not None else None
+        return dict(rows=rows(views), sheds=sheds, applies=applies, rem=rem, sp=sp,
+                    launches=launches, run_s=dt, reshards=reshards,
+                    adm=sp._admission.state() if sp._admission is not None else None)
+
+    def plan():
+        return F.FaultPlan([F.FaultSpec("chain.step", at=[3, 7]),
+                            F.FaultSpec("sink.consume", at=[2])], seed=7)
+    clean, faulted = run(), run(plan())
+    rclean, rfaulted = run(remediation=True), run(plan(), remediation=True)
+    auto = run(shards=2, reshard="auto")
+    same = flat_bytes(np, faulted["rows"]) == flat_bytes(np, clean["rows"])
+    rsame = flat_bytes(np, rfaulted["rows"]) == flat_bytes(np, rclean["rows"])
+    auto_same = (flat_bytes(np, sorted_rows(np, auto["rows"]))
+                 == flat_bytes(np, sorted_rows(np, rows(q3_views))))
+    log({"phase": "control_supervised_q3", "card": card, "batches": NEX_BATCHES,
+         "batch": NEX_BATCH, "checkpoint_every": CTL_Q3_EVERY,
+         "shed_positions": clean["sheds"], "restarts_faulted": faulted["sp"].restarts,
+         "rows_equal_under_faults": same, "sheds_equal": faulted["sheds"] == clean["sheds"],
+         "admission_state": clean["adm"], "remediation_applies": rclean["applies"],
+         "remediation_state": rclean["rem"], "restarts_remediation": rfaulted["sp"].restarts,
+         "remediation_rows_equal": rsame, "auto_rows_equal_unsharded": auto_same,
+         "auto_reshards": len(auto["reshards"]),
+         "run_s": {"clean": clean["run_s"], "faulted": faulted["run_s"],
+                   "remediation": rclean["run_s"], "remediation_faulted": rfaulted["run_s"],
+                   "auto": auto["run_s"]},
+         "launches": clean["launches"], "auto_launches": auto["launches"]})
+    if not (same and faulted["sheds"] == clean["sheds"] and clean["sheds"]
+            and faulted["adm"] == clean["adm"] and faulted["sp"].restarts > 0):
+        raise AssertionError("control_supervised_q3: the faulted run's rows or sheds differ")
+    if not (rclean["applies"] and rsame and rfaulted["applies"] == rclean["applies"]
+            and rfaulted["rem"] == rclean["rem"]):
+        raise AssertionError(f"control_supervised_q3: remediation {rclean['applies']} "
+                             f"vs {rfaulted['applies']}")
+    if not auto_same:
+        raise AssertionError("control_supervised_q3: reshard='auto' rows differ")
+    pushed = clean["adm"]["admitted"]
+    if clean["launches"] != {**dict.fromkeys(registry.KERNELS, 0), "join_probe": 2 * pushed}:
+        raise AssertionError(f"control_supervised_q3: launches {clean['launches']}, "
+                             f"{pushed} pushes")
+    return clean["launches"]
+
+
+def control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows, q3_views):
+    """Phase 41 (see the module docstring): the control plane and kernel
+    selection on the card. Returns the launches of its main paths."""
+    t0 = time.perf_counter()
+    launches = {"ysb": control_ysb_runs(torch, np, wt, ysb, registry, card)}
+    control_selection_checks(torch, np, wt, ysb, registry, card, ysb_ref)
+    launches["graph_windows"] = control_governor_checks(torch, np, wt, registry, card,
+                                                        gw_rows)
+    launches["q3"] = control_supervised_checks(torch, np, wt, registry, card, q3_views)
+    log({"phase": "control", "card": card, "seconds": time.perf_counter() - t0})
+    return {name: sum(d[name] for d in launches.values()) for name in registry.KERNELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5032,7 +5497,6 @@ def main() -> int:
     nex_launches, q3_views = nexmark_pipeline_phase(torch, np, wt, registry)
     sq_launches = supervised_q3_phase(torch, np, wt, registry, card, q3_views)
     shq_launches = sharded_q3_phase(torch, np, wt, registry, card, q3_views)
-    del q3_views
     nexmark_loop_phase(torch, wt, card, args.profile)
     ng_launches = nexmark_graph_phase(torch, np, wt, registry, card)
     q3_pipeline_phase(torch, np, wt, registry)
@@ -5071,6 +5535,9 @@ def main() -> int:
     tiered_inputs_phase(torch, np, wt, card)
     fetch_row = cold_fetch_phase(torch, np, card)
     tq4_launches = tiered_q4_phase(torch, np, wt, registry, card)
+    ctl_launches = control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows,
+                                 q3_views)
+    del q3_views
     mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
                                     main_launches, gw_rows)
 
@@ -5088,7 +5555,8 @@ def main() -> int:
              "tiered_queries": tqs_launches, "tiered_recovery": tr_launches,
              "tiered_rotating": trot_launches, "tiered_q4": tq4_launches,
              "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
-             "sharded_graph": shg_launches, "monitoring_ysb": mon_launches}
+             "sharded_graph": shg_launches, "control": ctl_launches,
+             "monitoring_ysb": mon_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

@@ -24,7 +24,7 @@ from windflow_tpu_torch.batch import stack_batches, tree_leaves, unstack_batches
 from windflow_tpu_torch.benchmarks import device_cursor_step
 from windflow_tpu_torch.benchmarks import ysb as tysb
 from windflow_tpu_torch.runtime.dispatch import (DispatchConfig, MicrobatchAccumulator,
-                                                 build_k_ladder, refuse_k_tuner)
+                                                 build_k_ladder)
 
 TOTAL, NKEYS = 240, 3
 CPU = {"device": "cpu"}
@@ -142,16 +142,40 @@ def test_dispatch_config_resolve_forms(monkeypatch, tmp_path):
         DispatchConfig(linger_s=-1)
 
 
-def test_k_tuner_is_refused_while_the_control_plane_is_asked_for(monkeypatch):
-    monkeypatch.delenv("WF_CONTROL", raising=False)
-    refuse_k_tuner(DispatchConfig(k=4))
-    monkeypatch.setenv("WF_CONTROL", "1")
-    refuse_k_tuner(DispatchConfig(k=4, autotune_k=False))
-    refuse_k_tuner(DispatchConfig(k=1))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        refuse_k_tuner(DispatchConfig(k=4))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _run_pipeline(4)
+def test_k_tuner_runs_under_the_control_plane_and_matches_jax(monkeypatch):
+    """With ``WF_CONTROL`` on (autotune off, so only the K ladder climbs) the
+    dispatch K tuner runs in both packages: rows equal dispatch off, and the
+    K decisions (``capacity_switch`` records on the K tuner, the ``dispatch_k``
+    gauge) equal the JAX package's under a forced switch every window."""
+    from windflow_tpu import control as jcontrol
+    from windflow_tpu_torch import control as tcontrol
+    monkeypatch.delenv("WF_DISPATCH", raising=False)
+    monkeypatch.delenv("WF_DISPATCH_K", raising=False)
+    base = _run_pipeline(None)
+    cfg = json.dumps({"ladder_up": 0, "ladder_down": 0, "decide_every": 1,
+                      "settle_batches": 0, "improve_threshold": -1.0})
+    monkeypatch.setenv("WF_CONTROL", cfg)
+    for ctl in (jcontrol, tcontrol):
+        # a clock that advances one second a read: the windows' rates are
+        # functions of the batches alone, so both packages decide alike
+        class Tuner(ctl.CapacityAutotuner):
+            def __init__(self, *a, **kw):
+                t = [0.0]
+
+                def clock():
+                    t[0] += 1.0
+                    return t[0]
+                super().__init__(*a, **dict(kw, clock=clock))
+        monkeypatch.setattr(ctl, "CapacityAutotuner", Tuner)
+    gauges = {}
+    for pkg, ctl in (("jax", jcontrol), ("port", tcontrol)):
+        ctl.reset()
+        got = _run_pipeline(4, wf if pkg == "jax" else wt)
+        gauges[pkg] = (ctl.gauges().get("dispatch_k"), ctl.counters()["capacity_switches"],
+                       ctl.counters()["tuning_decisions"])
+        assert sorted(got) == sorted(base)
+        ctl.reset()
+    assert gauges["port"] == gauges["jax"] and gauges["port"][1] >= 1
 
 
 def test_build_k_ladder():

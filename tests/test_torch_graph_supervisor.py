@@ -235,7 +235,8 @@ def test_graph_watchdog_step_timeout_recovers():
 def test_graph_unported_supervision_raises_by_name(monkeypatch):
     """Sharding runs on the graph driver (item 14's single-card half), a
     multi-host ``shard_range=`` is refused as in the JAX package, and the
-    control plane (item 15) raises by name."""
+    control plane runs: ``control=True`` (admission off) gives the plain
+    rows, the wall-clock bucket is refused as in the JAX package."""
     got = []
     g = _one_pipe(collect(got), "refuse", lambda t: {"v": t.v})
     g.run_supervised(shards=2, backoff_base=0.0)
@@ -243,8 +244,13 @@ def test_graph_unported_supervision_raises_by_name(monkeypatch):
     g = _one_pipe(collect([]), "refuse", lambda t: {"v": t.v})
     with pytest.raises(ValueError, match="shard_range"):
         g.run_supervised(shard_range=(0, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        g.run_supervised(control=True)
+    ctl = []
+    g = _one_pipe(collect(ctl), "refuse", lambda t: {"v": t.v})
+    g.run_supervised(control=True, backoff_base=0.0)
+    assert sorted(ctl) == sorted(got)
+    g = _one_pipe(collect([]), "refuse", lambda t: {"v": t.v})
+    with pytest.raises(ValueError, match="refill_per_batch"):
+        g.run_supervised(control={"admission": True, "rate_tps": 100.0})
     monkeypatch.setenv("WF_SHARDS", "2")
     g = _one_pipe(collect([]), "refuse", lambda t: {"v": t.v})
     g.run_supervised(backoff_base=0.0)

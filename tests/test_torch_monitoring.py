@@ -395,21 +395,49 @@ def test_monitoring_config_resolves_like_jax(monkeypatch):
 
 @pytest.mark.parametrize("field, var, item", [
     ("slo", "WF_SLO", "16b"), ("profile", "WF_PROFILE", "16b"),
-    ("telemetry", "WF_TELEMETRY", "16b"), ("remediation", "WF_REMEDIATION", "15")])
+    ("telemetry", "WF_TELEMETRY", "16b"), ("remediation", "WF_REMEDIATION", None)])
 def test_unported_sub_toggles_refused_by_name(monkeypatch, field, var, item):
+    """slo, profile and telemetry raise naming item 16b; live remediation
+    (it consumes the SLO engine's verdicts) raises the JAX package's
+    ValueError while slo is off."""
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    err = ((NotImplementedError, f"Queue 1 item {item}") if item
+           else (ValueError, "SLO engine"))
+    with pytest.raises(err[0], match=err[1]):
         MonitoringConfig.resolve(MonitoringConfig(**{field: True}))
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    with pytest.raises(err[0], match=err[1]):
         MonitoringConfig.resolve(True)
 
 
+def test_remediation_without_slo_raises_the_jax_error(monkeypatch):
+    """``MonitoringConfig(remediation=True)`` with slo off raises the JAX
+    package's ValueError, word for word; with slo on, item 16b's refusal
+    comes first."""
+    from windflow_tpu.observability import MonitoringConfig as JMonitoringConfig
+    for k in ENV:
+        monkeypatch.delenv(k, raising=False)
+    msgs = []
+    for M in (JMonitoringConfig, MonitoringConfig):
+        with pytest.raises(ValueError) as e:
+            M.resolve(M(remediation=True))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
+        MonitoringConfig.resolve(MonitoringConfig(remediation=True, slo=True))
+
+
 def test_control_refused_by_name():
-    src, ops = scenario("port", "q3")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        wt.Pipeline(src, ops, control=True, **CPU)
+    """``control=`` runs (it was refused before the control plane was
+    ported): q3 under ``control=True`` gives the rows of ``control=False``."""
+    rows = {}
+    for ctl in (False, True):
+        src, ops = scenario("port", "q3")
+        rows[ctl] = []
+        wt.Pipeline(src, ops, wt.Sink(rows_into(rows[ctl]), **CPU), control=ctl,
+                    **CPU).run()
+    assert rows[True] == rows[False] and rows[True]
 
 
 # -------------------------------------------------------------- device health
@@ -526,8 +554,12 @@ def test_name_registries_equal_jax():
     from windflow_tpu.observability import names as jnames
     from windflow_tpu_torch.observability import names as tnames
     copied = [k for k in dir(tnames) if k.isupper()]
-    assert {"CONTROL_COUNTERS", "EVENT_TIME_GAUGES", "HEALTH_GAUGES", "STAGE_COUNTERS",
-            "STAGE_GAUGES", "SHARD_GAUGES", "RECOVERY_COUNTERS"} <= set(copied)
+    assert {"CONTROL_COUNTERS", "CONTROL_GAUGES", "EVENT_TIME_GAUGES", "HEALTH_GAUGES",
+            "JOURNAL_EVENTS", "KERNELS", "STAGE_COUNTERS", "STAGE_GAUGES",
+            "SHARD_GAUGES", "RECOVERY_COUNTERS"} <= set(copied)
+    # the implementation names are the port's own (a standing difference)
+    assert tnames.KERNEL_IMPLS == ("torch", "cuda")
     for k in copied:
-        assert getattr(tnames, k) == getattr(jnames, k), k
+        if k != "KERNEL_IMPLS":
+            assert getattr(tnames, k) == getattr(jnames, k), k
     assert set(tcontrol.counters()) == set(tnames.CONTROL_COUNTERS)

@@ -54,7 +54,10 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.observability.device_health",
            "windflow_tpu_torch.observability.metrics",
            "windflow_tpu_torch.observability.reporter",
-           "windflow_tpu_torch.observability.topology"]
+           "windflow_tpu_torch.observability.topology",
+           "windflow_tpu_torch.control.autotune", "windflow_tpu_torch.control.admission",
+           "windflow_tpu_torch.control.governor", "windflow_tpu_torch.control.remediation",
+           "windflow_tpu_torch.control.config", "windflow_tpu_torch.ops.registry"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -125,9 +128,10 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is still unported raises, naming its ROADMAP item: the control
-    plane (item 15); the supervised run, unsharded (item 12) and sharded on
-    one device (item 14's single-card half), gives the plain run's result,
+    """What is still unported raises, naming its ROADMAP item (the
+    multi-host slice helper, item 14); the control plane runs; the
+    supervised run, unsharded (item 12), sharded on one device (item 14's
+    single-card half) and under ``control=``, gives the plain run's result,
     the interval join's tiered archive (item 13b) builds, and fault
     injection and item 9's operators build."""
     def graph():
@@ -138,9 +142,11 @@ def test_unported_paths_raise(monkeypatch):
     assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == int(graph().run()["tot"])
     assert int(graph().run_supervised(shards=2, backoff_base=0.0)["tot"]) == \
         int(graph().run()["tot"])
-    g = graph()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        g.run_supervised(control=True)
+    assert int(graph().run_supervised(control=True, backoff_base=0.0)["tot"]) == \
+        int(graph().run()["tot"])
+    from windflow_tpu_torch.parallel import multihost
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        multihost.process_shard_slice(4)
     with monkeypatch.context() as m:
         m.setenv("WF_SHARDS", "2")
         assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == \
@@ -148,8 +154,7 @@ def test_unported_paths_raise(monkeypatch):
     src = wt.Source(lambda i: {"v": i}, total=10, device="cpu")
     assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True,
                            device="cpu").tier_controllers() == ()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        wt.ThreadedPipeline(src, [], None, device="cpu", control=True)
+    assert wt.ThreadedPipeline(src, [], None, device="cpu", control=True)._control
     from windflow_tpu_torch.runtime.faults import FaultPlan
     assert wt.ThreadedPipeline(src, [], None, device="cpu", faults=FaultPlan())
     assert isinstance(wt.FlatMap_Builder(lambda t, shipper: None).withMaxFanout(2)
@@ -259,9 +264,6 @@ def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
 #: yet, each with the ROADMAP Queue 1 item that will port it
 UNPORTED_EXPORTS = {
     "ShardedChain": 14, "shard_batch": 14, "make_mesh": 14, "make_mesh_2d": 14,
-    "ControlConfig": 15, "AdmissionController": 15, "TokenBucket": 15,
-    "PositionBucket": 15, "BackpressureGovernor": 15, "CapacityAutotuner": 15,
-    "Rebatcher": 15, "TuningCache": 15,
     "xprof_trace": "16b",
     "analysis": 18, "validate_graph": 18,
 }

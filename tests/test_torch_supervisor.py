@@ -257,22 +257,24 @@ def test_snapshot_copies_and_restore_rebuilds():
     assert snap[1] is None                # an untiered chain has no cold tiers
 
 
-@pytest.mark.parametrize("kw, env, item", [
-    ({"reshard": "auto"}, {}, 15), ({"shards": 2, "reshard": "auto"}, {}, 15),
-    ({}, {"WF_SHARDS": "2", "WF_RESHARD": "auto"}, 15),
-    ({"control": True}, {}, 15), ({}, {"WF_CONTROL": "1"}, 15),
-    ({"remediation": "barrier"}, {}, 15), ({}, {"WF_REMEDIATION": "1"}, 15),
+@pytest.mark.parametrize("kw, env, err", [
+    ({"reshard": "auto"}, {}, None), ({"shards": 2, "reshard": "auto"}, {}, None),
+    ({}, {"WF_SHARDS": "2", "WF_RESHARD": "auto"}, None),
+    ({"control": True}, {}, None), ({}, {"WF_CONTROL": "1"}, None),
+    ({"remediation": "barrier"}, {}, "neither"), ({}, {"WF_REMEDIATION": "1"}, "owns no"),
     ({"trace": True}, {}, None),
     ({}, {"WF_MONITORING": "1", "WF_MONITORING_EVENT_TIME": "1"}, None),
 ])
-def test_unported_supervision_raises_by_name(monkeypatch, tmp_path, kw, env, item):
-    """Item 15's options raise naming it; tracing and monitoring-driven event
-    time (item 16, ported) run and give the plain run's rows."""
+def test_unported_supervision_raises_by_name(monkeypatch, tmp_path, kw, env, err):
+    """The control plane's options (once refused by name) run and give the
+    plain run's rows: ``reshard="auto"``, ``control=`` and ``WF_CONTROL``; a
+    remediation with nothing to actuate or a malformed one raises the JAX
+    package's ValueError. Tracing and monitoring-driven event time run too."""
     monkeypatch.chdir(tmp_path)            # WF_MONITORING=1 / trace=True dirs
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    if err is not None:
+        with pytest.raises(ValueError, match=err):
             build(collect([]), **kw)
         return
     got, want = [], []
@@ -284,7 +286,7 @@ def test_unported_supervision_raises_by_name(monkeypatch, tmp_path, kw, env, ite
     assert sorted(got) == sorted(want) and got
     if "trace" in kw:
         assert os.path.exists(tmp_path / "wf_trace" / "flight.jsonl")
-    else:
+    elif "WF_MONITORING" in env:
         assert sp.chain.event_time
 
 

@@ -225,12 +225,17 @@ def test_chains_refuse_captures_while_stage_threads_run():
 @pytest.mark.parametrize("kw", [{"control": True}, {"monitoring": True},
                                 {"trace": True}])
 def test_unported_arguments_raise(kw, tmp_path):
-    """``control=`` raises naming item 15; ``monitoring=`` and ``trace=`` run
-    and write their artifacts."""
+    """``control=`` runs the governor over every ring; ``monitoring=`` and
+    ``trace=`` run and write their artifacts."""
     src = Src(PORT, lambda i: {"v": i}, 8)
     if "control" in kw:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            wt.ThreadedPipeline(src, [], None, device="cpu", **kw)
+        got = []
+        tp = wt.ThreadedPipeline(src, [[Mp(PORT, lambda t: {"v": t.v + 1})]],
+                                 wt.Sink(lambda v: got.append(v), **CPU), batch_size=4,
+                                 pin=False, device="cpu", **kw)
+        within_deadline(tp.run)
+        assert got[-1] is None and len(got) == 3
+        assert [e[0] for e in tp.governor._edges] == tp.edge_names
     else:
         out = str(tmp_path / "out")
         tp = wt.ThreadedPipeline(src, [[Mp(PORT, lambda t: {"v": t.v + 1})]],

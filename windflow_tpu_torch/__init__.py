@@ -11,7 +11,9 @@ of its own. ``SupervisedPipeline`` and ``PipeGraph.run_supervised`` add
 aligned checkpoints, replay and exactly-once delivery on failure, journaled by
 the ``EventJournal``; ``monitoring=`` and ``trace=`` (``observability/``) add
 the metrics registry and reporter, event-time lateness histograms, batch
-tracing and the device-health ledger. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+tracing and the device-health ledger; ``control=`` (``control/``) the
+capacity and dispatch-K autotuners, admission control, the backpressure
+governor and the supervised drivers' barrier remediation. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
@@ -40,6 +42,8 @@ from .runtime.checkpoint import CheckpointCorrupt, load_chain, save_chain
 from .runtime.faults import (DeadLetterQueue, FaultInjector, FaultPlan, FaultSpec,
                              InjectedFault, WatchdogTimeout)
 from .runtime.supervisor import RestartExhausted, SupervisedPipeline
+from .control import (AdmissionController, BackpressureGovernor, CapacityAutotuner,
+                      ControlConfig, PositionBucket, Rebatcher, TokenBucket, TuningCache)
 from .observability import (EventJournal, MetricsRegistry, MonitoringConfig, Reporter,
                             read_journal, topology_dot, topology_json)
 from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Builder,

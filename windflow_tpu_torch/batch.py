@@ -421,6 +421,12 @@ def unstack_batches(stacked: Batch, k: int = None) -> list:
                   valid=stacked.valid[i]) for i in range(k)]
 
 
+def dtype_name(dtype) -> str:
+    """A dtype as the JAX package writes it (``float32``, not
+    ``torch.float32``): its spec keys, cache keys and signatures."""
+    return str(dtype).replace("torch.", "")
+
+
 def spec_of(tree: Any) -> Any:
     """Per-tuple spec of a batched pytree: meta tensors without the capacity axis."""
     return tree_map(lambda t: torch.empty(tuple(t.shape[1:]), dtype=t.dtype,
@@ -430,5 +436,5 @@ def spec_of(tree: Any) -> Any:
 __all__ = ["CTRL_DTYPE", "TRACE_META_ATTR", "Batch", "TupleRef", "MutableTupleRef",
            "tuple_refs", "map_tuples", "vmap_lanes", "host_view", "spec_of",
            "stack_batches", "unstack_batches", "concat_batches", "split_batch",
-           "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves", "is_node",
+           "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves", "is_node", "dtype_name",
            "flatten_with_paths", "jax_leaves", "jax_unflatten"]

@@ -1,12 +1,13 @@
 """The control plane's process-wide counters and gauges.
 
 Counterpart of ``windflow_tpu/control/_state.py``: a flat dict behind a lock,
-bumped where the JAX package bumps it (``sessions_closed``,
-``topn_evictions``) and set where it sets it (``hot_capacity``,
-``join_table_version``, ``dispatch_linger_depth``); the metrics snapshot
-renders it as the ``control`` section. The rest of ``windflow_tpu/control/``
-(admission, the governor, the autotuners, remediation: ``control=`` /
-``WF_CONTROL``) is ROADMAP Queue 1 item 15; the drivers refuse it by name.
+bumped from the actuation points (shed decisions, throttle waits, capacity
+switches, remediation) and from the operators that count their own
+(``sessions_closed``, ``topn_evictions``), and set where the JAX package
+sets them (``chosen_capacity``, ``dispatch_k``, ``hot_capacity``,
+``join_table_version``, ...); the metrics snapshot renders it as the
+``control`` section. Kept in its own module so the rest of ``control/`` and
+the operators import it without the package ``__init__``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-from .observability.names import CONTROL_COUNTERS
+from ..observability.names import CONTROL_COUNTERS
 
 _counters: Dict[str, float] = {k: 0 for k in CONTROL_COUNTERS}
 _gauges: Dict[str, float] = {}

@@ -27,8 +27,11 @@ Everything is off by default and turned on per driver (``monitoring=``,
 
 Not ported, and refused by name: the SLO engine (``slo=``, ``WF_SLO``),
 profile-on-page (``profile=``, ``WF_PROFILE``) and fleet telemetry
-(``telemetry=``, ``WF_TELEMETRY``) are ROADMAP Queue 1 item 16b;
-remediation (``remediation=``, ``WF_REMEDIATION``) is item 15.
+(``telemetry=``, ``WF_TELEMETRY``) are ROADMAP Queue 1 item 16b. Live
+remediation (``remediation=``, ``WF_REMEDIATION``) consumes the SLO
+engine's verdicts: with ``slo`` off it raises the JAX package's
+``ValueError``, with ``slo`` on the item-16b refusal comes first. The
+supervised drivers' barrier remediation runs (``control/remediation.py``).
 """
 
 from __future__ import annotations
@@ -59,8 +62,7 @@ __all__ = [
 #: sub-toggles of the JAX package's MonitoringConfig that the port refuses:
 #: (field, env var, ROADMAP item)
 _UNPORTED = (("slo", "WF_SLO", "16b"), ("profile", "WF_PROFILE", "16b"),
-             ("telemetry", "WF_TELEMETRY", "16b"),
-             ("remediation", "WF_REMEDIATION", "15"))
+             ("telemetry", "WF_TELEMETRY", "16b"))
 
 
 def _on(v) -> bool:
@@ -90,11 +92,14 @@ class MonitoringConfig:
     health_sample: int = 1
     #: keep-last-N lines of snapshots.jsonl (None: unlimited)
     snapshot_keep: Optional[int] = None
-    #: refused: ROADMAP Queue 1 item 16b (slo, profile, telemetry), 15
+    #: refused: ROADMAP Queue 1 item 16b
     slo: object = False
     profile: object = False
     telemetry: object = False
+    #: live remediation: needs ``slo`` (item 16b)
     remediation: object = False
+    remediation_cooldown_s: float = 60.0
+    remediation_max_actions: int = 8
 
     def should_sample_e2e(self, n: int) -> bool:
         """The e2e sampling policy of every driver: every Nth source batch,
@@ -137,11 +142,28 @@ class MonitoringConfig:
         if sk:
             cfg = dataclasses.replace(
                 cfg, snapshot_keep=(int(sk) if sk != "0" else None))
+        rv = os.environ.get("WF_REMEDIATION")
+        if rv is not None and rv != "":
+            cfg = dataclasses.replace(
+                cfg, remediation=(False if rv == "0" else (True if rv == "1" else rv)))
+        rc = os.environ.get("WF_REMEDIATION_COOLDOWN_S", "")
+        if rc:
+            cfg = dataclasses.replace(cfg, remediation_cooldown_s=float(rc))
+        rm = os.environ.get("WF_REMEDIATION_MAX_ACTIONS", "")
+        if rm:
+            cfg = dataclasses.replace(cfg, remediation_max_actions=int(rm))
         for field, var, item in _UNPORTED:
             if _on(getattr(cfg, field)) or _on(os.environ.get(var, "")):
                 raise NotImplementedError(
                     f"monitoring {field}= / {var} is not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
+        if _on(cfg.remediation):
+            # with slo on, the item-16b refusal above came first
+            raise ValueError(
+                "remediation=/WF_REMEDIATION is on but the SLO engine "
+                "(slo=/WF_SLO) resolves off — remediation consumes SLO "
+                "verdicts, so there is nothing to act on (the validator "
+                "reports this as WF118 before the run)")
         if cfg.snapshot_keep is not None and int(cfg.snapshot_keep) < 1:
             raise ValueError(
                 f"snapshot_keep/WF_SNAPSHOT_KEEP must be >= 1 (or unset "

@@ -10,8 +10,8 @@ Counterpart of ``windflow_tpu/observability/device_health.py`` on CUDA:
 - **Capture ledger** (:class:`HealthLedger`): each first run of a chain's
   step at a shape and each CUDA-graph capture is journaled as a ``compile``
   record (cause, cache key, duration), with an unexpected-recapture
-  detector; each first build of a hand kernel (``ops/cuda.py``) as a
-  ``kernel_resolve`` record.
+  detector; each first resolution of a kernel registry key
+  (``ops/registry.py``) as a ``kernel_resolve`` record.
 - **Device-time attribution**: at the sampled service points of
   ``CompiledChain.push``/``push_many`` the host time of the push call
   (dispatch) and the device time between two CUDA events around it; the
@@ -26,6 +26,7 @@ read the port's artifacts as they are.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -114,8 +115,13 @@ class HealthLedger:
 
     def set_cause(self, cause: str) -> None:
         """The cause of the notes made on this thread from now on (``push``,
-        ``push_many``, ``warm``, ``warm_scan``)."""
+        ``push_many``, ``warm``, ``warm_scan``); a :func:`cause` context
+        (``autotune_prewarm``) wins."""
         self._tls.cause = cause
+
+    def _current_cause(self) -> str:
+        override = getattr(_CAUSE_TLS, "override", None)
+        return override or getattr(self._tls, "cause", "push")
 
     # -- capture notes (the first run of a program at a signature) ---------
 
@@ -141,7 +147,7 @@ class HealthLedger:
             elif retrace:
                 self.retraces += 1
         rec = {"label": label, "from_op": int(from_op), "kind": kind,
-               "cache_key": cache_key, "cause": getattr(self._tls, "cause", "push"),
+               "cache_key": cache_key, "cause": self._current_cause(),
                "retrace": retrace, "unexpected": unexpected}
         if capacity is not None:
             rec["capacity"] = int(capacity)
@@ -276,6 +282,22 @@ def set_active(ledger: Optional[HealthLedger]) -> None:
 
 def get_active() -> Optional[HealthLedger]:
     return _active
+
+
+_CAUSE_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def cause(name: str):
+    """Attribute the notes made on this thread inside the block to ``name``
+    (``autotune_prewarm`` around the capacity and K ladders' warm loops),
+    over the chain methods' own causes."""
+    prev = getattr(_CAUSE_TLS, "override", None)
+    _CAUSE_TLS.override = name
+    try:
+        yield
+    finally:
+        _CAUSE_TLS.override = prev
 
 
 def note_kernel_resolve(kernel: str, spec_key: str, impl: str,

@@ -117,7 +117,7 @@ def _control_section() -> Dict[str, Dict[str, float]]:
     """Process-wide control-plane counters (shed/throttle/switch totals) and
     gauges (chosen capacity) — lazy import for the same no-reverse-edge
     reason as the recovery counters."""
-    from .. import control as _control
+    from ..control import _state as _control
     return {"counters": _control.counters(), "gauges": _control.gauges()}
 
 

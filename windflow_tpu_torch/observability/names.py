@@ -3,8 +3,97 @@
 The port's own copy of the registries of ``windflow_tpu/observability/
 names.py`` that it emits (that module imports no JAX, but the port imports
 nothing of the JAX package). Keep the tuples equal to the JAX package's:
-``tests/test_torch_monitoring.py`` compares them.
+``tests/test_torch_monitoring.py`` compares them. One differs on purpose:
+:data:`KERNEL_IMPLS` names the port's implementations.
 """
+
+#: every journal event name emitted via ``journal.record``/``EventJournal.
+#: event`` and every span name opened via ``journal.span`` (spans appear as
+#: ``phase=begin/end`` pairs under the same name)
+JOURNAL_EVENTS = (
+    # observability lifecycle (observability/__init__.py Monitor)
+    "monitoring_start", "monitoring_end",
+    # compiled-chain hot path (runtime/pipeline.py, sampled): per-batch
+    # "launch", and "dispatch_fused" for a sampled K-batch scan dispatch
+    # (runtime/dispatch.py scan dispatcher; k= says how many batches rode
+    # the one compiled program)
+    "launch", "dispatch_fused",
+    # EOS protocol (runtime/pipeline.py, runtime/pipegraph.py)
+    "eos", "eos_flush", "eos_propagate",
+    # ordering buffer (parallel/ordering.py, via its _journal_release wrapper)
+    "ordering_flush", "ordering_close_channel",
+    # supervision / recovery (runtime/supervisor.py, runtime/faults.py,
+    # runtime/checkpoint.py, runtime/threaded.py)
+    "checkpoint", "restore",                       # spans
+    "checkpoint_invalid", "checkpoint_fallback",
+    "restart_exhausted", "dead_letter", "backoff",
+    "watchdog_timeout", "watchdog_stale",
+    "fault_injected",
+    # control plane (control/admission.py, control/governor.py,
+    # control/autotune.py, runtime/supervisor.py warm start)
+    "shed", "throttle", "throttle_end",
+    "capacity_switch", "tuning_converged", "tuning_warm_start",
+    # per-batch causal tracing lifecycle (observability/tracing.py Tracer)
+    "trace_start", "trace_end",
+    # event-time forensics (runtime/pipeline.py CompiledChain, event_time
+    # monitoring only): a stateful operator's drop counter advanced — the
+    # record carries (op, kind, n) plus the trace coordinates
+    # (tid/pos) of the sampled batch the readback rode, so wf_trace.py /
+    # wf_state.py join drops to traced batches
+    "lateness_drop",
+    # runtime health ledger (observability/device_health.py, health
+    # monitoring only): "compile" = one jit trace of a CompiledChain
+    # step/scan program (cause, cache key, compile duration, AOT cost
+    # flops/bytes); "retrace_unexpected" = the live retrace detector — a
+    # warm executable re-traced under an ALREADY-TRACED signature (jit
+    # cache eviction/clear, the WF102/WF109 hazard caught at runtime);
+    # "kernel_resolve" = a per-backend kernel registry resolution
+    # (ops/registry.py) observed while the ledger was active
+    "compile", "retrace_unexpected", "kernel_resolve",
+    # tiered keyed state (state/tiered.py TieredTable, maintain cadence):
+    # "spill" = outbox rows settled into the host store, "readmit" = cold
+    # rows handed back to the device tier on probe miss — both carry
+    # (table, n, total); emitted on the driver thread only
+    "spill", "readmit",
+    # shard-local supervision (runtime/supervisor.py ShardedSupervisor):
+    # "shard_restore" = ONE shard restored + replayed its own key range
+    # while peers kept serving (shard id + replay extent: replay_from/
+    # at_batch); "reshard" = a live re-sharding span (from_shards/
+    # to_shards/moves/at_pos; discarded=True marks an in-flight handoff
+    # manifest dropped on restore — replay re-derives the move)
+    "shard_restore", "reshard",
+    # SLO engine (observability/slo.py, Reporter-tick evaluation):
+    # "slo_page" = an SLO's multi-window burn crossed page_burn on BOTH
+    # windows (slo/signal/value/target/burn_fast/burn_slow/tick — incident
+    # capture follows, rate-limited); "slo_recover" = a warned/paged SLO
+    # returned to OK (from_state says which)
+    "slo_page", "slo_recover",
+    # fleet telemetry plane (observability/fleet.py):
+    # "telemetry_connect"/"telemetry_lost" = the host agent's sender thread
+    # (re)gained / dropped its aggregator connection (host/endpoint) — a
+    # flapping link shows as a connect/lost train in the HOST journal;
+    # "fleet_host_join"/"fleet_host_leave" = the AGGREGATOR saw a new host
+    # tag's first frame / a host stream close (host, mon_dir on join)
+    "telemetry_connect", "telemetry_lost",
+    "fleet_host_join", "fleet_host_leave",
+    # self-driving remediation (control/remediation.py, evaluated on the
+    # Reporter tick in live mode / at commit barriers in supervised mode):
+    # "remediation_apply" = a policy action fired an actuator (action/
+    # actuator/slo + burn or barrier pos + setpoint details);
+    # "remediation_skip" = an action wanted to fire but was held back —
+    # reason says why (cooldown, run/action budget, damped, unbound
+    # actuator, gate, arbitration loss to auto-reshard); "tuning_reclimb" =
+    # a converged autotuner was un-converged to re-explore its ladder
+    "remediation_apply", "remediation_skip", "tuning_reclimb",
+    # serving front-end (serving/runtime.py ServingRuntime):
+    # "serving_start"/"serving_end" frame one service run (endpoint +
+    # tenant ids / batch + swap totals); "graph_swap" is BOTH the
+    # quiesce->warm->cutover span around a zero-downtime chain swap AND
+    # the point records inside it (applied=True with carried_state/
+    # warmed/quiesce_ms, or rejected=True for an unregistered wire swap)
+    "serving_start", "serving_end", "graph_swap",
+)
+
 
 #: per-stage counters an operator may bump through ``ops/lookup.py::
 #: count_drops`` (a name outside this tuple is refused)
@@ -77,6 +166,35 @@ CONTROL_COUNTERS = (
     "remediation_actions", "remediation_skips",
 )
 
+#: control-plane gauges (``control/_state.py::set_gauge``; Prometheus
+#: ``windflow_control_<name>``)
+CONTROL_GAUGES = (
+    "chosen_capacity",
+    # scan dispatch (runtime/dispatch.py MicrobatchAccumulator + the
+    # autotuner's K ladder): batches buffered awaiting a fused launch, and
+    # the K rung the dispatch tuner currently runs
+    "dispatch_linger_depth", "dispatch_k",
+    # versioned join-state table (ops/lookup.py join_table_*): applied
+    # upsert count of the most recently synced table (last-write-wins
+    # across tables, the chosen_capacity convention)
+    "join_table_version",
+    # actuator setpoints (remediation observability): current
+    # admission bucket refill rate (control/admission.py, updated by
+    # scale_rate), governor high/low queue-depth watermarks
+    # (control/governor.py), and the tiered hot-capacity target the run
+    # was built with (operators/join.py / operators/rank.py tier wiring,
+    # last-write-wins across tables) — so remediation deltas are
+    # observable before/after each action
+    "bucket_rate", "governor_high_watermark", "governor_low_watermark",
+    "hot_capacity",
+    # advisory remediation recommendations (control/remediation.py):
+    # geometry-baked setpoints (tiered hot capacity, watermark delay) are
+    # traced constants, so their actuators gauge a recommendation for the
+    # next restart instead of mutating a live trace
+    "remediation_hot_capacity", "remediation_recommended_delay",
+)
+
+
 #: per-operator and graph-level event-time gauges (``metrics.py``)
 EVENT_TIME_GAUGES = (
     "watermark",           # operator event-time frontier (max ts applied)
@@ -98,4 +216,21 @@ HEALTH_GAUGES = (
     "device_ms", "dispatch_ms",                     # per stage label
     "dispatch_ratio",          # host dispatch / device time — >= 0.5 names
     #                            a fusion candidate (dispatch-bound edge)
+)
+
+#: kernel families selectable through the kernel registry
+#: (``ops/registry.py``): the JAX registry's families
+KERNELS = (
+    "histogram",        # ops/histogram.py keyed_pane_histogram
+    "lookup",           # ops/lookup.py table_lookup
+    "ordering_merge",   # parallel/ordering.py bitonic merge/sort network
+    "segment_fold",     # ops/segment.py segment_fold (window fold path)
+    "join_probe",       # ops/lookup.py join_probe (stream-table join)
+)
+
+#: implementation names a kernel family registers under in the port (the
+#: JAX package's are "xla", "pallas" and "pallas_mm")
+KERNEL_IMPLS = (
+    "torch",            # the plain PyTorch version (the reference)
+    "cuda",             # the hand-written kernel (a CUDA tensor only)
 )

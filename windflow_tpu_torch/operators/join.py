@@ -56,7 +56,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .. import control as _control
+from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import (Batch, TupleRef, jax_unflatten, map_tuples, spec_of, tree_map,
                      vmap_lanes)

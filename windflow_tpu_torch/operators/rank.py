@@ -28,7 +28,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .. import control as _control
+from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, map_tuples
 from ..ops.bitonic import sort_network

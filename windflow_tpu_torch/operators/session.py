@@ -48,7 +48,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .. import control as _control
+from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
 from ..batch import Batch, map_tuples, spec_of, tree_map
 from ..observability import event_time as _et

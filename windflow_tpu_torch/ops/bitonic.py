@@ -9,8 +9,9 @@ equals the stable lexsort. :func:`sort_network` is the full sort (stages
 of two: a batch dimension written out where the JAX package vmaps the
 network (TopN sorts ``[K, L]`` candidate rows once per batch).
 
-A CUDA tensor goes to kernel K4 (``csrc/bitonic.cu``, registry
-``ordering_merge``), a CPU tensor to the plain version beside it, which runs
+The kernel registry (family ``ordering_merge``) picks kernel K4
+(``csrc/bitonic.cu``, ``cuda``: the default on a CUDA tensor) or the plain
+version beside it (``torch``: the default on the CPU), which runs
 the JAX package's butterfly stages in torch. The TPU kernel took n <= 2^15;
 the port's takes any power of two n >= 2.
 
@@ -43,7 +44,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import cuda
-from .registry import count_launch
+from .registry import count_launch, register_kernel, resolve_impl
 
 #: C signature of K4's entry point (pointers and the stream as void*)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong,
@@ -156,25 +157,30 @@ def network_cuda(prim, sec, chan, idx, *, sort: bool) -> Lanes:
     return tuple(o.reshape(-1) if flat else o for o in outs)
 
 
-def _network(prim, sec, chan, idx, sort: bool) -> Lanes:
-    if prim.device.type == "cuda":
+def _network(prim, sec, chan, idx, sort: bool, impl: str = None) -> Lanes:
+    if impl is None:
+        impl = resolve_impl("ordering_merge", device=prim.device, record=False)
+    if impl == "cuda":
         return network_cuda(prim, sec, chan, idx, sort=sort)
-    if prim.device.type == "cpu":
-        return network_plain(prim, sec, chan, idx, sort=sort)
-    raise ValueError(f"bitonic network: unsupported device {prim.device}")
+    return network_plain(prim, sec, chan, idx, sort=sort)
 
 
-def sort_network(prim, sec, chan, idx) -> Lanes:
+def sort_network(prim, sec, chan, idx, *, impl: str = None) -> Lanes:
     """Full bitonic sort of the composite key, per row: equal to the stable
     ``lexsort((chan, sec, prim))`` of each row applied to all four lanes
-    when ``idx`` is unique."""
-    return _network(prim, sec, chan, idx, True)
+    when ``idx`` is unique. ``impl``: ``"cuda"`` (K4) or ``"torch"`` (None:
+    the registry's choice for the lanes' device, unrecorded)."""
+    return _network(prim, sec, chan, idx, True, impl)
 
 
-def merge_network(prim, sec, chan, idx) -> Lanes:
+def merge_network(prim, sec, chan, idx, *, impl: str = None) -> Lanes:
     """Merge a bitonic (ascending then descending) composite-key sequence,
-    per row, into ascending order."""
-    return _network(prim, sec, chan, idx, False)
+    per row, into ascending order (``impl`` as :func:`sort_network`'s)."""
+    return _network(prim, sec, chan, idx, False, impl)
+
+
+register_kernel("ordering_merge", "torch", network_plain, reference=True)
+register_kernel("ordering_merge", "cuda", network_cuda, devices=("cuda",))
 
 
 __all__ = ["sort_network", "merge_network", "network_plain", "network_cuda",

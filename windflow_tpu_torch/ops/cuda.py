@@ -25,7 +25,6 @@ import threading
 import time
 from pathlib import Path
 
-from ..observability import device_health as _dh
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -108,9 +107,6 @@ def function(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _fns[(stem, symbol)] = fn
-            # the health ledger's kernel_resolve record: a hand kernel's
-            # entry point bound (built first if needed) for the first time
-            _dh.note_kernel_resolve(stem, symbol, "cuda", device="cuda")
     return fn
 
 

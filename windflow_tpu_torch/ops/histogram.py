@@ -4,13 +4,15 @@ Counterpart of ``windflow_tpu/ops/histogram.py``. The JAX package computes the
 ``[K, P]`` count as one-hot matmuls (XLA einsum or the Pallas kernel
 ``_pallas_fast``) under a chunk-locality precondition, with a ``lax.cond``
 falling back to an exact scatter-add. All of its branches give the same
-counts, so the port has one function: a CUDA tensor goes to the hand-written
-histogram (``csrc/histogram.cu``, kernel K1: a shared-memory window of
-``[K, Lw]`` counts per tile of the stream, or one global atomic a lane where
-a tile spans more panes than the window holds), a CPU tensor to the plain
-PyTorch version beside it. ``chunk=`` and ``locality=`` stay in the signature for parity;
-the result does not depend on them. :func:`histogram_plan` reports the
-launch K1 makes.
+counts, so the port has one function with two implementations, chosen by
+the kernel registry (``ops/registry.py``, family ``histogram``): ``cuda``,
+the hand-written histogram (``csrc/histogram.cu``, kernel K1: a
+shared-memory window of ``[K, Lw]`` counts per tile of the stream, or one
+global atomic a lane where a tile spans more panes than the window holds),
+the default for a CUDA tensor; ``torch``, the plain PyTorch version beside
+it, the default on the CPU. ``chunk=`` and ``locality=`` enter the spec key
+as in the JAX package; the result does not depend on them.
+:func:`histogram_plan` reports the launch K1 makes.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 import torch
 
 from . import cuda
-from .registry import count_launch
+from .registry import count_launch, register_kernel, resolve_impl
 
 #: C signature of the kernel's entry point (pointers and the stream as void*)
 _ARGTYPES = ([ctypes.c_void_p] * 5
@@ -40,20 +42,23 @@ DEFAULT_L = 8
 def keyed_pane_histogram(key: torch.Tensor, pane: torch.Tensor,
                          valid: torch.Tensor, num_keys: int, ring: int, *,
                          chunk: int = DEFAULT_CHUNK,
-                         locality: int = DEFAULT_L) -> torch.Tensor:
+                         locality: int = DEFAULT_L, impl: str = None) -> torch.Tensor:
     """Count histogram ``out[k, pane mod ring] = #{valid lanes: key==k, pane}``.
 
     ``key``/``pane``: i32[C]; ``valid``: bool[C]. Keys outside
     ``[0, num_keys)`` and invalid lanes are dropped; the slot is the floored
     ``pane mod ring``, so negative panes land where the JAX package puts
-    them. Returns i32[num_keys, ring]."""
-    del chunk, locality
+    them. Returns i32[num_keys, ring]. ``impl``: ``"cuda"`` or ``"torch"``
+    (None: the registry's choice). The resolution is recorded where the JAX
+    package records it: a capacity that ``chunk`` divides."""
+    C = key.shape[0]
     K, P = int(num_keys), int(ring)
-    if key.device.type == "cuda":
+    impl = resolve_impl("histogram", impl=impl, device=key.device,
+                        spec_key=f"C{C}xK{K}xP{P}c{chunk}l{locality}",
+                        record=C % chunk == 0 and C >= chunk)
+    if impl == "cuda":
         return histogram_cuda(key, pane, valid, K, P)
-    if key.device.type == "cpu":
-        return histogram_plain(key, pane, valid, K, P)
-    raise ValueError(f"keyed_pane_histogram: unsupported device {key.device}")
+    return histogram_plain(key, pane, valid, K, P)
 
 
 def histogram_plain(key, pane, valid, K: int, P: int) -> torch.Tensor:
@@ -109,3 +114,7 @@ def histogram_cuda(key, pane, valid, K: int, P: int, *, stats=None) -> torch.Ten
                   None if stats is None else cuda.ptr(stats), n, K, P,
                   cuda.stream_ptr(key.device)), "histogram_cuda")
     return out
+
+
+register_kernel("histogram", "torch", histogram_plain, reference=True)
+register_kernel("histogram", "cuda", histogram_cuda, devices=("cuda",))

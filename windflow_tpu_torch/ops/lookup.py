@@ -10,9 +10,12 @@ reads. On the TPU a gather
 is serial, so the JAX package picks a one-hot formulation by table size: a
 select-reduce for small tables and a factored one-hot matmul (the Pallas
 kernel ``_pallas_factored_lookup``) for 128 < K <= 65536. Both give
-``table[idx]`` with 0 for an index outside ``[0, K)``; on a CUDA tensor that
-function is the hand-written gather ``csrc/lookup.cu`` (kernel K2), on a CPU
-tensor the plain version beside it.
+``table[idx]`` with 0 for an index outside ``[0, K)``. The kernel registry
+(``ops/registry.py``, families ``lookup`` and ``join_probe``, resolved at
+each entry with the JAX package's spec key) picks that function's
+implementation: ``cuda``, the hand-written gather ``csrc/lookup.cu`` (kernel
+K2), the default for a CUDA tensor, or ``torch``, the plain version beside
+it, the default on the CPU.
 
 Routing follows the JAX package's rule (``windflow_tpu/ops/lookup.py:24-32,
 72-95``), in one of its two readings:
@@ -53,8 +56,8 @@ import ctypes
 import torch
 
 from . import cuda
-from ..batch import jax_leaves, jax_unflatten, tree_leaves, tree_map
-from .registry import count_launch
+from ..batch import dtype_name, jax_leaves, jax_unflatten, tree_leaves, tree_map
+from .registry import count_launch, register_kernel, resolve_impl
 
 #: C signature of K2's entry point (pointers and the stream as void*)
 _ARGTYPES = ([ctypes.c_void_p] * 3
@@ -69,20 +72,23 @@ FACTORED_MAX_ROWS = 1 << 16
 
 
 def table_lookup(table: torch.Tensor, idx: torch.Tensor, *,
-                 traced: bool = False) -> torch.Tensor:
+                 traced: bool = False, impl: str = None) -> torch.Tensor:
     """``table[idx]`` with the JAX package's out-of-range semantics for the
     table's size. ``table``: ``[K]`` or ``[K, V]`` (``[K, ...]`` takes
     ``take``); ``idx``: i32 ``[C]``. ``traced``: route as JAX's jitted chain
     does, from K and dtype alone (every operator's ``apply``); False reads a
-    concrete 1-D table's values, as eager JAX does."""
+    concrete 1-D table's values, as eager JAX does. ``impl``: ``"cuda"`` or
+    ``"torch"`` for the gather (None: the registry's choice)."""
     K = table.shape[0]
+    impl = resolve_impl("lookup", impl=impl, device=table.device,
+                        spec_key=f"C{idx.shape[0]}xK{K}:{dtype_name(table.dtype)}")
     if table.ndim > 1:
         if table.ndim == 2 and K <= SELECT_MAX_ROWS_2D:
             return lookup_plain(table, idx)
         return take(table, idx)
     exact = _exact_dtype if traced else _factored_ok
     if K <= SELECT_MAX_ROWS_2D or (K <= FACTORED_MAX_ROWS and exact(table)):
-        return gather_or_zero(table, idx)
+        return gather_or_zero(table, idx, impl=impl)
     return take(table, idx)
 
 
@@ -106,14 +112,16 @@ def _factored_ok(table: torch.Tensor) -> bool:
     return bool(table.abs().max() < (1 << 24))
 
 
-def gather_or_zero(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]``, 0 where ``idx`` is outside ``[0, K)``: K2 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if table.device.type == "cuda":
+def gather_or_zero(table: torch.Tensor, idx: torch.Tensor, *,
+                   impl: str = None) -> torch.Tensor:
+    """``table[idx]``, 0 where ``idx`` is outside ``[0, K)``: K2 (``impl``
+    ``"cuda"``) or the plain version (``"torch"``); None resolves unrecorded
+    (the default: K2 on a CUDA tensor)."""
+    if impl is None:
+        impl = resolve_impl("lookup", device=table.device, record=False)
+    if impl == "cuda":
         return lookup_cuda(table, idx)
-    if table.device.type == "cpu":
-        return lookup_plain(table, idx)
-    raise ValueError(f"table_lookup: unsupported device {table.device}")
+    return lookup_plain(table, idx)
 
 
 def _zero_fix(table: torch.Tensor) -> bool:
@@ -214,7 +222,7 @@ _PLAIN_PROBE_CELLS = 1 << 26
 
 
 def join_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
-               probe: torch.Tensor, valid: torch.Tensor):
+               probe: torch.Tensor, valid: torch.Tensor, *, impl: str = None):
     """Stream-table join probe: ``(vals[C], hit bool[C])`` with
     ``vals[i] = table_vals[j]`` where ``table_keys[j] == probe[i]`` and
     ``hit[i]`` whether a row matched; a miss or an invalid lane gives
@@ -227,8 +235,9 @@ def join_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     uint32), a float ``-0.0`` comes back as ``+0.0`` when K >= 2, and a NaN
     stays on its own row. Where keys repeat (unused JoinTable slots all hold
     :data:`JOIN_KEY_SENTINEL`), both versions take the first matching row.
-    A CUDA tensor goes to kernel K5 (``csrc/join_probe.cu``), a CPU tensor
-    to the plain version.
+    ``impl`` (None: the registry's choice, family ``join_probe``): ``"cuda"``,
+    kernel K5 (``csrc/join_probe.cu``, the default for a CUDA tensor), or
+    ``"torch"``, the plain version (the default on the CPU).
 
     K5 hashes the table once per call, ``next_pow2(2K)`` slots of
     ``(key, row)`` built with atomics (equal keys share a slot holding their
@@ -238,11 +247,12 @@ def join_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     8192) every block copies the table there once; above, the same kernel
     probes the table in device memory through L2. Its bound on the H100 is
     bytes: each lane read and written once and the table read once."""
-    if table_keys.device.type == "cuda":
+    C, K = probe.shape[0], table_keys.shape[0]
+    impl = resolve_impl("join_probe", impl=impl, device=table_keys.device,
+                        spec_key=f"C{C}xK{K}:{dtype_name(table_vals.dtype)}")
+    if impl == "cuda":
         return join_probe_cuda(table_keys, table_vals, probe, valid)
-    if table_keys.device.type == "cpu":
-        return join_probe_plain(table_keys, table_vals, probe, valid)
-    raise ValueError(f"join_probe: unsupported device {table_keys.device}")
+    return join_probe_plain(table_keys, table_vals, probe, valid)
 
 
 def _probe_dtype(dt: torch.dtype) -> torch.dtype:
@@ -765,6 +775,12 @@ def join_table_tier_stats(state: dict) -> dict:
             "state_spills": int(state["spills"]),
             "state_readmits": int(state["readmits"])}
 
+
+
+register_kernel("lookup", "torch", lookup_plain, reference=True)
+register_kernel("lookup", "cuda", lookup_cuda, devices=("cuda",))
+register_kernel("join_probe", "torch", join_probe_plain, reference=True)
+register_kernel("join_probe", "cuda", join_probe_cuda, devices=("cuda",))
 
 __all__ = ["table_lookup", "gather_or_zero", "lookup_plain", "lookup_cuda", "take",
            "JOIN_PROBE_MAX_ROWS", "JOIN_PROBE_SMEM_SLOTS", "join_probe",

@@ -18,8 +18,9 @@ CUDA-graph capture takes), a tensor on the device is used as it is.
 CUDA kernel ``csrc/segment.cu`` (kernel K3: block-private partials in shared
 memory, a direct ``[S]`` array where S is small, flushed through a
 workspace and one grid barrier up to S = 512; one global atomic a lane
-otherwise; :func:`segment_fold_plan` reports the launch) on a CUDA tensor and the plain
-PyTorch version beside it on a CPU tensor. Both sum in wrapping int32
+otherwise; :func:`segment_fold_plan` reports the launch) or the plain PyTorch
+version beside it, as the kernel registry picks (family ``segment_fold``:
+``cuda`` by default on a CUDA tensor, ``torch`` on the CPU). Both sum in wrapping int32
 arithmetic, so they equal XLA's integer ``segment_sum`` bit for bit, overflow
 included, and a narrower input dtype is cast back at the end. The JAX kernel
 served S <= 4096 only (``FOLD_MAX_SEGMENTS``, XLA above); the port's serves
@@ -44,8 +45,8 @@ from typing import Any, Callable
 import torch
 
 from . import cuda
-from ..batch import tree_map
-from .registry import count_launch
+from ..batch import dtype_name, tree_map
+from .registry import count_launch, register_kernel, resolve_impl
 
 #: C signature of the kernel's entry point (pointers and the stream as void*)
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -71,17 +72,20 @@ _ORDERED_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
 
 
 def segment_fold(values: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+                 num_segments: int, *, impl: str = None) -> torch.Tensor:
     """Masked 1-D segment sum ``out[s] = sum(values[i] : seg[i]==s, valid[i])``.
     Invalid lanes contribute 0; segment ids outside ``[0, S)`` are dropped.
-    Returns ``[S]`` in ``values``' dtype."""
-    S = int(num_segments)
+    Returns ``[S]`` in ``values``' dtype. ``impl`` (None: the registry's
+    choice, family ``segment_fold``, resolved for every dtype as in the JAX
+    package) picks K3 (``"cuda"``) or its plain version (``"torch"``) for
+    the integer dtypes K3 takes; other dtypes fold with ``index_add_``."""
+    C, S = values.shape[0], int(num_segments)
+    impl = resolve_impl("segment_fold", impl=impl, device=values.device,
+                        spec_key=f"C{C}xS{S}:{dtype_name(values.dtype)}")
     if values.dtype in _FOLD_DTYPES:
-        if values.device.type == "cuda":
+        if impl == "cuda":
             return segment_fold_cuda(values, seg, valid, S)
-        if values.device.type == "cpu":
-            return segment_fold_plain(values, seg, valid, S)
-        raise ValueError(f"segment_fold: unsupported device {values.device}")
+        return segment_fold_plain(values, seg, valid, S)
     return _index_add_fold(values, seg, valid, S)
 
 
@@ -443,3 +447,7 @@ def tree_reduce(combine: Callable, x: torch.Tensor, axis: int) -> torch.Tensor:
         x = torch.cat([combine(a, b), x.narrow(axis, 2 * half, n - 2 * half)], dim=axis)
         n = half + (n - 2 * half)
     return x.squeeze(axis)
+
+
+register_kernel("segment_fold", "torch", segment_fold_plain, reference=True)
+register_kernel("segment_fold", "cuda", segment_fold_cuda, devices=("cuda",))

@@ -34,8 +34,10 @@ composite key ``(prim, sec, chan)``, invalid lanes at the tail). A push:
 5. renumbers on the device in TS_RENUMBERING mode (``_next_id`` is a
    device scalar).
 
-On a CUDA tensor both networks are kernel K4; on a CPU tensor their plain
-version. The unique index lane makes the key total, so the result equals the
+Both networks run the implementation the kernel registry resolved for the
+node (family ``ordering_merge``, spec key ``mode=<mode>``, as the JAX
+package resolves it once a node): kernel K4 by default on a CUDA tensor,
+the plain version on the CPU. The unique index lane makes the key total, so the result equals the
 stable lexsort either way.
 
 The host reads back one packed ``[n_released, n_kept]`` pair a push: on the
@@ -96,7 +98,7 @@ def _wm_after(mode, wm, channel: int, batch: Batch):
     return torch.maximum(wm, torch.where(lane, mx, none))
 
 
-def _sort_batch(mode, batch: Batch, chan, networks: Counter):
+def _sort_batch(mode, batch: Batch, chan, networks: Counter, impl: str = None):
     """Stable ascending sort of one batch by the composite key (invalid to
     the tail) with K4's sort network: the keys padded to a power of two with
     ``_BIG`` and the lane index (padding after every lane) as the last key.
@@ -109,7 +111,7 @@ def _sort_batch(mode, batch: Batch, chan, networks: Counter):
                                              device=dev)])
     iota = torch.arange(n, dtype=CTRL_DTYPE, device=dev)
     networks[(n, True)] += 1
-    sp, ss, sc, order = bitonic.sort_network(pad(bp), pad(bs), pad(bc), iota)
+    sp, ss, sc, order = bitonic.sort_network(pad(bp), pad(bs), pad(bc), iota, impl=impl)
     return sp[:C], ss[:C], sc[:C], order[:C].to(torch.int64)
 
 
@@ -143,18 +145,19 @@ def _split_release(mode, sortedb: Batch, chan_s, wm, next_id, release_all: bool)
     return out, kept, kept_chan, counts, next_id
 
 
-def _first_push(mode, batch: Batch, channel: int, wm, next_id, networks: Counter):
+def _first_push(mode, batch: Batch, channel: int, wm, next_id, networks: Counter,
+                impl: str = None):
     """First push: no pool yet. Sort the batch, release its prefix."""
     wm = _wm_after(mode, wm, channel, batch)
     chan = torch.full((batch.capacity,), channel, dtype=CTRL_DTYPE, device=wm.device)
-    _, _, _, order = _sort_batch(mode, batch, chan, networks)
+    _, _, _, order = _sort_batch(mode, batch, chan, networks, impl)
     out, kept, kept_chan, counts, next_id = _split_release(
         mode, batch.take(order), chan, wm, next_id, False)
     return out, kept, kept_chan, counts, wm, next_id
 
 
 def _push(mode, pending: Batch, pchan, batch: Batch, channel: int, wm, next_id,
-          networks: Counter):
+          networks: Counter, impl: str = None):
     """One push: watermark, incoming sort, bitonic merge with the sorted
     pool, prefix release, renumbering."""
     wm = _wm_after(mode, wm, channel, batch)
@@ -164,7 +167,7 @@ def _push(mode, pending: Batch, pchan, batch: Batch, channel: int, wm, next_id,
     ap, asec, ac = _masked_keys(mode, pending, pchan)            # ascending already
     aidx = torch.arange(P, dtype=CTRL_DTYPE, device=dev)
     bchan = torch.full((B,), channel, dtype=CTRL_DTYPE, device=dev)
-    bp, bs, bc, border = _sort_batch(mode, batch, bchan, networks)
+    bp, bs, bc, border = _sort_batch(mode, batch, bchan, networks, impl)
     bidx = P + border.to(CTRL_DTYPE)
 
     # pad the batch side to N - P with +max keys and a garbage index, then
@@ -175,7 +178,7 @@ def _push(mode, pending: Batch, pchan, batch: Batch, channel: int, wm, next_id,
     networks[(N, False)] += 1
     _, _, _, idx = bitonic.merge_network(
         torch.cat([ap, ext(bp, _BIG)]), torch.cat([asec, ext(bs, _BIG)]),
-        torch.cat([ac, ext(bc, _BIG)]), torch.cat([aidx, ext(bidx, P + B)]))
+        torch.cat([ac, ext(bc, _BIG)]), torch.cat([aidx, ext(bidx, P + B)]), impl=impl)
     idx = idx.to(torch.int64)
 
     # one gather moves the rows: concat(pool, batch, one invalid garbage row)
@@ -195,12 +198,16 @@ def _push(mode, pending: Batch, pchan, batch: Batch, channel: int, wm, next_id,
 class Ordering_Node:
     """One merge's order restoration over ``n_inputs`` channels, driven by
     one thread. ``device`` is where the watermarks and the renumbering
-    counter live (None = the first batch's device)."""
+    counter live (None = the first batch's device). ``merge_impl``: the
+    networks' implementation (``"cuda"``/``"torch"``; None: the registry's
+    choice, resolved once the device is known)."""
 
     def __init__(self, n_inputs: int, mode: ordering_mode_t = ordering_mode_t.TS,
-                 device=None):
+                 device=None, merge_impl: str = None):
         self.n_inputs = int(n_inputs)
         self.mode = mode
+        self._merge_impl_arg = merge_impl
+        self.merge_impl = None
         self._device = None if device is None else torch.device(device)
         self._wm_dev = None
         self._pending: Optional[Batch] = None    # INVARIANT: sorted, invalid at tail
@@ -217,6 +224,9 @@ class Ordering_Node:
             self._init_device(self._device)
 
     def _init_device(self, dev: torch.device) -> None:
+        from ..ops.registry import resolve_impl
+        self.merge_impl = resolve_impl("ordering_merge", impl=self._merge_impl_arg,
+                                       spec_key=f"mode={self.mode.name}", device=dev)
         self._device = dev
         self._wm_dev = torch.full((self.n_inputs,), WM_NONE, dtype=CTRL_DTYPE, device=dev)
         self._next_id = torch.zeros((), dtype=CTRL_DTYPE, device=dev)
@@ -267,12 +277,12 @@ class Ordering_Node:
         if self._pending is None:
             out, kept, kchan, counts, wm, nid = _first_push(
                 self.mode, batch, int(channel), self._wm_dev, self._next_id,
-                self.networks)
+                self.networks, self.merge_impl)
         else:
             self._pad_pow2()
             out, kept, kchan, counts, wm, nid = _push(
                 self.mode, self._pending, self._pending_chan, batch, int(channel),
-                self._wm_dev, self._next_id, self.networks)
+                self._wm_dev, self._next_id, self.networks, self.merge_impl)
         self._wm_dev, self._next_id = wm, nid
         self._pending, self._pending_chan = kept, kchan
         self._defer_counts(counts)

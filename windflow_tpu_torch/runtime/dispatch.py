@@ -26,10 +26,10 @@ The pieces here are host-side:
   one launch) and :func:`build_k_ladder`.
 
 The single-threaded drivers' accumulators publish the
-``dispatch_linger_depth`` control gauge. Not ported, and stated rather than
-stubbed: the K tuner that rides the control plane's autotuner (ROADMAP
-Queue 1 item 15); :func:`refuse_k_tuner` raises where the JAX package would
-start it.
+``dispatch_linger_depth`` control gauge. With the control plane's autotune
+on (``Pipeline(control=)``), ``autotune_k`` tunes K: the capacity
+hill-climber over :func:`build_k_ladder` actuates
+:meth:`MicrobatchAccumulator.set_k` (``GroupRunner.set_k``).
 
 K = 1 is the degenerate pass-through: every group has one batch and the
 drivers call ``push`` unchanged.
@@ -43,7 +43,7 @@ import os
 import time
 from typing import List, Optional, Union
 
-from .. import control as _control
+from ..control import _state as _control
 from ..observability import tracing as _tracing
 
 
@@ -56,8 +56,8 @@ class DispatchConfig:
     #: max wall-clock seconds a PARTIAL group may linger in a polling driver
     #: before it is dispatched short (the port's pull driver never waits)
     linger_s: float = 0.002
-    #: grow the control plane's autotuner ladder with a K dimension when its
-    #: autotune is on (the control plane is not ported: see refuse_k_tuner)
+    #: tune K with the control plane's autotuner when its autotune is on
+    #: (``Pipeline`` only), over ``build_k_ladder(k)``
     autotune_k: bool = True
     #: capture the K-step program for ``k`` before the first batch
     #: (``CompiledChain.warm_scan``), so no group pays the capture
@@ -115,17 +115,6 @@ class DispatchConfig:
             return cls(**json.loads(text))
         with open(text) as f:                 # a path to a JSON config file
             return cls(**json.load(f))
-
-
-def refuse_k_tuner(cfg: DispatchConfig) -> None:
-    """Raise where the JAX package would start the dispatch K tuner: K > 1
-    with ``autotune_k`` while the control plane is on (``WF_CONTROL``; the
-    port's drivers take no ``control=``)."""
-    if cfg.autotune_k and cfg.k > 1 and os.environ.get("WF_CONTROL", "") not in ("", "0"):
-        raise NotImplementedError(
-            "the dispatch K tuner rides the control plane's autotuner, which is "
-            "not ported yet (ROADMAP Queue 1 item 15); unset WF_CONTROL or pass "
-            "dispatch={'k': K, 'autotune_k': False}")
 
 
 def fused_push(chain, group: List, label: str) -> List:
@@ -239,24 +228,42 @@ class GroupRunner:
     no graph of its shape was captured. ``emit(out)`` takes each output in
     order. A chain without operators (a pipe that only splits or merges)
     passes each batch on alone. Trace spans go on stage ``chain.label``;
-    ``publish_gauge`` is the accumulator's."""
+    ``publish_gauge`` is the accumulator's. ``capacities``: the capacities
+    that form groups (None: the chain's; a capacity ladder's rungs under the
+    control plane). ``pushed(batch)`` runs after each input batch's output
+    was emitted (the tuners' accounting), never for the flush."""
 
     def __init__(self, chain, cfg: Optional[DispatchConfig], emit,
-                 publish_gauge: bool = True):
+                 publish_gauge: bool = True, capacities=None, pushed=None):
         self.chain = chain
         self.emit = emit
+        self.pushed = pushed
+        self.capacities = set(capacities) if capacities else {chain.capacity}
         self.acc = (MicrobatchAccumulator(cfg.k, cfg.linger_s, publish_gauge=publish_gauge)
                     if cfg is not None and cfg.k > 1 and chain.ops else None)
 
+    @property
+    def k(self) -> int:
+        """The current group size (1 without an accumulator)."""
+        return self.acc.k if self.acc is not None else 1
+
+    def set_k(self, k: int) -> None:
+        """The K tuner's actuator: groups formed from now on hold ``k``."""
+        if self.acc is not None:
+            self.acc.set_k(k)
+
     def _run(self, group) -> None:
         if group:
-            for out in fused_push(self.chain, group, self.chain.label):
+            outs = fused_push(self.chain, group, self.chain.label)
+            for b, out in zip(group, outs):
                 self.emit(out)
+                if self.pushed is not None:
+                    self.pushed(b)
 
     def feed(self, batch) -> None:
         if self.acc is None:
             self._run([batch])
-        elif batch.capacity != self.chain.capacity:
+        elif batch.capacity not in self.capacities:
             self._run(self.acc.drain())
             self._run([batch])
         else:

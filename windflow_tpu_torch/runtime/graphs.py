@@ -24,6 +24,13 @@ so one host call launches every kernel of the step.
   capturing thread makes are collected apart (``registry.collect``, so
   another thread's launches meanwhile stay its own) and kept as the graph's
   :attr:`StepGraph.launches`, which every replay adds once.
+- **Kernel selection.** A graph replays the kernels chosen while it was
+  captured, as a jitted executable keeps the impls resolved at its trace.
+  The resolutions the capturing thread makes are kept as
+  :attr:`StepGraph.selections` (``registry.capturing``), so
+  ``registry.stale_selections()`` names a graph whose captured impl the
+  current selection (``WF_KERNEL_IMPL``, ...) no longer picks; its replays
+  still count the kernels it captured.
 - **Threads.** A capture runs in global capture mode and synchronizes the
   device on entry: the threaded drivers make every capture before their
   stage threads start (``runtime/threaded.py``), and a stage thread only
@@ -154,14 +161,19 @@ class StepGraph:
     ``states``' tensors become the static state and ``inputs`` (a tree of
     tensors, owned by the graph from now on) the static input. Capture
     records and runs nothing: the states keep their values until the first
-    :meth:`run`. Raises if the capture fails."""
+    :meth:`run`. Raises if the capture fails. ``name`` labels the graph in
+    ``registry.stale_selections()``."""
 
-    def __init__(self, fn: Callable, states: Any, inputs: Any):
+    def __init__(self, fn: Callable, states: Any, inputs: Any, name: str = "graph"):
+        self.name = name
+        #: the kernel registry's resolutions made while capturing
+        self.selections = {}
         self._template = states
         self._static = leaves(states)
         self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
-        with CAPTURE_LOCK, registry.collect() as counted, torch.cuda.graph(self.graph):
+        with CAPTURE_LOCK, registry.collect() as counted, registry.capturing(self), \
+                torch.cuda.graph(self.graph):
             new_states, outs = fn(rebuild(states, self._static), inputs)
             _load(self._static, leaves(new_states), "captured step's new state")
         self._outs = outs

@@ -52,8 +52,13 @@ the serial driver's EOS flush, ``eos_propagate`` a pipe thread's end).
 ring under the threaded driver, topology dumps at the end) and a ``Tracer``
 from :meth:`PipeGraph.start`; trace ids are minted per root stream and
 offered position, each pipe's chain is the stage ``pipe<i>``, and the
-monitoring argument's event-time toggle builds the chains. ``control=`` is
-refused by name (ROADMAP Queue 1 item 15).
+monitoring argument's event-time toggle builds the chains.
+
+The control plane (``control=``; None consults ``WF_CONTROL``, resolved at
+:meth:`PipeGraph.start`), as in the JAX package: admission gates every source
+loop, the sources sharing ONE bucket (a total ingest rate) through
+per-source controllers (each holds its own batches); the threaded driver's
+``BackpressureGovernor`` watches every ring and throttles the source threads.
 """
 
 from __future__ import annotations
@@ -74,8 +79,7 @@ from ..operators.sink import Sink
 from ..operators.source import SourceBase
 from ..parallel.emitters import split_masks
 from . import dispatch as _dispatch
-from .pipeline import (CompiledChain, record_source_launch, refuse_control,
-                       resolve_batch_hint)
+from .pipeline import CompiledChain, record_source_launch, resolve_batch_hint
 
 
 def _spec_sig(spec):
@@ -291,7 +295,9 @@ class PipeGraph:
     def __init__(self, name: str = "pipegraph", mode: Mode = Mode.DEFAULT,
                  batch_size: int = None, monitoring=None, control=None,
                  trace=None, dispatch=None, device=None, queue_capacity=8):
-        refuse_control(control)
+        #: None = consult WF_CONTROL; resolved at start()
+        self._control_arg = control
+        self._control = None
         #: None = consult WF_MONITORING / WF_TRACE; resolved at start()
         self._monitoring_arg = monitoring
         self._monitor = None
@@ -376,13 +382,15 @@ class PipeGraph:
             tcfg = TraceConfig.resolve(self._trace_arg)
             if tcfg is not None:
                 self._tracer = Tracer(tcfg, self.name).start()
+        if self._control is None:
+            from ..control import ControlConfig
+            self._control = ControlConfig.resolve(self._control_arg)
         if threaded:
             self._prepare_threaded()
             return
         if self._dispatch is None:
             cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
             if cfg is not None:
-                _dispatch.refuse_k_tuner(cfg)
                 if cfg.prewarm and cfg.k > 1:
                     # the roots' K-step programs made ready before the first
                     # batch, as Pipeline does (runs no batch, touches no state)
@@ -415,8 +423,17 @@ class PipeGraph:
             self._trace_labels = {id(p): f"pipe{i}" for i, p in enumerate(self._all_pipes())}
         return self._trace_labels.get(id(mp), "pipe?")
 
+    def _make_admissions(self, driver: str) -> dict:
+        """Root pipe id -> its admission controller, all over ONE shared
+        bucket (a total ingest rate, a holding cell a source); every value is
+        None when admission is off."""
+        from ..control import admission_group
+        group = admission_group(self._control, self.batch_size, len(self._roots),
+                                driver=driver)
+        return {id(mp): adm for mp, adm in zip(self._roots, group)}
+
     def _run_serial(self):
-        from .. import control as _control
+        from ..control import _state as _control
         live = [(mp, mp.source.batches(self.batch_size)) for mp in self._roots]
         pos = 0
         # trace ids are minted per (root stream, offered position a root): the
@@ -448,34 +465,46 @@ class PipeGraph:
             buf_n.clear()
             _control.set_gauge("dispatch_linger_depth", 0)
 
-        while live:
-            mp, it = live[pos % len(live)]
-            try:
-                batch = next(it)
-            except StopIteration:
-                live.remove((mp, it))
-                flush_buf()            # buffered batches land before this root flushes
-                self._exhaust(mp)
-                continue
-            record_source_launch(mp.source, batch)
-            _tracing.ingest(batch, offered[id(mp)], stream=root_idx[id(mp)])
-            offered[id(mp)] += 1
-            pos += 1
-            sampled = (self._monitor is not None
-                       and self._monitor.config.should_sample_e2e(n_pushed))
-            n_pushed += 1
+        def ingest(mp, batch, sampled):
             t0 = time.perf_counter() if sampled else None
             if not dk:
                 # e2e sample: source framing to the first sink's receipt
                 self._e2e_t0 = t0
                 self._push(mp, batch)
                 self._e2e_t0 = None
-                continue
+                return
             buf.append((mp, batch, t0))
             buf_n[id(mp)] = buf_n.get(id(mp), 0) + 1
             _control.set_gauge("dispatch_linger_depth", len(buf))
             if buf_n[id(mp)] >= dk:
                 flush_buf()
+
+        admissions = self._make_admissions("graph")
+        while live:
+            mp, it = live[pos % len(live)]
+            adm = admissions.get(id(mp))
+            try:
+                batch = next(it)
+            except StopIteration:
+                live.remove((mp, it))
+                if adm is not None:
+                    for ab in adm.drain():     # the bounded held tail
+                        ingest(mp, ab, False)
+                flush_buf()            # buffered batches land before this root flushes
+                self._exhaust(mp)
+                continue
+            record_source_launch(mp.source, batch)
+            opos = offered[id(mp)]
+            _tracing.ingest(batch, opos, stream=root_idx[id(mp)])
+            offered[id(mp)] += 1
+            pos += 1
+            # the shed journal coordinates are the trace ids' (stream, offered
+            # position)
+            for ab in ((batch,) if adm is None
+                       else adm.offer(batch, pos=opos, stream=root_idx[id(mp)])):
+                ingest(mp, ab, self._monitor is not None
+                       and self._monitor.config.should_sample_e2e(n_pushed))
+                n_pushed += 1
         # EOS: every pipe in topological order; a merged pipe first drains its
         # Ordering_Node (tuples held back by the low watermark)
         pipe_idx = {id(p): i for i, p in enumerate(self._all_pipes())}
@@ -800,8 +829,6 @@ class PipeGraph:
         that capacity (``threaded.prewarm``)."""
         from .threaded import prewarm
         cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
-        if cfg is not None:
-            _dispatch.refuse_k_tuner(cfg)
         self._dispatch = cfg
         out_cap = {}
         for mp in self._topo_order():
@@ -837,6 +864,9 @@ class PipeGraph:
         out_edges = {}                  # (producer id | "src", consumer id) -> ring
         channel_of = {}                 # ring id -> merge channel
         edge_label = {}                 # ring id -> edge label
+        from ..control import governor_from_config
+        governor = governor_from_config(self._control)
+        admissions = self._make_admissions("graph-threaded")
         for prod, dst, label, index in self._iter_edges():
             cap = resolve_edge_capacity(self.queue_capacity, label, index)
             q = SPSCQueue(cap)
@@ -846,6 +876,8 @@ class PipeGraph:
             if self._monitor is not None:
                 # ring depth near capacity: the consumer pipe is the bottleneck
                 self._monitor.registry.attach_queue_gauge(label, q.size, capacity=cap)
+            if governor is not None:
+                governor.watch(label, q.size, cap)
             if prod is not None and dst.merge_inputs:
                 channel_of[id(q)] = dst.merge_inputs.index(prod)
         errors: list = []
@@ -911,6 +943,9 @@ class PipeGraph:
                         mp.sink.consume(None)
             except BaseException as e:          # noqa: BLE001 — raised after the join
                 errors.append(e)
+                if governor is not None:
+                    governor.stop()     # a throttled source must not wait on a
+                    #                     ring this dead pipe will drain
                 # drain the remaining input rings to EOS, so that producers
                 # blocked on a full ring behind this pipe finish and send
                 # their own EOS
@@ -926,14 +961,24 @@ class PipeGraph:
 
         def source_body(mp, stream):
             q = out_edges[("src", id(mp))]
+            adm = admissions.get(id(mp))
             stream_idx = self._roots.index(mp)
             try:
                 with on_stream(stream):
                     for n, batch in enumerate(mp.source.batches(self.batch_size)):
                         record_source_launch(mp.source, batch)
                         _tracing.ingest(batch, n, stream=stream_idx)
-                        _tracing.event(batch, edge_label[id(q)], "enq")
-                        q.push(send(batch))
+                        for ab in ((batch,) if adm is None
+                                   else adm.offer(batch, pos=n, stream=stream_idx)):
+                            if governor is not None:
+                                governor.throttle()
+                            _tracing.event(ab, edge_label[id(q)], "enq")
+                            q.push(send(ab))
+                    if adm is not None:
+                        for ab in adm.drain():      # the bounded held tail
+                            if governor is not None:
+                                governor.throttle()
+                            q.push(send(ab))
             except BaseException as e:          # noqa: BLE001
                 errors.append(e)
             finally:
@@ -958,6 +1003,8 @@ class PipeGraph:
             for p in pipes:
                 if p._chain is not None:
                     p._chain.capture_closed = False
+            if governor is not None:
+                governor.stop()
         errors += join_streams(self.device, streams)
         if errors:
             raise errors[0]

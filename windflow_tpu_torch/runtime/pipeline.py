@@ -34,7 +34,19 @@ is active also pushes 2, 4 and 8, as the JAX package samples) waits for the
 chain's stream and journals a ``launch`` record; a sampled fused launch
 (only while one of them is active) a ``dispatch_fused`` record. With
 neither active nothing is added to the unmonitored path: no wait, no
-launch. ``control=`` (the control plane) is ROADMAP Queue 1 item 15.
+launch.
+
+The control plane (``control=``, ``control/``; None consults
+``WF_CONTROL``, off by default), as in the JAX package: with autotune on the
+operators are bound at the capacity ladder's top rung, every rung's step is
+made ready before the first batch (:meth:`CompiledChain.warm`), a
+``Rebatcher`` at the ingest boundary concatenates or slices the source's
+batches to the rung a ``CapacityAutotuner`` picks from the host wall time of
+``decide_every`` pushes (no push waits for the card), and the plan persists
+in a tuning cache. With ``dispatch=`` K > 1 and ``autotune_k`` the same
+hill-climber tunes K over ``build_k_ladder(K)``, every K rung captured
+before the run. Admission offers each source batch to an
+``AdmissionController`` and sheds or holds it.
 """
 
 from __future__ import annotations
@@ -48,8 +60,8 @@ from typing import Any, List, Optional, Sequence
 import torch
 
 from ..basic import DEFAULT_BATCH_SIZE
-from ..batch import (Batch, jax_leaves, same_capacity, stack_batches, tree_leaves,
-                     unstack_batches)
+from ..batch import (Batch, dtype_name, jax_leaves, same_capacity, stack_batches,
+                     tree_leaves, unstack_batches)
 from ..device import resolve_device
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
@@ -79,13 +91,6 @@ def record_source_launch(source, batch: Batch) -> None:
     source.get_StatsRecords()[0].record_launch(hd_bytes=hd)
 
 
-def refuse_control(control) -> None:
-    """Raise for a driver's ``control=``, naming its ROADMAP item."""
-    if control is not None:
-        raise NotImplementedError("control= (the control plane) is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
-
-
 def _observed() -> bool:
     """A journal or the health ledger is active: the sampled service points
     follow the JAX package's schedule and journal their records."""
@@ -101,7 +106,7 @@ def _early_sample(c: int) -> bool:
 def _health_sig(tree) -> str:
     """Shape and dtype signature of a batch tree, in the JAX package's form
     (``(64,)/int32;...``): the capture ledger's cache key component."""
-    return ";".join(f"{tuple(t.shape)}/{str(t.dtype).replace('torch.', '')}"
+    return ";".join(f"{tuple(t.shape)}/{dtype_name(t.dtype)}"
                     for t in jax_leaves(tree))
 
 
@@ -185,6 +190,14 @@ class CompiledChain:
         #: synchronizes the device and fails in global capture mode while
         #: other threads launch) raises instead
         self.capture_closed = False
+
+    def warm(self, capacity: int) -> None:
+        """Make the per-batch step of ``capacity`` ready WITHOUT touching
+        operator state: one eager step over an all-invalid batch, its
+        results dropped (:meth:`_warm`), which builds and sets up every
+        kernel at these shapes. After warming every rung of a capacity
+        ladder the autotuner's switches run programs already made ready."""
+        self._warm(0, int(capacity))
 
     def reset_states(self) -> None:
         """Re-initialize every operator's state (supervised replay of a chain
@@ -387,7 +400,8 @@ class CompiledChain:
             hl, t0c = self._health_begin(cause)
             if hl is not None:
                 self._note(hl, from_op, "scan", empty, k=k)
-            g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states), empty)
+            g = self.graphs[key] = StepGraph(self._k_steps(from_op), list(self.states), empty,
+                                             name=f"{self.label}:{from_op}:k{k}:c{capacity}")
             self._health_end(hl, t0c, from_op)
         return g
 
@@ -565,14 +579,19 @@ class Pipeline:
     ``trace=`` (None consults ``WF_MONITORING`` / ``WF_TRACE``, resolved at
     :meth:`run`) run a ``Monitor`` and a ``Tracer`` for the run;
     ``event_time=`` (None: the monitoring config's sub-toggle) builds the
-    operators with lateness histograms. ``control=`` raises (item 15)."""
+    operators with lateness histograms. ``control=`` is the control plane
+    (:class:`~..control.ControlConfig`: None consults ``WF_CONTROL``, off by
+    default), resolved here because the capacity ladder binds the chain's
+    geometry: with autotune on the operators are bound at the ladder's top
+    rung, so every smaller rung runs inside the same state."""
 
     def __init__(self, source: SourceBase, ops: Sequence[Basic_Operator],
                  sink: Optional[Sink] = None, *,
                  batch_size: Optional[int] = None, device=None,
                  event_time: bool = None, dispatch=None, prefetch: int = 0,
                  monitoring=None, trace=None, control=None):
-        refuse_control(control)
+        from ..control import ControlConfig, build_ladder
+        self._control = ControlConfig.resolve(control)
         self.device = resolve_device(device)
         self.source = source
         self.sink = sink
@@ -594,20 +613,85 @@ class Pipeline:
             # geometry-binding: resolved now, from the monitoring argument
             from ..observability import event_time_enabled
             event_time = event_time_enabled(monitoring)
-        self.chain = CompiledChain(ops, source.payload_spec(),
-                                   batch_capacity=source.out_capacity(self.batch_size),
+        cap = source.out_capacity(self.batch_size)
+        self._ladder = None
+        if self._control is not None and self._control.autotune:
+            self._ladder = build_ladder(cap, up=self._control.ladder_up,
+                                        down=self._control.ladder_down)
+            cap = self._ladder[-1]
+        self.chain = CompiledChain(ops, source.payload_spec(), batch_capacity=cap,
                                    device=self.device, event_time=event_time)
+        #: the last run's capacity and K tuners (None when off)
+        self.tuner = self.ktuner = None
 
-    def _dispatch_config(self) -> Optional[_dispatch.DispatchConfig]:
-        """``dispatch=`` resolved (None when off), with the K-step program
-        made ready up front when ``prewarm``."""
-        cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
+    def _tuner(self, ladder, start, cache_key_fn, name: str, gauge: str):
+        """A ``CapacityAutotuner`` over ``ladder`` from the control config,
+        with the tuning cache and its key when ``cache_path`` is set."""
+        from ..control import (CapacityAutotuner, TuningCache, chain_signature,
+                               device_kind, payload_signature)
+        cfg = self._control
+        cache = key = None
+        if cfg.cache_path:
+            cache = TuningCache(cfg.cache_path)
+            key = cache_key_fn(chain_signature(self.chain.ops),
+                               payload_signature(self.chain.specs[0]),
+                               device_kind(self.device))
+        return CapacityAutotuner(
+            ladder, start_capacity=start, decide_every=cfg.decide_every,
+            settle_batches=cfg.settle_batches,
+            improve_threshold=cfg.improve_threshold, cache=cache, cache_key=key,
+            name=self.source.getName() + name, gauge=gauge)
+
+    def _make_controller(self):
+        """The run's control pieces from the resolved config: (autotuner,
+        rebatcher, admission), each None when its part is off."""
+        cfg = self._control
         if cfg is None:
-            return None
-        _dispatch.refuse_k_tuner(cfg)
-        if cfg.prewarm and cfg.k > 1:
-            self.chain.warm_scan(cfg.k, self.source.out_capacity(self.batch_size))
-        return cfg
+            return None, None, None
+        from ..control import Rebatcher, admission_from_config, tuning_key
+        base = self.source.out_capacity(self.batch_size)
+        tuner = rebatcher = None
+        if cfg.autotune and self._ladder and len(self._ladder) > 1:
+            tuner = self._tuner(self._ladder, base, tuning_key, "-pipeline",
+                                "chosen_capacity")
+            rebatcher = Rebatcher(base)
+            if tuner.capacity != base:        # a cache warm start: actuate now
+                rebatcher.set_target(tuner.capacity)
+            if cfg.prewarm:
+                # a converged warm start runs the cached rung and the base
+                # (drain, pass-through) only
+                caps = {tuner.capacity, base} if tuner.converged else self._ladder
+                with _dh.cause("autotune_prewarm"):
+                    for c in sorted(caps):
+                        self.chain.warm(c)
+        admission = admission_from_config(cfg, base, driver="pipeline")
+        return tuner, rebatcher, admission
+
+    def _make_dispatcher(self):
+        """``dispatch=`` resolved into (config, K tuner), both None when
+        dispatch is off. The K tuner is the capacity hill-climber over
+        ``build_k_ladder(K)`` (1 included: the per-batch push), its winner
+        kept in the tuning cache under a dispatch key; every K rung is
+        captured before the first batch when ``prewarm``."""
+        dcfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
+        if dcfg is None:
+            return None, None
+        base = self.source.out_capacity(self.batch_size)
+        cfg = self._control
+        ktuner = None
+        if dcfg.autotune_k and cfg is not None and cfg.autotune and dcfg.k > 1:
+            from ..control import dispatch_tuning_key
+            ladder = _dispatch.build_k_ladder(dcfg.k)
+            ktuner = self._tuner(ladder, dcfg.k, dispatch_tuning_key, "-dispatch-k",
+                                 "dispatch_k")
+            if dcfg.prewarm:
+                ks = {ktuner.capacity, 1} if ktuner.converged else ladder
+                with _dh.cause("autotune_prewarm"):
+                    for kr in sorted(ks):
+                        self.chain.warm_scan(kr, base)
+        elif dcfg.prewarm and dcfg.k > 1:
+            self.chain.warm_scan(dcfg.k, base)
+        return dcfg, ktuner
 
     def run(self) -> dict:
         """Drive the stream to EOS; returns ``chain.result()``."""
@@ -630,11 +714,13 @@ class Pipeline:
                 mon.finish(self)
 
     def _run(self, mon) -> dict:
-        # e2e samples (a host sink only): the n-th fed batch is stamped when
-        # the policy samples it, and its output's receipt closes the sample
+        # e2e samples (a host sink only): the n-th batch fed to the chain is
+        # stamped when the policy samples it, and its output's receipt closes
+        # the sample
         stamps = collections.deque()
         e2e = mon is not None and self.sink is not None
         n_out = 0
+        n_fed = 0
 
         def emit(out):
             nonlocal n_out
@@ -647,20 +733,58 @@ class Pipeline:
                 _n, t0, tid = stamps.popleft()
                 mon.registry.record_e2e(time.perf_counter() - t0, exemplar=tid)
             n_out += 1
-        dcfg = self._dispatch_config()
+        tuner, rebatcher, admission = self._make_controller()
+        dcfg, ktuner = self._make_dispatcher()
+        self.tuner, self.ktuner = tuner, ktuner
+
+        def pushed(b):
+            # tuner accounting after each pushed batch, in batch order
+            if tuner is not None:
+                newcap = tuner.on_batch(b.capacity)
+                if newcap is not None:
+                    rebatcher.set_target(newcap)
+            if ktuner is not None:
+                newk = ktuner.on_batch(b.capacity)
+                if newk is not None:
+                    runner.set_k(newk)
+        runner = _dispatch.GroupRunner(
+            self.chain, dcfg, emit,
+            capacities=self._ladder if rebatcher is not None else None,
+            pushed=pushed if tuner is not None or ktuner is not None else None)
+        if ktuner is not None:
+            runner.set_k(ktuner.capacity)
+        if mon is not None and tuner is not None:
+            mon.registry.attach_gauge("control_chosen_capacity", lambda: tuner.capacity)
         if mon is not None and dcfg is not None:
-            mon.registry.attach_gauge("dispatch_k", lambda: dcfg.k)
-        runner = _dispatch.GroupRunner(self.chain, dcfg, emit)
+            mon.registry.attach_gauge("dispatch_k", lambda: runner.k)
+
+        def fed(rb):
+            nonlocal n_fed
+            if e2e and mon.config.should_sample_e2e(n_fed):
+                stamps.append((n_fed, time.perf_counter(), _tracing.tid_of(rb)))
+            n_fed += 1
+            runner.feed(rb)
+
+        def feed(b):
+            for rb in (rebatcher.feed(b) if rebatcher is not None else (b,)):
+                fed(rb)
         batches = (self.source.batches_prefetched(self.batch_size, self.prefetch,
                                                   pause_event=self.prefetch_pause)
                    if self.prefetch else self.source.batches(self.batch_size))
         for n, batch in enumerate(batches):
             record_source_launch(self.source, batch)
             _tracing.ingest(batch, n)
-            if e2e and mon.config.should_sample_e2e(n):
-                stamps.append((n, time.perf_counter(), _tracing.tid_of(batch)))
-            runner.feed(batch)
+            # the shed journal coordinate is the offered position, which
+            # trace ids are minted from
+            for ab in ((batch,) if admission is None else admission.offer(batch, pos=n)):
+                feed(ab)
         _journal.record("eos", pipeline=self.source.getName())
+        if admission is not None:
+            for ab in admission.drain():            # the bounded held tail
+                feed(ab)
+        if rebatcher is not None:
+            for rb in rebatcher.drain():            # a partial up-rung buffer
+                fed(rb)
         runner.finish()                  # the partial tail < K, then the flush
         if self.sink is not None:
             self.sink.consume(None)      # empty-optional EOS signal (wf/sink.hpp)

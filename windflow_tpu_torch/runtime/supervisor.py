@@ -94,11 +94,33 @@ the tiered operators first and keeps their cold tiers' manifests beside the
 states; a restore rewinds the stores and discards the copies in flight
 (replay re-derives the spills).
 
-Not ported, and refused by name: the governor's ``reshard="auto"``,
-admission control and remediation (``control=``, ``WF_CONTROL``,
-``remediation=``, ``WF_REMEDIATION``: ROADMAP Queue 1 item 15) and the
-multi-host slice helper ``multihost.process_shard_slice`` (item 14; an
-explicit ``shard_range=`` runs).
+The control plane under supervision, as in the JAX package:
+
+- **Admission** (``control=``, ``WF_CONTROL``) must be replay-deterministic:
+  only the positional bucket (``refill_per_batch``) with ``drop_newest``
+  runs, and its state rides every checkpoint, so a replay re-sheds exactly
+  the batches the failed attempt shed. A shed batch still advances the
+  stream position. The graph driver's sources share one bucket, and with
+  admission on its commits wait for a round boundary.
+- **Warm start**: a capacity plan a live ``Pipeline`` persisted in the
+  tuning cache (same chain signature, payload and device kind) sets the
+  batch size; the autotuner itself does not run under supervision.
+- **Barrier remediation** (``remediation=``, ``WF_REMEDIATION``,
+  ``WF_REMEDIATION_COOLDOWN_S``, ``WF_REMEDIATION_MAX_ACTIONS``): a
+  ``BarrierRemediation`` evaluates committed signals (the interval's shed
+  ratio, the shards' hot fraction) at each commit barrier; its decision
+  state and the scaled refill rate ride the admission snapshot, so a replay
+  re-derives the same actions at the same barriers.
+- **``reshard="auto"``** (sharded pipeline driver): after each commit the
+  governor's ``recommend_reshard`` reads the shards' committed interval
+  loads and plans a doubling when one shard carries most of the load; a
+  doubling that does not lower the hot fraction stops it. A remediation
+  reshard loses to it at the same barrier (``remediation_skip``,
+  ``arbitration``).
+
+Not ported, and refused by name: the multi-host slice helper
+``multihost.process_shard_slice`` (item 14; an explicit ``shard_range=``
+runs).
 """
 
 from __future__ import annotations
@@ -146,26 +168,102 @@ def _restore_span(**fields):
     _faults.bump("recovery_seconds", round(time.perf_counter() - t0, 6))
 
 
-# ------------------------------------------------------- refused by name
+# ------------------------------------------------------------ control plane
 
-def _refuse(what: str, item: int) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+def _supervised_admission(cfg, base_capacity: int, driver: str):
+    """The supervised drivers' admission controller (None when admission is
+    off). Shed decisions are part of the output, so a replay from a
+    checkpoint must re-shed exactly the batches the failed attempt shed:
+    the wall-clock ``TokenBucket`` (a restore changes its refill timeline)
+    and the ``drop_oldest_ts`` holding cell (held batches would have to be
+    in every checkpoint) are refused; the positional bucket with
+    ``drop_newest`` runs, its state snapshotted with the checkpoints."""
+    if cfg is None or not cfg.admission:
+        return None
+    if cfg.refill_per_batch is None:
+        raise ValueError(
+            "supervised admission control requires the deterministic "
+            "ControlConfig(refill_per_batch=...) bucket — the wall-clock "
+            "rate_tps bucket makes shed decisions time-dependent, which "
+            "breaks exactly-once replay (use the live drivers for "
+            "wall-clock rate limiting)")
+    if cfg.shed_policy != "drop_newest":
+        raise ValueError(
+            "supervised admission control supports shed_policy='drop_newest' "
+            "only (a drop_oldest_ts holding cell would have to be serialized "
+            "into every checkpoint)")
+    from ..control import AdmissionController, PositionBucket
+    from ..control.admission import resolve_burst
+    return AdmissionController(
+        PositionBucket(cfg.refill_per_batch, resolve_burst(cfg, base_capacity)),
+        "drop_newest", hold_max=0, driver=driver)
 
 
-def _env_on(var: str) -> bool:
-    return os.environ.get(var, "").strip() not in ("", "0")
+def _interval_drop_ratio(prev_adm, new_adm):
+    """The just-committed interval's shed fraction, shed/(shed+admitted)
+    between two committed admission snapshots: the barrier remediation's
+    ``drop_ratio`` signal (a pure function of committed state). None for an
+    empty interval (the zero-length EOS commit), which freezes the
+    violation window instead of clearing it."""
+    if prev_adm is None or new_adm is None:
+        return None
+    shed = int(new_adm.get("shed", 0)) - int(prev_adm.get("shed", 0))
+    admitted = int(new_adm.get("admitted", 0)) - int(prev_adm.get("admitted", 0))
+    total = shed + admitted
+    return (shed / total) if total > 0 else None
 
 
-def _refuse_unported(*, reshard=None, control=None, remediation=None) -> None:
-    """Raise for every supervision feature the port does not have yet,
-    naming its ROADMAP item, instead of running without it."""
-    if isinstance(reshard, str) and reshard == "auto" or (
-            reshard is None and os.environ.get("WF_RESHARD", "").strip() == "auto"):
-        _refuse("supervised reshard='auto' (control/governor.py::recommend_reshard)", 15)
-    if control is not None or _env_on("WF_CONTROL"):
-        _refuse("supervised control= / WF_CONTROL (admission control)", 15)
-    if remediation is not None or _env_on("WF_REMEDIATION"):
-        _refuse("supervised remediation= / WF_REMEDIATION", 15)
+def _apply_barrier_decision(d: dict, adm) -> None:
+    """Actuate and journal one ``BarrierRemediation`` decision (a reshard
+    decision reaches here after the sharded coordinator's arbitration, so
+    only the admission rate actuates)."""
+    from ..control import _state as _cstate
+    if not d.get("applied"):
+        _cstate.bump("remediation_skips")
+        _journal.record("remediation_skip", **d)
+        return
+    if d.get("actuator") == "admission_rate" and adm is not None:
+        d.update(adm.scale_rate(d["factor"], d["floor"]))
+    _cstate.bump("remediation_actions")
+    _journal.record("remediation_apply", **d)
+
+
+def _barrier_remediation(arg, *, admission: bool, shards: int):
+    """``remediation=`` (None consults ``WF_REMEDIATION``) resolved into a
+    ``BarrierRemediation`` over the actuators the run owns, or None; the
+    cooldown counts barriers, one a second of ``WF_REMEDIATION_COOLDOWN_S``."""
+    from ..control import remediation as _remediation
+    arg = arg if arg is not None else os.environ.get("WF_REMEDIATION")
+    policy = _remediation.resolve_barrier_policy(arg, admission=admission, shards=shards)
+    if policy is None:
+        return None
+    cool = float(os.environ.get("WF_REMEDIATION_COOLDOWN_S",
+                                _remediation.DEFAULT_COOLDOWN_S))
+    return _remediation.BarrierRemediation(
+        policy, cooldown_barriers=max(1, int(round(cool))),
+        max_actions=int(os.environ.get("WF_REMEDIATION_MAX_ACTIONS",
+                                       _remediation.DEFAULT_MAX_ACTIONS)))
+
+
+def _warm_start_capacity(cfg, ops, source, batch_size: int, device) -> int:
+    """The batch size from a capacity plan a live ``Pipeline`` persisted in
+    the tuning cache (same chain signature, payload and device kind), else
+    ``batch_size``. The autotuner does not run under supervision: a capacity
+    switch mid-stream would re-index the checkpoint positions."""
+    if cfg is None or not cfg.autotune or not cfg.cache_path:
+        return batch_size
+    from ..control import (TuningCache, chain_signature, device_kind,
+                           payload_signature, tuning_key)
+    from ..control import _state as _cstate
+    key = tuning_key(chain_signature(ops), payload_signature(source.payload_spec()),
+                     device_kind(device))
+    hit = TuningCache(cfg.cache_path).get(key)
+    if not hit:
+        return batch_size
+    cap = int(hit["capacity"])
+    _cstate.bump("tuning_cache_hits")
+    _journal.record("tuning_warm_start", tuner="supervised", capacity=cap, key=key)
+    return cap
 
 
 def _supervised_tracer(trace_arg, name: str):
@@ -247,7 +345,6 @@ class SupervisedPipeline:
                  control=None, trace=None, dispatch=None, shards=None,
                  reshard=None, shard_key=None, shard_range=None,
                  remediation=None, device=None):
-        _refuse_unported(reshard=reshard, control=control, remediation=remediation)
         self._trace_arg = trace
         self._tracer = None
         #: shard-local supervision (``shards=`` or ``WF_SHARDS``; 1 runs the
@@ -274,7 +371,18 @@ class SupervisedPipeline:
                              f"but the supervised pipeline runs on {self.device}")
         self.source = source
         self.sink = sink
-        self.batch_size = int(batch_size or resolve_batch_hint(ops) or DEFAULT_BATCH_SIZE)
+        from ..control import ControlConfig
+        self._control = ControlConfig.resolve(control)
+        self.batch_size = _warm_start_capacity(
+            self._control, list(ops), source,
+            int(batch_size or resolve_batch_hint(ops) or DEFAULT_BATCH_SIZE), self.device)
+        self._admission = _supervised_admission(
+            self._control, source.out_capacity(self.batch_size), "supervised-pipeline")
+        #: barrier-mode remediation (this driver takes no monitoring=): a
+        #: live engine acts on wall-clock verdicts, which a replay could not
+        #: re-derive; with it off the checkpoints are the same as without
+        self._remediation = _barrier_remediation(
+            remediation, admission=self._admission is not None, shards=self._shards)
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.max_restarts = int(max_restarts)
         self.spill_path = spill_path
@@ -329,7 +437,6 @@ class SupervisedPipeline:
             return
         cfg = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
         if cfg is not None:
-            _dispatch.refuse_k_tuner(cfg)
             if cfg.prewarm and cfg.k > 1 and self.chain.ops and self._shards == 1:
                 cap = self.source.out_capacity(self.batch_size)
                 for kk in range(2, min(cfg.k, self.checkpoint_every) + 1):
@@ -371,6 +478,15 @@ class SupervisedPipeline:
         snap = self._snapshot()
         snap_pos = 0                          # batches fully committed
         snap_cursor = None                    # source resume token at commit
+        adm = self._admission
+        rem = self._remediation
+        snap_adm = adm.state() if adm is not None else None
+        if rem is not None and adm is not None:
+            # the barrier remediation's decision state rides the admission
+            # snapshot (only when remediation is on): a restore resets it to
+            # the committed decision point
+            snap_adm = dict(snap_adm, remediation={"engine": rem.state(),
+                                                   "rate": adm.current_rate()})
         pending = []                          # outputs since last commit
         outbox = []                           # committed, not yet delivered
         budget = self.max_restarts
@@ -439,7 +555,7 @@ class SupervisedPipeline:
             push_group(tail, positions)
 
         def commit(pos):
-            nonlocal snap, snap_pos, snap_cursor, budget
+            nonlocal snap, snap_pos, snap_cursor, snap_adm, budget
             flush_acc()
             with _journal.span("checkpoint", at_batch=pos,
                                outputs_committed=len(pending)):
@@ -447,12 +563,25 @@ class SupervisedPipeline:
                 # commit intact (replay regenerates `pending`)
                 new_snap = self._snapshot()   # host copies: faults surface here
                 new_cursor = self.source.cursor()
+                new_adm = adm.state() if adm is not None else None
+                if rem is not None and adm is not None:
+                    # the interval's committed shed ratio in, actuations out,
+                    # before the commit point: the committed snapshot holds
+                    # the rate and decision state after the actions (a
+                    # failure below re-evaluates this barrier the same way)
+                    ratio = _interval_drop_ratio(snap_adm, new_adm)
+                    for d in rem.on_barrier(pos, {} if ratio is None
+                                            else {"drop_ratio": ratio}):
+                        _apply_barrier_decision(d, adm)
+                    new_adm = dict(new_adm, remediation={"engine": rem.state(),
+                                                         "rate": adm.current_rate()})
                 if self.spill_path:
                     from .checkpoint import save_chain
                     save_chain(self.chain, self.spill_path,
                                meta={"batches_done": pos}, keep=self.checkpoint_keep)
                 # -- the commit point: pure assignments, cannot fail --
                 snap, snap_pos, snap_cursor = new_snap, pos, new_cursor
+                snap_adm = new_adm
                 budget = self.max_restarts    # progress refills the budget
                 if self.sink is not None:
                     outbox.extend(pending)
@@ -489,6 +618,14 @@ class SupervisedPipeline:
                     # position-derived: a replay of this position re-mints
                     # the same id
                     _tracing.ingest(batch, pos)
+                    if adm is not None and not adm.offer(batch, pos=pos):
+                        # shed (the positional bucket: a replay from the
+                        # committed bucket state re-sheds this batch)
+                        pos += 1
+                        cur_pos = None
+                        if pos - snap_pos >= self.checkpoint_every:
+                            commit(pos)
+                        continue
                     if degrade_hi is not None and pos > degrade_hi:
                         degrade_hi = None     # past the failed group's range
                     if acc is None or degrade_hi is not None:
@@ -544,6 +681,15 @@ class SupervisedPipeline:
                 with _restore_span(at_batch=pos, replay_from=snap_pos,
                                    attempt=self.restarts, error=type(e).__name__):
                     self._restore(snap)
+                    if adm is not None:
+                        adm.set_state(snap_adm)
+                        if rem is not None and snap_adm is not None:
+                            # set_state restores tokens and counters; the
+                            # refill rate the remediation may have scaled and
+                            # the decision state come from the commit too
+                            rst = snap_adm.get("remediation") or {}
+                            rem.set_state(rst.get("engine") or {})
+                            adm.set_rate(float(rst.get("rate", adm.current_rate())))
                 pending.clear()               # uncommitted: regenerated by replay
                 if acc is not None:
                     acc.clear()               # replay re-feeds dropped batches
@@ -888,14 +1034,28 @@ class ShardedSupervisor:
         self.spill_path = p.spill_path
         self.checkpoint_keep = p.checkpoint_keep
         self.assignment = ShardAssignment(p._shards)
-        self.pending_plan = ReshardPlan.resolve(p._reshard_arg)
+        plan = ReshardPlan.resolve(p._reshard_arg)
+        #: reshard="auto": the governor's planner derives plans from the
+        #: committed per-shard loads at each barrier
+        self.auto_reshard = plan == "auto"
+        self.pending_plan = None if self.auto_reshard else plan
         self._reshard_due = False
         self.reshard_count = 0
+        self._auto_stopped = False
+        self._auto_prev_ratio = None
+        self._auto_check_pending = False
+        #: barrier remediation (or None): evaluated in _barrier on committed
+        #: signals; its state and the scaled rate are kept in snap_rem (the
+        #: coordinator's half of the snapshot)
+        self.rem = p._remediation
+        self.snap_rem = None
+        self._rem_drop_ratio = None         # the last committed interval's
         lo, hi = p._shard_range if p._shard_range is not None else (0, p._shards)
         if not (0 <= lo <= hi <= p._shards):
             raise ValueError(f"shard_range={p._shard_range} is not a sub-range of "
                              f"[0, {p._shards})")
-        if (lo, hi) != (0, p._shards) and self.pending_plan is not None:
+        if (lo, hi) != (0, p._shards) and (self.auto_reshard
+                                           or self.pending_plan is not None):
             raise ValueError(
                 "live re-sharding under a multi-host shard_range is not yet supported — "
                 "each host would have to apply the plan at the same barrier over DCN; "
@@ -909,6 +1069,7 @@ class ShardedSupervisor:
                                                self))
         self.commit_pos = 0
         self.snap_cursor = None
+        self.snap_adm = None
         self._gbudget = self.max_restarts
 
     def _splitter(self):
@@ -916,6 +1077,11 @@ class ShardedSupervisor:
 
     def run(self):
         p = self.p
+        adm = p._admission
+        self.snap_adm = adm.state() if adm is not None else None
+        if self.rem is not None:
+            self.snap_rem = {"engine": self.rem.state(),
+                             "rate": adm.current_rate() if adm is not None else None}
         rng = random.Random()               # backoff jitter: timing only
         prev_sleep = self.backoff_base
         split = None
@@ -925,9 +1091,13 @@ class ShardedSupervisor:
                     # a failure interrupted the handoff: re-derive the move at
                     # the same barrier, so the layout history matches a
                     # fault-free run's
-                    self._apply_reshard(self.pending_plan, self.commit_pos)
+                    self._apply_reshard(self.pending_plan, self.commit_pos, adm)
                     self._reshard_due = False
                     self.pending_plan = None
+                    if self.auto_reshard:
+                        # the retry arms the no-improvement check as the
+                        # barrier does
+                        self._auto_check_pending = True
                     split = None
                 if split is None:
                     split = self._splitter()
@@ -943,6 +1113,12 @@ class ShardedSupervisor:
                     except StopIteration:
                         break
                     _tracing.ingest(batch, pos)
+                    if adm is not None and not adm.offer(batch, pos=pos):
+                        pos += 1
+                        if pos - self.commit_pos >= self.checkpoint_every:
+                            self._commit(pos, adm)
+                            split = self._barrier(pos, adm, split)
+                        continue
                     if self.shards:
                         subs = split(batch)
                         for s in self.shards:
@@ -951,13 +1127,13 @@ class ShardedSupervisor:
                             s.offer(pos, sub)
                     pos += 1
                     if pos - self.commit_pos >= self.checkpoint_every:
-                        self._commit(pos)
-                        split = self._barrier(pos, split)
+                        self._commit(pos, adm)
+                        split = self._barrier(pos, adm, split)
                 # EOS: every shard flushes under its own recovery, one final
                 # commit, committed delivery
                 for s in self.shards:
                     s.flush_supervised()
-                self._commit(pos)
+                self._commit(pos, adm)
                 if self.pending_plan is not None or self._reshard_due:
                     # the stream ended before the plan's barrier: say so
                     _journal.record("reshard", aborted=True, at_pos=pos,
@@ -985,6 +1161,14 @@ class ShardedSupervisor:
                         s._restore_states()
                         s.pending.clear()
                         s.replay.clear()
+                    if adm is not None:
+                        adm.set_state(self.snap_adm)
+                    if self.rem is not None and self.snap_rem is not None:
+                        # the scaled rate and the decision state from the
+                        # committed decision point
+                        self.rem.set_state(self.snap_rem.get("engine") or {})
+                        if adm is not None and self.snap_rem.get("rate") is not None:
+                            adm.set_rate(float(self.snap_rem["rate"]))
                     if self.spill_path:
                         from .checkpoint import discard_handoffs
                         dropped = discard_handoffs(self.spill_path)
@@ -1001,12 +1185,14 @@ class ShardedSupervisor:
 
     # -- the aligned barrier ----------------------------------------------------------
 
-    def _commit(self, pos: int) -> None:
+    def _commit(self, pos: int, adm) -> None:
         with _journal.span("checkpoint", at_batch=pos, shards=len(self.shards),
                            outputs_committed=sum(len(s.pending) for s in self.shards)):
             # fallible work first: snapshots, the cursor, the sharded spill
             new_snaps = [s._snapshot_states() for s in self.shards]
             new_cursor = self.source.cursor()
+            new_adm = adm.state() if adm is not None else None
+            drop_ratio = _interval_drop_ratio(self.snap_adm, new_adm)
             if self.spill_path and self.shards:
                 from .checkpoint import save_sharded
                 save_sharded(new_snaps, self.spill_path, layout=self.assignment.to_meta(),
@@ -1017,25 +1203,95 @@ class ShardedSupervisor:
                 s.commit(pos, sn)
             self.commit_pos = pos
             self.snap_cursor = new_cursor
+            self.snap_adm = new_adm
+            self._rem_drop_ratio = drop_ratio
             self._gbudget = self.max_restarts
             for s in self.shards:
                 s.deliver()
 
-    def _barrier(self, pos: int, split):
-        """After a commit: apply a pending plan whose barrier has come.
+    def _barrier(self, pos: int, adm, split):
+        """After a commit: derive a plan (``reshard="auto"``), let the
+        remediation act, and apply a pending plan whose barrier has come.
         Returns the (possibly new) splitter."""
+        if self.auto_reshard and self.pending_plan is None and not self._auto_stopped:
+            from ..control.governor import recommend_reshard
+            loads = {s.idx: s.interval_tuples for s in self.shards}
+            vals = list(loads.values())
+            total = sum(vals)
+            # the hot fraction (max/total) is scale-free across shard counts:
+            # a split halves it, one unsplittable hot key keeps it
+            frac = (max(vals) / total) if total > 0 else 0.0
+            if self._auto_check_pending and total >= float(len(vals)):
+                # the first measured barrier after an auto reshard (only that
+                # one): did the doubling lower the hot fraction?
+                self._auto_check_pending = False
+                if frac >= 0.9 * self._auto_prev_ratio:
+                    # it did not: the skew sits in one key slot, which
+                    # key % 2N cannot split, so auto resharding stops
+                    self._auto_stopped = True
+                    _journal.record("reshard", aborted=True, at_pos=pos,
+                                    error="auto-stopped: hot fraction "
+                                          f"{frac:.2f} did not improve")
+                self._auto_prev_ratio = None
+            elif not self._auto_check_pending:
+                plan = recommend_reshard(loads, self.assignment)
+                if plan is not None:
+                    self.pending_plan = plan
+                    self._auto_prev_ratio = frac
+        if self.rem is not None:
+            # after the auto derivation (arbitration sees this barrier's plan)
+            # and before the due-check (a remediation reshard lands here)
+            self._remediate_barrier(pos, adm)
         if self.pending_plan is not None and pos >= self.pending_plan.at_pos:
             self._reshard_due = True
         if self._reshard_due:
-            self._apply_reshard(self.pending_plan, pos)
+            self._apply_reshard(self.pending_plan, pos, adm)
             self._reshard_due = False
             self.pending_plan = None
+            if self.auto_reshard:
+                self._auto_check_pending = True
             return self._splitter()
         return split
 
+    def _remediate_barrier(self, pos: int, adm) -> None:
+        """Deterministic remediation at the sharded barrier: the committed
+        interval's shed ratio (from :meth:`_commit`) and the shards' hot
+        fraction in, actuations out. Runs after the commit, and folds the
+        engine state and the scaled rate into ``snap_rem`` at once, so a
+        later failure restores to the state after the decisions."""
+        vals = [s.interval_tuples for s in self.shards]
+        total = sum(vals)
+        signals = {}
+        if total > 0:
+            signals["shard_skew"] = max(vals) / total
+        if adm is not None and self._rem_drop_ratio is not None:
+            signals["drop_ratio"] = self._rem_drop_ratio
+        for d in self.rem.on_barrier(pos, signals):
+            if d.get("applied") and d.get("actuator") == "reshard":
+                if self.auto_reshard or self.pending_plan is not None or self._reshard_due:
+                    # one resharder wins: an armed auto reshard (or a plan
+                    # already pending) owns the barrier
+                    _apply_barrier_decision(dict(d, applied=False, reason="arbitration"),
+                                            None)
+                    continue
+                act = next(a for a in self.rem.actions if a.name == d["action"])
+                from ..control.governor import recommend_reshard
+                plan = recommend_reshard({s.idx: s.interval_tuples for s in self.shards},
+                                         self.assignment, hot_fraction=act.target)
+                if plan is None:
+                    # the planner disagrees (shard ceiling, or too little load)
+                    _apply_barrier_decision(dict(d, applied=False, reason="no_plan"), None)
+                    continue
+                self.pending_plan = plan
+                _apply_barrier_decision(d, None)
+            else:
+                _apply_barrier_decision(d, adm)
+        self.snap_rem = {"engine": self.rem.state(),
+                         "rate": adm.current_rate() if adm is not None else None}
+
     # -- live re-sharding -------------------------------------------------------------
 
-    def _apply_reshard(self, plan, pos: int) -> None:
+    def _apply_reshard(self, plan, pos: int, adm) -> None:
         old = self.assignment
         try:
             new = plan.apply_to(old)
@@ -1063,8 +1319,9 @@ class ShardedSupervisor:
             self.assignment = new
             self.reshard_count += 1
             # the new layout commits at once (the replay buffers are empty at
-            # a barrier); then the seals are obsolete
-            self._commit(pos)
+            # a barrier, and the shards' interval loads restart); then the
+            # seals are obsolete
+            self._commit(pos, adm)
             if self.spill_path:
                 from .checkpoint import discard_handoffs
                 discard_handoffs(self.spill_path)
@@ -1078,12 +1335,18 @@ class ShardedSupervisor:
         fresh = {i: _fresh_states(self.chain) for i in rebuilt}
         if upto > 0 and rebuilt:
             split = make_splitter(new, self.p._shard_key)
+            # a fresh positional bucket re-derives the shed pattern
+            radm = _supervised_admission(self.p._control,
+                                         self.source.out_capacity(self.p.batch_size),
+                                         "sharded-readmit")
             it = self.source.batches(self.p.batch_size)
             for ppos in range(upto):
                 try:
                     batch = next(it)
                 except StopIteration:
                     break
+                if radm is not None and not radm.offer(batch, pos=ppos):
+                    continue
                 subs = split(batch)
                 for i in rebuilt:
                     self.chain.states = fresh[i]
@@ -1258,8 +1521,9 @@ def run_graph_supervised(graph, *, checkpoint_every: int = 8, max_restarts: int 
     root batches a device program with count-based group boundaries only.
     ``shards=`` (or ``WF_SHARDS``) above 1 runs the sharded driver
     (:class:`_ShardedGraphRun`), with an explicit ``reshard=`` plan and
-    ``shard_key=``."""
-    _refuse_unported(control=control)
+    ``shard_key=``. ``control=`` (explicit wins over the graph's own) runs
+    the deterministic admission: one shared positional bucket over every
+    source, commits at round boundaries while it is on."""
     if shard_range is not None:
         raise ValueError(
             "shard_range= (the multi-host slice) is not yet supported on the "
@@ -1275,12 +1539,21 @@ def run_graph_supervised(graph, *, checkpoint_every: int = 8, max_restarts: int 
                 checkpoint_every=checkpoint_every, max_restarts=max_restarts,
                 backoff_base=backoff_base, backoff_cap=backoff_cap,
                 dead_letter=dead_letter, poison_threshold=poison_threshold,
-                step_timeout=step_timeout, dispatch=dispatch).run()
+                step_timeout=step_timeout, control=control, dispatch=dispatch).run()
         return _run_graph_supervised(
             graph, checkpoint_every=checkpoint_every, max_restarts=max_restarts,
             backoff_base=backoff_base, backoff_cap=backoff_cap,
             dead_letter=dead_letter, poison_threshold=poison_threshold,
-            step_timeout=step_timeout, dispatch=dispatch)
+            step_timeout=step_timeout, control=control, dispatch=dispatch)
+
+
+def _graph_control(graph, control):
+    """The supervised graph run's control config: an explicit ``control=``
+    wins over the graph's own (its constructor or ``WF_CONTROL``)."""
+    if control is not None:
+        from ..control import ControlConfig
+        return ControlConfig.resolve(control)
+    return graph._control
 
 
 def _graph_trace_check(graph) -> None:
@@ -1293,10 +1566,15 @@ def _graph_trace_check(graph) -> None:
 
 def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base,
                           backoff_cap, dead_letter, poison_threshold, step_timeout,
-                          dispatch=None):
+                          control=None, dispatch=None):
     _graph_trace_check(graph)
     if not graph._started:
         graph.start()
+    # ONE shared positional bucket over every source: its shed pattern is a
+    # pure function of the round-robin offer order, replay-stable with the
+    # state snapshotted at each commit
+    adm = _supervised_admission(_graph_control(graph, control), graph.batch_size,
+                                "supervised-graph")
     # scan dispatch (explicit dispatch= wins over the graph's own): batches
     # buffer in arrival order across all roots and flush together the moment
     # any root holds K; delivery keeps the round-robin interleave. Boundaries
@@ -1304,8 +1582,6 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
     # a restore re-forms the same groups.
     dcfg = (_dispatch.DispatchConfig.resolve(dispatch) if dispatch is not None
             else graph._dispatch)
-    if dcfg is not None:
-        _dispatch.refuse_k_tuner(dcfg)
     dk = dcfg.k if dcfg is not None and dcfg.k > 1 else 0
     mon_cfg = graph._monitor.config if graph._monitor is not None else None
     # trace stream coordinates: the root index (the push driver's)
@@ -1325,6 +1601,7 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
     committed_pos = {id(mp): 0 for mp in graph._roots}
     committed_cursor = {id(mp): None for mp in graph._roots}
     snap = _graph_snapshot(graph)
+    snap_adm = adm.state() if adm is not None else None
     budget = max_restarts
     graph.supervised_restarts = 0
     rng = random.Random()                     # backoff jitter: timing only
@@ -1337,7 +1614,7 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
     cur_key = None                            # batch being processed right now
 
     def commit(pos):
-        nonlocal snap, committed_pos, committed_cursor, budget
+        nonlocal snap, snap_adm, committed_pos, committed_cursor, budget
         # partial groups dispatch short first, so the snapshot reflects every
         # position already read
         flush_accs()
@@ -1348,8 +1625,10 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
             # intact if either fails
             new_snap = _graph_snapshot(graph)   # host copies: faults surface here
             new_cursor = {id(mp): mp.source.cursor() for mp in graph._roots}
+            new_adm = adm.state() if adm is not None else None
             # the commit point: pure assignments
             snap = new_snap
+            snap_adm = new_adm
             committed_pos = dict(pos)
             committed_cursor = new_cursor
             budget = max_restarts             # progress refills the budget
@@ -1443,7 +1722,11 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                                 continue
                             pos[id(mp)] += 1
                             since += 1
-                            if since >= checkpoint_every:
+                            # with admission on, commits wait for the round
+                            # boundary (a replay restarts the round at source
+                            # 0: a snapshot mid-round would resume the shared
+                            # bucket against a rotated offer order)
+                            if since >= checkpoint_every and adm is None:
                                 cur_key = None
                                 commit(pos)
                                 since = 0
@@ -1462,6 +1745,13 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                             continue
                         # position-derived ids: a replay re-mints them
                         _tracing.ingest(batch, pos[id(mp)], stream=root_idx[id(mp)])
+                        if adm is not None and not adm.offer(
+                                batch, pos=pos[id(mp)], stream=root_idx[id(mp)]):
+                            # shed (a replay re-sheds it); no commit mid-round
+                            pos[id(mp)] += 1
+                            since += 1
+                            cur_key = None
+                            continue
                         ingest(mp, batch, pos[id(mp)],
                                mon_cfg is not None and mon_cfg.should_sample_e2e(n_pushed))
                         n_pushed += 1
@@ -1510,6 +1800,8 @@ def _run_graph_supervised(graph, *, checkpoint_every, max_restarts, backoff_base
                 with _restore_span(graph=graph.name, attempt=graph.supervised_restarts,
                                    error=type(e).__name__):
                     _graph_restore(graph, snap)
+                    if adm is not None:
+                        adm.set_state(snap_adm)
                 buf.clear()           # replay re-feeds the dropped batches
                 buf_n.clear()
                 for sh in shims:
@@ -1717,8 +2009,9 @@ class _ShardedGraphRun:
 
     def __init__(self, graph, *, shards, reshard, checkpoint_every, max_restarts,
                  backoff_base, backoff_cap, dead_letter, poison_threshold, step_timeout,
-                 dispatch, shard_key=None):
+                 dispatch, control=None, shard_key=None):
         self._shard_key = shard_key
+        self._control = control
         self.graph = graph
         dcfg = _dispatch.DispatchConfig.resolve(dispatch if dispatch is not None
                                                 else graph._dispatch_arg)
@@ -1767,6 +2060,8 @@ class _ShardedGraphRun:
         if graph._monitor is not None:
             # the shard rows ride the graph's monitoring snapshots
             graph._monitor.registry.attach_shards(self.shard_report)
+        adm = _supervised_admission(_graph_control(graph, self._control),
+                                    graph.batch_size, "sharded-graph")
         root_idx = {id(mp): i for i, mp in enumerate(graph._roots)}
         pipes = graph._all_pipes()
         originals = {}
@@ -1785,6 +2080,7 @@ class _ShardedGraphRun:
             s.snap = _graph_snapshot(graph)
         committed_pos = {id(mp): 0 for mp in graph._roots}
         committed_cursor = {id(mp): None for mp in graph._roots}
+        snap_adm = adm.state() if adm is not None else None
         gbudget = self.max_restarts
         graph.supervised_restarts = 0
         rng = random.Random()               # backoff jitter: timing only
@@ -1792,7 +2088,7 @@ class _ShardedGraphRun:
         split = None
 
         def commit(pos):
-            nonlocal committed_pos, committed_cursor, gbudget
+            nonlocal committed_pos, committed_cursor, snap_adm, gbudget
             with _journal.span("checkpoint", graph=graph.name, shards=len(self.shards),
                                batches_committed=sum(pos.values()),
                                outputs_pending=sum(sh.pending_count() for sh in self.shims)):
@@ -1801,12 +2097,14 @@ class _ShardedGraphRun:
                     _graph_install(graph, s.state)
                     new_snaps.append(_graph_snapshot(graph))
                 new_cursor = {id(mp): mp.source.cursor() for mp in graph._roots}
+                new_adm = adm.state() if adm is not None else None
                 # the commit point: pure assignments
                 tag = sum(pos.values())
                 for s, sn in zip(self.shards, new_snaps):
                     s.commit(tag, sn)
                 committed_pos = dict(pos)
                 committed_cursor = new_cursor
+                snap_adm = new_adm
                 gbudget = self.max_restarts
                 for sh in self.shims:
                     sh.seal()
@@ -1819,7 +2117,7 @@ class _ShardedGraphRun:
                     and sum(pos.values()) >= self.pending_plan.at_pos):
                 self._reshard_due = True
             if self._reshard_due:
-                self._apply_reshard(self.pending_plan, committed_pos, commit)
+                self._apply_reshard(self.pending_plan, committed_pos, commit, adm)
                 self._reshard_due = False
                 self.pending_plan = None
                 split = self._splitter()
@@ -1828,7 +2126,7 @@ class _ShardedGraphRun:
             while True:
                 try:
                     if self._reshard_due:
-                        self._apply_reshard(self.pending_plan, committed_pos, commit)
+                        self._apply_reshard(self.pending_plan, committed_pos, commit, adm)
                         self._reshard_due = False
                         self.pending_plan = None
                         split = None
@@ -1859,6 +2157,13 @@ class _ShardedGraphRun:
                                     s.offer_eos(mp)
                                 continue
                             _tracing.ingest(batch, pos[id(mp)], stream=root_idx[id(mp)])
+                            if adm is not None and not adm.offer(
+                                    batch, pos=pos[id(mp)], stream=root_idx[id(mp)]):
+                                # shed (deterministic; commits stay on round
+                                # boundaries)
+                                pos[id(mp)] += 1
+                                since += 1
+                                continue
                             subs = split(batch)
                             for s, sub in zip(self.shards, subs):
                                 _tracing.carry(batch, sub)
@@ -1902,6 +2207,8 @@ class _ShardedGraphRun:
                             s.replay.clear()
                         for sh in self.shims:
                             sh.discard()
+                        if adm is not None:
+                            adm.set_state(snap_adm)
                     prev_sleep = _faults.backoff_sleep(
                         rng, prev_sleep, self.backoff_base, self.backoff_cap,
                         attempt=graph.supervised_restarts)
@@ -1927,7 +2234,7 @@ class _ShardedGraphRun:
 
     # -- live re-sharding -------------------------------------------------------------
 
-    def _apply_reshard(self, plan, committed_pos, commit) -> None:
+    def _apply_reshard(self, plan, committed_pos, commit, adm=None) -> None:
         graph = self.graph
         old = self.assignment
         try:
@@ -1952,7 +2259,7 @@ class _ShardedGraphRun:
             rebuilt = [i for i in range(new.num_shards) if i not in keep]
             fresh = {i: _graph_blank(graph) for i in rebuilt}
             if rebuilt and tag > 0:
-                fresh = self._replay_prefix(new, rebuilt, fresh, committed_pos)
+                fresh = self._replay_prefix(new, rebuilt, fresh, committed_pos, adm)
             prior = {s.idx: s for s in self.shards}
             units = []
             for i in range(new.num_shards):
@@ -1974,12 +2281,15 @@ class _ShardedGraphRun:
             self.reshard_count += 1
             commit(dict(committed_pos))
 
-    def _replay_prefix(self, new, rebuilt, fresh, committed_pos):
+    def _replay_prefix(self, new, rebuilt, fresh, committed_pos, adm=None):
         """Re-admission: the committed prefix of every root, in the original
-        round-robin interleave, through the new ownership into the rebuilt
-        shards' states, sinks muted (the old layout committed those outputs)."""
+        round-robin interleave (a fresh positional bucket re-deriving the
+        shed pattern), through the new ownership into the rebuilt shards'
+        states, sinks muted (the old layout committed those outputs)."""
         graph = self.graph
         split = self._splitter(new)
+        radm = _supervised_admission(_graph_control(graph, self._control),
+                                     graph.batch_size, "sharded-readmit")
         iters = {id(mp): mp.source.batches(graph.batch_size) for mp in graph._roots}
         rpos = {id(mp): 0 for mp in graph._roots}
         exhausted_at_commit = set()
@@ -2007,6 +2317,8 @@ class _ShardedGraphRun:
                         continue
                     p = rpos[id(mp)]
                     rpos[id(mp)] += 1
+                    if radm is not None and not radm.offer(batch, pos=p):
+                        continue
                     subs = split(batch)
                     for i in rebuilt:
                         _graph_install(graph, fresh[i])

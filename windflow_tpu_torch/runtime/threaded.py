@@ -57,8 +57,16 @@ sample at its receipt; a traced batch records ``ingest`` at the source,
 ``enq``/``deq`` on every ring it crosses, a service span on each segment
 (``seg<i>``) and on the sink. The chains' event-time toggle comes from the
 ``monitoring=`` argument (the JAX driver reads only the environment). A
-stale stage is journaled (``watchdog_stale``). Not ported, and refused by
-name: the control plane (``control=``, ROADMAP Queue 1 item 15).
+stale stage is journaled (``watchdog_stale``).
+
+The control plane (``control=``; None consults ``WF_CONTROL``), as in the
+JAX package: a ``BackpressureGovernor`` watches every ring's depth, the
+source thread calls its ``throttle`` before each enqueue (a throttle wait
+beats the source's heartbeat) and its ``pause_event`` pauses the prefetch
+worker; an ``AdmissionController`` sheds or holds at the source. A failing
+stage and the end of the run stop the governor, so a throttled source never
+waits on a ring nobody drains. Autotuning does not apply here: each
+segment's capacity is its ring contract.
 """
 
 from __future__ import annotations
@@ -83,8 +91,7 @@ from . import faults as _faults
 from .dispatch import GroupRunner
 from .faults import drain_queue_to_sentinel
 from .handoff import receive, send
-from .pipeline import (CompiledChain, record_source_launch, refuse_control,
-                       resolve_batch_hint)
+from .pipeline import CompiledChain, record_source_launch, resolve_batch_hint
 
 #: the end-of-stream marker on a ring (sent bare: it carries no event)
 EOS = object()
@@ -162,7 +169,11 @@ class ThreadedPipeline:
                  heartbeat_timeout: Optional[float] = None, faults=None,
                  prefetch: int = 0, control=None, trace=None, dispatch=None,
                  monitoring=None, device=None):
-        refuse_control(control)
+        from ..control import ControlConfig
+        self._control = ControlConfig.resolve(control)
+        #: built in run() before the stage threads start; the stages read them
+        self.governor = None
+        self._admission = None
         self.device = resolve_device(device)
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
@@ -227,22 +238,42 @@ class ThreadedPipeline:
             pin_thread(core)
         q = self.queues[0]
         self._beat("source")
+        gov, adm = self.governor, self._admission
+
+        def throttle():
+            if gov is not None:
+                # a throttle wait beats the heartbeat: backpressure is
+                # intentional, not a hang the watchdog should flag
+                gov.throttle(heartbeat=lambda: self._beat("source"))
+                self._beat("source")
         try:
             with on_stream(stream):
-                batches = (self.source.batches_prefetched(self.batch_size, self.prefetch)
+                batches = (self.source.batches_prefetched(
+                               self.batch_size, self.prefetch,
+                               pause_event=gov.pause_event if gov is not None else None)
                            if self.prefetch else self.source.batches(self.batch_size))
                 mon = self._monitor
+                n_enq = 0
                 for n, batch in enumerate(batches):
                     self._beat("source")
                     _faults.fire("source.next", stage="source", pos=n)
                     record_source_launch(self.source, batch)
                     _tracing.ingest(batch, n)
-                    if (mon is not None and self.sink is not None
-                            and mon.config.should_sample_e2e(n)):
-                        self._e2e_stamps.append((n, time.perf_counter(),
-                                                 _tracing.tid_of(batch)))
-                    _tracing.event(batch, self.edge_names[0], "enq")
-                    q.push(send(batch))
+                    for ab in ((batch,) if adm is None else adm.offer(batch, pos=n)):
+                        throttle()
+                        if (mon is not None and self.sink is not None
+                                and mon.config.should_sample_e2e(n_enq)):
+                            # stamp the enqueue index (after admission),
+                            # matched by receipt order at the sink
+                            self._e2e_stamps.append((n_enq, time.perf_counter(),
+                                                     _tracing.tid_of(ab)))
+                        _tracing.event(ab, self.edge_names[0], "enq")
+                        q.push(send(ab))
+                        n_enq += 1
+                if adm is not None:
+                    for ab in adm.drain():      # the bounded held tail
+                        throttle()
+                        q.push(send(ab))
         except BaseException as e:          # noqa: BLE001 — raised by run()
             self._errors.append(e)
         finally:
@@ -283,6 +314,9 @@ class ThreadedPipeline:
                     n += 1
         except BaseException as e:          # noqa: BLE001
             self._errors.append(e)
+            if self.governor is not None:
+                self.governor.stop()        # a throttled source must not wait on
+                #                             a ring this stage will drain
             if not eos_seen:
                 drain_queue_to_sentinel(q_in, EOS)    # unwedge the upstream producer
         finally:
@@ -324,6 +358,8 @@ class ThreadedPipeline:
                     self.sink.consume(None)
         except BaseException as e:          # noqa: BLE001
             self._errors.append(e)
+            if self.governor is not None:
+                self.governor.stop()
             if not eos_seen:
                 drain_queue_to_sentinel(q, EOS)
         finally:
@@ -353,7 +389,6 @@ class ThreadedPipeline:
             return
         self._dispatch = _dispatch.DispatchConfig.resolve(self._dispatch_arg)
         if self._dispatch is not None:
-            _dispatch.refuse_k_tuner(self._dispatch)
             for chain in self.chains:
                 prewarm(chain, self._dispatch.k, chain.capacity)
         self._started = True
@@ -379,12 +414,25 @@ class ThreadedPipeline:
         tcfg = TraceConfig.resolve(self._trace_arg)
         if tcfg is not None and self._tracer is None:
             self._tracer = Tracer(tcfg, self.source.getName() + "-threaded").start()
+        cfg = self._control
+        if cfg is not None:
+            from ..control import admission_from_config, governor_from_config
+            self.governor = governor_from_config(cfg)
+            if self.governor is not None:
+                for name, q in zip(self.edge_names, self.queues):
+                    self.governor.watch(name, q.size, self.edge_capacities[name])
+            self._admission = admission_from_config(
+                cfg, self.source.out_capacity(self.batch_size), driver="threaded")
         try:
             with _faults.activate(injector):
                 return self._run()
         finally:
             for chain in self.chains:
                 chain.capture_closed = False
+            if self.governor is not None:
+                # a source never waits in a throttle past teardown (the
+                # governor stays readable for the run's numbers)
+                self.governor.stop()
             if self._monitor is not None:
                 # the final snapshot; no topology target (the export models
                 # Pipeline and PipeGraph shapes)
