@@ -303,7 +303,24 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     crosses and one service span a pipe, ``to_chrome_trace`` as JSON; YSB
     supervised with one ``chain.step`` fault and ``trace=``: phase 4's rows
     and the failed attempt's span closed ``aborted: restore``;
-43. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+43. ``serving`` (``serving_phase``), after ``monitoring``: the YSB stream
+    as packed records (40 frames of 2^20 records, 16 B each) from a
+    ``RecordClient`` over loopback TCP into ``ServingRuntime(SocketSource,
+    YSB ops, sink)`` (a replay ring of 4 frames, 64 MiB), two tenants
+    alternating frames and a wire swap to a registered YSB chain after frame
+    20 (warmed, state carried): rows byte for byte threaded_ysb's and the
+    dense oracle, K1 and K2 once a frame plus the swapped-in chain's warm
+    step; ms a batch wire to sink against record_ysb's, and the wire, queue,
+    framing and copy ms and the swap's quiesce ms apart. Then a quiet and a
+    slow tenant under ``slo=[tenant_e2e_p99_ms]``, ``profile=``,
+    ``remediation=[tenant_rate]`` and telemetry to a loopback
+    ``FleetAggregator``; the slow tenant's frames stall on the wire: its
+    SLO pages and recovers, one bundle commits ``profile.json`` before its
+    manifest with a trace naming K1's or K2's kernel, only its bucket
+    tightens, the aggregator receives the host's frames, and
+    ``scripts/wf_slo.py``, ``wf_profile.py`` and ``wf_fleet.py status``
+    exit 0 over the artifacts (under ``build/serving``, removed after);
+44. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
     paths, each counted from zero just before it), then the result line
@@ -3138,12 +3155,7 @@ def record_ysb_phase(torch, np, wt, ysb, registry, card, want_parts, want_launch
     total = THREADED_BATCHES * BATCH
     dt_rec = np.dtype(YSB_RECORD)
     t0 = time.perf_counter()
-    recs = []
-    for b in ysb.make_source(total).batches(BATCH):
-        h = b.to_host()
-        recs.append(native.pack_records({"ad_id": h["payload"]["ad_id"],
-                                         "event_type": h["payload"]["event_type"],
-                                         "campaign": h["key"], "ts": h["ts"]}, dt_rec))
+    recs = ysb_records(np, ysb, total)
     pack_s = time.perf_counter() - t0
     hc = native.hardware_concurrency()
 
@@ -3160,7 +3172,7 @@ def record_ysb_phase(torch, np, wt, ysb, registry, card, want_parts, want_launch
          "batch_mib": BATCH * dt_rec.itemsize / 2 ** 20, "pack_s": pack_s,
          "hardware_concurrency": hc,
          "framing_ms_per_batch": {f"{w}": ms for w, ms in framing.items()}})
-    first = None
+    first = first_ms = None
     for workers, prefetch, k in ((1, 0, None), (1, 3, None), (hc, 0, None), (hc, 3, None),
                                  (hc, 3, THREADED_K)):
         parts, cb = collect_sink()
@@ -3183,7 +3195,22 @@ def record_ysb_phase(torch, np, wt, ysb, registry, card, want_parts, want_launch
             raise AssertionError(f"record_ysb: launches {launches}, threaded_ysb "
                                  f"{want_launches}")
         first = first or launches
-    return first
+        first_ms = first_ms or dt / THREADED_BATCHES * 1e3
+    return first, first_ms
+
+
+def ysb_records(np, ysb, total):
+    """The YSB stream of ``total`` events as packed AoS records
+    (``YSB_RECORD``, 16 B each), one array of ``BATCH`` records a batch."""
+    from windflow_tpu_torch import native
+    dt_rec = np.dtype(YSB_RECORD)
+    recs = []
+    for b in ysb.make_source(total).batches(BATCH):
+        h = b.to_host()
+        recs.append(native.pack_records({"ad_id": h["payload"]["ad_id"],
+                                         "event_type": h["payload"]["event_type"],
+                                         "campaign": h["key"], "ts": h["ts"]}, dt_rec))
+    return recs
 
 
 def merge_graph(torch, wt, mode, total, keys, batch, cb):
@@ -5420,6 +5447,354 @@ def control_supervised_checks(torch, np, wt, registry, card, q3_views):
     return clean["launches"]
 
 
+# --------------------------------------------------------------------- serving
+
+SERVE_DIR = os.path.join(ROOT, "build", "serving")
+SERVE_SWAP_AT = 20        # the wire swap frame follows this many data frames
+#: SocketSource replay ring: 4 chunks of a 2^20-record YSB frame (16 MiB
+#: each) hold 64 MiB of host memory (the default of 256 would hold 4 GiB)
+SERVE_REPLAY = 4
+SERVE_RECV = 1 << 22      # bytes a recv() of the ingest threads
+SERVE_TICK_S = 1.0        # reporter interval of the paging run
+SERVE_WINDOW_MS = 700.0   # its profile window: longer than one send cycle
+SERVE_STALL_S = 0.5       # the slow tenant's wire stall inside each frame
+SERVE_STALLED = 14        # its stalled frames, then SERVE_CLEAN clean ones
+SERVE_CLEAN = 6
+SERVE_TARGET_MS = 200.0   # its wire-to-sink p99 target
+
+
+def serve_source(np, eos_tenants=None):
+    """A loopback ``SocketSource`` of YSB records on the card."""
+    from windflow_tpu_torch.serving import SocketSource
+    return SocketSource("tcp://127.0.0.1:0", np.dtype(YSB_RECORD), key_field="campaign",
+                        ts_field="ts", replay=SERVE_REPLAY, recv_bytes=SERVE_RECV,
+                        eos_tenants=eos_tenants)
+
+
+def serve_timers(torch, src):
+    """Wrap a SocketSource's framing, host-to-device copy and batch pickup
+    with timers: per batch the wire ms (client send stamp to receipt), the
+    queue ms (receipt to pickup by the drive loop: the wait, the framing and
+    the copy), the framing ms (AoS -> SoA and padding) and the copy ms
+    (pinning and the copy, waited for); the sink appends the graph each
+    batch ran on under ``graph``."""
+    t = {"wire_ms": [], "queue_ms": [], "frame_ms": [], "h2d_ms": [], "graph": []}
+    chunks, host_batches, to_device = src.it_factory, src._host_batches, src._to_device
+    got = {}
+
+    def timed_chunks(from_batch=0):
+        for rec in chunks(from_batch):
+            got["t"] = time.perf_counter()      # the chunk left the socket's queue
+            yield rec
+    src.it_factory = timed_chunks
+
+    def timed_host(bs, cursor=None):
+        for hb in host_batches(bs, cursor):
+            t["frame_ms"].append((time.perf_counter() - got["t"]) * 1e3)
+            yield hb
+
+    def timed_copy(hb):
+        t0 = time.perf_counter()
+        b = to_device(hb)
+        torch.cuda.current_stream().synchronize()
+        t["h2d_ms"].append((time.perf_counter() - t0) * 1e3)
+        return b
+
+    def batches(bs, cursor=None):
+        for hb in timed_host(bs, cursor):
+            b = timed_copy(hb)
+            w = src.last_wire or {}
+            now = time.time()
+            if w.get("t_send") is not None:
+                t["wire_ms"].append((w["t_recv"] - w["t_send"]) * 1e3)
+            t["queue_ms"].append((now - w.get("t_recv", now)) * 1e3)
+            yield b
+    src.batches = batches
+    return t
+
+
+def serving_phase(torch, np, wt, ysb, registry, card, ty_ref, record_ms):
+    """Phase 43 (see the module docstring): ServingRuntime over the WFS1
+    socket on the card, served YSB then a monitored run that pages.
+    ``ty_ref``: threaded_ysb's rows (``flat_bytes``); ``record_ms``:
+    record_ysb's ms a batch (framing_workers 1, no prefetch). Returns the
+    launches of both runs."""
+    import shutil
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    total = THREADED_BATCHES * BATCH
+    t0 = time.perf_counter()
+    recs = ysb_records(np, ysb, total)
+    log({"phase": "serving_records", "card": card, "pack_s": time.perf_counter() - t0,
+         "frames": len(recs), "frame_mib": recs[0].nbytes / 2 ** 20,
+         "replay_ring_mib": SERVE_REPLAY * recs[0].nbytes / 2 ** 20})
+    launches = served_ysb(torch, np, wt, ysb, registry, card, recs, ty_ref, record_ms)
+    paged = paged_serving(torch, np, wt, ysb, registry, card, recs)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    log({"phase": "serving", "card": card, "seconds": time.perf_counter() - t_phase})
+    return {name: launches[name] + paged[name] for name in registry.KERNELS}
+
+
+def served_ysb(torch, np, wt, ysb, registry, card, recs, ty_ref, record_ms):
+    """Part (a): the packed YSB records (40 frames of 2^20) from a
+    ``RecordClient`` to ``ServingRuntime(SocketSource, YSB ops, sink)``, two
+    tenants alternating frames, a wire swap to a registered YSB chain after
+    frame ``SERVE_SWAP_AT`` (warmed, state carried): rows byte for byte
+    threaded_ysb's and the dense oracle, K1 and K2 once a frame plus the
+    incoming chain's build and warm step, measured apart."""
+    from windflow_tpu_torch.observability import MonitoringConfig, journal
+    from windflow_tpu_torch.serving import RecordClient, ServingRuntime
+    geom = ysb.bench_geometry(BATCH)
+    dt_rec = np.dtype(YSB_RECORD)
+    # what building and warming one more YSB chain launches (the swap does both)
+    registry.reset_launches()
+    extra = wt.CompiledChain(ysb.make_ops(**geom), wt.RecordSource(
+        lambda: iter(()), dt_rec, key_field="campaign", ts_field="ts").payload_spec(),
+        batch_capacity=BATCH)
+    built = registry.launch_counts()
+    registry.reset_launches()
+    extra.warm(BATCH)
+    torch.cuda.synchronize()
+    warmed = registry.launch_counts()
+    del extra
+    if {k: v for k, v in warmed.items() if v} != {"histogram": 1, "lookup": 1}:
+        raise AssertionError(f"serving: a YSB chain's warm step launched {warmed}")
+    out = os.path.join(SERVE_DIR, "served")
+    total = THREADED_BATCHES * BATCH
+    parts, collect = collect_sink()
+    src = serve_source(np)
+    timers = serve_timers(torch, src)
+
+    def cb(view):
+        if view is not None:
+            timers["graph"].append(rt.graph_label)
+        collect(view)
+    rt = ServingRuntime(src, ysb.make_ops(**geom), wt.Sink(cb), batch_size=BATCH,
+                        serving={"tenants": [{"id": "a"}, {"id": "b"}],
+                                 "replay": SERVE_REPLAY},
+                        monitoring=MonitoringConfig(out_dir=out, interval_s=1.0))
+    rt.register_graph("v2", ysb.make_ops(**geom))
+    state = {}
+
+    def prepare():
+        rt.chain.warm(BATCH)
+        src.start()
+
+    def run():
+        th = rt.run_background()
+        client = RecordClient(src.endpoint)
+        t0 = time.perf_counter()
+        for i, rec in enumerate(recs):
+            client.send(rec.tobytes(), tenant="ab"[i % 2])
+            if i + 1 == SERVE_SWAP_AT:
+                # the swap frame follows frame 20 once the drive loop has
+                # taken frame 20: it cuts over before frame 21, whatever the
+                # loop's pace
+                t1 = time.perf_counter()
+                while sum(r["offered"] for r in rt.registry.counters().values()) \
+                        < SERVE_SWAP_AT:
+                    if not th.is_alive():
+                        raise AssertionError("serving: the drive thread ended early")
+                    time.sleep(0.001)
+                state["swap_wait_s"] = time.perf_counter() - t1
+                client.send_swap("v2")
+        state["send_s"] = time.perf_counter() - t0
+        client.send_eos("a")
+        client.close()
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("serving: the drive thread did not end")
+        if rt.background_error is not None:
+            raise rt.background_error
+    launches, dt, peak = counted_run(torch, registry, prepare, run)
+    recs_j = journal.read_journal(os.path.join(out, "events.jsonl"))
+    swap = [r for r in recs_j if r["event"] == "graph_swap" and r.get("applied")]
+    sec = rt.serving_section()
+    expect = {k: THREADED_BATCHES * (k in ("histogram", "lookup")) + built[k] + warmed[k]
+              for k in registry.KERNELS}
+    same = flat_bytes(np, parts) == ty_ref
+    oracle = as_dict(np, parts) == ysb.dense_oracle(total)
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    ms = dt / THREADED_BATCHES * 1e3
+    log({"phase": "serving_ysb", "card": card, "frames": THREADED_BATCHES, "batch": BATCH,
+         "run_s": dt, "send_s": state["send_s"], "swap_wait_s": state["swap_wait_s"],
+         "ms_per_batch": ms,
+         "tuples_per_s": total / dt, "over_record_ysb": ms / record_ms,
+         "record_ysb_ms_per_batch": record_ms,
+         "wire_ms_median": med(timers["wire_ms"]), "queue_ms_median": med(timers["queue_ms"]),
+         "frame_ms_median": med(timers["frame_ms"]), "h2d_ms_median": med(timers["h2d_ms"]),
+         "quiesce_ms": swap[0]["quiesce_ms"] if swap else None,
+         "swap_first_batch": (timers["graph"].index("v2")
+                              if "v2" in timers["graph"] else None),
+         "launches": launches, "expect": expect, "build_launches": built,
+         "peak_mib_above_start": peak / 2 ** 20, "tenants": sec.get("tenants"),
+         "frames_decoded": sec.get("frames_decoded"),
+         "rows_equal_threaded_ysb_bytes": same, "oracle": oracle})
+    if not (same and oracle):
+        raise AssertionError("serving_ysb: rows differ from threaded_ysb's or the oracle")
+    if launches != expect:
+        raise AssertionError(f"serving_ysb: launches {launches}, expected {expect}")
+    if not (len(swap) == 1 and swap[0]["warmed"] and swap[0]["carried_state"]
+            and rt.swaps_applied == 1 and rt.graph_label == "v2"
+            and timers["graph"].index("v2") == SERVE_SWAP_AT):
+        raise AssertionError(f"serving_ysb: the swap did not apply warmed and carried: "
+                             f"{swap}")
+    rows = sec["tenants"]
+    if (rows["a"]["offered"], rows["b"]["offered"]) != (THREADED_BATCHES // 2,) * 2 or \
+            rows["a"]["shed"] or rows["b"]["shed"]:
+        raise AssertionError(f"serving_ysb: tenant rows {rows}")
+    return launches
+
+
+def paged_serving(torch, np, wt, ysb, registry, card, recs):
+    """Part (b): YSB served to a quiet and a slow tenant under
+    ``slo=[tenant_e2e_p99_ms of the slow tenant]``, ``profile=`` and
+    ``remediation=`` (``tenant_rate``), with telemetry to a loopback
+    ``FleetAggregator``. The slow tenant's frames stall on the wire
+    (``SERVE_STALL_S`` between the two halves of each frame), then flow
+    clean: its SLO pages and recovers, the bundle holds ``profile.json``
+    (committed before the manifest) whose trace names K1's or K2's kernel,
+    only its bucket tightens, the aggregator receives the host's frames,
+    and ``scripts/wf_slo.py``, ``wf_profile.py`` and ``wf_fleet.py``
+    exit 0 over the artifacts. K1 and K2 launch once an admitted frame."""
+    from windflow_tpu_torch.observability import MonitoringConfig, fleet, profiling
+    from windflow_tpu_torch.observability import slo as slo_mod
+    from windflow_tpu_torch.serving import (RecordClient, ServingRuntime, connect,
+                                            encode_record_frame)
+    out = os.path.join(SERVE_DIR, "paged")
+    fleet_dir = os.path.join(SERVE_DIR, "fleet")
+    spec = {"name": "lat-slow", "signal": "tenant_e2e_p99_ms", "tenant": "slow",
+            "target": SERVE_TARGET_MS, "objective": 0.5, "fast_window": 1,
+            "slow_window": 3, "warn_burn": 1.0, "page_burn": 2.0}
+    action = {"name": "slow-rate", "slo": "lat-slow", "actuator": "tenant_rate",
+              "factor": 0.5}
+    agg = fleet.FleetAggregator("tcp://127.0.0.1:0", fleet_dir, max_skew_s=0.5)
+    agg.start()
+    cfg = MonitoringConfig(out_dir=out, interval_s=SERVE_TICK_S, e2e_sample_every=1,
+                           slo=[spec], telemetry=agg.endpoint,
+                           profile=profiling.ProfileConfig(window_ms=SERVE_WINDOW_MS,
+                                                           max_captures=1),
+                           remediation=[action])
+    # rate buckets that never shed (a refill of 2^40 tuples a batch), so the
+    # remediation's halving shows on the slow tenant's rate alone
+    big = float(1 << 40)
+    parts, cb = collect_sink()
+    # the stream ends when both tenants' connections have sent their EOS
+    src = serve_source(np, eos_tenants=["quiet", "slow"])
+    rt = ServingRuntime(src, ysb.make_ops(**ysb.bench_geometry(BATCH)), wt.Sink(cb),
+                        batch_size=BATCH,
+                        serving={"tenants": [{"id": "quiet", "refill_per_batch": big},
+                                             {"id": "slow", "refill_per_batch": big}],
+                                 "replay": SERVE_REPLAY}, monitoring=cfg)
+    rates0 = {t: row["rate"] for t, row in rt.registry.counters().items()}
+    n_slow = SERVE_STALLED + SERVE_CLEAN
+
+    def prepare():
+        rt.chain.warm(BATCH)
+        src.start()
+
+    def run():
+        th = rt.run_background()
+        quiet = RecordClient(src.endpoint)
+        slow = connect(src.endpoint)
+        try:
+            for i in range(n_slow):
+                quiet.send(recs[2 * i].tobytes(), tenant="quiet")
+                frame = encode_record_frame(recs[2 * i + 1].tobytes(), tenant="slow",
+                                            seq=i, t_send=time.time(), span=f"slow/{i}")
+                if i < SERVE_STALLED:
+                    # a wire stall: the frame's second half waits
+                    half = len(frame) // 2
+                    slow.sendall(frame[:half])
+                    time.sleep(SERVE_STALL_S)
+                    slow.sendall(frame[half:])
+                else:
+                    slow.sendall(frame)
+                    time.sleep(SERVE_STALL_S)
+            quiet.send_eos("quiet")
+            slow.sendall(encode_record_frame(b"", tenant="slow", seq=n_slow, kind="eos"))
+        finally:
+            quiet.close()
+            slow.close()
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("serving paged: the drive thread did not end")
+        if rt.background_error is not None:
+            raise rt.background_error
+    launches, dt, _ = counted_run(torch, registry, prepare, run)
+    time.sleep(1.5)           # the aggregator's last tick (max_skew_s) lands
+    fleet_stats = agg.stats()
+    agg.stop()
+    sec = rt.serving_section()
+    rows = sec["tenants"]
+    admitted = sum(r["admitted"] for r in rows.values())
+    expect = {k: admitted * (k in ("histogram", "lookup")) for k in registry.KERNELS}
+    with open(os.path.join(out, "snapshots.jsonl")) as f:
+        series = [json.loads(line) for line in f if line.strip()]
+    states = [s_["slo"]["lat-slow"]["state"] for s_ in series if "slo" in s_]
+    bundles, torn = slo_mod.list_incidents(out)
+    prof, order_ok = None, False
+    if bundles:
+        man = bundles[0]
+        prof = profiling.load_profile(man["path"])
+        files = man.get("files", [])
+        order_ok = ("profile.json" in files and not man["missing"] and
+                    os.path.getmtime(os.path.join(man["path"], "profile.json"))
+                    <= os.path.getmtime(os.path.join(man["path"], "manifest.json")))
+    kernels = (prof or {}).get("kernels", [])
+    hand = sorted(k for k in kernels if "wf_hist_tiles" in k or "wf_lookup_kernel" in k)
+    rates = {t: row.get("rate") for t, row in rows.items()}
+    with open(os.path.join(out, "snapshot.json")) as f:
+        last = json.load(f)
+    rem = last.get("remediation") or {}
+    lat_rows = (last.get("serving") or {}).get("tenants") or {}
+    scripts = {}
+    specs = json.dumps([spec])
+    for name, argv in (("wf_slo", ["scripts/wf_slo.py", "--monitoring-dir", out,
+                                   "--specs", specs]),
+                       ("wf_profile", ["scripts/wf_profile.py", "--monitoring-dir", out]),
+                       ("wf_fleet", ["scripts/wf_fleet.py", "status", "--monitoring-dir",
+                                     fleet_dir])):
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=120)
+        scripts[name] = proc.returncode
+        if proc.returncode:
+            log(f"{name} rc={proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    tenant_ms = {t: {k: row.get(k) for k in ("e2e_p50_ms", "e2e_p99_ms", "e2e_samples")}
+                 for t, row in lat_rows.items()}
+    log({"phase": "serving_paged", "card": card, "run_s": dt, "launches": launches,
+         "expect": expect, "slo_states": states, "bundles": len(bundles),
+         "torn": len(torn), "profile_keys": sorted(prof or {}),
+         "profile_skipped": (prof or {}).get("profile_skipped"),
+         "profile_activities": (prof or {}).get("activities"),
+         "trace_kernels": kernels[:16], "hand_kernels_in_trace": hand,
+         "profile_before_manifest": order_ok, "rates_before": rates0, "rates_after": rates,
+         "remediation": {k: rem.get(k) for k in ("applied", "skipped", "bound")},
+         "fleet": fleet_stats, "scripts": scripts, "tenant_latency": tenant_ms})
+    fails = []
+    if launches != expect:
+        fails.append(f"launches {launches}, expected {expect}")
+    if "page" not in states or states[-1] != "ok":
+        fails.append(f"the slow tenant's SLO states {states}: no page, or no recovery")
+    if len(bundles) != 1 or torn or not order_ok:
+        fails.append(f"bundles {len(bundles)}, torn {torn}, profile before manifest "
+                     f"{order_ok}")
+    if not hand:
+        fails.append(f"the profile's trace names no hand kernel: {prof}")
+    if not (rates["slow"] < rates0["slow"] and rates["quiet"] == rates0["quiet"]):
+        fails.append(f"tenant_rate: rates {rates0} -> {rates}")
+    if rows["quiet"]["shed"] or rows["slow"]["shed"]:
+        fails.append(f"a tenant shed: {rows}")
+    if not (fleet_stats["frames_received"] > 0 and fleet_stats["hosts_seen"] >= 1):
+        fails.append(f"the aggregator received no frames: {fleet_stats}")
+    if any(scripts.values()):
+        fails.append(f"scripts exited {scripts}")
+    if len(parts) == 0:
+        fails.append("no rows")
+    if fails:
+        raise AssertionError("serving_paged: " + "; ".join(fails))
+    return launches
+
 def control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows, q3_views):
     """Phase 41 (see the module docstring): the control plane and kernel
     selection on the card. Returns the launches of its main paths."""
@@ -5520,9 +5895,10 @@ def main() -> int:
     handoff_phase(torch, wt)
     ty_launches, ty_rows = threaded_ysb_phase(torch, np, wt, ysb, registry, card,
                                               args.profile)
-    ry_launches = record_ysb_phase(torch, np, wt, ysb, registry, card, ty_rows,
-                                   ty_launches)
+    ry_launches, ry_ms = record_ysb_phase(torch, np, wt, ysb, registry, card, ty_rows,
+                                          ty_launches)
     f_launches = faults_phase(torch, np, wt, ysb, registry, card, ty_rows)
+    ty_ref = flat_bytes(np, ty_rows)
     del ty_rows
     tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
                                                 gw_launches, gw_s)
@@ -5540,6 +5916,7 @@ def main() -> int:
     del q3_views
     mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
                                     main_launches, gw_rows)
+    srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths
@@ -5556,7 +5933,7 @@ def main() -> int:
              "tiered_rotating": trot_launches, "tiered_q4": tq4_launches,
              "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
              "sharded_graph": shg_launches, "control": ctl_launches,
-             "monitoring_ysb": mon_launches}
+             "monitoring_ysb": mon_launches, "serving": srv_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

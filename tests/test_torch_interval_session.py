@@ -365,7 +365,7 @@ def test_unported_options_raise(monkeypatch):
     """The interval join's tiered archive (item 13b) builds, by argument and
     by ``WF_STATE_TIERED``, as a tiered SessionWindow does; event-time
     monitoring builds q4 with a lateness histogram a side, and the SLO engine
-    (item 16b) raises by environment too."""
+    turns on by environment too, as in the JAX package."""
     assert wt.IntervalJoin(lambda t: t.side == 1, 0, 4, tiered=True, **CPU)._tier_cfg \
         is not None
     assert wt.SessionWindow(lambda t: t.v, wt.WindowSpec.session(2), tiered=True,
@@ -377,8 +377,9 @@ def test_unported_options_raise(monkeypatch):
     st = next(st for st in p.chain.states if isinstance(st, dict) and "lat_l" in st)
     assert st["lat_l"].shape == st["lat_r"].shape == (32,)
     monkeypatch.setenv("WF_SLO", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        wt.observability.MonitoringConfig.resolve(True)
+    from windflow_tpu.observability import MonitoringConfig as JMonitoringConfig
+    assert wt.observability.MonitoringConfig.resolve(True).slo is True
+    assert JMonitoringConfig.resolve(True).slo is True
 
 
 # ------------------------------------------------------ convert mid-stream

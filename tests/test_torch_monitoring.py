@@ -22,8 +22,8 @@ Drivers: ``Pipeline``, ``ThreadedPipeline``, ``PipeGraph`` (serial and
 threaded), ``SupervisedPipeline`` and ``PipeGraph.run_supervised``. The
 JAX ``ThreadedPipeline`` reads the event-time toggle from the environment
 only, which is why the environment drives every case. Then the
-``MonitoringConfig`` forms, the refusals of ROADMAP Queue 1 items 15 and
-16b, the health section's CPU rows and capture ledger, and the JAX
+``MonitoringConfig`` forms and sub-toggles against the JAX package's, the
+health section's CPU rows and capture ledger, and the JAX
 package's analysis scripts run on both packages' artifacts.
 """
 
@@ -393,28 +393,52 @@ def test_monitoring_config_resolves_like_jax(monkeypatch):
         MonitoringConfig.resolve(None)
 
 
+def _monitor_outcome(M, Mon, cfg_arg):
+    """Resolve ``cfg_arg`` with ``M`` and build a ``Mon`` from it: the error
+    (type, message) or the planes the monitor built."""
+    try:
+        cfg = M.resolve(cfg_arg)
+        mon = Mon(cfg, "g")
+    except (ValueError, NotImplementedError) as e:
+        return (type(e).__name__, str(e))
+    try:
+        return ("ok", mon.slo is not None, mon.remediation is not None,
+                mon.telemetry is not None,
+                mon.slo is not None and mon.slo.profiler is not None)
+    finally:
+        mon.finish()
+
+
 @pytest.mark.parametrize("field, var, item", [
     ("slo", "WF_SLO", "16b"), ("profile", "WF_PROFILE", "16b"),
     ("telemetry", "WF_TELEMETRY", "16b"), ("remediation", "WF_REMEDIATION", None)])
-def test_unported_sub_toggles_refused_by_name(monkeypatch, field, var, item):
-    """slo, profile and telemetry raise naming item 16b; live remediation
-    (it consumes the SLO engine's verdicts) raises the JAX package's
-    ValueError while slo is off."""
-    for k in ENV:
+def test_unported_sub_toggles_refused_by_name(monkeypatch, tmp_path, field, var, item):
+    """Each sub-toggle alone, by argument and by its environment variable,
+    gives what the JAX package gives: slo builds the SLO engine; profile,
+    telemetry without an endpoint and remediation raise its ValueErrors,
+    word for word; no refusal names item 16b any more."""
+    from windflow_tpu.observability import Monitor as JMonitor
+    from windflow_tpu.observability import MonitoringConfig as JMonitoringConfig
+    for k in ENV + ("WF_TELEMETRY_ENDPOINT",):
         monkeypatch.delenv(k, raising=False)
-    err = ((NotImplementedError, f"Queue 1 item {item}") if item
-           else (ValueError, "SLO engine"))
-    with pytest.raises(err[0], match=err[1]):
-        MonitoringConfig.resolve(MonitoringConfig(**{field: True}))
+    out = str(tmp_path / "m")
+    got = [_monitor_outcome(M, Mon, M(out_dir=out, **{field: True}))
+           for M, Mon in ((JMonitoringConfig, JMonitor),
+                          (MonitoringConfig, wt.observability.Monitor))]
+    assert got[0] == got[1], got
+    assert (got[1][0] == "ok") == (field == "slo")
+    assert f"item {item}" not in str(got[1])
     monkeypatch.setenv(var, "1")
-    with pytest.raises(err[0], match=err[1]):
-        MonitoringConfig.resolve(True)
+    got = [_monitor_outcome(M, Mon, out) for M, Mon in (
+        (JMonitoringConfig, JMonitor), (MonitoringConfig, wt.observability.Monitor))]
+    assert got[0] == got[1], got
 
 
-def test_remediation_without_slo_raises_the_jax_error(monkeypatch):
+def test_remediation_without_slo_raises_the_jax_error(monkeypatch, tmp_path):
     """``MonitoringConfig(remediation=True)`` with slo off raises the JAX
-    package's ValueError, word for word; with slo on, item 16b's refusal
-    comes first."""
+    package's ValueError, word for word; with slo on, both packages build
+    the SLO engine with the remediation engine on its verdict hook."""
+    from windflow_tpu.observability import Monitor as JMonitor
     from windflow_tpu.observability import MonitoringConfig as JMonitoringConfig
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
@@ -424,8 +448,11 @@ def test_remediation_without_slo_raises_the_jax_error(monkeypatch):
             M.resolve(M(remediation=True))
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        MonitoringConfig.resolve(MonitoringConfig(remediation=True, slo=True))
+    out = str(tmp_path / "m")
+    got = [_monitor_outcome(M, Mon, M(out_dir=out, remediation=True, slo=True))
+           for M, Mon in ((JMonitoringConfig, JMonitor),
+                          (MonitoringConfig, wt.observability.Monitor))]
+    assert got[0] == got[1] == ("ok", True, True, False, False)
 
 
 def test_control_refused_by_name():
@@ -556,7 +583,8 @@ def test_name_registries_equal_jax():
     copied = [k for k in dir(tnames) if k.isupper()]
     assert {"CONTROL_COUNTERS", "CONTROL_GAUGES", "EVENT_TIME_GAUGES", "HEALTH_GAUGES",
             "JOURNAL_EVENTS", "KERNELS", "STAGE_COUNTERS", "STAGE_GAUGES",
-            "SHARD_GAUGES", "RECOVERY_COUNTERS"} <= set(copied)
+            "SHARD_GAUGES", "RECOVERY_COUNTERS", "SLO_GAUGES", "TELEMETRY_GAUGES",
+            "FLEET_GAUGES", "SERVING_GAUGES", "TENANT_GAUGES"} <= set(copied)
     # the implementation names are the port's own (a standing difference)
     assert tnames.KERNEL_IMPLS == ("torch", "cuda")
     for k in copied:

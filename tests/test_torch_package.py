@@ -11,6 +11,7 @@
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -57,7 +58,12 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.observability.topology",
            "windflow_tpu_torch.control.autotune", "windflow_tpu_torch.control.admission",
            "windflow_tpu_torch.control.governor", "windflow_tpu_torch.control.remediation",
-           "windflow_tpu_torch.control.config", "windflow_tpu_torch.ops.registry"]
+           "windflow_tpu_torch.control.config", "windflow_tpu_torch.ops.registry",
+           "windflow_tpu_torch.observability.slo", "windflow_tpu_torch.observability.fleet",
+           "windflow_tpu_torch.observability.profiling", "windflow_tpu_torch.serving",
+           "windflow_tpu_torch.serving.framing", "windflow_tpu_torch.serving.tenants",
+           "windflow_tpu_torch.serving.config", "windflow_tpu_torch.serving.sources",
+           "windflow_tpu_torch.serving.runtime"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -175,11 +181,12 @@ def test_nexmark_cpu_run_launches_no_kernel():
     assert set(registry.launch_counts().values()) == {0}
 
 
-def test_nexmark_unported_paths_raise(no_cuda):
+def test_nexmark_unported_paths_raise(no_cuda, tmp_path):
     """Every query builds on the CPU and needs CUDA by default; tiered state
     builds, q4's interval join archive (item 13b) included, and event-time
-    monitoring builds the operators with lateness histograms; the SLO
-    engine and profile-on-page (item 16b) raise."""
+    monitoring builds the operators with lateness histograms; the SLO engine
+    runs a monitored q3, and profile-on-page without it raises the JAX
+    package's ValueError (WF120)."""
     from windflow_tpu_torch.nexmark import PORTED, QUERIES, make_query
     assert set(PORTED) == set(QUERIES)
     for q in ("q3_enrich_join", "q4_interval_join", "q5_session", "q6_topn",
@@ -197,10 +204,16 @@ def test_nexmark_unported_paths_raise(no_cuda):
     chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=32, device="cpu",
                              event_time=True)
     assert any(isinstance(st, dict) and "lat_hist" in st for st in chain.states)
-    for kw in ({"slo": True}, {"profile": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-            wt.Pipeline(src, ops, batch_size=32, device="cpu",
-                        monitoring=wt.observability.MonitoringConfig(**kw)).run()
+    out = str(tmp_path / "mon")
+    src, ops = make_query("q3_enrich_join", 100, device="cpu")
+    wt.Pipeline(src, ops, batch_size=32, device="cpu",
+                monitoring=wt.observability.MonitoringConfig(out_dir=out, slo=True)).run()
+    with open(os.path.join(out, "snapshot.json")) as f:
+        assert set(json.load(f)["slo"]) >= {"latency_e2e", "drops"}
+    with pytest.raises(ValueError, match="WF120"):
+        wt.Pipeline(src, ops, batch_size=32, device="cpu",
+                    monitoring=wt.observability.MonitoringConfig(out_dir=out,
+                                                                 profile=True)).run()
 
 
 def _pallas_functions():
@@ -264,7 +277,6 @@ def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
 #: yet, each with the ROADMAP Queue 1 item that will port it
 UNPORTED_EXPORTS = {
     "ShardedChain": 14, "shard_batch": 14, "make_mesh": 14, "make_mesh_2d": 14,
-    "xprof_trace": "16b",
     "analysis": 18, "validate_graph": 18,
 }
 

@@ -13,8 +13,11 @@ replay takes the same decisions) and the arbitration against
 ``reshard="auto"``. The unit tests run each package's module through the
 same calls and compare what they decide; the driver tests compare rows,
 decision states and the ``remediation_apply``/``remediation_skip`` and
-``reshard`` records. The live engine is driven by snapshots built here:
-the SLO engine that feeds it in a live driver is ROADMAP item 16b.
+``reshard`` records. The live engine is driven by snapshots built here,
+and then by the SLO engine in the live drivers: ``Pipeline.run`` binds
+``admission_rate`` and ``autotune_reclimb``, ``ThreadedPipeline``
+``admission_rate`` (``ServingRuntime``'s ``tenant_rate`` is in
+``tests/test_torch_serving.py``).
 """
 
 import json
@@ -609,3 +612,107 @@ def test_remediation_reshard_applies_without_auto(tmp_path):
         got[pkg] = (rows, recs, p._sharded.rem.state(), sorted(p.shard_report()))
     assert got["port"] == got["jax"]
     assert [r for r in got["port"][1] if r["event"] == "remediation_apply"]
+
+
+# ------------------------------------------------ live bind sites (SLO engine)
+
+def _live_cfg(pkg, out, actions):
+    """Monitoring with the SLO engine on ``drop_ratio`` (a page after two
+    violating ticks) and ``actions``; the reporter never ticks by itself
+    (the sinks below tick it by hand, once a batch)."""
+    if pkg == "jax":
+        from windflow_tpu.observability import MonitoringConfig as M
+    else:
+        M = wt.observability.MonitoringConfig
+    spec = {"name": "drops", "signal": "drop_ratio", "target": 0.1, "objective": 0.5,
+            "fast_window": 1, "slow_window": 2}
+    return M(out_dir=str(out), interval_s=3600.0, slo=[spec], remediation=actions,
+             remediation_cooldown_s=3600.0)
+
+
+def _live_run(pkg, tmp_path, driver, actions, autotune=False):
+    """Win_Seq over 20 batches of 20 under admission (a positional bucket of
+    half a batch a batch: every other batch shed) through ``driver``, the
+    sink ticking the reporter after every delivery. Returns (rows,
+    remediation records, the run's monitor)."""
+    got, holder = [], {}
+    collect = _collect(got)
+
+    def cb(view):
+        collect(view)
+        if view is not None:
+            holder["p"]._monitor.reporter.emit()
+    Xm, kw = X[pkg], KW[pkg]
+    ctl = CTL[pkg].ControlConfig(autotune=autotune, backpressure=False, admission=True,
+                                 refill_per_batch=10.0, burst_tuples=40.0,
+                                 decide_every=2, settle_batches=0)
+    mon = _live_cfg(pkg, tmp_path / f"{pkg}-{driver}", actions)
+    with Journal(pkg, tmp_path / f"{pkg}-{driver}.jsonl") as j:
+        if driver == "pipeline":
+            p = Xm.Pipeline(_src(pkg, 400, 4), [_op(pkg, 4)], Xm.Sink(cb, **kw),
+                            batch_size=20, control=ctl, monitoring=mon, **kw)
+        else:
+            p = Xm.ThreadedPipeline(_src(pkg, 400, 4), [[_op(pkg, 4)]], Xm.Sink(cb, **kw),
+                                    batch_size=20, control=ctl, monitoring=mon, **kw)
+        holder["p"] = p
+        p.run()
+        # the monitor's journal holds the records the engine wrote
+        recs = [{k: v for k, v in r.items() if k not in TIMING}
+                for r in JOURNAL[pkg].read_journal(
+                    str(tmp_path / f"{pkg}-{driver}" / "events.jsonl"))
+                if r["event"].startswith(("remediation_", "slo_"))]
+    assert not j.records()           # nothing went to the outer journal
+    return sorted(got), recs, p._monitor
+
+
+def test_pipeline_binds_admission_rate_live(tmp_path):
+    """``Pipeline.run`` binds ``admission_rate``: the drops SLO pages, the
+    action halves the bucket's refill, and the rows, the ``slo_page`` and
+    ``remediation_*`` records and the engine's ledger equal the JAX
+    package's."""
+    action = [{"name": "shed_harder", "slo": "drops", "actuator": "admission_rate",
+               "factor": 0.5, "floor": 1.0}]
+    got = {}
+    for pkg in PKGS:
+        rows, recs, mon = _live_run(pkg, tmp_path, "pipeline", action)
+        assert mon.remediation.bound() == ["admission_rate"]
+        got[pkg] = (rows, recs, mon.remediation.section()["ledger"])
+    assert got["port"] == got["jax"]
+    applies = [r for r in got["port"][1] if r["event"] == "remediation_apply"]
+    assert len(applies) == 1 and applies[0]["rate"] == 5.0
+    assert applies[0]["prev_rate"] == 10.0
+    assert any(r["event"] == "slo_page" for r in got["port"][1])
+
+
+def test_pipeline_binds_autotune_reclimb_live(tmp_path):
+    """With the capacity autotuner on, ``Pipeline.run`` binds
+    ``autotune_reclimb`` too: the page re-climbs the tuner, as in the JAX
+    package (the tuner's wall-clock decisions aside)."""
+    action = [{"name": "reclimb", "slo": "drops", "actuator": "autotune_reclimb"}]
+    got = {}
+    for pkg in PKGS:
+        _rows, recs, mon = _live_run(pkg, tmp_path, "pipeline", action, autotune=True)
+        assert sorted(mon.remediation.bound()) == ["admission_rate", "autotune_reclimb"]
+        got[pkg] = [{k: r[k] for k in ("event", "action", "actuator", "applied", "tuners")
+                     if k in r} for r in recs if r["event"] == "remediation_apply"]
+    assert got["port"] == got["jax"]
+    assert got["port"] and got["port"][0]["tuners"] == ["source-pipeline"]
+
+
+def test_threaded_pipeline_binds_admission_rate_live(tmp_path):
+    """``ThreadedPipeline`` binds ``admission_rate``: the drops SLO pages
+    and the action halves the bucket, in both packages (where the source
+    thread stands when it fires is a matter of timing, so the rows are not
+    compared)."""
+    action = [{"name": "shed_harder", "slo": "drops", "actuator": "admission_rate",
+               "factor": 0.5, "floor": 1.0}]
+    got = {}
+    for pkg in PKGS:
+        _rows, recs, mon = _live_run(pkg, tmp_path, "threaded", action)
+        assert mon.remediation.bound() == ["admission_rate"]
+        got[pkg] = [{k: r[k] for k in ("event", "action", "actuator", "rate", "prev_rate")}
+                    for r in recs if r["event"] == "remediation_apply"]
+    assert got["port"] == got["jax"] == [{"event": "remediation_apply",
+                                         "action": "shed_harder",
+                                         "actuator": "admission_rate", "rate": 5.0,
+                                         "prev_rate": 10.0}]

@@ -11,9 +11,10 @@ of its own. ``SupervisedPipeline`` and ``PipeGraph.run_supervised`` add
 aligned checkpoints, replay and exactly-once delivery on failure, journaled by
 the ``EventJournal``; ``monitoring=`` and ``trace=`` (``observability/``) add
 the metrics registry and reporter, event-time lateness histograms, batch
-tracing and the device-health ledger; ``control=`` (``control/``) the
-capacity and dispatch-K autotuners, admission control, the backpressure
-governor and the supervised drivers' barrier remediation. Every TPU kernel on a ported path is a hand-written CUDA kernel for
+tracing, the device-health ledger, the SLO engine with profile-on-page and
+fleet telemetry; ``control=`` (``control/``) the capacity and dispatch-K
+autotuners, admission control, the backpressure governor and remediation;
+``serving/`` runs a chain as a multi-tenant service over a socket. Every TPU kernel on a ported path is a hand-written CUDA kernel for
 ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
@@ -52,7 +53,7 @@ from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Buil
                                Source_Builder, WinFarm_Builder, WinMapReduce_Builder,
                                WinSeq_Builder, WinSeqFFAT_Builder)
 from .shipper import Shipper
-from .stats import LogHistogram, Stats_Record
+from .stats import LogHistogram, Stats_Record, xprof_trace
 from . import nexmark, parallel
 
 __version__ = "0.1.0"

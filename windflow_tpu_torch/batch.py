@@ -28,8 +28,8 @@ CTRL_DTYPE = torch.int32
 
 #: Host-side sidecar metadata (a trace id): it rides on the Python Batch object
 #: under this attribute, set with ``object.__setattr__`` on the frozen
-#: dataclass and never as a field, so it changes no tensor. The port carries
-#: it only; causal tracing itself is not ported (ROADMAP Queue 1 item 16).
+#: dataclass and never as a field, so it changes no tensor. Causal tracing
+#: (``observability/tracing.py``) mints and reads it.
 #: ``dataclasses.replace``, ``split_batch`` and ``concat_batches`` build new
 #: objects and drop it.
 TRACE_META_ATTR = "_wf_trace"

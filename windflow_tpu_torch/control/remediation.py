@@ -3,9 +3,10 @@
 Counterpart of ``windflow_tpu/control/remediation.py``: the same policy
 grammar, evaluators, decisions and journal records (its error messages name
 the JAX package's WF118 validator, as the JAX package's do). The live
-:class:`RemediationEngine` consumes SLO verdicts, and the port's SLO engine
-is ROADMAP Queue 1 item 16b: no live driver binds it yet, and
-``MonitoringConfig(remediation=)`` is refused there. The barrier mode runs
+:class:`RemediationEngine` consumes the SLO engine's verdicts
+(``MonitoringConfig(slo=, remediation=)``): ``Pipeline`` binds
+``admission_rate`` and ``autotune_reclimb``, ``ThreadedPipeline``
+``admission_rate``, ``ServingRuntime`` ``tenant_rate``. The barrier mode runs
 under the port's supervised drivers.
 
 The SLO stack judges (OK->WARN->PAGE, multi-window burn rates,

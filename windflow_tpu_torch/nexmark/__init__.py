@@ -2,9 +2,8 @@
 
 Counterpart of ``windflow_tpu/nexmark``: the synthetic auction and bid
 sources (:mod:`generators`), one builder per query (:mod:`queries`) and the
-dense host-side oracles (:mod:`oracles`). The port runs q1, q2, q3, q6 and
-q7; q4 (interval join) and q5 (session window) raise until their operators
-are ported (ROADMAP Queue 1 item 11).
+dense host-side oracles (:mod:`oracles`). The port runs every query, q1 to
+q7 (q4 on the interval join, q5 on the session window).
 """
 
 from . import generators, oracles, queries

@@ -19,14 +19,18 @@ Counterpart of ``windflow_tpu/observability/device_health.py`` on CUDA:
 
 Off by default (``MonitoringConfig.health``, ``WF_MONITORING_HEALTH``); off,
 a call site costs a module attribute load and a ``None`` check, and nothing
-is synchronized. The JAX module's fleet merge (``merge_snapshots``) is
-ROADMAP Queue 1 item 16b; its snapshot loaders serve its scripts, which
-read the port's artifacts as they are.
+is synchronized.
+
+The snapshot loaders and the fleet merge (:func:`merge_snapshots`,
+:func:`merge_monitoring_dirs`) are copies of the JAX module's: the fleet
+aggregator (``fleet.py``) folds its hosts' snapshots with them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -375,3 +379,399 @@ def headroom_risks(devices: Sequence[dict]) -> List[str]:
             if head < HEADROOM_RISK_FRACTION * limit:
                 out.append(row.get("device", "?"))
     return out
+
+
+# ------------------------------------------------- shared snapshot loading
+#
+# THE one snapshot/journal loader for wf_state.py / wf_trace.py /
+# wf_health.py (each previously grew its own copy).  Torn-tolerant: a
+# snapshots.jsonl line cut mid-write (host crash between append and flush)
+# is skipped, never a crash — and snapshot.json itself is written via
+# tmp+os.replace by the Reporter, so a reader can never observe it torn.
+
+
+def load_snapshots(mon_dir: str):
+    """(latest snapshot, full time series) from a monitoring directory.
+    Raises FileNotFoundError when neither artifact exists."""
+    series = []
+    jl = os.path.join(mon_dir, "snapshots.jsonl")
+    if os.path.exists(jl):
+        with open(jl) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    series.append(json.loads(line))
+                except ValueError:
+                    # torn tail of an append in progress — drop the line,
+                    # keep the parsed prefix (the Reporter's snapshot.json
+                    # replace is atomic; the jsonl append is not)
+                    continue
+    latest = None
+    sj = os.path.join(mon_dir, "snapshot.json")
+    if os.path.exists(sj):
+        try:
+            with open(sj) as f:
+                latest = json.load(f)
+        except ValueError:
+            latest = None
+    if latest is None and series:
+        latest = series[-1]
+    if latest is None:
+        raise FileNotFoundError(
+            f"no snapshot.json / snapshots.jsonl under {mon_dir!r}")
+    return latest, series
+
+
+def load_journal(mon_dir: str) -> List[dict]:
+    path = os.path.join(mon_dir, "events.jsonl")
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue               # torn tail, same policy as above
+    return out
+
+
+# --------------------------------------------------------- fleet federation
+
+
+def _sum_into(dst: dict, src: dict) -> None:
+    for k, v in (src or {}).items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            dst[k] = dst.get(k, 0) + v
+
+
+def _max_into(dst: dict, src: dict) -> None:
+    for k, v in (src or {}).items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            dst[k] = max(dst.get(k, v), v)
+
+
+#: event-time section keys merged by MAX across hosts (pressure gauges: the
+#: fleet view must show the worst host) — everything else numeric in the
+#: per-op section is summed (counters) except the watermark family, which
+#: takes MIN (the frontier is held by the slowest host)
+_ET_MAX_KEYS = ("occupancy_pct", "pending_depth", "l_fill_pct", "r_fill_pct",
+                "open_sessions", "oldest_open_age", "lag")
+_ET_MIN_KEYS = ("watermark_ts", "fire_frontier_ts")
+
+#: tiered-state sub-section ("tier" in the event-time rows): occupancy /
+#: size gauges take MAX (the fleet view shows the worst host), the
+#: spill/readmit/compaction movement counters SUM
+_TIER_MAX_KEYS = ("hot_pct", "hot_used", "hot_slots", "outbox_slots",
+                  "outbox_depth", "cold_keys", "cold_rows",
+                  "l_cold_rows", "r_cold_rows")
+
+
+def _merge_tier_section(dst: dict, src: dict) -> None:
+    for k, v in (src or {}).items():
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k in _TIER_MAX_KEYS:
+            dst[k] = max(dst.get(k, v), v)
+        else:                       # state_spills/readmits/compactions
+            dst[k] = dst.get(k, 0) + v
+
+
+def _merge_et_section(dst: dict, src: dict) -> None:
+    for k, v in (src or {}).items():
+        if k == "tier" and isinstance(v, dict):
+            _merge_tier_section(dst.setdefault("tier", {}), v)
+            continue
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k in _ET_MAX_KEYS:
+            dst[k] = max(dst.get(k, v), v)
+        elif k in _ET_MIN_KEYS:
+            dst[k] = min(dst.get(k, v), v)
+        else:
+            dst[k] = dst.get(k, 0) + v
+
+
+def merge_snapshots(snaps: Sequence[dict],
+                    hosts: Optional[Sequence[str]] = None) -> dict:
+    """Fold N per-host snapshots into ONE fleet snapshot: counters summed,
+    the watermark frontier min'd, occupancy/pressure gauges max'd, queue
+    depths max'd, HBM/health ledgers concatenated/summed, per-host
+    provenance kept under ``hosts``.  Latency percentiles cannot be merged
+    from summaries — the fleet row keeps the MAX percentile (worst host)
+    and the summed sample count, which is the honest conservative read."""
+    snaps = [s for s in snaps if s]
+    if not snaps:
+        raise ValueError("merge_snapshots: no snapshots to merge")
+    hosts = list(hosts) if hosts else []
+    if len(hosts) < len(snaps):               # pad, never silently truncate
+        hosts += [f"host{i}" for i in range(len(hosts), len(snaps))]
+    # duplicate host tags (two --merge dirs with the same basename) are
+    # disambiguated with a #N suffix, never silently folded into one host's
+    # rows — host-tagged sections (shards, pages_by_host, devices) would
+    # otherwise collide and drop data
+    seen_tags: Dict[str, int] = {}
+    for i, h in enumerate(hosts):
+        n = seen_tags.get(h, 0) + 1
+        seen_tags[h] = n
+        if n > 1:
+            hosts[i] = f"{h}#{n}"
+    out: dict = {
+        "graph": "+".join(dict.fromkeys(s.get("graph", "?") for s in snaps)),
+        "merged_from": len(snaps),
+        "hosts": [{"host": h, "graph": s.get("graph"),
+                   "wall_time": s.get("wall_time"),
+                   "uptime_s": s.get("uptime_s")}
+                  for h, s in zip(hosts, snaps)],
+    }
+    # schema provenance: the merged view carries the NEWEST schema seen;
+    # hosts that disagree (a fleet mid-upgrade) are flagged per host under
+    # ``schema_mismatch`` — the fold still runs (the sections are all
+    # individually optional), but the disagreement is never silent, and the
+    # loaders/CLIs surface it (seed-era snapshots read as version 0)
+    schemas = {h: int(s.get("schema", 0) or 0)
+               for h, s in zip(hosts, snaps)}
+    out["schema"] = max(schemas.values())
+    if len(set(schemas.values())) > 1:
+        out["schema_mismatch"] = schemas
+    # operators joined by name: counters summed, percentiles max'd
+    ops: Dict[str, dict] = {}
+    order: List[str] = []
+    for host, s in zip(hosts, snaps):
+        for row in s.get("operators") or []:
+            if not isinstance(row, dict):
+                continue                      # torn/partial host section
+            name = row.get("name", "?")
+            dst = ops.get(name)
+            if dst is None:
+                dst = ops[name] = {"name": name, "hosts": []}
+                order.append(name)
+            dst["hosts"].append(host)
+            _sum_into(dst, {k: v for k, v in row.items()
+                            if k not in ("service_time_us", "event_time",
+                                         "counters", "watermark")})
+            if row.get("counters"):
+                dst.setdefault("counters", {})
+                _sum_into(dst["counters"], row["counters"])
+            if row.get("service_time_us"):
+                st = dst.setdefault("service_time_us", {})
+                samples = st.get("samples", 0) + \
+                    row["service_time_us"].get("samples", 0)
+                _max_into(st, row["service_time_us"])
+                st["samples"] = samples
+            if row.get("event_time"):
+                dst.setdefault("event_time", {})
+                _merge_et_section(dst["event_time"], row["event_time"])
+    out["operators"] = [ops[n] for n in order]
+    totals: dict = {}
+    for s in snaps:
+        _sum_into(totals, s.get("totals") or {})
+    out["totals"] = totals
+    queues: dict = {}
+    for s in snaps:
+        _max_into(queues, s.get("queues") or {})
+    if queues:
+        out["queues"] = queues
+    recovery: dict = {}
+    control_counters: dict = {}
+    for s in snaps:
+        _sum_into(recovery, s.get("recovery") or {})
+        _sum_into(control_counters, (s.get("control") or {}).get("counters")
+                  or {})
+    out["recovery"] = recovery
+    out["control"] = {"counters": control_counters}
+    # e2e latency: worst-host percentiles + fleet sample count
+    e2e: dict = {}
+    for s in snaps:
+        row = s.get("e2e_latency_us") or {}
+        samples = e2e.get("samples", 0) + row.get("samples", 0)
+        _max_into(e2e, row)
+        e2e["samples"] = samples
+    if e2e:
+        out["e2e_latency_us"] = e2e
+    # graph-level event time: the fleet frontier is the MIN across hosts
+    ets = [(h, s.get("event_time")) for h, s in zip(hosts, snaps)
+           if isinstance(s.get("event_time"), dict)]
+    if ets:
+        sec: dict = {}
+        wm = [(e["min_watermark_ts"], h, e) for h, e in ets
+              if "min_watermark_ts" in e]
+        if wm:
+            mn = min(wm, key=lambda t: t[0])
+            sec["min_watermark_ts"] = mn[0]
+            sec["frontier_host"] = mn[1]
+            if mn[2].get("frontier_operator"):
+                sec["frontier_operator"] = mn[2]["frontier_operator"]
+        skews: dict = {}
+        for _h, e in ets:
+            _max_into(skews, e.get("edge_skew_ts") or {})
+        if skews:
+            sec["edge_skew_ts"] = skews
+        out["event_time"] = sec
+    # shard-local supervision: per-shard rows are folded HOST-TAGGED
+    # (``host/shard``), never summed — a fleet view that summed shard
+    # gauges could not name WHICH shard is hot, which is the whole point
+    # of the per-shard health surface (names.py::SHARD_GAUGES)
+    shard_secs = [(h, s.get("shards")) for h, s in zip(hosts, snaps)
+                  if isinstance(s.get("shards"), dict)]
+    if shard_secs:
+        ssec: dict = {}
+        for host, rows in shard_secs:
+            for k, row in rows.items():
+                ssec[f"{host}/{k}"] = dict(row)
+        out["shards"] = ssec
+    # SLO sections joined by SLO name: worst state wins (code MAX, the
+    # host holding it named), burn rates MAX (the fleet view must show the
+    # worst burn), pages summed AND host-tagged — an un-tagged page total
+    # could not say WHICH host was paging.  The latest signal VALUE comes
+    # from the worst (code, burn_fast) host, never a blanket MAX: for a
+    # min-sense signal like hbm_headroom_pct, MAX would report the
+    # HEALTHIEST host's headroom on a row whose state says another host
+    # is paging
+    slo_secs = [(h, s.get("slo")) for h, s in zip(hosts, snaps)
+                if isinstance(s.get("slo"), dict)]
+    if slo_secs:
+        ssec: Dict[str, dict] = {}
+        worst_key: Dict[str, tuple] = {}
+        for host, rows in slo_secs:
+            for name, row in rows.items():
+                if not isinstance(row, dict):
+                    continue                  # torn/partial host section
+                dst = ssec.setdefault(name, {"state": "ok", "code": 0,
+                                             "pages": 0,
+                                             "pages_by_host": {}})
+                code = int(row.get("code", 0))
+                bf = row.get("burn_fast")
+                key = (code, bf if isinstance(bf, (int, float)) else 0.0)
+                if name not in worst_key or key > worst_key[name]:
+                    worst_key[name] = key
+                    dst["code"] = code
+                    dst["state"] = row.get("state", dst["state"])
+                    dst["worst_host"] = host
+                    if row.get("signal") is not None:
+                        dst["signal"] = row["signal"]
+                    else:
+                        dst.pop("signal", None)
+                for k in ("burn_fast", "burn_slow"):
+                    v = row.get(k)
+                    if isinstance(v, (int, float)) \
+                            and not isinstance(v, bool):
+                        dst[k] = max(dst.get(k, v), v)
+                if row.get("target") is not None and "target" not in dst:
+                    dst["target"] = row["target"]
+                pages = int(row.get("pages", 0))
+                dst["pages"] += pages
+                if pages:
+                    dst["pages_by_host"][host] = pages
+        out["slo"] = ssec
+    # serving sections: run-level counters SUMMED (frames_torn across the
+    # fleet is one total, like the telemetry fold), tenant rows joined by
+    # tenant id and SUMMED per id (one tenant's fleet-wide shed pressure is
+    # ONE series — the label is the tenant, not the host; the rate gauge
+    # takes MIN, the tightest remediated bucket across hosts), graph labels
+    # concatenated when hosts disagree mid-swap
+    serv_secs = [(h, s.get("serving")) for h, s in zip(hosts, snaps)
+                 if isinstance(s.get("serving"), dict)]
+    if serv_secs:
+        vsec: dict = {}
+        tenants: Dict[str, dict] = {}
+        graphs: List[str] = []
+        for host, sec in serv_secs:
+            g = sec.get("graph")
+            if g and g not in graphs:
+                graphs.append(g)
+            _sum_into(vsec, {k: v for k, v in sec.items()
+                             if isinstance(v, (int, float))
+                             and not isinstance(v, bool)})
+            for tid, row in (sec.get("tenants") or {}).items():
+                if not isinstance(row, dict):
+                    continue                  # torn/partial host section
+                dst = tenants.setdefault(str(tid), {})
+                rate = row.get("rate")
+                # latency percentiles fold like SLO burn rates — MAX
+                # across hosts (percentiles never sum), the exemplar
+                # follows the worst host's p99; only the sample counters
+                # ride the sum below
+                pct_keys = ("e2e_p50_ms", "e2e_p95_ms", "e2e_p99_ms",
+                            "e2e_p99_tick_ms")
+                for k in pct_keys:
+                    v = row.get(k)
+                    if isinstance(v, (int, float)) \
+                            and not isinstance(v, bool):
+                        dst[k] = max(dst.get(k, v), v)
+                p99 = row.get("e2e_p99_ms")
+                if row.get("e2e_p99_exemplar") is not None \
+                        and isinstance(p99, (int, float)) \
+                        and p99 >= dst.get("e2e_p99_ms", p99):
+                    dst["e2e_p99_exemplar"] = row["e2e_p99_exemplar"]
+                _sum_into(dst, {k: v for k, v in row.items()
+                                if k != "rate" and k not in pct_keys
+                                and k != "e2e_p99_exemplar"})
+                if isinstance(rate, (int, float)):
+                    dst["rate"] = min(dst.get("rate", rate), rate)
+        if graphs:
+            vsec["graph"] = "+".join(graphs)
+        if tenants:
+            vsec["tenants"] = tenants
+        out["serving"] = vsec
+    # health ledgers: devices concatenated (host-tagged), footprints and
+    # compile counters summed, device-time summed with the dispatch-bound
+    # classifier recomputed over the fleet totals
+    healths = [(h, s.get("health")) for h, s in zip(hosts, snaps)
+               if isinstance(s.get("health"), dict)]
+    if healths:
+        hsec: dict = {"devices": []}
+        state_bytes: dict = {}
+        compile_tot: dict = {}
+        dt: Dict[str, dict] = {}
+        for host, hs in healths:
+            for d in hs.get("devices", []):
+                hsec["devices"].append(
+                    dict(d, device=f"{host}/{d.get('device', '?')}"))
+            _sum_into(state_bytes, hs.get("state_bytes") or {})
+            _sum_into(compile_tot, hs.get("compile") or {})
+            for label, row in (hs.get("device_time") or {}).items():
+                acc = dt.setdefault(label, {"device_ms": 0.0,
+                                            "dispatch_ms": 0.0, "samples": 0})
+                _sum_into(acc, {k: row.get(k, 0) for k in
+                                ("device_ms", "dispatch_ms", "samples")})
+        if state_bytes:
+            hsec["state_bytes"] = state_bytes
+        if compile_tot:
+            hsec["compile"] = compile_tot
+        if dt:
+            for row in dt.values():
+                if row["device_ms"] > 0:
+                    row["dispatch_ratio"] = round(
+                        row["dispatch_ms"] / row["device_ms"], 4)
+            hsec["device_time"] = dt
+            bound = {lb: r["dispatch_ratio"] for lb, r in dt.items()
+                     if r.get("dispatch_ratio", 0.0) >= DISPATCH_BOUND_RATIO}
+            if bound:
+                hsec["dispatch_bound"] = bound
+        out["health"] = hsec
+    return out
+
+
+def merge_monitoring_dirs(paths: Sequence[str]):
+    """(merged latest snapshot, merged index-aligned series, concatenated
+    journal) over N per-host monitoring directories OR snapshots.jsonl
+    files — the ``--merge`` entry point of wf_health.py / wf_state.py."""
+    latests, serieses, journal, hosts = [], [], [], []
+    for p in paths:
+        mon_dir = os.path.dirname(p) if p.endswith(".jsonl") else p
+        hosts.append(os.path.basename(os.path.normpath(mon_dir)) or mon_dir)
+        latest, series = load_snapshots(mon_dir)
+        latests.append(latest)
+        serieses.append(series or [latest])
+        journal.extend(load_journal(mon_dir))
+    merged = merge_snapshots(latests, hosts=hosts)
+    n_ticks = min(len(s) for s in serieses)
+    merged_series = [merge_snapshots([s[i] for s in serieses], hosts=hosts)
+                     for i in range(n_ticks)]
+    journal.sort(key=lambda e: e.get("wall", 0.0))
+    return merged, merged_series, journal

@@ -106,8 +106,8 @@ class EventJournal:
                 self._f.close()
 
 
-#: process-global active journal (set with :func:`set_active`; the port has no
-#: Monitor to set it yet, ROADMAP Queue 1 item 16). Runtime call sites use the
+#: process-global active journal (set with :func:`set_active`; a ``Monitor``
+#: sets its own for the run). Runtime call sites use the
 #: module-level helpers below so a disabled journal costs one None check.
 _active: Optional[EventJournal] = None
 

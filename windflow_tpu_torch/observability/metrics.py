@@ -8,11 +8,11 @@ monitoring) each operator's event-time section out of its state, and renders
 a JSON snapshot and a Prometheus text exposition with the JAX package's
 names and label sets. The ``health`` section reads ``device_health.py``.
 
-Not ported (ROADMAP Queue 1 item 16b): the ``slo``, ``telemetry`` and
-``serving`` sections, their ``windflow_slo_*``/``windflow_telemetry_*``/
-``windflow_serving_*``/``windflow_tenant_*`` gauges and the per-tenant
-latency histograms. The JAX package renders them only when those planes are
-attached, so a run without them has the same metric names in both.
+The ``slo``, ``telemetry`` and ``serving`` sections and their
+``windflow_slo_*``/``windflow_telemetry_*``/``windflow_serving_*``/
+``windflow_tenant_*`` gauges render only when the SLO engine, the telemetry
+agent or a serving runtime is attached (``attach_serving``; per-tenant
+latency histograms through ``record_tenant_e2e``), as in the JAX package.
 
 :class:`LogHistogram` is re-exported from ``stats.py`` (the port keeps one
 copy, with the trace-id exemplars).
@@ -106,6 +106,112 @@ def _check_health_names() -> None:
 
 _check_health_names()
 
+#: HELP text per SLO gauge — checked against ``names.py::SLO_GAUGES`` at
+#: import (the event-time/health lockstep discipline).  Rendered as
+#: ``windflow_slo_<name>{graph,slo="..."}`` from the snapshot's ``slo``
+#: section (written by the SLO engine inside the Reporter tick).
+_SLO_HELP = {
+    "state": "SLO health state (0 ok, 1 warn, 2 page)",
+    "burn_fast": "error-budget burn rate over the fast window",
+    "burn_slow": "error-budget burn rate over the slow window",
+    "signal": "latest observed value of the SLO's signal",
+    "target": "the SLO's target threshold",
+    "pages": "PAGE transitions this run",
+}
+
+
+def _check_slo_names() -> None:
+    from .names import SLO_GAUGES
+    if set(_SLO_HELP) != set(SLO_GAUGES):
+        raise RuntimeError(
+            f"metrics.py SLO exposition drifted from "
+            f"names.py::SLO_GAUGES: {set(_SLO_HELP) ^ set(SLO_GAUGES)}")
+
+
+_check_slo_names()
+
+#: HELP text per telemetry-agent gauge — checked against
+#: ``names.py::TELEMETRY_GAUGES`` at import (the SLO lockstep discipline).
+#: Rendered as ``windflow_telemetry_<name>{graph}`` from the snapshot's
+#: ``telemetry`` section (the TelemetryAgent stats the Reporter stamps in
+#: when ``MonitoringConfig.telemetry`` is on — absent otherwise, so the
+#: off path's artifacts are byte-identical).
+_TELEMETRY_HELP = {
+    "frames_sent": "telemetry frames delivered to the aggregator socket",
+    "frames_dropped": "telemetry frames evicted by the bounded drop-oldest "
+                      "outbox (a slow/dead aggregator costs frames, never "
+                      "Reporter cadence)",
+    "reconnects": "successful reconnects after a lost aggregator",
+    "outbox_depth": "telemetry frames queued right now",
+    "connected": "1 = live aggregator connection, 0 = not",
+}
+
+
+def _check_telemetry_names() -> None:
+    from .names import TELEMETRY_GAUGES
+    if set(_TELEMETRY_HELP) != set(TELEMETRY_GAUGES):
+        raise RuntimeError(
+            f"metrics.py telemetry exposition drifted from "
+            f"names.py::TELEMETRY_GAUGES: "
+            f"{set(_TELEMETRY_HELP) ^ set(TELEMETRY_GAUGES)}")
+
+
+_check_telemetry_names()
+
+#: HELP text per serving-plane gauge — checked against
+#: ``names.py::SERVING_GAUGES`` at import (the telemetry lockstep
+#: discipline).  Rendered as ``windflow_serving_<name>{graph}`` from the
+#: snapshot's ``serving`` section (``ServingRuntime.serving_section`` via
+#: ``attach_serving`` — absent when no serving runtime is attached, so the
+#: off path's artifacts are byte-identical).
+_SERVING_HELP = {
+    "swaps_applied": "zero-downtime graph_swap cutovers completed",
+    "swaps_rejected": "wire swap frames naming an unregistered graph",
+    "frames_decoded": "intact WFS1 record frames ingested",
+    "frames_torn": "ingest bytes resync'd past (torn client / garbage)",
+    "frames_dup": "reconnect-overlap frames deduped by tenant seq",
+    "clients_seen": "ingest connections accepted since serving start",
+    "unknown_offered": "batches from tenant ids nobody declared",
+}
+
+#: HELP text per tenant gauge — checked against ``names.py::TENANT_GAUGES``
+#: at import.  Rendered as ``windflow_tenant_<name>{graph,tenant="..."}``
+#: from the ``serving.tenants`` rows (the per-label SHARD_GAUGES shape).
+_TENANT_HELP = {
+    "offered": "batches this tenant offered to its admission bucket",
+    "admitted": "batches this tenant's controller admitted",
+    "shed": "batches this tenant's controller shed",
+    "shed_tuples": "tuple capacity this tenant's shed batches carried",
+    "rate": "the tenant bucket's live refill rate",
+    "e2e_p50_ms": "tenant e2e latency p50 (ms, cumulative)",
+    "e2e_p95_ms": "tenant e2e latency p95 (ms, cumulative)",
+    "e2e_p99_ms": "tenant e2e latency p99 (ms, cumulative)",
+    "e2e_p99_tick_ms": "tenant e2e latency p99 over the last reporter tick "
+                       "(ms; the tenant_e2e_p99_ms SLO signal)",
+    "e2e_samples": "tenant e2e latency samples recorded",
+    "e2e_samples_tick": "tenant e2e latency samples in the last tick",
+    "e2e_p99_exemplar": "trace id of a batch observed in the tenant's p99 "
+                        "latency bucket",
+}
+
+
+def _check_serving_names() -> None:
+    from .names import SERVING_GAUGES, TENANT_GAUGES
+    if set(_SERVING_HELP) != set(SERVING_GAUGES):
+        raise RuntimeError(
+            f"metrics.py serving exposition drifted from "
+            f"names.py::SERVING_GAUGES: "
+            f"{set(_SERVING_HELP) ^ set(SERVING_GAUGES)}")
+    if set(_TENANT_HELP) != set(TENANT_GAUGES):
+        raise RuntimeError(
+            f"metrics.py tenant exposition drifted from "
+            f"names.py::TENANT_GAUGES: "
+            f"{set(_TENANT_HELP) ^ set(TENANT_GAUGES)}")
+
+
+_check_serving_names()
+
+
 def _recovery_counters() -> Dict[str, float]:
     """Process-wide supervision counters (lazy import: runtime.faults imports
     observability.journal, so the reverse edge must not exist at import time)."""
@@ -185,6 +291,15 @@ class MetricsRegistry:
         # a stall pushed its whole-run p99 over it
         self._e2e_prev_counts: Optional[List[int]] = None  # wf-lint: single-writer[reporter]
         self._lock = threading.Lock()
+        # per-tenant e2e latency histograms (serving drive loop records,
+        # reporter tick reads): the DICT itself is guarded — first sample
+        # of a new tenant inserts while the reporter iterates — while each
+        # histogram is internally locked like e2e_hist
+        self._tenant_e2e: Dict[str, LogHistogram] = {}  # wf-lint: guarded-by[_lock]
+        # previous tick's per-tenant bucket counts (reporter-only, the
+        # _e2e_prev_counts windowed-p99 discipline per tenant)
+        self._tenant_prev_counts: Dict[str, List[int]] = {}  # wf-lint: single-writer[reporter]
+        self._lock = threading.Lock()
 
     # -- registration -----------------------------------------------------------------
 
@@ -211,6 +326,14 @@ class MetricsRegistry:
         so the fleet view names WHICH shard is hot."""
         self._shards_provider = provider
 
+    def attach_serving(self, provider: Callable[[], dict]) -> None:
+        """Register a serving runtime's section provider
+        (``ServingRuntime.serving_section``: graph/swap/frame counters +
+        the per-tenant ``names.py::TENANT_GAUGES`` rows) — rendered as the
+        snapshot's ``serving`` section and folded counters-summed,
+        per-tenant-summed by ``device_health.merge_snapshots``."""
+        self._serving_provider = provider
+
     def attach_queue_gauge(self, edge: str, fn: Callable[[], int],
                            capacity: Optional[int] = None) -> None:
         """SPSC ring depth probe for one dataflow edge (threaded driver):
@@ -224,6 +347,52 @@ class MetricsRegistry:
 
     def record_e2e(self, seconds: float, exemplar=None) -> None:
         self.e2e_hist.record(seconds, exemplar=exemplar)
+
+    def record_tenant_e2e(self, tenant: str, seconds: float,
+                          exemplar=None) -> None:
+        """One sampled wire-to-sink latency observation for ``tenant``
+        (serving drive loop, same sampling cadence as ``record_e2e``) —
+        feeds the per-tenant p50/p95/p99 rows of ``serving.tenants`` and
+        the ``tenant_e2e_p99_ms`` SLO signal."""
+        with self._lock:
+            h = self._tenant_e2e.get(tenant)
+            if h is None:
+                h = self._tenant_e2e[tenant] = LogHistogram()
+        h.record(seconds, exemplar=exemplar)
+
+    def _tenant_latency_rows(self) -> Dict[str, dict]:
+        """Per-tenant latency keys (names.py::TENANT_GAUGES e2e_* family)
+        merged into the ``serving.tenants`` rows at snapshot time.  Reporter
+        thread only (the _e2e_prev_counts discipline); tenants with zero
+        samples yield nothing, so latency-off snapshots stay byte-identical."""
+        with self._lock:
+            hists = list(self._tenant_e2e.items())
+        out: Dict[str, dict] = {}
+        for tenant, h in hists:
+            counts, count, _sum, _mn, mx, exemplars = h._snap()
+            if not count:
+                continue
+            pct = lambda q: LogHistogram._pct_value(counts, count, mx, q)
+            row = {
+                "e2e_p50_ms": round(pct(50) * 1e3, 3),
+                "e2e_p95_ms": round(pct(95) * 1e3, 3),
+                "e2e_p99_ms": round(pct(99) * 1e3, 3),
+                "e2e_samples": count,
+            }
+            i99 = LogHistogram._bucket_of(counts, count, 99)
+            ex = None if i99 is None else exemplars.get(i99)
+            if ex is not None:
+                row["e2e_p99_exemplar"] = ex
+            prev = self._tenant_prev_counts.get(tenant)
+            if prev is not None:
+                delta = [max(c - p, 0) for c, p in zip(counts, prev)]
+                dn = sum(delta)
+                row["e2e_samples_tick"] = dn
+                row["e2e_p99_tick_ms"] = round(
+                    LogHistogram._pct_value(delta, dn, mx, 99) * 1e3, 3)
+            self._tenant_prev_counts[tenant] = counts
+            out[tenant] = row
+        return out
 
     # -- collection -------------------------------------------------------------------
 
@@ -467,6 +636,22 @@ class MetricsRegistry:
             if rows:
                 # string keys: the section round-trips through JSON
                 snap["shards"] = {str(k): dict(v) for k, v in rows.items()}
+        serving_fn = getattr(self, "_serving_provider", None)
+        if serving_fn is not None:
+            try:
+                sec = serving_fn()
+            except Exception:       # noqa: BLE001 — never kill a snapshot
+                sec = None
+            if sec:
+                # join per-tenant latency into the tenant rows (tenants the
+                # registry declared but latency never sampled keep their
+                # exact shape — the off path stays byte-identical)
+                lat = self._tenant_latency_rows()
+                if lat:
+                    tenants = sec.setdefault("tenants", {})
+                    for tid, extra in lat.items():
+                        tenants.setdefault(tid, {}).update(extra)
+                snap["serving"] = sec
         if self.event_time:
             et = self._event_time_section(et_secs)
             if et:
@@ -629,6 +814,93 @@ class MetricsRegistry:
                                  f'{row[key]}')
 
     @staticmethod
+    def _prometheus_slo(snap: dict, lines: List[str], esc) -> None:
+        """``windflow_slo_*`` gauges from the snapshot's ``slo`` section
+        (one label set per SLO).  Only the names registered in
+        ``names.py::SLO_GAUGES`` render (the import-time lockstep check
+        above); ``state`` renders its numeric code."""
+        sec = snap.get("slo")
+        if not sec:
+            return
+        g = snap["graph"]
+        typed = set()
+
+        def head(name):
+            if name not in typed:
+                typed.add(name)
+                lines.append(f"# HELP windflow_slo_{name} {_SLO_HELP[name]}")
+                lines.append(f"# TYPE windflow_slo_{name} gauge")
+
+        for slo_name, row in sorted(sec.items()):
+            lab = f'graph="{esc(g)}",slo="{esc(slo_name)}"'
+            for name in ("burn_fast", "burn_slow", "signal", "target",
+                         "pages"):
+                v = row.get(name)
+                if v is not None:
+                    head(name)
+                    lines.append(f'windflow_slo_{name}{{{lab}}} {v}')
+            if row.get("code") is not None:
+                head("state")
+                lines.append(f'windflow_slo_state{{{lab}}} {row["code"]}')
+
+    @staticmethod
+    def _prometheus_telemetry(snap: dict, lines: List[str], esc) -> None:
+        """``windflow_telemetry_*`` gauges from the snapshot's ``telemetry``
+        section (the TelemetryAgent stats — present only when the fleet
+        telemetry plane is on).  Only the names registered in
+        ``names.py::TELEMETRY_GAUGES`` render (the import-time lockstep
+        check above)."""
+        sec = snap.get("telemetry")
+        if not sec:
+            return
+        g = snap["graph"]
+        for name in sorted(_TELEMETRY_HELP):
+            v = sec.get(name)
+            if v is None:
+                continue
+            lines.append(f"# HELP windflow_telemetry_{name} "
+                         f"{_TELEMETRY_HELP[name]}")
+            lines.append(f"# TYPE windflow_telemetry_{name} gauge")
+            lines.append(f'windflow_telemetry_{name}{{graph="{esc(g)}"}} '
+                         f'{v}')
+
+    @staticmethod
+    def _prometheus_serving(snap: dict, lines: List[str], esc) -> None:
+        """``windflow_serving_*`` run-level gauges + ``windflow_tenant_*``
+        per-tenant gauges from the snapshot's ``serving`` section.  Only
+        names registered in ``names.py::SERVING_GAUGES``/``TENANT_GAUGES``
+        render (the import-time lockstep check above)."""
+        sec = snap.get("serving")
+        if not sec:
+            return
+        g = snap["graph"]
+        for name in sorted(_SERVING_HELP):
+            v = sec.get(name)
+            if v is None:
+                continue
+            lines.append(f"# HELP windflow_serving_{name} "
+                         f"{_SERVING_HELP[name]}")
+            lines.append(f"# TYPE windflow_serving_{name} gauge")
+            lines.append(f'windflow_serving_{name}{{graph="{esc(g)}"}} {v}')
+        tenants = sec.get("tenants") or {}
+        typed = set()
+
+        def head(name):
+            if name not in typed:
+                typed.add(name)
+                lines.append(f"# HELP windflow_tenant_{name} "
+                             f"{_TENANT_HELP[name]}")
+                lines.append(f"# TYPE windflow_tenant_{name} gauge")
+
+        for tid, row in sorted(tenants.items()):
+            lab = f'graph="{esc(g)}",tenant="{esc(tid)}"'
+            for name in sorted(_TENANT_HELP):
+                v = row.get(name)
+                if v is not None:
+                    head(name)
+                    lines.append(f'windflow_tenant_{name}{{{lab}}} {v}')
+
+    @staticmethod
     def _prometheus_event_time(snap: dict, lines: List[str], esc) -> None:
         """``windflow_event_time_*`` gauges (HELP/TYPE'd) from the snapshot's
         event-time sections: per-operator watermark/lag/occupancy/pressure,
@@ -744,6 +1016,9 @@ class MetricsRegistry:
                     f'operator="{esc(row["name"])}"}} {row["counters"][c]}')
         self._prometheus_event_time(snap, lines, esc)
         self._prometheus_health(snap, lines, esc)
+        self._prometheus_slo(snap, lines, esc)
+        self._prometheus_telemetry(snap, lines, esc)
+        self._prometheus_serving(snap, lines, esc)
         lines.append("# TYPE windflow_queue_depth gauge")
         for edge, depth in snap["queues"].items():
             lines.append(f'windflow_queue_depth{{graph="{esc(g)}",'

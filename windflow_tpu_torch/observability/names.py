@@ -218,6 +218,63 @@ HEALTH_GAUGES = (
     #                            a fusion candidate (dispatch-bound edge)
 )
 
+#: per-SLO gauges of the snapshot's ``slo`` section (``slo.py``; rendered as
+#: ``windflow_slo_<name>{graph,slo=...}`` by ``metrics.py``)
+SLO_GAUGES = (
+    "state",            # health state code: 0 ok, 1 warn, 2 page
+    "burn_fast",        # error-budget burn over the fast window
+    "burn_slow",        # error-budget burn over the slow window
+    "signal",           # latest observed signal value
+    "target",           # the spec's target threshold
+    "pages",            # PAGE transitions this run
+)
+
+#: gauges of the host's ``telemetry`` section (``fleet.py`` TelemetryAgent)
+TELEMETRY_GAUGES = (
+    "frames_sent",      # frames delivered to the aggregator socket
+    "frames_dropped",   # frames evicted by the bounded drop-oldest outbox
+    "reconnects",       # successful reconnects after a lost aggregator
+    "outbox_depth",     # frames queued right now (bounded by the outbox)
+    "connected",        # 1 = live aggregator connection, 0 = not
+)
+
+#: gauges of the aggregator's ``fleet`` section (``fleet.py``
+#: FleetAggregator; ``fleet._FLEET_HELP`` names the same)
+FLEET_GAUGES = (
+    "hosts_connected",  # hosts with a live telemetry stream right now
+    "hosts_seen",       # distinct host tags seen since the serve started
+    "frames_received",  # telemetry frames decoded across all hosts
+    "frames_torn",      # frames lost to torn/corrupt wire data (resync'd)
+    "ticks",            # fleet merge ticks emitted
+)
+
+#: run-level gauges of the snapshot's ``serving`` section
+#: (``serving/runtime.py`` ServingRuntime.serving_section)
+SERVING_GAUGES = (
+    "swaps_applied",     # zero-downtime graph_swap cutovers completed
+    "swaps_rejected",    # wire swap frames naming an unregistered graph
+    "frames_decoded",    # intact WFS1 record frames ingested
+    "frames_torn",       # bytes resync'd past (torn client / garbage)
+    "frames_dup",        # reconnect-overlap frames deduped by tenant seq
+    "clients_seen",      # ingest connections accepted since start
+    "unknown_offered",   # batches from tenant ids nobody declared
+)
+
+#: per-tenant gauges of the ``serving.tenants`` rows (``serving/tenants.py``
+#: TenantRegistry.counters and the registry's per-tenant latency rows)
+TENANT_GAUGES = (
+    "offered",           # batches this tenant offered to its bucket
+    "admitted",          # batches its controller admitted
+    "shed",              # batches its controller shed
+    "shed_tuples",       # tuple capacity those shed batches carried
+    "rate",              # the bucket's live refill rate (remediation moves it)
+    "e2e_p50_ms", "e2e_p95_ms", "e2e_p99_ms",
+    "e2e_p99_tick_ms",   # windowed p99 over the last reporter tick: the
+    #                      tenant_e2e_p99_ms SLO signal
+    "e2e_samples", "e2e_samples_tick",
+    "e2e_p99_exemplar",  # trace id of a batch observed in the p99 bucket
+)
+
 #: kernel families selectable through the kernel registry
 #: (``ops/registry.py``): the JAX registry's families
 KERNELS = (

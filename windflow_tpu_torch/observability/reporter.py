@@ -13,14 +13,15 @@ single daemon thread snapshots the :class:`~.metrics.MetricsRegistry` every
 Off by default; started/stopped by the Monitor. ``stop()`` joins the thread and
 emits one final snapshot, so no thread outlives the run (tested).
 
-Counterpart of ``windflow_tpu/observability/reporter.py``, a copy without the
-SLO engine and the fleet telemetry agent it drives in the JAX package
-(ROADMAP Queue 1 item 16b)."""
+Counterpart of ``windflow_tpu/observability/reporter.py``, a copy: each tick
+also runs the SLO engine (``slo.py``) before the files land and offers the
+written snapshot to the fleet telemetry agent (``fleet.py``) after."""
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 from typing import Optional
 
@@ -54,11 +55,26 @@ def _atomic_write(path: str, data: str) -> None:
 class Reporter:
     def __init__(self, registry: MetricsRegistry, out_dir: str,
                  interval_s: float = 1.0, prometheus: bool = True,
-                 snapshot_keep: Optional[int] = None):
+                 slo_engine=None, snapshot_keep: Optional[int] = None,
+                 telemetry_agent=None):
         self.registry = registry
         self.out_dir = out_dir
         self.interval_s = max(0.05, float(interval_s))
         self.prometheus = prometheus
+        #: fleet telemetry agent (observability/fleet.py TelemetryAgent,
+        #: None = plane off): its stats are stamped into every snapshot
+        #: BEFORE the files land (so the artifacts carry the
+        #: windflow_telemetry_* gauges) and the written snapshot is OFFERED
+        #: after — a bounded deque append, never a socket wait, so the tick
+        #: cadence is independent of the aggregator's health by construction
+        self.telemetry = telemetry_agent
+        #: SLO engine (observability/slo.py) evaluated INSIDE every tick,
+        #: right after the registry snapshot and before the files land —
+        #: the written snapshot.json/snapshots.jsonl carry its "slo"
+        #: section, and PAGE transitions capture incident bundles on this
+        #: thread (the engine is single-writer for the same reason ticks
+        #: is: the final stop() emit runs only after join())
+        self.slo = slo_engine
         #: keep-last-N-lines retention for snapshots.jsonl (None/0 =
         #: unlimited, today's behavior): a long-running service's time
         #: series must not grow without bound.  Rotation is an amortized
@@ -70,6 +86,11 @@ class Reporter:
         # bumped by emit(): reporter ticks while running; the driver's final
         # stop() emit runs only after join() — never two writers at once
         self.ticks = 0                      # wf-lint: single-writer[reporter]
+        # SLO-engine observe() failures (same single-writer discipline): a
+        # broken signal extractor must not kill the tick, but the engine
+        # whose whole job is alerting dying silently would be worse — the
+        # count lands in every snapshot and the first failure warns once
+        self.slo_errors = 0                 # wf-lint: single-writer[reporter]
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         os.makedirs(out_dir, exist_ok=True)
@@ -108,6 +129,24 @@ class Reporter:
 
     def emit(self) -> dict:
         snap = self.registry.snapshot()
+        if self.telemetry is not None:
+            snap["telemetry"] = self.telemetry.stats()
+        if self.slo is not None:
+            try:
+                self.slo.observe(snap)
+            except Exception as e:  # noqa: BLE001 — a bad SLO tick must not
+                # kill the reporter (the snapshot still lands), but it must
+                # not die SILENTLY either: the snapshot records the error +
+                # count, and the first failure warns on stderr — otherwise a
+                # broken extractor reads as "all SLOs OK" for the whole run
+                self.slo_errors += 1
+                snap["slo_error"] = {"error": f"{type(e).__name__}: {e}",
+                                     "count": self.slo_errors}
+                if self.slo_errors == 1:
+                    print(f"wf reporter: SLO engine failed on tick "
+                          f"{self.ticks + 1} ({type(e).__name__}: {e}) — "
+                          f"burn-rate alerting is degraded; see "
+                          f"snapshot['slo_error']", file=sys.stderr)
         _atomic_write(os.path.join(self.out_dir, "snapshot.json"),
                       json.dumps(snap, indent=1, sort_keys=True))
         with open(self._jsonl_path, "a") as f:
@@ -128,6 +167,11 @@ class Reporter:
         if self.prometheus:
             _atomic_write(os.path.join(self.out_dir, "metrics.prom"),
                           self.registry.to_prometheus(snap))
+        if self.telemetry is not None:
+            try:
+                self.telemetry.offer(snap)
+            except Exception:  # noqa: BLE001 — the telemetry plane is
+                pass           # best-effort; it must never cost a tick
         self.ticks += 1
         return snap
 

@@ -736,6 +736,24 @@ class Pipeline:
         tuner, rebatcher, admission = self._make_controller()
         dcfg, ktuner = self._make_dispatcher()
         self.tuner, self.ktuner = tuner, ktuner
+        if mon is not None and mon.remediation is not None:
+            # bind the actuators this run owns (control/remediation.py): an
+            # unbound one skips loudly. scale_rate takes the bucket lock; the
+            # re-climb request is an Event the tuner consumes at its next
+            # on_batch: both safe from the Reporter tick
+            if admission is not None:
+                mon.remediation.bind(
+                    "admission_rate",
+                    lambda a, _adm=admission: _adm.scale_rate(a.factor, a.floor))
+            if tuner is not None or ktuner is not None:
+                def _reclimb(_a, _t=tuner, _k=ktuner):
+                    names = []
+                    for t in (_t, _k):
+                        if t is not None:
+                            t.request_reclimb()
+                            names.append(t.name)
+                    return {"tuners": names}
+                mon.remediation.bind("autotune_reclimb", _reclimb)
 
         def pushed(b):
             # tuner accounting after each pushed batch, in batch order

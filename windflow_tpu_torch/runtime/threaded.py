@@ -423,6 +423,14 @@ class ThreadedPipeline:
                     self.governor.watch(name, q.size, self.edge_capacities[name])
             self._admission = admission_from_config(
                 cfg, self.source.out_capacity(self.batch_size), driver="threaded")
+        if (self._monitor is not None and self._monitor.remediation is not None
+                and self._admission is not None):
+            # bind the actuator this run owns (an unbound one skips loudly);
+            # scale_rate takes the bucket lock, so the Reporter-thread
+            # actuation is atomic against the source thread's offer()
+            adm = self._admission
+            self._monitor.remediation.bind(
+                "admission_rate", lambda a: adm.scale_rate(a.factor, a.floor))
         try:
             with _faults.activate(injector):
                 return self._run()

@@ -7,11 +7,15 @@ the sampled service times (``CompiledChain`` times every
 ``SERVICE_SAMPLE_EVERY``-th push to completion). ``dump_to_file`` writes one
 JSON file a replica, as the reference's ``dump_toFile`` does
 (``wf/stats_record.hpp:109-155``); ``PipeGraph.dump_stats`` calls it.
+
+:func:`xprof_trace` is the counterpart of the JAX package's profiler capture:
+one ``torch.profiler`` session a process, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import os
 import threading
@@ -223,3 +227,84 @@ class Stats_Record:
         with open(path, "w") as f:
             json.dump(self.as_dict(), f, indent=2)
         return path
+
+
+#: the one profiler session of the process: who (if anyone) holds it. Guarded
+#: so a nested or concurrent ``xprof_trace`` fails with a clear message
+#: instead of the profiler's own error surfacing out of user code.
+_xprof_lock = threading.Lock()
+_xprof_logdir = None
+
+
+def profiler_activities() -> list:
+    """The ``torch.profiler`` activities a capture records: the CPU, and the
+    card's kernels (CUPTI) when CUDA is present and the profiler supports
+    them."""
+    import torch
+    from torch.profiler import ProfilerActivity, supported_activities
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and ProfilerActivity.CUDA in supported_activities():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def xprof_trace(logdir: str):
+    """``torch.profiler`` capture around a run, written as a Chrome trace
+    (``<logdir>/trace.json``, loadable in Perfetto or ``chrome://tracing``)::
+
+        with wt.xprof_trace("/tmp/trace"):
+            graph.run()
+
+    It records the CPU, and on the card every kernel of the process through
+    CUPTI (whichever thread launched it). Pairs with the host-side flight
+    recorder (``trace=``).
+
+    One session at a time: the profiler is process-global, and a nested
+    start raises an opaque error from deep inside it. This wrapper detects
+    the active session first and raises a ``RuntimeError`` that names the
+    holder and the fix. Starting and stopping hold
+    ``runtime/graphs.py::CAPTURE_LOCK``, so neither interleaves with a
+    CUDA-graph capture."""
+    global _xprof_logdir
+    import torch
+    from .runtime.graphs import CAPTURE_LOCK
+    with _xprof_lock:
+        if _xprof_logdir is not None:
+            raise RuntimeError(
+                f"xprof_trace({logdir!r}): a profiler session is already "
+                f"active, capturing to {_xprof_logdir!r} — torch.profiler "
+                f"supports one trace per process; nest this region inside "
+                f"the existing capture (one file is enough: the trace "
+                f"carries every device event between start and stop) or "
+                f"close it first")
+        prof = torch.profiler.profile(activities=profiler_activities())
+        try:
+            if torch.autograd._profiler_enabled():
+                raise RuntimeError("the autograd profiler is already enabled")
+            with CAPTURE_LOCK:
+                prof.start()
+        except RuntimeError as e:
+            # a session started outside this wrapper (a direct
+            # torch.profiler.profile elsewhere in this process): same root
+            # cause, same guidance, original error chained
+            raise RuntimeError(
+                f"xprof_trace({logdir!r}): torch.profiler start failed — "
+                f"most likely another profiler session (a direct "
+                f"torch.profiler.profile elsewhere in this process) is "
+                f"already active; stop it before opening a new capture") from e
+        _xprof_logdir = logdir
+    try:
+        os.makedirs(logdir, exist_ok=True)
+        yield logdir
+    finally:
+        # stop BEFORE releasing the guard: clearing first would open a
+        # window where a concurrent xprof_trace passes the guard and hits
+        # the still-active profiler with its raw error
+        try:
+            with CAPTURE_LOCK:
+                prof.stop()
+            prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        finally:
+            with _xprof_lock:
+                _xprof_logdir = None
