@@ -320,7 +320,17 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     tightens, the aggregator receives the host's frames, and
     ``scripts/wf_slo.py``, ``wf_profile.py`` and ``wf_fleet.py status``
     exit 0 over the artifacts (under ``build/serving``, removed after);
-44. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+44. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
+    (2^14) and served YSB launches no kernel (every operator's spec probe
+    runs on the meta device); ``validate()`` of each, and of
+    ``graph_windows`` for the threaded driver, launches nothing, allocates
+    nothing, captures no graph and reports clean, with its ms; after YSB's
+    K-step graph is captured, ``WF_KERNEL_IMPL=torch`` gives WF109 on K1 and
+    K2 naming that graph; progcheck of the card's YSB step lists
+    ``histogram`` and ``lookup`` in its kernels and fingerprints as the same
+    chain built on the CPU, with its trace ms; the perfgate proxy rows time
+    the hand kernels (advisory);
+45. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
     paths, each counted from zero just before it), then the result line
@@ -405,6 +415,13 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def collection_paused():
+    """``runtime/graphs.py::collection_paused``: no cyclic GC inside a
+    capture (a CUDA graph freed there would invalidate it)."""
+    from windflow_tpu_torch.runtime.graphs import collection_paused as paused
+    return paused()
+
+
 def graph_ms(torch, fn, iters=20, reps=5):
     """Device time of one ``fn()`` call: ``iters`` calls captured in one CUDA
     graph and replayed ``reps`` times, so no host launch cost is in the window."""
@@ -415,7 +432,7 @@ def graph_ms(torch, fn, iters=20, reps=5):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with collection_paused(), torch.cuda.graph(g):
         for _ in range(iters):
             fn()
     g.replay()
@@ -2342,7 +2359,6 @@ def pipegraph_ysb_phase(torch, np, wt, ysb, registry, pipe_parts, pipe_launches)
             mp.add(op)
         mp.add_sink(wt.Sink(cb))
         g.start()                     # with dispatch: the K-step graph made ready
-        mp._compile(BATCH)            # the chain's build probes launch outside the count
         torch.cuda.synchronize()
         registry.reset_launches()
         t0 = time.perf_counter()
@@ -2606,7 +2622,6 @@ def graph_windows_phase(torch, np, wt, registry):
         return out
     op.flush = flush
     g.start()
-    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
     torch.cuda.synchronize()
     registry.reset_launches()
     t0 = time.perf_counter()
@@ -3652,7 +3667,6 @@ def supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s):
     plan = F.FaultPlan([F.FaultSpec("chain.step", where={"pos": 9}, max_fires=1),
                         F.FaultSpec("sink.consume", at=[3])], seed=17)
     g.start()
-    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
     F.reset_counters()
     torch.cuda.synchronize()
     registry.reset_launches()
@@ -3950,7 +3964,7 @@ def cold_probe_phase(torch, np, card, chain):
         cold_probe_cuda(small, gkeys, gwant)
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with collection_paused(), torch.cuda.graph(g):
         gout = cold_probe_cuda(small, gkeys, gwant)
     fill((1 << 18) - 200, 200)
     g.replay()
@@ -4463,7 +4477,6 @@ def sharded_graph_phase(torch, np, wt, registry, card, gw_parts):
         return o
     g._ordering_of = counted_ordering_of
     g.start()
-    m._compile(GW_BATCH)       # Win_Seq's build probe launches K6 outside the count
     torch.cuda.synchronize()
     registry.reset_launches()
     t0 = time.perf_counter()
@@ -4618,7 +4631,7 @@ def cold_fetch_phase(torch, np, card):
         cold_fetch_cuda(small, gkeys, gwant, M)
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with collection_paused(), torch.cuda.graph(g):
         gout = cold_fetch_cuda(small, gkeys, gwant, M)
     bufs = [b.host for b in small._bufs]
     n = (1 << 18) - len(small)
@@ -5541,12 +5554,14 @@ def served_ysb(torch, np, wt, ysb, registry, card, recs, ty_ref, record_ms):
     tenants alternating frames, a wire swap to a registered YSB chain after
     frame ``SERVE_SWAP_AT`` (warmed, state carried): rows byte for byte
     threaded_ysb's and the dense oracle, K1 and K2 once a frame plus the
-    incoming chain's build and warm step, measured apart."""
+    incoming chain's warm step, measured apart (building it launches
+    nothing: its spec probes are abstract)."""
     from windflow_tpu_torch.observability import MonitoringConfig, journal
     from windflow_tpu_torch.serving import RecordClient, ServingRuntime
     geom = ysb.bench_geometry(BATCH)
     dt_rec = np.dtype(YSB_RECORD)
-    # what building and warming one more YSB chain launches (the swap does both)
+    # what building and warming one more YSB chain launches (the swap does
+    # both): the build nothing, the warm step K1 and K2 once
     registry.reset_launches()
     extra = wt.CompiledChain(ysb.make_ops(**geom), wt.RecordSource(
         lambda: iter(()), dt_rec, key_field="campaign", ts_field="ts").payload_spec(),
@@ -5557,6 +5572,8 @@ def served_ysb(torch, np, wt, ysb, registry, card, recs, ty_ref, record_ms):
     torch.cuda.synchronize()
     warmed = registry.launch_counts()
     del extra
+    if any(built.values()):
+        raise AssertionError(f"serving: building a YSB chain launched {built}")
     if {k: v for k, v in warmed.items() if v} != {"histogram": 1, "lookup": 1}:
         raise AssertionError(f"serving: a YSB chain's warm step launched {warmed}")
     out = os.path.join(SERVE_DIR, "served")
@@ -5610,7 +5627,7 @@ def served_ysb(torch, np, wt, ysb, registry, card, recs, ty_ref, record_ms):
     recs_j = journal.read_journal(os.path.join(out, "events.jsonl"))
     swap = [r for r in recs_j if r["event"] == "graph_swap" and r.get("applied")]
     sec = rt.serving_section()
-    expect = {k: THREADED_BATCHES * (k in ("histogram", "lookup")) + built[k] + warmed[k]
+    expect = {k: THREADED_BATCHES * (k in ("histogram", "lookup")) + warmed[k]
               for k in registry.KERNELS}
     same = flat_bytes(np, parts) == ty_ref
     oracle = as_dict(np, parts) == ysb.dense_oracle(total)
@@ -5808,6 +5825,128 @@ def control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows, q3_views
     return {name: sum(d[name] for d in launches.values()) for name in registry.KERNELS}
 
 
+# --------------------------------------------------------------------- analysis
+
+ANALYSIS_DIR = os.path.join(ROOT, "build", "analysis")
+
+
+def analysis_phase(torch, np, wt, ysb, registry, card):
+    """Phase 44 (see the module docstring): the static-analysis layer on the
+    card. Building YSB, q3 and served YSB launches nothing; ``validate()`` of
+    each (and of ``graph_windows`` for the threaded driver) launches no
+    kernel, allocates no memory and captures no graph, and its report is
+    clean; after YSB's K-step graph is captured, ``WF_KERNEL_IMPL=torch``
+    gives a WF109 that names it; progcheck of the card's YSB lists K1 and
+    K2 and fingerprints as the CPU build does; the perfgate proxy rows time
+    the hand kernels (advisory)."""
+    import gc
+    import shutil
+    from windflow_tpu_torch.analysis import perfgate, progcheck, validate
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.observability import MonitoringConfig
+    from windflow_tpu_torch.serving import ServingRuntime
+    t_phase = time.perf_counter()
+    gc.collect()                  # graphs of earlier phases, and their selections
+    registry.reset_records()
+    geom = ysb.bench_geometry(BATCH)
+    k = DISPATCH_K["ysb"]
+
+    def sink():
+        return wt.Sink(lambda view: None)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    ysb_p = wt.Pipeline(ysb.make_source(YSB_BATCHES * BATCH), ysb.make_ops(**geom), sink(),
+                        batch_size=BATCH)
+    q3_src, q3_ops = make_query("q3_enrich_join", NEX_BATCHES * NEX_BATCH)
+    q3_p = wt.Pipeline(q3_src, q3_ops, sink(), batch_size=NEX_BATCH)
+    served = ServingRuntime(serve_source(np), ysb.make_ops(**geom), sink(), batch_size=BATCH,
+                            serving={"tenants": [{"id": "a"}], "replay": SERVE_REPLAY},
+                            monitoring=MonitoringConfig(out_dir=ANALYSIS_DIR))
+    g, _mp, _m = graph_windows(torch, wt, GW_TOTAL, WIN_KEYS, WIN_LEN, WIN_SLIDE, GW_BATCH,
+                               lambda view: None)
+    torch.cuda.synchronize()
+    built = {name: n for name, n in registry.launch_counts().items() if n}
+    log({"phase": "analysis_build", "card": card, "launches": built})
+    if built:
+        raise AssertionError(f"analysis: building YSB, q3 and served YSB launched {built}")
+
+    def untouched(name, fn):
+        """``fn()``'s result and ms, failing unless it left the card as it
+        was: the same launches, allocated bytes and captured graphs (garbage
+        collected first, so no earlier tensor is freed inside)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        before = (registry.launch_counts(), torch.cuda.memory_allocated(),
+                  registry.REGISTRY.watched_graphs())
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        after = (registry.launch_counts(), torch.cuda.memory_allocated(),
+                 registry.REGISTRY.watched_graphs())
+        if after != before:
+            raise AssertionError(f"analysis: {name} touched the card: {before} -> {after}")
+        return out, ms
+
+    for name, obj, kw in (("ysb", ysb_p, {}), ("q3", q3_p, {}),
+                          ("graph_windows", g, {"threaded": True}),
+                          ("served_ysb", served, {})):
+        rep, ms = untouched(f"validate({name})", lambda: validate(obj, **kw))  # noqa: B023
+        log({"phase": "analysis_validate", "card": card, "target": name, "ms": ms,
+             "codes": sorted(set(rep.codes())), "report": str(rep)})
+        if rep.diagnostics:
+            raise AssertionError(f"analysis: validate({name}) is not clean:\n{rep}")
+
+    # WF109: the K-step graph keeps the kernels it captured
+    ysb_p.chain.warm_scan(k, BATCH)
+    graph = ysb_p.chain.graphs[(0, k, BATCH)].name
+    os.environ["WF_KERNEL_IMPL"] = "torch"
+    try:
+        rep, ms = untouched("validate(ysb, WF_KERNEL_IMPL=torch)",
+                            lambda: validate(ysb_p, progcheck=False))
+    finally:
+        del os.environ["WF_KERNEL_IMPL"]
+    wf109 = [d for d in rep.diagnostics if d.code == "WF109"]
+    log({"phase": "analysis_wf109", "card": card, "graph": graph, "ms": ms,
+         "where": sorted(d.where for d in wf109), "report": str(rep)})
+    if not ({"kernel[histogram]", "kernel[lookup]"} <= {d.where for d in wf109}
+            and all(graph in d.message for d in wf109)):
+        raise AssertionError(f"analysis: WF109 does not name {graph}:\n{rep}")
+
+    # progcheck: the card's YSB step lists its hand kernels and has the CPU's shape
+    progs, trace_ms = untouched("progcheck(ysb)",
+                                lambda: progcheck.chain_programs(ysb_p.chain, k=k))
+    cpu_src = ysb.make_source(YSB_BATCHES * BATCH, device="cpu")
+    cpu_chain = wt.CompiledChain(ysb.make_ops(device="cpu", **geom), cpu_src.payload_spec(),
+                                 batch_capacity=BATCH, device="cpu")
+    fp_card = progcheck.program_fingerprint(progs[0])
+    fp_cpu = progcheck.step_fingerprint(cpu_chain, BATCH)
+    findings = progcheck.analyze_programs(progs)
+    log({"phase": "analysis_progcheck", "card": card, "trace_ms": trace_ms,
+         "programs": [p.path for p in progs], "kernels": [list(p.kernels) for p in progs],
+         "fingerprint_card": fp_card, "fingerprint_cpu": fp_cpu,
+         "findings": [f.render() for f in findings]})
+    if not {"histogram", "lookup"} <= set(progs[0].kernels) or fp_card != fp_cpu \
+            or findings:
+        raise AssertionError("analysis: the card's YSB progcheck disagrees")
+
+    # perfgate's proxy rows on the card time the hand kernels (advisory)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    rows = perfgate.proxy_microbench(reps=5, device="cuda")
+    torch.cuda.synchronize()
+    proxy_launches = {name: n for name, n in registry.launch_counts().items() if n}
+    log({"phase": "analysis_perfgate_proxy", "card": card, "seconds": time.perf_counter() - t0,
+         "rows": rows, "launches": proxy_launches, "advisory": True})
+    missing = [name for name in ("histogram", "lookup", "segment_fold", "ordering_merge",
+                                 "join_probe") if not proxy_launches.get(name)]
+    if missing:
+        raise AssertionError(f"analysis: the proxy rows launched no {missing}")
+    del ysb_p, q3_p, served, g, progs
+    shutil.rmtree(ANALYSIS_DIR, ignore_errors=True)
+    log({"phase": "analysis", "card": card, "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5917,6 +6056,7 @@ def main() -> int:
     mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
                                     main_launches, gw_rows)
     srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
+    analysis_phase(torch, np, wt, ysb, registry, card)
 
     # each path's launches, counted from zero just before it and read just
     # after, summed over the paths

@@ -63,7 +63,10 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.observability.profiling", "windflow_tpu_torch.serving",
            "windflow_tpu_torch.serving.framing", "windflow_tpu_torch.serving.tenants",
            "windflow_tpu_torch.serving.config", "windflow_tpu_torch.serving.sources",
-           "windflow_tpu_torch.serving.runtime"]
+           "windflow_tpu_torch.serving.runtime", "windflow_tpu_torch.analysis",
+           "windflow_tpu_torch.analysis.validate", "windflow_tpu_torch.analysis.lint",
+           "windflow_tpu_torch.analysis.concurrency", "windflow_tpu_torch.analysis.progcheck",
+           "windflow_tpu_torch.analysis.perfgate"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -277,7 +280,6 @@ def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
 #: yet, each with the ROADMAP Queue 1 item that will port it
 UNPORTED_EXPORTS = {
     "ShardedChain": 14, "shard_batch": 14, "make_mesh": 14, "make_mesh_2d": 14,
-    "analysis": 18, "validate_graph": 18,
 }
 
 
@@ -310,3 +312,54 @@ def test_top_level_exports_match_the_jax_package():
               "FaultInjector", "InjectedFault", "WatchdogTimeout", "DeadLetterQueue",
               "SupervisedPipeline", "RestartExhausted", "EventJournal", "read_journal"):
         assert n in names and hasattr(wt, n), n
+
+
+def test_f17_building_a_chain_runs_every_function_on_the_meta_device():
+    """F17: the operators' spec probes (``out_spec``, the source's
+    ``payload_spec``) run the user functions abstractly, on the meta device,
+    as the JAX package's ``jax.eval_shape`` does: building a chain runs no
+    function on a real device (on the card it launches no kernel) and
+    records no kernel resolution. Pushing a batch then runs them on the
+    chain's device."""
+    seen = []
+
+    def rec(x):
+        seen.append(x.device.type)
+        return x
+
+    cpu = {"device": "cpu"}
+    src = wt.Source(lambda i: {"v": rec((i % 7).float())}, total=64, num_keys=2, **cpu)
+    ops = [wt.Map(lambda t: {"v": rec(t.v) * 2.0}, **cpu),
+           wt.Filter(lambda t: rec(t.v) > 1.0, **cpu),
+           wt.Accumulator(lambda t: rec(t.v), init_value=0.0, num_keys=2, **cpu),
+           wt.Win_Seq(lambda wid, it: rec(it.sum()), wt.WindowSpec(4, 4), num_keys=2,
+                      **cpu)]
+    registry.reset_records()
+    chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=16, **cpu)
+    assert seen and set(seen) == {"meta"}, seen
+    assert registry.trace_records() == {}
+    seen.clear()
+    chain.push(next(iter(src.batches(16))))
+    assert set(seen) == {"cpu"}, seen
+
+
+def test_f17_an_op_without_a_meta_kernel_probes_on_the_cpu():
+    """An op with no meta kernel (here a library op with a CPU kernel only)
+    makes the probe run again on the CPU with the plain versions, never on
+    the card; a function that reads a value fails the probe, as under
+    ``jax.eval_shape``."""
+    from windflow_tpu_torch.batch import abstract_spec
+    lib = torch.library.Library("wf_f17_probe", "DEF")
+    lib.define("twice(Tensor x) -> Tensor")
+    lib.impl("twice", lambda x: x * 2, "CPU")
+    seen = []
+
+    def fn(p):
+        seen.append(p["v"].device.type)
+        return {"v": torch.ops.wf_f17_probe.twice(p["v"])}
+    op = wt.BatchMap(fn, device="cpu")
+    spec = op.out_spec({"v": torch.empty((3,), dtype=torch.float32, device="meta")})
+    assert seen == ["meta", "cpu"]
+    assert spec["v"].device.type == "meta" and tuple(spec["v"].shape) == (3,)
+    with pytest.raises(RuntimeError, match="meta"):
+        abstract_spec(lambda dev: torch.zeros((1,), device=dev).sum().item())

@@ -14,8 +14,11 @@ the metrics registry and reporter, event-time lateness histograms, batch
 tracing, the device-health ledger, the SLO engine with profile-on-page and
 fleet telemetry; ``control=`` (``control/``) the capacity and dispatch-K
 autotuners, admission control, the backpressure governor and remediation;
-``serving/`` runs a chain as a multi-tenant service over a socket. Every TPU kernel on a ported path is a hand-written CUDA kernel for
-``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at first use and paired with a
+``serving/`` runs a chain as a multi-tenant service over a socket;
+``analysis/`` validates a built graph before it runs (:func:`validate_graph`)
+and lints, audits and cost-gates the package without a device. Every TPU
+kernel on a ported path is a hand-written CUDA kernel for ``sm_90a``
+(``ops/csrc/``), built with ``nvcc`` at first use and paired with a
 plain PyTorch version that the CPU path and the tests use. Entry points run on
 ``"cuda"`` unless the caller passes ``device=``.
 
@@ -55,5 +58,7 @@ from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Buil
 from .shipper import Shipper
 from .stats import LogHistogram, Stats_Record, xprof_trace
 from . import nexmark, parallel
+from . import analysis
+from .analysis import validate as validate_graph
 
 __version__ = "0.1.0"

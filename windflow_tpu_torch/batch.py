@@ -433,8 +433,69 @@ def spec_of(tree: Any) -> Any:
                                           device="meta"), tree)
 
 
+class _OnDevice(torch.overrides.TorchFunctionMode):
+    """Every tensor operand of a torch call moved to ``device`` (a closure's
+    table on the card becomes a meta tensor of its shape, no data read; a
+    meta spec becomes zeros on the CPU), every ``device`` argument replaced
+    by it, ``.cpu()``/``.cuda()`` kept there."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+
+    def _move(self, x):
+        if isinstance(x, torch.Tensor):
+            if x.device == self.device:
+                return x
+            if x.device.type == "meta":          # no values: zeros stand in
+                return torch.zeros(x.shape, dtype=x.dtype, device=self.device)
+            return x.to(self.device)
+        if isinstance(x, torch.device):
+            return self.device
+        if type(x) in (list, tuple):
+            return type(x)(self._move(v) for v in x)
+        return x
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = {k: self._move(v) for k, v in (kwargs or {}).items()}
+        if kwargs.get("device") is not None:
+            kwargs["device"] = self.device
+        if func in (torch.Tensor.cpu, torch.Tensor.cuda):
+            return self._move(args[0])
+        if func is torch.Tensor.to:
+            args = tuple(self.device if isinstance(a, str) else a for a in args)
+        return func(*(self._move(a) for a in args), **kwargs)
+
+
+def abstract_spec(build: Callable[[torch.device], Any]) -> Any:
+    """``spec_of(build(dev))`` without device work, the counterpart of the
+    JAX package's ``jax.eval_shape``: ``build`` makes its probe rows on
+    ``dev`` and runs the user function over them. ``dev`` is the meta
+    device; every tensor the function reaches is moved there and every
+    kernel resolves to its plain version, unrecorded
+    (``ops/registry.py::plain_selection``). Where an op has no meta kernel
+    the probe runs again on the CPU. A function that reads a value
+    (``.item()``, ``bool(t)``) fails here, as under ``jax.eval_shape``."""
+    from .ops.registry import plain_selection
+    for dev in (torch.device("meta"), torch.device("cpu")):
+        try:
+            with plain_selection(), dev, _OnDevice(dev):
+                out = build(dev)
+        except (NotImplementedError, RuntimeError) as e:
+            if dev.type == "cpu" or not _no_meta_kernel(e):
+                raise
+            continue
+        return spec_of(out)
+
+
+def _no_meta_kernel(e: BaseException) -> bool:
+    """An op without a meta kernel: an aten op with none registered for the
+    Meta backend, or a custom op without a fake implementation."""
+    return isinstance(e, NotImplementedError) or "no fake impl" in str(e)
+
+
 __all__ = ["CTRL_DTYPE", "TRACE_META_ATTR", "Batch", "TupleRef", "MutableTupleRef",
            "tuple_refs", "map_tuples", "vmap_lanes", "host_view", "spec_of",
            "stack_batches", "unstack_batches", "concat_batches", "split_batch",
            "hash_key_to_slot", "trace_meta", "tree_map", "tree_leaves", "is_node", "dtype_name",
-           "flatten_with_paths", "jax_leaves", "jax_unflatten"]
+           "flatten_with_paths", "jax_leaves", "jax_unflatten", "abstract_spec"]

@@ -285,6 +285,20 @@ KERNELS = (
     "join_probe",       # ops/lookup.py join_probe (stream-table join)
 )
 
+#: non-kernel proxy-microbench families the hermetic perf gate must ALSO
+#: cover (``analysis/perfgate.py::compare``: a family without a proxy row is
+#: a coverage finding, the KERNELS convention). "dispatch" times the scan
+#: dispatcher's fused ``push_many`` and carries its launch counts; "join"
+#: the full versioned JoinTable step (upsert + probe); "spill" the tiered
+#: state's eviction/pack path; "shard" the sharded supervisor's
+#: key-ownership splitter.
+PERF_PROXY_FAMILIES = (
+    "dispatch",
+    "join",
+    "spill",
+    "shard",
+)
+
 #: implementation names a kernel family registers under in the port (the
 #: JAX package's are "xla", "pallas" and "pallas_mm")
 KERNEL_IMPLS = (

@@ -20,7 +20,7 @@ from typing import Any, Callable
 import torch
 
 from ..basic import routing_modes_t, DEFAULT_MAX_KEYS
-from ..batch import Batch, map_tuples, spec_of, tree_map
+from ..batch import Batch, abstract_spec, map_tuples, tree_map
 from ..ops.segment import as_identity, identity_full, segment_prefix_scan, segment_reduce
 from .base import Basic_Operator
 
@@ -45,7 +45,8 @@ class Accumulator(Basic_Operator):
         self.num_keys = int(num_keys)
 
     def out_spec(self, payload_spec: Any) -> Any:
-        return spec_of(map_tuples(self.value_fn, Batch.empty(1, payload_spec, self.device)))
+        return abstract_spec(lambda dev: map_tuples(self.value_fn,
+                                                    Batch.empty(1, payload_spec, dev)))
 
     def init_state(self, payload_spec: Any):
         return tree_map(lambda s: identity_full(self.init_value, s.dtype, self.device,

@@ -16,7 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t
-from ..batch import Batch, map_tuples, spec_of
+from ..batch import Batch, abstract_spec, map_tuples
 from ..context import RuntimeContext
 from ..meta import SignatureError, classify_filter
 from .base import Basic_Operator
@@ -43,8 +43,9 @@ class Filter(Basic_Operator):
         return r
 
     def out_spec(self, payload_spec: Any) -> Any:
-        out = map_tuples(self._call, Batch.empty(1, payload_spec, self.device))
-        return spec_of(out[0]) if isinstance(out, tuple) else payload_spec
+        out = abstract_spec(lambda dev: map_tuples(self._call,
+                                                   Batch.empty(1, payload_spec, dev)))
+        return out[0] if isinstance(out, tuple) else payload_spec
 
     def apply(self, state, batch: Batch):
         out = map_tuples(self._call, batch)

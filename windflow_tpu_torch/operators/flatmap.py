@@ -21,7 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t
-from ..batch import Batch, CTRL_DTYPE, TupleRef, spec_of, tree_map, vmap_lanes
+from ..batch import Batch, CTRL_DTYPE, TupleRef, abstract_spec, tree_map, vmap_lanes
 from ..context import RuntimeContext
 from ..meta import classify_flatmap
 from ..shipper import Shipper
@@ -43,16 +43,17 @@ class FlatMap(Basic_Operator):
     def out_capacity(self, in_capacity: int) -> int:
         return in_capacity * self.max_fanout
 
-    def _on_device(self, x, dtype) -> torch.Tensor:
-        """A pushed control value or ``when`` on the operator's device. A
-        host constant (a Python value, or the 0-d CPU tensor ``Shipper``
-        makes of one) becomes a ``torch.full``: a copy from the host would
-        be refused by a CUDA-graph capture."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
+    @staticmethod
+    def _on_device(x, dtype, device) -> torch.Tensor:
+        """A pushed control value or ``when`` on the lanes' device. A host
+        constant (a Python value, or the 0-d CPU tensor ``Shipper`` makes of
+        one) becomes a ``torch.full``: a copy from the host would be refused
+        by a CUDA-graph capture."""
+        if isinstance(x, torch.Tensor) and x.device == device:
             return x.to(dtype)
         if isinstance(x, torch.Tensor):
             x = x.item()
-        return torch.full((), x, dtype=dtype, device=self.device)
+        return torch.full((), x, dtype=dtype, device=device)
 
     def _per_tuple(self, key, id_, ts, data):
         """One tuple's pushes stacked: (payload ``[F, ...]``, when, key and ts
@@ -69,9 +70,12 @@ class FlatMap(Basic_Operator):
             raise ValueError("FlatMap function pushed nothing (need >=1 push; use "
                              "when=False for a conditional no-emit)")
         pad = self.max_fanout - n
-        whn = [self._on_device(w, torch.bool) for w in whens + [False] * pad]
-        ks = [self._on_device(key if k is None else k, CTRL_DTYPE) for k in keys + [None] * pad]
-        xs = [self._on_device(ts if x is None else x, CTRL_DTYPE) for x in tss + [None] * pad]
+        dev = key.device
+        whn = [self._on_device(w, torch.bool, dev) for w in whens + [False] * pad]
+        ks = [self._on_device(key if k is None else k, CTRL_DTYPE, dev)
+              for k in keys + [None] * pad]
+        xs = [self._on_device(ts if x is None else x, CTRL_DTYPE, dev)
+              for x in tss + [None] * pad]
         return (tree_map(lambda *ls: torch.stack(ls), *(payloads + [payloads[0]] * pad)),
                 torch.stack(whn), torch.stack(ks), torch.stack(xs))
 
@@ -79,8 +83,8 @@ class FlatMap(Basic_Operator):
         return vmap_lanes(self._per_tuple, batch.key, batch.id, batch.ts, batch.payload)
 
     def out_spec(self, payload_spec: Any) -> Any:
-        pay = self._pushes(Batch.empty(1, payload_spec, self.device))[0]
-        return spec_of(tree_map(lambda a: a[:, 0], pay))    # drop the fan-out axis
+        return abstract_spec(lambda dev: tree_map(                # drop the fan-out axis
+            lambda a: a[:, 0], self._pushes(Batch.empty(1, payload_spec, dev))[0]))
 
     def apply(self, state, batch: Batch):
         C, F = batch.capacity, self.max_fanout

@@ -58,7 +58,7 @@ import torch
 
 from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
-from ..batch import (Batch, TupleRef, jax_unflatten, map_tuples, spec_of, tree_map,
+from ..batch import (Batch, TupleRef, abstract_spec, jax_unflatten, map_tuples, tree_map,
                      vmap_lanes)
 from ..ops.lookup import (JOIN_KEY_SENTINEL, _plus_zero, _set_drop, count_drops,
                           join_table_init, join_table_probe, join_table_tier_evict,
@@ -142,7 +142,8 @@ class StreamTableJoin(Basic_Operator):
             batch.key, batch.id, batch.ts, batch.payload, vals)
 
     def _val_spec(self, payload_spec):
-        return spec_of(map_tuples(self.val_fn, Batch.empty(1, payload_spec, self.device)))
+        return abstract_spec(lambda dev: map_tuples(self.val_fn,
+                                                    Batch.empty(1, payload_spec, dev)))
 
     def init_state(self, payload_spec: Any):
         pending = self._pending_resolved or 2 * DEFAULT_MAX_KEYS
@@ -172,10 +173,10 @@ class StreamTableJoin(Basic_Operator):
         return (self._tier.controller,) if self._tier is not None else ()
 
     def out_spec(self, payload_spec: Any) -> Any:
-        b = Batch.empty(1, payload_spec, self.device)
-        vals = tree_map(lambda s: torch.zeros((1,), dtype=s.dtype, device=self.device),
-                        self._val_spec(payload_spec))
-        return spec_of(self._emit_lanes(b, vals))
+        vspec = self._val_spec(payload_spec)
+        return abstract_spec(lambda dev: self._emit_lanes(
+            Batch.empty(1, payload_spec, dev),
+            tree_map(lambda s: torch.zeros((1,), dtype=s.dtype, device=dev), vspec)))
 
     def apply(self, state, batch: Batch):
         build = map_tuples(self.side_fn, batch).to(torch.bool) & batch.valid
@@ -359,9 +360,11 @@ class IntervalJoin(Basic_Operator):
             lk, li, lt, ld, rk, ri, rt, rd)
 
     def out_spec(self, payload_spec: Any) -> Any:
-        b = Batch.empty(1, payload_spec, self.device)
-        return spec_of(self._emit_lanes(b.key, b.id, b.ts, b.payload,
-                                        b.key, b.id, b.ts, b.payload))
+        def build(dev):
+            b = Batch.empty(1, payload_spec, dev)
+            return self._emit_lanes(b.key, b.id, b.ts, b.payload,
+                                    b.key, b.id, b.ts, b.payload)
+        return abstract_spec(build)
 
     def init_state(self, payload_spec: Any):
         A = self._archive_resolved or 2 * DEFAULT_MAX_KEYS

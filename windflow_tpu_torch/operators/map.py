@@ -21,11 +21,12 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t, DEFAULT_MAX_KEYS
-from ..batch import (Batch, MutableTupleRef, TupleRef, map_tuples, spec_of,
+from ..batch import (Batch, MutableTupleRef, TupleRef, abstract_spec, map_tuples,
                      tree_map, vmap_lanes)
 from ..context import RuntimeContext
 from ..meta import SignatureError, classify_map
 from ..ops.lookup import table_lookup
+from ..ops.registry import traced
 from ..ops.segment import segment_rank
 from .base import Basic_Operator
 
@@ -52,7 +53,8 @@ class Map(Basic_Operator):
         return r
 
     def out_spec(self, payload_spec: Any) -> Any:
-        return spec_of(map_tuples(self._call, Batch.empty(1, payload_spec, self.device)))
+        return abstract_spec(lambda dev: map_tuples(self._call,
+                                                    Batch.empty(1, payload_spec, dev)))
 
     def apply(self, state, batch: Batch):
         return state, batch.with_payload(map_tuples(self._call, batch))
@@ -87,7 +89,7 @@ class BatchMap(Basic_Operator):
         self.fn = fn
 
     def out_spec(self, payload_spec: Any) -> Any:
-        return spec_of(self.fn(Batch.empty(1, payload_spec, self.device).payload))
+        return abstract_spec(lambda dev: self.fn(Batch.empty(1, payload_spec, dev).payload))
 
     def apply(self, state, batch: Batch):
         return state, batch.with_payload(self.fn(batch.payload))
@@ -146,8 +148,9 @@ class KeyedMap(Basic_Operator):
         return {"tbl": tbl, "bad": torch.zeros((), dtype=torch.bool, device=self.device)}
 
     def out_spec(self, payload_spec: Any) -> Any:
-        one = tree_map(lambda v: v[None], self._initial())
-        return spec_of(self._round(Batch.empty(1, payload_spec, self.device), one)[0])
+        return abstract_spec(lambda dev: self._round(
+            Batch.empty(1, payload_spec, dev),
+            tree_map(lambda v: v[None], self._initial()))[0])
 
     def _round(self, batch: Batch, tbl):
         """``f`` over every lane with its key's current state: (payloads, new states)."""
@@ -174,7 +177,8 @@ class KeyedMap(Basic_Operator):
         max_rank = torch.where(batch.valid, rank, 0).max()
         if self.max_key_multiplicity == 1:
             bad = bad | (max_rank > 0)
-            if max_rank.device.type == "cpu" and int(max_rank) > 0:
+            # the CPU's early report (a trace models the card's step: no read)
+            if max_rank.device.type == "cpu" and not traced(max_rank) and int(max_rank) > 0:
                 raise ValueError(self._violation(
                     f"a batch holds {int(max_rank) + 1} tuples of one key"))
             rounds = 1

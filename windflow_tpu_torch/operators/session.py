@@ -50,7 +50,7 @@ import torch
 
 from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
-from ..batch import Batch, map_tuples, spec_of, tree_map
+from ..batch import Batch, abstract_spec, map_tuples, tree_map
 from ..observability import event_time as _et
 from ..ops.lookup import _isum, _lexsort, _set_drop, count_drops, table_lookup
 from ..ops.segment import segment_reduce
@@ -111,7 +111,8 @@ class SessionWindow(Basic_Operator):
         return 2 * in_capacity + self._slots
 
     def _val_spec(self, payload_spec):
-        return spec_of(map_tuples(self.value_fn, Batch.empty(1, payload_spec, self.device)))
+        return abstract_spec(lambda dev: map_tuples(self.value_fn,
+                                                    Batch.empty(1, payload_spec, dev)))
 
     def out_spec(self, payload_spec: Any) -> Any:
         i = torch.empty((), dtype=_I32, device="meta")

@@ -21,7 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t
-from ..batch import Batch, map_tuples, spec_of, tree_leaves, tree_map
+from ..batch import Batch, abstract_spec, map_tuples, tree_leaves, tree_map
 from ..context import RuntimeContext
 from ..meta import classify_sink
 from ..ops.segment import as_identity, identity_full, tree_reduce
@@ -107,7 +107,8 @@ class ReduceSink(Basic_Operator):
         self.identity = as_identity(identity, self.device)
 
     def init_state(self, payload_spec: Any):
-        val = spec_of(map_tuples(self.value_fn, Batch.empty(1, payload_spec, self.device)))
+        val = abstract_spec(lambda dev: map_tuples(self.value_fn,
+                                                   Batch.empty(1, payload_spec, dev)))
         return tree_map(lambda s: identity_full(self.identity, s.dtype, self.device, s.shape),
                         val)
 

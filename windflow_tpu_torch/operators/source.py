@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from ..basic import routing_modes_t, DEFAULT_BATCH_SIZE
-from ..batch import (Batch, CTRL_DTYPE, hash_key_to_slot, spec_of, tree_leaves,
-                     tree_map, vmap_lanes)
+from ..batch import (Batch, CTRL_DTYPE, abstract_spec, hash_key_to_slot, spec_of,
+                     tree_leaves, tree_map, vmap_lanes)
 from ..context import RuntimeContext
 from ..meta import classify_source_flavour
 from .base import Basic_Operator
@@ -299,11 +299,12 @@ class DeviceSource(SourceBase):
         return Batch(key=key, id=i, ts=ts, payload=payload, valid=valid)
 
     def payload_spec(self):
-        i = torch.zeros((1,), dtype=CTRL_DTYPE, device=self.device)
-        if self.is_loop:
-            pay = vmap_lanes(self._loop_one, i, i, i)[0]
-            return spec_of(tree_map(lambda a: a[:, 0], pay))   # drop the fan-out axis
-        return spec_of(vmap_lanes(self._payload_fn(), i))
+        def build(dev):
+            i = torch.zeros((1,), dtype=CTRL_DTYPE, device=dev)
+            if self.is_loop:                                   # drop the fan-out axis
+                return tree_map(lambda a: a[:, 0], vmap_lanes(self._loop_one, i, i, i)[0])
+            return vmap_lanes(self._payload_fn(), i)
+        return abstract_spec(build)
 
     def batches(self, batch_size: int = DEFAULT_BATCH_SIZE, cursor=None):
         """The stream as device batches. The cursor is a device scalar advanced

@@ -42,7 +42,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..basic import routing_modes_t, role_t, DEFAULT_MAX_KEYS
-from ..batch import Batch, CTRL_DTYPE, TupleRef, spec_of, tree_map
+from ..batch import Batch, CTRL_DTYPE, TupleRef, abstract_spec, tree_map
 from ..context import RuntimeContext
 from ..meta import (RICH_PARAM_NAMES, classify_window, classify_window_flavour,
                     classify_winupdate)
@@ -149,21 +149,20 @@ class Win_Seq(Basic_Operator):
             count=ctrl((K,), 0), wm=ctrl((K,), -1), next_win=ctrl((K,), 0))
 
     def out_spec(self, payload_spec: Any) -> Any:
-        """The result spec, from the window function run on one probe row
-        (JAX reads it with ``jax.eval_shape``). On the card the probe's
-        ``Iterable.sum`` launches K6 once, so a caller that counts launches
-        resets the counts after building a chain."""
-        dev = self.device
-        wid = torch.zeros((1,), dtype=CTRL_DTYPE, device=dev)
-        if self.incremental:
-            n = 1                      # one fold step gives the carry's spec
-        else:
-            n = self.row_len
-        row = lambda s: torch.zeros((1, n) + tuple(s.shape), dtype=s.dtype, device=dev)  # noqa: E731
-        data = tree_map(row, payload_spec)
-        ctrl = torch.zeros((1, n), dtype=CTRL_DTYPE, device=dev)
-        mask = torch.zeros((1, n), dtype=torch.bool, device=dev)
-        return spec_of(self._window_results(wid, data, ctrl, ctrl, mask))
+        """The result spec, from the window function run abstractly on one
+        probe row (``batch.abstract_spec``; JAX reads it with
+        ``jax.eval_shape``): ``Iterable.sum`` takes K6's plain version on
+        meta tensors, so building a chain launches nothing."""
+        n = 1 if self.incremental else self.row_len   # one fold step: the carry's spec
+
+        def build(dev):
+            row = lambda s: torch.zeros((1, n) + tuple(s.shape), dtype=s.dtype,  # noqa: E731
+                                        device=dev)
+            ctrl = torch.zeros((1, n), dtype=CTRL_DTYPE, device=dev)
+            return self._window_results(torch.zeros((1,), dtype=CTRL_DTYPE, device=dev),
+                                        tree_map(row, payload_spec), ctrl, ctrl,
+                                        torch.zeros((1, n), dtype=torch.bool, device=dev))
+        return abstract_spec(build)
 
     # ------------------------------------------------------------------ insert
 

@@ -43,7 +43,7 @@ from typing import Any, Callable
 import torch
 
 from ..basic import routing_modes_t, DEFAULT_MAX_KEYS
-from ..batch import (Batch, CTRL_DTYPE, TupleRef, map_tuples, spec_of, tree_leaves,
+from ..batch import (Batch, CTRL_DTYPE, TupleRef, abstract_spec, map_tuples, tree_leaves,
                      tree_map)
 from ..observability import event_time as _et
 from ..ops.histogram import keyed_pane_histogram
@@ -130,7 +130,8 @@ class Win_SeqFFAT(Basic_Operator):
     # ------------------------------------------------------------------ state
 
     def _lift_spec(self, payload_spec):
-        return spec_of(map_tuples(self.lift, Batch.empty(1, payload_spec, self.device)))
+        return abstract_spec(lambda dev: map_tuples(self.lift,
+                                                    Batch.empty(1, payload_spec, dev)))
 
     def _ident(self, dtype, shape=None) -> torch.Tensor:
         return identity_full(self.identity, dtype, self.device, shape)

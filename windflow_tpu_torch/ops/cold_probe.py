@@ -28,6 +28,10 @@ past a chain's end. On the card it is the second entry point of
 which walks the store's next-row links in mapped memory; its plain version is
 ``HostStore.fetch_multi``. The fetch is read-only in both packages: it counts
 no readmission.
+
+Inside a static-analysis trace (``analysis/progcheck.py``: fake tensors under
+the registry's plain selection) both reads give their kernel's outputs
+unread, zeros of their shapes, so the traced step is the card's program.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from . import cuda
-from .registry import count_launch
+from .registry import count_launch, on_card, traced
 
 #: value columns the kernel takes (its ``WF_COLD_MAXC``)
 MAX_COLS = 16
@@ -92,11 +96,23 @@ class MappedBuffer:
 def cold_probe(store, keys: torch.Tensor, want: torch.Tensor):
     """The cold tier's row for each wanted lane (see the module docstring):
     the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if keys.device.type == "cuda":
+    if on_card("cold_probe", keys):
         return cold_probe_cuda(store, keys, want)
-    if keys.device.type == "cpu":
+    if traced(keys):
+        return _unread(keys, (), store, [torch.bool] + [torch.int32] * 3)
+    if keys.device.type in ("cpu", "cuda"):
         return cold_probe_plain(store, keys, want)
     raise ValueError(f"cold_probe: unsupported device {keys.device}")
+
+
+def _unread(keys: torch.Tensor, inner: tuple, store, heads: list):
+    """A read's outputs unread (zeros ``[R, *inner, ...]``): the heads of
+    ``heads`` dtypes, then one tensor per value column."""
+    R, dev = keys.shape[0], keys.device
+    return (*[torch.zeros((R,) + inner, dtype=dt, device=dev) for dt in heads],
+            *[torch.zeros((R,) + inner + tuple(store.col_shape(k)),
+                          dtype=store.torch_dtype(k), device=dev)
+              for k in store.col_names])
 
 
 def cold_probe_plain(store, keys: torch.Tensor, want: torch.Tensor):
@@ -160,9 +176,11 @@ def cold_fetch(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
     """Up to ``rows`` rows of each wanted lane's key (see the module
     docstring): the kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
-    if keys.device.type == "cuda":
+    if on_card("cold_fetch", keys):
         return cold_fetch_cuda(store, keys, want, rows)
-    if keys.device.type == "cpu":
+    if traced(keys):
+        return _unread(keys, (int(rows),), store, [torch.bool])
+    if keys.device.type in ("cpu", "cuda"):
         return cold_fetch_plain(store, keys, want, rows)
     raise ValueError(f"cold_fetch: unsupported device {keys.device}")
 

@@ -50,6 +50,14 @@ resolutions made while it captured (:func:`capturing`), so
 :func:`stale_selections` reports each recorded impl the current selection no
 longer picks, naming the captured graphs that still replay it. A replay
 adds the launches of the kernels it captured, whatever the selection is now.
+
+**Abstract evaluation.** Inside :func:`plain_selection` every resolution on
+the calling thread gives the plain version and records nothing, and every
+device-dispatched helper (:func:`on_card`) takes its plain version too. The
+operators' spec probes run there on meta tensors, and the static analysis
+(``analysis/progcheck.py``) traces steps there over fake tensors: neither
+launches a kernel. The block yields the set of hand kernels the unforced
+selection would have launched for the same operands.
 """
 
 from __future__ import annotations
@@ -204,6 +212,46 @@ class KernelImpl:
 
 
 _capture_local = threading.local()      # .selections: a capture's resolutions
+_plain_local = threading.local()        # .kernels: the would-launch set, or None
+
+
+@contextlib.contextmanager
+def plain_selection() -> Iterator[set]:
+    """Inside the block this thread's resolutions give each kernel's plain
+    version and record nothing (no trace record, no capture selection, no
+    health note). Yields the set of kernels the selection would otherwise
+    have launched (the hand kernel for an operand on the card)."""
+    prev = getattr(_plain_local, "kernels", None)
+    _plain_local.kernels = seen = set()
+    try:
+        yield seen
+    finally:
+        _plain_local.kernels = prev
+
+
+def traced(t) -> bool:
+    """Whether ``t`` is a fake tensor of a trace inside :func:`plain_selection`
+    (``analysis/progcheck.py``): a helper whose plain version reads values
+    on the host then gives its kernel's outputs unread (zeros of their
+    shapes), so the trace models the card's program."""
+    if getattr(_plain_local, "kernels", None) is None:
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
+def on_card(kernel: str, t) -> bool:
+    """Whether a device-dispatched helper launches ``kernel`` for the
+    operand ``t``: on a CUDA tensor, outside :func:`plain_selection`
+    (inside it the kernel is noted as would-launch and the plain version
+    runs)."""
+    if t.device.type != "cuda":
+        return False
+    seen = getattr(_plain_local, "kernels", None)
+    if seen is None:
+        return True
+    seen.add(kernel)
+    return False
 
 
 @contextlib.contextmanager
@@ -336,7 +384,11 @@ class KernelRegistry:
         module's precedence. Raises ``ValueError`` for an impl that does not
         take operands on that device. A resolution without an explicit
         ``impl=`` is recorded (``record``) for :meth:`stale_selections`, and
-        inside :func:`capturing` also kept by the capturing graph."""
+        inside :func:`capturing` also kept by the capturing graph. Inside
+        :func:`plain_selection` the reference impl, unrecorded."""
+        seen = getattr(_plain_local, "kernels", None)
+        if seen is not None:
+            return self._plain(kernel, spec_key, impl, device, seen)
         env = os.environ.get("WF_KERNEL_IMPL", "")
         hist = os.environ.get("WF_HISTOGRAM_IMPL", "")
         look = os.environ.get("WF_LOOKUP_IMPL", "")
@@ -350,6 +402,22 @@ class KernelRegistry:
         if sel is not None and impl is None:
             sel[(kernel, spec_key, dk)] = choice
         return choice
+
+    def _plain(self, kernel, spec_key, impl, device, seen: set) -> str:
+        """The reference impl; notes ``kernel`` in ``seen`` when the
+        unforced, unrecorded selection for ``device`` is the hand kernel."""
+        if getattr(device, "type", device) not in ("meta", None):
+            try:
+                would, _dk = self._resolve(
+                    kernel, spec_key, impl, device, False,
+                    os.environ.get("WF_KERNEL_IMPL", ""),
+                    os.environ.get("WF_HISTOGRAM_IMPL", ""),
+                    os.environ.get("WF_LOOKUP_IMPL", ""))
+            except ValueError:
+                would = None
+            if would == "cuda":
+                seen.add(kernel)
+        return self.reference_impl(kernel) or "torch"
 
     def _resolve(self, kernel, spec_key, impl, device, record, env, hist, look):
         import torch
@@ -377,6 +445,11 @@ class KernelRegistry:
         gone keeps nothing alive)."""
         with self._lock:
             self._graphs.add(graph)
+
+    def watched_graphs(self) -> List[str]:
+        """The names of the captured graphs the registry watches (alive)."""
+        with self._lock:
+            return sorted(g.name for g in self._graphs)
 
     def trace_records(self) -> Dict[Tuple[str, str, str], frozenset]:
         """Every (kernel, spec_key, device kind) -> the impls resolved for it

@@ -46,7 +46,7 @@ import torch
 
 from . import cuda
 from ..batch import dtype_name, tree_map
-from .registry import count_launch, register_kernel, resolve_impl
+from .registry import count_launch, on_card, register_kernel, resolve_impl
 
 #: C signature of the kernel's entry point (pointers and the stream as void*)
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -166,7 +166,7 @@ def _index_add_fold(values, seg, valid, S: int) -> torch.Tensor:
     """Segment sum outside K3's domain (floats, int64, trailing dims): plain
     ``index_add_`` into a spill row that collects dropped lanes; on a CUDA
     float tensor, the ordered fold (fixed bits, equal to the CPU's)."""
-    if values.device.type == "cuda" and values.dtype.is_floating_point:
+    if values.dtype.is_floating_point and on_card("segment_fold_float", values):
         return segment_fold_float_cuda(values, seg, valid, S)
     ok = valid & (seg >= 0) & (seg < S)
     m = ok.reshape(ok.shape + (1,) * (values.ndim - 1))

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from . import cuda
-from .registry import count_launch
+from .registry import count_launch, on_card
 
 #: C signature of K6's entry point (pointers and the stream as void*)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -124,9 +124,9 @@ def masked_window_reduce(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     """Per-window masked sum of ``vals [W, L]`` under ``mask [W, L]`` ->
     ``[W]`` (of :func:`sum_dtype`): K6 on a CUDA tensor, the plain version
     on a CPU tensor."""
-    if vals.device.type == "cuda":
+    if on_card("masked_window_reduce", vals):
         return masked_window_reduce_cuda(vals, mask)
-    if vals.device.type == "cpu":
+    if vals.device.type in ("cpu", "cuda"):
         return masked_window_reduce_plain(vals, mask)
     raise ValueError(f"masked_window_reduce: unsupported device {vals.device}")
 

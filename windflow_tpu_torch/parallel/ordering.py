@@ -195,7 +195,7 @@ def _push(mode, pending: Batch, pchan, batch: Batch, channel: int, wm, next_id,
     return out, kept, kept_chan, counts, wm, next_id
 
 
-class Ordering_Node:
+class Ordering_Node:  # wf-lint: single-writer[driver, stage]
     """One merge's order restoration over ``n_inputs`` channels, driven by
     one thread. ``device`` is where the watermarks and the renumbering
     counter live (None = the first batch's device). ``merge_impl``: the
@@ -237,7 +237,7 @@ class Ordering_Node:
         (reading it settles the counts of the last push)."""
         return self.settle()
 
-    def settle(self) -> int:
+    def settle(self) -> int:  # wf-lint: thread-role[driver, stage]
         """Read the counts of the last push/try_release (a no-op when none
         are owed): wait for their copy's event, record
         ``last_release_count`` and trim the pool they size."""

@@ -269,7 +269,7 @@ def save_states(states, path: str, *, meta: dict = None, keep: int = 1,
     entries.append({"file": os.path.basename(file), "seq": seq,
                     "sha256": hashlib.sha256(raw).hexdigest(),
                     # lineage metadata only, never read back
-                    "wall": time.time(),
+                    "wall": time.time(),      # wf-lint: allow[wall-clock]
                     "meta": dict(meta or {})})
     while len(entries) > keep:
         old = entries.pop(0)

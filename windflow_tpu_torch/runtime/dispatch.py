@@ -146,7 +146,7 @@ def build_k_ladder(k_max: int) -> List[int]:
     return sorted(rungs)
 
 
-class MicrobatchAccumulator:
+class MicrobatchAccumulator:  # wf-lint: single-writer[driver, stage]
     """Gather up to K same-capacity batches into dispatch groups.
 
     ``feed`` returns the groups that became ready (zero, one, or, after a
@@ -183,7 +183,7 @@ class MicrobatchAccumulator:
             _control.set_gauge("dispatch_linger_depth", 0)
         return group
 
-    def feed(self, batch) -> List[List]:
+    def feed(self, batch) -> List[List]:  # wf-lint: thread-role[driver, stage]
         """One batch in; the list of groups now ready to dispatch."""
         out: List[List] = []
         if self._buf and self._buf[0].capacity != batch.capacity:
@@ -199,20 +199,20 @@ class MicrobatchAccumulator:
             out.append(self._take())
         return out
 
-    def expired(self) -> bool:
+    def expired(self) -> bool:  # wf-lint: thread-role[driver, stage]
         """True when a partial group has lingered past ``linger_s``."""
         return (bool(self._buf) and self._t0 is not None
                 and self.clock() - self._t0 >= self.linger_s)
 
-    def take(self) -> List:
+    def take(self) -> List:  # wf-lint: thread-role[driver, stage]
         """Pop the current partial group (linger flush)."""
         return self._take()
 
-    def drain(self) -> List:
+    def drain(self) -> List:  # wf-lint: thread-role[driver, stage]
         """EOS: the partial tail (< K), possibly []."""
         return self._take() if self._buf else []
 
-    def clear(self) -> None:
+    def clear(self) -> None:  # wf-lint: thread-role[driver, stage]
         """Restore: drop buffered batches (replay re-feeds them)."""
         self._buf = []
         self._t0 = None

@@ -62,7 +62,9 @@ version of a replay, as a kernel's plain version is.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 from typing import Any, Callable, List, Tuple
 
@@ -155,6 +157,23 @@ def _load(static: List[Any], given: List[Any], what: str) -> None:
 CAPTURE_LOCK = threading.RLock()
 
 
+@contextlib.contextmanager
+def collection_paused():
+    """No collection of Python's cyclic garbage until the block ends.
+
+    A CUDA graph freed inside a capture (an unreachable cycle that holds an
+    earlier ``CUDAGraph``, collected by the automatic GC mid-capture)
+    invalidates the capture, so a capture runs inside this block; the
+    garbage is collected after it."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 class StepGraph:
     """``fn(states, inputs) -> (states, outs)`` captured once on the card.
 
@@ -172,8 +191,8 @@ class StepGraph:
         self._static = leaves(states)
         self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
-        with CAPTURE_LOCK, registry.collect() as counted, registry.capturing(self), \
-                torch.cuda.graph(self.graph):
+        with CAPTURE_LOCK, collection_paused(), registry.collect() as counted, \
+                registry.capturing(self), torch.cuda.graph(self.graph):
             new_states, outs = fn(rebuild(states, self._static), inputs)
             _load(self._static, leaves(new_states), "captured step's new state")
         self._outs = outs

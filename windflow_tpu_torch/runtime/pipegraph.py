@@ -116,14 +116,14 @@ class MultiPipe:
     def __init__(self, graph: "PipeGraph", source: Optional[SourceBase] = None):
         self.graph = graph
         self.source = source
-        self.ops: List[Basic_Operator] = []
+        self.ops: List[Basic_Operator] = []  # wf-lint: single-writer[driver]
         self.sink: Optional[Sink] = None
         self.has_sink = False
         self.split_fn: Optional[Callable] = None
         self.split_branches: List[MultiPipe] = []
         self.merge_inputs: List[MultiPipe] = []
         self._dataflow_parent: Optional[MultiPipe] = None   # split-branch feeder
-        self._chain: Optional[CompiledChain] = None
+        self._chain: Optional[CompiledChain] = None  # wf-lint: single-writer[driver, stage]
         self._outputs_to: List[MultiPipe] = []
         self._ordering = None     # Ordering_Node of a DETERMINISTIC merge
         # application-tree position of a PARTIAL merge result: the reference
@@ -303,7 +303,7 @@ class PipeGraph:
         self._monitor = None
         self._trace_arg = trace
         self._tracer = None
-        self._trace_labels = None
+        self._trace_labels = None  # wf-lint: single-writer[driver, stage]
         #: the serial driver's e2e sample in flight (source framing time)
         self._e2e_t0 = None
         self.name = name
@@ -311,14 +311,14 @@ class PipeGraph:
         self.device = resolve_device(device)
         #: None = resolved at start(): the smallest withBatch hint of the
         #: registered operators, else DEFAULT_BATCH_SIZE
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # wf-lint: single-writer[driver]
         self._dispatch_arg = dispatch
-        self._dispatch = None
+        self._dispatch = None  # wf-lint: single-writer[driver]
         #: the threaded driver's ring capacity a edge (one int, a dict by edge
         #: label or index, or ``(label, index) -> int``)
         self.queue_capacity = queue_capacity
         self._threaded = False
-        self._roots: List[MultiPipe] = []
+        self._roots: List[MultiPipe] = []  # wf-lint: single-writer[driver]
         self._merged_roots: List[MultiPipe] = []
         self._nodes = {}
         self._operators: List[Basic_Operator] = []
@@ -988,11 +988,11 @@ class PipeGraph:
         threads = []
         for i, p in enumerate(pipes):
             streams.append(stage_stream(self.device))
-            threads.append(threading.Thread(target=pipe_body, args=(p, streams[-1]),
+            threads.append(threading.Thread(target=pipe_body, args=(p, streams[-1]),  # wf-lint: thread-role[stage]
                                             name=f"wf-pipe{i}"))
         for p in self._roots:
             streams.append(stage_stream(self.device))
-            threads.append(threading.Thread(target=source_body, args=(p, streams[-1]),
+            threads.append(threading.Thread(target=source_body, args=(p, streams[-1]),  # wf-lint: thread-role[stage]
                                             name=f"wf-src-{p.source.getName()}"))
         try:
             for t in threads:

@@ -116,7 +116,7 @@ def _batch_nbytes(batch: Batch) -> int:
                          *tree_leaves(batch.payload)))
 
 
-class CompiledChain:
+class CompiledChain:  # wf-lint: single-writer[driver, stage]
     """Operators ``ops`` (no source/sink) bound to one device and one batch
     capacity. ``push(batch, from_op=i)`` runs ``ops[i:]``: the main path
     (i=0) and the EOS flush cascades."""

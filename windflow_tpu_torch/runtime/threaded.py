@@ -172,8 +172,8 @@ class ThreadedPipeline:
         from ..control import ControlConfig
         self._control = ControlConfig.resolve(control)
         #: built in run() before the stage threads start; the stages read them
-        self.governor = None
-        self._admission = None
+        self.governor = None  # wf-lint: single-writer[driver]
+        self._admission = None  # wf-lint: single-writer[driver]
         self.device = resolve_device(device)
         if source.device != self.device:
             raise ValueError(f"source {source.getName()!r} lives on {source.device} "
@@ -187,16 +187,16 @@ class ThreadedPipeline:
         self.prefetch = int(prefetch)
         self._faults_arg = faults
         self._dispatch_arg = dispatch
-        self._dispatch = None
+        self._dispatch = None  # wf-lint: single-writer[driver]
         self._started = False
         self._monitoring_arg = monitoring
-        self._monitor = None
+        self._monitor = None  # wf-lint: single-writer[driver]
         self._trace_arg = trace
         self._tracer = None
         # (enqueue index, perf_counter, trace id) of sampled batches: the
         # source appends, the sink pops at the matching receipt (the rings
         # keep order)
-        self._e2e_stamps = collections.deque()
+        self._e2e_stamps = collections.deque()  # wf-lint: single-writer[driver, stage]
         spec = source.payload_spec()
         cap = source.out_capacity(self.batch_size)
         from ..observability import event_time_enabled
@@ -218,10 +218,10 @@ class ThreadedPipeline:
                                 for i, name in enumerate(self.edge_names)}
         self.queues = [SPSCQueue(self.edge_capacities[name]) for name in self.edge_names]
         # stage threads append; run() reads after the joins
-        self._errors: List[BaseException] = []
+        self._errors: List[BaseException] = []  # wf-lint: single-writer[stage]
         # each stage writes its own slot; the watchdog tolerates a stale read
-        self._beats = {}
-        self._done = set()
+        self._beats = {}  # wf-lint: single-writer[stage]
+        self._done = set()  # wf-lint: single-writer[stage]
         self.watchdog_stale: List[str] = []
 
     def queue_depths(self) -> dict:
@@ -451,18 +451,18 @@ class ThreadedPipeline:
     def _run(self) -> dict:
         n = len(self.chains)
         streams = [stage_stream(self.device) for _ in range(n + 2)]
-        threads = [threading.Thread(target=self._source_body, args=(0, streams[0]),
+        threads = [threading.Thread(target=self._source_body, args=(0, streams[0]),  # wf-lint: thread-role[stage]
                                     name="wf-source")]
         for i in range(n):
-            threads.append(threading.Thread(target=self._segment_body,
+            threads.append(threading.Thread(target=self._segment_body,  # wf-lint: thread-role[stage]
                                             args=(i, i + 1, streams[i + 1]),
                                             name=f"wf-seg{i}"))
-        threads.append(threading.Thread(target=self._sink_body,
+        threads.append(threading.Thread(target=self._sink_body,  # wf-lint: thread-role[stage]
                                         args=(n + 1, streams[n + 1]), name="wf-sink"))
         stop_watchdog = threading.Event()
         watchdog = None
         if self.heartbeat_timeout:
-            watchdog = threading.Thread(target=self._watchdog_body, args=(stop_watchdog,),
+            watchdog = threading.Thread(target=self._watchdog_body, args=(stop_watchdog,),  # wf-lint: thread-role[watchdog]
                                         daemon=True, name="wf-watchdog")
             watchdog.start()
         for t in threads:

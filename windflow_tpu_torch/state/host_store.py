@@ -96,7 +96,7 @@ class HostStore:
         self._desc = None
         self._readmit_dev = None
         self._dev_seen = 0       # the device counter's value at the last fold
-        self._uncounted = 0      # depth of uncounted() blocks
+        self._uncounted = 0  # wf-lint: single-writer[driver, stage] depth of uncounted() blocks
         if self._mapped:
             from ..ops.cold_probe import DESC_WORDS, MappedBuffer
             buf = MappedBuffer(8 * DESC_WORDS)

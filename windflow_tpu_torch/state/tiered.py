@@ -133,7 +133,7 @@ def _np_tree(tree, n: Optional[int] = None):
     return tree_map(lambda t: t[:n].cpu().numpy() if n is not None else t.cpu().numpy(), tree)
 
 
-class TieredTable:
+class TieredTable:  # wf-lint: single-writer[driver, stage]
     """Host-side supervisor of one device table's spill outbox and cold tier.
 
     ``col_keys`` name the outbox fields inside the operator's state dict
@@ -187,7 +187,7 @@ class TieredTable:
 
     # -- the per-push maintenance point ---------------------------------------------------
 
-    def maintain(self, state):
+    def maintain(self, state):  # wf-lint: thread-role[driver, stage]
         """One push boundary: advance the three-phase spill pipeline and the
         compaction cadence; returns the state (the outbox cleared of what was
         applied)."""
@@ -245,7 +245,7 @@ class TieredTable:
             ev.record(torch.cuda.current_stream(dev))
         return (cnt, cols, wm, ev) if full else (cnt, wm, ev)
 
-    def settle(self, state):
+    def settle(self, state):  # wf-lint: thread-role[driver, stage]
         """Drain the outbox into the host store synchronously and drop the
         copies in flight: after settle, (state, store) is a consistent pair.
         The count's read waits for the chain's stream."""

@@ -157,7 +157,7 @@ class LogHistogram:
         return out
 
 
-class Stats_Record:
+class Stats_Record:  # wf-lint: single-writer[driver, stage]
     def __init__(self, op_name: str, replica_id: int = 0):
         self.op_name = op_name
         self.replica_id = replica_id
