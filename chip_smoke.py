@@ -10,6 +10,11 @@ Run from the repository root on a machine with the card:
                                        # time, then stops (no result line);
                                        # copied with PROBES_SRC into another
                                        # tree, it splits that tree's kernels
+    python3 chip_smoke.py --helper-times # the fold's, cold_fetch's and
+                                       # cold_probe's times on their check
+                                       # inputs, nothing checked, then stops;
+                                       # copied into another tree, it times
+                                       # that tree's designs
 
 Phases (each raises on a mismatch, so any failure exits non-zero):
 
@@ -43,9 +48,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    the plain version (each K4 network also to a stable lexsort), with the
    kernel's time alone; K1 and K3 log each case's plan
    (``histogram_plan`` / ``segment_fold_plan``) and counters, and the phase
-   fails unless every regime ran. Also the two repairs: K2 on
-   a float table with -0.0 entries, and the fixed-order float fold (same
-   bits on two card runs and on the CPU);
+   fails unless every regime ran. Also K2's repair: a float table with
+   -0.0 entries gives +0.0 back;
 4. YSB at full width through ``Pipeline(...).run()`` and a host ``Sink``:
    2^20-event batches with ``bench.py``'s geometry, every per-window count
    against a numpy dense oracle, and K1 and K2 launched once per batch;
@@ -119,11 +123,18 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``host_io``: a GeneratorSource of string-keyed numpy chunks (pinned
     host-to-device copies) into a Sink, synchronous and with
     ``async_depth=3``, the same rows in order;
-18. the fixed-order float fold at the keyed paths' shapes (Key_FFAT's pane
-    sums at S = 2^21 on ``bench_keyed_cb``'s traffic; the Accumulator's
-    batch totals at S = 8, 500 and 10,000), bit for bit against the CPU,
-    and K2 on the Accumulator's float carry tables (phase 3 also holds K3
-    at ``bench_keyed_cb``'s occupancy counts, S = 2^21);
+18. the fixed-order float fold (``fold_checks`` over ``fold_cases``), bit
+    for bit against the CPU and run to run: random ids in 4096 segments
+    (the fold's repair: the same bits on two card runs and on the CPU), the
+    keyed paths' shapes (Key_FFAT's pane sums at S = 2^21 on
+    ``bench_keyed_cb``'s traffic; the Accumulator's batch totals at S = 8,
+    500 and 10,000), each with its split (mask, sort, gather, the C entry
+    point), and K2 on the Accumulator's float carry tables (phase 3 also
+    holds K3 at ``bench_keyed_cb``'s occupancy counts, S = 2^21); runs of
+    1, 31, 32, 33, 255, 256, 1023 and 1025 lanes with -0.0, inf and NaN at
+    D = 1, 3 and 64 in float32, float64, float16 and bfloat16, one run of
+    2^20 lanes in the three other dtypes, and a graph replayed twice over
+    an input changed in place;
 19. ``keyed_cb``: ``bench.py::bench_keyed_cb``'s operator as written (the
     per-key CB Key_FFAT over 512 keys, CB 1024 slide 512, batch 2^20):
     ``Pipeline(...).run()`` of 4 batches, dispatch off and at K = 2, every
@@ -235,7 +246,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 38. ``cold_fetch`` (kernel check): the archive tier's multimap read
     against its plain version (the store's host ``fetch_multi``) bit for bit
     at R = 2^14 and M = 8 over a store of 4096 keys with chains of 0 to 20
-    rows, compacted so rows in the middle of chains are gone, and a graph
+    rows, compacted so rows in the middle of chains are gone; over a store
+    with row widths of 1, 2, 4, 8, 12, 16 and 24 bytes at M = 1, 8 and 20
+    and one of 1072-byte records (wider than the kernel stages) at M = 8,
+    with keys whose probe wraps the index (``fetch_cases``); and a graph
     captured before the store grew 128x, replayed after; its time and its
     bound (host-link bytes over 64 GB/s);
 39. ``tiered_q4``: q4 at 2^14 tiered (the dense oracle, ``cold_fetch`` twice
@@ -889,10 +903,10 @@ def split_phase(torch, ysb, probes):
 
 
 def repair_checks(torch):
-    """The two repairs: K2 on a float table with -0.0 entries (+0.0 back,
-    as the JAX forms give it), and the fixed-order float fold (the same bits
-    on two card runs and on the CPU)."""
-    from windflow_tpu_torch.ops import lookup as L, segment as S
+    """K2's repair: on a float table with -0.0 entries it gives +0.0 back,
+    as the JAX forms give it. (The other repair, the fixed-order float fold,
+    is ``fold_checks``' "determinism" case.)"""
+    from windflow_tpu_torch.ops import lookup as L
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261018)
@@ -909,35 +923,6 @@ def repair_checks(torch):
     got = L.lookup_cuda(table, idx)
     if bool(torch.signbit(got[got == 0]).any()):
         raise AssertionError("K2 returned -0.0 from a float table of 1000 rows")
-
-    Sn = 4096
-    vals = torch.randn((C,), device=dev, generator=gen) * 1000
-    seg = torch.randint(-5, Sn + 5, (C,), device=dev, generator=gen, dtype=torch.int32)
-    valid = torch.rand((C,), device=dev, generator=gen) < 0.9
-    first = S._index_add_fold(vals, seg, valid, Sn)
-    second = S._index_add_fold(vals, seg, valid, Sn)
-    cpu = S._index_add_fold(vals.cpu(), seg.cpu(), valid.cpu(), Sn)
-    torch.cuda.synchronize()
-    same = (torch.equal(_bits(torch, first), _bits(torch, second))
-            and torch.equal(_bits(torch, first).cpu(), _bits(torch, cpu)))
-    ok = valid & (seg >= 0) & (seg < Sn)
-    safe = torch.where(ok, seg, Sn).long()
-    masked = torch.where(ok, vals, 0.0)
-    row = {"kernel_check": "segment_fold_float", "case": "determinism",
-           "shape": {"C": C, "S": Sn, "dtype": "float32"},
-           "bit_identical_card_card_cpu": bool(same),
-           "max_abs_err": compare(torch, first.cpu(), cpu)[1],
-           "ms": graph_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn)),
-           "plain_ms": graph_ms(torch, lambda: torch.zeros(Sn + 1, device=dev).index_add_(
-               0, torch.where(valid & (seg >= 0) & (seg < Sn), seg, Sn).long(),
-               torch.where(valid & (seg >= 0) & (seg < Sn), vals, 0.0))[:Sn]),
-           "library_ms": graph_ms(torch, lambda: torch.zeros(
-               Sn + 1, device=dev).index_add_(0, safe, masked)),
-           "bound_ms": (C * 9 + Sn * 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    log(row)
-    if not same:
-        raise AssertionError("the float fold's bits differ between runs or from the CPU")
-    return row
 
 
 KEYED_CB_P = 4096                   # bench_keyed_cb's pane ring at batch 2^20
@@ -959,57 +944,252 @@ def keyed_cb_traffic(torch, b):
                                                               device=dev)
 
 
-def keyed_fold_checks(torch):
-    """The fixed-order float fold at the keyed paths' shapes: Key_FFAT's pane
-    sums at S = 2^21 on ``bench_keyed_cb``'s traffic, and the Accumulator's
-    batch totals of ``bench_keyed_stateful`` (``v = i % 1000``) at S = 8
-    (K = 1: every lane on one segment, one thread summing 2^20 lanes), 500
-    and 10,000. Each: the card's bits against the CPU's, its time, the plain
-    version's and one ``index_add_`` (float atomics, no fixed order). Also K2
-    on the Accumulator's float carry tables (8 and 500 rows). Returns the
-    S = 2^21 row."""
-    from windflow_tpu_torch.ops import lookup as L, segment as S
+def dev_ms(torch, fn):
+    """``graph_ms`` of ``fn``, over fewer calls when one call takes more than
+    2.5 ms (each timing window near 50 ms)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    if t < 2.5e-3:
+        return graph_ms(torch, fn)
+    return graph_ms(torch, fn, iters=max(2, min(20, int(0.05 / t))), reps=1)
 
+
+def _row_width(t):
+    n = 1
+    for d in t.shape[1:]:
+        n *= int(d)
+    return n
+
+
+def fold_same(torch, got, want):
+    """(the card's fold has the CPU's bits, NaN payloads aside; the max abs
+    error). NaN cells must be NaN in both: the CPU's payload depends on its
+    own code path (a 1-D ``index_add_`` keeps the later NaN operand's for
+    float32, the earlier one's for float16, and bfloat16 writes 0x7fc0),
+    the card's adds give the canonical NaN."""
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf")
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    z = torch.zeros((), dtype=got.dtype)
+    same = torch.equal(gn, wn) and torch.equal(_bits(torch, torch.where(gn, z, got)),
+                                               _bits(torch, torch.where(wn, z, want)))
+    return bool(same), compare(torch, got, want)[1]
+
+
+def fold_row(torch, case, vals, seg, valid, Sn, extra=None):
+    """The float fold on one input: two card runs' bits against each other
+    and against the CPU's (``fold_same``), then the device times of the
+    fold, of the plain version (``index_add_`` behind the masks: float
+    atomics, no fixed order) and of one ``index_add_`` with the masks made
+    beforehand, and the byte bound (values, ids and flags read once,
+    ``[S, D]`` written once)."""
+    from windflow_tpu_torch.ops import segment as S
+    dev, C, D = vals.device, vals.shape[0], _row_width(vals)
+    got = S.segment_fold_float_cuda(vals, seg, valid, Sn)
+    again = S.segment_fold_float_cuda(vals, seg, valid, Sn)
+    cpu = S._index_add_fold(vals.cpu(), seg.cpu(), valid.cpu(), Sn)
+    torch.cuda.synchronize()
+    same, err = fold_same(torch, got, cpu)
+    repeats = torch.equal(_bits(torch, got), _bits(torch, again))
+    tail = tuple(vals.shape[1:])
+    ok = valid & (seg >= 0) & (seg < Sn)
+    safe = torch.where(ok, seg, Sn).long()
+    masked = torch.where(ok.reshape(ok.shape + (1,) * len(tail)), vals, 0.0)
+
+    def plain():
+        okp = valid & (seg >= 0) & (seg < Sn)
+        return torch.zeros((Sn + 1,) + tail, dtype=vals.dtype, device=dev).index_add_(
+            0, torch.where(okp, seg, Sn).long(),
+            torch.where(okp.reshape(okp.shape + (1,) * len(tail)), vals, 0.0))[:Sn]
+    nbytes = C * (D * vals.element_size() + 5) + Sn * D * vals.element_size()
+    row = {"kernel_check": "segment_fold_float", "case": case,
+           "shape": {"C": C, "S": Sn, "D": D, "dtype": str(vals.dtype).split(".")[-1]},
+           **(extra or {}), "bit_identical_card_cpu": same, "repeats": repeats,
+           "max_abs_err": err,
+           "ms": dev_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn)),
+           "plain_ms": dev_ms(torch, plain),
+           "library_ms": dev_ms(torch, lambda: torch.zeros(
+               (Sn + 1,) + tail, dtype=vals.dtype, device=dev).index_add_(0, safe, masked)),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(row)
+    if not (same and repeats):
+        raise AssertionError(f"the float fold [{case}] differs from the CPU's bits "
+                             f"(card vs CPU {same}, run to run {repeats})")
+    return row
+
+
+def fold_split(torch, case, vals, seg, valid, Sn):
+    """Where the fold's time goes at one shape (graph replay of each part
+    alone): the mask and key, the stable sort, the row gather, the segment
+    starts' search (the segments regime: S <= C or D > 1) and the C entry
+    point (memsets, the segments' or the run walkers' kernel, streaming
+    blocks); with the live runs, those streamed (``FOLD_RUN_LONG`` lanes or
+    more at D = 1) and the longest."""
+    from windflow_tpu_torch.ops import cuda, segment as S
+    dev, C, D = vals.device, vals.shape[0], _row_width(vals)
+    key = torch.where(valid & (seg >= 0) & (seg < Sn), seg, Sn)
+    sorted_seg, perm = torch.sort(key, stable=True)
+    rows = torch.empty((C + S._ROW_PAD, D), dtype=vals.dtype, device=dev)
+    torch.index_select(vals.reshape(C, D), 0, perm, out=rows[:C])
+    segments = D > 1 or Sn <= C
+
+    def search():
+        return torch.searchsorted(sorted_seg, torch.arange(Sn + 1, dtype=torch.int32,
+                                                           device=dev))
+    starts = search() if segments else None
+    out = torch.empty((Sn, D), dtype=vals.dtype, device=dev)
+    work = torch.empty((1 + 3 * (C // S.FOLD_RUN_LONG + 1),), dtype=torch.int64, device=dev)
+    fn = cuda.function("segment", "wf_segment_fold_ordered", S._ORDERED_ARGTYPES)
+    code = S._ORDERED_DTYPES[vals.dtype]
+
+    def entry():
+        cuda.check(fn(cuda.ptr(rows), cuda.ptr(sorted_seg),
+                      cuda.ptr(starts) if segments else None, cuda.ptr(out), cuda.ptr(work), C,
+                      Sn, D, code, cuda.stream_ptr(dev)), "wf_segment_fold_ordered")
+    runs = torch.unique_consecutive(sorted_seg[sorted_seg < Sn], return_counts=True)[1]
+    row = {"kernel_check": "segment_fold_float", "case": f"split_{case}",
+           "regime": "segments" if segments else "runs",
+           "mask_and_key_ms": dev_ms(torch, lambda: torch.where(
+               valid & (seg >= 0) & (seg < Sn), seg, Sn)),
+           "sort_ms": dev_ms(torch, lambda: torch.sort(key, stable=True)),
+           "gather_ms": dev_ms(torch, lambda: torch.index_select(
+               vals.reshape(C, D), 0, perm, out=rows[:C])),
+           "search_ms": dev_ms(torch, search) if segments else 0.0,
+           "entry_ms": dev_ms(torch, entry),
+           "live_runs": int(runs.numel()),
+           "streamed_runs": int((runs >= S.FOLD_RUN_LONG).sum()) if D == 1 else 0,
+           "longest_run": int(runs.max()) if runs.numel() else 0}
+    log(row)
+    return row
+
+
+#: lanes of the runs in the fold's regime cases: one lane, a warp's width and
+#: one either side, the shortest run a block streams (256) and one below,
+#: and either side of 1024
+FOLD_RUNS = (1, 31, 32, 33, 255, 256, 1023, 1025)
+FOLD_DS = (1, 3, 64)
+FOLD_DTYPES = ("float32", "float64", "float16", "bfloat16")
+
+
+def fold_regime_input(torch, D, dtype, seed):
+    """Runs of every length of ``FOLD_RUNS`` on the even segment ids (the odd
+    ones stay empty), repeated to about 2^19 values, their lanes shuffled
+    into one stream with a twentieth more lanes out of range and a tenth of
+    all lanes invalid; values normal * 100, where the run of one lane and
+    the run of 31 are -0.0 only, the run of 32 holds +inf, the run of 33
+    +inf and -inf (a NaN sum) and the first run of 255 a NaN."""
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    reps = max(1, min(256, (1 << 19) // (sum(FOLD_RUNS) * D)))
+    counts = torch.tensor(FOLD_RUNS * reps, device=dev)
+    Sn = 2 * counts.numel() + 1
+    seg = torch.repeat_interleave(2 * torch.arange(counts.numel(), device=dev), counts)
+    spill = seg.numel() // 40 + 1
+    seg = torch.cat([seg, torch.randint(-40, 0, (spill,), generator=gen, device=dev),
+                     torch.randint(Sn, Sn + 40, (spill,), generator=gen, device=dev)])
+    seg = seg[torch.randperm(seg.numel(), generator=gen, device=dev)].to(torch.int32)
+    C = seg.numel()
+    valid = torch.rand(C, generator=gen, device=dev) >= 0.1
+    valid |= (seg == 0) | (seg == 4) | (seg == 6) | (seg == 8)   # the specials count
+    shape = (C,) if D == 1 else (C, D)
+    vals = (torch.randn(shape, generator=gen, device=dev, dtype=torch.float64) * 100).to(dt)
+    vals[(seg == 0) | (seg == 2)] = -0.0
+    at = [torch.nonzero(seg == s).flatten() for s in (4, 6, 8)]
+    vals[at[0][3]] = float("inf")
+    vals[at[1][5]] = float("inf")
+    vals[at[1][20]] = float("-inf")
+    vals[at[2][100]] = float("nan")
+    return vals.contiguous(), seg.contiguous(), valid, Sn
 
-    def fold(case, vals, seg, valid, Sn):
-        got = S.segment_fold_float_cuda(vals, seg, valid, Sn)
-        cpu = S._index_add_fold(vals.cpu(), seg.cpu(), valid.cpu(), Sn)
-        torch.cuda.synchronize()
-        same, err = compare(torch, got.cpu(), cpu)
-        ok = valid & (seg >= 0) & (seg < Sn)
-        safe = torch.where(ok, seg, Sn).long()
-        masked = torch.where(ok, vals, 0.0)
-        nbytes = vals.shape[0] * 9 + Sn * 4
-        row = {"kernel_check": "segment_fold_float", "case": case,
-               "shape": {"C": vals.shape[0], "S": Sn, "dtype": "float32"},
-               "bit_identical_card_cpu": same, "max_abs_err": err,
-               "ms": graph_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn)),
-               "plain_ms": graph_ms(torch, lambda: torch.zeros(Sn + 1, device=dev).index_add_(
-                   0, torch.where(valid & (seg >= 0) & (seg < Sn), seg, Sn).long(),
-                   torch.where(valid & (seg >= 0) & (seg < Sn), vals, 0.0))[:Sn]),
-               "library_ms": graph_ms(torch, lambda: torch.zeros(
-                   Sn + 1, device=dev).index_add_(0, safe, masked)),
-               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes"}
-        log(row)
-        if not same:
-            raise AssertionError(f"the float fold [{case}] differs from the CPU's bits")
-        return row
 
-    keyed_cb_row = fold(f"keyed_cb_S{KEYED_CB_S}", *keyed_cb_traffic(torch, 3), KEYED_CB_S)
+def fold_cases(torch):
+    """Every input the fold is checked and timed on, one at a time: (case,
+    values, seg, valid, S, extra). "determinism": random ids in 4096
+    segments with dropped lanes; Key_FFAT's pane sums at S = 2^21 on
+    ``bench_keyed_cb``'s traffic; the Accumulator's batch totals of
+    ``bench_keyed_stateful`` (``v = i % 1000``) at S = 8 (K = 1: every lane
+    on one segment, one run of 2^20 lanes), 500 and 10,000; every run length
+    of ``FOLD_RUNS`` with -0.0, inf and NaN (``fold_regime_input``) at D =
+    1, 3 and 64 in each of the four dtypes; one run of 2^20 lanes at S = 8
+    in float64, float16 and bfloat16 (float32's is K = 1)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    Sn = 4096
+    yield ("determinism", torch.randn((BATCH,), device=dev, generator=gen) * 1000,
+           torch.randint(-5, Sn + 5, (BATCH,), device=dev, generator=gen, dtype=torch.int32),
+           torch.rand((BATCH,), device=dev, generator=gen) < 0.9, Sn, None)
+    yield (f"keyed_cb_S{KEYED_CB_S}", *keyed_cb_traffic(torch, 3), KEYED_CB_S, None)
     i = torch.arange(BATCH, device=dev, dtype=torch.int32) + 3 * BATCH
     ones = torch.ones(BATCH, dtype=torch.bool, device=dev)
     for K in STATEFUL_KEYS:
         Sn = max(K, 8)
-        seg = (i % K).to(torch.int32)
-        fold(f"keyed_stateful_K{K}_S{Sn}", (i % 1000).float(), seg, ones, Sn)
-        if Sn <= 2048:
+        yield (f"keyed_stateful_K{K}_S{Sn}", (i % 1000).float(), (i % K).to(torch.int32),
+               ones, Sn, None)
+    for d_i, D in enumerate(FOLD_DS):
+        for t_i, dtype in enumerate(FOLD_DTYPES):
+            yield (f"runs_D{D}_{dtype}", *fold_regime_input(torch, D, dtype, 100 + 10 * d_i + t_i),
+                   {"runs": FOLD_RUNS})
+    gen = torch.Generator(device=dev).manual_seed(99)
+    zero = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    for dtype in FOLD_DTYPES[1:]:
+        scale = 1.0 if dtype == "float16" else 100.0          # float16's sum stays finite
+        vals = (torch.randn(BATCH, generator=gen, device=dev, dtype=torch.float64)
+                * scale).to(getattr(torch, dtype))
+        yield f"hot_run_{dtype}", vals, zero, ones, 8, None
+
+
+def fold_checks(torch):
+    """The fixed-order float fold on every ``fold_cases`` input, bit for bit
+    against the CPU and run to run, with its time, the plain version's and
+    one ``index_add_``'s (``fold_row``); the split of the time
+    (``fold_split``) at the keyed paths' shapes, the random 4096 segments
+    and the D = 3 and 64 runs in float32; K2 on the Accumulator's float carry tables (8 and 500 rows);
+    then a graph captured over the float32 D = 3 case, replayed, its input
+    doubled in place, replayed again: the CPU's bits each time. Returns the
+    S = 2^21 row."""
+    from windflow_tpu_torch.ops import lookup as L, segment as S
+
+    dev = torch.device("cuda")
+    keyed_cb_row = None
+    for case, vals, seg, valid, Sn, extra in fold_cases(torch):
+        row = fold_row(torch, case, vals, seg, valid, Sn, extra)
+        if case.startswith("keyed") or case in ("determinism", "runs_D3_float32",
+                                                 "runs_D64_float32"):
+            fold_split(torch, case, vals, seg, valid, Sn)
+        if case.startswith("keyed_cb"):
+            keyed_cb_row = row
+        if case.startswith("keyed_stateful") and Sn <= 2048:
             table = torch.arange(Sn, device=dev, dtype=torch.float32) * 1.5e6
             check_kernel(torch, "lookup", f"keyed_stateful_carry_K{Sn}",
                          lambda: L.lookup_cuda(table, seg), lambda: L.lookup_plain(table, seg),
-                         lambda: table.index_select(0, seg), BATCH * 8 + Sn * 4,
-                         {"C": BATCH, "K": Sn, "dtype": "float32"})
+                         lambda: table.index_select(0, seg),
+                         BATCH * 8 + Sn * 4, {"C": BATCH, "K": Sn, "dtype": "float32"})
+    vals, seg, valid, Sn = fold_regime_input(torch, 3, "float32", 7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S.segment_fold_float_cuda(vals, seg, valid, Sn)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with collection_paused(), torch.cuda.graph(g):
+        gout = S.segment_fold_float_cuda(vals, seg, valid, Sn)
+    same = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        same.append(fold_same(torch, gout, S._index_add_fold(vals.cpu(), seg.cpu(),
+                                                             valid.cpu(), Sn))[0])
+        vals.mul_(2)                      # exact: the next replay must see the new input
+    log({"kernel_check": "segment_fold_float",
+         "case": "graph replayed twice, the input doubled between", "bit_identical": same})
+    if not all(same):
+        raise AssertionError("the float fold's graph replays differ from the CPU's bits")
     return keyed_cb_row
 
 
@@ -4563,32 +4743,24 @@ def archive_store(np, tier_cfg, name, n_keys, rows_per_key, seed):
     return tier
 
 
-def cold_fetch_phase(torch, np, card):
-    """The archive tier's multimap read against its plain version (the
-    store's host ``fetch_multi``), bit for bit, at R = 2^14 lanes and M = 8
-    over a store of 4096 keys with chains of 0 to 20 rows (longer than M,
-    so the truncation shows), after compacting below ts 100 (rows retired
-    in the middle of chains); keys in 5000 (some absent), a fifth of the
-    lanes not wanted. Then a graph captured over a 2-row-a-key store, the
-    store grown to 2^18 rows, the graph replayed: the replay reads the grown
-    store and its links. The kernel's time by graph replay, the plain
+#: the fetch's row widths: one column a width (bytes a row), in one store
+FETCH_WIDTHS = {"w1": ("uint8", ()), "w2": ("int16", ()), "w4": ("int32", ()),
+                "w8": ("int64", ()), "w12": ("int32", (3,)), "w16": ("int32", (4,)),
+                "w24": ("int64", (3,))}
+FETCH_WIDTH_R = 4096      # its lanes
+#: records wider than the fetch stages (1 KB): a float32 leaf of 256 (1024
+#: bytes) beside a narrow and a short column (a record of 1072 bytes)
+FETCH_WIDE = {"wide": ("float32", (256,)), "w24": ("int64", (3,)), "w4": ("int32", ())}
+FETCH_WIDTH_MS = (1, 8, 20)  # rows a lane: one, TierConfig's default, more than most chains
+
+
+def fetch_case(torch, np, card, case, store, keys, want, M, extra=None):
+    """``cold_fetch`` against its plain version (the store's host
+    ``fetch_multi``) bit for bit, with its time by graph replay, the plain
     version's by CUDA events around its round trips, and the bound: the
     host-link bytes (a 16-byte index slot a wanted lane, then the 8-byte
     link and the value row of each row fetched) over 64 GB/s."""
     from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_fetch_plain
-    from windflow_tpu_torch.state import TierConfig
-
-    cfg = TierConfig()
-    rng = np.random.default_rng(21)
-    per_key = rng.integers(0, 21, TQ4_KEYS)
-    tier = archive_store(np, cfg, "fetch", TQ4_KEYS, per_key, 22)
-    store = tier.store
-    retired = store.compact_below("ts", 100)
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    keys = torch.randint(0, 5000, (COLD_FETCH_R,), generator=gen, device="cuda",
-                         dtype=torch.int32)
-    want = torch.rand((COLD_FETCH_R,), generator=gen, device="cuda") < 0.8
-    M = COLD_FETCH_M
 
     def kernel():
         return cold_fetch_cuda(store, keys, want, M)
@@ -4600,29 +4772,126 @@ def cold_fetch_phase(torch, np, card):
     ref = plain()
     same, err = compare(torch, got, ref)
     fetched = int(ref[0].sum())
-    truncated = int(((torch.from_numpy(per_key).cuda()[keys.long().clamp(max=TQ4_KEYS - 1)]
-                      > M) & want & (keys < TQ4_KEYS)).sum())
     row_bytes = sum(int(np.prod(store.col_shape(k), dtype=np.int64))
                     * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
     nbytes = int(want.sum()) * 16 + fetched * (8 + row_bytes)
-    bound_ms = nbytes / HOST_LINK_BYTES_PER_S * 1e3
-    row = {"kernel_check": "cold_fetch", "case": "4096 keys, chains 0-20, compacted",
-           "lanes": COLD_FETCH_R, "rows_per_lane": M, "store_rows": len(store),
-           "retired": retired, "wanted": int(want.sum()), "fetched": fetched,
-           "lanes_truncated_at_M": truncated, "bit_identical": same, "max_abs_err": err,
-           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
+    row = {"kernel_check": "cold_fetch", "case": case, "lanes": keys.shape[0],
+           "rows_per_lane": M, "store_rows": len(store), **(extra or {}),
+           "wanted": int(want.sum()), "fetched": fetched, "bit_identical": same,
+           "max_abs_err": err, "kernel_ms": graph_ms(torch, kernel),
+           "kernel_eager_ms": time_ms(torch, kernel),
            "plain_ms": time_ms(torch, plain, iters=5, warmup=1), "library_ms": None,
            "bytes": nbytes, "counted": "host-link bytes: 16 a wanted lane, link and row "
-                                       "a row fetched", "bound_ms": bound_ms,
-           "bound_by": "bytes", "card": card}
+                                       "a row fetched",
+           "bound_ms": nbytes / HOST_LINK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "card": card}
     log(row)
     if not same:
-        raise AssertionError("cold_fetch: kernel differs from its plain version")
-    if not (retired and truncated and fetched):
-        raise AssertionError(f"cold_fetch: the case lacks a regime (retired {retired}, "
-                             f"truncated lanes {truncated}, fetched {fetched})")
+        raise AssertionError(f"cold_fetch [{case}]: kernel differs from its plain version")
+    return row, ref
+
+
+def widths_store(np, rng, widths=FETCH_WIDTHS, n_keys=2048, most=25):
+    """A multimap store with one column of each of ``widths`` (name: (dtype,
+    shape)): ``n_keys`` keys with chains of 0 to ``most`` rows appended in
+    rounds, then three keys whose home slot is the index's last, two rows
+    each, so the second and third wrap to the index's first slots. Returns
+    the store, those three keys and a fourth such key left absent (its probe
+    wraps too)."""
+    from windflow_tpu_torch.state import HostStore
+    widths = {k: (np.dtype(dt), sh) for k, (dt, sh) in widths.items()}
+    store = HostStore("widths", {k: dt for k, (dt, _) in widths.items()},
+                      {k: sh for k, (_, sh) in widths.items()}, unique=False, device="cuda")
+
+    def put(keys):
+        z = np.zeros(len(keys), np.int64)
+        store.append(keys, z, z, z, {k: rng.integers(-100, 100, (len(keys),) + sh).astype(dt)
+                                     for k, (dt, sh) in widths.items()})
+    per_key = rng.integers(0, most + 1, n_keys)
+    for r in range(int(per_key.max())):
+        put(np.flatnonzero(per_key > r).astype(np.int32))
+    lg = store._lg
+    ks = np.arange(1 << 13, (1 << 13) + (1 << 23), dtype=np.uint64)
+    home = (ks * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(64 - lg)
+    wrap = ks[home == (1 << lg) - 1][:4].astype(np.int32)
+    for _ in range(2):
+        put(wrap[:3])
+    slots = [int(np.flatnonzero((store._ikey == k) & (store._irow >= 0))[0]) for k in wrap[:3]]
+    if store._lg != lg or len(wrap) < 4 or min(slots) >= (1 << lg) - 1:
+        raise AssertionError(f"cold_fetch: no key wraps the index (lg {lg}, slots {slots})")
+    return store, wrap
+
+
+def fetch_cases(torch, np):
+    """Every input ``cold_fetch`` is checked and timed on: (case, store,
+    keys, want, M, extra). R = 2^14 lanes at M = 8 over a store of 4096
+    keys with chains of 0 to 20 rows (longer than M, so the truncation
+    shows), after compacting below ts 100 (rows retired in the middle of
+    chains); keys in 5000 (some absent), a fifth of the lanes not wanted.
+    Then row widths of 1, 2, 4, 8, 12, 16 and 24 bytes at M = 1, 8 and 20
+    over ``widths_store``, and records wider than the kernel stages
+    (``FETCH_WIDE``) at M = 8, each with lanes on the keys that wrap the
+    index."""
+    from windflow_tpu_torch.state import TierConfig
+
+    cfg = TierConfig()
+    rng = np.random.default_rng(21)
+    per_key = rng.integers(0, 21, TQ4_KEYS)
+    store = archive_store(np, cfg, "fetch", TQ4_KEYS, per_key, 22).store
+    retired = store.compact_below("ts", 100)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    keys = torch.randint(0, 5000, (COLD_FETCH_R,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    want = torch.rand((COLD_FETCH_R,), generator=gen, device="cuda") < 0.8
+    M = COLD_FETCH_M
+    truncated = int(((torch.from_numpy(per_key).cuda()[keys.long().clamp(max=TQ4_KEYS - 1)]
+                      > M) & want & (keys < TQ4_KEYS)).sum())
+    cases = [("4096 keys, chains 0-20, compacted", store, keys, want, M,
+              {"retired": retired, "lanes_truncated_at_M": truncated})]
+    for name, widths, ms, n_keys, most in (("widths 1-24 bytes", FETCH_WIDTHS, FETCH_WIDTH_MS,
+                                            2048, 25),
+                                           ("records over 1 KB", FETCH_WIDE, (COLD_FETCH_M,),
+                                            1024, 12)):
+        wstore, wrap = widths_store(np, rng, widths, n_keys, most)
+        wkeys = rng.integers(0, n_keys + n_keys // 4, FETCH_WIDTH_R).astype(np.int32)
+        wkeys[:64] = np.repeat(wrap, 16)
+        wkeys = torch.from_numpy(wkeys).cuda()
+        wwant = torch.rand((FETCH_WIDTH_R,), generator=gen, device="cuda") < 0.9
+        wwant[:64] = True
+        # record_bytes None: a store of an older tree (``--helper-times``)
+        extra = {"widths": {k: int(np.prod(sh, dtype=np.int64)) * np.dtype(dt).itemsize
+                            for k, (dt, sh) in widths.items()},
+                 "record_bytes": getattr(wstore, "record_bytes", None),
+                 "wrapped_keys": wrap.tolist()}
+        cases += [(f"{name}, M = {m}", wstore, wkeys, wwant, m, extra) for m in ms]
+    return cases
+
+
+def cold_fetch_phase(torch, np, card):
+    """The archive tier's multimap read against its plain version, bit for
+    bit (``fetch_case``), on every ``fetch_cases`` input: the main case
+    must retire, truncate and fetch rows, and the wrapped keys give their
+    rows as appended. Then a graph captured over a 2-row-a-key store, the
+    store grown to 2^18 rows, the graph replayed: the replay reads the grown
+    store and its links."""
+    from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_fetch_plain
+    from windflow_tpu_torch.state import TierConfig
+
+    main_row = None
+    for case, store, keys, want, m, extra in fetch_cases(torch, np):
+        row, ref = fetch_case(torch, np, card, case, store, keys, want, m, extra)
+        if main_row is None:
+            main_row = row
+            if not (extra["retired"] and extra["lanes_truncated_at_M"] and row["fetched"]):
+                raise AssertionError(f"cold_fetch: the case lacks a regime ({extra}, "
+                                     f"fetched {row['fetched']})")
+        elif int(ref[0][:48].sum()) != 48 * min(m, 2) or bool(ref[0][48:64].any()):
+            raise AssertionError(f"cold_fetch [{case}]: the wrapped keys' rows are not as "
+                                 f"appended")
     # a graph captured before the store grows reads the grown store
-    small = archive_store(np, cfg, "grow", 1 << 10, np.full(1 << 10, 2), 24).store
+    rng = np.random.default_rng(25)
+    M = COLD_FETCH_M
+    small = archive_store(np, TierConfig(), "grow", 1 << 10, np.full(1 << 10, 2), 24).store
     gkeys = torch.from_numpy(rng.integers(0, 1 << 10, 4096).astype(np.int32)).cuda()
     gwant = torch.ones((4096,), dtype=torch.bool, device="cuda")
     side = torch.cuda.Stream()
@@ -4651,7 +4920,39 @@ def cold_fetch_phase(torch, np, card):
     if not (gsame and grown and int(gref[0].sum()) == 4096 * M):
         raise AssertionError("cold_fetch: a graph captured before the store grew reads "
                              "stale memory")
-    return row
+    return main_row
+
+
+HELPER_PROBE_ROWS = 1 << 18   # helper_times' probe store: its keys
+
+
+def helper_times(torch, np, card):
+    """The helper kernels timed alone on their check inputs, nothing
+    checked: the float fold on every ``fold_cases`` input, ``cold_fetch`` on
+    every ``fetch_cases`` input and ``cold_probe`` at R = 49,152 over a
+    store of 2^18 keys (two columns; keys in twice the key space, a fifth of
+    the lanes not wanted). It calls only the wrappers and the store's public
+    methods, so the script copied into an older tree times that tree's
+    designs on the same inputs (``--helper-times``)."""
+    from windflow_tpu_torch.ops import segment as S
+    from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_probe_cuda
+    from windflow_tpu_torch.state import HostStore
+
+    for case, vals, seg, valid, Sn, _ in fold_cases(torch):
+        log({"helper_times": "segment_fold_float", "case": case, "card": card,
+             "ms": dev_ms(torch, lambda: S.segment_fold_float_cuda(vals, seg, valid, Sn))})
+    for case, store, keys, want, m, _ in fetch_cases(torch, np):
+        log({"helper_times": "cold_fetch", "case": case, "card": card,
+             "ms": graph_ms(torch, lambda: cold_fetch_cuda(store, keys, want, m))})
+    store = HostStore("probe", {"v0": np.int32, "v1": np.float32}, device="cuda")
+    k = np.arange(HELPER_PROBE_ROWS, dtype=np.int32)
+    store.upsert(k, k, k, k, {"v0": k * 3, "v1": k.astype(np.float32) / 7})
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    keys = torch.randint(0, 2 * HELPER_PROBE_ROWS, (COLD_PROBE_R,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
+    log({"helper_times": "cold_probe", "case": f"{HELPER_PROBE_ROWS}-key store, two columns",
+         "card": card, "ms": graph_ms(torch, lambda: cold_probe_cuda(store, keys, want))})
 
 
 def tq4_query(torch, wt, total, archive, tiered, window=TQ4_WINDOW):
@@ -5955,6 +6256,10 @@ def main() -> int:
     ap.add_argument("--split-only", action="store_true",
                     help="build, run the split of K1's and K3's time and stop, printing "
                          "no result line (also on an older tree, see split_phase)")
+    ap.add_argument("--helper-times", action="store_true",
+                    help="build, time the helper kernels on their check inputs and stop, "
+                         "printing no result line (also on an older tree, see "
+                         "helper_times)")
     args = ap.parse_args()
 
     import numpy as np
@@ -5976,11 +6281,11 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0), "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    probe_job = start_probe_build(cuda)
+    probe_job = None if args.helper_times else start_probe_build(cuda)
     try:
         built = cuda.build_all()
     finally:
-        probes = finish_probe_build(probe_job)
+        probes = probe_job and finish_probe_build(probe_job)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "built": sorted(built), "flags": " ".join(cuda.NVCC_FLAGS)})
     for stem, rep in built.items():
@@ -5988,6 +6293,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{stem}]: {line.strip()}")
 
+    if args.helper_times:
+        helper_times(torch, np, card)
+        return 0
     split_phase(torch, ysb, probes)
     if args.split_only:
         return 0
@@ -6026,7 +6334,7 @@ def main() -> int:
     sg_launches = supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s)
     shg_launches = sharded_graph_phase(torch, np, wt, registry, card, gw_parts)
     del gw_parts
-    fold_row = keyed_fold_checks(torch)
+    fold_row = fold_checks(torch)
     kcb_launches = keyed_cb_phase(torch, np, wt, registry, card, args.profile)
     ks_launches = keyed_stateful_phase(torch, np, wt, registry, card, args.profile)
     keyed_small_phase(torch, np, wt, registry)

@@ -288,3 +288,46 @@ def test_cold_probe_plain_is_the_jax_callback():
     res = cold_probe(tt.store, torch.from_numpy(probe), torch.from_numpy(want))
     assert [r.dtype for r in res] == [torch.bool] + [torch.int32] * 3 + [torch.float32,
                                                                          torch.int32]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("unique", [True, False])
+def test_rows_sit_in_records_read_by_the_card(unique, wide):
+    """A row's next-row link and value columns share one record
+    (``record_layout``): a multiple of 16 bytes, the link at byte 0, each
+    column at its element's alignment and clear of the others; the columns
+    are views of the records, so what the store writes (appends, a rebuild
+    after compaction, a restore) is what a record holds, and a multimap
+    record's link is the next row of its key's chain, as ``fetch_multi``
+    walks it. ``wide``: a 1.2 KB leaf, a record wider than the card's fetch
+    reads at once (it reads such a record a window at a time)."""
+    from windflow_tpu_torch.state.host_store import record_layout
+    cols = {"b": np.int8, "h": np.int16, "w": np.int64, "t": np.int32}
+    shapes = {"t": (300,) if wide else (3,), "w": (2,)}
+    st = TStore("r", cols, shapes, unique=unique)
+    size, offs = record_layout(st._dtypes, st._shapes)
+    assert size == st.record_bytes and size % 16 == 0 and (size > 1024) == wide
+    spans = sorted((offs[k], offs[k] + np.dtype(dt).itemsize
+                    * int(np.prod(shapes.get(k, ()), dtype=np.int64))) for k, dt in cols.items())
+    assert spans[0][0] >= 8 and spans[-1][1] <= size
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(offs[k] % np.dtype(dt).itemsize == 0 for k, dt in cols.items())
+    rng = np.random.default_rng(4)
+    keys, meta, vals, ok = rows(rng, 600, 40, cols, shapes)
+    (st.upsert if unique else st.append)(keys, *meta, vals, ok)
+    st.compact_below("m0", 2)
+    st.restore(st.manifest())
+    n = st._n
+    for k in cols:
+        col = st._cols[k][:n]
+        nb = col[0].nbytes
+        assert col.strides[0] == size
+        np.testing.assert_array_equal(st._rec[:n, offs[k]:offs[k] + nb],
+                                      np.ascontiguousarray(col).view(np.uint8).reshape(n, nb))
+    if not unique:
+        live = np.flatnonzero(st._live[:n])
+        got = st.fetch_multi(st._key[live], np.ones(len(live), bool), 64)[0]
+        for key in np.unique(st._key[live]):
+            chain = live[st._key[live] == key]
+            assert list(st._nxt[chain[:-1]]) == list(chain[1:]) and st._nxt[chain[-1]] == -1
+        assert got.sum() == sum(min(64, int((st._key[live] == k).sum())) for k in st._key[live])

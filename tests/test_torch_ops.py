@@ -9,7 +9,10 @@ CUDA kernel. All values are integers, so every comparison is exact.
 - K2 ``table_lookup`` (Pallas ``_pallas_factored_lookup``), with the ``take``
   branch for large or non-f32-exact tables, and the chain route
   (``traced=True``) against ``jax.jit(table_lookup)``;
-- K3 ``segment_fold`` (Pallas ``_pallas_segment_fold``), wrapping int32 sums.
+- K3 ``segment_fold`` (Pallas ``_pallas_segment_fold``), wrapping int32 sums;
+- the fixed-order float fold (``segment_reduce`` of floats: XLA's
+  ``segment_sum`` in the JAX package, ``index_add_`` on the port's CPU path),
+  byte for byte apart from NaN payloads.
 """
 
 import jax
@@ -250,3 +253,77 @@ def test_segment_reduce_sum_and_unported_combine():
     want = js.segment_reduce(jnp.asarray(vals["a"]), jnp.asarray(keys), jnp.asarray(valid),
                              9, combine=jnp.maximum, identity=-1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------- the fixed-order float fold
+
+#: float dtypes of the fold, with their JAX counterparts
+FLOAT_FOLD_DTYPES = {"float32": (torch.float32, jnp.float32),
+                     "float64": (torch.float64, jnp.float64),
+                     "float16": (torch.float16, jnp.float16),
+                     "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+#: the fold's regimes: one hot run of 2^16 lanes at S = 8; S = 2^14 with most
+#: segments empty; out-of-range and invalid lanes; -0.0, NaN and +-inf
+#: inputs; D = 3 trailing columns
+FLOAT_FOLD_CASES = ("hot_run", "sparse_S16384", "dropped_lanes", "specials", "D3")
+
+
+def _float_fold_case(case, seed):
+    rng = np.random.default_rng(seed)
+    C, S, D = 4096, 64, ()
+    if case == "hot_run":
+        C, S = 1 << 16, 8
+    elif case == "sparse_S16384":
+        S = 1 << 14
+    elif case == "D3":
+        D = (3,)
+    values = rng.standard_normal((C,) + D) * 3.0
+    seg = rng.integers(0, S, C).astype(np.int32)
+    valid = rng.random(C) < 0.9
+    if case == "hot_run":
+        seg[rng.random(C) < 0.95] = 5                  # one run of about 2^16 lanes
+    elif case == "sparse_S16384":
+        seg = rng.choice(rng.integers(0, S, 300), C).astype(np.int32)   # <= 300 live
+    elif case == "dropped_lanes":
+        seg = rng.integers(-40, S + 40, C).astype(np.int32)
+        valid = rng.random(C) < 0.5
+        values[~valid] = np.nan                         # masked out: never summed
+    elif case == "specials":
+        pick = rng.random(C)
+        values[pick < 0.2] = -0.0
+        values[(pick >= 0.2) & (pick < 0.21)] = np.inf
+        values[(pick >= 0.21) & (pick < 0.22)] = -np.inf
+        values[(pick >= 0.22) & (pick < 0.225)] = np.nan
+        seg[pick < 0.2] = rng.integers(0, 4, int((pick < 0.2).sum()))  # all -0.0 segments
+        seg[(seg < 4) & (pick >= 0.2)] += 4
+    return values, seg, valid, S
+
+
+@pytest.mark.parametrize("dtype", sorted(FLOAT_FOLD_DTYPES))
+@pytest.mark.parametrize("case", FLOAT_FOLD_CASES)
+def test_float_segment_reduce_matches_jax_bits(case, dtype):
+    """``segment_reduce`` of floats: the port's CPU fold (``index_add_``, the
+    bits the card's fixed-order fold is held to) against the JAX package's
+    ``segment_sum``, byte for byte on every non-NaN cell (compared as
+    integers) and NaN exactly where JAX has NaN. NaN payloads are not
+    compared: the CPU's own ``index_add_`` picks another payload where two
+    NaNs meet for D = 1 than for D > 1, and for bfloat16 its vectorised
+    path writes 0xffff."""
+    tdt, jdt = FLOAT_FOLD_DTYPES[dtype]
+    values, seg, valid, S = _float_fold_case(case, FLOAT_FOLD_CASES.index(case))
+    got = ts.segment_reduce(_t(values).to(tdt), _t(seg), _t(valid), S)
+    with jax.enable_x64(dtype == "float64"):
+        want = np.asarray(js.segment_reduce(jnp.asarray(values, dtype=jdt), jnp.asarray(seg),
+                                            jnp.asarray(valid), S))
+    assert got.dtype == tdt and tuple(got.shape) == want.shape == (S,) + values.shape[1:]
+    ints = {2: (torch.int16, np.int16), 4: (torch.int32, np.int32), 8: (torch.int64, np.int64)}
+    ti, ni = ints[got.element_size()]
+    g, w = got.view(ti).numpy(), want.view(ni)
+    g_nan, w_nan = torch.isnan(got).numpy(), np.isnan(want.astype(np.float64))
+    np.testing.assert_array_equal(g_nan, w_nan)
+    np.testing.assert_array_equal(np.where(g_nan, 0, g), np.where(w_nan, 0, w))
+    if case == "specials":
+        assert g_nan.any() and np.isinf(want.astype(np.float64)).any()
+        assert not np.signbit(want.astype(np.float64)[:4]).any()   # -0.0 runs give +0.0
+    if case == "sparse_S16384":
+        assert (got == 0).sum() > S // 2

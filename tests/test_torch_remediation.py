@@ -21,6 +21,7 @@ and then by the SLO engine in the live drivers: ``Pipeline.run`` binds
 """
 
 import json
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -630,18 +631,48 @@ def _live_cfg(pkg, out, actions):
              remediation_cooldown_s=3600.0)
 
 
+#: batches of the live runs, and the offered batches a threaded run's tick waits for
+LIVE_BATCHES = 20
+LIVE_TICK_OFFERS = 4
+
+
+def _offered(p) -> int:
+    """Batches the run's admission has offered so far, read under its lock
+    (the control counters a snapshot reads move inside that lock too)."""
+    adm = p._admission
+    with adm._lock:
+        return adm.admitted + adm.shed
+
+
 def _live_run(pkg, tmp_path, driver, actions, autotune=False):
     """Win_Seq over 20 batches of 20 under admission (a positional bucket of
     half a batch a batch: every other batch shed) through ``driver``, the
     sink ticking the reporter after every delivery. Returns (rows,
-    remediation records, the run's monitor)."""
-    got, holder = [], {}
+    remediation records, the run's monitor).
+
+    Under ``ThreadedPipeline`` the drop ratio a tick reads is the traffic the
+    source thread offered since the last tick, so the ticks must not depend
+    on how far that thread ran ahead: the rings hold one batch an edge, and
+    before each tick the sink waits until the source has offered
+    ``LIVE_TICK_OFFERS`` more batches than at the last one (or all of them).
+    Four offers after the first three batches always hold a shed one, so
+    the first two ticks both violate and the page comes at the second,
+    however the threads are scheduled."""
+    got, holder, seen = [], {}, [0]
     collect = _collect(got)
 
     def cb(view):
         collect(view)
-        if view is not None:
-            holder["p"]._monitor.reporter.emit()
+        if view is None:
+            return
+        p = holder["p"]
+        if driver == "threaded":
+            want = min(LIVE_BATCHES, seen[0] + LIVE_TICK_OFFERS)
+            deadline = time.monotonic() + 60.0
+            while _offered(p) < want and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            seen[0] = _offered(p)
+        p._monitor.reporter.emit()
     Xm, kw = X[pkg], KW[pkg]
     ctl = CTL[pkg].ControlConfig(autotune=autotune, backpressure=False, admission=True,
                                  refill_per_batch=10.0, burst_tuples=40.0,
@@ -649,11 +680,13 @@ def _live_run(pkg, tmp_path, driver, actions, autotune=False):
     mon = _live_cfg(pkg, tmp_path / f"{pkg}-{driver}", actions)
     with Journal(pkg, tmp_path / f"{pkg}-{driver}.jsonl") as j:
         if driver == "pipeline":
-            p = Xm.Pipeline(_src(pkg, 400, 4), [_op(pkg, 4)], Xm.Sink(cb, **kw),
-                            batch_size=20, control=ctl, monitoring=mon, **kw)
+            p = Xm.Pipeline(_src(pkg, 20 * LIVE_BATCHES, 4), [_op(pkg, 4)],
+                            Xm.Sink(cb, **kw), batch_size=20, control=ctl, monitoring=mon,
+                            **kw)
         else:
-            p = Xm.ThreadedPipeline(_src(pkg, 400, 4), [[_op(pkg, 4)]], Xm.Sink(cb, **kw),
-                                    batch_size=20, control=ctl, monitoring=mon, **kw)
+            p = Xm.ThreadedPipeline(_src(pkg, 20 * LIVE_BATCHES, 4), [[_op(pkg, 4)]],
+                                    Xm.Sink(cb, **kw), batch_size=20, queue_capacity=1,
+                                    control=ctl, monitoring=mon, **kw)
         holder["p"] = p
         p.run()
         # the monitor's journal holds the records the engine wrote

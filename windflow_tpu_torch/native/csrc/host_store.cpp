@@ -2,9 +2,10 @@
 // HostStore (windflow_tpu_torch/state/host_store.py).
 //
 // The store keeps its rows in columns (key, live, the (m0, m1, m2) meta
-// triplet, one array per value column, and a next-row link per row); this
-// file keeps the index from key to row and does the per-row work of the
-// store's writes and probes in one C pass each. The index is a table of
+// triplet) and in records (a row's next-row link, then its value columns, a
+// record every `ns` int64 words: the link is nxt[row * ns]); this file keeps
+// the index from key to row and does the per-row work of the store's writes
+// and probes in one C pass each. The index is a table of
 // 2^lg slots, each (key, head row, tail row), linear probing from the slot
 // `(uint64)key * 0x9E3779B97F4A7C15 >> (64 - lg)` (unsigned, so a negative
 // key hashes like any other); a slot whose head row is -1 is empty. A unique
@@ -13,10 +14,10 @@
 // at most half full. Deletion shifts the following run back, so no slot is
 // ever a tombstone.
 //
-// On the card the index's key and head arrays, the meta and the value
-// columns live in pinned, mapped host memory, and the kernel
-// windflow_tpu_torch/ops/csrc/cold_probe.cu reads them with the same hash
-// and probe order: the two must stay equal.
+// On the card the index's key and head arrays, the meta and the records live
+// in pinned, mapped host memory, and the kernels of
+// windflow_tpu_torch/ops/csrc/cold_probe.cu read them with the same hash and
+// probe order: the two must stay equal.
 //
 // Plain C ABI, bound with ctypes. All pointers are caller-owned; the caller
 // makes room for every row a call may append before the call.
@@ -48,8 +49,8 @@ inline uint64_t free_slot(const int64_t* irow, int lg, int64_t key) {
 
 // link row as the newest row of key (a new slot, or the tail of its chain)
 inline void link_row(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
-                     int64_t* nxt, int64_t key, int64_t row) {
-    nxt[row] = -1;
+                     int64_t* nxt, int64_t ns, int64_t key, int64_t row) {
+    nxt[row * ns] = -1;
     int64_t s = find(ikey, irow, lg, key);
     if (s < 0) {
         uint64_t f = free_slot(irow, lg, key);
@@ -57,7 +58,7 @@ inline void link_row(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
         irow[f] = row;
         itail[f] = row;
     } else {
-        nxt[itail[s]] = row;
+        nxt[itail[s] * ns] = row;
         itail[s] = row;
     }
 }
@@ -84,7 +85,7 @@ extern "C" {
 // apply. Returns the number of lanes applied.
 int64_t wf_hs_upsert(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
                      int64_t* skey, uint8_t* live, int64_t* meta, int64_t* nxt,
-                     int64_t* n, const int64_t* keys, const int64_t* m0,
+                     int64_t ns, int64_t* n, const int64_t* keys, const int64_t* m0,
                      const int64_t* m1, const int64_t* m2, const uint8_t* ok,
                      int64_t r, int64_t* dest) {
     int64_t applied = 0;
@@ -94,7 +95,7 @@ int64_t wf_hs_upsert(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
         const int64_t s = find(ikey, irow, lg, keys[i]);
         if (s < 0) {
             const int64_t row = append_row(skey, live, meta, n, keys[i], m0[i], m1[i], m2[i]);
-            link_row(ikey, irow, itail, lg, nxt, keys[i], row);
+            link_row(ikey, irow, itail, lg, nxt, ns, keys[i], row);
             dest[i] = row;
             ++applied;
             continue;
@@ -118,7 +119,7 @@ int64_t wf_hs_upsert(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
 // chain. dest[i] is the row, -1 for a lane not ok. Returns the rows appended.
 int64_t wf_hs_append(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
                      int64_t* skey, uint8_t* live, int64_t* meta, int64_t* nxt,
-                     int64_t* n, const int64_t* keys, const int64_t* m0,
+                     int64_t ns, int64_t* n, const int64_t* keys, const int64_t* m0,
                      const int64_t* m1, const int64_t* m2, const uint8_t* ok,
                      int64_t r, int64_t* dest) {
     int64_t added = 0;
@@ -126,7 +127,7 @@ int64_t wf_hs_append(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
         dest[i] = -1;
         if (!ok[i]) continue;
         const int64_t row = append_row(skey, live, meta, n, keys[i], m0[i], m1[i], m2[i]);
-        link_row(ikey, irow, itail, lg, nxt, keys[i], row);
+        link_row(ikey, irow, itail, lg, nxt, ns, keys[i], row);
         dest[i] = row;
         ++added;
     }
@@ -154,7 +155,7 @@ int64_t wf_hs_lookup(const int64_t* ikey, const int64_t* irow, int lg,
 // The first m rows of each wanted key's chain, oldest first: out_rows[i * m
 // + t], -1 past the chain's end.
 void wf_hs_fetch(const int64_t* ikey, const int64_t* irow, int lg, const int64_t* nxt,
-                 const int64_t* keys, const uint8_t* want, int64_t r, int64_t m,
+                 int64_t ns, const int64_t* keys, const uint8_t* want, int64_t r, int64_t m,
                  int64_t* out_rows) {
     for (int64_t i = 0; i < r; ++i) {
         int64_t row = -1;
@@ -164,7 +165,7 @@ void wf_hs_fetch(const int64_t* ikey, const int64_t* irow, int lg, const int64_t
         }
         for (int64_t t = 0; t < m; ++t) {
             out_rows[i * m + t] = row;
-            if (row >= 0) row = nxt[row];
+            if (row >= 0) row = nxt[row * ns];
         }
     }
 }
@@ -199,11 +200,12 @@ void wf_hs_remove(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
 // Rebuild the index from the live rows in ascending row order (a multimap
 // key's chain then runs oldest row first).
 void wf_hs_reindex(int64_t* ikey, int64_t* irow, int64_t* itail, int lg,
-                   const int64_t* skey, const uint8_t* live, int64_t* nxt, int64_t n) {
+                   const int64_t* skey, const uint8_t* live, int64_t* nxt, int64_t ns,
+                   int64_t n) {
     const uint64_t slots = 1ull << lg;
     for (uint64_t s = 0; s < slots; ++s) irow[s] = -1;
     for (int64_t i = 0; i < n; ++i)
-        if (live[i]) link_row(ikey, irow, itail, lg, nxt, skey[i], i);
+        if (live[i]) link_row(ikey, irow, itail, lg, nxt, ns, skey[i], i);
 }
 
 }  // extern "C"

@@ -25,9 +25,11 @@ up to ``M`` rows a wanted lane's key, oldest first, ``(mask [R, M] bool, one
 [R, M, ...] tensor per value column in the store's column order)``, zeros
 past a chain's end. On the card it is the second entry point of
 ``csrc/cold_probe.cu`` (a helper kernel too, registered as ``cold_fetch``),
-which walks the store's next-row links in mapped memory; its plain version is
-``HostStore.fetch_multi``. The fetch is read-only in both packages: it counts
-no readmission.
+which walks the store's next-row links in mapped memory, a group of threads
+a lane reading each row's record (its link and value columns) in 16-byte
+chunks (a KB at a time, so a record may be of any width); its plain
+version is ``HostStore.fetch_multi``. The fetch is
+read-only in both packages: it counts no readmission.
 
 Inside a static-analysis trace (``analysis/progcheck.py``: fake tensors under
 the registry's plain selection) both reads give their kernel's outputs
@@ -47,20 +49,23 @@ from .registry import count_launch, on_card, traced
 
 #: value columns the kernel takes (its ``WF_COLD_MAXC``)
 MAX_COLS = 16
-#: descriptor word of the next-row links (its ``WF_COLD_NXT``) and of the
-#: first column's base (its ``WF_COLD_COL0``)
-DESC_NXT = 5
-DESC_COL0 = 6
+#: descriptor words of the records' base (its ``WF_COLD_REC``: a row's
+#: next-row link, then its value columns; ``state/host_store.py::
+#: record_layout``), of a record's bytes (``WF_COLD_REC_BYTES``) and of the
+#: first column's (offset in a record, bytes a row) (``WF_COLD_COL0``)
+DESC_REC = 5
+DESC_REC_BYTES = 6
+DESC_COL0 = 7
 #: int64 words of the descriptor (its ``WF_COLD_DESC``): index keys, index
-#: heads, lg, meta, column count, next-row links, then (base, bytes a row) a
-#: column
+#: heads, lg, meta, column count, records, record bytes, then (offset, bytes
+#: a row) a column
 DESC_WORDS = DESC_COL0 + 2 * MAX_COLS
 
 _P = ctypes.POINTER
 _ALLOC_ARGTYPES = [ctypes.c_longlong, _P(ctypes.c_void_p), _P(ctypes.c_void_p)]
 _PROBE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-_FETCH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+_FETCH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -216,11 +221,12 @@ def cold_fetch_cuda(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
     fn = cuda.function("cold_probe", "wf_cold_fetch", _FETCH_ARGTYPES)
     count_launch("cold_fetch")
     cuda.check(fn(ctypes.c_void_p(store.descriptor_address()), cuda.ptr(keys),
-                  cuda.ptr(want), R, M, cuda.ptr(mask), outs, len(cols),
+                  cuda.ptr(want), R, M, store.record_bytes, cuda.ptr(mask), outs, len(cols),
                   cuda.stream_ptr(dev)), "cold_fetch_cuda")
     return (mask, *cols)
 
 
-__all__ = ["MAX_COLS", "DESC_NXT", "DESC_COL0", "DESC_WORDS", "MappedBuffer",
+__all__ = ["MAX_COLS", "DESC_REC", "DESC_REC_BYTES", "DESC_COL0", "DESC_WORDS",
+           "MappedBuffer",
            "cold_probe", "cold_probe_plain", "cold_probe_cuda", "cold_fetch",
            "cold_fetch_plain", "cold_fetch_cuda"]

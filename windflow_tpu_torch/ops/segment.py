@@ -27,19 +27,23 @@ served S <= 4096 only (``FOLD_MAX_SEGMENTS``, XLA above); the port's serves
 any S, since the result is the same.
 
 Float values are not a TPU kernel's job (the JAX package leaves them to
-XLA's ``segment_sum``, which sums each segment from +0.0 in stream order). On
-a CPU tensor ``index_add_`` gives those bits. On the card ``index_add_``
+XLA's ``segment_sum``, which sums each segment from +0.0 in stream order,
+rounding after every add). On a CPU tensor ``index_add_`` gives those bits
+(see :func:`_index_add_fold` for float16 and bfloat16 rows). On the card ``index_add_``
 would use float atomics, which sum in no fixed order, so a CUDA float fold
-goes through a small helper instead (``csrc/segment.cu``,
+goes through a helper kernel instead (``csrc/segment.cu``,
 ``wf_segment_fold_ordered``, registry name ``segment_fold_float``): a stable
-sort of the lanes by segment, then one thread per segment summing its run in
-stream order. Its bits equal the CPU's on every run.
+sort of the lanes by segment, then each run summed in stream order: a short
+run by one thread, a long one streamed by a block through shared memory
+(rows of several columns: a thread a column of a segment). Its bits equal
+the CPU's on every run (NaN payloads aside).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Any, Callable
 
 import torch
@@ -62,9 +66,16 @@ FOLD_FLUSHES = ("workspace_reduce", "atomic")
 #: integer dtypes K3 takes, with the code its C entry point expects
 _FOLD_DTYPES = {torch.int32: 0, torch.int16: 1, torch.int8: 2, torch.uint8: 3}
 
-#: C signature of the ordered float fold (pointers and the stream as void*)
-_ORDERED_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+#: C signature of the ordered float fold (rows, keys, segment starts or
+#: null, out, work list; C, S, D, dtype; the stream)
+_ORDERED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+#: lanes from which the ordered fold streams a one-column run by a block (its
+#: ``WF_RUN_LONG``): its work list holds at most C // FOLD_RUN_LONG runs
+FOLD_RUN_LONG = 256
+#: rows of padding after the gathered rows: the streaming block reads whole
+#: 16-byte spans
+_ROW_PAD = 16
 
 #: float dtypes the ordered fold takes, with the code its C entry point expects
 _ORDERED_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -165,24 +176,37 @@ def segment_fold_cuda(values, seg, valid, S: int, *, stats=None) -> torch.Tensor
 def _index_add_fold(values, seg, valid, S: int) -> torch.Tensor:
     """Segment sum outside K3's domain (floats, int64, trailing dims): plain
     ``index_add_`` into a spill row that collects dropped lanes; on a CUDA
-    float tensor, the ordered fold (fixed bits, equal to the CPU's)."""
+    float tensor, the ordered fold (fixed bits, equal to the CPU's).
+
+    float16 and bfloat16 values with trailing dims fold as one 1-D
+    ``index_add_`` over ``(segment, column)`` cells: on the CPU a 2-D
+    ``index_add_`` of them sums in float32 and rounds once (torch 2.13),
+    where the 1-D one rounds after every add, as XLA's ``segment_sum``
+    does."""
     if values.dtype.is_floating_point and on_card("segment_fold_float", values):
         return segment_fold_float_cuda(values, seg, valid, S)
+    dev = values.device
     ok = valid & (seg >= 0) & (seg < S)
     m = ok.reshape(ok.shape + (1,) * (values.ndim - 1))
-    out = torch.zeros((S + 1,) + tuple(values.shape[1:]), dtype=values.dtype,
-                      device=values.device)
-    out.index_add_(0, torch.where(ok, seg, S).long(),
-                   torch.where(m, values, torch.zeros((), dtype=values.dtype,
-                                                      device=values.device)))
-    return out[:S]
+    masked = torch.where(m, values, torch.zeros((), dtype=values.dtype, device=dev))
+    tail = tuple(values.shape[1:])
+    cell = torch.where(ok, seg, S).long()
+    if values.ndim > 1 and values.dtype in (torch.float16, torch.bfloat16):
+        D = math.prod(tail)
+        cell = (cell[:, None] * D + torch.arange(D, device=dev)).reshape(-1)
+        out = torch.zeros(((S + 1) * D,), dtype=values.dtype, device=dev)
+        return out.index_add_(0, cell, masked.reshape(-1)).reshape((S + 1,) + tail)[:S]
+    out = torch.zeros((S + 1,) + tail, dtype=values.dtype, device=dev)
+    return out.index_add_(0, cell, masked)[:S]
 
 
 def segment_fold_float_cuda(values, seg, valid, S: int) -> torch.Tensor:
     """Float segment sum on the card in stream order per segment: a stable
-    sort of the lanes by segment, each segment's run found by
-    ``searchsorted``, then ``wf_segment_fold_ordered`` sums every run in
-    order. Raises on anything the helper does not take."""
+    sort of the lanes by segment (dropped lanes last), their rows gathered
+    in that order, each segment's start found by ``searchsorted`` where S
+    <= C or the rows have several columns (else the kernel finds the runs
+    itself), then ``wf_segment_fold_ordered`` sums every run in order (see
+    ``csrc/segment.cu``). Raises on anything the helper does not take."""
     dev = values.device
     C = values.shape[0]
     if values.dtype not in _ORDERED_DTYPES or seg.shape != (C,) or valid.shape != (C,) \
@@ -197,17 +221,22 @@ def segment_fold_float_cuda(values, seg, valid, S: int) -> torch.Tensor:
     for n in values.shape[1:]:
         D *= int(n)
     out = torch.empty((S,) + tuple(values.shape[1:]), dtype=values.dtype, device=dev)
-    if S == 0 or D == 0:
+    if S == 0 or D == 0 or C == 0:
         return out.zero_()
     ok = valid & (seg >= 0) & (seg < S)
     sorted_seg, perm = torch.sort(torch.where(ok, seg.to(torch.int32), S), stable=True)
-    rows = values.reshape(C, D).index_select(0, perm).contiguous()
-    starts = torch.searchsorted(sorted_seg, torch.arange(S + 1, dtype=torch.int32,
-                                                         device=dev))
+    rows = torch.empty((C + _ROW_PAD, D), dtype=values.dtype, device=dev)
+    torch.index_select(values.reshape(C, D), 0, perm, out=rows[:C])
+    starts = None
+    if D > 1 or S <= C:
+        starts = torch.searchsorted(sorted_seg, torch.arange(S + 1, dtype=torch.int32,
+                                                             device=dev))
+    work = torch.empty((1 + 3 * (C // FOLD_RUN_LONG + 1),), dtype=torch.int64, device=dev)
     fn = cuda.function("segment", "wf_segment_fold_ordered", _ORDERED_ARGTYPES)
     count_launch("segment_fold_float")
-    cuda.check(fn(cuda.ptr(rows), cuda.ptr(starts), cuda.ptr(out), S, D,
-                  _ORDERED_DTYPES[values.dtype], cuda.stream_ptr(dev)),
+    cuda.check(fn(cuda.ptr(rows), cuda.ptr(sorted_seg),
+                  None if starts is None else cuda.ptr(starts), cuda.ptr(out), cuda.ptr(work),
+                  C, S, D, _ORDERED_DTYPES[values.dtype], cuda.stream_ptr(dev)),
                "segment_fold_float_cuda")
     return out
 

@@ -27,9 +27,13 @@ rows a key, oldest first, without removing them).
 Where the JAX store keeps a Python dict from key to row (or list of rows),
 this one keeps an open-addressing index (``native/csrc/host_store.cpp``: its
 hash, probe order and per-row write and probe passes, each one C call) and a
-next-row link a row (a multimap key's rows in append order). With
-``device`` a CUDA device, the index's key and head arrays, the meta, the
-next-row links and the value columns live in pinned, mapped host memory
+next-row link a row (a multimap key's rows in append order). A row's link
+and value columns sit together in one record (:func:`record_layout`: a
+multiple of 16 bytes; each column is a strided numpy view of the records),
+so the card reads a row and its link over the host link in as few requests
+as the record has 16-byte chunks, where a column an array took a request a
+column. With ``device`` a CUDA device, the index's key and head arrays, the
+meta and the records live in pinned, mapped host memory
 (:class:`~windflow_tpu_torch.ops.cold_probe.MappedBuffer`), and a fixed
 mapped descriptor holds their device addresses: when the store grows or is
 restored only the descriptor changes, so a CUDA graph captured before stays
@@ -72,6 +76,20 @@ def _cp(a: np.ndarray):
     return a.ctypes.data
 
 
+def record_layout(dtypes: Dict[str, np.dtype], shapes: Dict[str, tuple]
+                  ) -> Tuple[int, Dict[str, int]]:
+    """Bytes a record (a multiple of 16) and each column's byte offset in
+    it: the next-row link (int64) first, then the columns from the widest
+    element down, each at its element's alignment."""
+    offs, off = {}, 8
+    for k in sorted(dtypes, key=lambda c: -dtypes[c].itemsize):
+        a = dtypes[k].itemsize
+        off = -(-off // a) * a
+        offs[k] = off
+        off += a * int(np.prod(shapes[k], dtype=np.int64))
+    return -(-off // 16) * 16, offs
+
+
 class HostStore:
     """Growable host-memory column store keyed by int join keys.
 
@@ -87,6 +105,7 @@ class HostStore:
         self._dtypes = {k: np.dtype(v) for k, v in cols.items()}
         self._shapes = {k: tuple(col_shapes.get(k, ())) if col_shapes else ()
                         for k in cols}
+        self._rec_bytes, self._offs = record_layout(self._dtypes, self._shapes)
         self.device = None if device is None else torch.device(device)
         self._mapped = self.device is not None and self.device.type == "cuda"
         if self._mapped and self.device.index is None:
@@ -120,6 +139,11 @@ class HostStore:
 
     def col_shape(self, col: str) -> tuple:
         return self._shapes[col]
+
+    @property
+    def record_bytes(self) -> int:
+        """Bytes of a row's record (its next-row link and value columns)."""
+        return self._rec_bytes
 
     def descriptor_address(self) -> int:
         """Device address of the mapped descriptor (``ops/csrc/cold_probe.cu``)."""
@@ -172,12 +196,14 @@ class HostStore:
         lg = max(1, int(2 * cap - 1).bit_length())
         key, _ = self._new((cap,), np.int64, bufs, False)
         live, _ = self._new((cap,), np.bool_, bufs, False)
-        nxt, nxt_dev = self._new((cap,), np.int64, bufs, True)
+        rec, rec_dev = self._new((cap, self._rec_bytes), np.uint8, bufs, True)
+        nxt = rec[:, :8].view(np.int64)[:, 0]
         meta, meta_dev = self._new((cap, 3), np.int64, bufs, True)
-        cols, col_devs = {}, []
+        cols = {}
         for k, dt in self._dtypes.items():
-            cols[k], d = self._new((cap,) + self._shapes[k], dt, bufs, True)
-            col_devs.append(d)
+            o = self._offs[k]
+            nb = dt.itemsize * int(np.prod(self._shapes[k], dtype=np.int64))
+            cols[k] = rec[:, o:o + nb].view(dt).reshape((cap,) + self._shapes[k])
         ikey, ikey_dev = self._new((1 << lg,), np.int64, bufs, True)
         irow, irow_dev = self._new((1 << lg,), np.int64, bufs, True)
         itail, _ = self._new((1 << lg,), np.int64, bufs, False)
@@ -189,18 +215,19 @@ class HostStore:
                 cols[k][:keep] = self._cols[k][:keep]
         self._cap, self._lg = cap, lg
         self._key, self._live, self._nxt, self._meta, self._cols = key, live, nxt, meta, cols
+        self._rec = rec
         self._ikey, self._irow, self._itail = ikey, irow, itail
         self._n = getattr(self, "_n", 0) if keep else 0
         self._reindex()
         if self._mapped:
             if self._bufs:
                 self._sync()     # no launch reads the descriptor or the old arrays
-            from ..ops.cold_probe import DESC_COL0, DESC_NXT
+            from ..ops.cold_probe import DESC_COL0, DESC_REC, DESC_REC_BYTES
             d = self._desc
             d[0], d[1], d[2], d[3], d[4] = ikey_dev, irow_dev, lg, meta_dev, len(cols)
-            d[DESC_NXT] = nxt_dev
-            for c, (k, dev) in enumerate(zip(cols, col_devs)):
-                d[DESC_COL0 + 2 * c] = dev
+            d[DESC_REC], d[DESC_REC_BYTES] = rec_dev, self._rec_bytes
+            for c, k in enumerate(cols):
+                d[DESC_COL0 + 2 * c] = self._offs[k]
                 d[DESC_COL0 + 2 * c + 1] = int(np.prod(self._shapes[k], dtype=np.int64)) \
                     * self._dtypes[k].itemsize
             self._bufs = bufs    # the replaced buffers are freed here
@@ -217,7 +244,7 @@ class HostStore:
 
     def _reindex(self) -> None:
         _native().wf_hs_reindex(*self._index_args(), _cp(self._key), _cp(self._live),
-                                _cp(self._nxt), self._n)
+                                _cp(self._nxt), self._rec_bytes // 8, self._n)
 
     def _rebuild(self) -> None:
         """Compact away dead rows (holes) when they dominate the storage."""
@@ -246,7 +273,7 @@ class HostStore:
         dest = np.empty(r, np.int64)
         done = getattr(_native(), fn)(
             *self._index_args(), _cp(self._key), _cp(self._live), _cp(self._meta),
-            _cp(self._nxt), _cp(n), _cp(k64), _cp(a), _cp(b), _cp(c),
+            _cp(self._nxt), self._rec_bytes // 8, _cp(n), _cp(k64), _cp(a), _cp(b), _cp(c),
             _cp(ok.view(np.uint8)), r, _cp(dest))
         self._n = int(n[0])
         lanes = np.flatnonzero(dest >= 0)
@@ -314,8 +341,8 @@ class HostStore:
         rows = np.empty((r, m), np.int64)
         with self._lock:
             _native().wf_hs_fetch(_cp(self._ikey), _cp(self._irow), self._lg,
-                                  _cp(self._nxt), _cp(keys), _cp(want.view(np.uint8)),
-                                  r, m, _cp(rows))
+                                  _cp(self._nxt), self._rec_bytes // 8, _cp(keys),
+                                  _cp(want.view(np.uint8)), r, m, _cp(rows))
             mask = rows >= 0
             j = rows[mask]
             meta = np.zeros((r, m, 3), np.int64)
