@@ -11,7 +11,8 @@ Run from the repository root on a machine with the card:
                                        # copied with PROBES_SRC into another
                                        # tree, it splits that tree's kernels
     python3 chip_smoke.py --helper-times # the fold's, cold_fetch's and
-                                       # cold_probe's times on their check
+                                       # cold_probe's (2^18 keys, q3's
+                                       # shape) times on their check
                                        # inputs, nothing checked, then stops;
                                        # copied into another tree, it times
                                        # that tree's designs
@@ -218,11 +219,18 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     byte between the two, ``overflow_drops == 0``, K5 four times and
     ``cold_probe`` once an apply, counted through the replays; ms and p99 of
     a step;
-33. ``cold_probe`` (kernel check): the cold-tier probe against its plain
-    version (the store's host lookup) bit for bit at R = 49,152 over that
-    1.6 M-row store (hits, misses, unwanted lanes), and a graph captured
-    before a store grew, replayed after; its time and its bound (host-link
-    bytes over 64 GB/s);
+33. ``cold_probe`` (kernel check, after ``link_reads``: the host link's
+    rate of 16-byte system-scope reads of random lines, a probe of
+    ``PROBES_SRC``): the cold-tier probe against its plain version (the
+    store's host lookup) bit for bit at R = 49,152 over that 1.6 M-row
+    store (hits, misses, unwanted lanes; then every lane a hit, every lane
+    a miss), over a 2^18-key store as built, after a reindexing
+    ``compact_below``, after ``pop_keys``' backward shifts and after a
+    restore that fits, and graphs captured before a store grew (by upserts,
+    by a restore), replayed after; the index mirror equal to the host index
+    after each write; ``cold_scatter`` (the mirror's upkeep) against its
+    plain version; the whole index's upload timed; times and bounds (link
+    reads over the measured rate, device bytes over 3.35 TB/s);
 34. ``tiered_queries``: q5, q6 and q7 at 2^14 tiered (``TIERED_QUERIES``),
     eager and at K = 4: the untiered rows (the dense oracle), byte for byte
     between the two, each apply's K2, K3, K4, K5 and ``cold_probe``
@@ -251,7 +259,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     and one of 1072-byte records (wider than the kernel stages) at M = 8,
     with keys whose probe wraps the index (``fetch_cases``); and a graph
     captured before the store grew 128x, replayed after; its time and its
-    bound (host-link bytes over 64 GB/s);
+    bound (as ``cold_probe``'s);
 39. ``tiered_q4``: q4 at 2^14 tiered (the dense oracle, ``cold_fetch`` twice
     an apply), then q4's operator over the ring-overwrite stream at full
     width (``tq4_query``: archive 2^14, a window of 24,576 ticks): the rows
@@ -346,8 +354,9 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     the hand kernels (advisory);
 45. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
-    tiered q3's and ``cold_fetch`` at tiered q4's, launches summed over the
-    paths, each counted from zero just before it), then the result line
+    tiered q3's, ``cold_fetch`` at tiered q4's and ``cold_scatter`` over
+    tiered q3's index, launches summed over the paths, each counted from
+    zero just before it), then the result line
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Phase 3 also holds K4 at the Ordering_Node's shapes (merges of [1, 8192]
@@ -1838,6 +1847,15 @@ def run_pipeline(torch, registry, pipe, k=None):
     return registry.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
+def step_launches(counts):
+    """Launch counts (a dict, or a tuple of them) without ``cold_scatter``:
+    the stores' mirror upkeep follows the maintenance cadence (once a group
+    at K), not the steps; ``expect_launches`` holds it against the stores."""
+    if isinstance(counts, dict):
+        return {c: v for c, v in counts.items() if c != "cold_scatter"}
+    return tuple(step_launches(c) for c in counts)
+
+
 def check_dispatch(np, what, k, batches, off, on, graphs):
     """A dispatch run against the dispatch-off run of the same phase
     (``off``/``on``: (sink rows, launches)): the sink rows byte for byte,
@@ -1855,7 +1873,7 @@ def check_dispatch(np, what, k, batches, off, on, graphs):
     log(row)
     if replays != want or want[k] < 2:
         raise AssertionError(f"{what} dispatch: graph replays {replays}, expected {want}")
-    if on[1] != off[1]:
+    if step_launches(on[1]) != step_launches(off[1]):
         raise AssertionError(f"{what} dispatch: launches {on[1]}, dispatch off {off[1]}")
     if not same:
         raise AssertionError(f"{what} dispatch: sink rows differ from the dispatch-off run")
@@ -2186,10 +2204,45 @@ def run_with_flush_launches(registry, pipe, op_index):
     return applied, flushed["launches"], flushed["calls"]
 
 
-def expect_launches(what, got, per, n):
+def expect_launches(what, got, per, n, scatters=0):
+    """``got`` is ``per`` an apply times ``n`` applies, and ``scatters``
+    launches of the host stores' mirror upkeep (``cold_scatter``: one a
+    store write that changed index slots, which the tiered paths' stores
+    count, ``mirror_scatters``; none elsewhere)."""
     want = {k: per.get(k, 0) * n for k in got}
+    if scatters or "cold_scatter" in got:
+        want["cold_scatter"] = scatters
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def tier_stores(ops):
+    """The host stores of every tiered operator in ``ops``."""
+    return [t.store for op in ops for t in op.tier_controllers()]
+
+
+def mirror_scatters(stores):
+    """The ``cold_scatter`` launches the stores' writes made."""
+    return sum(st.mirror_scatters for st in stores)
+
+
+def check_mirrors(torch, what, stores):
+    """Each store's index mirror in the card's memory equals its host index
+    (read after the copies in flight land); the stores' mirror upkeep is
+    logged. Fails where stores that hold rows made no scatter."""
+    torch.cuda.synchronize()
+    for st in stores:
+        if not torch.equal(st.mirror.cpu(), torch.from_numpy(st.index_slots())):
+            raise AssertionError(f"{what}: store {st.name!r}'s mirror differs from its "
+                                 f"host index")
+    row = {"mirror_check": what, "stores": len(stores),
+           "scatters": mirror_scatters(stores),
+           "uploads": sum(st.mirror_uploads for st in stores),
+           "rows": sum(len(st) for st in stores)}
+    log(row)
+    if row["rows"] and not row["scatters"]:
+        raise AssertionError(f"{what}: the stores hold rows and made no cold_scatter")
+    return row
 
 
 def path_a_source(wt, batches):
@@ -3950,7 +4003,9 @@ def tiered_q3_profile(torch, wt, make, b, n_def, ms_per_step):
     """torch.profiler over tiered q3's probe pushes (after its definition
     pushes, unprofiled): device busy ms and kernels a step, the idle share
     against the unprofiled step, the kernels with the most device time, and
-    the host seconds of the spill maintenance a step."""
+    the host seconds of the spill maintenance a step, and of the store's
+    mirror upkeep within it (``HostStore._slots_written``: staging and
+    launching ``cold_scatter``, a whole-index copy and its wait)."""
     from torch.profiler import ProfilerActivity, profile as prof
     src, ops = make()
     chain = wt.CompiledChain(ops, src.payload_spec(), batch_capacity=b)
@@ -3963,11 +4018,19 @@ def tiered_q3_profile(torch, wt, make, b, n_def, ms_per_step):
         spent.append(time.perf_counter() - t0)
         return out
     ctl.maintain = timed
+    upkeep, written = [], ctl.store._slots_written
+
+    def timed_upkeep(slots):
+        t0 = time.perf_counter()
+        written(slots)
+        upkeep.append(time.perf_counter() - t0)
+    ctl.store._slots_written = timed_upkeep
     batches = list(src.batches(b))
     for x in batches[:n_def]:
         chain.push(x)
     torch.cuda.synchronize()
     spent.clear()
+    upkeep.clear()
     probe = batches[n_def:]
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         for x in probe:
@@ -3980,6 +4043,8 @@ def tiered_q3_profile(torch, wt, make, b, n_def, ms_per_step):
          "kernels_per_step": sum(e.count for e in kern) / n,
          "device_busy_ms_per_step": busy_us / 1e3,
          "maintain_host_ms_per_step": sum(spent) / n * 1e3,
+         "mirror_upkeep_host_ms_per_step": sum(upkeep) / n * 1e3,
+         "mirror_upkeep_calls": len(upkeep),
          "idle_share": 1 - busy_us / 1e3 / ms_per_step})
     for e in sorted(kern, key=lambda e: -e.device_time_total)[:10]:
         log({"profile_kernel": e.key[:100], "per_step": e.count / n,
@@ -4029,7 +4094,11 @@ def tiered_q3_phase(torch, np, wt, registry, card, profile=False):
          "readmits": [r for _, r, _ in per_step], "cold_keys": [c for _, _, c in per_step]})
     if row["overflow_drops"]:
         raise AssertionError(f"tiered q3: {row['overflow_drops']} overflow drops")
-    expect_launches("tiered q3 eager", eager_counts, TIERED_APPLY["q3_enrich_join"], n)
+    eager_stores = tier_stores(box["chain"].ops)
+    eager_scat = mirror_scatters(eager_stores)
+    check_mirrors(torch, "tiered q3 eager", eager_stores)
+    expect_launches("tiered q3 eager", eager_counts, TIERED_APPLY["q3_enrich_join"], n,
+                    eager_scat)
     # the same stream at dispatch K: one replay of a K-step graph a group,
     # one maintenance point a group
     src, ops = make_query("q3_enrich_join", total, n_auctions=keys, num_slots=4 * b,
@@ -4047,6 +4116,8 @@ def tiered_q3_phase(torch, np, wt, registry, card, profile=False):
         return outs
     pipe.chain.push_many = timed_many
     counts, dt, peak = run_pipeline(torch, registry, pipe, TIERED_K)
+    scat = mirror_scatters(tier_stores(ops))
+    check_mirrors(torch, "tiered q3 dispatch", tier_stores(ops))
     dviews = live_views(dviews)
     st = pipe.chain.states[0]
     per_group = sorted(t / TIERED_K for t in group_s[1:])
@@ -4066,7 +4137,7 @@ def tiered_q3_phase(torch, np, wt, registry, card, profile=False):
         raise AssertionError(f"tiered q3 dispatch: {int(st['dropped'])} overflow drops")
     if replays != {TIERED_K: n // TIERED_K}:
         raise AssertionError(f"tiered q3 dispatch: graph replays {replays}")
-    expect_launches("tiered q3 dispatch", counts, TIERED_APPLY["q3_enrich_join"], n)
+    expect_launches("tiered q3 dispatch", counts, TIERED_APPLY["q3_enrich_join"], n, scat)
     launches = {k: eager_counts[k] + counts[k] for k in counts}
     if profile:
         tiered_q3_profile(torch, wt, lambda: make_query(
@@ -4075,25 +4146,79 @@ def tiered_q3_phase(torch, np, wt, registry, card, profile=False):
     return launches, box["chain"]
 
 
-def cold_probe_phase(torch, np, card, chain):
-    """The cold probe against its plain version (the store's host lookup, a
-    synchronous round trip), bit for bit, at R = 49,152 lanes over the
-    tiered_q3 chain's 1.6 M-row store (keys in twice the key space: hits and
-    misses; a fifth of the lanes not wanted); then a graph captured over a
-    256-row store, the store grown to 2^18 rows, the graph replayed: the
-    replay reads the grown store. The kernel's time by graph replay, the
-    plain version's by CUDA events around its round trips, and the bound:
-    the host-link bytes (a 16-byte index slot a wanted lane, meta and value
-    row a found lane) over 64 GB/s."""
-    from windflow_tpu_torch.ops.cold_probe import cold_probe_cuda, cold_probe_plain
-    from windflow_tpu_torch.state import HostStore
+def index_of(store):
+    """(keys, head rows) of a store's index slots: the 16-byte slots, or an
+    older tree's two arrays (``--helper-times`` in a ``git archive``)."""
+    if hasattr(store, "index_slots"):
+        idx = store.index_slots()
+        return idx[:, 0], idx[:, 1]
+    return store._ikey, store._irow
 
-    store = chain.ops[0]._tier.store
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    keyspace = 2 * store.key_count()
-    keys = torch.randint(0, keyspace, (COLD_PROBE_R,), generator=gen, device="cuda",
-                         dtype=torch.int32)
-    want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
+
+def probe_walk(np, store, keys, want):
+    """The walk of each wanted lane over the store's index, in its probe
+    order (``native/csrc/host_store.cpp``): (slots read, the lanes that
+    hit)."""
+    ikey, irow = index_of(store)
+    lg = store._lg
+    mask = (1 << lg) - 1
+    k = np.asarray(keys).astype(np.int64)
+    lanes = np.flatnonzero(want)
+    kk = k[lanes]
+    s = ((kk.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15))
+         >> np.uint64(64 - lg)).astype(np.int64)
+    live, hit, read = np.ones(len(lanes), bool), np.zeros(len(k), bool), 0
+    while live.any():
+        a = np.flatnonzero(live)
+        read += len(a)
+        ss = s[a]
+        empty = irow[ss] < 0
+        match = ~empty & (ikey[ss] == kk[a])
+        hit[lanes[a[match]]] = True
+        live[a[empty | match]] = False
+        s[a] = (ss + 1) & mask
+    return read, hit
+
+
+def row_bytes_of(np, store):
+    return sum(int(np.prod(store.col_shape(k), dtype=np.int64))
+               * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
+
+
+def record_lines(np, rb):
+    """Mean 128-byte lines a record of ``rb`` bytes spans, over the row
+    offsets ``row * rb`` from a line-aligned base."""
+    start = np.arange(128, dtype=np.int64) * rb
+    return float(np.mean((start + rb - 1) // 128 - start // 128 + 1))
+
+
+def cold_bound(np, store, keys, want, rows_read, out_bytes, link_rate):
+    """A cold read's bound: the largest of its host-link requests (a line
+    of every record it reads, ``record_lines``) over the link's measured
+    rate of requests (``link_read_phase``), its host-link bytes (the
+    records) over 64 GB/s, and its device-memory bytes (the index slots
+    its walks read, the keys and want read once, ``out_bytes`` written
+    once) over 3.35 TB/s."""
+    walked, hit = probe_walk(np, store, keys.cpu().numpy(), want.cpu().numpy())
+    reads = rows_read * record_lines(np, store.record_bytes)
+    hbm = 16 * walked + keys.shape[0] * 5 + out_bytes
+    t_link = max(reads / link_rate, rows_read * store.record_bytes / HOST_LINK_BYTES_PER_S)
+    t_link, t_hbm = t_link * 1e3, hbm / HBM_BYTES_PER_S * 1e3
+    return {"link_reads": reads, "walk_slots": walked, "hbm_bytes": hbm,
+            "link_reads_per_s": link_rate, "bound_ms": max(t_link, t_hbm),
+            "bound_by": "operations" if t_link >= t_hbm else "bytes",
+            "counted": "host-link requests (the lines of the records read) over the "
+                       "measured rate, or their bytes over 64 GB/s; device bytes (walked "
+                       "slots, keys, want, outputs) over 3.35 TB/s"}, hit
+
+
+def probe_case(torch, np, card, case, store, keys, want, link_rate, timed=True, extra=None):
+    """``cold_probe`` against its plain version (the store's host lookup, a
+    synchronous round trip), bit for bit, the kernel's found lanes folded
+    into the store's readmissions as many as the plain version counts, with
+    the kernel's time by graph replay (``timed``), the plain version's by
+    CUDA events around its round trips, and the bound (``cold_bound``)."""
+    from windflow_tpu_torch.ops.cold_probe import cold_probe_cuda, cold_probe_plain
 
     def kernel():
         return cold_probe_cuda(store, keys, want)
@@ -4107,72 +4232,271 @@ def cold_probe_phase(torch, np, card, chain):
     ref = plain()
     same, err = compare(torch, got, ref)
     found = int(ref[0].sum())
-    # the kernel's found lanes reach the store's count through the device
-    # counter's fold, as many as the plain version's host lookup counts
     folded = (r1 - r0, store.counters()["state_readmits"] - r1)
-    if folded != (found, found):
-        raise AssertionError(f"cold_probe: readmissions counted {folded}, found {found}")
-    row_bytes = sum(int(np.prod(store.col_shape(k), dtype=np.int64))
-                    * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
-    nbytes = int(want.sum()) * 16 + found * (24 + row_bytes)
-    bound_ms = nbytes / HOST_LINK_BYTES_PER_S * 1e3
-    row = {"kernel_check": "cold_probe", "case": "q3 2^14 store", "lanes": COLD_PROBE_R,
-           "store_rows": len(store), "wanted": int(want.sum()), "found": found,
-           "readmits_folded": folded[0],
-           "bit_identical": same, "max_abs_err": err,
-           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
-           "plain_ms": time_ms(torch, plain, iters=5, warmup=1), "library_ms": None,
-           "bytes": nbytes, "counted": "host-link bytes: 16 a wanted lane, meta and row a "
-                                       "found lane", "bound_ms": bound_ms,
-           "bound_by": "bytes", "card": card}
+    R = keys.shape[0]
+    bound, hit = cold_bound(np, store, keys, want, found, R * (1 + 12 + row_bytes_of(np, store)),
+                            link_rate)
+    row = {"kernel_check": "cold_probe", "case": case, "lanes": R, "store_rows": len(store),
+           "record_bytes": store.record_bytes, "wanted": int(want.sum()), "found": found,
+           **(extra or {}), "readmits_folded": folded[0], "bit_identical": same,
+           "max_abs_err": err,
+           "kernel_ms": graph_ms(torch, kernel) if timed else None,
+           "kernel_eager_ms": time_ms(torch, kernel) if timed else None,
+           "plain_ms": time_ms(torch, plain, iters=5, warmup=1) if timed else None,
+           "library_ms": None, **bound, "card": card}
     log(row)
     if not same:
-        raise AssertionError("cold_probe: kernel differs from its plain version")
-    # a graph captured before the store grows reads the grown store
-    small = HostStore("grow", {"v0": np.int32, "v1": np.float32}, device="cuda")
-    rng = np.random.default_rng(5)
+        raise AssertionError(f"cold_probe [{case}]: kernel differs from its plain version")
+    if folded != (found, found) or int(hit.sum()) != found:
+        raise AssertionError(f"cold_probe [{case}]: readmissions counted {folded}, found "
+                             f"{found}, the walk finds {int(hit.sum())}")
+    return row
 
-    def fill(n, lo):
+
+def probe_lanes(torch, gen, R, lo, hi, p_want=0.8):
+    keys = torch.randint(lo, hi, (R,), generator=gen, device="cuda", dtype=torch.int32)
+    return keys, torch.rand((R,), generator=gen, device="cuda") < p_want
+
+
+def scatter_check(torch, np, card, store, n):
+    """``cold_scatter`` against its plain version (one indexed copy) bit for
+    bit: ``n`` distinct slots of ``store``'s index, staged in mapped memory as
+    the store stages a write's slots, written into a zeroed copy of its
+    mirror; the kernel's time by graph replay, the plain version's (the
+    entries copied to the card, then the indexed copy) by CUDA events, the
+    library call's (``index_copy_`` from entries already on the card) by
+    graph replay; the bound: the entries' bytes over the host link (64 GB/s)
+    against the slots' bytes over 3.35 TB/s."""
+    from windflow_tpu_torch.ops.cold_probe import (MappedBuffer, cold_scatter_cuda,
+                                                   cold_scatter_plain)
+    idx = store.index_slots()
+    slots = np.random.default_rng(31).choice(len(idx), n, replace=False)
+    buf = MappedBuffer(32 * n)
+    ent = buf.array(np.int64, (n, 4))
+    ent[:, :2] = idx[slots]
+    ent[:, 2] = slots
+    a = torch.zeros_like(store.mirror)
+    b, c = a.clone(), a.clone()
+    sl, pairs = torch.from_numpy(slots).cuda(), torch.from_numpy(idx[slots]).cuda()
+
+    def kernel():
+        cold_scatter_cuda(a, buf.dev, n)
+        return a
+
+    def plain():
+        cold_scatter_plain(b, ent)
+        return b
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    same, err = compare(torch, got, ref)
+    t_link, t_hbm = 32 * n / HOST_LINK_BYTES_PER_S * 1e3, 16 * n / HBM_BYTES_PER_S * 1e3
+    row = {"kernel_check": "cold_scatter", "case": f"{n} slots of a {len(idx)}-slot index",
+           "bit_identical": same, "max_abs_err": err,
+           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
+           "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
+           "library_ms": graph_ms(torch, lambda: c.index_copy_(0, sl, pairs)),
+           "bytes": 32 * n, "counted": "staged entries over the host link (64 GB/s); slots "
+                                       "written over 3.35 TB/s",
+           "bound_ms": max(t_link, t_hbm), "bound_by": "bytes", "card": card}
+    log(row)
+    if not same:
+        raise AssertionError("cold_scatter: kernel differs from its plain version")
+    return row
+
+
+def mirror_kept(store):
+    """What a restore that fits keeps: the mapped buffers and the mirror."""
+    return [b.host for b in store._bufs], store.mirror.data_ptr()
+
+
+def cold_probe_phase(torch, np, registry, card, chain, link_rate):
+    """The cold probe against its plain version (``probe_case``) at R =
+    49,152 lanes over the tiered_q3 chain's 1.6 M-row store: keys in twice
+    the key space (hits and misses) with a fifth of the lanes not wanted,
+    then every lane a hit and every lane a miss (all wanted), whose times
+    split the walk (device memory) from the record read (the host link);
+    the whole index's upload to the mirror timed (64 MiB); ``cold_scatter``
+    checked (``scatter_check``). Then a store of 2^18 keys (two columns):
+    as built, after a ``compact_below`` that reindexes (three quarters
+    retired: the rebuild), after ``pop_keys``' backward shifts (one
+    scatter) and after a restore that fits (buffers and mirror kept). Then
+    a graph captured over a 200-row store, the store grown to 2^18 rows,
+    the graph replayed, three restores that fit, replayed again; and a
+    graph captured over a 200-row store restored from a 2^18-row manifest
+    (a restore that grows), replayed. After each write the mirror equals
+    the host index (``check_mirrors``). Returns the main case's row and
+    the scatter's."""
+    from windflow_tpu_torch.ops.cold_probe import cold_probe_cuda, cold_probe_plain
+    from windflow_tpu_torch.state import HostStore
+
+    store = chain.ops[0]._tier.store
+    check_mirrors(torch, "cold_probe: tiered q3's store", [store])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    keyspace = 2 * store.key_count()
+    R = COLD_PROBE_R
+    keys, want = probe_lanes(torch, gen, R, 0, keyspace)
+    row = probe_case(torch, np, card, "q3 2^14 store", store, keys, want, link_rate)
+    live = store._key[:store._n][store._live[:store._n]]
+    rng = np.random.default_rng(13)
+    every = torch.ones((R,), dtype=torch.bool, device="cuda")
+    hits = torch.from_numpy(rng.choice(live, R).astype(np.int32)).cuda()
+    hit_row = probe_case(torch, np, card, "q3 store, every lane a hit", store, hits, every,
+                         link_rate)
+    misses = torch.randint(keyspace, 2 * keyspace, (R,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    miss_row = probe_case(torch, np, card, "q3 store, every lane a miss", store, misses,
+                          every, link_rate)
+    if hit_row["found"] != R or miss_row["found"] != 0:
+        raise AssertionError(f"cold_probe: all-hit found {hit_row['found']}, all-miss "
+                             f"{miss_row['found']}")
+    mirror_bytes = store.mirror.numel() * 8
+    upload_ms = time_ms(torch, lambda: store.mirror.copy_(store._idx_t, non_blocking=True),
+                        iters=10, warmup=2)
+    log({"cold_probe_split": "q3 store", "lanes": R, "all_miss_ms": miss_row["kernel_ms"],
+         "all_hit_ms": hit_row["kernel_ms"], "mixed_ms": row["kernel_ms"],
+         "walk_slots_a_lane": {"miss": miss_row["walk_slots"] / R,
+                               "hit": hit_row["walk_slots"] / R},
+         "index_upload_bytes": mirror_bytes, "index_upload_ms": upload_ms,
+         "index_upload_gb_s": mirror_bytes / upload_ms / 1e6, "card": card})
+    scatter_row = scatter_check(torch, np, card, store, NEX_BATCH)
+
+    # a store of 2^18 keys: as built, compacted (reindexed), drained, restored
+    big = HostStore("probe", {"v0": np.int32, "v1": np.float32}, device="cuda")
+    k = np.arange(HELPER_PROBE_ROWS, dtype=np.int32)
+    big.upsert(k, k, k, k, {"v0": k * 3, "v1": k.astype(np.float32) / 7})
+    full_man = big.manifest()
+    bkeys, bwant = probe_lanes(torch, gen, R, 0, 2 * HELPER_PROBE_ROWS)
+    check_mirrors(torch, "cold_probe: 2^18-key store", [big])
+    probe_case(torch, np, card, f"{HELPER_PROBE_ROWS}-key store, two columns", big, bkeys,
+               bwant, link_rate)
+    up0 = big.mirror_uploads
+    retired = big.compact_below("m0", 3 << 16)
+    check_mirrors(torch, "cold_probe: after compact_below", [big])
+    if big.mirror_uploads == up0 or retired != 3 << 16:
+        raise AssertionError(f"cold_probe: compact_below retired {retired} and uploaded "
+                             f"{big.mirror_uploads - up0} times")
+    probe_case(torch, np, card, "2^18-key store after compact_below (reindexed)", big, bkeys,
+               bwant, link_rate, timed=False, extra={"retired": retired})
+    c0, sc0 = registry.launch_counts()["cold_scatter"], big.mirror_scatters
+    popped, _ = big.pop_keys(4096)
+    scat = (registry.launch_counts()["cold_scatter"] - c0, big.mirror_scatters - sc0)
+    check_mirrors(torch, "cold_probe: after pop_keys", [big])
+    if scat != (1, 1) or len(popped) != 4096:
+        raise AssertionError(f"cold_probe: pop_keys scattered {scat}")
+    pk = torch.from_numpy(np.concatenate([np.resize(popped, R // 2), rng.choice(
+        big._key[:big._n][big._live[:big._n]], R - R // 2)]).astype(np.int32)).cuda()
+    probe_case(torch, np, card, "after pop_keys (backward shifts)", big, pk, every, link_rate,
+               timed=False, extra={"popped": 4096})
+    kept = mirror_kept(big)
+    big.restore(full_man)
+    check_mirrors(torch, "cold_probe: after a restore that fits", [big])
+    if mirror_kept(big) != kept:
+        raise AssertionError("cold_probe: a restore that fits replaced the buffers or mirror")
+    probe_case(torch, np, card, "after a restore that fits", big, bkeys, bwant, link_rate,
+               timed=False)
+
+    # a graph captured before the store grows reads the grown store
+    def captured(st, gkeys, gwant):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            cold_probe_cuda(st, gkeys, gwant)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with collection_paused(), torch.cuda.graph(g):
+            gout = cold_probe_cuda(st, gkeys, gwant)
+        return g, gout
+
+    def replayed(st, g, gout, gkeys, gwant):
+        g.replay()
+        torch.cuda.synchronize()
+        gref = cold_probe_plain(st, gkeys, gwant)
+        return compare(torch, tuple(gout), gref) + (int(gref[0].sum()),)
+
+    small = HostStore("grow", {"v0": np.int32, "v1": np.float32}, device="cuda")
+
+    def fill(st, n, lo):
         k = np.arange(lo, lo + n, dtype=np.int32)
-        small.upsert(k, k, k, k, {"v0": k * 3, "v1": k.astype(np.float32) / 7})
-    fill(200, 0)
+        st.upsert(k, k, k, k, {"v0": k * 3, "v1": k.astype(np.float32) / 7})
+    fill(small, 200, 0)
     gkeys = torch.from_numpy(rng.integers(0, 1 << 18, 4096).astype(np.int32)).cuda()
     gwant = torch.ones((4096,), dtype=torch.bool, device="cuda")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        cold_probe_cuda(small, gkeys, gwant)
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with collection_paused(), torch.cuda.graph(g):
-        gout = cold_probe_cuda(small, gkeys, gwant)
-    fill((1 << 18) - 200, 200)
-    g.replay()
-    torch.cuda.synchronize()
-    gref = cold_probe_plain(small, gkeys, gwant)
-    gsame, gerr = compare(torch, tuple(gout), gref)
+    g, gout = captured(small, gkeys, gwant)
+    fill(small, (1 << 18) - 200, 200)
+    gsame, gerr, gfound = replayed(small, g, gout, gkeys, gwant)
+    check_mirrors(torch, "cold_probe: grown past the capture", [small])
     log({"kernel_check": "cold_probe", "case": "graph captured at 200 rows, replayed at "
                                                "2^18", "bit_identical": gsame,
-         "max_abs_err": gerr, "found": int(gref[0].sum()), "card": card})
-    if not gsame or int(gref[0].sum()) != 4096:
+         "max_abs_err": gerr, "found": gfound, "card": card})
+    if not gsame or gfound != 4096:
         raise AssertionError("cold_probe: a graph captured before the store grew reads "
                              "stale memory")
-    # restores that fit rewrite the mapped arrays in place (no pinned memory
-    # is kept or allocated), and the graph reads what they wrote
-    bufs = [b.host for b in small._bufs]
+    # restores that fit rewrite the mapped arrays and the mirror in place (no
+    # pinned memory is kept or allocated), and the graph reads what they wrote
+    kept = mirror_kept(small)
     man = small.manifest()
     for _ in range(3):
         small.restore(man)
-    g.replay()
-    torch.cuda.synchronize()
-    rsame, _ = compare(torch, tuple(gout), cold_probe_plain(small, gkeys, gwant))
+    rsame, _, _ = replayed(small, g, gout, gkeys, gwant)
+    check_mirrors(torch, "cold_probe: three restores that fit", [small])
     log({"kernel_check": "cold_probe", "case": "graph replayed after three restores",
-         "bit_identical": rsame, "buffers_kept": [b.host for b in small._bufs] == bufs,
-         "card": card})
-    if not rsame or [b.host for b in small._bufs] != bufs:
+         "bit_identical": rsame, "buffers_kept": mirror_kept(small) == kept, "card": card})
+    if not rsame or mirror_kept(small) != kept:
         raise AssertionError("cold_probe: a restore that fits reallocated the store, or "
                              "the graph reads stale memory after it")
-    return row
+    # a restore that grows the store under a captured graph
+    regrown = HostStore("regrow", {"v0": np.int32, "v1": np.float32}, device="cuda")
+    fill(regrown, 200, 0)
+    g2, gout2 = captured(regrown, bkeys, bwant)
+    kept = mirror_kept(regrown)
+    regrown.restore(full_man)
+    gsame, gerr, gfound = replayed(regrown, g2, gout2, bkeys, bwant)
+    check_mirrors(torch, "cold_probe: a restore that grows", [regrown])
+    log({"kernel_check": "cold_probe", "case": "graph captured at 200 rows, a 2^18-row "
+                                               "restore (grows), replayed",
+         "bit_identical": gsame, "max_abs_err": gerr, "found": gfound,
+         "reallocated": mirror_kept(regrown) != kept, "card": card})
+    if not gsame or mirror_kept(regrown) == kept or not gfound:
+        raise AssertionError("cold_probe: a graph captured before a growing restore reads "
+                             "stale memory")
+    return row, scatter_row
+
+
+def link_read_phase(torch, probes, card):
+    """The host link's rate of 16-byte system-scope reads of random lines
+    of a mapped buffer (``split_probes.cu``'s ``wf_link_reads``: 2^20 reads
+    over the first 2^13 (1 MiB) or all 2^19 (64 MiB) lines of 128 bytes,
+    one to four in flight a thread), by graph replay; returns the best
+    rate, the cold reads' bound (``cold_bound``)."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda
+
+    alloc = probes.wf_probe_host_alloc
+    alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_void_p)]
+    fn = probes.wf_link_reads
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
+    lines, n = 1 << 19, 1 << 20
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    cuda.check(alloc(lines * 128, ctypes.byref(host), ctypes.byref(dev)), "probe host alloc")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rates = {}
+    try:
+        ctypes.memset(host, 1, lines * 128)
+        for span in (1 << 13, lines):
+            for per in (1, 2, 4):
+                ms = graph_ms(torch, lambda: cuda.check(
+                    fn(dev, span, n, per, cuda.ptr(sink), cuda.stream_ptr("cuda")),
+                    "link reads"), iters=5, reps=3)
+                rates[f"{span * 128 >> 20} MiB, {per} a thread"] = n / ms * 1e3
+    finally:
+        torch.cuda.synchronize()
+        cuda.check(probes.wf_probe_host_free(host), "probe host free")
+    log({"phase": "link_reads", "reads": n, "lines": lines, "line_bytes": 128,
+         "reads_per_s": rates,
+         "best_reads_per_s": max(rates.values()), "card": card})
+    return max(rates.values())
 
 
 def tiered_queries_phase(torch, np, wt, registry, card):
@@ -4193,9 +4517,11 @@ def tiered_queries_phase(torch, np, wt, registry, card):
             pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
                                dispatch=k or False)
             counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+            scat = mirror_scatters(tier_stores(ops))
             views = [v for v in views if v is not None]
             got = nexmark_rows(np, name, views)
             pipe.chain.tier_settle()
+            check_mirrors(torch, f"tiered {name} (dispatch {k})", tier_stores(ops))
             st = pipe.chain.states[-1]
             tier = ops[-1]._tier.controller.stats()
             log({"phase": "tiered_queries", "query": name, "hot_capacity": hot,
@@ -4208,7 +4534,7 @@ def tiered_queries_phase(torch, np, wt, registry, card):
                 raise AssertionError(f"tiered {name}: rows differ from the untiered oracle")
             if int(st["spills"]) == 0:
                 raise AssertionError(f"tiered {name}: nothing spilled")
-            expect_launches(f"tiered {name}", counts, TIERED_APPLY[name], NEX_BATCHES)
+            expect_launches(f"tiered {name}", counts, TIERED_APPLY[name], NEX_BATCHES, scat)
             runs[k] = (views, counts, pipe.chain.graphs)
         check_dispatch(np, f"tiered_{name}", TIERED_K, NEX_BATCHES, runs[None][:2],
                        runs[TIERED_K][:2], runs[TIERED_K][2])
@@ -4266,9 +4592,11 @@ def tiered_rotating_phase(torch, np, wt, registry, card):
             pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
                                dispatch=k or False)
             counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+            scat = mirror_scatters(tier_stores(ops))
             views = [v for v in views if v is not None]
             got = nexmark_rows(np, name, views)
             pipe.chain.tier_settle()
+            check_mirrors(torch, f"rotating {name} (dispatch {k})", tier_stores(ops))
             st = pipe.chain.states[-1]
             log({"phase": "tiered_rotating", "query": name, "hot_capacity": hot,
                  "num_keys": ops[-1].num_keys, "dispatch": k, "batches": NEX_BATCHES,
@@ -4281,7 +4609,8 @@ def tiered_rotating_phase(torch, np, wt, registry, card):
                 raise AssertionError(f"rotating {name}: rows differ from the untiered run")
             if int(st["spills"]) == 0 or int(st["readmits"]) == 0:
                 raise AssertionError(f"rotating {name}: no spill or no readmission")
-            expect_launches(f"rotating {name}", counts, TIERED_APPLY[name], NEX_BATCHES)
+            expect_launches(f"rotating {name}", counts, TIERED_APPLY[name], NEX_BATCHES,
+                            scat)
             runs[k] = (views, counts, pipe.chain.graphs)
         check_dispatch(np, f"rotating_{name}", TIERED_K, NEX_BATCHES, runs[None][:2],
                        runs[TIERED_K][:2], runs[TIERED_K][2])
@@ -4431,6 +4760,7 @@ def tiered_recovery_phase(torch, np, wt, registry, card):
                                  f"{sp.restarts} restarts, {len(spans)} restore spans")
         if counts["cold_probe"] < n:
             raise AssertionError(f"tiered_recovery: cold_probe {counts['cold_probe']} < {n}")
+        check_mirrors(torch, f"tiered_recovery supervised (dispatch {k})", tier_stores(ops))
         for c, nn in counts.items():
             launches[c] += nn
     os.makedirs(CKPT_DIR, exist_ok=True)
@@ -4457,6 +4787,9 @@ def tiered_recovery_phase(torch, np, wt, registry, card):
         outs += c2.flush()
         torch.cuda.synchronize()
         counts = registry.launch_counts()
+        stores = tier_stores(c1.ops) + tier_stores(c2.ops)
+        scat = mirror_scatters(stores)
+        check_mirrors(torch, "tiered_recovery checkpoint", stores)
         same = flat_bytes(np, host_rows(outs)) == flat_bytes(np, whole)
         replays = {f"{kk}": g.replays for (_, kk, _), g in c2.graphs.items()}
         log({"phase": "tiered_recovery", "case": "checkpoint", "batch": b, "batches": n,
@@ -4468,7 +4801,7 @@ def tiered_recovery_phase(torch, np, wt, registry, card):
             raise AssertionError(f"tiered_recovery checkpoint: rows identical {same}, "
                                  f"replays {replays}")
         expect_launches("tiered_recovery checkpoint", counts,
-                        TIERED_APPLY["q3_enrich_join"], n)
+                        TIERED_APPLY["q3_enrich_join"], n, scat)
         for c, nn in counts.items():
             launches[c] += nn
     finally:
@@ -4754,12 +5087,11 @@ FETCH_WIDE = {"wide": ("float32", (256,)), "w24": ("int64", (3,)), "w4": ("int32
 FETCH_WIDTH_MS = (1, 8, 20)  # rows a lane: one, TierConfig's default, more than most chains
 
 
-def fetch_case(torch, np, card, case, store, keys, want, M, extra=None):
+def fetch_case(torch, np, card, case, store, keys, want, M, link_rate, extra=None):
     """``cold_fetch`` against its plain version (the store's host
     ``fetch_multi``) bit for bit, with its time by graph replay, the plain
-    version's by CUDA events around its round trips, and the bound: the
-    host-link bytes (a 16-byte index slot a wanted lane, then the 8-byte
-    link and the value row of each row fetched) over 64 GB/s."""
+    version's by CUDA events around its round trips, and the bound
+    (``cold_bound``: every chunk of every record fetched over the link)."""
     from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_fetch_plain
 
     def kernel():
@@ -4772,19 +5104,16 @@ def fetch_case(torch, np, card, case, store, keys, want, M, extra=None):
     ref = plain()
     same, err = compare(torch, got, ref)
     fetched = int(ref[0].sum())
-    row_bytes = sum(int(np.prod(store.col_shape(k), dtype=np.int64))
-                    * np.dtype(store._dtypes[k]).itemsize for k in store.col_names)
-    nbytes = int(want.sum()) * 16 + fetched * (8 + row_bytes)
-    row = {"kernel_check": "cold_fetch", "case": case, "lanes": keys.shape[0],
+    R = keys.shape[0]
+    bound, _ = cold_bound(np, store, keys, want, fetched,
+                          R * M * (1 + row_bytes_of(np, store)), link_rate)
+    row = {"kernel_check": "cold_fetch", "case": case, "lanes": R,
            "rows_per_lane": M, "store_rows": len(store), **(extra or {}),
            "wanted": int(want.sum()), "fetched": fetched, "bit_identical": same,
            "max_abs_err": err, "kernel_ms": graph_ms(torch, kernel),
            "kernel_eager_ms": time_ms(torch, kernel),
            "plain_ms": time_ms(torch, plain, iters=5, warmup=1), "library_ms": None,
-           "bytes": nbytes, "counted": "host-link bytes: 16 a wanted lane, link and row "
-                                       "a row fetched",
-           "bound_ms": nbytes / HOST_LINK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "card": card}
+           **bound, "card": card}
     log(row)
     if not same:
         raise AssertionError(f"cold_fetch [{case}]: kernel differs from its plain version")
@@ -4816,7 +5145,8 @@ def widths_store(np, rng, widths=FETCH_WIDTHS, n_keys=2048, most=25):
     wrap = ks[home == (1 << lg) - 1][:4].astype(np.int32)
     for _ in range(2):
         put(wrap[:3])
-    slots = [int(np.flatnonzero((store._ikey == k) & (store._irow >= 0))[0]) for k in wrap[:3]]
+    ikey, irow = index_of(store)
+    slots = [int(np.flatnonzero((ikey == k) & (irow >= 0))[0]) for k in wrap[:3]]
     if store._lg != lg or len(wrap) < 4 or min(slots) >= (1 << lg) - 1:
         raise AssertionError(f"cold_fetch: no key wraps the index (lg {lg}, slots {slots})")
     return store, wrap
@@ -4867,7 +5197,7 @@ def fetch_cases(torch, np):
     return cases
 
 
-def cold_fetch_phase(torch, np, card):
+def cold_fetch_phase(torch, np, card, link_rate):
     """The archive tier's multimap read against its plain version, bit for
     bit (``fetch_case``), on every ``fetch_cases`` input: the main case
     must retire, truncate and fetch rows, and the wrapped keys give their
@@ -4879,7 +5209,8 @@ def cold_fetch_phase(torch, np, card):
 
     main_row = None
     for case, store, keys, want, m, extra in fetch_cases(torch, np):
-        row, ref = fetch_case(torch, np, card, case, store, keys, want, m, extra)
+        check_mirrors(torch, f"cold_fetch [{case}]", [store])
+        row, ref = fetch_case(torch, np, card, case, store, keys, want, m, link_rate, extra)
         if main_row is None:
             main_row = row
             if not (extra["retired"] and extra["lanes_truncated_at_M"] and row["fetched"]):
@@ -4911,6 +5242,7 @@ def cold_fetch_phase(torch, np, card):
     grown = [b.host for b in small._bufs] != bufs
     g.replay()
     torch.cuda.synchronize()
+    check_mirrors(torch, "cold_fetch: grown past the capture", [small])
     gref = cold_fetch_plain(small, gkeys, gwant, M)
     gsame, gerr = compare(torch, tuple(gout), gref)
     log({"kernel_check": "cold_fetch", "case": "graph captured at 2 rows a key, replayed "
@@ -4924,16 +5256,19 @@ def cold_fetch_phase(torch, np, card):
 
 
 HELPER_PROBE_ROWS = 1 << 18   # helper_times' probe store: its keys
+Q3_STORE_KEYS = 100 * NEX_BATCH  # tiered q3's store at 2^14: its keys
 
 
 def helper_times(torch, np, card):
     """The helper kernels timed alone on their check inputs, nothing
     checked: the float fold on every ``fold_cases`` input, ``cold_fetch`` on
     every ``fetch_cases`` input and ``cold_probe`` at R = 49,152 over a
-    store of 2^18 keys (two columns; keys in twice the key space, a fifth of
-    the lanes not wanted). It calls only the wrappers and the store's public
-    methods, so the script copied into an older tree times that tree's
-    designs on the same inputs (``--helper-times``)."""
+    store of 2^18 keys (two columns) and over a store shaped as tiered q3's
+    at 2^14 (1,638,400 keys upserted in a seeded order, one int32 column;
+    keys in twice the key space, a fifth of the lanes not wanted). It calls
+    only the wrappers and the store's public methods (and ``index_of``), so
+    the script copied into an older tree times that tree's designs on the
+    same inputs (``--helper-times``)."""
     from windflow_tpu_torch.ops import segment as S
     from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_probe_cuda
     from windflow_tpu_torch.state import HostStore
@@ -4953,6 +5288,16 @@ def helper_times(torch, np, card):
     want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
     log({"helper_times": "cold_probe", "case": f"{HELPER_PROBE_ROWS}-key store, two columns",
          "card": card, "ms": graph_ms(torch, lambda: cold_probe_cuda(store, keys, want))})
+    del store
+    q3 = HostStore("q3", {"v0": np.int32}, device="cuda")
+    k = np.random.default_rng(14).permutation(Q3_STORE_KEYS).astype(np.int32)
+    q3.upsert(k, k, k, k, {"v0": k % 50})
+    keys = torch.randint(0, 2 * Q3_STORE_KEYS, (COLD_PROBE_R,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
+    log({"helper_times": "cold_probe", "case": f"q3-shaped store, {Q3_STORE_KEYS} keys",
+         "record_bytes": getattr(q3, "record_bytes", None), "card": card,
+         "ms": graph_ms(torch, lambda: cold_probe_cuda(q3, keys, want))})
 
 
 def tq4_query(torch, wt, total, archive, tiered, window=TQ4_WINDOW):
@@ -5004,6 +5349,7 @@ def tiered_q4_phase(torch, np, wt, registry, card):
     pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
                        dispatch=False)
     counts, dt, peak = run_pipeline(torch, registry, pipe)
+    scat = mirror_scatters(tier_stores(ops))
     got = nexmark_rows(np, "q4_interval_join", [v for v in views if v is not None])
     pipe.chain.tier_settle()
     st = pipe.chain.states[0]
@@ -5013,7 +5359,7 @@ def tiered_q4_phase(torch, np, wt, registry, card):
          "peak_mib": peak / 2 ** 20, "card": card})
     if got != oracles.ORACLES["q4_interval_join"](total):
         raise AssertionError("tiered q4: rows differ from the dense oracle")
-    expect_launches("tiered q4", counts, TQ4_APPLY, NEX_BATCHES)
+    expect_launches("tiered q4", counts, TQ4_APPLY, NEX_BATCHES, scat)
     for c, nn in counts.items():
         launches[c] += nn
 
@@ -5025,10 +5371,14 @@ def tiered_q4_phase(torch, np, wt, registry, card):
         pipe = wt.Pipeline(src, ops, wt.Sink(views.append), batch_size=NEX_BATCH,
                            dispatch=k or False)
         counts, dt, peak = run_pipeline(torch, registry, pipe, k)
+        scat = mirror_scatters(tier_stores(ops))
         views = [v for v in views if v is not None]
         pipe.chain.tier_settle()
+        if tiered is not None:
+            check_mirrors(torch, f"tiered_q4 (archive {archive}, window {window}, dispatch "
+                                 f"{k})", tier_stores(ops))
         st = pipe.chain.states[0]
-        info = {"archive": archive, "window": window, "tiered": tiered is not None,
+        info = {"archive": archive, "scatters": scat, "window": window, "tiered": tiered is not None,
                 "dispatch": k, "rows": 0, "match_drops": int(st["match_drops"]),
                 "arch_drops": int(st["arch_drops"]), "run_s": dt,
                 "ms_per_step": dt / TQ4_BATCHES * 1e3, "launches": counts,
@@ -5060,7 +5410,8 @@ def tiered_q4_phase(torch, np, wt, registry, card):
         if (not info["state_spills"] or info["arch_drops"]
                 or (k is None and not info["state_readmits"])):
             raise AssertionError(f"tiered_q4 (dispatch {k}): spills and drops {info}")
-        expect_launches(f"tiered_q4 (dispatch {k})", counts, TQ4_APPLY, TQ4_BATCHES)
+        expect_launches(f"tiered_q4 (dispatch {k})", counts, TQ4_APPLY, TQ4_BATCHES,
+                        info["scatters"])
         for c, nn in counts.items():
             launches[c] += nn
     runs = {}
@@ -5072,7 +5423,7 @@ def tiered_q4_phase(torch, np, wt, registry, card):
         if not info["state_spills"] or info["state_readmits"] or info["arch_drops"]:
             raise AssertionError(f"tiered_q4 outbox window (dispatch {k}): {info}")
         expect_launches(f"tiered_q4 outbox window (dispatch {k})", counts, TQ4_APPLY,
-                        TQ4_BATCHES)
+                        TQ4_BATCHES, info["scatters"])
         runs[k] = (views, counts, graphs)
     check_dispatch(np, "tiered_q4", TQ4_K, TQ4_BATCHES, runs[None][:2], runs[TQ4_K][:2],
                    runs[TQ4_K][2])
@@ -6349,14 +6700,15 @@ def main() -> int:
     del ty_rows
     tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
                                                 gw_launches, gw_s)
+    link_rate = link_read_phase(torch, probes, card)
     tq_launches, tq_chain = tiered_q3_phase(torch, np, wt, registry, card, args.profile)
-    cold_row = cold_probe_phase(torch, np, card, tq_chain)
+    cold_row, scatter_row = cold_probe_phase(torch, np, registry, card, tq_chain, link_rate)
     del tq_chain
     tqs_launches = tiered_queries_phase(torch, np, wt, registry, card)
     tr_launches = tiered_recovery_phase(torch, np, wt, registry, card)
     trot_launches = tiered_rotating_phase(torch, np, wt, registry, card)
     tiered_inputs_phase(torch, np, wt, card)
-    fetch_row = cold_fetch_phase(torch, np, card)
+    fetch_row = cold_fetch_phase(torch, np, card, link_rate)
     tq4_launches = tiered_q4_phase(torch, np, wt, registry, card)
     ctl_launches = control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows,
                                  q3_views)
@@ -6405,12 +6757,13 @@ def main() -> int:
                     "max_abs_err": cold_row["max_abs_err"], "ms": cold_row["kernel_ms"],
                     "plain_ms": cold_row["plain_ms"], "bound_ms": cold_row["bound_ms"],
                     "bound_by": cold_row["bound_by"], "library_ms": None})
-    fetch = registry.KERNELS["cold_fetch"]
-    kernels.append({"name": fetch.name, "route": "cuda", "source": fetch.source,
-                    "replaces": None, "launches": path_launches[fetch.name],
-                    "max_abs_err": fetch_row["max_abs_err"], "ms": fetch_row["kernel_ms"],
-                    "plain_ms": fetch_row["plain_ms"], "bound_ms": fetch_row["bound_ms"],
-                    "bound_by": fetch_row["bound_by"], "library_ms": None})
+    for name, r in (("cold_fetch", fetch_row), ("cold_scatter", scatter_row)):
+        k = registry.KERNELS[name]
+        kernels.append({"name": name, "route": "cuda", "source": k.source,
+                        "replaces": None, "launches": path_launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

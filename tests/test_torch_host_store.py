@@ -11,6 +11,12 @@ the rebuild when dead rows dominate), growth past the initial capacity,
 scalar and row-shaped columns of several dtypes, and manifests restored
 across the two packages. Then the mirrored unit cases of the JAX package's
 ``tests/test_tiered_state.py`` and the cold probe's plain version.
+
+On the card the store keeps a mirror of its index in device memory, kept in
+step by copying the slots each C pass lists as written (and the whole index
+after a rebuild). Here every such list is replayed onto a numpy copy of the
+index (:class:`MirrorReplay`), which must equal the host index after every
+write.
 """
 
 import numpy as np
@@ -20,7 +26,7 @@ import torch
 from windflow_tpu.state import HostStore as JStore
 from windflow_tpu.state.tiered import JoinTableTier as JJoinTier
 from windflow_tpu.state.tiered import TierConfig as JTierConfig
-from windflow_tpu_torch.ops.cold_probe import cold_probe
+from windflow_tpu_torch.ops.cold_probe import cold_probe, cold_scatter_plain
 from windflow_tpu_torch.state import HostStore as TStore
 from windflow_tpu_torch.state.tiered import JoinTableTier as TJoinTier
 from windflow_tpu_torch.state.tiered import TierConfig as TTierConfig
@@ -63,6 +69,34 @@ def assert_same(got, want, what):
         assert got == want, what
 
 
+class MirrorReplay:
+    """A copy of ``st``'s index kept the way the card's mirror is kept: each
+    slot list a write hands the mirror staged as the store stages it (key,
+    head row, slot) and written by ``cold_scatter``'s plain version, the
+    whole index where the write hands None (a rebuild). ``lists`` and
+    ``fulls`` count the two."""
+
+    def __init__(self, st):
+        self.st, self.copy, self.lists, self.fulls = st, torch.from_numpy(st._idx.copy()), 0, 0
+        inner = st._slots_written
+
+        def replay(slots):
+            if slots is None:
+                self.copy = torch.from_numpy(self.st._idx.copy())
+                self.fulls += 1
+            elif len(slots):
+                entries = np.zeros((len(slots), 4), np.int64)
+                entries[:, :2] = self.st._idx[slots]
+                entries[:, 2] = slots
+                cold_scatter_plain(self.copy, entries)
+                self.lists += 1
+            inner(slots)
+        st._slots_written = replay
+
+    def check(self, what):
+        assert np.array_equal(self.copy.numpy(), self.st._idx), f"{what}: mirror != host index"
+
+
 def assert_stores(t, j, what):
     assert_same(t.manifest(), j.manifest(), f"{what}: manifest")
     assert t.counters() == j.counters(), what
@@ -76,6 +110,7 @@ def test_unique_store_random_ops_equal_jax(seed):
     grows from 256 rows past 2048."""
     rng = np.random.default_rng(seed)
     j, t = stores()
+    mirror = MirrorReplay(t)
     for step in range(40):
         op = rng.integers(0, 10)
         if op < 5:
@@ -93,7 +128,10 @@ def test_unique_store_random_ops_equal_jax(seed):
             m = int(rng.integers(0, 40))
             assert_same(t.pop_keys(m), j.pop_keys(m), f"pop {step}")
         assert_stores(t, j, f"step {step}")
+        mirror.check(f"step {step}")
     assert t.spilled_rows > 256
+    # upserts and drains hand their slots; growth and compaction the index
+    assert mirror.lists > 0 and mirror.fulls > 1
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -102,6 +140,7 @@ def test_multimap_store_random_ops_equal_jax(seed):
     compaction of a multimap store, against the JAX store."""
     rng = np.random.default_rng(seed)
     j, t = stores(unique=False)
+    mirror = MirrorReplay(t)
     for step in range(30):
         op = rng.integers(0, 6)
         if op < 3:
@@ -117,6 +156,8 @@ def test_multimap_store_random_ops_equal_jax(seed):
             thr = int(rng.integers(-80, 30))
             assert t.compact_below("a", thr) == j.compact_below("a", thr)
         assert_stores(t, j, f"step {step}")
+        mirror.check(f"step {step}")
+    assert mirror.lists > 0
 
 
 def test_manifests_restore_across_packages():
@@ -157,10 +198,12 @@ def test_restore_rewrites_the_arrays_in_place_when_they_fit():
     small_src.upsert(keys, *meta, cols, ok)
     small = small_src.manifest()
     arrays = t._key
+    mirror = MirrorReplay(t)
     for step, man in enumerate((small, big, small, small, big)):
         j.restore(man)
         t.restore(man)
         assert_stores(t, j, f"restore {step}")
+        mirror.check(f"restore {step}")
         assert t._key is arrays, "a restore that fits keeps the store's arrays"
         probe = rng.integers(-2000, 2000, 300).astype(np.int32)
         want = rng.random(300) < 0.8
@@ -169,6 +212,7 @@ def test_restore_rewrites_the_arrays_in_place_when_they_fit():
         assert t.upsert(keys, *meta, cols, ok) == j.upsert(keys, *meta, cols, ok)
         assert t.compact_below("m1", 1) == j.compact_below("m1", 1)
         assert_stores(t, j, f"after restore {step}")
+        mirror.check(f"after restore {step}")
     fresh = TStore("t", COLS, SHAPES)
     fresh.restore(big)
     assert fresh._cap >= len(big["key"]) and fresh._key is not arrays
@@ -244,6 +288,7 @@ def test_index_survives_colliding_deletes():
     key findable (the index's backward-shift deletion)."""
     rng = np.random.default_rng(3)
     hs = TStore("t", {"v": np.int32})
+    mirror = MirrorReplay(hs)
     keys = np.arange(0, 4096 * 64, 64, dtype=np.int32)[:200]       # many collisions
     hs.upsert(keys, np.ones(200), np.zeros(200), np.zeros(200),
               {"v": np.arange(200, dtype=np.int32)})
@@ -251,6 +296,7 @@ def test_index_survives_colliding_deletes():
     for _ in range(6):
         k = int(rng.integers(1, 40))
         popped, _ = hs.pop_keys(k)
+        mirror.check(f"pop {k}")
         alive -= set(popped.tolist())
         probe = np.asarray(sorted(alive) + popped.tolist(), np.int32)
         found, _, cols = hs.lookup(probe, np.ones(len(probe), bool))
@@ -293,23 +339,26 @@ def test_cold_probe_plain_is_the_jax_callback():
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("unique", [True, False])
 def test_rows_sit_in_records_read_by_the_card(unique, wide):
-    """A row's next-row link and value columns share one record
-    (``record_layout``): a multiple of 16 bytes, the link at byte 0, each
-    column at its element's alignment and clear of the others; the columns
-    are views of the records, so what the store writes (appends, a rebuild
-    after compaction, a restore) is what a record holds, and a multimap
-    record's link is the next row of its key's chain, as ``fetch_multi``
-    walks it. ``wide``: a 1.2 KB leaf, a record wider than the card's fetch
-    reads at once (it reads such a record a window at a time)."""
+    """A row's value columns share one record (``record_layout``) behind a
+    multimap row's next-row link or a unique row's meta low words: a
+    multiple of 16 bytes, the link (8 bytes) or the meta (three int32, the
+    low 32 bits of ``(m0, m1, m2)``, what the card's probe returns) at byte
+    0, each column at its element's alignment and clear of the others; the
+    columns are views of the records, so what the store writes (appends, a
+    rebuild after compaction, a restore) is what a record holds, a unique
+    record holds its row's meta, and a multimap record's link is the next
+    row of its key's chain, as ``fetch_multi`` walks it. ``wide``: a 1.2 KB
+    leaf, a record wider than the card's fetch reads at once (it reads such
+    a record a window at a time)."""
     from windflow_tpu_torch.state.host_store import record_layout
     cols = {"b": np.int8, "h": np.int16, "w": np.int64, "t": np.int32}
     shapes = {"t": (300,) if wide else (3,), "w": (2,)}
     st = TStore("r", cols, shapes, unique=unique)
-    size, offs = record_layout(st._dtypes, st._shapes)
+    size, offs = record_layout(st._dtypes, st._shapes, unique)
     assert size == st.record_bytes and size % 16 == 0 and (size > 1024) == wide
     spans = sorted((offs[k], offs[k] + np.dtype(dt).itemsize
                     * int(np.prod(shapes.get(k, ()), dtype=np.int64))) for k, dt in cols.items())
-    assert spans[0][0] >= 8 and spans[-1][1] <= size
+    assert spans[0][0] >= (12 if unique else 8) and spans[-1][1] <= size
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
     assert all(offs[k] % np.dtype(dt).itemsize == 0 for k, dt in cols.items())
     rng = np.random.default_rng(4)
@@ -324,7 +373,19 @@ def test_rows_sit_in_records_read_by_the_card(unique, wide):
         assert col.strides[0] == size
         np.testing.assert_array_equal(st._rec[:n, offs[k]:offs[k] + nb],
                                       np.ascontiguousarray(col).view(np.uint8).reshape(n, nb))
-    if not unique:
+    if unique:
+        # meta drawn wider than 32 bits: the record keeps the low words
+        keys, meta, vals, ok = rows(rng, 300, 40, cols, shapes)
+        big = [m.astype(np.int64) * (1 << 33) + m for m in meta]
+        st.upsert(keys, *big, vals, ok)
+        st.restore(st.manifest())
+        n = st._n
+        want = st._meta[:n].astype(np.int32)
+        assert np.abs(st._meta[:n]).max() >= 1 << 33
+        np.testing.assert_array_equal(st._rec[:n, :12].view(np.int32), want)
+        found, meta_got, _ = st.lookup(st._key[:n], st._live[:n])
+        np.testing.assert_array_equal(meta_got[found].astype(np.int32), want[found])
+    else:
         live = np.flatnonzero(st._live[:n])
         got = st.fetch_multi(st._key[live], np.ones(len(live), bool), 64)[0]
         for key in np.unique(st._key[live]):

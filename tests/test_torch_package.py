@@ -113,11 +113,13 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
     assert set(registry.tpu_kernels()) == {"histogram", "lookup", "segment_fold",
                                            "ordering_merge", "join_probe",
                                            "masked_window_reduce"}
-    # the helpers replace no TPU kernel: the fixed-order float fold and the
-    # tiered state's cold reads (the probe and the archive tier's fetch)
+    # the helpers replace no TPU kernel: the fixed-order float fold, the
+    # tiered state's cold reads (the probe and the archive tier's fetch) and
+    # the upkeep of the store's index mirror they walk
     assert set(registry.KERNELS) - set(registry.tpu_kernels()) == {"segment_fold_float",
                                                                     "cold_probe",
-                                                                    "cold_fetch"}
+                                                                    "cold_fetch",
+                                                                    "cold_scatter"}
     for k in registry.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
     for k in registry.tpu_kernels().values():

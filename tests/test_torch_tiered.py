@@ -470,7 +470,24 @@ def test_session_tiered_equals_big_table():
     assert op._tier.store.counters()["state_spills"] > 0
 
 
-def test_ttl_compaction_retires_cold_rows_like_jax():
+@pytest.fixture
+def jax_maintain_after_step(monkeypatch):
+    """The JAX package's tier maintenance run after the step that produced
+    its state has completed, as the port's maintenance runs (it waits on the
+    chain's stream before a compaction). Under JAX's asynchronous CPU
+    dispatch the reference's compaction otherwise races the step's ordered
+    cold-tier callbacks, and a few runs in a hundred retire rows that step
+    still reads (F20)."""
+    from windflow_tpu.state import tiered as jtiered
+    inner = jtiered.TieredTable.maintain
+
+    def maintain(self, state):
+        jax.block_until_ready(state)
+        return inner(self, state)
+    monkeypatch.setattr(jtiered.TieredTable, "maintain", maintain)
+
+
+def test_ttl_compaction_retires_cold_rows_like_jax(jax_maintain_after_step):
     """Builds spread through the stream: cold rows older than the TTL retire
     on the maintenance cadence, counted as the JAX package counts them."""
     def tgen(i):

@@ -141,8 +141,8 @@ WF114  warn/err  tiered keyed state (``windflow_tpu_torch/state``) combined
                  shared-memory table (warning — ``ops/lookup.py::
                  JOIN_PROBE_SMEM_SLOTS``: the hot probe reads the
                  table through L2 instead, correct but slower; the
-                 cold tier is read by ``cold_probe``, one thread a
-                 lane, at any width)
+                 cold tier is read by ``cold_probe``, a group of
+                 threads a lane, at any width)
 WF110  warn/err  scan dispatch (K > 1) combined with a configuration
                  the fused launch cannot honor: an unresolvable
                  ``dispatch=``/``WF_DISPATCH`` (error);
@@ -1157,7 +1157,7 @@ def _check_tiered(report, ops, cfg, trace, stored_trace,
       one block's shared memory (``ops/lookup.py::JOIN_PROBE_SMEM_SLOTS``
       slots, ``next_pow2(2K)`` a table): the hot probe reads the table
       through L2 (correct, slower). The cold tier's ``cold_probe`` runs
-      one thread a lane and has no geometry limit.
+      a group of threads a lane and has no geometry limit.
     """
     from ..operators.join import StreamTableJoin
     from ..operators.rank import Distinct

@@ -1,7 +1,9 @@
-// Measurement probes for chip_smoke.py's split of K1's and K3's time. No TPU
-// kernel, and no path of the port launches them: chip_smoke.py builds this
-// file on its own and loads it with ctypes. It includes nothing of
-// ops/csrc, so the same file also splits an older tree's kernels.
+// Measurement probes for chip_smoke.py's split of K1's and K3's time, and
+// for the host link's read rate, the bound of the cold-tier reads
+// (ops/csrc/cold_probe.cu). No TPU kernel, and no path of the port launches
+// them: chip_smoke.py builds this file on its own and loads it with ctypes.
+// It includes nothing of ops/csrc, so the same file also splits an older
+// tree's kernels.
 //
 // Both probes map lanes to threads as K1 and K3 do: a persistent grid of
 // CTAs of 256 threads, eight a SM, each CTA taking whole tiles of 1024
@@ -89,4 +91,54 @@ WF_EXPORT int wf_global_fold(const int* values, const int* seg, const unsigned c
     wf_global_fold_kernel<<<grid, WF_SPLIT_THREADS, 0, st>>>(
         (const int4*)values, (const int4*)seg, (const uchar4*)valid, out, n / 4, S);
     return (int)cudaGetLastError();
+}
+
+// The host link's rate of small reads: n reads of 16 bytes at system scope
+// (ld.relaxed.sys, as the cold-tier kernels read mapped records), each from
+// a line of 128 bytes drawn by a hash of the read's number from `lines`
+// lines of a mapped host buffer, `per` reads in flight a thread (1 to 4),
+// a grid of 256-thread blocks covering n / per threads. Writes nothing
+// unless the xor of every word is a value no input gives in practice.
+__global__ void __launch_bounds__(WF_SPLIT_THREADS)
+wf_link_reads_kernel(const unsigned char* buf, long long lines, long long n, int per,
+                     int* __restrict__ sink) {
+    const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * per;
+    unsigned acc = 0;
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        if (u >= per || i0 + u >= n) continue;
+        const unsigned long long h = (unsigned long long)(i0 + u + 1) * 0x9E3779B97F4A7C15ull;
+        const unsigned char* p = buf + (long long)((h >> 24) % (unsigned long long)lines) * 128
+                                 + ((h >> 8) & 7) * 16;
+        asm volatile("ld.relaxed.sys.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(v[u].x), "=r"(v[u].y), "=r"(v[u].z), "=r"(v[u].w) : "l"(p));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (u < per && i0 + u < n) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    if (acc == 0x9e3779b9u) sink[0] = (int)acc;
+}
+
+// buf: device address of a mapped buffer of lines * 128 bytes.
+WF_EXPORT int wf_link_reads(const void* buf, long long lines, long long n, int per, int* sink,
+                            void* stream) {
+    if (lines < 1 || n < 1 || per < 1 || per > 4) return (int)cudaErrorInvalidValue;
+    const long long threads = (n + per - 1) / per;
+    const long long blocks = (threads + WF_SPLIT_THREADS - 1) / WF_SPLIT_THREADS;
+    wf_link_reads_kernel<<<(unsigned)blocks, WF_SPLIT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const unsigned char*)buf, lines, n, per, sink);
+    return (int)cudaGetLastError();
+}
+
+// Pinned host memory mapped into the card's address space for the link
+// probe (*dev for the kernel), and its release.
+WF_EXPORT int wf_probe_host_alloc(long long bytes, void** host, void** dev) {
+    cudaError_t e = cudaHostAlloc(host, (size_t)bytes, cudaHostAllocMapped);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaHostGetDevicePointer(dev, *host, 0);
+}
+
+WF_EXPORT int wf_probe_host_free(void* host) {
+    return (int)cudaFreeHost(host);
 }

@@ -64,20 +64,21 @@ _SYMBOLS = [
     ("wf_hash_int_keys", None,
      [_P(ctypes.c_int64), ctypes.c_uint64, ctypes.c_uint32, _P(ctypes.c_int32)]),
     # the cold tier's key index (host_store.cpp, state/host_store.py)
-    ("wf_hs_upsert", ctypes.c_int64, [ctypes.c_void_p] * 3 + [ctypes.c_int]
-     + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 6
-     + [ctypes.c_int64, ctypes.c_void_p]),
-    ("wf_hs_append", ctypes.c_int64, [ctypes.c_void_p] * 3 + [ctypes.c_int]
-     + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 6
-     + [ctypes.c_int64, ctypes.c_void_p]),
-    ("wf_hs_lookup", ctypes.c_int64, [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    ("wf_hs_upsert", ctypes.c_int64, [ctypes.c_void_p] * 2 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 6
+     + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_append", ctypes.c_int64, [ctypes.c_void_p] * 2 + [ctypes.c_int]
+     + [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 6
+     + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]),
+    ("wf_hs_lookup", ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int]
      + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]),
-    ("wf_hs_fetch", None, [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
-                                                   ctypes.c_int64]
+    ("wf_hs_fetch", None, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
      + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]),
-    ("wf_hs_remove", None, [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                                    ctypes.c_int64, ctypes.c_void_p]),
-    ("wf_hs_reindex", None, [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    ("wf_hs_remove", None, [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                                    ctypes.c_int64, ctypes.c_void_p,
+                                                    ctypes.c_void_p, ctypes.c_int64,
+                                                    ctypes.c_void_p]),
+    ("wf_hs_reindex", None, [ctypes.c_void_p] * 2 + [ctypes.c_int]
      + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2),
 ]
 

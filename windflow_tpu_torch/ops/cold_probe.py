@@ -5,17 +5,24 @@ table's cold tier with an ordered ``io_callback`` inside the compiled step
 (``JoinTableTier.lookup_cb``, ``SlotTableTier.lookup_cb``). A CUDA graph
 cannot call Python, so on the card the step reads the port's
 :class:`~windflow_tpu_torch.state.host_store.HostStore` itself: the store
-keeps its key index, meta and value columns in pinned host memory mapped
-into the card's address space (:class:`MappedBuffer`), and
-``csrc/cold_probe.cu`` probes them, one thread a lane, through a fixed
-descriptor, so a graph captured before the store grew stays valid.
+keeps its records in pinned host memory mapped into the card's address space
+(:class:`MappedBuffer`) and a mirror of its key index in the card's memory,
+and ``csrc/cold_probe.cu`` walks the mirror, a group of threads a lane
+(one for a 16-byte record), and reads a hit's record over the host link,
+through a fixed descriptor, so a graph captured before the store grew stays
+valid. The store keeps the mirror up
+with :func:`cold_scatter_cuda` (a third entry point of the same source, a
+helper kernel registered as ``cold_scatter``; its plain version
+:func:`cold_scatter_plain`): after each write, the slots it wrote, staged
+in mapped memory.
 
 :func:`cold_probe` returns what ``HostStore.lookup`` gives for the wanted
 lanes, in the form the JAX callbacks hand back: ``(found [R] bool, m0, m1,
 m2 [R] int32 (the meta's low 32 bits), one [R, ...] tensor per value column
 in the store's column order)``, zeros where a lane is not wanted or its key
-is absent. On a CUDA tensor it launches the kernel (the store must be mapped
-on that card); on a CPU tensor it runs the plain version, the store's own
+is absent. On a CUDA tensor it launches the kernel (the store must be a
+unique store mapped on that card, with its mirror: nothing falls back to
+the host index); on a CPU tensor it runs the plain version, the store's own
 ``lookup`` over a synchronous host round trip, which is also what the CPU
 path of every tiered operator runs.
 
@@ -25,7 +32,8 @@ up to ``M`` rows a wanted lane's key, oldest first, ``(mask [R, M] bool, one
 [R, M, ...] tensor per value column in the store's column order)``, zeros
 past a chain's end. On the card it is the second entry point of
 ``csrc/cold_probe.cu`` (a helper kernel too, registered as ``cold_fetch``),
-which walks the store's next-row links in mapped memory, a group of threads
+which finds a key's head row in the mirror and walks the store's next-row
+links in mapped memory, a group of threads
 a lane reading each row's record (its link and value columns) in 16-byte
 chunks (a KB at a time, so a record may be of any width); its plain
 version is ``HostStore.fetch_multi``. The fetch is
@@ -49,22 +57,24 @@ from .registry import count_launch, on_card, traced
 
 #: value columns the kernel takes (its ``WF_COLD_MAXC``)
 MAX_COLS = 16
-#: descriptor words of the records' base (its ``WF_COLD_REC``: a row's
-#: next-row link, then its value columns; ``state/host_store.py::
-#: record_layout``), of a record's bytes (``WF_COLD_REC_BYTES``) and of the
-#: first column's (offset in a record, bytes a row) (``WF_COLD_COL0``)
-DESC_REC = 5
-DESC_REC_BYTES = 6
-DESC_COL0 = 7
-#: int64 words of the descriptor (its ``WF_COLD_DESC``): index keys, index
-#: heads, lg, meta, column count, records, record bytes, then (offset, bytes
-#: a row) a column
+#: descriptor words (its ``WF_COLD_*``): the index's slots in the card's
+#: memory (int64 [2^lg, 2]: key, head row), lg, the column count, the
+#: records' base (``state/host_store.py::record_layout``), a record's bytes,
+#: then from ``DESC_COL0`` each column's (offset in a record, bytes a row)
+DESC_SLOTS = 0
+DESC_LG = 1
+DESC_NCOLS = 2
+DESC_REC = 3
+DESC_REC_BYTES = 4
+DESC_COL0 = 5
+#: int64 words of the descriptor (its ``WF_COLD_DESC``)
 DESC_WORDS = DESC_COL0 + 2 * MAX_COLS
 
 _P = ctypes.POINTER
 _ALLOC_ARGTYPES = [ctypes.c_longlong, _P(ctypes.c_void_p), _P(ctypes.c_void_p)]
-_PROBE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+_PROBE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 4
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+_SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 _FETCH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
@@ -145,9 +155,14 @@ def _check_cuda_args(what: str, store, keys: torch.Tensor, want: torch.Tensor) -
             or not want.is_contiguous():
         raise ValueError(f"{what}: want must be a contiguous bool [{R}] tensor "
                          f"on {dev}, got {want.dtype} {tuple(want.shape)} on {want.device}")
-    if store.device != dev:
+    if store.device != dev or store.mirror is None:
         raise ValueError(f"{what}: store {store.name!r} is mapped for "
-                         f"{store.device}, the keys are on {dev}")
+                         f"{store.device} (mirror {store.mirror is not None}), the keys "
+                         f"are on {dev}")
+    unique = what == "cold_probe_cuda"
+    if store.unique != unique:
+        raise ValueError(f"{what}: reads a {'unique' if unique else 'multimap'} store's "
+                         f"records, {store.name!r} is not one")
     if len(store.col_names) > MAX_COLS:
         raise ValueError(f"{what}: {len(store.col_names)} value columns, the "
                          f"kernel takes {MAX_COLS}")
@@ -171,10 +186,34 @@ def cold_probe_cuda(store, keys: torch.Tensor, want: torch.Tensor):
     fn = cuda.function("cold_probe", "wf_cold_probe", _PROBE_ARGTYPES)
     count_launch("cold_probe")
     cuda.check(fn(ctypes.c_void_p(store.descriptor_address()), cuda.ptr(keys),
-                  cuda.ptr(want), R, cuda.ptr(found), cuda.ptr(m0), cuda.ptr(m1),
+                  cuda.ptr(want), R, store.record_bytes, cuda.ptr(found), cuda.ptr(m0),
+                  cuda.ptr(m1),
                   cuda.ptr(m2), outs, len(cols), cuda.ptr(store.readmit_counter()),
                   cuda.stream_ptr(dev)), "cold_probe_cuda")
     return (found, m0, m1, m2, *cols)
+
+
+def cold_scatter_plain(mirror: torch.Tensor, entries: np.ndarray) -> None:
+    """Plain version: one indexed copy of the entries' (key, head row) into
+    their slots (the entries copied to the mirror's device first)."""
+    e = torch.from_numpy(np.ascontiguousarray(entries, np.int64)).to(mirror.device)
+    mirror[e[:, 2]] = e[:, :2]
+
+
+def cold_scatter_cuda(mirror: torch.Tensor, entries_dev: int, n: int) -> None:
+    """Launch ``csrc/cold_probe.cu``'s scatter of ``n`` mapped entries at
+    device address ``entries_dev`` into ``mirror`` on the current stream."""
+    if mirror.dtype != torch.int64 or mirror.ndim != 2 or mirror.shape[1] != 2 \
+            or not mirror.is_contiguous() or mirror.device.type != "cuda":
+        raise ValueError(f"cold_scatter_cuda: mirror must be a contiguous int64 [S, 2] "
+                         f"CUDA tensor, got {mirror.dtype} {tuple(mirror.shape)} on "
+                         f"{mirror.device}")
+    if n <= 0:
+        return
+    fn = cuda.function("cold_probe", "wf_cold_scatter", _SCATTER_ARGTYPES)
+    count_launch("cold_scatter")
+    cuda.check(fn(ctypes.c_void_p(entries_dev), int(n), cuda.ptr(mirror),
+                  cuda.stream_ptr(mirror.device)), "cold_scatter_cuda")
 
 
 def cold_fetch(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
@@ -226,7 +265,8 @@ def cold_fetch_cuda(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
     return (mask, *cols)
 
 
-__all__ = ["MAX_COLS", "DESC_REC", "DESC_REC_BYTES", "DESC_COL0", "DESC_WORDS",
-           "MappedBuffer",
-           "cold_probe", "cold_probe_plain", "cold_probe_cuda", "cold_fetch",
-           "cold_fetch_plain", "cold_fetch_cuda"]
+__all__ = ["MAX_COLS", "DESC_SLOTS", "DESC_LG", "DESC_NCOLS", "DESC_REC", "DESC_REC_BYTES",
+           "DESC_COL0", "DESC_WORDS", "MappedBuffer",
+           "cold_probe", "cold_probe_plain", "cold_probe_cuda", "cold_scatter_plain",
+           "cold_scatter_cuda", "cold_fetch", "cold_fetch_plain",
+           "cold_fetch_cuda"]

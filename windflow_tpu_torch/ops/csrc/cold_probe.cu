@@ -1,6 +1,7 @@
 // cold_probe — the tiered state's cold-tier read on the card: for each wanted
 // lane, the row of its key in the HostStore (windflow_tpu_torch/state/
-// host_store.py), read from pinned, mapped host memory.
+// host_store.py): the key's slot found in the store's index, mirrored in the
+// card's memory, and the row's record read from pinned, mapped host memory.
 //
 // A helper kernel: it replaces no TPU kernel. The JAX package reads the cold
 // tier with an ordered io_callback inside the compiled step
@@ -9,37 +10,48 @@
 // SlotTableTier.lookup_cb). The port replays a whole step as a CUDA graph,
 // which cannot call Python, and a host node that takes the interpreter lock
 // can deadlock against a driver thread waiting on the card. So the step
-// reads the store itself: the store keeps its key index, its meta and its
-// value columns in memory allocated with cudaHostAlloc(cudaHostAllocMapped)
-// (wf_host_alloc below), and this kernel probes them over the host link.
+// reads the store itself: the store keeps its records in memory allocated
+// with cudaHostAlloc(cudaHostAllocMapped) (wf_host_alloc below) and a copy
+// of its key index in device memory, and this kernel probes them.
 //
 // What a lane computes is what HostStore.lookup gives for it: (found, the
 // low 32 bits of meta m0, m1, m2, one row of each value column), zeros where
 // the lane is not wanted or its key is absent. The index is open addressing
-// over int64 keys, home slot (uint64)key * 0x9E3779B97F4A7C15 >> (64 - lg),
-// linear probing, head row -1 for an empty slot — the hash and order of
-// windflow_tpu_torch/native/csrc/host_store.cpp, which writes it; the two
-// must stay equal.
+// over int64 keys, 16-byte slots {key, head row}, home slot (uint64)key *
+// 0x9E3779B97F4A7C15 >> (64 - lg), linear probing, head row -1 for an empty
+// slot — the hash and order of windflow_tpu_torch/native/csrc/
+// host_store.cpp, which writes the host's index; the two must stay equal.
+// The host copies the slots each write changed into the device copy with
+// wf_cold_scatter (below) on the stream the reads run on, so a read sees
+// the index of the last write before it.
 //
-// A fixed descriptor, itself in mapped memory, holds the arrays' device
-// pointers, the index size and each column's place in a row's record. The
-// kernels read only the descriptor's address from their arguments, so a
+// Where the time goes: on this card the host link serves about 240 M
+// requests a second for reads of random lines (chip_smoke.py's link_reads
+// phase measures it with a probe of windflow_tpu_torch/benchmarks/csrc/
+// split_probes.cu), each a round trip of a microsecond or more, where a
+// device-memory read takes a few hundred nanoseconds; the 16-byte loads of
+// one warp instruction that fall in one 128-byte line are one request, a
+// second instruction's load of the same line is a request of its own. So
+// the walk, of dependent reads one slot at a time, stays in device memory:
+// one 16-byte load a step, neighbouring slots in one sector. Only a hit
+// crosses the link, once: its record (a unique store's meta low words,
+// then its value columns; state/host_store.py::record_layout; q3's is one
+// 16-byte chunk), read by a group of threads a lane (wf_cold_group) that
+// loads a window's chunks with one instruction. A miss and a lane not
+// wanted read nothing over the link.
+//
+// A fixed descriptor in device memory holds the index copy's and the
+// records' addresses, the index size and each column's place in a record.
+// The kernels read only the descriptor's address from their arguments, so a
 // graph captured before the store grew (new arrays, a new descriptor
-// content) still reads the current store. The host writes the store only
-// between steps, after waiting on the chain's stream. The kernels load the
-// index and the meta through volatile pointers and the records with
-// ld.relaxed.sys (below), so no cache holds a value across launches.
+// content, written by an async copy on the stream) still reads the current
+// store. The host writes the records only between steps, after waiting on
+// the chain's stream; the kernels read them with ld.relaxed.sys (below), so
+// no cache holds a value across launches.
 //
 // The found lanes are added to a counter in device memory (the host link
 // offers no system-scope atomics): one __syncthreads_count and one atomicAdd
 // a block. The store folds it into its readmission count.
-//
-// Bound on the H100: the bytes read over the host link (PCIe Gen5 x16, 64
-// GB/s a direction by the data sheet): one 16-byte index slot for each
-// wanted lane, the meta (24 B) and the value row of each found lane. The
-// reads are small and dependent (slot, then row), so the kernel is latency
-// bound; one thread a lane keeps up to R probes in flight at once, and reads
-// a found row's record (below) a 16-byte chunk at a time, as the fetch does.
 //
 // cold_fetch, the second entry point, is the multimap read of the interval
 // join's archive tier (also a helper kernel that replaces no TPU kernel; the
@@ -48,38 +60,38 @@
 // as the probe does and walks the next-row links up to M rows, oldest first
 // (windflow_tpu_torch/native/csrc/host_store.cpp::wf_hs_fetch, HostStore.
 // fetch_multi): mask [R, M] and each column's [R, M] rows, zeros past the
-// chain's end. It is read-only and counts nothing. Its bound is the same
-// host link: a 16-byte slot a wanted lane, then for each row fetched its
-// 8-byte link and its value row. What limits it is the number of reads over
-// PCIe, not their bytes: on the H100 the link serves about 240 M reads a
-// second of one line each, whatever their width up to 16 bytes, and a
-// system-scope read of a second word of the same line is a read of its own
-// (PERF.md). With a column an array, a hop of q4's five columns would be six
-// reads; the store keeps a row's link and columns in one record
-// (state/host_store.py::record_layout, a multiple of 16 bytes), and a group
-// of g threads (a power of two, all in one warp) serves a lane: its leader
-// reads the head slot; at every hop thread j reads the record's 16-byte
-// chunks j, j + g, ... into shared memory with ld.relaxed.sys.v4 (a
+// chain's end. It is read-only and counts nothing. A multimap record holds a
+// row's next-row link and its value columns (a multiple of 16 bytes), and a
+// group of g threads (a power of two, all in one warp) serves a lane: its
+// leader finds the head slot; at every hop thread j reads the record's
+// 16-byte chunks j, j + g, ... into shared memory with ld.relaxed.sys.v4 (a
 // system-scope load observes the host's writes made before the launch,
 // where a weak load may hit a line an earlier launch left in the card's
 // caches; "relaxed" orders nothing, so the chunks of one hop stay in flight
 // together), every thread of the group takes the next link from there, and
 // thread c copies column c out. A hop of q4's 32-byte record is two chunks
-// of one line; a record wider than WF_FETCH_STAGE bytes is read a window of
-// that many bytes at a time.
+// of one line, one request; a record wider than WF_COLD_STAGE bytes is read
+// a window of that many bytes at a time.
+//
+// cold_scatter, the third, writes a host store's changed slots into its
+// index copy: entries of 32 bytes (key, head row, slot, 0) staged in mapped
+// memory, two threads an entry, a 16-byte load each and one 16-byte store.
 #include "common.cuh"
 
-// The descriptor's layout, for both kernels (and ops/cold_probe.py's
-// DESC_WORDS and HostStore._alloc, which write it): words 0 index keys, 1
-// index head rows, 2 lg (the index has 2^lg slots), 3 meta [rows, 3] int64, 4
-// column count, 5 the records (a row's next-row link at byte 0, then its
-// value columns), 6 a record's bytes (a multiple of 16), then for column c:
-// WF_COLD_COL0 + 2c its offset in a record, WF_COLD_COL0 + 2c + 1 its bytes
-// a row
+// The descriptor's layout, for every kernel here (and ops/cold_probe.py's
+// DESC_* and HostStore._alloc, which write it): words 0 the index copy
+// ([2^lg] 16-byte slots in device memory), 1 lg, 2 column count, 3 the
+// records (a multimap row's next-row link or a unique row's three meta low
+// words first, then its value columns), 4 a record's bytes (a multiple of
+// 16), then for column c: WF_COLD_COL0 + 2c its offset in a record,
+// WF_COLD_COL0 + 2c + 1 its bytes a row
 constexpr int WF_COLD_MAXC = 16;                              // value columns at most
-constexpr int WF_COLD_REC = 5;                                // the records
-constexpr int WF_COLD_REC_BYTES = 6;                          // bytes a record
-constexpr int WF_COLD_COL0 = 7;                               // first column's offset
+constexpr int WF_COLD_SLOTS = 0;                              // the index copy
+constexpr int WF_COLD_LG = 1;                                 // 2^lg slots
+constexpr int WF_COLD_NCOLS = 2;                              // value columns
+constexpr int WF_COLD_REC = 3;                                // the records
+constexpr int WF_COLD_REC_BYTES = 4;                          // bytes a record
+constexpr int WF_COLD_COL0 = 5;                               // first column's offset
 constexpr int WF_COLD_DESC = WF_COLD_COL0 + 2 * WF_COLD_MAXC; // descriptor words
 struct WfColdOuts {
     unsigned char* col[WF_COLD_MAXC];
@@ -89,16 +101,16 @@ __device__ __forceinline__ unsigned long long wf_cold_home(long long key, int lg
     return ((unsigned long long)key * 0x9E3779B97F4A7C15ull) >> (64 - lg);
 }
 
-// head row of key in the store's index, -1 when absent (d: the descriptor)
+// head row of key in the store's index copy, -1 when absent (d: the
+// descriptor): one 16-byte load of device memory a slot
 __device__ __forceinline__ long long wf_cold_head(const long long* d, long long key) {
-    const volatile long long* ikey = (const volatile long long*)d[0];
-    const volatile long long* irow = (const volatile long long*)d[1];
-    const int lg = (int)d[2];
+    const longlong2* slots = (const longlong2*)d[WF_COLD_SLOTS];
+    const int lg = (int)d[WF_COLD_LG];
     const unsigned long long mask = (1ull << lg) - 1;
     for (unsigned long long s = wf_cold_home(key, lg);; s = (s + 1) & mask) {
-        const long long r = irow[s];
-        if (r < 0) return -1;
-        if (ikey[s] == key) return r;
+        const longlong2 e = __ldg(slots + s);
+        if (e.y < 0) return -1;
+        if (e.x == key) return e.y;
     }
 }
 
@@ -133,26 +145,45 @@ __device__ __forceinline__ void wf_stage_copy_row(unsigned char* dst, const unsi
 // Row `row`'s record (zeros when row < 0) copied out as row o of every
 // column, read a window of `staged` bytes at a time into the group's stage
 // st: of the group's g threads, thread j reads the window's 16-byte chunks
-// j, j + g, ... and thread c copies the part of columns c, c + g, ... that
-// lies in it (no copy where !live). Returns the record's next-row link (-1
-// when row < 0). A group of g > 1 lies in one warp, whose threads all run
-// it together (the warp syncs see the whole warp).
+// j, j + g, ... (four loads in flight before their stores) and thread c
+// copies the part of columns c, c + g, ... that lies in it (no copy where
+// !live). Returns the record's first 8 bytes (a multimap row's next-row
+// link; -1 when row < 0); with meta3, the first window's three int32 (a
+// unique row's meta low words) go there. A group of g > 1 lies in
+// one warp, whose threads all run it together (the warp syncs see the whole
+// warp).
 __device__ __forceinline__ long long wf_copy_record(unsigned char* st, int staged, int g, int c,
                                                     const long long* d, long long row,
                                                     long long o, bool live,
-                                                    const WfColdOuts& outs) {
+                                                    const WfColdOuts& outs,
+                                                    int* meta3 = nullptr) {
     const long long rec_bytes = d[WF_COLD_REC_BYTES];
     const unsigned char* rec = (const unsigned char*)d[WF_COLD_REC] +
                                (row >= 0 ? row : 0) * rec_bytes;
-    const int ncols = (int)d[4];
+    const int ncols = (int)d[WF_COLD_NCOLS];
     long long next = -1;
     for (long long w0 = 0; w0 < rec_bytes; w0 += staged) {
         const long long nb = rec_bytes - w0 < staged ? rec_bytes - w0 : staged;
+        const int chunks = (int)(nb / 16);
         if (row >= 0)
-            for (int j = c; j < nb / 16; j += g)
-                *(uint4*)(st + 16 * j) = wf_ld16_sys(rec + w0 + 16 * j);
+            for (int j = c; j < chunks; j += 4 * g) {
+                uint4 v[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (j + u * g < chunks) v[u] = wf_ld16_sys(rec + w0 + 16 * (j + u * g));
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (j + u * g < chunks) *(uint4*)(st + 16 * (j + u * g)) = v[u];
+            }
         if (g > 1) __syncwarp();
-        if (w0 == 0 && row >= 0) next = *(const long long*)st;
+        if (w0 == 0 && row >= 0) {
+            next = *(const long long*)st;
+            if (meta3) {
+                meta3[0] = ((const int*)st)[0];
+                meta3[1] = ((const int*)st)[1];
+                meta3[2] = ((const int*)st)[2];
+            }
+        }
         for (int k = c; live && k < ncols; k += g) {
             const long long off = d[WF_COLD_COL0 + 2 * k], rb = d[WF_COLD_COL0 + 2 * k + 1];
             const long long lo = off > w0 ? off : w0;
@@ -166,71 +197,90 @@ __device__ __forceinline__ long long wf_copy_record(unsigned char* st, int stage
     return next;
 }
 
-constexpr int WF_PROBE_THREADS = 256;
-constexpr int WF_PROBE_STAGE = 64;       // bytes of a record a probing thread stages at once
+constexpr int WF_COLD_THREADS = 256;
+constexpr int WF_COLD_STAGE = 1024;      // bytes of a record a lane's group stages at once
 
-__global__ void __launch_bounds__(WF_PROBE_THREADS)
-wf_cold_probe_kernel(const volatile long long* desc, const int* __restrict__ keys,
-                     const bool* __restrict__ want, long long R, bool* __restrict__ found,
-                     int* __restrict__ m0, int* __restrict__ m1, int* __restrict__ m2,
-                     WfColdOuts outs, unsigned long long* __restrict__ readmits) {
-    __shared__ __align__(16) unsigned char stage[WF_PROBE_THREADS * WF_PROBE_STAGE];
+// A lane's group for records of rec_bytes (a multiple of 16) and ncols
+// columns: g threads (a power of two, at most 32, so a group lies in one
+// warp), enough to read a window's chunks with one load each where they fit
+// (the chunks of a line that one load instruction of a warp reads are one
+// request over the link; a second load of the same line is a request of its
+// own) and to copy each column; `staged` bytes of shared memory a group.
+static void wf_cold_group(long long rec_bytes, int ncols, int* g, int* staged) {
+    *staged = (int)(rec_bytes < WF_COLD_STAGE ? rec_bytes : WF_COLD_STAGE);
+    *g = 1;
+    while (*g < 32 && (*g < ncols || *g < *staged / 16)) *g *= 2;
+}
+
+// g threads a lane (wf_cold_group): the leader (thread 0) walks the index
+// copy; the group reads a hit's record (wf_copy_record) and copies its
+// columns; the leader writes found and the meta low words. Every thread of
+// a warp runs it together.
+__global__ void __launch_bounds__(WF_COLD_THREADS)
+wf_cold_probe_kernel(const long long* __restrict__ desc, const int* __restrict__ keys,
+                     const bool* __restrict__ want, long long R, int g, int staged,
+                     bool* __restrict__ found, int* __restrict__ m0, int* __restrict__ m1,
+                     int* __restrict__ m2, WfColdOuts outs,
+                     unsigned long long* __restrict__ readmits) {
+    extern __shared__ __align__(16) unsigned char wf_probe_stage[];
     __shared__ long long d[WF_COLD_DESC];
     if (threadIdx.x < WF_COLD_DESC) d[threadIdx.x] = desc[threadIdx.x];
     __syncthreads();
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long i = ((long long)blockIdx.x * WF_COLD_THREADS + threadIdx.x) / g;
+    const int c = threadIdx.x & (g - 1);
+    const int leader = (threadIdx.x & 31) & ~(g - 1);
+    const bool live = i < R;
     long long row = -1;
-    if (i < R) {
-        if (want[i]) row = wf_cold_head(d, keys[i]);
-        const bool hit = row >= 0;
-        const volatile long long* meta = (const volatile long long*)d[3];
-        found[i] = hit;
-        m0[i] = hit ? (int)meta[3 * row] : 0;
-        m1[i] = hit ? (int)meta[3 * row + 1] : 0;
-        m2[i] = hit ? (int)meta[3 * row + 2] : 0;
-        const int staged = (int)(d[WF_COLD_REC_BYTES] < WF_PROBE_STAGE ? d[WF_COLD_REC_BYTES]
-                                                                       : WF_PROBE_STAGE);
-        wf_copy_record(stage + threadIdx.x * WF_PROBE_STAGE, staged, 1, 0, d, row, i, true,
-                       outs);
+    if (live && c == 0 && want[i]) row = wf_cold_head(d, keys[i]);
+    row = __shfl_sync(0xffffffffu, row, leader);
+    int meta[3] = {0, 0, 0};
+    wf_copy_record(wf_probe_stage + (threadIdx.x / g) * staged, staged, g, c, d, row, i, live,
+                   outs, meta);
+    if (live && c == 0) {
+        found[i] = row >= 0;
+        m0[i] = meta[0];
+        m1[i] = meta[1];
+        m2[i] = meta[2];
     }
-    const int n = __syncthreads_count(row >= 0);
+    const int n = __syncthreads_count(live && c == 0 && row >= 0);
     if (threadIdx.x == 0 && n) atomicAdd(readmits, (unsigned long long)n);
 }
 
-// Probe R lanes. desc: the store's descriptor (device address of mapped
-// memory); outs: ncols output bases, column c of R rows of the descriptor's
-// row bytes; readmits: a device uint64 the found lanes are added to.
+// Probe R lanes of a unique store. desc: the store's descriptor (device
+// memory); rec_bytes: its records' bytes (a multiple of 16); outs: ncols
+// output bases, column c of R rows of the descriptor's row bytes; readmits:
+// a device uint64 the found lanes are added to.
 WF_EXPORT int wf_cold_probe(const void* desc, const int* keys, const bool* want,
-                            long long R, bool* found, int* m0, int* m1, int* m2,
-                            void* const* outs, int ncols, unsigned long long* readmits,
-                            void* stream) {
-    if (ncols < 0 || ncols > WF_COLD_MAXC) return (int)cudaErrorInvalidValue;
+                            long long R, long long rec_bytes, bool* found, int* m0, int* m1,
+                            int* m2, void* const* outs, int ncols,
+                            unsigned long long* readmits, void* stream) {
+    if (ncols < 0 || ncols > WF_COLD_MAXC || rec_bytes < 16 || rec_bytes % 16)
+        return (int)cudaErrorInvalidValue;
     WfColdOuts o = {};
     for (int c = 0; c < ncols; ++c) o.col[c] = (unsigned char*)outs[c];
     if (R <= 0) return 0;
-    const long long blocks = (R + WF_PROBE_THREADS - 1) / WF_PROBE_THREADS;
-    wf_cold_probe_kernel<<<(unsigned)blocks, WF_PROBE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const volatile long long*)desc, keys, want, R, found, m0, m1, m2, o, readmits);
+    int g = 1, staged = 16;
+    wf_cold_group(rec_bytes, ncols, &g, &staged);
+    const long long blocks = (R * g + WF_COLD_THREADS - 1) / WF_COLD_THREADS;
+    const size_t smem = (size_t)(WF_COLD_THREADS / g) * staged;
+    wf_cold_probe_kernel<<<(unsigned)blocks, WF_COLD_THREADS, smem, (cudaStream_t)stream>>>(
+        (const long long*)desc, keys, want, R, g, staged, found, m0, m1, m2, o, readmits);
     return (int)cudaGetLastError();
 }
 
-constexpr int WF_FETCH_THREADS = 256;
-constexpr int WF_FETCH_STAGE = 1024;     // bytes of a record a lane's group stages at once
-
-// g threads a lane (a power of two, at most 32, so a lane's group lies in one
-// warp), each group `staged` bytes of shared memory: every hop copies its
-// record out (wf_copy_record) and takes the next link from it; thread 0 (the
-// leader) reads the head slot and writes the mask. Every thread of a warp
+// The fetch's lane groups are the probe's (wf_cold_group): every hop copies
+// its record out (wf_copy_record) and takes the next link from it; the
+// leader reads the head slot and writes the mask. Every thread of a warp
 // runs the same hops.
-__global__ void __launch_bounds__(WF_FETCH_THREADS)
-wf_cold_fetch_kernel(const volatile long long* desc, const int* __restrict__ keys,
+__global__ void __launch_bounds__(WF_COLD_THREADS)
+wf_cold_fetch_kernel(const long long* __restrict__ desc, const int* __restrict__ keys,
                      const bool* __restrict__ want, long long R, int M, int g, int staged,
                      bool* __restrict__ mask, WfColdOuts outs) {
     extern __shared__ __align__(16) unsigned char wf_fetch_stage[];
     __shared__ long long d[WF_COLD_DESC];
     if (threadIdx.x < WF_COLD_DESC) d[threadIdx.x] = desc[threadIdx.x];
     __syncthreads();
-    const long long i = ((long long)blockIdx.x * WF_FETCH_THREADS + threadIdx.x) / g;
+    const long long i = ((long long)blockIdx.x * WF_COLD_THREADS + threadIdx.x) / g;
     const int c = threadIdx.x & (g - 1);
     const int leader = (threadIdx.x & 31) & ~(g - 1);
     const bool live = i < R;
@@ -257,13 +307,44 @@ WF_EXPORT int wf_cold_fetch(const void* desc, const int* keys, const bool* want,
     WfColdOuts o = {};
     for (int c = 0; c < ncols; ++c) o.col[c] = (unsigned char*)outs[c];
     if (R <= 0) return 0;
-    const int staged = (int)(rec_bytes < WF_FETCH_STAGE ? rec_bytes : WF_FETCH_STAGE);
-    int g = 1;
-    while (g < 32 && (g < ncols || g < staged / 16)) g *= 2;
-    const long long blocks = (R * g + WF_FETCH_THREADS - 1) / WF_FETCH_THREADS;
-    const size_t smem = (size_t)(WF_FETCH_THREADS / g) * staged;
-    wf_cold_fetch_kernel<<<(unsigned)blocks, WF_FETCH_THREADS, smem, (cudaStream_t)stream>>>(
-        (const volatile long long*)desc, keys, want, R, M, g, staged, mask, o);
+    int g = 1, staged = 16;
+    wf_cold_group(rec_bytes, ncols, &g, &staged);
+    const long long blocks = (R * g + WF_COLD_THREADS - 1) / WF_COLD_THREADS;
+    const size_t smem = (size_t)(WF_COLD_THREADS / g) * staged;
+    wf_cold_fetch_kernel<<<(unsigned)blocks, WF_COLD_THREADS, smem, (cudaStream_t)stream>>>(
+        (const long long*)desc, keys, want, R, M, g, staged, mask, o);
+    return (int)cudaGetLastError();
+}
+
+constexpr int WF_SCATTER_THREADS = 256;
+
+// Two threads an entry, each one 16-byte load, so a warp's loads read 512
+// contiguous bytes (four lines, four requests over the link): the even
+// thread holds {key, head row} and takes the slot from its odd neighbour.
+__global__ void __launch_bounds__(WF_SCATTER_THREADS)
+wf_cold_scatter_kernel(const unsigned char* entries, long long n, longlong2* __restrict__ slots) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t < 2 * n) v = wf_ld16_sys(entries + 16 * t);
+    const unsigned lo = __shfl_xor_sync(0xffffffffu, v.x, 1);
+    const unsigned hi = __shfl_xor_sync(0xffffffffu, v.y, 1);
+    if (t < 2 * n && !(t & 1)) {
+        longlong2 e;
+        e.x = (long long)(((unsigned long long)v.y << 32) | v.x);
+        e.y = (long long)(((unsigned long long)v.w << 32) | v.z);
+        slots[(long long)(((unsigned long long)hi << 32) | lo)] = e;
+    }
+}
+
+// Write n staged entries (mapped memory, 32 bytes each: key, head row, slot,
+// unused; int64) into the index copy: slots[slot] = {key, head row}. Entries
+// naming one slot twice carry the same value.
+WF_EXPORT int wf_cold_scatter(const void* entries, long long n, void* slots, void* stream) {
+    if (n < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    const long long blocks = (2 * n + WF_SCATTER_THREADS - 1) / WF_SCATTER_THREADS;
+    wf_cold_scatter_kernel<<<(unsigned)blocks, WF_SCATTER_THREADS, 0, (cudaStream_t)stream>>>(
+        (const unsigned char*)entries, n, (longlong2*)slots);
     return (int)cudaGetLastError();
 }
 

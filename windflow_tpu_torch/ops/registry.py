@@ -16,7 +16,9 @@ An entry whose ``replaces`` is None is a helper kernel that replaces no TPU
 kernel (``segment_fold_float``: the fixed-order float fold; ``cold_probe``:
 the tiered state's cold-tier read through mapped host memory, where the JAX
 package calls back into Python; ``cold_fetch``: the interval join's archive
-tier read, the multimap counterpart). It is counted the same way;
+tier read, the multimap counterpart; ``cold_scatter``: the copy of a host
+store's written index slots to its mirror in the card's memory, which the
+two reads walk). It is counted the same way;
 :func:`tpu_kernels` leaves it out.
 
 **Implementation selection** (:class:`KernelRegistry`). The five families of
@@ -96,6 +98,7 @@ KERNELS = {
         Kernel("segment_fold_float", "windflow_tpu_torch/ops/csrc/segment.cu", None),
         Kernel("cold_probe", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
         Kernel("cold_fetch", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
+        Kernel("cold_scatter", "windflow_tpu_torch/ops/csrc/cold_probe.cu", None),
     )
 }
 

@@ -26,21 +26,35 @@ rows a key, oldest first, without removing them).
 
 Where the JAX store keeps a Python dict from key to row (or list of rows),
 this one keeps an open-addressing index (``native/csrc/host_store.cpp``: its
-hash, probe order and per-row write and probe passes, each one C call) and a
-next-row link a row (a multimap key's rows in append order). A row's link
-and value columns sit together in one record (:func:`record_layout`: a
-multiple of 16 bytes; each column is a strided numpy view of the records),
-so the card reads a row and its link over the host link in as few requests
-as the record has 16-byte chunks, where a column an array took a request a
-column. With ``device`` a CUDA device, the index's key and head arrays, the
-meta and the records live in pinned, mapped host memory
-(:class:`~windflow_tpu_torch.ops.cold_probe.MappedBuffer`), and a fixed
-mapped descriptor holds their device addresses: when the store grows or is
-restored only the descriptor changes, so a CUDA graph captured before stays
-valid. A restore that fits rewrites the current arrays in place; the arrays
-a grow (or a larger restore) replaces are freed at once, after a wait on the
-current stream for the launches that may still read them (``cudaFreeHost``
-may itself wait for the whole device: it runs once a doubling).
+hash, probe order and per-row write and probe passes, each one C call) of
+16-byte slots ``{key, head row}``, and a next-row link a multimap row (a
+key's rows in append order). A row's value columns sit in one record
+(:func:`record_layout`: a multiple of 16 bytes; each column is a strided
+numpy view of the records) behind the multimap's link, or behind a unique
+store's meta (its low 32 bits, what the probe returns; a unique key has one
+row and needs no link), so the card reads a row in as few requests as the
+record has 16-byte chunks: q3's record is one. The int64 meta stays on the
+host, for the last-writer-wins compare, compaction and the manifest.
+
+With ``device`` a CUDA device, the records live in pinned, mapped host
+memory (:class:`~windflow_tpu_torch.ops.cold_probe.MappedBuffer`), and the
+index has a mirror in the card's memory, which the kernels walk: a walk
+costs device-memory reads, and only a hit's record crosses the host link.
+Every C pass that writes slots lists them, and the writer copies just those
+slots across with one launch of the ``cold_scatter`` kernel on the current
+stream (the chain's, whose next step reads them; the slots staged in a
+mapped buffer), with an event behind it: a writer waits for it before it
+touches the host index or the staging again. A rebuild of the index
+(growth, compaction, a restore) copies the whole slot array from the pinned
+host index with one copy, waited for at once (a store is built, grown and
+restored on whichever stream is current). A fixed descriptor in the card's
+memory holds the mirror's and the records' device addresses, rewritten by a
+copy on the current stream when the store grows: a CUDA graph captured
+before stays valid. A restore that fits rewrites the current arrays and
+mirror in place; the arrays and mirror a grow (or a larger restore) replaces
+are freed at once, after a wait on the whole device for the launches that
+may still read them (``cudaFreeHost`` may wait for it too): once a
+doubling.
 
 Readmissions: the JAX store counts the found lanes of every callback. Here a
 host ``lookup`` counts on the host, and the kernel adds its found lanes to a
@@ -76,12 +90,13 @@ def _cp(a: np.ndarray):
     return a.ctypes.data
 
 
-def record_layout(dtypes: Dict[str, np.dtype], shapes: Dict[str, tuple]
-                  ) -> Tuple[int, Dict[str, int]]:
+def record_layout(dtypes: Dict[str, np.dtype], shapes: Dict[str, tuple],
+                  unique: bool = False) -> Tuple[int, Dict[str, int]]:
     """Bytes a record (a multiple of 16) and each column's byte offset in
-    it: the next-row link (int64) first, then the columns from the widest
-    element down, each at its element's alignment."""
-    offs, off = {}, 8
+    it: first a multimap row's next-row link (int64) or a unique row's meta
+    low words (three int32), then the columns from the widest element down,
+    each at its element's alignment."""
+    offs, off = {}, 12 if unique else 8
     for k in sorted(dtypes, key=lambda c: -dtypes[c].itemsize):
         a = dtypes[k].itemsize
         off = -(-off // a) * a
@@ -105,7 +120,8 @@ class HostStore:
         self._dtypes = {k: np.dtype(v) for k, v in cols.items()}
         self._shapes = {k: tuple(col_shapes.get(k, ())) if col_shapes else ()
                         for k in cols}
-        self._rec_bytes, self._offs = record_layout(self._dtypes, self._shapes)
+        self._rec_bytes, self._offs = record_layout(self._dtypes, self._shapes,
+                                                     self.unique)
         self.device = None if device is None else torch.device(device)
         self._mapped = self.device is not None and self.device.type == "cuda"
         if self._mapped and self.device.index is None:
@@ -115,12 +131,19 @@ class HostStore:
         self._desc = None
         self._readmit_dev = None
         self._dev_seen = 0       # the device counter's value at the last fold
+        self._mirror = None      # the index's slots in the card's memory
+        self._staging = None     # mapped (key, head, slot, 0) entries for cold_scatter
+        self._upkeep = None      # event after the last copy to the mirror
+        #: the mirror's upkeep: cold_scatter launches and whole-index uploads
+        self.mirror_scatters = 0
+        self.mirror_uploads = 0
         self._uncounted = 0  # wf-lint: single-writer[driver, stage] depth of uncounted() blocks
         if self._mapped:
-            from ..ops.cold_probe import DESC_WORDS, MappedBuffer
-            buf = MappedBuffer(8 * DESC_WORDS)
-            self._desc_buf = buf
-            self._desc = buf.array(np.int64, (DESC_WORDS,))
+            from ..ops.cold_probe import DESC_WORDS
+            # the descriptor in the card's memory, written from a pinned copy
+            self._desc_t = torch.zeros((DESC_WORDS,), dtype=torch.int64, pin_memory=True)
+            self._desc = self._desc_t.numpy()
+            self._desc_dev = torch.zeros((DESC_WORDS,), dtype=torch.int64, device=self.device)
             self._readmit_dev = torch.zeros((1,), dtype=torch.int64, device=self.device)
             self._scratch_dev = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self.spilled_rows = 0        # rows applied from device outboxes
@@ -145,11 +168,24 @@ class HostStore:
         """Bytes of a row's record (its next-row link and value columns)."""
         return self._rec_bytes
 
+    @property
+    def mirror(self) -> Optional[torch.Tensor]:
+        """The index's slots in the card's memory (int64 ``[slots, 2]``:
+        key, head row), which the kernels walk; None without a card."""
+        return self._mirror
+
+    def index_slots(self) -> np.ndarray:
+        """A copy of the host index's slots (int64 ``[slots, 2]``), what
+        :attr:`mirror` holds once the copies in flight have landed."""
+        with self._lock:
+            return self._idx.copy()
+
     def descriptor_address(self) -> int:
-        """Device address of the mapped descriptor (``ops/csrc/cold_probe.cu``)."""
+        """Device address of the descriptor (``ops/csrc/cold_probe.cu``), in
+        the card's memory."""
         if not self._mapped:
             raise ValueError(f"HostStore {self.name!r} is not mapped for a card")
-        return self._desc_buf.dev
+        return self._desc_dev.data_ptr()
 
     def readmit_counter(self) -> torch.Tensor:
         """The device int64 ``[1]`` the kernel adds its found lanes to (a
@@ -171,16 +207,6 @@ class HostStore:
 
     # -- internals --------------------------------------------------------------------
 
-    def _new(self, shape, dtype, bufs, dev: bool) -> Tuple[np.ndarray, int]:
-        """A zeroed array (mapped when the card reads it) and its device address."""
-        if not (self._mapped and dev):
-            return np.zeros(shape, dtype), 0
-        from ..ops.cold_probe import MappedBuffer
-        nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
-        buf = MappedBuffer(nbytes)
-        bufs.append(buf)
-        return buf.array(dtype, shape), buf.dev
-
     def _sync(self) -> None:
         """Wait on the current stream (the chain's, on its driving thread)
         for the launches that may read the mapped arrays. Not a device-wide
@@ -188,49 +214,70 @@ class HostStore:
         if self._mapped:
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _wait_upkeep(self) -> None:
+        """Wait for the last copy to the mirror, which reads the host index
+        (and the staging): every writer calls it before it writes them."""
+        if self._upkeep is not None:
+            self._upkeep.synchronize()
+            self._upkeep = None
+
     def _alloc(self, cap: int, keep: int) -> None:
         """Arrays of ``cap`` rows (an index of ``2 * cap`` slots), the first
         ``keep`` rows copied from the current ones; the index is rebuilt and
-        the replaced mapped arrays are freed."""
+        the replaced mapped arrays and mirror are freed."""
+        if self._mapped and self._bufs:
+            # no launch of any stream reads the descriptor or the old arrays
+            torch.cuda.synchronize(self.device)
+        self._wait_upkeep()
         bufs: list = []
         lg = max(1, int(2 * cap - 1).bit_length())
-        key, _ = self._new((cap,), np.int64, bufs, False)
-        live, _ = self._new((cap,), np.bool_, bufs, False)
-        rec, rec_dev = self._new((cap, self._rec_bytes), np.uint8, bufs, True)
-        nxt = rec[:, :8].view(np.int64)[:, 0]
-        meta, meta_dev = self._new((cap, 3), np.int64, bufs, True)
-        cols = {}
-        for k, dt in self._dtypes.items():
-            o = self._offs[k]
-            nb = dt.itemsize * int(np.prod(self._shapes[k], dtype=np.int64))
-            cols[k] = rec[:, o:o + nb].view(dt).reshape((cap,) + self._shapes[k])
-        ikey, ikey_dev = self._new((1 << lg,), np.int64, bufs, True)
-        irow, irow_dev = self._new((1 << lg,), np.int64, bufs, True)
-        itail, _ = self._new((1 << lg,), np.int64, bufs, False)
+        key = np.zeros((cap,), np.int64)
+        live = np.zeros((cap,), np.bool_)
+        meta = np.zeros((cap, 3), np.int64)
+        if self._mapped:
+            from ..ops.cold_probe import MappedBuffer
+            bufs.append(MappedBuffer(cap * self._rec_bytes))
+            rec = bufs[0].array(np.uint8, (cap, self._rec_bytes))
+        else:
+            rec = np.zeros((cap, self._rec_bytes), np.uint8)
         if keep:
             key[:keep] = self._key[:keep]
             live[:keep] = self._live[:keep]
             meta[:keep] = self._meta[:keep]
-            for k in cols:
-                cols[k][:keep] = self._cols[k][:keep]
+            rec[:keep] = self._rec[:keep]
         self._cap, self._lg = cap, lg
-        self._key, self._live, self._nxt, self._meta, self._cols = key, live, nxt, meta, cols
-        self._rec = rec
-        self._ikey, self._irow, self._itail = ikey, irow, itail
-        self._n = getattr(self, "_n", 0) if keep else 0
-        self._reindex()
+        self._key, self._live, self._meta, self._rec = key, live, meta, rec
+        head = rec[:, :12].view(np.int32) if self.unique else rec[:, :8].view(np.int64)
+        self._nxt = None if self.unique else head[:, 0]
+        self._rmeta = head if self.unique else None
+        self._cols = {}
+        for k, dt in self._dtypes.items():
+            o = self._offs[k]
+            nb = dt.itemsize * int(np.prod(self._shapes[k], dtype=np.int64))
+            self._cols[k] = rec[:, o:o + nb].view(dt).reshape((cap,) + self._shapes[k])
         if self._mapped:
-            if self._bufs:
-                self._sync()     # no launch reads the descriptor or the old arrays
-            from ..ops.cold_probe import DESC_COL0, DESC_REC, DESC_REC_BYTES
+            # the host index pinned, for the whole-index copy to the mirror
+            self._idx_t = torch.zeros((1 << lg, 2), dtype=torch.int64, pin_memory=True)
+            self._idx = self._idx_t.numpy()
+            self._mirror = torch.empty((1 << lg, 2), dtype=torch.int64, device=self.device)
+        else:
+            self._idx = np.zeros((1 << lg, 2), np.int64)
+        self._itail = np.zeros((1 << lg,), np.int64)
+        self._n = getattr(self, "_n", 0) if keep else 0
+        if self._mapped:
+            from ..ops.cold_probe import (DESC_COL0, DESC_LG, DESC_NCOLS, DESC_REC,
+                                          DESC_REC_BYTES, DESC_SLOTS)
             d = self._desc
-            d[0], d[1], d[2], d[3], d[4] = ikey_dev, irow_dev, lg, meta_dev, len(cols)
-            d[DESC_REC], d[DESC_REC_BYTES] = rec_dev, self._rec_bytes
-            for c, k in enumerate(cols):
+            d[DESC_SLOTS], d[DESC_LG], d[DESC_NCOLS] = self._mirror.data_ptr(), lg, \
+                len(self._cols)
+            d[DESC_REC], d[DESC_REC_BYTES] = bufs[0].dev, self._rec_bytes
+            for c, k in enumerate(self._cols):
                 d[DESC_COL0 + 2 * c] = self._offs[k]
                 d[DESC_COL0 + 2 * c + 1] = int(np.prod(self._shapes[k], dtype=np.int64)) \
                     * self._dtypes[k].itemsize
+            self._desc_dev.copy_(self._desc_t, non_blocking=True)
             self._bufs = bufs    # the replaced buffers are freed here
+        self._reindex()
 
     def _grow(self, need: int) -> None:
         cap = self._cap
@@ -240,11 +287,52 @@ class HostStore:
             self._alloc(cap, self._n)
 
     def _index_args(self):
-        return (_cp(self._ikey), _cp(self._irow), _cp(self._itail), self._lg)
+        return (_cp(self._idx), _cp(self._itail), self._lg)
+
+    def _rec_args(self):
+        """The C passes' record pointers: next-row links, meta low words,
+        the record stride in int64 words."""
+        return (None if self._nxt is None else _cp(self._rec),
+                None if self._rmeta is None else _cp(self._rec), self._rec_bytes // 8)
 
     def _reindex(self) -> None:
-        _native().wf_hs_reindex(*self._index_args(), _cp(self._key), _cp(self._live),
-                                _cp(self._nxt), self._rec_bytes // 8, self._n)
+        self._wait_upkeep()
+        nxt, _, ns = self._rec_args()
+        _native().wf_hs_reindex(*self._index_args(), _cp(self._key), _cp(self._live), nxt,
+                                ns, self._n)
+        self._slots_written(None)
+
+    def _slots_written(self, slots: Optional[np.ndarray]) -> None:
+        """Bring the card's mirror up to the host index after a C pass that
+        wrote ``slots`` (every slot when None): one ``cold_scatter`` of the
+        listed slots on the current stream (the chain's, whose next step
+        reads the mirror), with an event behind it (:meth:`_wait_upkeep`),
+        or one copy of the whole index, waited for. A store without a card
+        keeps no mirror."""
+        if not self._mapped or (slots is not None and len(slots) == 0):
+            return
+        stream = torch.cuda.current_stream(self.device)
+        if slots is None:
+            # waited for at once: a store is built, grown and restored on
+            # whichever stream is current, and its readers may run on another
+            self._mirror.copy_(self._idx_t, non_blocking=True)
+            self.mirror_uploads += 1
+            stream.synchronize()
+            return
+        from ..ops.cold_probe import MappedBuffer, cold_scatter_cuda
+        n = len(slots)
+        if self._staging is None or self._staging.nbytes < 32 * n:
+            size = 32 * max(n, 1 << max(8, (n - 1).bit_length()))
+            self._staging = MappedBuffer(size)
+            self._staged = self._staging.array(np.int64, (size // 32, 4))
+        st = self._staged[:n]
+        st[:, :2] = self._idx[slots]
+        st[:, 2] = slots
+        cold_scatter_cuda(self._mirror, self._staging.dev, n)
+        self.mirror_scatters += 1
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        self._upkeep = ev
 
     def _rebuild(self) -> None:
         """Compact away dead rows (holes) when they dominate the storage."""
@@ -252,8 +340,7 @@ class HostStore:
         n = len(live_idx)
         self._key[:n] = self._key[live_idx]
         self._meta[:n] = self._meta[live_idx]
-        for k in self._cols:
-            self._cols[k][:n] = self._cols[k][live_idx]
+        self._rec[:n] = self._rec[live_idx]
         self._live[:self._n] = False
         self._live[:n] = True
         self._n = n
@@ -261,7 +348,8 @@ class HostStore:
 
     def _write(self, fn: str, keys, m0, m1, m2, cols: dict, ok) -> int:
         """One C pass of ``upsert``/``append`` over the ok lanes, then each
-        written lane's value row copied in (the last writer of a row wins)."""
+        written lane's value row copied in (the last writer of a row wins)
+        and the slots it wrote copied to the mirror."""
         keys = np.asarray(keys)
         r = len(keys)
         ok = np.ones(r, np.bool_) if ok is None else np.asarray(ok, np.bool_)
@@ -269,13 +357,17 @@ class HostStore:
         k64, a, b, c = i64(keys), i64(m0), i64(m1), i64(m2)
         ok = np.ascontiguousarray(ok)
         self._grow(self._n + int(ok.sum()))
+        self._wait_upkeep()
         n = np.asarray([self._n], np.int64)
         dest = np.empty(r, np.int64)
+        touched, nt = np.empty(max(r, 1), np.int64), np.zeros(1, np.int64)
         done = getattr(_native(), fn)(
             *self._index_args(), _cp(self._key), _cp(self._live), _cp(self._meta),
-            _cp(self._nxt), self._rec_bytes // 8, _cp(n), _cp(k64), _cp(a), _cp(b), _cp(c),
-            _cp(ok.view(np.uint8)), r, _cp(dest))
+            *self._rec_args(), _cp(n), _cp(k64), _cp(a), _cp(b), _cp(c),
+            _cp(ok.view(np.uint8)), r, _cp(dest), _cp(touched), len(touched), _cp(nt))
         self._n = int(n[0])
+        # a new key writes one slot, so the list holds them all
+        self._slots_written(touched[:int(nt[0])])
         lanes = np.flatnonzero(dest >= 0)
         rows = dest[lanes]
         # the last lane written to a row wins (lanes apply in order)
@@ -316,8 +408,8 @@ class HostStore:
         r = len(keys)
         rows = np.empty(r, np.int64)
         with self._lock:
-            hits = _native().wf_hs_lookup(_cp(self._ikey), _cp(self._irow), self._lg,
-                                          _cp(keys), _cp(want.view(np.uint8)), r, _cp(rows))
+            hits = _native().wf_hs_lookup(_cp(self._idx), self._lg, _cp(keys),
+                                          _cp(want.view(np.uint8)), r, _cp(rows))
             found = rows >= 0
             j = rows[found]
             meta = np.zeros((r, 3), np.int64)
@@ -340,8 +432,8 @@ class HostStore:
         r, m = len(keys), int(rows_per_key)
         rows = np.empty((r, m), np.int64)
         with self._lock:
-            _native().wf_hs_fetch(_cp(self._ikey), _cp(self._irow), self._lg,
-                                  _cp(self._nxt), self._rec_bytes // 8, _cp(keys),
+            nxt, _, ns = self._rec_args()
+            _native().wf_hs_fetch(_cp(self._idx), self._lg, nxt, ns, _cp(keys),
                                   _cp(want.view(np.uint8)), r, m, _cp(rows))
             mask = rows >= 0
             j = rows[mask]
@@ -363,7 +455,13 @@ class HostStore:
             keys = np.sort(self._key[:self._n][self._live[:self._n]])[:int(max_keys)]
             keys = np.ascontiguousarray(keys, np.int64)
             rows = np.empty(len(keys), np.int64)
-            _native().wf_hs_remove(*self._index_args(), _cp(keys), len(keys), _cp(rows))
+            # a removal empties a slot and moves part of its run back: room
+            # for eight moves a key, else the whole index is copied
+            touched, nt = np.empty(8 * len(keys) + 64, np.int64), np.zeros(1, np.int64)
+            self._wait_upkeep()
+            _native().wf_hs_remove(*self._index_args(), _cp(keys), len(keys), _cp(rows),
+                                   _cp(touched), len(touched), _cp(nt))
+            self._slots_written(touched[:int(nt[0])] if nt[0] >= 0 else None)
             self._live[rows] = False
             out = {k: self._cols[k][rows].copy() for k in self._cols}
         return keys, out
@@ -455,6 +553,8 @@ class HostStore:
             self._key[:n] = keys
             self._live[:n] = True
             self._meta[:n] = np.asarray(manifest["meta"]).reshape(n, 3)
+            if self._rmeta is not None:
+                self._rmeta[:n] = self._meta[:n].astype(np.int32)
             for k in self._cols:
                 self._cols[k][:n] = np.asarray(manifest[f"col_{k}"])
             ctr = np.asarray(manifest.get("counters", np.zeros(4, np.int64)))

@@ -26,8 +26,10 @@ EOS drain, on the chain's driving thread, after that wait and before the
 next push is launched: inside one ``push_many`` the store is read-only, as
 in the JAX package, which maintains once after K steps. On the card the
 step reads the store with the ``cold_probe`` and ``cold_fetch`` kernels
-(``ops/cold_probe.py``) through mapped host memory, so the step stays
-capturable: no host callback, no interpreter lock.
+(``ops/cold_probe.py``), which walk the store's index mirror in the card's
+memory and read its records through mapped host memory, so the step stays
+capturable: no host callback, no interpreter lock. A write keeps the
+mirror in step on the current stream (the chain's), before the next push.
 
 ``settle()`` drains synchronously (the pre-snapshot barrier); a restore
 discards whatever copies were in flight, and replay re-derives them.
