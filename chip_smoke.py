@@ -153,7 +153,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     and captured (dispatch = 2) where it can be; a KeyedMap without
     ``max_key_multiplicity=1`` must refuse the capture;
 22. ``ring``: ``native.queue_selfbench`` (tokens/s through one native SPSC
-    ring between two threads pinned to cores 0 and 1 of the card's host),
+    ring between two unpinned threads of the card's host, the fastest of 16
+    slices by the threads' CPU time),
     three times; the port's native library is built by ``g++`` into
     ``build/native/`` at first use;
 23. ``handoff``: a batch written on one CUDA stream after a deliberate
@@ -342,7 +343,26 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     tightens, the aggregator receives the host's frames, and
     ``scripts/wf_slo.py``, ``wf_profile.py`` and ``wf_fleet.py status``
     exit 0 over the artifacts (under ``build/serving``, removed after);
-44. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
+44. ``mesh`` (``mesh_phase``), after ``serving``: the mesh half of
+    ``parallel``. (a) YSB (8 x 2^20, 100 campaigns) through ``ShardedChain``
+    over ``make_mesh(4, axis="key")`` with every position on cuda:0: the
+    unsharded chain's rows (sorted) and the dense oracle, each ``[K]`` leaf's
+    shards 25 rows, the replicated leaves equal on every position, K1 and K2
+    launches a batch as found and eager ms a batch beside the unsharded
+    chain's; (b) the JAX tests' 2-D layouts at 2^16: Key_FFAT over a 2 x 4
+    ``dp x key`` mesh and a keyed Win_Farm over a 4 x 2 ``key x win`` mesh
+    (archive shards of K/4 rows, window rows split over ``win``; K3 and
+    K6), rows and gathered states bit for bit the unsharded chain's; (c)
+    the four collectives at 2^20 lanes over 4 positions against the same
+    calls over 4 CPU positions (bit for bit, the generic mean's float sum
+    within rtol 1e-5), with their eager ms; (d) two processes
+    (``tests/torch_multihost_driver.py``, gloo, both on cuda:0, started
+    first and run beside (b)) each supervising half of a 4-shard YSB stream
+    with a shard-kill drill, the union held to the unsharded supervised
+    run, then ``keyed_all_to_all`` and its lossless variant across the
+    process axis; and ``multihost.initialize()`` over NCCL at world size 1
+    with one exchange over the process axis, against the CPU;
+45. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
     (2^14) and served YSB launches no kernel (every operator's spec probe
     runs on the meta device); ``validate()`` of each, and of
     ``graph_windows`` for the threaded driver, launches nothing, allocates
@@ -352,7 +372,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``histogram`` and ``lookup`` in its kernels and fingerprints as the same
     chain built on the CPU, with its trace ms; the perfgate proxy rows time
     the hand kernels (advisory);
-45. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+46. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's, ``cold_fetch`` at tiered q4's and ``cold_scatter`` over
     tiered q3's index, launches summed over the paths, each counted from
@@ -3625,8 +3645,8 @@ def handoff_phase(torch, wt):
 
 def ring_phase(card):
     """``queue_selfbench``: tokens/s through one native SPSC ring between two
-    threads pinned to cores 0 and 1 of the card's host (the counterpart of
-    bench.py::bench_native_ring)."""
+    unpinned threads of the card's host, the fastest of 16 slices by the
+    threads' CPU time (the counterpart of bench.py::bench_native_ring)."""
     from windflow_tpu_torch import native
     rates = [native.queue_selfbench(2_000_000, 1024) for _ in range(3)]
     log({"phase": "ring", "card": card, "tokens": 2_000_000, "capacity": 1024,
@@ -4264,9 +4284,11 @@ def scatter_check(torch, np, card, store, n):
     the store stages a write's slots, written into a zeroed copy of its
     mirror; the kernel's time by graph replay, the plain version's (the
     entries copied to the card, then the indexed copy) by CUDA events, the
-    library call's (``index_copy_`` from entries already on the card) by
-    graph replay; the bound: the entries' bytes over the host link (64 GB/s)
-    against the slots' bytes over 3.35 TB/s."""
+    library call's by CUDA events over the same work (the staged entries
+    copied from the host to the card, then ``index_copy_``), and
+    ``index_copy_`` alone from entries already on the card by graph replay
+    (``library_on_card_ms``); the bound: the entries' bytes over the host
+    link (64 GB/s) against the slots' bytes over 3.35 TB/s."""
     from windflow_tpu_torch.ops.cold_probe import (MappedBuffer, cold_scatter_cuda,
                                                    cold_scatter_plain)
     idx = store.index_slots()
@@ -4290,11 +4312,17 @@ def scatter_check(torch, np, card, store, n):
     torch.cuda.synchronize()
     same, err = compare(torch, got, ref)
     t_link, t_hbm = 32 * n / HOST_LINK_BYTES_PER_S * 1e3, 16 * n / HBM_BYTES_PER_S * 1e3
+    staged = torch.from_numpy(ent)          # the entries in the mapped host buffer
+
+    def library():
+        e = staged.to("cuda", non_blocking=True)
+        c.index_copy_(0, e[:, 2], e[:, :2])
     row = {"kernel_check": "cold_scatter", "case": f"{n} slots of a {len(idx)}-slot index",
            "bit_identical": same, "max_abs_err": err,
            "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
            "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
-           "library_ms": graph_ms(torch, lambda: c.index_copy_(0, sl, pairs)),
+           "library_ms": time_ms(torch, library),
+           "library_on_card_ms": graph_ms(torch, lambda: c.index_copy_(0, sl, pairs)),
            "bytes": 32 * n, "counted": "staged entries over the host link (64 GB/s); slots "
                                        "written over 3.35 TB/s",
            "bound_ms": max(t_link, t_hbm), "bound_by": "bytes", "card": card}
@@ -6482,6 +6510,377 @@ def control_phase(torch, np, wt, ysb, registry, card, ysb_ref, gw_rows, q3_views
 ANALYSIS_DIR = os.path.join(ROOT, "build", "analysis")
 
 
+# ---------------------------------------------------------------- mesh phase
+
+MESH_P = 4                 # the mesh phase's positions, all on cuda:0
+MESH_2D_BATCH = 1 << 16    # the JAX tests' 2-D layouts at a card-sized batch
+MESH_2D_BATCHES = 4
+MESH_LANES = 1 << 20       # the collectives' lanes
+MESH_PROCS = 2             # processes of the two-process run (gloo, sharing the card)
+MESH_DRIVER = os.path.join(ROOT, "tests", "torch_multihost_driver.py")
+MESH_DEVICE = "cuda:0"     # every position's device
+MESH_NCCL = "nccl"         # the world-size-1 part's backend
+
+
+def batch_parts(outs):
+    """``(key, id, payload)`` host arrays of each output batch's live lanes."""
+    from windflow_tpu_torch.batch import tree_leaves
+    parts = []
+    for o in outs:
+        v = o.valid.cpu()
+        parts.append((o.key.cpu()[v].numpy(), o.id.cpu()[v].numpy(),
+                      tree_leaves(o.payload)[0].cpu()[v].numpy()))
+    return parts
+
+
+def mesh_layout(torch, sc):
+    """A sharded chain's state layout: every split leaf's shards hold
+    ``shape[0] / p`` rows and every replicated leaf is equal on every
+    position. Returns the split leaves' shard rows."""
+    from windflow_tpu_torch.batch import jax_leaves
+    from windflow_tpu_torch.parallel import ShardedTensor
+    split = []
+    for st in sc.chain.states:
+        for leaf in jax_leaves(st):
+            if not isinstance(leaf, ShardedTensor):
+                continue
+            shards = leaf.addressable_shards
+            ax = next((a for a in leaf.placement.spec if a is not None), None)
+            if ax is None:
+                if not all(torch.equal(s.data, shards[0].data) for s in shards):
+                    raise AssertionError("mesh: a replicated leaf differs between positions")
+                continue
+            rows = sorted({s.data.shape[0] for s in shards})
+            if rows != [leaf.shape[0] // sc.mesh.shape[ax]] or len(shards) != sc.mesh.size:
+                raise AssertionError(f"mesh: a split leaf of {tuple(leaf.shape)} holds "
+                                     f"{rows} rows a position")
+            split.append(rows[0])
+    return split
+
+
+def mesh_states_equal(torch, sc, plain):
+    """The sharded chain's gathered states equal the unsharded chain's, leaf
+    for leaf, bit for bit."""
+    from windflow_tpu_torch.batch import jax_leaves
+    from windflow_tpu_torch.parallel import ShardedTensor
+    for got, ref in zip(jax_leaves(sc.chain.states), jax_leaves(plain.states)):
+        full = got.full() if isinstance(got, ShardedTensor) else got
+        if not torch.equal(full, ref):
+            return False
+    return True
+
+
+def mesh_ysb(torch, np, wt, ysb, registry, card):
+    """Part a: YSB at full width (8 x 2^20, 100 campaigns) through
+    ``ShardedChain`` over ``make_mesh(4, axis="key")`` on one card: the
+    unsharded chain's rows on the card (sorted) and the dense oracle, each
+    ``[K]`` leaf's shards 25 rows, the replicated leaves equal on every
+    position, K1 and K2 launches a batch as found, eager ms a batch of both."""
+    from windflow_tpu_torch.parallel import ShardedChain, make_mesh
+    dev = torch.device(MESH_DEVICE)
+    total = YSB_BATCHES * BATCH
+
+    def build():
+        src = ysb.make_source(total)
+        return src, wt.CompiledChain(ysb.make_ops(**ysb.bench_geometry(BATCH)),
+                                     src.payload_spec(), batch_capacity=BATCH)
+    src, plain = build()
+    batches = list(src.batches(BATCH))
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        _, chain = build()
+        if name == "sharded":
+            chain = ShardedChain(chain, make_mesh(MESH_P, axis="key", devices=[dev] * MESH_P),
+                                 axis="key")
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        outs = [chain.push(b) for b in batches]
+        outs += chain.flush()
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, registry.launch_counts(),
+                      batch_parts(outs), chain)
+    sc = runs["sharded"][3]
+    launches = runs["sharded"][1]
+    same = flat_bytes(np, sorted_rows(np, runs["sharded"][2])) == \
+        flat_bytes(np, sorted_rows(np, runs["unsharded"][2]))
+    oracle = as_dict(np, runs["sharded"][2]) == ysb.dense_oracle(total)
+    split = mesh_layout(torch, sc)
+    row = {"phase": "mesh", "part": "sharded_ysb", "positions": MESH_P, "axis": "key",
+           "batches": YSB_BATCHES, "batch": BATCH, "rows_equal_unsharded": same,
+           "dense_oracle": oracle, "split_leaf_rows": sorted(set(split)),
+           "launches": launches,
+           "k1_per_batch": launches["histogram"] / YSB_BATCHES,
+           "k2_per_batch": launches["lookup"] / YSB_BATCHES,
+           "unsharded_launches": runs["unsharded"][1],
+           "eager_ms_per_batch": runs["sharded"][0] / YSB_BATCHES * 1e3,
+           "unsharded_eager_ms_per_batch": runs["unsharded"][0] / YSB_BATCHES * 1e3,
+           "card": card}
+    log(row)
+    if not (same and oracle):
+        raise AssertionError("mesh: sharded YSB's rows differ from the unsharded chain's")
+    if set(split) != {ysb.N_CAMPAIGNS // MESH_P}:
+        raise AssertionError(f"mesh: sharded YSB's [K] shards hold {set(split)} rows")
+    if launches["histogram"] < YSB_BATCHES or launches["lookup"] < YSB_BATCHES:
+        raise AssertionError(f"mesh: sharded YSB did not run K1 and K2: {launches}")
+    return launches
+
+
+def mesh_2d(torch, np, wt, registry, card):
+    """Part b: the JAX tests' 2-D layouts at batch 2^16 on one card:
+    Key_FFAT (CB 20/20, 16 keys) over a 2 x 4 ``dp x key`` mesh and a keyed
+    Win_Farm (CB 16/8, 8 keys) over a 4 x 2 ``key x win`` mesh, whose
+    archive shards hold K/4 rows and whose window rows split over ``win``
+    (K3 and K6): rows (sorted) and gathered states bit for bit the unsharded
+    chain's after every push."""
+    from windflow_tpu_torch.parallel import ShardedChain, make_mesh_2d
+    dev = torch.device(MESH_DEVICE)
+    C = MESH_2D_BATCH
+    cases = {
+        "key_ffat_dp_x_key": (16, (2, 4), ("dp", "key"), dict(axis="dp", key_axis="key"),
+                              lambda K: wt.Key_FFAT(lambda t: t.v, torch.add,
+                                                    spec=wt.WindowSpec(20, 20), num_keys=K)),
+        "win_farm_key_x_win": (8, (4, 2), ("key", "win"),
+                               dict(axis="key", win_axis="win", key_axis="key"),
+                               lambda K: wt.Win_Farm(lambda wid, it: it.sum("v"),
+                                                     wt.WindowSpec(16, 8), num_keys=K)),
+    }
+    total = {}
+    for name, (K, shape, axes, kw, make) in cases.items():
+        def chain():
+            return wt.CompiledChain([make(K)], {"v": torch.zeros((), dtype=torch.float32)},
+                                    batch_capacity=C)
+        plain = chain()
+        sc = ShardedChain(chain(), make_mesh_2d(shape, axes=axes, devices=[dev] * 8), **kw)
+        got, want, states = [], [], True
+        counts = dict.fromkeys(registry.KERNELS, 0)
+        for s in range(0, MESH_2D_BATCHES * C, C):
+            ids = np.arange(s, s + C, dtype=np.int32)
+            b = wt.Batch.of({"v": (ids % 13).astype(np.float32)}, key=ids % K, id=ids, ts=ids,
+                            device=dev)
+            want.append(plain.push(b))
+            registry.reset_launches()
+            got.append(sc.push(b))
+            torch.cuda.synchronize()
+            for k, v in registry.launch_counts().items():
+                counts[k] += v
+            states = states and mesh_states_equal(torch, sc, plain)
+        want += plain.flush()
+        registry.reset_launches()
+        got += sc.flush()
+        for k, v in registry.launch_counts().items():
+            counts[k] += v
+        same = flat_bytes(np, sorted_rows(np, batch_parts(got))) == \
+            flat_bytes(np, sorted_rows(np, batch_parts(want)))
+        split = mesh_layout(torch, sc)
+        row = {"phase": "mesh", "part": name, "mesh": dict(zip(axes, shape)), "batch": C,
+               "batches": MESH_2D_BATCHES, "rows_equal_unsharded": same,
+               "states_equal_unsharded": states, "split_leaf_rows": sorted(set(split)),
+               "launches": {k: v for k, v in counts.items() if v}, "card": card}
+        if name == "win_farm_key_x_win":
+            row["window_rows"] = [b.window_rows for b in
+                                  next(iter(sc._splits[0].blocks.values()))]
+        log(row)
+        if not (same and states):
+            raise AssertionError(f"mesh {name}: rows or states differ from the unsharded chain")
+        if set(split) != {K // 4}:
+            raise AssertionError(f"mesh {name}: split leaves hold {set(split)} rows")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if not (total["segment_fold"] and total["masked_window_reduce"]):
+        raise AssertionError(f"mesh: the 2-D layouts did not run K3 and K6: {total}")
+    return total
+
+
+def mesh_collective_cases(torch, np):
+    """The four collectives' inputs at ``MESH_LANES`` lanes (numpy, seeded)
+    and functions ``(mesh, inputs on a device) -> outputs``."""
+    from windflow_tpu_torch.parallel import collective as col
+    rng = np.random.default_rng(41)
+    L = MESH_LANES
+    ints = rng.integers(-1000, 1000, L).astype(np.int32)
+    floats = rng.normal(size=L).astype(np.float32)
+    valid = rng.random(L) < 0.9
+    keys = rng.integers(0, 1 << 20, L).astype(np.int32)
+    skew = np.where(rng.random(L) < 0.7, 3, keys).astype(np.int32)
+    cases = {
+        "wmr_psum_int32": ((ints, valid), lambda m, d, v: col.wmr_map_reduce(
+            lambda x, ok: torch.where(ok, x, 0).sum(dtype=torch.int32), torch.add, m,
+            axis="part")(d, v)),
+        "wmr_pmax_float32": ((floats, valid), lambda m, d, v: col.wmr_map_reduce(
+            lambda x, ok: torch.where(ok, x, -torch.inf).max(), torch.maximum, m,
+            axis="part")(d, v)),
+        "wmr_generic_mean": ((floats, valid), lambda m, d, v: col.wmr_map_reduce(
+            lambda x, ok: {"s": torch.where(ok, x, 0.0).sum(), "n": ok.sum(dtype=torch.int32)},
+            lambda a, b: {"s": a["s"] + b["s"], "n": a["n"] + b["n"]}, m, axis="part")(d, v)),
+        "ring_pane_windows": ((floats, np.ones(L, bool)), lambda m, d, v: col.ring_pane_windows(
+            torch.add, 0.0, m, win_panes=8, slide_panes=4, axis="part")(d, v)),
+        "keyed_all_to_all": ((keys, valid, floats), lambda m, k, v, x: col.keyed_all_to_all(
+            m, axis="part", return_residue=True)(k, v, {"x": x, "k2": k * 3})),
+        "keyed_all_to_all_lossless": ((skew, valid, floats), lambda m, k, v, x:
+                                      col.keyed_all_to_all_lossless(
+                                          m, axis="part", capacity=L // 16)(k, v, {"x": x})),
+    }
+    return cases
+
+
+def mesh_flat(out):
+    """Every tensor of a collective's output, gathered, in order."""
+    from windflow_tpu_torch.batch import jax_leaves
+    from windflow_tpu_torch.parallel import ShardedTensor
+    return [x.full().cpu() if isinstance(x, ShardedTensor) else x
+            for x in jax_leaves(list(out) if isinstance(out, tuple) else out)]
+
+
+def mesh_collectives(torch, np, card):
+    """Part c: the four collectives at 2^20 lanes over 4 positions on the
+    card against the same functions over 4 CPU positions on the same inputs:
+    integers and masks bit for bit, the float max and the ring's in-order
+    window folds bit for bit, the generic mean's float sum within rtol 1e-5
+    (the partial sums' order differs between the card's and the CPU's
+    ``torch.sum``); eager ms of each on the card."""
+    from windflow_tpu_torch.parallel import make_mesh
+    dev = torch.device(MESH_DEVICE)
+    card_mesh = make_mesh(MESH_P, axis="part", devices=[dev] * MESH_P)
+    cpu_mesh = make_mesh(MESH_P, axis="part", devices=["cpu"] * MESH_P)
+    for name, (inputs, fn) in mesh_collective_cases(torch, np).items():
+        on_cpu = fn(cpu_mesh, *(torch.as_tensor(a) for a in inputs))
+        args = [torch.as_tensor(a).to(dev) for a in inputs]
+        on_card = fn(card_mesh, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(card_mesh, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        rounds = None
+        if isinstance(on_card, tuple) and isinstance(on_card[-1], int):
+            rounds = (on_card[-1], on_cpu[-1])
+            on_card, on_cpu = on_card[:-1], on_cpu[:-1]
+        a, b = mesh_flat(on_card), mesh_flat(on_cpu)
+        exact = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        err = max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+                  for x, y in zip(a, b))
+        ok = exact or (name == "wmr_generic_mean" and all(
+            torch.allclose(x.double(), y.double(), rtol=1e-5, atol=0) for x, y in zip(a, b)))
+        log({"phase": "mesh", "part": "collective", "case": name, "lanes": MESH_LANES,
+             "positions": MESH_P, "bit_identical_to_cpu": exact, "max_abs_err": err,
+             "tolerance": None if exact else "rtol 1e-5", "rounds": rounds, "ms": ms,
+             "card": card})
+        if not ok or (rounds and (rounds[0] != rounds[1] or rounds[0] < 2)):
+            raise AssertionError(f"mesh collective {name}: the card differs from the CPU")
+
+
+def mesh_processes_start():
+    """Part d's two processes (``tests/torch_multihost_driver.py``, gloo,
+    both on cuda:0), started in the background."""
+    addr = f"127.0.0.1:{mesh_free_port()}"
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "PYTHONPATH")}
+    return [subprocess.Popen([sys.executable, MESH_DRIVER, addr, str(MESH_PROCS), str(i),
+                              MESH_DEVICE, "gloo", "ysb"], cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(MESH_PROCS)]
+
+
+def mesh_processes_finish(torch, np, procs, card):
+    """Part d: the two processes' results (each supervising half of a
+    4-shard YSB stream with a shard-kill drill, then ``keyed_all_to_all``
+    and its lossless variant across the process axis), the union of their
+    rows held to this process's unsharded supervised run; then
+    ``multihost.initialize()`` at world size 1 over NCCL and one exchange
+    across the process axis, against the CPU."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_multihost_driver as drv
+    from windflow_tpu_torch.parallel import collective as col
+    from windflow_tpu_torch.parallel import make_mesh, multihost
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rc, out, err in outs:
+        if rc != 0 or "LOSSLESS-OK" not in out:
+            log({"phase": "mesh", "part": "two_process", "rc": rc, "stdout": out[-2000:],
+                 "stderr": err[-4000:]})
+            raise AssertionError("mesh: a process of the two-process run failed")
+    got = [o.split("SHARD-OK ")[1].split() for _, o, _ in outs]
+    rows, _sp = drv.supervised_rows("ysb", torch.device(MESH_DEVICE))
+    want_n, want_d = len(rows), drv.digest(rows)
+    n = sum(int(g[0]) for g in got)
+    d = sum(int(g[1]) for g in got) % (1 << 31)
+    recv = [int(o.split("MULTIHOST-OK ")[1].split()[0]) for _, o, _ in outs]
+    rounds = [int(o.split("rounds=")[1].split()[0]) for _, o, _ in outs]
+    row = {"phase": "mesh", "part": "two_process", "processes": MESH_PROCS,
+           "backend": "gloo", "ranges": [g[2] for g in got], "rows": n, "oracle_rows": want_n,
+           "digest_equal": d == want_d, "received": recv, "lossless_rounds": rounds,
+           "card": card}
+    log(row)
+    if n != want_n or d != want_d or sum(recv) != 64 * drv.LOCAL:
+        raise AssertionError("mesh: the two processes' shards differ from the oracle")
+
+    # one process over NCCL at world size 1: the exchange goes through
+    # torch.distributed (the process axis), and equals the in-process one
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(mesh_free_port()),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    os.environ.update(env)
+    import torch.distributed as dist
+    try:
+        if not multihost.initialize() or dist.get_backend() != MESH_NCCL:
+            raise AssertionError("mesh: initialize() did not start NCCL")
+        mesh = multihost.make_dcn_ici_mesh(dcn_axis="key", ici_axes=("dp",),
+                                           devices=[torch.device(MESH_DEVICE)] * 2)
+        rng = np.random.default_rng(43)
+        k = rng.integers(0, 100, MESH_LANES).astype(np.int32)
+        v = rng.random(MESH_LANES) < 0.9
+        x = rng.normal(size=MESH_LANES).astype(np.float32)
+        ex = col.keyed_all_to_all(mesh, axis="key")
+        dev = torch.device(MESH_DEVICE)
+        a = mesh_flat(ex(*(torch.as_tensor(t).to(dev) for t in (k, v)),
+                         {"x": torch.as_tensor(x).to(dev)}))
+        ref = col.keyed_all_to_all(make_mesh(1, axis="key", devices=["cpu"]), axis="key")(
+            torch.as_tensor(k), torch.as_tensor(v), {"x": torch.as_tensor(x)})
+        b = mesh_flat(ref)
+        same = len(a) == len(b) and all(torch.equal(p, q) for p, q in zip(a, b))
+        log({"phase": "mesh", "part": "nccl_world_1", "backend": dist.get_backend(),
+             "lanes": MESH_LANES, "bit_identical_to_cpu": same, "card": card})
+        if not same:
+            raise AssertionError("mesh: the NCCL exchange differs from the CPU's")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def mesh_free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, np, wt, ysb, registry, card):
+    """Phase ``mesh``: the two processes start first and run beside parts b
+    (2-D layouts) and the NCCL part's wait; parts a (sharded YSB, timed) and
+    c (collectives, timed) run after them. Returns the launches of the
+    sharded paths (YSB; the 2-D layouts), each counted from zero."""
+    procs = mesh_processes_start()
+    try:
+        l2d = mesh_2d(torch, np, wt, registry, card)
+        mesh_processes_finish(torch, np, procs, card)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    lysb = mesh_ysb(torch, np, wt, ysb, registry, card)
+    mesh_collectives(torch, np, card)
+    return lysb, l2d
+
+
 def analysis_phase(torch, np, wt, ysb, registry, card):
     """Phase 44 (see the module docstring): the static-analysis layer on the
     card. Building YSB, q3 and served YSB launches nothing; ``validate()`` of
@@ -6716,6 +7115,7 @@ def main() -> int:
     mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
                                     main_launches, gw_rows)
     srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
+    mesh_ysb_launches, mesh_2d_launches = mesh_phase(torch, np, wt, ysb, registry, card)
     analysis_phase(torch, np, wt, ysb, registry, card)
 
     # each path's launches, counted from zero just before it and read just
@@ -6733,7 +7133,8 @@ def main() -> int:
              "tiered_rotating": trot_launches, "tiered_q4": tq4_launches,
              "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
              "sharded_graph": shg_launches, "control": ctl_launches,
-             "monitoring_ysb": mon_launches, "serving": srv_launches}
+             "monitoring_ysb": mon_launches, "serving": srv_launches,
+             "mesh_ysb": mesh_ysb_launches, "mesh_2d": mesh_2d_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

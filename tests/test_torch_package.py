@@ -139,10 +139,10 @@ def test_registry_names_every_kernel_and_cpu_runs_launch_none():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is still unported raises, naming its ROADMAP item (the
-    multi-host slice helper, item 14); the control plane runs; the
-    supervised run, unsharded (item 12), sharded on one device (item 14's
-    single-card half) and under ``control=``, gives the plain run's result,
+    """The multi-host slice helper (item 14) gives the single-process
+    slice; the control plane runs;
+    the supervised run, unsharded (item 12), sharded on one device (item 14)
+    and under ``control=``, gives the plain run's result,
     the interval join's tiered archive (item 13b) builds, and fault
     injection and item 9's operators build."""
     def graph():
@@ -156,8 +156,7 @@ def test_unported_paths_raise(monkeypatch):
     assert int(graph().run_supervised(control=True, backoff_base=0.0)["tot"]) == \
         int(graph().run()["tot"])
     from windflow_tpu_torch.parallel import multihost
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        multihost.process_shard_slice(4)
+    assert multihost.process_shard_slice(4) == (0, 4)
     with monkeypatch.context() as m:
         m.setenv("WF_SHARDS", "2")
         assert int(graph().run_supervised(backoff_base=0.0)["tot"]) == \
@@ -279,10 +278,8 @@ def test_window_operators_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 #: names ``windflow_tpu/__init__.py`` imports that the port does not export
-#: yet, each with the ROADMAP Queue 1 item that will port it
-UNPORTED_EXPORTS = {
-    "ShardedChain": 14, "shard_batch": 14, "make_mesh": 14, "make_mesh_2d": 14,
-}
+#: yet, each with the ROADMAP Queue 1 item that will port it (none left)
+UNPORTED_EXPORTS = {}
 
 
 def _jax_package_exports():
@@ -302,17 +299,19 @@ def _jax_package_exports():
 
 def test_top_level_exports_match_the_jax_package():
     """Each name the JAX package exports at its top level is an attribute of
-    the port's package or an unported name citing its ROADMAP item: the
-    recovery names (checkpoints, fault plans, the supervisor, the journal)
-    are exported."""
+    the port's package (no unported name is left): the recovery names
+    (checkpoints, fault plans, the supervisor, the journal) and the mesh
+    names are exported."""
     names = _jax_package_exports()
     missing = sorted(n for n in names if not hasattr(wt, n) and n not in UNPORTED_EXPORTS)
     assert not missing, f"exported by windflow_tpu, missing from the port: {missing}"
     stale = sorted(n for n in UNPORTED_EXPORTS if hasattr(wt, n) or n not in names)
     assert not stale, f"listed as unported but exported or not a JAX export: {stale}"
+    assert not UNPORTED_EXPORTS
     for n in ("save_chain", "load_chain", "CheckpointCorrupt", "FaultPlan", "FaultSpec",
               "FaultInjector", "InjectedFault", "WatchdogTimeout", "DeadLetterQueue",
-              "SupervisedPipeline", "RestartExhausted", "EventJournal", "read_journal"):
+              "SupervisedPipeline", "RestartExhausted", "EventJournal", "read_journal",
+              "ShardedChain", "shard_batch", "make_mesh", "make_mesh_2d"):
         assert n in names and hasattr(wt, n), n
 
 

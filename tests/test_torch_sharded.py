@@ -360,10 +360,22 @@ def test_shard_range_slices_union_is_exact(oracle):
     assert c == [] and pc.shard_report() == {}
 
 
-def test_multihost_slice_helper_raises_by_name():
+def test_multihost_slice_helper_raises_by_name(monkeypatch):
+    """The multi-host slice helper and the stream-share helper give the JAX
+    package's ranges at every process count and rank."""
+    import jax
+    from windflow_tpu.parallel import multihost as jmh
     from windflow_tpu_torch.parallel import multihost
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        multihost.process_shard_slice(4)
+    for procs in (1, 2, 3, 4, 5):
+        for rank in range(procs):
+            monkeypatch.setattr(multihost, "_world", lambda p=procs, r=rank: (p, r))
+            monkeypatch.setattr(jax, "process_count", lambda p=procs: p)
+            monkeypatch.setattr(jax, "process_index", lambda r=rank: r)
+            assert multihost.process_shard_slice(4) == jmh.process_shard_slice(4)
+            assert multihost.process_local_batch_range(1000, 64) == \
+                jmh.process_local_batch_range(1000, 64)
+    monkeypatch.setattr(multihost, "_world", lambda: (2, 1))
+    assert multihost.process_shard_slice(4) == (2, 4)
 
 
 def test_shard_range_guards():

@@ -152,9 +152,20 @@ def test_flavours_and_guards():
     with pytest.raises(ValueError, match="max_wins"):
         wt.Win_Seq(lambda wid, it: it.sum("v"), wt.WindowSpec(1024, 1),
                    device="cpu")._resolve_w(1 << 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        wt.Win_Seq(lambda wid, it: it.sum("v"), spec, device="cpu").set_window_sharding(
-            None, "w")
+    # window sharding: the fired-window rows split
+    # over four CPU positions give the JAX package's rows, CB and TB
+    mesh = wt.parallel.make_mesh(4, axis="w", devices=["cpu"] * 4)
+    for name in ("cb_sliding_sum", "tb_tumbling_sum"):
+        make_op, total, K, sizes, src_fn, ts_fn = CASES[name]
+
+        def sharded(X, make_op=make_op):
+            op = make_op(X)
+            op.set_window_sharding(mesh, "w")
+            return op
+        assert run(PORT, sharded, total, K, sizes[0], src_fn, ts_fn) == jax_result(name)
+    assert ws._wdevs is None
+    ws.set_window_sharding(mesh, "w")
+    assert ws._wdevs == [torch.device("cpu")] * 4
     # ring sizing: next_pow2(L + C) for CB, next_pow2(2C or tb_capacity) for TB
     ws.bind_geometry(1000)
     assert ws.A == 1024

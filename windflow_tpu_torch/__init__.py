@@ -58,6 +58,8 @@ from .runtime.builders import (Accumulator_Builder, Filter_Builder, FlatMap_Buil
 from .shipper import Shipper
 from .stats import LogHistogram, Stats_Record, xprof_trace
 from . import nexmark, parallel
+from .parallel import make_mesh, make_mesh_2d
+from .parallel.sharding import ShardedChain, shard_batch
 from . import analysis
 from .analysis import validate as validate_graph
 

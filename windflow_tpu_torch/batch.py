@@ -316,11 +316,16 @@ def _fnv1a(s) -> int:
     return h
 
 
-def concat_batches(a: Batch, b: Batch) -> Batch:
-    """Concatenate two batches along the capacity axis (merge primitive)."""
-    cat = lambda x, y: torch.cat([x, y], dim=0)  # noqa: E731
-    return Batch(key=cat(a.key, b.key), id=cat(a.id, b.id), ts=cat(a.ts, b.ts),
-                 payload=tree_map(cat, a.payload, b.payload), valid=cat(a.valid, b.valid))
+def concat_batches(a: Batch, *more: Batch) -> Batch:
+    """Concatenate batches along the capacity axis, in order (merge
+    primitive); one batch is returned as it is."""
+    if not more:
+        return a
+    bs = (a,) + more
+    cat = lambda *xs: torch.cat(xs, dim=0)  # noqa: E731
+    return Batch(key=cat(*[b.key for b in bs]), id=cat(*[b.id for b in bs]),
+                 ts=cat(*[b.ts for b in bs]), payload=tree_map(cat, *[b.payload for b in bs]),
+                 valid=cat(*[b.valid for b in bs]))
 
 
 def split_batch(batch: Batch, capacity: int) -> list:

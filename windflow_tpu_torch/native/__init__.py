@@ -343,9 +343,12 @@ def native_available() -> bool:
 
 
 def queue_selfbench(n: int = 2_000_000, capacity: int = 1024) -> float:
-    """Raw ring throughput (tokens/s) measured entirely in C between two
-    threads pinned to cores 0 and 1 (``wf_queue_selfbench``): the number the
-    reference's FastFlow SPSC queues compete on."""
+    """Raw ring throughput (tokens/s) measured entirely in C between an
+    unpinned producer and consumer thread (``wf_queue_selfbench``): the
+    fastest of 16 equal slices of the ``n`` tokens, each timed by the CPU
+    time both threads spent on it, so time the scheduler gave to other
+    processes does not count. The number the reference's FastFlow SPSC
+    queues compete on."""
     return float(_load().wf_queue_selfbench(int(n), int(capacity)))
 
 

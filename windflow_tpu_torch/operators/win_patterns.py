@@ -6,8 +6,9 @@ implements each pattern as its own thread topology around ``Win_Seq`` workers
 ``wf/pane_farm.hpp``, ``wf/win_mapreduce.hpp``). On one device the batched
 window axis plays the worker pool: every fired window is a row of one vmapped
 call, so each pattern is a configuration of the vectorized engines.
-``shard_axis`` records the axis a multi-device port would shard ("window" or
-"key"; ROADMAP Queue 1 item 14).
+``shard_axis`` is the axis a mesh shards ("window" or "key",
+``parallel/sharding.py::ShardedChain``); ``set_window_sharding`` reaches the
+window engines of a nesting.
 
 - **Win_Farm**: windows are already independent rows of the ``[W]`` axis.
 - **Key_Farm**: the ``[K]`` state axis is the farm.
@@ -151,6 +152,10 @@ class Nested_Farm(Basic_Operator):
     def flush(self, state):
         return self.inner.flush(state)
 
+    def set_window_sharding(self, mesh, axis: str) -> None:
+        if hasattr(self.inner, "set_window_sharding"):
+            self.inner.set_window_sharding(mesh, axis)
+
 
 class Pane_Farm(Basic_Operator):
     """Pane decomposition (Li et al. SIGMOD'05; ``wf/pane_farm.hpp``).
@@ -220,6 +225,10 @@ class Pane_Farm(Basic_Operator):
             return {"plq": st_p, "wlq": st_w}, out
         st_w, out = self.wlq.flush(state["wlq"])
         return {"plq": st_p, "wlq": st_w}, out
+
+    def set_window_sharding(self, mesh, axis: str) -> None:
+        self.plq.set_window_sharding(mesh, axis)
+        self.wlq.set_window_sharding(mesh, axis)
 
 
 class Win_MapReduce(Basic_Operator):
@@ -296,3 +305,6 @@ class Win_MapReduce(Basic_Operator):
 
     def flush(self, state):
         return self.engine.flush(state)
+
+    def set_window_sharding(self, mesh, axis: str) -> None:
+        self.engine.set_window_sharding(mesh, axis)

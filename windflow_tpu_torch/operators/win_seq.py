@@ -30,8 +30,13 @@ consume the state they are given, as the JAX bench step's donated state is:
 the call marks it, and a second call on it raises, as JAX does for a donated
 buffer. Carry on from the state a call returns; a snapshot to come back to
 is a copy (``convert.state_to_numpy``). ``count``, ``wm`` and ``next_win``
-are new tensors. Cross-device window sharding (``set_window_sharding``) is
-not ported.
+are new tensors.
+
+Window parallelism across a mesh (``set_window_sharding``, Win_Farm's
+distribution): the fired-window ``[W]`` rows, their gathers and the window
+function, are computed in blocks of ``W/p`` rows, one block a position along
+the mesh axis, and laid end to end (``parallel/sharding.py::ShardedChain``
+sets it).
 """
 
 from __future__ import annotations
@@ -117,6 +122,11 @@ class Win_Seq(Basic_Operator):
         self.A = None                  # resolved in bind_geometry
         self.max_wins = max_wins       # resolved at first apply if None
         self._w = None
+        #: devices of the positions the fired-window rows split over
+        #: (``set_window_sharding``); None computes them as one block
+        self._wdevs = None
+        #: rows each position computed in the last emission (window sharding)
+        self.window_rows = None
         self.bind_geometry(256)        # provisional; the chain re-binds with real C
 
     def bind_geometry(self, batch_capacity: int) -> None:
@@ -228,9 +238,14 @@ class Win_Seq(Basic_Operator):
         return W
 
     def set_window_sharding(self, mesh, axis: str) -> None:
-        raise NotImplementedError(
-            f"{self.name}: cross-device window sharding is not ported yet "
-            f"(ROADMAP Queue 1 item 14)")
+        """Cross-device window parallelism (Win_Farm's distribution,
+        ``wf/wf_nodes.hpp:157-204`` / ``wf/win_farm.hpp:165-175``): partition
+        the fired-window ``[W]`` axis over mesh axis ``axis``. Each position
+        along it gathers and computes its ``W/p`` window rows on its device;
+        the archive stays where the state's placement puts it (replicated
+        unless a sharded chain splits it by key)."""
+        line = mesh.line((0,) * mesh.devices.ndim, axis)
+        self._wdevs = [mesh.devices[c] for c in line]
 
     def _fired_range(self, state: WinSeqState, flush: bool):
         s = self.spec
@@ -271,40 +286,59 @@ class Win_Seq(Basic_Operator):
         # advance next_win past emitted windows
         new_next = lo + torch.minimum(torch.clamp(n_emit - off, min=0), n_f)
 
-        if s.is_cb:
-            L = s.win_len
-            p = wid[:, None] * s.slide + torch.arange(L, dtype=CTRL_DTYPE, device=dev)[None, :]
-            gflat = (k_safe[:, None] * A + torch.remainder(p, A)).long()   # [W, L]
+        def rows(r: slice, on: torch.device):
+            """Rows ``r`` of the emission: their gathers on the archive's
+            device, the window function on ``on``."""
+            wid_r, ks, kl_r, ok = wid[r], k_safe[r], kl[r], valid_w[r]
+            if s.is_cb:
+                L = s.win_len
+                p = wid_r[:, None] * s.slide + torch.arange(L, dtype=CTRL_DTYPE,
+                                                            device=dev)[None, :]
+                gflat = (ks[:, None] * A + torch.remainder(p, A)).long()   # [w, L]
 
-            def gat(tbl):
-                return tbl.reshape((K * A,) + tuple(tbl.shape[2:]))[gflat]
-            content_mask = (p < state.count[kl][:, None]) & valid_w[:, None]
-            # stale-slot guard: the slot must actually hold position p
-            content_mask &= gat(state.arch_pos) == p
-            data = tree_map(gat, state.arch_payload)
-            ids, tss = gat(state.arch_id), gat(state.arch_ts)
-            res_ts = torch.where(content_mask, tss, -1).amax(dim=1)
+                def gat(tbl):
+                    return tbl.reshape((K * A,) + tuple(tbl.shape[2:]))[gflat]
+                content_mask = (p < state.count[kl_r][:, None]) & ok[:, None]
+                # stale-slot guard: the slot must actually hold position p
+                content_mask &= gat(state.arch_pos) == p
+                data = tree_map(gat, state.arch_payload)
+                ids, tss = gat(state.arch_id), gat(state.arch_ts)
+                res_ts = torch.where(content_mask, tss, -1).amax(dim=1)
+            else:
+                # TB: full-ring rows masked by ts-in-range
+                def gat(tbl):
+                    return tbl.index_select(0, kl_r)                    # [w, A, ...]
+                tss = gat(state.arch_ts)
+                poss = gat(state.arch_pos)
+                w_start = (wid_r * s.slide)[:, None]
+                content_mask = ((poss >= 0) & (tss >= w_start)
+                                & (tss < w_start + s.win_len) & ok[:, None])
+                # ring-overwrite guard: the slot must hold a live (not yet
+                # overwritten) position
+                cnt = state.count[kl_r][:, None]
+                content_mask &= poss >= torch.clamp(cnt - A, min=0)
+                data = tree_map(gat, state.arch_payload)
+                ids = gat(state.arch_id)
+                res_ts = wid_r * s.slide + (s.win_len - 1)
+                # a TB window with no content never fires in the reference
+                # (Triggerer_TB only triggers on tuples)
+                ok = ok & content_mask.any(dim=1)
+            to = lambda t: t.to(on)  # noqa: E731
+            res = self._window_results(to(wid_r), tree_map(to, data), to(ids), to(tss),
+                                       to(content_mask))
+            return res_ts, tree_map(lambda t: t.to(dev), res), ok
+
+        if self._wdevs is None or len(self._wdevs) == 1:
+            res_ts, results, valid_w = rows(slice(None), dev)
         else:
-            # TB: full-ring rows masked by ts-in-range
-            def gat(tbl):
-                return tbl.index_select(0, kl)                          # [W, A, ...]
-            tss = gat(state.arch_ts)
-            poss = gat(state.arch_pos)
-            w_start = (wid * s.slide)[:, None]
-            content_mask = ((poss >= 0) & (tss >= w_start)
-                            & (tss < w_start + s.win_len) & valid_w[:, None])
-            # ring-overwrite guard: the slot must hold a live (not yet
-            # overwritten) position
-            cnt = state.count[kl][:, None]
-            content_mask &= poss >= torch.clamp(cnt - A, min=0)
-            data = tree_map(gat, state.arch_payload)
-            ids = gat(state.arch_id)
-            res_ts = wid * s.slide + (s.win_len - 1)
-            # a TB window with no content never fires in the reference
-            # (Triggerer_TB only triggers on tuples)
-            valid_w = valid_w & content_mask.any(dim=1)
-
-        results = self._window_results(wid, data, ids, tss, content_mask)
+            n = len(self._wdevs)
+            step = -(-W // n)
+            cuts = [(j * step, min(W, (j + 1) * step)) for j in range(n)]
+            self.window_rows = [max(0, b - a) for a, b in cuts]
+            parts = [rows(slice(a, b), d) for (a, b), d in zip(cuts, self._wdevs) if b > a]
+            res_ts = torch.cat([pt[0] for pt in parts])
+            results = tree_map(lambda *xs: torch.cat(xs), *[pt[1] for pt in parts])
+            valid_w = torch.cat([pt[2] for pt in parts])
         out = Batch(key=k_safe, id=wid, ts=res_ts, payload=results, valid=valid_w)
         return dataclasses.replace(state, next_win=new_next), out
 

@@ -118,9 +118,9 @@ The control plane under supervision, as in the JAX package:
   reshard loses to it at the same barrier (``remediation_skip``,
   ``arbitration``).
 
-Not ported, and refused by name: the multi-host slice helper
-``multihost.process_shard_slice`` (item 14; an explicit ``shard_range=``
-runs).
+Across processes, each process supervises the slice
+``parallel/multihost.py::process_shard_slice`` gives it (pass it as
+``shard_range=``); the shards need no collective.
 """
 
 from __future__ import annotations
