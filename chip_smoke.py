@@ -362,7 +362,16 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     run, then ``keyed_all_to_all`` and its lossless variant across the
     process axis; and ``multihost.initialize()`` over NCCL at world size 1
     with one exchange over the process axis, against the CPU;
-45. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
+45. ``examples`` (``examples_phase``), after ``mesh``: the port's six
+    user-facing examples (``python -m windflow_tpu_torch.examples.<name>``:
+    ysb_windows, wordcount, checkpoint_resume, multichip over a 2 x 4
+    ``dp x key`` mesh of cuda:0 positions, recovery_and_backpressure,
+    serving over loopback TCP), each a process on the card and then one
+    with ``--device cpu``: every run passes its own oracle, the card's
+    result numbers equal the CPU's, and every kernel ``examples.EXAMPLES``
+    names for it launched on the card (ysb_windows: K1 and K2), with each
+    run's seconds and launches;
+46. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
     (2^14) and served YSB launches no kernel (every operator's spec probe
     runs on the meta device); ``validate()`` of each, and of
     ``graph_windows`` for the threaded driver, launches nothing, allocates
@@ -372,7 +381,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``histogram`` and ``lookup`` in its kernels and fingerprints as the same
     chain built on the CPU, with its trace ms; the perfgate proxy rows time
     the hand kernels (advisory);
-46. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+47. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's, ``cold_fetch`` at tiered q4's and ``cold_scatter`` over
     tiered q3's index, launches summed over the paths, each counted from
@@ -394,6 +403,7 @@ It exits non-zero, printing no result, without CUDA or without the package.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -6881,6 +6891,76 @@ def mesh_phase(torch, np, wt, ysb, registry, card):
     return lysb, l2d
 
 
+# ------------------------------------------------------------- examples phase
+
+#: each example run's time limit (seconds): a card run takes about 20 s
+EXAMPLE_TIMEOUT_S = 240
+
+
+def example_run(name, device=None):
+    """One run of ``python -m windflow_tpu_torch.examples.<name>`` (on the
+    card, or with ``--device device``): its seconds, launch counts and the
+    integers of its result lines. Raises unless it exits 0 with "OK"."""
+    argv = [sys.executable, "-m", f"windflow_tpu_torch.examples.{name}"]
+    if device is not None:
+        argv += ["--device", device]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=EXAMPLE_TIMEOUT_S)
+    dt = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode or not lines or "OK" not in proc.stdout:
+        log(f"example {name} ({device or 'cuda'}) rc={proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        raise RuntimeError(f"example {name} on {device or 'cuda'} failed "
+                           f"(rc {proc.returncode})")
+    launches = json.loads(lines[-2])["launches"]
+    result = [ln for ln in lines if not ln.startswith("{")]
+    return {"s": dt, "launches": launches, "result": result,
+            "ints": [re.findall(r"-?\d+", ln) for ln in result]}
+
+
+def examples_phase(registry, card):
+    """Phase ``examples``: the port's six user-facing examples
+    (``windflow_tpu_torch/examples/``), each a subprocess on the card (the
+    kernels are built already: ``build/kernels/`` is keyed by source hash,
+    so the processes load them) beside a run of it with ``--device cpu``
+    on this machine's cores (so a card run's seconds include that
+    neighbour). Every run passes its own oracle; the card's result numbers
+    equal the CPU's; every kernel ``EXAMPLES`` names for an example
+    launched on the card (Q1 in ``serving`` is a stateless Map and reaches
+    none), and none on the CPU. Returns the card runs' launches, each
+    counted from zero in its own process, summed."""
+    from windflow_tpu_torch.examples import EXAMPLES
+    total = {name: 0 for name in registry.KERNELS}
+    rows = {}
+    t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+    for name, kernels in EXAMPLES.items():
+        with ThreadPoolExecutor(2) as pool:
+            runs = [pool.submit(example_run, name), pool.submit(example_run, name, "cpu")]
+            on_card, on_cpu = (r.result() for r in runs)
+        if on_card["ints"] != on_cpu["ints"]:
+            raise RuntimeError(f"example {name}: the card's results {on_card['result']} "
+                               f"differ from the CPU's {on_cpu['result']}")
+        missed = [k for k in kernels if not on_card["launches"].get(k)]
+        if missed or on_cpu["launches"]:
+            raise RuntimeError(f"example {name}: kernels {missed} not launched on the card "
+                               f"(launches {on_card['launches']}), or launches on the "
+                               f"CPU {on_cpu['launches']}")
+        for k, n in on_card["launches"].items():
+            total[k] += n
+        rows[name] = {"card_s": on_card["s"], "cpu_s": on_cpu["s"],
+                      "launches": on_card["launches"], "expect": list(kernels),
+                      "result": on_card["result"]}
+        log({"phase": f"example_{name}", "card": card, **rows[name]})
+    log({"phase": "examples", "card": card, "seconds": time.perf_counter() - t0,
+         "card_s": sum(r["card_s"] for r in rows.values()),
+         "cpu_s": sum(r["cpu_s"] for r in rows.values()), "launches": total})
+    return total
+
+
 def analysis_phase(torch, np, wt, ysb, registry, card):
     """Phase 44 (see the module docstring): the static-analysis layer on the
     card. Building YSB, q3 and served YSB launches nothing; ``validate()`` of
@@ -7116,6 +7196,7 @@ def main() -> int:
                                     main_launches, gw_rows)
     srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
     mesh_ysb_launches, mesh_2d_launches = mesh_phase(torch, np, wt, ysb, registry, card)
+    ex_launches = examples_phase(registry, card)
     analysis_phase(torch, np, wt, ysb, registry, card)
 
     # each path's launches, counted from zero just before it and read just
@@ -7134,7 +7215,8 @@ def main() -> int:
              "sharded_ysb": shy_launches, "sharded_q3": shq_launches,
              "sharded_graph": shg_launches, "control": ctl_launches,
              "monitoring_ysb": mon_launches, "serving": srv_launches,
-             "mesh_ysb": mesh_ysb_launches, "mesh_2d": mesh_2d_launches}
+             "mesh_ysb": mesh_ysb_launches, "mesh_2d": mesh_2d_launches,
+             "examples": ex_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

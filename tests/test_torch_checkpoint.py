@@ -1,12 +1,13 @@
 """The port's checkpoints (``windflow_tpu_torch/runtime/checkpoint.py``), on the CPU.
 
-Mirrors the JAX package's ``tests/test_checkpoint.py`` (all but the rescale
-across meshes, which needs the port of multi-device: ROADMAP Queue 1 item
-14) and adds the files' cross-package contract: a checkpoint written by the
-JAX package's ``save_chain`` loads into the port, and one written by the
-port loads into the JAX package, with equal states (bytes, dtypes and
-leaf paths) for Key_FFAT, Win_Seq, Nexmark q4 and q5 chains; the port's leaf
-paths equal ``jax.tree_util.keystr``'s. Inputs come from seeded sources.
+Mirrors the JAX package's ``tests/test_checkpoint.py`` (the rescale across
+meshes over 8 and 4 CPU positions, both ways) and adds the files'
+cross-package contract: a checkpoint written by the JAX package's
+``save_chain`` loads into the port, and one written by the port loads into
+the JAX package, with equal states (bytes, dtypes and leaf paths) for
+Key_FFAT, Win_Seq, Nexmark q4 and q5 chains and for a ``ShardedChain``'s
+chain (whose file is the unsharded one); the port's leaf paths equal
+``jax.tree_util.keystr``'s. Inputs come from seeded sources.
 """
 
 import os
@@ -73,6 +74,85 @@ def test_checkpoint_resume_windowed(tmp_path):
     assert meta["next_batch"] == half
     outs_b = [c2.push(b) for b in batches[half:]] + c2.flush()
     assert _collect(outs_a + outs_b) == expect
+
+
+@pytest.mark.parametrize("n_save,n_load", [(8, 4), (4, 8)])
+def test_checkpoint_rescale_across_meshes(n_save, n_load, tmp_path):
+    """Elastic rescaling: a chain checkpointed while sharded over ``n_save``
+    positions restores into a fresh chain, is placed over ``n_load`` and
+    continues bit for bit; the file is the unsharded chain's, so the JAX
+    package's ``load_chain`` takes it with equal leaves."""
+    from windflow_tpu_torch.batch import jax_leaves
+    from windflow_tpu_torch.parallel import ShardedChain, ShardedTensor, make_mesh
+    total, K, C = 480, 8, 96
+    src = wt.Source(lambda i: {"v": (i % 11).float()}, total=total, num_keys=K, **CPU)
+    mk = lambda: wt.CompiledChain(  # noqa: E731
+        [wt.Key_FFAT(lambda t: t.v, torch.add, spec=wt.WindowSpec(16, 16), num_keys=K,
+                     **CPU)], src.payload_spec(), batch_capacity=C, **CPU)
+    mesh = lambda n: make_mesh(n, devices=["cpu"] * n)  # noqa: E731
+    batches = list(src.batches(C))
+    c0 = mk()
+    expect = _collect([c0.push(b) for b in batches] + c0.flush())
+
+    half = len(batches) // 2
+    c_save = mk()
+    s_save = ShardedChain(c_save, mesh(n_save))
+    outs_a = [s_save.push(b) for b in batches[:half]]
+    ckpt = str(tmp_path / "rescale.npz")
+    save_chain(c_save, ckpt, meta={"next_batch": half})
+
+    c_load = mk()
+    meta = load_chain(c_load, ckpt)
+    s_load = ShardedChain(c_load, mesh(n_load))
+    assert meta["next_batch"] == half
+    outs_b = [s_load.push(b) for b in batches[half:]] + s_load.flush()
+    assert _collect(outs_a + outs_b) == expect
+
+    # the [K] key table re-placed over n_load distinct blocks of the new mesh
+    keyed = [x for x in jax_leaves(c_load.states[0])
+             if isinstance(x, ShardedTensor) and x.ndim >= 1 and x.shape[0] == K
+             and x.placement.spec[:1] == ("dp",)]
+    assert keyed
+    shards = keyed[0].addressable_shards
+    assert len({s.index for s in shards}) == n_load
+    assert len({s.data.data_ptr() for s in shards}) == n_load
+
+    # the port's file of the sharded chain is the JAX package's unsharded one
+    js = wf.Source(lambda i: {"v": (i % 11).astype(jnp.float32)}, total=total, num_keys=K)
+    jmk = lambda: wf.CompiledChain(  # noqa: E731
+        [wf.Key_FFAT(lambda t: t.v, jnp.add, spec=wf.WindowSpec(16, 16), num_keys=K)],
+        js.payload_spec(), batch_capacity=C)
+    j_ref = jmk()
+    for b in list(js.batches(C))[:half]:
+        j_ref.push(b)
+    _assert_same_states(c_save.states, j_ref.states)
+    j_load = jmk()
+    assert jck.load_chain(j_load, ckpt) == {"next_batch": half}
+    _assert_same_states(c_save.states, j_load.states)
+
+
+def test_load_chain_into_a_sharded_chain_keeps_its_placement(tmp_path):
+    """A file restored into a ``ShardedChain``'s own chain comes back placed
+    over its mesh as before (fresh blocks), and the chain carries on to the
+    unsharded rows."""
+    from windflow_tpu_torch.batch import jax_leaves
+    from windflow_tpu_torch.parallel import ShardedChain, ShardedTensor, make_mesh
+    src, mk = _key_ffat_chain(total=480, K=8, C=96)
+    batches = list(src.batches(96))
+    c0 = mk()
+    expect = _collect([c0.push(b) for b in batches] + c0.flush())
+    c1 = mk()
+    outs = [c1.push(b) for b in batches[:2]]
+    save_chain(c1, str(tmp_path / "u"))
+    c2 = mk()
+    s2 = ShardedChain(c2, make_mesh(4, devices=["cpu"] * 4))
+    before = [(x.placement, sorted(x.pieces)) for x in jax_leaves(c2.states[0])]
+    load_chain(c2, str(tmp_path / "u"))
+    after = jax_leaves(c2.states[0])
+    assert all(isinstance(x, ShardedTensor) for x in after)
+    assert [(x.placement, sorted(x.pieces)) for x in after] == before
+    outs += [s2.push(b) for b in batches[2:]] + s2.flush()
+    assert _collect(outs) == expect
 
 
 def _win_seqffat_chain():

@@ -463,3 +463,28 @@ def test_dump_stats_writes_service_histogram(tmp_path):
     for s in (1e-6, 2e-6, 1e-3):
         h.record(s)
     assert h.percentile(50) >= 2e-6 and h.summary_us()["samples"] == 3
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_live_payload_matches_jax(seed):
+    """``Batch.live_payload``: the payload's live lanes on the host, as the
+    JAX package's, for a dict payload with a vector field."""
+    rng = np.random.default_rng(seed)
+    C = 24
+    cols = {"key": rng.integers(0, 5, C).astype(np.int32),
+            "id": np.arange(C, dtype=np.int32), "ts": np.arange(C, dtype=np.int32),
+            "valid": rng.random(C) < 0.6}
+    pay = {"v": rng.random(C).astype(np.float32),
+           "w": rng.integers(-9, 9, (C, 3)).astype(np.int32)}
+    jb = jbatch.Batch(key=jnp.asarray(cols["key"]), id=jnp.asarray(cols["id"]),
+                      ts=jnp.asarray(cols["ts"]), valid=jnp.asarray(cols["valid"]),
+                      payload={k: jnp.asarray(v) for k, v in pay.items()})
+    tb = tbatch.Batch(key=torch.from_numpy(cols["key"]), id=torch.from_numpy(cols["id"]),
+                      ts=torch.from_numpy(cols["ts"]), valid=torch.from_numpy(cols["valid"]),
+                      payload={k: torch.from_numpy(v) for k, v in pay.items()})
+    got, want = tb.live_payload(), jb.live_payload()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert isinstance(got[k], np.ndarray)
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        assert got[k].tobytes() == want[k].tobytes()

@@ -345,3 +345,54 @@ def test_graph_matches_jax_under_a_seeded_plan(tmp_path, dispatch):
     assert res["port"][1] == res["jax"][1] and len(res["port"][1]) > 0
     assert res["port"][2:] == res["jax"][2:]
     assert res["port"][2] >= 3 and len(res["port"][3]) == 1
+
+
+def test_graph_restore_resorts_an_unsorted_pool(monkeypatch):
+    """The supervised graph restore calls ``Ordering_Node.resort_pending``,
+    as the JAX package's does: checkpoints whose Ordering_Node pool was
+    written unsorted (here every snapshot's pool reversed, as another
+    writer might hold it) restore to the merged stream of the unsupervised
+    run, in its delivery order."""
+    import torch
+
+    from windflow_tpu_torch.runtime import supervisor as tsup
+
+    def build_det(sink_cb):
+        g = wt.PipeGraph("sup_resort", batch_size=30, mode=Mode.DETERMINISTIC, **CPU)
+        a = g.add_source(wt.Source(lambda i: {"v": (i % 5).float()}, total=150,
+                                   num_keys=2, name="a", ts_fn=lambda i: 2 * i, **CPU))
+        b = g.add_source(wt.Source(lambda i: {"v": (i % 7).float()}, total=90,
+                                   num_keys=2, name="b", ts_fn=lambda i: 3 * i + 1, **CPU))
+        a.merge(b).add_sink(wt.Sink(sink_cb, **CPU))
+        return g
+
+    real = tsup._graph_snapshot
+    reversed_pools = []
+
+    def unsorted_snapshot(graph):
+        snap = real(graph)
+        for od in snap["orders"]:
+            if od is not None and od["pending"] is not None:
+                rev = torch.arange(od["pending"].capacity - 1, -1, -1)
+                od["pending"] = od["pending"].take(rev)
+                od["chan"] = od["chan"].index_select(0, rev)
+                reversed_pools.append(int(od["pending"].valid.sum()))
+        return snap
+
+    def collect(acc):
+        def cb(view):
+            if view is not None:
+                acc.extend(zip(view["key"].tolist(), view["id"].tolist(),
+                               view["ts"].tolist(), view["payload"]["v"].tolist()))
+        return cb
+
+    plain = []
+    build_det(collect(plain)).run()
+    monkeypatch.setattr(tsup, "_graph_snapshot", unsorted_snapshot)
+    sup = []
+    g = build_det(collect(sup))
+    inject_failures(g, fail_at=[4, 9])
+    g.run_supervised(checkpoint_every=2, max_restarts=3, backoff_base=0.0)
+    assert g.supervised_restarts == 2
+    assert any(n > 1 for n in reversed_pools)     # restores met unsorted pools
+    assert sup == plain and len(plain) == 240

@@ -591,3 +591,48 @@ def test_name_registries_equal_jax():
         if k != "KERNEL_IMPLS":
             assert getattr(tnames, k) == getattr(jnames, k), k
     assert set(tcontrol.counters()) == set(tnames.CONTROL_COUNTERS)
+
+
+def test_stats_record_output_counts_as_jax():
+    """``Stats_Record.record_output`` counts tuples, bytes and batches sent
+    as the JAX package's does."""
+    from windflow_tpu.stats import Stats_Record as JRec
+    from windflow_tpu_torch.stats import Stats_Record as TRec
+    recs = [JRec("op"), TRec("op")]
+    for r in recs:
+        r.record_output(7)
+        r.record_output(5, n_bytes=40)
+        r.record_output(np.int64(3), n_bytes=np.int32(12))
+    fields = ("outputs_sent", "bytes_sent", "batches_sent", "inputs_received",
+              "batches_received")
+    got = [{f: getattr(r, f) for f in fields} for r in recs]
+    assert got[0] == got[1] == {"outputs_sent": 15, "bytes_sent": 52, "batches_sent": 3,
+                                "inputs_received": 0, "batches_received": 0}
+    assert all(type(getattr(recs[1], f)) is int for f in fields)
+
+
+def test_health_ledger_suppressed_notes_as_jax():
+    """``HealthLedger.suppressed``: while a thread suppresses its notes,
+    captures and kernel resolutions are not counted (nested suppression
+    counts down), as in the JAX package's ledger."""
+    from windflow_tpu.observability import device_health as jdh
+    from windflow_tpu_torch.observability import device_health as tdh
+    counts = []
+    for mod in (jdh, tdh):
+        led = mod.HealthLedger()
+        assert led.suppressed() is False
+        led._suppress(True)
+        led._suppress(True)
+        assert led.suppressed() is True
+        led.note_trace("c", 0, "step", "sig0")
+        led.note_kernel_resolve("lookup", "C8xK4", "torch")
+        led._suppress(False)
+        assert led.suppressed() is True
+        led.note_kernel_resolve("lookup", "C8xK4", "torch")
+        led._suppress(False)
+        assert led.suppressed() is False
+        led.note_trace("c", 0, "step", "sig0")
+        led.note_kernel_resolve("lookup", "C8xK4", "torch")
+        counts.append((led.traces, led.retraces, led.retraces_unexpected,
+                       led.kernel_resolves))
+    assert counts[0] == counts[1] == (1, 0, 0, 1)

@@ -327,3 +327,58 @@ def test_float_segment_reduce_matches_jax_bits(case, dtype):
         assert not np.signbit(want.astype(np.float64)[:4]).any()   # -0.0 runs give +0.0
     if case == "sparse_S16384":
         assert (got == 0).sum() > S // 2
+
+
+# ------------------------------------------- F23: strided lanes reach the kernels
+
+def _dense_only(plain, what):
+    """A stand-in for a ``*_cuda`` wrapper: refuses a tensor that is not
+    contiguous, as the kernels' wrappers do, then runs the plain version."""
+    def run(*args):
+        for a in args:
+            if isinstance(a, torch.Tensor) and not a.is_contiguous():
+                raise ValueError(f"{what}: a non-contiguous {tuple(a.shape)} tensor")
+        return plain(*args)
+    return run
+
+
+@pytest.fixture
+def kernels_route_dense(monkeypatch):
+    """The dispatchers take the ``cuda`` route on the CPU, into stand-ins
+    that refuse strided inputs as the kernels' wrappers do."""
+    for mod in (th, tl, ts):
+        monkeypatch.setattr(mod, "resolve_impl", lambda *a, **k: "cuda")
+    monkeypatch.setattr(th, "histogram_cuda", _dense_only(th.histogram_plain, "K1"))
+    monkeypatch.setattr(tl, "lookup_cuda", _dense_only(tl.lookup_plain, "K2"))
+    monkeypatch.setattr(tl, "join_probe_cuda", _dense_only(tl.join_probe_plain, "K5"))
+    monkeypatch.setattr(ts, "segment_fold_cuda", _dense_only(ts.segment_fold_plain, "K3"))
+
+
+def test_dispatchers_hand_strided_lanes_to_the_kernels_dense(kernels_route_dense):
+    """F23: lanes that are a broadcast constant (``vmap_lanes`` expands a
+    per-lane constant, stride 0) or a column of a wider field (stride 3)
+    reach K1, K2, K3 and K5 as dense tensors, with the plain results."""
+    rng = np.random.default_rng(23)
+    C = 96
+    wide = torch.from_numpy(rng.integers(0, 40, (C, 3)).astype(np.int32))
+    key, ones = wide[:, 1], torch.ones((), dtype=torch.int32).expand(C)
+    valid = torch.from_numpy(rng.random(C) < 0.8)
+    assert key.stride() == (3,) and ones.stride() == (0,)
+    assert torch.equal(ts.segment_fold(ones, key, valid, 40),
+                       ts.segment_fold_plain(ones.clone(), key.clone(), valid, 40))
+    assert torch.equal(th.keyed_pane_histogram(key, ones, valid, 40, 4),
+                       th.histogram_plain(key.clone(), ones.clone(), valid, 40, 4))
+    table = torch.from_numpy(rng.integers(-9, 9, 300).astype(np.int32))
+    assert torch.equal(tl.gather_or_zero(table, key), tl.lookup_plain(table, key.clone()))
+    tk = torch.arange(0, 40, 2, dtype=torch.int32)
+    tv = torch.from_numpy(rng.integers(0, 9, 20).astype(np.int32))
+    got = tl.join_probe(tk, tv, key, valid)
+    want = tl.join_probe_plain(tk, tv, key.clone(), valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_word_count_accumulator_over_a_constant_field(kernels_route_dense):
+    """F23 as the word-count example met it on the card: the Accumulator
+    folds a per-lane constant (``torch.ones(())`` from a Map) with K3."""
+    from windflow_tpu_torch.examples import wordcount
+    wordcount.main(["--device", "cpu"])

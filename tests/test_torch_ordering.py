@@ -310,3 +310,33 @@ def test_fuzz_other_modes(mode):
         assert [v for _, _, v in released] == [
             v for _, _, v in sorted(everything, key=lambda x: (x[0], x[1]))]
         assert [i for _, i, _ in released] == list(range(len(everything)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_resort_pending_sorts_an_assigned_pool_as_jax(mode):
+    """``Ordering_Node.resort_pending`` on a pool assigned unsorted (the
+    supervised restore of a snapshot from another writer): the node
+    re-sorts it, drops the counts still owed, and releases what the JAX
+    node releases after its own re-sort."""
+    rng = np.random.default_rng(7)
+    n = 32
+    ts = rng.integers(0, 12, n)
+    ids = rng.permutation(n)
+    chan = rng.integers(0, 2, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    jb, tb = batches(rng.integers(0, 4, n), ids, ts, rng.random(n), valid)
+    p = Pair(2, mode)
+    p.j._pending, p.j._pending_chan = jb, jnp.asarray(chan)
+    p.t._pending, p.t._pending_chan = tb, torch.from_numpy(chan)
+    p.t._counts_pending = (torch.zeros(2, dtype=torch.int32), None)
+    p.j.resort_pending()
+    p.t.resort_pending()
+    assert p.t._counts_pending is None
+    assert live(p.t._pending, False) == live(p.j._pending, True)
+    assert p.t._pending_chan.numpy().tolist() == np.asarray(p.j._pending_chan).tolist()
+    v = p.t._pending.valid.numpy()
+    assert not v[int(v.sum()):].any()              # invalid lanes at the tail
+    k = 10 ** 6
+    jb2, tb2 = batches([0, 1], [k, k + 1], [20, 21], [0.5, 0.25])
+    p.push(0, jb2, tb2)
+    p.flush()

@@ -66,7 +66,12 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.serving.runtime", "windflow_tpu_torch.analysis",
            "windflow_tpu_torch.analysis.validate", "windflow_tpu_torch.analysis.lint",
            "windflow_tpu_torch.analysis.concurrency", "windflow_tpu_torch.analysis.progcheck",
-           "windflow_tpu_torch.analysis.perfgate"]
+           "windflow_tpu_torch.analysis.perfgate", "windflow_tpu_torch.examples",
+           "windflow_tpu_torch.examples.ysb_windows", "windflow_tpu_torch.examples.wordcount",
+           "windflow_tpu_torch.examples.checkpoint_resume",
+           "windflow_tpu_torch.examples.multichip",
+           "windflow_tpu_torch.examples.recovery_and_backpressure",
+           "windflow_tpu_torch.examples.serving"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():

@@ -678,3 +678,125 @@ def test_shard_and_stage_gauges_match_jax():
     assert tnames.STAGE_GAUGES == jnames.STAGE_GAUGES
     _got, p = run_port(shards=2)
     assert all(tuple(r) == tnames.SHARD_GAUGES for r in p.shard_report().values())
+
+
+# ------------------------------------- host paths over a ShardedChain's state
+
+def _mesh_chains(op_fn, K=8, C=96, total=480, ts_fn=None):
+    """(source batches, an unsharded chain, a chain sharded over a 2-D dp x
+    key mesh of 8 CPU positions) of one operator."""
+    from windflow_tpu_torch.parallel import ShardedChain, make_mesh_2d
+    kw = {} if ts_fn is None else {"ts_fn": ts_fn}
+    src = wt.Source(lambda i: {"v": (i % 11).float()}, total=total, num_keys=K, **kw,
+                    **CPU)
+    mk = lambda: wt.CompiledChain([op_fn()], src.payload_spec(),  # noqa: E731
+                                  batch_capacity=C, **CPU)
+    plain, placed = mk(), mk()
+    sc = ShardedChain(placed, make_mesh_2d((2, 4), axes=("dp", "key"),
+                                           devices=["cpu"] * 8),
+                      axis="dp", key_axis="key")
+    return list(src.batches(C)), plain, placed, sc
+
+
+def _key_ffat_tb():
+    return wt.Key_FFAT(lambda t: t.v, torch.add,
+                       spec=wt.WindowSpec(50, 25, win_type_t.TB), num_keys=8, **CPU)
+
+
+def _win_seq_tb():
+    return wt.Win_Seq(lambda wid, it: it.sum("v"), wt.WindowSpec(40, 20, win_type_t.TB),
+                      num_keys=8, **CPU)
+
+
+def _assert_tree_equal(a, b):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            _assert_tree_equal(a[k], b[k])
+    else:
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("op_fn", [_key_ffat_tb, _win_seq_tb], ids=["key_ffat", "win_seq"])
+def test_state_to_numpy_of_a_sharded_state_is_the_gathered_state(op_fn):
+    """``convert.state_to_numpy`` takes a sharded state as the unsharded
+    chain's, array for array, and every array is a copy."""
+    from windflow_tpu_torch import convert
+    from windflow_tpu_torch.parallel import ShardedTensor
+    batches, plain, placed, sc = _mesh_chains(op_fn, ts_fn=lambda i: i // 2)
+    for b in batches[:3]:
+        plain.push(b)
+        sc.push(b)
+    assert any(isinstance(x, ShardedTensor) for _, x in flatten_with_paths(placed.states))
+    got = convert.state_to_numpy(placed.ops[0], placed.states[0])
+    _assert_tree_equal(got, convert.state_to_numpy(plain.ops[0], plain.states[0]))
+    frozen = {k: np.copy(v) for k, v in got.items() if isinstance(v, np.ndarray)}
+    for b in batches[3:]:
+        sc.push(b)
+    for k, v in frozen.items():
+        assert got[k].tobytes() == v.tobytes(), k
+
+
+def test_host_tree_snapshot_of_a_sharded_state_does_not_alias():
+    """A supervisor snapshot (``host_tree``) of a sharded state is a host
+    copy: plain tensors equal to the unsharded chain's, unchanged after
+    later pushes mutate the live state (Win_Seq updates its rings in
+    place)."""
+    from windflow_tpu_torch.runtime.supervisor import host_tree
+    batches, plain, placed, sc = _mesh_chains(_win_seq_tb, ts_fn=lambda i: i // 2)
+    for b in batches[:3]:
+        plain.push(b)
+        sc.push(b)
+    snap = host_tree(placed.states[0])
+    flat = flatten_with_paths(snap)
+    assert all(type(x) is torch.Tensor and x.device.type == "cpu" for _, x in flat)
+    want = flatten_with_paths(host_tree(plain.states[0]))
+    assert [p for p, _ in flat] == [p for p, _ in want]
+    for (p, x), (_, y) in zip(flat, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), p
+    frozen = [x.clone() for _, x in flat]
+    for b in batches[3:]:
+        sc.push(b)
+    assert all(torch.equal(x, f) for (_, x), f in zip(flat, frozen))
+    live = flatten_with_paths(host_tree(placed.states[0]))
+    assert any(not torch.equal(x, f) for (_, x), f in zip(live, frozen))
+
+
+def test_monitoring_reads_a_registered_sharded_chain_as_the_unsharded_one():
+    """A ``ShardedChain``'s chain given to ``MetricsRegistry.register_chain``
+    reports the unsharded chain's state bytes and TB watermark gauge."""
+    from windflow_tpu_torch.observability.metrics import MetricsRegistry
+    batches, plain, placed, sc = _mesh_chains(_key_ffat_tb, ts_fn=lambda i: i // 2)
+    for b in batches[:3]:
+        plain.push(b)
+        sc.push(b)
+    snaps = []
+    for ch in (plain, placed):
+        reg = MetricsRegistry(health=True)
+        reg.register_chain("c", ch)
+        snaps.append(reg.snapshot())
+    a, b = snaps
+    assert a["health"]["state_bytes"] == b["health"]["state_bytes"]
+    assert a["health"]["state_bytes"][plain.ops[0].getName()] > 0
+    wm = [[r.get("watermark") for r in s["operators"]] for s in snaps]
+    assert wm[0] == wm[1] and any(w is not None for w in wm[0])
+
+
+def test_full_names_the_leaf_and_the_positions_held_elsewhere():
+    """A sharded leaf whose blocks live in another process does not become
+    one host tensor (JAX's ``np.asarray`` of an array that is not fully
+    addressable raises too): the error names the leaf and the positions,
+    and no object array is written."""
+    from windflow_tpu_torch.parallel.mesh import Mesh, Placement, ShardedTensor, host_copy
+    mesh = Mesh(np.array(["cpu"] * 4, dtype=object), ("key",), processes=[0, 0, 1, 1])
+    x = torch.arange(8, dtype=torch.int32)
+    st = ShardedTensor(Placement(mesh, ("key",)), x.shape, x.dtype,
+                       {(0,): x[:2].clone(), (1,): x[2:4].clone()})
+    with pytest.raises(ValueError, match=r"op0\.cnt.*\(2,\), \(3,\).*processes \[1\]"):
+        host_copy(st, "op0.cnt")
+    whole = ShardedTensor(Placement(mesh, ("key",)), x.shape, x.dtype,
+                          {(i,): x[2 * i:2 * i + 2].clone() for i in range(4)})
+    got = host_copy(whole, "op0.cnt")
+    assert type(got) is torch.Tensor and torch.equal(got, x)

@@ -287,3 +287,15 @@ def test_slot_directory_init_equals_jax():
                                                                           dtype=torch.int32)},
                                     "cpu")
     assert_same(got, want, "init")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_slot_alloc_under_the_jax_name_equals_jax(seed):
+    """``state/tiered.py::slot_alloc`` (the port computes it as
+    ``ops/lookup.py::claim_free_slots``) against the JAX function."""
+    rng = np.random.default_rng(100 + seed)
+    st = slot_state(rng, free=int(rng.integers(0, 10)))
+    _keys, ok = lanes(rng, 36)
+    assert_same(ttier.slot_alloc(to_t(st)["hused"], torch.from_numpy(ok)),
+                jtier.slot_alloc(jnp.asarray(st["hused"]), jnp.asarray(ok)), "slot_alloc")
+    assert "slot_alloc" in ttier.__all__

@@ -210,6 +210,11 @@ class Batch:
         return {"key": np_(self.key), "id": np_(self.id), "ts": np_(self.ts),
                 "payload": tree_map(np_, self.payload), "valid": np_(self.valid)}
 
+    def live_payload(self) -> Any:
+        """Host-side: the payload restricted to the live lanes (numpy)."""
+        v = self.valid.detach().cpu().numpy()
+        return tree_map(lambda t: t.detach().cpu().numpy()[v], self.payload)
+
 
 @dataclasses.dataclass(frozen=True)
 class TupleRef:

@@ -37,6 +37,7 @@ from .batch import tree_map
 from .operators.win_patterns import Nested_Farm, Pane_Farm, Win_MapReduce
 from .operators.win_seq import Win_Seq, WinSeqState
 from .operators.win_seqffat import FFATState, GFFATState, Win_SeqFFAT
+from .parallel.mesh import host_copy
 
 GFFAT_FIELDS = ("panes", "cnt", "wm", "next_win", "dropped_old")
 FFAT_FIELDS = ("panes", "pane_count", "pane_of", "count", "wm", "next_win", "dropped_old")
@@ -94,8 +95,8 @@ def state_to_numpy(op, state: Any) -> Any:
     if isinstance(op, Pane_Farm):
         return {"plq": state_to_numpy(op.plq, state["plq"]),
                 "wlq": state_to_numpy(op.wlq, state["wlq"])}
-    # .numpy() of a CPU tensor shares its memory: copy
-    host = lambda t: np.array(t.detach().cpu().numpy(), copy=True)  # noqa: E731
+    # a fresh host tensor a leaf (a sharded leaf assembled), as numpy
+    host = lambda t: host_copy(t).numpy()  # noqa: E731
     if isinstance(op, Win_Seq):
         return {f: tree_map(host, getattr(state, f)) for f in WINSEQ_FIELDS}
     if isinstance(op, Win_SeqFFAT):

@@ -129,6 +129,15 @@ class HealthLedger:
 
     # -- capture notes (the first run of a program at a signature) ---------
 
+    def suppressed(self) -> bool:
+        """Whether notes on this thread are suppressed (:meth:`_suppress`):
+        a program run again to be inspected is no new capture, and the
+        kernels it resolves are no new resolutions."""
+        return bool(getattr(self._tls, "suppress", 0))
+
+    def _suppress(self, on: bool) -> None:
+        self._tls.suppress = getattr(self._tls, "suppress", 0) + (1 if on else -1)
+
     def note_trace(self, label: str, from_op: int, kind: str, sig: str,
                    capacity: Optional[int] = None,
                    k: Optional[int] = None) -> None:
@@ -138,6 +147,8 @@ class HealthLedger:
         seen), journals the detector event, and parks a pending record for
         the caller to finish with its duration once the call returns
         (``commit_pending``)."""
+        if self.suppressed():
+            return
         key = (label, int(from_op), kind)
         cache_key = f"{_fnv1a32('/'.join((label, str(from_op), kind, sig))):08x}"
         with self._lock:
@@ -230,6 +241,8 @@ class HealthLedger:
 
     def note_kernel_resolve(self, kernel: str, spec_key: str, impl: str,
                             device: str = "") -> None:
+        if self.suppressed():
+            return
         with self._lock:
             self.kernel_resolves += 1
         _journal.record("kernel_resolve", kernel=kernel, spec_key=spec_key,

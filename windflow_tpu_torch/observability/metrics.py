@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from ..parallel.mesh import global_tree
 from ..stats import LogHistogram
 from .device_health import SNAPSHOT_SCHEMA as _SNAPSHOT_SCHEMA
 
@@ -404,7 +405,8 @@ class MetricsRegistry:
             if op is None or id(op) in seen:
                 return
             seen.add(id(op))
-            yield op, state
+            # a ShardedChain's chain (register_chain) reads as the unsharded one
+            yield op, global_tree(state)
 
         for g in self._graphs:
             for mp in g._all_pipes():

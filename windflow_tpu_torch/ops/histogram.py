@@ -57,7 +57,9 @@ def keyed_pane_histogram(key: torch.Tensor, pane: torch.Tensor,
                         spec_key=f"C{C}xK{K}xP{P}c{chunk}l{locality}",
                         record=C % chunk == 0 and C >= chunk)
     if impl == "cuda":
-        return histogram_cuda(key, pane, valid, K, P)
+        # lanes may be strided or one value broadcast (a per-lane constant,
+        # batch.py::vmap_lanes); the kernel reads dense rows (F23)
+        return histogram_cuda(key.contiguous(), pane.contiguous(), valid.contiguous(), K, P)
     return histogram_plain(key, pane, valid, K, P)
 
 

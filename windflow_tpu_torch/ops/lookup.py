@@ -120,7 +120,8 @@ def gather_or_zero(table: torch.Tensor, idx: torch.Tensor, *,
     if impl is None:
         impl = resolve_impl("lookup", device=table.device, record=False)
     if impl == "cuda":
-        return lookup_cuda(table, idx)
+        # strided or broadcast lanes made dense for the kernel (F23)
+        return lookup_cuda(table.contiguous(), idx.contiguous())
     return lookup_plain(table, idx)
 
 
@@ -251,7 +252,9 @@ def join_probe(table_keys: torch.Tensor, table_vals: torch.Tensor,
     impl = resolve_impl("join_probe", impl=impl, device=table_keys.device,
                         spec_key=f"C{C}xK{K}:{dtype_name(table_vals.dtype)}")
     if impl == "cuda":
-        return join_probe_cuda(table_keys, table_vals, probe, valid)
+        # strided or broadcast lanes made dense for the kernel (F23)
+        return join_probe_cuda(table_keys.contiguous(), table_vals.contiguous(),
+                               probe.contiguous(), valid.contiguous())
     return join_probe_plain(table_keys, table_vals, probe, valid)
 
 

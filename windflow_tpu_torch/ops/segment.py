@@ -95,7 +95,10 @@ def segment_fold(values: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
                         spec_key=f"C{C}xS{S}:{dtype_name(values.dtype)}")
     if values.dtype in _FOLD_DTYPES:
         if impl == "cuda":
-            return segment_fold_cuda(values, seg, valid, S)
+            # strided or broadcast lanes (a per-lane constant such as the
+            # word count's ones) made dense for the kernel (F23)
+            return segment_fold_cuda(values.contiguous(), seg.contiguous(),
+                                     valid.contiguous(), S)
         return segment_fold_plain(values, seg, valid, S)
     return _index_add_fold(values, seg, valid, S)
 

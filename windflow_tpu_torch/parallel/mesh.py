@@ -231,22 +231,38 @@ class ShardedTensor:
     def piece(self, c) -> torch.Tensor:
         return self.pieces[tuple(c)]
 
-    def full(self) -> torch.Tensor:
+    def full(self, name: str = "ShardedTensor") -> torch.Tensor:
         """The global tensor assembled on the first position's device, from
-        the first position holding each block. Needs every block in this
-        process."""
+        the first position holding each block: a new tensor. Needs every
+        block in this process; otherwise raises a ``ValueError`` naming
+        ``name`` and the positions whose blocks live in other processes (as
+        ``np.asarray`` refuses a JAX array that is not fully addressable)."""
         first = {}
         for c, t in self.pieces.items():
             first.setdefault(self.placement.block_of(c), (c, t))
+        mesh = self.placement.mesh
+        missing = [c for c in mesh.coords() if self.placement.block_of(c) not in first]
+        if missing:
+            raise ValueError(
+                f"{name}: the blocks at mesh positions {missing} (processes "
+                f"{sorted({int(mesh.processes[c]) for c in missing})}) are not held by "
+                f"this process (rank {mesh.process_index}); gather them first "
+                f"(parallel/collective.py)")
         dev = next(iter(self.pieces.values())).device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        covered = 0
         for c, t in first.values():
             out[self.placement.slices(c, self.shape)] = t.to(dev)
-            covered += t.numel()
-        if covered != out.numel():
-            raise ValueError("ShardedTensor.full: blocks held by other processes are missing")
         return out
+
+    def clone(self) -> "ShardedTensor":
+        """A copy with memory of its own; positions that shared a piece
+        share its copy."""
+        made = {}
+        for t in self.pieces.values():
+            if id(t) not in made:
+                made[id(t)] = t.clone()
+        return ShardedTensor(self.placement, self.shape, self.dtype,
+                             {c: made[id(t)] for c, t in self.pieces.items()})
 
     def __repr__(self):
         return f"ShardedTensor(shape={tuple(self.shape)}, spec={self.placement.spec})"
@@ -267,6 +283,40 @@ def device_put(x: torch.Tensor, placement: Placement) -> ShardedTensor:
     return ShardedTensor(placement, x.shape, x.dtype, pieces)
 
 
+def global_tree(tree):
+    """``tree`` (a state) with every placed leaf as its global value, for
+    reading: a replicated leaf's first copy, a split leaf's blocks laid end
+    to end (the all-gather). A sharded chain's state reads as the unsharded
+    chain's; ``tree`` itself when nothing in it is placed."""
+    from ..batch import jax_leaves, jax_unflatten
+    flat = jax_leaves(tree)
+    if not any(isinstance(x, ShardedTensor) for x in flat):
+        return tree
+
+    def value(x):
+        if not isinstance(x, ShardedTensor):
+            return x
+        if not any(a is not None for a in x.placement.spec):
+            return next(iter(x.pieces.values()))
+        return x.full()
+    return jax_unflatten(tree, [value(x) for x in flat])
+
+
+def host_copy(leaf, name: str = "leaf"):
+    """A leaf as one tensor on the host, always a copy: a tensor copied
+    (synchronous on the card, so an asynchronous CUDA error surfaces here),
+    a :class:`ShardedTensor` assembled (:meth:`ShardedTensor.full`, which
+    raises naming ``name`` where blocks live in other processes); any other
+    leaf as is. The one way the host paths (checkpoints, supervisor
+    snapshots, ``convert``) take a state leaf, so a sharded chain's state
+    is written and snapshotted as the unsharded chain's would be."""
+    if isinstance(leaf, ShardedTensor):
+        return leaf.full(name).to("cpu")       # full() is a new tensor already
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return leaf
+
+
 def from_pieces(placement: Placement, pieces: dict, shape=None) -> ShardedTensor:
     """A ShardedTensor over tensors already placed a position; ``shape``
     defaults to the pieces' blocks laid side by side."""
@@ -280,5 +330,5 @@ def from_pieces(placement: Placement, pieces: dict, shape=None) -> ShardedTensor
 
 
 __all__ = ["Mesh", "Placement", "Shard", "ShardedTensor", "device_put", "from_pieces",
-           "leading_axis_sharding", "make_mesh", "make_mesh_2d", "replicated",
-           "visible_cuda_devices"]
+           "global_tree", "host_copy", "leading_axis_sharding", "make_mesh",
+           "make_mesh_2d", "replicated", "visible_cuda_devices"]

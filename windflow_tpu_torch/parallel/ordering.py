@@ -288,6 +288,25 @@ class Ordering_Node:  # wf-lint: single-writer[driver, stage]
         self._defer_counts(counts)
         return out
 
+    def resort_pending(self) -> None:
+        """Re-establish the sorted-pool invariant on a pool assigned from
+        outside (the supervised graph restore: a snapshot from another
+        writer may hold it unsorted; merge and release assume ascending
+        order with the invalid lanes at the tail). One stable sort by the
+        composite key, in plain PyTorch: a rare recovery path, not the hot
+        path. Counts still owed are dropped, not settled: they sized a pool
+        the assignment replaced."""
+        self._counts_pending = None
+        if self._pending is None:
+            return
+        b, chan = self._pending, self._pending_chan
+        order = torch.arange(b.capacity, device=chan.device)
+        for k in reversed(_masked_keys(self.mode, b, chan)):     # lexsort: last key first
+            order = order.index_select(0, torch.argsort(k.index_select(0, order),
+                                                        stable=True))
+        self._pending = b.select(order, torch.ones_like(b.valid))
+        self._pending_chan = chan.index_select(0, order)
+
     def _pad_pow2(self) -> None:
         """Pad the pool to a power-of-two capacity with invalid lanes at the
         tail (the sorted invariant holds), so merges see O(log backlog)

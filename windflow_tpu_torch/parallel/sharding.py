@@ -60,7 +60,7 @@ import torch
 
 from ..batch import (Batch, CTRL_DTYPE, concat_batches, jax_leaves, jax_unflatten, map_tuples,
                      split_batch, tree_map)
-from .mesh import Mesh, Placement, ShardedTensor, device_put
+from .mesh import Mesh, Placement, ShardedTensor, device_put, global_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,17 +280,6 @@ def _put_views(x, placement: Placement) -> ShardedTensor:
     return ShardedTensor(placement, x.shape, x.dtype,
                          {c: x[placement.slices(c, x.shape)]
                           for c in placement.mesh.local_coords()})
-
-
-def _gather(leaf):
-    """The global value of a placed state leaf: a replicated leaf's first
-    copy, a split leaf's blocks laid end to end (the all-gather)."""
-    if not isinstance(leaf, ShardedTensor):
-        return leaf
-    pl = leaf.placement
-    if not any(a is not None for a in pl.spec):
-        return next(iter(leaf.pieces.values()))
-    return leaf.full()
 
 
 def _window_engine(op):
@@ -563,7 +552,7 @@ class ShardedChain:
             blocks, out = split.run(split.read(st), batch, flush)
             self.chain.states[j] = split.write(st, blocks)
             return out
-        whole = jax_unflatten(st, [_gather(x) for x in jax_leaves(st)])
+        whole = global_tree(st)
         new, out = op.flush(whole) if flush else op.apply(whole, batch)
         self.chain.states[j] = jax_unflatten(new, [
             _put_views(x, old.placement) if isinstance(old, ShardedTensor) else x
@@ -610,10 +599,7 @@ class ShardedChain:
 
     def result(self) -> dict:
         """Results of the ReduceSink terminal ops, gathered."""
-        from ..operators.sink import ReduceSink
-        return {op.name: op.result(jax_unflatten(st, [_gather(x) for x in jax_leaves(st)]))
-                for op, st in zip(self.chain.ops, self.chain.states)
-                if isinstance(op, ReduceSink)}
+        return self.chain.result()
 
 
 __all__ = ["ShardAssignment", "ReshardPlan", "ShardedChain", "affected_shards",

@@ -34,6 +34,10 @@ so a stream checkpointed by one package resumes in the other:
 
 A restored state is made of fresh tensors on the chain's device (no alias of
 the template: Win_Seq updates its rings in place and marks a consumed state).
+A :class:`~windflow_tpu_torch.parallel.ShardedChain`'s chain saves its state
+assembled (``parallel/mesh.py::host_copy``): the file is the unsharded
+chain's, which restores into a chain on any mesh, or none (a sharded
+template's leaves are placed again as they were).
 A chain with captured graphs copies the restored state into the graphs'
 static state at its next replay (``runtime/graphs.py``).
 
@@ -69,6 +73,7 @@ import torch
 
 from ..batch import flatten_with_paths, is_node
 from ..observability import journal as _journal
+from ..parallel.mesh import ShardedTensor, device_put, host_copy
 from . import faults as _faults
 
 #: reserved __meta__ keys (stripped from the dict load_chain returns)
@@ -101,16 +106,18 @@ def leaf_paths(states) -> Dict[str, list]:
             for i, st in enumerate(states)}
 
 
-def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return np.array(leaf.detach().cpu().numpy(), copy=True)
-    return np.asarray(leaf)
+def _host(leaf, where: str) -> np.ndarray:
+    """A leaf as the array the file stores: a sharded leaf (a
+    :class:`ShardedChain`'s state) assembled, so the file is the unsharded
+    chain's, as the JAX package's ``np.asarray`` writes it."""
+    leaf = host_copy(leaf, where)
+    return leaf.numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
 
 
 def _flatten(states) -> Dict[str, np.ndarray]:
-    return {f"op{i}_leaf{j}": _host(leaf)
+    return {f"op{i}_leaf{j}": _host(leaf, f"op{i}{p}")
             for i, st in enumerate(states)
-            for j, (_p, leaf) in enumerate(flatten_with_paths(st))}
+            for j, (p, leaf) in enumerate(flatten_with_paths(st))}
 
 
 def _rebuild(tree: Any, prefix: str, pick) -> Any:
@@ -130,19 +137,23 @@ def _rebuild(tree: Any, prefix: str, pick) -> Any:
 
 
 def _restored(arr: np.ndarray, template, where: str):
-    """A saved array as a fresh leaf like ``template`` (its device)."""
-    if not isinstance(template, torch.Tensor):
+    """A saved array as a fresh leaf like ``template``: on its device, or
+    placed as a sharded template is (a :class:`ShardedChain`'s chain
+    restores over its own mesh)."""
+    if not isinstance(template, (torch.Tensor, ShardedTensor)):
         return arr
     t = torch.from_numpy(np.array(arr, copy=True))
     if tuple(t.shape) != tuple(template.shape) or t.dtype != template.dtype:
         raise KeyError(f"{where}: saved {t.dtype} {tuple(t.shape)} does not fit the "
                        f"chain's {template.dtype} {tuple(template.shape)} — mismatched "
                        f"chain")
+    if isinstance(template, ShardedTensor):
+        return device_put(t, template.placement)
     return t.to(template.device)
 
 
 def _fresh(leaf):
-    return leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+    return leaf.clone() if isinstance(leaf, (torch.Tensor, ShardedTensor)) else leaf
 
 
 # ------------------------------------------------------------- the files

@@ -69,6 +69,7 @@ from ..observability import device_health as _dh
 from ..observability import journal as _journal
 from ..observability import tracing as _tracing
 from ..operators.source import SourceBase
+from ..parallel.mesh import ShardedTensor, global_tree
 from . import dispatch as _dispatch
 from .graphs import StepGraph, leaves, rebuild
 
@@ -298,11 +299,12 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
 
     def state_footprints(self) -> dict:
         """Per-operator state bytes from the state tensors' shapes and dtypes
-        (no device access): the memory ledger's rows."""
+        (no device access): the memory ledger's rows. A sharded leaf counts
+        its global shape, as the JAX package's ``nbytes`` does."""
         out: dict = {}
         for op, st in zip(self.ops, self.states):
-            n = sum(t.numel() * t.element_size() for t in jax_leaves(st)
-                    if isinstance(t, torch.Tensor))
+            n = sum(t.shape.numel() * t.dtype.itemsize for t in jax_leaves(st)
+                    if isinstance(t, (torch.Tensor, ShardedTensor)))
             out[op.getName()] = out.get(op.getName(), 0) + n
         return out
 
@@ -553,8 +555,9 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
         self._journal_drops(None)
 
     def result(self) -> dict:
-        """Results of the ReduceSink terminal ops (device accumulators)."""
-        return {op.name: op.result(self.states[i])
+        """Results of the ReduceSink terminal ops (device accumulators; a
+        sharded chain's gathered)."""
+        return {op.name: op.result(global_tree(self.states[i]))
                 for i, op in enumerate(self.ops) if isinstance(op, ReduceSink)}
 
 

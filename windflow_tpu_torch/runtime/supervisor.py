@@ -143,6 +143,7 @@ from ..observability import tracing as _tracing
 from ..operators.base import Basic_Operator
 from ..operators.sink import ReduceSink, Sink
 from ..operators.source import SourceBase
+from ..parallel.mesh import host_copy
 from ..parallel.sharding import (ReshardPlan, ShardAssignment, affected_shards,
                                  make_splitter, resolve_shards)
 from . import dispatch as _dispatch
@@ -300,20 +301,14 @@ def _abort_attempt() -> None:
 
 # --------------------------------------------------------- host copies
 
-def _host_copy(x):
-    """A tensor copied to the host (synchronous on the card: the copy waits
-    for the work that wrote it, so an asynchronous CUDA error surfaces
-    here); any other leaf as is."""
-    return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
-
-
 def _device_copy(x, device):
     return x.to(device, copy=True) if isinstance(x, torch.Tensor) else x
 
 
 def host_tree(tree):
-    """``tree`` (a state, a batch) with every tensor copied to the host."""
-    return None if tree is None else rebuild(tree, [_host_copy(x) for x in leaves(tree)])
+    """``tree`` (a state, a batch) with every tensor copied to the host (a
+    sharded leaf assembled: ``parallel/mesh.py::host_copy``)."""
+    return None if tree is None else rebuild(tree, [host_copy(x) for x in leaves(tree)])
 
 
 def device_tree(tree, device):
@@ -1476,9 +1471,9 @@ def _graph_snapshot(graph):
             o.settle()        # the trim owed by the last push, before copying
         orders.append(None if o is None else {
             "pending": host_tree(o._pending),
-            "chan": _host_copy(o._pending_chan),
-            "wm": _host_copy(o._wm_dev),
-            "next_id": _host_copy(o._next_id)})
+            "chan": host_copy(o._pending_chan),
+            "wm": host_copy(o._wm_dev),
+            "next_id": host_copy(o._next_id)})
     return {"chains": chains, "orders": orders, "tiers": tiers,
             "exhausted": set(graph._exhausted)}
 
@@ -1497,14 +1492,14 @@ def _graph_restore(graph, snap):
             mp._ordering = None               # recreated lazily, fresh
         else:
             o = mp._ordering or graph._ordering_of(mp)
-            # counts still owed sized a pool the restore replaces: drop them
-            o._counts_pending = None
             o._pending = device_tree(od["pending"], dev)
             o._pending_chan = _device_copy(od["chan"], dev)
             o._wm_dev = _device_copy(od["wm"], dev)
             o._next_id = _device_copy(od["next_id"], dev)
-            # the snapshot was taken settled, from the node's own sorted pool:
-            # the sorted invariant holds without the JAX package's re-sort
+            # a snapshot of another writer may hold the pool unsorted; merge
+            # and release need the sorted invariant (it also drops the counts
+            # still owed, which sized a pool the restore replaced)
+            o.resort_pending()
     graph._exhausted = set(snap["exhausted"])
 
 

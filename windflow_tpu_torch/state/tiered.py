@@ -540,7 +540,11 @@ def slot_directory_stats(state) -> dict:
             "state_readmits": int(state["readmits"])}
 
 
+#: the JAX package's name (``state/tiered.py::slot_alloc``): the r-th admitted
+#: lane claims the r-th free slot, ``(got [R], slot [R])``
+slot_alloc = claim_free_slots
+
 __all__ = ["TierConfig", "TieredTable", "JoinTableTier", "SlotTableTier", "ArchiveTier",
-           "slot_lookup",
+           "slot_alloc", "slot_lookup",
            "outbox_find_last", "slot_directory_resolve",
            "slot_directory_evict", "slot_directory_init", "slot_directory_stats"]

@@ -182,6 +182,11 @@ class Stats_Record:  # wf-lint: single-writer[driver, stage]
         self.bytes_received += int(n_bytes)
         self.batches_received += 1
 
+    def record_output(self, n_tuples: int, n_bytes: int = 0):
+        self.outputs_sent += int(n_tuples)
+        self.bytes_sent += int(n_bytes)
+        self.batches_sent += 1
+
     def record_launch(self, service_time_s: Optional[float] = None, hd_bytes: int = 0,
                       dh_bytes: int = 0, exemplar=None):
         """One step launch; ``service_time_s`` is a measured launch-to-
