@@ -10,6 +10,8 @@ Run from the repository root on a machine with the card:
                                        # time, then stops (no result line);
                                        # copied with PROBES_SRC into another
                                        # tree, it splits that tree's kernels
+    python3 chip_smoke.py --only sweep --only chaos # the build, then only
+                                       # the named late phases (no result line)
     python3 chip_smoke.py --helper-times # the fold's, cold_fetch's and
                                        # cold_probe's (2^18 keys, q3's
                                        # shape) times on their check
@@ -371,7 +373,27 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     result numbers equal the CPU's, and every kernel ``examples.EXAMPLES``
     names for it launched on the card (ysb_windows: K1 and K2), with each
     run's seconds and launches;
-46. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
+46. ``sweep`` (``sweep_phase``), after ``examples``:
+    ``windflow_tpu_torch/benchmarks/sweep.py`` at its defaults (36 fixed
+    rows: map_stateless, map_stateful, filter and win_kf at 2^16, 2^18 and
+    2^20 lanes over 1, 500 and 10,000 keys, 20 captured steps each; the
+    14 Nexmark rows at 2^12 and 2^14), each row logged with its tuples/s
+    and launches, and ``run_adaptive`` over 500 keys twice with a tuning
+    cache in a temporary directory (the rerun warm-starts: one cache hit a
+    row, no capacity switch); then the four workloads' states after the
+    timed steps at 2^18 lanes and 500 keys against the CPU port's after
+    the same steps, byte for byte (NaN as NaN);
+47. ``chaos`` (``chaos_phase``): ``windflow_tpu_torch/scripts/chaos_sweep.py``'s
+    ``main`` in six modes at the JAX script's defaults with ``--seeds 2``
+    (plain, ``--controller``, ``--dispatch 4``, ``--shards 4``,
+    ``--remediate``, ``--serve``; an empty CUDA graph is an error, F24),
+    each exiting 0 with its seconds, faults fired a driver and launches
+    logged, then the plain mode over 2^18 tuples (``CHAOS_FULL``), whose
+    fault-free baselines must equal the CPU port's; then
+    ``python -m windflow_tpu_torch.scripts.wf_profile --capture`` (its
+    ``main``, in a thread) over a running Key_FFAT chain at 2^18 lanes:
+    exit 0 and a trace with CUDA kernel events;
+48. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
     (2^14) and served YSB launches no kernel (every operator's spec probe
     runs on the meta device); ``validate()`` of each, and of
     ``graph_windows`` for the threaded driver, launches nothing, allocates
@@ -381,7 +403,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``histogram`` and ``lookup`` in its kernels and fingerprints as the same
     chain built on the CPU, with its trace ms; the perfgate proxy rows time
     the hand kernels (advisory);
-47. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
+49. the ``{"kernels": [...]}`` summary (the six TPU kernels, the
     fixed-order float fold at ``keyed_cb``'s shape, ``cold_probe`` at
     tiered q3's, ``cold_fetch`` at tiered q4's and ``cold_scatter`` over
     tiered q3's index, launches summed over the paths, each counted from
@@ -6163,7 +6185,11 @@ SERVE_WINDOW_MS = 700.0   # its profile window: longer than one send cycle
 SERVE_STALL_S = 0.5       # the slow tenant's wire stall inside each frame
 SERVE_STALLED = 14        # its stalled frames, then SERVE_CLEAN clean ones
 SERVE_CLEAN = 6
-SERVE_TARGET_MS = 200.0   # its wire-to-sink p99 target
+#: its wire-to-sink p99 target (F26): between a clean frame's latency on the
+#: card's host (p99 ticks of 92-262 ms: 16 MiB on the wire, framing, a quiet
+#: frame ahead of it) and a stalled one's (at least SERVE_STALL_S); at 200 ms
+#: a clean tick above it ended the run in warn now and then
+SERVE_TARGET_MS = 400.0
 
 
 def serve_source(np, eos_tenants=None):
@@ -6961,8 +6987,287 @@ def examples_phase(registry, card):
     return total
 
 
+# ------------------------------------------------------------- sweep phase
+
+SWEEP_CHECK = (1 << 18, 500)  # the fixed rows whose states are held to the CPU port's
+SWEEP_ADAPTIVE_KEYS = (500,)  # run_adaptive's keys, run twice (the second warm-starts)
+
+
+def state_leaves(np, tree):
+    """The arrays of a state tree (``convert.state_to_numpy``'s form) in
+    order; None leaves are skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(np, tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in state_leaves(np, t)]
+    return [np.asarray(tree)]
+
+
+def states_same(np, got, want):
+    """Byte equality of two state trees, NaN payloads compared as NaN."""
+    g, w = state_leaves(np, got), state_leaves(np, want)
+    if len(g) != len(w):
+        return False
+    for a, b in zip(g, w):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype.kind == "f":
+            na, nb = np.isnan(a), np.isnan(b)
+            if not np.array_equal(na, nb):
+                return False
+            a, b = np.where(na, 0, a), np.where(nb, 0, b)
+        if a.tobytes() != b.tobytes():
+            return False
+    return True
+
+
+def launch_delta(registry, prev):
+    """The launches since ``prev`` (a copy of the counts, updated in place)."""
+    counts = registry.launch_counts()
+    delta = {k: n - prev.get(k, 0) for k, n in counts.items() if n != prev.get(k, 0)}
+    prev.clear()
+    prev.update(counts)
+    return delta
+
+
+def sweep_phase(torch, np, registry, card):
+    """Phase ``sweep``: ``benchmarks/sweep.py`` on the card at its defaults
+    (36 fixed rows, 14 Nexmark rows) and ``run_adaptive`` over 500 keys
+    twice with a tuning cache in a temporary directory (the second run
+    warm-starts: one cache hit a row, no capacity switch, the same rungs),
+    each row logged with its launches; then the four workloads' states after
+    the timed steps of the 2^18-lane, 500-key rows against the CPU port's
+    after the same steps, byte for byte (NaN as NaN). Returns the launches
+    of the three runs."""
+    import shutil
+    import tempfile
+    from windflow_tpu_torch import control
+    from windflow_tpu_torch.benchmarks import sweep
+    from windflow_tpu_torch.convert import state_to_numpy
+
+    t0 = time.perf_counter()
+    held, prev = {}, {}
+
+    def on_row(row, ops, states):
+        name, batch, keys, tps = row
+        log({"phase": "sweep_row", "workload": name, "batch": batch, "keys": keys,
+             "tuples_per_s": tps, "launches": launch_delta(registry, prev), "card": card})
+        if (batch, keys) == SWEEP_CHECK and name in sweep.NAMES:
+            held[name] = [state_to_numpy(op, s) for op, s in zip(ops, states)]
+
+    registry.reset_launches()
+    rows = sweep.run_sweep(device="cuda", on_row=on_row)
+    nex = sweep.run_nexmark(device="cuda", on_row=on_row)
+    tmp = tempfile.mkdtemp(prefix="wf_sweep_")
+    cache = os.path.join(tmp, "tuning.json")
+    adaptive = []
+    for run in ("cold", "warm"):
+        control.reset()
+        got = sweep.run_adaptive(keyset=SWEEP_ADAPTIVE_KEYS, cache_path=cache, device="cuda")
+        ctr = control.counters()
+        log({"phase": "sweep_adaptive", "run": run, "rows": got, "card": card,
+             "tuning_cache_hits": ctr.get("tuning_cache_hits", 0),
+             "capacity_switches": ctr.get("capacity_switches", 0),
+             "launches": launch_delta(registry, prev)})
+        adaptive.append((got, ctr))
+    launches = registry.launch_counts()
+    (cold, _), (warm, ctr) = adaptive
+    if (len(warm) != len(sweep.NAMES) or ctr.get("tuning_cache_hits") != len(warm)
+            or ctr.get("capacity_switches", 0) != 0
+            or [r[1] for r in warm] != [r[1] for r in cold]):
+        raise AssertionError(f"sweep: the adaptive rerun did not warm-start at the cached "
+                             f"rungs: {cold} then {warm}, counters {ctr}")
+    if len(rows) != 36 or len(nex) != 14 or not all(r[3] > 0 for r in rows + nex + warm):
+        raise AssertionError(f"sweep: {len(rows)} fixed and {len(nex)} Nexmark rows")
+    out = os.path.join(tmp, "RESULTS.md")
+    with open(out, "w") as f:
+        f.write(sweep.render_markdown(rows + warm + nex, sweep.device_label("cuda")))
+    with open(out) as f:
+        table = [ln for ln in f if ln.startswith("| ")]
+    shutil.rmtree(tmp, ignore_errors=True)
+    missed = [k for k in SWEEP_KERNELS if not launches.get(k)]
+    if missed:
+        raise AssertionError(f"sweep: kernels {missed} never launched ({launches})")
+
+    t1 = time.perf_counter()
+    batch, keys = SWEEP_CHECK
+    for name in sweep.NAMES:
+        src, ops = sweep.workloads(batch, keys, 22 * batch, "cpu")[name]
+        _, states = sweep.measure(ops, src, batch, 20, "cpu")
+        want = [state_to_numpy(op, s) for op, s in zip(ops, states)]
+        if not states_same(np, held[name], want):
+            raise AssertionError(f"sweep {name} at {batch} lanes, {keys} keys: the card's "
+                                 f"states differ from the CPU port's")
+    log({"phase": "sweep", "card": card, "seconds": time.perf_counter() - t0,
+         "check_s": time.perf_counter() - t1, "rows": len(rows), "nexmark_rows": len(nex),
+         "adaptive_rows": len(warm), "table_rows": len(table) - 1,
+         "checked": [f"{n}@{batch}x{keys}" for n in sweep.NAMES], "launches": launches})
+    return launches
+
+
+# ------------------------------------------------------------- chaos phase
+
+#: chaos_sweep.py's modes, each at the JAX script's defaults with CHAOS_SEEDS
+CHAOS_MODES = {"plain": [], "controller": ["--controller"], "dispatch": ["--dispatch", "4"],
+               "shards": ["--shards", "4"], "remediate": ["--remediate"],
+               "serve": ["--serve"]}
+CHAOS_SEEDS = 2
+#: the full-width run: the plain mode over 2^18 tuples. Its batch is the largest
+#: the pipeline driver's TB Win_Seq(10, 10) takes without an explicit max_wins
+#: (both packages refuse a [W, L] gather above 2^22 elements: 16384 lanes give
+#: W = 1703, L = 32768)
+CHAOS_FULL = ["--seeds", "1", "--batch", "4096", "--total", "262144"]
+#: the kernels each path must launch (the K numbers of PERF.md's table)
+SWEEP_KERNELS = ("lookup", "segment_fold", "ordering_merge", "join_probe",
+                 "segment_fold_float")
+CHAOS_KERNELS = ("lookup", "segment_fold", "ordering_merge", "masked_window_reduce")
+PROFILE_WINDOW_MS = 300.0  # wf_profile --capture's window over the running chain
+
+
+def chaos_output(fn, *a):
+    """``fn(*a)`` with its standard output kept: (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a)
+    return res, buf.getvalue()
+
+
+def chaos_fired(text):
+    """Faults fired a driver over a run's printed lines."""
+    fired = {}
+    for name, n in re.findall(r"^\[seed \d+\] (\w+): (\d+) faults injected", text, re.M):
+        fired[name] = fired.get(name, 0) + int(n)
+    for n in re.findall(r"^\[closed-loop\] threaded: (\d+) faults injected", text, re.M):
+        fired["closed_loop"] = int(n)
+    for n in re.findall(r"^\[seed \d+\] serve: .* (\d+) torn", text, re.M):
+        fired["serve_torn"] = fired.get("serve_torn", 0) + int(n)
+    return fired
+
+
+def chaos_phase(torch, registry, card):
+    """Phase ``chaos``: ``python -m windflow_tpu_torch.scripts.chaos_sweep``'s
+    ``main`` in six modes at the JAX script's defaults with ``--seeds 2``
+    (plain, --controller, --dispatch 4, --shards 4, --remediate, --serve),
+    then the plain mode at full width (``CHAOS_FULL``), whose fault-free
+    baselines must equal the CPU port's at the same flags; every run must
+    exit 0 with no divergence. Each run's seconds, faults fired a driver and
+    launches are logged. Then ``wf_profile --capture`` over a running chain
+    (``profile_capture_check``). Returns the runs' launches, each counted
+    from zero, summed."""
+    import warnings
+    from windflow_tpu_torch.scripts import chaos_sweep as C
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in registry.KERNELS}
+    for mode, flags in CHAOS_MODES.items():
+        argv = ["--seeds", str(CHAOS_SEEDS), *flags]
+        t = time.perf_counter()
+        registry.reset_launches()
+        with warnings.catch_warnings():
+            # F24: an operator-less chain (a graph's source pipe) captured an
+            # empty CUDA graph under dispatch
+            warnings.filterwarnings("error", message="The CUDA Graph is empty")
+            rc, text = chaos_output(C.main, argv)
+        launches = {k: n for k, n in registry.launch_counts().items() if n}
+        if rc != 0 or "PASS" not in text:
+            log(text[-6000:])
+            raise RuntimeError(f"chaos_sweep {' '.join(argv)} exited {rc}")
+        for k, n in launches.items():
+            total[k] += n
+        log({"phase": f"chaos_{mode}", "argv": argv, "card": card,
+             "seconds": time.perf_counter() - t, "fired": chaos_fired(text),
+             "launches": launches})
+
+    t = time.perf_counter()
+    args = C.parser().parse_args(CHAOS_FULL)
+    dev = C.resolve_device("cuda")
+    C.warm(args.batch, dev)
+    registry.reset_launches()
+    res, text = chaos_output(C.sweep, args, dev)
+    launches = {k: n for k, n in registry.launch_counts().items() if n}
+    card_s = time.perf_counter() - t
+    if res["divergences"]:
+        log(text[-6000:])
+        raise RuntimeError(f"chaos_sweep {' '.join(CHAOS_FULL)}: "
+                           f"{res['divergences']} divergent run(s)")
+    for k, n in launches.items():
+        total[k] += n
+    t1 = time.perf_counter()
+    for name in C.DRIVERS:
+        cpu = C.RUNNERS[name](args.total, args.batch, device="cpu")
+        if res["baselines"][name] != cpu:
+            raise AssertionError(f"chaos full width: the card's {name} baseline "
+                                 f"({len(res['baselines'][name])} rows) differs from the "
+                                 f"CPU port's ({len(cpu)} rows)")
+    log({"phase": "chaos_full_width", "argv": CHAOS_FULL, "card": card, "seconds": card_s,
+         "cpu_baselines_s": time.perf_counter() - t1,
+         "rows": {n: len(r) for n, r in res["baselines"].items()},
+         "fired": {n: sum(f) for n, f in res["fired"].items()}, "launches": launches})
+    missed = [k for k in CHAOS_KERNELS if not total.get(k)]
+    if missed:
+        raise AssertionError(f"chaos: kernels {missed} never launched ({total})")
+    profile_capture_check(torch, card)
+    log({"phase": "chaos", "card": card, "seconds": time.perf_counter() - t0,
+         "launches": {k: n for k, n in total.items() if n}})
+    return total
+
+
+def profile_capture_check(torch, card):
+    """``wf_profile --capture`` (its ``main``, in a thread of this process, so
+    its torch.profiler session sees this process's kernels) over a running
+    eager Key_FFAT chain at 2^18 lanes: it must exit 0 and its trace must
+    hold at least one CUDA kernel event."""
+    import shutil
+    import tempfile
+    import threading
+    from windflow_tpu_torch.benchmarks import sweep
+    from windflow_tpu_torch.observability.profiling import trace_kernels
+    from windflow_tpu_torch.runtime.pipeline import CompiledChain
+    from windflow_tpu_torch.scripts import wf_profile
+
+    B = 1 << 18
+    dev = sweep.resolve_device("cuda")
+    src, ops = sweep.workloads(B, 500, B << 12, dev)["win_kf"]
+    chain = CompiledChain(ops, src.payload_spec(), batch_capacity=B, device=dev,
+                          event_time=False)
+    states, cur = list(chain.states), torch.zeros((), dtype=torch.int32, device=dev)
+    logdir = tempfile.mkdtemp(prefix="wf_profile_")
+    box = {}
+    argv = ["--capture", logdir, "--window-ms", str(PROFILE_WINDOW_MS), "--json"]
+
+    def capture():
+        box["rc"], box["out"] = chaos_output(wf_profile.main, argv)
+
+    th = threading.Thread(target=capture)
+    t = time.perf_counter()
+    th.start()
+    steps = 0
+    while th.is_alive():
+        b = src.make_batch(cur, B)
+        for j, op in enumerate(chain.ops):
+            states[j], b = op.apply(states[j], b)
+        cur = cur + B
+        steps += 1
+        torch.cuda.synchronize()
+    th.join()
+    kernels = trace_kernels(os.path.join(logdir, "trace.json"))
+    shutil.rmtree(logdir, ignore_errors=True)
+    if box.get("rc") != 0 or not kernels:
+        log(box.get("out", ""))
+        raise RuntimeError(f"wf_profile --capture exited {box.get('rc')} with "
+                           f"{len(kernels)} CUDA kernel(s) in its trace")
+    summary = json.loads(box["out"])
+    log({"phase": "wf_profile_capture", "card": card, "seconds": time.perf_counter() - t,
+         "window_ms": summary["window_ms"], "activities": summary["activities"],
+         "chain_steps": steps, "kernels": kernels[:16], "n_kernels": len(kernels)})
+
+
 def analysis_phase(torch, np, wt, ysb, registry, card):
-    """Phase 44 (see the module docstring): the static-analysis layer on the
+    """Phase 48 (see the module docstring): the static-analysis layer on the
     card. Building YSB, q3 and served YSB launches nothing; ``validate()`` of
     each (and of ``graph_windows`` for the threaded driver) launches no
     kernel, allocates no memory and captures no graph, and its report is
@@ -7090,6 +7395,9 @@ def main() -> int:
                     help="build, time the helper kernels on their check inputs and stop, "
                          "printing no result line (also on an older tree, see "
                          "helper_times)")
+    ap.add_argument("--only", action="append", choices=("sweep", "chaos"),
+                    help="build, run only the named late phase (repeatable) and stop, "
+                         "printing no result line")
     args = ap.parse_args()
 
     import numpy as np
@@ -7125,6 +7433,12 @@ def main() -> int:
 
     if args.helper_times:
         helper_times(torch, np, card)
+        return 0
+    if args.only:
+        if "sweep" in args.only:
+            sweep_phase(torch, np, registry, card)
+        if "chaos" in args.only:
+            chaos_phase(torch, registry, card)
         return 0
     split_phase(torch, ysb, probes)
     if args.split_only:
@@ -7197,6 +7511,8 @@ def main() -> int:
     srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
     mesh_ysb_launches, mesh_2d_launches = mesh_phase(torch, np, wt, ysb, registry, card)
     ex_launches = examples_phase(registry, card)
+    sw_launches = sweep_phase(torch, np, registry, card)
+    ch_launches = chaos_phase(torch, registry, card)
     analysis_phase(torch, np, wt, ysb, registry, card)
 
     # each path's launches, counted from zero just before it and read just
@@ -7216,7 +7532,7 @@ def main() -> int:
              "sharded_graph": shg_launches, "control": ctl_launches,
              "monitoring_ysb": mon_launches, "serving": srv_launches,
              "mesh_ysb": mesh_ysb_launches, "mesh_2d": mesh_2d_launches,
-             "examples": ex_launches}
+             "examples": ex_launches, "sweep": sw_launches, "chaos": ch_launches}
     path_launches = {name: sum(d[name] for d in paths.values())
                      for name in registry.KERNELS}
     log({"path_launches": paths})

@@ -71,7 +71,9 @@ MODULES = ["windflow_tpu_torch", "windflow_tpu_torch.benchmarks.ysb",
            "windflow_tpu_torch.examples.checkpoint_resume",
            "windflow_tpu_torch.examples.multichip",
            "windflow_tpu_torch.examples.recovery_and_backpressure",
-           "windflow_tpu_torch.examples.serving"]
+           "windflow_tpu_torch.examples.serving", "windflow_tpu_torch.benchmarks.sweep",
+           "windflow_tpu_torch.scripts", "windflow_tpu_torch.scripts.chaos_sweep",
+           "windflow_tpu_torch.scripts.wf_profile"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():

@@ -16,7 +16,10 @@
 //  - capacity rounded to a power of two; index wrap via mask
 //  - head/tail on separate cache lines to avoid false sharing
 //  - push/pop are wait-free; *_spin variants bound the spin then yield
-//    (BLOCKING_MODE-equivalent behavior)
+//    (BLOCKING_MODE-equivalent behavior), and past kYieldRounds rounds they
+//    sleep kNapMicros between tries: a stage blocked for longer than about
+//    a tenth of a millisecond stops taking a core from the stage threads
+//    that work (whose every CUDA call slows several-fold beside spinners)
 
 #include <atomic>
 #include <cstdint>
@@ -46,6 +49,23 @@ struct alignas(kCacheLine) SpscQueue {
           mask(capacity_pow2 - 1), head(0), tail(0) {}
     ~SpscQueue() { std::free(buf); }
 };
+
+// rounds of `spin` tries that yield between them before a blocked end naps
+constexpr uint64_t kYieldRounds = 64;
+// a nap between later rounds, and what one counts for against max_yields
+// (about the yields that fit in it), so a pop's bound stays a few ms
+constexpr int64_t kNapMicros = 50;
+constexpr uint64_t kNapRounds = 16;
+
+// Wait between two rounds of tries; returns the rounds the wait counts for.
+uint64_t wait_round(uint64_t round) {
+    if (round < kYieldRounds) {
+        std::this_thread::yield();
+        return 1;
+    }
+    std::this_thread::sleep_for(std::chrono::microseconds(kNapMicros));
+    return kNapRounds;
+}
 
 uint64_t next_pow2(uint64_t n) {
     uint64_t p = 1;
@@ -84,22 +104,23 @@ int wf_queue_pop(void* qp, uint64_t* item) {
     return 1;
 }
 
-// Spinning variants: spin `spin` times, then yield between retries until success
-// (push) or until `max_yields` yields have elapsed (pop; returns 0 on timeout so
-// callers can check shutdown flags). GIL is released by ctypes for the duration.
+// Spinning variants: spin `spin` times, then wait (wait_round: yield, later
+// nap) between retries until success (push) or until `max_yields` yields' worth
+// of waiting has elapsed (pop; returns 0 on timeout so callers can check
+// shutdown flags). GIL is released by ctypes for the duration.
 int wf_queue_push_spin(void* qp, uint64_t item, uint64_t spin) {
-    for (;;) {
+    for (uint64_t round = 0;; ++round) {
         for (uint64_t i = 0; i < spin; ++i)
             if (wf_queue_push(qp, item)) return 1;
-        std::this_thread::yield();
+        wait_round(round);
     }
 }
 
 int wf_queue_pop_spin(void* qp, uint64_t* item, uint64_t spin, uint64_t max_yields) {
-    for (uint64_t y = 0; y <= max_yields; ++y) {
+    for (uint64_t round = 0, y = 0; y <= max_yields; ++round) {
         for (uint64_t i = 0; i < spin; ++i)
             if (wf_queue_pop(qp, item)) return 1;
-        std::this_thread::yield();
+        y += wait_round(round);
     }
     return 0;
 }

@@ -410,9 +410,11 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
     def warm_scan(self, k: int, capacity: int) -> None:
         """Make ready the K-fused program for ``(k, capacity)`` WITHOUT
         touching operator state: the eager warm-up step and, on the card,
-        the capture. K <= 1 warms the per-batch step only."""
+        the capture. K <= 1 warms the per-batch step only, and a chain with
+        no operator (a graph's source pipe before a merge) captures nothing:
+        its K-step program would be an empty graph."""
         self._warm(0, capacity)
-        if k > 1 and self.device.type == "cuda":
+        if k > 1 and self.device.type == "cuda" and self.ops:
             self._graph(0, int(k), capacity, cause="warm_scan")
 
     def push_many(self, batches: Sequence[Batch], from_op: int = 0) -> List[Batch]:
@@ -420,9 +422,10 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
         program; updates states; returns the K out batches in order,
         byte-identical to K sequential :meth:`push` calls. On the card that
         is one replay of the graph captured for ``(from_op, K, capacity)``
-        (its inputs copied in, its outputs cloned out); on the CPU the plain
-        loop over the same step. Stats: K batches counted per op, ONE
-        launch on the entry op. K = 1 delegates to :meth:`push`."""
+        (its inputs copied in, its outputs cloned out); on the CPU, and
+        past the last operator, the plain loop over the same step. Stats: K
+        batches counted per op, ONE launch on the entry op. K = 1 delegates
+        to :meth:`push`."""
         batches = list(batches)
         if len(batches) == 1:
             return [self.push(batches[0], from_op=from_op)]
@@ -437,7 +440,7 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
         sampled = _observed() and (c % self.SERVICE_SAMPLE_EVERY == 0 or _early_sample(c))
         hl, t0c = self._health_begin("push_many")
         t0 = time.perf_counter() if sampled else None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and from_op < len(self.ops):
             g = self._graph(from_op, k, same_capacity(batches))
             timer = self._device_timer(hl, sampled)
             _stack_into(g.inputs, batches)
