@@ -6,18 +6,23 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py              # the default run, one card
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # every loop's steps, captured and eager
-    python3 chip_smoke.py --split-only # phases 1-3's split of K1's and K3's
-                                       # time, then stops (no result line);
-                                       # copied with PROBES_SRC into another
-                                       # tree, it splits that tree's kernels
-    python3 chip_smoke.py --only sweep --only chaos # the build, then only
-                                       # the named late phases (no result line)
-    python3 chip_smoke.py --helper-times # the fold's, cold_fetch's and
+    python3 chip_smoke.py --split-only # phases 1-3's split of K1's, K2's and
+                                       # K3's time, then stops (no result
+                                       # line); copied with PROBES_SRC into
+                                       # another tree, it splits that tree's
+                                       # kernels
+    python3 chip_smoke.py --only lookup --only path_b # the build, then only
+                                       # the named phases (no result line):
+                                       # lookup (K2's split and checks),
+                                       # nexmark_loop, path_b, sweep, chaos
+    python3 chip_smoke.py --helper-times # K2's (every main-path case), the
+                                       # fold's, cold_fetch's and
                                        # cold_probe's (2^18 keys, q3's
                                        # shape) times on their check
-                                       # inputs, nothing checked, then stops;
-                                       # copied into another tree, it times
-                                       # that tree's designs
+                                       # inputs, nothing checked, then stops
+                                       # (``--helper-times lookup``: K2's
+                                       # alone); copied into another tree,
+                                       # it times that tree's designs
 
 Phases (each raises on a mismatch, so any failure exits non-zero):
 
@@ -44,15 +49,23 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    the int32 limits, K * P near 2^31; K3: direct partials with the
    workspace reduce or the atomic flush, global tiles, S = 1, one segment
    with wrapping sums, one segment of 409,600, each input dtype; both at
-   ragged lengths, one lane and unaligned inputs; K4: one
+   ragged lengths, one lane and unaligned inputs; K2: every element
+   size, -0.0 and NaN, a one-row float table, an index view off 16-byte
+   alignment, a ragged lane count, nine tables of nine dtypes in one
+   launch, tables past 48 KB alone and together, an empty table, 17
+   tables (two launches); K4: one
    CTA, one cluster in one launch, several waves of clusters, beyond one
    cluster; K5: shared-memory and device-memory hash table, colliding and
    repeated keys, one row, one lane, ragged lane counts), bit-identical to
    the plain version (each K4 network also to a stable lexsort), with the
    kernel's time alone; K1 and K3 log each case's plan
    (``histogram_plan`` / ``segment_fold_plan``) and counters, and the phase
-   fails unless every regime ran. Also K2's repair: a float table with
-   -0.0 entries gives +0.0 back;
+   fails unless every regime ran. K2 (since its redesign) is also split
+   at YSB's shape (the staging alone, the lanes alone through L2, both;
+   in the parent's geometry and in the redesign's), checked as every
+   table group its callers read in one launch (path B's next_win and
+   count; q5's two and nine tables) and from CUDA graphs replayed twice,
+   and timed beside the launch floor (an empty kernel's replay time);
 4. YSB at full width through ``Pipeline(...).run()`` and a host ``Sink``:
    2^20-event batches with ``bench.py``'s geometry, every per-window count
    against a numpy dense oracle, and K1 and K2 launched once per batch;
@@ -81,8 +94,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
    against the dense oracle, and the exact K2, K3, K4 and K5 launches of
    each query (q5's SessionWindow: ``Q5_APPLY`` an apply; q4's IntervalJoin
    none: it is plain PyTorch), with q4's and q5's drop counters and every
-   run's peak device memory; before them, K2 and K3 at q5's shapes on q5's
-   traffic (``session_kernel_phase``);
+   run's peak device memory; before them, K3 at q5's shapes on q5's
+   traffic (``session_kernel_phase``; K2's are in phase 3);
 9. the same seven queries through the loop; then ``nexmark_graph``: q4 as
    two sources (opens and bids) through ``join_with`` in a DETERMINISTIC
    PipeGraph, serial and ``threaded=True``, its rows equal to the dense
@@ -102,8 +115,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 13. path B, YSB-WMR at ``bench_ysb_wmr``'s geometry: ``Pipeline(...).run()``,
     dispatch off and at K = 2, against a dense per-window count and the
     stream's view total, then the loop with ``bench_ysb_wmr``'s undercount
-    self-check; K2 three times, K3 and K6 once per apply, K6 alone in the
-    flush;
+    self-check; K2 twice (the campaign join; next_win and count in one
+    launch), K3 and K6 once per apply, K6 alone in the flush;
 14. the other window patterns at small depth (Win_Farm, Pane_Farm CB and
     TB, Win_MapReduce with a K6 MAP, Win_Farm(Pane_Farm), Key_Farm(Win_MapReduce),
     an incremental fold, a TB window with lateness), each against a plain
@@ -603,52 +616,319 @@ def ysb_traffic(torch, ysb, start):
     return b, ops[-1]
 
 
-def kernel_phase(torch, ysb):
+def replayed(torch, fn):
+    """``fn()``'s outputs (a tuple) from a CUDA graph that captured one call,
+    after two replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with collection_paused(), torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o.clone() for o in out)
+
+
+def q5_traffic(torch):
+    """q5's SessionWindow input at 2^14 (a batch of bids keyed by bidder) and
+    what its apply reads tables through: (batch, keys K, the (key, ts, id)
+    sort's permutation, sorted keys ``sk``, fragment ids ``seg``, fragment
+    keys ``fkey``)."""
+    from windflow_tpu_torch.nexmark import make_query
+    from windflow_tpu_torch.nexmark.queries import SESSION_GAP
     from windflow_tpu_torch.ops import lookup as L
 
     dev = torch.device("cuda")
+    C = NEX_BATCH
+    src, ops = make_query("q5_session", 4 * C)
+    _, b = ops[0].apply(None, src.make_batch(3 * C, C))
+    K = ops[1].num_keys
+    perm = L._lexsort([b.id, b.ts, b.key])
+    sk, sts = b.key[perm].contiguous(), b.ts[perm]
+    first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), sk[1:] != sk[:-1]])
+    brk = ~first & (sts - torch.cat([sts[:1], sts[:-1]]) > SESSION_GAP)
+    seg = torch.clamp(torch.cumsum((first | brk).to(torch.int32), 0, dtype=torch.int32) - 1,
+                      min=0)
+    fkey = torch.zeros((C,), dtype=torch.int32, device=dev).scatter_reduce_(
+        0, seg.long(), sk, "amax")
+    return b, K, perm, sk, seg, fkey
+
+
+def k2_main_cases(torch, ysb):
+    """K2's inputs at the main paths' shapes, made from one seed: ``(case,
+    tables, idx, timed)``. YSB's campaign join (C = 2^20, 1000 rows) and
+    indices out of range; the window paths' Win_Seq._insert reads (path A's
+    count over 512 keys; path B's count and next_win over YSB's 100
+    campaigns, alone and as the one grouped read path B makes), one lane in
+    64 moved out of range; q5's reads at 2^14 on its own traffic (the
+    batch's keys into an [8]-row table, the sorted keys into two, the
+    fragments' keys into nine: the grouped reads of its apply) and the
+    tiered phases' hot directories (9 and 32 slots, untimed); and, untimed,
+    tables of 24 and 48 KB read by 2^20 random lanes, which no main path
+    reads (an earlier design staged them in shared memory)."""
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261017)
     C = BATCH
-    rows = {}
     b, window = ysb_traffic(torch, ysb, 3 * BATCH)
     K = window.num_keys
-
-    # K2 lookup
-    def k2(case, idx, table):
-        Kt = table.shape[0]
-        safe = idx.clamp(0, Kt - 1)
-        return check_kernel(
-            torch, "lookup", case,
-            lambda: L.lookup_cuda(table, idx), lambda: L.lookup_plain(table, idx),
-            lambda: table.index_select(0, safe),
-            C * 8 + Kt * 4, {"C": C, "K": Kt, "dtype": "int32"})
     campaigns = ysb.campaign_table(dev)
     Kc = campaigns.shape[0]
-    src = ysb.make_source(4 * BATCH)
-    rows["lookup"] = k2("ysb", src.make_batch(3 * BATCH, BATCH).payload["ad_id"],
-                        campaigns)
-    k2("out_of_range", torch.randint(-100, Kc + 100, (C,), device=dev, generator=gen,
-                                     dtype=torch.int32), campaigns)
+    ad_id = ysb.make_source(4 * BATCH).make_batch(3 * BATCH, BATCH).payload["ad_id"]
 
     def stray(keys, Sn):
         """``keys`` with one lane in 64 moved out of ``[0, Sn)``."""
-        off = torch.randint(1, 101, (C,), device=dev, generator=gen, dtype=torch.int32)
-        far = torch.where(torch.rand((C,), device=dev, generator=gen) < 0.5,
+        n = keys.shape[0]
+        off = torch.randint(1, 101, (n,), device=dev, generator=gen, dtype=torch.int32)
+        far = torch.where(torch.rand((n,), device=dev, generator=gen) < 0.5,
                           -off, Sn - 1 + off)
-        return torch.where(torch.rand((C,), device=dev, generator=gen) < 1 / 64,
-                           far, keys).contiguous()
+        return torch.where(torch.rand((n,), device=dev, generator=gen) < 1 / 64,
+                           far, keys).to(torch.int32).contiguous()
 
     def ctrl_table(n, hi):
         return torch.randint(0, hi, (n,), device=dev, generator=gen, dtype=torch.int32)
-    # the window paths' Win_Seq._insert reads: path A's per-key count over its
-    # 512 keys (key = i % 512), path B's count and next_win over YSB's 100
-    # campaigns (the window input's keys)
+
+    def q5_table(n):
+        return torch.randint(-2 ** 31, 2 ** 31, (n,), device=dev, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
     a_keys = stray((torch.arange(C, device=dev) % WIN_KEYS).to(torch.int32), WIN_KEYS)
     b_keys = stray(b.key, K)
-    k2("path_a_count", a_keys, ctrl_table(WIN_KEYS, 2 ** 31 - 1))
-    k2("path_b_count", b_keys, ctrl_table(K, 2 ** 31 - 1))
-    k2("path_b_next_win", b_keys, ctrl_table(K, 1 << 20))
+    count, next_win = ctrl_table(K, 2 ** 31 - 1), ctrl_table(K, 1 << 20)
+    q5, K5, _, sk, _, fkey = q5_traffic(torch)
+    key5 = q5.key.contiguous()
+    tq, tr = TIERED_QUERIES["q5_session"], TIERED_ROTATING["q5_session"]
+    return [
+        ("ysb", [campaigns], ad_id, True),
+        ("out_of_range", [campaigns], torch.randint(-100, Kc + 100, (C,), device=dev,
+                                                     generator=gen, dtype=torch.int32), True),
+        ("path_a_count", [ctrl_table(WIN_KEYS, 2 ** 31 - 1)], a_keys, True),
+        ("path_b_count", [count], b_keys, True),
+        ("path_b_next_win", [next_win], b_keys, True),
+        ("path_b_next_win_count", [next_win, count], b_keys, True),
+        (f"q5_table_K{K5}", [q5_table(K5)], key5, True),
+        ("q5_sorted_keys_open_last", [q5_table(K5) for _ in range(2)], sk, True),
+        ("q5_fragment_keys_9_tables", [q5_table(K5) for _ in range(9)], fkey, True),
+        (f"q5_table_K{tq}", [q5_table(tq)], key5, False),
+        (f"q5_table_K{tr}", [q5_table(tr)], key5, False),
+        ("table_24KB", [q5_table(6000)], torch.randint(-10, 6010, (C,), device=dev,
+                                                       generator=gen, dtype=torch.int32),
+         False),
+        ("table_48KB", [q5_table(12000)], torch.randint(-10, 12010, (C,), device=dev,
+                                                        generator=gen, dtype=torch.int32),
+         False),
+    ]
 
+
+def k2_call(L, tables, idx):
+    """The tree's K2 on ``tables`` read through ``idx``, as a tuple: one
+    launch of the grouped entry point for several tables, or, in a tree
+    without one, one launch a table (``--helper-times`` on an older tree)."""
+    if len(tables) == 1:
+        return (L.lookup_cuda(tables[0], idx),)
+    if hasattr(L, "lookup_many_cuda"):
+        return tuple(L.lookup_many_cuda(tables, idx))
+    return tuple(L.lookup_cuda(t, idx) for t in tables)
+
+
+def k2_check(torch, L, case, tables, idx, timed=True, extra=None):
+    """K2 (one launch: ``lookup_cuda``, or ``lookup_many_cuda`` for several
+    tables) against its plain version, bit for bit, eagerly and from a CUDA
+    graph replayed twice; the library call is one ``index_select`` a table
+    (on clamped indices). The bound counts the indices read once, each
+    table read once and each output written once."""
+    C = idx.shape[0]
+    safe = [idx.clamp(0, max(t.shape[0] - 1, 0)) for t in tables]
+    if len(tables) == 1:
+        kernel = lambda: L.lookup_cuda(tables[0], idx)  # noqa: E731
+        plain = lambda: L.lookup_plain(tables[0], idx)  # noqa: E731
+    else:
+        kernel = lambda: tuple(L.lookup_many_cuda(tables, idx))  # noqa: E731
+        plain = lambda: tuple(L.lookup_many_plain(tables, idx))  # noqa: E731
+    library = (None if any(t.shape[0] == 0 for t in tables) else
+               lambda: tuple(t.index_select(0, s) for t, s in zip(tables, safe)))
+    rep_same, rep_err = compare(torch, replayed(torch, kernel), plain())
+    nbytes = C * idx.element_size() + sum((C + t.shape[0]) * t.element_size()
+                                          for t in tables)
+    shape = {"C": C, "K": [t.shape[0] for t in tables],
+             "dtype": [str(t.dtype).replace("torch.", "") for t in tables]}
+    row = check_kernel(torch, "lookup", case, kernel, plain, library, nbytes, shape,
+                       counted="idx + tables + outputs",
+                       extra={"tables": len(tables), "replay_bit_identical": rep_same,
+                              **(extra or {})}, timed=timed)
+    if not rep_same:
+        raise AssertionError(f"lookup [{case}]: the replayed kernel differs from its plain "
+                             f"version (max abs err {rep_err})")
+    return row
+
+
+def k2_regime_checks(torch):
+    """K2 on what its design must get right beyond the main paths' shapes,
+    each bit for bit against the plain version eagerly and replayed, timed
+    alone: every element size (1, 2, 4, 8 bytes); a float table holding
+    -0.0 and NaN (-0.0 read as +0.0, a NaN's bits kept; timed in full) and
+    a one-row float table (-0.0 kept); an index view one element off
+    16-byte alignment and a lane count that is not a multiple of 4 (the
+    scalar path); nine tables of nine dtypes at q5's shape (the mixed-size
+    kernel); three tables of 24 KB in one group and a table of 80 KB; an
+    empty table in a group; 17 tables, which
+    ``lookup_many_cuda`` refuses and ``table_lookup_many`` splits into two
+    launches."""
+    from windflow_tpu_torch.ops import lookup as L, registry
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261023)
+    C = BATCH
+
+    def idx_for(K, n=C, spread=10):
+        return torch.randint(-spread, K + spread, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+
+    def table(K, dtype):
+        if dtype.is_floating_point:
+            t = torch.randn((K,), device=dev, generator=gen).to(dtype)
+            t[::3] = -0.0
+            return t
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, (K,), device=dev, generator=gen,
+                             dtype=torch.int64).to(dtype)
+    for dtype in (torch.uint8, torch.int16, torch.float16, torch.int32, torch.float64,
+                  torch.int64):
+        k2_check(torch, L, f"elem_{str(dtype).replace('torch.', '')}",
+                 [table(1000, dtype)], idx_for(1000), timed=False)
+    nz = torch.randn((1000,), device=dev, generator=gen)
+    nz[::3] = -0.0
+    nz[1::7] = float("nan")
+    idx = idx_for(1000)
+    k2_check(torch, L, "float_negative_zero", [nz], idx)
+    got = L.lookup_cuda(nz, idx)
+    if bool(torch.signbit(got[got == 0]).any()):
+        raise AssertionError("K2 returned -0.0 from a float table of 1000 rows")
+    one = torch.tensor([-0.0], device=dev)
+    idx = idx_for(1, spread=3)
+    k2_check(torch, L, "float_one_row", [one], idx, timed=False)
+    got = L.lookup_cuda(one, idx)
+    if not bool(torch.signbit(got[idx == 0]).all()):
+        raise AssertionError("K2 read -0.0 from a one-row float table as +0.0")
+    campaigns = table(1000, torch.int32)
+    base = idx_for(1000, C + 1)
+    k2_check(torch, L, "idx_offset_view", [campaigns], base[1:], timed=False,
+             extra={"idx_align": base[1:].data_ptr() % 16})
+    k2_check(torch, L, "ragged_C", [campaigns, table(1000, torch.int8)],
+             idx_for(1000, C - 3), timed=False)
+    _, K5, _, _, _, fkey = q5_traffic(torch)
+    k2_check(torch, L, "q5_fragment_keys_9_dtypes",
+             [table(K5, dt) for dt in (torch.int8, torch.uint8, torch.int16, torch.float16,
+                                       torch.bfloat16, torch.int32, torch.float32,
+                                       torch.int64, torch.float64)], fkey, timed=False)
+    k2_check(torch, L, "group_past_48KB", [table(6000, torch.int32) for _ in range(3)],
+             idx_for(6000), timed=False)
+    k2_check(torch, L, "table_80KB", [table(20000, torch.int32)], idx_for(20000),
+             timed=False)
+    k2_check(torch, L, "empty_table_in_group",
+             [torch.empty((0,), dtype=torch.int32, device=dev), table(8, torch.int32)],
+             idx_for(8), timed=False)
+    many = [table(k + 2, torch.int32) for k in range(17)]
+    idx = idx_for(20)
+    try:
+        L.lookup_many_cuda(many, idx)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("lookup_many_cuda took 17 tables")
+    with registry.collect() as launched:
+        got = L.table_lookup_many(many, idx)
+    torch.cuda.synchronize()
+    same, err = compare(torch, tuple(got), tuple(L.lookup_many_plain(many, idx)))
+    log({"kernel_check": "lookup", "case": "17_tables", "launches": launched,
+         "bit_identical": same, "max_abs_err": err})
+    if launched != {"lookup": 2} or not same:
+        raise AssertionError(f"table_lookup_many over 17 tables: launches {launched}, "
+                             f"bit identical {same}")
+
+
+def launch_floor_ms(torch, probes):
+    """An empty kernel's time, as ``check_kernel`` times a kernel (graph
+    replay): the least any launch costs."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda
+    fn = probes.wf_launch_floor
+    fn.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    return graph_ms(torch, lambda: cuda.check(fn(cuda.stream_ptr(dev)), "launch floor"))
+
+
+def lookup_split(torch, ysb, probes, card):
+    """Where K2's time goes at YSB's shape (C = 2^20 lanes, the 1000-row
+    int32 campaign table), by graph replay: in the earlier design's
+    geometry ("parent": a block a 2048 lanes, 512 blocks, a scalar 4-byte
+    index load and store a lane) and in the redesign's (two blocks a SM, 16-byte vectors
+    of four lanes, two in flight a thread), each as the staging alone
+    (every block copies the table into shared memory and waits on its
+    barrier, no lane), the lane stream alone through the L2-resident table
+    (no staging), and both (``PROBES_SRC``'s ``wf_k2_part``); then the
+    tree's C entry point into a preallocated output, its wrapper and the
+    launch floor (an empty kernel). Returns the row."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda, lookup as L
+
+    dev = torch.device("cuda")
+    table = ysb.campaign_table(dev)
+    K = table.shape[0]
+    idx = ysb.make_source(4 * BATCH).make_batch(3 * BATCH, BATCH).payload["ad_id"]
+    n = idx.shape[0]
+    want = L.lookup_plain(table, idx)
+    out = torch.empty_like(want)
+    part = probes.wf_k2_part
+    part.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    entry = cuda.function("lookup", "wf_table_lookup", L._ARGTYPES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def run_part(stage, lanes, blocks):
+        cuda.check(part(cuda.ptr(table), K, cuda.ptr(idx), cuda.ptr(out), n, stage, lanes,
+                        blocks, cuda.stream_ptr(dev)), "K2 part")
+    row = {"split": "lookup", "case": "ysb", "C": n, "K": K, "card": card, "sms": sms}
+    for design, blocks, lanes in (("parent", (n + 2047) // 2048, 1),
+                                  ("redesign", 2 * sms, 2)):
+        for stage in (0, 1):
+            out.zero_()
+            run_part(stage, lanes, blocks)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"split lookup: the {design} probe (stage={stage}) "
+                                     f"differs from the plain version")
+        row[design] = {
+            "blocks": blocks,
+            "staging_alone_ms": graph_ms(torch, lambda: run_part(1, 0, blocks)),
+            "lanes_through_l2_ms": graph_ms(torch, lambda: run_part(0, lanes, blocks)),
+            "staging_and_lanes_ms": graph_ms(torch, lambda: run_part(1, lanes, blocks))}
+    row["c_entry_ms"] = graph_ms(torch, lambda: cuda.check(entry(
+        cuda.ptr(table), cuda.ptr(idx), cuda.ptr(out), n, K, 4, 0, cuda.stream_ptr(dev)),
+        "K2 C entry"))
+    row["wrapper_ms"] = graph_ms(torch, lambda: L.lookup_cuda(table, idx))
+    row["launch_floor_ms"] = launch_floor_ms(torch, probes)
+    row["bytes_bound_ms"] = (n * 8 + K * 4) / HBM_BYTES_PER_S * 1e3
+    log(row)
+    return row
+
+
+def kernel_phase(torch, ysb, probes):
+    """K2 at the main paths' shapes (``k2_main_cases``) and in its regimes
+    (``k2_regime_checks``), then the launch floor. Returns K2's YSB row."""
+    from windflow_tpu_torch.ops import lookup as L
+
+    rows = {}
+    for case, tables, idx, timed in k2_main_cases(torch, ysb):
+        row = k2_check(torch, L, case, tables, idx, timed=timed)
+        if case == "ysb":
+            rows["lookup"] = row
+    k2_regime_checks(torch)
+    log({"kernel_check": "launch_floor", "ms": launch_floor_ms(torch, probes),
+         "counted": "an empty kernel of one thread, graph replay"})
     return rows
 
 
@@ -961,29 +1241,6 @@ def split_phase(torch, ysb, probes):
         log(row)
         rows.append(row)
     return rows
-
-
-def repair_checks(torch):
-    """K2's repair: on a float table with -0.0 entries it gives +0.0 back,
-    as the JAX forms give it. (The other repair, the fixed-order float fold,
-    is ``fold_checks``' "determinism" case.)"""
-    from windflow_tpu_torch.ops import lookup as L
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(20261018)
-    C = BATCH
-    table = torch.randn((1000,), device=dev, generator=gen)
-    table[::3] = -0.0
-    table[1::7] = float("nan")
-    idx = torch.randint(-10, 1010, (C,), device=dev, generator=gen, dtype=torch.int32)
-    check_kernel(
-        torch, "lookup", "float_negative_zero",
-        lambda: L.lookup_cuda(table, idx), lambda: L.lookup_plain(table, idx),
-        lambda: table.index_select(0, idx.clamp(0, 999)),
-        C * 8 + 4000, {"C": C, "K": 1000, "dtype": "float32"})
-    got = L.lookup_cuda(table, idx)
-    if bool(torch.signbit(got[got == 0]).any()):
-        raise AssertionError("K2 returned -0.0 from a float table of 1000 rows")
 
 
 KEYED_CB_P = 4096                   # bench_keyed_cb's pane ring at batch 2^20
@@ -1421,12 +1678,14 @@ NEX_ROWS = {
     "q7_distinct": ("id", "auction"),
 }
 
-#: q5's launches a SessionWindow apply: K2 reads its [8]-row tables 14 times
-#: (the key's floor, open flag and last end per lane; six carried fields, the
-#: fragment bounds and two session ordinals per fragment) and K3 folds five
-#: int32 segment sums (the fragments' counts, bids and spend at S = 2^14;
-#: the two close counts at S = 8); the flush launches nothing
-Q5_APPLY = {"lookup": 14, "segment_fold": 5}
+#: q5's launches a SessionWindow apply: K2 reads its [8]-row tables in 4
+#: launches, one an index (the key's floor by the batch's keys; the open
+#: flag and last end by the sorted keys; six carried fields, the session
+#: ordinal and the fragment bounds by the fragments' keys; the close counts
+#: n1), and K3 folds five int32 segment sums (the fragments' counts, bids
+#: and spend at S = 2^14; the two close counts at S = 8); the flush
+#: launches nothing
+Q5_APPLY = {"lookup": 4, "segment_fold": 5}
 
 #: exact launches per query in the Pipeline phase: K5 twice per StreamTableJoin
 #: or Distinct apply (the upsert's slot probe and the probe), K4 once per TopN
@@ -1536,44 +1795,24 @@ def nexmark_loop_phase(torch, wt, card, profile):
 
 
 def session_kernel_phase(torch):
-    """K2 and K3 at q5's shapes on q5's own traffic (a batch of 2^14 bids
-    keyed by bidder): K2 on an [8]-row int32 table read by every lane, K3
-    folding the lanes' prices by session fragment (S = 2^14, the fragment
-    ids of the (bidder, ts) sorted batch) and a 0/1 close flag by bidder
-    (S = 8); each bit for bit against its plain version, with its time,
-    bound and library call."""
-    from windflow_tpu_torch.nexmark import make_query
-    from windflow_tpu_torch.nexmark.queries import SESSION_GAP
-    from windflow_tpu_torch.ops import lookup as L, segment as S
+    """K3 at q5's shapes on q5's own traffic (a batch of 2^14 bids keyed by
+    bidder): folding the lanes' prices by session fragment (S = 2^14, the
+    fragment ids of the (bidder, ts) sorted batch) and a 0/1 close flag by
+    bidder (S = 8; 9 and 32, the tiered phases' hot directories, untimed);
+    each bit for bit against its plain version, with its time, bound and
+    library call. (K2 at q5's shapes: ``k2_main_cases``.)"""
+    from windflow_tpu_torch.ops import segment as S
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261017)
     C = NEX_BATCH
-    src, ops = make_query("q5_session", 4 * C)
-    _, b = ops[0].apply(None, src.make_batch(3 * C, C))
-    K = ops[1].num_keys
-    perm = L._lexsort([b.id, b.ts, b.key])
-    sk, sts = b.key[perm], b.ts[perm]
-    first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), sk[1:] != sk[:-1]])
-    brk = ~first & (sts - torch.cat([sts[:1], sts[:-1]]) > SESSION_GAP)
-    seg = torch.clamp(torch.cumsum((first | brk).to(torch.int32), 0, dtype=torch.int32) - 1,
-                      min=0)
+    b, K, perm, _, seg, _ = q5_traffic(torch)
     price = b.payload["price"][perm].contiguous()
     valid = torch.ones((C,), dtype=torch.bool, device=dev)
     flag = (torch.rand((C,), device=dev, generator=gen) < 0.3).to(torch.int32)
     key = b.key.contiguous()
-    # the untiered tables (K = 8 bidders) and the tiered phases' hot
-    # directories (tiered_queries: 9 slots; 32 in the rotating case)
     cases = [("q5_fragment_spend", price, seg, C)]
     for Kt in (K, TIERED_QUERIES["q5_session"], TIERED_ROTATING["q5_session"]):
-        table = torch.randint(-2 ** 31, 2 ** 31, (Kt,), device=dev, generator=gen,
-                              dtype=torch.int64).to(torch.int32)
-        check_kernel(torch, "lookup", f"q5_table_K{Kt}",
-                     lambda t=table: L.lookup_cuda(t, key),
-                     lambda t=table: L.lookup_plain(t, key),
-                     lambda t=table, n=Kt: t.index_select(0, key.clamp(0, n - 1)),
-                     C * 8 + Kt * 4, {"C": C, "K": Kt, "dtype": "int32"},
-                     timed=Kt == K)
         cases.append(("q5_closes_by_bidder", flag, key, Kt))
     for case, vals, ids, Sn in cases:
         idx = ids.long()
@@ -2308,9 +2547,10 @@ def path_a_op(wt):
 
 
 #: exact launches of one apply on each window path (the flush launches K6 once
-#: per call and nothing else)
+#: per call and nothing else); path B's K2: YSB's campaign join, and its TB
+#: Win_Seq's next_win and count read in one launch
 PATH_A_APPLY = {"lookup": 1, "segment_fold": 1, "masked_window_reduce": 1}
-PATH_B_APPLY = {"lookup": 3, "segment_fold": 1, "masked_window_reduce": 1}
+PATH_B_APPLY = {"lookup": 2, "segment_fold": 1, "masked_window_reduce": 1}
 
 
 def window_loop(torch, registry, name, make, per_apply, card, profile, check,
@@ -4683,6 +4923,7 @@ def tiered_rotating_phase(torch, np, wt, registry, card):
 #: (kernel, module, wrapper, plain)
 TIERED_WRAPPERS = (("join_probe", "lookup", "join_probe_cuda", "join_probe_plain"),
                    ("lookup", "lookup", "lookup_cuda", "lookup_plain"),
+                   ("lookup", "lookup", "lookup_many_cuda", "lookup_many_plain"),
                    ("segment_fold", "segment", "segment_fold_cuda", "segment_fold_plain"),
                    ("ordering_merge", "bitonic", "network_cuda", "network_plain"))
 KEPT_CALLS = 4            # the last calls kept a distinct argument signature
@@ -4701,10 +4942,17 @@ def tiered_inputs_phase(torch, np, wt, card):
     from windflow_tpu_torch.nexmark import make_query
 
     def sig_of(x):
+        if isinstance(x, (list, tuple)):            # a grouped K2's tables
+            return tuple(sig_of(t) for t in x)
         return (tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor) else x
 
     def clone(x):
+        if isinstance(x, (list, tuple)):
+            return [clone(t) for t in x]
         return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def results(out):
+        return tuple(out) if isinstance(out, list) else out
 
     def capture(run):
         kept, saved = {}, []
@@ -4745,7 +4993,8 @@ def tiered_inputs_phase(torch, np, wt, card):
         for sig, (kernel, plain, calls) in capture(run).items():
             same, err = True, 0.0
             for args, kw in calls:
-                ok, e = compare(torch, kernel(*args, **kw), plain(*args, **kw))
+                ok, e = compare(torch, results(kernel(*args, **kw)),
+                                results(plain(*args, **kw)))
                 same, err = same and ok, max(err, e)
             checked += len(calls)
             rows.append({"kernel": sig[0], "signature": repr(sig[1:]), "calls": len(calls),
@@ -5319,9 +5568,12 @@ HELPER_PROBE_ROWS = 1 << 18   # helper_times' probe store: its keys
 Q3_STORE_KEYS = 100 * NEX_BATCH  # tiered q3's store at 2^14: its keys
 
 
-def helper_times(torch, np, card):
-    """The helper kernels timed alone on their check inputs, nothing
-    checked: the float fold on every ``fold_cases`` input, ``cold_fetch`` on
+def helper_times(torch, np, ysb, card, lookup_only=False):
+    """K2 and the helper kernels timed alone on their check inputs, nothing
+    checked: K2 on every ``k2_main_cases`` input (a group of tables in one
+    launch where the tree has ``lookup_many_cuda``, one launch a table
+    where it has not; ``lookup_only`` stops there); the float fold on every
+    ``fold_cases`` input, ``cold_fetch`` on
     every ``fetch_cases`` input and ``cold_probe`` at R = 49,152 over a
     store of 2^18 keys (two columns) and over a store shaped as tiered q3's
     at 2^14 (1,638,400 keys upserted in a seeded order, one int32 column;
@@ -5329,7 +5581,14 @@ def helper_times(torch, np, card):
     only the wrappers and the store's public methods (and ``index_of``), so
     the script copied into an older tree times that tree's designs on the
     same inputs (``--helper-times``)."""
-    from windflow_tpu_torch.ops import segment as S
+    from windflow_tpu_torch.ops import lookup as L, segment as S
+
+    for case, tables, idx, _ in k2_main_cases(torch, ysb):
+        log({"helper_times": "lookup", "case": case, "card": card,
+             "grouped": len(tables) > 1 and hasattr(L, "lookup_many_cuda"),
+             "tables": len(tables), "ms": graph_ms(torch, lambda: k2_call(L, tables, idx))})
+    if lookup_only:
+        return
     from windflow_tpu_torch.ops.cold_probe import cold_fetch_cuda, cold_probe_cuda
     from windflow_tpu_torch.state import HostStore
 
@@ -5753,6 +6012,7 @@ CTL_DIR = os.path.join(ROOT, "build", "control")
 CTL_Q3_EVERY = 2          # control: supervised q3's checkpoint interval
 CTL_OVERLOAD_BATCHES = 50  # control: the overload run's batches of 32 tuples
 CTL_OVERLOAD_SLEEP_S = 0.004  # and its sink's sleep a batch
+CTL_OVERLOAD_REFILL = 24.0  # and the tuples its positional bucket adds an offer
 
 
 def control_ysb_runs(torch, np, wt, ysb, registry, card):
@@ -6032,23 +6292,33 @@ def control_governor_checks(torch, np, wt, registry, card, gw_rows):
     from windflow_tpu_torch.ops import bitonic as B
 
     C.reset()
-    # admitted faster than the sink drains (32 tuples / 4 ms), slower than the
-    # source makes them: the governor throttles and the bucket sheds
+    # the positional bucket (24 tuples an offer, 2 batches of burst) admits 3
+    # offers of 4, faster than the sink drains (32 tuples / 4 ms): the governor
+    # throttles, and the bucket sheds the offers its schedule names, however
+    # the source's bursts fall against the sink's pops (a wall-clock bucket
+    # refills while the throttled source waits, so its sheds were a race)
     on = C.ControlConfig(autotune=False, backpressure=True, high_watermark=0.5,
-                         low_watermark=0.25, admission=True, rate_tps=20000.0,
-                         burst_tuples=64.0)
+                         low_watermark=0.25, admission=True,
+                         refill_per_batch=CTL_OVERLOAD_REFILL, burst_tuples=64.0)
     got_on, depth_on, tp = overload_run(torch, wt, on)
     c_on = C.counters()
+    tokens, want_shed = 64.0, 0
+    for _ in range(CTL_OVERLOAD_BATCHES):
+        tokens = min(64.0, tokens + CTL_OVERLOAD_REFILL)
+        if tokens >= 32.0:
+            tokens -= 32.0
+        else:
+            want_shed += 1
     C.reset()
     got_off, depth_off, _ = overload_run(torch, wt, False)
     c_off = C.counters()
     log({"phase": "control_overload", "card": card, "batches": CTL_OVERLOAD_BATCHES,
          "queue_capacity": 8, "high": 4, "delivered_on": got_on, "max_depth_on": depth_on,
          "delivered_off": got_off, "max_depth_off": depth_off,
-         "shed_batches": c_on["shed_batches"], "throttle_events": c_on["throttle_events"],
-         "throttle_s": c_on["throttle_seconds"]})
-    if (depth_on > 5 or c_on["shed_batches"] <= 0 or c_on["throttle_events"] <= 0
-            or got_on >= CTL_OVERLOAD_BATCHES):
+         "shed_batches": c_on["shed_batches"], "want_shed": want_shed,
+         "throttle_events": c_on["throttle_events"], "throttle_s": c_on["throttle_seconds"]})
+    if (depth_on > 5 or c_on["shed_batches"] != want_shed or want_shed <= 0
+            or c_on["throttle_events"] <= 0 or got_on != CTL_OVERLOAD_BATCHES - want_shed):
         raise AssertionError(f"control_overload: depth {depth_on}, counters {c_on}")
     if depth_off < 8 or got_off != CTL_OVERLOAD_BATCHES or any(c_off.values()):
         raise AssertionError(f"control_overload off: depth {depth_off}, {got_off} delivered")
@@ -7216,6 +7486,20 @@ def chaos_phase(torch, registry, card):
     return total
 
 
+def profiler_on_main_thread(torch):
+    """Open and close one short torch.profiler session with CUDA activity on
+    this (the main) thread. Kineto initialises its CUPTI client on the
+    thread of the first session and refuses a first session opened from
+    another thread ("External init callback must run in same thread as
+    registerClient"): that session then traces no CUDA kernel, or the
+    process crashes later (F27). The serving phase's profile-on-page and
+    ``profile_capture_check`` open theirs from worker threads."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones((1,), device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
 def profile_capture_check(torch, card):
     """``wf_profile --capture`` (its ``main``, in a thread of this process, so
     its torch.profiler session sees this process's kernels) over a running
@@ -7389,15 +7673,18 @@ def main() -> int:
                     help="add torch.profiler breakdowns of five steps of every loop, "
                          "captured and eager")
     ap.add_argument("--split-only", action="store_true",
-                    help="build, run the split of K1's and K3's time and stop, printing "
-                         "no result line (also on an older tree, see split_phase)")
-    ap.add_argument("--helper-times", action="store_true",
-                    help="build, time the helper kernels on their check inputs and stop, "
-                         "printing no result line (also on an older tree, see "
-                         "helper_times)")
-    ap.add_argument("--only", action="append", choices=("sweep", "chaos"),
-                    help="build, run only the named late phase (repeatable) and stop, "
-                         "printing no result line")
+                    help="build, run the split of K1's, K2's and K3's time and stop, "
+                         "printing no result line (also on an older tree, see split_phase)")
+    ap.add_argument("--helper-times", nargs="?", const="all", choices=("all", "lookup"),
+                    help="build, time K2 (and, unless 'lookup', the helper kernels) on "
+                         "their check inputs and stop, printing no result line (also on "
+                         "an older tree, see helper_times)")
+    ap.add_argument("--only", action="append",
+                    choices=("lookup", "nexmark_loop", "path_b", "sweep", "chaos"),
+                    help="build, run only the named phase (repeatable: K2's split and "
+                         "checks, the Nexmark loops, path B, the sweep, the chaos sweep) "
+                         "and stop, printing no result line (nexmark_loop and path_b "
+                         "also on an older tree)")
     args = ap.parse_args()
 
     import numpy as np
@@ -7409,7 +7696,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import windflow_tpu_torch as wt
     from windflow_tpu_torch.benchmarks import ysb
-    from windflow_tpu_torch.ops import cuda, registry
+    from windflow_tpu_torch.ops import cuda, lookup, registry
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7431,23 +7718,34 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{stem}]: {line.strip()}")
 
+    profiler_on_main_thread(torch)
+    if not hasattr(lookup, "table_lookup_many"):
+        # an older tree (``--only``, ``--helper-times``): a K2 launch a table read
+        Q5_APPLY["lookup"], PATH_B_APPLY["lookup"] = 14, 3
     if args.helper_times:
-        helper_times(torch, np, card)
+        helper_times(torch, np, ysb, card, lookup_only=args.helper_times == "lookup")
         return 0
     if args.only:
+        if "lookup" in args.only:
+            lookup_split(torch, ysb, probes, card)
+            kernel_phase(torch, ysb, probes)
+        if "nexmark_loop" in args.only:
+            nexmark_loop_phase(torch, wt, card, args.profile)
+        if "path_b" in args.only:
+            path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
         if "sweep" in args.only:
             sweep_phase(torch, np, registry, card)
         if "chaos" in args.only:
             chaos_phase(torch, registry, card)
         return 0
     split_phase(torch, ysb, probes)
+    lookup_split(torch, ysb, probes, card)
     if args.split_only:
         return 0
-    rows = kernel_phase(torch, ysb)
+    rows = kernel_phase(torch, ysb, probes)
     rows.update(partials_kernel_phase(torch, ysb))
     rows.update(nexmark_kernel_phase(torch))
     session_kernel_phase(torch)
-    repair_checks(torch)
     main_launches, ysb_parts = ysb_pipeline_phase(torch, np, wt, ysb, registry)
     ysb_ref = flat_bytes(np, ysb_parts)
     pg_launches = pipegraph_ysb_phase(torch, np, wt, ysb, registry, ysb_parts,

@@ -530,10 +530,12 @@ def test_q4_two_sources_join_with_matches_pipeline(threaded):
 
 
 def test_kernel_paths_of_q4_and_q5(monkeypatch):
-    """On the card q5's SessionWindow apply launches K2 14 times (its [8]-row
-    tables) and K3 5 times (three fragment sums at S = C, two close counts at
-    S = K), its flush nothing, and q4's IntervalJoin no kernel: counted here
-    at the plain versions those wrappers stand for on the CPU."""
+    """On the card q5's SessionWindow apply reads its [8]-row tables 13 times
+    through K2 (in four grouped launches, counted in
+    ``test_torch_lookup_many.py``) and launches K3 5 times (three fragment
+    sums at S = C, two close counts at S = K), its flush nothing, and q4's
+    IntervalJoin no kernel: counted here at the plain versions those
+    wrappers stand for on the CPU, one a table read."""
     from windflow_tpu_torch.ops import lookup as L, segment as S
     calls = []
     plain_l, plain_s = L.lookup_plain, S.segment_fold_plain
@@ -541,7 +543,7 @@ def test_kernel_paths_of_q4_and_q5(monkeypatch):
                         lambda t, i: calls.append(("K2", t.shape[0])) or plain_l(t, i))
     monkeypatch.setattr(S, "segment_fold_plain",
                         lambda v, s, m, n: calls.append(("K3", n)) or plain_s(v, s, m, n))
-    for name, C, per_apply in (("q5_session", 64, [("K2", 8)] * 14 + [("K3", 64)] * 3
+    for name, C, per_apply in (("q5_session", 64, [("K2", 8)] * 13 + [("K3", 64)] * 3
                                 + [("K3", 8)] * 2),
                                ("q4_interval_join", 64, [])):
         src, ops = tmake(name, 4 * C, **CPU)

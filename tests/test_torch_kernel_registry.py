@@ -318,6 +318,30 @@ def test_entry_points_record_the_jax_spec_keys():
     assert all(k[2] == "cpu:cpu" for k in port)
 
 
+def test_lookup_many_records_each_tables_spec_key():
+    """``table_lookup_many`` resolves each table under the spec key the JAX
+    package's ``table_lookup`` records for it, 2-D and ``take`` tables
+    included: the trace records equal the JAX package's over the same
+    tables, read one by one there (eagerly, as ``traced=False`` routes)."""
+    rng = np.random.default_rng(9)
+    tables = [np.arange(8, dtype=np.int32), rng.normal(size=1000).astype(np.float32),
+              rng.integers(0, 9, 3000).astype(np.int16),
+              rng.normal(size=3000).astype(np.float32),
+              np.arange(24, dtype=np.int32).reshape(8, 3)]
+    idx = rng.integers(-5, 3005, 512).astype(np.int32)
+    from windflow_tpu_torch.ops.lookup import table_lookup_many
+    got = table_lookup_many([torch.from_numpy(t) for t in tables], torch.from_numpy(idx),
+                            traced=False)
+    for t, g in zip(tables, got):
+        want = np.asarray(jlookup(jnp.asarray(t), jnp.asarray(idx)))
+        np.testing.assert_array_equal(g.numpy(), want)
+    port = _records(registry.REGISTRY, {})
+    assert port == _records(jregistry.REGISTRY, {"xla": "torch"})
+    assert sorted(k[1] for k in port) == sorted(
+        {f"C512xK{t.shape[0]}:{t.dtype}" for t in tables})
+    assert {k[0] for k in port} == {"lookup"}
+
+
 def test_forced_impl_gives_the_same_results_and_no_launch(monkeypatch):
     """Under ``WF_KERNEL_IMPL=torch`` (and the aliases) the entry points give
     the default's results on the CPU and launch no kernel."""

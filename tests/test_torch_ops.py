@@ -8,7 +8,8 @@ CUDA kernel. All values are integers, so every comparison is exact.
 - K1 ``keyed_pane_histogram`` (Pallas ``_pallas_fast``);
 - K2 ``table_lookup`` (Pallas ``_pallas_factored_lookup``), with the ``take``
   branch for large or non-f32-exact tables, and the chain route
-  (``traced=True``) against ``jax.jit(table_lookup)``;
+  (``traced=True``) against ``jax.jit(table_lookup)``; its grouped read
+  ``table_lookup_many`` table by table against the Pallas kernel;
 - K3 ``segment_fold`` (Pallas ``_pallas_segment_fold``), wrapping int32 sums;
 - the fixed-order float fold (``segment_reduce`` of floats: XLA's
   ``segment_sum`` in the JAX package, ``index_add_`` on the port's CPU path),
@@ -183,6 +184,27 @@ def test_lookup_keeps_table_dtype():
         want = np.asarray(jl.table_lookup(jnp.asarray(table), jnp.asarray(idx)))
         assert got.dtype == want.dtype == dt
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("K", [200, 1000, 4096])
+def test_lookup_many_matches_jax_pallas(K):
+    """The grouped read (``table_lookup_many``, one K2 launch on the card)
+    of int32, int16 and uint8 tables through one index, read as eager JAX
+    reads concrete tables (``traced=False``: the int32 table's values are
+    f32-exact): each output equals the JAX package's Pallas kernel
+    (interpret mode) on its table."""
+    rng = np.random.default_rng(K + 1)
+    C = 8192
+    tables = [rng.integers(-(1 << 20), 1 << 20, K).astype(np.int32),
+              rng.integers(-(1 << 15), 1 << 15, K).astype(np.int16),
+              rng.integers(0, 256, K).astype(np.uint8)]
+    idx = rng.integers(-50, K + 50, C).astype(np.int32)
+    got = tl.table_lookup_many([_t(t) for t in tables], _t(idx), traced=False)
+    for t, g in zip(tables, got):
+        want = np.asarray(jl._pallas_factored_lookup(jnp.asarray(t), jnp.asarray(idx),
+                                                     interpret=True))
+        assert g.numpy().dtype == want.dtype == t.dtype
+        np.testing.assert_array_equal(g.numpy(), want)
 
 
 def test_lookup_empty_table_gives_zeros():

@@ -1,7 +1,8 @@
-// Measurement probes for chip_smoke.py's split of K1's and K3's time, and
-// for the host link's read rate, the bound of the cold-tier reads
-// (ops/csrc/cold_probe.cu). No TPU kernel, and no path of the port launches
-// them: chip_smoke.py builds this file on its own and loads it with ctypes.
+// Measurement probes for chip_smoke.py's split of K1's, K2's and K3's time,
+// for the launch floor (an empty kernel), and for the host link's read rate,
+// the bound of the cold-tier reads (ops/csrc/cold_probe.cu). No TPU kernel,
+// and no path of the port launches them: chip_smoke.py builds this file on
+// its own and loads it with ctypes.
 // It includes nothing of ops/csrc, so the same file also splits an older
 // tree's kernels.
 //
@@ -141,4 +142,76 @@ WF_EXPORT int wf_probe_host_alloc(long long bytes, void** host, void** dev) {
 
 WF_EXPORT int wf_probe_host_free(void* host) {
     return (int)cudaFreeHost(host);
+}
+
+// The launch floor: a kernel of one thread that does nothing.
+__global__ void wf_empty_kernel() {}
+
+WF_EXPORT int wf_launch_floor(void* stream) {
+    wf_empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
+// K2's parts, on an int32 table of K rows and n lanes (out[i] = table[idx[i]],
+// 0 outside [0, K)), in `blocks` blocks of 256 threads:
+//   STAGE: each block copies the table into shared memory, then waits on a
+//          barrier; without it, lanes read the table through L2 (__ldg);
+//   LANES: 0 no lane (the staging alone), 1 a scalar 4-byte index load and
+//          store a lane (K2's parent design), 2 16-byte vectors of four lanes,
+//          two in flight a thread (its redesign; n a multiple of 4, pointers
+//          16-byte aligned).
+template <bool STAGE, int LANES>
+__global__ void __launch_bounds__(WF_SPLIT_THREADS)
+wf_k2_part_kernel(const int* __restrict__ table, int K, const int* __restrict__ idx,
+                  int* __restrict__ out, long long n) {
+    extern __shared__ __align__(16) int wf_k2_staged[];
+    if constexpr (STAGE) {
+        for (int j = threadIdx.x; j < K; j += blockDim.x) wf_k2_staged[j] = __ldg(table + j);
+        __syncthreads();
+    }
+    auto get = [&](int j) -> int {
+        if ((unsigned)j >= (unsigned)K) return 0;
+        if constexpr (STAGE) return wf_k2_staged[j];
+        else return __ldg(table + j);
+    };
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if constexpr (LANES == 0) {
+        if (get(threadIdx.x % K) == (int)0x9e3779b9) out[blockIdx.x] = 1;
+    } else if constexpr (LANES == 1) {
+        for (long long i = tid; i < n; i += stride) out[i] = get(__ldg(idx + i));
+    } else {
+        const long long nv = n / 4;
+        const int4* idx4 = reinterpret_cast<const int4*>(idx);
+        int4* out4 = reinterpret_cast<int4*>(out);
+        for (long long v = tid; v < nv; v += 2 * stride) {
+            const int4 a = __ldg(idx4 + v);
+            const bool more = v + stride < nv;
+            const int4 b = more ? __ldg(idx4 + v + stride) : a;
+            out4[v] = make_int4(get(a.x), get(a.y), get(a.z), get(a.w));
+            if (more) out4[v + stride] = make_int4(get(b.x), get(b.y), get(b.z), get(b.w));
+        }
+    }
+}
+
+WF_EXPORT int wf_k2_part(const int* table, int K, const int* idx, int* out, long long n,
+                         int stage, int lanes, int blocks, void* stream) {
+    if (K < 1 || K * 4 > 48 * 1024 || blocks < 1 || lanes < 0 || lanes > 2 ||
+        (lanes == 2 && (n % 4 || (uintptr_t)idx % 16 || (uintptr_t)out % 16)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t smem = stage ? (size_t)K * 4 : 0;
+#define WF_K2_PART(S, L) \
+    wf_k2_part_kernel<S, L><<<blocks, WF_SPLIT_THREADS, smem, st>>>(table, K, idx, out, n)
+    if (stage) {
+        if (lanes == 0) WF_K2_PART(true, 0);
+        else if (lanes == 1) WF_K2_PART(true, 1);
+        else WF_K2_PART(true, 2);
+    } else {
+        if (lanes == 0) WF_K2_PART(false, 0);
+        else if (lanes == 1) WF_K2_PART(false, 1);
+        else WF_K2_PART(false, 2);
+    }
+#undef WF_K2_PART
+    return (int)cudaGetLastError();
 }

@@ -23,7 +23,10 @@ Arrival is assumed event-time ordered per key; an intra-key straggler whose
 session already closed is OLD, dropped and counted (``state["old"]``).
 Output rows carry ``(key, session ordinal, end ts)`` and the payload
 ``{"agg", "start", "end", "n"}``. Every table read is ``table_lookup(...,
-traced=True)`` (kernel K2 on the card) and nothing in ``apply`` reads a
+traced=True)`` (kernel K2 on the card), the tables read through one index
+together (``table_lookup_many``: four K2 launches an apply, by the batch's
+keys, the sorted keys, the fragments' keys and the fragments' close
+counts), and nothing in ``apply`` reads a
 device value on the host, so a step captures into a CUDA graph. ``flush``
 reads ``eos`` on the host and stays eager, as every flush does.
 
@@ -50,9 +53,10 @@ import torch
 
 from ..control import _state as _control
 from ..basic import DEFAULT_MAX_KEYS, routing_modes_t
-from ..batch import Batch, abstract_spec, map_tuples, tree_map
+from ..batch import Batch, abstract_spec, map_tuples, tree_leaves, tree_map
 from ..observability import event_time as _et
-from ..ops.lookup import _isum, _lexsort, _set_drop, count_drops, table_lookup
+from ..ops.lookup import (_isum, _lexsort, _set_drop, count_drops, table_lookup,
+                          table_lookup_many)
 from ..ops.segment import segment_reduce
 from ..state.tiered import (SlotTableTier, TierConfig, slot_directory_evict,
                             slot_directory_init, slot_directory_resolve,
@@ -67,6 +71,11 @@ _IMAX = (1 << 31) - 1
 
 def _lookup(table, idx):
     return table_lookup(table, idx, traced=True)
+
+
+def _lookup_many(tables, idx):
+    """The tables read through one index: one K2 launch on the card."""
+    return table_lookup_many(tables, idx, traced=True)
 
 
 class SessionWindow(Basic_Operator):
@@ -225,8 +234,9 @@ class SessionWindow(Basic_Operator):
         first = sv & torch.cat([one, skeys[1:] != skeys[:-1]])
         prev_ts = torch.cat([torch.zeros((1,), dtype=sts.dtype, device=dev), sts[:-1]])
         brk = sv & ~first & (sts - prev_ts > gap)
-        open_k = _lookup(state["open"].to(_I32), sk) > 0
-        last_k = _lookup(state["last"], sk)
+        open_i = state["open"].to(_I32)
+        open_k, last_k = _lookup_many((open_i, state["last"]), sk)
+        open_k = open_k > 0
         cont = first & open_k & (sts - last_k <= gap)
         # dense fragment ids + per-fragment aggregates (event-time order)
         seg = torch.clamp(torch.cumsum((first | brk).to(_I32), 0, dtype=_I32) - 1, min=0)
@@ -242,31 +252,35 @@ class SessionWindow(Basic_Operator):
         ffirst = red(first.to(_I32), torch.maximum, 0) > 0
         fcont = red(cont.to(_I32), torch.maximum, 0) > 0
         fvalid = fcnt > 0
-        # carried open-session fields, per fragment key
-        c_start = _lookup(state["start"], fkey)
-        c_last = _lookup(state["last"], fkey)
-        c_cnt = _lookup(state["cnt"], fkey)
-        c_acc = tree_map(lambda t: _lookup(t, fkey), state["acc"])
-        c_open = _lookup(state["open"].to(_I32), fkey) > 0
+        # fragment topology per key
+        minseg = segment_reduce(seg, sk, sv, K, combine=torch.minimum, identity=_IMAX)
+        maxseg = segment_reduce(seg, sk, sv, K, combine=torch.maximum, identity=-1)
+        # per fragment key, in one read: the carried open-session fields, the
+        # session ordinal and the key's first and last fragment
+        acc_leaves = tree_leaves(state["acc"])
+        got = _lookup_many([state["start"], state["last"], state["cnt"], *acc_leaves,
+                            open_i, state["sid"], minseg, maxseg], fkey)
+        c_start, c_last, c_cnt = got[:3]
+        got_acc = iter(got[3:3 + len(acc_leaves)])
+        c_acc = tree_map(lambda _: next(got_acc), state["acc"])
+        c_open, c_sid, f_minseg, f_maxseg = got[3 + len(acc_leaves):]
+        c_open = c_open > 0
         m_start = torch.where(fcont, torch.minimum(c_start, fmin), fmin)
         m_last = torch.where(fcont, torch.maximum(c_last, fmax), fmax)
         m_cnt = torch.where(fcont, c_cnt + fcnt, fcnt)
         m_acc = tree_map(
             lambda f, m: torch.where(fcont.reshape(fcont.shape + (1,) * (f.ndim - 1)), m, f),
             facc, self._fold(c_acc, facc))
-        # fragment topology per key
-        minseg = segment_reduce(seg, sk, sv, K, combine=torch.minimum, identity=_IMAX)
-        maxseg = segment_reduce(seg, sk, sv, K, combine=torch.maximum, identity=-1)
-        frag_rank = iota - _lookup(minseg, fkey)
-        flast = fvalid & (iota == _lookup(maxseg, fkey))
+        frag_rank = iota - f_minseg
+        flast = fvalid & (iota == f_maxseg)
         # group 1: carried sessions closed by in-batch evidence (the key's
         # first fragment does NOT chain into the open session)
         g1 = fvalid & ffirst & ~fcont & c_open
-        g1_id = _lookup(state["sid"], fkey)
+        g1_id = c_sid
         # group 2: every non-final fragment is a closed session
         g2 = fvalid & ~flast
         n1 = segment_reduce(g1.to(_I32), fkey, fvalid, K)
-        g2_id = _lookup(state["sid"], fkey) + _lookup(n1, fkey) + frag_rank
+        g2_id = c_sid + _lookup(n1, fkey) + frag_rank
         nclosed = segment_reduce(g2.to(_I32), fkey, fvalid, K)
         sid2 = state["sid"] + n1 + nclosed
         # floor: newest closed end per key

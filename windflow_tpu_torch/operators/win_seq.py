@@ -6,7 +6,9 @@ live on the device as ring buffers ``[K, A]``; each micro-batch
 
 1. scatters its tuples into the rings (:meth:`Win_Seq._insert`): arrival
    positions from the per-key count (``ops/lookup.py::table_lookup``, kernel
-   K2) plus each lane's rank among its key's lanes, the counts added through
+   K2; a TB window reads it with the purge horizon's ``next_win`` in one
+   launch, ``table_lookup_many``) plus each lane's rank among its key's
+   lanes, the counts added through
    ``segment_reduce`` (kernel K3) and the watermark through its max combine;
 2. computes the FIRED window range per key with the batch-level triggerers of
    ``window.py`` and gathers up to ``W`` fired windows as rows ``[W, L]``
@@ -51,7 +53,7 @@ from ..batch import Batch, CTRL_DTYPE, TupleRef, abstract_spec, tree_map
 from ..context import RuntimeContext
 from ..meta import (RICH_PARAM_NAMES, classify_window, classify_window_flavour,
                     classify_winupdate)
-from ..ops.lookup import table_lookup
+from ..ops.lookup import table_lookup, table_lookup_many
 from ..ops.segment import _bmask, segment_rank, segment_reduce
 from .base import Basic_Operator
 from .window import Iterable, WindowSpec
@@ -179,12 +181,15 @@ class Win_Seq(Basic_Operator):
     def _insert(self, state: WinSeqState, batch: Batch) -> WinSeqState:
         K, A = self.num_keys, self.A
         valid = batch.valid
-        if not self.spec.is_cb:
-            # drop OLD tuples: they precede the purge horizon (already-fired windows)
-            horizon = table_lookup(state.next_win, batch.key, traced=True) * self.spec.slide
-            valid = valid & (batch.ts >= horizon)
+        if self.spec.is_cb:
+            count_k = table_lookup(state.count, batch.key, traced=True)
+        else:
+            # both per-key reads in one K2 launch; drop OLD tuples: they
+            # precede the purge horizon (already-fired windows)
+            next_k, count_k = table_lookup_many((state.next_win, state.count), batch.key)
+            valid = valid & (batch.ts >= next_k * self.spec.slide)
         rank = segment_rank(batch.key, valid)
-        pos = table_lookup(state.count, batch.key, traced=True) + rank
+        pos = count_k + rank
         flat = batch.key * A + torch.remainder(pos, A)
         # The JAX form scatters with mode="drop" at an out-of-range index for
         # invalid lanes. Here every lane that writes nothing repeats the first

@@ -32,6 +32,13 @@ Routing follows the JAX package's rule (``windflow_tpu/ops/lookup.py:24-32,
   graph;
 - K > 65536: the ``take`` branch.
 
+:func:`table_lookup_many` reads several tables through one index: each
+table routed and its selection recorded as :func:`table_lookup` does it,
+and the tables on K2's branch gathered in one launch (``csrc/lookup.cu``'s
+``wf_table_lookup_many``: each lane's index loaded once for all of them),
+:data:`LOOKUP_MAX_TABLES` tables a launch. Its plain version,
+:func:`lookup_many_plain`, is :func:`lookup_plain` for each table in turn.
+
 A 2-D table ``[K, V]`` (a per-key state row of V values) takes the JAX
 package's select-reduce up to :data:`SELECT_MAX_ROWS_2D` rows (``table[idx]``,
 0 out of range, ``-0.0`` read as ``+0.0``) and ``take`` above, as does any
@@ -64,6 +71,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 3
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
 
+#: C signature of the grouped entry point: the tables', outputs', Ks',
+#: element sizes' and zero_fix flags' host arrays, the count, idx, n, stream
+_MANY_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_longlong, ctypes.c_void_p])
+
+#: the most tables one grouped K2 launch reads (``csrc/lookup.cu``'s
+#: ``WF_LOOKUP_MAX_TABLES``); :func:`table_lookup_many` splits a larger group
+LOOKUP_MAX_TABLES = 16
+
 #: tables up to this size take the JAX select or factored branch whatever
 #: their values
 SELECT_MAX_ROWS_2D = 2048
@@ -79,17 +95,65 @@ def table_lookup(table: torch.Tensor, idx: torch.Tensor, *,
     does, from K and dtype alone (every operator's ``apply``); False reads a
     concrete 1-D table's values, as eager JAX does. ``impl``: ``"cuda"`` or
     ``"torch"`` for the gather (None: the registry's choice)."""
+    return table_lookup_many([table], idx, traced=traced, impl=impl)[0]
+
+
+def table_lookup_many(tables, idx: torch.Tensor, *, traced: bool = True,
+                      impl: str = None) -> list:
+    """``[table_lookup(t, idx, traced=traced, impl=impl) for t in tables]``
+    with the tables on K2's branch gathered together: one launch for up to
+    :data:`LOOKUP_MAX_TABLES` of them (one more launch for each further
+    :data:`LOOKUP_MAX_TABLES`). Each table is routed, and its selection
+    resolved under its own spec key, as :func:`table_lookup` does it; the
+    outputs come back in the tables' order. ``traced`` defaults to True:
+    the callers are operators' ``apply``."""
+    tables = list(tables)
+    outs = [None] * len(tables)
+    group = []                      # (position, table) on K2's branch, kernel impl
+    for i, t in enumerate(tables):
+        sel = _resolve(t, idx, impl)
+        branch = _branch(t, traced)
+        if branch == "select2d":
+            outs[i] = lookup_plain(t, idx)
+        elif branch == "take":
+            outs[i] = take(t, idx)
+        elif sel == "cuda":
+            group.append((i, t))
+        else:
+            outs[i] = lookup_plain(t, idx)
+    if len(group) == 1:
+        i, t = group[0]
+        outs[i] = gather_or_zero(t, idx, impl="cuda")
+    elif group:
+        # strided or broadcast lanes made dense for the kernel (F23)
+        dense = idx.contiguous()
+        for s in range(0, len(group), LOOKUP_MAX_TABLES):
+            part = group[s:s + LOOKUP_MAX_TABLES]
+            got = lookup_many_cuda([t.contiguous() for _, t in part], dense)
+            for (i, _), o in zip(part, got):
+                outs[i] = o
+    return outs
+
+
+def _resolve(table: torch.Tensor, idx: torch.Tensor, impl: str) -> str:
+    """The registry's selection for ``table`` read through ``idx``, recorded
+    under the JAX package's spec key."""
+    return resolve_impl(
+        "lookup", impl=impl, device=table.device,
+        spec_key=f"C{idx.shape[0]}xK{table.shape[0]}:{dtype_name(table.dtype)}")
+
+
+def _branch(table: torch.Tensor, traced: bool) -> str:
+    """The JAX package's branch for ``table``: ``"select2d"`` (a 2-D table of
+    at most :data:`SELECT_MAX_ROWS_2D` rows), ``"take"``, or ``"k2"`` (the
+    select or factored branch of a 1-D table: K2's function)."""
     K = table.shape[0]
-    impl = resolve_impl("lookup", impl=impl, device=table.device,
-                        spec_key=f"C{idx.shape[0]}xK{K}:{dtype_name(table.dtype)}")
     if table.ndim > 1:
-        if table.ndim == 2 and K <= SELECT_MAX_ROWS_2D:
-            return lookup_plain(table, idx)
-        return take(table, idx)
+        return "select2d" if table.ndim == 2 and K <= SELECT_MAX_ROWS_2D else "take"
     exact = _exact_dtype if traced else _factored_ok
     if K <= SELECT_MAX_ROWS_2D or (K <= FACTORED_MAX_ROWS and exact(table)):
-        return gather_or_zero(table, idx, impl=impl)
-    return take(table, idx)
+        return "k2"
+    return "take"
 
 
 def _exact_dtype(table: torch.Tensor) -> bool:
@@ -176,6 +240,48 @@ def lookup_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                   table.element_size(), int(_zero_fix(table)),
                   cuda.stream_ptr(table.device)), "lookup_cuda")
     return out
+
+
+def lookup_many_plain(tables, idx: torch.Tensor) -> list:
+    """Plain PyTorch version of the grouped K2: :func:`lookup_plain` for each
+    table in turn."""
+    return [lookup_plain(t, idx) for t in tables]
+
+
+def lookup_many_cuda(tables, idx: torch.Tensor) -> list:
+    """Launch the grouped K2 once on the tables' card: ``tables[k][idx]`` for
+    each of up to :data:`LOOKUP_MAX_TABLES` 1-D tables, in their order.
+    Raises on anything the kernel does not take (more tables included)."""
+    tables = list(tables)
+    if not 1 <= len(tables) <= LOOKUP_MAX_TABLES:
+        raise ValueError(f"lookup_many_cuda: 1 to {LOOKUP_MAX_TABLES} tables a launch, "
+                         f"got {len(tables)}")
+    dev = tables[0].device
+    if idx.ndim != 1 or idx.dtype != torch.int32 or idx.device != dev \
+            or not idx.is_contiguous():
+        raise ValueError(f"lookup_many_cuda: idx must be a contiguous int32 [C] tensor "
+                         f"on {dev}, got {idx.dtype} {tuple(idx.shape)} on {idx.device}")
+    for t in tables:
+        if t.ndim != 1 or t.device != dev or not t.is_contiguous() \
+                or t.element_size() not in (1, 2, 4, 8) or t.shape[0] >= 2 ** 31 \
+                or t.is_complex():
+            raise ValueError(f"lookup_many_cuda: each table must be a contiguous 1-D "
+                             f"tensor of 1/2/4/8-byte real elements on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    n = idx.shape[0]
+    outs = [torch.empty((n,), dtype=t.dtype, device=dev) for t in tables]
+    if n == 0:
+        return outs
+    fn = cuda.function("lookup", "wf_table_lookup_many", _MANY_ARGTYPES)
+    m = len(tables)
+    ptrs = lambda ts: (ctypes.c_void_p * m)(*(t.data_ptr() for t in ts))  # noqa: E731
+    ints = lambda vs: (ctypes.c_int * m)(*vs)  # noqa: E731
+    count_launch("lookup")
+    cuda.check(fn(ptrs(tables), ptrs(outs), ints(t.shape[0] for t in tables),
+                  ints(t.element_size() for t in tables),
+                  ints(int(_zero_fix(t)) for t in tables), m, cuda.ptr(idx), n,
+                  cuda.stream_ptr(dev)), "lookup_many_cuda")
+    return outs
 
 
 def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -785,7 +891,8 @@ register_kernel("lookup", "cuda", lookup_cuda, devices=("cuda",))
 register_kernel("join_probe", "torch", join_probe_plain, reference=True)
 register_kernel("join_probe", "cuda", join_probe_cuda, devices=("cuda",))
 
-__all__ = ["table_lookup", "gather_or_zero", "lookup_plain", "lookup_cuda", "take",
+__all__ = ["table_lookup", "table_lookup_many", "LOOKUP_MAX_TABLES", "gather_or_zero",
+           "lookup_plain", "lookup_cuda", "lookup_many_plain", "lookup_many_cuda", "take",
            "JOIN_PROBE_MAX_ROWS", "JOIN_PROBE_SMEM_SLOTS", "join_probe",
            "join_probe_plain", "join_probe_cuda", "JOIN_KEY_SENTINEL", "join_table_init",
            "join_table_upsert", "join_table_probe", "join_table_pending",
