@@ -14,11 +14,16 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py --only lookup --only path_b # the build, then only
                                        # the named phases (no result line):
                                        # lookup (K2's split and checks),
+                                       # scatter (the link's rates,
+                                       # cold_scatter's split over its
+                                       # geometries, and its checks),
+                                       # tiered_q3,
                                        # nexmark_loop, path_b, sweep, chaos
     python3 chip_smoke.py --helper-times # K2's (every main-path case), the
-                                       # fold's, cold_fetch's and
+                                       # fold's, cold_fetch's,
                                        # cold_probe's (2^18 keys, q3's
-                                       # shape) times on their check
+                                       # shape) and cold_scatter's (16,384
+                                       # and 2^18 slots) times on their check
                                        # inputs, nothing checked, then stops
                                        # (``--helper-times lookup``: K2's
                                        # alone); copied into another tree,
@@ -236,8 +241,9 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     ``cold_probe`` once an apply, counted through the replays; ms and p99 of
     a step;
 33. ``cold_probe`` (kernel check, after ``link_reads``: the host link's
-    rate of 16-byte system-scope reads of random lines, a probe of
-    ``PROBES_SRC``): the cold-tier probe against its plain version (the
+    rate of 16-byte system-scope reads of random lines, and of a stream of
+    whole consecutive lines, probes of ``PROBES_SRC``; the copy engine's
+    rate from pinned memory): the cold-tier probe against its plain version (the
     store's host lookup) bit for bit at R = 49,152 over that 1.6 M-row
     store (hits, misses, unwanted lanes; then every lane a hit, every lane
     a miss), over a 2^18-key store as built, after a reindexing
@@ -245,8 +251,12 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     restore that fits, and graphs captured before a store grew (by upserts,
     by a restore), replayed after; the index mirror equal to the host index
     after each write; ``cold_scatter`` (the mirror's upkeep) against its
-    plain version; the whole index's upload timed; times and bounds (link
-    reads over the measured rate, device bytes over 3.35 TB/s);
+    plain version bit for bit at 1, 3, 4097, 16,384 (distinct and repeated)
+    and 2^18 slots of tiered q3's 2^22-slot index; the whole index's
+    upload timed; times and bounds (link reads over the measured
+    random-line rate, ``cold_scatter``'s 20 bytes an entry over the
+    fastest of the link's nominal 64 GB/s, the copy engine's and the
+    streaming probe's measured rates, device bytes over 3.35 TB/s);
 34. ``tiered_queries``: q5, q6 and q7 at 2^14 tiered (``TIERED_QUERIES``),
     eager and at K = 4: the untiered rows (the dense oracle), byte for byte
     between the two, each apply's K2, K3, K4, K5 and ``cold_probe``
@@ -404,8 +414,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
     logged, then the plain mode over 2^18 tuples (``CHAOS_FULL``), whose
     fault-free baselines must equal the CPU port's; then
     ``python -m windflow_tpu_torch.scripts.wf_profile --capture`` (its
-    ``main``, in a thread) over a running Key_FFAT chain at 2^18 lanes:
-    exit 0 and a trace with CUDA kernel events;
+    ``main``, in a thread, after the port's ``stats.profiler_init`` on the
+    main thread) over a running Key_FFAT chain at 2^18 lanes: exit 0 and a
+    trace with CUDA kernel events; and in a child process, from a worker
+    thread with no init: exit 2 with the port's refusal (F27), no trace;
 48. ``analysis`` (``analysis_phase``), last: building YSB (2^20), q3
     (2^14) and served YSB launches no kernel (every operator's spec probe
     runs on the meta device); ``validate()`` of each, and of
@@ -4550,58 +4562,170 @@ def probe_lanes(torch, gen, R, lo, hi, p_want=0.8):
     return keys, torch.rand((R,), generator=gen, device="cuda") < p_want
 
 
-def scatter_check(torch, np, card, store, n):
+#: scatter_check's cases: (name, entries, slots drawn from how many distinct
+#: slots of the index, None for all of them without repeats)
+SCATTER_CASES = (("1 slot", 1, None), ("3 slots", 3, None), ("4097 slots", 4097, None),
+                 (f"{NEX_BATCH} slots", NEX_BATCH, None),
+                 (f"{NEX_BATCH} slots, repeated (4096 distinct)", NEX_BATCH, 4096),
+                 ("2^18 slots", 1 << 18, None))
+SCATTER_SPLIT_N = (NEX_BATCH, 1 << 18)   # scatter_split's entries
+
+
+def scatter_slots(np, rng, idx, n, distinct):
+    """``n`` slots of ``idx``: distinct, or drawn with repeats from
+    ``distinct`` slots."""
+    if distinct is None:
+        return rng.choice(len(idx), n, replace=False)
+    return rng.choice(rng.choice(len(idx), distinct, replace=False), n, replace=True)
+
+
+def staged_slots(np, idx, slots):
+    """``slots`` of ``idx`` staged (``stage_slots``) in a mapped buffer of
+    their own: (the buffer, its bytes)."""
+    from windflow_tpu_torch.ops.cold_probe import MappedBuffer, stage_slots, staging_bytes
+    nb = staging_bytes(len(slots))
+    buf = MappedBuffer(nb)
+    staged = buf.array(np.uint8, (nb,))
+    stage_slots(idx, slots, staged)
+    return buf, staged
+
+
+def scatter_bound(n, link_bytes):
+    """``cold_scatter``'s bound on its work: 20 bytes an entry over the host
+    link, against 16 bytes a slot written over 3.35 TB/s. The link's rate is
+    the highest the card shows: the nominal 64 GB/s, or the copy engine's
+    or the streaming probe's measured in this run (``link_read_phase``'s
+    ``link_bytes``), where one is higher; the link time at each is logged
+    beside it."""
+    rate = max(link_bytes.values())
+    t_link, t_hbm = 20 * n / rate * 1e3, 16 * n / HBM_BYTES_PER_S * 1e3
+    return {"bytes": 20 * n, "line_requests": -(-16 * n // 128) + -(-4 * n // 128),
+            "link_ms": t_link, "link_ms_at": {k: 20 * n / v * 1e3 for k, v in link_bytes.items()},
+            "hbm_ms": t_hbm, "bound_ms": max(t_link, t_hbm),
+            "bound_by": "bytes", "link_bytes_per_s": rate}
+
+
+def scatter_check(torch, np, card, store, link_bytes):
     """``cold_scatter`` against its plain version (one indexed copy) bit for
-    bit: ``n`` distinct slots of ``store``'s index, staged in mapped memory as
-    the store stages a write's slots, written into a zeroed copy of its
-    mirror; the kernel's time by graph replay, the plain version's (the
-    entries copied to the card, then the indexed copy) by CUDA events, the
-    library call's by CUDA events over the same work (the staged entries
-    copied from the host to the card, then ``index_copy_``), and
+    bit on every ``SCATTER_CASES`` case over ``store``'s index (tiered q3's,
+    2^22 slots): the slots staged in mapped memory as the store stages a
+    write's (``stage_slots``: 20 bytes an entry), written into a zeroed copy
+    of its mirror. Each case logs the kernel's time by graph replay, the
+    plain version's (the staging copied to the card, then the indexed copy)
+    by CUDA events, the library call's by CUDA events over the same work
+    (the pairs and int64 slot numbers, 24 bytes an entry, in one pinned
+    buffer copied to the card by the copy engine, then ``index_copy_``),
     ``index_copy_`` alone from entries already on the card by graph replay
-    (``library_on_card_ms``); the bound: the entries' bytes over the host
-    link (64 GB/s) against the slots' bytes over 3.35 TB/s."""
-    from windflow_tpu_torch.ops.cold_probe import (MappedBuffer, cold_scatter_cuda,
-                                                   cold_scatter_plain)
+    (``library_on_card_ms``), and the bound (``scatter_bound``). Returns the
+    row of the main path's case (16,384 distinct slots)."""
+    from windflow_tpu_torch.ops.cold_probe import cold_scatter_cuda, cold_scatter_plain
     idx = store.index_slots()
-    slots = np.random.default_rng(31).choice(len(idx), n, replace=False)
-    buf = MappedBuffer(32 * n)
-    ent = buf.array(np.int64, (n, 4))
-    ent[:, :2] = idx[slots]
-    ent[:, 2] = slots
+    rng = np.random.default_rng(31)
     a = torch.zeros_like(store.mirror)
     b, c = a.clone(), a.clone()
-    sl, pairs = torch.from_numpy(slots).cuda(), torch.from_numpy(idx[slots]).cuda()
+    main, fails = None, []
+    for case, n, distinct in SCATTER_CASES:
+        slots = scatter_slots(np, rng, idx, n, distinct)
+        buf, staged = staged_slots(np, idx, slots)
+        a.zero_()
+        b.zero_()
 
-    def kernel():
-        cold_scatter_cuda(a, buf.dev, n)
-        return a
+        def kernel():
+            cold_scatter_cuda(a, buf.dev, n)
+            return a
 
-    def plain():
-        cold_scatter_plain(b, ent)
-        return b
-    got, ref = kernel(), plain()
-    torch.cuda.synchronize()
-    same, err = compare(torch, got, ref)
-    t_link, t_hbm = 32 * n / HOST_LINK_BYTES_PER_S * 1e3, 16 * n / HBM_BYTES_PER_S * 1e3
-    staged = torch.from_numpy(ent)          # the entries in the mapped host buffer
+        def plain():
+            cold_scatter_plain(b, staged, n)
+            return b
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        same, err = compare(torch, got, ref)
+        # the library's staging: pairs, then int64 slot numbers, pinned
+        host = torch.empty((3 * n,), dtype=torch.int64, pin_memory=True)
+        host.numpy()[:2 * n] = idx[slots].reshape(-1)
+        host.numpy()[2 * n:] = slots
+        sl = torch.from_numpy(slots.astype(np.int64)).cuda()
+        pairs = torch.from_numpy(idx[slots]).cuda()
 
-    def library():
-        e = staged.to("cuda", non_blocking=True)
-        c.index_copy_(0, e[:, 2], e[:, :2])
-    row = {"kernel_check": "cold_scatter", "case": f"{n} slots of a {len(idx)}-slot index",
-           "bit_identical": same, "max_abs_err": err,
-           "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
-           "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
-           "library_ms": time_ms(torch, library),
-           "library_on_card_ms": graph_ms(torch, lambda: c.index_copy_(0, sl, pairs)),
-           "bytes": 32 * n, "counted": "staged entries over the host link (64 GB/s); slots "
-                                       "written over 3.35 TB/s",
-           "bound_ms": max(t_link, t_hbm), "bound_by": "bytes", "card": card}
-    log(row)
-    if not same:
-        raise AssertionError("cold_scatter: kernel differs from its plain version")
-    return row
+        def library():
+            e = host.to("cuda", non_blocking=True)
+            c.index_copy_(0, e[2 * n:], e[:2 * n].view(n, 2))
+        row = {"kernel_check": "cold_scatter", "case": f"{case} of a {len(idx)}-slot index",
+               "n": n, "bit_identical": same, "max_abs_err": err,
+               "kernel_ms": graph_ms(torch, kernel), "kernel_eager_ms": time_ms(torch, kernel),
+               "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
+               "library_ms": time_ms(torch, library), "library_staged_bytes": 24 * n,
+               "library_on_card_ms": graph_ms(torch, lambda: c.index_copy_(0, sl, pairs)),
+               **scatter_bound(n, link_bytes),
+               "counted": "20 bytes an entry over the host link at the highest of its "
+                          "nominal 64 GB/s and the copy engine's and the streaming probe's "
+                          "rates measured in this run; 16 a slot written over 3.35 TB/s",
+               "card": card}
+        log(row)
+        if not same:
+            fails.append(case)
+        if n == NEX_BATCH and distinct is None:
+            main = row
+    if fails:
+        raise AssertionError(f"cold_scatter: kernel differs from its plain version: {fails}")
+    return main
+
+
+def scatter_split(torch, np, probes, card, store, link_bytes):
+    """Where ``cold_scatter``'s time goes, by graph replay, at 16,384 and
+    2^18 distinct slots of ``store``'s index: every geometry of the probe
+    ``wf_scatter_geom`` (``PROBES_SRC``; e = 1, 2, 4 entries a thread; 128
+    or 256 threads a block; at most 1, 2, 4 or 8 blocks an SM), each first
+    checked bit for bit against the plain version, then timed in three
+    rounds in turns with the wrapper (e = 2, 256, 2) (medians and minima
+    logged); the launch floor and the bound (``scatter_bound``) beside
+    them."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda
+    from windflow_tpu_torch.ops.cold_probe import cold_scatter_cuda, cold_scatter_plain
+
+    fn = probes.wf_scatter_geom
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    idx = store.index_slots()
+    rng = np.random.default_rng(37)
+    a = torch.zeros_like(store.mirror)
+    ref = a.clone()
+    floor = launch_floor_ms(torch, probes)
+    geometries = [(e, threads, per_sm) for e in (1, 2, 4) for threads in (128, 256)
+                  for per_sm in (1, 2, 4, 8)]
+    for n in SCATTER_SPLIT_N:
+        slots = scatter_slots(np, rng, idx, n, None)
+        buf, staged = staged_slots(np, idx, slots)
+        ref.zero_()
+        cold_scatter_plain(ref, staged, n)
+
+        def launcher(e, threads, per_sm):
+            return lambda: cuda.check(fn(ctypes.c_void_p(buf.dev), n, cuda.ptr(a), e, threads,
+                                         per_sm, cuda.stream_ptr("cuda")), "scatter split")
+        wrong = []
+        for g in geometries:
+            a.zero_()
+            launcher(*g)()
+            torch.cuda.synchronize()
+            if not torch.equal(a, ref):
+                wrong.append(g)
+        if wrong:
+            raise AssertionError(f"scatter split: geometries {wrong} differ from the plain "
+                                 f"version at n = {n}")
+        # three rounds in turns, the chosen entry point among them
+        times = {g: [] for g in geometries}
+        chosen = []
+        for _ in range(3):
+            for g in geometries:
+                times[g].append(graph_ms(torch, launcher(*g)))
+            chosen.append(graph_ms(torch, lambda: cold_scatter_cuda(a, buf.dev, n)))
+        med = {f"e={e} threads={t} per_sm={p}": sorted(v)[1] for (e, t, p), v in times.items()}
+        best = min(med, key=med.get)
+        log({"split": "cold_scatter", "n": n, "card": card, "median_ms": med,
+             "min_ms": {k: min(v) for k, v in zip(med, times.values())}, "best": best,
+             "best_ms": med[best], "chosen_ms": sorted(chosen)[1], "chosen_all_ms": chosen,
+             "launch_floor_ms": floor, **scatter_bound(n, link_bytes)})
 
 
 def mirror_kept(store):
@@ -4609,7 +4733,7 @@ def mirror_kept(store):
     return [b.host for b in store._bufs], store.mirror.data_ptr()
 
 
-def cold_probe_phase(torch, np, registry, card, chain, link_rate):
+def cold_probe_phase(torch, np, registry, card, chain, link_rate, link_bytes):
     """The cold probe against its plain version (``probe_case``) at R =
     49,152 lanes over the tiered_q3 chain's 1.6 M-row store: keys in twice
     the key space (hits and misses) with a fifth of the lanes not wanted,
@@ -4658,7 +4782,7 @@ def cold_probe_phase(torch, np, registry, card, chain, link_rate):
                                "hit": hit_row["walk_slots"] / R},
          "index_upload_bytes": mirror_bytes, "index_upload_ms": upload_ms,
          "index_upload_gb_s": mirror_bytes / upload_ms / 1e6, "card": card})
-    scatter_row = scatter_check(torch, np, card, store, NEX_BATCH)
+    scatter_row = scatter_check(torch, np, card, store, link_bytes)
 
     # a store of 2^18 keys: as built, compacted (reindexed), drained, restored
     big = HostStore("probe", {"v0": np.int32, "v1": np.float32}, device="cuda")
@@ -4763,11 +4887,16 @@ def cold_probe_phase(torch, np, registry, card, chain, link_rate):
 
 
 def link_read_phase(torch, probes, card):
-    """The host link's rate of 16-byte system-scope reads of random lines
-    of a mapped buffer (``split_probes.cu``'s ``wf_link_reads``: 2^20 reads
-    over the first 2^13 (1 MiB) or all 2^19 (64 MiB) lines of 128 bytes,
-    one to four in flight a thread), by graph replay; returns the best
-    rate, the cold reads' bound (``cold_bound``)."""
+    """The host link's rate of 16-byte system-scope reads of a mapped buffer
+    (``split_probes.cu``'s ``wf_link_reads``), by graph replay, one to four
+    reads in flight a thread: 2^20 reads of random lines over the first
+    2^13 (1 MiB) or all 2^19 (64 MiB) lines of 128 bytes, and 2^22 reads
+    streaming through all 2^19 lines (each warp load four whole consecutive
+    lines); and the copy engine's rate, a 64 MiB copy from pinned host
+    memory to the card by CUDA events. Returns the best random-line rate in
+    reads a second (the cold reads' bound, ``cold_bound``) and the link's
+    rates in bytes a second (``cold_scatter``'s bound, ``scatter_bound``):
+    the nominal, the copy engine's and the best streaming rate."""
     import ctypes
     from windflow_tpu_torch.ops import cuda
 
@@ -4775,28 +4904,42 @@ def link_read_phase(torch, probes, card):
     alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
                       ctypes.POINTER(ctypes.c_void_p)]
     fn = probes.wf_link_reads
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
-    lines, n = 1 << 19, 1 << 20
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int] + [ctypes.c_void_p] * 2)
+    lines, n, n_seq = 1 << 19, 1 << 20, 1 << 22
     host, dev = ctypes.c_void_p(), ctypes.c_void_p()
     cuda.check(alloc(lines * 128, ctypes.byref(host), ctypes.byref(dev)), "probe host alloc")
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    rates = {}
+    rates, stream = {}, {}
+
+    def reads(span, count, per, seq):
+        return graph_ms(torch, lambda: cuda.check(
+            fn(dev, span, count, per, seq, cuda.ptr(sink), cuda.stream_ptr("cuda")),
+            "link reads"), iters=5, reps=3)
     try:
         ctypes.memset(host, 1, lines * 128)
-        for span in (1 << 13, lines):
-            for per in (1, 2, 4):
-                ms = graph_ms(torch, lambda: cuda.check(
-                    fn(dev, span, n, per, cuda.ptr(sink), cuda.stream_ptr("cuda")),
-                    "link reads"), iters=5, reps=3)
-                rates[f"{span * 128 >> 20} MiB, {per} a thread"] = n / ms * 1e3
+        for per in (1, 2, 4):
+            for span in (1 << 13, lines):
+                rates[f"{span * 128 >> 20} MiB, {per} a thread"] = \
+                    n / reads(span, n, per, 0) * 1e3
+            stream[f"64 MiB, {per} a thread"] = 16 * n_seq / reads(lines, n_seq, per, 1) * 1e3
     finally:
         torch.cuda.synchronize()
         cuda.check(probes.wf_probe_host_free(host), "probe host free")
+    pinned = torch.ones((lines * 128,), dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty((lines * 128,), dtype=torch.uint8, device="cuda")
+    copy_rate = lines * 128 / time_ms(torch, lambda: dst.copy_(pinned, non_blocking=True)) * 1e3
+    del pinned, dst
+    link_bytes = {"nominal": HOST_LINK_BYTES_PER_S, "copy_engine": copy_rate,
+                  "stream": max(stream.values())}
     log({"phase": "link_reads", "reads": n, "lines": lines, "line_bytes": 128,
-         "reads_per_s": rates,
-         "best_reads_per_s": max(rates.values()), "card": card})
-    return max(rates.values())
+         "reads_per_s": rates, "best_reads_per_s": max(rates.values()),
+         "stream_reads": n_seq, "stream_bytes_per_s": stream,
+         "best_stream_bytes_per_s": max(stream.values()),
+         "best_stream_lines_per_s": max(stream.values()) / 128,
+         "copy_engine_bytes_per_s": copy_rate, "nominal_bytes_per_s": HOST_LINK_BYTES_PER_S,
+         "card": card})
+    return max(rates.values()), link_bytes
 
 
 def tiered_queries_phase(torch, np, wt, registry, card):
@@ -5577,8 +5720,10 @@ def helper_times(torch, np, ysb, card, lookup_only=False):
     every ``fetch_cases`` input and ``cold_probe`` at R = 49,152 over a
     store of 2^18 keys (two columns) and over a store shaped as tiered q3's
     at 2^14 (1,638,400 keys upserted in a seeded order, one int32 column;
-    keys in twice the key space, a fifth of the lanes not wanted). It calls
-    only the wrappers and the store's public methods (and ``index_of``), so
+    keys in twice the key space, a fifth of the lanes not wanted), and
+    ``cold_scatter`` over that store's index at 16,384 and 2^18 distinct
+    slots, staged by the store's own write path (``_slots_written``). It
+    calls only the wrappers and the store's methods (and ``index_of``), so
     the script copied into an older tree times that tree's designs on the
     same inputs (``--helper-times``)."""
     from windflow_tpu_torch.ops import lookup as L, segment as S
@@ -5608,15 +5753,46 @@ def helper_times(torch, np, ysb, card, lookup_only=False):
     log({"helper_times": "cold_probe", "case": f"{HELPER_PROBE_ROWS}-key store, two columns",
          "card": card, "ms": graph_ms(torch, lambda: cold_probe_cuda(store, keys, want))})
     del store
-    q3 = HostStore("q3", {"v0": np.int32}, device="cuda")
-    k = np.random.default_rng(14).permutation(Q3_STORE_KEYS).astype(np.int32)
-    q3.upsert(k, k, k, k, {"v0": k % 50})
+    q3 = q3_shaped_store(np)
     keys = torch.randint(0, 2 * Q3_STORE_KEYS, (COLD_PROBE_R,), generator=gen,
                          device="cuda", dtype=torch.int32)
     want = torch.rand((COLD_PROBE_R,), generator=gen, device="cuda") < 0.8
     log({"helper_times": "cold_probe", "case": f"q3-shaped store, {Q3_STORE_KEYS} keys",
          "record_bytes": getattr(q3, "record_bytes", None), "card": card,
          "ms": graph_ms(torch, lambda: cold_probe_cuda(q3, keys, want))})
+    # cold_scatter: the slots staged by the store's own code (its write path's
+    # upkeep), then the launch on that staging timed alone
+    from windflow_tpu_torch.ops import cold_probe as CP
+    rng = np.random.default_rng(41)
+    slots_of = len(q3.index_slots())
+    for n in SCATTER_SPLIT_N:
+        slots = rng.choice(slots_of, n, replace=False)
+        q3._wait_upkeep()
+        q3._slots_written(slots)
+        torch.cuda.synchronize()
+        log({"helper_times": "cold_scatter", "case": f"{n} slots of a {slots_of}-slot index",
+             "staged_bytes": (20 if hasattr(CP, "stage_slots") else 32) * n, "card": card,
+             "ms": graph_ms(torch, lambda: CP.cold_scatter_cuda(q3.mirror, q3._staging.dev,
+                                                                n))})
+
+
+def q3_shaped_store(np):
+    """A store shaped as tiered q3's at 2^14: 1,638,400 keys upserted in a
+    seeded order, one int32 column (a 2^22-slot index)."""
+    from windflow_tpu_torch.state import HostStore
+    q3 = HostStore("q3", {"v0": np.int32}, device="cuda")
+    k = np.random.default_rng(14).permutation(Q3_STORE_KEYS).astype(np.int32)
+    q3.upsert(k, k, k, k, {"v0": k % 50})
+    return q3
+
+
+def scatter_only_phase(torch, np, probes, card):
+    """``--only scatter``: the host link's rates (``link_read_phase``), then
+    ``scatter_split`` and ``scatter_check`` over a q3-shaped store."""
+    _, link_bytes = link_read_phase(torch, probes, card)
+    store = q3_shaped_store(np)
+    scatter_split(torch, np, probes, card, store, link_bytes)
+    scatter_check(torch, np, card, store, link_bytes)
 
 
 def tq4_query(torch, wt, total, archive, tiered, window=TQ4_WINDOW):
@@ -7486,25 +7662,88 @@ def chaos_phase(torch, registry, card):
     return total
 
 
-def profiler_on_main_thread(torch):
-    """Open and close one short torch.profiler session with CUDA activity on
-    this (the main) thread. Kineto initialises its CUPTI client on the
-    thread of the first session and refuses a first session opened from
-    another thread ("External init callback must run in same thread as
-    registerClient"): that session then traces no CUDA kernel, or the
-    process crashes later (F27). The serving phase's profile-on-page and
-    ``profile_capture_check`` open theirs from worker threads."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.ones((1,), device="cuda").add_(1)
-        torch.cuda.synchronize()
+def closed_loop_margin(torch, card, rounds=8):
+    """``--only closed_loop``: ``chaos_sweep.run_closed_loop`` in turns with
+    rings of 8 batches (as the JAX script's) and of 4 (the port's), ``rounds``
+    runs each. Logs, a capacity, the runs that failed and their problems,
+    each run's monitor ticks as one letter each (``.`` ok, ``w`` warn, ``P``
+    page) and the highest latency signal of the clean ticks after the stall
+    burst (from the second tick past the last signal of 500 ms or more)."""
+    from windflow_tpu_torch.scripts import chaos_sweep as C
+    C.warm(32, C.resolve_device("cuda"))
+    runs = {8: [], 4: []}
+    for r in range(rounds):
+        for cap in ((8, 4) if r % 2 == 0 else (4, 8)):
+            ticks = []
+            problems, _applies, _fired = C.run_closed_loop(0, device="cuda",
+                                                           queue_capacity=cap, ticks=ticks)
+            sig = [v for _s, v in ticks]
+            last = max((i for i, v in enumerate(sig) if v is not None and v >= 500.0),
+                       default=-1)
+            clean = [v for v in sig[last + 2:] if v is not None]
+            runs[cap].append({"problems": problems,
+                              "ticks": "".join({"ok": ".", "warn": "w", "page": "P"}
+                                               .get(s, "?") for s, _v in ticks),
+                              "clean_max_ms": max(clean, default=None)})
+    for cap, rs in runs.items():
+        log({"phase": "closed_loop_margin", "queue_capacity": cap, "card": card,
+             "failed": sum(bool(x["problems"]) for x in rs), "runs": len(rs),
+             "clean_max_ms": [x["clean_max_ms"] for x in rs],
+             "problems": [x["problems"] for x in rs if x["problems"]],
+             "ticks": [x["ticks"] for x in rs]})
+
+
+#: a child process that runs ``python -m windflow_tpu_torch.scripts.wf_profile``
+#: with this child's arguments on a worker thread, after work on the card
+#: and before any profiler session, and exits with its code
+PROFILE_CHILD = """
+import runpy, sys, threading, torch
+torch.ones((1,), device="cuda").add_(1)
+torch.cuda.synchronize()
+box = {}
+def run():
+    try:
+        runpy.run_module("windflow_tpu_torch.scripts.wf_profile", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        box["rc"] = e.code
+th = threading.Thread(target=run, name="capture-worker")
+th.start()
+th.join()
+sys.exit(box.get("rc", 1))
+"""
+
+
+def profile_refusal_check(card):
+    """``wf_profile --capture`` in a child process from a worker thread with
+    no profiler init (``PROFILE_CHILD``): it must exit 2 with the port's
+    refusal (Kineto's first-session thread, the fix), not crash and not
+    write an empty trace."""
+    import shutil
+    import tempfile
+    logdir = tempfile.mkdtemp(prefix="wf_profile_child_")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PROFILE_CHILD, "--capture", logdir,
+                           "--window-ms", "50"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    traced = os.path.exists(os.path.join(logdir, "trace.json"))
+    shutil.rmtree(logdir, ignore_errors=True)
+    said = "Kineto" in proc.stderr and "profiler_init()" in proc.stderr
+    log({"phase": "wf_profile_refusal", "card": card, "seconds": time.perf_counter() - t,
+         "rc": proc.returncode, "refusal_named": said, "trace_written": traced,
+         "stderr_tail": proc.stderr[-600:]})
+    if proc.returncode != 2 or not said or traced:
+        raise AssertionError(f"wf_profile --capture from a worker thread with no init exited "
+                             f"{proc.returncode} (refusal named: {said}, trace written: "
+                             f"{traced}): {proc.stderr[-2000:]}")
 
 
 def profile_capture_check(torch, card):
     """``wf_profile --capture`` (its ``main``, in a thread of this process, so
     its torch.profiler session sees this process's kernels) over a running
-    eager Key_FFAT chain at 2^18 lanes: it must exit 0 and its trace must
-    hold at least one CUDA kernel event."""
+    eager Key_FFAT chain at 2^18 lanes, after the port's profiler init on
+    this (the main) thread, as a user calls it: it must exit 0 and its trace
+    must hold at least one CUDA kernel event. Then ``profile_refusal_check``."""
     import shutil
     import tempfile
     import threading
@@ -7512,6 +7751,9 @@ def profile_capture_check(torch, card):
     from windflow_tpu_torch.observability.profiling import trace_kernels
     from windflow_tpu_torch.runtime.pipeline import CompiledChain
     from windflow_tpu_torch.scripts import wf_profile
+    from windflow_tpu_torch.stats import profiler_init
+
+    opened = profiler_init()
 
     B = 1 << 18
     dev = sweep.resolve_device("cuda")
@@ -7546,8 +7788,10 @@ def profile_capture_check(torch, card):
                            f"{len(kernels)} CUDA kernel(s) in its trace")
     summary = json.loads(box["out"])
     log({"phase": "wf_profile_capture", "card": card, "seconds": time.perf_counter() - t,
-         "window_ms": summary["window_ms"], "activities": summary["activities"],
-         "chain_steps": steps, "kernels": kernels[:16], "n_kernels": len(kernels)})
+         "init_opened_a_session": opened, "window_ms": summary["window_ms"],
+         "activities": summary["activities"], "chain_steps": steps, "kernels": kernels[:16],
+         "n_kernels": len(kernels)})
+    profile_refusal_check(card)
 
 
 def analysis_phase(torch, np, wt, ysb, registry, card):
@@ -7680,11 +7924,14 @@ def main() -> int:
                          "their check inputs and stop, printing no result line (also on "
                          "an older tree, see helper_times)")
     ap.add_argument("--only", action="append",
-                    choices=("lookup", "nexmark_loop", "path_b", "sweep", "chaos"),
+                    choices=("lookup", "scatter", "tiered_q3", "nexmark_loop", "path_b",
+                             "sweep", "chaos", "closed_loop"),
                     help="build, run only the named phase (repeatable: K2's split and "
-                         "checks, the Nexmark loops, path B, the sweep, the chaos sweep) "
-                         "and stop, printing no result line (nexmark_loop and path_b "
-                         "also on an older tree)")
+                         "checks, the host link's rates with cold_scatter's split and "
+                         "checks, tiered q3, the Nexmark loops, path B, the sweep, the "
+                         "chaos sweep, the closed loop's margin at rings of 8 and 4) "
+                         "and stop, printing no result line (tiered_q3, nexmark_loop and "
+                         "path_b also on an older tree)")
     args = ap.parse_args()
 
     import numpy as np
@@ -7718,7 +7965,6 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{stem}]: {line.strip()}")
 
-    profiler_on_main_thread(torch)
     if not hasattr(lookup, "table_lookup_many"):
         # an older tree (``--only``, ``--helper-times``): a K2 launch a table read
         Q5_APPLY["lookup"], PATH_B_APPLY["lookup"] = 14, 3
@@ -7729,6 +7975,10 @@ def main() -> int:
         if "lookup" in args.only:
             lookup_split(torch, ysb, probes, card)
             kernel_phase(torch, ysb, probes)
+        if "scatter" in args.only:
+            scatter_only_phase(torch, np, probes, card)
+        if "tiered_q3" in args.only:
+            tiered_q3_phase(torch, np, wt, registry, card, args.profile)
         if "nexmark_loop" in args.only:
             nexmark_loop_phase(torch, wt, card, args.profile)
         if "path_b" in args.only:
@@ -7737,6 +7987,8 @@ def main() -> int:
             sweep_phase(torch, np, registry, card)
         if "chaos" in args.only:
             chaos_phase(torch, registry, card)
+        if "closed_loop" in args.only:
+            closed_loop_margin(torch, card)
         return 0
     split_phase(torch, ysb, probes)
     lookup_split(torch, ysb, probes, card)
@@ -7791,9 +8043,10 @@ def main() -> int:
     del ty_rows
     tgw_launches = threaded_graph_windows_phase(torch, np, wt, registry, card, gw_rows,
                                                 gw_launches, gw_s)
-    link_rate = link_read_phase(torch, probes, card)
+    link_rate, link_bytes = link_read_phase(torch, probes, card)
     tq_launches, tq_chain = tiered_q3_phase(torch, np, wt, registry, card, args.profile)
-    cold_row, scatter_row = cold_probe_phase(torch, np, registry, card, tq_chain, link_rate)
+    cold_row, scatter_row = cold_probe_phase(torch, np, registry, card, tq_chain, link_rate,
+                                             link_bytes)
     del tq_chain
     tqs_launches = tiered_queries_phase(torch, np, wt, registry, card)
     tr_launches = tiered_recovery_phase(torch, np, wt, registry, card)

@@ -26,7 +26,8 @@ import torch
 from windflow_tpu.state import HostStore as JStore
 from windflow_tpu.state.tiered import JoinTableTier as JJoinTier
 from windflow_tpu.state.tiered import TierConfig as JTierConfig
-from windflow_tpu_torch.ops.cold_probe import cold_probe, cold_scatter_plain
+from windflow_tpu_torch.ops.cold_probe import (cold_probe, cold_scatter_plain, slots_offset,
+                                               stage_slots, staging_bytes)
 from windflow_tpu_torch.state import HostStore as TStore
 from windflow_tpu_torch.state.tiered import JoinTableTier as TJoinTier
 from windflow_tpu_torch.state.tiered import TierConfig as TTierConfig
@@ -71,8 +72,8 @@ def assert_same(got, want, what):
 
 class MirrorReplay:
     """A copy of ``st``'s index kept the way the card's mirror is kept: each
-    slot list a write hands the mirror staged as the store stages it (key,
-    head row, slot) and written by ``cold_scatter``'s plain version, the
+    slot list a write hands the mirror staged as the store stages it
+    (``stage_slots``) and written by ``cold_scatter``'s plain version, the
     whole index where the write hands None (a rebuild). ``lists`` and
     ``fulls`` count the two."""
 
@@ -85,10 +86,9 @@ class MirrorReplay:
                 self.copy = torch.from_numpy(self.st._idx.copy())
                 self.fulls += 1
             elif len(slots):
-                entries = np.zeros((len(slots), 4), np.int64)
-                entries[:, :2] = self.st._idx[slots]
-                entries[:, 2] = slots
-                cold_scatter_plain(self.copy, entries)
+                staged = np.zeros(staging_bytes(len(slots)), np.uint8)
+                n = stage_slots(self.st._idx, slots, staged)
+                cold_scatter_plain(self.copy, staged, n)
                 self.lists += 1
             inner(slots)
         st._slots_written = replay
@@ -334,6 +334,44 @@ def test_cold_probe_plain_is_the_jax_callback():
     res = cold_probe(tt.store, torch.from_numpy(probe), torch.from_numpy(want))
     assert [r.dtype for r in res] == [torch.bool] + [torch.int32] * 3 + [torch.float32,
                                                                          torch.int32]
+
+
+@pytest.mark.parametrize("n,repeated", [(1, False), (3, False), (4, False), (5, False),
+                                        (4097, False), (5, True), (4097, True)])
+def test_stage_slots_and_plain_scatter_equal_numpy(n, repeated):
+    """``stage_slots`` lays out ``n`` 16-byte pairs ``idx[slots]``, then from
+    the next 128-byte line ``n`` int32 slot numbers (20 bytes an entry), and
+    ``cold_scatter_plain`` over that staging equals numpy's ``mirror[slots] =
+    idx[slots]``, slots repeated or not."""
+    rng = np.random.default_rng(n + 7 * repeated)
+    S = 1 << 13
+    idx = rng.integers(-(1 << 40), 1 << 40, (S, 2))
+    slots = (rng.choice(S // 64, n, replace=True) if repeated
+             else rng.choice(S, n, replace=False))
+    staged = np.zeros(staging_bytes(n) + 16, np.uint8)
+    assert stage_slots(idx, slots, staged) == n
+    o = slots_offset(n)
+    assert o % 128 == 0 and 16 * n <= o < 16 * n + 128 and staging_bytes(n) == o + 4 * n
+    assert np.array_equal(staged[:16 * n].view(np.int64).reshape(n, 2), idx[slots])
+    assert np.array_equal(staged[o:o + 4 * n].view(np.int32), slots)
+    assert not staged[16 * n:o].any() and not staged[o + 4 * n:].any()
+    old = rng.integers(-(1 << 40), 1 << 40, (S, 2))
+    mirror = torch.from_numpy(old.copy())
+    cold_scatter_plain(mirror, staged, n)
+    want = old.copy()
+    want[slots] = idx[slots]
+    assert np.array_equal(mirror.numpy(), want)
+
+
+def test_stage_slots_refuses_what_the_kernel_cannot_take():
+    """An index of 2^31 slots or more (slot numbers are int32) and a staging
+    too short for ``n`` entries raise."""
+    huge = np.broadcast_to(np.zeros((1, 2), np.int64), (1 << 31, 2))
+    with pytest.raises(ValueError, match="int32"):
+        stage_slots(huge, np.arange(3), np.zeros(staging_bytes(3), np.uint8))
+    idx = np.zeros((64, 2), np.int64)
+    with pytest.raises(ValueError, match="at least"):
+        stage_slots(idx, np.arange(5), np.zeros(staging_bytes(5) - 1, np.uint8))
 
 
 @pytest.mark.parametrize("wide", [False, True])

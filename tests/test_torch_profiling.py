@@ -11,13 +11,19 @@ validates as the JAX package's does, word for word; the SLO engine commits
 ``profile.json`` into a bundle before its manifest (a failing hook is a
 recorded skip); ``ProfileOnPage`` turns a held session, its capture budget
 and a card without CUPTI into skip reasons; and ``scripts/wf_profile.py``
-summarizes the port's bundles.
+summarizes the port's bundles. The port's own guard for Kineto's
+first-session thread (F27): a first capture with CUDA activity off the main
+thread is refused with the reason (``wf_profile --capture`` exits 2), and
+``profiler_init`` (run by ``Monitor.start`` with profile-on-page, and by
+the first capture on the main thread) opens that session once, on the main
+thread.
 """
 
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -278,3 +284,110 @@ def test_wf_profile_summarizes_the_ports_bundles(tmp_path):
     r = subprocess.run([sys.executable, cli, "--monitoring-dir", str(tmp_path / "nope")],
                        capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 2
+
+
+# ------------------------------------------ the first session (Kineto's thread)
+
+@pytest.fixture
+def cuda_profiler(monkeypatch):
+    """``profiler_activities`` as on the card (CPU and CUDA), no session
+    opened yet, and the first-session opener recording its thread instead
+    of touching a card; yields that record."""
+    from torch.profiler import ProfilerActivity
+    opened = []
+    monkeypatch.setattr(stats, "profiler_activities",
+                        lambda: [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    monkeypatch.setattr(stats, "_profiler_thread", None)
+    monkeypatch.setattr(stats, "_first_session",
+                        lambda acts: opened.append(threading.get_ident()))
+    return opened
+
+
+def _on_a_worker(fn):
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — handed to the test
+            box["err"] = e
+    th = threading.Thread(target=run, name="capture-worker")
+    th.start()
+    th.join(60)
+    return box
+
+
+def _capture(logdir):
+    with stats.xprof_trace(logdir):
+        pass
+    return os.path.exists(os.path.join(logdir, "trace.json"))
+
+
+def test_first_cuda_capture_off_the_main_thread_is_refused(tmp_path, cuda_profiler, capsys):
+    """Before any init, a capture with CUDA activity on a worker thread
+    raises a RuntimeError naming Kineto's first-session thread and the fix,
+    opens no session and leaves the guard free; ``wf_profile --capture``
+    there exits 2 with that message."""
+    box = _on_a_worker(lambda: _capture(str(tmp_path / "w")))
+    err = box.get("err")
+    assert isinstance(err, RuntimeError), box
+    assert "Kineto" in str(err) and "profiler_init()" in str(err)
+    assert "capture-worker" in str(err) and "does not count" in str(err)
+    assert cuda_profiler == [] and stats._xprof_logdir is None
+    assert not os.path.exists(tmp_path / "w" / "trace.json")
+    from windflow_tpu_torch.scripts import wf_profile
+    box = _on_a_worker(lambda: wf_profile.main(["--capture", str(tmp_path / "c"),
+                                                "--window-ms", "1"]))
+    assert box.get("out") == 2, box
+    assert "capture refused" in capsys.readouterr().err
+    assert cuda_profiler == [] and stats._profiler_thread is None
+
+
+def test_profiler_init_on_the_main_thread_lets_a_worker_capture(tmp_path, cuda_profiler):
+    """``profiler_init`` on the main thread opens the first session there,
+    once, and records the thread; a worker's capture then passes the guard
+    and writes its trace. Off the main thread the init opens nothing."""
+    assert _on_a_worker(stats.profiler_init).get("out") is False
+    assert cuda_profiler == []
+    assert stats.profiler_init() is True and stats.profiler_init() is False
+    assert cuda_profiler == [threading.get_ident()] == [stats._profiler_thread]
+    assert _on_a_worker(lambda: _capture(str(tmp_path / "w"))) == {"out": True}
+    assert cuda_profiler == [threading.get_ident()]
+
+
+def test_first_cuda_capture_on_the_main_thread_runs_the_init(tmp_path, cuda_profiler,
+                                                             monkeypatch):
+    """A first capture with CUDA activity on the main thread runs the init
+    itself, once, before its own session; without CUDA activity nothing is
+    opened first, on any thread."""
+    assert _capture(str(tmp_path / "a")) and cuda_profiler == [threading.get_ident()]
+    assert _capture(str(tmp_path / "b")) and len(cuda_profiler) == 1
+    from torch.profiler import ProfilerActivity
+    monkeypatch.setattr(stats, "profiler_activities", lambda: [ProfilerActivity.CPU])
+    monkeypatch.setattr(stats, "_profiler_thread", None)
+    assert stats.profiler_init() is False
+    assert _on_a_worker(lambda: _capture(str(tmp_path / "c"))) == {"out": True}
+    assert len(cuda_profiler) == 1 and stats._profiler_thread is None
+
+
+def test_monitor_start_runs_the_profiler_init_on_its_thread(tmp_path, cuda_profiler):
+    """``Monitor.start`` with profile-on-page opens the first session once,
+    on the thread that starts it (not the Reporter's); without
+    profile-on-page it opens none."""
+    plain = Monitor(MonitoringConfig.resolve(MonitoringConfig(
+        out_dir=str(tmp_path / "p"), slo=True)), "g")
+    plain.start()
+    plain.finish()
+    assert cuda_profiler == []
+    cfg = MonitoringConfig.resolve(MonitoringConfig(
+        out_dir=str(tmp_path / "m"), slo=True, profile=tprof.ProfileConfig(window_ms=5.0)))
+    mon = Monitor(cfg, "g")
+    try:
+        mon.start()
+        assert cuda_profiler == [threading.get_ident()] == [stats._profiler_thread]
+    finally:
+        mon.finish()
+    mon2 = Monitor(cfg, "g2")
+    mon2.start()
+    mon2.finish()
+    assert len(cuda_profiler) == 1

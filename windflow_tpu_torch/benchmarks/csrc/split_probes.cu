@@ -1,6 +1,7 @@
 // Measurement probes for chip_smoke.py's split of K1's, K2's and K3's time,
-// for the launch floor (an empty kernel), and for the host link's read rate,
-// the bound of the cold-tier reads (ops/csrc/cold_probe.cu). No TPU kernel,
+// for the launch floor (an empty kernel), for the host link's read rate,
+// the bound of the cold-tier reads (ops/csrc/cold_probe.cu), and for
+// cold_scatter's geometries. No TPU kernel,
 // and no path of the port launches them: chip_smoke.py builds this file on
 // its own and loads it with ctypes.
 // It includes nothing of ops/csrc, so the same file also splits an older
@@ -95,40 +96,153 @@ WF_EXPORT int wf_global_fold(const int* values, const int* seg, const unsigned c
 }
 
 // The host link's rate of small reads: n reads of 16 bytes at system scope
-// (ld.relaxed.sys, as the cold-tier kernels read mapped records), each from
-// a line of 128 bytes drawn by a hash of the read's number from `lines`
-// lines of a mapped host buffer, `per` reads in flight a thread (1 to 4),
-// a grid of 256-thread blocks covering n / per threads. Writes nothing
-// unless the xor of every word is a value no input gives in practice.
+// (ld.relaxed.sys, as the cold-tier kernels read mapped records), `per`
+// reads in flight a thread (1 to 4), a grid of 256-thread blocks covering
+// n / per threads, from `lines` lines of 128 bytes of a mapped host buffer.
+// seq 0: each read from a line drawn by a hash of the read's number (the
+// cold reads' pattern); seq 1: read r at byte 16 r (mod the buffer), a
+// block's u-th reads the next 256 after its (u - 1)-th, so each warp load
+// reads four whole consecutive lines (cold_scatter's pattern). Writes
+// nothing unless the xor of every word is a value no input gives in practice.
 __global__ void __launch_bounds__(WF_SPLIT_THREADS)
-wf_link_reads_kernel(const unsigned char* buf, long long lines, long long n, int per,
+wf_link_reads_kernel(const unsigned char* buf, long long lines, long long n, int per, int seq,
                      int* __restrict__ sink) {
-    const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * per;
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long i0 = t * per;
+    const long long b0 = (long long)blockIdx.x * blockDim.x * per + threadIdx.x;
     unsigned acc = 0;
     uint4 v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-        if (u >= per || i0 + u >= n) continue;
-        const unsigned long long h = (unsigned long long)(i0 + u + 1) * 0x9E3779B97F4A7C15ull;
-        const unsigned char* p = buf + (long long)((h >> 24) % (unsigned long long)lines) * 128
-                                 + ((h >> 8) & 7) * 16;
+        if (u >= per) continue;
+        const long long r = seq ? b0 + (long long)u * blockDim.x : i0 + u;
+        if (r >= n) continue;
+        const unsigned long long h = (unsigned long long)(r + 1) * 0x9E3779B97F4A7C15ull;
+        const unsigned char* p =
+            seq ? buf + (r % (lines * 8)) * 16
+                : buf + (long long)((h >> 24) % (unsigned long long)lines) * 128
+                      + ((h >> 8) & 7) * 16;
         asm volatile("ld.relaxed.sys.global.v4.u32 {%0, %1, %2, %3}, [%4];"
                      : "=r"(v[u].x), "=r"(v[u].y), "=r"(v[u].z), "=r"(v[u].w) : "l"(p));
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-        if (u < per && i0 + u < n) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    for (int u = 0; u < 4; ++u) {
+        const long long r = seq ? b0 + (long long)u * blockDim.x : i0 + u;
+        if (u < per && r < n) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    }
     if (acc == 0x9e3779b9u) sink[0] = (int)acc;
 }
 
 // buf: device address of a mapped buffer of lines * 128 bytes.
-WF_EXPORT int wf_link_reads(const void* buf, long long lines, long long n, int per, int* sink,
-                            void* stream) {
-    if (lines < 1 || n < 1 || per < 1 || per > 4) return (int)cudaErrorInvalidValue;
+WF_EXPORT int wf_link_reads(const void* buf, long long lines, long long n, int per, int seq,
+                            int* sink, void* stream) {
+    if (lines < 1 || n < 1 || per < 1 || per > 4 || (seq != 0 && seq != 1))
+        return (int)cudaErrorInvalidValue;
     const long long threads = (n + per - 1) / per;
     const long long blocks = (threads + WF_SPLIT_THREADS - 1) / WF_SPLIT_THREADS;
     wf_link_reads_kernel<<<(unsigned)blocks, WF_SPLIT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const unsigned char*)buf, lines, n, per, sink);
+        (const unsigned char*)buf, lines, n, per, seq, sink);
+    return (int)cudaGetLastError();
+}
+
+// cold_scatter's geometries (ops/csrc/cold_probe.cu, wf_cold_scatter, which
+// runs e = 2, 256 threads, 2 blocks an SM): the same staging (n 16-byte
+// pairs {key, head row}, then from the next 128-byte line n int32 slot
+// numbers) written into slots[slot] = {key, head row} with e entries a
+// thread (1, 2 or 4), `threads` a block (a multiple of 32, at most 256) and
+// at most per_sm blocks an SM. A warp takes 32e consecutive entries: load j
+// reads the pairs of entries 32j + lane; where e = 4 the slot numbers come
+// in as one 16-byte load of four a thread, handed to the pairs' threads by
+// shuffles, else a 4-byte load a pair; a ragged last chunk reads scalar.
+__device__ __forceinline__ uint4 wf_split_ld16_sys(const void* p) {
+    uint4 v;
+    asm volatile("ld.relaxed.sys.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ int wf_split_ld4_sys(const int* p) {
+    int v;
+    asm volatile("ld.relaxed.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ longlong2 wf_split_pair(uint4 v) {
+    return make_longlong2((long long)(((unsigned long long)v.y << 32) | v.x),
+                          (long long)(((unsigned long long)v.w << 32) | v.z));
+}
+
+template <int E>
+__global__ void __launch_bounds__(WF_SPLIT_THREADS)
+wf_scatter_geom_kernel(const unsigned char* staging, long long n, longlong2* __restrict__ slots) {
+    const uint4* pairs = (const uint4*)staging;
+    const int* at = (const int*)(staging + ((16 * n + 127) & ~127ll));
+    const int lane = threadIdx.x & 31;
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    const long long chunks = (n + 32 * E - 1) / (32 * E);
+    for (long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; c < chunks;
+         c += warps) {
+        const long long base = c * 32 * E;
+        uint4 v[E];
+        int s[E];
+        if (base + 32 * E <= n) {
+#pragma unroll
+            for (int j = 0; j < E; ++j) v[j] = wf_split_ld16_sys(pairs + base + 32 * j + lane);
+            if (E == 4) {
+                // entry base + 32 j + lane's number is word lane % 4 of lane 8 j + lane / 4
+                const uint4 q = wf_split_ld16_sys(at + base + 4 * lane);
+#pragma unroll
+                for (int j = 0; j < E; ++j) {
+                    const int src = 8 * j + (lane >> 2);
+                    const unsigned x = __shfl_sync(0xffffffffu, q.x, src);
+                    const unsigned y = __shfl_sync(0xffffffffu, q.y, src);
+                    const unsigned z = __shfl_sync(0xffffffffu, q.z, src);
+                    const unsigned w = __shfl_sync(0xffffffffu, q.w, src);
+                    const int k = lane & 3;
+                    s[j] = (int)(k == 0 ? x : k == 1 ? y : k == 2 ? z : w);
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < E; ++j) s[j] = wf_split_ld4_sys(at + base + 32 * j + lane);
+            }
+#pragma unroll
+            for (int j = 0; j < E; ++j) slots[s[j]] = wf_split_pair(v[j]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < E; ++j) {
+                const long long i = base + 32 * j + lane;
+                if (i < n) {
+                    v[j] = wf_split_ld16_sys(pairs + i);
+                    s[j] = wf_split_ld4_sys(at + i);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < E; ++j)
+                if (base + 32 * j + lane < n) slots[s[j]] = wf_split_pair(v[j]);
+        }
+    }
+}
+
+// staging: device address of the mapped staging, 16-byte aligned.
+WF_EXPORT int wf_scatter_geom(const void* staging, long long n, void* slots, int e,
+                              int threads, int per_sm, void* stream) {
+    if (n < 0 || ((uintptr_t)staging & 15) || (e != 1 && e != 2 && e != 4) || threads < 32 ||
+        threads > WF_SPLIT_THREADS || threads % 32 || per_sm < 1)
+        return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    int dev = 0, sms = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r != cudaSuccess) return (int)r;
+    const long long warps = (n + 32 * e - 1) / (32 * e);
+    long long blocks = (warps * 32 + threads - 1) / threads;
+    if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+    const unsigned char* st = (const unsigned char*)staging;
+    cudaStream_t cs = (cudaStream_t)stream;
+    longlong2* out = (longlong2*)slots;
+    if (e == 4) wf_scatter_geom_kernel<4><<<(unsigned)blocks, threads, 0, cs>>>(st, n, out);
+    else if (e == 2) wf_scatter_geom_kernel<2><<<(unsigned)blocks, threads, 0, cs>>>(st, n, out);
+    else wf_scatter_geom_kernel<1><<<(unsigned)blocks, threads, 0, cs>>>(st, n, out);
     return (int)cudaGetLastError();
 }
 

@@ -389,6 +389,12 @@ class Monitor:
         return {"chain_signatures": sigs} if sigs else {}
 
     def start(self) -> None:
+        if self.slo is not None and self.slo.profiler is not None:
+            # profile-on-page captures on the Reporter's tick thread: the
+            # process's first CUDA profiler session opens here, on the
+            # thread that starts the Monitor (stats.profiler_init)
+            from ..stats import profiler_init
+            profiler_init()
         if self.journal is not None:
             set_journal(self.journal)
             self.journal.event("monitoring_start", graph=self.registry.name,

@@ -179,7 +179,10 @@ class ProfileOnPage:
     :func:`profile_window` summary or ``{"profile_skipped": reason}`` —
     never raises (forensics must not kill a Reporter tick), and never
     latches anything itself (a held ``xprof_trace`` session is a skip
-    reason, not a second latch)."""
+    reason, not a second latch). It runs on the Reporter's tick thread, so
+    the process's first CUDA profiler session must already be open
+    (``Monitor.start`` opens it, ``stats.profiler_init``); without it the
+    capture is skipped with the reason."""
 
     def __init__(self, config: Optional[ProfileConfig] = None):
         self.config = config or ProfileConfig()

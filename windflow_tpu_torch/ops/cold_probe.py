@@ -14,7 +14,7 @@ valid. The store keeps the mirror up
 with :func:`cold_scatter_cuda` (a third entry point of the same source, a
 helper kernel registered as ``cold_scatter``; its plain version
 :func:`cold_scatter_plain`): after each write, the slots it wrote, staged
-in mapped memory.
+in mapped memory by :func:`stage_slots`, 20 bytes an entry.
 
 :func:`cold_probe` returns what ``HostStore.lookup`` gives for the wanted
 lanes, in the form the JAX callbacks hand back: ``(found [R] bool, m0, m1,
@@ -193,26 +193,73 @@ def cold_probe_cuda(store, keys: torch.Tensor, want: torch.Tensor):
     return (found, m0, m1, m2, *cols)
 
 
-def cold_scatter_plain(mirror: torch.Tensor, entries: np.ndarray) -> None:
-    """Plain version: one indexed copy of the entries' (key, head row) into
-    their slots (the entries copied to the mirror's device first)."""
-    e = torch.from_numpy(np.ascontiguousarray(entries, np.int64)).to(mirror.device)
-    mirror[e[:, 2]] = e[:, :2]
+#: slot numbers are int32 in the staging: an index copy holds fewer slots
+MAX_SCATTER_SLOTS = 1 << 31
 
 
-def cold_scatter_cuda(mirror: torch.Tensor, entries_dev: int, n: int) -> None:
-    """Launch ``csrc/cold_probe.cu``'s scatter of ``n`` mapped entries at
-    device address ``entries_dev`` into ``mirror`` on the current stream."""
+def slots_offset(n: int) -> int:
+    """Byte offset of the slot numbers in a staging of ``n`` entries: the
+    pairs' ``16 n`` bytes rounded up to a 128-byte line (the kernel's
+    ``wf_scatter_slots_at``)."""
+    return (16 * int(n) + 127) & ~127
+
+
+def staging_bytes(n: int) -> int:
+    """Bytes a staging of ``n`` entries takes (:func:`stage_slots`)."""
+    return slots_offset(n) + 4 * int(n)
+
+
+def stage_slots(idx: np.ndarray, slots: np.ndarray, buf: np.ndarray) -> int:
+    """Lay out ``cold_scatter``'s staging of the index ``idx`` (int64 ``[S,
+    2]``: key, head row) at ``slots`` in the bytes ``buf`` (uint8, at least
+    :func:`staging_bytes` long, 16-byte aligned): ``n`` 16-byte pairs
+    ``idx[slots]``, then from the next 128-byte line ``n`` int32 slot
+    numbers. Returns ``n``."""
+    slots = np.asarray(slots)
+    n = len(slots)
+    if len(idx) >= MAX_SCATTER_SLOTS:
+        raise ValueError(f"stage_slots: an index of {len(idx)} slots; the staging holds "
+                         f"int32 slot numbers (under {MAX_SCATTER_SLOTS})")
+    if buf.dtype != np.uint8 or buf.ndim != 1 or len(buf) < staging_bytes(n):
+        raise ValueError(f"stage_slots: buf must be uint8 bytes, at least "
+                         f"{staging_bytes(n)} of them, got {buf.dtype} {buf.shape}")
+    o = slots_offset(n)
+    buf[:16 * n].view(np.int64).reshape(n, 2)[:] = idx[slots]
+    buf[o:o + 4 * n].view(np.int32)[:] = slots
+    return n
+
+
+def cold_scatter_plain(mirror: torch.Tensor, staged: np.ndarray, n: int) -> None:
+    """Plain version: one indexed copy of ``n`` staged entries (the bytes
+    :func:`stage_slots` wrote) into their slots (the pairs and slot numbers
+    copied to the mirror's device first)."""
+    o = slots_offset(n)
+    pairs = torch.from_numpy(staged[:16 * n].view(np.int64).reshape(n, 2).copy())
+    at = torch.from_numpy(staged[o:o + 4 * n].view(np.int32).astype(np.int64))
+    mirror[at.to(mirror.device)] = pairs.to(mirror.device)
+
+
+def cold_scatter_cuda(mirror: torch.Tensor, staging_dev: int, n: int) -> None:
+    """Launch ``csrc/cold_probe.cu``'s scatter of ``n`` entries staged in
+    mapped memory at device address ``staging_dev`` (:func:`stage_slots`)
+    into ``mirror`` on the current stream; raises on a mirror the kernel
+    does not take (2^31 slots or more among them) or a misaligned staging."""
     if mirror.dtype != torch.int64 or mirror.ndim != 2 or mirror.shape[1] != 2 \
             or not mirror.is_contiguous() or mirror.device.type != "cuda":
         raise ValueError(f"cold_scatter_cuda: mirror must be a contiguous int64 [S, 2] "
                          f"CUDA tensor, got {mirror.dtype} {tuple(mirror.shape)} on "
                          f"{mirror.device}")
+    if mirror.shape[0] >= MAX_SCATTER_SLOTS:
+        raise ValueError(f"cold_scatter_cuda: a mirror of {mirror.shape[0]} slots; slot "
+                         f"numbers are int32 (under {MAX_SCATTER_SLOTS})")
+    if int(staging_dev) % 16:
+        raise ValueError(f"cold_scatter_cuda: the staging at {staging_dev:#x} is not "
+                         f"16-byte aligned")
     if n <= 0:
         return
     fn = cuda.function("cold_probe", "wf_cold_scatter", _SCATTER_ARGTYPES)
     count_launch("cold_scatter")
-    cuda.check(fn(ctypes.c_void_p(entries_dev), int(n), cuda.ptr(mirror),
+    cuda.check(fn(ctypes.c_void_p(staging_dev), int(n), cuda.ptr(mirror),
                   cuda.stream_ptr(mirror.device)), "cold_scatter_cuda")
 
 
@@ -267,6 +314,7 @@ def cold_fetch_cuda(store, keys: torch.Tensor, want: torch.Tensor, rows: int):
 
 __all__ = ["MAX_COLS", "DESC_SLOTS", "DESC_LG", "DESC_NCOLS", "DESC_REC", "DESC_REC_BYTES",
            "DESC_COL0", "DESC_WORDS", "MappedBuffer",
-           "cold_probe", "cold_probe_plain", "cold_probe_cuda", "cold_scatter_plain",
+           "cold_probe", "cold_probe_plain", "cold_probe_cuda", "MAX_SCATTER_SLOTS",
+           "slots_offset", "staging_bytes", "stage_slots", "cold_scatter_plain",
            "cold_scatter_cuda", "cold_fetch", "cold_fetch_plain",
            "cold_fetch_cuda"]

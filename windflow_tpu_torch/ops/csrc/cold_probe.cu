@@ -74,8 +74,18 @@
 // a window of that many bytes at a time.
 //
 // cold_scatter, the third, writes a host store's changed slots into its
-// index copy: entries of 32 bytes (key, head row, slot, 0) staged in mapped
-// memory, two threads an entry, a 16-byte load each and one 16-byte store.
+// index copy. The host stages n entries in mapped memory, 20 bytes each:
+// n 16-byte pairs {key, head row} (the slot's bytes), then, from the next
+// 128-byte line, n int32 slot numbers (ops/cold_probe.py::stage_slots). The
+// link bounds it: 20n bytes cross it, and each warp instruction's loads that
+// fall in one line are one request, so the kernel reads whole lines and
+// keeps many in flight. A warp takes 64 consecutive entries (two a
+// thread): load j reads the pairs of entries 32j + lane (512 bytes, four
+// lines), then the slot numbers a 4-byte load each (128 bytes, a line).
+// Every load of a chunk is issued before its stores, one 16-byte store a
+// slot to the index copy, and the grid is one wave of blocks over the SMs,
+// striding beyond it. At n = 16,384 that is 2560 line
+// requests against the 4096 of the earlier 32-byte entries.
 #include "common.cuh"
 
 // The descriptor's layout, for every kernel here (and ops/cold_probe.py's
@@ -316,35 +326,78 @@ WF_EXPORT int wf_cold_fetch(const void* desc, const int* keys, const bool* want,
     return (int)cudaGetLastError();
 }
 
+// The scatter's geometry: two entries a thread, 256 threads a block, at
+// most two blocks an SM. A split (chip_smoke.py --only scatter, over
+// benchmarks/csrc/split_probes.cu's wf_scatter_geom) timed 24 of them, e in
+// {1, 2, 4} (e = 4 with one 16-byte load of four slot numbers and
+// shuffles), 128 or 256 threads, 1-8 blocks an SM: at 16,384 and 2^18
+// entries all lie within 5-10% of each other (the link sets the time), e =
+// 4 3-4% behind at 16,384; this one is among the fastest at both.
+constexpr int WF_SCATTER_E = 2;
 constexpr int WF_SCATTER_THREADS = 256;
+constexpr int WF_SCATTER_PER_SM = 2;
 
-// Two threads an entry, each one 16-byte load, so a warp's loads read 512
-// contiguous bytes (four lines, four requests over the link): the even
-// thread holds {key, head row} and takes the slot from its odd neighbour.
+// 4 bytes over the host link (relaxed, system scope, as wf_ld16_sys)
+__device__ __forceinline__ int wf_ld4_sys(const int* p) {
+    int v;
+    asm volatile("ld.relaxed.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+
+// Byte offset of the slot numbers in a staging of n entries: the pairs'
+// bytes rounded up to a 128-byte line (ops/cold_probe.py::slots_offset).
+__host__ __device__ __forceinline__ long long wf_scatter_slots_at(long long n) {
+    return (16 * n + 127) & ~127ll;
+}
+
 __global__ void __launch_bounds__(WF_SCATTER_THREADS)
-wf_cold_scatter_kernel(const unsigned char* entries, long long n, longlong2* __restrict__ slots) {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < 2 * n) v = wf_ld16_sys(entries + 16 * t);
-    const unsigned lo = __shfl_xor_sync(0xffffffffu, v.x, 1);
-    const unsigned hi = __shfl_xor_sync(0xffffffffu, v.y, 1);
-    if (t < 2 * n && !(t & 1)) {
-        longlong2 e;
-        e.x = (long long)(((unsigned long long)v.y << 32) | v.x);
-        e.y = (long long)(((unsigned long long)v.w << 32) | v.z);
-        slots[(long long)(((unsigned long long)hi << 32) | lo)] = e;
+wf_cold_scatter_kernel(const unsigned char* staging, long long n, longlong2* __restrict__ slots) {
+    constexpr int E = WF_SCATTER_E;
+    const uint4* pairs = (const uint4*)staging;
+    const int* at = (const int*)(staging + wf_scatter_slots_at(n));
+    const int lane = threadIdx.x & 31;
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    const long long chunks = (n + 32 * E - 1) / (32 * E);
+    for (long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; c < chunks;
+         c += warps) {
+        // entry i = base + 32 j + lane; every load of the chunk, then every
+        // store (the last chunk masked where it is ragged)
+        const long long base = c * 32 * E;
+        uint4 v[E];
+        int s[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+            if (base + 32 * j + lane < n)
+                v[j] = wf_ld16_sys((const unsigned char*)(pairs + base + 32 * j + lane));
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+            if (base + 32 * j + lane < n) s[j] = wf_ld4_sys(at + base + 32 * j + lane);
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+            if (base + 32 * j + lane < n)
+                slots[s[j]] = make_longlong2(
+                    (long long)(((unsigned long long)v[j].y << 32) | v[j].x),
+                    (long long)(((unsigned long long)v[j].w << 32) | v[j].z));
     }
 }
 
-// Write n staged entries (mapped memory, 32 bytes each: key, head row, slot,
-// unused; int64) into the index copy: slots[slot] = {key, head row}. Entries
-// naming one slot twice carry the same value.
-WF_EXPORT int wf_cold_scatter(const void* entries, long long n, void* slots, void* stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+// Write n staged entries (mapped memory, 16-byte aligned; the layout above)
+// into the index copy: slots[slot] = {key, head row}. Entries naming one
+// slot twice carry the same value. Slot numbers are int32: the caller keeps
+// the index under 2^31 slots.
+WF_EXPORT int wf_cold_scatter(const void* staging, long long n, void* slots, void* stream) {
+    if (n < 0 || ((uintptr_t)staging & 15)) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    const long long blocks = (2 * n + WF_SCATTER_THREADS - 1) / WF_SCATTER_THREADS;
+    int dev = 0, sms = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r != cudaSuccess) return (int)r;
+    const long long warps = (n + 32 * WF_SCATTER_E - 1) / (32 * WF_SCATTER_E);
+    const long long wave = (long long)sms * WF_SCATTER_PER_SM;
+    long long blocks = (warps * 32 + WF_SCATTER_THREADS - 1) / WF_SCATTER_THREADS;
+    if (blocks > wave) blocks = wave;
     wf_cold_scatter_kernel<<<(unsigned)blocks, WF_SCATTER_THREADS, 0, (cudaStream_t)stream>>>(
-        (const unsigned char*)entries, n, (longlong2*)slots);
+        (const unsigned char*)staging, n, (longlong2*)slots);
     return (int)cudaGetLastError();
 }
 

@@ -177,12 +177,14 @@ RUNNERS = {"pipeline": run_pipeline, "graph": run_graph, "graph_det": run_graph_
            "threaded": run_threaded}
 
 
-def run_closed_loop(seed, device=None):
+def run_closed_loop(seed, device=None, queue_capacity=4, ticks=None):
     """The --remediate acceptance: a live threaded run under queue.stall
     chaos rides the loop OK -> PAGE (a latency burn) -> shed_harder
     actuation -> recovery back to OK, with the incident bundle recording
     the actions the page triggered. The admission rate stays far above the
-    source's, so it also asserts zero loss. Returns (problems, n_applies,
+    source's, so it also asserts zero loss. ``queue_capacity`` sizes the
+    rings (see below); a ``ticks`` list receives each monitor tick's
+    latency ``(state, signal_ms)``. Returns (problems, n_applies,
     n_faults)."""
     from windflow_tpu_torch.control import RemediationAction, RemediationPolicy
     from windflow_tpu_torch.observability import MonitoringConfig
@@ -217,8 +219,14 @@ def run_closed_loop(seed, device=None):
                                              stall_s=0.5, max_fires=4)], seed=seed))
     src = wt.Source(lambda i: {"v": (i % 13).float()}, total=total, num_keys=4,
                     device=dev)
+    # the paced sink keeps every ring full, so a clean batch's e2e latency is
+    # the batches in flight times the sink's period: with rings of 8 (about
+    # 20 batches in flight) that is ~90 ms on the CPU but 128-185 ms on the
+    # card, astride the 150 ms target, and clean ticks paged again after the
+    # recovery. Rings of 4 (about 11 in flight) halve it; a 0.5 s stall still
+    # delays 6 batches, so at least one sample of every stall carries it
     ThreadedPipeline(src, [[wt.Map(lambda t: {"v": t.v + 1.0}, device=dev)]],
-                     wt.Sink(sink, device=dev),
+                     wt.Sink(sink, device=dev), queue_capacity=queue_capacity,
                      batch_size=batch, pin=False, heartbeat_timeout=0.25,
                      faults=inj,
                      control=ControlConfig(autotune=False, backpressure=False,
@@ -230,6 +238,10 @@ def run_closed_loop(seed, device=None):
     events = [json.loads(line)
               for line in open(os.path.join(mon_dir, "events.jsonl"))]
     applies = [e for e in events if e.get("event") == "remediation_apply"]
+    if ticks is not None:
+        ticks.extend(((s.get("slo") or {}).get("latency", {}).get("state"),
+                      (s.get("slo") or {}).get("latency", {}).get("signal"))
+                     for s in snaps)
     paged = any((s.get("slo") or {}).get("latency", {}).get("state") == "page"
                 for s in snaps)
     final = (snaps[-1].get("slo") or {}).get("latency", {}).get("state")

@@ -261,9 +261,8 @@ class ServingRuntime:
 
         mon.remediation.bind("tenant_rate", _tenant_rate)
 
-    def run(self):
-        """Drive the service to EOS (all tenants closed their streams).
-        The Pipeline.run contract: returns the chain's terminal results."""
+    def _start_monitor(self) -> None:
+        """Build and start the run's Monitor, once, on this thread."""
         from ..observability import Monitor, MonitoringConfig
         cfg = MonitoringConfig.resolve(self._monitoring_arg)
         if cfg is not None and self._monitor is None:
@@ -271,6 +270,11 @@ class ServingRuntime:
             self._monitor.registry.register_pipeline(self)
             self._monitor.registry.attach_serving(self.serving_section)
             self._monitor.start()
+
+    def run(self):
+        """Drive the service to EOS (all tenants closed their streams).
+        The Pipeline.run contract: returns the chain's terminal results."""
+        self._start_monitor()
         mon = self._monitor
         self._bind_remediation(mon)
         start = getattr(self.source, "start", None)
@@ -376,9 +380,12 @@ class ServingRuntime:
     def run_background(self) -> threading.Thread:
         """Run the drive loop on a daemon thread (long-lived services; the
         caller joins or lets EOS end it).  Result/exception land on
-        ``.background_result`` / ``.background_error``."""
+        ``.background_result`` / ``.background_error``. The Monitor starts
+        on the calling thread, so profile-on-page's first profiler session
+        opens there (``stats.profiler_init``), not on the drive thread."""
         self.background_result = None
         self.background_error = None
+        self._start_monitor()
 
         def _main():
             try:

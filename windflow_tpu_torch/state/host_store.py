@@ -43,7 +43,8 @@ costs device-memory reads, and only a hit's record crosses the host link.
 Every C pass that writes slots lists them, and the writer copies just those
 slots across with one launch of the ``cold_scatter`` kernel on the current
 stream (the chain's, whose next step reads them; the slots staged in a
-mapped buffer), with an event behind it: a writer waits for it before it
+mapped buffer, 20 bytes a slot: ``ops/cold_probe.py::stage_slots``), with
+an event behind it: a writer waits for it before it
 touches the host index or the staging again. A rebuild of the index
 (growth, compaction, a restore) copies the whole slot array from the pinned
 host index with one copy, waited for at once (a store is built, grown and
@@ -132,7 +133,7 @@ class HostStore:
         self._readmit_dev = None
         self._dev_seen = 0       # the device counter's value at the last fold
         self._mirror = None      # the index's slots in the card's memory
-        self._staging = None     # mapped (key, head, slot, 0) entries for cold_scatter
+        self._staging = None     # mapped staging of cold_scatter (stage_slots)
         self._upkeep = None      # event after the last copy to the mirror
         #: the mirror's upkeep: cold_scatter launches and whole-index uploads
         self.mirror_scatters = 0
@@ -319,15 +320,14 @@ class HostStore:
             self.mirror_uploads += 1
             stream.synchronize()
             return
-        from ..ops.cold_probe import MappedBuffer, cold_scatter_cuda
+        from ..ops.cold_probe import (MappedBuffer, cold_scatter_cuda, stage_slots,
+                                      staging_bytes)
         n = len(slots)
-        if self._staging is None or self._staging.nbytes < 32 * n:
-            size = 32 * max(n, 1 << max(8, (n - 1).bit_length()))
+        if self._staging is None or self._staging.nbytes < staging_bytes(n):
+            size = staging_bytes(max(n, 1 << max(8, (n - 1).bit_length())))
             self._staging = MappedBuffer(size)
-            self._staged = self._staging.array(np.int64, (size // 32, 4))
-        st = self._staged[:n]
-        st[:, :2] = self._idx[slots]
-        st[:, 2] = slots
+            self._staged = self._staging.array(np.uint8, (size,))
+        stage_slots(self._idx, slots, self._staged)
         cold_scatter_cuda(self._mirror, self._staging.dev, n)
         self.mirror_scatters += 1
         ev = torch.cuda.Event()

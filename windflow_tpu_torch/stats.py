@@ -239,6 +239,9 @@ class Stats_Record:  # wf-lint: single-writer[driver, stage]
 #: instead of the profiler's own error surfacing out of user code.
 _xprof_lock = threading.Lock()
 _xprof_logdir = None
+#: the thread that opened the process's first session with CUDA activity
+#: (:func:`profiler_init`), None before it
+_profiler_thread = None
 
 
 def profiler_activities() -> list:
@@ -251,6 +254,51 @@ def profiler_activities() -> list:
     if torch.cuda.is_available() and ProfilerActivity.CUDA in supported_activities():
         acts.append(ProfilerActivity.CUDA)
     return acts
+
+
+def _first_session(activities: list) -> None:
+    """Open and close one short ``torch.profiler`` session with
+    ``activities`` on this thread, around one small operation on the card."""
+    import torch
+    with torch.profiler.profile(activities=activities):
+        torch.ones((1,), device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def _init_locked(activities: list) -> bool:
+    """:func:`profiler_init` under ``_xprof_lock``; the session holds
+    ``CAPTURE_LOCK`` (it synchronizes, which a CUDA-graph capture on
+    another thread must not see)."""
+    global _profiler_thread
+    from torch.profiler import ProfilerActivity
+    from .runtime.graphs import CAPTURE_LOCK
+    if _profiler_thread is not None or ProfilerActivity.CUDA not in activities:
+        return False
+    with CAPTURE_LOCK:
+        _first_session(activities)
+    _profiler_thread = threading.get_ident()
+    return True
+
+
+def profiler_init() -> bool:
+    """Open the process's first ``torch.profiler`` session with CUDA
+    activity on this thread, once: Kineto sets up its CUPTI client on the
+    thread of the first session and refuses another thread (a first session
+    opened elsewhere traces no CUDA kernel, or the process crashes later).
+    Call it on the main thread before any capture runs on another thread
+    (``Monitor.start`` does when profile-on-page is on). It does nothing
+    without CUDA activity (:func:`profiler_activities`), after an earlier
+    init, or off the main thread, where the first session is the fault
+    itself: a later capture there is refused with the reason. Only this
+    init counts: a session opened another way (a ``torch.profiler.profile``
+    of the caller's own) does not lift the refusal. Returns whether it
+    opened the session."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    with _xprof_lock:
+        if _xprof_logdir is not None:
+            return False
+        return _init_locked(profiler_activities())
 
 
 @contextlib.contextmanager
@@ -270,7 +318,12 @@ def xprof_trace(logdir: str):
     the active session first and raises a ``RuntimeError`` that names the
     holder and the fix. Starting and stopping hold
     ``runtime/graphs.py::CAPTURE_LOCK``, so neither interleaves with a
-    CUDA-graph capture."""
+    CUDA-graph capture.
+
+    The process's first session with CUDA activity must open on the main
+    thread (:func:`profiler_init`): on the main thread this wrapper runs the
+    init itself; on another thread, before any init, it raises a
+    ``RuntimeError`` that names the cause and the fix."""
     global _xprof_logdir
     import torch
     from .runtime.graphs import CAPTURE_LOCK
@@ -283,7 +336,23 @@ def xprof_trace(logdir: str):
                 f"the existing capture (one file is enough: the trace "
                 f"carries every device event between start and stop) or "
                 f"close it first")
-        prof = torch.profiler.profile(activities=profiler_activities())
+        acts = profiler_activities()
+        if _profiler_thread is None and torch.profiler.ProfilerActivity.CUDA in acts:
+            th = threading.current_thread()
+            if th is not threading.main_thread():
+                raise RuntimeError(
+                    f"xprof_trace({logdir!r}): this would be the process's first "
+                    f"torch.profiler session with CUDA activity, on thread "
+                    f"{th.name!r}: Kineto sets up its CUPTI client on the thread "
+                    f"of the first session and refuses another thread (the "
+                    f"session traces no CUDA kernel, or the process crashes "
+                    f"later); call windflow_tpu_torch.stats.profiler_init() on "
+                    f"the main thread first (Monitor.start() does when "
+                    f"profile-on-page is on); a session opened another way, "
+                    f"such as a torch.profiler.profile of your own, does not "
+                    f"count")
+            _init_locked(acts)
+        prof = torch.profiler.profile(activities=acts)
         try:
             if torch.autograd._profiler_enabled():
                 raise RuntimeError("the autograd profiler is already enabled")
