@@ -17,8 +17,15 @@ Run from the repository root on a machine with the card:
                                        # scatter (the link's rates,
                                        # cold_scatter's split over its
                                        # geometries, and its checks),
-                                       # tiered_q3,
-                                       # nexmark_loop, path_b, sweep, chaos
+                                       # window_reduce (K6's split over
+                                       # its geometries, and its checks),
+                                       # tiered_q3, nexmark_loop, path_a,
+                                       # path_b, sweep, chaos, closed_loop,
+                                       # profiler_gate (wf_profile --capture
+                                       # over a running chain, the parent's
+                                       # profiler start and stop against the
+                                       # launch gate in turns, a crashed
+                                       # child replaced)
     python3 chip_smoke.py --helper-times # K2's (every main-path case), the
                                        # fold's, cold_fetch's,
                                        # cold_probe's (2^18 keys, q3's
@@ -26,8 +33,11 @@ Run from the repository root on a machine with the card:
                                        # and 2^18 slots) times on their check
                                        # inputs, nothing checked, then stops
                                        # (``--helper-times lookup``: K2's
-                                       # alone); copied into another tree,
-                                       # it times that tree's designs
+                                       # alone; ``--helper-times
+                                       # masked_window_reduce``: K6's on
+                                       # every check input, warm and cold);
+                                       # copied into another tree, it times
+                                       # that tree's designs
 
 Phases (each raises on a mismatch, so any failure exits non-zero):
 
@@ -108,11 +118,17 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 10. q3 at full width (2^20-event batches, 2048 auctions): 4 batches through
     ``Pipeline(...).run()``, dispatch off and at K = 2, then the loop; every
     emitted row against a numpy int32 oracle;
-11. K6 (masked_window_reduce) at ``bench.py::bench_pallas_ab``'s shapes and
-    at the window paths' shapes: bit-identical to its plain version on int32
-    and integer-valued float32, within rtol = atol = 1e-4 on random float32,
-    the same bits on two launches; its time, its bound and the time of
-    ``torch.sum(torch.where(mask, vals, 0), dim=1)``;
+11. K6 (masked_window_reduce) at ``bench.py::bench_pallas_ab``'s shapes, at
+    the window paths' shapes, on narrow rows, on few long rows and at every
+    dtype it takes (``k6_cases``): bit-identical to its plain version on
+    integers and integer-valued float32, within rtol = atol = 1e-4 on
+    random float32 (1e-2 half types, 1e-12 float64), the same bits on two
+    launches and for rows 0-6 alone; its time warm and cold (inputs cycled
+    through 100 MB, ``graph_cold_ms``), its bound (which the cold time must
+    not beat) and the warm and cold times of
+    ``torch.sum(torch.where(mask, vals, 0), dim=1)``. The window phases
+    (path A, path B, graph_windows, mesh, chaos) log their K6 calls by
+    ``(W, L, dtype)`` with each one's regime (``k6_calls``);
 12. path A, the windowed-operator matrix at full width (``bench_keyed_cb``'s
     geometry through Key_Farm): ``Pipeline(...).run()`` of 4 batches of 2^20,
     dispatch off and at K = 2, against a numpy oracle of all 8192 windows,
@@ -448,6 +464,9 @@ It exits non-zero, printing no result, without CUDA or without the package.
 """
 
 import argparse
+import contextlib
+import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -576,7 +595,8 @@ def compare(torch, got, want):
 
 
 def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
-                 ops=0, tol=None, counted=None, extra=None, timed=True, time_kernel=True):
+                 ops=0, tol=None, counted=None, extra=None, timed=True, time_kernel=True,
+                 cold=None):
     """Kernel vs plain version (bit for bit, or within ``tol`` = rtol = atol
     where float sums are taken in different orders) and their times.
     ``*_ms`` are device times from graph replay; ``*_eager_ms`` time eager
@@ -585,7 +605,10 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
     the operation rate; ``counted`` says what they count. ``timed=False``
     (a regime case, not a main-path shape) times the kernel alone, by graph
     replay, and leaves the plain version and the library call untimed;
-    ``time_kernel=False`` times nothing (ragged and outsized cases)."""
+    ``time_kernel=False`` times nothing (ragged and outsized cases).
+    ``cold=(inputs, kernel_call, library_call or None)`` adds
+    ``kernel_cold_ms`` and ``library_cold_ms`` (``graph_cold_ms``) and the
+    bound's share of the cold kernel time, which must not exceed 1."""
     got = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -611,9 +634,17 @@ def check_kernel(torch, name, case, kernel, plain, library, nbytes, shape,
            "bytes": nbytes, "ops": ops, "counted": counted,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if cold is not None:
+        inputs, kcall, lcall = cold
+        row["kernel_cold_ms"] = graph_cold_ms(torch, kcall, inputs)
+        row["library_cold_ms"] = None if lcall is None else graph_cold_ms(torch, lcall, inputs)
+        row["cold_share"] = row["bound_ms"] / row["kernel_cold_ms"]
     log(row)
     if not ok:
         raise AssertionError(f"{name} [{case}]: kernel differs from its plain version")
+    if cold is not None and row["cold_share"] > 1:
+        raise AssertionError(f"{name} [{case}]: cold time {row['kernel_cold_ms']} ms under "
+                             f"its bound {row['bound_ms']} ms")
     return row
 
 
@@ -2359,13 +2390,30 @@ def ysb_sum_phase(torch, np, wt, ysb, registry):
 # ------------------------------------------------------------------ K6 and the window paths
 
 #: K6 cases: (case, W, L, data). bench_pallas_ab's three shapes, path A's
-#: fired-window rows, path B's REDUCE rows and a ragged shape.
+#: fired-window rows, path B's REDUCE rows, a ragged shape; narrow rows (a
+#: thread a row: one, three and twelve values), few long rows ([64, 2^16],
+#: split over warps); the shapes the paths send (``k6_calls``: graph_windows'
+#: [192, 1024], the keyed Win_Farm's [4128, 16], the chaos sweep's [68, 128],
+#: [406, 12], whose last block's flag span ends in a partial line, and
+#: [474, 8192], split at C = 8); a view off 16 bytes (the wrapper's aligned
+#: copy); then every other dtype jnp.sum takes (``_k6_dtypes``) at path A's
+#: shape, the ragged one and the narrow [406, 12].
 K6_CASES = [("ab_4096x512", 4096, 512, "float"), ("ab_1024x1024", 1024, 1024, "float"),
             ("ab_8192x256", 8192, 256, "float"), ("path_a", 2112, 1024, "float"),
             ("path_a_integer_valued", 2112, 1024, "integer_float"),
             ("path_a_int32", 2112, 1024, "int32"), ("path_b_reduce", 10700, 4, "int32"),
             ("ragged", 1000, 777, "float"), ("ragged_integer_valued", 1000, 777,
-                                              "integer_float")]
+                                              "integer_float"),
+            ("narrow_4096x1", 4096, 1, "float"), ("narrow_4096x3", 4096, 3, "float"),
+            ("narrow_8192x12", 8192, 12, "float"),
+            ("narrow_8192x12_int32", 8192, 12, "int32"),
+            ("few_long_64x65536", 64, 65536, "float"),
+            ("graph_windows_192x1024", 192, 1024, "float"), ("mesh_4128x16", 4128, 16, "float"),
+            ("chaos_68x128", 68, 128, "float"), ("chaos_406x12", 406, 12, "float"),
+            ("chaos_474x8192", 474, 8192, "float"),
+            ("view_off_16B_1000x777", 1000, 777, "view")]
+K6_DTYPE_SHAPES = (("path_a", 2112, 1024), ("ragged", 1000, 777), ("narrow_tail", 406, 12))
+COLD_BYTES = 100 * 2 ** 20   # cold timing: copies of the inputs, twice the L2
 
 
 def iterable_unsigned_check(torch, dev, gen):
@@ -2404,24 +2452,40 @@ def iterable_unsigned_check(torch, dev, gen):
 
 def _k6_dtypes():
     """(dtype, tolerance or None for bit for bit, the library call's dtype)
-    of the dtypes F4 added to K6."""
+    of every dtype K6 takes besides float32 and int32: F4's (PR 7), then
+    bool, int8 and int16, read as stored since PR 25."""
     import torch
     return [(torch.uint8, None, torch.int64), (torch.uint16, None, torch.int64),
             (torch.uint32, None, torch.int64),
             (torch.float16, 1e-2, torch.float32), (torch.bfloat16, 1e-2, torch.float32),
-            (torch.float64, 1e-12, torch.float64)]
+            (torch.float64, 1e-12, torch.float64), (torch.int8, None, torch.int32),
+            (torch.int16, None, torch.int32), (torch.bool, None, torch.int32)]
 
 
-def window_reduce_kernel_phase(torch):
-    """K6 against its plain version (bit for bit on int32 and integer-valued
-    float32, within rtol = atol = 1e-4 on random float32), two launches
-    giving the same bits, and the one PyTorch call computing the same sum."""
-    from windflow_tpu_torch.ops import window_reduce as WR
-
+def k6_cases(torch):
+    """K6's inputs, made from one seed: ``(case, vals, mask, tol, library
+    dtype or None, shape record)`` for every ``K6_CASES`` case, then every
+    ``_k6_dtypes`` dtype at each ``K6_DTYPE_SHAPES`` shape. Each mask keeps
+    seven values in ten and none of row W // 2; a ``view`` case's values and
+    flags are ``[1:]`` of flat buffers, off 16 bytes. ``tol`` None: bit for bit
+    (integers, integer-valued float32); no library call for uint16 and
+    uint32 (torch has no ``where`` for them on the card)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261020)
-    rows = {}
+
+    def masked(W, L):
+        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
+        mask[W // 2] = False
+        return mask
     for case, W, L, kind in K6_CASES:
+        if kind == "view":
+            vals = torch.rand(W * L + 1, device=dev, generator=gen)[1:].view(W, L)
+            mask = torch.empty(W * L + 1, dtype=torch.bool, device=dev)[1:].view(W, L)
+            mask.copy_(masked(W, L))
+            assert vals.data_ptr() % 16 and mask.data_ptr() % 16
+            yield (case, vals, mask, 1e-4, vals.dtype, {"W": W, "L": L, "dtype": "float32",
+                                                        "view": "off 16 bytes"})
+            continue
         if kind == "float":
             vals = torch.rand((W, L), device=dev, generator=gen)
         elif kind == "integer_float":          # every partial sum < 2^24
@@ -2429,57 +2493,239 @@ def window_reduce_kernel_phase(torch):
         else:
             vals = torch.randint(-2 ** 31, 2 ** 31, (W, L), device=dev, generator=gen,
                                  dtype=torch.int64).to(torch.int32)
-        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
-        mask[W // 2] = False
-        zero = torch.zeros((), dtype=vals.dtype, device=dev)
+        yield (case, vals, masked(W, L), 1e-4 if kind == "float" else None, vals.dtype,
+               {"W": W, "L": L, "dtype": str(vals.dtype)})
+    for shape, W, L in K6_DTYPE_SHAPES:
+        for dt, tol, acc in _k6_dtypes():
+            if dt == torch.bool:
+                vals = torch.rand((W, L), device=dev, generator=gen) < 0.5
+            elif not dt.is_floating_point:
+                lo, hi = ((0, 2 ** (8 * dt.itemsize)) if dt in (torch.uint8, torch.uint16,
+                                                               torch.uint32)
+                          else (-2 ** (8 * dt.itemsize - 1), 2 ** (8 * dt.itemsize - 1)))
+                vals = torch.randint(lo, hi, (W, L), device=dev, generator=gen,
+                                     dtype=torch.int64).to(dt)
+            else:
+                vals = torch.randn((W, L), device=dev, generator=gen,
+                                   dtype=torch.float64).to(dt)
+            name = str(dt).split(".")[-1]
+            yield (f"{shape}_{name}", vals, masked(W, L), tol,
+                   None if dt in (torch.uint16, torch.uint32) else acc,
+                   {"W": W, "L": L, "dtype": name})
+
+
+def k6_as_bits(torch, t):
+    """A K6 result as a tensor torch can compare: uint32 as its int32 bits."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def k6_library(torch, acc):
+    """The one PyTorch call of K6's function, summing in ``acc``."""
+    def call(vals, mask):
+        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+        return torch.sum(torch.where(mask, vals, zero), dim=1, dtype=acc)
+    return call
+
+
+def graph_cold_ms(torch, call, inputs, reps=3):
+    """Device time of one ``call(*inputs)`` that finds its inputs cold in the
+    L2: copies of ``inputs`` totalling at least ``COLD_BYTES`` (twice the
+    H100's 50 MB L2), one call on each captured in turn in one CUDA graph,
+    replayed ``reps`` times."""
+    size = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [tuple(t.clone() for t in inputs) for _ in range(max(2, -(-COLD_BYTES // size)))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in copies[:2]:
+            call(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with collection_paused(), torch.cuda.graph(g):
+        for c in copies:
+            call(*c)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (len(copies) * reps)
+    del g, copies
+    return ms
+
+
+def window_reduce_kernel_phase(torch):
+    """K6 against its plain version on every ``k6_cases`` input (bit for bit
+    on integers and integer-valued float32, within the case's tolerance on
+    other floats), two launches giving the same bits, the first seven rows
+    alone giving the bits they have in the whole call (a row's order does
+    not depend on W), each case's plan, and the one PyTorch call computing
+    the same sum; warm times (``check_kernel``) and cold ones
+    (``graph_cold_ms``: kernel and library), whose share of the bound must
+    not read above 1."""
+    from windflow_tpu_torch.ops import window_reduce as WR
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261021)
+    rows = {}
+    for case, vals, mask, tol, acc, shape in k6_cases(torch):
+        W, L = vals.shape
+        odt = WR.sum_dtype(vals.dtype)
+        plan = WR.reduce_plan(W, L, vals.element_size())
+        lib = None if acc is None else k6_library(torch, acc)
         row = check_kernel(
             torch, "masked_window_reduce", case,
-            lambda: WR.masked_window_reduce_cuda(vals, mask),
-            lambda: WR.masked_window_reduce_plain(vals, mask),
-            lambda: torch.sum(torch.where(mask, vals, zero), dim=1, dtype=vals.dtype),
-            W * L * 5 + W * 4, {"W": W, "L": L, "dtype": str(vals.dtype)},
-            tol=1e-4 if kind == "float" else None)
-        first = WR.masked_window_reduce_cuda(vals, mask)
-        second = WR.masked_window_reduce_cuda(vals, mask)
+            lambda: k6_as_bits(torch, WR.masked_window_reduce_cuda(vals, mask)),
+            lambda: k6_as_bits(torch, WR.masked_window_reduce_plain(vals, mask)),
+            None if lib is None else (lambda: lib(vals, mask)),
+            W * L * (vals.element_size() + 1) + W * odt.itemsize,
+            {**shape, "out_dtype": str(odt)}, tol=tol,
+            counted="bytes: each value and flag read once, each row's sum written once"
+                    + ("" if acc is None else f"; the library call sums in {acc}"),
+            extra={"plan": dataclasses.asdict(plan)},
+            cold=((vals, mask), WR.masked_window_reduce_cuda, lib))
+        first = k6_as_bits(torch, WR.masked_window_reduce_cuda(vals, mask))
+        second = k6_as_bits(torch, WR.masked_window_reduce_cuda(vals, mask))
+        head = k6_as_bits(torch, WR.masked_window_reduce_cuda(vals[:7], mask[:7]))
         if not torch.equal(_bits(torch, first), _bits(torch, second)):
             raise AssertionError(f"masked_window_reduce [{case}]: two launches differ")
+        if not torch.equal(_bits(torch, first[:7]), _bits(torch, head)):
+            raise AssertionError(f"masked_window_reduce [{case}]: rows 0-6 alone sum to "
+                                 f"other bits than in the whole call")
         rows[case] = row
-    # F4: every dtype jnp.sum takes, at path A's shape; uint32 results are
-    # compared as their int32 bits (torch's uint32 has few operators)
-    for dt, tol, acc in _k6_dtypes():
-        W, L = 2112, 1024
-        if dt in (torch.uint8, torch.uint16, torch.uint32):
-            hi = {torch.uint8: 256, torch.uint16: 65536, torch.uint32: 2 ** 32}[dt]
-            vals = torch.randint(0, hi, (W, L), device=dev, generator=gen,
-                                 dtype=torch.int64).to(dt)
-        else:
-            vals = torch.randn((W, L), device=dev, generator=gen, dtype=torch.float64).to(dt)
-        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
-        mask[W // 2] = False
-        out_dt = WR.sum_dtype(dt)
-        as_bits = (lambda t: t.view(torch.int32)) if out_dt == torch.uint32 else (lambda t: t)
-        zero = torch.zeros((), dtype=dt, device=dev)
-        row = check_kernel(
-            torch, "masked_window_reduce", f"path_a_{str(dt).split('.')[-1]}",
-            lambda: as_bits(WR.masked_window_reduce_cuda(vals, mask)),
-            lambda: as_bits(WR.masked_window_reduce_plain(vals, mask)),
-            # torch has no where for uint16/uint32 on the card: no library call
-            None if dt in (torch.uint16, torch.uint32) else
-            (lambda: torch.sum(torch.where(mask, vals, zero), dim=1, dtype=acc)),
-            W * L * (vals.element_size() + 1) + W * out_dt.itemsize,
-            {"W": W, "L": L, "dtype": str(dt), "out_dtype": str(out_dt)}, tol=tol,
-            counted="bytes: each value and flag read once, each row's sum written "
-                    "once; the library call sums in " + str(acc))
-        first = as_bits(WR.masked_window_reduce_cuda(vals, mask))
-        second = as_bits(WR.masked_window_reduce_cuda(vals, mask))
-        if not torch.equal(_bits(torch, first), _bits(torch, second)):
-            raise AssertionError(f"masked_window_reduce [{dt}]: two launches differ")
-        rows[row["case"]] = row
     iterable_unsigned_check(torch, dev, gen)
     log({"phase": "window_reduce_kernel",
+         "regimes": sorted({r["plan"]["regime"] for r in rows.values()}),
          "ab_kernel_over_library": {c: rows[c]["kernel_ms"] / rows[c]["library_ms"]
-                                    for c in rows if rows[c]["library_ms"]}})
+                                    for c in rows if rows[c]["library_ms"]},
+         "cold_share": {c: rows[c]["cold_share"] for c in rows}})
     return rows["path_a"]
+
+
+#: k6_split's shapes: (case, W, L, itemsize). Narrow rows around the
+#: thread-a-row bound (64 values, 256 value bytes) and long rows at the
+#: K6_CASES shapes; int32 (itemsize 4) or uint8 (1) values, whose sums are
+#: exact in any order
+K6_SPLIT_SHAPES = [("path_b", 10700, 4, 4), ("narrow_8192x12", 8192, 12, 4),
+                   ("row_128B", 8192, 32, 4), ("row_256B", 8192, 64, 4),
+                   ("uint8_4096x100", 4096, 100, 1), ("path_a", 2112, 1024, 4),
+                   ("ab_1024x1024", 1024, 1024, 4), ("ab_8192x256", 8192, 256, 4),
+                   ("ragged", 1000, 777, 4), ("uint8_path_a", 2112, 1024, 1),
+                   ("few_long_64x65536", 64, 65536, 4)]
+
+
+def k6_geometries(W, L, itemsize):
+    """``(unroll, regime, threads, C)`` geometries k6_split times at a
+    shape: the narrow regime (64 to 512 threads) for rows up to 256 value
+    bytes; the warp regime (4, 8, 16 warps a block) and the split regime (C
+    = 2 to 16 where every row has chunks for every warp, C or 8 warps a
+    block) for rows above 64 bytes; unroll 1, 2, 4 and 8 (+ 16: the long
+    regimes' contiguous layout, each lane 16 consecutive values)."""
+    out = []
+    nch = -(-L // 512)
+    for u in (1, 2, 4, 8):
+        if L * itemsize <= 256 and u > 1:
+            out += [(u, 0, t, 1) for t in (64, 128, 256, 512)]
+        if L * itemsize > 64:
+            for lay in (0, 16):
+                out += [(u + lay, 1, 32 * w, 1) for w in (4, 8, 16)]
+                for C in (2, 4, 8, 16):
+                    if C <= nch:
+                        out += [(u + lay, 2, 32 * w, C) for w in sorted({C, max(C, 8)})]
+    return out
+
+
+def k6_split(torch, probes, card):
+    """``--only window_reduce``: K6's geometries (``k6_geometries``) at every
+    ``K6_SPLIT_SHAPES`` shape through the probe ``wf_k6_geom``
+    (``PROBES_SRC``, the three regimes' copies), each first held bit for bit
+    against the plain version, then timed by graph replay in three rounds
+    in turns with the wrapper on the same input (its plan logged);
+    medians, minima, the best geometry, the launch floor and the bound
+    beside them."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda, window_reduce as WR
+
+    fn = probes.wf_k6_geom
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                               ctypes.c_void_p])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    floor = launch_floor_ms(torch, probes)
+    for case, W, L, size in K6_SPLIT_SHAPES:
+        dt = torch.int32 if size == 4 else torch.uint8
+        lo, hi = (-2 ** 31, 2 ** 31) if size == 4 else (0, 256)
+        vals = torch.randint(lo, hi, (W, L), device=dev, generator=gen,
+                             dtype=torch.int64).to(dt)
+        mask = torch.rand((W, L), device=dev, generator=gen) < 0.7
+        want = k6_as_bits(torch, WR.masked_window_reduce_plain(vals, mask))
+        out = torch.empty((W,), dtype=torch.int32, device=dev)
+
+        def launcher(u, regime, threads, C):
+            per = threads if regime == 0 else threads // 32 // C
+            blocks = -(-W // per)
+            return lambda: cuda.check(fn(cuda.ptr(vals), size, cuda.ptr(mask), cuda.ptr(out), W,
+                                         L, u, regime, threads, C, blocks,
+                                         cuda.stream_ptr(dev)), f"k6 split {case}")
+        geos = k6_geometries(W, L, size)
+        wrong = []
+        for g in geos:
+            out.fill_(-1)
+            launcher(*g)()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                wrong.append(g)
+        if wrong:
+            raise AssertionError(f"k6 split [{case}]: geometries {wrong} differ from the "
+                                 f"plain version")
+        times = {g: [] for g in geos}
+        chosen = []
+        for _ in range(3):
+            for g in geos:
+                times[g].append(graph_ms(torch, launcher(*g)))
+            chosen.append(graph_ms(torch, lambda: WR.masked_window_reduce_cuda(vals, mask)))
+        names = {g: f"{('narrow', 'warp', 'split')[g[1]]} unroll={g[0]} threads={g[2]} "
+                    f"C={g[3]}" for g in geos}
+        med = {names[g]: sorted(v)[1] for g, v in times.items()}
+        best = min(med, key=med.get)
+        nbytes = W * L * (size + 1) + W * 4
+        log({"split": "masked_window_reduce", "case": case, "W": W, "L": L, "itemsize": size,
+             "card": card, "median_ms": med,
+             "min_ms": {names[g]: min(v) for g, v in times.items()}, "best": best,
+             "best_ms": med[best], "plan": dataclasses.asdict(WR.reduce_plan(W, L, size)),
+             "chosen_ms": sorted(chosen)[1], "chosen_all_ms": chosen,
+             "launch_floor_ms": floor, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+
+
+@contextlib.contextmanager
+def k6_calls(what, card):
+    """Count the K6 calls of a phase by ``(W, L, dtype)``, as the wrapper
+    sees them (eager calls and captures; a CUDA graph's replays repeat its
+    capture's calls unseen), and log them with the plan each gets, so the
+    regimes can be checked against what the paths send."""
+    import collections
+    from windflow_tpu_torch.ops import window_reduce as WR
+
+    inner, seen = WR.masked_window_reduce_cuda, collections.Counter()
+
+    def spy(vals, mask):
+        seen[(int(vals.shape[0]), int(vals.shape[1]), str(vals.dtype).split(".")[-1],
+              vals.element_size())] += 1
+        return inner(vals, mask)
+    WR.masked_window_reduce_cuda = spy
+    try:
+        yield seen
+    finally:
+        WR.masked_window_reduce_cuda = inner
+        log({"k6_calls": what, "card": card, "shapes": [
+            {"W": W, "L": L, "dtype": dt, "calls": n,
+             "regime": WR.reduce_plan(W, L, size).regime if W and L else None}
+            for (W, L, dt, size), n in sorted(seen.items())]})
 
 
 def run_with_flush_launches(registry, pipe, op_index):
@@ -5711,6 +5957,20 @@ HELPER_PROBE_ROWS = 1 << 18   # helper_times' probe store: its keys
 Q3_STORE_KEYS = 100 * NEX_BATCH  # tiered q3's store at 2^14: its keys
 
 
+def k6_helper_times(torch, card):
+    """K6 timed alone on every ``k6_cases`` input through the wrapper,
+    nothing checked: warm (``graph_ms``) and cold (``graph_cold_ms``). It
+    calls only ``masked_window_reduce_cuda``, so the script copied into an
+    older tree times that tree's design (its fill and its casts included,
+    as its paths ran them) on the same inputs."""
+    from windflow_tpu_torch.ops import window_reduce as WR
+    for case, vals, mask, _, _, shape in k6_cases(torch):
+        call = WR.masked_window_reduce_cuda
+        log({"helper_times": "masked_window_reduce", "case": case, **shape, "card": card,
+             "ms": graph_ms(torch, lambda: call(vals, mask)),
+             "cold_ms": graph_cold_ms(torch, call, (vals, mask))})
+
+
 def helper_times(torch, np, ysb, card, lookup_only=False):
     """K2 and the helper kernels timed alone on their check inputs, nothing
     checked: K2 on every ``k2_main_cases`` input (a group of tables in one
@@ -7714,6 +7974,94 @@ sys.exit(box.get("rc", 1))
 """
 
 
+#: a child process that runs ``wf_profile --capture`` on a worker thread over
+#: an eager Key_FFAT chain stepping on the main thread, again and again for
+#: ``argv[2]`` seconds, printing a JSON line a capture: ``argv[1]`` ``gate``
+#: holds the launch gate around each step (F30), ``parent`` starts and
+#: stops the profiler as the parent tree did (``CAPTURE_LOCK`` only, no gate)
+PROFILE_GATE_CHILD = """
+import contextlib, faulthandler, io, json, os, shutil, sys, tempfile, threading, time
+faulthandler.enable(all_threads=True)
+import torch
+from windflow_tpu_torch import stats
+from windflow_tpu_torch.benchmarks import sweep
+from windflow_tpu_torch.observability.profiling import trace_kernels
+from windflow_tpu_torch.runtime.graphs import CAPTURE_LOCK, LAUNCH_GATE
+from windflow_tpu_torch.runtime.pipeline import CompiledChain
+from windflow_tpu_torch.scripts import wf_profile
+mode, budget = sys.argv[1], float(sys.argv[2])
+if mode == "parent":
+    @contextlib.contextmanager
+    def parent_start_stop():
+        with CAPTURE_LOCK:
+            yield
+    stats._quiet_card = parent_start_stop
+    gate = contextlib.nullcontext
+else:
+    gate = LAUNCH_GATE.shared
+stats.profiler_init()
+B = 1 << 18
+dev = sweep.resolve_device("cuda")
+src, ops = sweep.workloads(B, 500, B << 12, dev)["win_kf"]
+chain = CompiledChain(ops, src.payload_spec(), batch_capacity=B, device=dev, event_time=False)
+states, cur = list(chain.states), torch.zeros((), dtype=torch.int32, device=dev)
+t_end = time.perf_counter() + budget
+while time.perf_counter() < t_end:
+    logdir, box = tempfile.mkdtemp(prefix="wf_gate_"), {}
+    def capture():
+        box["rc"] = wf_profile.main(["--capture", logdir, "--window-ms", "300", "--json"])
+    th = threading.Thread(target=capture)
+    steps = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        th.start()
+        while th.is_alive():
+            with gate():
+                b = src.make_batch(cur, B)
+                for j, op in enumerate(chain.ops):
+                    states[j], b = op.apply(states[j], b)
+                cur = cur + B
+                steps += 1
+                torch.cuda.synchronize()
+        th.join()
+    kernels = trace_kernels(os.path.join(logdir, "trace.json"))
+    shutil.rmtree(logdir, ignore_errors=True)
+    print(json.dumps({"rc": box.get("rc"), "kernels": len(kernels), "steps": steps}),
+          flush=True)
+"""
+
+
+def profiler_gate_stress(card, seconds=60.0, rounds=3):
+    """``--only profiler_gate``: ``PROFILE_GATE_CHILD`` in turns, the parent
+    tree's profiler start and stop (no gate) and the launch gate (F30),
+    ``seconds`` of captures each a round; a child that dies (a crash) is
+    replaced until its turn's time is spent. Logs, a mode, the captures,
+    the ones that failed or traced no kernel, and the children that died
+    with their exit codes."""
+    runs = {"parent": {"captures": 0, "bad": 0, "died": []},
+            "gate": {"captures": 0, "bad": 0, "died": []}}
+    for r in range(rounds):
+        for mode in (("parent", "gate") if r % 2 == 0 else ("gate", "parent")):
+            end = time.perf_counter() + seconds
+            while True:
+                left = end - time.perf_counter()
+                if left < 5:
+                    break
+                proc = subprocess.run([sys.executable, "-c", PROFILE_GATE_CHILD, mode,
+                                       str(left)], cwd=ROOT, capture_output=True, text=True,
+                                      timeout=left + 300)
+                for line in proc.stdout.splitlines():
+                    row = json.loads(line)
+                    runs[mode]["captures"] += 1
+                    runs[mode]["bad"] += row["rc"] != 0 or not row["kernels"]
+                if proc.returncode != 0:
+                    runs[mode]["died"].append(proc.returncode)
+                    log({"phase": "profiler_gate_child", "mode": mode, "round": r,
+                         "rc": proc.returncode, "stderr_tail": proc.stderr[-3000:]})
+    for mode, v in runs.items():
+        log({"phase": "profiler_gate", "mode": mode, "card": card,
+             "seconds_a_round": seconds, "rounds": rounds, **v})
+
+
 def profile_refusal_check(card):
     """``wf_profile --capture`` in a child process from a worker thread with
     no profiler init (``PROFILE_CHILD``): it must exit 2 with the port's
@@ -7742,13 +8090,15 @@ def profile_capture_check(torch, card):
     """``wf_profile --capture`` (its ``main``, in a thread of this process, so
     its torch.profiler session sees this process's kernels) over a running
     eager Key_FFAT chain at 2^18 lanes, after the port's profiler init on
-    this (the main) thread, as a user calls it: it must exit 0 and its trace
-    must hold at least one CUDA kernel event. Then ``profile_refusal_check``."""
+    this (the main) thread, as a user calls it, each step under the launch
+    gate (F30): it must exit 0 and its trace must hold at least one CUDA
+    kernel event. Then ``profile_refusal_check``."""
     import shutil
     import tempfile
     import threading
     from windflow_tpu_torch.benchmarks import sweep
     from windflow_tpu_torch.observability.profiling import trace_kernels
+    from windflow_tpu_torch.runtime.graphs import LAUNCH_GATE
     from windflow_tpu_torch.runtime.pipeline import CompiledChain
     from windflow_tpu_torch.scripts import wf_profile
     from windflow_tpu_torch.stats import profiler_init
@@ -7773,12 +8123,15 @@ def profile_capture_check(torch, card):
     th.start()
     steps = 0
     while th.is_alive():
-        b = src.make_batch(cur, B)
-        for j, op in enumerate(chain.ops):
-            states[j], b = op.apply(states[j], b)
-        cur = cur + B
-        steps += 1
-        torch.cuda.synchronize()
+        # a loop of one's own that launches while a capture may start or
+        # stop holds the launch gate around each step (F30)
+        with LAUNCH_GATE.shared():
+            b = src.make_batch(cur, B)
+            for j, op in enumerate(chain.ops):
+                states[j], b = op.apply(states[j], b)
+            cur = cur + B
+            steps += 1
+            torch.cuda.synchronize()
     th.join()
     kernels = trace_kernels(os.path.join(logdir, "trace.json"))
     shutil.rmtree(logdir, ignore_errors=True)
@@ -7919,20 +8272,29 @@ def main() -> int:
     ap.add_argument("--split-only", action="store_true",
                     help="build, run the split of K1's, K2's and K3's time and stop, "
                          "printing no result line (also on an older tree, see split_phase)")
-    ap.add_argument("--helper-times", nargs="?", const="all", choices=("all", "lookup"),
-                    help="build, time K2 (and, unless 'lookup', the helper kernels) on "
-                         "their check inputs and stop, printing no result line (also on "
-                         "an older tree, see helper_times)")
+    ap.add_argument("--helper-times", nargs="?", const="all",
+                    choices=("all", "lookup", "masked_window_reduce"),
+                    help="build, time K2 (and, unless 'lookup', the helper kernels; or "
+                         "K6 alone, warm and cold) on their check inputs and stop, "
+                         "printing no result line (also on an older tree, see "
+                         "helper_times)")
     ap.add_argument("--only", action="append",
-                    choices=("lookup", "scatter", "tiered_q3", "nexmark_loop", "path_b",
-                             "sweep", "chaos", "closed_loop"),
+                    choices=("lookup", "scatter", "window_reduce", "tiered_q3",
+                             "nexmark_loop", "path_a", "path_b", "sweep", "chaos",
+                             "closed_loop", "profiler_gate"),
                     help="build, run only the named phase (repeatable: K2's split and "
                          "checks, the host link's rates with cold_scatter's split and "
-                         "checks, tiered q3, the Nexmark loops, path B, the sweep, the "
-                         "chaos sweep, the closed loop's margin at rings of 8 and 4) "
-                         "and stop, printing no result line (tiered_q3, nexmark_loop and "
-                         "path_b also on an older tree)")
+                         "checks, K6's split and checks, tiered q3, the Nexmark loops, "
+                         "path A, path B, the sweep, the chaos sweep, the closed loop's "
+                         "margin at rings of 8 and 4, wf_profile --capture over a running "
+                         "chain without and with the launch gate in turns) and stop, "
+                         "printing no result line "
+                         "(tiered_q3, nexmark_loop, path_a and path_b also on an older "
+                         "tree)")
     args = ap.parse_args()
+    # a fatal signal (SIGSEGV, SIGABRT, ...) prints every thread's Python
+    # stack to stderr before the process dies
+    faulthandler.enable(all_threads=True)
 
     import numpy as np
     import torch
@@ -7968,6 +8330,9 @@ def main() -> int:
     if not hasattr(lookup, "table_lookup_many"):
         # an older tree (``--only``, ``--helper-times``): a K2 launch a table read
         Q5_APPLY["lookup"], PATH_B_APPLY["lookup"] = 14, 3
+    if args.helper_times == "masked_window_reduce":
+        k6_helper_times(torch, card)
+        return 0
     if args.helper_times:
         helper_times(torch, np, ysb, card, lookup_only=args.helper_times == "lookup")
         return 0
@@ -7977,10 +8342,15 @@ def main() -> int:
             kernel_phase(torch, ysb, probes)
         if "scatter" in args.only:
             scatter_only_phase(torch, np, probes, card)
+        if "window_reduce" in args.only:
+            k6_split(torch, probes, card)
+            window_reduce_kernel_phase(torch)
         if "tiered_q3" in args.only:
             tiered_q3_phase(torch, np, wt, registry, card, args.profile)
         if "nexmark_loop" in args.only:
             nexmark_loop_phase(torch, wt, card, args.profile)
+        if "path_a" in args.only:
+            path_a_phase(torch, np, wt, registry, card, args.profile)
         if "path_b" in args.only:
             path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
         if "sweep" in args.only:
@@ -7989,6 +8359,8 @@ def main() -> int:
             chaos_phase(torch, registry, card)
         if "closed_loop" in args.only:
             closed_loop_margin(torch, card)
+        if "profiler_gate" in args.only:
+            profiler_gate_stress(card)
         return 0
     split_phase(torch, ysb, probes)
     lookup_split(torch, ysb, probes, card)
@@ -8019,12 +8391,15 @@ def main() -> int:
     q3_full_width_phase(torch, np, wt, registry, card, args.profile)
     ck_launches = checkpoint_phase(torch, np, wt, ysb, registry, card)
     rows["masked_window_reduce"] = window_reduce_kernel_phase(torch)
-    a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)
-    b_launches = path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
+    with k6_calls("path_a", card):
+        a_launches = path_a_phase(torch, np, wt, registry, card, args.profile)
+    with k6_calls("path_b", card):
+        b_launches = path_b_phase(torch, np, wt, ysb, registry, card, args.profile)
     windows_small_phase(wt, registry)
     ord_launches = ordering_phase(torch, np, wt, registry, card, args.profile)
     host_io_phase(torch, np, wt)
-    gw_launches, gw_rows, gw_s, gw_parts = graph_windows_phase(torch, np, wt, registry)
+    with k6_calls("graph_windows", card):
+        gw_launches, gw_rows, gw_s, gw_parts = graph_windows_phase(torch, np, wt, registry)
     sg_launches = supervised_graph_phase(torch, np, wt, registry, card, gw_parts, gw_s)
     shg_launches = sharded_graph_phase(torch, np, wt, registry, card, gw_parts)
     del gw_parts
@@ -8060,10 +8435,12 @@ def main() -> int:
     mon_launches = monitoring_phase(torch, np, wt, ysb, registry, card, ysb_ref,
                                     main_launches, gw_rows)
     srv_launches = serving_phase(torch, np, wt, ysb, registry, card, ty_ref, ry_ms)
-    mesh_ysb_launches, mesh_2d_launches = mesh_phase(torch, np, wt, ysb, registry, card)
+    with k6_calls("mesh (the keyed Win_Farm over key x win)", card):
+        mesh_ysb_launches, mesh_2d_launches = mesh_phase(torch, np, wt, ysb, registry, card)
     ex_launches = examples_phase(registry, card)
     sw_launches = sweep_phase(torch, np, registry, card)
-    ch_launches = chaos_phase(torch, registry, card)
+    with k6_calls("chaos", card):
+        ch_launches = chaos_phase(torch, registry, card)
     analysis_phase(torch, np, wt, ysb, registry, card)
 
     # each path's launches, counted from zero just before it and read just
@@ -8094,7 +8471,10 @@ def main() -> int:
                         "replaces": k.replaces, "launches": path_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"cold_ms": r["kernel_cold_ms"],
+                            "library_cold_ms": r["library_cold_ms"]}
+                           if "kernel_cold_ms" in r else {})})
     helper = registry.KERNELS["segment_fold_float"]
     kernels.append({"name": helper.name, "route": "cuda", "source": helper.source,
                     "replaces": None, "launches": path_launches[helper.name],

@@ -86,11 +86,43 @@ def test_small_ints_widen_as_jnp_sum(dtype):
     np.testing.assert_array_equal(got, want)
 
 
-def test_cuda_wrapper_refuses_unported_dtypes_and_fake_shapes():
+class _FakeEntry:
+    """Stands in for K6's C entry point: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_k6(monkeypatch):
+    """The wrapper's C entry point and stream replaced on the CPU, so its
+    arguments can be read without a card."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda
+    entry = _FakeEntry()
+    monkeypatch.setattr(cuda, "function", lambda stem, symbol, argtypes: entry)
+    monkeypatch.setattr(cuda, "stream_ptr", lambda device: ctypes.c_void_p(0))
+    return entry
+
+
+def test_cuda_wrapper_refuses_unported_dtypes_and_fake_shapes(fake_k6):
+    """int64 raises; bool, int8 and int16 go to the kernel as stored (their
+    own dtype code, the caller's buffer: no cast before the launch)."""
     v = torch.zeros((4, 5), dtype=torch.float64)
     m = torch.ones((4, 5), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="32-bit defaults"):
         wr.masked_window_reduce_cuda(v.to(torch.int64), m)
+    for dt, code in ((torch.bool, 8), (torch.int8, 9), (torch.int16, 10)):
+        x = v.to(dt)
+        out = wr.masked_window_reduce_cuda(x, m)
+        args = fake_k6.calls[-1]
+        assert out.dtype == torch.int32 and out.shape == (4,)
+        assert args[1] == code and args[0].value == x.data_ptr(), dt
+    assert len(fake_k6.calls) == 3
     out = wr.masked_window_reduce(v.to("meta").to(torch.int8), m.to("meta"))
     assert out.shape == (4,) and out.dtype == torch.int32 and out.device.type == "meta"
     for dt, want in ((torch.uint8, torch.uint32), (torch.uint16, torch.uint32),
@@ -100,6 +132,128 @@ def test_cuda_wrapper_refuses_unported_dtypes_and_fake_shapes():
         assert out.shape == (4,) and out.dtype == want, (dt, out.dtype)
     one = Iterable({"v": v[0].to("meta").to(torch.int8)}, None, None, m[0].to("meta"))
     assert one.sum("v").shape == () and one.sum("v").dtype == torch.int32
+
+
+# --------------------------------------------------- K6's plan (PR 25)
+
+_PLAN_W = (1, 7, 1024, 10700)
+_PLAN_L = (1, 3, 4, 12, 31, 32, 777, 1024, 65536)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+def test_reduce_plan_covers_every_row_once(itemsize):
+    """For every W and L: each row is summed by exactly one thread (narrow)
+    or by the C warps of one block (warp: C = 1; split: C > 1, a divisor of
+    32); for the first, second and last rows (each at its own offset to the
+    chunk boundaries), the C warps' chunks are disjoint, each warp's in
+    increasing order (chunks q, q + C, ...), and together tile [0, L); the
+    same input gives the same plan; the geometry fits the kernel's limits;
+    and the three regimes all occur."""
+    seen = set()
+    for W in _PLAN_W:
+        for L in _PLAN_L:
+            plan = wr.reduce_plan(W, L, itemsize)
+            assert plan == wr.reduce_plan.__wrapped__(W, L, itemsize)
+            seen.add(plan.regime)
+            narrow = L <= wr.NARROW_LEN and L * itemsize <= wr.NARROW_BYTES
+            assert plan.regime == ("narrow" if narrow else "warp" if plan.C == 1 else "split")
+            assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+            assert 32 % plan.C == 0 and (narrow or (plan.threads // 32) % plan.C == 0)
+            rows = plan.rows(W)
+            assert rows.shape[0] == plan.blocks
+            np.testing.assert_array_equal(np.bincount(rows[rows >= 0], minlength=W),
+                                          np.full(W, plan.C))
+            for row in {0, 1, W - 1}:
+                pieces = []
+                for q in range(plan.C):
+                    mine = plan.chunks(L, q, row)
+                    assert mine, (W, L, q, row)          # every warp of a row has work
+                    assert [a for a, _ in mine] == sorted(a for a, _ in mine)
+                    pieces += mine
+                pieces.sort()
+                assert pieces[0][0] == 0 and pieces[-1][1] == L
+                assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(pieces, pieces[1:]))
+                if not narrow:      # chunk k, CHUNK on from the line at or below s, warp k % C's
+                    assert all(b - a <= wr.CHUNK for a, b in pieces)
+                    base = -(row * L % wr.LINE)                   # chunk 0's start
+                    for q in range(plan.C):
+                        ks = [(a - base) // wr.CHUNK for a, _ in plan.chunks(L, q, row)]
+                        assert ks == list(range(q, q + plan.C * len(ks), plan.C))
+    assert seen == {"narrow", "warp", "split"}
+
+
+@pytest.mark.parametrize("W,L,itemsize,regime", [
+    (10700, 4, 4, "narrow"), (8192, 12, 4, "narrow"), (2112, 1024, 4, "warp"),
+    (1024, 1024, 4, "split"), (64, 65536, 4, "split"), (2112, 1024, 1, "warp"),
+    (1000, 777, 2, "split"), (8192, 64, 4, "narrow"), (4096, 100, 1, "warp")])
+def test_cuda_wrapper_passes_the_plan_in_one_launch(fake_k6, W, L, itemsize, regime):
+    """The wrapper makes one launch a call, with ``reduce_plan``'s regime
+    and geometry and the caller's buffers; the shapes the paths and the
+    checks send get the regimes the design names (path B and the chaos
+    sweep's CB 12 narrow, path A a warp a row, [1024, 1024], [64, 2^16] and
+    the ragged [1000, 777] split)."""
+    dt = {1: torch.uint8, 2: torch.float16, 4: torch.float32}[itemsize]
+    vals = torch.zeros((W, L), dtype=dt)
+    mask = torch.ones((W, L), dtype=torch.bool)
+    registry.reset_launches()
+    wr.masked_window_reduce_cuda(vals, mask)
+    plan = wr.reduce_plan(W, L, itemsize)
+    assert plan.regime == regime
+    (args,) = fake_k6.calls
+    assert args[0].value == vals.data_ptr() and args[2].value == mask.data_ptr()
+    assert args[4:10] == (W, L, {"narrow": 0, "warp": 1, "split": 2}[regime], plan.threads,
+                          plan.C, plan.blocks)
+    assert registry.launch_counts()["masked_window_reduce"] == 1
+
+
+@pytest.mark.parametrize("W,L", [(406, 12), (474, 777)])
+def test_cuda_wrapper_aligns_a_view_off_sixteen_bytes(monkeypatch, W, L):
+    """A view whose base is off 16 bytes (``buf[1:]`` of a flat buffer)
+    reaches the kernel as an aligned copy holding the view's values and
+    flags; an aligned one goes as it is."""
+    import ctypes
+    from windflow_tpu_torch.ops import cuda
+    seen = []
+
+    def entry(vals, code, mask, *rest):
+        n = W * L
+        seen.append((vals.value, mask.value,
+                     np.ctypeslib.as_array((ctypes.c_float * n).from_address(vals.value)).copy(),
+                     np.ctypeslib.as_array((ctypes.c_bool * n).from_address(mask.value)).copy()))
+        return 0
+    monkeypatch.setattr(cuda, "function", lambda stem, symbol, argtypes: entry)
+    monkeypatch.setattr(cuda, "stream_ptr", lambda device: ctypes.c_void_p(0))
+    buf = torch.arange(W * L + 1, dtype=torch.float32)
+    mbuf = torch.rand(W * L + 1, generator=torch.Generator().manual_seed(3)) < 0.7
+    vals, mask = buf[1:].view(W, L), mbuf[1:].view(W, L)
+    assert vals.data_ptr() % wr.ALIGN and mask.data_ptr() % wr.ALIGN
+    wr.masked_window_reduce_cuda(vals, mask)
+    wr.masked_window_reduce_cuda(buf[:-1].view(W, L), mbuf[:-1].view(W, L))
+    (v_ptr, m_ptr, v, m), (b_ptr, mb_ptr, _, _) = seen
+    assert v_ptr % wr.ALIGN == 0 and m_ptr % wr.ALIGN == 0
+    np.testing.assert_array_equal(v, vals.reshape(-1).numpy())
+    np.testing.assert_array_equal(m, mask.reshape(-1).numpy())
+    assert (b_ptr, mb_ptr) == (buf.data_ptr(), mbuf.data_ptr())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int8, np.int16, np.bool_])
+@pytest.mark.parametrize("L", [1, 3, 12, 777])
+def test_plain_matches_xla_at_k6_families(dtype, L):
+    """The plain version against the JAX package's ``_xla_masked_sum`` at the
+    new cases' families (narrow rows of 1, 3 and 12 values, the ragged 777)
+    on seeded inputs, int8, int16 and bool included (they sum to int32; a
+    bool row's sum is its live count): bit for bit on integers, within
+    rtol = atol = 1e-4 on float32."""
+    vals, mask = _inputs(9, L, dtype, 100 + L)
+    want = np.asarray(pk._xla_masked_sum(jnp.asarray(vals), jnp.asarray(mask)))
+    got = _port(vals, mask)
+    assert got.dtype == want.dtype
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if dtype == np.bool_:
+        np.testing.assert_array_equal(got, (vals & mask).sum(1))
 
 
 # ------------------------------------------- F4: every dtype jnp.sum takes

@@ -1,7 +1,7 @@
 // Measurement probes for chip_smoke.py's split of K1's, K2's and K3's time,
 // for the launch floor (an empty kernel), for the host link's read rate,
-// the bound of the cold-tier reads (ops/csrc/cold_probe.cu), and for
-// cold_scatter's geometries. No TPU kernel,
+// the bound of the cold-tier reads (ops/csrc/cold_probe.cu), for
+// cold_scatter's geometries, and for K6's (wf_k6_geom). No TPU kernel,
 // and no path of the port launches them: chip_smoke.py builds this file on
 // its own and loads it with ctypes.
 // It includes nothing of ops/csrc, so the same file also splits an older
@@ -12,6 +12,7 @@
 // contiguous lanes, each thread four neighbouring lanes with one 16-byte
 // load per int32 array and one 4-byte load of the flags.
 #include <cuda_runtime.h>
+#include <mutex>
 #include <stdint.h>
 
 #define WF_EXPORT extern "C" __attribute__((visibility("default")))
@@ -328,4 +329,294 @@ WF_EXPORT int wf_k2_part(const int* table, int K, const int* idx, int* out, long
     }
 #undef WF_K2_PART
     return (int)cudaGetLastError();
+}
+
+// K6's geometries (ops/csrc/masked_sum.cu's three regimes, copied with what
+// the shipped kernel fixes as template parameters: U, the narrow regime's
+// lines and the long rows' chunks in flight a thread, and LAYOUT, the long
+// rows' lane-contiguous values (0, shipped at U = 1) or coalesced lines with
+// the flags staged in shared memory (1)); the runtime geometry (regime,
+// threads, C warps a row, blocks) as the C entry takes it. Integer values
+// only (int32 and uint8 into uint32), whose wrapping sums are exact in any
+// order, so every geometry is held bit for bit against the plain version.
+__host__ __device__ __forceinline__ unsigned wf_k6p_pad(unsigned i) { return i + ((i >> 7) << 2); }
+
+static inline unsigned wf_k6p_image_bytes(long long n) {
+    const long long m = n + 16;
+    return (unsigned)((m + 4 * ((m + 127) / 128) + 15) & ~15ll);
+}
+
+template <int U>
+__device__ __forceinline__ void wf_k6p_stage(unsigned char* vimg, const unsigned char* vs,
+                                             long long vn, unsigned char* mimg,
+                                             const unsigned char* ms, long long mn, int tid,
+                                             int nth) {
+    const uintptr_t va = (uintptr_t)vs, ma = (uintptr_t)ms;
+    uintptr_t vb0 = (va + 15) & ~(uintptr_t)15, vb1 = (va + vn) & ~(uintptr_t)15;
+    uintptr_t mb0 = (ma + 15) & ~(uintptr_t)15, mb1 = (ma + mn) & ~(uintptr_t)15;
+    if (vb0 > vb1) vb0 = vb1 = va + vn;
+    if (mb0 > mb1) mb0 = mb1 = ma + mn;
+    const int vh = (int)(vb0 - va), vt = (int)(va + vn - vb1);
+    const int mh = (int)(mb0 - ma), mt = (int)(ma + mn - mb1);
+    const unsigned vo = (unsigned)(va & 15), mo = (unsigned)(ma & 15);
+    for (int i = tid; i < vh + vt + mh + mt; i += nth) {
+        if (i < vh) vimg[wf_k6p_pad(vo + i)] = vs[i];
+        else if (i < vh + vt) { const int k = i - vh; vimg[wf_k6p_pad((unsigned)(vb1 - va) + vo + k)] = ((const unsigned char*)vb1)[k]; }
+        else if (i < vh + vt + mh) { const int k = i - vh - vt; mimg[wf_k6p_pad(mo + k)] = ms[k]; }
+        else { const int k = i - vh - vt - mh; mimg[wf_k6p_pad((unsigned)(mb1 - ma) + mo + k)] = ((const unsigned char*)mb1)[k]; }
+    }
+    const uint4* vl = (const uint4*)vb0;
+    const uint4* ml = (const uint4*)mb0;
+    const int nv = (int)((vb1 - vb0) >> 4), nl = nv + (int)((mb1 - mb0) >> 4);
+    const unsigned vbo = (unsigned)(vb0 - va) + vo, mbo = (unsigned)(mb0 - ma) + mo;
+    for (int c = tid; c < nl; c += nth * U) {
+        uint4 x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int cc = c + u * nth;
+            if (cc < nl) x[u] = cc < nv ? __ldg(vl + cc) : __ldg(ml + (cc - nv));
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int cc = c + u * nth;
+            if (cc < nl) {
+                unsigned* w = cc < nv ? (unsigned*)(vimg + wf_k6p_pad(vbo + 16u * cc))
+                                      : (unsigned*)(mimg + wf_k6p_pad(mbo + 16u * (cc - nv)));
+                w[0] = x[u].x; w[1] = x[u].y; w[2] = x[u].z; w[3] = x[u].w;
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ unsigned wf_k6p_tree(unsigned a) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+    return a;
+}
+
+template <typename T, int U>
+__global__ void __launch_bounds__(512)
+wf_k6p_narrow(const T* __restrict__ vals, const unsigned char* __restrict__ mask,
+              unsigned* __restrict__ out, long long W, int L, unsigned vbytes) {
+    extern __shared__ __align__(16) unsigned char wf_k6p_smem[];
+    unsigned char* vimg = wf_k6p_smem;
+    unsigned char* mimg = wf_k6p_smem + vbytes;
+    const long long r0 = (long long)blockIdx.x * blockDim.x;
+    const long long rem = W - r0;
+    const int nr = rem < (long long)blockDim.x ? (int)rem : (int)blockDim.x;
+    const unsigned char* vs = (const unsigned char*)(vals + r0 * L);
+    const unsigned char* ms = mask + r0 * L;
+    wf_k6p_stage<U>(vimg, vs, (long long)nr * L * sizeof(T), mimg, ms, (long long)nr * L,
+                    threadIdx.x, blockDim.x);
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t >= nr) return;
+    const unsigned vo = (unsigned)((uintptr_t)vs & 15) + (unsigned)t * L * sizeof(T);
+    const unsigned mo = (unsigned)((uintptr_t)ms & 15) + (unsigned)t * L;
+    unsigned acc = 0;
+    for (int l = 0; l < L; ++l)
+        acc += mimg[wf_k6p_pad(mo + l)]
+                   ? (unsigned)*(const T*)(vimg + wf_k6p_pad(vo + l * sizeof(T))) : 0u;
+    out[r0 + t] = acc;
+}
+
+struct WfK6pRow {
+    long long s, t, c0;
+    int chunks;
+};
+
+__device__ __forceinline__ WfK6pRow wf_k6p_row(long long w, int L) {
+    WfK6pRow r;
+    r.s = w * L;
+    r.t = r.s + L;
+    r.c0 = r.s & ~15ll;
+    r.chunks = (int)((r.t - r.c0 + 511) >> 9);
+    return r;
+}
+
+// LAYOUT 1 (coalesced): lane j holds value lines j, 32 + j, ... of a chunk and
+// reads their flags from the chunk's flag lines staged in shared memory;
+// LAYOUT 0 (contiguous): lane j holds the chunk's values 16 j to 16 j + 15
+// (sizeof(T) consecutive lines) and its own flag line
+template <typename T, int U, int LAYOUT>
+__device__ __forceinline__ unsigned wf_k6p_streams(const T* vals, const unsigned char* mask,
+                                                   const WfK6pRow& r, int q, int C, int lane,
+                                                   unsigned char* fl) {
+    constexpr int V = (int)sizeof(T), E = 16 / V;
+    unsigned stream = 0;
+    for (int k0 = q; k0 < r.chunks; k0 += U * C) {
+        uint4 v[U][V], f[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const long long c = r.c0 + 512ll * (k0 + u * C);
+            if (k0 + u * C >= r.chunks) break;
+            const long long fe = c + 16 * lane;
+            if (fe + 16 > r.s && fe < r.t) f[u] = __ldg(reinterpret_cast<const uint4*>(mask + fe));
+#pragma unroll
+            for (int m = 0; m < V; ++m) {
+                const long long e = LAYOUT ? c + E * (32 * m + lane) : fe + E * m;
+                if (e + E > r.s && e < r.t) v[u][m] = __ldg(reinterpret_cast<const uint4*>(vals + e));
+            }
+        }
+        if constexpr (LAYOUT == 1 && E < 16) {
+            __syncwarp();
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                if (k0 + u * C < r.chunks) *reinterpret_cast<uint4*>(fl + 512 * u + 16 * lane) = f[u];
+            __syncwarp();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int k = k0 + u * C;
+            if (k >= r.chunks) break;
+            const long long c = r.c0 + 512ll * k;
+            const long long lane0 = c + 16 * lane;   // LAYOUT 0: this lane's values
+            const bool inner = LAYOUT ? c >= r.s && c + 512 <= r.t
+                                      : lane0 >= r.s && lane0 + 16 <= r.t;
+            unsigned p = 0;
+#pragma unroll
+            for (int m = 0; m < V; ++m) {
+                const int l = LAYOUT ? 32 * m + lane : V * lane + m;
+                const long long e = c + E * l;
+                const T* x = reinterpret_cast<const T*>(&v[u][m]);
+                unsigned g = 0;
+                if constexpr (E == 4) {
+                    g = LAYOUT ? *reinterpret_cast<const unsigned*>(fl + 512 * u + 4 * l)
+                               : (m == 0 ? f[u].x : m == 1 ? f[u].y : m == 2 ? f[u].z : f[u].w);
+                }
+                const unsigned char* g16 = reinterpret_cast<const unsigned char*>(&f[u]);
+                if (inner) {
+#pragma unroll
+                    for (int i = 0; i < E; ++i) {
+                        const bool on = E == 16 ? g16[i] != 0 : ((g >> (8 * i)) & 0xff) != 0;
+                        p += on ? (unsigned)x[i] : 0u;
+                    }
+                } else {
+                    const int lo = r.s > e ? (int)(r.s - e < E ? r.s - e : E) : 0;
+                    const int hi = r.t < e + E ? (int)(r.t > e ? r.t - e : 0) : E;
+#pragma unroll
+                    for (int i = 0; i < E; ++i) {
+                        const bool on = E == 16 ? g16[i] != 0 : ((g >> (8 * i)) & 0xff) != 0;
+                        p += (i >= lo && i < hi && on) ? (unsigned)x[i] : 0u;
+                    }
+                }
+            }
+            p = wf_k6p_tree(p);
+            if (lane == (k & 31)) stream += p;
+        }
+    }
+    return stream;
+}
+
+template <typename T, int U, int LAYOUT>
+__global__ void __launch_bounds__(512)
+wf_k6p_warp(const T* __restrict__ vals, const unsigned char* __restrict__ mask,
+            unsigned* __restrict__ out, long long W, int L) {
+    extern __shared__ __align__(16) unsigned char wf_k6p_smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+    if (row >= W) return;
+    const WfK6pRow r = wf_k6p_row(row, L);
+    const unsigned st = wf_k6p_streams<T, U, LAYOUT>(vals, mask, r, 0, 1, lane,
+                                                     wf_k6p_smem + warp * 512 * U);
+    const unsigned s = r.chunks == 1 ? st : wf_k6p_tree(st);   // one chunk: lane 0 holds it
+    if (lane == 0) out[row] = s;
+}
+
+template <typename T, int U, int LAYOUT>
+__global__ void __launch_bounds__(512)
+wf_k6p_split(const T* __restrict__ vals, const unsigned char* __restrict__ mask,
+             unsigned* __restrict__ out, long long W, int L, int C) {
+    __shared__ unsigned streams[16][32];
+    extern __shared__ __align__(16) unsigned char wf_k6p_smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+    const int rl = warp / C, q = warp - rl * C;
+    const long long row = (long long)blockIdx.x * (warps / C) + rl;
+    if (row < W) {
+        const unsigned s = wf_k6p_streams<T, U, LAYOUT>(vals, mask, wf_k6p_row(row, L), q, C, lane,
+                                                wf_k6p_smem + warp * 512 * U);
+        if (lane % C == q) streams[rl][lane] = s;
+    }
+    __syncthreads();
+    if (row < W && q == 0) {
+        const unsigned s = wf_k6p_tree(streams[rl][lane]);
+        if (lane == 0) out[row] = s;
+    }
+}
+
+constexpr int WF_K6P_SMEM_MAX = 200 * 1024;
+
+template <typename T, int U, int LAYOUT>
+static int wf_k6p_launch(const T* vals, const unsigned char* mask, unsigned* out, long long W,
+                         int L, int regime, int threads, int C, long long blocks,
+                         cudaStream_t s) {
+    static std::once_flag opt_in;
+    std::call_once(opt_in, [] {
+        cudaFuncSetAttribute(wf_k6p_narrow<T, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WF_K6P_SMEM_MAX);
+        cudaFuncSetAttribute(wf_k6p_warp<T, U, LAYOUT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WF_K6P_SMEM_MAX);
+        cudaFuncSetAttribute(wf_k6p_split<T, U, LAYOUT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WF_K6P_SMEM_MAX);
+    });
+    const int warps = threads / 32;
+    if (threads < 32 || threads > 512 || threads % 32 || blocks < 1 || blocks > 0x7fffffffll ||
+        (uintptr_t)vals % 16 || (uintptr_t)mask % 16)
+        return (int)cudaErrorInvalidValue;
+    if (regime == 0) {
+        const unsigned vbytes = wf_k6p_image_bytes((long long)threads * L * sizeof(T));
+        const size_t smem = vbytes + wf_k6p_image_bytes((long long)threads * L);
+        if (blocks * threads < W || smem > WF_K6P_SMEM_MAX) return (int)cudaErrorInvalidValue;
+        wf_k6p_narrow<T, U><<<(unsigned)blocks, threads, smem, s>>>(vals, mask, out, W, L, vbytes);
+    } else if (regime == 1) {
+        if (blocks * warps < W) return (int)cudaErrorInvalidValue;
+        wf_k6p_warp<T, U, LAYOUT><<<(unsigned)blocks, threads, (size_t)warps * 512 * U, s>>>(
+            vals, mask, out, W, L);
+    } else {
+        if (C < 2 || C > 16 || 16 % C || warps % C || blocks * (warps / C) < W)
+            return (int)cudaErrorInvalidValue;
+        wf_k6p_split<T, U, LAYOUT><<<(unsigned)blocks, threads, (size_t)warps * 512 * U, s>>>(
+            vals, mask, out, W, L, C);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int wf_k6p_unroll(const T* vals, const unsigned char* mask, unsigned* out, long long W,
+                         int L, int unroll, int regime, int threads, int C, long long blocks,
+                         cudaStream_t s) {
+    // unroll: the slots in flight (1, 2, 4, 8), plus 16 for the contiguous layout
+#define WF_K6P(U, LAY) return wf_k6p_launch<T, U, LAY>(vals, mask, out, W, L, regime, threads, C, blocks, s)
+    switch (unroll) {
+        case 1: WF_K6P(1, 1);
+        case 2: WF_K6P(2, 1);
+        case 4: WF_K6P(4, 1);
+        case 8: WF_K6P(8, 1);
+        case 17: WF_K6P(1, 0);
+        case 18: WF_K6P(2, 0);
+        case 20: WF_K6P(4, 0);
+        case 24: WF_K6P(8, 0);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef WF_K6P
+}
+
+// vals: contiguous int32 (itemsize 4) or uint8 (itemsize 1) [W, L], 16-byte
+// aligned; mask bool [W, L], 16-byte aligned; out uint32 [W] (an int32 sum's
+// bits). unroll: 1, 2, 4 or 8 (the narrow regime's lines, the long regimes'
+// chunks in flight a thread), plus 16 for the long regimes' contiguous layout;
+// regime 0 narrow, 1 warp, 2 split.
+WF_EXPORT int wf_k6_geom(const void* vals, int itemsize, const unsigned char* mask, void* out,
+                         long long W, int L, int unroll, int regime, int threads, int C,
+                         long long blocks, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    unsigned* o = (unsigned*)out;
+    if (W < 1 || L < 1) return (int)cudaErrorInvalidValue;
+    if (itemsize == 4)
+        return wf_k6p_unroll<int>((const int*)vals, mask, o, W, L, unroll, regime, threads, C,
+                                  blocks, s);
+    if (itemsize == 1)
+        return wf_k6p_unroll<unsigned char>((const unsigned char*)vals, mask, o, W, L, unroll,
+                                            regime, threads, C, blocks, s);
+    return (int)cudaErrorInvalidValue;
 }

@@ -276,7 +276,13 @@ class DeviceSource(SourceBase):
 
     def make_batch(self, start, batch_size: int) -> Batch:
         """The batch of global indices ``[start, start + batch_size)``;
-        ``start`` is an int or an int32 device scalar (the device cursor)."""
+        ``start`` is an int or an int32 device scalar (the device cursor).
+        It launches under ``LAUNCH_GATE.shared()`` (F30)."""
+        from ..runtime.graphs import LAUNCH_GATE
+        with LAUNCH_GATE.shared():
+            return self._make_batch(start, batch_size)
+
+    def _make_batch(self, start, batch_size: int) -> Batch:
         start = torch.as_tensor(start, dtype=CTRL_DTYPE, device=self.device)
         i = start + torch.arange(batch_size, dtype=CTRL_DTYPE, device=self.device)
         if self.key_fn is not None:

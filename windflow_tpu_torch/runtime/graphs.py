@@ -36,7 +36,9 @@ so one host call launches every kernel of the step.
   stage threads start (``runtime/threaded.py``), and a stage thread only
   replays. A capture holds :data:`CAPTURE_LOCK`, which the monitoring
   reporter takes around its device reads (``observability/metrics.py``),
-  so a snapshot never synchronizes inside another thread's capture.
+  so a snapshot never synchronizes inside another thread's capture. A
+  chain's steps hold :data:`LAUNCH_GATE` shared, so a profiler session
+  never starts or stops while they launch.
 
 What a capture needs beforehand, and the caller's part: every kernel of the
 step built and loaded, and the one-time settings made at a kernel's first
@@ -155,6 +157,68 @@ def _load(static: List[Any], given: List[Any], what: str) -> None:
 
 #: held by every capture (see the module docstring, **Threads**)
 CAPTURE_LOCK = threading.RLock()
+
+
+class LaunchGate:
+    """Keeps launches on the card out of ``torch.profiler``'s start and stop
+    (F30). A session started or stopped on one thread while another thread
+    launches work on the card can crash the process (a segmentation fault in
+    a thread of the profiler's own, torch 2.11 on the H100). Work that
+    launches holds the gate shared (:meth:`shared`: a chain's ``push``,
+    ``push_many``, ``flush`` and warm-up step, a ``DeviceSource``'s batch);
+    ``stats.xprof_trace`` and ``stats.profiler_init`` hold it alone
+    (:meth:`exclusive`) around the profiler's start and stop: new shared
+    holders wait, the current ones finish, and the caller synchronizes the
+    card (under :data:`CAPTURE_LOCK`) before the profiler starts or stops.
+
+    Shared holds nest on a thread, and a thread's own shared holds do not
+    keep it out of :meth:`exclusive`. The exclusive wait gives up after
+    ``timeout`` seconds (then the start or stop goes ahead), so a holder that
+    itself waits on the exclusive holder cannot deadlock the two. A loop of
+    one's own that launches on the card from another thread while a capture
+    may start or stop holds ``LAUNCH_GATE.shared()`` around each step."""
+
+    def __init__(self, timeout: float = 10.0):
+        self.timeout = timeout
+        self._cv = threading.Condition(threading.Lock())
+        self._held = {}         # thread id -> nested shared holds
+        self._owner = None      # the thread holding the gate alone
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cv:
+            if not self._held.get(me):
+                while self._owner is not None and self._owner != me:
+                    self._cv.wait()
+            self._held[me] = self._held.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                n = self._held.pop(me) - 1
+                if n:
+                    self._held[me] = n
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cv:
+            while self._owner is not None:
+                self._cv.wait()
+            self._owner = me
+            self._cv.wait_for(lambda: not any(t != me for t in self._held), self.timeout)
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._owner = None
+                self._cv.notify_all()
+
+
+#: the process's one launch gate (see :class:`LaunchGate`)
+LAUNCH_GATE = LaunchGate()
 
 
 @contextlib.contextmanager

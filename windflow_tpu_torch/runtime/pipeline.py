@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import threading
 import time
 from typing import Any, List, Optional, Sequence
@@ -71,7 +72,7 @@ from ..observability import tracing as _tracing
 from ..operators.source import SourceBase
 from ..parallel.mesh import ShardedTensor, global_tree
 from . import dispatch as _dispatch
-from .graphs import StepGraph, leaves, rebuild
+from .graphs import LAUNCH_GATE, StepGraph, leaves, rebuild
 
 
 def resolve_batch_hint(ops) -> Optional[int]:
@@ -115,6 +116,16 @@ def _batch_nbytes(batch: Batch) -> int:
     return sum(t.numel() * t.element_size()
                for t in (batch.key, batch.id, batch.ts, batch.valid,
                          *tree_leaves(batch.payload)))
+
+
+def _launching(method):
+    """``method`` under ``LAUNCH_GATE.shared()``: a profiler session neither
+    starts nor stops while it launches (F30, ``runtime/graphs.py``)."""
+    @functools.wraps(method)
+    def gated(*args, **kwargs):
+        with LAUNCH_GATE.shared():
+            return method(*args, **kwargs)
+    return gated
 
 
 class CompiledChain:  # wf-lint: single-writer[driver, stage]
@@ -210,6 +221,7 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
     def out_spec(self):
         return self.specs[-1]
 
+    @_launching
     def push(self, batch: Batch, from_op: int = 0) -> Batch:
         """Run one batch through ops[from_op:]; updates states; returns the out batch."""
         if batch.device != self.device:
@@ -362,6 +374,7 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
             return states, outs
         return fn
 
+    @_launching
     def _warm(self, from_op: int, capacity: int) -> None:
         """One eager step of ops[from_op:] over an all-invalid batch, on
         fresh state objects over the same tensors, its results dropped:
@@ -417,6 +430,7 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
         if k > 1 and self.device.type == "cuda" and self.ops:
             self._graph(0, int(k), capacity, cause="warm_scan")
 
+    @_launching
     def push_many(self, batches: Sequence[Batch], from_op: int = 0) -> List[Batch]:
         """Run K same-capacity batches through ops[from_op:] as ONE device
         program; updates states; returns the K out batches in order,
@@ -533,6 +547,7 @@ class CompiledChain:  # wf-lint: single-writer[driver, stage]
                 else:
                     t.discard_inflight()
 
+    @_launching
     def flush(self) -> List[Batch]:
         """EOS: drain every operator in order, cascading flushed batches through
         the remaining suffix. Returns the final out-batches produced."""

@@ -256,6 +256,20 @@ def profiler_activities() -> list:
     return acts
 
 
+@contextlib.contextmanager
+def _quiet_card():
+    """The card quiet for a profiler start or stop (F30): no other thread
+    in a launching step (``runtime/graphs.py::LAUNCH_GATE``, held alone),
+    no CUDA-graph capture (``CAPTURE_LOCK``: the synchronize must not
+    happen inside one), and the card's queued work finished."""
+    import torch
+    from .runtime.graphs import CAPTURE_LOCK, LAUNCH_GATE
+    with LAUNCH_GATE.exclusive(), CAPTURE_LOCK:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        yield
+
+
 def _first_session(activities: list) -> None:
     """Open and close one short ``torch.profiler`` session with
     ``activities`` on this thread, around one small operation on the card."""
@@ -266,15 +280,13 @@ def _first_session(activities: list) -> None:
 
 
 def _init_locked(activities: list) -> bool:
-    """:func:`profiler_init` under ``_xprof_lock``; the session holds
-    ``CAPTURE_LOCK`` (it synchronizes, which a CUDA-graph capture on
-    another thread must not see)."""
+    """:func:`profiler_init` under ``_xprof_lock``; the session runs with
+    the card quiet (:func:`_quiet_card`)."""
     global _profiler_thread
     from torch.profiler import ProfilerActivity
-    from .runtime.graphs import CAPTURE_LOCK
     if _profiler_thread is not None or ProfilerActivity.CUDA not in activities:
         return False
-    with CAPTURE_LOCK:
+    with _quiet_card():
         _first_session(activities)
     _profiler_thread = threading.get_ident()
     return True
@@ -316,9 +328,12 @@ def xprof_trace(logdir: str):
     One session at a time: the profiler is process-global, and a nested
     start raises an opaque error from deep inside it. This wrapper detects
     the active session first and raises a ``RuntimeError`` that names the
-    holder and the fix. Starting and stopping hold
-    ``runtime/graphs.py::CAPTURE_LOCK``, so neither interleaves with a
-    CUDA-graph capture.
+    holder and the fix. Starting and stopping wait for a quiet card
+    (F30): ``runtime/graphs.py::LAUNCH_GATE`` held alone, so no chain step
+    of another thread launches meanwhile, and ``CAPTURE_LOCK``, so neither
+    interleaves with a CUDA-graph capture; the card is synchronized first.
+    A loop of one's own that launches on the card from another thread
+    during a capture holds ``LAUNCH_GATE.shared()`` around each step.
 
     The process's first session with CUDA activity must open on the main
     thread (:func:`profiler_init`): on the main thread this wrapper runs the
@@ -326,7 +341,6 @@ def xprof_trace(logdir: str):
     ``RuntimeError`` that names the cause and the fix."""
     global _xprof_logdir
     import torch
-    from .runtime.graphs import CAPTURE_LOCK
     with _xprof_lock:
         if _xprof_logdir is not None:
             raise RuntimeError(
@@ -356,7 +370,7 @@ def xprof_trace(logdir: str):
         try:
             if torch.autograd._profiler_enabled():
                 raise RuntimeError("the autograd profiler is already enabled")
-            with CAPTURE_LOCK:
+            with _quiet_card():
                 prof.start()
         except RuntimeError as e:
             # a session started outside this wrapper (a direct
@@ -376,7 +390,7 @@ def xprof_trace(logdir: str):
         # window where a concurrent xprof_trace passes the guard and hits
         # the still-active profiler with its raw error
         try:
-            with CAPTURE_LOCK:
+            with _quiet_card():
                 prof.stop()
             prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
         finally:
